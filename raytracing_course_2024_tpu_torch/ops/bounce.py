@@ -1,0 +1,549 @@
+"""The fused path-tracing bounce: hand-written CUDA kernels and their plain
+PyTorch versions.
+
+One bounce runs, per lane, the whole body of the integrator: nearest hit
+over the unified geo table (triangle / box / ellipsoid / plane, rotated
+entries in their local frame), the winner's attributes, emission and
+background, MIS mixture sampling (``ops/mixture.py``), the BRDF weight and
+the MIRROR / DIELECTRIC continuation rules. Entry points:
+
+* ``primary_bounce``: camera jitter + bounce 0 of a fresh path (replaces
+  the JAX package's ``ops/pallas_bounce.py:_primary_kernel``, K2);
+* ``bounce``: one later bounce (``ops/pallas_bounce.py:_kernel``, K1);
+* ``bounce(..., final_only=True)``: the last depth level, intersect and
+  emission only (K1 with sections 4-5 compiled out).
+
+Path state is one (13, B) float32 tensor, channel-major like the JAX
+package's 13 SoA lanes: rows ro3, rd3, thr3, rad3, alive (1.0 / 0.0).
+
+Each wrapper runs the plain version only for tensors on the CPU. On a CUDA
+tensor it launches the kernel of ``csrc/bounce.cu`` (built on first use by
+``ops/kernels.py``) or raises. ``LAUNCHES`` counts kernel launches per
+entry point.
+
+Uniforms come from the counter RNG (``ops/rng.py``): lane ``i`` draws from
+``work_key(seed, wid[i] + wid_off)`` at counter
+``bounce_i * draws_per_bounce(max_tries) + d``.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..scene.types import (
+    DIELECTRIC,
+    MIRROR,
+    TRI,
+    BOX,
+    ELLIPSOID,
+    LightCol,
+    SceneArrays,
+    SceneStatics,
+)
+from ..scene.build import MAX_PRIMS
+from .brdf import eval_brdf
+from .camera import camera_from_row, generate_rays_u
+from .intersect import DIR_BIAS, EPS
+from .mixture import mixture_body
+from .rng import CTR_JITTER, ctr_diel, draws_per_bounce, uniform_ctr, work_key
+from .sampling import UNROLL_MAX_LIGHTS
+from .vec import Quat, Vec3, reflect, where3
+
+EPS_BACKOFF = 1e-4
+N_STATE = 13
+
+# unified geo+attr table rows (C_GEO, M): finite prims then real planes
+_A = 0  # 0-2: tri vert a | box half-extents | ellipsoid radii | plane normal
+_E1 = 3  # 3-5 tri edge 1 (p1 - p0)
+_E2 = 6  # 6-8 tri edge 2 (p2 - p0)
+_POS = 9  # 9-11
+_ROT = 12  # 12-15 quaternion xyzw
+_SN0 = 16  # 16-24 shading normals (triangles)
+_SN1 = 19
+_SN2 = 22
+_COLOR = 25
+_METAL = 28
+_ROUGH = 29
+_EMIT = 30  # 30-32
+_IOR = 33
+_MKIND = 34
+C_GEO = 35
+
+LAUNCHES = {"primary": 0, "bounce": 0, "final": 0}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def build_geo_rows(scn: SceneArrays, statics: SceneStatics) -> np.ndarray:
+    """(C_GEO, M) f32 unified geometry+attribute table: finite primitives
+    followed by the real (unpadded) planes, matching statics.mega_spec."""
+
+    def cols3(a):
+        return [a[:, 0], a[:, 1], a[:, 2]]
+
+    def cols4(a):
+        return [a[:, 0], a[:, 1], a[:, 2], a[:, 3]]
+
+    e1 = scn.p1 - scn.p0  # tri edges; unused junk for box/ellipsoid rows
+    e2 = scn.p2 - scn.p0
+    rows = (
+        cols3(scn.p0) + cols3(e1) + cols3(e2)
+        + cols3(scn.position) + cols4(scn.rotation)
+        + cols3(scn.sn0) + cols3(scn.sn1) + cols3(scn.sn2)
+        + cols3(scn.color) + [scn.metallic, scn.roughness]
+        + cols3(scn.emission) + [scn.ior, scn.mkind.astype(np.float32)]
+    )
+    # the host build pads prim arrays to >= 1 row when num_prims == 0;
+    # mega_spec has no entry for that padding, so slice to the real count
+    geo = np.stack(rows).astype(np.float32)[:, : statics.num_prims]
+    n_pl = statics.num_planes
+    if n_pl:
+        z = np.zeros((n_pl,), np.float32)
+        prows = (
+            cols3(scn.pl_normal[:n_pl]) + [z] * 6
+            + cols3(scn.pl_position[:n_pl]) + cols4(scn.pl_rotation[:n_pl])
+            + [z] * 9
+            + cols3(scn.pl_color[:n_pl])
+            + [scn.pl_metallic[:n_pl], scn.pl_roughness[:n_pl]]
+            + cols3(scn.pl_emission[:n_pl])
+            + [scn.pl_ior[:n_pl], scn.pl_mkind[:n_pl].astype(np.float32)]
+        )
+        geo = np.concatenate([geo, np.stack(prows).astype(np.float32)], axis=1)
+    assert geo.shape[0] == C_GEO
+    return np.ascontiguousarray(geo)
+
+
+def gate_reason(statics: SceneStatics) -> str | None:
+    """Why a scene cannot take the fused-bounce path, or None if it can."""
+    if not statics.mega_spec or len(statics.mega_spec) > MAX_PRIMS:
+        return (f"more than {MAX_PRIMS} primitives + planes: the modular dense "
+                "path is ROADMAP M5")
+    if statics.num_lights > UNROLL_MAX_LIGHTS:
+        return (f"more than {UNROLL_MAX_LIGHTS} lights: the vectorized light "
+                "pdf is ROADMAP M5")
+    return None
+
+
+class BounceScene(NamedTuple):
+    """What the bounce kernels read, on one device. ``geo_np``/``lp_np`` are
+    the host copies the plain versions take their scalar constants from."""
+
+    statics: SceneStatics
+    geo: torch.Tensor  # (C_GEO, M) f32
+    lp: torch.Tensor  # (LightCol.COUNT, L) f32
+    spec: torch.Tensor  # (M,) i32: kind | rotated << 2 | mkind << 3
+    lspec: torch.Tensor  # (L,) i32: light ptype | rotated << 2
+    geo_np: np.ndarray
+    lp_np: np.ndarray
+
+
+def bounce_scene(scn: SceneArrays, statics: SceneStatics,
+                 device) -> BounceScene:
+    reason = gate_reason(statics)
+    if reason:
+        raise NotImplementedError(reason)
+    geo_np = build_geo_rows(scn, statics)
+    lp_np = np.ascontiguousarray(scn.light_packed, dtype=np.float32)
+    spec = [k | (int(r) << 2) | (mk << 3) for k, r, mk in statics.mega_spec]
+    lspec = [t | (int(r) << 2)
+             for t, r in zip(statics.light_types, statics.light_rotated)]
+    lspec += [0] * (lp_np.shape[1] - len(lspec))
+    return BounceScene(
+        statics=statics,
+        geo=torch.from_numpy(geo_np).to(device),
+        lp=torch.from_numpy(lp_np).to(device),
+        spec=torch.tensor(spec, dtype=torch.int32, device=device),
+        lspec=torch.tensor(lspec, dtype=torch.int32, device=device),
+        geo_np=geo_np,
+        lp_np=lp_np,
+    )
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch versions (line-for-line ports of ops/pallas_bounce.py)
+# ---------------------------------------------------------------------------
+
+
+def _intersect_all(spec: tuple, geo: np.ndarray, ro: Vec3, rd: Vec3):
+    """Nearest hit over the geo table, one entry at a time.
+
+    Returns (best_t, best_i, best_u, best_v, n_geom, is_outer, is_tri):
+    ``n_geom`` is the winner's geometric normal flipped to face the ray
+    (normalized), ``is_outer`` the entry-side flag per shape."""
+    zero = ro.x * 0.0
+    best_t = zero + float("inf")
+    best_i = torch.zeros_like(zero, dtype=torch.int64)
+    best_u = zero
+    best_v = zero
+    bnx, bny, bnz = zero, zero, zero + 1.0
+    best_outer = zero > -1.0  # True
+    best_tri = zero
+
+    for i, (kind, rotated, _mk) in enumerate(spec):
+        if kind == TRI:
+            e1x, e1y, e1z = geo[_E1, i], geo[_E1 + 1, i], geo[_E1 + 2, i]
+            e2x, e2y, e2z = geo[_E2, i], geo[_E2 + 1, i], geo[_E2 + 2, i]
+            pvx = rd.y * e2z - rd.z * e2y
+            pvy = rd.z * e2x - rd.x * e2z
+            pvz = rd.x * e2y - rd.y * e2x
+            det = e1x * pvx + e1y * pvy + e1z * pvz
+            det_ok = torch.abs(det) > 1e-30
+            inv_det = 1.0 / torch.where(det_ok, det, 1e-30)
+            tvx = ro.x - geo[_A, i]
+            tvy = ro.y - geo[_A + 1, i]
+            tvz = ro.z - geo[_A + 2, i]
+            u = (tvx * pvx + tvy * pvy + tvz * pvz) * inv_det
+            qvx = tvy * e1z - tvz * e1y
+            qvy = tvz * e1x - tvx * e1z
+            qvz = tvx * e1y - tvy * e1x
+            v = (rd.x * qvx + rd.y * qvy + rd.z * qvz) * inv_det
+            t = (e2x * qvx + e2y * qvy + e2z * qvz) * inv_det
+            ok = (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & det_ok & (t > 0.0)
+            fnx = e1y * e2z - e1z * e2y
+            fny = e1z * e2x - e1x * e2z
+            fnz = e1x * e2y - e1y * e2x
+            front = (fnx * rd.x + fny * rd.y + fnz * rd.z) < 0.0
+            sgn = torch.where(front, 1.0, -1.0)
+            cnx, cny, cnz = fnx * sgn, fny * sgn, fnz * sgn
+            outer = front
+            istri = 1.0
+        else:
+            px, py, pz = geo[_POS, i], geo[_POS + 1, i], geo[_POS + 2, i]
+            o = Vec3(ro.x - px, ro.y - py, ro.z - pz)
+            d = rd
+            if rotated:
+                q = Quat(*(geo[_ROT + c, i] for c in range(4)))
+                o, d = q.inverse_rotate(o), q.inverse_rotate(rd)
+            ax_, ay_, az_ = geo[_A, i], geo[_A + 1, i], geo[_A + 2, i]
+
+            if kind == BOX:
+                ivx = 1.0 / (d.x + DIR_BIAS)
+                ivy = 1.0 / (d.y + DIR_BIAS)
+                ivz = 1.0 / (d.z + DIR_BIAS)
+                lox, hix = (-ax_ - o.x) * ivx, (ax_ - o.x) * ivx
+                loy, hiy = (-ay_ - o.y) * ivy, (ay_ - o.y) * ivy
+                loz, hiz = (-az_ - o.z) * ivz, (az_ - o.z) * ivz
+                t1 = torch.maximum(
+                    torch.minimum(lox, hix),
+                    torch.maximum(torch.minimum(loy, hiy), torch.minimum(loz, hiz)),
+                )
+                t2 = torch.minimum(
+                    torch.maximum(lox, hix),
+                    torch.minimum(torch.maximum(loy, hiy), torch.maximum(loz, hiz)),
+                )
+                valid = t1 <= t2
+                outer = valid & (t1 > 0.0)
+                t = torch.where(outer, t1, t2)
+                ok = valid & (t > 0.0)
+                hx = o.x + d.x * t
+                hy = o.y + d.y * t
+                hz = o.z + d.z * t
+                on_x = (ax_ - torch.abs(hx)) < EPS
+                on_y = (ay_ - torch.abs(hy)) < EPS
+                cnx = torch.where(on_x, torch.sign(hx), 0.0)
+                cny = torch.where(~on_x & on_y, torch.sign(hy), 0.0)
+                cnz = torch.where(~on_x & ~on_y, torch.sign(hz), 0.0)
+                flip = torch.where(outer, 1.0, -1.0)
+                cn = Vec3(cnx * flip, cny * flip, cnz * flip)
+            elif kind == ELLIPSOID:
+                iox, ioy, ioz = o.x / ax_, o.y / ay_, o.z / az_
+                idx_, idy, idz = d.x / ax_, d.y / ay_, d.z / az_
+                a_q = idx_ * idx_ + idy * idy + idz * idz
+                b_q = iox * idx_ + ioy * idy + ioz * idz
+                c_q = iox * iox + ioy * ioy + ioz * ioz - 1.0
+                disc = b_q * b_q - a_q * c_q
+                valid = disc >= 0.0
+                sq = torch.sqrt(torch.clamp(disc, min=0.0))
+                inv_a = 1.0 / torch.clamp(a_q, min=1e-30)
+                t1 = (-b_q - sq) * inv_a
+                t2 = (-b_q + sq) * inv_a
+                outer = valid & (t1 > 0.0)
+                t = torch.where(outer, t1, t2)
+                ok = valid & (t > 0.0)
+                hx = o.x + d.x * t
+                hy = o.y + d.y * t
+                hz = o.z + d.z * t
+                flip = torch.where(outer, 1.0, -1.0)
+                cn = Vec3(
+                    hx / (ax_ * ax_) * flip,
+                    hy / (ay_ * ay_) * flip,
+                    hz / (az_ * az_) * flip,
+                )
+            else:  # infinite plane (mega_spec kind 3)
+                denom = ax_ * d.x + ay_ * d.y + az_ * d.z
+                num = ax_ * o.x + ay_ * o.y + az_ * o.z
+                den_ok = torch.abs(denom) > 1e-30
+                t = -num / torch.where(den_ok, denom, 1e-30)
+                ok = den_ok & (t > 0.0)
+                outer = denom < 0.0  # front-facing: normal opposes the ray
+                flip = torch.where(outer, 1.0, -1.0)
+                cn = Vec3(ax_ * flip, ay_ * flip, az_ * flip)
+
+            if rotated:
+                cn = q.rotate(cn)
+            cnx, cny, cnz = cn.x, cn.y, cn.z
+            u = zero
+            v = zero
+            istri = 0.0
+
+        take = ok & (t < best_t)
+        best_t = torch.where(take, t, best_t)
+        best_i = torch.where(take, i, best_i)
+        best_u = torch.where(take, u, best_u)
+        best_v = torch.where(take, v, best_v)
+        bnx = torch.where(take, cnx, bnx)
+        bny = torch.where(take, cny, bny)
+        bnz = torch.where(take, cnz, bnz)
+        best_outer = torch.where(take, outer, best_outer)
+        best_tri = torch.where(take, istri, best_tri)
+
+    n_geom = Vec3(bnx, bny, bnz).normalize()
+    return best_t, best_i, best_u, best_v, n_geom, best_outer, best_tri
+
+
+def _bounce_math(scene: BounceScene, k_tries: int, bg: tuple, draw,
+                 ro: Vec3, rd: Vec3, thr: Vec3, rad: Vec3, alive,
+                 final_only: bool = False):
+    """Intersect -> detail -> emission -> sampling -> continuation. Returns
+    (next origin, next direction, thr', rad', alive'); ``final_only`` stops
+    after emission and passes ro/rd/thr through as (point, rd, thr)."""
+    statics, geo_np = scene.statics, scene.geo_np
+    spec = statics.mega_spec
+    zero = ro.x * 0.0
+    zero3 = Vec3(zero, zero, zero)
+
+    # --- 1. nearest hit -----------------------------------------------------
+    best_t, best_i, best_u, best_v, n_geom, is_outer, is_tri = (
+        _intersect_all(spec, geo_np, ro, rd)
+    )
+    hit = torch.isfinite(best_t)
+
+    # --- 2. winner attributes by index --------------------------------------
+    geo = scene.geo
+
+    def gather_row(row):
+        return geo[row][best_i]
+
+    def a3(base):
+        return Vec3(gather_row(base), gather_row(base + 1), gather_row(base + 2))
+
+    if any(k == TRI for k, _, _ in spec):
+        sgn = torch.where(is_outer, 1.0, -1.0)
+        sn0, sn1, sn2 = a3(_SN0), a3(_SN1), a3(_SN2)
+        ns = (sn0 + (sn1 - sn0) * best_u + (sn2 - sn0) * best_v).normalize() * sgn
+        n_shade = where3(is_tri > 0.5, ns, n_geom)
+    else:
+        n_shade = n_geom
+    t_safe = torch.where(hit, best_t, 1.0)
+    point = ro + rd * (t_safe - EPS_BACKOFF)
+    emission = a3(_EMIT)
+
+    # --- 3. emission / background -------------------------------------------
+    bgv = Vec3(zero + bg[0], zero + bg[1], zero + bg[2])
+    miss = alive & ~hit
+    on_hit = alive & hit
+    rad = rad + where3(miss, thr.mul(bgv), where3(on_hit, thr.mul(emission), zero3))
+    alive = on_hit
+    if final_only:
+        return point, rd, thr, rad, alive
+
+    color = a3(_COLOR)
+    metallic = gather_row(_METAL)
+    roughness = gather_row(_ROUGH)
+    mkind = gather_row(_MKIND).to(torch.int32)
+
+    # --- 4. mixture sampling ------------------------------------------------
+    v_dir = rd * -1.0
+    l, pdf, ok = mixture_body(
+        draw, point, n_geom, n_shade, v_dir, roughness, scene.lp_np, statics,
+        k_tries,
+    )
+
+    # --- 5. continuation: BRDF weight + delta rules -------------------------
+    f = eval_brdf(l, n_geom, v_dir, color, metallic, roughness, mkind)
+    cos_l = torch.clamp(l.dot(n_geom), min=0.0)
+    w = f * (cos_l / torch.clamp(pdf, min=1e-20))
+
+    any_mirror = any(m == MIRROR for _, _, m in spec)
+    any_diel = any(m == DIELECTRIC for _, _, m in spec)
+    next_origin = point
+    if any_mirror or any_diel:
+        l_mirror = reflect(v_dir, n_geom)
+        is_mirror = mkind == MIRROR
+        is_diel = mkind == DIELECTRIC
+        is_delta = is_mirror | is_diel
+        if any_mirror:
+            l = where3(is_mirror, l_mirror, l)
+            w = where3(is_mirror, color, w)
+        if any_diel:
+            ior = gather_row(_IOR)
+            u_diel = draw(ctr_diel(k_tries))
+            cos_i = torch.clamp(v_dir.dot(n_geom), 0.0, 1.0)
+            eta = torch.where(is_outer, 1.0 / ior, ior)
+            sin2_t = eta * eta * torch.clamp(1.0 - cos_i * cos_i, min=0.0)
+            tir = sin2_t > 1.0
+            cos_t = torch.sqrt(torch.clamp(1.0 - sin2_t, min=0.0))
+            r0 = torch.square((eta - 1.0) / (eta + 1.0))
+            refl_p = r0 + (1.0 - r0) * torch.pow(1.0 - cos_i, 5.0)
+            do_reflect = tir | (u_diel < refl_p)
+            l_refr = (rd * eta + n_geom * (eta * cos_i - cos_t)).normalize(eps=1e-20)
+            l_diel = where3(do_reflect, l_mirror, l_refr)
+            one = zero + 1.0
+            w_diel = where3(do_reflect | ~is_outer, Vec3(one, one, one), color)
+            l = where3(is_diel, l_diel, l)
+            w = where3(is_diel, w_diel, w)
+            # transmitted rays continue from just PAST the surface
+            transmitted = is_diel & ~do_reflect
+            point_back = ro + rd * (t_safe + 1e-4)
+            next_origin = where3(transmitted, point_back, point)
+        new_alive = alive & (is_delta | ok)
+    else:
+        new_alive = alive & ok
+
+    thr = thr.mul(where3(new_alive, w, zero3))
+    return next_origin, l, thr, rad, new_alive
+
+
+def _lane_draws(seed: int, wid: torch.Tensor, wid_off: int, bounce_i: int,
+                max_tries: int):
+    key = work_key(seed, wid.to(torch.int64) + int(wid_off))
+    base = bounce_i * draws_per_bounce(max_tries)
+    return lambda d: uniform_ctr(key, base + d)
+
+
+def _pack(ro: Vec3, rd: Vec3, thr: Vec3, rad: Vec3, alive) -> torch.Tensor:
+    return torch.stack([*ro, *rd, *thr, *rad, alive.to(torch.float32)])
+
+
+def bounce_plain(scene: BounceScene, state: torch.Tensor, wid: torch.Tensor,
+                 wid_off: int, seed: int, bounce_i: int, bg: tuple,
+                 max_tries: int = 4, final_only: bool = False) -> torch.Tensor:
+    """Plain version of ``bounce``; returns a new (13, B) state."""
+    s = state
+    out = _bounce_math(
+        scene, max_tries, bg,
+        _lane_draws(seed, wid, wid_off, bounce_i, max_tries),
+        Vec3(s[0], s[1], s[2]), Vec3(s[3], s[4], s[5]),
+        Vec3(s[6], s[7], s[8]), Vec3(s[9], s[10], s[11]), s[12] > 0.5,
+        final_only=final_only,
+    )
+    return _pack(*out)
+
+
+def primary_plain(scene: BounceScene, cam_row: torch.Tensor, px: torch.Tensor,
+                  py: torch.Tensor, wid: torch.Tensor, wid_off: int, seed: int,
+                  bg: tuple, max_tries: int, width: int,
+                  height: int) -> torch.Tensor:
+    """Plain version of ``primary_bounce``: jitter draws 0 and 1, the camera
+    ray (``generate_rays_u``), then bounce 0 of a fresh path."""
+    draw = _lane_draws(seed, wid, wid_off, 0, max_tries)
+    ro, rd = generate_rays_u(camera_from_row(cam_row), px, py, width, height,
+                             draw(CTR_JITTER), draw(CTR_JITTER + 1))
+    zero = px * 0.0
+    one = zero + 1.0
+    out = _bounce_math(
+        scene, max_tries, bg, draw, ro, rd, Vec3(one, one, one),
+        Vec3(zero, zero, zero), zero < 1.0,
+    )
+    return _pack(*out)
+
+
+# ---------------------------------------------------------------------------
+# wrappers: plain version on the CPU, the CUDA kernel on a CUDA tensor
+# ---------------------------------------------------------------------------
+
+
+def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} is not contiguous")
+
+
+def _check_scene(scene: BounceScene, device) -> None:
+    m = scene.geo.shape[1]
+    nl = scene.lp.shape[1]
+    if m > MAX_PRIMS or nl > UNROLL_MAX_LIGHTS:
+        raise ValueError(f"geo table M={m} > {MAX_PRIMS} or lights {nl} > "
+                         f"{UNROLL_MAX_LIGHTS}")
+    _check("geo", scene.geo, torch.float32, (C_GEO, m), device)
+    _check("lp", scene.lp, torch.float32, (LightCol.COUNT, nl), device)
+    _check("spec", scene.spec, torch.int32, (m,), device)
+    _check("lspec", scene.lspec, torch.int32, (nl,), device)
+
+
+def bounce(scene: BounceScene, state: torch.Tensor, wid: torch.Tensor,
+           wid_off: int, seed: int, bounce_i: int, bg: tuple,
+           max_tries: int = 4, final_only: bool = False,
+           out: torch.Tensor | None = None) -> torch.Tensor:
+    """One fused bounce of the (13, B) path state.
+
+    On CUDA, ``out`` may be ``state`` itself: each thread reads its lane
+    before writing it, so the update runs in place (the JAX kernel wrote
+    fresh buffers; in place saves 13 x 4 B per lane of device memory)."""
+    if state.device.type == "cpu":
+        res = bounce_plain(scene, state, wid, wid_off, seed, bounce_i, bg,
+                           max_tries, final_only)
+        if out is None:
+            return res
+        out.copy_(res)
+        return out
+    if state.device.type != "cuda":
+        raise ValueError(f"no bounce kernel for device {state.device}")
+    from .kernels import launch_bounce
+
+    b = state.shape[1]
+    _check("state", state, torch.float32, (N_STATE, b), state.device)
+    _check("wid", wid, torch.int32, (b,), state.device)
+    _check_scene(scene, state.device)
+    if out is None:
+        out = torch.empty_like(state)
+    _check("out", out, torch.float32, (N_STATE, b), state.device)
+    launch_bounce(scene, state, out, wid, wid_off, seed, bounce_i, bg,
+                  max_tries, draws_per_bounce(max_tries), final_only)
+    LAUNCHES["final" if final_only else "bounce"] += 1
+    return out
+
+
+def primary_bounce(scene: BounceScene, cam_row: torch.Tensor,
+                   px: torch.Tensor, py: torch.Tensor, wid: torch.Tensor,
+                   wid_off: int, seed: int, bg: tuple, max_tries: int,
+                   width: int, height: int,
+                   out: torch.Tensor | None = None) -> torch.Tensor:
+    """Camera jitter + bounce 0 for a fresh path per lane through pixel
+    (px, py); returns the (13, B) state after the bounce."""
+    if px.device.type == "cpu":
+        res = primary_plain(scene, cam_row, px, py, wid, wid_off, seed, bg,
+                            max_tries, width, height)
+        if out is None:
+            return res
+        out.copy_(res)
+        return out
+    if px.device.type != "cuda":
+        raise ValueError(f"no bounce kernel for device {px.device}")
+    from .kernels import launch_primary
+
+    b = px.shape[0]
+    dev = px.device
+    _check("px", px, torch.float32, (b,), dev)
+    _check("py", py, torch.float32, (b,), dev)
+    _check("wid", wid, torch.int32, (b,), dev)
+    _check("cam_row", cam_row, torch.float32, (128,), dev)
+    _check_scene(scene, dev)
+    if out is None:
+        out = torch.empty((N_STATE, b), dtype=torch.float32, device=dev)
+    _check("out", out, torch.float32, (N_STATE, b), dev)
+    launch_primary(scene, cam_row, px, py, out, wid, wid_off, seed, bg,
+                   max_tries, width, height)
+    LAUNCHES["primary"] += 1
+    return out

@@ -1,0 +1,86 @@
+"""Counter-based per-work-item RNG, bit-exact with the JAX package's
+``ops/rng.py`` (two rounds of the "lowbias32" 32-bit finalizer).
+
+    key_lane = work_key(seed, wid)
+    u        = uniform_ctr(key_lane, ctr)     # U[0,1), 24-bit mantissa
+
+torch on the CPU has no ``>>`` for uint32, so the hash runs in int64 with
+every intermediate masked to its low 32 bits. Products of two 32-bit
+values are split into 16-bit halves so no int64 product overflows.
+
+The same hash is written in ``csrc/bounce.cu`` (``fmix``/``work_key``/
+``uniform_ctr``); the kernels and their plain versions therefore see the
+same numbers.
+
+Draw layout of the fused-bounce path (one key per (sample, pixel)):
+
+* ``wid = sample_global * n_pix + pixel``, with
+  ``sample_global = replica * (spp // replicas) + s``;
+* draw ``d`` of bounce ``k`` is ``uniform_ctr(key, k * draws_per_bounce(T) + d)``:
+  ``d = 0, 1`` camera jitter (bounce 0 only), ``d = 2 + 7 t + r`` row ``r``
+  of mixture candidate ``t < T`` (rows: which, u1, u2, u3..u6 with the
+  light pick last), ``d = 2 + 7 T`` the dielectric split.
+
+The image is therefore independent of batch size and replica count.
+"""
+
+from __future__ import annotations
+
+import torch
+
+_M32 = 0xFFFFFFFF
+_GOLD = 0x9E3779B9
+_C1 = 0x7FEB352D
+_C2 = 0x846CA68B
+_CTR_MUL = 0x85EBCA77
+_CTR_ADD = 0x165667B1
+
+CTR_JITTER = 0  # draws 0, 1
+CTR_MIX = 2  # first mixture draw
+MIX_ROWS = 7
+
+
+def draws_per_bounce(max_tries: int) -> int:
+    """Counter stride between bounces: jitter, mixture rows, dielectric."""
+    return CTR_MIX + MIX_ROWS * max_tries + 1
+
+
+def ctr_mix(cand: int, row: int) -> int:
+    return CTR_MIX + MIX_ROWS * cand + row
+
+
+def ctr_diel(max_tries: int) -> int:
+    return CTR_MIX + MIX_ROWS * max_tries
+
+
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """(x * c) mod 2^32 for int64 x in [0, 2^32) and a 32-bit constant c."""
+    lo = x * (c & 0xFFFF)
+    hi = ((x * (c >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & _M32
+
+
+def _fmix(x: torch.Tensor) -> torch.Tensor:
+    x = x ^ (x >> 16)
+    x = _mul32(x, _C1)
+    x = x ^ (x >> 15)
+    x = _mul32(x, _C2)
+    return x ^ (x >> 16)
+
+
+def work_key(seed: int, wid: torch.Tensor) -> torch.Tensor:
+    """Per-work-item u32 key (held in int64) from a u32 seed and integer
+    work ids (negative ids wrap like the JAX package's uint32 cast)."""
+    w = _mul32(wid.to(torch.int64) & _M32, _GOLD)
+    return _fmix(w ^ (int(seed) & _M32))
+
+
+def uniform_ctr(key_lane: torch.Tensor, ctr) -> torch.Tensor:
+    """One U[0,1) f32 draw per lane at counter ``ctr`` (int or int tensor)."""
+    if isinstance(ctr, torch.Tensor):
+        c = ctr.to(torch.int64) & _M32
+        cm = (_mul32(c, _CTR_MUL) + _CTR_ADD) & _M32
+    else:
+        cm = ((int(ctr) & _M32) * _CTR_MUL + _CTR_ADD) & _M32
+    bits = _fmix(key_lane ^ cm)
+    return (bits >> 8).to(torch.float32) * (1.0 / (1 << 24))

@@ -1,0 +1,164 @@
+"""Single-device render orchestration (batch engine).
+
+Pixels are flattened into fixed-size lane batches; each batch runs
+``integrator.path.render_pixels``. Frames smaller than ``batch_size`` give
+each pixel ``replicas`` lanes that split the spp budget (the JAX package's
+``_plan``). Every draw is keyed by (seed, sample, pixel) through the
+counter RNG, so the image does not depend on the batch size or the replica
+count.
+"""
+
+from __future__ import annotations
+
+import logging
+import time
+
+import numpy as np
+import torch
+
+from ..integrator.path import TraceConfig, mega_gate_reason, render_pixels
+from ..ops.bounce import bounce_scene
+from ..ops.camera import camera_arrays, pack_camera_row
+from ..ops.tonemap import color_to_u8
+from ..scene.build import build_scene_arrays
+from ..scene.types import SceneDesc
+
+log = logging.getLogger("rt_torch")
+
+DEFAULT_BATCH = 1_048_576  # lanes per batch (the JAX package's TPU value)
+BVH_THRESHOLD = 2048  # finite prims above this need the BVH backend
+
+
+def _device(device) -> torch.device:
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "Renderer(device='cuda'): torch.cuda.is_available() is false"
+        )
+    return dev
+
+
+class Renderer:
+    """Renders frames of one scene on one device.
+
+    ``plain=True`` runs the plain PyTorch versions of the bounce kernels on
+    any device (used to hold the kernels against them on the card); by
+    default a CUDA device runs the kernels and the CPU the plain versions."""
+
+    def __init__(
+        self,
+        desc: SceneDesc,
+        device="cuda",
+        backend: str | None = None,
+        batch_size: int = DEFAULT_BATCH,
+        max_tries: int = 4,
+        faithful: bool = False,
+        engine: str | None = None,
+        russian_roulette: bool = False,
+        plain: bool = False,
+    ):
+        self.device = _device(device)
+        self.settings = desc.settings
+        arrays, statics = build_scene_arrays(desc)
+        if backend is None:
+            backend = "bvh" if statics.num_prims > BVH_THRESHOLD else "dense"
+        engine = engine or "batch"
+        if engine != "batch":
+            raise NotImplementedError(
+                f"engine {engine!r} is not ported yet (ROADMAP M6 wavefront, "
+                "M7 sticky)"
+            )
+        self.batch_size = batch_size
+        self.plain = plain
+        self.cfg = TraceConfig(
+            ray_depth=self.settings.ray_depth,
+            bg_color=tuple(float(c) for c in self.settings.bg_color),
+            max_tries=max_tries,
+            backend=backend,
+            faithful=faithful,
+            rr=russian_roulette,
+        )
+        reason = mega_gate_reason(self.cfg, statics)
+        if reason:
+            raise NotImplementedError(reason)
+        self.scene = bounce_scene(arrays, statics, self.device)
+        self.cam = camera_arrays(self.settings.camera)
+        self.cam_row = torch.from_numpy(pack_camera_row(self.cam)[0]).to(self.device)
+        self.bg = self.cfg.bg_color
+
+    def _plan(self, total: int, samples: int):
+        """Pick (batch, replicas): fill ~batch_size lanes, replicas | samples."""
+        b = min(self.batch_size, total)
+        replicas = 1
+        if total < self.batch_size:
+            budget = max(self.batch_size // total, 1)
+            for c in range(min(budget, samples), 0, -1):
+                if samples % c == 0:
+                    replicas = c
+                    break
+        return b, replicas
+
+    def render_frame_device(self, seed: int = 0, samples: int | None = None):
+        """Render the frame, leaving radiance on the device.
+
+        Returns (list of per-batch (3, B) channel-major tensors, path
+        vertices as a float); reading the count synchronises, so a host
+        clock around this call measures the whole render."""
+        w, h = self.settings.width, self.settings.height
+        samples = samples or self.settings.samples
+        total = w * h
+        seed32 = (seed * 2654435761) & 0xFFFFFFFF
+        b, replicas = self._plan(total, samples)
+        spp_r = samples // replicas
+        dev = self.device
+        outs = []
+        nrays = torch.zeros((), dtype=torch.float64, device=dev)
+        for i in range(-(-total // b)):
+            lin = torch.arange(b, dtype=torch.int64, device=dev)
+            idx = torch.clamp(lin + i * b, max=total - 1)
+            rep = torch.arange(replicas, dtype=torch.int64, device=dev)
+            # lane (replica r, pixel p) renders samples r*spp_r .. r*spp_r+spp_r-1
+            wid = (rep[:, None] * (spp_r * total) + idx[None, :]).reshape(-1)
+            pix = idx.repeat(replicas)
+            px = (pix % w).to(torch.float32)
+            py = (pix // w).to(torch.float32)
+            out, rays = render_pixels(
+                self.scene, seed32, wid.to(torch.int32), px, py, self.cam_row,
+                self.cfg, w, h, spp_r, total, plain=self.plain,
+            )
+            if replicas > 1:
+                out = out.reshape(3, replicas, b).mean(dim=1)
+            outs.append(out)
+            nrays += rays
+        return outs, float(nrays)
+
+    def _assemble(self, outs) -> np.ndarray:
+        w, h = self.settings.width, self.settings.height
+        flat = torch.cat(outs, dim=1)[:, : w * h].cpu().numpy()
+        return np.ascontiguousarray(flat.T).reshape(h, w, 3)
+
+    def render_radiance(self, seed: int = 0, samples: int | None = None):
+        """Full-frame mean radiance, (H, W, 3) f32 numpy."""
+        outs, _ = self.render_frame_device(seed, samples)
+        return self._assemble(outs)
+
+    def render_u8(self, seed: int = 0, samples: int | None = None) -> np.ndarray:
+        """Tonemapped (H, W, 3) u8 frame; the tonemap runs on the device."""
+        outs, _ = self.render_frame_device(seed, samples)
+        return self._assemble([color_to_u8(o) for o in outs])
+
+
+def render_scene(desc: SceneDesc, seed: int = 0, device="cuda",
+                 **kw) -> np.ndarray:
+    """One-shot render (reference ``render_scene``, src/rendering.rs:21)."""
+    r = Renderer(desc, device=device, **kw)
+    t0 = time.perf_counter()
+    img = r.render_u8(seed)
+    dt = time.perf_counter() - t0
+    s = desc.settings
+    log.info(
+        "rendered %dx%d @ %d spp depth %d in %.2fs (%.1f Mprimary-rays/s)",
+        s.width, s.height, s.samples, s.ray_depth, dt,
+        s.width * s.height * s.samples / dt / 1e6,
+    )
+    return img

@@ -1,0 +1,235 @@
+"""PyTorch port, whole-frame rendering on the CPU (plain versions of the
+kernels): against the JAX renderer statistically and against a JAX loop
+fed the same counter draws pixel by pixel; batch-size invariance,
+determinism, the CLI, and the configurations the port refuses."""
+
+import os
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from raytracing_course_2024_tpu.integrator.path import (
+    TraceConfig as JTraceConfig,
+    _collect_hit,
+    _finish_bounce,
+    _PathState,
+)
+from raytracing_course_2024_tpu.ops import rng as jrng
+from raytracing_course_2024_tpu.ops.camera import camera_arrays as j_camera
+from raytracing_course_2024_tpu.ops.camera import generate_rays_u as j_rays
+from raytracing_course_2024_tpu.ops.sampling import sample_mixture
+from raytracing_course_2024_tpu.ops.vec import Vec3 as JV
+from raytracing_course_2024_tpu.runtime.render import Renderer as JRenderer
+from raytracing_course_2024_tpu.scene.types import DIELECTRIC, MIRROR
+from raytracing_course_2024_tpu_torch.integrator.path import (
+    TraceConfig,
+    render_pixels,
+    trace_sample,
+)
+from raytracing_course_2024_tpu_torch.ops import rng as trng
+from raytracing_course_2024_tpu_torch.ops.bounce import N_STATE, bounce_scene
+from raytracing_course_2024_tpu_torch.runtime import cli
+from raytracing_course_2024_tpu_torch.runtime.image_io import read_png, read_ppm
+from raytracing_course_2024_tpu_torch.runtime.render import Renderer
+from raytracing_course_2024_tpu_torch.scene import parse_text_scene
+from meshes import icosphere, mesh_scene_desc
+from torch_parity import CORNELL, builds, descs, to_jnp
+
+SEED = 5
+
+
+def _lanes(w, h):
+    idx = torch.arange(w * h, dtype=torch.int32)
+    return idx, (idx % w).float(), (idx // w).float()
+
+
+def test_renderer_matches_jax_renderer_statistically():
+    """MIXED scene, 32x24 x 64 spp: per-channel frame means agree within
+    3 sigma, sigma = the Monte-Carlo standard error of a 64-spp frame mean
+    estimated from the port's per-pixel sample variance, times sqrt(2) for
+    the difference of two independent estimates. (The JAX renderer on the
+    CPU takes its XLA path with threefry draws: same estimator, different
+    random numbers.)"""
+    jd, td = descs("mixed")
+    w, h, spp = 32, 24, 64
+    want = JRenderer(jd, max_tries=4).render_radiance(seed=SEED, samples=spp)
+    r = Renderer(td, device="cpu")
+    got = r.render_radiance(seed=SEED, samples=spp)
+    assert got.shape == want.shape == (h, w, 3)
+
+    # per-pixel sample variance from single-sample frames of the same wids
+    idx, px, py = _lanes(w, h)
+    state = torch.empty((N_STATE, w * h))
+    samples = []
+    for s in range(spp):
+        st, _ = trace_sample(r.scene, state, 123, idx, s * w * h, px, py,
+                             r.cam_row, r.cfg, w, h)
+        samples.append(st[9:12].clone().numpy())
+    samples = np.stack(samples)  # (spp, 3, n_pix)
+    var = samples.var(axis=0, ddof=1)  # (3, n_pix)
+    sigma = np.sqrt(var.sum(axis=1) / spp) / (w * h)
+    diff = np.abs(got.mean(axis=(0, 1)) - want.mean(axis=(0, 1)))
+    assert (sigma > 0).all()
+    assert (diff < 3.0 * np.sqrt(2.0) * sigma).all(), (diff, sigma)
+    assert np.isfinite(got).all() and (got >= 0).all()
+
+
+def _jax_counter_loop(jd, ja, js, w, h, spp, seed32, depth):
+    """The port's estimator composed from the JAX package's stages:
+    generate_rays_u, then per bounce _collect_hit + sample_mixture + _finish_bounce,
+    and a final _collect_hit, all fed the port's counter draws."""
+    n_pix, k = w * h, 4
+    pix = np.arange(n_pix, dtype=np.int32)
+    cam = j_camera(jd.settings.camera)
+    cfg = JTraceConfig(ray_depth=depth, bg_color=tuple(jd.settings.bg_color), max_tries=k)
+    arrays = to_jnp(ja)
+    acc = np.zeros((3, n_pix), np.float64)
+    rays = 0.0
+    for s in range(spp):
+        key = jrng.work_key(jnp.uint32(seed32), jnp.asarray(pix + s * n_pix))
+        ro, rd = j_rays(cam, jnp.asarray(pix % w), jnp.asarray(pix // w), w, h,
+                        jrng.uniform_ctr(key, 0), jrng.uniform_ctr(key, 1))
+        one, zero = jnp.ones((n_pix,)), jnp.zeros((n_pix,))
+        st = _PathState(ro, rd, JV(one, one, one), JV(zero, zero, zero), one > 0)
+        rays += n_pix
+        for b in range(depth - 1):
+            if b:
+                rays += float(jnp.sum(st.alive))
+            base = b * trng.draws_per_bounce(k)
+            st2, surf, _ = _collect_hit(st, arrays, js, cfg)
+            rows = [jnp.concatenate([jrng.uniform_ctr(key, base + trng.ctr_mix(t, r))
+                                     for t in range(k)]) for r in range(7)]
+            delta = (surf.mkind == MIRROR) | (surf.mkind == DIELECTRIC)
+            l, pdf, ok = sample_mixture(None, surf.point, surf.n_geom, surf.n_shade,
+                                        -st.rd, surf.roughness, arrays, js,
+                                        need=st2.alive & ~delta, max_tries=k,
+                                        uniforms=rows)
+            st = _finish_bounce(st2, surf, l, pdf, ok,
+                                jrng.uniform_ctr(key, base + trng.ctr_diel(k)), cfg)
+        rays += float(jnp.sum(st.alive))
+        st, _, _ = _collect_hit(st, arrays, js, cfg)
+        acc += np.stack([np.asarray(c) for c in st.radiance])
+    return acc / spp, rays
+
+
+def test_render_pixels_matches_jax_stages_with_counter_draws():
+    """Depth 3 (bounce 0, one full bounce, the final level), 16x12 x 2 spp
+    on the MIXED scene: >= 99 % of the pixels within 1e-4 of the JAX loop
+    (a flipped accept or Fresnel decision changes a whole path)."""
+    w, h, spp, depth = 16, 12, 2, 3
+    (jd, ja, js), (td, ta, ts) = builds("mixed", w, h, spp)
+    seed32 = (SEED * 2654435761) & 0xFFFFFFFF
+    want, want_rays = _jax_counter_loop(jd, ja, js, w, h, spp, seed32, depth)
+    idx, px, py = _lanes(w, h)
+    cfg = TraceConfig(ray_depth=depth, bg_color=tuple(td.settings.bg_color))
+    from raytracing_course_2024_tpu_torch.ops.camera import camera_arrays, pack_camera_row
+
+    cam = torch.from_numpy(pack_camera_row(camera_arrays(td.settings.camera))[0])
+    got, rays = render_pixels(bounce_scene(ta, ts, "cpu"), seed32, idx, px, py, cam,
+                              cfg, w, h, spp, w * h)
+    ok = (np.abs(got.numpy() - want) <= 1e-4).all(axis=0)
+    assert ok.mean() >= 0.99, ok.mean()
+    assert abs(float(rays) - want_rays) <= 0.01 * want_rays
+
+
+def test_image_independent_of_batch_size_and_replicas():
+    """Every draw is keyed by (seed, sample, pixel): one full-frame batch and
+    256-lane batches give bit-identical images; splitting the samples over
+    8 replicas per pixel changes only the averaging order."""
+    _, td = descs("mixed", 20, 15, 8)
+    full_r = Renderer(td, device="cpu", batch_size=300)
+    small_r = Renderer(td, device="cpu", batch_size=256)
+    assert full_r._plan(300, 8) == (300, 1) and small_r._plan(300, 8) == (256, 1)
+    full = full_r.render_radiance(seed=2)
+    assert np.array_equal(small_r.render_radiance(seed=2), full)
+    replicas = Renderer(td, device="cpu")
+    assert replicas._plan(300, 8) == (300, 8)
+    np.testing.assert_allclose(replicas.render_radiance(seed=2), full,
+                               rtol=1e-6, atol=1e-7)
+
+
+def test_render_deterministic_per_seed():
+    _, td = descs("cornell", 24, 16, 2)
+    r = Renderer(td, device="cpu")
+    a, b, c = r.render_u8(seed=1), r.render_u8(seed=1), r.render_u8(seed=2)
+    assert a.dtype == np.uint8 and a.shape == (16, 24, 3)
+    assert np.array_equal(a, b) and not np.array_equal(a, c)
+    outs, verts = r.render_frame_device(seed=1)
+    n = 24 * 16 * 2
+    assert n < verts <= n * td.settings.ray_depth
+
+
+def test_cli_writes_ppm_and_png(tmp_path, monkeypatch, capsys):
+    monkeypatch.chdir(tmp_path)  # the CLI logs to ./out.log like the reference
+    rc = cli.main([CORNELL, "24", "16", "2", "img.ppm", "img"], device="cpu")
+    assert rc == 0
+    ppm, png = read_ppm("img.ppm"), read_png("img.png")
+    assert ppm.shape == (16, 24, 3) and np.array_equal(ppm, png)
+    assert ppm.std() > 0
+    out = capsys.readouterr().out
+    assert "Scene finite primitives: 36, light sources: 2, planes: 0" in out
+    assert cli.main([CORNELL]) == 2  # usage
+
+
+def test_cuda_requests_raise_without_a_card(tmp_path, monkeypatch):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    _, td = descs("mixed")
+    with pytest.raises(RuntimeError, match="cuda"):
+        Renderer(td, device="cuda")
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(RuntimeError, match="cuda"):
+        cli.main([CORNELL, "8", "8", "1", "x.ppm"])
+    assert not os.path.exists("x.ppm")
+
+
+def _out_of_gate(case):
+    _, td = descs("mixed")
+    kw = {}
+    if case == "many_prims":  # 320 triangles > 128: modular dense path
+        verts, faces = icosphere(2)
+        td = mesh_scene_desc(verts, faces)
+    elif case == "bvh_size":  # > 2048 triangles: BVH backend
+        verts, faces = icosphere(4)
+        td = mesh_scene_desc(verts, faces)
+    elif case == "many_lights":  # 40 emissive triangles > 32
+        verts, faces = icosphere(1)
+        td = mesh_scene_desc(verts, faces[:40])
+        for p in td.primitives:
+            p.emission = np.ones(3)
+    elif case == "depth1":
+        td.settings.ray_depth = 1
+    else:
+        kw = {"faithful": dict(faithful=True), "roulette": dict(russian_roulette=True),
+              "wavefront": dict(engine="wavefront"), "sticky": dict(engine="sticky"),
+              "bvh": dict(backend="bvh")}[case]
+    return td, kw
+
+
+@pytest.mark.parametrize("case", ["many_prims", "bvh_size", "many_lights", "depth1",
+                                  "faithful", "roulette", "wavefront", "sticky", "bvh"])
+def test_out_of_gate_configurations_raise(case):
+    td, kw = _out_of_gate(case)
+    with pytest.raises(NotImplementedError, match="ROADMAP M[567]"):
+        Renderer(td, device="cpu", **kw)
+
+
+def test_text_scene_overrides_and_planes_only_scene():
+    text = """
+DIMENSIONS 12 8
+RAY_DEPTH 3
+BG_COLOR 0.2 0.3 0.5
+CAMERA_POSITION 0 1 6
+CAMERA_FORWARD 0 0 -1
+NEW_PRIMITIVE
+PLANE 0 1 0
+POSITION 0 -2 0
+COLOR 0.7 0.6 0.5
+"""
+    td = parse_text_scene(text)
+    img = Renderer(td, device="cpu").render_radiance(seed=0, samples=2)
+    assert img.shape == (8, 12, 3) and np.isfinite(img).all()
+    # upper rows see the background, lower rows the lit-by-sky plane
+    np.testing.assert_allclose(img[0, 0], (0.2, 0.3, 0.5), atol=1e-6)
