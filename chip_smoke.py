@@ -2,27 +2,41 @@
 
     python3 chip_smoke.py            # one CUDA card
 
-Phases (each prints one line; any failure raises and exits non-zero):
+Phases (each prints lines tagged with its name; any failure raises and
+exits non-zero):
 
 1. device   -- a CUDA card is required; prints ``nvidia-smi`` name and
                power limit;
-2. build    -- builds the kernels of csrc/ with nvcc (sm_90a) and prints the
-               build time and the ptxas register / spill lines;
+2. build    -- builds the kernels of csrc/ with nvcc (sm_90a, one process per
+               source, all started together) and prints the build time and
+               the ptxas register / spill lines;
 3. kernels  -- every kernel against its plain PyTorch version on the card,
-               same counter draws, 262,144 lanes, on the inline MIXED text
-               scene and the in-repo Cornell glTF: K2, then 3 x K1, then K1
-               final_only, each fed the plain version's previous state;
+               same counter draws:
+               fused path, 262,144 lanes, inline MIXED text scene and the
+               in-repo Cornell glTF: K2, then 3 x K1, then K1 final_only,
+               each fed the plain version's previous state;
+               modular path: K4 on Cornell camera rays and bounce-1 rays at
+               262,144 and 921,600 lanes; K3 on real ``surface_detail``
+               outputs at bounces 0 and 1 of MIXED and LIGHTS (262,144
+               lanes) and of Cornell (262,144 and 921,600 lanes);
 4. main     -- the port's CLI renders scenes/cornell_box.gltf at 1280x720,
-               16 spp; launch counters must match the path exactly;
-5. render   -- a 320x180 x 16 spp frame through the kernels against the same
-               frame through the plain versions;
+               16 spp twice: by default (the fused path: K2, K1, K1-final)
+               and with RT_RR=1 (the modular path: K4, K3); the launch
+               counters are set to 0 before each run, read after it, and
+               must match that path exactly;
+5. render   -- 320x180 x 16 spp frames: fused kernels against fused plain;
+               modular kernels against modular plain (roulette on); modular
+               against fused kernels (roulette off, RT_MEGAKERNEL=0); a
+               1281-primitive mesh (K3 + the chunked sweep) at 4 spp
+               against its plain version, with its peak memory (the
+               render's own, over what the script already held);
 6. timing   -- kernel against plain once more at the main path's shapes
-               (921,600 lanes); median of 3 frames (kernels and plain), ms
-               per launch of each kernel from CUDA events, path vertices,
-               Mrays/s, peak memory.
+               (921,600 lanes); medians of 3 frames (fused kernels, fused
+               plain, modular kernels with roulette); ms per launch of each
+               kernel from CUDA events, path vertices, Mrays/s, peak memory.
 
-The last two lines are the per-kernel JSON record and
-``{"ok": true, "device": {...}}``.
+The last lines are the card's name and power limit, the per-kernel JSON
+record and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -46,6 +60,9 @@ LANE_FRAC = 0.999
 # whole frames, kernels vs plain, linear radiance
 PIX_ATOL = 1e-3
 PIX_FRAC = 0.99
+# published peaks of one H100 SXM (fp32 outside the tensor cores; HBM3)
+PEAK_FP32 = 67e12
+PEAK_BYTES = 3.35e12
 
 MIXED_SCENE = """
 DIMENSIONS 32 24
@@ -93,15 +110,82 @@ TRIANGLE -3 -2 2  -1 -2 3  -2 0 2.5
 COLOR 0.4 0.4 0.9
 """
 
+# every light shape, rotated and not: box, ellipsoid, triangle lights
+LIGHTS_SCENE = """
+DIMENSIONS 24 16
+RAY_DEPTH 4
+SAMPLES 4
+BG_COLOR 0.05 0.05 0.1
+CAMERA_POSITION 0 0 8
+CAMERA_FORWARD 0 0 -1
+CAMERA_FOV_X 1.1
+
+NEW_PRIMITIVE
+PLANE 0 1 0
+POSITION 0 -2 0
+COLOR 0.6 0.6 0.6
+
+NEW_PRIMITIVE
+BOX 0.6 0.2 0.4
+POSITION -1.5 2 0
+ROTATION 0.2 0.3 0.1 0.927
+EMISSION 3 3 3
+
+NEW_PRIMITIVE
+BOX 0.3 0.3 0.3
+POSITION 2 -1 -1
+EMISSION 1 2 1
+
+NEW_PRIMITIVE
+ELLIPSOID 0.5 0.3 0.4
+POSITION 1.5 1.5 0.5
+ROTATION 0 0.3826834 0 0.9238795
+EMISSION 2 1 1
+
+NEW_PRIMITIVE
+ELLIPSOID 0.3 0.3 0.3
+POSITION -2 -1 1
+EMISSION 1 1 2
+
+NEW_PRIMITIVE
+TRIANGLE -1 1 -2  1 1 -2  0 2.5 -2
+EMISSION 2 2 2
+
+NEW_PRIMITIVE
+ELLIPSOID 0.8 0.8 0.8
+POSITION 0 -1 0
+COLOR 0.7 0.5 0.3
+"""
+
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CORNELL = os.path.join(ROOT, "scenes", "cornell_box.gltf")
-TPU_SRC = "raytracing_course_2024_tpu/ops/pallas_bounce.py"
-KERNELS = {  # name -> replaced TPU kernel (file:line of the kernel body)
-    "primary": f"{TPU_SRC}:515",
-    "bounce": f"{TPU_SRC}:421",
-    "final": f"{TPU_SRC}:421",
+TPU_OPS = "raytracing_course_2024_tpu/ops"
+CSRC = "raytracing_course_2024_tpu_torch/csrc"
+KERNELS = {  # name -> (replaced TPU kernel body file:line, CUDA source)
+    "primary": (f"{TPU_OPS}/pallas_bounce.py:515", f"{CSRC}/bounce.cu"),
+    "bounce": (f"{TPU_OPS}/pallas_bounce.py:421", f"{CSRC}/bounce.cu"),
+    "final": (f"{TPU_OPS}/pallas_bounce.py:421", f"{CSRC}/bounce.cu"),
+    "nearest": (f"{TPU_OPS}/pallas_intersect.py:33", f"{CSRC}/dense_nearest.cu"),
+    "sampler": (f"{TPU_OPS}/pallas_sampling.py:97", f"{CSRC}/sampler.cu"),
 }
-SOURCE = "raytracing_course_2024_tpu_torch/csrc/bounce.cu"
+MODULAR = ("nearest", "sampler")  # launched on the modular main path only
+SEED = 20240917
+K = 4  # max_tries
+FRAME = (1280, 720, 16)  # the main path: width, height, spp (one 921,600-lane batch)
+RENDER = (320, 180, 16)  # the frame-against-frame phase
+MESH_SPP = 4
+LANES = ((512, 512), (1280, 720))  # kernel-against-plain sizes: 262,144 and 921,600
+
+# fp32 operations (add, sub, mul, div, min, max, abs, compare, sqrt, rsqrt,
+# sin, cos: one each; selects and integer hashing not counted) of the
+# device functions, counted from csrc/dense_nearest.cu and csrc/common.cuh
+OPS_TRI_K4 = 53  # one Moller-Trumbore test + running min in dense_nearest_kernel
+OPS_TRI_FUSED = 71  # the same test in intersect_all, plus the facing normal
+OPS_CAND = {"which": 1, "accept": 12, "cosine": 24, "vndf": 159,
+            "light": {0: 70, 1: 67, 2: 62}}  # sample_light_dir by light type
+OPS_PDF = 7 + 127 + 5  # pdf_cosine + pdf_vndf + sums, divide, clamp
+OPS_LIGHT_PDF = {0: 89, 1: 87, 2: 141}  # pdf_lights per light, unrotated
+OPS_LIGHT_ROT = {1: 180, 2: 120}  # extra of a rotated box / ellipsoid
 
 
 def say(phase: str, **kw) -> None:
@@ -130,6 +214,19 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def bound(nbytes: float, ops: float) -> tuple:
+    """(least ms the card could take, the side that sets it)."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_FP32 * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def check(res: dict, what: str, ok: bool) -> dict:
+    say("kernels", case=what, **res)
+    if not ok:
+        raise SystemExit(f"kernel/plain mismatch in {what}: {res}")
+    return res
+
+
 def compare_states(kern: torch.Tensor, plain: torch.Tensor, what: str) -> dict:
     """Kernel vs plain (13, B) states: alive masks, and each of the 12 float
     rows on lanes where both are alive; radiance also on every lane."""
@@ -151,10 +248,26 @@ def compare_states(kern: torch.Tensor, plain: torch.Tensor, what: str) -> dict:
     res = dict(alive_agree=round(alive_agree, 6), row_agree_min=round(worst_frac, 6),
                max_abs_err=max_err, p999_abs_err=worst, finite=finite,
                alive_frac=round(ap.float().mean().item(), 4))
-    say("kernels", case=what, **res)
-    if not (alive_agree >= LANE_FRAC and worst_frac >= LANE_FRAC and finite):
-        raise SystemExit(f"kernel/plain mismatch in {what}: {res}")
-    return res
+    return check(res, what, alive_agree >= LANE_FRAC and worst_frac >= LANE_FRAC and finite)
+
+
+def compare_rows(kern, plain, mask_k, mask_p, what: str) -> dict:
+    """Kernel vs plain outputs of K3/K4: the masks (hit / accepted) agree on
+    >= 99.9 % of lanes, and each value row within atol = rtol = 1e-4 on
+    >= 99.9 % of the lanes where both masks hold."""
+    mask_agree = (mask_k == mask_p).float().mean().item()
+    both = mask_k & mask_p
+    worst_frac, max_err = 1.0, 0.0
+    for a, b in zip(kern, plain):
+        a, b = a[both].float(), b[both].float()
+        if a.numel() == 0:
+            continue
+        err = (a - b).abs()
+        worst_frac = min(worst_frac, (err <= ATOL + RTOL * b.abs()).float().mean().item())
+        max_err = max(max_err, err.max().item())
+    res = dict(mask_agree=round(mask_agree, 6), row_agree_min=round(worst_frac, 6),
+               max_abs_err=max_err, mask_frac=round(mask_p.float().mean().item(), 4))
+    return check(res, what, mask_agree >= LANE_FRAC and worst_frac >= LANE_FRAC)
 
 
 def phase_kernels(dev) -> None:
@@ -163,7 +276,7 @@ def phase_kernels(dev) -> None:
     from raytracing_course_2024_tpu_torch.scene import (
         build_scene_arrays, load_scene, parse_text_scene)
 
-    w = h = 512  # 262,144 lanes
+    w, h = LANES[0]
     for name in ("mixed", "cornell"):
         desc = (parse_text_scene(MIXED_SCENE) if name == "mixed"
                 else load_scene(CORNELL, w, h, 1))
@@ -173,91 +286,344 @@ def phase_kernels(dev) -> None:
         bg = tuple(desc.settings.bg_color)
         idx = torch.arange(w * h, device=dev, dtype=torch.int32)
         px, py = (idx % w).float(), (idx // w).float()
-        seed = 20240917
-        st_k = B.primary_bounce(scene, cam, px, py, idx, 0, seed, bg, 4, w, h)
-        st_p = B.primary_plain(scene, cam, px, py, idx, 0, seed, bg, 4, w, h)
+        st_k = B.primary_bounce(scene, cam, px, py, idx, 0, SEED, bg, K, w, h)
+        st_p = B.primary_plain(scene, cam, px, py, idx, 0, SEED, bg, K, w, h)
         torch.cuda.synchronize()
         compare_states(st_k, st_p, f"{name}:primary")
         for i in range(1, 4):
-            k = B.bounce(scene, st_p.clone(), idx, 0, seed, i, bg, 4)
-            nxt = B.bounce_plain(scene, st_p, idx, 0, seed, i, bg, 4)
+            k = B.bounce(scene, st_p.clone(), idx, 0, SEED, i, bg, K)
+            nxt = B.bounce_plain(scene, st_p, idx, 0, SEED, i, bg, K)
             torch.cuda.synchronize()
             compare_states(k, nxt, f"{name}:bounce{i}")
             st_p = nxt
-        k = B.bounce(scene, st_p.clone(), idx, 0, seed, 4, bg, 4, final_only=True)
-        p = B.bounce_plain(scene, st_p, idx, 0, seed, 4, bg, 4, final_only=True)
+        k = B.bounce(scene, st_p.clone(), idx, 0, SEED, 4, bg, K, final_only=True)
+        p = B.bounce_plain(scene, st_p, idx, 0, SEED, 4, bg, K, final_only=True)
         torch.cuda.synchronize()
         compare_states(k, p, f"{name}:final")
 
 
-def phase_main(dev, tmp: str) -> None:
-    from raytracing_course_2024_tpu_torch.ops import bounce as B
+class Modular:
+    """One scene on the modular path at w x h lanes: camera rays from the
+    counter draws of sample 0, the plain bounce-0 hit and surface, the
+    inputs K3 reads there, bounce 1's rays, and the inputs K3 reads at
+    bounce 1 (counter base ``draws_per_bounce``), as the main path feeds
+    them."""
+
+    def __init__(self, dev, desc, w: int, h: int):
+        from raytracing_course_2024_tpu_torch.integrator import path as P
+        from raytracing_course_2024_tpu_torch.ops import rng
+        from raytracing_course_2024_tpu_torch.ops.camera import camera_arrays, generate_rays_u
+        from raytracing_course_2024_tpu_torch.ops.scene_intersect import (
+            modular_scene, nearest_hit_dense, surface_detail)
+        from raytracing_course_2024_tpu_torch.ops.vec import Vec3
+        from raytracing_course_2024_tpu_torch.scene import build_scene_arrays
+        from raytracing_course_2024_tpu_torch.scene.types import DIELECTRIC, MIRROR
+
+        arrays, statics = build_scene_arrays(desc)
+        self.scene = modular_scene(arrays, statics, dev)
+        self.cfg = P.TraceConfig(ray_depth=desc.settings.ray_depth,
+                                 bg_color=tuple(desc.settings.bg_color), max_tries=K)
+        self.wid = torch.arange(w * h, device=dev, dtype=torch.int32)
+        self.key = rng.work_key(SEED, self.wid)
+        px, py = (self.wid % w).float(), (self.wid // w).float()
+        self.ro, self.rd = generate_rays_u(
+            camera_arrays(desc.settings.camera), px, py, w, h,
+            rng.uniform_ctr(self.key, rng.CTR_JITTER), rng.uniform_ctr(self.key, rng.CTR_JITTER + 1))
+        def sampler_inputs(ro, rd, alive, bounce_i):
+            hit = nearest_hit_dense(ro, rd, self.scene, plain=True)
+            surf = surface_detail(ro, rd, hit, self.scene)
+            is_delta = (surf.mkind == MIRROR) | (surf.mkind == DIELECTRIC)
+            need = alive & hit.valid & ~is_delta
+            args = (self.scene, SEED, self.wid, 0, bounce_i * rng.draws_per_bounce(K),
+                    surf.point, surf.n_geom, surf.n_shade, rd * -1.0, surf.roughness,
+                    need, K)
+            return surf, need, args
+
+        zero = self.ro.x * 0.0
+        one = zero + 1.0
+        self.surf, self.need, self.sampler_args = sampler_inputs(
+            self.ro, self.rd, zero < 1.0, 0)
+        # bounce 1's rays: the plain modular bounce 0 of the camera rays
+        st = P.PathState(self.ro, self.rd, Vec3(one, one, one), Vec3(zero, zero, zero),
+                         zero < 1.0)
+        st = P._bounce(st, self.scene, self.cfg, SEED, self.wid, 0, self.key, 0, plain=True)
+        self.bounce1 = (st.ro, st.rd)
+        _, _, self.sampler_args1 = sampler_inputs(st.ro, st.rd, st.alive, 1)
+
+
+def sampler_ops(m: Modular) -> float:
+    """fp32 operations K3 does on these inputs: per lane that samples, the
+    candidates drawn until the first accepted one (each: the pick, its
+    component's sampler, the acceptance test), then the mixture pdf with
+    the light pdf of every light."""
+    from raytracing_course_2024_tpu_torch.ops import rng
+    from raytracing_course_2024_tpu_torch.ops import sampling as S
+
+    statics, lp = m.scene.statics, m.scene.lp_np
+    n_comp = 3 if statics.num_lights > 0 else 2
+    s = m.surf
+    v = m.rd * -1.0
+    pending = m.need.clone()
+    ops = torch.zeros_like(s.point.x, dtype=torch.float64)
+    lt = torch.tensor(list(statics.light_types) or [0], device=ops.device)
+    cost_light = torch.tensor([OPS_CAND["light"][int(t)] for t in lt], dtype=torch.float64,
+                              device=ops.device)
+    for t in range(K):
+        draw = [rng.uniform_ctr(m.key, rng.ctr_mix(t, r)) for r in range(7)]
+        which = torch.clamp((draw[0] * n_comp).to(torch.int32), max=n_comp - 1)
+        cand = S.sample_cosine_u(draw[1], draw[2], s.n_geom)
+        cand = S.where3(which == 1, S.sample_vndf_u(draw[1], draw[2], s.n_geom, v, s.roughness),
+                        cand)
+        c = torch.where(which == 0, float(OPS_CAND["cosine"]), float(OPS_CAND["vndf"]))
+        if statics.num_lights > 0:
+            cand = S.where3(which == 2, S.sample_light_dir_u(draw[1:7], s.point, lp, statics),
+                            cand)
+            li = torch.clamp((draw[6] * statics.num_lights).to(torch.int64),
+                             max=statics.num_lights - 1)
+            c = torch.where(which == 2, cost_light[li], c.double())
+        ops += torch.where(pending, c.double() + OPS_CAND["which"] + OPS_CAND["accept"], 0.0)
+        ok = (cand.dot(s.n_shade) > 0.0) & (cand.dot(s.n_geom) > 0.0)
+        pending = pending & ~ok
+    per_pdf = OPS_PDF + sum(OPS_LIGHT_PDF[t] + (OPS_LIGHT_ROT.get(t, 0) if r else 0)
+                            for t, r in zip(statics.light_types, statics.light_rotated))
+    return float(ops.sum()) + per_pdf * float(m.need.sum())
+
+
+def phase_kernels_modular(dev, sizes=LANES) -> tuple:
+    """K4 and K3 against their plain versions. Returns the largest absolute
+    error of each at the main path's 921,600 lanes, and the Cornell case at
+    those lanes for the timing phase."""
+    from raytracing_course_2024_tpu_torch.ops.dense_nearest import (
+        dense_nearest, dense_nearest_plain)
+    from raytracing_course_2024_tpu_torch.ops.sampler import (
+        sample_mixture_kernel, sampler_plain)
+    from raytracing_course_2024_tpu_torch.scene import load_scene, parse_text_scene
+
+    errs, cases = {"nearest": 0.0, "sampler": 0.0}, {}
+    main = sizes[-1]
+
+    def sampler_case(m, what, w, h):
+        for b, args in ((0, m.sampler_args), (1, m.sampler_args1)):
+            lk, pk, okk = sample_mixture_kernel(*args)
+            lp_, pp, okp = sampler_plain(*args)
+            torch.cuda.synchronize()
+            res = compare_rows([*lk, pk], [*lp_, pp], okk, okp,
+                               f"{what}-{w}x{h}:sampler-bounce{b}")
+            if (w, h) == main:
+                errs["sampler"] = max(errs["sampler"], res["max_abs_err"])
+
+    for w, h in sizes:
+        m = Modular(dev, load_scene(CORNELL, w, h, 1), w, h)
+        tri = m.scene.tri_pack
+        for rays, (ro, rd) in (("camera", (m.ro, m.rd)), ("bounce1", m.bounce1)):
+            tk, ik = dense_nearest(ro, rd, tri)
+            tp, ip = dense_nearest_plain(ro, rd, tri)
+            torch.cuda.synchronize()
+            idx_agree = ((ik == ip) | ~torch.isfinite(tp)).float().mean().item()
+            res = compare_rows([tk], [tp], torch.isfinite(tk), torch.isfinite(tp),
+                               f"cornell-{w}x{h}:nearest-{rays}")
+            check(dict(idx_agree=round(idx_agree, 6)), f"cornell-{w}x{h}:nearest-{rays}-idx",
+                  idx_agree >= LANE_FRAC)
+            if (w, h) == main:
+                errs["nearest"] = max(errs["nearest"], res["max_abs_err"])
+        sampler_case(m, "cornell", w, h)
+        cases[(w, h)] = m
+    w, h = sizes[0]
+    for name, text in (("mixed", MIXED_SCENE), ("lights", LIGHTS_SCENE)):
+        sampler_case(Modular(dev, parse_text_scene(text), w, h), name, w, h)
+    return errs, cases[main]
+
+
+def phase_main(dev, tmp: str, modular: bool) -> dict:
+    from raytracing_course_2024_tpu_torch.ops import kernels as KN
     from raytracing_course_2024_tpu_torch.runtime import cli
     from raytracing_course_2024_tpu_torch.runtime.image_io import read_png, read_ppm
 
-    w, h, spp, depth = 1280, 720, 16, 6  # glTF ray_depth is 6
-    ppm, png = os.path.join(tmp, "cornell.ppm"), os.path.join(tmp, "cornell")
-    B.reset_launches()
-    t0 = time.perf_counter()
-    rc = cli.main([CORNELL, str(w), str(h), str(spp), ppm, png])
-    secs = time.perf_counter() - t0
-    counts = dict(B.LAUNCHES)
+    (w, h, spp), depth = FRAME, 6  # glTF ray_depth is 6
+    tag = "modular" if modular else "fused"
+    ppm, png = os.path.join(tmp, f"{tag}.ppm"), os.path.join(tmp, tag)
+    if modular:
+        os.environ["RT_RR"] = "1"
+    try:
+        KN.reset_launches()
+        t0 = time.perf_counter()
+        rc = cli.main([CORNELL, str(w), str(h), str(spp), ppm, png])
+        secs = time.perf_counter() - t0
+        counts = dict(KN.LAUNCHES)
+    finally:
+        os.environ.pop("RT_RR", None)
     if rc != 0:
         raise SystemExit(f"CLI returned {rc}")
-    batches = 1  # 921,600 lanes fit one batch (DEFAULT_BATCH)
-    want = {"primary": spp * batches, "bounce": spp * (depth - 2) * batches,
-            "final": spp * batches}
+    # 921,600 lanes fit one batch (DEFAULT_BATCH)
+    want = dict.fromkeys(KN.LAUNCHES, 0)
+    if modular:  # K4 at every level, K3 at every level but the last
+        want.update(nearest=spp * depth, sampler=spp * (depth - 1))
+    else:
+        want.update(primary=spp, bounce=spp * (depth - 2), final=spp)
     if counts != want:
-        raise SystemExit(f"launch counters {counts} != expected {want}")
+        raise SystemExit(f"{tag} launch counters {counts} != expected {want}")
     img = read_ppm(ppm)
     if img.shape != (h, w, 3) or img.std() == 0:
         raise SystemExit(f"bad image: shape {img.shape}, std {img.std()}")
     if not np.array_equal(img, read_png(png + ".png")):
         raise SystemExit("PPM and PNG disagree")
-    say("main", scene="cornell_box.gltf", size=f"{w}x{h}", spp=spp, seconds=round(secs, 3),
+    say("main", path=tag, scene="cornell_box.gltf", size=f"{w}x{h}", spp=spp,
+        rr=int(modular), seconds=round(secs, 3),
         launches=json.dumps(counts).replace(" ", ""), mean_u8=round(float(img.mean()), 3))
     return counts
+
+
+def render_pair(a, b, what: str, **extra) -> None:
+    if not (np.isfinite(a).all() and np.isfinite(b).all()):
+        raise SystemExit(f"non-finite radiance in {what}")
+    agree = float((np.abs(a - b) <= PIX_ATOL).all(axis=-1).mean())
+    say("render", case=what, pixel_agree=round(agree, 6),
+        max_abs_err=float(np.abs(a - b).max()), mean=round(float(a.mean()), 5), **extra)
+    if agree < PIX_FRAC:
+        raise SystemExit(f"{what}: frames agree on {agree:.4f} < {PIX_FRAC} of pixels")
 
 
 def phase_render(dev) -> None:
     from raytracing_course_2024_tpu_torch.runtime.render import Renderer
     from raytracing_course_2024_tpu_torch.scene import load_scene
 
-    desc = load_scene(CORNELL, 320, 180, 16)
-    a = Renderer(desc, device=dev).render_radiance(seed=3)
-    b = Renderer(desc, device=dev, plain=True).render_radiance(seed=3)
-    if not (np.isfinite(a).all() and np.isfinite(b).all()):
-        raise SystemExit("non-finite radiance")
-    agree = float((np.abs(a - b) <= PIX_ATOL).all(axis=-1).mean())
-    say("render", size="320x180", spp=16, pixel_agree=round(agree, 6),
-        max_abs_err=float(np.abs(a - b).max()), mean=round(float(a.mean()), 5))
-    if agree < PIX_FRAC:
-        raise SystemExit(f"kernel and plain renders agree on {agree:.4f} < {PIX_FRAC}")
+    w, h, spp = RENDER
+    size = f"{w}x{h}"
+    desc = load_scene(CORNELL, w, h, spp)
+    fused = Renderer(desc, device=dev).render_radiance(seed=3)
+    render_pair(fused, Renderer(desc, device=dev, plain=True).render_radiance(seed=3),
+                "fused-kernels-vs-plain", size=size, spp=spp)
+    rr = Renderer(desc, device=dev, russian_roulette=True)
+    if rr.fused:
+        raise SystemExit("roulette took the fused path")
+    render_pair(rr.render_radiance(seed=3),
+                Renderer(desc, device=dev, russian_roulette=True, plain=True)
+                .render_radiance(seed=3), "modular-kernels-vs-plain-rr", size=size, spp=spp)
+    os.environ["RT_MEGAKERNEL"] = "0"
+    try:
+        mod = Renderer(desc, device=dev)
+    finally:
+        os.environ.pop("RT_MEGAKERNEL")
+    if mod.fused:
+        raise SystemExit("RT_MEGAKERNEL=0 took the fused path")
+    render_pair(mod.render_radiance(seed=3), fused, "modular-vs-fused-kernels",
+                size=size, spp=spp)
+
+    from raytracing_course_2024_tpu_torch.ops import kernels as KN
+
+    mesh = mesh_desc(w, h, MESH_SPP)
+    r = Renderer(mesh, device=dev)
+    if r.fused or r.scene.tri_pack is not None:
+        raise SystemExit("the mesh did not take the modular sweep")
+    b, replicas = r._plan(w * h, MESH_SPP)
+    want = -(-w * h // b) * (MESH_SPP // replicas) * (mesh.settings.ray_depth - 1)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    KN.reset_launches()
+    a = r.render_radiance(seed=3)
+    peak = frame_mem_mb(base)
+    if KN.LAUNCHES["sampler"] != want or sum(KN.LAUNCHES.values()) != want:
+        raise SystemExit(f"mesh launches {KN.LAUNCHES}: expected K3 only, {want} times")
+    render_pair(a, Renderer(mesh, device=dev, plain=True).render_radiance(seed=3),
+                "mesh1281-kernels-vs-plain", size=size, spp=MESH_SPP,
+                prims=len(mesh.primitives), launches=want, peak_mem_mb=peak)
 
 
-def phase_timing(dev, gpu: str, counts: dict) -> list:
+def mesh_desc(w: int, h: int, spp: int):
+    """A displaced icosphere of 1280 smooth-shaded triangles under one
+    triangle light (1281 primitives: the chunked sweep, above 128)."""
+    from raytracing_course_2024_tpu_torch.scene.types import (
+        CameraDesc, PrimitiveDesc, RenderSettings, SceneDesc)
+
+    t = (1 + 5 ** 0.5) / 2
+    verts = [np.array(v, float) for v in ((-1, t, 0), (1, t, 0), (-1, -t, 0), (1, -t, 0),
+                                          (0, -1, t), (0, 1, t), (0, -1, -t), (0, 1, -t),
+                                          (t, 0, -1), (t, 0, 1), (-t, 0, -1), (-t, 0, 1))]
+    verts = [v / np.linalg.norm(v) for v in verts]
+    faces = [(0, 11, 5), (0, 5, 1), (0, 1, 7), (0, 7, 10), (0, 10, 11), (1, 5, 9),
+             (5, 11, 4), (11, 10, 2), (10, 7, 6), (7, 1, 8), (3, 9, 4), (3, 4, 2),
+             (3, 2, 6), (3, 6, 8), (3, 8, 9), (4, 9, 5), (2, 4, 11), (6, 2, 10),
+             (8, 6, 7), (9, 8, 1)]
+    for _ in range(3):  # 20 * 4^3 = 1280 faces
+        cache, nxt = {}, []
+
+        def mid(i, j):
+            k = (min(i, j), max(i, j))
+            if k not in cache:
+                m = verts[i] + verts[j]
+                verts.append(m / np.linalg.norm(m))
+                cache[k] = len(verts) - 1
+            return cache[k]
+
+        for a, b, c in faces:
+            ab, bc, ca = mid(a, b), mid(b, c), mid(c, a)
+            nxt += [(a, ab, ca), (b, bc, ab), (c, ca, bc), (ab, bc, ca)]
+        faces = nxt
+    vs = np.array(verts)
+    x, y, z = vs[:, 0], vs[:, 1], vs[:, 2]
+    vs = vs * (1.0 + 0.22 * (np.sin(3.1 * x + 1.3) * np.cos(2.3 * y)
+                             + 0.6 * np.sin(4.7 * z + 0.5) * np.cos(3.9 * x)))[:, None]
+    vn = np.zeros_like(vs)
+    for a, b, c in faces:
+        fn = np.cross(vs[b] - vs[a], vs[c] - vs[a])
+        vn[[a, b, c]] += fn
+    vn /= np.maximum(np.linalg.norm(vn, axis=1, keepdims=True), 1e-30)
+    prims = [PrimitiveDesc(ptype=0, p0=vs[a], p1=vs[b], p2=vs[c], sn0=vn[a], sn1=vn[b],
+                           sn2=vn[c], color=np.array([0.7, 0.5, 0.6]), metallic=0.3,
+                           roughness=0.4, mkind=3) for a, b, c in faces]
+    prims.append(PrimitiveDesc(ptype=0, p0=np.array([-2.0, 2.5, -1.0]),
+                               p1=np.array([2.0, 2.5, -1.0]), p2=np.array([0.0, 2.5, 2.0]),
+                               color=np.zeros(3), emission=np.array([10.0, 9.0, 8.0]),
+                               mkind=3))
+    cam = CameraDesc(position=np.array([0.0, 0.4, 3.2]), right=np.array([1.0, 0.0, 0.0]),
+                     up=np.array([0.0, 1.0, 0.0]), forward=np.array([0.0, 0.0, -1.0]),
+                     fov_x=1.0, fov_y=2.0 * np.arctan(np.tan(0.5) * h / w))
+    settings = RenderSettings(width=w, height=h, samples=spp, ray_depth=4,
+                              bg_color=(0.15, 0.2, 0.3), camera=cam)
+    return SceneDesc(settings=settings, primitives=prims, planes=[])
+
+
+def frame_mem_mb(base: int) -> float:
+    """Peak device memory of what ran since ``base`` was read
+    (``torch.cuda.memory_allocated()``), without the tensors the script
+    already held then."""
+    return round((torch.cuda.max_memory_allocated() - base) / 2**20, 1)
+
+
+def frame_times(r, label: str, gpu: str) -> float:
+    r.render_frame_device(seed=0)  # warm-up
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    times, verts = [], 0.0
+    for rep in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, verts = r.render_frame_device(seed=rep + 1)
+        times.append((time.perf_counter() - t0) * 1e3)
+    ms = statistics.median(times)
+    say("timing", path=label, ms_per_frame=round(ms, 3), frames_ms=json.dumps(
+        [round(t, 3) for t in times]).replace(" ", ""), path_vertices=int(verts),
+        mrays_per_s=round(verts / ms / 1e3, 3),
+        peak_mem_mb=frame_mem_mb(base), gpu=f'"{gpu}"')
+    return ms
+
+
+def phase_timing(dev, gpu: str, counts: dict, errs: dict, m: Modular) -> list:
     from raytracing_course_2024_tpu_torch.ops import bounce as B
+    from raytracing_course_2024_tpu_torch.ops.dense_nearest import (
+        dense_nearest, dense_nearest_plain)
+    from raytracing_course_2024_tpu_torch.ops.sampler import (
+        sample_mixture_kernel, sampler_plain)
     from raytracing_course_2024_tpu_torch.runtime.render import Renderer
     from raytracing_course_2024_tpu_torch.scene import load_scene
 
-    w, h, spp = 1280, 720, 16
+    w, h, spp = FRAME
     desc = load_scene(CORNELL, w, h, spp)
-    frame = {}
-    for plain in (False, True):
-        r = Renderer(desc, device=dev, plain=plain)
-        r.render_frame_device(seed=0)  # warm-up
-        torch.cuda.reset_peak_memory_stats()
-        times, verts = [], 0.0
-        for rep in range(3):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            _, verts = r.render_frame_device(seed=rep + 1)
-            times.append((time.perf_counter() - t0) * 1e3)
-        ms = statistics.median(times)
-        frame[plain] = ms
-        say("timing", path="plain" if plain else "kernels", ms_per_frame=round(ms, 3),
-            path_vertices=int(verts), mrays_per_s=round(verts / ms / 1e3, 3),
-            peak_mem_mb=round(torch.cuda.max_memory_allocated() / 2**20, 1), gpu=f'"{gpu}"')
+    frame_times(Renderer(desc, device=dev), "fused-kernels", gpu)
+    frame_times(Renderer(desc, device=dev, plain=True), "fused-plain", gpu)
+    frame_times(Renderer(desc, device=dev, russian_roulette=True), "modular-kernels-rr", gpu)
 
     # the main path's shapes: one 921,600-lane batch of the Cornell frame
     r = Renderer(desc, device=dev)
@@ -266,44 +632,71 @@ def phase_timing(dev, gpu: str, counts: dict) -> list:
     idx = torch.arange(n, device=dev, dtype=torch.int32)
     px, py = (idx % w).float(), (idx // w).float()
     # kernel vs plain at the main path's shapes, from the same inputs
-    st0 = B.primary_bounce(scene, cam, px, py, idx, 0, 1, bg, 4, w, h)
-    p0 = B.primary_plain(scene, cam, px, py, idx, 0, 1, bg, 4, w, h)
-    k1 = B.bounce(scene, p0.clone(), idx, 0, 1, 1, bg, 4)
-    p1 = B.bounce_plain(scene, p0, idx, 0, 1, 1, bg, 4)
-    kf = B.bounce(scene, p1.clone(), idx, 0, 1, 5, bg, 4, final_only=True)
-    pf = B.bounce_plain(scene, p1, idx, 0, 1, 5, bg, 4, final_only=True)
+    st0 = B.primary_bounce(scene, cam, px, py, idx, 0, 1, bg, K, w, h)
+    p0 = B.primary_plain(scene, cam, px, py, idx, 0, 1, bg, K, w, h)
+    k1 = B.bounce(scene, p0.clone(), idx, 0, 1, 1, bg, K)
+    p1 = B.bounce_plain(scene, p0, idx, 0, 1, 1, bg, K)
+    kf = B.bounce(scene, p1.clone(), idx, 0, 1, 5, bg, K, final_only=True)
+    pf = B.bounce_plain(scene, p1, idx, 0, 1, 5, bg, K, final_only=True)
     torch.cuda.synchronize()
-    errs = {k: compare_states(a, b, f"cornell-{w}x{h}:{k}") for k, a, b in
-            (("primary", st0, p0), ("bounce", k1, p1), ("final", kf, pf))}
+    for k, a, b in (("primary", st0, p0), ("bounce", k1, p1), ("final", kf, pf)):
+        errs[k] = compare_states(a, b, f"cornell-{w}x{h}:{k}")["max_abs_err"]
     # each kernel reads st0 (or the pixels) and writes a separate buffer, so
     # every launch does the same work
     buf = torch.empty_like(st0)
+    tri = m.scene.tri_pack
     launch_ms = {
         "primary": cuda_ms(lambda: B.primary_bounce(
-            scene, cam, px, py, idx, 0, 1, bg, 4, w, h, out=buf), 20),
-        "bounce": cuda_ms(lambda: B.bounce(
-            scene, st0, idx, 0, 1, 1, bg, 4, out=buf), 20),
+            scene, cam, px, py, idx, 0, 1, bg, K, w, h, out=buf), 20),
+        "bounce": cuda_ms(lambda: B.bounce(scene, st0, idx, 0, 1, 1, bg, K, out=buf), 20),
         "final": cuda_ms(lambda: B.bounce(
-            scene, st0, idx, 0, 1, 1, bg, 4, final_only=True, out=buf), 20),
+            scene, st0, idx, 0, 1, 1, bg, K, final_only=True, out=buf), 20),
+        "nearest": cuda_ms(lambda: dense_nearest(m.ro, m.rd, tri), 20),
+        "sampler": cuda_ms(lambda: sample_mixture_kernel(*m.sampler_args), 20),
     }
     plain_ms = {
         "primary": cuda_ms(lambda: B.primary_plain(
-            scene, cam, px, py, idx, 0, 1, bg, 4, w, h), 2),
-        "bounce": cuda_ms(lambda: B.bounce_plain(scene, st0, idx, 0, 1, 1, bg, 4), 2),
+            scene, cam, px, py, idx, 0, 1, bg, K, w, h), 2),
+        "bounce": cuda_ms(lambda: B.bounce_plain(scene, st0, idx, 0, 1, 1, bg, K), 2),
         "final": cuda_ms(lambda: B.bounce_plain(
-            scene, st0, idx, 0, 1, 1, bg, 4, final_only=True), 2),
+            scene, st0, idx, 0, 1, 1, bg, K, final_only=True), 2),
+        "nearest": cuda_ms(lambda: dense_nearest_plain(m.ro, m.rd, tri), 2),
+        "sampler": cuda_ms(lambda: sampler_plain(*m.sampler_args), 2),
     }
-    alive = (st0[12] > 0.5).float().mean().item()
+    # least time for the same work: bytes (each input a lane needs read once,
+    # each output written once) or fp32 operations; the fused kernels'
+    # operations count the intersection loop only (sampler, shading and BRDF
+    # left out). A dead lane of K1 needs only ro, rd, rad and alive (40 B; its
+    # throughput becomes 0, its work id is unused), a live one all 13 rows and
+    # its work id (56 B); K1-final needs the 13 rows of every lane and no work
+    # id. K3 reads the 13 input rows and the work id only where ``need``
+    # holds (56 B), the need flag everywhere, and writes l, pdf and ok.
+    alive = float((st0[12] > 0.5).sum())
+    need = float(m.need.sum())
+    n_geo = scene.geo.shape[1]
+    table = (scene.geo.numel() + scene.spec.numel() + scene.lp.numel()
+             + scene.lspec.numel()) * 4
+    ltable = (m.scene.light_packed.numel() + m.scene.lspec.numel()) * 4
+    bounds = {
+        "primary": bound(n * (12 + 52) + table, n * n_geo * OPS_TRI_FUSED),
+        "bounce": bound(n * (40 + 52) + alive * 16 + table,
+                        alive * n_geo * OPS_TRI_FUSED),
+        "final": bound(n * (52 + 52) + table, alive * n_geo * OPS_TRI_FUSED),
+        "nearest": bound(n * (24 + 8) + tri.numel() * 4, n * tri.shape[1] * OPS_TRI_K4),
+        "sampler": bound(n * (1 + 16 + 1) + need * (52 + 4) + ltable, sampler_ops(m)),
+    }
+    inputs = {"primary": 1.0, "bounce": alive / n, "final": alive / n,
+              "nearest": 1.0, "sampler": float(m.need.float().mean())}
     for k in KERNELS:
-        say("timing", kernel=k, lanes=n, alive_in=round(alive, 4) if k != "primary" else 1.0,
-            ms=round(launch_ms[k], 4), plain_ms=round(plain_ms[k], 3), gpu=f'"{gpu}"')
+        say("timing", kernel=k, lanes=n, active_in=round(inputs[k], 4),
+            ms=round(launch_ms[k], 4), plain_ms=round(plain_ms[k], 3),
+            bound_ms=round(bounds[k][0], 5), bound_by=bounds[k][1], gpu=f'"{gpu}"')
     tol = f"atol=rtol={ATOL} on >= {LANE_FRAC:.1%} of lanes"
     return [
-        {"name": k, "route": "cuda", "source": SOURCE, "replaces": KERNELS[k],
-         "launches": counts[k], "max_abs_err": errs[k]["max_abs_err"],
-         "lanes_agree": errs[k]["row_agree_min"], "tolerance": tol,
-         "ms": launch_ms[k], "plain_ms": plain_ms[k], "lanes": n,
-         "frame_ms": frame[False], "plain_frame_ms": frame[True]}
+        {"name": k, "route": "cuda", "source": KERNELS[k][1], "replaces": KERNELS[k][0],
+         "launches": counts[k], "max_abs_err": errs[k], "ms": launch_ms[k],
+         "plain_ms": plain_ms[k], "bound_ms": bounds[k][0], "bound_by": bounds[k][1],
+         "library_ms": None, "tolerance": tol, "lanes": n}
         for k in KERNELS
     ]
 
@@ -316,7 +709,6 @@ def main() -> int:
         return 1
     dev = torch.device("cuda", 0)
     gpu = gpu_line()
-    print(gpu, flush=True)
     say("device", name=f'"{torch.cuda.get_device_name(0)}"', count=torch.cuda.device_count(),
         torch=torch.__version__, cuda=torch.version.cuda)
 
@@ -332,14 +724,18 @@ def main() -> int:
         print(f"[build] {ln}", flush=True)
 
     phase_kernels(dev)
+    errs, cornell = phase_kernels_modular(dev)
     with tempfile.TemporaryDirectory() as tmp:
-        counts = phase_main(dev, tmp)
+        counts = phase_main(dev, tmp, modular=False)
+        modular = phase_main(dev, tmp, modular=True)
+    counts.update({k: modular[k] for k in MODULAR})
     phase_render(dev)
-    record = phase_timing(dev, gpu, counts)
-    print(json.dumps({"kernels": record}), flush=True)
+    record = phase_timing(dev, gpu, counts, errs, cornell)
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib"))
     if leaked:
         raise SystemExit(f"the port imported {leaked}")
+    print(gpu, flush=True)
+    print(json.dumps({"kernels": record}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

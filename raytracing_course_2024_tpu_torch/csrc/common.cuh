@@ -1,0 +1,339 @@
+// Device code shared by the fused bounce (bounce.cu, K1/K2) and the
+// standalone mixture sampler (sampler.cu, K3): table layouts, 3-vector and
+// quaternion math, the counter RNG, the three direction samplers, their
+// pdfs and the MIS mixture stage. K1 and K3 therefore run the same sampler
+// code, and both match the plain PyTorch versions in ops/sampling.py and
+// ops/mixture.py. Everything sits in an anonymous namespace: each
+// translation unit that includes this header gets its own copy.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int C_GEO = 35;
+constexpr int MAX_PRIMS = 128;
+constexpr int MAX_LIGHTS = 32;
+constexpr int LC_COUNT = 18;
+
+// geo table rows (ops/bounce.py)
+constexpr int G_A = 0, G_E1 = 3, G_E2 = 6, G_POS = 9, G_ROT = 12;
+constexpr int G_SN0 = 16, G_SN1 = 19, G_SN2 = 22, G_COLOR = 25;
+constexpr int G_METAL = 28, G_ROUGH = 29, G_EMIT = 30, G_IOR = 33;
+constexpr int G_MKIND = 34;
+// light pack rows (scene/types.py LightCol)
+constexpr int L_PTYPE = 0, L_P0 = 1, L_P1 = 4, L_P2 = 7, L_POS = 10;
+constexpr int L_ROT = 13, L_INV_AREA = 17;
+// camera row (ops/camera.py)
+constexpr int CAM_POS = 0, CAM_RIGHT = 3, CAM_UP = 6, CAM_FWD = 9;
+constexpr int CAM_TANX = 12, CAM_TANY = 13;
+
+constexpr int K_TRI = 0, K_BOX = 1, K_ELL = 2;  // kind 3 = plane
+constexpr int M_DIFFUSE = 0, M_MIRROR = 1, M_DIELECTRIC = 2;
+
+constexpr float EPS = 1e-4f;
+constexpr float DIR_BIAS = 1e-9f;
+constexpr float EPS_BACKOFF = 1e-4f;
+constexpr float SAFE = 1e-9f;        // ops/sampling.py _SAFE
+constexpr float BRDF_SAFE = 1e-12f;  // ops/brdf.py _SAFE
+constexpr float PI_F = 3.14159265358979323846f;
+constexpr float TWO_PI_F = 6.28318530717958647692f;
+// the reference's tangent-frame seed vector (0.234, 0.1234, 0.97686),
+// normalized in float64 as ops/sampling.py does
+constexpr double T_NORM = 1.012046945353821;
+constexpr float T_SEED_X = (float)(0.234 / T_NORM);
+constexpr float T_SEED_Y = (float)(0.1234 / T_NORM);
+constexpr float T_SEED_Z = (float)(0.97686 / T_NORM);
+
+struct V3 {
+  float x, y, z;
+};
+
+__device__ __forceinline__ V3 mk(float x, float y, float z) { return {x, y, z}; }
+__device__ __forceinline__ V3 add(V3 a, V3 b) { return {a.x + b.x, a.y + b.y, a.z + b.z}; }
+__device__ __forceinline__ V3 sub(V3 a, V3 b) { return {a.x - b.x, a.y - b.y, a.z - b.z}; }
+__device__ __forceinline__ V3 scl(V3 a, float s) { return {a.x * s, a.y * s, a.z * s}; }
+__device__ __forceinline__ V3 mul(V3 a, V3 b) { return {a.x * b.x, a.y * b.y, a.z * b.z}; }
+__device__ __forceinline__ float dot(V3 a, V3 b) { return a.x * b.x + a.y * b.y + a.z * b.z; }
+__device__ __forceinline__ V3 cross(V3 a, V3 b) {
+  return {a.y * b.z - a.z * b.y, a.z * b.x - a.x * b.z, a.x * b.y - a.y * b.x};
+}
+__device__ __forceinline__ V3 normalize(V3 v, float eps) {
+  return scl(v, rsqrtf(fmaxf(dot(v, v), eps)));
+}
+__device__ __forceinline__ float sgnf(float x) { return (float)((x > 0.0f) - (x < 0.0f)); }
+// reflect outgoing v about n: -v + 2 (v.n) n
+__device__ __forceinline__ V3 reflect(V3 v, V3 n) { return sub(scl(n, 2.0f * dot(v, n)), v); }
+
+// v + 2w (q x v) + 2 q x (q x v), quaternion (x, y, z, w)
+__device__ __forceinline__ V3 quat_rotate(float qx, float qy, float qz, float qw, V3 v) {
+  float tx = 2.0f * (qy * v.z - qz * v.y);
+  float ty = 2.0f * (qz * v.x - qx * v.z);
+  float tz = 2.0f * (qx * v.y - qy * v.x);
+  return {v.x + qw * tx + (qy * tz - qz * ty), v.y + qw * ty + (qz * tx - qx * tz),
+          v.z + qw * tz + (qx * ty - qy * tx)};
+}
+
+// ---- counter RNG, bit-exact with ops/rng.py ---------------------------------
+__device__ __forceinline__ uint32_t fmix(uint32_t x) {
+  x ^= x >> 16;
+  x *= 0x7FEB352Du;
+  x ^= x >> 15;
+  x *= 0x846CA68Bu;
+  x ^= x >> 16;
+  return x;
+}
+__device__ __forceinline__ uint32_t work_key(uint32_t seed, uint32_t wid) {
+  return fmix((wid * 0x9E3779B9u) ^ seed);
+}
+__device__ __forceinline__ float uniform_ctr(uint32_t key, uint32_t ctr) {
+  uint32_t bits = fmix(key ^ (ctr * 0x85EBCA77u + 0x165667B1u));
+  return (float)(bits >> 8) * (1.0f / 16777216.0f);
+}
+
+struct Tables {
+  const float* geo;
+  const int* spec;
+  int m;
+  const float* lp;
+  const int* lspec;
+  int nl, num_lights;
+  __device__ __forceinline__ float G(int row, int i) const { return geo[row * m + i]; }
+  __device__ __forceinline__ V3 G3(int row, int i) const {
+    return mk(G(row, i), G(row + 1, i), G(row + 2, i));
+  }
+  __device__ __forceinline__ float L(int row, int j) const { return lp[row * nl + j]; }
+  __device__ __forceinline__ V3 L3(int row, int j) const {
+    return mk(L(row, j), L(row + 1, j), L(row + 2, j));
+  }
+};
+
+// ---- section 4: mixture sampling (ops/sampling.py, ops/mixture.py) -----------
+__device__ __forceinline__ V3 unit_sphere(float u1, float u2) {
+  const float z = 1.0f - 2.0f * u1;
+  const float r = sqrtf(fmaxf(0.0f, 1.0f - z * z));
+  const float phi = TWO_PI_F * u2;
+  return mk(r * cosf(phi), r * sinf(phi), z);
+}
+
+__device__ __forceinline__ void tangent_frame(V3 n, V3& t1, V3& t2) {
+  t1 = normalize(cross(n, mk(T_SEED_X, T_SEED_Y, T_SEED_Z)), 1e-30f);
+  t2 = normalize(cross(n, t1), 1e-30f);
+}
+
+__device__ __forceinline__ V3 frame_local(V3 t1, V3 t2, V3 n, V3 v) {
+  return mk(dot(v, t1), dot(v, t2), dot(v, n));
+}
+
+__device__ V3 sample_cosine(float u1, float u2, V3 n) {
+  return normalize(add(unit_sphere(u1, u2), n), 1e-12f);
+}
+
+__device__ V3 sample_vndf(float u0, float u1, V3 n, V3 v, float roughness) {
+  const float alpha = roughness * roughness;
+  V3 t1, t2;
+  tangent_frame(n, t1, t2);
+  const V3 vl = frame_local(t1, t2, n, v);
+  const V3 vh = normalize(mk(alpha * vl.x, alpha * vl.y, vl.z), 1e-20f);
+  const float lensq = vh.x * vh.x + vh.y * vh.y;
+  const float inv_len = rsqrtf(fmaxf(lensq, 1e-20f));
+  const V3 a1 = lensq > 1e-20f ? mk(-vh.y * inv_len, vh.x * inv_len, 0.0f) : mk(1.0f, 0.0f, 0.0f);
+  const V3 a2 = cross(vh, a1);
+  const float r = sqrtf(u0);
+  const float phi = TWO_PI_F * u1;
+  const float p1 = r * cosf(phi);
+  float p2 = r * sinf(phi);
+  const float s = 0.5f * (1.0f + vh.z);
+  p2 = (1.0f - s) * sqrtf(fmaxf(0.0f, 1.0f - p1 * p1)) + s * p2;
+  const V3 nh = add(add(scl(a1, p1), scl(a2, p2)), scl(vh, sqrtf(fmaxf(0.0f, 1.0f - p1 * p1 - p2 * p2))));
+  const V3 ne = normalize(mk(alpha * nh.x, alpha * nh.y, fmaxf(0.0f, nh.z)), 1e-20f);
+  const V3 ne_w = add(add(scl(t1, ne.x), scl(t2, ne.y)), scl(n, ne.z));
+  return reflect(v, ne_w);
+}
+
+__device__ __forceinline__ float pdf_cosine(V3 n, V3 l) { return fmaxf(0.0f, dot(l, n)) / PI_F; }
+
+__device__ __forceinline__ float nonzero(float x, float floor) { return fabsf(x) > floor ? x : floor; }
+
+__device__ float pdf_vndf(V3 n, V3 l, V3 v, float roughness) {
+  const float alpha = roughness * roughness;
+  V3 t1, t2;
+  tangent_frame(n, t1, t2);
+  const V3 vl = frame_local(t1, t2, n, v);
+  const V3 ll = frame_local(t1, t2, n, l);
+  const V3 h = normalize(add(vl, ll), 1e-20f);
+  // Smith G1 of vl
+  const float z2 = fmaxf(vl.z * vl.z, 1e-20f);
+  const float under = 1.0f + alpha * alpha * (vl.x * vl.x + vl.y * vl.y) / z2;
+  const float g1 = 1.0f / (1.0f + 0.5f * (sqrtf(under) - 1.0f));
+  // GGX D of h
+  const float a2 = alpha * alpha;
+  const float q = (h.x * h.x + h.y * h.y) / fmaxf(a2, 1e-20f) + h.z * h.z;
+  const float dd = 1.0f / fmaxf(PI_F * a2 * q * q, 1e-20f);
+  const float vdh = dot(vl, h);
+  const float dv = g1 * fmaxf(0.0f, vdh) * dd / nonzero(vl.z, SAFE);
+  const float denom = 4.0f * vdh;
+  const float pdf = dv / nonzero(denom, SAFE);
+  return (vl.z > 0.0f && denom > 0.0f && h.z > 0.0f) ? pdf : 0.0f;
+}
+
+__device__ V3 sample_light_dir(const Tables& T, const float us[6], V3 point) {
+  const int li = min((int)(us[5] * (float)T.num_lights), T.num_lights - 1);
+  const float ptype = T.L(L_PTYPE, li);
+  const V3 s = T.L3(L_P0, li);
+  V3 local;
+  if (ptype == (float)K_BOX) {
+    const float wx = 4.0f * s.y * s.z;
+    const float wy = 4.0f * s.x * s.z;
+    const float wz = 4.0f * s.x * s.y;
+    const float w = wx + wy + wz;
+    const float x = us[0] * w;
+    const float sign = us[1] < 0.5f ? 1.0f : -1.0f;
+    const float cu = us[2] * 2.0f - 1.0f;
+    const float cv = us[3] * 2.0f - 1.0f;
+    const bool on_x = x < wx;
+    const bool on_y = !on_x && (x < wx + wy);
+    local = on_x ? mk(s.x * sign, cu * s.y, cv * s.z)
+                 : (on_y ? mk(cu * s.x, s.y * sign, cv * s.z) : mk(cu * s.x, cv * s.y, s.z * sign));
+  } else if (ptype == (float)K_ELL) {
+    const V3 sph = unit_sphere(us[2], us[4]);
+    local = mk(sph.x * s.x, sph.y * s.y, sph.z * s.z);
+  } else {  // triangle with uv folding
+    float tu = us[0], tv = us[1];
+    if (tu + tv >= 1.0f) {
+      tu = 1.0f - tu;
+      tv = 1.0f - tv;
+    }
+    const V3 p1 = T.L3(L_P1, li), p2 = T.L3(L_P2, li);
+    local = add(add(s, scl(sub(p1, s), tu)), scl(sub(p2, s), tv));
+  }
+  const V3 world = add(quat_rotate(T.L(L_ROT, li), T.L(L_ROT + 1, li), T.L(L_ROT + 2, li),
+                                   T.L(L_ROT + 3, li), local),
+                       T.L3(L_POS, li));
+  return normalize(sub(world, point), 1e-20f);
+}
+
+__device__ __forceinline__ float contrib(float t, float n_dot_l, float local_pdf, bool valid) {
+  const float denom = fmaxf(fabsf(n_dot_l), SAFE);
+  return (valid && t > 0.0f) ? local_pdf * t * t / denom : 0.0f;
+}
+
+__device__ float pdf_lights(const Tables& T, V3 point, V3 l) {
+  float total = 0.0f;
+  for (int j = 0; j < T.num_lights; ++j) {
+    const int code = T.lspec[j];
+    const int type = code & 3;
+    const bool rotated = (code >> 2) & 1;
+    const float inv_area = T.L(L_INV_AREA, j);
+    if (type == K_TRI) {
+      const V3 p0 = T.L3(L_P0, j), p1 = T.L3(L_P1, j), p2 = T.L3(L_P2, j);
+      const V3 e1 = sub(p1, p0), e2 = sub(p2, p0);
+      const V3 pv = cross(l, e2);
+      const float det = dot(e1, pv);
+      const bool det_ok = fabsf(det) > 1e-30f;
+      const float inv_det = 1.0f / (det_ok ? det : 1e-30f);
+      const V3 tv = sub(point, p0);
+      const float u = dot(tv, pv) * inv_det;
+      const V3 qv = cross(tv, e1);
+      const float v = dot(l, qv) * inv_det;
+      const float t = dot(e2, qv) * inv_det;
+      const bool valid = (u >= 0.0f) && (v >= 0.0f) && (u + v <= 1.0f) && det_ok;
+      const V3 tri_n = normalize(cross(e1, e2), 1e-20f);
+      total += contrib(t, dot(tri_n, l), inv_area, valid);
+      continue;
+    }
+    const float qx = T.L(L_ROT, j), qy = T.L(L_ROT + 1, j), qz = T.L(L_ROT + 2, j),
+                qw = T.L(L_ROT + 3, j);
+    V3 o = sub(point, T.L3(L_POS, j));
+    V3 d = l;
+    if (rotated) {
+      o = quat_rotate(-qx, -qy, -qz, qw, o);
+      d = quat_rotate(-qx, -qy, -qz, qw, l);
+    }
+    const V3 s = T.L3(L_P0, j);
+    if (type == K_BOX) {
+      const float ix = 1.0f / (d.x + DIR_BIAS), iy = 1.0f / (d.y + DIR_BIAS),
+                  iz = 1.0f / (d.z + DIR_BIAS);
+      const float ax = (-s.x - o.x) * ix, bx = (s.x - o.x) * ix;
+      const float ay = (-s.y - o.y) * iy, by = (s.y - o.y) * iy;
+      const float az = (-s.z - o.z) * iz, bz = (s.z - o.z) * iz;
+      const float t1 = fmaxf(fminf(ax, bx), fmaxf(fminf(ay, by), fminf(az, bz)));
+      const float t2 = fminf(fmaxf(ax, bx), fminf(fmaxf(ay, by), fmaxf(az, bz)));
+      const bool valid = t1 <= t2;
+      const float roots[2] = {t1, t2};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float tr = roots[r];
+        const V3 p = add(o, scl(d, tr));
+        const bool on_x = (s.x - fabsf(p.x)) < EPS;
+        const bool on_y = (s.y - fabsf(p.y)) < EPS;
+        V3 nl = on_x ? mk(sgnf(p.x), 0.0f, 0.0f)
+                     : (on_y ? mk(0.0f, sgnf(p.y), 0.0f) : mk(0.0f, 0.0f, sgnf(p.z)));
+        if (rotated) nl = quat_rotate(qx, qy, qz, qw, nl);
+        total += contrib(tr, dot(nl, l), inv_area, valid);
+      }
+    } else {  // ellipsoid: pullback pdf 1 / (4 pi |J|)
+      const V3 oo = mk(o.x / s.x, o.y / s.y, o.z / s.z);
+      const V3 dd = mk(d.x / s.x, d.y / s.y, d.z / s.z);
+      const float a = dot(dd, dd);
+      const float b = dot(oo, dd);
+      const float c = dot(oo, oo) - 1.0f;
+      const float disc = b * b - a * c;
+      const bool valid = disc >= 0.0f;
+      const float sq = sqrtf(fmaxf(disc, 0.0f));
+      const float inv_a = 1.0f / fmaxf(a, 1e-30f);
+      const float roots[2] = {(-b - sq) * inv_a, (-b + sq) * inv_a};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float tr = roots[r];
+        const V3 p = add(o, scl(d, tr));
+        V3 nl = normalize(mk(p.x / (s.x * s.x), p.y / (s.y * s.y), p.z / (s.z * s.z)), 1e-30f);
+        if (rotated) nl = quat_rotate(qx, qy, qz, qw, nl);
+        const V3 us = mk(p.x / s.x, p.y / s.y, p.z / s.z);
+        const float jx = us.x * s.y * s.z, jy = s.x * us.y * s.z, jz = s.x * s.y * us.z;
+        const float jac = sqrtf(fmaxf(jx * jx + jy * jy + jz * jz, 1e-20f));
+        total += contrib(tr, dot(nl, l), inv_area / jac, valid);
+      }
+    }
+  }
+  return total / (float)max(T.num_lights, 1);
+}
+
+// K candidates, first accept, mixture pdf of the chosen one (mixture_body)
+__device__ void mixture(const Tables& T, uint32_t key, uint32_t ctr, int max_tries, V3 point,
+                        V3 n, V3 ns, V3 v, float roughness, V3& l, float& pdf, bool& accepted) {
+  const int n_comp = T.num_lights > 0 ? 3 : 2;
+  V3 pick = mk(0.0f, 0.0f, 1.0f);
+  accepted = false;
+  for (int t = 0; t < max_tries && !accepted; ++t) {
+    const uint32_t c0 = ctr + 2u + 7u * (uint32_t)t;
+    const int which = min((int)(uniform_ctr(key, c0) * (float)n_comp), n_comp - 1);
+    const float u1 = uniform_ctr(key, c0 + 1u), u2 = uniform_ctr(key, c0 + 2u);
+    V3 cand;
+    if (which == 0) {
+      cand = sample_cosine(u1, u2, n);
+    } else if (which == 1) {
+      cand = sample_vndf(u1, u2, n, v, roughness);
+    } else {
+      const float us[6] = {u1, u2, uniform_ctr(key, c0 + 3u), uniform_ctr(key, c0 + 4u),
+                           uniform_ctr(key, c0 + 5u), uniform_ctr(key, c0 + 6u)};
+      cand = sample_light_dir(T, us, point);
+    }
+    if (dot(cand, ns) > 0.0f && dot(cand, n) > 0.0f) {
+      pick = cand;
+      accepted = true;
+    }
+  }
+  float p = pdf_cosine(n, pick) + pdf_vndf(n, pick, v, roughness);
+  if (T.num_lights > 0) p = p + pdf_lights(T, point, pick);
+  p = p / (float)n_comp;
+  accepted = accepted && (p > SAFE);
+  pdf = fmaxf(p, SAFE);
+  l = pick;
+}
+
+}  // namespace

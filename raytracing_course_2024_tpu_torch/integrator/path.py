@@ -1,4 +1,4 @@
-"""Path-tracing integrator of the fused-bounce main path.
+"""Path-tracing integrator: the fused-bounce path and the modular dense path.
 
 The reference's recursive estimator (src/rendering.rs:86-127) telescopes
 into a loop carrying (ray, throughput T, radiance L, alive) per lane:
@@ -6,25 +6,50 @@ into a loop carrying (ray, throughput T, radiance L, alive) per lane:
     L += T * emission_at_hit, or T * background on a miss (then the lane dies)
     T *= brdf(l, n, v) * (l.n) / pdf     (mixture-sampled lobe)
 
-One sample of a pixel batch is ``ray_depth`` levels of the fused bounce
-(ops/bounce.py): bounce 0 with the camera ray generated in the same kernel
-(K2), full bounces 1 .. ray_depth-2 (K1), and the final level, which only
-collects emission (K1 with ``final_only``; the reference returns black at
-depth 0, so its last sampled direction never contributes). This is the JAX
-package's ``_trace_paths_mega_primary`` / ``render_pixels`` route.
+run for ``ray_depth - 1`` full bounces and a final level that only collects
+emission (the reference returns black at depth 0, so its last sampled
+direction never contributes). Two routes compute it, picked by
+``mega_gate`` as the JAX package's ``_mega_gate`` picks them:
 
-Path vertices (one scene intersection per live lane and level) are counted
-exactly: the unit behind the Mrays/s metric (bench.py).
+* **fused** (small scenes, no roulette, no faithful acceptance): each
+  sample is a chain of fused-bounce kernels (ops/bounce.py): bounce 0 with
+  the camera ray generated in the same kernel (K2), bounces
+  1 .. ray_depth-2 (K1), the final level (K1 ``final_only``). At
+  ``ray_depth`` 1 the camera rays come from ``generate_rays_u`` and only the
+  final level runs. This is the JAX package's
+  ``_trace_paths_mega_primary`` / ``render_pixels`` route.
+* **modular** (everything else on the dense backend): camera rays from
+  ``generate_rays_u``, then per level the nearest hit (K4 or the chunked
+  sweep, ops/scene_intersect.py), ``surface_detail``, the mixture sampler
+  (K3, ops/sampler.py, or its XLA formulation for faithful acceptance and
+  more than 32 lights) and ``_finish_bounce`` with optional Russian
+  roulette: the JAX package's ``trace_paths`` batch scan.
+
+Both routes draw from the counter RNG with the same layout (ops/rng.py),
+so from one seed they trace the same paths. Path vertices (one scene
+intersection per live lane and level) are counted exactly: the unit behind
+the Mrays/s metric (bench.py).
 """
 
 from __future__ import annotations
 
+import os
 from typing import NamedTuple
 
 import torch
 
 from ..ops import bounce as B
-from ..scene.types import SceneStatics
+from ..ops.brdf import eval_brdf
+from ..ops.camera import camera_from_row, generate_rays_u
+from ..ops.rng import CTR_JITTER, ctr_diel, ctr_rr, draws_per_bounce, uniform_ctr, work_key
+from ..ops.sampler import sample_mixture_kernel, sampler_plain
+from ..ops.sampling import UNROLL_MAX_LIGHTS
+from ..ops.scene_intersect import ModularScene, nearest_hit_dense, surface_detail
+from ..ops.vec import Vec3, reflect, where3
+from ..scene.types import DIELECTRIC, MIRROR, SceneStatics
+
+RR_START = 2  # first bounce index eligible for roulette
+RR_MIN_P = 0.05
 
 
 class TraceConfig(NamedTuple):
@@ -38,41 +63,48 @@ class TraceConfig(NamedTuple):
     rr: bool = False  # Russian roulette (modular path only)
 
 
-def mega_gate_reason(cfg: TraceConfig, statics: SceneStatics) -> str | None:
-    """Why the fused-bounce path cannot render this configuration (the JAX
-    package's ``_mega_gate``), or None. The port has no other path yet."""
-    if cfg.backend != "dense":
-        return "the BVH backend is not ported yet (ROADMAP M6)"
-    if cfg.faithful:
-        return "faithful acceptance runs on the modular dense path (ROADMAP M5)"
-    if cfg.rr:
-        return "Russian roulette runs on the modular dense path (ROADMAP M5)"
-    if cfg.ray_depth < 2:
-        return "ray_depth < 2 runs on the modular dense path (ROADMAP M5)"
-    return B.gate_reason(statics)
+def mega_gate(cfg: TraceConfig, statics: SceneStatics) -> bool:
+    """Whether the fused-bounce path renders this configuration (the JAX
+    package's ``_mega_gate``); ``RT_MEGAKERNEL=0`` turns it off."""
+    return (cfg.backend == "dense" and not cfg.faithful and not cfg.rr
+            and os.environ.get("RT_MEGAKERNEL", "1") != "0"
+            and B.gate_reason(statics) is None)
+
+
+# ---------------------------------------------------------------------------
+# fused path
+# ---------------------------------------------------------------------------
 
 
 def trace_sample(scene: B.BounceScene, state: torch.Tensor, seed: int,
                  wid: torch.Tensor, wid_off: int, px: torch.Tensor,
                  py: torch.Tensor, cam_row: torch.Tensor, cfg: TraceConfig,
                  width: int, height: int, plain: bool = False):
-    """One camera sample per lane through all depth levels.
+    """One camera sample per lane through all depth levels of the fused path.
 
     ``state`` is a (13, B) buffer the kernels overwrite in place (the plain
     versions return fresh tensors). Returns (state after the final level,
     path vertices as a 0-dim float64 tensor on the device)."""
     bg, k = cfg.bg_color, cfg.max_tries
-    args = (scene, cam_row, px, py, wid, wid_off, seed, bg, k, width, height)
-    st = B.primary_plain(*args) if plain else B.primary_bounce(*args, out=state)
     rays = torch.full((), float(px.shape[0]), dtype=torch.float64, device=px.device)
-    for i in range(1, cfg.ray_depth - 1):
+    if cfg.ray_depth < 2:  # the final level only: camera rays, then K1 final_only
+        draw = B._lane_draws(seed, wid, wid_off, 0, k)
+        ro, rd = generate_rays_u(camera_from_row(cam_row), px, py, width, height,
+                                 draw(CTR_JITTER), draw(CTR_JITTER + 1))
+        zero = px * 0.0
+        one = zero + 1.0
+        st = B._pack(ro, rd, Vec3(one, one, one), Vec3(zero, zero, zero), zero < 1.0)
+    else:
+        args = (scene, cam_row, px, py, wid, wid_off, seed, bg, k, width, height)
+        st = B.primary_plain(*args) if plain else B.primary_bounce(*args, out=state)
+        for i in range(1, cfg.ray_depth - 1):
+            rays += st[12].sum(dtype=torch.float64)
+            if plain:
+                st = B.bounce_plain(scene, st, wid, wid_off, seed, i, bg, k)
+            else:
+                st = B.bounce(scene, st, wid, wid_off, seed, i, bg, k, out=st)
         rays += st[12].sum(dtype=torch.float64)
-        if plain:
-            st = B.bounce_plain(scene, st, wid, wid_off, seed, i, bg, k)
-        else:
-            st = B.bounce(scene, st, wid, wid_off, seed, i, bg, k, out=st)
-    rays += st[12].sum(dtype=torch.float64)
-    fin = (scene, st, wid, wid_off, seed, cfg.ray_depth - 1, bg, k)
+    fin = (scene, st, wid, wid_off, seed, max(cfg.ray_depth - 1, 0), bg, k)
     if plain:
         st = B.bounce_plain(*fin, final_only=True)
     else:
@@ -80,22 +112,171 @@ def trace_sample(scene: B.BounceScene, state: torch.Tensor, seed: int,
     return st, rays
 
 
-def render_pixels(scene: B.BounceScene, seed: int, wid: torch.Tensor,
-                  px: torch.Tensor, py: torch.Tensor, cam_row: torch.Tensor,
-                  cfg: TraceConfig, width: int, height: int, samples: int,
-                  n_pix: int, plain: bool = False):
+# ---------------------------------------------------------------------------
+# modular dense path (the JAX package's trace_paths batch scan)
+# ---------------------------------------------------------------------------
+
+
+class PathState(NamedTuple):
+    ro: Vec3
+    rd: Vec3
+    throughput: Vec3
+    radiance: Vec3
+    alive: torch.Tensor
+
+
+def _collect_hit(state: PathState, scene: ModularScene, cfg: TraceConfig,
+                 plain: bool = False):
+    """Intersect + accumulate emission/background. Returns (state', surf, hit)."""
+    hit = nearest_hit_dense(state.ro, state.rd, scene, plain=plain)
+    surf = surface_detail(state.ro, state.rd, hit, scene)
+    zero = state.ro.x * 0.0
+    bg = Vec3(zero + cfg.bg_color[0], zero + cfg.bg_color[1], zero + cfg.bg_color[2])
+    miss = state.alive & ~hit.valid
+    on_hit = state.alive & hit.valid
+    add = where3(miss, state.throughput.mul(bg),
+                 where3(on_hit, state.throughput.mul(surf.emission), Vec3(zero, zero, zero)))
+    return state._replace(radiance=state.radiance + add, alive=on_hit), surf, hit
+
+
+def _finish_bounce(state: PathState, surf, l_s: Vec3, pdf: torch.Tensor,
+                   ok: torch.Tensor, u_diel: torch.Tensor, cfg: TraceConfig,
+                   u_rr: torch.Tensor | None = None,
+                   rr_mask: torch.Tensor | bool = False) -> PathState:
+    """Post-sampling half of a bounce: BRDF weight, delta-material
+    continuation rules, state update, then Russian roulette when ``cfg.rr``
+    (survive with p = clamp(max throughput channel, RR_MIN_P, 1) on lanes
+    where ``rr_mask`` holds, throughput / p)."""
+    v = -state.rd  # rays are kept unit-length
+    n = surf.n_geom
+    is_mirror = surf.mkind == MIRROR
+    is_diel = surf.mkind == DIELECTRIC
+    is_delta = is_mirror | is_diel
+
+    f = eval_brdf(l_s, n, v, surf.color, surf.metallic, surf.roughness, surf.mkind)
+    # the reference's cos term is the signed l.n_geom; the fast sampler never
+    # accepts l below the horizon, so the clamp only guards its kill-path zeros
+    cos_l = l_s.dot(n) if cfg.faithful else torch.clamp(l_s.dot(n), min=0.0)
+    w_sampled = f * (cos_l * (1.0 / torch.clamp(pdf, min=1e-20)))
+
+    l_mirror = reflect(v, n)
+    cos_i = torch.clamp(v.dot(n), 0.0, 1.0)
+    eta = torch.where(surf.is_outer, 1.0 / surf.ior, surf.ior)
+    sin2_t = eta * eta * torch.clamp(1.0 - cos_i * cos_i, min=0.0)
+    tir = sin2_t > 1.0
+    cos_t = torch.sqrt(torch.clamp(1.0 - sin2_t, min=0.0))
+    r0 = torch.square((eta - 1.0) / (eta + 1.0))
+    refl_p = r0 + (1.0 - r0) * torch.pow(1.0 - cos_i, 5.0)
+    do_reflect = tir | (u_diel < refl_p)
+    l_refr = (state.rd * eta + n * (eta * cos_i - cos_t)).normalize(eps=1e-20)
+    l_diel = where3(do_reflect, l_mirror, l_refr)
+    one = torch.ones_like(surf.color.x)
+    w_diel = where3(do_reflect | ~surf.is_outer, Vec3(one, one, one), surf.color)
+
+    next_dir = where3(is_mirror, l_mirror, where3(is_diel, l_diel, l_s))
+    weight = where3(is_mirror, surf.color, where3(is_diel, w_diel, w_sampled))
+
+    # scattered and reflected rays restart from the backed-off point on the
+    # incoming side; transmitted rays continue from just past the surface
+    transmitted = is_diel & ~do_reflect
+    point_back = state.ro + state.rd * (surf.t + 1e-4)
+    next_origin = where3(transmitted, point_back, surf.point)
+
+    new_alive = state.alive & (is_delta | ok)
+    zero = torch.zeros_like(one)
+    throughput = state.throughput.mul(where3(new_alive, weight, Vec3(zero, zero, zero)))
+
+    if cfg.rr and u_rr is not None:
+        p = torch.clamp(torch.maximum(torch.maximum(throughput.x, throughput.y), throughput.z),
+                        RR_MIN_P, 1.0)
+        roll = new_alive & rr_mask
+        survive = u_rr < p
+        new_alive = new_alive & (survive | ~roll)
+        throughput = throughput * torch.where(roll & survive, 1.0 / p, 1.0)
+
+    return PathState(next_origin, next_dir, throughput, state.radiance, new_alive)
+
+
+def _bounce(state: PathState, scene: ModularScene, cfg: TraceConfig, seed: int,
+            wid: torch.Tensor, wid_off: int, key: torch.Tensor, bounce_i: int,
+            plain: bool = False) -> PathState:
+    """One full modular bounce at depth level ``bounce_i``; ``key`` is the
+    lanes' ``work_key(seed, wid + wid_off)``."""
+    state, surf, _ = _collect_hit(state, scene, cfg, plain)
+    k = cfg.max_tries
+    base = bounce_i * draws_per_bounce(k)
+    is_delta = (surf.mkind == MIRROR) | (surf.mkind == DIELECTRIC)
+    args = (scene, seed, wid, wid_off, base, surf.point, surf.n_geom, surf.n_shade,
+            -state.rd, surf.roughness, state.alive & ~is_delta, k)
+    # K3 takes the fast acceptance and at most 32 lights; faithful acceptance
+    # and larger light tables take the XLA formulation, as in the JAX package
+    if not (plain or cfg.faithful or scene.statics.num_lights > UNROLL_MAX_LIGHTS):
+        l_s, pdf, ok = sample_mixture_kernel(*args)
+    else:
+        l_s, pdf, ok = sampler_plain(*args, faithful=cfg.faithful)
+    u_diel = uniform_ctr(key, base + ctr_diel(k))
+    if cfg.rr:
+        u_rr = uniform_ctr(key, base + ctr_rr(k))
+        return _finish_bounce(state, surf, l_s, pdf, ok, u_diel, cfg, u_rr=u_rr,
+                              rr_mask=bounce_i >= RR_START)
+    return _finish_bounce(state, surf, l_s, pdf, ok, u_diel, cfg)
+
+
+def trace_paths(scene: ModularScene, ro: Vec3, rd: Vec3, seed: int,
+                wid: torch.Tensor, wid_off: int, key: torch.Tensor,
+                cfg: TraceConfig, plain: bool = False):
+    """Radiance of one path per lane from the rays (ro, rd) on the modular
+    path; ``key`` is the lanes' ``work_key(seed, wid + wid_off)``. Returns
+    (radiance Vec3, path vertices as a 0-dim float64 tensor)."""
+    zero = ro.x * 0.0
+    one = zero + 1.0
+    st = PathState(ro, rd, Vec3(one, one, one), Vec3(zero, zero, zero), zero < 1.0)
+    rays = torch.zeros((), dtype=torch.float64, device=ro.x.device)
+    for i in range(cfg.ray_depth - 1):
+        rays += st.alive.sum(dtype=torch.float64)
+        st = _bounce(st, scene, cfg, seed, wid, wid_off, key, i, plain)
+    rays += st.alive.sum(dtype=torch.float64)
+    st, _, _ = _collect_hit(st, scene, cfg, plain)
+    return st.radiance, rays
+
+
+def _modular_sample(scene: ModularScene, seed: int, wid: torch.Tensor,
+                    wid_off: int, px: torch.Tensor, py: torch.Tensor, cam,
+                    cfg: TraceConfig, width: int, height: int, plain: bool):
+    key = work_key(seed, wid.to(torch.int64) + int(wid_off))
+    ro, rd = generate_rays_u(cam, px, py, width, height, uniform_ctr(key, CTR_JITTER),
+                             uniform_ctr(key, CTR_JITTER + 1))
+    rad, rays = trace_paths(scene, ro, rd, seed, wid, wid_off, key, cfg, plain)
+    return torch.stack(list(rad)), rays
+
+
+def render_pixels(scene, seed: int, wid: torch.Tensor, px: torch.Tensor,
+                  py: torch.Tensor, cam_row: torch.Tensor, cfg: TraceConfig,
+                  width: int, height: int, samples: int, n_pix: int,
+                  plain: bool = False):
     """Average radiance over ``samples`` jittered paths per lane.
 
-    Lane ``i`` renders pixel (px[i], py[i]); its sample ``s`` is work item
-    ``wid[i] + s * n_pix`` of the counter RNG. Returns ((3, B) f32
-    channel-major radiance, path vertices as a 0-dim float64 tensor)."""
+    The scene's type is the route: ``mega_gate`` picks it once, when the
+    Renderer builds a ``BounceScene`` (fused path) or a ``ModularScene``
+    (modular path). Lane ``i`` renders pixel (px[i], py[i]); its sample ``s``
+    is work item ``wid[i] + s * n_pix`` of the counter RNG. Returns ((3, B)
+    f32 channel-major radiance, path vertices as a 0-dim float64 tensor)."""
     b = px.shape[0]
     acc = torch.zeros((3, b), dtype=torch.float32, device=px.device)
-    state = torch.empty((B.N_STATE, b), dtype=torch.float32, device=px.device)
     nrays = torch.zeros((), dtype=torch.float64, device=px.device)
+    modular = isinstance(scene, ModularScene)
+    if modular:
+        cam = camera_from_row(cam_row)
+    else:
+        state = torch.empty((B.N_STATE, b), dtype=torch.float32, device=px.device)
     for s in range(samples):
-        st, rays = trace_sample(scene, state, seed, wid, s * n_pix, px, py,
-                                cam_row, cfg, width, height, plain)
-        acc += st[9:12]
+        if modular:
+            rad, rays = _modular_sample(scene, seed, wid, s * n_pix, px, py, cam, cfg,
+                                        width, height, plain)
+        else:
+            st, rays = trace_sample(scene, state, seed, wid, s * n_pix, px, py,
+                                    cam_row, cfg, width, height, plain)
+            rad = st[9:12]
+        acc += rad
         nrays += rays
     return acc * (1.0 / samples), nrays

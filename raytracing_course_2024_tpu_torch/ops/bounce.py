@@ -18,8 +18,8 @@ package's 13 SoA lanes: rows ro3, rd3, thr3, rad3, alive (1.0 / 0.0).
 
 Each wrapper runs the plain version only for tensors on the CPU. On a CUDA
 tensor it launches the kernel of ``csrc/bounce.cu`` (built on first use by
-``ops/kernels.py``) or raises. ``LAUNCHES`` counts kernel launches per
-entry point.
+``ops/kernels.py``) or raises, and counts the launch in
+``ops/kernels.py:LAUNCHES``.
 
 Uniforms come from the counter RNG (``ops/rng.py``): lane ``i`` draws from
 ``work_key(seed, wid[i] + wid_off)`` at counter
@@ -47,10 +47,11 @@ from ..scene.build import MAX_PRIMS
 from .brdf import eval_brdf
 from .camera import camera_from_row, generate_rays_u
 from .intersect import DIR_BIAS, EPS
+from .kernels import LAUNCHES, check, launch_bounce, launch_primary
 from .mixture import mixture_body
 from .rng import CTR_JITTER, ctr_diel, draws_per_bounce, uniform_ctr, work_key
 from .sampling import UNROLL_MAX_LIGHTS
-from .vec import Quat, Vec3, reflect, where3
+from .vec import Quat, Vec3, reflect, true_div, where3
 
 EPS_BACKOFF = 1e-4
 N_STATE = 13
@@ -71,14 +72,6 @@ _EMIT = 30  # 30-32
 _IOR = 33
 _MKIND = 34
 C_GEO = 35
-
-LAUNCHES = {"primary": 0, "bounce": 0, "final": 0}
-
-
-def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-
 
 def build_geo_rows(scn: SceneArrays, statics: SceneStatics) -> np.ndarray:
     """(C_GEO, M) f32 unified geometry+attribute table: finite primitives
@@ -120,13 +113,13 @@ def build_geo_rows(scn: SceneArrays, statics: SceneStatics) -> np.ndarray:
 
 
 def gate_reason(statics: SceneStatics) -> str | None:
-    """Why a scene cannot take the fused-bounce path, or None if it can."""
+    """Why a scene cannot take the fused-bounce path (it then takes the
+    modular dense path, ``ops/scene_intersect.py``), or None if it can: the
+    JAX package's ``megakernel_eligible``."""
     if not statics.mega_spec or len(statics.mega_spec) > MAX_PRIMS:
-        return (f"more than {MAX_PRIMS} primitives + planes: the modular dense "
-                "path is ROADMAP M5")
+        return f"more than {MAX_PRIMS} primitives + planes"
     if statics.num_lights > UNROLL_MAX_LIGHTS:
-        return (f"more than {UNROLL_MAX_LIGHTS} lights: the vectorized light "
-                "pdf is ROADMAP M5")
+        return f"more than {UNROLL_MAX_LIGHTS} lights"
     return None
 
 
@@ -252,8 +245,8 @@ def _intersect_all(spec: tuple, geo: np.ndarray, ro: Vec3, rd: Vec3):
                 flip = torch.where(outer, 1.0, -1.0)
                 cn = Vec3(cnx * flip, cny * flip, cnz * flip)
             elif kind == ELLIPSOID:
-                iox, ioy, ioz = o.x / ax_, o.y / ay_, o.z / az_
-                idx_, idy, idz = d.x / ax_, d.y / ay_, d.z / az_
+                iox, ioy, ioz = true_div(o.x, ax_), true_div(o.y, ay_), true_div(o.z, az_)
+                idx_, idy, idz = true_div(d.x, ax_), true_div(d.y, ay_), true_div(d.z, az_)
                 a_q = idx_ * idx_ + idy * idy + idz * idz
                 b_q = iox * idx_ + ioy * idy + ioz * idz
                 c_q = iox * iox + ioy * ioy + ioz * ioz - 1.0
@@ -271,9 +264,9 @@ def _intersect_all(spec: tuple, geo: np.ndarray, ro: Vec3, rd: Vec3):
                 hz = o.z + d.z * t
                 flip = torch.where(outer, 1.0, -1.0)
                 cn = Vec3(
-                    hx / (ax_ * ax_) * flip,
-                    hy / (ay_ * ay_) * flip,
-                    hz / (az_ * az_) * flip,
+                    true_div(hx, ax_ * ax_) * flip,
+                    true_div(hy, ay_ * ay_) * flip,
+                    true_div(hz, az_ * az_) * flip,
                 )
             else:  # infinite plane (mega_spec kind 3)
                 denom = ax_ * d.x + ay_ * d.y + az_ * d.z
@@ -459,27 +452,16 @@ def primary_plain(scene: BounceScene, cam_row: torch.Tensor, px: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} is not contiguous")
-
-
 def _check_scene(scene: BounceScene, device) -> None:
     m = scene.geo.shape[1]
     nl = scene.lp.shape[1]
     if m > MAX_PRIMS or nl > UNROLL_MAX_LIGHTS:
         raise ValueError(f"geo table M={m} > {MAX_PRIMS} or lights {nl} > "
                          f"{UNROLL_MAX_LIGHTS}")
-    _check("geo", scene.geo, torch.float32, (C_GEO, m), device)
-    _check("lp", scene.lp, torch.float32, (LightCol.COUNT, nl), device)
-    _check("spec", scene.spec, torch.int32, (m,), device)
-    _check("lspec", scene.lspec, torch.int32, (nl,), device)
+    check("geo", scene.geo, torch.float32, (C_GEO, m), device)
+    check("lp", scene.lp, torch.float32, (LightCol.COUNT, nl), device)
+    check("spec", scene.spec, torch.int32, (m,), device)
+    check("lspec", scene.lspec, torch.int32, (nl,), device)
 
 
 def bounce(scene: BounceScene, state: torch.Tensor, wid: torch.Tensor,
@@ -500,15 +482,13 @@ def bounce(scene: BounceScene, state: torch.Tensor, wid: torch.Tensor,
         return out
     if state.device.type != "cuda":
         raise ValueError(f"no bounce kernel for device {state.device}")
-    from .kernels import launch_bounce
-
     b = state.shape[1]
-    _check("state", state, torch.float32, (N_STATE, b), state.device)
-    _check("wid", wid, torch.int32, (b,), state.device)
+    check("state", state, torch.float32, (N_STATE, b), state.device)
+    check("wid", wid, torch.int32, (b,), state.device)
     _check_scene(scene, state.device)
     if out is None:
         out = torch.empty_like(state)
-    _check("out", out, torch.float32, (N_STATE, b), state.device)
+    check("out", out, torch.float32, (N_STATE, b), state.device)
     launch_bounce(scene, state, out, wid, wid_off, seed, bounce_i, bg,
                   max_tries, draws_per_bounce(max_tries), final_only)
     LAUNCHES["final" if final_only else "bounce"] += 1
@@ -531,18 +511,16 @@ def primary_bounce(scene: BounceScene, cam_row: torch.Tensor,
         return out
     if px.device.type != "cuda":
         raise ValueError(f"no bounce kernel for device {px.device}")
-    from .kernels import launch_primary
-
     b = px.shape[0]
     dev = px.device
-    _check("px", px, torch.float32, (b,), dev)
-    _check("py", py, torch.float32, (b,), dev)
-    _check("wid", wid, torch.int32, (b,), dev)
-    _check("cam_row", cam_row, torch.float32, (128,), dev)
+    check("px", px, torch.float32, (b,), dev)
+    check("py", py, torch.float32, (b,), dev)
+    check("wid", wid, torch.int32, (b,), dev)
+    check("cam_row", cam_row, torch.float32, (128,), dev)
     _check_scene(scene, dev)
     if out is None:
         out = torch.empty((N_STATE, b), dtype=torch.float32, device=dev)
-    _check("out", out, torch.float32, (N_STATE, b), dev)
+    check("out", out, torch.float32, (N_STATE, b), dev)
     launch_primary(scene, cam_row, px, py, out, wid, wid_off, seed, bg,
                    max_tries, width, height)
     LAUNCHES["primary"] += 1

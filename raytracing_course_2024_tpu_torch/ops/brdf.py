@@ -13,7 +13,7 @@ import math
 import torch
 
 from ..scene.types import DIFFUSE
-from .vec import Vec3, lerp3, where3
+from .vec import Vec3, lerp3, true_div, where3
 
 PI = math.pi
 _SAFE = 1e-12
@@ -51,7 +51,7 @@ def eval_brdf(l: Vec3, n: Vec3, v: Vec3, color: Vec3, metallic: torch.Tensor,
     """BRDF of the sampled-lobe materials (DIFFUSE and PBR); delta materials
     never reach it."""
     h = (l + v).normalize()
-    diffuse = Vec3(color.x / PI, color.y / PI, color.z / PI)
+    diffuse = Vec3(true_div(color.x, PI), true_div(color.y, PI), true_div(color.z, PI))
 
     alpha = roughness * roughness
     spec = specular_brdf(l.dot(n), v.dot(n), h.dot(n), alpha)

@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 from ..scene.types import CameraDesc
-from .vec import Vec3
+from .vec import Vec3, true_div
 
 
 class CameraArrays(NamedTuple):
@@ -51,8 +51,8 @@ def generate_rays_u(cam: CameraArrays, px: torch.Tensor, py: torch.Tensor,
     (origin Vec3 (B,), unit direction Vec3 (B,))."""
     real_x = px.to(torch.float32) + u0
     real_y = py.to(torch.float32) + u1
-    sx = (2.0 * real_x / width - 1.0) * cam.tan_half_fov_x
-    sy = -(2.0 * real_y / height - 1.0) * cam.tan_half_fov_y
+    sx = (true_div(2.0 * real_x, width) - 1.0) * cam.tan_half_fov_x
+    sy = -(true_div(2.0 * real_y, height) - 1.0) * cam.tan_half_fov_y
 
     def axis(i):
         return sx * cam.right[i] + sy * cam.up[i] + cam.forward[i]

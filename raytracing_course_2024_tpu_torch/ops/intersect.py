@@ -1,10 +1,11 @@
-"""Ray-shape interval kernels used by the light pdf (``ops/sampling.py``).
+"""Ray-shape intersection math of the light pdf (``ops/sampling.py``) and
+the modular dense path (``ops/scene_intersect.py``).
 
-Port of the part of the JAX package's ``ops/intersect.py`` that the
-fused-bounce slice reaches: box and ellipsoid intervals and normals, the
-Moller-Trumbore triangle test, and the world<->local transforms. Every
-function broadcasts its ``Vec3`` components, so a per-light scalar
-(numpy float32) table entry combines with (B,) ray tensors.
+Port of the JAX package's ``ops/intersect.py``: box and ellipsoid
+intervals and normals, the Moller-Trumbore triangle test, the plane test,
+and the world<->local transforms. Every function broadcasts its ``Vec3``
+components, so a per-light scalar (numpy float32) table entry combines with
+(B,) ray tensors, and (B, 1) rays with (1, N) table rows give (B, N).
 """
 
 from __future__ import annotations
@@ -13,8 +14,9 @@ from typing import NamedTuple
 
 import torch
 
-from .vec import Quat, Vec3, where3
+from .vec import Quat, Vec3, true_div, where3
 
+INF = float("inf")
 EPS = 1e-4  # f32 retune of the reference's EPS=1e-5
 DIR_BIAS = 1e-9  # slab-test direction bias
 
@@ -76,9 +78,8 @@ def ray_ellipsoid_interval(ro: Vec3, rd: Vec3, r: Vec3) -> Interval:
 
 def ellipsoid_normal(p_local: Vec3, r: Vec3) -> Vec3:
     """Outward normal at a surface point: normalize(p / r^2)."""
-    return Vec3(
-        p_local.x / (r.x * r.x), p_local.y / (r.y * r.y), p_local.z / (r.z * r.z)
-    ).normalize()
+    return Vec3(true_div(p_local.x, r.x * r.x), true_div(p_local.y, r.y * r.y),
+                true_div(p_local.z, r.z * r.z)).normalize()
 
 
 def ray_triangle(ro: Vec3, rd: Vec3, a: Vec3, b: Vec3, c: Vec3):
@@ -97,6 +98,14 @@ def ray_triangle(ro: Vec3, rd: Vec3, a: Vec3, b: Vec3, c: Vec3):
     t = e2.dot(qv) * inv_det
     valid = (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & det_ok
     return t, u, v, valid
+
+
+def ray_plane_t(ro: Vec3, rd: Vec3, n: Vec3):
+    """Plane through the local origin with normal n. Returns (t, valid)."""
+    denom = n.dot(rd)
+    den_ok = torch.abs(denom) > 1e-30
+    t = -n.dot(ro) / torch.where(den_ok, denom, 1e-30)
+    return t, den_ok
 
 
 def to_local(ro: Vec3, rd: Vec3, pos: Vec3, rot: Quat, rotated: bool):

@@ -2,12 +2,17 @@
 
 The sources are compiled by ``nvcc`` on first use into
 ``raytracing_course_2024_tpu_torch/build/`` (git-ignored), one shared
-library per hash of the sources and flags, and loaded with ctypes. The
-build targets ``sm_90a`` (Hopper) with a plain C interface, so no PyTorch
-header is compiled. ``-Xptxas -v`` writes each kernel's registers, shared
-memory and spills into the build log next to the library.
+library per hash of every file under ``csrc/`` and the flags, and loaded
+with ctypes. Each ``.cu`` file compiles to an object in its own ``nvcc``
+process, all started together, then one link makes the library. The build
+targets ``sm_90a`` (Hopper) with a plain C interface, so no PyTorch header
+is compiled. ``-Xptxas -v`` writes each kernel's registers, shared memory
+and spills into the build log next to the library.
 
 Importing this module builds nothing; ``library()`` builds on first call.
+``LAUNCHES`` counts the launches each wrapper makes (``ops/bounce.py``,
+``ops/dense_nearest.py``, ``ops/sampler.py``); ``check`` validates a
+tensor before its pointer goes to a kernel.
 """
 
 from __future__ import annotations
@@ -25,7 +30,7 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
-SOURCES = ("bounce.cu",)
+SOURCES = ("bounce.cu", "dense_nearest.cu", "sampler.cu")
 # --fmad=false: no FMA contraction, so the kernels round op by op like the
 # plain versions (PyTorch runs one op per kernel). With contraction, grazing
 # hits and accept decisions flipped on ~0.1 % of the MIXED scene's lanes per
@@ -33,12 +38,31 @@ SOURCES = ("bounce.cu",)
 # the kernels need IEEE inf and exact division.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-    "-lineinfo",
+    "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",
 )
 
 _LIB = None
 BUILD_INFO: dict = {}  # path, seconds (0.0 when cached), log of the last build
+
+# kernel launches per wrapper: the fused K2 / K1 / K1-final, and the modular
+# path's K4 and K3
+LAUNCHES = {"primary": 0, "bounce": 0, "final": 0, "nearest": 0, "sampler": 0}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} is not contiguous")
 
 
 def _nvcc() -> str:
@@ -52,10 +76,11 @@ def _nvcc() -> str:
 
 
 def _build() -> Path:
-    srcs = [CSRC / s for s in SOURCES]
+    files = sorted(p for p in CSRC.iterdir() if p.is_file())
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in srcs:
-        h.update(s.read_bytes())
+    for f in files:  # headers too: an edited header must not reuse a stale .so
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
     tag = h.hexdigest()[:16]
     lib = BUILD_DIR / f"rt_kernels_{tag}.so"
     log = BUILD_DIR / f"rt_kernels_{tag}.log"
@@ -64,15 +89,32 @@ def _build() -> Path:
                           if log.exists() else "")
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]
+    nvcc = _nvcc()
+    stem = f"rt_kernels_{tag}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{stem}.{Path(s).stem}.o" for s in SOURCES]
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    jobs = []
+    for src, obj in zip(SOURCES, objs):
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(CSRC / src)]
+        jobs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                           stderr=subprocess.STDOUT, text=True)))
+    text, failed = "", False
+    for cmd, proc in jobs:
+        out, _ = proc.communicate()
+        text += f"$ {' '.join(cmd)}\n{out}"
+        failed |= proc.returncode != 0
+    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+    if not failed:
+        cmd = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        text += f"$ {' '.join(cmd)}\n{res.stdout}{res.stderr}"
+        failed = res.returncode != 0
     secs = time.perf_counter() - t0
-    text = f"$ {' '.join(cmd)}\n{res.stdout}{res.stderr}"
     log.write_text(text)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{text}")
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError(f"nvcc failed:\n{text}")
     os.replace(tmp, lib)
     BUILD_INFO.update(path=str(lib), seconds=secs, log=text)
     return lib
@@ -93,6 +135,12 @@ def library() -> ctypes.CDLL:
             p, p, p, i, i, p, ll, p, u, u, u, p, p, i, p, p, i, i, f, f, f, i, p,
         ]
         lib.rt_launch_primary.restype = i
+        lib.rt_launch_dense_nearest.argtypes = [p, p, i, ll, f, p, p, p]
+        lib.rt_launch_dense_nearest.restype = i
+        lib.rt_launch_sampler.argtypes = [
+            p, p, p, u, u, u, p, p, i, i, i, ll, p, p, p,
+        ]
+        lib.rt_launch_sampler.restype = i
         _LIB = lib
     return _LIB
 
@@ -134,3 +182,31 @@ def launch_primary(scene, cam_row, px, py, out, wid, wid_off, seed, bg,
         float(bg[0]), float(bg[1]), float(bg[2]), int(max_tries), stream,
     )
     _raise_on(rc, "rt_launch_primary")
+
+
+def _ptrs(tensors) -> ctypes.Array:
+    """Host array of device pointers (the kernels take one per SoA row)."""
+    return (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors))
+
+
+def launch_dense_nearest(rays, tri, tmin, t_out, i_out) -> None:
+    lib = library()
+    stream = torch.cuda.current_stream(t_out.device).cuda_stream
+    rc = lib.rt_launch_dense_nearest(
+        _ptrs(rays), tri.data_ptr(), tri.shape[1], t_out.shape[0], float(tmin),
+        t_out.data_ptr(), i_out.data_ptr(), stream,
+    )
+    _raise_on(rc, "rt_launch_dense_nearest")
+
+
+def launch_sampler(ins, need, wid, wid_off, seed, ctr_base, lp, lspec,
+                   num_lights, max_tries, out, ok) -> None:
+    lib = library()
+    stream = torch.cuda.current_stream(out.device).cuda_stream
+    rc = lib.rt_launch_sampler(
+        _ptrs(ins), need.data_ptr(), wid.data_ptr(), _u32(wid_off), _u32(seed),
+        _u32(ctr_base), lp.data_ptr(), lspec.data_ptr(), lp.shape[1],
+        int(num_lights), int(max_tries), out.shape[1], out.data_ptr(),
+        ok.data_ptr(), stream,
+    )
+    _raise_on(rc, "rt_launch_sampler")

@@ -28,7 +28,7 @@ from .sampling import (
     sample_light_dir_u,
     sample_vndf_u,
 )
-from .vec import Vec3, where3
+from .vec import Vec3, true_div, where3
 
 
 def mixture_body(draw, point: Vec3, n: Vec3, ns: Vec3, v: Vec3,
@@ -60,6 +60,6 @@ def mixture_body(draw, point: Vec3, n: Vec3, ns: Vec3, v: Vec3,
     pdf = pdf_cosine(n, sel) + pdf_vndf(n, sel, v, roughness)
     if statics.num_lights > 0:
         pdf = pdf + pdf_lights_lp(point, sel, lp, statics)
-    pdf = pdf / n_comp
+    pdf = true_div(pdf, n_comp)
     accepted = accepted & (pdf > _SAFE)
     return sel, torch.clamp(pdf, min=_SAFE), accepted

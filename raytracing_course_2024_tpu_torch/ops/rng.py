@@ -19,7 +19,11 @@ Draw layout of the fused-bounce path (one key per (sample, pixel)):
 * draw ``d`` of bounce ``k`` is ``uniform_ctr(key, k * draws_per_bounce(T) + d)``:
   ``d = 0, 1`` camera jitter (bounce 0 only), ``d = 2 + 7 t + r`` row ``r``
   of mixture candidate ``t < T`` (rows: which, u1, u2, u3..u6 with the
-  light pick last), ``d = 2 + 7 T`` the dielectric split.
+  light pick last), ``d = 2 + 7 T`` the dielectric split, ``d = 3 + 7 T``
+  the Russian-roulette draw (modular path only).
+
+The fused kernels and the modular path read the same counters, so the two
+routes trace the same paths from the same seed.
 
 The image is therefore independent of batch size and replica count.
 """
@@ -41,8 +45,9 @@ MIX_ROWS = 7
 
 
 def draws_per_bounce(max_tries: int) -> int:
-    """Counter stride between bounces: jitter, mixture rows, dielectric."""
-    return CTR_MIX + MIX_ROWS * max_tries + 1
+    """Counter stride between bounces: jitter, mixture rows, dielectric,
+    roulette."""
+    return ctr_rr(max_tries) + 1
 
 
 def ctr_mix(cand: int, row: int) -> int:
@@ -51,6 +56,10 @@ def ctr_mix(cand: int, row: int) -> int:
 
 def ctr_diel(max_tries: int) -> int:
     return CTR_MIX + MIX_ROWS * max_tries
+
+
+def ctr_rr(max_tries: int) -> int:
+    return ctr_diel(max_tries) + 1
 
 
 def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:

@@ -1,0 +1,81 @@
+"""Standalone MIS mixture sampler: the hand-written CUDA kernel K3 and its
+plain PyTorch version.
+
+Port of the JAX package's ``ops/pallas_sampling.py`` (``_kernel`` via
+``sample_mixture_pallas``, body ``mixture_body``): per lane ``max_tries``
+iid candidates, each from one uniformly picked component (cosine,
+GGX-VNDF, light surface); the first with l.n_shade > 0 and l.n_geom > 0 is
+kept and the mixture pdf is evaluated for it only. Returns (l, pdf, ok).
+
+The TPU kernel drew from the hardware PRNG; here candidate ``t`` reads row
+``r`` at counter ``ctr_base + ops.rng.ctr_mix(t, r)`` of the lane's key
+``work_key(seed, wid + wid_off)``, so the kernel, its plain version and
+the fused bounce (K1, same counters at the same bounce) see the same draws.
+
+``sampler_plain`` is the JAX package's XLA ``sample_mixture`` fed those
+draws as its 7 candidate-major rows (``ops/sampling.py``). ``ok`` is
+masked with ``need`` on both routes. Where ``ok`` is False, l and pdf are
+undefined and no caller reads them: the kernel skips lanes whose ``need``
+is False and writes l = (0, 0, 1) for lanes with no accepted candidate,
+where the XLA formulation returns l = 0.
+
+``sample_mixture_kernel`` runs the plain version only for tensors on the
+CPU; on a CUDA tensor it launches ``csrc/sampler.cu`` or raises, and
+counts the launch in ``ops/kernels.py:LAUNCHES["sampler"]``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .kernels import LAUNCHES, check, launch_sampler
+from .rng import ctr_mix, uniform_ctr, work_key
+from .sampling import UNROLL_MAX_LIGHTS, sample_mixture
+from .vec import Vec3
+
+N_ROWS = 7  # draws per candidate: which, u1, u2, u3..u6
+
+
+def sampler_plain(scene, seed: int, wid: torch.Tensor, wid_off: int,
+                  ctr_base: int, point: Vec3, n_geom: Vec3, n_shade: Vec3,
+                  v: Vec3, roughness: torch.Tensor, need: torch.Tensor,
+                  max_tries: int = 4, faithful: bool = False):
+    """Plain version of ``sample_mixture_kernel``; ``faithful=True`` is the
+    reference's acceptance, which has no kernel (the JAX package runs it in
+    XLA only)."""
+    key = work_key(seed, wid.to(torch.int64) + int(wid_off))
+    rows = [torch.cat([uniform_ctr(key, ctr_base + ctr_mix(t, r)) for t in range(max_tries)])
+            for r in range(N_ROWS)]
+    return sample_mixture(rows, point, n_geom, n_shade, v, roughness, scene.lp_np,
+                          scene.statics, max_tries, need=need, faithful=faithful)
+
+
+def sample_mixture_kernel(scene, seed: int, wid: torch.Tensor, wid_off: int,
+                          ctr_base: int, point: Vec3, n_geom: Vec3, n_shade: Vec3,
+                          v: Vec3, roughness: torch.Tensor, need: torch.Tensor,
+                          max_tries: int = 4):
+    """Mixture-sampled direction per lane: (l Vec3, pdf, ok)."""
+    dev = point.x.device
+    if dev.type == "cpu":
+        return sampler_plain(scene, seed, wid, wid_off, ctr_base, point, n_geom, n_shade,
+                             v, roughness, need, max_tries)
+    if dev.type != "cuda":
+        raise ValueError(f"no sampler kernel for device {dev}")
+    b = point.x.shape[0]
+    ins = (*point, *n_geom, *n_shade, *v, roughness)
+    for i, c in enumerate(ins):
+        check(f"input row {i}", c, torch.float32, (b,), dev)
+    check("need", need, torch.bool, (b,), dev)
+    check("wid", wid, torch.int32, (b,), dev)
+    lp, lspec = scene.light_packed, scene.lspec
+    nl = lp.shape[1]
+    if not 1 <= nl <= UNROLL_MAX_LIGHTS:
+        raise ValueError(f"light table has {nl} entries, the kernel takes 1..{UNROLL_MAX_LIGHTS}")
+    check("light_packed", lp, torch.float32, (lp.shape[0], nl), dev)
+    check("lspec", lspec, torch.int32, (nl,), dev)
+    out = torch.empty((4, b), dtype=torch.float32, device=dev)
+    ok = torch.empty((b,), dtype=torch.bool, device=dev)
+    launch_sampler(ins, need, wid, wid_off, seed, ctr_base, lp, lspec,
+                   scene.statics.num_lights, max_tries, out, ok)
+    LAUNCHES["sampler"] += 1
+    return Vec3(out[0], out[1], out[2]), out[3], ok

@@ -8,8 +8,9 @@ light pdf summed over every light-primitive hit along the sampled ray.
 The light table ``lp`` is the (LightCol.COUNT, L) pack as a host numpy
 float32 array: per-light entries enter the lane math as scalar constants,
 like the JAX package's statically unrolled light loop. Above
-``UNROLL_MAX_LIGHTS`` the JAX package switches to a vectorized sweep; the
-port's gate refuses such scenes (ROADMAP M5).
+``UNROLL_MAX_LIGHTS`` lights the pdf is one vectorized (B, L) sweep over
+the whole table (``_pdf_lights_vectorized``), as in the JAX package; the
+modular dense path takes it, the fused kernels never see such scenes.
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ from .intersect import (
     ray_triangle,
     to_local,
 )
-from .vec import Quat, Vec3, reflect, where3
+from .vec import Quat, Vec3, reflect, true_div, where3
 
 PI = math.pi
 _SAFE = 1e-9
@@ -74,7 +75,7 @@ def sample_cosine_u(u1, u2, n: Vec3) -> Vec3:
 
 
 def pdf_cosine(n: Vec3, l: Vec3) -> torch.Tensor:
-    return torch.clamp(l.dot(n), min=0.0) / PI
+    return true_div(torch.clamp(l.dot(n), min=0.0), PI)
 
 
 def _sample_ggx_vndf_local(u0, u1, v_local: Vec3, alpha) -> Vec3:
@@ -224,11 +225,10 @@ def pdf_lights_lp(point: Vec3, l: Vec3, lp: np.ndarray,
                   statics: SceneStatics) -> torch.Tensor:
     """Mixture-light pdf: for the ray (point, l), the area->solid-angle pdf
     summed over EVERY light-primitive intersection, divided by the light
-    count. One pass per light, each with its own shape's math."""
+    count. One pass per light, each with its own shape's math; above
+    ``UNROLL_MAX_LIGHTS`` lights one (B, L) sweep instead."""
     if len(statics.light_types) > UNROLL_MAX_LIGHTS:
-        raise NotImplementedError(
-            "more than 32 lights needs the vectorized light pdf (ROADMAP M5)"
-        )
+        return _pdf_lights_vectorized(point, l, lp, statics)
     total = point.x * 0.0
 
     def contrib(t, n_dot_l, local_pdf, valid):
@@ -271,7 +271,62 @@ def pdf_lights_lp(point: Vec3, l: Vec3, lp: np.ndarray,
                     t_root, n_w.dot(l), inv_area / jac, ie.valid
                 )
 
-    return total / max(statics.num_lights, 1)
+    return true_div(total, max(statics.num_lights, 1))
+
+
+def _pdf_lights_vectorized(point: Vec3, l: Vec3, lp: np.ndarray,
+                           statics: SceneStatics) -> torch.Tensor:
+    """(B, L) masked sweep over the whole light table (the JAX package's
+    ``_pdf_lights_vectorized``): every shape's math on every light, the
+    light's own type selected, summed over lights."""
+    n_l = lp.shape[1]
+    tab = torch.from_numpy(np.ascontiguousarray(lp)).to(point.x.device)
+
+    def row(k):
+        return tab[k][None, :]  # (1, L)
+
+    def rv3(k):
+        return Vec3(row(k), row(k + 1), row(k + 2))
+
+    ptype = row(LC.PTYPE)
+    inv_area = row(LC.INV_AREA)
+    p0, p1, p2 = rv3(LC.P0), rv3(LC.P1), rv3(LC.P2)
+    pos = rv3(LC.POS)
+    rot = Quat(row(LC.ROT), row(LC.ROT + 1), row(LC.ROT + 2), row(LC.ROT + 3))
+    real = (torch.arange(n_l, device=tab.device) < statics.num_lights)[None, :]
+
+    pt = Vec3(point.x[:, None], point.y[:, None], point.z[:, None])
+    lb = Vec3(l.x[:, None], l.y[:, None], l.z[:, None])
+    any_rot = any(statics.light_rotated)
+
+    def contrib(t, n_dot_l, local_pdf, valid):
+        denom = torch.clamp(torch.abs(n_dot_l), min=_SAFE)
+        return torch.where(valid & real & (t > 0.0), local_pdf * t * t / denom, 0.0)
+
+    # triangles: world-space vertices (the host build bakes transforms in)
+    t_tri, _, _, v_tri = ray_triangle(pt, lb, p0, p1, p2)
+    tri_n = (p1 - p0).cross(p2 - p0).normalize(eps=1e-20)
+    total = torch.where(ptype == TRI, contrib(t_tri, tri_n.dot(lb), inv_area, v_tri), 0.0)
+
+    # boxes and ellipsoids: local frame, both roots
+    o, d = to_local(pt, lb, pos, rot, any_rot)
+    s = p0
+    ib = ray_box_interval(o, d, s)
+    ie = ray_ellipsoid_interval(o, d, s)
+    box_sum = torch.zeros_like(total)
+    ell_sum = torch.zeros_like(total)
+    for t_root in (ib.t1, ib.t2):
+        p_loc = o + d * t_root
+        n_w = normal_to_world(box_normal(p_loc, s), rot, any_rot)
+        box_sum = box_sum + contrib(t_root, n_w.dot(lb), inv_area, ib.valid)
+    for t_root in (ie.t1, ie.t2):
+        p_loc = o + d * t_root
+        n_w = normal_to_world(ellipsoid_normal(p_loc, s), rot, any_rot)
+        ell_sum = ell_sum + contrib(t_root, n_w.dot(lb), inv_area / _ellipsoid_jac(p_loc, s),
+                                    ie.valid)
+    total = torch.where(ptype == BOX, box_sum, total)
+    total = torch.where(ptype == ELLIPSOID, ell_sum, total)
+    return true_div(torch.sum(total, dim=1), max(statics.num_lights, 1))
 
 
 def _normalize_scalar(v: Vec3, eps: float) -> Vec3:
@@ -283,10 +338,17 @@ def _normalize_scalar(v: Vec3, eps: float) -> Vec3:
 
 def sample_mixture(uniforms: list, point: Vec3, n_geom: Vec3, n_shade: Vec3,
                    v: Vec3, roughness, lp: np.ndarray, statics: SceneStatics,
-                   max_tries: int = 4):
-    """The JAX package's ``sample_mixture`` (fast acceptance) fed explicit
-    uniforms: ``uniforms`` = 7 rows of (K*B,), candidate-major. Returns
-    (l, pdf, ok); lanes with no accepted candidate get l = 0 and ok False."""
+                   max_tries: int = 4, need: torch.Tensor | None = None,
+                   faithful: bool = False):
+    """The JAX package's ``sample_mixture`` fed explicit uniforms:
+    ``uniforms`` = 7 rows of (K*B,), candidate-major. Returns (l, pdf, ok);
+    lanes with no accepted candidate get l = 0 and ok False, and ``ok`` is
+    masked with ``need`` when given.
+
+    ``faithful=False`` accepts a candidate on l.n_shade > 0 and
+    l.n_geom > 0 and evaluates the mixture pdf for the chosen one only;
+    ``faithful=True`` is the reference's acceptance: the full mixture pdf of
+    every candidate, accepted on l.n_shade > 0 and pdf > 0."""
     n_comp = 3 if statics.num_lights > 0 else 2
     b = point.x.shape[0]
     k = max_tries
@@ -305,7 +367,14 @@ def sample_mixture(uniforms: list, point: Vec3, n_geom: Vec3, n_shade: Vec3,
     if statics.num_lights > 0:
         cand = where3(which == 2, sample_light_dir_u(u[1:7], point_t, lp, statics),
                       cand)
-    ok = (cand.dot(tile3(n_shade)) > 0.0) & (cand.dot(n_t) > 0.0)
+    if faithful:
+        pdf_t = pdf_cosine(n_t, cand) + pdf_vndf(n_t, cand, v_t, rough_t)
+        if statics.num_lights > 0:
+            pdf_t = pdf_t + pdf_lights_lp(point_t, cand, lp, statics)
+        pdf_t = true_div(pdf_t, n_comp)
+        ok = (cand.dot(tile3(n_shade)) > 0.0) & (pdf_t > _SAFE)
+    else:
+        ok = (cand.dot(tile3(n_shade)) > 0.0) & (cand.dot(n_t) > 0.0)
 
     ok2 = ok.reshape(k, b)
     is_first = ok2 & (torch.cumsum(ok2.to(torch.int32), dim=0) == 1)
@@ -316,9 +385,14 @@ def sample_mixture(uniforms: list, point: Vec3, n_geom: Vec3, n_shade: Vec3,
 
     l = Vec3(pick(cand.x), pick(cand.y), pick(cand.z))
     accepted = ok2.any(dim=0)
-    pdf = pdf_cosine(n_geom, l) + pdf_vndf(n_geom, l, v, roughness)
-    if statics.num_lights > 0:
-        pdf = pdf + pdf_lights_lp(point, l, lp, statics)
-    pdf = pdf / n_comp
-    accepted = accepted & (pdf > _SAFE)
+    if faithful:
+        pdf = pick(pdf_t)
+    else:
+        pdf = pdf_cosine(n_geom, l) + pdf_vndf(n_geom, l, v, roughness)
+        if statics.num_lights > 0:
+            pdf = pdf + pdf_lights_lp(point, l, lp, statics)
+        pdf = true_div(pdf, n_comp)
+        accepted = accepted & (pdf > _SAFE)
+    if need is not None:
+        accepted = accepted & need
     return l, torch.clamp(pdf, min=_SAFE), accepted

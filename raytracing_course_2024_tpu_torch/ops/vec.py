@@ -49,12 +49,23 @@ class Vec3(NamedTuple):
         return Vec3(self.x * o.x, self.y * o.y, self.z * o.z)
 
     def div(self, o: "Vec3") -> "Vec3":
-        return Vec3(self.x / o.x, self.y / o.y, self.z / o.z)
+        return Vec3(true_div(self.x, o.x), true_div(self.y, o.y), true_div(self.z, o.z))
 
     def normalize(self, eps: float = 0.0) -> "Vec3":
         """``v * rsqrt(max(|v|^2, eps or 1e-30))``, as the JAX package."""
         inv = torch.rsqrt(torch.clamp(self.dot(self), min=eps if eps else 1e-30))
         return self * inv
+
+
+def true_div(x: torch.Tensor, s: Scalar) -> torch.Tensor:
+    """``x / s`` rounded once. On CUDA, PyTorch divides a tensor by a host
+    scalar as a product with the scalar's reciprocal (up to 1 ulp off, which
+    the ellipsoid discriminant's cancellation amplifies); the kernels divide,
+    so the plain versions do too. The divisor becomes a 0-dim device tensor
+    (a fill kernel: no host synchronisation)."""
+    if isinstance(s, torch.Tensor) or x.device.type == "cpu":
+        return x / s
+    return x / torch.full((), float(s), dtype=x.dtype, device=x.device)
 
 
 def where3(cond: torch.Tensor, a: Vec3, b: Vec3) -> Vec3:

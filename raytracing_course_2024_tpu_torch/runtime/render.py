@@ -1,23 +1,27 @@
 """Single-device render orchestration (batch engine).
 
 Pixels are flattened into fixed-size lane batches; each batch runs
-``integrator.path.render_pixels``. Frames smaller than ``batch_size`` give
-each pixel ``replicas`` lanes that split the spp budget (the JAX package's
-``_plan``). Every draw is keyed by (seed, sample, pixel) through the
-counter RNG, so the image does not depend on the batch size or the replica
-count.
+``integrator.path.render_pixels`` on the fused path or the modular dense
+path, picked as the JAX package picks them (``integrator.path.mega_gate``,
+which chooses the device scene the Renderer builds). Frames smaller than
+``batch_size`` give each pixel ``replicas`` lanes that split the spp
+budget (the JAX package's ``_plan``). Every draw is keyed by (seed, sample,
+pixel) through the counter RNG, so the image does not depend on the batch
+size or the replica count.
 """
 
 from __future__ import annotations
 
 import logging
+import os
 import time
 
 import numpy as np
 import torch
 
-from ..integrator.path import TraceConfig, mega_gate_reason, render_pixels
-from ..ops.bounce import bounce_scene
+from ..integrator.path import TraceConfig, mega_gate, render_pixels
+from ..ops.bounce import BounceScene, bounce_scene
+from ..ops.scene_intersect import modular_scene
 from ..ops.camera import camera_arrays, pack_camera_row
 from ..ops.tonemap import color_to_u8
 from ..scene.build import build_scene_arrays
@@ -41,9 +45,11 @@ def _device(device) -> torch.device:
 class Renderer:
     """Renders frames of one scene on one device.
 
-    ``plain=True`` runs the plain PyTorch versions of the bounce kernels on
-    any device (used to hold the kernels against them on the card); by
-    default a CUDA device runs the kernels and the CPU the plain versions."""
+    ``plain=True`` runs the plain PyTorch versions of the kernels (K1-K4)
+    on any device (used to hold the kernels against them on the card); by
+    default a CUDA device runs the kernels and the CPU the plain versions.
+    ``russian_roulette=None`` reads ``RT_RR`` (``"1"`` turns it on), as the
+    JAX package's Renderer does."""
 
     def __init__(
         self,
@@ -54,7 +60,7 @@ class Renderer:
         max_tries: int = 4,
         faithful: bool = False,
         engine: str | None = None,
-        russian_roulette: bool = False,
+        russian_roulette: bool | None = None,
         plain: bool = False,
     ):
         self.device = _device(device)
@@ -62,12 +68,16 @@ class Renderer:
         arrays, statics = build_scene_arrays(desc)
         if backend is None:
             backend = "bvh" if statics.num_prims > BVH_THRESHOLD else "dense"
+        if backend != "dense":
+            raise NotImplementedError("the BVH backend is not ported yet (ROADMAP M6)")
         engine = engine or "batch"
         if engine != "batch":
             raise NotImplementedError(
                 f"engine {engine!r} is not ported yet (ROADMAP M6 wavefront, "
                 "M7 sticky)"
             )
+        if russian_roulette is None:
+            russian_roulette = os.environ.get("RT_RR") == "1"
         self.batch_size = batch_size
         self.plain = plain
         self.cfg = TraceConfig(
@@ -78,13 +88,16 @@ class Renderer:
             faithful=faithful,
             rr=russian_roulette,
         )
-        reason = mega_gate_reason(self.cfg, statics)
-        if reason:
-            raise NotImplementedError(reason)
-        self.scene = bounce_scene(arrays, statics, self.device)
+        build = bounce_scene if mega_gate(self.cfg, statics) else modular_scene
+        self.scene = build(arrays, statics, self.device)
         self.cam = camera_arrays(self.settings.camera)
         self.cam_row = torch.from_numpy(pack_camera_row(self.cam)[0]).to(self.device)
         self.bg = self.cfg.bg_color
+
+    @property
+    def fused(self) -> bool:
+        """Whether frames take the fused path (the scene's type is the route)."""
+        return isinstance(self.scene, BounceScene)
 
     def _plan(self, total: int, samples: int):
         """Pick (batch, replicas): fill ~batch_size lanes, replicas | samples."""

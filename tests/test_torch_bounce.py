@@ -33,6 +33,7 @@ from raytracing_course_2024_tpu.ops.vec import Vec3 as JV
 from raytracing_course_2024_tpu.ops.vec import reflect as j_reflect
 from raytracing_course_2024_tpu.scene.types import DIELECTRIC, MIRROR
 from raytracing_course_2024_tpu_torch.ops import bounce as B
+from raytracing_course_2024_tpu_torch.ops import kernels
 from raytracing_course_2024_tpu_torch.ops import rng as trng
 from raytracing_course_2024_tpu_torch.ops.camera import (
     camera_arrays,
@@ -207,7 +208,7 @@ def test_primary_prologue_matches_generate_rays_u(name):
 
 def test_cpu_wrappers_run_plain_and_count_nothing():
     c = _case("mixed")
-    B.reset_launches()
+    kernels.reset_launches()
     st = torch.from_numpy(c["state"].copy())
     wid = torch.from_numpy(c["idx"])
     got = B.bounce(c["scene"], st, wid, 0, SEED, 0, c["bg"], K)
@@ -218,6 +219,6 @@ def test_cpu_wrappers_run_plain_and_count_nothing():
     px = (wid % c["w"]).float()
     py = (wid // c["w"]).float()
     B.primary_bounce(c["scene"], cam, px, py, wid, 0, SEED, c["bg"], K, c["w"], c["h"])
-    assert B.LAUNCHES == {"primary": 0, "bounce": 0, "final": 0}
+    assert kernels.LAUNCHES == {"primary": 0, "bounce": 0, "final": 0, "nearest": 0, "sampler": 0}
     with pytest.raises(ValueError):
         B.bounce(c["scene"], st.to("meta"), wid, 0, SEED, 0, c["bg"], K)

@@ -1,7 +1,8 @@
 """PyTorch port, whole-frame rendering on the CPU (plain versions of the
 kernels): against the JAX renderer statistically and against a JAX loop
 fed the same counter draws pixel by pixel; batch-size invariance,
-determinism, the CLI, and the configurations the port refuses."""
+determinism, the CLI, the configurations off the fused route, and those the
+port still refuses."""
 
 import os
 
@@ -11,6 +12,7 @@ import pytest
 import torch
 
 from raytracing_course_2024_tpu.integrator.path import (
+    RR_START,
     TraceConfig as JTraceConfig,
     _collect_hit,
     _finish_bounce,
@@ -22,6 +24,7 @@ from raytracing_course_2024_tpu.ops.camera import generate_rays_u as j_rays
 from raytracing_course_2024_tpu.ops.sampling import sample_mixture
 from raytracing_course_2024_tpu.ops.vec import Vec3 as JV
 from raytracing_course_2024_tpu.runtime.render import Renderer as JRenderer
+from raytracing_course_2024_tpu.scene import build_scene_arrays as jbuild
 from raytracing_course_2024_tpu.scene.types import DIELECTRIC, MIRROR
 from raytracing_course_2024_tpu_torch.integrator.path import (
     TraceConfig,
@@ -76,14 +79,16 @@ def test_renderer_matches_jax_renderer_statistically():
     assert np.isfinite(got).all() and (got >= 0).all()
 
 
-def _jax_counter_loop(jd, ja, js, w, h, spp, seed32, depth):
+def _jax_counter_loop(jd, ja, js, w, h, spp, seed32, depth, rr=False, faithful=False):
     """The port's estimator composed from the JAX package's stages:
-    generate_rays_u, then per bounce _collect_hit + sample_mixture + _finish_bounce,
-    and a final _collect_hit, all fed the port's counter draws."""
+    generate_rays_u, then per bounce _collect_hit + sample_mixture + _finish_bounce
+    (with the roulette draw when ``rr``), and a final _collect_hit, all fed
+    the port's counter draws. Returns ((3, n_pix) radiance, path vertices)."""
     n_pix, k = w * h, 4
     pix = np.arange(n_pix, dtype=np.int32)
     cam = j_camera(jd.settings.camera)
-    cfg = JTraceConfig(ray_depth=depth, bg_color=tuple(jd.settings.bg_color), max_tries=k)
+    cfg = JTraceConfig(ray_depth=depth, bg_color=tuple(jd.settings.bg_color), max_tries=k,
+                       faithful=faithful, rr=rr)
     arrays = to_jnp(ja)
     acc = np.zeros((3, n_pix), np.float64)
     rays = 0.0
@@ -93,10 +98,8 @@ def _jax_counter_loop(jd, ja, js, w, h, spp, seed32, depth):
                         jrng.uniform_ctr(key, 0), jrng.uniform_ctr(key, 1))
         one, zero = jnp.ones((n_pix,)), jnp.zeros((n_pix,))
         st = _PathState(ro, rd, JV(one, one, one), JV(zero, zero, zero), one > 0)
-        rays += n_pix
         for b in range(depth - 1):
-            if b:
-                rays += float(jnp.sum(st.alive))
+            rays += float(jnp.sum(st.alive))
             base = b * trng.draws_per_bounce(k)
             st2, surf, _ = _collect_hit(st, arrays, js, cfg)
             rows = [jnp.concatenate([jrng.uniform_ctr(key, base + trng.ctr_mix(t, r))
@@ -105,9 +108,13 @@ def _jax_counter_loop(jd, ja, js, w, h, spp, seed32, depth):
             l, pdf, ok = sample_mixture(None, surf.point, surf.n_geom, surf.n_shade,
                                         -st.rd, surf.roughness, arrays, js,
                                         need=st2.alive & ~delta, max_tries=k,
-                                        uniforms=rows)
-            st = _finish_bounce(st2, surf, l, pdf, ok,
-                                jrng.uniform_ctr(key, base + trng.ctr_diel(k)), cfg)
+                                        faithful=faithful, uniforms=rows)
+            u_diel = jrng.uniform_ctr(key, base + trng.ctr_diel(k))
+            rr_kw = {}
+            if rr:
+                rr_kw = dict(u_rr=jrng.uniform_ctr(key, base + trng.ctr_rr(k)),
+                             rr_mask=jnp.full((n_pix,), b >= RR_START))
+            st = _finish_bounce(st2, surf, l, pdf, ok, u_diel, cfg, **rr_kw)
         rays += float(jnp.sum(st.alive))
         st, _, _ = _collect_hit(st, arrays, js, cfg)
         acc += np.stack([np.asarray(c) for c in st.radiance])
@@ -185,34 +192,55 @@ def test_cuda_requests_raise_without_a_card(tmp_path, monkeypatch):
     assert not os.path.exists("x.ppm")
 
 
-def _out_of_gate(case):
-    _, td = descs("mixed")
+def _configuration(case, w=16, h=12, spp=2):
+    """(JAX desc, port desc, Renderer keywords) of one configuration off
+    the default fused route."""
+    jd, td = descs("mixed", w, h, spp)
     kw = {}
-    if case == "many_prims":  # 320 triangles > 128: modular dense path
-        verts, faces = icosphere(2)
-        td = mesh_scene_desc(verts, faces)
-    elif case == "bvh_size":  # > 2048 triangles: BVH backend
-        verts, faces = icosphere(4)
-        td = mesh_scene_desc(verts, faces)
-    elif case == "many_lights":  # 40 emissive triangles > 32
-        verts, faces = icosphere(1)
-        td = mesh_scene_desc(verts, faces[:40])
-        for p in td.primitives:
-            p.emission = np.ones(3)
+    if case in ("many_prims", "bvh_size", "many_lights"):
+        # 320 triangles > 128: modular sweep; > 2048: BVH backend; 40
+        # emissive triangles > 32 lights: vectorized light pdf
+        verts, faces = icosphere({"many_prims": 2, "bvh_size": 4, "many_lights": 1}[case])
+        jd = td = mesh_scene_desc(verts, faces[:40] if case == "many_lights" else faces,
+                                  width=w, height=h, samples=spp)
+        if case == "many_lights":
+            for p in td.primitives:
+                p.emission = np.ones(3)
     elif case == "depth1":
-        td.settings.ray_depth = 1
+        jd.settings.ray_depth = td.settings.ray_depth = 1
     else:
         kw = {"faithful": dict(faithful=True), "roulette": dict(russian_roulette=True),
               "wavefront": dict(engine="wavefront"), "sticky": dict(engine="sticky"),
               "bvh": dict(backend="bvh")}[case]
-    return td, kw
+    return jd, td, kw
 
 
-@pytest.mark.parametrize("case", ["many_prims", "bvh_size", "many_lights", "depth1",
-                                  "faithful", "roulette", "wavefront", "sticky", "bvh"])
+@pytest.mark.parametrize("case", ["many_prims", "many_lights", "depth1", "faithful",
+                                  "roulette"])
+def test_modular_and_depth1_configurations_render(case):
+    """Configurations the fused gate refuses render on the modular dense
+    path (depth 1 on the fused route's final level) and match the JAX-driven
+    loop: >= 99 % of the pixels within 1e-4, path vertices within 1 %."""
+    w, h, spp = 16, 12, 2
+    jd, td, kw = _configuration(case, w, h, spp)
+    r = Renderer(td, device="cpu", **kw)
+    assert r.fused == (case == "depth1")
+    outs, verts = r.render_frame_device(seed=SEED)
+    got = r._assemble(outs).reshape(-1, 3).T
+    ja, js = jbuild(jd)
+    want, want_rays = _jax_counter_loop(jd, ja, js, w, h, spp, (SEED * 2654435761) & 0xFFFFFFFF,
+                                        td.settings.ray_depth, rr=case == "roulette",
+                                        faithful=case == "faithful")
+    ok = (np.abs(got - want) <= 1e-4).all(axis=0)
+    assert ok.mean() >= 0.99, ok.mean()
+    assert abs(verts - want_rays) <= 0.01 * want_rays
+    assert got.max() > 0
+
+
+@pytest.mark.parametrize("case", ["bvh_size", "wavefront", "sticky", "bvh"])
 def test_out_of_gate_configurations_raise(case):
-    td, kw = _out_of_gate(case)
-    with pytest.raises(NotImplementedError, match="ROADMAP M[567]"):
+    _, td, kw = _configuration(case)
+    with pytest.raises(NotImplementedError, match="ROADMAP M[67]"):
         Renderer(td, device="cpu", **kw)
 
 

@@ -49,8 +49,8 @@ def test_uniform_ctr_bit_exact(seed):
 
 def test_draw_layout():
     """Counter layout of one bounce: jitter 0-1, 7 rows per mixture
-    candidate, then the dielectric split."""
-    assert trng.draws_per_bounce(4) == 2 + 7 * 4 + 1
-    seen = {trng.CTR_JITTER, trng.CTR_JITTER + 1, trng.ctr_diel(4)}
+    candidate, then the dielectric split and the roulette draw."""
+    assert trng.draws_per_bounce(4) == 2 + 7 * 4 + 2
+    seen = {trng.CTR_JITTER, trng.CTR_JITTER + 1, trng.ctr_diel(4), trng.ctr_rr(4)}
     seen |= {trng.ctr_mix(t, r) for t in range(4) for r in range(7)}
     assert seen == set(range(trng.draws_per_bounce(4)))

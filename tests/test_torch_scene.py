@@ -1,6 +1,6 @@
 """PyTorch port, host scene layer: the port's numpy build, geo table and
 camera row must equal the JAX package's exactly, scene_from_jax must
-reproduce the port's own build, and the image writers must write the same
+reproduce the port's own fused and modular device scenes, and the image writers must write the same
 bytes."""
 
 import os
@@ -18,7 +18,10 @@ from raytracing_course_2024_tpu.runtime import image_io as j_io
 from raytracing_course_2024_tpu_torch.ops.bounce import bounce_scene, build_geo_rows
 from raytracing_course_2024_tpu_torch.ops.camera import camera_arrays, pack_camera_row
 from raytracing_course_2024_tpu_torch.runtime import image_io as t_io
+from raytracing_course_2024_tpu_torch.ops.scene_intersect import modular_scene
 from raytracing_course_2024_tpu_torch.scene.device import scene_from_jax
+from raytracing_course_2024_tpu.scene import build_scene_arrays as j_build
+from meshes import icosphere, mesh_scene_desc
 from torch_parity import REPO, SCENES, builds, to_jnp
 
 
@@ -49,13 +52,29 @@ def test_geo_rows_and_camera_row_match(name):
 @pytest.mark.parametrize("name", SCENES)
 def test_scene_from_jax_matches_port_build(name):
     (_, ja, js), (_, ta, ts) = builds(name)
-    got, statics = scene_from_jax(ja, js, "cpu")
+    got, mod, statics = scene_from_jax(ja, js, "cpu")
     own = bounce_scene(ta, ts, "cpu")
     assert statics == ts
     for field in ("geo", "lp", "spec", "lspec"):
         assert torch.equal(getattr(got, field), getattr(own, field)), field
     assert np.array_equal(got.geo_np, own.geo_np)
     assert np.array_equal(got.lp_np, own.lp_np)
+    own_mod = modular_scene(ta, ts, "cpu")
+    assert mod.statics == ts
+    for field in ("packed", "plane_packed", "pl_mask", "light_packed", "lspec", "tri_pack"):
+        a, b = getattr(mod, field), getattr(own_mod, field)
+        assert (a is None and b is None) or torch.equal(a, b), field
+    assert torch.equal(mod.lspec, own.lspec)
+
+
+def test_scene_from_jax_off_the_fused_gate():
+    """A 320-triangle mesh has no fused scene, only the modular one."""
+    verts, faces = icosphere(2)
+    d = mesh_scene_desc(verts, faces)
+    ja, js = j_build(d)
+    fused, mod, statics = scene_from_jax(ja, js, "cpu")
+    assert fused is None and mod.tri_pack is None and mod.packed.shape[1] == 321
+    assert statics.num_prims == 321
 
 
 def test_cornell_fixture_is_the_headline_family():
