@@ -19,21 +19,35 @@ exits non-zero):
                262,144 and 921,600 lanes; K3 on real ``surface_detail``
                outputs at bounces 0 and 1 of MIXED and LIGHTS (262,144
                lanes) and of Cornell (262,144 and 921,600 lanes);
+               lane engines: K1 in lane mode chained over 3 rounds from
+               random per-lane depths and work ids (MIXED and Cornell at
+               262,144 lanes; Cornell at the wavefront engine's 1,048,576
+               lanes over the 1280x720 x 16 spp work ids); K5 chained over 10 rounds,
+               each fed the plain version's previous state, on MIXED and
+               Cornell at 262,144 lanes and Cornell at 921,600 (16 spp);
 4. main     -- the port's CLI renders scenes/cornell_box.gltf at 1280x720,
-               16 spp twice: by default (the fused path: K2, K1, K1-final)
-               and with RT_RR=1 (the modular path: K4, K3); the launch
-               counters are set to 0 before each run, read after it, and
-               must match that path exactly;
+               16 spp four times: by default (the fused path: K2, K1,
+               K1-final), with RT_RR=1 (the modular path: K4, K3), with
+               RT_ENGINE=sticky (K5 only, once per round) and with
+               RT_ENGINE=wavefront (K1 in lane mode only, once per round);
+               the launch counters are set to 0 before each run, read after
+               it, and must match that path exactly (the lane engines: the
+               rounds they report);
 5. render   -- 320x180 x 16 spp frames: fused kernels against fused plain;
                modular kernels against modular plain (roulette on); modular
-               against fused kernels (roulette off, RT_MEGAKERNEL=0); a
-               1281-primitive mesh (K3 + the chunked sweep) at 4 spp
-               against its plain version, with its peak memory (the
-               render's own, over what the script already held);
+               against fused kernels (roulette off, RT_MEGAKERNEL=0); the
+               sticky engine's kernels against its plain versions (K5; with
+               roulette, K4) and against the counter wavefront and the
+               sticky engine on 16,384 lanes (K1 lane mode); MIXED through
+               K5 against plain; a 1281-primitive mesh (K3 + the chunked
+               sweep) at 4 spp against its plain version, with its peak
+               memory (the render's own, over what the script already held);
 6. timing   -- kernel against plain once more at the main path's shapes
-               (921,600 lanes); medians of 3 frames (fused kernels, fused
-               plain, modular kernels with roulette); ms per launch of each
-               kernel from CUDA events, path vertices, Mrays/s, peak memory.
+               (921,600 lanes); medians of 3 frames (fused kernels,
+               modular kernels with roulette, sticky and counter wavefront
+               kernels; one fused plain frame); ms per launch of each kernel
+               from CUDA events (K5 on the Cornell state after 10 rounds),
+               path vertices, Mrays/s, rounds, peak memory.
 
 The last lines are the card's name and power limit, the per-kernel JSON
 record and ``{"ok": true, "device": {...}}``.
@@ -42,6 +56,7 @@ record and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import json
+import logging
 import os
 import re
 import statistics
@@ -167,6 +182,7 @@ KERNELS = {  # name -> (replaced TPU kernel body file:line, CUDA source)
     "final": (f"{TPU_OPS}/pallas_bounce.py:421", f"{CSRC}/bounce.cu"),
     "nearest": (f"{TPU_OPS}/pallas_intersect.py:33", f"{CSRC}/dense_nearest.cu"),
     "sampler": (f"{TPU_OPS}/pallas_sampling.py:97", f"{CSRC}/sampler.cu"),
+    "persistent": (f"{TPU_OPS}/pallas_bounce.py:651", f"{CSRC}/persistent.cu"),
 }
 MODULAR = ("nearest", "sampler")  # launched on the modular main path only
 SEED = 20240917
@@ -175,6 +191,8 @@ FRAME = (1280, 720, 16)  # the main path: width, height, spp (one 921,600-lane b
 RENDER = (320, 180, 16)  # the frame-against-frame phase
 MESH_SPP = 4
 LANES = ((512, 512), (1280, 720))  # kernel-against-plain sizes: 262,144 and 921,600
+K5_CHAIN = 10  # K5 rounds held against the plain version; the timed state is the last
+LANE_ROUNDS = 3  # K1 lane-mode rounds held against the plain version
 
 # fp32 operations (add, sub, mul, div, min, max, abs, compare, sqrt, rsqrt,
 # sin, cos: one each; selects and integer hashing not counted) of the
@@ -300,6 +318,120 @@ def phase_kernels(dev) -> None:
         p = B.bounce_plain(scene, st_p, idx, 0, SEED, 4, bg, K, final_only=True)
         torch.cuda.synchronize()
         compare_states(k, p, f"{name}:final")
+
+
+def compare_persistent(kern, plain, counts, live, more, what: str) -> dict:
+    """K5 against its plain version: rows 0-12 as ``compare_states`` holds
+    K1's, the counters k and depth equal, the accumulators within atol =
+    rtol = 1e-4 on >= 99.9 % of lanes, the live count equal and the
+    work-left count within 0.1 % of the lanes."""
+    res = compare_states(kern[:13], plain[:13], f"{what}:rows0-12")
+    kd_equal = bool(torch.equal(kern[13:15], plain[13:15]))
+    err = (kern[15:18] - plain[15:18]).abs()
+    acc_frac = (err <= ATOL + RTOL * plain[15:18].abs()).all(dim=0).float().mean().item()
+    n = kern.shape[1]
+    live_k, more_k = counts.tolist()
+    out = dict(k_depth_equal=kd_equal, acc_agree=round(acc_frac, 6),
+               acc_max_abs_err=err.max().item(), live=[live_k, int(live)],
+               more=[more_k, int(more)])
+    check(out, what, kd_equal and acc_frac >= LANE_FRAC and live_k == int(live)
+          and abs(more_k - int(more)) <= (1.0 - LANE_FRAC) * n)
+    return dict(res, max_abs_err=max(res["max_abs_err"], out["acc_max_abs_err"]))
+
+
+def sticky_inputs(dev, desc, w: int, h: int, spp: int):
+    """What ``_sticky_fused`` hands K5 for a w x h frame at ``spp`` (the
+    engine's own ``_sticky_inputs``): (scene, camera row, px, py, kmax), the
+    initial (18, B) state and the launch arguments after the state."""
+    from raytracing_course_2024_tpu_torch.integrator import wavefront as W
+    from raytracing_course_2024_tpu_torch.integrator.path import TraceConfig
+    from raytracing_course_2024_tpu_torch.ops import bounce as B
+    from raytracing_course_2024_tpu_torch.ops.camera import camera_arrays
+    from raytracing_course_2024_tpu_torch.scene import build_scene_arrays
+
+    arrays, statics = build_scene_arrays(desc)
+    scene = B.bounce_scene(arrays, statics, dev)
+    cfg = TraceConfig(ray_depth=desc.settings.ray_depth,
+                      bg_color=tuple(desc.settings.bg_color), max_tries=K)
+    return W._sticky_inputs(SEED, 0, 0, camera_arrays(desc.settings.camera), scene, cfg,
+                            w, h, w * h, spp)
+
+
+def lane_mode_chain(dev, gen, name: str, desc, w: int, h: int, spp: int, lanes: int) -> float:
+    """K1 in lane mode against its plain version over ``LANE_ROUNDS``
+    rounds, as the wavefront engine runs it: ``lanes`` lanes on random work
+    ids of the w x h x spp frame, each starting a camera ray at a random
+    depth in [0, ray_depth); each round is fed the plain version's previous
+    state after the engine's depth cap and park, and every lane's depth
+    then grows by one. Returns the largest absolute error."""
+    from raytracing_course_2024_tpu_torch.integrator import wavefront as W
+    from raytracing_course_2024_tpu_torch.ops import bounce as B
+    from raytracing_course_2024_tpu_torch.ops.camera import camera_arrays
+    from raytracing_course_2024_tpu_torch.ops.rng import work_key
+    from raytracing_course_2024_tpu_torch.scene import build_scene_arrays
+
+    arrays, statics = build_scene_arrays(desc)
+    scene = B.bounce_scene(arrays, statics, dev)
+    bg, depth_n = tuple(desc.settings.bg_color), desc.settings.ray_depth
+    wid = torch.randint(0, w * h * spp, (lanes,), generator=gen, device=dev, dtype=torch.int32)
+    pix = wid.long() % (w * h)
+    st = W._initial_state(B.N_STATE, lanes, dev)
+    W._restart_rows(st, torch.ones_like(pix, dtype=torch.bool), W._camera_rows(
+        camera_arrays(desc.settings.camera), pix % w, pix // w, w, h, work_key(SEED, wid)))
+    depth = torch.randint(0, depth_n, (lanes,), generator=gen, device=dev, dtype=torch.int32)
+    err = 0.0
+    for r in range(LANE_ROUNDS):
+        k = B.bounce(scene, st.clone(), wid, 0, SEED, 0, bg, K, depth=depth)
+        p = B.bounce_plain(scene, st, wid, 0, SEED, 0, bg, K, depth=depth)
+        torch.cuda.synchronize()
+        res = compare_states(k, p, f"{name}-{lanes}-lanes:bounce-lane-mode-round{r}")
+        err = max(err, res["max_abs_err"])
+        st = W._park(p, (p[12] > 0.5) & (depth < depth_n - 1))
+        depth = depth + 1
+    return err
+
+
+def phase_kernels_lanes(dev) -> tuple:
+    """K1 in lane mode on MIXED and Cornell at 262,144 lanes and on the
+    main path's Cornell shape (the wavefront engine's 1,048,576 lanes over
+    the 1280x720 x 16 spp work ids), and K5 chained round by round (each
+    round fed the plain version's previous state) on MIXED and Cornell at
+    262,144 lanes and on Cornell at 921,600. Returns the largest absolute
+    errors of K1 in lane mode and of K5 at the main path's shapes, and the
+    Cornell inputs and state at 921,600 lanes after ``K5_CHAIN`` rounds at
+    the main path's spp, for the timing phase."""
+    from raytracing_course_2024_tpu_torch.ops.persistent import persistent_plain, persistent_round
+    from raytracing_course_2024_tpu_torch.runtime.render import DEFAULT_BATCH
+    from raytracing_course_2024_tpu_torch.scene import load_scene, parse_text_scene
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    w, h = LANES[0]
+    for name in ("mixed", "cornell"):
+        desc = parse_text_scene(MIXED_SCENE) if name == "mixed" else load_scene(CORNELL, w, h, 1)
+        lane_mode_chain(dev, gen, name, desc, w, h, 1, w * h)
+    fw, fh, fspp = FRAME
+    lanes = min(DEFAULT_BATCH, fw * fh * fspp)  # the wavefront engine's lanes
+    bounce_err = lane_mode_chain(dev, gen, "cornell-1280x720x16", load_scene(
+        CORNELL, fw, fh, fspp), fw, fh, fspp, lanes)
+
+    err, main = 0.0, None
+    for name, (w, h), spp in (("mixed", LANES[0], 4), ("cornell", LANES[0], 4),
+                              ("cornell", LANES[1], FRAME[2])):
+        desc = parse_text_scene(MIXED_SCENE) if name == "mixed" else load_scene(CORNELL, w, h, 1)
+        ins, st_p, args = sticky_inputs(dev, desc, w, h, spp)
+        for r in range(K5_CHAIN):
+            counts = torch.zeros((2,), dtype=torch.int32, device=dev)
+            kern = persistent_round(*ins, st_p, counts, *args)
+            nxt, live, more = persistent_plain(*ins, st_p, *args)
+            torch.cuda.synchronize()
+            res = compare_persistent(kern, nxt, counts, live, more,
+                                     f"{name}-{w}x{h}:persistent-round{r}")
+            if (w, h) == LANES[1]:
+                err = max(err, res["max_abs_err"])
+            st_p = nxt
+        if (w, h) == LANES[1]:
+            main = (ins, st_p, args)
+    return {"bounce": bounce_err, "persistent": err}, main
 
 
 class Modular:
@@ -434,16 +566,38 @@ def phase_kernels_modular(dev, sizes=LANES) -> tuple:
     return errs, cases[main]
 
 
-def phase_main(dev, tmp: str, modular: bool) -> dict:
+class LogLines(logging.Handler):
+    """Collects the messages of the port's logger (the CLI's render line)."""
+
+    def __init__(self):
+        super().__init__()
+        self.lines = []
+
+    def emit(self, record):
+        self.lines.append(record.getMessage())
+
+
+# the main path's runs and their CLI environment; the lane engines launch
+# one kernel once per round
+MAIN = {"fused": {}, "modular": {"RT_RR": "1"}, "sticky": {"RT_ENGINE": "sticky"},
+        "wavefront": {"RT_ENGINE": "wavefront"}}
+ROUND_KERNEL = {"sticky": "persistent", "wavefront": "bounce"}
+
+
+def phase_main(dev, tmp: str, path: str) -> dict:
+    """The CLI on the Cornell frame with the launch counters set to 0 just
+    before and read just after; they must match the path exactly. The lane
+    engines' expected counts are the rounds the engine reports."""
     from raytracing_course_2024_tpu_torch.ops import kernels as KN
     from raytracing_course_2024_tpu_torch.runtime import cli
     from raytracing_course_2024_tpu_torch.runtime.image_io import read_png, read_ppm
 
     (w, h, spp), depth = FRAME, 6  # glTF ray_depth is 6
-    tag = "modular" if modular else "fused"
-    ppm, png = os.path.join(tmp, f"{tag}.ppm"), os.path.join(tmp, tag)
-    if modular:
-        os.environ["RT_RR"] = "1"
+    env = MAIN[path]
+    ppm, png = os.path.join(tmp, f"{path}.ppm"), os.path.join(tmp, path)
+    logged = LogLines()
+    logging.getLogger("rt_torch").addHandler(logged)
+    os.environ.update(env)
     try:
         KN.reset_launches()
         t0 = time.perf_counter()
@@ -451,24 +605,37 @@ def phase_main(dev, tmp: str, modular: bool) -> dict:
         secs = time.perf_counter() - t0
         counts = dict(KN.LAUNCHES)
     finally:
-        os.environ.pop("RT_RR", None)
+        for k in env:
+            os.environ.pop(k)
+        logging.getLogger("rt_torch").removeHandler(logged)
     if rc != 0:
         raise SystemExit(f"CLI returned {rc}")
-    # 921,600 lanes fit one batch (DEFAULT_BATCH)
     want = dict.fromkeys(KN.LAUNCHES, 0)
-    if modular:  # K4 at every level, K3 at every level but the last
+    extra = {}
+    if path == "modular":  # K4 at every level, K3 at every level but the last
         want.update(nearest=spp * depth, sampler=spp * (depth - 1))
-    else:
+    elif path == "fused":  # 921,600 lanes fit one batch (DEFAULT_BATCH)
         want.update(primary=spp, bounce=spp * (depth - 2), final=spp)
+    else:
+        found = [m for ln in logged.lines for m in re.findall(r"rounds=(\d+)", ln)]
+        if len(found) != 1:
+            raise SystemExit(f"{path}: no round count in the log {logged.lines}")
+        rounds = int(found[0])
+        # a sticky lane walks spp paths of at most `depth` rounds each
+        low, high = (spp, spp * depth) if path == "sticky" else (1, None)
+        if rounds < low or (high and rounds > high):
+            raise SystemExit(f"{path} rounds {rounds} outside [{low}, {high}]")
+        want[ROUND_KERNEL[path]] = rounds
+        extra["rounds"] = rounds
     if counts != want:
-        raise SystemExit(f"{tag} launch counters {counts} != expected {want}")
+        raise SystemExit(f"{path} launch counters {counts} != expected {want}")
     img = read_ppm(ppm)
     if img.shape != (h, w, 3) or img.std() == 0:
         raise SystemExit(f"bad image: shape {img.shape}, std {img.std()}")
     if not np.array_equal(img, read_png(png + ".png")):
         raise SystemExit("PPM and PNG disagree")
-    say("main", path=tag, scene="cornell_box.gltf", size=f"{w}x{h}", spp=spp,
-        rr=int(modular), seconds=round(secs, 3),
+    say("main", path=path, scene="cornell_box.gltf", size=f"{w}x{h}", spp=spp,
+        env=json.dumps(env).replace(" ", ""), seconds=round(secs, 3), **extra,
         launches=json.dumps(counts).replace(" ", ""), mean_u8=round(float(img.mean()), 3))
     return counts
 
@@ -485,7 +652,7 @@ def render_pair(a, b, what: str, **extra) -> None:
 
 def phase_render(dev) -> None:
     from raytracing_course_2024_tpu_torch.runtime.render import Renderer
-    from raytracing_course_2024_tpu_torch.scene import load_scene
+    from raytracing_course_2024_tpu_torch.scene import load_scene, parse_text_scene
 
     w, h, spp = RENDER
     size = f"{w}x{h}"
@@ -508,6 +675,27 @@ def phase_render(dev) -> None:
         raise SystemExit("RT_MEGAKERNEL=0 took the fused path")
     render_pair(mod.render_radiance(seed=3), fused, "modular-vs-fused-kernels",
                 size=size, spp=spp)
+
+    # the lane engines (all from the same work-item streams)
+    sticky = Renderer(desc, device=dev, engine="sticky").render_radiance(seed=3)
+    render_pair(sticky, Renderer(desc, device=dev, engine="sticky", plain=True)
+                .render_radiance(seed=3), "sticky-fused-kernels-vs-plain", size=size, spp=spp)
+    render_pair(sticky, Renderer(desc, device=dev, engine="wavefront").render_radiance(seed=3),
+                "sticky-fused-vs-wavefront", size=size, spp=spp)
+    render_pair(Renderer(desc, device=dev, engine="sticky", batch_size=16_384)
+                .render_radiance(seed=3), sticky, "sticky-16384-lanes-vs-sticky-fused",
+                size=size, spp=spp)
+    rr = Renderer(desc, device=dev, engine="sticky", russian_roulette=True)
+    if rr.fused:
+        raise SystemExit("sticky with roulette took the fused core")
+    render_pair(rr.render_radiance(seed=3),
+                Renderer(desc, device=dev, engine="sticky", russian_roulette=True, plain=True)
+                .render_radiance(seed=3), "sticky-rr-kernels-vs-plain", size=size, spp=spp)
+    mixed = parse_text_scene(MIXED_SCENE)
+    mixed.settings.width, mixed.settings.height, mixed.settings.samples = w, h, spp
+    render_pair(Renderer(mixed, device=dev, engine="sticky").render_radiance(seed=3),
+                Renderer(mixed, device=dev, engine="sticky", plain=True).render_radiance(seed=3),
+                "mixed-sticky-fused-kernels-vs-plain", size=size, spp=spp)
 
     from raytracing_course_2024_tpu_torch.ops import kernels as KN
 
@@ -591,13 +779,15 @@ def frame_mem_mb(base: int) -> float:
     return round((torch.cuda.max_memory_allocated() - base) / 2**20, 1)
 
 
-def frame_times(r, label: str, gpu: str) -> float:
+def frame_times(r, label: str, gpu: str, reps: int = 3) -> float:
+    """Median host ms of ``reps`` frames after a warm-up; each frame ends in
+    a device sync (reading its path-vertex count)."""
     r.render_frame_device(seed=0)  # warm-up
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     times, verts = [], 0.0
-    for rep in range(3):
+    for rep in range(reps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         _, verts = r.render_frame_device(seed=rep + 1)
@@ -606,12 +796,31 @@ def frame_times(r, label: str, gpu: str) -> float:
     say("timing", path=label, ms_per_frame=round(ms, 3), frames_ms=json.dumps(
         [round(t, 3) for t in times]).replace(" ", ""), path_vertices=int(verts),
         mrays_per_s=round(verts / ms / 1e3, 3),
+        **({} if r.engine == "batch" else {"rounds": r.rounds}),
         peak_mem_mb=frame_mem_mb(base), gpu=f'"{gpu}"')
     return ms
 
 
-def phase_timing(dev, gpu: str, counts: dict, errs: dict, m: Modular) -> list:
+def persistent_bytes(st: torch.Tensor, kmax: torch.Tensor) -> float:
+    """Bytes one K5 round must move for this state, each input a lane needs
+    read once and each output written once. A live lane reads ro, rd, thr,
+    rad, alive, k, depth and kmax and writes all but k and kmax (120 B); a
+    dead lane reads alive, k and kmax, plus rad and acc to flush when k > 0;
+    a restarting one also reads px, py and writes ro, rd, thr, rad, alive, k,
+    depth (with a flush: 116 B; without: 80 B); a finished one writes the
+    flushed acc and the zeroed rad (60 B)."""
+    alive, k = st[12] > 0.5, st[13]
+    dead = ~alive
+    flush = dead & (k > 0.5)
+    take = dead & (k < kmax)
+    floats = (alive.sum() * (16 + 14) + (dead.sum() * 3 + flush.sum() * 6)
+              + take.sum() * (2 + 15) + flush.sum() * 3 + (flush & ~take).sum() * 3)
+    return float(floats) * 4
+
+
+def phase_timing(dev, gpu: str, counts: dict, errs: dict, m: Modular, k5) -> list:
     from raytracing_course_2024_tpu_torch.ops import bounce as B
+    from raytracing_course_2024_tpu_torch.ops.persistent import persistent_plain, persistent_round
     from raytracing_course_2024_tpu_torch.ops.dense_nearest import (
         dense_nearest, dense_nearest_plain)
     from raytracing_course_2024_tpu_torch.ops.sampler import (
@@ -622,8 +831,10 @@ def phase_timing(dev, gpu: str, counts: dict, errs: dict, m: Modular) -> list:
     w, h, spp = FRAME
     desc = load_scene(CORNELL, w, h, spp)
     frame_times(Renderer(desc, device=dev), "fused-kernels", gpu)
-    frame_times(Renderer(desc, device=dev, plain=True), "fused-plain", gpu)
+    frame_times(Renderer(desc, device=dev, plain=True), "fused-plain", gpu, reps=1)
     frame_times(Renderer(desc, device=dev, russian_roulette=True), "modular-kernels-rr", gpu)
+    frame_times(Renderer(desc, device=dev, engine="sticky"), "sticky-fused-kernels", gpu)
+    frame_times(Renderer(desc, device=dev, engine="wavefront"), "wavefront-kernels", gpu)
 
     # the main path's shapes: one 921,600-lane batch of the Cornell frame
     r = Renderer(desc, device=dev)
@@ -640,7 +851,8 @@ def phase_timing(dev, gpu: str, counts: dict, errs: dict, m: Modular) -> list:
     pf = B.bounce_plain(scene, p1, idx, 0, 1, 5, bg, K, final_only=True)
     torch.cuda.synchronize()
     for k, a, b in (("primary", st0, p0), ("bounce", k1, p1), ("final", kf, pf)):
-        errs[k] = compare_states(a, b, f"cornell-{w}x{h}:{k}")["max_abs_err"]
+        errs[k] = max(errs.get(k, 0.0),
+                      compare_states(a, b, f"cornell-{w}x{h}:{k}")["max_abs_err"])
     # each kernel reads st0 (or the pixels) and writes a separate buffer, so
     # every launch does the same work
     buf = torch.empty_like(st0)
@@ -654,6 +866,14 @@ def phase_timing(dev, gpu: str, counts: dict, errs: dict, m: Modular) -> list:
         "nearest": cuda_ms(lambda: dense_nearest(m.ro, m.rd, tri), 20),
         "sampler": cuda_ms(lambda: sample_mixture_kernel(*m.sampler_args), 20),
     }
+    # K5 on the Cornell frame's state after K5_CHAIN rounds at 16 spp (the
+    # last state the kernel phase held K5 against), written to a separate
+    # buffer so that every launch does the same work
+    ins, st5, args5 = k5
+    buf5 = torch.empty_like(st5)
+    scratch = torch.zeros((2,), dtype=torch.int32, device=dev)
+    launch_ms["persistent"] = cuda_ms(
+        lambda: persistent_round(*ins, st5, scratch, *args5, out=buf5), 20)
     plain_ms = {
         "primary": cuda_ms(lambda: B.primary_plain(
             scene, cam, px, py, idx, 0, 1, bg, K, w, h), 2),
@@ -662,6 +882,7 @@ def phase_timing(dev, gpu: str, counts: dict, errs: dict, m: Modular) -> list:
             scene, st0, idx, 0, 1, 1, bg, K, final_only=True), 2),
         "nearest": cuda_ms(lambda: dense_nearest_plain(m.ro, m.rd, tri), 2),
         "sampler": cuda_ms(lambda: sampler_plain(*m.sampler_args), 2),
+        "persistent": cuda_ms(lambda: persistent_plain(*ins, st5, *args5), 2),
     }
     # least time for the same work: bytes (each input a lane needs read once,
     # each output written once) or fp32 operations; the fused kernels'
@@ -685,10 +906,17 @@ def phase_timing(dev, gpu: str, counts: dict, errs: dict, m: Modular) -> list:
         "nearest": bound(n * (24 + 8) + tri.numel() * 4, n * tri.shape[1] * OPS_TRI_K4),
         "sampler": bound(n * (1 + 16 + 1) + need * (52 + 4) + ltable, sampler_ops(m)),
     }
+    kmax5 = ins[4]
+    live5 = float(((st5[12] > 0.5) | (st5[13] < kmax5)).sum())  # alive after the restart
+    bounds["persistent"] = bound(persistent_bytes(st5, kmax5) + table,
+                                 live5 * n_geo * OPS_TRI_FUSED)
     inputs = {"primary": 1.0, "bounce": alive / n, "final": alive / n,
-              "nearest": 1.0, "sampler": float(m.need.float().mean())}
+              "nearest": 1.0, "sampler": float(m.need.float().mean()),
+              "persistent": live5 / n}
     for k in KERNELS:
-        say("timing", kernel=k, lanes=n, active_in=round(inputs[k], 4),
+        # K5's input: the frame's state after K5_CHAIN rounds
+        at = {"after_rounds": K5_CHAIN} if k == "persistent" else {}
+        say("timing", kernel=k, lanes=n, **at, active_in=round(inputs[k], 4),
             ms=round(launch_ms[k], 4), plain_ms=round(plain_ms[k], 3),
             bound_ms=round(bounds[k][0], 5), bound_by=bounds[k][1], gpu=f'"{gpu}"')
     tol = f"atol=rtol={ATOL} on >= {LANE_FRAC:.1%} of lanes"
@@ -725,12 +953,18 @@ def main() -> int:
 
     phase_kernels(dev)
     errs, cornell = phase_kernels_modular(dev)
+    lane_errs, k5_state = phase_kernels_lanes(dev)
     with tempfile.TemporaryDirectory() as tmp:
-        counts = phase_main(dev, tmp, modular=False)
-        modular = phase_main(dev, tmp, modular=True)
-    counts.update({k: modular[k] for k in MODULAR})
+        runs = {path: phase_main(dev, tmp, path) for path in MAIN}
+    # each kernel's launches on the main path: the batch path's run for its
+    # kernels (K1 also runs in lane mode in the wavefront run), K4/K3 from the
+    # modular run, K5 from the sticky run
+    counts = dict(runs["fused"])
+    counts.update({k: runs["modular"][k] for k in MODULAR})
+    counts["persistent"] = runs["sticky"]["persistent"]
     phase_render(dev)
-    record = phase_timing(dev, gpu, counts, errs, cornell)
+    errs.update(lane_errs)  # K1's row also holds its lane-mode error
+    record = phase_timing(dev, gpu, counts, errs, cornell, k5_state)
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib"))
     if leaked:
         raise SystemExit(f"the port imported {leaked}")

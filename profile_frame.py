@@ -1,14 +1,17 @@
 """Where the device time of one Cornell frame goes, on one CUDA card.
 
-    python3 profile_frame.py            # fused path (K2, K1, K1-final)
-    python3 profile_frame.py --rr       # modular path with roulette (K4, K3)
+    python3 profile_frame.py                    # batch engine, fused path (K2, K1, K1-final)
+    python3 profile_frame.py --rr               # batch engine, modular path (K4, K3)
+    python3 profile_frame.py --engine sticky    # one K5 per round
+    python3 profile_frame.py --engine wavefront # K1 in lane mode + refills
 
 Renders scenes/cornell_box.gltf at 1280x720 x 16 spp through the port's
 Renderer: one warm-up frame, then one frame under torch.profiler. Prints
 the card's name and power limit, the profiled frame's wall ms, the summed
-device ms and its share of the wall time (the device's busy share), then
-device ms and launch counts per kernel name, largest first. The profiler
-itself slows the host, so the busy share of an unprofiled frame is higher.
+device ms and its share of the wall time (the device's busy share), the
+lane engines' rounds, then device ms and launch counts per kernel name,
+largest first. The profiler itself slows the host, so the busy share of an
+unprofiled frame is higher.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--rr", action="store_true", help="Russian roulette: the modular path")
+    ap.add_argument("--engine", choices=("batch", "sticky", "wavefront"), default="batch")
     ap.add_argument("--top", type=int, default=15)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -41,7 +45,7 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0])
     desc = load_scene(os.path.join(ROOT, "scenes", "cornell_box.gltf"), 1280, 720, 16)
-    r = Renderer(desc, device="cuda", russian_roulette=args.rr)
+    r = Renderer(desc, device="cuda", russian_roulette=args.rr, engine=args.engine)
     r.render_frame_device(seed=0)  # warm-up: kernel build, allocator
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -59,9 +63,10 @@ def main() -> int:
             rows.append((dev_us / 1e3, evt.count, evt.key))
     rows.sort(reverse=True)
     busy = sum(ms for ms, _, _ in rows)
-    print(f"path={'modular' if not r.fused else 'fused'} wall_ms={wall:.3f} "
+    rounds = "" if r.engine == "batch" else f" rounds={r.rounds}"
+    print(f"engine={r.engine} path={'fused' if r.fused else 'modular'} wall_ms={wall:.3f} "
           f"device_ms={busy:.3f} busy_share={busy / wall:.3f} "
-          f"launches={sum(n for _, n, _ in rows)} path_vertices={int(verts)}")
+          f"launches={sum(n for _, n, _ in rows)} path_vertices={int(verts)}{rounds}")
     for ms, n, key in rows[: args.top]:
         print(f"  {ms:10.3f} ms {n:6d} x  {key[:90]}")
     return 0

@@ -1,0 +1,338 @@
+// The fused bounce's device code, shared by the bounce kernels K1/K2
+// (bounce.cu) and the persistent round K5 (persistent.cu), so all three run
+// the same body: the nearest hit over the unified geo table, the BRDF, the
+// bounce itself (emission / background, MIS mixture sampling, BRDF * cos /
+// pdf, the MIRROR / DIELECTRIC rules), the camera ray, and the staging of the
+// scene tables in shared memory. The plain PyTorch version is
+// ops/bounce.py:_bounce_math. Everything sits in an anonymous namespace, as
+// in common.cuh.
+
+#pragma once
+
+#include "common.cuh"
+
+namespace {
+
+// The scene tables (device pointers) and the constants of one launch.
+struct SceneArgs {
+  const float* geo;  // (C_GEO, m)
+  const int* spec;   // (m,): kind | rotated << 2 | mkind << 3
+  int m;
+  const float* lp;   // (LC_COUNT, nl)
+  const int* lspec;  // (nl,)
+  int nl, num_lights;
+  float bg0, bg1, bg2;
+  int max_tries;
+};
+
+// ---- section 1: nearest hit over the geo table -------------------------------
+struct Hit {
+  float t, u, v;
+  int i;
+  V3 n_geom;  // normalized, facing the ray
+  bool outer, tri;
+};
+
+__device__ Hit intersect_all(const Tables& T, V3 ro, V3 rd) {
+  float best_t = INFINITY, best_u = 0.0f, best_v = 0.0f;
+  int best_i = 0;
+  V3 bn = mk(0.0f, 0.0f, 1.0f);
+  bool best_outer = true, best_tri = false;
+  for (int i = 0; i < T.m; ++i) {
+    const int code = T.spec[i];
+    const int kind = code & 3;
+    const bool rotated = (code >> 2) & 1;
+    float t, u = 0.0f, v = 0.0f;
+    bool ok, outer;
+    V3 cn;
+    if (kind == K_TRI) {
+      const V3 e1 = T.G3(G_E1, i), e2 = T.G3(G_E2, i), a = T.G3(G_A, i);
+      const V3 pv = cross(rd, e2);
+      const float det = dot(e1, pv);
+      const bool det_ok = fabsf(det) > 1e-30f;
+      const float inv_det = 1.0f / (det_ok ? det : 1e-30f);
+      const V3 tv = sub(ro, a);
+      u = dot(tv, pv) * inv_det;
+      const V3 qv = cross(tv, e1);
+      v = dot(rd, qv) * inv_det;
+      t = dot(e2, qv) * inv_det;
+      ok = (u >= 0.0f) && (v >= 0.0f) && (u + v <= 1.0f) && det_ok && (t > 0.0f);
+      const V3 fn = cross(e1, e2);
+      const bool front = dot(fn, rd) < 0.0f;
+      cn = scl(fn, front ? 1.0f : -1.0f);
+      outer = front;
+    } else {
+      V3 o = sub(ro, T.G3(G_POS, i));
+      V3 d = rd;
+      const float qx = T.G(G_ROT, i), qy = T.G(G_ROT + 1, i), qz = T.G(G_ROT + 2, i),
+                  qw = T.G(G_ROT + 3, i);
+      if (rotated) {  // world -> local: rotate by the conjugate
+        o = quat_rotate(-qx, -qy, -qz, qw, o);
+        d = quat_rotate(-qx, -qy, -qz, qw, rd);
+      }
+      const float ax = T.G(G_A, i), ay = T.G(G_A + 1, i), az = T.G(G_A + 2, i);
+      if (kind == K_BOX) {
+        const float ivx = 1.0f / (d.x + DIR_BIAS);
+        const float ivy = 1.0f / (d.y + DIR_BIAS);
+        const float ivz = 1.0f / (d.z + DIR_BIAS);
+        const float lox = (-ax - o.x) * ivx, hix = (ax - o.x) * ivx;
+        const float loy = (-ay - o.y) * ivy, hiy = (ay - o.y) * ivy;
+        const float loz = (-az - o.z) * ivz, hiz = (az - o.z) * ivz;
+        const float t1 = fmaxf(fminf(lox, hix), fmaxf(fminf(loy, hiy), fminf(loz, hiz)));
+        const float t2 = fminf(fmaxf(lox, hix), fminf(fmaxf(loy, hiy), fmaxf(loz, hiz)));
+        const bool valid = t1 <= t2;
+        outer = valid && (t1 > 0.0f);
+        t = outer ? t1 : t2;
+        ok = valid && (t > 0.0f);
+        const float hx = o.x + d.x * t, hy = o.y + d.y * t, hz = o.z + d.z * t;
+        const bool on_x = (ax - fabsf(hx)) < EPS;
+        const bool on_y = (ay - fabsf(hy)) < EPS;
+        const float flip = outer ? 1.0f : -1.0f;
+        cn = mk((on_x ? sgnf(hx) : 0.0f) * flip, ((!on_x && on_y) ? sgnf(hy) : 0.0f) * flip,
+                ((!on_x && !on_y) ? sgnf(hz) : 0.0f) * flip);
+      } else if (kind == K_ELL) {
+        const float iox = o.x / ax, ioy = o.y / ay, ioz = o.z / az;
+        const float idx = d.x / ax, idy = d.y / ay, idz = d.z / az;
+        const float a_q = idx * idx + idy * idy + idz * idz;
+        const float b_q = iox * idx + ioy * idy + ioz * idz;
+        const float c_q = iox * iox + ioy * ioy + ioz * ioz - 1.0f;
+        const float disc = b_q * b_q - a_q * c_q;
+        const bool valid = disc >= 0.0f;
+        const float sq = sqrtf(fmaxf(disc, 0.0f));
+        const float inv_a = 1.0f / fmaxf(a_q, 1e-30f);
+        const float t1 = (-b_q - sq) * inv_a;
+        const float t2 = (-b_q + sq) * inv_a;
+        outer = valid && (t1 > 0.0f);
+        t = outer ? t1 : t2;
+        ok = valid && (t > 0.0f);
+        const float hx = o.x + d.x * t, hy = o.y + d.y * t, hz = o.z + d.z * t;
+        const float flip = outer ? 1.0f : -1.0f;
+        cn = mk(hx / (ax * ax) * flip, hy / (ay * ay) * flip, hz / (az * az) * flip);
+      } else {  // infinite plane through the local origin, normal (ax, ay, az)
+        const float denom = ax * d.x + ay * d.y + az * d.z;
+        const float num = ax * o.x + ay * o.y + az * o.z;
+        const bool den_ok = fabsf(denom) > 1e-30f;
+        t = -num / (den_ok ? denom : 1e-30f);
+        ok = den_ok && (t > 0.0f);
+        outer = denom < 0.0f;
+        const float flip = outer ? 1.0f : -1.0f;
+        cn = mk(ax * flip, ay * flip, az * flip);
+      }
+      if (rotated) cn = quat_rotate(qx, qy, qz, qw, cn);
+    }
+    if (ok && (t < best_t)) {
+      best_t = t;
+      best_i = i;
+      best_u = u;
+      best_v = v;
+      bn = cn;
+      best_outer = outer;
+      best_tri = kind == K_TRI;
+    }
+  }
+  Hit h;
+  h.t = best_t;
+  h.u = best_u;
+  h.v = best_v;
+  h.i = best_i;
+  h.n_geom = normalize(bn, 1e-30f);
+  h.outer = best_outer;
+  h.tri = best_tri;
+  return h;
+}
+
+// ---- section 5: BRDF (ops/brdf.py) -----------------------------------------
+__device__ __forceinline__ float smith_g1(float ndx, float alpha) {
+  const float c2 = fminf(fmaxf(ndx * ndx, BRDF_SAFE), 1.0f);
+  const float tan2 = (1.0f - c2) / c2;
+  const float g1 = 2.0f / (1.0f + sqrtf(1.0f + alpha * alpha * tan2));
+  return ndx > 0.0f ? g1 : 0.0f;
+}
+
+__device__ V3 eval_brdf(V3 l, V3 n, V3 v, V3 color, float metallic, float roughness, int mkind) {
+  const V3 diffuse = mk(color.x / PI_F, color.y / PI_F, color.z / PI_F);
+  if (mkind == M_DIFFUSE) return diffuse;
+  const V3 h = normalize(add(l, v), 1e-30f);
+  const float alpha = roughness * roughness;
+  const float ldn = dot(l, n), vdn = dot(v, n), hdn = dot(h, n);
+  const float a2 = alpha * alpha;
+  const float dq = (a2 - 1.0f) * hdn * hdn + 1.0f;
+  const float d = a2 * (hdn > 0.0f ? 1.0f : 0.0f) / fmaxf(PI_F * (dq * dq), BRDF_SAFE);
+  const float g = smith_g1(ldn, alpha) * smith_g1(vdn, alpha);
+  const float sden = 4.0f * ldn * vdn;
+  const float spec = d * g / (fabsf(sden) > BRDF_SAFE ? sden : BRDF_SAFE);
+  const float w = powf(fminf(fmaxf(1.0f - fabsf(dot(h, l)), 0.0f), 1.0f), 5.0f);
+  const V3 metal = mk(spec * (color.x + (1.0f - color.x) * w), spec * (color.y + (1.0f - color.y) * w),
+                      spec * (color.z + (1.0f - color.z) * w));
+  const float f_diel = 0.04f + (1.0f - 0.04f) * w;
+  const V3 diel = add(scl(mk(spec, spec, spec), f_diel), scl(diffuse, 1.0f - f_diel));
+  return add(scl(diel, 1.0f - metallic), scl(metal, metallic));
+}
+
+// ---- the bounce body ----------------------------------------------------------
+struct Lane {
+  V3 ro, rd, thr, rad;
+  bool alive;
+};
+
+// One bounce of one lane. `key` is the path's work key, `ctr` where this
+// bounce's draws sit. Dead lanes stay dead (a full bounce zeroes throughput).
+template <bool FINAL_ONLY>
+__device__ Lane bounce_body(const Tables& T, const SceneArgs& p, uint32_t key, const Ctr& ctr,
+                            Lane s) {
+  if (!s.alive) {
+    if (!FINAL_ONLY) s.thr = scl(s.thr, 0.0f);
+    return s;
+  }
+  const Hit h = intersect_all(T, s.ro, s.rd);
+  const bool hit = isfinite(h.t);
+  const float t_safe = hit ? h.t : 1.0f;
+  const V3 point = add(s.ro, scl(s.rd, t_safe - EPS_BACKOFF));
+  Lane o;
+  // --- 3. emission / background
+  if (!hit) {
+    o.ro = point;
+    o.rd = s.rd;
+    o.thr = scl(s.thr, 0.0f);
+    o.rad = add(s.rad, mul(s.thr, mk(p.bg0, p.bg1, p.bg2)));
+    o.alive = false;
+    if (FINAL_ONLY) o.thr = s.thr;
+    return o;
+  }
+  const int bi = h.i;
+  o.rad = add(s.rad, mul(s.thr, T.G3(G_EMIT, bi)));
+  if (FINAL_ONLY) {
+    o.ro = point;
+    o.rd = s.rd;
+    o.thr = s.thr;
+    o.alive = true;
+    return o;
+  }
+  // --- 2. winner attributes by index
+  V3 n_shade = h.n_geom;
+  if (h.tri) {
+    const V3 sn0 = T.G3(G_SN0, bi), sn1 = T.G3(G_SN1, bi), sn2 = T.G3(G_SN2, bi);
+    const V3 ns = add(add(sn0, scl(sub(sn1, sn0), h.u)), scl(sub(sn2, sn0), h.v));
+    n_shade = scl(normalize(ns, 1e-30f), h.outer ? 1.0f : -1.0f);
+  }
+  const V3 color = T.G3(G_COLOR, bi);
+  const int mkind = (int)T.G(G_MKIND, bi);
+  const V3 n = h.n_geom;
+  const V3 v_dir = scl(s.rd, -1.0f);
+  V3 l, w;
+  V3 next_origin = point;
+  bool new_alive;
+  if (mkind == M_MIRROR) {
+    l = reflect(v_dir, n);
+    w = color;
+    new_alive = true;
+  } else if (mkind == M_DIELECTRIC) {
+    const float ior = T.G(G_IOR, bi);
+    const float u_diel = uniform_ctr(key, ctr.base + ctr.diel);
+    const float cos_i = fminf(fmaxf(dot(v_dir, n), 0.0f), 1.0f);
+    const float eta = h.outer ? 1.0f / ior : ior;
+    const float sin2_t = eta * eta * fmaxf(0.0f, 1.0f - cos_i * cos_i);
+    const bool tir = sin2_t > 1.0f;
+    const float cos_t = sqrtf(fmaxf(0.0f, 1.0f - sin2_t));
+    const float rr = (eta - 1.0f) / (eta + 1.0f);
+    const float r0 = rr * rr;
+    const float refl_p = r0 + (1.0f - r0) * powf(1.0f - cos_i, 5.0f);
+    const bool do_reflect = tir || (u_diel < refl_p);
+    if (do_reflect) {
+      l = reflect(v_dir, n);
+    } else {  // transmitted rays continue from just PAST the surface
+      l = normalize(add(scl(s.rd, eta), scl(n, eta * cos_i - cos_t)), 1e-20f);
+      next_origin = add(s.ro, scl(s.rd, t_safe + 1e-4f));
+    }
+    w = (do_reflect || !h.outer) ? mk(1.0f, 1.0f, 1.0f) : color;
+    new_alive = true;
+  } else {
+    // --- 4. mixture sampling, 5. BRDF * cos / pdf
+    const float metallic = T.G(G_METAL, bi), roughness = T.G(G_ROUGH, bi);
+    float pdf;
+    bool ok;
+    mixture(T, key, ctr, p.max_tries, point, n, n_shade, v_dir, roughness, l, pdf, ok);
+    const V3 f = eval_brdf(l, n, v_dir, color, metallic, roughness, mkind);
+    const float cos_l = fmaxf(dot(l, n), 0.0f);
+    w = scl(f, cos_l / fmaxf(pdf, 1e-20f));
+    new_alive = ok;
+  }
+  o.ro = next_origin;
+  o.rd = l;
+  o.thr = mul(s.thr, new_alive ? w : mk(0.0f, 0.0f, 0.0f));
+  o.alive = new_alive;
+  return o;
+}
+
+// Shared-memory copy of the scene tables, one per block.
+struct SharedTables {
+  float geo[C_GEO * MAX_PRIMS];
+  int spec[MAX_PRIMS];
+  float lp[LC_COUNT * MAX_LIGHTS];
+  int lspec[MAX_LIGHTS];
+};
+
+__device__ __forceinline__ Tables stage_tables(const SceneArgs& p, bool lights, SharedTables& sh) {
+  for (int k = threadIdx.x; k < C_GEO * p.m; k += blockDim.x) sh.geo[k] = p.geo[k];
+  for (int k = threadIdx.x; k < p.m; k += blockDim.x) sh.spec[k] = p.spec[k];
+  if (lights) {
+    for (int k = threadIdx.x; k < LC_COUNT * p.nl; k += blockDim.x) sh.lp[k] = p.lp[k];
+    for (int k = threadIdx.x; k < p.nl; k += blockDim.x) sh.lspec[k] = p.lspec[k];
+  }
+  __syncthreads();
+  return Tables{sh.geo, sh.spec, p.m, sh.lp, sh.lspec, p.nl, p.num_lights};
+}
+
+// Jittered pinhole ray through pixel (px, py): ops/camera.py generate_rays_u.
+__device__ __forceinline__ void camera_ray(const float* cam, float px, float py, int width,
+                                           int height, float u0, float u1, V3& ro, V3& rd) {
+  const float sx = (2.0f * (px + u0) / (float)width - 1.0f) * cam[CAM_TANX];
+  const float sy = -(2.0f * (py + u1) / (float)height - 1.0f) * cam[CAM_TANY];
+  V3 d;
+  d.x = sx * cam[CAM_RIGHT + 0] + sy * cam[CAM_UP + 0] + cam[CAM_FWD + 0];
+  d.y = sx * cam[CAM_RIGHT + 1] + sy * cam[CAM_UP + 1] + cam[CAM_FWD + 1];
+  d.z = sx * cam[CAM_RIGHT + 2] + sy * cam[CAM_UP + 2] + cam[CAM_FWD + 2];
+  ro = mk(cam[CAM_POS], cam[CAM_POS + 1], cam[CAM_POS + 2]);
+  rd = normalize(d, 1e-30f);
+}
+
+// Rows 0-12 of a channel-major (rows, b) state: ro3, rd3, thr3, rad3, alive.
+__device__ __forceinline__ Lane load_lane(const float* in, long long b, long long i) {
+  Lane s;
+  s.ro = mk(in[0 * b + i], in[1 * b + i], in[2 * b + i]);
+  s.rd = mk(in[3 * b + i], in[4 * b + i], in[5 * b + i]);
+  s.thr = mk(in[6 * b + i], in[7 * b + i], in[8 * b + i]);
+  s.rad = mk(in[9 * b + i], in[10 * b + i], in[11 * b + i]);
+  s.alive = in[12 * b + i] > 0.5f;
+  return s;
+}
+
+__device__ __forceinline__ void store_lane(float* out, long long b, long long i, const Lane& o) {
+  out[0 * b + i] = o.ro.x;
+  out[1 * b + i] = o.ro.y;
+  out[2 * b + i] = o.ro.z;
+  out[3 * b + i] = o.rd.x;
+  out[4 * b + i] = o.rd.y;
+  out[5 * b + i] = o.rd.z;
+  out[6 * b + i] = o.thr.x;
+  out[7 * b + i] = o.thr.y;
+  out[8 * b + i] = o.thr.z;
+  out[9 * b + i] = o.rad.x;
+  out[10 * b + i] = o.rad.y;
+  out[11 * b + i] = o.rad.z;
+  out[12 * b + i] = o.alive ? 1.0f : 0.0f;
+}
+
+SceneArgs scene_args(const void* geo, const void* spec, int m, const void* lp, const void* lspec,
+                     int nl, int num_lights, float bg0, float bg1, float bg2, int max_tries) {
+  return SceneArgs{static_cast<const float*>(geo), static_cast<const int*>(spec), m,
+                   static_cast<const float*>(lp), static_cast<const int*>(lspec), nl,
+                   num_lights, bg0, bg1, bg2, max_tries};
+}
+
+int bad_args(long long b, int m, int nl, int num_lights, int max_tries) {
+  return b < 0 || m < 1 || m > MAX_PRIMS || nl < 1 || nl > MAX_LIGHTS || num_lights < 0 ||
+         num_lights > nl || max_tries < 1;
+}
+
+}  // namespace

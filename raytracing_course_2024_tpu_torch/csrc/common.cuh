@@ -1,8 +1,9 @@
-// Device code shared by the fused bounce (bounce.cu, K1/K2) and the
-// standalone mixture sampler (sampler.cu, K3): table layouts, 3-vector and
-// quaternion math, the counter RNG, the three direction samplers, their
-// pdfs and the MIS mixture stage. K1 and K3 therefore run the same sampler
-// code, and both match the plain PyTorch versions in ops/sampling.py and
+// Device code shared by the fused bounce (bounce.cu, K1/K2), the persistent
+// round (persistent.cu, K5) and the standalone mixture sampler (sampler.cu,
+// K3): table layouts, 3-vector and quaternion math, the counter RNG and its
+// draw layouts, the three direction samplers, their pdfs and the MIS
+// mixture stage. K1, K5 and K3 therefore run the same sampler code, and all
+// match the plain PyTorch versions in ops/sampling.py and
 // ops/mixture.py. Everything sits in an anonymous namespace: each
 // translation unit that includes this header gets its own copy.
 
@@ -94,6 +95,19 @@ __device__ __forceinline__ float uniform_ctr(uint32_t key, uint32_t ctr) {
   uint32_t bits = fmix(key ^ (ctr * 0x85EBCA77u + 0x165667B1u));
   return (float)(bits >> 8) * (1.0f / 16777216.0f);
 }
+
+// Where one bounce's draws sit (ops/rng.py Ctr): row r of mixture candidate t
+// at base + t * cand + r * row, the dielectric split at base + diel. The batch
+// paths use (bounce * draws_per_bounce + 2, 7, 1, 7 T); the lane engines
+// (base0 + stride * depth, 1, T, 63) with base0 = 2, stride = 64.
+struct Ctr {
+  uint32_t base, cand, row, diel;
+};
+__device__ __forceinline__ Ctr at_depth(Ctr c, uint32_t stride, uint32_t depth) {
+  c.base += stride * depth;
+  return c;
+}
+constexpr uint32_t CTR_JITTER = 0;  // draws 0 and 1 of every path: camera jitter
 
 struct Tables {
   const float* geo;
@@ -304,23 +318,24 @@ __device__ float pdf_lights(const Tables& T, V3 point, V3 l) {
 }
 
 // K candidates, first accept, mixture pdf of the chosen one (mixture_body)
-__device__ void mixture(const Tables& T, uint32_t key, uint32_t ctr, int max_tries, V3 point,
+__device__ void mixture(const Tables& T, uint32_t key, const Ctr& ctr, int max_tries, V3 point,
                         V3 n, V3 ns, V3 v, float roughness, V3& l, float& pdf, bool& accepted) {
   const int n_comp = T.num_lights > 0 ? 3 : 2;
   V3 pick = mk(0.0f, 0.0f, 1.0f);
   accepted = false;
   for (int t = 0; t < max_tries && !accepted; ++t) {
-    const uint32_t c0 = ctr + 2u + 7u * (uint32_t)t;
+    const uint32_t c0 = ctr.base + ctr.cand * (uint32_t)t;
+    const uint32_t r = ctr.row;
     const int which = min((int)(uniform_ctr(key, c0) * (float)n_comp), n_comp - 1);
-    const float u1 = uniform_ctr(key, c0 + 1u), u2 = uniform_ctr(key, c0 + 2u);
+    const float u1 = uniform_ctr(key, c0 + r), u2 = uniform_ctr(key, c0 + 2u * r);
     V3 cand;
     if (which == 0) {
       cand = sample_cosine(u1, u2, n);
     } else if (which == 1) {
       cand = sample_vndf(u1, u2, n, v, roughness);
     } else {
-      const float us[6] = {u1, u2, uniform_ctr(key, c0 + 3u), uniform_ctr(key, c0 + 4u),
-                           uniform_ctr(key, c0 + 5u), uniform_ctr(key, c0 + 6u)};
+      const float us[6] = {u1, u2, uniform_ctr(key, c0 + 3u * r), uniform_ctr(key, c0 + 4u * r),
+                           uniform_ctr(key, c0 + 5u * r), uniform_ctr(key, c0 + 6u * r)};
       cand = sample_light_dir(T, us, point);
     }
     if (dot(cand, ns) > 0.0f && dot(cand, n) > 0.0f) {

@@ -15,9 +15,10 @@
 //   fused bounce (bounce.cu, K1/K2) runs.
 // * The TPU hardware PRNG, seeded per 8192-lane block, has no Hopper
 //   counterpart: draw r of candidate t is
-//   uniform_ctr(work_key(seed, wid + wid_off), ctr_base + 2 + 7 t + r), the
-//   counter RNG of ops/rng.py, so kernel and plain version see the same
-//   numbers and the result does not depend on the lane count.
+//   uniform_ctr(work_key(seed, wid + wid_off), ctr.base + ctr.cand t +
+//   ctr.row r) (the batch layout: ctr_base + 2 + 7 t + r), the counter RNG
+//   of ops/rng.py, so kernel and plain version see the same numbers and the
+//   result does not depend on the lane count.
 // * The light table (18 x L <= 32) and its spec are staged in shared memory
 //   per block; the TPU kernel took them as a VMEM block.
 // * A lane whose `need` flag is 0 (dead, or a MIRROR/DIELECTRIC hit) skips
@@ -41,7 +42,8 @@ struct SamplerParams {
   const float* in[N_IN];
   const uint8_t* need;  // (b,) bool
   const int* wid;       // (b,)
-  uint32_t wid_off, seed, ctr_base;
+  uint32_t wid_off, seed;
+  Ctr ctr;
   const float* lp;   // (LC_COUNT, nl)
   const int* lspec;  // (nl,)
   int nl, num_lights, max_tries;
@@ -70,7 +72,7 @@ __global__ void __launch_bounds__(kThreads) sampler_kernel(SamplerParams p) {
     const V3 v = mk(p.in[9][i], p.in[10][i], p.in[11][i]);
     const float roughness = p.in[12][i];
     const uint32_t key = work_key(p.seed, (uint32_t)p.wid[i] + p.wid_off);
-    mixture(T, key, p.ctr_base, p.max_tries, point, n, ns, v, roughness, l, pdf, ok);
+    mixture(T, key, p.ctr, p.max_tries, point, n, ns, v, roughness, l, pdf, ok);
   }
   p.out[0 * b + i] = l.x;
   p.out[1 * b + i] = l.y;
@@ -86,6 +88,7 @@ __global__ void __launch_bounds__(kThreads) sampler_kernel(SamplerParams p) {
 // the kernel does not take). Never synchronises.
 extern "C" int rt_launch_sampler(const void* const* ins, const void* need, const void* wid,
                                  unsigned wid_off, unsigned seed, unsigned ctr_base,
+                                 unsigned ctr_cand, unsigned ctr_row, unsigned ctr_diel,
                                  const void* lp, const void* lspec, int nl, int num_lights,
                                  int max_tries, long long b, void* out, void* ok,
                                  void* stream) {
@@ -99,7 +102,7 @@ extern "C" int rt_launch_sampler(const void* const* ins, const void* need, const
   p.wid = static_cast<const int*>(wid);
   p.wid_off = wid_off;
   p.seed = seed;
-  p.ctr_base = ctr_base;
+  p.ctr = Ctr{ctr_base, ctr_cand, ctr_row, ctr_diel};
   p.lp = static_cast<const float*>(lp);
   p.lspec = static_cast<const int*>(lspec);
   p.nl = nl;

@@ -88,7 +88,7 @@ def trace_sample(scene: B.BounceScene, state: torch.Tensor, seed: int,
     bg, k = cfg.bg_color, cfg.max_tries
     rays = torch.full((), float(px.shape[0]), dtype=torch.float64, device=px.device)
     if cfg.ray_depth < 2:  # the final level only: camera rays, then K1 final_only
-        draw = B._lane_draws(seed, wid, wid_off, 0, k)
+        draw = B.lane_draws(seed, wid, wid_off)
         ro, rd = generate_rays_u(camera_from_row(cam_row), px, py, width, height,
                                  draw(CTR_JITTER), draw(CTR_JITTER + 1))
         zero = px * 0.0

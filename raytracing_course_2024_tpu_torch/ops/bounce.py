@@ -9,7 +9,9 @@ the MIRROR / DIELECTRIC continuation rules. Entry points:
 
 * ``primary_bounce``: camera jitter + bounce 0 of a fresh path (replaces
   the JAX package's ``ops/pallas_bounce.py:_primary_kernel``, K2);
-* ``bounce``: one later bounce (``ops/pallas_bounce.py:_kernel``, K1);
+* ``bounce``: one later bounce (``ops/pallas_bounce.py:_kernel``, K1); with
+  ``depth`` (lane mode) each lane draws at its own depth in the lane
+  engines' layout (``integrator/wavefront.py``);
 * ``bounce(..., final_only=True)``: the last depth level, intersect and
   emission only (K1 with sections 4-5 compiled out).
 
@@ -22,8 +24,9 @@ tensor it launches the kernel of ``csrc/bounce.cu`` (built on first use by
 ``ops/kernels.py:LAUNCHES``.
 
 Uniforms come from the counter RNG (``ops/rng.py``): lane ``i`` draws from
-``work_key(seed, wid[i] + wid_off)`` at counter
-``bounce_i * draws_per_bounce(max_tries) + d``.
+``work_key(seed, wid[i] + wid_off)``, in batch mode at counter
+``bounce_i * draws_per_bounce(max_tries) + d`` (``batch_ctr``), in lane mode
+at the lane engines' counters for depth ``depth[i]`` (``lane_ctr``).
 """
 
 from __future__ import annotations
@@ -49,7 +52,8 @@ from .camera import camera_from_row, generate_rays_u
 from .intersect import DIR_BIAS, EPS
 from .kernels import LAUNCHES, check, launch_bounce, launch_primary
 from .mixture import mixture_body
-from .rng import CTR_JITTER, ctr_diel, draws_per_bounce, uniform_ctr, work_key
+from .rng import (CTR_JITTER, WF_STRIDE, Ctr, batch_ctr, draws_per_bounce, lane_ctr,
+                  uniform_ctr, work_key)
 from .sampling import UNROLL_MAX_LIGHTS
 from .vec import Quat, Vec3, reflect, true_div, where3
 
@@ -300,12 +304,14 @@ def _intersect_all(spec: tuple, geo: np.ndarray, ro: Vec3, rd: Vec3):
     return best_t, best_i, best_u, best_v, n_geom, best_outer, best_tri
 
 
-def _bounce_math(scene: BounceScene, k_tries: int, bg: tuple, draw,
+def _bounce_math(scene: BounceScene, k_tries: int, bg: tuple, draw, ctr: Ctr,
                  ro: Vec3, rd: Vec3, thr: Vec3, rad: Vec3, alive,
                  final_only: bool = False):
     """Intersect -> detail -> emission -> sampling -> continuation. Returns
     (next origin, next direction, thr', rad', alive'); ``final_only`` stops
-    after emission and passes ro/rd/thr through as (point, rd, thr)."""
+    after emission and passes ro/rd/thr through as (point, rd, thr).
+    ``draw(c)`` is the lane's uniform at counter ``c``; ``ctr`` says where
+    this bounce's draws sit."""
     statics, geo_np = scene.statics, scene.geo_np
     spec = statics.mega_spec
     zero = ro.x * 0.0
@@ -354,7 +360,7 @@ def _bounce_math(scene: BounceScene, k_tries: int, bg: tuple, draw,
     # --- 4. mixture sampling ------------------------------------------------
     v_dir = rd * -1.0
     l, pdf, ok = mixture_body(
-        draw, point, n_geom, n_shade, v_dir, roughness, scene.lp_np, statics,
+        draw, ctr, point, n_geom, n_shade, v_dir, roughness, scene.lp_np, statics,
         k_tries,
     )
 
@@ -376,7 +382,7 @@ def _bounce_math(scene: BounceScene, k_tries: int, bg: tuple, draw,
             w = where3(is_mirror, color, w)
         if any_diel:
             ior = gather_row(_IOR)
-            u_diel = draw(ctr_diel(k_tries))
+            u_diel = draw(ctr.base + ctr.diel)
             cos_i = torch.clamp(v_dir.dot(n_geom), 0.0, 1.0)
             eta = torch.where(is_outer, 1.0 / ior, ior)
             sin2_t = eta * eta * torch.clamp(1.0 - cos_i * cos_i, min=0.0)
@@ -403,11 +409,16 @@ def _bounce_math(scene: BounceScene, k_tries: int, bg: tuple, draw,
     return next_origin, l, thr, rad, new_alive
 
 
-def _lane_draws(seed: int, wid: torch.Tensor, wid_off: int, bounce_i: int,
-                max_tries: int):
+def lane_draws(seed: int, wid: torch.Tensor, wid_off: int):
+    """``draw(c)``: each lane's uniform at counter ``c`` of its work key."""
     key = work_key(seed, wid.to(torch.int64) + int(wid_off))
-    base = bounce_i * draws_per_bounce(max_tries)
-    return lambda d: uniform_ctr(key, base + d)
+    return lambda c: uniform_ctr(key, c)
+
+
+def _ctr(bounce_i: int, max_tries: int, depth) -> Ctr:
+    if depth is None:
+        return batch_ctr(bounce_i * draws_per_bounce(max_tries), max_tries)
+    return lane_ctr(depth, max_tries)
 
 
 def _pack(ro: Vec3, rd: Vec3, thr: Vec3, rad: Vec3, alive) -> torch.Tensor:
@@ -416,13 +427,13 @@ def _pack(ro: Vec3, rd: Vec3, thr: Vec3, rad: Vec3, alive) -> torch.Tensor:
 
 def bounce_plain(scene: BounceScene, state: torch.Tensor, wid: torch.Tensor,
                  wid_off: int, seed: int, bounce_i: int, bg: tuple,
-                 max_tries: int = 4, final_only: bool = False) -> torch.Tensor:
+                 max_tries: int = 4, final_only: bool = False,
+                 depth: torch.Tensor | None = None) -> torch.Tensor:
     """Plain version of ``bounce``; returns a new (13, B) state."""
     s = state
     out = _bounce_math(
-        scene, max_tries, bg,
-        _lane_draws(seed, wid, wid_off, bounce_i, max_tries),
-        Vec3(s[0], s[1], s[2]), Vec3(s[3], s[4], s[5]),
+        scene, max_tries, bg, lane_draws(seed, wid, wid_off),
+        _ctr(bounce_i, max_tries, depth), Vec3(s[0], s[1], s[2]), Vec3(s[3], s[4], s[5]),
         Vec3(s[6], s[7], s[8]), Vec3(s[9], s[10], s[11]), s[12] > 0.5,
         final_only=final_only,
     )
@@ -435,13 +446,13 @@ def primary_plain(scene: BounceScene, cam_row: torch.Tensor, px: torch.Tensor,
                   height: int) -> torch.Tensor:
     """Plain version of ``primary_bounce``: jitter draws 0 and 1, the camera
     ray (``generate_rays_u``), then bounce 0 of a fresh path."""
-    draw = _lane_draws(seed, wid, wid_off, 0, max_tries)
+    draw = lane_draws(seed, wid, wid_off)
     ro, rd = generate_rays_u(camera_from_row(cam_row), px, py, width, height,
                              draw(CTR_JITTER), draw(CTR_JITTER + 1))
     zero = px * 0.0
     one = zero + 1.0
     out = _bounce_math(
-        scene, max_tries, bg, draw, ro, rd, Vec3(one, one, one),
+        scene, max_tries, bg, draw, _ctr(0, max_tries, None), ro, rd, Vec3(one, one, one),
         Vec3(zero, zero, zero), zero < 1.0,
     )
     return _pack(*out)
@@ -452,7 +463,7 @@ def primary_plain(scene: BounceScene, cam_row: torch.Tensor, px: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def _check_scene(scene: BounceScene, device) -> None:
+def check_scene(scene: BounceScene, device) -> None:
     m = scene.geo.shape[1]
     nl = scene.lp.shape[1]
     if m > MAX_PRIMS or nl > UNROLL_MAX_LIGHTS:
@@ -467,15 +478,18 @@ def _check_scene(scene: BounceScene, device) -> None:
 def bounce(scene: BounceScene, state: torch.Tensor, wid: torch.Tensor,
            wid_off: int, seed: int, bounce_i: int, bg: tuple,
            max_tries: int = 4, final_only: bool = False,
-           out: torch.Tensor | None = None) -> torch.Tensor:
+           out: torch.Tensor | None = None,
+           depth: torch.Tensor | None = None) -> torch.Tensor:
     """One fused bounce of the (13, B) path state.
 
+    ``depth`` (int32 (B,)) selects lane mode: lane ``i`` draws at depth
+    ``depth[i]`` of the lane engines' layout and ``bounce_i`` is unused.
     On CUDA, ``out`` may be ``state`` itself: each thread reads its lane
     before writing it, so the update runs in place (the JAX kernel wrote
     fresh buffers; in place saves 13 x 4 B per lane of device memory)."""
     if state.device.type == "cpu":
         res = bounce_plain(scene, state, wid, wid_off, seed, bounce_i, bg,
-                           max_tries, final_only)
+                           max_tries, final_only, depth)
         if out is None:
             return res
         out.copy_(res)
@@ -485,12 +499,16 @@ def bounce(scene: BounceScene, state: torch.Tensor, wid: torch.Tensor,
     b = state.shape[1]
     check("state", state, torch.float32, (N_STATE, b), state.device)
     check("wid", wid, torch.int32, (b,), state.device)
-    _check_scene(scene, state.device)
+    if depth is not None:
+        check("depth", depth, torch.int32, (b,), state.device)
+    check_scene(scene, state.device)
     if out is None:
         out = torch.empty_like(state)
     check("out", out, torch.float32, (N_STATE, b), state.device)
-    launch_bounce(scene, state, out, wid, wid_off, seed, bounce_i, bg,
-                  max_tries, draws_per_bounce(max_tries), final_only)
+    # lane mode: the kernel adds WF_STRIDE * depth[i] to the depth-0 layout
+    ctr = _ctr(bounce_i, max_tries, None if depth is None else 0)
+    launch_bounce(scene, state, out, wid, wid_off, seed, ctr, depth, WF_STRIDE, bg,
+                  max_tries, final_only)
     LAUNCHES["final" if final_only else "bounce"] += 1
     return out
 
@@ -517,11 +535,11 @@ def primary_bounce(scene: BounceScene, cam_row: torch.Tensor,
     check("py", py, torch.float32, (b,), dev)
     check("wid", wid, torch.int32, (b,), dev)
     check("cam_row", cam_row, torch.float32, (128,), dev)
-    _check_scene(scene, dev)
+    check_scene(scene, dev)
     if out is None:
         out = torch.empty((N_STATE, b), dtype=torch.float32, device=dev)
     check("out", out, torch.float32, (N_STATE, b), dev)
-    launch_primary(scene, cam_row, px, py, out, wid, wid_off, seed, bg,
-                   max_tries, width, height)
+    launch_primary(scene, cam_row, px, py, out, wid, wid_off, seed, _ctr(0, max_tries, None),
+                   bg, max_tries, width, height)
     LAUNCHES["primary"] += 1
     return out

@@ -11,8 +11,8 @@ and spills into the build log next to the library.
 
 Importing this module builds nothing; ``library()`` builds on first call.
 ``LAUNCHES`` counts the launches each wrapper makes (``ops/bounce.py``,
-``ops/dense_nearest.py``, ``ops/sampler.py``); ``check`` validates a
-tensor before its pointer goes to a kernel.
+``ops/dense_nearest.py``, ``ops/sampler.py``, ``ops/persistent.py``);
+``check`` validates a tensor before its pointer goes to a kernel.
 """
 
 from __future__ import annotations
@@ -30,7 +30,7 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
-SOURCES = ("bounce.cu", "dense_nearest.cu", "sampler.cu")
+SOURCES = ("bounce.cu", "dense_nearest.cu", "persistent.cu", "sampler.cu")
 # --fmad=false: no FMA contraction, so the kernels round op by op like the
 # plain versions (PyTorch runs one op per kernel). With contraction, grazing
 # hits and accept decisions flipped on ~0.1 % of the MIXED scene's lanes per
@@ -44,9 +44,10 @@ NVCC_FLAGS = (
 _LIB = None
 BUILD_INFO: dict = {}  # path, seconds (0.0 when cached), log of the last build
 
-# kernel launches per wrapper: the fused K2 / K1 / K1-final, and the modular
-# path's K4 and K3
-LAUNCHES = {"primary": 0, "bounce": 0, "final": 0, "nearest": 0, "sampler": 0}
+# kernel launches per wrapper: the fused K2 / K1 (batch and lane mode) /
+# K1-final, the modular path's K4 and K3, the sticky engine's K5
+LAUNCHES = {"primary": 0, "bounce": 0, "final": 0, "nearest": 0, "sampler": 0,
+            "persistent": 0}
 
 
 def reset_launches() -> None:
@@ -127,20 +128,26 @@ def library() -> ctypes.CDLL:
         lib = ctypes.CDLL(str(_build()))
         p, i, u, f, ll = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
                           ctypes.c_float, ctypes.c_longlong)
+        ctr = [u, u, u, u]  # Ctr: base, cand, row, diel
+        scene = [p, p, i, p, p, i, i, f, f, f, i]  # tables, lights, bg, max_tries
         lib.rt_launch_bounce.argtypes = [
-            p, p, ll, p, u, u, u, p, p, i, p, p, i, i, f, f, f, i, i, p,
+            p, p, ll, p, u, u, *ctr, p, u, *scene, i, p,
         ]
         lib.rt_launch_bounce.restype = i
         lib.rt_launch_primary.argtypes = [
-            p, p, p, i, i, p, ll, p, u, u, u, p, p, i, p, p, i, i, f, f, f, i, p,
+            p, p, p, i, i, p, ll, p, u, u, *ctr, *scene, p,
         ]
         lib.rt_launch_primary.restype = i
         lib.rt_launch_dense_nearest.argtypes = [p, p, i, ll, f, p, p, p]
         lib.rt_launch_dense_nearest.restype = i
         lib.rt_launch_sampler.argtypes = [
-            p, p, p, u, u, u, p, p, i, i, i, ll, p, p, p,
+            p, p, p, u, u, *ctr, p, p, i, i, i, ll, p, p, p,
         ]
         lib.rt_launch_sampler.restype = i
+        lib.rt_launch_persistent.argtypes = [
+            p, p, ll, p, p, p, p, i, i, u, u, u, u, *ctr, u, i, *scene, p, p,
+        ]
+        lib.rt_launch_persistent.restype = i
         _LIB = lib
     return _LIB
 
@@ -154,34 +161,56 @@ def _u32(x: int) -> int:
     return int(x) & 0xFFFFFFFF
 
 
-def launch_bounce(scene, state, out, wid, wid_off, seed, bounce_i, bg,
-                  max_tries, draws, final_only) -> None:
+def _ctr(ctr) -> tuple:
+    """An ops.rng.Ctr with an int base as the kernels' four u32 arguments."""
+    return _u32(ctr.base), _u32(ctr.cand), _u32(ctr.row), _u32(ctr.diel)
+
+
+def _scene(scene, bg, max_tries) -> tuple:
+    """A BounceScene and the launch constants as the kernels' scene arguments."""
+    return (scene.geo.data_ptr(), scene.spec.data_ptr(), scene.geo.shape[1],
+            scene.lp.data_ptr(), scene.lspec.data_ptr(), scene.lp.shape[1],
+            scene.statics.num_lights, float(bg[0]), float(bg[1]), float(bg[2]),
+            int(max_tries))
+
+
+def launch_bounce(scene, state, out, wid, wid_off, seed, ctr, depth, ctr_stride, bg,
+                  max_tries, final_only) -> None:
     lib = library()
     stream = torch.cuda.current_stream(state.device).cuda_stream
     rc = lib.rt_launch_bounce(
         state.data_ptr(), out.data_ptr(), state.shape[1], wid.data_ptr(),
-        _u32(wid_off), _u32(seed), _u32(bounce_i * draws),
-        scene.geo.data_ptr(), scene.spec.data_ptr(), scene.geo.shape[1],
-        scene.lp.data_ptr(), scene.lspec.data_ptr(), scene.lp.shape[1],
-        scene.statics.num_lights, float(bg[0]), float(bg[1]), float(bg[2]),
-        int(max_tries), int(bool(final_only)), stream,
+        _u32(wid_off), _u32(seed), *_ctr(ctr),
+        None if depth is None else depth.data_ptr(), _u32(ctr_stride),
+        *_scene(scene, bg, max_tries), int(bool(final_only)), stream,
     )
     _raise_on(rc, "rt_launch_bounce")
 
 
-def launch_primary(scene, cam_row, px, py, out, wid, wid_off, seed, bg,
+def launch_primary(scene, cam_row, px, py, out, wid, wid_off, seed, ctr, bg,
                    max_tries, width, height) -> None:
     lib = library()
     stream = torch.cuda.current_stream(px.device).cuda_stream
     rc = lib.rt_launch_primary(
         px.data_ptr(), py.data_ptr(), cam_row.data_ptr(), int(width),
         int(height), out.data_ptr(), px.shape[0], wid.data_ptr(),
-        _u32(wid_off), _u32(seed), 0, scene.geo.data_ptr(),
-        scene.spec.data_ptr(), scene.geo.shape[1], scene.lp.data_ptr(),
-        scene.lspec.data_ptr(), scene.lp.shape[1], scene.statics.num_lights,
-        float(bg[0]), float(bg[1]), float(bg[2]), int(max_tries), stream,
+        _u32(wid_off), _u32(seed), *_ctr(ctr), *_scene(scene, bg, max_tries), stream,
     )
     _raise_on(rc, "rt_launch_primary")
+
+
+def launch_persistent(scene, state, out, px, py, kmax, cam_row, width, height, seed,
+                      frame_pix, pix_base, samp_base, ctr, ctr_stride, ray_depth, bg,
+                      max_tries, counts) -> None:
+    lib = library()
+    stream = torch.cuda.current_stream(state.device).cuda_stream
+    rc = lib.rt_launch_persistent(
+        state.data_ptr(), out.data_ptr(), state.shape[1], px.data_ptr(), py.data_ptr(),
+        kmax.data_ptr(), cam_row.data_ptr(), int(width), int(height), _u32(seed),
+        _u32(frame_pix), _u32(pix_base), _u32(samp_base), *_ctr(ctr), _u32(ctr_stride),
+        int(ray_depth), *_scene(scene, bg, max_tries), counts.data_ptr(), stream,
+    )
+    _raise_on(rc, "rt_launch_persistent")
 
 
 def _ptrs(tensors) -> ctypes.Array:
@@ -199,13 +228,13 @@ def launch_dense_nearest(rays, tri, tmin, t_out, i_out) -> None:
     _raise_on(rc, "rt_launch_dense_nearest")
 
 
-def launch_sampler(ins, need, wid, wid_off, seed, ctr_base, lp, lspec,
+def launch_sampler(ins, need, wid, wid_off, seed, ctr, lp, lspec,
                    num_lights, max_tries, out, ok) -> None:
     lib = library()
     stream = torch.cuda.current_stream(out.device).cuda_stream
     rc = lib.rt_launch_sampler(
         _ptrs(ins), need.data_ptr(), wid.data_ptr(), _u32(wid_off), _u32(seed),
-        _u32(ctr_base), lp.data_ptr(), lspec.data_ptr(), lp.shape[1],
+        *_ctr(ctr), lp.data_ptr(), lspec.data_ptr(), lp.shape[1],
         int(num_lights), int(max_tries), out.shape[1], out.data_ptr(),
         ok.data_ptr(), stream,
     )

@@ -7,9 +7,11 @@ the first candidate with l.n_shade > 0 and l.n_geom > 0 is kept; the
 mixture pdf is evaluated for that candidate only. With no accepted
 candidate l = (0, 0, 1) and ``ok`` is False (the lane dies).
 
-``draw(d)`` returns the lane's uniform for draw ``d`` of the current
-bounce; candidate ``t`` reads rows ``ops.rng.ctr_mix(t, 0..6)``. The same
-stage is a ``__device__`` function in ``csrc/bounce.cu``.
+``draw(c)`` returns the lane's uniform at counter ``c`` (an int, or an int
+tensor of per-lane counters); candidate ``t`` reads row ``r`` at
+``ctr.mix(t, r)`` of the bounce's layout ``ctr`` (``ops/rng.py``: the batch
+path's or the lane engines'). The same stage is ``mixture()`` in
+``csrc/common.cuh``.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ import numpy as np
 import torch
 
 from ..scene.types import SceneStatics
-from .rng import ctr_mix
+from .rng import Ctr
 from .sampling import (
     _SAFE,
     pdf_cosine,
@@ -31,7 +33,7 @@ from .sampling import (
 from .vec import Vec3, true_div, where3
 
 
-def mixture_body(draw, point: Vec3, n: Vec3, ns: Vec3, v: Vec3,
+def mixture_body(draw, ctr: Ctr, point: Vec3, n: Vec3, ns: Vec3, v: Vec3,
                  roughness: torch.Tensor, lp: np.ndarray,
                  statics: SceneStatics, k_tries: int):
     """Returns (l, pdf >= _SAFE, accepted)."""
@@ -42,13 +44,13 @@ def mixture_body(draw, point: Vec3, n: Vec3, ns: Vec3, v: Vec3,
 
     for t in range(k_tries):
         which = torch.clamp(
-            (draw(ctr_mix(t, 0)) * n_comp).to(torch.int32), max=n_comp - 1
+            (draw(ctr.mix(t, 0)) * n_comp).to(torch.int32), max=n_comp - 1
         )
-        u1, u2 = draw(ctr_mix(t, 1)), draw(ctr_mix(t, 2))
+        u1, u2 = draw(ctr.mix(t, 1)), draw(ctr.mix(t, 2))
         cand = sample_cosine_u(u1, u2, n)
         cand = where3(which == 1, sample_vndf_u(u1, u2, n, v, roughness), cand)
         if statics.num_lights > 0:
-            us = [u1, u2] + [draw(ctr_mix(t, r)) for r in range(3, 7)]
+            us = [u1, u2] + [draw(ctr.mix(t, r)) for r in range(3, 7)]
             cand = where3(
                 which == 2, sample_light_dir_u(us, point, lp, statics), cand
             )

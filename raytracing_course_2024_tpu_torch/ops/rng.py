@@ -26,9 +26,22 @@ The fused kernels and the modular path read the same counters, so the two
 routes trace the same paths from the same seed.
 
 The image is therefore independent of batch size and replica count.
+
+Draw layout of the lane engines (``integrator/wavefront.py``), the JAX
+package's ``integrator/wavefront.py:57-63``, one key per (sample, pixel):
+
+* ``wid = (samp_base + s) * frame_pix + pix_base + pixel``;
+* draws 0, 1 camera jitter; the bounce at the lane's own depth ``d`` starts
+  at ``base = 2 + 64 d``: row ``r`` of candidate ``t`` at ``base + r T + t``,
+  the roulette draw at ``base + 62``, the dielectric split at ``base + 63``.
+
+A ``Ctr`` says where one bounce's draws sit. The kernels take the same four
+numbers (``csrc/common.cuh``: ``Ctr``), so K1, K3 and K5 read either layout.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple, Union
 
 import torch
 
@@ -42,6 +55,12 @@ _CTR_ADD = 0x165667B1
 CTR_JITTER = 0  # draws 0, 1
 CTR_MIX = 2  # first mixture draw
 MIX_ROWS = 7
+
+# lane-engine layout: bounce d owns [WF_BOUNCE0 + WF_STRIDE d, ... + WF_STRIDE)
+WF_BOUNCE0 = 2
+WF_STRIDE = 64
+WF_RR = 62
+WF_DIEL = 63
 
 
 def draws_per_bounce(max_tries: int) -> int:
@@ -60,6 +79,45 @@ def ctr_diel(max_tries: int) -> int:
 
 def ctr_rr(max_tries: int) -> int:
     return ctr_diel(max_tries) + 1
+
+
+class Ctr(NamedTuple):
+    """Counters of one bounce's draws: row ``r`` of mixture candidate ``t``
+    at ``base + t * cand + r * row``; the dielectric split at
+    ``base + diel``, the roulette draw at ``base + rr``. ``base`` is an int
+    or, in the lane layout, an int64 tensor (one depth per lane)."""
+
+    base: Union[int, torch.Tensor]
+    cand: int
+    row: int
+    diel: int
+    rr: int
+
+    def mix(self, t: int, r: int):
+        return self.base + t * self.cand + r * self.row
+
+
+def batch_ctr(ctr_base: int, max_tries: int) -> Ctr:
+    """The fused and modular paths' layout of the bounce whose draws start
+    at ``ctr_base`` (``bounce_i * draws_per_bounce(max_tries)``)."""
+    return Ctr(ctr_base + CTR_MIX, MIX_ROWS, 1, MIX_ROWS * max_tries,
+               MIX_ROWS * max_tries + 1)
+
+
+def lane_ctr(depth, max_tries: int) -> Ctr:
+    """The lane engines' layout at per-lane depth ``depth`` (int tensor)."""
+    if MIX_ROWS * max_tries >= WF_RR:
+        raise ValueError(f"max_tries {max_tries} exceeds the lane engines' counter block")
+    if isinstance(depth, torch.Tensor):
+        depth = depth.to(torch.int64)
+    return Ctr(WF_BOUNCE0 + WF_STRIDE * depth, 1, max_tries, WF_DIEL, WF_RR)
+
+
+def mixture_rows(key_lane: torch.Tensor, ctr: Ctr, max_tries: int) -> list:
+    """The 7 uniform rows of (K*B,), candidate-major, that the XLA
+    ``sample_mixture`` takes (the JAX package's ``wavefront.py:167-173``)."""
+    return [torch.cat([uniform_ctr(key_lane, ctr.mix(t, r)) for t in range(max_tries)])
+            for r in range(MIX_ROWS)]
 
 
 def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:

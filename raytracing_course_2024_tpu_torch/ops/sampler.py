@@ -8,7 +8,8 @@ GGX-VNDF, light surface); the first with l.n_shade > 0 and l.n_geom > 0 is
 kept and the mixture pdf is evaluated for it only. Returns (l, pdf, ok).
 
 The TPU kernel drew from the hardware PRNG; here candidate ``t`` reads row
-``r`` at counter ``ctr_base + ops.rng.ctr_mix(t, r)`` of the lane's key
+``r`` at counter ``ctr_base + ops.rng.ctr_mix(t, r)`` (the batch layout,
+``ops.rng.batch_ctr``) of the lane's key
 ``work_key(seed, wid + wid_off)``, so the kernel, its plain version and
 the fused bounce (K1, same counters at the same bounce) see the same draws.
 
@@ -29,11 +30,9 @@ from __future__ import annotations
 import torch
 
 from .kernels import LAUNCHES, check, launch_sampler
-from .rng import ctr_mix, uniform_ctr, work_key
+from .rng import batch_ctr, mixture_rows, work_key
 from .sampling import UNROLL_MAX_LIGHTS, sample_mixture
 from .vec import Vec3
-
-N_ROWS = 7  # draws per candidate: which, u1, u2, u3..u6
 
 
 def sampler_plain(scene, seed: int, wid: torch.Tensor, wid_off: int,
@@ -44,8 +43,7 @@ def sampler_plain(scene, seed: int, wid: torch.Tensor, wid_off: int,
     reference's acceptance, which has no kernel (the JAX package runs it in
     XLA only)."""
     key = work_key(seed, wid.to(torch.int64) + int(wid_off))
-    rows = [torch.cat([uniform_ctr(key, ctr_base + ctr_mix(t, r)) for t in range(max_tries)])
-            for r in range(N_ROWS)]
+    rows = mixture_rows(key, batch_ctr(ctr_base, max_tries), max_tries)
     return sample_mixture(rows, point, n_geom, n_shade, v, roughness, scene.lp_np,
                           scene.statics, max_tries, need=need, faithful=faithful)
 
@@ -75,7 +73,7 @@ def sample_mixture_kernel(scene, seed: int, wid: torch.Tensor, wid_off: int,
     check("lspec", lspec, torch.int32, (nl,), dev)
     out = torch.empty((4, b), dtype=torch.float32, device=dev)
     ok = torch.empty((b,), dtype=torch.bool, device=dev)
-    launch_sampler(ins, need, wid, wid_off, seed, ctr_base, lp, lspec,
+    launch_sampler(ins, need, wid, wid_off, seed, batch_ctr(ctr_base, max_tries), lp, lspec,
                    scene.statics.num_lights, max_tries, out, ok)
     LAUNCHES["sampler"] += 1
     return Vec3(out[0], out[1], out[2]), out[3], ok

@@ -70,7 +70,7 @@ class ModularScene(NamedTuple):
 def modular_scene(scn: SceneArrays, statics: SceneStatics,
                   device) -> ModularScene:
     if scn.bvh is not None:
-        raise NotImplementedError("BVH arrays are not ported yet (ROADMAP M6)")
+        raise NotImplementedError("BVH arrays are not ported yet (ROADMAP M6b)")
 
     def dev(a, dtype=torch.float32):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device=device, dtype=dtype)

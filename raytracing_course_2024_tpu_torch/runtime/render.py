@@ -1,13 +1,21 @@
-"""Single-device render orchestration (batch engine).
+"""Single-device render orchestration.
 
-Pixels are flattened into fixed-size lane batches; each batch runs
-``integrator.path.render_pixels`` on the fused path or the modular dense
-path, picked as the JAX package picks them (``integrator.path.mega_gate``,
-which chooses the device scene the Renderer builds). Frames smaller than
-``batch_size`` give each pixel ``replicas`` lanes that split the spp
-budget (the JAX package's ``_plan``). Every draw is keyed by (seed, sample,
-pixel) through the counter RNG, so the image does not depend on the batch
-size or the replica count.
+Three engines, as in the JAX package (``engine=`` or ``RT_ENGINE``; the
+default is ``"batch"`` on the dense backend):
+
+* ``batch``: pixels are flattened into fixed-size lane batches; each batch
+  runs ``integrator.path.render_pixels``. Frames smaller than
+  ``batch_size`` give each pixel ``replicas`` lanes that split the spp
+  budget (the JAX package's ``_plan``).
+* ``wavefront`` / ``sticky``: the lane engines of
+  ``integrator/wavefront.py`` on ``min(batch_size, pixels x spp)`` lanes;
+  the sticky engine runs one K5 per round when the lanes cover the pixels.
+
+The fused or the modular route is picked as the JAX package picks it
+(``integrator.path.mega_gate``, which chooses the device scene the Renderer
+builds). Every draw is keyed by (seed, sample, pixel) through the counter
+RNG, so the image does not depend on the batch size, the replica count or
+the lane count.
 """
 
 from __future__ import annotations
@@ -20,6 +28,7 @@ import numpy as np
 import torch
 
 from ..integrator.path import TraceConfig, mega_gate, render_pixels
+from ..integrator.wavefront import render_wavefront, render_wavefront_sticky
 from ..ops.bounce import BounceScene, bounce_scene
 from ..ops.scene_intersect import modular_scene
 from ..ops.camera import camera_arrays, pack_camera_row
@@ -48,8 +57,10 @@ class Renderer:
     ``plain=True`` runs the plain PyTorch versions of the kernels (K1-K4)
     on any device (used to hold the kernels against them on the card); by
     default a CUDA device runs the kernels and the CPU the plain versions.
-    ``russian_roulette=None`` reads ``RT_RR`` (``"1"`` turns it on), as the
-    JAX package's Renderer does."""
+    ``engine=None`` reads ``RT_ENGINE`` (``batch``, ``wavefront`` or
+    ``sticky``; unset means ``batch``) and ``russian_roulette=None`` reads
+    ``RT_RR`` (``"1"`` turns it on), as the JAX package's Renderer does.
+    After a lane-engine frame, ``rounds`` holds its round count."""
 
     def __init__(
         self,
@@ -69,13 +80,12 @@ class Renderer:
         if backend is None:
             backend = "bvh" if statics.num_prims > BVH_THRESHOLD else "dense"
         if backend != "dense":
-            raise NotImplementedError("the BVH backend is not ported yet (ROADMAP M6)")
-        engine = engine or "batch"
-        if engine != "batch":
-            raise NotImplementedError(
-                f"engine {engine!r} is not ported yet (ROADMAP M6 wavefront, "
-                "M7 sticky)"
-            )
+            raise NotImplementedError("the BVH backend is not ported yet (ROADMAP M6b)")
+        engine = engine or os.environ.get("RT_ENGINE") or "batch"
+        if engine not in ("batch", "wavefront", "sticky"):
+            raise ValueError(f"unknown engine {engine!r}")
+        self.engine = engine
+        self.rounds = 0
         if russian_roulette is None:
             russian_roulette = os.environ.get("RT_RR") == "1"
         self.batch_size = batch_size
@@ -115,12 +125,19 @@ class Renderer:
         """Render the frame, leaving radiance on the device.
 
         Returns (list of per-batch (3, B) channel-major tensors, path
-        vertices as a float); reading the count synchronises, so a host
-        clock around this call measures the whole render."""
+        vertices as a float); the lane engines return one (3, pixels)
+        tensor. Reading the count synchronises, so a host clock around this
+        call measures the whole render."""
         w, h = self.settings.width, self.settings.height
         samples = samples or self.settings.samples
         total = w * h
         seed32 = (seed * 2654435761) & 0xFFFFFFFF
+        if self.engine != "batch":
+            render = render_wavefront_sticky if self.engine == "sticky" else render_wavefront
+            lanes = min(self.batch_size, total * samples)
+            img, verts, self.rounds = render(seed32, 0, 0, self.cam, self.scene, self.cfg,
+                                             w, h, total, samples, lanes, plain=self.plain)
+            return [img], verts
         b, replicas = self._plan(total, samples)
         spp_r = samples // replicas
         dev = self.device
@@ -170,8 +187,9 @@ def render_scene(desc: SceneDesc, seed: int = 0, device="cuda",
     dt = time.perf_counter() - t0
     s = desc.settings
     log.info(
-        "rendered %dx%d @ %d spp depth %d in %.2fs (%.1f Mprimary-rays/s)",
+        "rendered %dx%d @ %d spp depth %d in %.2fs (%.1f Mprimary-rays/s), engine=%s%s",
         s.width, s.height, s.samples, s.ray_depth, dt,
-        s.width * s.height * s.samples / dt / 1e6,
+        s.width * s.height * s.samples / dt / 1e6, r.engine,
+        "" if r.engine == "batch" else f" rounds={r.rounds}",
     )
     return img

@@ -191,7 +191,8 @@ def test_mixture_body_matches_jax_with_counter_draws(name):
 
     tkey = trng.work_key(seed, torch.from_numpy(wid))
     tl, tpdf, tok = mixture_body(
-        lambda d: trng.uniform_ctr(tkey, base + d), tv(point), tv(n), tv(ns), tv(v),
+        lambda c: trng.uniform_ctr(tkey, c), trng.batch_ctr(base, k), tv(point), tv(n),
+        tv(ns), tv(v),
         torch.from_numpy(rough), ta.light_packed, ts, k)
     ok = np.asarray(jok)
     assert np.array_equal(tok.numpy(), ok) and ok.mean() > 0.9
