@@ -25,6 +25,12 @@ exits non-zero):
                lanes over the 1280x720 x 16 spp work ids); K5 chained over 10 rounds,
                each fed the plain version's previous state, on MIXED and
                Cornell at 262,144 lanes and Cornell at 921,600 (16 spp);
+               K1, K1-final and K5 once more, in place, on Cornell states
+               the tile walk has to get right: a lane count that is no
+               multiple of the tile (921,600 - 77), whole dead warps and
+               whole dead tiles, and every lane dead; lanes dead on entry
+               must come out bit for bit as the plain version's, and the
+               kernels' own live counts must be exact;
 4. main     -- the port's CLI renders scenes/cornell_box.gltf at 1280x720,
                16 spp four times: by default (the fused path: K2, K1,
                K1-final), with RT_RR=1 (the modular path: K4, K3), with
@@ -46,8 +52,15 @@ exits non-zero):
                (921,600 lanes); medians of 3 frames (fused kernels,
                modular kernels with roulette, sticky and counter wavefront
                kernels; one fused plain frame); ms per launch of each kernel
-               from CUDA events (K5 on the Cornell state after 10 rounds),
-               path vertices, Mrays/s, rounds, peak memory.
+               from CUDA events (K5 on the Cornell state after 10 rounds;
+               K1, K1-final and K5 in place, as the engines launch them,
+               and beside that into a separate buffer),
+               path vertices, Mrays/s, rounds, peak memory; K1 and K1-final
+               on the bounce-1 state as it is, with its live lanes sorted to
+               the front, with every lane alive, and with every lane alive
+               and sorted by the sampler component of its first try; K5
+               round by round over a whole sticky frame (ms and live share
+               of each round).
 
 The last lines are the card's name and power limit, the per-kernel JSON
 record and ``{"ok": true, "device": {...}}``.
@@ -198,7 +211,12 @@ LANE_ROUNDS = 3  # K1 lane-mode rounds held against the plain version
 # sin, cos: one each; selects and integer hashing not counted) of the
 # device functions, counted from csrc/dense_nearest.cu and csrc/common.cuh
 OPS_TRI_K4 = 53  # one Moller-Trumbore test + running min in dense_nearest_kernel
-OPS_TRI_FUSED = 71  # the same test in intersect_all, plus the facing normal
+# the fused loop (csrc/bounce_body.cuh) does the same test per entry, and the
+# facing normal (cross, dot, compare, scale: 18) once per live lane, for the
+# winner. Until the normal left the loop it was counted per entry (71).
+OPS_TRI_FUSED = 53
+OPS_WINNER_NORMAL = 18
+OPS_TRI_FUSED_OLD = 71
 OPS_CAND = {"which": 1, "accept": 12, "cosine": 24, "vndf": 159,
             "light": {0: 70, 1: 67, 2: 62}}  # sample_light_dir by light type
 OPS_PDF = 7 + 127 + 5  # pdf_cosine + pdf_vndf + sums, divide, clamp
@@ -230,6 +248,21 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def cuda_ms_in_place(fn, restore, reps: int) -> float:
+    """Device ms per call of ``fn`` where ``fn`` overwrites its input, as the
+    engines call K1 and K5: ``restore`` puts the input back before every
+    call, outside the pair of CUDA events that times the call."""
+    marks = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+             for _ in range(reps + 1)]
+    for start, end in marks:  # the first pair is the warm-up
+        restore()
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return sum(start.elapsed_time(end) for start, end in marks[1:]) / reps
 
 
 def bound(nbytes: float, ops: float) -> tuple:
@@ -432,6 +465,79 @@ def phase_kernels_lanes(dev) -> tuple:
         if (w, h) == LANES[1]:
             main = (ins, st_p, args)
     return {"bounce": bounce_err, "persistent": err}, main
+
+
+def tile_patterns(n: int, dev) -> dict:
+    """Lane masks the tile walk has to get right, as ``keep`` flags over
+    ``n`` lanes: whole warps dead (every third group of 32 lanes) and whole
+    tiles dead (every second group of 4,096 lanes, a multiple of any tile up
+    to 1,024 lanes); no lane kept at all."""
+    i = torch.arange(n, device=dev)
+    return {"dead-warps-and-tiles": ((i // 32) % 3 != 0) & ((i // 4096) % 2 == 0),
+            "all-dead": torch.zeros(n, dtype=torch.bool, device=dev)}
+
+
+def phase_kernels_tiles(dev, k5) -> None:
+    """K1, K1-final and K5 against their plain versions, run in place as the
+    engines run them, on Cornell states at the main path's 921,600 lanes cut
+    or masked so that the tile walk meets a ragged last tile, whole dead
+    warps and tiles, and no live lane at all. Beyond the usual gates: of a
+    lane dead on entry (K5: finished) every row but its parked ray (the
+    plain versions move it, nothing reads it) comes out bit for bit as the
+    plain version's, and K1's own count equals the lanes alive on entry."""
+    from raytracing_course_2024_tpu_torch.ops import bounce as B
+    from raytracing_course_2024_tpu_torch.ops.persistent import persistent_plain, persistent_round
+    from raytracing_course_2024_tpu_torch.runtime.render import Renderer
+    from raytracing_course_2024_tpu_torch.scene import load_scene
+
+    w, h, spp = FRAME
+    r = Renderer(load_scene(CORNELL, w, h, spp), device=dev)
+    scene, cam, bg = r.scene, r.cam_row, r.bg
+    n = w * h
+    idx = torch.arange(n, device=dev, dtype=torch.int32)
+    p0 = B.primary_plain(scene, cam, (idx % w).float(), (idx // w).float(), idx, 0, 1, bg, K,
+                         w, h)
+    ragged = n - 77
+    cases = {"ragged": (p0[:, :ragged].contiguous(), idx[:ragged].contiguous())}
+    for name, keep in tile_patterns(n, dev).items():
+        st = p0.clone()
+        st[12] *= keep
+        cases[name] = (st, idx)
+    for name, (st, wid) in cases.items():
+        dead = st[12] < 0.5
+        for final, level in ((False, 1), (True, 5)):
+            count = torch.zeros((), dtype=torch.int64, device=dev)
+            k = st.clone()
+            B.bounce(scene, k, wid, 0, 1, level, bg, K, final_only=final, out=k, count=count)
+            p = B.bounce_plain(scene, st, wid, 0, 1, level, bg, K, final_only=final)
+            torch.cuda.synchronize()
+            what = f"cornell-{st.shape[1]}-lanes-{name}:{'final' if final else 'bounce'}"
+            compare_states(k, p, what)
+            exact = dict(dead_lanes_equal=bool(torch.equal(k[6:, dead], p[6:, dead])),
+                         count=[int(count), int((~dead).sum())])
+            check(exact, what + "-exact",
+                  exact["dead_lanes_equal"] and exact["count"][0] == exact["count"][1])
+
+    ins, st5, args5 = k5  # the Cornell frame's state after K5_CHAIN rounds
+    scene5, cam5, px5, py5, kmax5 = ins
+    cases5 = {"ragged": ((scene5, cam5, px5[:ragged].contiguous(), py5[:ragged].contiguous(),
+                          kmax5[:ragged].contiguous()), st5[:, :ragged].contiguous())}
+    for name, keep in tile_patterns(n, dev).items():
+        st = st5.clone()  # the other lanes have finished: dead, no path left
+        st[12] *= keep
+        st[13] = torch.where(keep, st[13], kmax5)
+        cases5[name] = (ins, st)
+    for name, (ins_c, st) in cases5.items():
+        finished = (st[12] < 0.5) & (st[13] >= ins_c[4])
+        counts = torch.zeros((2,), dtype=torch.int32, device=dev)
+        k = st.clone()
+        persistent_round(*ins_c, k, counts, *args5, out=k)
+        p, live, more = persistent_plain(*ins_c, st, *args5)
+        torch.cuda.synchronize()
+        what = f"cornell-{st.shape[1]}-lanes-{name}:persistent"
+        compare_persistent(k, p, counts, live, more, what)
+        same = bool(torch.equal(k[6:, finished], p[6:, finished]))
+        check(dict(finished_lanes_equal=same, finished=int(finished.sum())), what + "-exact", same)
 
 
 class Modular:
@@ -802,8 +908,8 @@ def frame_times(r, label: str, gpu: str, reps: int = 3) -> float:
 
 
 def persistent_bytes(st: torch.Tensor, kmax: torch.Tensor) -> float:
-    """Bytes one K5 round must move for this state, each input a lane needs
-    read once and each output written once. A live lane reads ro, rd, thr,
+    """Bytes one K5 round, in place, must move for this state, each input a
+    lane needs read once and each output written once. A live lane reads ro, rd, thr,
     rad, alive, k, depth and kmax and writes all but k and kmax (120 B); a
     dead lane reads alive, k and kmax, plus rad and acc to flush when k > 0;
     a restarting one also reads px, py and writes ro, rd, thr, rad, alive, k,
@@ -818,13 +924,149 @@ def persistent_bytes(st: torch.Tensor, kmax: torch.Tensor) -> float:
     return float(floats) * 4
 
 
+def bounce_bytes(n: float, alive: float, final: bool, in_place: bool) -> float:
+    """Bytes one K1 (``final``: K1-final) launch must move for ``n`` lanes of
+    which ``alive`` are alive on entry, each input a lane needs read once and
+    each output written once.
+
+    In place, as every engine launches it: a live lane of K1 reads its 13
+    rows and its work id and writes the 13 rows (108 B); a dead one reads its
+    alive flag and has its throughput zeroed (28 B). K1-final draws nothing
+    and leaves direction and throughput as they are: a live lane reads 13
+    rows and writes origin, radiance and alive (80 B), a dead one is only
+    asked its flag (4 B).
+
+    Into a separate buffer all 13 rows of every lane are written: K1 reads
+    origin, direction, radiance and alive of every lane (40 B), throughput
+    and work id of the live ones (16 B); K1-final reads all 13 rows."""
+    dead = n - alive
+    if in_place:
+        return alive * (52 + 28) + dead * 4 if final else alive * (56 + 52) + dead * 28
+    return n * (52 + 52) if final else n * (40 + 52) + alive * 16
+
+
+def separate_k1(dev, gpu: str, scene, bg, st0: torch.Tensor, idx: torch.Tensor) -> None:
+    """What holds K1 back on the bounce-1 state of the main path, one cause
+    at a time: ms per launch, in place, of K1 and K1-final (the loop without
+    the sampler) on (i) the state as it is, its live lanes scattered among dead
+    ones, (ii) the same lanes with the live ones sorted to the front, so
+    that whole warps are live or dead whatever the kernel does, (iii) every
+    lane alive (the live lanes repeated to fill the batch, in pixel order),
+    and (iv) those sorted by the sampler component their first try picks,
+    so that a warp's first candidates all come from one sampler."""
+    from raytracing_course_2024_tpu_torch.ops import bounce as B
+    from raytracing_course_2024_tpu_torch.ops import rng
+
+    n = st0.shape[1]
+    alive = st0[12] > 0.5
+    live = torch.nonzero(alive).squeeze(1)
+    order = torch.argsort((~alive).to(torch.int8), stable=True)
+    fill = live[torch.arange(n, device=dev) % live.numel()]
+    # the first try's component, as mixture() picks it at bounce 1
+    key = rng.work_key(1, idx[fill].to(torch.int64))
+    which = torch.clamp((rng.uniform_ctr(key, B._ctr(1, K, None).base) * 3).to(torch.int32),
+                        max=2)
+    by_which = fill[torch.argsort(which.to(torch.int8), stable=True)]
+    states = {"as-is": (st0, idx), "live-first": (st0[:, order].contiguous(), idx[order]),
+              "all-alive": (st0[:, fill].contiguous(), idx[fill]),
+              "all-alive-by-component": (st0[:, by_which].contiguous(), idx[by_which])}
+    buf = torch.empty_like(st0)
+    for name, (st, wid) in states.items():
+        wid = wid.contiguous()
+        ms = cuda_ms_in_place(lambda: B.bounce(scene, buf, wid, 0, 1, 1, bg, K, out=buf),
+                              lambda: buf.copy_(st), 20)
+        fin = cuda_ms_in_place(lambda: B.bounce(scene, buf, wid, 0, 1, 1, bg, K,
+                                                final_only=True, out=buf),
+                               lambda: buf.copy_(st), 20)
+        frac = float((st[12] > 0.5).float().mean())
+        say("timing", separate="bounce", state=name, lanes=n, alive_in=round(frac, 4),
+            bounce_ms=round(ms, 4), final_ms=round(fin, 4), sampler_ms=round(ms - fin, 4),
+            ns_per_live_lane=round(ms * 1e6 / (frac * n), 3), gpu=f'"{gpu}"')
+
+
+def persistent_rounds(dev, gpu: str, desc) -> None:
+    """K5 round by round over one whole sticky frame of the main path: every
+    round the engine could need (spp x ray_depth) is launched in place with
+    a CUDA event between rounds and nothing is read until the last has run,
+    so the ms are the kernel's own. Prints each round's ms and live share
+    (the kernel's first count over the lanes) and what the tail costs."""
+    from raytracing_course_2024_tpu_torch.ops.persistent import persistent_round
+
+    w, h, spp = FRAME
+    ins, state, args = sticky_inputs(dev, desc, w, h, spp)
+    max_rounds = spp * desc.settings.ray_depth
+    counts = torch.zeros((max_rounds, 2), dtype=torch.int32, device=dev)
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(max_rounds + 1)]
+    persistent_round(*ins, state.clone(), counts[0].clone(), *args)  # warm-up
+    torch.cuda.synchronize()
+    marks[0].record()
+    for r in range(max_rounds):
+        persistent_round(*ins, state, counts[r], *args, out=state)
+        marks[r + 1].record()
+    torch.cuda.synchronize()
+    ms = [marks[r].elapsed_time(marks[r + 1]) for r in range(max_rounds)]
+    live = (counts[:, 0].double() / (w * h)).tolist()
+    used = max(r for r in range(max_rounds) if live[r] > 0) + 1  # rounds with a live lane
+    tail = [r for r in range(used) if live[r] < 0.1]
+    say("timing", separate="persistent-rounds", lanes=w * h, rounds=used,
+        frame_ms=round(sum(ms[:used]), 3), mean_ms=round(sum(ms[:used]) / used, 4),
+        mean_live=round(sum(live[:used]) / used, 4), tail_rounds_under_10pct_live=len(tail),
+        tail_ms=round(sum(ms[r] for r in tail), 3),
+        empty_round_ms=round(ms[-1], 4) if used < max_rounds else None, gpu=f'"{gpu}"')
+    say("timing", separate="persistent-rounds", ms_per_round=json.dumps(
+        [round(t, 4) for t in ms[:used]]).replace(" ", ""))
+    say("timing", separate="persistent-rounds", live_share_per_round=json.dumps(
+        [round(x, 4) for x in live[:used]]).replace(" ", ""))
+
+
+def launch_times(scene, cam, bg, st0, idx, w: int, h: int, m: Modular, k5, reps: int = 20):
+    """ms per launch from CUDA events of every kernel at the main path's
+    shapes: ``st0`` is the (13, w * h) state after K2, ``m`` the modular
+    case, ``k5`` the sticky frame's (inputs, state, arguments) some rounds
+    in. K2 writes the state it is handed. K1, K1-final and K5 update their
+    state in place on the main path, so they are timed in place, the input
+    put back before every launch outside the timed span. Returns those
+    times and, for the three, the time of reading the input and writing a
+    separate buffer, where a dead lane is copied whole."""
+    from raytracing_course_2024_tpu_torch.ops import bounce as B
+    from raytracing_course_2024_tpu_torch.ops.dense_nearest import dense_nearest
+    from raytracing_course_2024_tpu_torch.ops.persistent import persistent_round
+    from raytracing_course_2024_tpu_torch.ops.sampler import sample_mixture_kernel
+
+    px, py = (idx % w).float(), (idx // w).float()
+    buf = torch.empty_like(st0)
+    ins, st5, args5 = k5
+    buf5 = torch.empty_like(st5)
+    scratch = torch.zeros((2,), dtype=torch.int32, device=st0.device)
+    launch_ms = {
+        "primary": cuda_ms(lambda: B.primary_bounce(
+            scene, cam, px, py, idx, 0, 1, bg, K, w, h, out=buf), reps),
+        "bounce": cuda_ms_in_place(lambda: B.bounce(scene, buf, idx, 0, 1, 1, bg, K, out=buf),
+                                   lambda: buf.copy_(st0), reps),
+        "final": cuda_ms_in_place(lambda: B.bounce(
+            scene, buf, idx, 0, 1, 1, bg, K, final_only=True, out=buf),
+            lambda: buf.copy_(st0), reps),
+        "nearest": cuda_ms(lambda: dense_nearest(m.ro, m.rd, m.scene.tri_pack), reps),
+        "sampler": cuda_ms(lambda: sample_mixture_kernel(*m.sampler_args), reps),
+        "persistent": cuda_ms_in_place(
+            lambda: persistent_round(*ins, buf5, scratch, *args5, out=buf5),
+            lambda: buf5.copy_(st5), reps),
+    }
+    fresh_ms = {
+        "bounce": cuda_ms(lambda: B.bounce(scene, st0, idx, 0, 1, 1, bg, K, out=buf), reps),
+        "final": cuda_ms(lambda: B.bounce(
+            scene, st0, idx, 0, 1, 1, bg, K, final_only=True, out=buf), reps),
+        "persistent": cuda_ms(
+            lambda: persistent_round(*ins, st5, scratch, *args5, out=buf5), reps),
+    }
+    return launch_ms, fresh_ms
+
+
 def phase_timing(dev, gpu: str, counts: dict, errs: dict, m: Modular, k5) -> list:
     from raytracing_course_2024_tpu_torch.ops import bounce as B
-    from raytracing_course_2024_tpu_torch.ops.persistent import persistent_plain, persistent_round
-    from raytracing_course_2024_tpu_torch.ops.dense_nearest import (
-        dense_nearest, dense_nearest_plain)
-    from raytracing_course_2024_tpu_torch.ops.sampler import (
-        sample_mixture_kernel, sampler_plain)
+    from raytracing_course_2024_tpu_torch.ops.persistent import persistent_plain
+    from raytracing_course_2024_tpu_torch.ops.dense_nearest import dense_nearest_plain
+    from raytracing_course_2024_tpu_torch.ops.sampler import sampler_plain
     from raytracing_course_2024_tpu_torch.runtime.render import Renderer
     from raytracing_course_2024_tpu_torch.scene import load_scene
 
@@ -853,27 +1095,13 @@ def phase_timing(dev, gpu: str, counts: dict, errs: dict, m: Modular, k5) -> lis
     for k, a, b in (("primary", st0, p0), ("bounce", k1, p1), ("final", kf, pf)):
         errs[k] = max(errs.get(k, 0.0),
                       compare_states(a, b, f"cornell-{w}x{h}:{k}")["max_abs_err"])
-    # each kernel reads st0 (or the pixels) and writes a separate buffer, so
-    # every launch does the same work
-    buf = torch.empty_like(st0)
+    # K5's input: the Cornell frame's state after K5_CHAIN rounds at 16 spp,
+    # the last state the kernel phase held K5 against
     tri = m.scene.tri_pack
-    launch_ms = {
-        "primary": cuda_ms(lambda: B.primary_bounce(
-            scene, cam, px, py, idx, 0, 1, bg, K, w, h, out=buf), 20),
-        "bounce": cuda_ms(lambda: B.bounce(scene, st0, idx, 0, 1, 1, bg, K, out=buf), 20),
-        "final": cuda_ms(lambda: B.bounce(
-            scene, st0, idx, 0, 1, 1, bg, K, final_only=True, out=buf), 20),
-        "nearest": cuda_ms(lambda: dense_nearest(m.ro, m.rd, tri), 20),
-        "sampler": cuda_ms(lambda: sample_mixture_kernel(*m.sampler_args), 20),
-    }
-    # K5 on the Cornell frame's state after K5_CHAIN rounds at 16 spp (the
-    # last state the kernel phase held K5 against), written to a separate
-    # buffer so that every launch does the same work
     ins, st5, args5 = k5
-    buf5 = torch.empty_like(st5)
-    scratch = torch.zeros((2,), dtype=torch.int32, device=dev)
-    launch_ms["persistent"] = cuda_ms(
-        lambda: persistent_round(*ins, st5, scratch, *args5, out=buf5), 20)
+    launch_ms, fresh_ms = launch_times(scene, cam, bg, st0, idx, w, h, m, k5)
+    separate_k1(dev, gpu, scene, bg, st0, idx)
+    persistent_rounds(dev, gpu, desc)
     plain_ms = {
         "primary": cuda_ms(lambda: B.primary_plain(
             scene, cam, px, py, idx, 0, 1, bg, K, w, h), 2),
@@ -887,35 +1115,47 @@ def phase_timing(dev, gpu: str, counts: dict, errs: dict, m: Modular, k5) -> lis
     # least time for the same work: bytes (each input a lane needs read once,
     # each output written once) or fp32 operations; the fused kernels'
     # operations count the intersection loop only (sampler, shading and BRDF
-    # left out). A dead lane of K1 needs only ro, rd, rad and alive (40 B; its
-    # throughput becomes 0, its work id is unused), a live one all 13 rows and
-    # its work id (56 B); K1-final needs the 13 rows of every lane and no work
-    # id. K3 reads the 13 input rows and the work id only where ``need``
-    # holds (56 B), the need flag everywhere, and writes l, pdf and ok.
+    # left out). K1's, K1-final's and K5's bytes are those of the in-place
+    # launch that ``ms`` times, lane case by lane case (``bounce_bytes``,
+    # ``persistent_bytes``); ``ms_fresh_buffer`` has its own bound beside it.
+    # K3 reads the 13 input rows and the work id only where ``need`` holds
+    # (56 B), the need flag everywhere, and writes l, pdf and ok.
     alive = float((st0[12] > 0.5).sum())
     need = float(m.need.sum())
     n_geo = scene.geo.shape[1]
-    table = (scene.geo.numel() + scene.spec.numel() + scene.lp.numel()
-             + scene.lspec.numel()) * 4
+    # the scene as the function needs it: the (35, M) table, a spec word per
+    # entry, the light table (the kernels' loop records repeat table columns)
+    table = (scene.geo.numel() + n_geo + scene.lp.numel() + scene.lspec.numel()) * 4
     ltable = (m.scene.light_packed.numel() + m.scene.lspec.numel()) * 4
-    bounds = {
-        "primary": bound(n * (12 + 52) + table, n * n_geo * OPS_TRI_FUSED),
-        "bounce": bound(n * (40 + 52) + alive * 16 + table,
-                        alive * n_geo * OPS_TRI_FUSED),
-        "final": bound(n * (52 + 52) + table, alive * n_geo * OPS_TRI_FUSED),
-        "nearest": bound(n * (24 + 8) + tri.numel() * 4, n * tri.shape[1] * OPS_TRI_K4),
-        "sampler": bound(n * (1 + 16 + 1) + need * (52 + 4) + ltable, sampler_ops(m)),
-    }
     kmax5 = ins[4]
     live5 = float(((st5[12] > 0.5) | (st5[13] < kmax5)).sum())  # alive after the restart
-    bounds["persistent"] = bound(persistent_bytes(st5, kmax5) + table,
-                                 live5 * n_geo * OPS_TRI_FUSED)
+    fused_bytes = {"primary": n * (12 + 52) + table,
+                   "bounce": bounce_bytes(n, alive, False, True) + table,
+                   "final": bounce_bytes(n, alive, True, True) + table,
+                   "persistent": persistent_bytes(st5, kmax5) + table}
+    fused_live = {"primary": n, "bounce": alive, "final": alive, "persistent": live5}
+    per_live = n_geo * OPS_TRI_FUSED + OPS_WINNER_NORMAL
+    bounds = {k: bound(fused_bytes[k], fused_live[k] * per_live) for k in fused_bytes}
+    fresh_bounds = {k: bound(bounce_bytes(n, alive, k == "final", False) + table,
+                             alive * per_live) for k in ("bounce", "final")}
+    bounds.update({
+        "nearest": bound(n * (24 + 8) + tri.numel() * 4, n * tri.shape[1] * OPS_TRI_K4),
+        "sampler": bound(n * (1 + 16 + 1) + need * (52 + 4) + ltable, sampler_ops(m)),
+    })
+    for k in fused_bytes:  # the bound as it was counted while the loop made every normal
+        was = bound(fused_bytes[k], fused_live[k] * n_geo * OPS_TRI_FUSED_OLD)
+        say("timing", kernel=k, bound_ms=round(bounds[k][0], 5), bound_by=bounds[k][1],
+            bound_ms_normal_per_entry=round(was[0], 5), bound_by_then=was[1])
     inputs = {"primary": 1.0, "bounce": alive / n, "final": alive / n,
               "nearest": 1.0, "sampler": float(m.need.float().mean()),
               "persistent": live5 / n}
     for k in KERNELS:
         # K5's input: the frame's state after K5_CHAIN rounds
         at = {"after_rounds": K5_CHAIN} if k == "persistent" else {}
+        if k in fresh_ms:
+            at["ms_fresh_buffer"] = round(fresh_ms[k], 4)
+        if k in fresh_bounds:
+            at["bound_ms_fresh_buffer"] = round(fresh_bounds[k][0], 5)
         say("timing", kernel=k, lanes=n, **at, active_in=round(inputs[k], 4),
             ms=round(launch_ms[k], 4), plain_ms=round(plain_ms[k], 3),
             bound_ms=round(bounds[k][0], 5), bound_by=bounds[k][1], gpu=f'"{gpu}"')
@@ -924,7 +1164,9 @@ def phase_timing(dev, gpu: str, counts: dict, errs: dict, m: Modular, k5) -> lis
         {"name": k, "route": "cuda", "source": KERNELS[k][1], "replaces": KERNELS[k][0],
          "launches": counts[k], "max_abs_err": errs[k], "ms": launch_ms[k],
          "plain_ms": plain_ms[k], "bound_ms": bounds[k][0], "bound_by": bounds[k][1],
-         "library_ms": None, "tolerance": tol, "lanes": n}
+         "library_ms": None, "tolerance": tol, "lanes": n,
+         **({"ms_fresh_buffer": fresh_ms[k]} if k in fresh_ms else {}),
+         **({"bound_ms_fresh_buffer": fresh_bounds[k][0]} if k in fresh_bounds else {})}
         for k in KERNELS
     ]
 
@@ -950,10 +1192,14 @@ def main() -> int:
     say("build", seconds=round(info["seconds"], 2), lib=os.path.basename(info["path"]))
     for ln in ptxas:
         print(f"[build] {ln}", flush=True)
+    geom = kernels.launch_geometry()
+    say("build", sms=geom["sms"], threads_per_block=geom["block"], lanes_per_tile=geom["tile"],
+        resident_blocks_per_sm=json.dumps(geom["resident_blocks"]).replace(" ", ""))
 
     phase_kernels(dev)
     errs, cornell = phase_kernels_modular(dev)
     lane_errs, k5_state = phase_kernels_lanes(dev)
+    phase_kernels_tiles(dev, k5_state)
     with tempfile.TemporaryDirectory() as tmp:
         runs = {path: phase_main(dev, tmp, path) for path in MAIN}
     # each kernel's launches on the main path: the batch path's run for its

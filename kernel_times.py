@@ -1,0 +1,108 @@
+"""Two trees, or one tree twice, timed by ``chip_smoke.py``'s own harness on
+one CUDA card.
+
+    python3 kernel_times.py --label change
+    python3 kernel_times.py --root _scratch_tree/parent --label parent
+
+Loads ``raytracing_course_2024_tpu_torch`` from ``--root`` (default: the
+directory of this script), builds its kernels, and calls the functions of
+the ``chip_smoke.py`` beside this script on scenes/cornell_box.gltf at
+1280x720 x 16 spp (one 921,600-lane batch): ``launch_times`` (ms per launch
+of every kernel, K1, K1-final and K5 in place and into a separate buffer;
+K5 on the sticky frame's state after 10 rounds), K1 level by level on the
+states of one sample (``cuda_ms``, ``cuda_ms_in_place``),
+``persistent_rounds`` (K5 round by round over a sticky frame) and
+``frame_times`` (median host ms of ``--frames`` frames of the batch, sticky
+and wavefront engines, with their path-vertex totals). Prints the card's
+name and power limit, the ptxas lines of the fused kernels and one line per
+number. Two runs are comparable only on one card, one right after the
+other: run parent, change, change, parent.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import re
+import sys
+
+import torch
+
+import chip_smoke as CS  # this tree's harness, whichever tree is timed
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--root", default=CS.ROOT, help="tree that holds the package to time")
+    ap.add_argument("--label", default="change")
+    ap.add_argument("--reps", type=int, default=50)
+    ap.add_argument("--frames", type=int, default=5)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("kernel_times: no CUDA device", file=sys.stderr)
+        return 1
+    root = os.path.abspath(args.root)
+    sys.path.insert(0, root)
+    from raytracing_course_2024_tpu_torch.ops import bounce as B
+    from raytracing_course_2024_tpu_torch.ops import kernels
+    from raytracing_course_2024_tpu_torch.ops.persistent import persistent_round
+    from raytracing_course_2024_tpu_torch.runtime.render import Renderer
+    from raytracing_course_2024_tpu_torch.scene import load_scene
+
+    def say(**kw):
+        CS.say(args.label, **kw)
+
+    gpu = CS.gpu_line()
+    say(gpu=f'"{gpu}"', root=root)
+    kernels.library()
+    entry = ""
+    for ln in kernels.BUILD_INFO["log"].splitlines():
+        if "Compiling entry" in ln:
+            entry = re.sub(r".*function '([^']*)'.*", r"\1", ln)
+        elif re.search(r"Used \d+ registers|spill", ln) and re.search(
+                r"bounce|primary|persistent", entry):
+            say(ptxas=entry, line=f'"{ln.split(":", 1)[-1].strip()}"')
+
+    dev = torch.device("cuda", 0)
+    w, h, spp = CS.FRAME
+    desc = load_scene(CS.CORNELL, w, h, spp)
+    r = Renderer(desc, device=dev)
+    scene, cam, bg = r.scene, r.cam_row, r.bg
+    idx = torch.arange(w * h, device=dev, dtype=torch.int32)
+    st0 = B.primary_bounce(scene, cam, (idx % w).float(), (idx // w).float(), idx, 0, 1, bg,
+                           CS.K, w, h)
+    ins, st5, args5 = CS.sticky_inputs(dev, desc, w, h, spp)
+    scratch = torch.zeros((2,), dtype=torch.int32, device=dev)
+    for _ in range(CS.K5_CHAIN):
+        persistent_round(*ins, st5, scratch, *args5, out=st5)
+    ms, fresh = CS.launch_times(scene, cam, bg, st0, idx, w, h, CS.Modular(dev, desc, w, h),
+                                (ins, st5, args5), args.reps)
+    for k, v in ms.items():
+        say(kernel=k, lanes=w * h, ms=round(v, 4),
+            **({"ms_fresh_buffer": round(fresh[k], 4)} if k in fresh else {}))
+
+    # K1 level by level on the states of one sample of the batch engine, then
+    # K1-final on the last: what each level of the frame costs
+    depth = desc.settings.ray_depth
+    states = [st0]
+    for i in range(1, depth - 1):
+        states.append(B.bounce(scene, states[-1], idx, 0, 1, i, bg, CS.K))
+    buf = torch.empty_like(st0)
+    for i, st in enumerate(states, start=1):
+        final = i == depth - 1
+        t = CS.cuda_ms(lambda: B.bounce(scene, st, idx, 0, 1, i, bg, CS.K, final_only=final,
+                                        out=buf), args.reps)
+        t_in = CS.cuda_ms_in_place(
+            lambda: B.bounce(scene, buf, idx, 0, 1, i, bg, CS.K, final_only=final, out=buf),
+            lambda: buf.copy_(st), args.reps)
+        say(level=i, final_only=final, alive_in=round(float((st[12] > 0.5).float().mean()), 4),
+            ms=round(t_in, 4), ms_fresh_buffer=round(t, 4))
+    CS.persistent_rounds(dev, gpu, desc)
+    for engine in ("batch", "sticky", "wavefront"):
+        CS.frame_times(Renderer(desc, device=dev, engine=engine), f"{args.label}-{engine}", gpu,
+                       reps=args.frames)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,11 +1,47 @@
 // The fused bounce's device code, shared by the bounce kernels K1/K2
 // (bounce.cu) and the persistent round K5 (persistent.cu), so all three run
-// the same body: the nearest hit over the unified geo table, the BRDF, the
+// the same body: the nearest hit over the scene's entries, the BRDF, the
 // bounce itself (emission / background, MIS mixture sampling, BRDF * cos /
-// pdf, the MIRROR / DIELECTRIC rules), the camera ray, and the staging of the
-// scene tables in shared memory. The plain PyTorch version is
-// ops/bounce.py:_bounce_math. Everything sits in an anonymous namespace, as
-// in common.cuh.
+// pdf, the MIRROR / DIELECTRIC rules), the camera ray, the staging of the
+// scene tables in shared memory and the queue of live lanes.
+// The plain PyTorch version is ops/bounce.py:_bounce_math. Everything sits in
+// an anonymous namespace, as in common.cuh.
+//
+// What bounds the body on an H100 is instruction rate and latency, not
+// device memory: a lane moves ~100 B of state against m x 53 fp32 operations
+// of the intersection loop (without FMA contraction and with an IEEE division
+// per entry, ~86 scheduler slots) and a few hundred more of the sampler, some
+// 4,600 instructions of straight-line code in all, at 80 registers and so 24
+// warps per SM. A launch's time follows the passes its warps make over that
+// code. The design makes passes for live lanes only and keeps the loop's
+// inner data short:
+// * A persistent grid: as many blocks as the card holds at once (SM count x
+//   resident blocks, asked of the runtime by grid_for), each drawing tiles of
+//   kTile lanes from a counter until none is left (walk_tiles). The tables
+//   are staged once per block, not once per 256 lanes, and the blocks end
+//   together whatever share of their tiles was dead.
+// * Compaction of the live lanes (push_tile, walk_tiles): every thread reads
+//   the alive flag of its own lanes of a tile, a ballot and a prefix over the
+//   warps' counts give each live lane a dense rank, and the lanes go to the
+//   block's queue in shared memory. Whenever a block's worth of lanes waits,
+//   every thread takes one and runs the body, so no warp walks the whole
+//   loop for one live lane. (Two other forms were tried and did not pay:
+//   ranking within one 512-lane tile left a second pass to one or two warps
+//   while the rest waited at the barrier; warps that each walked tiles and
+//   kept a queue of their own, with no barrier at all, ran up to twice as
+//   long, the more so the larger their tiles.) A dead lane gets its few
+//   stores from the thread that owns it. A lane's arithmetic is untouched,
+//   so its result does not depend on its rank.
+// * The loop reads entry-major records (ops/bounce.py:build_loop_records):
+//   three float4 per entry, the spec word in the first one's w, read with
+//   three 16-byte broadcast loads instead of ten 4-byte ones at stride m.
+//   The 19 attribute rows of the (C_GEO, m) table stay in device memory and
+//   are read for the winner only. Shared memory per block: 6,144 B of
+//   records, 2,432 B of lights, (kBlock + kTile) x 4 B of lane queue.
+// * The loop keeps (t, u, v, i) only. The facing normal and the entry side
+//   are computed once after it, for the winner, by the same function on the
+//   same operands (test_entry<true>), so the bits are those of a loop that
+//   computed them for every entry.
 
 #pragma once
 
@@ -13,10 +49,22 @@
 
 namespace {
 
+// Threads per block, and lanes per tile: a thread owns one lane of a tile.
+// Three blocks stay resident per SM (kMinBlocks holds the register
+// allocation to that). What else was timed on an H100 and ran slower:
+// 128-thread blocks, 512-lane tiles, two or four resident blocks, the
+// intersection loop unrolled by two.
+constexpr int kBlock = 256;
+constexpr int kTile = kBlock;
+constexpr int kWarps = kBlock / 32;
+constexpr int kMinBlocks = 3;
+constexpr unsigned FULL = 0xffffffffu;
+static_assert(kBlock % 32 == 0 && kWarps <= 32, "one warp scans the tile's warp counts");
+
 // The scene tables (device pointers) and the constants of one launch.
 struct SceneArgs {
-  const float* geo;  // (C_GEO, m)
-  const int* spec;   // (m,): kind | rotated << 2 | mkind << 3
+  const float* geo;   // (C_GEO, m): attributes, read for the winner
+  const float4* rec;  // (m, 3): the loop's records
   int m;
   const float* lp;   // (LC_COUNT, nl)
   const int* lspec;  // (nl,)
@@ -25,7 +73,7 @@ struct SceneArgs {
   int max_tries;
 };
 
-// ---- section 1: nearest hit over the geo table -------------------------------
+// ---- section 1: nearest hit over the entries ---------------------------------
 struct Hit {
   float t, u, v;
   int i;
@@ -33,111 +81,149 @@ struct Hit {
   bool outer, tri;
 };
 
-__device__ Hit intersect_all(const Tables& T, V3 ro, V3 rd) {
-  float best_t = INFINITY, best_u = 0.0f, best_v = 0.0f;
-  int best_i = 0;
-  V3 bn = mk(0.0f, 0.0f, 1.0f);
-  bool best_outer = true, best_tri = false;
-  for (int i = 0; i < T.m; ++i) {
-    const int code = T.spec[i];
-    const int kind = code & 3;
-    const bool rotated = (code >> 2) & 1;
-    float t, u = 0.0f, v = 0.0f;
-    bool ok, outer;
-    V3 cn;
-    if (kind == K_TRI) {
-      const V3 e1 = T.G3(G_E1, i), e2 = T.G3(G_E2, i), a = T.G3(G_A, i);
-      const V3 pv = cross(rd, e2);
-      const float det = dot(e1, pv);
-      const bool det_ok = fabsf(det) > 1e-30f;
-      const float inv_det = 1.0f / (det_ok ? det : 1e-30f);
-      const V3 tv = sub(ro, a);
-      u = dot(tv, pv) * inv_det;
-      const V3 qv = cross(tv, e1);
-      v = dot(rd, qv) * inv_det;
-      t = dot(e2, qv) * inv_det;
-      ok = (u >= 0.0f) && (v >= 0.0f) && (u + v <= 1.0f) && det_ok && (t > 0.0f);
+struct Facing {
+  V3 cn;  // geometric normal facing the ray, not normalized
+  bool outer, tri;
+};
+
+__device__ __forceinline__ V3 xyz(float4 r) { return mk(r.x, r.y, r.z); }
+
+// Entry i against the ray: whether it is hit, and where. A record is three
+// float4: a triangle's (a, spec) (e1, -) (e2, -); a box's, ellipsoid's or
+// plane's (half-extents | radii | normal, spec) (position, -) (quaternion).
+// With NORMAL the facing normal and the entry side are computed too: the
+// loop runs without, the winner is tested once more with.
+template <bool NORMAL>
+__device__ __forceinline__ bool test_entry(const float4* rec, int i, V3 ro, V3 rd, float& t,
+                                           float& u, float& v, Facing& f) {
+  const float4 r0 = rec[3 * i], r1 = rec[3 * i + 1], r2 = rec[3 * i + 2];
+  const int code = __float_as_int(r0.w);
+  const int kind = code & 3;
+  const bool rotated = (code >> 2) & 1;
+  u = 0.0f;
+  v = 0.0f;
+  bool ok;
+  if (kind == K_TRI) {
+    const V3 a = xyz(r0), e1 = xyz(r1), e2 = xyz(r2);
+    const V3 pv = cross(rd, e2);
+    const float det = dot(e1, pv);
+    const bool det_ok = fabsf(det) > 1e-30f;
+    const float inv_det = 1.0f / (det_ok ? det : 1e-30f);
+    const V3 tv = sub(ro, a);
+    u = dot(tv, pv) * inv_det;
+    const V3 qv = cross(tv, e1);
+    v = dot(rd, qv) * inv_det;
+    t = dot(e2, qv) * inv_det;
+    ok = (u >= 0.0f) && (v >= 0.0f) && (u + v <= 1.0f) && det_ok && (t > 0.0f);
+    if (NORMAL) {
       const V3 fn = cross(e1, e2);
       const bool front = dot(fn, rd) < 0.0f;
-      cn = scl(fn, front ? 1.0f : -1.0f);
-      outer = front;
-    } else {
-      V3 o = sub(ro, T.G3(G_POS, i));
-      V3 d = rd;
-      const float qx = T.G(G_ROT, i), qy = T.G(G_ROT + 1, i), qz = T.G(G_ROT + 2, i),
-                  qw = T.G(G_ROT + 3, i);
-      if (rotated) {  // world -> local: rotate by the conjugate
-        o = quat_rotate(-qx, -qy, -qz, qw, o);
-        d = quat_rotate(-qx, -qy, -qz, qw, rd);
-      }
-      const float ax = T.G(G_A, i), ay = T.G(G_A + 1, i), az = T.G(G_A + 2, i);
-      if (kind == K_BOX) {
-        const float ivx = 1.0f / (d.x + DIR_BIAS);
-        const float ivy = 1.0f / (d.y + DIR_BIAS);
-        const float ivz = 1.0f / (d.z + DIR_BIAS);
-        const float lox = (-ax - o.x) * ivx, hix = (ax - o.x) * ivx;
-        const float loy = (-ay - o.y) * ivy, hiy = (ay - o.y) * ivy;
-        const float loz = (-az - o.z) * ivz, hiz = (az - o.z) * ivz;
-        const float t1 = fmaxf(fminf(lox, hix), fmaxf(fminf(loy, hiy), fminf(loz, hiz)));
-        const float t2 = fminf(fmaxf(lox, hix), fminf(fmaxf(loy, hiy), fmaxf(loz, hiz)));
-        const bool valid = t1 <= t2;
-        outer = valid && (t1 > 0.0f);
-        t = outer ? t1 : t2;
-        ok = valid && (t > 0.0f);
-        const float hx = o.x + d.x * t, hy = o.y + d.y * t, hz = o.z + d.z * t;
-        const bool on_x = (ax - fabsf(hx)) < EPS;
-        const bool on_y = (ay - fabsf(hy)) < EPS;
-        const float flip = outer ? 1.0f : -1.0f;
-        cn = mk((on_x ? sgnf(hx) : 0.0f) * flip, ((!on_x && on_y) ? sgnf(hy) : 0.0f) * flip,
-                ((!on_x && !on_y) ? sgnf(hz) : 0.0f) * flip);
-      } else if (kind == K_ELL) {
-        const float iox = o.x / ax, ioy = o.y / ay, ioz = o.z / az;
-        const float idx = d.x / ax, idy = d.y / ay, idz = d.z / az;
-        const float a_q = idx * idx + idy * idy + idz * idz;
-        const float b_q = iox * idx + ioy * idy + ioz * idz;
-        const float c_q = iox * iox + ioy * ioy + ioz * ioz - 1.0f;
-        const float disc = b_q * b_q - a_q * c_q;
-        const bool valid = disc >= 0.0f;
-        const float sq = sqrtf(fmaxf(disc, 0.0f));
-        const float inv_a = 1.0f / fmaxf(a_q, 1e-30f);
-        const float t1 = (-b_q - sq) * inv_a;
-        const float t2 = (-b_q + sq) * inv_a;
-        outer = valid && (t1 > 0.0f);
-        t = outer ? t1 : t2;
-        ok = valid && (t > 0.0f);
-        const float hx = o.x + d.x * t, hy = o.y + d.y * t, hz = o.z + d.z * t;
-        const float flip = outer ? 1.0f : -1.0f;
-        cn = mk(hx / (ax * ax) * flip, hy / (ay * ay) * flip, hz / (az * az) * flip);
-      } else {  // infinite plane through the local origin, normal (ax, ay, az)
-        const float denom = ax * d.x + ay * d.y + az * d.z;
-        const float num = ax * o.x + ay * o.y + az * o.z;
-        const bool den_ok = fabsf(denom) > 1e-30f;
-        t = -num / (den_ok ? denom : 1e-30f);
-        ok = den_ok && (t > 0.0f);
-        outer = denom < 0.0f;
-        const float flip = outer ? 1.0f : -1.0f;
-        cn = mk(ax * flip, ay * flip, az * flip);
-      }
-      if (rotated) cn = quat_rotate(qx, qy, qz, qw, cn);
+      f.cn = scl(fn, front ? 1.0f : -1.0f);
+      f.outer = front;
+      f.tri = true;
     }
-    if (ok && (t < best_t)) {
-      best_t = t;
-      best_i = i;
-      best_u = u;
-      best_v = v;
-      bn = cn;
-      best_outer = outer;
-      best_tri = kind == K_TRI;
+    return ok;
+  }
+  V3 o = sub(ro, xyz(r1));
+  V3 d = rd;
+  const float qx = r2.x, qy = r2.y, qz = r2.z, qw = r2.w;
+  if (rotated) {  // world -> local: rotate by the conjugate
+    o = quat_rotate(-qx, -qy, -qz, qw, o);
+    d = quat_rotate(-qx, -qy, -qz, qw, rd);
+  }
+  const float ax = r0.x, ay = r0.y, az = r0.z;
+  V3 cn = mk(0.0f, 0.0f, 1.0f);
+  bool outer;
+  if (kind == K_BOX) {
+    const float ivx = 1.0f / (d.x + DIR_BIAS);
+    const float ivy = 1.0f / (d.y + DIR_BIAS);
+    const float ivz = 1.0f / (d.z + DIR_BIAS);
+    const float lox = (-ax - o.x) * ivx, hix = (ax - o.x) * ivx;
+    const float loy = (-ay - o.y) * ivy, hiy = (ay - o.y) * ivy;
+    const float loz = (-az - o.z) * ivz, hiz = (az - o.z) * ivz;
+    const float t1 = fmaxf(fminf(lox, hix), fmaxf(fminf(loy, hiy), fminf(loz, hiz)));
+    const float t2 = fminf(fmaxf(lox, hix), fminf(fmaxf(loy, hiy), fmaxf(loz, hiz)));
+    const bool valid = t1 <= t2;
+    outer = valid && (t1 > 0.0f);
+    t = outer ? t1 : t2;
+    ok = valid && (t > 0.0f);
+    if (NORMAL) {
+      const float hx = o.x + d.x * t, hy = o.y + d.y * t, hz = o.z + d.z * t;
+      const bool on_x = (ax - fabsf(hx)) < EPS;
+      const bool on_y = (ay - fabsf(hy)) < EPS;
+      const float flip = outer ? 1.0f : -1.0f;
+      cn = mk((on_x ? sgnf(hx) : 0.0f) * flip, ((!on_x && on_y) ? sgnf(hy) : 0.0f) * flip,
+              ((!on_x && !on_y) ? sgnf(hz) : 0.0f) * flip);
+    }
+  } else if (kind == K_ELL) {
+    const float iox = o.x / ax, ioy = o.y / ay, ioz = o.z / az;
+    const float idx = d.x / ax, idy = d.y / ay, idz = d.z / az;
+    const float a_q = idx * idx + idy * idy + idz * idz;
+    const float b_q = iox * idx + ioy * idy + ioz * idz;
+    const float c_q = iox * iox + ioy * ioy + ioz * ioz - 1.0f;
+    const float disc = b_q * b_q - a_q * c_q;
+    const bool valid = disc >= 0.0f;
+    const float sq = sqrtf(fmaxf(disc, 0.0f));
+    const float inv_a = 1.0f / fmaxf(a_q, 1e-30f);
+    const float t1 = (-b_q - sq) * inv_a;
+    const float t2 = (-b_q + sq) * inv_a;
+    outer = valid && (t1 > 0.0f);
+    t = outer ? t1 : t2;
+    ok = valid && (t > 0.0f);
+    if (NORMAL) {
+      const float hx = o.x + d.x * t, hy = o.y + d.y * t, hz = o.z + d.z * t;
+      const float flip = outer ? 1.0f : -1.0f;
+      cn = mk(hx / (ax * ax) * flip, hy / (ay * ay) * flip, hz / (az * az) * flip);
+    }
+  } else {  // infinite plane through the local origin, normal (ax, ay, az)
+    const float denom = ax * d.x + ay * d.y + az * d.z;
+    const float num = ax * o.x + ay * o.y + az * o.z;
+    const bool den_ok = fabsf(denom) > 1e-30f;
+    t = -num / (den_ok ? denom : 1e-30f);
+    ok = den_ok && (t > 0.0f);
+    outer = denom < 0.0f;
+    if (NORMAL) {
+      const float flip = outer ? 1.0f : -1.0f;
+      cn = mk(ax * flip, ay * flip, az * flip);
     }
   }
+  if (NORMAL) {
+    if (rotated) cn = quat_rotate(qx, qy, qz, qw, cn);
+    f.cn = cn;
+    f.outer = outer;
+    f.tri = false;
+  }
+  return ok;
+}
+
+// The nearest hit: strict t < best_t, so the lowest index wins a tie. On a
+// miss t is inf and the other fields are unused.
+__device__ Hit intersect_all(const Tables& T, V3 ro, V3 rd) {
   Hit h;
-  h.t = best_t;
-  h.u = best_u;
-  h.v = best_v;
-  h.i = best_i;
-  h.n_geom = normalize(bn, 1e-30f);
-  h.outer = best_outer;
-  h.tri = best_tri;
+  h.t = INFINITY;
+  h.u = 0.0f;
+  h.v = 0.0f;
+  h.i = 0;
+  Facing f;
+  f.cn = mk(0.0f, 0.0f, 1.0f);
+  f.outer = true;
+  f.tri = false;
+  for (int i = 0; i < T.m; ++i) {
+    float t, u, v;
+    if (test_entry<false>(T.rec, i, ro, rd, t, u, v, f) && (t < h.t)) {
+      h.t = t;
+      h.i = i;
+      h.u = u;
+      h.v = v;
+    }
+  }
+  if (isfinite(h.t)) {
+    float t, u, v;
+    test_entry<true>(T.rec, h.i, ro, rd, t, u, v, f);
+  }
+  h.n_geom = normalize(f.cn, 1e-30f);
+  h.outer = f.outer;
+  h.tri = f.tri;
   return h;
 }
 
@@ -161,7 +247,7 @@ __device__ V3 eval_brdf(V3 l, V3 n, V3 v, V3 color, float metallic, float roughn
   const float g = smith_g1(ldn, alpha) * smith_g1(vdn, alpha);
   const float sden = 4.0f * ldn * vdn;
   const float spec = d * g / (fabsf(sden) > BRDF_SAFE ? sden : BRDF_SAFE);
-  const float w = powf(fminf(fmaxf(1.0f - fabsf(dot(h, l)), 0.0f), 1.0f), 5.0f);
+  const float w = pow5(fminf(fmaxf(1.0f - fabsf(dot(h, l)), 0.0f), 1.0f));
   const V3 metal = mk(spec * (color.x + (1.0f - color.x) * w), spec * (color.y + (1.0f - color.y) * w),
                       spec * (color.z + (1.0f - color.z) * w));
   const float f_diel = 0.04f + (1.0f - 0.04f) * w;
@@ -175,15 +261,12 @@ struct Lane {
   bool alive;
 };
 
-// One bounce of one lane. `key` is the path's work key, `ctr` where this
-// bounce's draws sit. Dead lanes stay dead (a full bounce zeroes throughput).
+// One bounce of one live lane. `key` is the path's work key, `ctr` where this
+// bounce's draws sit. The kernels call it for live lanes only; a dead lane's
+// part (a full bounce zeroes its throughput) is theirs.
 template <bool FINAL_ONLY>
 __device__ Lane bounce_body(const Tables& T, const SceneArgs& p, uint32_t key, const Ctr& ctr,
                             Lane s) {
-  if (!s.alive) {
-    if (!FINAL_ONLY) s.thr = scl(s.thr, 0.0f);
-    return s;
-  }
   const Hit h = intersect_all(T, s.ro, s.rd);
   const bool hit = isfinite(h.t);
   const float t_safe = hit ? h.t : 1.0f;
@@ -236,7 +319,7 @@ __device__ Lane bounce_body(const Tables& T, const SceneArgs& p, uint32_t key, c
     const float cos_t = sqrtf(fmaxf(0.0f, 1.0f - sin2_t));
     const float rr = (eta - 1.0f) / (eta + 1.0f);
     const float r0 = rr * rr;
-    const float refl_p = r0 + (1.0f - r0) * powf(1.0f - cos_i, 5.0f);
+    const float refl_p = r0 + (1.0f - r0) * pow5(1.0f - cos_i);
     const bool do_reflect = tir || (u_diel < refl_p);
     if (do_reflect) {
       l = reflect(v_dir, n);
@@ -264,23 +347,154 @@ __device__ Lane bounce_body(const Tables& T, const SceneArgs& p, uint32_t key, c
   return o;
 }
 
-// Shared-memory copy of the scene tables, one per block.
+// ---- per block: the tables, the lane list, the grid ---------------------------
 struct SharedTables {
-  float geo[C_GEO * MAX_PRIMS];
-  int spec[MAX_PRIMS];
+  float4 rec[3 * MAX_PRIMS];
   float lp[LC_COUNT * MAX_LIGHTS];
   int lspec[MAX_LIGHTS];
 };
 
+// Once per block, before its first tile.
 __device__ __forceinline__ Tables stage_tables(const SceneArgs& p, bool lights, SharedTables& sh) {
-  for (int k = threadIdx.x; k < C_GEO * p.m; k += blockDim.x) sh.geo[k] = p.geo[k];
-  for (int k = threadIdx.x; k < p.m; k += blockDim.x) sh.spec[k] = p.spec[k];
+  for (int k = threadIdx.x; k < 3 * p.m; k += blockDim.x) sh.rec[k] = p.rec[k];
   if (lights) {
     for (int k = threadIdx.x; k < LC_COUNT * p.nl; k += blockDim.x) sh.lp[k] = p.lp[k];
     for (int k = threadIdx.x; k < p.nl; k += blockDim.x) sh.lspec[k] = p.lspec[k];
   }
   __syncthreads();
-  return Tables{sh.geo, sh.spec, p.m, sh.lp, sh.lspec, p.nl, p.num_lights};
+  return Tables{p.geo, sh.rec, p.m, sh.lp, sh.lspec, p.nl, p.num_lights};
+}
+
+// A tile is kTile consecutive lanes; thread t owns lane t of it. The block's
+// queue holds the lanes (indices into the batch) that wait for the body: a
+// tile's flagged lanes are appended in ascending order, and whenever kBlock
+// or more wait, the last kBlock of them are taken, one per thread.
+struct LaneQueue {
+  int lane[kBlock + kTile];
+  int count[kWarps];  // flagged lanes of each warp
+  int ticket[2];      // the block's next ticket, double-buffered
+};
+
+// Appends the flagged lanes of the tile at `base` to the queue, which holds
+// `len` lanes, and returns how many they are. Every thread of the block calls
+// it (two block barriers). A thread reads the queue entry it takes before it
+// runs the body, so the first barrier of the next call also orders those
+// reads before this call's writes.
+__device__ __forceinline__ int push_tile(bool flag, long long base, int len, LaneQueue& q) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const unsigned ballot = __ballot_sync(FULL, flag);
+  if (lane == 0) q.count[warp] = __popc(ballot);
+  __syncthreads();
+  const int mine = lane < kWarps ? q.count[lane] : 0;
+  int incl = mine;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int below = __shfl_up_sync(FULL, incl, d);
+    if (lane >= d) incl += below;
+  }
+  const int first = __shfl_sync(FULL, incl - mine, warp);
+  if (flag)
+    q.lane[len + first + __popc(ballot & ((1u << lane) - 1u))] = (int)(base + threadIdx.x);
+  const int n = __shfl_sync(FULL, incl, 31);
+  __syncthreads();
+  return n;
+}
+
+// Sum of `v` over the block, in thread 0 (one block barrier).
+__device__ __forceinline__ int block_sum(int v, int* red) {
+  v = __reduce_add_sync(FULL, v);
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  int total = 0;
+  if (threadIdx.x == 0)
+    for (int w = 0; w < kWarps; ++w) total += red[w];
+  return total;
+}
+
+// The walk K1 and K5 share. The block takes tiles of the batch's `b` lanes
+// until none is left. Of each tile every thread asks `flag(i)` of its own
+// lanes (is there a body to run for lane i; false beyond b), gives an
+// unflagged lane its `idle(i)` at once, and the flagged lanes go through the
+// queue to `run(i)`, so every pass over the body but the block's last runs
+// with all threads busy, however few of a tile's lanes are live. `run` is
+// called from one place only: the body is some thousand instructions, and a
+// second copy of it in the loop cost more in instruction fetch than the walk
+// saved. The two barriers per tile also keep the block's warps in step
+// through that code; warps that walked on their own, without barriers,
+// drifted apart and ran slower.
+//
+// The block's first tile is its own index. The others are handed out in
+// order by a counter in device memory: ticket t = atomicAdd(tick[0]) is tile
+// gridDim.x + t, so a block that drew cheap tiles (dead lanes) takes more of
+// them and the blocks end together; a fixed tile-to-block map left some
+// blocks a third more live lanes than others. Thread 0 draws a ticket one
+// tile before the block needs it, so the atomic is in flight while the body
+// runs, and the next tile's flags are read before the body too. tick[1]
+// counts the blocks that are done: the last one sets both back to 0 for the
+// next launch on the stream. Returns how many of this thread's own lanes were
+// flagged. Every thread of the block must call it.
+template <class Flag, class Idle, class Run>
+__device__ __forceinline__ int walk_tiles(long long b, int* tick, LaneQueue& q, Flag flag,
+                                          Idle idle, Run run) {
+  const long long n_tiles = (b + kTile - 1) / kTile;
+  int slot = 0, waiting = 0, flagged = 0;
+  long long tile = blockIdx.x;
+  int drawn = 0;  // thread 0: the ticket of the tile after `tile`
+  if (threadIdx.x == 0 && tile < n_tiles) drawn = atomicAdd(&tick[0], 1);
+  bool next = flag(tile * kTile + threadIdx.x);
+  for (;;) {
+    if (tile < n_tiles && waiting < kBlock) {
+      const long long i = tile * kTile + threadIdx.x;
+      const bool cur = next;
+      flagged += cur;
+      if (threadIdx.x == 0) q.ticket[slot] = drawn;
+      waiting += push_tile(cur, tile * kTile, waiting, q);
+      tile = (long long)gridDim.x + q.ticket[slot];
+      slot ^= 1;  // a thread still reading this ticket is not overtaken by the next
+      if (threadIdx.x == 0 && tile < n_tiles) drawn = atomicAdd(&tick[0], 1);
+      next = flag(tile * kTile + threadIdx.x);
+      if (i < b && !cur) idle(i);
+    }
+    const int take = waiting >= kBlock ? kBlock : (tile >= n_tiles ? waiting : 0);
+    if (take > 0) {
+      waiting -= take;
+      if ((int)threadIdx.x < take) run(q.lane[waiting + threadIdx.x]);
+    } else if (tile >= n_tiles) {
+      break;
+    }
+  }
+  if (threadIdx.x == 0 && atomicAdd(&tick[1], 1) == (int)gridDim.x - 1) {
+    tick[0] = 0;
+    tick[1] = 0;
+    __threadfence();
+  }
+  return flagged;
+}
+
+// Resident blocks per SM of a kernel at kBlock threads, and the card's SMs.
+template <typename Kernel>
+int resident_blocks(Kernel kernel) {
+  int per_sm = 0;
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kBlock, 0);
+  return per_sm;
+}
+
+int sm_count() {
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return sms;
+}
+
+// Blocks to launch when `wanted` blocks would cover the batch once: what the
+// current device holds at once (its SMs x the kernel's resident blocks), or
+// fewer when fewer do. Asked of the runtime at every launch (two attribute
+// reads, no device work), so the answer is always the current device's.
+template <typename Kernel>
+unsigned grid_for(Kernel kernel, long long wanted) {
+  const int sms = sm_count(), per_sm = resident_blocks(kernel);
+  const long long held = (long long)(sms > 0 ? sms : 1) * (per_sm > 0 ? per_sm : 1);
+  return (unsigned)(wanted < held ? wanted : held);
 }
 
 // Jittered pinhole ray through pixel (px, py): ops/camera.py generate_rays_u.
@@ -323,16 +537,16 @@ __device__ __forceinline__ void store_lane(float* out, long long b, long long i,
   out[12 * b + i] = o.alive ? 1.0f : 0.0f;
 }
 
-SceneArgs scene_args(const void* geo, const void* spec, int m, const void* lp, const void* lspec,
+SceneArgs scene_args(const void* geo, const void* rec, int m, const void* lp, const void* lspec,
                      int nl, int num_lights, float bg0, float bg1, float bg2, int max_tries) {
-  return SceneArgs{static_cast<const float*>(geo), static_cast<const int*>(spec), m,
+  return SceneArgs{static_cast<const float*>(geo), static_cast<const float4*>(rec), m,
                    static_cast<const float*>(lp), static_cast<const int*>(lspec), nl,
                    num_lights, bg0, bg1, bg2, max_tries};
 }
 
 int bad_args(long long b, int m, int nl, int num_lights, int max_tries) {
-  return b < 0 || m < 1 || m > MAX_PRIMS || nl < 1 || nl > MAX_LIGHTS || num_lights < 0 ||
-         num_lights > nl || max_tries < 1;
+  return b < 0 || b > 0x7fffffffLL || m < 1 || m > MAX_PRIMS || nl < 1 || nl > MAX_LIGHTS ||
+         num_lights < 0 || num_lights > nl || max_tries < 1;
 }
 
 }  // namespace

@@ -109,14 +109,19 @@ __device__ __forceinline__ Ctr at_depth(Ctr c, uint32_t stride, uint32_t depth) 
 }
 constexpr uint32_t CTR_JITTER = 0;  // draws 0 and 1 of every path: camera jitter
 
+// What the device functions read of the scene. `rec` (the intersection
+// loop's records, bounce_body.cuh) and the light tables `lp`/`lspec` sit in
+// shared memory; `geo` is the (C_GEO, m) table in device memory, read through
+// G/G3 for the winning entry only (18 KB at most: it stays in L2). K3 sets
+// only the light tables.
 struct Tables {
   const float* geo;
-  const int* spec;
+  const float4* rec;
   int m;
   const float* lp;
   const int* lspec;
   int nl, num_lights;
-  __device__ __forceinline__ float G(int row, int i) const { return geo[row * m + i]; }
+  __device__ __forceinline__ float G(int row, int i) const { return __ldg(geo + row * m + i); }
   __device__ __forceinline__ V3 G3(int row, int i) const {
     return mk(G(row, i), G(row + 1, i), G(row + 2, i));
   }
@@ -127,11 +132,23 @@ struct Tables {
 };
 
 // ---- section 4: mixture sampling (ops/sampling.py, ops/mixture.py) -----------
+// Both of one angle in one call: a sampler needs sine and cosine together.
+__device__ __forceinline__ void sin_cos(float phi, float& s, float& c) { sincosf(phi, &s, &c); }
+
+// x^5 of Schlick's Fresnel term by three multiplications (powf(x, 5) is a
+// generic exp2/log2 sequence many times as long; on the MIXED scene the
+// kernels stayed bit for bit equal to the plain versions' torch.pow(x, 5.0)).
+__device__ __forceinline__ float pow5(float x) {
+  const float x2 = x * x;
+  return x2 * x2 * x;
+}
+
 __device__ __forceinline__ V3 unit_sphere(float u1, float u2) {
   const float z = 1.0f - 2.0f * u1;
   const float r = sqrtf(fmaxf(0.0f, 1.0f - z * z));
-  const float phi = TWO_PI_F * u2;
-  return mk(r * cosf(phi), r * sinf(phi), z);
+  float sp, cp;
+  sin_cos(TWO_PI_F * u2, sp, cp);
+  return mk(r * cp, r * sp, z);
 }
 
 __device__ __forceinline__ void tangent_frame(V3 n, V3& t1, V3& t2) {
@@ -158,9 +175,10 @@ __device__ V3 sample_vndf(float u0, float u1, V3 n, V3 v, float roughness) {
   const V3 a1 = lensq > 1e-20f ? mk(-vh.y * inv_len, vh.x * inv_len, 0.0f) : mk(1.0f, 0.0f, 0.0f);
   const V3 a2 = cross(vh, a1);
   const float r = sqrtf(u0);
-  const float phi = TWO_PI_F * u1;
-  const float p1 = r * cosf(phi);
-  float p2 = r * sinf(phi);
+  float sp, cp;
+  sin_cos(TWO_PI_F * u1, sp, cp);
+  const float p1 = r * cp;
+  float p2 = r * sp;
   const float s = 0.5f * (1.0f + vh.z);
   p2 = (1.0f - s) * sqrtf(fmaxf(0.0f, 1.0f - p1 * p1)) + s * p2;
   const V3 nh = add(add(scl(a1, p1), scl(a2, p2)), scl(vh, sqrtf(fmaxf(0.0f, 1.0f - p1 * p1 - p2 * p2))));

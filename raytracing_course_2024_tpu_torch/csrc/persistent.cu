@@ -15,14 +15,15 @@
 //      at the lane's own depth in the lane engines' draw layout;
 //   6. the depth cap: alive' = alive && depth < ray_depth - 1, depth + 1.
 // Two counts per round go to counts[0] (lanes alive after the restart: path
-// vertices) and counts[1] (lanes still alive or with paths left), by a warp
-// and block reduction and one atomicAdd per block each. The plain PyTorch
-// version is ops/persistent.py:persistent_plain.
+// vertices) and counts[1] (lanes still alive or with paths left), one
+// atomicAdd per block each. The plain PyTorch version is
+// ops/persistent.py:persistent_plain.
 //
 // State: (18, b) f32, channel-major, in the JAX order ro3, rd3, thr3, rad3,
 // alive, k, depth, acc3 (rows 0-12 are K1's state). The JAX kernel aliased
-// its 18 inputs to its outputs; here `out` may be `in` itself (every thread
-// reads its lane before it writes it), which is how the engine calls it.
+// its 18 inputs to its outputs; here `out` may be `in` itself (a lane is read
+// and written by one thread only, which reads it before it writes it), which
+// is how the engine calls it.
 //
 // Translation from the TPU kernel:
 // * The TPU kernel drew from the hardware PRNG seeded per (round, block), so
@@ -31,19 +32,33 @@
 //   decision K1/K2 made): the image is the one the counter-refill engine and
 //   the unfused sticky engine give, for any lane count.
 // * The TPU grid ran 8192-lane blocks, and the engine padded the lanes to a
-//   multiple of 8192; here the lanes are the pixels, in 256-thread blocks
-//   with a masked tail.
+//   multiple of 8192; here the lanes are the pixels, walked in tiles by a
+//   persistent grid of 256-thread blocks, the last tile masked.
 // * Per-block partial sums of the two counts became one atomicAdd per block
 //   into a (2,) int32 counter that the caller zeroes; the engine reads the
 //   counts one round late, so the card is not left idle while the host reads.
 // * Counters k, kmax and depth stay f32, as in the JAX state (budgets are far
 //   below 2^24).
 //
-// What bounds it on an H100: per lane and round 156 B of traffic at most
-// (px, py, kmax and the 18 state rows in; 18 rows out), against the intersect
-// loop (M entries x ~70 fp32 operations) and the sampler for live lanes: as
-// for K1, fp32 issue, divergence and latency, not HBM. The design keeps the
-// whole round in one pass: no restart, flush or camera pass of its own.
+// What bounds it on an H100: per lane and round 120 B of traffic at most
+// (a lane that goes on: 16 rows in, 14 out), against the intersection loop
+// (M entries x 53 fp32 operations) and the sampler for each lane that runs a
+// path: as for K1, instruction rate, divergence and latency, not HBM (the
+// bytes would take 0.03 ms for 921,600 lanes, the round takes 0.22 ms when
+// every lane runs a path). In a 16 spp Cornell frame every lane runs a path
+// for 16 rounds, 56 % do for the next 50 (the others, the pixels that see
+// only the background, have finished), and very few in the last rounds. What
+// the design does about it, with K1 (bounce_body.cuh): a persistent grid
+// that stages the tables once per block and draws its tiles from a counter;
+// per tile, every thread reads alive, k and kmax of its own lanes, the lanes
+// that run a path this round (alive, or dead with paths left) are ranked
+// into the block's queue, and whenever a block's worth of lanes waits every
+// thread takes one and flushes, restarts and bounces it; a finished lane
+// gets its flush and its counters from the thread that owns it; each case
+// moves only the rows it needs; 16-byte records for the loop, attributes and
+// the facing normal for the winner only. The first count is the tiles' live
+// lanes; each count takes one block reduction per launch. The whole round
+// stays one pass: no restart, flush or camera pass of its own.
 
 #include "bounce_body.cuh"
 
@@ -66,68 +81,123 @@ struct PersistentParams {
   int ray_depth;
   SceneArgs sc;
   int* counts;  // (2,): live lanes after the restart, lanes with work left
+  int* tick;    // (2,) tile counter of walk_tiles, 0 between launches
 };
 
-__device__ __forceinline__ int block_sum(int v, int* red) {
-  v = __reduce_add_sync(0xffffffffu, v);
-  const int warp = threadIdx.x >> 5;
-  if ((threadIdx.x & 31) == 0) red[warp] = v;
-  __syncthreads();
-  int total = 0;
-  if (threadIdx.x == 0)
-    for (int w = 0; w < kThreads / 32; ++w) total += red[w];
-  return total;  // meaningful in thread 0
+// Whether lane i runs a path this round: alive, or dead with paths left.
+__device__ __forceinline__ bool runs_path(const PersistentParams& p, long long i) {
+  const long long b = p.b;
+  return i < b && (p.in[12 * b + i] > 0.5f || p.in[S_K * b + i] < p.kmax[i]);
 }
 
-__global__ void __launch_bounds__(kThreads) persistent_kernel(PersistentParams p) {
-  __shared__ SharedTables sh;
-  __shared__ int red[2][kThreads / 32];
-  const Tables T = stage_tables(p.sc, true, sh);
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+// A lane whose paths are all finished: flush the last one, zero radiance and
+// throughput (a bounce zeroes a dead lane's throughput), count the round in
+// its depth. In place its rays, flag and k stay as they are, and from its
+// second such round on (radiance and throughput already 0) only the depth
+// moves: 44 B of traffic instead of 104 B.
+__device__ __forceinline__ void finish_lane(const PersistentParams& p, long long i) {
   const long long b = p.b;
-  int live = 0, more = 0;
-  if (i < b) {
-    const float* in = p.in;
-    Lane s = load_lane(in, b, i);
-    float k = in[S_K * b + i];
-    float depth = in[S_DEPTH * b + i];
-    V3 acc = mk(in[(S_ACC + 0) * b + i], in[(S_ACC + 1) * b + i], in[(S_ACC + 2) * b + i]);
-    const float kmax = p.kmax[i];
-    // 1. flush the finished path; 2. restart the lane's next path
-    const bool dead = !s.alive;
-    if (dead && k > 0.5f) acc = add(acc, s.rad);
-    if (dead) s.rad = mk(0.0f, 0.0f, 0.0f);
-    const bool take = dead && k < kmax;
-    if (take) {
-      k += 1.0f;
-      depth = 0.0f;
-      s.thr = mk(1.0f, 1.0f, 1.0f);
-    }
-    // 3. the key of path (pixel, sample k - 1), after the restart
-    const uint32_t samp = k > 0.5f ? (uint32_t)(k - 1.0f) : 0u;
-    const uint32_t wid = (p.samp_base + samp) * p.frame_pix + p.pix_base + (uint32_t)i;
-    const uint32_t key = work_key(p.seed, wid);
-    // 4. the camera ray of a restarted lane
-    if (take) {
-      camera_ray(p.cam, p.px[i], p.py[i], p.width, p.height, uniform_ctr(key, CTR_JITTER),
-                 uniform_ctr(key, CTR_JITTER + 1u), s.ro, s.rd);
-      s.alive = true;
-    }
-    live = s.alive;
-    // 5. the fused bounce at the lane's depth; 6. the depth cap
-    Lane o = bounce_body<false>(T, p.sc, key, at_depth(p.ctr, p.ctr_stride, (uint32_t)depth), s);
-    o.alive = o.alive && depth < (float)(p.ray_depth - 1);
-    more = o.alive || k < kmax;
-    float* out = p.out;
-    store_lane(out, b, i, o);
+  const float* in = p.in;
+  float* out = p.out;
+  const V3 thr = mk(in[6 * b + i], in[7 * b + i], in[8 * b + i]);
+  const V3 rad = mk(in[9 * b + i], in[10 * b + i], in[11 * b + i]);
+  const float depth = in[S_DEPTH * b + i];
+  out[S_DEPTH * b + i] = depth + 1.0f;
+  const bool settled = thr.x == 0.0f && thr.y == 0.0f && thr.z == 0.0f && rad.x == 0.0f &&
+                       rad.y == 0.0f && rad.z == 0.0f;
+  if (settled && out == in) return;
+  const float k = in[S_K * b + i];
+  V3 acc = mk(in[(S_ACC + 0) * b + i], in[(S_ACC + 1) * b + i], in[(S_ACC + 2) * b + i]);
+  if (k > 0.5f) acc = add(acc, rad);
+  out[6 * b + i] = thr.x * 0.0f;
+  out[7 * b + i] = thr.y * 0.0f;
+  out[8 * b + i] = thr.z * 0.0f;
+#pragma unroll
+  for (int r = 9; r < 12; ++r) out[r * b + i] = 0.0f;
+  out[(S_ACC + 0) * b + i] = acc.x;
+  out[(S_ACC + 1) * b + i] = acc.y;
+  out[(S_ACC + 2) * b + i] = acc.z;
+  if (out != in) {
+#pragma unroll
+    for (int r = 0; r < 6; ++r) out[r * b + i] = in[r * b + i];
+    out[12 * b + i] = 0.0f;
     out[S_K * b + i] = k;
-    out[S_DEPTH * b + i] = depth + 1.0f;
+  }
+}
+
+// One round of a lane that runs a path (runs_path): a live lane goes on, a
+// dead one has paths left and restarts. Returns whether it has work left.
+// Only what the lane's case needs is moved: a restart reads no ray and no
+// throughput, and in place the accumulator moves only with a flush and k
+// only with a restart.
+__device__ __forceinline__ bool run_lane(const PersistentParams& p, const Tables& T,
+                                         long long i) {
+  const long long b = p.b;
+  const float* in = p.in;
+  float* out = p.out;
+  const bool inplace = out == in;
+  const bool dead = !(in[12 * b + i] > 0.5f);
+  float k = in[S_K * b + i];
+  const float kmax = p.kmax[i];
+  // 1. flush the finished path
+  const bool flush = dead && k > 0.5f;
+  const bool acc_moves = flush || !inplace;
+  V3 acc = mk(0.0f, 0.0f, 0.0f);
+  if (acc_moves)
+    acc = mk(in[(S_ACC + 0) * b + i], in[(S_ACC + 1) * b + i], in[(S_ACC + 2) * b + i]);
+  if (flush) acc = add(acc, mk(in[9 * b + i], in[10 * b + i], in[11 * b + i]));
+  Lane s;
+  float depth;
+  if (dead) {  // 2. restart the lane's next path (it has one: k < kmax)
+    k += 1.0f;
+    depth = 0.0f;
+    s.thr = mk(1.0f, 1.0f, 1.0f);
+    s.rad = mk(0.0f, 0.0f, 0.0f);
+  } else {
+    s = load_lane(in, b, i);
+    depth = in[S_DEPTH * b + i];
+  }
+  s.alive = true;
+  // 3. the key of path (pixel, sample k - 1), after the restart
+  const uint32_t samp = k > 0.5f ? (uint32_t)(k - 1.0f) : 0u;
+  const uint32_t wid = (p.samp_base + samp) * p.frame_pix + p.pix_base + (uint32_t)i;
+  const uint32_t key = work_key(p.seed, wid);
+  // 4. the camera ray of a restarted lane
+  if (dead)
+    camera_ray(p.cam, p.px[i], p.py[i], p.width, p.height, uniform_ctr(key, CTR_JITTER),
+               uniform_ctr(key, CTR_JITTER + 1u), s.ro, s.rd);
+  // k, depth and the accumulator are final here: stored before the bounce, so
+  // that only two flags stay in registers across it
+  if (dead || !inplace) out[S_K * b + i] = k;
+  out[S_DEPTH * b + i] = depth + 1.0f;
+  if (acc_moves) {
     out[(S_ACC + 0) * b + i] = acc.x;
     out[(S_ACC + 1) * b + i] = acc.y;
     out[(S_ACC + 2) * b + i] = acc.z;
   }
-  const int live_blk = block_sum(live, red[0]);
-  const int more_blk = block_sum(more, red[1]);
+  const bool paths_left = k < kmax;
+  const bool below_cap = depth < (float)(p.ray_depth - 1);
+  // 5. the fused bounce at the lane's depth; 6. the depth cap
+  Lane o = bounce_body<false>(T, p.sc, key, at_depth(p.ctr, p.ctr_stride, (uint32_t)depth), s);
+  o.alive = o.alive && below_cap;
+  store_lane(out, b, i, o);
+  return o.alive || paths_left;
+}
+
+__global__ void __launch_bounds__(kBlock, kMinBlocks) persistent_kernel(PersistentParams p) {
+  __shared__ SharedTables sh;
+  __shared__ LaneQueue queue;
+  __shared__ int red[kWarps];
+  const Tables T = stage_tables(p.sc, true, sh);
+  int more = 0;  // lanes of this thread's passes with work left
+  // a lane that runs a path is alive after its restart: the first count
+  const int live = walk_tiles(
+      p.b, p.tick, queue, [&](long long i) { return runs_path(p, i); },
+      [&](long long i) { finish_lane(p, i); },
+      [&](long long i) { more += run_lane(p, T, i); });
+  const int live_blk = block_sum(live, red);
+  __syncthreads();
+  const int more_blk = block_sum(more, red);
   if (threadIdx.x == 0) {
     if (live_blk) atomicAdd(&p.counts[0], live_blk);
     if (more_blk) atomicAdd(&p.counts[1], more_blk);
@@ -137,16 +207,17 @@ __global__ void __launch_bounds__(kThreads) persistent_kernel(PersistentParams p
 }  // namespace
 
 // Returns cudaGetLastError() after the launch (cudaErrorInvalidValue for
-// arguments the kernel does not take). Never synchronises.
+// arguments the kernel does not take). Never synchronises. `tick`: as for
+// rt_launch_bounce.
 extern "C" int rt_launch_persistent(const void* in, void* out, long long b, const void* px,
                                     const void* py, const void* kmax, const void* cam,
                                     int width, int height, unsigned seed, unsigned frame_pix,
                                     unsigned pix_base, unsigned samp_base, unsigned ctr_base,
                                     unsigned ctr_cand, unsigned ctr_row, unsigned ctr_diel,
                                     unsigned ctr_stride, int ray_depth, const void* geo,
-                                    const void* spec, int m, const void* lp, const void* lspec,
+                                    const void* rec, int m, const void* lp, const void* lspec,
                                     int nl, int num_lights, float bg0, float bg1, float bg2,
-                                    int max_tries, void* counts, void* stream) {
+                                    int max_tries, void* counts, void* tick, void* stream) {
   if (bad_args(b, m, nl, num_lights, max_tries) || width < 1 || height < 1)
     return (int)cudaErrorInvalidValue;
   if (b == 0) return 0;
@@ -167,9 +238,13 @@ extern "C" int rt_launch_persistent(const void* in, void* out, long long b, cons
   p.ctr = Ctr{ctr_base, ctr_cand, ctr_row, ctr_diel};
   p.ctr_stride = ctr_stride;
   p.ray_depth = ray_depth;
-  p.sc = scene_args(geo, spec, m, lp, lspec, nl, num_lights, bg0, bg1, bg2, max_tries);
+  p.sc = scene_args(geo, rec, m, lp, lspec, nl, num_lights, bg0, bg1, bg2, max_tries);
   p.counts = static_cast<int*>(counts);
-  const unsigned grid = (unsigned)((b + kThreads - 1) / kThreads);
-  persistent_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(p);
+  p.tick = static_cast<int*>(tick);
+  persistent_kernel<<<grid_for(persistent_kernel, (b + kTile - 1) / kTile), kBlock, 0,
+                      static_cast<cudaStream_t>(stream)>>>(p);
   return (int)cudaGetLastError();
 }
+
+// Resident blocks per SM of persistent_kernel on the current device.
+extern "C" int rt_persistent_resident_blocks() { return resident_blocks(persistent_kernel); }

@@ -84,31 +84,59 @@ def trace_sample(scene: B.BounceScene, state: torch.Tensor, seed: int,
 
     ``state`` is a (13, B) buffer the kernels overwrite in place (the plain
     versions return fresh tensors). Returns (state after the final level,
-    path vertices as a 0-dim float64 tensor on the device)."""
+    path vertices as a 0-dim tensor on the device): every lane at bounce 0,
+    then the lanes alive on entry to each later level. Through the kernels
+    each level's launch adds its own count (int64); the plain versions sum
+    the alive row per level (float64)."""
     bg, k = cfg.bg_color, cfg.max_tries
+    if not plain:
+        return _trace_sample_kernels(scene, state, seed, wid, wid_off, px, py, cam_row, cfg,
+                                     width, height)
     rays = torch.full((), float(px.shape[0]), dtype=torch.float64, device=px.device)
     if cfg.ray_depth < 2:  # the final level only: camera rays, then K1 final_only
-        draw = B.lane_draws(seed, wid, wid_off)
-        ro, rd = generate_rays_u(camera_from_row(cam_row), px, py, width, height,
-                                 draw(CTR_JITTER), draw(CTR_JITTER + 1))
-        zero = px * 0.0
-        one = zero + 1.0
-        st = B._pack(ro, rd, Vec3(one, one, one), Vec3(zero, zero, zero), zero < 1.0)
+        st = _first_level_state(seed, wid, wid_off, px, py, cam_row, width, height)
     else:
-        args = (scene, cam_row, px, py, wid, wid_off, seed, bg, k, width, height)
-        st = B.primary_plain(*args) if plain else B.primary_bounce(*args, out=state)
+        st = B.primary_plain(scene, cam_row, px, py, wid, wid_off, seed, bg, k, width, height)
         for i in range(1, cfg.ray_depth - 1):
             rays += st[12].sum(dtype=torch.float64)
-            if plain:
-                st = B.bounce_plain(scene, st, wid, wid_off, seed, i, bg, k)
-            else:
-                st = B.bounce(scene, st, wid, wid_off, seed, i, bg, k, out=st)
+            st = B.bounce_plain(scene, st, wid, wid_off, seed, i, bg, k)
         rays += st[12].sum(dtype=torch.float64)
-    fin = (scene, st, wid, wid_off, seed, max(cfg.ray_depth - 1, 0), bg, k)
-    if plain:
-        st = B.bounce_plain(*fin, final_only=True)
+    st = B.bounce_plain(scene, st, wid, wid_off, seed, max(cfg.ray_depth - 1, 0), bg, k,
+                        final_only=True)
+    return st, rays
+
+
+def _first_level_state(seed: int, wid: torch.Tensor, wid_off: int, px: torch.Tensor,
+                       py: torch.Tensor, cam_row: torch.Tensor, width: int,
+                       height: int) -> torch.Tensor:
+    """The (13, B) state of fresh paths on their camera rays (``ray_depth``
+    below 2: no bounce 0 runs before the final level)."""
+    draw = B.lane_draws(seed, wid, wid_off)
+    ro, rd = generate_rays_u(camera_from_row(cam_row), px, py, width, height,
+                             draw(CTR_JITTER), draw(CTR_JITTER + 1))
+    zero = px * 0.0
+    one = zero + 1.0
+    return B._pack(ro, rd, Vec3(one, one, one), Vec3(zero, zero, zero), zero < 1.0)
+
+
+def _trace_sample_kernels(scene, state, seed, wid, wid_off, px, py, cam_row, cfg: TraceConfig,
+                          width: int, height: int):
+    """``trace_sample`` through the wrappers of ``ops/bounce.py``: K2, then
+    K1 per level, then K1 ``final_only``, in place in ``state``. K2 runs every
+    lane; each later launch adds the lanes alive on its entry to ``rays``
+    (on the CPU the wrappers sum the alive row)."""
+    bg, k = cfg.bg_color, cfg.max_tries
+    if cfg.ray_depth < 2:
+        st = _first_level_state(seed, wid, wid_off, px, py, cam_row, width, height)
+        rays = torch.zeros((), dtype=torch.int64, device=px.device)
     else:
-        st = B.bounce(*fin, final_only=True, out=st)
+        st = B.primary_bounce(scene, cam_row, px, py, wid, wid_off, seed, bg, k, width, height,
+                              out=state)
+        rays = torch.full((), px.shape[0], dtype=torch.int64, device=px.device)
+        for i in range(1, cfg.ray_depth - 1):
+            st = B.bounce(scene, st, wid, wid_off, seed, i, bg, k, out=st, count=rays)
+    st = B.bounce(scene, st, wid, wid_off, seed, max(cfg.ray_depth - 1, 0), bg, k,
+                  final_only=True, out=st, count=rays)
     return st, rays
 
 

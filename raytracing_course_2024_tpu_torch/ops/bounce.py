@@ -21,7 +21,10 @@ package's 13 SoA lanes: rows ro3, rd3, thr3, rad3, alive (1.0 / 0.0).
 Each wrapper runs the plain version only for tensors on the CPU. On a CUDA
 tensor it launches the kernel of ``csrc/bounce.cu`` (built on first use by
 ``ops/kernels.py``) or raises, and counts the launch in
-``ops/kernels.py:LAUNCHES``.
+``ops/kernels.py:LAUNCHES``. The kernels walk the scene's entries through
+the entry-major records of ``build_loop_records`` and read the (35, M)
+table of ``build_geo_rows`` for the winning entry only; the plain versions
+read the table alone.
 
 Uniforms come from the counter RNG (``ops/rng.py``): lane ``i`` draws from
 ``work_key(seed, wid[i] + wid_off)``, in batch mode at counter
@@ -116,6 +119,36 @@ def build_geo_rows(scn: SceneArrays, statics: SceneStatics) -> np.ndarray:
     return np.ascontiguousarray(geo)
 
 
+REC_FLOATS = 12  # one loop record: three float4
+
+
+def build_loop_records(geo: np.ndarray, spec) -> np.ndarray:
+    """(M, 12) f32 records of the kernels' intersection loop, entry-major,
+    from the ``build_geo_rows`` table and the scene's ``mega_spec``
+    (``(kind, rotated, mkind)`` per entry). One record is three float4, all
+    the loop reads of an entry:
+
+    * a triangle: ``(a, spec) (e1, 0) (e2, 0)``;
+    * a box, ellipsoid or plane: ``(half-extents | radii | normal, spec)
+      (position, 0) (quaternion xyzw)``.
+
+    ``spec`` is the int32 ``kind | rotated << 2 | mkind << 3``, stored bit
+    for bit in the float slot (the kernel reads it back as an int)."""
+    m = geo.shape[1]
+    if len(spec) != m:
+        raise ValueError(f"{len(spec)} spec entries for {m} table columns")
+    rec = np.zeros((m, 3, 4), np.float32)
+    codes = np.array([k | (int(r) << 2) | (mk << 3) for k, r, mk in spec], np.int32)
+    tri = np.array([k == TRI for k, _, _ in spec], bool)
+    rec[:, 0, :3] = geo[_A:_A + 3].T
+    rec[:, 0, 3] = codes.view(np.float32)
+    rec[tri, 1, :3] = geo[_E1:_E1 + 3].T[tri]
+    rec[tri, 2, :3] = geo[_E2:_E2 + 3].T[tri]
+    rec[~tri, 1, :3] = geo[_POS:_POS + 3].T[~tri]
+    rec[~tri, 2, :] = geo[_ROT:_ROT + 4].T[~tri]
+    return np.ascontiguousarray(rec.reshape(m, REC_FLOATS))
+
+
 def gate_reason(statics: SceneStatics) -> str | None:
     """Why a scene cannot take the fused-bounce path (it then takes the
     modular dense path, ``ops/scene_intersect.py``), or None if it can: the
@@ -133,8 +166,8 @@ class BounceScene(NamedTuple):
 
     statics: SceneStatics
     geo: torch.Tensor  # (C_GEO, M) f32
+    rec: torch.Tensor  # (M, 12) f32: the kernels' loop records
     lp: torch.Tensor  # (LightCol.COUNT, L) f32
-    spec: torch.Tensor  # (M,) i32: kind | rotated << 2 | mkind << 3
     lspec: torch.Tensor  # (L,) i32: light ptype | rotated << 2
     geo_np: np.ndarray
     lp_np: np.ndarray
@@ -147,15 +180,14 @@ def bounce_scene(scn: SceneArrays, statics: SceneStatics,
         raise NotImplementedError(reason)
     geo_np = build_geo_rows(scn, statics)
     lp_np = np.ascontiguousarray(scn.light_packed, dtype=np.float32)
-    spec = [k | (int(r) << 2) | (mk << 3) for k, r, mk in statics.mega_spec]
     lspec = [t | (int(r) << 2)
              for t, r in zip(statics.light_types, statics.light_rotated)]
     lspec += [0] * (lp_np.shape[1] - len(lspec))
     return BounceScene(
         statics=statics,
         geo=torch.from_numpy(geo_np).to(device),
+        rec=torch.from_numpy(build_loop_records(geo_np, statics.mega_spec)).to(device),
         lp=torch.from_numpy(lp_np).to(device),
-        spec=torch.tensor(spec, dtype=torch.int32, device=device),
         lspec=torch.tensor(lspec, dtype=torch.int32, device=device),
         geo_np=geo_np,
         lp_np=lp_np,
@@ -471,7 +503,7 @@ def check_scene(scene: BounceScene, device) -> None:
                          f"{UNROLL_MAX_LIGHTS}")
     check("geo", scene.geo, torch.float32, (C_GEO, m), device)
     check("lp", scene.lp, torch.float32, (LightCol.COUNT, nl), device)
-    check("spec", scene.spec, torch.int32, (m,), device)
+    check("rec", scene.rec, torch.float32, (m, REC_FLOATS), device)
     check("lspec", scene.lspec, torch.int32, (nl,), device)
 
 
@@ -479,15 +511,20 @@ def bounce(scene: BounceScene, state: torch.Tensor, wid: torch.Tensor,
            wid_off: int, seed: int, bounce_i: int, bg: tuple,
            max_tries: int = 4, final_only: bool = False,
            out: torch.Tensor | None = None,
-           depth: torch.Tensor | None = None) -> torch.Tensor:
+           depth: torch.Tensor | None = None,
+           count: torch.Tensor | None = None) -> torch.Tensor:
     """One fused bounce of the (13, B) path state.
 
     ``depth`` (int32 (B,)) selects lane mode: lane ``i`` draws at depth
     ``depth[i]`` of the lane engines' layout and ``bounce_i`` is unused.
-    On CUDA, ``out`` may be ``state`` itself: each thread reads its lane
-    before writing it, so the update runs in place (the JAX kernel wrote
+    ``count`` (a 0-dim int64 tensor) gets the lanes alive on entry added:
+    the path vertices of this level, counted by the kernel itself.
+    On CUDA, ``out`` may be ``state`` itself: one thread reads a lane and
+    then writes it, so the update runs in place (the JAX kernel wrote
     fresh buffers; in place saves 13 x 4 B per lane of device memory)."""
     if state.device.type == "cpu":
+        if count is not None:
+            count += (state[12] > 0.5).sum()
         res = bounce_plain(scene, state, wid, wid_off, seed, bounce_i, bg,
                            max_tries, final_only, depth)
         if out is None:
@@ -501,6 +538,8 @@ def bounce(scene: BounceScene, state: torch.Tensor, wid: torch.Tensor,
     check("wid", wid, torch.int32, (b,), state.device)
     if depth is not None:
         check("depth", depth, torch.int32, (b,), state.device)
+    if count is not None:
+        check("count", count, torch.int64, (), state.device)
     check_scene(scene, state.device)
     if out is None:
         out = torch.empty_like(state)
@@ -508,7 +547,7 @@ def bounce(scene: BounceScene, state: torch.Tensor, wid: torch.Tensor,
     # lane mode: the kernel adds WF_STRIDE * depth[i] to the depth-0 layout
     ctr = _ctr(bounce_i, max_tries, None if depth is None else 0)
     launch_bounce(scene, state, out, wid, wid_off, seed, ctr, depth, WF_STRIDE, bg,
-                  max_tries, final_only)
+                  max_tries, final_only, count)
     LAUNCHES["final" if final_only else "bounce"] += 1
     return out
 

@@ -41,6 +41,7 @@ NVCC_FLAGS = (
     "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",
 )
 
+
 _LIB = None
 BUILD_INFO: dict = {}  # path, seconds (0.0 when cached), log of the last build
 
@@ -78,7 +79,8 @@ def _nvcc() -> str:
 
 def _build() -> Path:
     files = sorted(p for p in CSRC.iterdir() if p.is_file())
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    flags = NVCC_FLAGS
+    h = hashlib.sha256(" ".join(flags).encode())
     for f in files:  # headers too: an edited header must not reuse a stale .so
         h.update(f.name.encode())
         h.update(f.read_bytes())
@@ -96,7 +98,7 @@ def _build() -> Path:
     t0 = time.perf_counter()
     jobs = []
     for src, obj in zip(SOURCES, objs):
-        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(CSRC / src)]
+        cmd = [nvcc, *flags, "-c", "-o", str(obj), str(CSRC / src)]
         jobs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                            stderr=subprocess.STDOUT, text=True)))
     text, failed = "", False
@@ -131,7 +133,7 @@ def library() -> ctypes.CDLL:
         ctr = [u, u, u, u]  # Ctr: base, cand, row, diel
         scene = [p, p, i, p, p, i, i, f, f, f, i]  # tables, lights, bg, max_tries
         lib.rt_launch_bounce.argtypes = [
-            p, p, ll, p, u, u, *ctr, p, u, *scene, i, p,
+            p, p, ll, p, u, u, *ctr, p, u, *scene, i, p, p, p,
         ]
         lib.rt_launch_bounce.restype = i
         lib.rt_launch_primary.argtypes = [
@@ -145,15 +147,24 @@ def library() -> ctypes.CDLL:
         ]
         lib.rt_launch_sampler.restype = i
         lib.rt_launch_persistent.argtypes = [
-            p, p, ll, p, p, p, p, i, i, u, u, u, u, *ctr, u, i, *scene, p, p,
+            p, p, ll, p, p, p, p, i, i, u, u, u, u, *ctr, u, i, *scene, p, p, p,
         ]
         lib.rt_launch_persistent.restype = i
+        lib.rt_bounce_geometry.argtypes = [ctypes.POINTER(ctypes.c_int)]
+        lib.rt_bounce_geometry.restype = None
+        lib.rt_persistent_resident_blocks.argtypes = []
+        lib.rt_persistent_resident_blocks.restype = i
         _LIB = lib
     return _LIB
 
 
-def _raise_on(rc: int, name: str) -> None:
+def _raise_on(rc: int, name: str, tickets: torch.Tensor | None = None) -> None:
+    """Raises on a launcher's CUDA error. A launch that took ``tickets`` and
+    did not run to its end may have left them counted up: they are zeroed,
+    so that the next launch on that stream does not skip tiles."""
     if rc != 0:
+        if tickets is not None:
+            tickets.zero_()
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
 
 
@@ -168,23 +179,51 @@ def _ctr(ctr) -> tuple:
 
 def _scene(scene, bg, max_tries) -> tuple:
     """A BounceScene and the launch constants as the kernels' scene arguments."""
-    return (scene.geo.data_ptr(), scene.spec.data_ptr(), scene.geo.shape[1],
+    return (scene.geo.data_ptr(), scene.rec.data_ptr(), scene.geo.shape[1],
             scene.lp.data_ptr(), scene.lspec.data_ptr(), scene.lp.shape[1],
             scene.statics.num_lights, float(bg[0]), float(bg[1]), float(bg[2]),
             int(max_tries))
 
 
+_TICKETS: dict = {}
+
+
+def _tickets(device, stream: int) -> torch.Tensor:
+    """The two int32 with which K1 and K5 hand out their tiles
+    (``csrc/bounce_body.cuh:walk_tiles``): zero between launches, one pair
+    per device and stream, since launches on one stream run in order."""
+    key = (device, stream)
+    if key not in _TICKETS:
+        _TICKETS[key] = torch.zeros((2,), dtype=torch.int32, device=device)
+    return _TICKETS[key]
+
+
+def launch_geometry() -> dict:
+    """How the bounce kernels and the persistent round are launched on the
+    current device: its SMs, threads per block, lanes per tile, and each
+    kernel's resident blocks per SM (the grid is SMs x resident blocks, or
+    the number of tiles when that is smaller)."""
+    lib = library()
+    out = (ctypes.c_int * 6)()
+    lib.rt_bounce_geometry(out)
+    return {"sms": out[0], "block": out[1], "tile": out[2],
+            "resident_blocks": {"bounce": out[3], "final": out[4], "primary": out[5],
+                                "persistent": lib.rt_persistent_resident_blocks()}}
+
+
 def launch_bounce(scene, state, out, wid, wid_off, seed, ctr, depth, ctr_stride, bg,
-                  max_tries, final_only) -> None:
+                  max_tries, final_only, count=None) -> None:
     lib = library()
     stream = torch.cuda.current_stream(state.device).cuda_stream
+    tickets = _tickets(state.device, stream)
     rc = lib.rt_launch_bounce(
         state.data_ptr(), out.data_ptr(), state.shape[1], wid.data_ptr(),
         _u32(wid_off), _u32(seed), *_ctr(ctr),
         None if depth is None else depth.data_ptr(), _u32(ctr_stride),
-        *_scene(scene, bg, max_tries), int(bool(final_only)), stream,
+        *_scene(scene, bg, max_tries), int(bool(final_only)),
+        None if count is None else count.data_ptr(), tickets.data_ptr(), stream,
     )
-    _raise_on(rc, "rt_launch_bounce")
+    _raise_on(rc, "rt_launch_bounce", tickets)
 
 
 def launch_primary(scene, cam_row, px, py, out, wid, wid_off, seed, ctr, bg,
@@ -204,13 +243,15 @@ def launch_persistent(scene, state, out, px, py, kmax, cam_row, width, height, s
                       max_tries, counts) -> None:
     lib = library()
     stream = torch.cuda.current_stream(state.device).cuda_stream
+    tickets = _tickets(state.device, stream)
     rc = lib.rt_launch_persistent(
         state.data_ptr(), out.data_ptr(), state.shape[1], px.data_ptr(), py.data_ptr(),
         kmax.data_ptr(), cam_row.data_ptr(), int(width), int(height), _u32(seed),
         _u32(frame_pix), _u32(pix_base), _u32(samp_base), *_ctr(ctr), _u32(ctr_stride),
-        int(ray_depth), *_scene(scene, bg, max_tries), counts.data_ptr(), stream,
+        int(ray_depth), *_scene(scene, bg, max_tries), counts.data_ptr(),
+        tickets.data_ptr(), stream,
     )
-    _raise_on(rc, "rt_launch_persistent")
+    _raise_on(rc, "rt_launch_persistent", tickets)
 
 
 def _ptrs(tensors) -> ctypes.Array:

@@ -90,8 +90,8 @@ def persistent_round(scene: BounceScene, cam_row: torch.Tensor, px: torch.Tensor
     alive after the restart, lanes with work left) into ``counts``, a (2,)
     int32 tensor the caller zeroes. Returns the new state.
 
-    On CUDA, ``out`` may be ``state`` itself: each thread reads its lane
-    before writing it (the JAX kernel aliased its 18 inputs to its
+    On CUDA, ``out`` may be ``state`` itself: one thread reads a lane and
+    then writes it (the JAX kernel aliased its 18 inputs to its
     outputs)."""
     args = (seed, frame_pix, pix_base, samp_base, bg, max_tries, ray_depth, width, height)
     if state.device.type == "cpu":

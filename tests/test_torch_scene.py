@@ -55,7 +55,7 @@ def test_scene_from_jax_matches_port_build(name):
     got, mod, statics = scene_from_jax(ja, js, "cpu")
     own = bounce_scene(ta, ts, "cpu")
     assert statics == ts
-    for field in ("geo", "lp", "spec", "lspec"):
+    for field in ("geo", "rec", "lp", "lspec"):
         assert torch.equal(getattr(got, field), getattr(own, field)), field
     assert np.array_equal(got.geo_np, own.geo_np)
     assert np.array_equal(got.lp_np, own.lp_np)
