@@ -16,9 +16,15 @@ exits non-zero):
                in-repo Cornell glTF: K2, then 3 x K1, then K1 final_only,
                each fed the plain version's previous state;
                modular path: K4 on Cornell camera rays and bounce-1 rays at
-               262,144 and 921,600 lanes; K3 on real ``surface_detail``
-               outputs at bounces 0 and 1 of MIXED and LIGHTS (262,144
-               lanes) and of Cornell (262,144 and 921,600 lanes);
+               262,144 and 921,600 lanes, without a live mask and with the
+               state's own (t and idx equal on every lane, masked lanes the
+               miss); K3 on real ``surface_detail`` outputs at bounces 0
+               and 1 of MIXED and LIGHTS (262,144 lanes) and of Cornell
+               (262,144 and 921,600 lanes), ``ok`` equal on every lane and
+               MIXED bit for bit; both at 921,600 lanes on a lane count that
+               is no multiple of the tile (921,600 - 77), whole dead warps
+               and tiles and every lane masked, K4 also with the rays and
+               live masks of the modular frame's levels 1 to 5;
                lane engines: K1 in lane mode chained over 3 rounds from
                random per-lane depths and work ids (MIXED and Cornell at
                262,144 lanes; Cornell at the wavefront engine's 1,048,576
@@ -54,7 +60,12 @@ exits non-zero):
                kernels; one fused plain frame); ms per launch of each kernel
                from CUDA events (K5 on the Cornell state after 10 rounds;
                K1, K1-final and K5 in place, as the engines launch them,
-               and beside that into a separate buffer),
+               and beside that into a separate buffer; K4 and K3 with an
+               event pair per launch while a spin kernel holds the stream,
+               so that the host's cost per call is not in the number, on
+               the camera and on the bounce-1 state, K4 with and without
+               the live mask, and level by level over one sample of the
+               modular frame),
                path vertices, Mrays/s, rounds, peak memory; K1 and K1-final
                on the bounce-1 state as it is, with its live lanes sorted to
                the front, with every lane alive, and with every lane alive
@@ -210,7 +221,7 @@ LANE_ROUNDS = 3  # K1 lane-mode rounds held against the plain version
 # fp32 operations (add, sub, mul, div, min, max, abs, compare, sqrt, rsqrt,
 # sin, cos: one each; selects and integer hashing not counted) of the
 # device functions, counted from csrc/dense_nearest.cu and csrc/common.cuh
-OPS_TRI_K4 = 53  # one Moller-Trumbore test + running min in dense_nearest_kernel
+OPS_TRI_K4 = 53  # one Moller-Trumbore test + running min in dense_nearest_kernel, per live lane
 # the fused loop (csrc/bounce_body.cuh) does the same test per entry, and the
 # facing normal (cross, dot, compare, scale: 18) once per live lane, for the
 # winner. Until the normal left the loop it was counted per entry (71).
@@ -228,12 +239,17 @@ def say(phase: str, **kw) -> None:
     print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in kw.items()), flush=True)
 
 
-def gpu_line() -> str:
+def gpu_line(query: str = "name,power.limit") -> str:
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()
     return out[0].strip()
+
+
+def clocks_line() -> str:
+    """The card's SM and memory clocks as ``nvidia-smi`` reads them now."""
+    return gpu_line("clocks.sm,clocks.mem")
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -250,12 +266,56 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def hold_stream(ms: float) -> None:
+    """Keeps the card busy for about ``ms`` with a spin kernel, so that what
+    the host enqueues meanwhile waits on the stream and then runs back to
+    back: an event pair around a launch made while the stream is held spans
+    the kernel alone, not the host's way to the launch."""
+    khz = getattr(torch.cuda.get_device_properties(0), "clock_rate", 1_755_000)
+    torch.cuda._sleep(int(ms * khz))
+
+
+HOST_US_PER_LAUNCH = 400  # what ``hold_stream`` allows the host for one timed launch
+
+
+def cuda_ms_each(fn, reps: int, stats: dict | None = None) -> float:
+    """Device ms per call of ``fn`` (same inputs, fresh outputs each call)
+    from one pair of CUDA events per launch, recorded while the stream is
+    held (``hold_stream``), so the host's cost per call (argument checks,
+    allocations, the ctypes call) is not in the number, however slow the host
+    is. Returns the median launch: where the host did fall behind the card (a
+    launch made on an idle stream starts late, inside its event pair), those
+    launches do not move it. ``stats`` receives the mean, the least and the
+    largest launch, and ``gap_ms``: the median idle time between one launch's
+    end event and the next one's start event, a few microseconds while the
+    host stayed ahead of the card."""
+    fn()  # warm-up
+    marks = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+             for _ in range(reps)]
+    torch.cuda.synchronize()
+    hold_stream(reps * HOST_US_PER_LAUNCH / 1e3)
+    for start, end in marks:
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    times = [start.elapsed_time(end) for start, end in marks]
+    if stats is not None:
+        gaps = [a[1].elapsed_time(b[0]) for a, b in zip(marks, marks[1:])]
+        stats.update(mean_ms=sum(times) / reps, min_ms=min(times), max_ms=max(times),
+                     gap_ms=statistics.median(gaps) if gaps else 0.0)
+    return statistics.median(times)
+
+
 def cuda_ms_in_place(fn, restore, reps: int) -> float:
     """Device ms per call of ``fn`` where ``fn`` overwrites its input, as the
     engines call K1 and K5: ``restore`` puts the input back before every
-    call, outside the pair of CUDA events that times the call."""
+    call, outside the pair of CUDA events that times the call. The stream is
+    held while the host enqueues, as in ``cuda_ms_each``."""
     marks = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
              for _ in range(reps + 1)]
+    torch.cuda.synchronize()
+    hold_stream(reps * HOST_US_PER_LAUNCH / 1e3)
     for start, end in marks:  # the first pair is the warm-up
         restore()
         start.record()
@@ -543,11 +603,14 @@ def phase_kernels_tiles(dev, k5) -> None:
 class Modular:
     """One scene on the modular path at w x h lanes: camera rays from the
     counter draws of sample 0, the plain bounce-0 hit and surface, the
-    inputs K3 reads there, bounce 1's rays, and the inputs K3 reads at
-    bounce 1 (counter base ``draws_per_bounce``), as the main path feeds
-    them."""
+    inputs K3 reads there, bounce 1's rays and live mask, and the inputs K3
+    reads at bounce 1 (counter base ``draws_per_bounce``), as the main path
+    feeds them. ``levels`` also walks the plain modular path with roulette,
+    as the main run does, down to the last depth level: ``self.levels[i]`` is
+    (ro, rd, alive, K3's arguments or None at the last level) on entry to
+    level i."""
 
-    def __init__(self, dev, desc, w: int, h: int):
+    def __init__(self, dev, desc, w: int, h: int, levels: bool = False):
         from raytracing_course_2024_tpu_torch.integrator import path as P
         from raytracing_course_2024_tpu_torch.ops import rng
         from raytracing_course_2024_tpu_torch.ops.camera import camera_arrays, generate_rays_u
@@ -567,6 +630,7 @@ class Modular:
         self.ro, self.rd = generate_rays_u(
             camera_arrays(desc.settings.camera), px, py, w, h,
             rng.uniform_ctr(self.key, rng.CTR_JITTER), rng.uniform_ctr(self.key, rng.CTR_JITTER + 1))
+
         def sampler_inputs(ro, rd, alive, bounce_i):
             hit = nearest_hit_dense(ro, rd, self.scene, plain=True)
             surf = surface_detail(ro, rd, hit, self.scene)
@@ -579,18 +643,30 @@ class Modular:
 
         zero = self.ro.x * 0.0
         one = zero + 1.0
+        self.alive = zero < 1.0
         self.surf, self.need, self.sampler_args = sampler_inputs(
-            self.ro, self.rd, zero < 1.0, 0)
+            self.ro, self.rd, self.alive, 0)
         # bounce 1's rays: the plain modular bounce 0 of the camera rays
         st = P.PathState(self.ro, self.rd, Vec3(one, one, one), Vec3(zero, zero, zero),
-                         zero < 1.0)
+                         self.alive)
         st = P._bounce(st, self.scene, self.cfg, SEED, self.wid, 0, self.key, 0, plain=True)
         self.bounce1 = (st.ro, st.rd)
-        _, _, self.sampler_args1 = sampler_inputs(st.ro, st.rd, st.alive, 1)
+        self.alive1 = st.alive
+        self.surf1, self.need1, self.sampler_args1 = sampler_inputs(st.ro, st.rd, st.alive, 1)
+        self.levels = [(self.ro, self.rd, self.alive, self.sampler_args),
+                       (st.ro, st.rd, st.alive, self.sampler_args1)]
+        if levels:
+            cfg = self.cfg._replace(rr=True)
+            for i in range(1, cfg.ray_depth - 1):
+                st = P._bounce(st, self.scene, cfg, SEED, self.wid, 0, self.key, i, plain=True)
+                args = (sampler_inputs(st.ro, st.rd, st.alive, i + 1)[2]
+                        if i + 1 < cfg.ray_depth - 1 else None)
+                self.levels.append((st.ro, st.rd, st.alive, args))
 
 
-def sampler_ops(m: Modular) -> float:
-    """fp32 operations K3 does on these inputs: per lane that samples, the
+def sampler_ops(m: Modular, bounce_i: int = 0) -> float:
+    """fp32 operations K3 does on the inputs of bounce ``bounce_i`` (0: the
+    camera state, 1: the bounce-1 state): per lane that samples, the
     candidates drawn until the first accepted one (each: the pick, its
     component's sampler, the acceptance test), then the mixture pdf with
     the light pdf of every light."""
@@ -599,15 +675,17 @@ def sampler_ops(m: Modular) -> float:
 
     statics, lp = m.scene.statics, m.scene.lp_np
     n_comp = 3 if statics.num_lights > 0 else 2
-    s = m.surf
-    v = m.rd * -1.0
-    pending = m.need.clone()
+    s, need, rd = ((m.surf, m.need, m.rd) if bounce_i == 0
+                   else (m.surf1, m.need1, m.bounce1[1]))
+    base = bounce_i * rng.draws_per_bounce(K)
+    v = rd * -1.0
+    pending = need.clone()
     ops = torch.zeros_like(s.point.x, dtype=torch.float64)
     lt = torch.tensor(list(statics.light_types) or [0], device=ops.device)
     cost_light = torch.tensor([OPS_CAND["light"][int(t)] for t in lt], dtype=torch.float64,
                               device=ops.device)
     for t in range(K):
-        draw = [rng.uniform_ctr(m.key, rng.ctr_mix(t, r)) for r in range(7)]
+        draw = [rng.uniform_ctr(m.key, base + rng.ctr_mix(t, r)) for r in range(7)]
         which = torch.clamp((draw[0] * n_comp).to(torch.int32), max=n_comp - 1)
         cand = S.sample_cosine_u(draw[1], draw[2], s.n_geom)
         cand = S.where3(which == 1, S.sample_vndf_u(draw[1], draw[2], s.n_geom, v, s.roughness),
@@ -624,51 +702,121 @@ def sampler_ops(m: Modular) -> float:
         pending = pending & ~ok
     per_pdf = OPS_PDF + sum(OPS_LIGHT_PDF[t] + (OPS_LIGHT_ROT.get(t, 0) if r else 0)
                             for t, r in zip(statics.light_types, statics.light_rotated))
-    return float(ops.sum()) + per_pdf * float(m.need.sum())
+    return float(ops.sum()) + per_pdf * float(need.sum())
+
+
+def nearest_case(what: str, ro, rd, scene, live) -> float:
+    """K4 against its plain version on one set of rays, with or without a
+    live mask: t and idx must be equal on every lane, masked ones included
+    (the miss, t = inf and idx = 0). Returns the largest absolute error."""
+    from raytracing_course_2024_tpu_torch.ops.dense_nearest import (
+        dense_nearest, dense_nearest_plain)
+
+    tk, ik = dense_nearest(ro, rd, scene.tri_pack, live=live, records=scene.tri_rec)
+    tp, ip = dense_nearest_plain(ro, rd, scene.tri_pack, live=live)
+    torch.cuda.synchronize()
+    idx_agree = ((ik == ip) | ~torch.isfinite(tp)).float().mean().item()
+    res = compare_rows([tk], [tp], torch.isfinite(tk), torch.isfinite(tp), what)
+    off = torch.zeros_like(ik, dtype=torch.bool) if live is None else ~live
+    exact = dict(idx_agree=round(idx_agree, 6), t_equal=bool(torch.equal(tk, tp)),
+                 idx_equal=bool(torch.equal(ik, ip)),
+                 masked_are_misses=bool(torch.isinf(tk[off]).all() and (ik[off] == 0).all()),
+                 live_frac=round(1.0 - off.float().mean().item(), 4))
+    check(exact, what + "-idx", exact["t_equal"] and exact["idx_equal"]
+          and exact["masked_are_misses"] and idx_agree >= LANE_FRAC)
+    return res["max_abs_err"]
+
+
+def sampler_case(what: str, args: tuple, bit_exact: bool) -> float:
+    """K3 against its plain version on one set of inputs: ``ok`` equal on
+    every lane, l and pdf within the gate on the accepted ones (``bit_exact``:
+    equal bit for bit there). Returns the largest absolute error."""
+    from raytracing_course_2024_tpu_torch.ops.sampler import (
+        sample_mixture_kernel, sampler_plain)
+
+    lk, pk, okk = sample_mixture_kernel(*args)
+    lp_, pp, okp = sampler_plain(*args)
+    torch.cuda.synchronize()
+    res = compare_rows([*lk, pk], [*lp_, pp], okk, okp, what)
+    exact = dict(ok_equal=bool(torch.equal(okk, okp)),
+                 bits_equal=all(bool(torch.equal(a[okp], b[okp]))
+                                for a, b in zip([*lk, pk], [*lp_, pp])),
+                 need_frac=round(args[10].float().mean().item(), 4))
+    check(exact, what + "-exact", exact["ok_equal"] and (exact["bits_equal"] or not bit_exact))
+    return res["max_abs_err"]
+
+
+def first_lanes(x, n: int):
+    """A tensor or Vec3 cut to its first ``n`` lanes; anything else as it is."""
+    from raytracing_course_2024_tpu_torch.ops.vec import Vec3
+
+    if isinstance(x, Vec3):
+        return Vec3(*(c[:n].contiguous() for c in x))
+    return x[:n].contiguous() if isinstance(x, torch.Tensor) else x
+
+
+def cut_lanes(args: tuple, n: int, need) -> tuple:
+    """K3's arguments on the first ``n`` lanes, with ``need`` in place of theirs."""
+    out = [first_lanes(x, n) for x in args]
+    out[10] = first_lanes(need, n)
+    return tuple(out)
 
 
 def phase_kernels_modular(dev, sizes=LANES) -> tuple:
-    """K4 and K3 against their plain versions. Returns the largest absolute
-    error of each at the main path's 921,600 lanes, and the Cornell case at
-    those lanes for the timing phase."""
-    from raytracing_course_2024_tpu_torch.ops.dense_nearest import (
-        dense_nearest, dense_nearest_plain)
-    from raytracing_course_2024_tpu_torch.ops.sampler import (
-        sample_mixture_kernel, sampler_plain)
+    """K4 and K3 against their plain versions: K4 on camera and bounce-1 rays
+    without a mask, with every lane live and with the bounce-1 live mask; K3
+    on the surfaces of bounces 0 and 1. At the main path's 921,600 lanes
+    also on what the tile walk has to get right: a lane count that is no
+    multiple of the tile (921,600 - 77), whole dead warps and tiles, every
+    lane masked, and K4 with the rays and live masks of the frame's levels 1
+    to 5. Returns the largest absolute error of each kernel at the main
+    path's lanes, and the Cornell case at those lanes for the timing phase."""
     from raytracing_course_2024_tpu_torch.scene import load_scene, parse_text_scene
 
     errs, cases = {"nearest": 0.0, "sampler": 0.0}, {}
     main = sizes[-1]
 
-    def sampler_case(m, what, w, h):
-        for b, args in ((0, m.sampler_args), (1, m.sampler_args1)):
-            lk, pk, okk = sample_mixture_kernel(*args)
-            lp_, pp, okp = sampler_plain(*args)
-            torch.cuda.synchronize()
-            res = compare_rows([*lk, pk], [*lp_, pp], okk, okp,
-                               f"{what}-{w}x{h}:sampler-bounce{b}")
-            if (w, h) == main:
-                errs["sampler"] = max(errs["sampler"], res["max_abs_err"])
+    def worst(kernel, size, err):
+        if size == main:
+            errs[kernel] = max(errs[kernel], err)
 
     for w, h in sizes:
-        m = Modular(dev, load_scene(CORNELL, w, h, 1), w, h)
-        tri = m.scene.tri_pack
-        for rays, (ro, rd) in (("camera", (m.ro, m.rd)), ("bounce1", m.bounce1)):
-            tk, ik = dense_nearest(ro, rd, tri)
-            tp, ip = dense_nearest_plain(ro, rd, tri)
-            torch.cuda.synchronize()
-            idx_agree = ((ik == ip) | ~torch.isfinite(tp)).float().mean().item()
-            res = compare_rows([tk], [tp], torch.isfinite(tk), torch.isfinite(tp),
-                               f"cornell-{w}x{h}:nearest-{rays}")
-            check(dict(idx_agree=round(idx_agree, 6)), f"cornell-{w}x{h}:nearest-{rays}-idx",
-                  idx_agree >= LANE_FRAC)
-            if (w, h) == main:
-                errs["nearest"] = max(errs["nearest"], res["max_abs_err"])
-        sampler_case(m, "cornell", w, h)
+        n = w * h
+        m = Modular(dev, load_scene(CORNELL, w, h, 1), w, h, levels=(w, h) == main)
+        for rays, (ro, rd), alive in (("camera", (m.ro, m.rd), m.alive),
+                                      ("bounce1", m.bounce1, m.alive1)):
+            for mask, live in (("", None), ("-masked", alive)):
+                worst("nearest", (w, h), nearest_case(
+                    f"cornell-{w}x{h}:nearest-{rays}{mask}", ro, rd, m.scene, live))
+        for b, args in ((0, m.sampler_args), (1, m.sampler_args1)):
+            worst("sampler", (w, h), sampler_case(
+                f"cornell-{w}x{h}:sampler-bounce{b}", args, False))
         cases[(w, h)] = m
+        if (w, h) != main:
+            continue
+        ro, rd = m.bounce1
+        patterns = dict(tile_patterns(n, dev), ragged=None)
+        for name, keep in patterns.items():
+            k = n - 77 if keep is None else n  # ragged: no multiple of the tile
+            ro_k, rd_k = first_lanes(ro, k), first_lanes(rd, k)
+            live = first_lanes(m.alive1 if keep is None else m.alive1 & keep, k)
+            nearest_case(f"cornell-{k}-lanes-{name}:nearest-bounce1-masked", ro_k, rd_k,
+                         m.scene, live)
+            if keep is None:
+                nearest_case(f"cornell-{k}-lanes-{name}:nearest-bounce1", ro_k, rd_k,
+                             m.scene, None)
+            need = m.need1 if keep is None else m.need1 & keep
+            sampler_case(f"cornell-{k}-lanes-{name}:sampler-bounce1",
+                         cut_lanes(m.sampler_args1, k, need), False)
+        for lvl, (lro, lrd, alive, _) in enumerate(m.levels):
+            if lvl >= 1:
+                nearest_case(f"cornell-{w}x{h}:nearest-level{lvl}-masked", lro, lrd, m.scene,
+                             alive)
     w, h = sizes[0]
     for name, text in (("mixed", MIXED_SCENE), ("lights", LIGHTS_SCENE)):
-        sampler_case(Modular(dev, parse_text_scene(text), w, h), name, w, h)
+        m = Modular(dev, parse_text_scene(text), w, h)
+        for b, args in ((0, m.sampler_args), (1, m.sampler_args1)):
+            sampler_case(f"{name}-{w}x{h}:sampler-bounce{b}", args, name == "mixed")
     return errs, cases[main]
 
 
@@ -1019,25 +1167,111 @@ def persistent_rounds(dev, gpu: str, desc) -> None:
         [round(x, 4) for x in live[:used]]).replace(" ", ""))
 
 
-def launch_times(scene, cam, bg, st0, idx, w: int, h: int, m: Modular, k5, reps: int = 20):
+def nearest_fn(m: Modular, ro, rd, live):
+    """A call of K4 on these rays as the package under test takes it: with
+    the scene's records and the live mask where it has them (a tree from
+    before the mask takes neither; ``live`` must then be None)."""
+    from raytracing_course_2024_tpu_torch.ops.dense_nearest import dense_nearest
+
+    if not has_live_mask():
+        if live is not None:
+            raise ValueError("this tree's dense_nearest takes no live mask")
+        return lambda: dense_nearest(ro, rd, m.scene.tri_pack)
+    return lambda: dense_nearest(ro, rd, m.scene.tri_pack, live=live, records=m.scene.tri_rec)
+
+
+def has_live_mask() -> bool:
+    import inspect
+
+    from raytracing_course_2024_tpu_torch.ops.dense_nearest import dense_nearest
+
+    return "live" in inspect.signature(dense_nearest).parameters
+
+
+def modular_times(m: Modular, gpu: str, reps: int, label: str = "timing") -> dict:
+    """K4 and K3 at the main path's lanes on the camera state and on the
+    bounce-1 state, each launch between its own pair of CUDA events while the
+    stream is held (``cuda_ms_each``): K4 without a mask and, where the tree
+    has one, with the state's live mask (on the camera state every lane is
+    live), K3 on the surfaces of both states. ``back_to_back_ms`` is the old
+    reading, one pair of events around all the launches, which the host's
+    cost per call can set. Prints one line per case and returns
+    name -> {"ms", "mean_ms", "min_ms", "max_ms", "gap_ms", "back_to_back_ms"}."""
+    from raytracing_course_2024_tpu_torch.ops.sampler import sample_mixture_kernel
+
+    cases = {}
+    for state, (ro, rd), alive, args in (("camera", (m.ro, m.rd), m.alive, m.sampler_args),
+                                         ("bounce1", m.bounce1, m.alive1, m.sampler_args1)):
+        cases[f"nearest-{state}"] = (nearest_fn(m, ro, rd, None), 1.0)
+        if has_live_mask():
+            cases[f"nearest-{state}-masked"] = (nearest_fn(m, ro, rd, alive),
+                                                float(alive.float().mean()))
+        cases[f"sampler-{state}"] = (lambda args=args: sample_mixture_kernel(*args),
+                                     float(args[10].float().mean()))
+    out = {}
+    for name, (fn, active) in cases.items():
+        stats = {}
+        ms = cuda_ms_each(fn, reps, stats)
+        out[name] = dict(stats, ms=ms, back_to_back_ms=cuda_ms(fn, reps), active_in=active)
+        say(label, separate="modular-kernels", case=name, lanes=m.wid.shape[0],
+            active_in=round(active, 4), ms=round(ms, 4),
+            **{k: round(v, 4) for k, v in stats.items()},
+            back_to_back_ms=round(out[name]["back_to_back_ms"], 4),
+            clocks=f'"{clocks_line()}"', gpu=f'"{gpu}"')
+    return out
+
+
+def modular_levels(m: Modular, gpu: str, reps: int, label: str = "timing") -> None:
+    """K4 and K3 level by level on the states of one sample of the modular
+    main path (``Modular(levels=True)``: roulette on): ms per launch with the
+    level's live mask (where the tree has one) and without, K3 on the level's
+    surfaces, and the sums over the levels, i.e. what one sample of the frame
+    spends in each kernel."""
+    from raytracing_course_2024_tpu_torch.ops.sampler import sample_mixture_kernel
+
+    masked = has_live_mask()
+    total = {"nearest": 0.0, "nearest_no_mask": 0.0, "sampler": 0.0}
+    for lvl, (ro, rd, alive, args) in enumerate(m.levels):
+        plain_ms = cuda_ms_each(nearest_fn(m, ro, rd, None), reps)
+        k4 = cuda_ms_each(nearest_fn(m, ro, rd, alive), reps) if masked else plain_ms
+        k3 = cuda_ms_each(lambda: sample_mixture_kernel(*args), reps) if args else None
+        total["nearest"] += k4
+        total["nearest_no_mask"] += plain_ms
+        total["sampler"] += k3 or 0.0
+        say(label, separate="modular-levels", level=lvl,
+            alive_in=round(float(alive.float().mean()), 4),
+            need_in=round(float(args[10].float().mean()), 4) if args else None,
+            nearest_ms=round(k4, 4), nearest_no_mask_ms=round(plain_ms, 4),
+            sampler_ms=None if k3 is None else round(k3, 4))
+    say(label, separate="modular-levels", levels=len(m.levels),
+        **{f"{k}_ms_per_sample": round(v, 4) for k, v in total.items()}, gpu=f'"{gpu}"')
+
+
+def launch_times(scene, cam, bg, st0, idx, w: int, h: int, m: Modular, k5, reps: int = 20,
+                 gpu: str = "", label: str = "timing"):
     """ms per launch from CUDA events of every kernel at the main path's
     shapes: ``st0`` is the (13, w * h) state after K2, ``m`` the modular
     case, ``k5`` the sticky frame's (inputs, state, arguments) some rounds
     in. K2 writes the state it is handed. K1, K1-final and K5 update their
     state in place on the main path, so they are timed in place, the input
-    put back before every launch outside the timed span. Returns those
-    times and, for the three, the time of reading the input and writing a
-    separate buffer, where a dead lane is copied whole."""
+    put back before every launch outside the timed span. K4 and K3 write
+    fresh outputs and take well under 0.1 ms, less than the host needs to
+    make one call, so each of their launches has its own pair of events and
+    the stream is held while the host enqueues (``modular_times``); their
+    entries are the camera state as the main path launches it (K4 with the
+    live mask where the tree has one). Returns those times, for K1, K1-final
+    and K5 the time of reading the input and writing a separate buffer,
+    where a dead lane is copied whole, and ``modular_times``' cases."""
     from raytracing_course_2024_tpu_torch.ops import bounce as B
-    from raytracing_course_2024_tpu_torch.ops.dense_nearest import dense_nearest
     from raytracing_course_2024_tpu_torch.ops.persistent import persistent_round
-    from raytracing_course_2024_tpu_torch.ops.sampler import sample_mixture_kernel
 
     px, py = (idx % w).float(), (idx // w).float()
     buf = torch.empty_like(st0)
     ins, st5, args5 = k5
     buf5 = torch.empty_like(st5)
     scratch = torch.zeros((2,), dtype=torch.int32, device=st0.device)
+    modular = modular_times(m, gpu, reps, label)
+    k4 = "nearest-camera-masked" if "nearest-camera-masked" in modular else "nearest-camera"
     launch_ms = {
         "primary": cuda_ms(lambda: B.primary_bounce(
             scene, cam, px, py, idx, 0, 1, bg, K, w, h, out=buf), reps),
@@ -1046,8 +1280,8 @@ def launch_times(scene, cam, bg, st0, idx, w: int, h: int, m: Modular, k5, reps:
         "final": cuda_ms_in_place(lambda: B.bounce(
             scene, buf, idx, 0, 1, 1, bg, K, final_only=True, out=buf),
             lambda: buf.copy_(st0), reps),
-        "nearest": cuda_ms(lambda: dense_nearest(m.ro, m.rd, m.scene.tri_pack), reps),
-        "sampler": cuda_ms(lambda: sample_mixture_kernel(*m.sampler_args), reps),
+        "nearest": modular[k4]["ms"],
+        "sampler": modular["sampler-camera"]["ms"],
         "persistent": cuda_ms_in_place(
             lambda: persistent_round(*ins, buf5, scratch, *args5, out=buf5),
             lambda: buf5.copy_(st5), reps),
@@ -1059,7 +1293,7 @@ def launch_times(scene, cam, bg, st0, idx, w: int, h: int, m: Modular, k5, reps:
         "persistent": cuda_ms(
             lambda: persistent_round(*ins, st5, scratch, *args5, out=buf5), reps),
     }
-    return launch_ms, fresh_ms
+    return launch_ms, fresh_ms, modular
 
 
 def phase_timing(dev, gpu: str, counts: dict, errs: dict, m: Modular, k5) -> list:
@@ -1099,16 +1333,17 @@ def phase_timing(dev, gpu: str, counts: dict, errs: dict, m: Modular, k5) -> lis
     # the last state the kernel phase held K5 against
     tri = m.scene.tri_pack
     ins, st5, args5 = k5
-    launch_ms, fresh_ms = launch_times(scene, cam, bg, st0, idx, w, h, m, k5)
+    launch_ms, fresh_ms, modular = launch_times(scene, cam, bg, st0, idx, w, h, m, k5, gpu=gpu)
     separate_k1(dev, gpu, scene, bg, st0, idx)
     persistent_rounds(dev, gpu, desc)
+    modular_levels(m, gpu, 20)
     plain_ms = {
         "primary": cuda_ms(lambda: B.primary_plain(
             scene, cam, px, py, idx, 0, 1, bg, K, w, h), 2),
         "bounce": cuda_ms(lambda: B.bounce_plain(scene, st0, idx, 0, 1, 1, bg, K), 2),
         "final": cuda_ms(lambda: B.bounce_plain(
             scene, st0, idx, 0, 1, 1, bg, K, final_only=True), 2),
-        "nearest": cuda_ms(lambda: dense_nearest_plain(m.ro, m.rd, tri), 2),
+        "nearest": cuda_ms(lambda: dense_nearest_plain(m.ro, m.rd, tri, live=m.alive), 2),
         "sampler": cuda_ms(lambda: sampler_plain(*m.sampler_args), 2),
         "persistent": cuda_ms(lambda: persistent_plain(*ins, st5, *args5), 2),
     }
@@ -1119,9 +1354,18 @@ def phase_timing(dev, gpu: str, counts: dict, errs: dict, m: Modular, k5) -> lis
     # launch that ``ms`` times, lane case by lane case (``bounce_bytes``,
     # ``persistent_bytes``); ``ms_fresh_buffer`` has its own bound beside it.
     # K3 reads the 13 input rows and the work id only where ``need`` holds
-    # (56 B), the need flag everywhere, and writes l, pdf and ok.
+    # (56 B), the need flag everywhere, and writes l, pdf and ok. K4 reads
+    # the live flag and writes t and idx everywhere (9 B), and reads the ray
+    # (24 B) and walks the triangles only where the flag holds.
     alive = float((st0[12] > 0.5).sum())
     need = float(m.need.sum())
+
+    def nearest_bound(live):
+        return bound(n * (1 + 8) + live * 24 + tri.numel() * 4, live * tri.shape[1] * OPS_TRI_K4)
+
+    def sampler_bound(need_n, bounce_i):
+        return bound(n * (1 + 16 + 1) + need_n * (52 + 4) + ltable, sampler_ops(m, bounce_i))
+
     n_geo = scene.geo.shape[1]
     # the scene as the function needs it: the (35, M) table, a spec word per
     # entry, the light table (the kernels' loop records repeat table columns)
@@ -1138,10 +1382,11 @@ def phase_timing(dev, gpu: str, counts: dict, errs: dict, m: Modular, k5) -> lis
     bounds = {k: bound(fused_bytes[k], fused_live[k] * per_live) for k in fused_bytes}
     fresh_bounds = {k: bound(bounce_bytes(n, alive, k == "final", False) + table,
                              alive * per_live) for k in ("bounce", "final")}
-    bounds.update({
-        "nearest": bound(n * (24 + 8) + tri.numel() * 4, n * tri.shape[1] * OPS_TRI_K4),
-        "sampler": bound(n * (1 + 16 + 1) + need * (52 + 4) + ltable, sampler_ops(m)),
-    })
+    bounds.update({"nearest": nearest_bound(float(n)), "sampler": sampler_bound(need, 0)})
+    # the same two on the bounce-1 state: incoherent rays, fewer lanes at work
+    k4_b1 = "nearest-bounce1-masked"
+    bounce1 = {"nearest": (modular[k4_b1], nearest_bound(float(m.alive1.sum()))),
+               "sampler": (modular["sampler-bounce1"], sampler_bound(float(m.need1.sum()), 1))}
     for k in fused_bytes:  # the bound as it was counted while the loop made every normal
         was = bound(fused_bytes[k], fused_live[k] * n_geo * OPS_TRI_FUSED_OLD)
         say("timing", kernel=k, bound_ms=round(bounds[k][0], 5), bound_by=bounds[k][1],
@@ -1156,6 +1401,12 @@ def phase_timing(dev, gpu: str, counts: dict, errs: dict, m: Modular, k5) -> lis
             at["ms_fresh_buffer"] = round(fresh_ms[k], 4)
         if k in fresh_bounds:
             at["bound_ms_fresh_buffer"] = round(fresh_bounds[k][0], 5)
+        if k in bounce1:
+            case, (b_ms, b_by) = bounce1[k]
+            at.update(ms_bounce1=round(case["ms"], 4), active_in_bounce1=round(
+                case["active_in"], 4), bound_ms_bounce1=round(b_ms, 5), bound_by_bounce1=b_by)
+        if k == "nearest":
+            at["ms_no_mask"] = round(modular["nearest-camera"]["ms"], 4)
         say("timing", kernel=k, lanes=n, **at, active_in=round(inputs[k], 4),
             ms=round(launch_ms[k], 4), plain_ms=round(plain_ms[k], 3),
             bound_ms=round(bounds[k][0], 5), bound_by=bounds[k][1], gpu=f'"{gpu}"')
@@ -1166,7 +1417,10 @@ def phase_timing(dev, gpu: str, counts: dict, errs: dict, m: Modular, k5) -> lis
          "plain_ms": plain_ms[k], "bound_ms": bounds[k][0], "bound_by": bounds[k][1],
          "library_ms": None, "tolerance": tol, "lanes": n,
          **({"ms_fresh_buffer": fresh_ms[k]} if k in fresh_ms else {}),
-         **({"bound_ms_fresh_buffer": fresh_bounds[k][0]} if k in fresh_bounds else {})}
+         **({"bound_ms_fresh_buffer": fresh_bounds[k][0]} if k in fresh_bounds else {}),
+         **({"ms_bounce1": bounce1[k][0]["ms"], "bound_ms_bounce1": bounce1[k][1][0],
+             "active_in": inputs[k], "active_in_bounce1": bounce1[k][0]["active_in"]}
+            if k in bounce1 else {})}
         for k in KERNELS
     ]
 
@@ -1180,7 +1434,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     gpu = gpu_line()
     say("device", name=f'"{torch.cuda.get_device_name(0)}"', count=torch.cuda.device_count(),
-        torch=torch.__version__, cuda=torch.version.cuda)
+        torch=torch.__version__, cuda=torch.version.cuda, clocks=f'"{clocks_line()}"')
 
     # 2. build (the package is imported only now: a lone chip_smoke.py fails here)
     from raytracing_course_2024_tpu_torch.ops import kernels

@@ -9,14 +9,19 @@ directory of this script), builds its kernels, and calls the functions of
 the ``chip_smoke.py`` beside this script on scenes/cornell_box.gltf at
 1280x720 x 16 spp (one 921,600-lane batch): ``launch_times`` (ms per launch
 of every kernel, K1, K1-final and K5 in place and into a separate buffer;
-K5 on the sticky frame's state after 10 rounds), K1 level by level on the
-states of one sample (``cuda_ms``, ``cuda_ms_in_place``),
-``persistent_rounds`` (K5 round by round over a sticky frame) and
-``frame_times`` (median host ms of ``--frames`` frames of the batch, sticky
-and wavefront engines, with their path-vertex totals). Prints the card's
-name and power limit, the ptxas lines of the fused kernels and one line per
-number. Two runs are comparable only on one card, one right after the
-other: run parent, change, change, parent.
+K5 on the sticky frame's state after 10 rounds; K4 and K3 on the camera and
+the bounce-1 state, an event pair per launch while the stream is held, K4
+with and without the live mask where the tree has one), ``modular_levels``
+(K4 and K3 level by level on the states of one sample of the modular path),
+K1 level by level on the states of one sample (``cuda_ms``,
+``cuda_ms_in_place``), ``persistent_rounds`` (K5 round by round over a
+sticky frame) and ``frame_times`` (median host ms of ``--frames`` frames of
+the batch engine's fused and modular paths and of the sticky and wavefront
+engines, with their path-vertex totals; ``--frames 0`` leaves the frames and
+the round-by-round pass out). Prints the card's name, power limit and
+clocks, the ptxas lines of the kernels and one line per number. Two runs
+are comparable only on one card, one right after the other: run parent,
+change, change, parent.
 """
 
 from __future__ import annotations
@@ -37,6 +42,8 @@ def main() -> int:
     ap.add_argument("--label", default="change")
     ap.add_argument("--reps", type=int, default=50)
     ap.add_argument("--frames", type=int, default=5)
+    ap.add_argument("--modular-only", action="store_true",
+                    help="K4 and K3 only: both states and level by level")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("kernel_times: no CUDA device", file=sys.stderr)
@@ -53,14 +60,14 @@ def main() -> int:
         CS.say(args.label, **kw)
 
     gpu = CS.gpu_line()
-    say(gpu=f'"{gpu}"', root=root)
+    say(gpu=f'"{gpu}"', clocks=f'"{CS.clocks_line()}"', root=root)
     kernels.library()
     entry = ""
     for ln in kernels.BUILD_INFO["log"].splitlines():
         if "Compiling entry" in ln:
             entry = re.sub(r".*function '([^']*)'.*", r"\1", ln)
         elif re.search(r"Used \d+ registers|spill", ln) and re.search(
-                r"bounce|primary|persistent", entry):
+                r"bounce|primary|persistent|nearest|sampler", entry):
             say(ptxas=entry, line=f'"{ln.split(":", 1)[-1].strip()}"')
 
     dev = torch.device("cuda", 0)
@@ -75,11 +82,17 @@ def main() -> int:
     scratch = torch.zeros((2,), dtype=torch.int32, device=dev)
     for _ in range(CS.K5_CHAIN):
         persistent_round(*ins, st5, scratch, *args5, out=st5)
-    ms, fresh = CS.launch_times(scene, cam, bg, st0, idx, w, h, CS.Modular(dev, desc, w, h),
-                                (ins, st5, args5), args.reps)
+    m = CS.Modular(dev, desc, w, h, levels=True)
+    if args.modular_only:
+        CS.modular_times(m, gpu, args.reps, args.label)
+        CS.modular_levels(m, gpu, args.reps, args.label)
+        return 0
+    ms, fresh, _ = CS.launch_times(scene, cam, bg, st0, idx, w, h, m, (ins, st5, args5),
+                                   args.reps, gpu, args.label)
     for k, v in ms.items():
         say(kernel=k, lanes=w * h, ms=round(v, 4),
             **({"ms_fresh_buffer": round(fresh[k], 4)} if k in fresh else {}))
+    CS.modular_levels(m, gpu, args.reps, args.label)
 
     # K1 level by level on the states of one sample of the batch engine, then
     # K1-final on the last: what each level of the frame costs
@@ -97,10 +110,14 @@ def main() -> int:
             lambda: buf.copy_(st), args.reps)
         say(level=i, final_only=final, alive_in=round(float((st[12] > 0.5).float().mean()), 4),
             ms=round(t_in, 4), ms_fresh_buffer=round(t, 4))
+    if args.frames < 1:
+        return 0
     CS.persistent_rounds(dev, gpu, desc)
     for engine in ("batch", "sticky", "wavefront"):
         CS.frame_times(Renderer(desc, device=dev, engine=engine), f"{args.label}-{engine}", gpu,
                        reps=args.frames)
+    CS.frame_times(Renderer(desc, device=dev, russian_roulette=True),
+                   f"{args.label}-batch-modular-rr", gpu, reps=args.frames)
     return 0
 
 

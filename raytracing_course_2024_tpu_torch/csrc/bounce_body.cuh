@@ -2,8 +2,9 @@
 // (bounce.cu) and the persistent round K5 (persistent.cu), so all three run
 // the same body: the nearest hit over the scene's entries, the BRDF, the
 // bounce itself (emission / background, MIS mixture sampling, BRDF * cos /
-// pdf, the MIRROR / DIELECTRIC rules), the camera ray, the staging of the
-// scene tables in shared memory and the queue of live lanes.
+// pdf, the MIRROR / DIELECTRIC rules), the camera ray and the staging of the
+// scene tables in shared memory. The persistent grid and the queue of live
+// lanes are lane_queue.cuh's, which K3 and K4 walk their batches with too.
 // The plain PyTorch version is ops/bounce.py:_bounce_math. Everything sits in
 // an anonymous namespace, as in common.cuh.
 //
@@ -46,20 +47,16 @@
 #pragma once
 
 #include "common.cuh"
+#include "lane_queue.cuh"
 
 namespace {
 
-// Threads per block, and lanes per tile: a thread owns one lane of a tile.
-// Three blocks stay resident per SM (kMinBlocks holds the register
-// allocation to that). What else was timed on an H100 and ran slower:
-// 128-thread blocks, 512-lane tiles, two or four resident blocks, the
-// intersection loop unrolled by two.
-constexpr int kBlock = 256;
-constexpr int kTile = kBlock;
-constexpr int kWarps = kBlock / 32;
+// Blocks of kBlock threads walk tiles of kTile lanes (lane_queue.cuh). Three
+// blocks stay resident per SM (kMinBlocks holds the register allocation to
+// that). What else was timed on an H100 and ran slower: 128-thread blocks,
+// 512-lane tiles, two or four resident blocks, the intersection loop
+// unrolled by two.
 constexpr int kMinBlocks = 3;
-constexpr unsigned FULL = 0xffffffffu;
-static_assert(kBlock % 32 == 0 && kWarps <= 32, "one warp scans the tile's warp counts");
 
 // The scene tables (device pointers) and the constants of one launch.
 struct SceneArgs {
@@ -363,138 +360,6 @@ __device__ __forceinline__ Tables stage_tables(const SceneArgs& p, bool lights, 
   }
   __syncthreads();
   return Tables{p.geo, sh.rec, p.m, sh.lp, sh.lspec, p.nl, p.num_lights};
-}
-
-// A tile is kTile consecutive lanes; thread t owns lane t of it. The block's
-// queue holds the lanes (indices into the batch) that wait for the body: a
-// tile's flagged lanes are appended in ascending order, and whenever kBlock
-// or more wait, the last kBlock of them are taken, one per thread.
-struct LaneQueue {
-  int lane[kBlock + kTile];
-  int count[kWarps];  // flagged lanes of each warp
-  int ticket[2];      // the block's next ticket, double-buffered
-};
-
-// Appends the flagged lanes of the tile at `base` to the queue, which holds
-// `len` lanes, and returns how many they are. Every thread of the block calls
-// it (two block barriers). A thread reads the queue entry it takes before it
-// runs the body, so the first barrier of the next call also orders those
-// reads before this call's writes.
-__device__ __forceinline__ int push_tile(bool flag, long long base, int len, LaneQueue& q) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const unsigned ballot = __ballot_sync(FULL, flag);
-  if (lane == 0) q.count[warp] = __popc(ballot);
-  __syncthreads();
-  const int mine = lane < kWarps ? q.count[lane] : 0;
-  int incl = mine;
-#pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    const int below = __shfl_up_sync(FULL, incl, d);
-    if (lane >= d) incl += below;
-  }
-  const int first = __shfl_sync(FULL, incl - mine, warp);
-  if (flag)
-    q.lane[len + first + __popc(ballot & ((1u << lane) - 1u))] = (int)(base + threadIdx.x);
-  const int n = __shfl_sync(FULL, incl, 31);
-  __syncthreads();
-  return n;
-}
-
-// Sum of `v` over the block, in thread 0 (one block barrier).
-__device__ __forceinline__ int block_sum(int v, int* red) {
-  v = __reduce_add_sync(FULL, v);
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  int total = 0;
-  if (threadIdx.x == 0)
-    for (int w = 0; w < kWarps; ++w) total += red[w];
-  return total;
-}
-
-// The walk K1 and K5 share. The block takes tiles of the batch's `b` lanes
-// until none is left. Of each tile every thread asks `flag(i)` of its own
-// lanes (is there a body to run for lane i; false beyond b), gives an
-// unflagged lane its `idle(i)` at once, and the flagged lanes go through the
-// queue to `run(i)`, so every pass over the body but the block's last runs
-// with all threads busy, however few of a tile's lanes are live. `run` is
-// called from one place only: the body is some thousand instructions, and a
-// second copy of it in the loop cost more in instruction fetch than the walk
-// saved. The two barriers per tile also keep the block's warps in step
-// through that code; warps that walked on their own, without barriers,
-// drifted apart and ran slower.
-//
-// The block's first tile is its own index. The others are handed out in
-// order by a counter in device memory: ticket t = atomicAdd(tick[0]) is tile
-// gridDim.x + t, so a block that drew cheap tiles (dead lanes) takes more of
-// them and the blocks end together; a fixed tile-to-block map left some
-// blocks a third more live lanes than others. Thread 0 draws a ticket one
-// tile before the block needs it, so the atomic is in flight while the body
-// runs, and the next tile's flags are read before the body too. tick[1]
-// counts the blocks that are done: the last one sets both back to 0 for the
-// next launch on the stream. Returns how many of this thread's own lanes were
-// flagged. Every thread of the block must call it.
-template <class Flag, class Idle, class Run>
-__device__ __forceinline__ int walk_tiles(long long b, int* tick, LaneQueue& q, Flag flag,
-                                          Idle idle, Run run) {
-  const long long n_tiles = (b + kTile - 1) / kTile;
-  int slot = 0, waiting = 0, flagged = 0;
-  long long tile = blockIdx.x;
-  int drawn = 0;  // thread 0: the ticket of the tile after `tile`
-  if (threadIdx.x == 0 && tile < n_tiles) drawn = atomicAdd(&tick[0], 1);
-  bool next = flag(tile * kTile + threadIdx.x);
-  for (;;) {
-    if (tile < n_tiles && waiting < kBlock) {
-      const long long i = tile * kTile + threadIdx.x;
-      const bool cur = next;
-      flagged += cur;
-      if (threadIdx.x == 0) q.ticket[slot] = drawn;
-      waiting += push_tile(cur, tile * kTile, waiting, q);
-      tile = (long long)gridDim.x + q.ticket[slot];
-      slot ^= 1;  // a thread still reading this ticket is not overtaken by the next
-      if (threadIdx.x == 0 && tile < n_tiles) drawn = atomicAdd(&tick[0], 1);
-      next = flag(tile * kTile + threadIdx.x);
-      if (i < b && !cur) idle(i);
-    }
-    const int take = waiting >= kBlock ? kBlock : (tile >= n_tiles ? waiting : 0);
-    if (take > 0) {
-      waiting -= take;
-      if ((int)threadIdx.x < take) run(q.lane[waiting + threadIdx.x]);
-    } else if (tile >= n_tiles) {
-      break;
-    }
-  }
-  if (threadIdx.x == 0 && atomicAdd(&tick[1], 1) == (int)gridDim.x - 1) {
-    tick[0] = 0;
-    tick[1] = 0;
-    __threadfence();
-  }
-  return flagged;
-}
-
-// Resident blocks per SM of a kernel at kBlock threads, and the card's SMs.
-template <typename Kernel>
-int resident_blocks(Kernel kernel) {
-  int per_sm = 0;
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kBlock, 0);
-  return per_sm;
-}
-
-int sm_count() {
-  int dev = 0, sms = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  return sms;
-}
-
-// Blocks to launch when `wanted` blocks would cover the batch once: what the
-// current device holds at once (its SMs x the kernel's resident blocks), or
-// fewer when fewer do. Asked of the runtime at every launch (two attribute
-// reads, no device work), so the answer is always the current device's.
-template <typename Kernel>
-unsigned grid_for(Kernel kernel, long long wanted) {
-  const int sms = sm_count(), per_sm = resident_blocks(kernel);
-  const long long held = (long long)(sms > 0 ? sms : 1) * (per_sm > 0 ? per_sm : 1);
-  return (unsigned)(wanted < held ? wanted : held);
 }
 
 // Jittered pinhole ray through pixel (px, py): ops/camera.py generate_rays_u.

@@ -1,6 +1,6 @@
 // Device code shared by the fused bounce (bounce.cu, K1/K2), the persistent
-// round (persistent.cu, K5) and the standalone mixture sampler (sampler.cu,
-// K3): table layouts, 3-vector and quaternion math, the counter RNG and its
+// round (persistent.cu, K5), the standalone mixture sampler (sampler.cu, K3)
+// and the dense nearest hit (dense_nearest.cu, K4): table layouts, 3-vector and quaternion math, the counter RNG and its
 // draw layouts, the three direction samplers, their pdfs and the MIS
 // mixture stage. K1, K5 and K3 therefore run the same sampler code, and all
 // match the plain PyTorch versions in ops/sampling.py and
@@ -15,7 +15,6 @@
 
 namespace {
 
-constexpr int kThreads = 256;
 constexpr int C_GEO = 35;
 constexpr int MAX_PRIMS = 128;
 constexpr int MAX_LIGHTS = 32;

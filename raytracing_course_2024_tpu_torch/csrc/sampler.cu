@@ -20,23 +20,41 @@
 //   of ops/rng.py, so kernel and plain version see the same numbers and the
 //   result does not depend on the lane count.
 // * The light table (18 x L <= 32) and its spec are staged in shared memory
-//   per block; the TPU kernel took them as a VMEM block.
+//   once per block; the TPU kernel took them as a VMEM block.
 // * A lane whose `need` flag is 0 (dead, or a MIRROR/DIELECTRIC hit) skips
 //   the work and writes l = (0, 0, 1), pdf = 1e-9, ok = 0. The JAX API masks
 //   ok with need as well, so only l and pdf of those lanes differ from the
 //   plain version, and no caller reads them.
-// * 256-thread blocks with a bounds check, no padding.
+// * No padding to a block multiple.
 //
-// What bounds it on an H100: per lane 52 B of inputs, a 4 B work id and a
-// 1 B need flag in, 16 B + 1 B out (74 B), against a few hundred flops per
-// candidate plus the light pdf over every light: fp32 throughput, divergence on
-// the component branch and latency bound it rather than HBM.
+// What bounds it on an H100: per lane that samples 52 B of inputs and a 4 B
+// work id, per lane a 1 B need flag in and 16 B + 1 B out, against a few
+// hundred fp32 operations per candidate plus the mixture pdf with the light
+// pdf over every light (about 70 % of a Cornell lane's operations), most of
+// them in long dependent chains of IEEE divisions and square roots at 32
+// warps per SM: latency and the instruction rate bound it, not HBM.
+// What the design does about it:
+// * The lanes that sample are ranked into full passes, a chunk of kChunk
+//   tiles at a time (lane_queue.cuh:walk_chunk): deep in a frame they are
+//   scattered among dead ones, and with a thread per lane a warp ran the
+//   sampler for a few of its lanes. A lane without `need` gets its stores
+//   from the thread that owns it. On camera rays, where the lanes that
+//   sample are whole image rows, the ranking would give nothing: the walk
+//   finds that out with one vote and runs a thread per lane.
+// * One block per chunk, not a persistent grid, as for K4
+//   (dense_nearest.cu). Timed on an H100 and left out, none of them faster:
+//   a triangle light's edges and normal computed once per block, a queue per
+//   warp, the block's lanes regrouped by sampler component between the
+//   tries, the lanes refused by the first try ranked again (PERF.md has the
+//   numbers).
 
 #include "common.cuh"
+#include "lane_queue.cuh"
 
 namespace {
 
 constexpr int N_IN = 13;  // point3, n_geom3, n_shade3, v3, roughness
+constexpr int kChunk = 1;  // tiles of a block's chunk (lane_queue.cuh:walk_chunk)
 
 struct SamplerParams {
   const float* in[N_IN];
@@ -48,37 +66,45 @@ struct SamplerParams {
   const int* lspec;  // (nl,)
   int nl, num_lights, max_tries;
   long long b;
-  float* out;    // (4, b): l.x, l.y, l.z, pdf
-  uint8_t* ok;   // (b,) bool
+  float* out;   // (4, b): l.x, l.y, l.z, pdf
+  uint8_t* ok;  // (b,) bool
 };
 
-__global__ void __launch_bounds__(kThreads) sampler_kernel(SamplerParams p) {
-  __shared__ float lp_s[LC_COUNT * MAX_LIGHTS];
-  __shared__ int lspec_s[MAX_LIGHTS];
-  for (int k = threadIdx.x; k < LC_COUNT * p.nl; k += blockDim.x) lp_s[k] = p.lp[k];
-  for (int k = threadIdx.x; k < p.nl; k += blockDim.x) lspec_s[k] = p.lspec[k];
-  __syncthreads();
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= p.b) return;
+__device__ __forceinline__ void store_lane(const SamplerParams& p, long long i, V3 l, float pdf,
+                                           bool ok) {
   const long long b = p.b;
-  V3 l = mk(0.0f, 0.0f, 1.0f);
-  float pdf = SAFE;
-  bool ok = false;
-  if (p.need[i]) {
-    const Tables T{nullptr, nullptr, 0, lp_s, lspec_s, p.nl, p.num_lights};
-    const V3 point = mk(p.in[0][i], p.in[1][i], p.in[2][i]);
-    const V3 n = mk(p.in[3][i], p.in[4][i], p.in[5][i]);
-    const V3 ns = mk(p.in[6][i], p.in[7][i], p.in[8][i]);
-    const V3 v = mk(p.in[9][i], p.in[10][i], p.in[11][i]);
-    const float roughness = p.in[12][i];
-    const uint32_t key = work_key(p.seed, (uint32_t)p.wid[i] + p.wid_off);
-    mixture(T, key, p.ctr, p.max_tries, point, n, ns, v, roughness, l, pdf, ok);
-  }
   p.out[0 * b + i] = l.x;
   p.out[1 * b + i] = l.y;
   p.out[2 * b + i] = l.z;
   p.out[3 * b + i] = pdf;
   p.ok[i] = ok ? 1 : 0;
+}
+
+__global__ void __launch_bounds__(kBlock) sampler_kernel(SamplerParams p) {
+  __shared__ float lp_s[LC_COUNT * MAX_LIGHTS];
+  __shared__ int lspec_s[MAX_LIGHTS];
+  __shared__ ChunkQueueT<kChunk> queue;
+  // walk_chunk's first barrier comes before any `run`: it orders the staging
+  for (int k = threadIdx.x; k < LC_COUNT * p.nl; k += blockDim.x) lp_s[k] = p.lp[k];
+  for (int k = threadIdx.x; k < p.nl; k += blockDim.x) lspec_s[k] = p.lspec[k];
+  const Tables T{nullptr, nullptr, 0, lp_s, lspec_s, p.nl, p.num_lights};
+  const long long b = p.b;
+  walk_chunk<kChunk, 1, true>(
+      b, queue, [&](long long i) { return i < b && p.need[i] != 0; },
+      [&](long long i) { store_lane(p, i, mk(0.0f, 0.0f, 1.0f), SAFE, false); },
+      [&](long long i) {
+        const V3 point = mk(p.in[0][i], p.in[1][i], p.in[2][i]);
+        const V3 n = mk(p.in[3][i], p.in[4][i], p.in[5][i]);
+        const V3 ns = mk(p.in[6][i], p.in[7][i], p.in[8][i]);
+        const V3 v = mk(p.in[9][i], p.in[10][i], p.in[11][i]);
+        const float roughness = p.in[12][i];
+        const uint32_t key = work_key(p.seed, (uint32_t)p.wid[i] + p.wid_off);
+        V3 l;
+        float pdf;
+        bool ok;
+        mixture(T, key, p.ctr, p.max_tries, point, n, ns, v, roughness, l, pdf, ok);
+        store_lane(p, i, l, pdf, ok);
+      });
 }
 
 }  // namespace
@@ -92,7 +118,7 @@ extern "C" int rt_launch_sampler(const void* const* ins, const void* need, const
                                  const void* lp, const void* lspec, int nl, int num_lights,
                                  int max_tries, long long b, void* out, void* ok,
                                  void* stream) {
-  if (b < 0 || nl < 1 || nl > MAX_LIGHTS || num_lights < 0 || num_lights > nl ||
+  if (b < 0 || b > 0x7fffffffLL || nl < 1 || nl > MAX_LIGHTS || num_lights < 0 || num_lights > nl ||
       max_tries < 1)
     return (int)cudaErrorInvalidValue;
   if (b == 0) return 0;
@@ -111,7 +137,9 @@ extern "C" int rt_launch_sampler(const void* const* ins, const void* need, const
   p.b = b;
   p.out = static_cast<float*>(out);
   p.ok = static_cast<uint8_t*>(ok);
-  const unsigned grid = (unsigned)((b + kThreads - 1) / kThreads);
-  sampler_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(p);
+  sampler_kernel<<<chunk_grid<kChunk>(b), kBlock, 0, static_cast<cudaStream_t>(stream)>>>(p);
   return (int)cudaGetLastError();
 }
+
+// Resident blocks per SM of sampler_kernel on the current device.
+extern "C" int rt_sampler_resident_blocks() { return resident_blocks(sampler_kernel); }

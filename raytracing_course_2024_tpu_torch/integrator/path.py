@@ -155,8 +155,10 @@ class PathState(NamedTuple):
 
 def _collect_hit(state: PathState, scene: ModularScene, cfg: TraceConfig,
                  plain: bool = False):
-    """Intersect + accumulate emission/background. Returns (state', surf, hit)."""
-    hit = nearest_hit_dense(state.ro, state.rd, scene, plain=plain)
+    """Intersect + accumulate emission/background. Returns (state', surf, hit).
+    The hit is asked for live paths only (K4 walks no triangle for a dead
+    lane); on a dead lane ``hit`` and ``surf`` hold no hit and are not read."""
+    hit = nearest_hit_dense(state.ro, state.rd, scene, plain=plain, live=state.alive)
     surf = surface_detail(state.ro, state.rd, hit, scene)
     zero = state.ro.x * 0.0
     bg = Vec3(zero + cfg.bg_color[0], zero + cfg.bg_color[1], zero + cfg.bg_color[2])

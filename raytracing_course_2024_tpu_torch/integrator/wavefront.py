@@ -118,7 +118,7 @@ def _make_bounce_core(cfg: TraceConfig, scene, seed: int, plain: bool = False):
         ro, rd = Vec3(s[0], s[1], s[2]), Vec3(s[3], s[4], s[5])
         thr, rad = Vec3(s[6], s[7], s[8]), Vec3(s[9], s[10], s[11])
         alive = s[12] > 0.5
-        hit = nearest_hit_dense(ro, rd, scene, plain=plain)
+        hit = nearest_hit_dense(ro, rd, scene, plain=plain, live=alive)
         surf = surface_detail(ro, rd, hit, scene)
         zero = ro.x * 0.0
         bgv = Vec3(zero + bg[0], zero + bg[1], zero + bg[2])

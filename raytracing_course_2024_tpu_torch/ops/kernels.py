@@ -140,7 +140,7 @@ def library() -> ctypes.CDLL:
             p, p, p, i, i, p, ll, p, u, u, *ctr, *scene, p,
         ]
         lib.rt_launch_primary.restype = i
-        lib.rt_launch_dense_nearest.argtypes = [p, p, i, ll, f, p, p, p]
+        lib.rt_launch_dense_nearest.argtypes = [p, p, i, ll, f, p, p, p, p]
         lib.rt_launch_dense_nearest.restype = i
         lib.rt_launch_sampler.argtypes = [
             p, p, p, u, u, *ctr, p, p, i, i, i, ll, p, p, p,
@@ -154,6 +154,10 @@ def library() -> ctypes.CDLL:
         lib.rt_bounce_geometry.restype = None
         lib.rt_persistent_resident_blocks.argtypes = []
         lib.rt_persistent_resident_blocks.restype = i
+        lib.rt_dense_nearest_geometry.argtypes = [ctypes.POINTER(ctypes.c_int)]
+        lib.rt_dense_nearest_geometry.restype = None
+        lib.rt_sampler_resident_blocks.argtypes = []
+        lib.rt_sampler_resident_blocks.restype = i
         _LIB = lib
     return _LIB
 
@@ -190,7 +194,7 @@ _TICKETS: dict = {}
 
 def _tickets(device, stream: int) -> torch.Tensor:
     """The two int32 with which K1 and K5 hand out their tiles
-    (``csrc/bounce_body.cuh:walk_tiles``): zero between launches, one pair
+    (``csrc/lane_queue.cuh:walk_tiles``): zero between launches, one pair
     per device and stream, since launches on one stream run in order."""
     key = (device, stream)
     if key not in _TICKETS:
@@ -199,16 +203,22 @@ def _tickets(device, stream: int) -> torch.Tensor:
 
 
 def launch_geometry() -> dict:
-    """How the bounce kernels and the persistent round are launched on the
-    current device: its SMs, threads per block, lanes per tile, and each
-    kernel's resident blocks per SM (the grid is SMs x resident blocks, or
-    the number of tiles when that is smaller)."""
+    """How the kernels are launched on the current device: its SMs, threads
+    per block, lanes per tile, K4's rays per thread and tiles per chunk, and
+    each kernel's resident blocks per SM (the grid of K1, K2 and K5 is SMs x
+    resident blocks, or the number of tiles when that is smaller; K3 and K4
+    launch one block per chunk)."""
     lib = library()
     out = (ctypes.c_int * 6)()
     lib.rt_bounce_geometry(out)
-    return {"sms": out[0], "block": out[1], "tile": out[2],
+    k4 = (ctypes.c_int * 3)()
+    lib.rt_dense_nearest_geometry(k4)
+    return {"sms": out[0], "block": out[1], "tile": out[2], "nearest_rays_per_thread": k4[0],
+            "nearest_tiles_per_chunk": k4[1],
             "resident_blocks": {"bounce": out[3], "final": out[4], "primary": out[5],
-                                "persistent": lib.rt_persistent_resident_blocks()}}
+                                "persistent": lib.rt_persistent_resident_blocks(),
+                                "nearest": k4[2],
+                                "sampler": lib.rt_sampler_resident_blocks()}}
 
 
 def launch_bounce(scene, state, out, wid, wid_off, seed, ctr, depth, ctr_stride, bg,
@@ -259,12 +269,12 @@ def _ptrs(tensors) -> ctypes.Array:
     return (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors))
 
 
-def launch_dense_nearest(rays, tri, tmin, t_out, i_out) -> None:
+def launch_dense_nearest(rays, records, tmin, live, t_out, i_out) -> None:
     lib = library()
     stream = torch.cuda.current_stream(t_out.device).cuda_stream
     rc = lib.rt_launch_dense_nearest(
-        _ptrs(rays), tri.data_ptr(), tri.shape[1], t_out.shape[0], float(tmin),
-        t_out.data_ptr(), i_out.data_ptr(), stream,
+        _ptrs(rays), records.data_ptr(), records.shape[0], t_out.shape[0], float(tmin),
+        None if live is None else live.data_ptr(), t_out.data_ptr(), i_out.data_ptr(), stream,
     )
     _raise_on(rc, "rt_launch_dense_nearest")
 

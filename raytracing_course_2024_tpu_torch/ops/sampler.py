@@ -16,9 +16,10 @@ the fused bounce (K1, same counters at the same bounce) see the same draws.
 ``sampler_plain`` is the JAX package's XLA ``sample_mixture`` fed those
 draws as its 7 candidate-major rows (``ops/sampling.py``). ``ok`` is
 masked with ``need`` on both routes. Where ``ok`` is False, l and pdf are
-undefined and no caller reads them: the kernel skips lanes whose ``need``
-is False and writes l = (0, 0, 1) for lanes with no accepted candidate,
-where the XLA formulation returns l = 0.
+undefined and no caller reads them: the kernel ranks the lanes whose
+``need`` holds into full passes and runs the sampler for those alone, and
+writes l = (0, 0, 1) for lanes with no accepted candidate, where the XLA
+formulation returns l = 0.
 
 ``sample_mixture_kernel`` runs the plain version only for tensors on the
 CPU; on a CUDA tensor it launches ``csrc/sampler.cu`` or raises, and

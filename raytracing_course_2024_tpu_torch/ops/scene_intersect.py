@@ -31,7 +31,7 @@ from ..scene.types import (
     SceneArrays,
     SceneStatics,
 )
-from .dense_nearest import dense_nearest, dense_nearest_plain
+from .dense_nearest import build_tri_records, dense_nearest, dense_nearest_plain
 from .gather import take_packed
 from .intersect import (
     INF,
@@ -52,10 +52,11 @@ SWEEP_ELEMS = 1 << 26  # lanes x primitives per sweep step (256 MB per f32 temp)
 
 class ModularScene(NamedTuple):
     """What the modular dense path reads, on one device: the transposed
-    attribute packs of ``SceneArrays``, the (9, N) triangle pack of K4 (None
-    unless the scene is at most 128 triangles), the light spec K3 reads, and
-    ``lp_np``, the host copy of the light pack the plain sampler takes its
-    per-light constants from."""
+    attribute packs of ``SceneArrays``, the (9, N) triangle pack of K4 and
+    the (N, 12) records its loop reads (both None unless the scene is at
+    most 128 triangles), the light spec K3 reads, and ``lp_np``, the host
+    copy of the light pack the plain sampler takes its per-light constants
+    from."""
 
     statics: SceneStatics
     packed: torch.Tensor  # (PrimCol.COUNT, N) f32
@@ -64,6 +65,7 @@ class ModularScene(NamedTuple):
     light_packed: torch.Tensor  # (LightCol.COUNT, L) f32
     lspec: torch.Tensor  # (L,) i32: light ptype | rotated << 2
     tri_pack: torch.Tensor | None  # (9, N) f32
+    tri_rec: torch.Tensor | None  # (N, 12) f32: build_tri_records(tri_pack)
     lp_np: np.ndarray
 
 
@@ -87,6 +89,7 @@ def modular_scene(scn: SceneArrays, statics: SceneStatics,
         light_packed=dev(lp_np),
         lspec=torch.tensor(lspec, dtype=torch.int32, device=device),
         tri_pack=None if scn.tri_pack is None else dev(scn.tri_pack),
+        tri_rec=None if scn.tri_pack is None else dev(build_tri_records(scn.tri_pack)),
         lp_np=lp_np,
     )
 
@@ -192,13 +195,22 @@ def _sweep(ro: Vec3, rd: Vec3, packed: torch.Tensor, statics: SceneStatics,
 
 
 def nearest_hit_dense(ro: Vec3, rd: Vec3, scene: ModularScene, tmin=0.0,
-                      plain: bool = False) -> SceneHit:
+                      plain: bool = False,
+                      live: torch.Tensor | None = None) -> SceneHit:
     """Brute-force nearest hit over the finite table + planes. ``plain``
-    runs K4's plain version in place of the kernel (on any device)."""
+    runs K4's plain version in place of the kernel (on any device).
+
+    ``live`` (optional (B,) bool) names the lanes whose hit the caller will
+    read. K4 gives the others the miss ``(inf, 0)`` without walking the
+    triangles; the sweep and the plane fold ignore the mask, so a masked
+    lane's hit is unspecified and must not be read."""
     statics = scene.statics
     if scene.tri_pack is not None:
-        nearest = dense_nearest_plain if plain else dense_nearest
-        best_t, best_idx = nearest(ro, rd, scene.tri_pack, tmin)
+        if plain:
+            best_t, best_idx = dense_nearest_plain(ro, rd, scene.tri_pack, tmin, live)
+        else:
+            best_t, best_idx = dense_nearest(ro, rd, scene.tri_pack, tmin, live,
+                                             records=scene.tri_rec)
     else:
         b = ro.x.shape[0]
         lanes = max(1, SWEEP_ELEMS // min(scene.packed.shape[1], DENSE_CHUNK))
