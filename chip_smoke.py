@@ -54,6 +54,10 @@ exits non-zero):
                K5 against plain; a 1281-primitive mesh (K3 + the chunked
                sweep) at 4 spp against its plain version, with its peak
                memory (the render's own, over what the script already held);
+               the 5,120-triangle BVH scene at 4 spp, K6 against the sweep,
+               on the batch engine and the counter wavefront; a single
+               ellipsoid and a lone emitter, kernels against plain, on the
+               dense and the BVH backend;
 6. timing   -- kernel against plain once more at the main path's shapes
                (921,600 lanes); medians of 3 frames (fused kernels,
                modular kernels with roulette, sticky and counter wavefront
@@ -71,7 +75,13 @@ exits non-zero):
                the front, with every lane alive, and with every lane alive
                and sorted by the sampler component of its first try; K5
                round by round over a whole sticky frame (ms and live share
-               of each round).
+               of each round); the BVH frame (81,920 smooth-shaded
+               triangles, two rotated boxes, a rotated ellipsoid, a ground
+               plane, a triangle light; 1280x720 x 16 spp, depth 4) on each
+               engine, the counter wavefront's frame twice from one seed
+               (equal bit for bit), K6 per launch on its 921,600 camera and
+               bounce-1 rays with its bound from the walk model's node and
+               primitive counts over 4,096 of them, and the sweep once.
 
 The last lines are the card's name and power limit, the per-kernel JSON
 record and ``{"ok": true, "device": {...}}``.
@@ -196,6 +206,24 @@ POSITION 0 -1 0
 COLOR 0.7 0.5 0.3
 """
 
+# degenerate scenes (tests/test_edge_cases.py): one diffuse ellipsoid, and
+# a lone emitter with nothing else to hit
+EDGE_SCENES = {name: """
+DIMENSIONS 16 12
+RAY_DEPTH {depth}
+SAMPLES 4
+BG_COLOR 0.25 0.5 0.75
+CAMERA_POSITION 0 0 5
+CAMERA_FORWARD 0 0 -1
+CAMERA_FOV_X 1.0
+NEW_PRIMITIVE
+ELLIPSOID {radius}
+POSITION 0 0 0
+{material}
+""".format(**kw) for name, kw in (
+    ("single-ellipsoid", dict(depth=2, radius="1 1 1", material="COLOR 0.9 0.1 0.1")),
+    ("light-only", dict(depth=4, radius="0.5 0.5 0.5", material="EMISSION 7 7 7")))}
+
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CORNELL = os.path.join(ROOT, "scenes", "cornell_box.gltf")
 TPU_OPS = "raytracing_course_2024_tpu/ops"
@@ -207,6 +235,8 @@ KERNELS = {  # name -> (replaced TPU kernel body file:line, CUDA source)
     "nearest": (f"{TPU_OPS}/pallas_intersect.py:33", f"{CSRC}/dense_nearest.cu"),
     "sampler": (f"{TPU_OPS}/pallas_sampling.py:97", f"{CSRC}/sampler.cu"),
     "persistent": (f"{TPU_OPS}/pallas_bounce.py:651", f"{CSRC}/persistent.cu"),
+    # K6 has no Pallas source: the JAX package walks its BVH in XLA
+    "bvh": (f"{TPU_OPS}/treelet.py:175", f"{CSRC}/bvh_traverse.cu"),
 }
 MODULAR = ("nearest", "sampler")  # launched on the modular main path only
 SEED = 20240917
@@ -615,7 +645,8 @@ class Modular:
         from raytracing_course_2024_tpu_torch.ops import rng
         from raytracing_course_2024_tpu_torch.ops.camera import camera_arrays, generate_rays_u
         from raytracing_course_2024_tpu_torch.ops.scene_intersect import (
-            modular_scene, nearest_hit_dense, surface_detail)
+            modular_scene, surface_detail)
+        from raytracing_course_2024_tpu_torch.ops.traverse import nearest_hit
         from raytracing_course_2024_tpu_torch.ops.vec import Vec3
         from raytracing_course_2024_tpu_torch.scene import build_scene_arrays
         from raytracing_course_2024_tpu_torch.scene.types import DIELECTRIC, MIRROR
@@ -632,7 +663,7 @@ class Modular:
             rng.uniform_ctr(self.key, rng.CTR_JITTER), rng.uniform_ctr(self.key, rng.CTR_JITTER + 1))
 
         def sampler_inputs(ro, rd, alive, bounce_i):
-            hit = nearest_hit_dense(ro, rd, self.scene, plain=True)
+            hit = nearest_hit(ro, rd, self.scene, plain=True)
             surf = surface_detail(ro, rd, hit, self.scene)
             is_delta = (surf.mkind == MIRROR) | (surf.mkind == DIELECTRIC)
             need = alive & hit.valid & ~is_delta
@@ -820,6 +851,142 @@ def phase_kernels_modular(dev, sizes=LANES) -> tuple:
     return errs, cases[main]
 
 
+def bvh_state(r, n: int, plain: bool) -> dict:
+    """``n`` lanes of the Renderer ``r``'s frame (BVH backend), pixels spread
+    evenly over the frame: the camera rays of sample 0, and the rays and live
+    mask of bounce 1 after one modular bounce (K6 and K3, or with ``plain``
+    their plain versions)."""
+    from raytracing_course_2024_tpu_torch.integrator import path as P
+    from raytracing_course_2024_tpu_torch.ops import rng
+    from raytracing_course_2024_tpu_torch.ops.camera import generate_rays_u
+    from raytracing_course_2024_tpu_torch.ops.vec import Vec3
+
+    w, h = r.settings.width, r.settings.height
+    pix = (torch.arange(n, device=r.device, dtype=torch.int64) * (w * h)) // n
+    key = rng.work_key(SEED, pix)
+    ro, rd = generate_rays_u(r.cam, (pix % w).float(), (pix // w).float(), w, h,
+                             rng.uniform_ctr(key, rng.CTR_JITTER),
+                             rng.uniform_ctr(key, rng.CTR_JITTER + 1))
+    zero = ro.x * 0.0
+    one = zero + 1.0
+    st = P.PathState(ro, rd, Vec3(one, one, one), Vec3(zero, zero, zero), zero < 1.0)
+    st = P._bounce(st, r.scene, r.cfg, SEED, pix.to(torch.int32), 0, key, 0, plain=plain)
+    return {"camera": (ro, rd, zero < 1.0), "bounce1": (st.ro, st.rd, st.alive)}
+
+
+def bvh_case(what: str, ro, rd, scene, live, plain_hit) -> float:
+    """K6 against its plain version on one set of rays, with or without a
+    live mask. ``plain_hit`` is the plain version's unmasked (t, row) on
+    these rays (the sweep; its masked answer is the miss on masked lanes).
+    ``t`` and the hit/miss flag must be equal on every lane; the row may
+    differ only where the two rows give the same t (a tie), on under 0.1 %
+    of the lanes; masked lanes must be exactly (inf, 0). Returns the largest
+    absolute error of t."""
+    from raytracing_course_2024_tpu_torch.ops.scene_intersect import _prim_ts, prim_ref_from_table
+    from raytracing_course_2024_tpu_torch.ops.traverse import bvh_nearest
+    from raytracing_course_2024_tpu_torch.ops.vec import Vec3
+
+    tk, ik = bvh_nearest(ro, rd, scene, live=live)
+    tp, ip = plain_hit
+    if live is not None:
+        tp, ip = torch.where(live, tp, float("inf")), torch.where(live, ip, 0)
+    torch.cuda.synchronize()
+    n = tk.shape[0]
+    res = compare_rows([tk], [tp], torch.isfinite(tk), torch.isfinite(tp), what)
+    differ = torch.nonzero(ik != ip).squeeze(1)
+    # a row that differs must be a tie: the kernel's row gives the same t
+    t_k_row = _prim_ts(Vec3(*(c[differ] for c in ro)), Vec3(*(c[differ] for c in rd)),
+                       prim_ref_from_table(scene.packed, ik[differ].long()), scene.statics, 0.0)
+    off = torch.zeros_like(ik, dtype=torch.bool) if live is None else ~live
+    exact = dict(t_equal=bool(torch.equal(tk, tp)),
+                 valid_equal=bool(torch.equal(torch.isfinite(tk), torch.isfinite(tp))),
+                 ties=int(differ.numel()), not_ties=int((t_k_row != tp[differ]).sum()),
+                 masked_are_misses=bool(torch.isinf(tk[off]).all() and (ik[off] == 0).all()),
+                 live_frac=round(1.0 - off.float().mean().item(), 4), lanes=n)
+    check(exact, what + "-exact", exact["t_equal"] and exact["valid_equal"]
+          and exact["not_ties"] == 0 and exact["ties"] < (1.0 - LANE_FRAC) * n
+          and exact["masked_are_misses"])
+    return res["max_abs_err"]
+
+
+def soup_desc(gen: np.random.Generator, n: int):
+    """``n`` primitives with mixed shapes in [-6, 6]^3: rotated boxes,
+    rotated ellipsoids and triangles in turn (the BVH's mixed-shape leaves,
+    as tests/test_bvh.py:test_bvh_mixed_shapes)."""
+    from raytracing_course_2024_tpu_torch.scene.types import (
+        BOX, ELLIPSOID, TRI, CameraDesc, PrimitiveDesc, RenderSettings, SceneDesc)
+
+    prims = []
+    for i in range(n):
+        pos = gen.uniform(-6, 6, 3)
+        if i % 3 == 2:
+            prims.append(PrimitiveDesc(ptype=TRI, p0=pos, p1=pos + gen.normal(0, 0.6, 3),
+                                       p2=pos + gen.normal(0, 0.6, 3), color=np.ones(3)))
+            continue
+        q = gen.normal(size=4)
+        prims.append(PrimitiveDesc(ptype=(BOX, ELLIPSOID)[i % 3], p0=gen.uniform(0.2, 1.0, 3),
+                                   position=pos, rotation=q / np.linalg.norm(q),
+                                   color=np.ones(3)))
+    cam = CameraDesc(position=np.zeros(3), right=np.array([1.0, 0, 0]),
+                     up=np.array([0, 1.0, 0]), forward=np.array([0, 0, -1.0]), fov_x=1.0,
+                     fov_y=1.0)
+    return SceneDesc(settings=RenderSettings(width=8, height=8, samples=1, ray_depth=2,
+                                             bg_color=(0.0, 0.0, 0.0), camera=cam),
+                     primitives=prims, planes=[])
+
+
+BVH_RAYS = 65_536  # K6 against the sweep: lanes per case
+
+
+def phase_kernels_bvh(dev) -> float:
+    """K6 against its plain version (the sweep over the whole table) on the
+    81,920-triangle BVH scene: camera rays and bounce-1 rays (after one
+    plain modular bounce) of 65,536 pixels spread over the 1280x720 frame,
+    with and without the live mask; a lane count that is no multiple of the
+    tile, whole dead warps and tiles, every lane masked; and a 600-primitive
+    soup of rotated boxes, rotated ellipsoids and triangles on random rays.
+    Returns the largest absolute error of t."""
+    from raytracing_course_2024_tpu_torch.ops.traverse import bvh_nearest_plain
+    from raytracing_course_2024_tpu_torch.ops.vec import Vec3
+    from raytracing_course_2024_tpu_torch.runtime.render import Renderer
+
+    w, h, spp = FRAME
+    r = Renderer(bvh_desc(w, h, spp), device=dev)
+    if r.backend != "bvh":
+        raise SystemExit("the BVH scene did not take the BVH backend")
+    say("kernels", bvh_scene=f"{len(r.desc.primitives)}-primitives",
+        nodes=r.scene.bvh_nodes.shape[0], depth=r.scene.bvh_depth, builder=r.bvh_builder)
+    n, err = BVH_RAYS, 0.0
+    state = bvh_state(r, n, plain=True)
+    for name, (ro, rd, alive) in state.items():
+        t0 = time.perf_counter()
+        plain = bvh_nearest_plain(ro, rd, r.scene)
+        torch.cuda.synchronize()
+        say("kernels", bvh_plain=name, lanes=n, seconds=round(time.perf_counter() - t0, 3))
+        for mask, live in (("", None), ("-masked", alive)):
+            err = max(err, bvh_case(f"bvh81920-{n}:{name}{mask}", ro, rd, r.scene, live, plain))
+        if name != "bounce1":
+            continue
+        k = n - 77  # ragged: no multiple of the tile
+        cut = Vec3(*(c[:k].contiguous() for c in ro)), Vec3(*(c[:k].contiguous() for c in rd))
+        bvh_case(f"bvh81920-{k}-lanes-ragged:{name}-masked", *cut, r.scene,
+                 alive[:k].contiguous(), tuple(x[:k] for x in plain))
+        for pattern, keep in tile_patterns(n, dev).items():
+            bvh_case(f"bvh81920-{n}-lanes-{pattern}:{name}-masked", ro, rd, r.scene,
+                     alive & keep, plain)
+    gen = np.random.default_rng(SEED)
+    soup = Renderer(soup_desc(gen, 600), device=dev, backend="bvh")
+    o = torch.from_numpy(gen.uniform(-7, 7, (n, 3)).astype(np.float32)).to(dev)
+    d = torch.from_numpy(gen.normal(size=(n, 3)).astype(np.float32)).to(dev)
+    d = d / d.norm(dim=1, keepdim=True)
+    ro, rd = Vec3(*o.T.contiguous()), Vec3(*d.T.contiguous())
+    plain = bvh_nearest_plain(ro, rd, soup.scene)
+    live = torch.from_numpy(gen.uniform(size=n) < 0.7).to(dev)
+    for mask, lv in (("", None), ("-masked", live)):
+        err = max(err, bvh_case(f"soup600-{n}:random{mask}", ro, rd, soup.scene, lv, plain))
+    return err
+
+
 class LogLines(logging.Handler):
     """Collects the messages of the port's logger (the CLI's render line)."""
 
@@ -832,21 +999,28 @@ class LogLines(logging.Handler):
 
 
 # the main path's runs and their CLI environment; the lane engines launch
-# one kernel once per round
+# one kernel once per round. "bvh" renders the 81,920-triangle BVH scene
+# (written as a text scene) on the BVH backend's default engine.
 MAIN = {"fused": {}, "modular": {"RT_RR": "1"}, "sticky": {"RT_ENGINE": "sticky"},
-        "wavefront": {"RT_ENGINE": "wavefront"}}
+        "wavefront": {"RT_ENGINE": "wavefront"}, "bvh": {}}
 ROUND_KERNEL = {"sticky": "persistent", "wavefront": "bounce"}
 
 
 def phase_main(dev, tmp: str, path: str) -> dict:
-    """The CLI on the Cornell frame with the launch counters set to 0 just
-    before and read just after; they must match the path exactly. The lane
-    engines' expected counts are the rounds the engine reports."""
+    """The CLI on the Cornell frame (the "bvh" run: on the BVH scene) with
+    the launch counters set to 0 just before and read just after; they must
+    match the path exactly. The lane engines' expected counts are the rounds
+    the engine reports."""
     from raytracing_course_2024_tpu_torch.ops import kernels as KN
     from raytracing_course_2024_tpu_torch.runtime import cli
     from raytracing_course_2024_tpu_torch.runtime.image_io import read_png, read_ppm
 
-    (w, h, spp), depth = FRAME, 6  # glTF ray_depth is 6
+    (w, h, spp), depth, scene = FRAME, 6, CORNELL  # glTF ray_depth is 6
+    if path == "bvh":
+        desc = bvh_desc(w, h, spp)
+        depth, scene = desc.settings.ray_depth, os.path.join(tmp, "bvh81920.txt")
+        with open(scene, "w") as f:
+            f.write(scene_text(desc))
     env = MAIN[path]
     ppm, png = os.path.join(tmp, f"{path}.ppm"), os.path.join(tmp, path)
     logged = LogLines()
@@ -855,7 +1029,7 @@ def phase_main(dev, tmp: str, path: str) -> dict:
     try:
         KN.reset_launches()
         t0 = time.perf_counter()
-        rc = cli.main([CORNELL, str(w), str(h), str(spp), ppm, png])
+        rc = cli.main([scene, str(w), str(h), str(spp), ppm, png])
         secs = time.perf_counter() - t0
         counts = dict(KN.LAUNCHES)
     finally:
@@ -864,22 +1038,33 @@ def phase_main(dev, tmp: str, path: str) -> dict:
         logging.getLogger("rt_torch").removeHandler(logged)
     if rc != 0:
         raise SystemExit(f"CLI returned {rc}")
+    line = [ln for ln in logged.lines if "engine=" in ln]
+    if len(line) != 1:
+        raise SystemExit(f"{path}: no render line in the log {logged.lines}")
+    engine = re.search(r"engine=(\w+)", line[0]).group(1)
+    backend = re.search(r"backend=(\w+)", line[0]).group(1)
+    if backend != ("bvh" if path == "bvh" else "dense"):
+        raise SystemExit(f"{path}: rendered on the {backend} backend: {line[0]}")
     want = dict.fromkeys(KN.LAUNCHES, 0)
-    extra = {}
+    extra = {"engine": engine}
+    if path == "bvh":
+        extra["bvh_builder"] = re.search(r"bvh_builder=(\w+)", line[0]).group(1)
     if path == "modular":  # K4 at every level, K3 at every level but the last
         want.update(nearest=spp * depth, sampler=spp * (depth - 1))
     elif path == "fused":  # 921,600 lanes fit one batch (DEFAULT_BATCH)
         want.update(primary=spp, bounce=spp * (depth - 2), final=spp)
+    elif engine == "batch":  # bvh: K6 at every level, K3 at every level but the last
+        want.update(bvh=spp * depth, sampler=spp * (depth - 1))
     else:
-        found = [m for ln in logged.lines for m in re.findall(r"rounds=(\d+)", ln)]
+        found = re.findall(r"rounds=(\d+)", line[0])
         if len(found) != 1:
             raise SystemExit(f"{path}: no round count in the log {logged.lines}")
         rounds = int(found[0])
         # a sticky lane walks spp paths of at most `depth` rounds each
-        low, high = (spp, spp * depth) if path == "sticky" else (1, None)
+        low, high = (spp, spp * depth) if engine == "sticky" else (1, None)
         if rounds < low or (high and rounds > high):
             raise SystemExit(f"{path} rounds {rounds} outside [{low}, {high}]")
-        want[ROUND_KERNEL[path]] = rounds
+        want["bvh" if path == "bvh" else ROUND_KERNEL[path]] = rounds
         extra["rounds"] = rounds
     if counts != want:
         raise SystemExit(f"{path} launch counters {counts} != expected {want}")
@@ -888,7 +1073,7 @@ def phase_main(dev, tmp: str, path: str) -> dict:
         raise SystemExit(f"bad image: shape {img.shape}, std {img.std()}")
     if not np.array_equal(img, read_png(png + ".png")):
         raise SystemExit("PPM and PNG disagree")
-    say("main", path=path, scene="cornell_box.gltf", size=f"{w}x{h}", spp=spp,
+    say("main", path=path, scene=os.path.basename(scene), size=f"{w}x{h}", spp=spp,
         env=json.dumps(env).replace(" ", ""), seconds=round(secs, 3), **extra,
         launches=json.dumps(counts).replace(" ", ""), mean_u8=round(float(img.mean()), 3))
     return counts
@@ -972,12 +1157,46 @@ def phase_render(dev) -> None:
                 prims=len(mesh.primitives), launches=want, peak_mem_mb=peak)
 
 
-def mesh_desc(w: int, h: int, spp: int):
-    """A displaced icosphere of 1280 smooth-shaded triangles under one
-    triangle light (1281 primitives: the chunked sweep, above 128)."""
-    from raytracing_course_2024_tpu_torch.scene.types import (
-        CameraDesc, PrimitiveDesc, RenderSettings, SceneDesc)
+def phase_render_bvh(dev) -> None:
+    """Frames of the BVH backend against their plain versions (K6 against
+    the sweep): the 5,120-triangle scene on the batch engine (K6 + K3) and
+    on the counter wavefront (K6); then the degenerate scenes, a table of
+    one entry and a scene without a sampled surface, on the fused path (K2,
+    K1) and with the BVH backend asked for."""
+    from raytracing_course_2024_tpu_torch.ops import kernels as KN
+    from raytracing_course_2024_tpu_torch.runtime.render import Renderer
+    from raytracing_course_2024_tpu_torch.scene import parse_text_scene
 
+    w, h, spp = RENDER
+    size = f"{w}x{h}"
+    bvh = bvh_desc(w, h, MESH_SPP, subdiv=4)
+    for engine in ("batch", "wavefront"):
+        r = Renderer(bvh, device=dev, engine=engine)
+        if r.backend != "bvh" or r.fused:
+            raise SystemExit(f"the 5,120-triangle scene took {r.backend}, fused={r.fused}")
+        KN.reset_launches()
+        a = r.render_radiance(seed=3)
+        launched = {k: v for k, v in KN.LAUNCHES.items() if v}
+        if not launched.get("bvh") or set(launched) - {"bvh", "sampler"}:
+            raise SystemExit(f"BVH frame launches {launched}: expected K6 (and K3)")
+        render_pair(a, Renderer(bvh, device=dev, engine=engine, plain=True)
+                    .render_radiance(seed=3), f"bvh5124-{engine}-kernels-vs-plain", size=size,
+                    spp=MESH_SPP, prims=len(bvh.primitives), builder=r.bvh_builder,
+                    launches=json.dumps(launched).replace(" ", ""))
+    for name, text in EDGE_SCENES.items():
+        desc = parse_text_scene(text)
+        desc.settings.width, desc.settings.height, desc.settings.samples = w, h, spp
+        for backend in ("dense", "bvh"):
+            render_pair(Renderer(desc, device=dev, backend=backend).render_radiance(seed=3),
+                        Renderer(desc, device=dev, backend=backend, plain=True)
+                        .render_radiance(seed=3), f"{name}-{backend}-kernels-vs-plain",
+                        size=size, spp=spp)
+
+
+def displaced_sphere(subdiv: int):
+    """(vertices (V, 3), faces, smooth vertex normals) of an icosphere
+    subdivided ``subdiv`` times (20 * 4^subdiv faces), displaced radially by
+    smooth bumps (tests/meshes.py:displaced_organic_mesh)."""
     t = (1 + 5 ** 0.5) / 2
     verts = [np.array(v, float) for v in ((-1, t, 0), (1, t, 0), (-1, -t, 0), (1, -t, 0),
                                           (0, -1, t), (0, 1, t), (0, -1, -t), (0, 1, -t),
@@ -987,7 +1206,7 @@ def mesh_desc(w: int, h: int, spp: int):
              (5, 11, 4), (11, 10, 2), (10, 7, 6), (7, 1, 8), (3, 9, 4), (3, 4, 2),
              (3, 2, 6), (3, 6, 8), (3, 8, 9), (4, 9, 5), (2, 4, 11), (6, 2, 10),
              (8, 6, 7), (9, 8, 1)]
-    for _ in range(3):  # 20 * 4^3 = 1280 faces
+    for _ in range(subdiv):
         cache, nxt = {}, []
 
         def mid(i, j):
@@ -1006,24 +1225,100 @@ def mesh_desc(w: int, h: int, spp: int):
     x, y, z = vs[:, 0], vs[:, 1], vs[:, 2]
     vs = vs * (1.0 + 0.22 * (np.sin(3.1 * x + 1.3) * np.cos(2.3 * y)
                              + 0.6 * np.sin(4.7 * z + 0.5) * np.cos(3.9 * x)))[:, None]
+    fa = np.asarray(faces)
+    fn = np.cross(vs[fa[:, 1]] - vs[fa[:, 0]], vs[fa[:, 2]] - vs[fa[:, 0]])
     vn = np.zeros_like(vs)
-    for a, b, c in faces:
-        fn = np.cross(vs[b] - vs[a], vs[c] - vs[a])
-        vn[[a, b, c]] += fn
+    for c in range(3):
+        np.add.at(vn, fa[:, c], fn)
     vn /= np.maximum(np.linalg.norm(vn, axis=1, keepdims=True), 1e-30)
+    return vs, fa, vn
+
+
+def mesh_desc(w: int, h: int, spp: int, subdiv: int = 3, extras: bool = False):
+    """A displaced icosphere of 20 * 4^subdiv smooth-shaded triangles under
+    one triangle light; subdiv 3: 1280 triangles, 1281 primitives (the
+    chunked sweep, above 128). With ``extras`` (the BVH scenes): two rotated
+    boxes (one a mirror), a rotated ellipsoid and a ground plane too."""
+    from raytracing_course_2024_tpu_torch.scene.types import (
+        BOX, ELLIPSOID, MIRROR, PLANE, CameraDesc, PrimitiveDesc, RenderSettings, SceneDesc)
+
+    vs, faces, vn = displaced_sphere(subdiv)
+    color = np.array([0.7, 0.5, 0.6])
     prims = [PrimitiveDesc(ptype=0, p0=vs[a], p1=vs[b], p2=vs[c], sn0=vn[a], sn1=vn[b],
-                           sn2=vn[c], color=np.array([0.7, 0.5, 0.6]), metallic=0.3,
-                           roughness=0.4, mkind=3) for a, b, c in faces]
+                           sn2=vn[c], color=color, metallic=0.3, roughness=0.4, mkind=3)
+             for a, b, c in faces]
     prims.append(PrimitiveDesc(ptype=0, p0=np.array([-2.0, 2.5, -1.0]),
                                p1=np.array([2.0, 2.5, -1.0]), p2=np.array([0.0, 2.5, 2.0]),
                                color=np.zeros(3), emission=np.array([10.0, 9.0, 8.0]),
                                mkind=3))
+    planes = []
+    if extras:
+        def quat(axis, angle):
+            a = np.asarray(axis, float) / np.linalg.norm(axis)
+            return np.append(a * np.sin(angle / 2), np.cos(angle / 2))
+
+        prims += [
+            PrimitiveDesc(ptype=BOX, p0=np.array([0.35, 0.35, 0.35]),
+                          position=np.array([-1.6, -0.75, 0.4]),
+                          rotation=quat((0.3, 1.0, 0.2), 0.7), color=np.array([0.3, 0.7, 0.3])),
+            PrimitiveDesc(ptype=BOX, p0=np.array([0.3, 0.55, 0.3]),
+                          position=np.array([1.55, -0.6, -0.3]),
+                          rotation=quat((0.0, 1.0, 0.3), -0.5), color=np.array([0.9, 0.9, 0.9]),
+                          mkind=MIRROR),
+            PrimitiveDesc(ptype=ELLIPSOID, p0=np.array([0.25, 0.4, 0.3]),
+                          position=np.array([0.95, 0.95, 0.8]),
+                          rotation=quat((1.0, 0.2, 0.4), 0.9), color=np.array([0.8, 0.4, 0.2])),
+        ]
+        planes.append(PrimitiveDesc(ptype=PLANE, p0=np.array([0.0, 1.0, 0.0]),
+                                    position=np.array([0.0, -1.3, 0.0]),
+                                    color=np.array([0.6, 0.6, 0.65])))
     cam = CameraDesc(position=np.array([0.0, 0.4, 3.2]), right=np.array([1.0, 0.0, 0.0]),
                      up=np.array([0.0, 1.0, 0.0]), forward=np.array([0.0, 0.0, -1.0]),
                      fov_x=1.0, fov_y=2.0 * np.arctan(np.tan(0.5) * h / w))
     settings = RenderSettings(width=w, height=h, samples=spp, ray_depth=4,
                               bg_color=(0.15, 0.2, 0.3), camera=cam)
-    return SceneDesc(settings=settings, primitives=prims, planes=[])
+    return SceneDesc(settings=settings, primitives=prims, planes=planes)
+
+
+def bvh_desc(w: int, h: int, spp: int, subdiv: int = 6):
+    """The BVH scene: subdiv 6 gives 20 * 4^6 = 81,920 smooth-shaded
+    triangles (the size of the largest course mesh) + 2 boxes, an ellipsoid,
+    the light triangle and a ground plane; subdiv 4 gives 5,120."""
+    return mesh_desc(w, h, spp, subdiv, extras=True)
+
+
+def scene_text(desc) -> str:
+    """``desc`` as a course text scene (scene/text_format.py): its camera,
+    settings and primitives. Text triangles are flat-shaded and diffuse."""
+    from raytracing_course_2024_tpu_torch.scene.types import BOX, DIELECTRIC, MIRROR, TRI
+
+    s, c = desc.settings, desc.settings.camera
+
+    def v(a):
+        return " ".join(f"{float(x):.9g}" for x in a)
+
+    out = [f"DIMENSIONS {s.width} {s.height}", f"RAY_DEPTH {s.ray_depth}",
+           f"SAMPLES {s.samples}", f"BG_COLOR {v(s.bg_color)}", f"CAMERA_POSITION {v(c.position)}",
+           f"CAMERA_RIGHT {v(c.right)}", f"CAMERA_UP {v(c.up)}",
+           f"CAMERA_FORWARD {v(c.forward)}", f"CAMERA_FOV_X {c.fov_x:.9g}"]
+    for p in desc.planes:
+        out += ["NEW_PRIMITIVE", f"PLANE {v(p.p0)}", f"POSITION {v(p.position)}",
+                f"COLOR {v(p.color)}"]
+    for p in desc.primitives:
+        out.append("NEW_PRIMITIVE")
+        if p.ptype == TRI:
+            out.append(f"TRIANGLE {v(p.p0)} {v(p.p1)} {v(p.p2)}")
+        else:
+            out += [f"{'BOX' if p.ptype == BOX else 'ELLIPSOID'} {v(p.p0)}",
+                    f"POSITION {v(p.position)}", f"ROTATION {v(p.rotation)}"]
+        out.append(f"COLOR {v(p.color)}")
+        if p.is_emissive:
+            out.append(f"EMISSION {v(p.emission)}")
+        if p.mkind == MIRROR:
+            out.append("METALLIC")
+        elif p.mkind == DIELECTRIC:
+            out += ["DIELECTRIC", f"IOR {p.ior:.9g}"]
+    return "\n".join(out) + "\n"
 
 
 def frame_mem_mb(base: int) -> float:
@@ -1296,7 +1591,132 @@ def launch_times(scene, cam, bg, st0, idx, w: int, h: int, m: Modular, k5, reps:
     return launch_ms, fresh_ms, modular
 
 
-def phase_timing(dev, gpu: str, counts: dict, errs: dict, m: Modular, k5) -> list:
+# K6's fp32 operations, counted from csrc/bvh_traverse.cu and common.cuh
+OPS_BOX_K6 = 25  # one box_entry: 6 sub, 6 mul, 12 min/max, 1 compare
+OPS_NODE_K6 = 2 * OPS_BOX_K6 + 1  # an internal node: both children's boxes, the order
+OPS_PRIM_K6 = OPS_TRI_K4 + 1  # a primitive test (as a triangle's) and the running min
+WALK_RAYS = 4_096  # rays of the walk model that K6's work is counted from
+
+
+def bvh_launch_times(r, gpu: str, states: dict, reps: int = 20) -> dict:
+    """K6 at the main path's shape: ``states`` holds the 921,600 camera rays
+    of the BVH frame and its bounce-1 rays (after one modular bounce through
+    K6 and K3), each with its live mask (``bvh_state``); ms per launch from
+    an event pair per launch while the stream is held (``cuda_ms_each``). The
+    walk model (``ops/traverse.py:walk_reference``) retraces 4,096 of the
+    rays, spread over the frame, on the card: its hits must equal K6's, and
+    its counts of internal nodes, leaves and primitive tests per ray give
+    K6's work for the bound (each node and record read once, each ray's 24 B
+    and flag read and its 8 B written once). Returns name -> dict(ms, bound,
+    counts)."""
+    from raytracing_course_2024_tpu_torch.ops.traverse import bvh_nearest, walk_reference
+    from raytracing_course_2024_tpu_torch.ops.vec import Vec3
+
+    n = r.settings.width * r.settings.height
+    scene = r.scene
+    sel = torch.arange(WALK_RAYS, device=r.device) * (n // WALK_RAYS)
+    out = {}
+    for name, (ro, rd, alive) in states.items():
+        stats = {}
+        ms = cuda_ms_each(lambda: bvh_nearest(ro, rd, scene, live=alive), reps, stats)
+        tk, ik = bvh_nearest(ro, rd, scene, live=alive)
+        t_w, i_w, inner, leaves, tests = walk_reference(
+            Vec3(*(c[sel] for c in ro)), Vec3(*(c[sel] for c in rd)), scene)
+        live_s = alive[sel]
+        same = bool(torch.equal(t_w[live_s], tk[sel][live_s])
+                    and torch.equal(i_w[live_s], ik[sel][live_s]))
+        check(dict(walk_equal=same, walk_rays=int(live_s.sum())), f"bvh81920-{n}:{name}-walk",
+              same)
+        live = float(alive.sum())
+        per_ray = {k: float(v[live_s].double().mean()) for k, v in
+                   (("internal_nodes", inner), ("leaves", leaves), ("prim_tests", tests))}
+        ops = live * (per_ray["internal_nodes"] * OPS_NODE_K6 + per_ray["prim_tests"] * OPS_PRIM_K6)
+        nbytes = n * (1 + 8) + live * 24 + (scene.bvh_nodes.numel() + scene.bvh_rec.numel()) * 4
+        b_ms, b_by = bound(nbytes, ops)
+        out[name] = dict(ms=ms, bound=(b_ms, b_by), active_in=live / n, **per_ray)
+        say("timing", kernel="bvh", state=name, lanes=n, active_in=round(live / n, 4),
+            ms=round(ms, 4), **{k: round(v, 4) for k, v in stats.items()},
+            **{f"{k}_per_ray": round(v, 3) for k, v in per_ray.items()},
+            bound_ms=round(b_ms, 5), bound_by=b_by, clocks=f'"{clocks_line()}"',
+            gpu=f'"{gpu}"')
+    return out
+
+
+def bvh_engine_turns(dev, gpu: str, desc, turns: int = 3, label: str = "timing") -> dict:
+    """The frame ``desc`` (the BVH scene) on each engine: a warm-up frame
+    each, then one frame per engine in turn, ``turns`` times. The frames are
+    host-bound and the host's speed drifts within a call, so the engines are
+    compared under the same drift. Prints each engine's median host ms (each
+    frame ends in a device sync), its frames, path vertices, rounds and peak
+    memory; returns engine -> (median ms, Renderer)."""
+    from raytracing_course_2024_tpu_torch.runtime.render import Renderer
+
+    rs = {e: Renderer(desc, device=dev, engine=e) for e in ("batch", "sticky", "wavefront")}
+    for r in rs.values():
+        r.render_frame_device(seed=0)
+    times = {e: [] for e in rs}
+    verts, peak = {}, dict.fromkeys(rs, 0.0)
+    for turn in range(turns):
+        for e, r in rs.items():
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            _, verts[e] = r.render_frame_device(seed=turn + 1)
+            times[e].append((time.perf_counter() - t0) * 1e3)
+            peak[e] = max(peak[e], frame_mem_mb(base))
+    out = {}
+    for e, r in rs.items():
+        ms = statistics.median(times[e])
+        out[e] = (ms, r)
+        say(label, path=f"bvh-{e}", ms_per_frame=round(ms, 3), frames_ms=json.dumps(
+            [round(t, 3) for t in times[e]]).replace(" ", ""), path_vertices=int(verts[e]),
+            mrays_per_s=round(verts[e] / ms / 1e3, 3),
+            **({} if e == "batch" else {"rounds": r.rounds}), peak_mem_mb=peak[e],
+            gpu=f'"{gpu}"')
+    return out
+
+
+def phase_timing_bvh(dev, gpu: str) -> dict:
+    """The BVH frame (81,920 triangles, 1280x720 x 16 spp) on each engine
+    (``bvh_engine_turns``: median of 3 frames per engine, taken in turns,
+    with the path vertices); the counter wavefront's frame rendered twice
+    from one seed must be equal bit for bit; K6 per launch at the main
+    path's 921,600 camera and bounce-1 rays (``bvh_launch_times``), and its
+    plain version (the sweep) timed once on each state, whose answer K6 must
+    then match lane for lane with the state's live mask (``bvh_case``)."""
+    from raytracing_course_2024_tpu_torch.ops.traverse import bvh_nearest_plain
+
+    w, h, spp = FRAME
+    n = w * h
+    engines = bvh_engine_turns(dev, gpu, bvh_desc(w, h, spp))
+    r = engines["wavefront"][1]
+    twice = [r.render_frame_device(seed=7)[0][0] for _ in range(2)]
+    same = bool(torch.equal(*twice))
+    say("timing", path="bvh-wavefront-determinism", bit_equal=same,
+        max_abs_diff=float((twice[0] - twice[1]).abs().max()))
+    if not same:
+        raise SystemExit("two counter-wavefront frames from one seed differ")
+    states = bvh_state(r, n, plain=False)
+    k6 = bvh_launch_times(r, gpu, states)
+    plain_ms, err = {}, 0.0
+    for name, (ro, rd, alive) in states.items():
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        plain = bvh_nearest_plain(ro, rd, r.scene)
+        end.record()
+        torch.cuda.synchronize()
+        plain_ms[name] = start.elapsed_time(end)
+        err = max(err, bvh_case(f"bvh81920-{n}:{name}-masked", ro, rd, r.scene, alive, plain))
+    frames = {e: ms for e, (ms, _) in engines.items()}
+    say("timing", kernel="bvh", plain_ms=round(plain_ms["camera"], 3),
+        plain_ms_bounce1=round(plain_ms["bounce1"], 3), lanes=n, gpu=f'"{gpu}"',
+        frames_ms=json.dumps({k: round(v, 3) for k, v in frames.items()}).replace(" ", ""))
+    return {"k6": k6, "plain_ms": plain_ms["camera"], "frames": frames, "max_abs_err": err}
+
+
+def phase_timing(dev, gpu: str, counts: dict, errs: dict, m: Modular, k5, bvh: dict) -> list:
     from raytracing_course_2024_tpu_torch.ops import bounce as B
     from raytracing_course_2024_tpu_torch.ops.persistent import persistent_plain
     from raytracing_course_2024_tpu_torch.ops.dense_nearest import dense_nearest_plain
@@ -1394,6 +1814,12 @@ def phase_timing(dev, gpu: str, counts: dict, errs: dict, m: Modular, k5) -> lis
     inputs = {"primary": 1.0, "bounce": alive / n, "final": alive / n,
               "nearest": 1.0, "sampler": float(m.need.float().mean()),
               "persistent": live5 / n}
+    # K6 on the BVH frame (phase_timing_bvh): the camera state as the main
+    # path launches it, the bounce-1 state beside it
+    cam6, b1 = bvh["k6"]["camera"], bvh["k6"]["bounce1"]
+    launch_ms["bvh"], plain_ms["bvh"], bounds["bvh"] = cam6["ms"], bvh["plain_ms"], cam6["bound"]
+    inputs["bvh"] = cam6["active_in"]
+    bounce1["bvh"] = (b1, b1["bound"])
     for k in KERNELS:
         # K5's input: the frame's state after K5_CHAIN rounds
         at = {"after_rounds": K5_CHAIN} if k == "persistent" else {}
@@ -1454,17 +1880,22 @@ def main() -> int:
     errs, cornell = phase_kernels_modular(dev)
     lane_errs, k5_state = phase_kernels_lanes(dev)
     phase_kernels_tiles(dev, k5_state)
+    errs["bvh"] = phase_kernels_bvh(dev)
     with tempfile.TemporaryDirectory() as tmp:
         runs = {path: phase_main(dev, tmp, path) for path in MAIN}
     # each kernel's launches on the main path: the batch path's run for its
     # kernels (K1 also runs in lane mode in the wavefront run), K4/K3 from the
-    # modular run, K5 from the sticky run
+    # modular run, K5 from the sticky run, K6 from the BVH run
     counts = dict(runs["fused"])
     counts.update({k: runs["modular"][k] for k in MODULAR})
     counts["persistent"] = runs["sticky"]["persistent"]
+    counts["bvh"] = runs["bvh"]["bvh"]
     phase_render(dev)
+    phase_render_bvh(dev)
     errs.update(lane_errs)  # K1's row also holds its lane-mode error
-    record = phase_timing(dev, gpu, counts, errs, cornell, k5_state)
+    bvh = phase_timing_bvh(dev, gpu)
+    errs["bvh"] = max(errs["bvh"], bvh["max_abs_err"])
+    record = phase_timing(dev, gpu, counts, errs, cornell, k5_state, bvh)
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib"))
     if leaked:
         raise SystemExit(f"the port imported {leaked}")

@@ -18,8 +18,14 @@ K1 level by level on the states of one sample (``cuda_ms``,
 sticky frame) and ``frame_times`` (median host ms of ``--frames`` frames of
 the batch engine's fused and modular paths and of the sticky and wavefront
 engines, with their path-vertex totals; ``--frames 0`` leaves the frames and
-the round-by-round pass out). Prints the card's name, power limit and
-clocks, the ptxas lines of the kernels and one line per number. Two runs
+the round-by-round pass out). ``--bvh-turns N`` times only the
+81,920-triangle BVH frame of ``chip_smoke.bvh_desc`` on the three engines,
+one frame per engine in turn, N times (``bvh_engine_turns``).
+``--cornell-engines wavefront,...`` times only the Cornell frames of those
+engines (``frame_times``: median host ms of ``--frames`` frames, path
+vertices, rounds and the frame's peak device memory). Prints the card's
+name, power limit and clocks, the ptxas lines of the kernels and one line
+per number. Two runs
 are comparable only on one card, one right after the other: run parent,
 change, change, parent.
 """
@@ -44,6 +50,12 @@ def main() -> int:
     ap.add_argument("--frames", type=int, default=5)
     ap.add_argument("--modular-only", action="store_true",
                     help="K4 and K3 only: both states and level by level")
+    ap.add_argument("--bvh-turns", type=int, default=0,
+                    help="only the 81,920-triangle BVH frame on the three engines, "
+                         "one frame each in turn, this many times")
+    ap.add_argument("--cornell-engines", default="",
+                    help="only the Cornell frames of these engines (comma-separated "
+                         "batch, sticky, wavefront), --frames frames each")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("kernel_times: no CUDA device", file=sys.stderr)
@@ -67,12 +79,20 @@ def main() -> int:
         if "Compiling entry" in ln:
             entry = re.sub(r".*function '([^']*)'.*", r"\1", ln)
         elif re.search(r"Used \d+ registers|spill", ln) and re.search(
-                r"bounce|primary|persistent|nearest|sampler", entry):
+                r"bounce|primary|persistent|nearest|sampler|bvh", entry):
             say(ptxas=entry, line=f'"{ln.split(":", 1)[-1].strip()}"')
 
     dev = torch.device("cuda", 0)
     w, h, spp = CS.FRAME
+    if args.bvh_turns > 0:
+        CS.bvh_engine_turns(dev, gpu, CS.bvh_desc(w, h, spp), args.bvh_turns, args.label)
+        return 0
     desc = load_scene(CS.CORNELL, w, h, spp)
+    if args.cornell_engines:
+        for engine in args.cornell_engines.split(","):
+            CS.frame_times(Renderer(desc, device=dev, engine=engine), f"{args.label}-{engine}",
+                           gpu, reps=args.frames)
+        return 0
     r = Renderer(desc, device=dev)
     scene, cam, bg = r.scene, r.cam_row, r.bg
     idx = torch.arange(w * h, device=dev, dtype=torch.int32)

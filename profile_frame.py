@@ -1,11 +1,13 @@
-"""Where the device time of one Cornell frame goes, on one CUDA card.
+"""Where the device time of one Cornell or BVH frame goes, on one CUDA card.
 
     python3 profile_frame.py                    # batch engine, fused path (K2, K1, K1-final)
     python3 profile_frame.py --rr               # batch engine, modular path (K4, K3)
     python3 profile_frame.py --engine sticky    # one K5 per round
     python3 profile_frame.py --engine wavefront # K1 in lane mode + refills
+    python3 profile_frame.py --bvh --engine E   # the BVH scene on engine E (K6)
 
-Renders scenes/cornell_box.gltf at 1280x720 x 16 spp through the port's
+Renders scenes/cornell_box.gltf (with ``--bvh``: chip_smoke.py's
+81,920-triangle BVH scene) at 1280x720 x 16 spp through the port's
 Renderer: one warm-up frame, then one frame under torch.profiler. Prints
 the card's name and power limit, the profiled frame's wall ms, the summed
 device ms and its share of the wall time (the device's busy share), the
@@ -31,6 +33,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--rr", action="store_true", help="Russian roulette: the modular path")
     ap.add_argument("--engine", choices=("batch", "sticky", "wavefront"), default="batch")
+    ap.add_argument("--bvh", action="store_true", help="the 81,920-triangle BVH scene")
     ap.add_argument("--top", type=int, default=15)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -44,7 +47,12 @@ def main() -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0])
-    desc = load_scene(os.path.join(ROOT, "scenes", "cornell_box.gltf"), 1280, 720, 16)
+    if args.bvh:
+        from chip_smoke import bvh_desc
+
+        desc = bvh_desc(1280, 720, 16)
+    else:
+        desc = load_scene(os.path.join(ROOT, "scenes", "cornell_box.gltf"), 1280, 720, 16)
     r = Renderer(desc, device="cuda", russian_roulette=args.rr, engine=args.engine)
     r.render_frame_device(seed=0)  # warm-up: kernel build, allocator
     torch.cuda.synchronize()
@@ -64,7 +72,8 @@ def main() -> int:
     rows.sort(reverse=True)
     busy = sum(ms for ms, _, _ in rows)
     rounds = "" if r.engine == "batch" else f" rounds={r.rounds}"
-    print(f"engine={r.engine} path={'fused' if r.fused else 'modular'} wall_ms={wall:.3f} "
+    print(f"backend={r.backend} engine={r.engine} path={'fused' if r.fused else 'modular'} "
+          f"wall_ms={wall:.3f} "
           f"device_ms={busy:.3f} busy_share={busy / wall:.3f} "
           f"launches={sum(n for _, n, _ in rows)} path_vertices={int(verts)}{rounds}")
     for ms, n, key in rows[: args.top]:

@@ -78,121 +78,6 @@ struct Hit {
   bool outer, tri;
 };
 
-struct Facing {
-  V3 cn;  // geometric normal facing the ray, not normalized
-  bool outer, tri;
-};
-
-__device__ __forceinline__ V3 xyz(float4 r) { return mk(r.x, r.y, r.z); }
-
-// Entry i against the ray: whether it is hit, and where. A record is three
-// float4: a triangle's (a, spec) (e1, -) (e2, -); a box's, ellipsoid's or
-// plane's (half-extents | radii | normal, spec) (position, -) (quaternion).
-// With NORMAL the facing normal and the entry side are computed too: the
-// loop runs without, the winner is tested once more with.
-template <bool NORMAL>
-__device__ __forceinline__ bool test_entry(const float4* rec, int i, V3 ro, V3 rd, float& t,
-                                           float& u, float& v, Facing& f) {
-  const float4 r0 = rec[3 * i], r1 = rec[3 * i + 1], r2 = rec[3 * i + 2];
-  const int code = __float_as_int(r0.w);
-  const int kind = code & 3;
-  const bool rotated = (code >> 2) & 1;
-  u = 0.0f;
-  v = 0.0f;
-  bool ok;
-  if (kind == K_TRI) {
-    const V3 a = xyz(r0), e1 = xyz(r1), e2 = xyz(r2);
-    const V3 pv = cross(rd, e2);
-    const float det = dot(e1, pv);
-    const bool det_ok = fabsf(det) > 1e-30f;
-    const float inv_det = 1.0f / (det_ok ? det : 1e-30f);
-    const V3 tv = sub(ro, a);
-    u = dot(tv, pv) * inv_det;
-    const V3 qv = cross(tv, e1);
-    v = dot(rd, qv) * inv_det;
-    t = dot(e2, qv) * inv_det;
-    ok = (u >= 0.0f) && (v >= 0.0f) && (u + v <= 1.0f) && det_ok && (t > 0.0f);
-    if (NORMAL) {
-      const V3 fn = cross(e1, e2);
-      const bool front = dot(fn, rd) < 0.0f;
-      f.cn = scl(fn, front ? 1.0f : -1.0f);
-      f.outer = front;
-      f.tri = true;
-    }
-    return ok;
-  }
-  V3 o = sub(ro, xyz(r1));
-  V3 d = rd;
-  const float qx = r2.x, qy = r2.y, qz = r2.z, qw = r2.w;
-  if (rotated) {  // world -> local: rotate by the conjugate
-    o = quat_rotate(-qx, -qy, -qz, qw, o);
-    d = quat_rotate(-qx, -qy, -qz, qw, rd);
-  }
-  const float ax = r0.x, ay = r0.y, az = r0.z;
-  V3 cn = mk(0.0f, 0.0f, 1.0f);
-  bool outer;
-  if (kind == K_BOX) {
-    const float ivx = 1.0f / (d.x + DIR_BIAS);
-    const float ivy = 1.0f / (d.y + DIR_BIAS);
-    const float ivz = 1.0f / (d.z + DIR_BIAS);
-    const float lox = (-ax - o.x) * ivx, hix = (ax - o.x) * ivx;
-    const float loy = (-ay - o.y) * ivy, hiy = (ay - o.y) * ivy;
-    const float loz = (-az - o.z) * ivz, hiz = (az - o.z) * ivz;
-    const float t1 = fmaxf(fminf(lox, hix), fmaxf(fminf(loy, hiy), fminf(loz, hiz)));
-    const float t2 = fminf(fmaxf(lox, hix), fminf(fmaxf(loy, hiy), fmaxf(loz, hiz)));
-    const bool valid = t1 <= t2;
-    outer = valid && (t1 > 0.0f);
-    t = outer ? t1 : t2;
-    ok = valid && (t > 0.0f);
-    if (NORMAL) {
-      const float hx = o.x + d.x * t, hy = o.y + d.y * t, hz = o.z + d.z * t;
-      const bool on_x = (ax - fabsf(hx)) < EPS;
-      const bool on_y = (ay - fabsf(hy)) < EPS;
-      const float flip = outer ? 1.0f : -1.0f;
-      cn = mk((on_x ? sgnf(hx) : 0.0f) * flip, ((!on_x && on_y) ? sgnf(hy) : 0.0f) * flip,
-              ((!on_x && !on_y) ? sgnf(hz) : 0.0f) * flip);
-    }
-  } else if (kind == K_ELL) {
-    const float iox = o.x / ax, ioy = o.y / ay, ioz = o.z / az;
-    const float idx = d.x / ax, idy = d.y / ay, idz = d.z / az;
-    const float a_q = idx * idx + idy * idy + idz * idz;
-    const float b_q = iox * idx + ioy * idy + ioz * idz;
-    const float c_q = iox * iox + ioy * ioy + ioz * ioz - 1.0f;
-    const float disc = b_q * b_q - a_q * c_q;
-    const bool valid = disc >= 0.0f;
-    const float sq = sqrtf(fmaxf(disc, 0.0f));
-    const float inv_a = 1.0f / fmaxf(a_q, 1e-30f);
-    const float t1 = (-b_q - sq) * inv_a;
-    const float t2 = (-b_q + sq) * inv_a;
-    outer = valid && (t1 > 0.0f);
-    t = outer ? t1 : t2;
-    ok = valid && (t > 0.0f);
-    if (NORMAL) {
-      const float hx = o.x + d.x * t, hy = o.y + d.y * t, hz = o.z + d.z * t;
-      const float flip = outer ? 1.0f : -1.0f;
-      cn = mk(hx / (ax * ax) * flip, hy / (ay * ay) * flip, hz / (az * az) * flip);
-    }
-  } else {  // infinite plane through the local origin, normal (ax, ay, az)
-    const float denom = ax * d.x + ay * d.y + az * d.z;
-    const float num = ax * o.x + ay * o.y + az * o.z;
-    const bool den_ok = fabsf(denom) > 1e-30f;
-    t = -num / (den_ok ? denom : 1e-30f);
-    ok = den_ok && (t > 0.0f);
-    outer = denom < 0.0f;
-    if (NORMAL) {
-      const float flip = outer ? 1.0f : -1.0f;
-      cn = mk(ax * flip, ay * flip, az * flip);
-    }
-  }
-  if (NORMAL) {
-    if (rotated) cn = quat_rotate(qx, qy, qz, qw, cn);
-    f.cn = cn;
-    f.outer = outer;
-    f.tri = false;
-  }
-  return ok;
-}
-
 // The nearest hit: strict t < best_t, so the lowest index wins a tie. On a
 // miss t is inf and the other fields are unused.
 __device__ Hit intersect_all(const Tables& T, V3 ro, V3 rd) {

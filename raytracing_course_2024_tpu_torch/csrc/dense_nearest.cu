@@ -71,8 +71,6 @@ struct DenseParams {
   int* i_out;    // (b,)
 };
 
-__device__ __forceinline__ V3 xyz(float4 r) { return mk(r.x, r.y, r.z); }
-
 // The nearest hit of the m <= kRays rays `lanes[0..m)`. A thread with fewer
 // than kRays lanes walks its first lane in the empty slots and stores
 // nothing for them.

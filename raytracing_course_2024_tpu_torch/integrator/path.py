@@ -18,12 +18,14 @@ direction never contributes). Two routes compute it, picked by
   ``ray_depth`` 1 the camera rays come from ``generate_rays_u`` and only the
   final level runs. This is the JAX package's
   ``_trace_paths_mega_primary`` / ``render_pixels`` route.
-* **modular** (everything else on the dense backend): camera rays from
-  ``generate_rays_u``, then per level the nearest hit (K4 or the chunked
-  sweep, ops/scene_intersect.py), ``surface_detail``, the mixture sampler
-  (K3, ops/sampler.py, or its XLA formulation for faithful acceptance and
-  more than 32 lights) and ``_finish_bounce`` with optional Russian
-  roulette: the JAX package's ``trace_paths`` batch scan.
+* **modular** (everything else, the BVH backend included): camera rays
+  from ``generate_rays_u``, then per level the scene's nearest hit
+  (``ops/traverse.py:nearest_hit``: K4 or the chunked sweep on the dense
+  backend, the BVH walk K6 on the BVH backend),
+  ``surface_detail``, the mixture sampler (K3, ops/sampler.py, or its XLA
+  formulation for faithful acceptance and more than 32 lights) and
+  ``_finish_bounce`` with optional Russian roulette: the JAX package's
+  ``trace_paths`` batch scan.
 
 Both routes draw from the counter RNG with the same layout (ops/rng.py),
 so from one seed they trace the same paths. Path vertices (one scene
@@ -44,7 +46,8 @@ from ..ops.camera import camera_from_row, generate_rays_u
 from ..ops.rng import CTR_JITTER, ctr_diel, ctr_rr, draws_per_bounce, uniform_ctr, work_key
 from ..ops.sampler import sample_mixture_kernel, sampler_plain
 from ..ops.sampling import UNROLL_MAX_LIGHTS
-from ..ops.scene_intersect import ModularScene, nearest_hit_dense, surface_detail
+from ..ops.scene_intersect import ModularScene, surface_detail
+from ..ops.traverse import nearest_hit
 from ..ops.vec import Vec3, reflect, where3
 from ..scene.types import DIELECTRIC, MIRROR, SceneStatics
 
@@ -156,9 +159,9 @@ class PathState(NamedTuple):
 def _collect_hit(state: PathState, scene: ModularScene, cfg: TraceConfig,
                  plain: bool = False):
     """Intersect + accumulate emission/background. Returns (state', surf, hit).
-    The hit is asked for live paths only (K4 walks no triangle for a dead
+    The hit is asked for live paths only (K4 and K6 walk nothing for a dead
     lane); on a dead lane ``hit`` and ``surf`` hold no hit and are not read."""
-    hit = nearest_hit_dense(state.ro, state.rd, scene, plain=plain, live=state.alive)
+    hit = nearest_hit(state.ro, state.rd, scene, plain=plain, live=state.alive)
     surf = surface_detail(state.ro, state.rd, hit, scene)
     zero = state.ro.x * 0.0
     bg = Vec3(zero + cfg.bg_color[0], zero + cfg.bg_color[1], zero + cfg.bg_color[2])

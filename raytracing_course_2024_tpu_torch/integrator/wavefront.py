@@ -5,10 +5,11 @@ the whole frame and each lane walks path after path, so the lanes stay busy
 when paths end at different depths:
 
 * ``render_wavefront`` (counter refill): when at least ``RT_WF_REFILL_FRAC``
-  (default 0.125) of the lanes are dead, their radiance is flushed into the
-  image with one scatter-add and they take the next work items, ranked by a
-  cumulative sum; work item ``w`` is (pixel ``w % n_pix``, sample
-  ``w // n_pix``);
+  (default 0.125) of the lanes are dead, their radiance is flushed and they
+  take the next work items, ranked by a cumulative sum; work item ``w`` is
+  (pixel ``w % n_pix``, sample ``w // n_pix``). A work item finishes once,
+  so the flush writes its radiance to a column of its own and the image is
+  summed over the samples at the end, in a fixed order;
 * ``render_wavefront_sticky`` (pixel-sticky): lane ``l`` owns pixels
   ``l, l + lanes, ...`` and restarts its own next sample the round after a
   path ends, accumulating in place; with at least as many lanes as pixels
@@ -23,10 +24,11 @@ the CPU, image for image.
 A bounce (``_make_bounce_core``) is either the fused core, K1 in lane mode
 (``ops/bounce.py``) then the depth cap and ``park``, when the scene is a
 ``BounceScene``; or the XLA core on a ``ModularScene`` (roulette, faithful
-acceptance, ``RT_MEGAKERNEL=0``, large scenes): the dense nearest hit (K4 or
-the sweep), ``surface_detail``, the XLA ``sample_mixture`` fed the layout's
-draws and ``_finish_bounce``. As in the JAX package, the XLA core never
-takes the sampler kernel K3.
+acceptance, ``RT_MEGAKERNEL=0``, large scenes, the BVH backend): the
+scene's nearest hit (``ops/traverse.py:nearest_hit``: K4 or the sweep, or
+the BVH walk K6), ``surface_detail``, the XLA ``sample_mixture`` fed the layout's draws
+and ``_finish_bounce``. As in the JAX package, the XLA core never takes the
+sampler kernel K3.
 
 Per-lane depth replaces the batch engine's bounce index: a lane whose
 final depth is reached dies after collecting emission (the reference
@@ -46,7 +48,8 @@ from ..ops.camera import CameraArrays, generate_rays_u, pack_camera_row
 from ..ops.persistent import N_PSTATE, S_ACC, S_K, persistent_plain, persistent_round
 from ..ops.rng import CTR_JITTER, lane_ctr, mixture_rows, uniform_ctr, work_key
 from ..ops.sampling import sample_mixture
-from ..ops.scene_intersect import nearest_hit_dense, surface_detail
+from ..ops.scene_intersect import surface_detail
+from ..ops.traverse import nearest_hit
 from ..ops.vec import Vec3, where3
 from ..scene.types import DIELECTRIC, MIRROR
 from .path import RR_START, PathState, TraceConfig, _finish_bounce
@@ -118,7 +121,7 @@ def _make_bounce_core(cfg: TraceConfig, scene, seed: int, plain: bool = False):
         ro, rd = Vec3(s[0], s[1], s[2]), Vec3(s[3], s[4], s[5])
         thr, rad = Vec3(s[6], s[7], s[8]), Vec3(s[9], s[10], s[11])
         alive = s[12] > 0.5
-        hit = nearest_hit_dense(ro, rd, scene, plain=plain, live=alive)
+        hit = nearest_hit(ro, rd, scene, plain=plain, live=alive)
         surf = surface_detail(ro, rd, hit, scene)
         zero = ro.x * 0.0
         bgv = Vec3(zero + bg[0], zero + bg[1], zero + bg[2])
@@ -145,6 +148,12 @@ def _make_bounce_core(cfg: TraceConfig, scene, seed: int, plain: bool = False):
     return xla_core, False
 
 
+# work items of one counter-refill pass: the flush keeps 12 bytes per item
+# (400 MB at this cap); a frame with more work renders in passes of whole
+# samples, summed in order
+WF_MAX_WORK = 1 << 25
+
+
 def render_wavefront(seed32: int, pix_base: int, samp_base: int, cam: CameraArrays, scene,
                      cfg: TraceConfig, width: int, height: int, n_pix: int, samples: int,
                      lanes: int, plain: bool = False):
@@ -152,9 +161,21 @@ def render_wavefront(seed32: int, pix_base: int, samp_base: int, cam: CameraArra
     the full width x height frame) at ``samples`` spp from global sample
     ``samp_base``, on ``lanes`` lanes with counter refill.
 
-    Returns ((3, n_pix) f32 mean radiance, path vertices, rounds). On CUDA
-    the flush is an ``index_add_`` whose float sums run in a varying order,
-    so two frames agree within rounding, not bit for bit."""
+    Returns ((3, n_pix) f32 mean radiance, path vertices, rounds). Every
+    work item's radiance is written to its own column with a plain indexed
+    write and the columns are summed over the samples at the end, so two
+    frames from one seed are equal bit for bit on any device. A frame of
+    more than ``WF_MAX_WORK`` work items runs as passes of whole samples."""
+    per_pass = max(WF_MAX_WORK // max(n_pix, 1), 1)
+    if samples > per_pass:
+        img, nverts, rounds = 0.0, 0.0, 0
+        for s0 in range(0, samples, per_pass):
+            n_s = min(per_pass, samples - s0)
+            part, v, r = render_wavefront(seed32, pix_base, samp_base + s0, cam, scene, cfg,
+                                          width, height, n_pix, n_s, lanes, plain)
+            img = img + part * (n_s / samples)
+            nverts, rounds = nverts + v, rounds + r
+        return img, nverts, rounds
     dev = _scene_device(scene)
     total_work = n_pix * samples
     b = lanes
@@ -166,17 +187,19 @@ def render_wavefront(seed32: int, pix_base: int, samp_base: int, cam: CameraArra
 
     # refill threshold: rounds price the full lane batch, so refilling at
     # 1/8 dead keeps occupancy near 94 % at the cost of a cumsum, a
-    # scatter-add and the camera math per refill (the JAX package's default)
+    # flush and the camera math per refill (the JAX package's default)
     frac = float(os.environ.get("RT_WF_REFILL_FRAC", "0.125"))
     thresh = max(int(b * frac), 1)
 
     state = _initial_state(B.N_STATE, b, dev)
     work = torch.full((b,), -1, dtype=torch.int64, device=dev)
     depth = torch.zeros((b,), dtype=torch.int32, device=dev)
-    # columns n_pix + l take lane l's dropped adds: the JAX package's
-    # mode="drop", without every dropped lane's atomics on one address
-    img = torch.zeros((3, n_pix + b), dtype=torch.float32, device=dev)
-    drop = n_pix + torch.arange(b, dtype=torch.int64, device=dev)
+    # column w holds work item w's radiance; columns total_work + l take
+    # lane l's writes while it holds no finished item (the JAX package's
+    # mode="drop"): every column is written by one lane, so the writes are
+    # plain stores, in no order that could change a sum
+    done = torch.zeros((3, total_work + b), dtype=torch.float32, device=dev)
+    drop = total_work + torch.arange(b, dtype=torch.int64, device=dev)
     counter = nverts = rounds = 0
     while True:
         alive = state[12] > 0.5
@@ -186,8 +209,7 @@ def render_wavefront(seed32: int, pix_base: int, samp_base: int, cam: CameraArra
         n_take = 0
         if n_dead >= thresh:  # flush dead lanes' radiance, hand out fresh work
             dead = ~alive
-            idx = torch.where(dead & (work >= 0), work.clamp(min=0) % n_pix, drop)
-            img.index_add_(1, idx, state[9:12])
+            done.index_copy_(1, torch.where(dead & (work >= 0), work, drop), state[9:12])
             state[9:12] = torch.where(dead, 0.0, state[9:12])
             new_id = counter + torch.cumsum(dead, 0) - 1
             take = dead & (new_id < total_work)
@@ -204,15 +226,15 @@ def render_wavefront(seed32: int, pix_base: int, samp_base: int, cam: CameraArra
         state = core(state, wid_of(work.clamp(min=0)).to(torch.int32), depth)
         depth = depth + 1
         rounds += 1
-    return _wf_finish(state, work, img, drop, n_pix, samples), float(nverts), rounds
+    return _wf_finish(state, work, done, drop, n_pix, samples), float(nverts), rounds
 
 
-def _wf_finish(state, work, img, drop, n_pix: int, samples: int) -> torch.Tensor:
+def _wf_finish(state, work, done, drop, n_pix: int, samples: int) -> torch.Tensor:
     """Final flush: the loop exits with work exhausted and no lane alive,
-    but the last completions still hold their radiance in-lane."""
-    idx = torch.where(work >= 0, work.clamp(min=0) % n_pix, drop)
-    img.index_add_(1, idx, state[9:12])
-    return img[:, :n_pix] * (1.0 / samples)
+    but the last completions still hold their radiance in-lane. Then the
+    mean over the samples, summed in sample order."""
+    done.index_copy_(1, torch.where(work >= 0, work, drop), state[9:12])
+    return done[:, :n_pix * samples].reshape(3, samples, n_pix).sum(dim=1) * (1.0 / samples)
 
 
 def render_wavefront_sticky(seed32: int, pix_base: int, samp_base: int, cam: CameraArrays,

@@ -122,31 +122,39 @@ def build_geo_rows(scn: SceneArrays, statics: SceneStatics) -> np.ndarray:
 REC_FLOATS = 12  # one loop record: three float4
 
 
+def loop_records(codes: np.ndarray, a, e1, e2, pos, rot) -> np.ndarray:
+    """(M, 12) f32 records of the kernels' intersection loops, entry-major
+    (``csrc/common.cuh:test_entry`` reads them), from per-entry (M, 3) or
+    (M, 4) arrays. One record is three float4:
+
+    * a triangle (``codes & 3 == TRI``): ``(a, code) (e1, 0) (e2, 0)``;
+    * a box, ellipsoid or plane: ``(half-extents | radii | normal, code)
+      (pos, 0) (rot xyzw)``.
+
+    ``codes`` are int32 (kind in bits 0-1, rotated in bit 2), stored bit for
+    bit in the float slot (the kernel reads them back as ints)."""
+    codes = np.asarray(codes, np.int32)
+    tri = (codes & 3) == TRI
+    rec = np.zeros((codes.shape[0], 3, 4), np.float32)
+    rec[:, 0, :3] = a
+    rec[:, 0, 3] = codes.view(np.float32)
+    rec[tri, 1, :3] = np.asarray(e1, np.float32)[tri]
+    rec[tri, 2, :3] = np.asarray(e2, np.float32)[tri]
+    rec[~tri, 1, :3] = np.asarray(pos, np.float32)[~tri]
+    rec[~tri, 2, :] = np.asarray(rot, np.float32)[~tri]
+    return np.ascontiguousarray(rec.reshape(-1, REC_FLOATS))
+
+
 def build_loop_records(geo: np.ndarray, spec) -> np.ndarray:
-    """(M, 12) f32 records of the kernels' intersection loop, entry-major,
-    from the ``build_geo_rows`` table and the scene's ``mega_spec``
-    (``(kind, rotated, mkind)`` per entry). One record is three float4, all
-    the loop reads of an entry:
-
-    * a triangle: ``(a, spec) (e1, 0) (e2, 0)``;
-    * a box, ellipsoid or plane: ``(half-extents | radii | normal, spec)
-      (position, 0) (quaternion xyzw)``.
-
-    ``spec`` is the int32 ``kind | rotated << 2 | mkind << 3``, stored bit
-    for bit in the float slot (the kernel reads it back as an int)."""
+    """The fused kernels' ``loop_records`` from the ``build_geo_rows`` table
+    and the scene's ``mega_spec`` (``(kind, rotated, mkind)`` per entry):
+    ``code = kind | rotated << 2 | mkind << 3``."""
     m = geo.shape[1]
     if len(spec) != m:
         raise ValueError(f"{len(spec)} spec entries for {m} table columns")
-    rec = np.zeros((m, 3, 4), np.float32)
     codes = np.array([k | (int(r) << 2) | (mk << 3) for k, r, mk in spec], np.int32)
-    tri = np.array([k == TRI for k, _, _ in spec], bool)
-    rec[:, 0, :3] = geo[_A:_A + 3].T
-    rec[:, 0, 3] = codes.view(np.float32)
-    rec[tri, 1, :3] = geo[_E1:_E1 + 3].T[tri]
-    rec[tri, 2, :3] = geo[_E2:_E2 + 3].T[tri]
-    rec[~tri, 1, :3] = geo[_POS:_POS + 3].T[~tri]
-    rec[~tri, 2, :] = geo[_ROT:_ROT + 4].T[~tri]
-    return np.ascontiguousarray(rec.reshape(m, REC_FLOATS))
+    return loop_records(codes, geo[_A:_A + 3].T, geo[_E1:_E1 + 3].T, geo[_E2:_E2 + 3].T,
+                        geo[_POS:_POS + 3].T, geo[_ROT:_ROT + 4].T)
 
 
 def gate_reason(statics: SceneStatics) -> str | None:

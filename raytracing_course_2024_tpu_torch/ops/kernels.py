@@ -11,7 +11,8 @@ and spills into the build log next to the library.
 
 Importing this module builds nothing; ``library()`` builds on first call.
 ``LAUNCHES`` counts the launches each wrapper makes (``ops/bounce.py``,
-``ops/dense_nearest.py``, ``ops/sampler.py``, ``ops/persistent.py``);
+``ops/dense_nearest.py``, ``ops/sampler.py``, ``ops/persistent.py``,
+``ops/traverse.py``);
 ``check`` validates a tensor before its pointer goes to a kernel.
 """
 
@@ -30,7 +31,7 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
-SOURCES = ("bounce.cu", "dense_nearest.cu", "persistent.cu", "sampler.cu")
+SOURCES = ("bounce.cu", "bvh_traverse.cu", "dense_nearest.cu", "persistent.cu", "sampler.cu")
 # --fmad=false: no FMA contraction, so the kernels round op by op like the
 # plain versions (PyTorch runs one op per kernel). With contraction, grazing
 # hits and accept decisions flipped on ~0.1 % of the MIXED scene's lanes per
@@ -46,9 +47,10 @@ _LIB = None
 BUILD_INFO: dict = {}  # path, seconds (0.0 when cached), log of the last build
 
 # kernel launches per wrapper: the fused K2 / K1 (batch and lane mode) /
-# K1-final, the modular path's K4 and K3, the sticky engine's K5
+# K1-final, the modular path's K4 and K3, the sticky engine's K5, the BVH
+# backend's K6
 LAUNCHES = {"primary": 0, "bounce": 0, "final": 0, "nearest": 0, "sampler": 0,
-            "persistent": 0}
+            "persistent": 0, "bvh": 0}
 
 
 def reset_launches() -> None:
@@ -142,6 +144,8 @@ def library() -> ctypes.CDLL:
         lib.rt_launch_primary.restype = i
         lib.rt_launch_dense_nearest.argtypes = [p, p, i, ll, f, p, p, p, p]
         lib.rt_launch_dense_nearest.restype = i
+        lib.rt_launch_bvh_nearest.argtypes = [p, p, i, i, p, i, ll, f, p, p, p, p]
+        lib.rt_launch_bvh_nearest.restype = i
         lib.rt_launch_sampler.argtypes = [
             p, p, p, u, u, *ctr, p, p, i, i, i, ll, p, p, p,
         ]
@@ -156,6 +160,8 @@ def library() -> ctypes.CDLL:
         lib.rt_persistent_resident_blocks.restype = i
         lib.rt_dense_nearest_geometry.argtypes = [ctypes.POINTER(ctypes.c_int)]
         lib.rt_dense_nearest_geometry.restype = None
+        lib.rt_bvh_nearest_geometry.argtypes = [ctypes.POINTER(ctypes.c_int)]
+        lib.rt_bvh_nearest_geometry.restype = None
         lib.rt_sampler_resident_blocks.argtypes = []
         lib.rt_sampler_resident_blocks.restype = i
         _LIB = lib
@@ -204,21 +210,23 @@ def _tickets(device, stream: int) -> torch.Tensor:
 
 def launch_geometry() -> dict:
     """How the kernels are launched on the current device: its SMs, threads
-    per block, lanes per tile, K4's rays per thread and tiles per chunk, and
-    each kernel's resident blocks per SM (the grid of K1, K2 and K5 is SMs x
-    resident blocks, or the number of tiles when that is smaller; K3 and K4
-    launch one block per chunk)."""
+    per block, lanes per tile, K4's rays per thread and tiles per chunk, K6's
+    stack entries and tiles per chunk, and each kernel's resident blocks per
+    SM (the grid of K1, K2 and K5 is SMs x resident blocks, or the number of
+    tiles when that is smaller; K3, K4 and K6 launch one block per chunk)."""
     lib = library()
     out = (ctypes.c_int * 6)()
     lib.rt_bounce_geometry(out)
     k4 = (ctypes.c_int * 3)()
     lib.rt_dense_nearest_geometry(k4)
+    k6 = (ctypes.c_int * 3)()
+    lib.rt_bvh_nearest_geometry(k6)
     return {"sms": out[0], "block": out[1], "tile": out[2], "nearest_rays_per_thread": k4[0],
-            "nearest_tiles_per_chunk": k4[1],
+            "nearest_tiles_per_chunk": k4[1], "bvh_stack": k6[0], "bvh_tiles_per_chunk": k6[1],
             "resident_blocks": {"bounce": out[3], "final": out[4], "primary": out[5],
                                 "persistent": lib.rt_persistent_resident_blocks(),
                                 "nearest": k4[2],
-                                "sampler": lib.rt_sampler_resident_blocks()}}
+                                "sampler": lib.rt_sampler_resident_blocks(), "bvh": k6[2]}}
 
 
 def launch_bounce(scene, state, out, wid, wid_off, seed, ctr, depth, ctr_stride, bg,
@@ -277,6 +285,17 @@ def launch_dense_nearest(rays, records, tmin, live, t_out, i_out) -> None:
         None if live is None else live.data_ptr(), t_out.data_ptr(), i_out.data_ptr(), stream,
     )
     _raise_on(rc, "rt_launch_dense_nearest")
+
+
+def launch_bvh_nearest(rays, nodes, depth, records, tmin, live, t_out, i_out) -> None:
+    lib = library()
+    stream = torch.cuda.current_stream(t_out.device).cuda_stream
+    rc = lib.rt_launch_bvh_nearest(
+        _ptrs(rays), nodes.data_ptr(), nodes.shape[0], int(depth), records.data_ptr(),
+        records.shape[0], t_out.shape[0], float(tmin),
+        None if live is None else live.data_ptr(), t_out.data_ptr(), i_out.data_ptr(), stream,
+    )
+    _raise_on(rc, "rt_launch_bvh_nearest")
 
 
 def launch_sampler(ins, need, wid, wid_off, seed, ctr, lp, lspec,

@@ -1,14 +1,15 @@
 """Scene-level nearest hit and surface shading data of the modular dense
 path (the JAX package's ``ops/scene_intersect.py``).
 
-Two phases: a t-only nearest-hit query over the finite table, then a
-*detail* pass that re-intersects only the winning primitive per ray for
-normals and material. The nearest hit takes the hand-written triangle
-kernel K4 (``ops/dense_nearest.py``) when the scene is at most 128
-triangles (``tri_pack`` set), and otherwise a chunked sweep over the whole
-table; infinite planes fold in afterwards. The sweep and the plane fold are
-plain PyTorch ops on the device, as they are XLA outside any Pallas kernel
-in the JAX package.
+Two phases: a t-only nearest-hit query over the finite table
+(``ops/traverse.py:nearest_hit``: the hand-written triangle kernel K4 when
+the scene is at most 128 triangles, the BVH walk K6 when it carries a BVH,
+otherwise the chunked sweep of this module; infinite planes fold in
+afterwards), then a *detail* pass that re-intersects only the winning
+primitive per ray for normals and material. The sweep and the plane fold
+are plain PyTorch ops on the device, as they are XLA outside any Pallas
+kernel in the JAX package. The sweep is K6's plain version too;
+``surface_detail`` reads the row K6 returns as it reads the sweep's.
 
 The sweep's (B, K) t matrix is cut in lanes as well as in primitives, so
 its temporaries stay near ``SWEEP_ELEMS`` elements each whatever the batch
@@ -31,7 +32,8 @@ from ..scene.types import (
     SceneArrays,
     SceneStatics,
 )
-from .dense_nearest import build_tri_records, dense_nearest, dense_nearest_plain
+from .bvh import build_bvh_nodes, build_bvh_records, tree_depth
+from .dense_nearest import build_tri_records
 from .gather import take_packed
 from .intersect import (
     INF,
@@ -51,12 +53,14 @@ SWEEP_ELEMS = 1 << 26  # lanes x primitives per sweep step (256 MB per f32 temp)
 
 
 class ModularScene(NamedTuple):
-    """What the modular dense path reads, on one device: the transposed
+    """What the modular path reads, on one device: the transposed
     attribute packs of ``SceneArrays``, the (9, N) triangle pack of K4 and
     the (N, 12) records its loop reads (both None unless the scene is at
-    most 128 triangles), the light spec K3 reads, and ``lp_np``, the host
+    most 128 triangles), the light spec K3 reads, ``lp_np``, the host
     copy of the light pack the plain sampler takes its per-light constants
-    from."""
+    from, and on the BVH backend the tree K6 walks: its (M, 8) nodes, the
+    (N, 12) primitive records in table order and the tree's depth (all None
+    on the dense backend)."""
 
     statics: SceneStatics
     packed: torch.Tensor  # (PrimCol.COUNT, N) f32
@@ -67,12 +71,15 @@ class ModularScene(NamedTuple):
     tri_pack: torch.Tensor | None  # (9, N) f32
     tri_rec: torch.Tensor | None  # (N, 12) f32: build_tri_records(tri_pack)
     lp_np: np.ndarray
+    bvh_nodes: torch.Tensor | None = None  # (M, 8) f32: ops/bvh.py:build_bvh_nodes
+    bvh_rec: torch.Tensor | None = None  # (N, 12) f32: ops/bvh.py:build_bvh_records
+    bvh_depth: int | None = None  # levels below the root on the deepest path
 
 
 def modular_scene(scn: SceneArrays, statics: SceneStatics,
                   device) -> ModularScene:
-    if scn.bvh is not None:
-        raise NotImplementedError("BVH arrays are not ported yet (ROADMAP M6b)")
+    """The device scene of the modular path; with ``scn.bvh`` set (the
+    arrays of ``ops/bvh.py:attach_bvh``) also the tree K6 walks."""
 
     def dev(a, dtype=torch.float32):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device=device, dtype=dtype)
@@ -91,6 +98,9 @@ def modular_scene(scn: SceneArrays, statics: SceneStatics,
         tri_pack=None if scn.tri_pack is None else dev(scn.tri_pack),
         tri_rec=None if scn.tri_pack is None else dev(build_tri_records(scn.tri_pack)),
         lp_np=lp_np,
+        bvh_nodes=None if scn.bvh is None else dev(build_bvh_nodes(scn.bvh)),
+        bvh_rec=None if scn.bvh is None else dev(build_bvh_records(scn, statics)),
+        bvh_depth=None if scn.bvh is None else tree_depth(scn.bvh),
     )
 
 
@@ -194,38 +204,17 @@ def _sweep(ro: Vec3, rd: Vec3, packed: torch.Tensor, statics: SceneStatics,
     return best_t, best_idx
 
 
-def nearest_hit_dense(ro: Vec3, rd: Vec3, scene: ModularScene, tmin=0.0,
-                      plain: bool = False,
-                      live: torch.Tensor | None = None) -> SceneHit:
-    """Brute-force nearest hit over the finite table + planes. ``plain``
-    runs K4's plain version in place of the kernel (on any device).
-
-    ``live`` (optional (B,) bool) names the lanes whose hit the caller will
-    read. K4 gives the others the miss ``(inf, 0)`` without walking the
-    triangles; the sweep and the plane fold ignore the mask, so a masked
-    lane's hit is unspecified and must not be read."""
-    statics = scene.statics
-    if scene.tri_pack is not None:
-        if plain:
-            best_t, best_idx = dense_nearest_plain(ro, rd, scene.tri_pack, tmin, live)
-        else:
-            best_t, best_idx = dense_nearest(ro, rd, scene.tri_pack, tmin, live,
-                                             records=scene.tri_rec)
-    else:
-        b = ro.x.shape[0]
-        lanes = max(1, SWEEP_ELEMS // min(scene.packed.shape[1], DENSE_CHUNK))
-        parts = [
-            _sweep(Vec3(*(c[s:s + lanes] for c in ro)), Vec3(*(c[s:s + lanes] for c in rd)),
-                   scene.packed, statics, tmin)
-            for s in range(0, b, lanes)
-        ]
-        best_t = torch.cat([p[0] for p in parts])
-        best_idx = torch.cat([p[1] for p in parts])
-    hit = SceneHit(best_t, best_idx, torch.zeros_like(best_t, dtype=torch.bool),
-                   torch.isfinite(best_t))
-    if statics.num_planes > 0:
-        hit = _fold_in_planes(ro, rd, scene, hit, tmin)
-    return hit
+def sweep_nearest(ro: Vec3, rd: Vec3, packed: torch.Tensor, statics: SceneStatics, tmin):
+    """Nearest (t, row) over the whole finite table by the chunked sweep,
+    ``SWEEP_ELEMS`` lanes x primitives at a time; (inf, 0) on a miss."""
+    b = ro.x.shape[0]
+    lanes = max(1, SWEEP_ELEMS // min(packed.shape[1], DENSE_CHUNK))
+    parts = [
+        _sweep(Vec3(*(c[s:s + lanes] for c in ro)), Vec3(*(c[s:s + lanes] for c in rd)),
+               packed, statics, tmin)
+        for s in range(0, b, lanes)
+    ]
+    return torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])
 
 
 def _fold_in_planes(ro: Vec3, rd: Vec3, scene: ModularScene, hit: SceneHit,

@@ -1,7 +1,12 @@
 """Single-device render orchestration.
 
-Three engines, as in the JAX package (``engine=`` or ``RT_ENGINE``; the
-default is ``"batch"`` on the dense backend):
+Two backends, as in the JAX package (``backend=``; by default ``"bvh"``
+above ``BVH_THRESHOLD`` finite primitives, else ``"dense"``): the dense
+nearest hit, or the host SAH tree of ``ops/bvh.py`` walked by K6
+(``ops/traverse.py``). Three engines (``engine=`` or ``RT_ENGINE``; the
+default is ``"batch"`` on both backends: on the BVH frame of PERF.md it
+takes 0.6 s against the counter wavefront's 1.0 s and the sticky engine's
+2.3 s on an H100, where the JAX package picks the wavefront for its TPU):
 
 * ``batch``: pixels are flattened into fixed-size lane batches; each batch
   runs ``integrator.path.render_pixels``. Frames smaller than
@@ -30,11 +35,13 @@ import torch
 from ..integrator.path import TraceConfig, mega_gate, render_pixels
 from ..integrator.wavefront import render_wavefront, render_wavefront_sticky
 from ..ops.bounce import BounceScene, bounce_scene
-from ..ops.scene_intersect import modular_scene
+from ..ops.bvh import attach_bvh
 from ..ops.camera import camera_arrays, pack_camera_row
+from ..ops.scene_intersect import modular_scene
 from ..ops.tonemap import color_to_u8
 from ..scene.build import build_scene_arrays
 from ..scene.types import SceneDesc
+from .profiling import RenderStats
 
 log = logging.getLogger("rt_torch")
 
@@ -54,20 +61,26 @@ def _device(device) -> torch.device:
 class Renderer:
     """Renders frames of one scene on one device.
 
-    ``plain=True`` runs the plain PyTorch versions of the kernels (K1-K4)
+    ``plain=True`` runs the plain PyTorch versions of the kernels (K1-K6)
     on any device (used to hold the kernels against them on the card); by
     default a CUDA device runs the kernels and the CPU the plain versions.
-    ``engine=None`` reads ``RT_ENGINE`` (``batch``, ``wavefront`` or
-    ``sticky``; unset means ``batch``) and ``russian_roulette=None`` reads
-    ``RT_RR`` (``"1"`` turns it on), as the JAX package's Renderer does.
-    After a lane-engine frame, ``rounds`` holds its round count."""
+    ``backend=None`` picks ``"bvh"`` above ``BVH_THRESHOLD`` finite
+    primitives and ``"dense"`` below; either may be asked for. ``engine=None``
+    reads ``RT_ENGINE`` (``batch``, ``wavefront`` or ``sticky``; unset means
+    ``batch``), ``batch_size=None`` means ``DEFAULT_BATCH`` lanes, and
+    ``russian_roulette=None`` reads ``RT_RR`` (``"1"`` turns it on), as the
+    JAX package's Renderer does. ``desc``, ``statics``, ``arrays`` (numpy;
+    in the tree's order, with ``arrays.bvh`` set, on the BVH backend),
+    ``backend`` and ``bvh_builder`` (``"native"`` or ``"numpy"``; None on the
+    dense backend) describe the scene as built. After a lane-engine frame,
+    ``rounds`` holds its round count."""
 
     def __init__(
         self,
         desc: SceneDesc,
         device="cuda",
         backend: str | None = None,
-        batch_size: int = DEFAULT_BATCH,
+        batch_size: int | None = None,
         max_tries: int = 4,
         faithful: bool = False,
         engine: str | None = None,
@@ -75,12 +88,17 @@ class Renderer:
         plain: bool = False,
     ):
         self.device = _device(device)
+        self.desc = desc
         self.settings = desc.settings
         arrays, statics = build_scene_arrays(desc)
         if backend is None:
             backend = "bvh" if statics.num_prims > BVH_THRESHOLD else "dense"
-        if backend != "dense":
-            raise NotImplementedError("the BVH backend is not ported yet (ROADMAP M6b)")
+        if backend not in ("dense", "bvh"):
+            raise ValueError(f"unknown backend {backend!r}")
+        self.bvh_builder = None
+        if backend == "bvh":
+            arrays, self.bvh_builder = attach_bvh(arrays, statics)
+        self.arrays, self.statics, self.backend = arrays, statics, backend
         engine = engine or os.environ.get("RT_ENGINE") or "batch"
         if engine not in ("batch", "wavefront", "sticky"):
             raise ValueError(f"unknown engine {engine!r}")
@@ -88,7 +106,7 @@ class Renderer:
         self.rounds = 0
         if russian_roulette is None:
             russian_roulette = os.environ.get("RT_RR") == "1"
-        self.batch_size = batch_size
+        self.batch_size = DEFAULT_BATCH if batch_size is None else batch_size
         self.plain = plain
         self.cfg = TraceConfig(
             ray_depth=self.settings.ray_depth,
@@ -121,13 +139,14 @@ class Renderer:
                     break
         return b, replicas
 
-    def render_frame_device(self, seed: int = 0, samples: int | None = None):
+    def render_frame_device(self, seed: int = 0, samples: int | None = None,
+                            progress: bool = False):
         """Render the frame, leaving radiance on the device.
 
         Returns (list of per-batch (3, B) channel-major tensors, path
         vertices as a float); the lane engines return one (3, pixels)
         tensor. Reading the count synchronises, so a host clock around this
-        call measures the whole render."""
+        call measures the whole render. ``progress`` logs each batch."""
         w, h = self.settings.width, self.settings.height
         samples = samples or self.settings.samples
         total = w * h
@@ -160,6 +179,8 @@ class Renderer:
                 out = out.reshape(3, replicas, b).mean(dim=1)
             outs.append(out)
             nrays += rays
+            if progress:
+                log.info("render progress: %d/%d batches", i + 1, -(-total // b))
         return outs, float(nrays)
 
     def _assemble(self, outs) -> np.ndarray:
@@ -167,10 +188,21 @@ class Renderer:
         flat = torch.cat(outs, dim=1)[:, : w * h].cpu().numpy()
         return np.ascontiguousarray(flat.T).reshape(h, w, 3)
 
-    def render_radiance(self, seed: int = 0, samples: int | None = None):
-        """Full-frame mean radiance, (H, W, 3) f32 numpy."""
-        outs, _ = self.render_frame_device(seed, samples)
-        return self._assemble(outs)
+    def render_radiance(self, seed: int = 0, samples: int | None = None,
+                        progress: bool = False, with_stats: bool = False):
+        """Full-frame mean radiance, (H, W, 3) f32 numpy. ``progress`` logs
+        each batch; ``with_stats`` also returns a ``RenderStats`` with the
+        exact path-vertex count (the JAX package's ``render_radiance``)."""
+        samples = samples or self.settings.samples
+        t0 = time.perf_counter()
+        outs, verts = self.render_frame_device(seed, samples, progress)
+        img = self._assemble(outs)
+        if not with_stats:
+            return img
+        s = self.settings
+        return img, RenderStats(width=s.width, height=s.height, samples=samples,
+                                ray_depth=s.ray_depth, wall_seconds=time.perf_counter() - t0,
+                                path_vertices=verts, primary_rays=s.width * s.height * samples)
 
     def render_u8(self, seed: int = 0, samples: int | None = None) -> np.ndarray:
         """Tonemapped (H, W, 3) u8 frame; the tonemap runs on the device."""
@@ -187,9 +219,11 @@ def render_scene(desc: SceneDesc, seed: int = 0, device="cuda",
     dt = time.perf_counter() - t0
     s = desc.settings
     log.info(
-        "rendered %dx%d @ %d spp depth %d in %.2fs (%.1f Mprimary-rays/s), engine=%s%s",
+        "rendered %dx%d @ %d spp depth %d in %.2fs (%.1f Mprimary-rays/s), backend=%s%s "
+        "engine=%s%s",
         s.width, s.height, s.samples, s.ray_depth, dt,
-        s.width * s.height * s.samples / dt / 1e6, r.engine,
+        s.width * s.height * s.samples / dt / 1e6, r.backend,
+        "" if r.bvh_builder is None else f" bvh_builder={r.bvh_builder}", r.engine,
         "" if r.engine == "batch" else f" rounds={r.rounds}",
     )
     return img

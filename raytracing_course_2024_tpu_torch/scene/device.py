@@ -22,7 +22,8 @@ from .types import SceneArrays, SceneStatics
 def scene_from_jax(arrays, statics, device
                    ) -> tuple[BounceScene | None, ModularScene, SceneStatics]:
     if arrays.bvh is not None:
-        raise NotImplementedError("BVH arrays are not ported yet (ROADMAP M6)")
+        raise ValueError("the JAX package's treelet arrays have no port counterpart: build the "
+                         "port's tree from the unreordered arrays (ops/bvh.py:attach_bvh)")
     port_arrays = SceneArrays(**{k: None if v is None else np.asarray(v)
                                  for k, v in arrays._asdict().items()})
     port_statics = SceneStatics(**statics._asdict())

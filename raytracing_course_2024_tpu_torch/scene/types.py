@@ -218,7 +218,22 @@ class SceneArrays(NamedTuple):
     # scenes only); kept so the arrays match the JAX build field for field
     tri_pack: "np.ndarray" = None
 
-    bvh: Optional[object] = None  # BVH family not ported yet (ROADMAP M6)
+    # the host SAH tree of the BVH backend (ops/bvh.py:attach_bvh), which
+    # also puts the finite table in the tree's primitive order
+    bvh: Optional["BvhArrays"] = None
+
+
+class BvhArrays(NamedTuple):
+    """Flat binary-BVH arrays of the host SAH tree (ops/bvh.py), numpy; the
+    JAX package's ``BvhArrays``. The nodes are in build order (root 0, each
+    child after its parent)."""
+
+    node_min: "np.ndarray"  # (M, 3) f32 AABB min
+    node_max: "np.ndarray"  # (M, 3) f32 AABB max
+    node_left: "np.ndarray"  # (M,) i32: internal -> left child; leaf -> prim start
+    node_right: "np.ndarray"  # (M,) i32: internal -> right child; leaf -> prim count
+    node_is_leaf: "np.ndarray"  # (M,) bool
+    prim_order: "np.ndarray"  # (N,) i32: row of the original table at tree position i
 
 
 class SceneStatics(NamedTuple):

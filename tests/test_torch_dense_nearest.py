@@ -2,7 +2,7 @@
 
 K4's plain version (``ops/dense_nearest.py``) is held against the JAX
 triangle kernel ``pallas_dense_nearest`` itself, run in interpret mode;
-the port's ``nearest_hit_dense`` + ``surface_detail`` against the JAX
+the port's ``nearest_hit`` + ``surface_detail`` against the JAX
 package's on scenes that take K4 (Cornell), the single-pass sweep (MIXED:
 planes, boxes, ellipsoids, rotations; icosphere(2): 320 triangles) and the
 two-chunk sweep (a 1281-primitive mesh).
@@ -27,6 +27,7 @@ from raytracing_course_2024_tpu.ops.vec import Vec3 as JV
 from raytracing_course_2024_tpu_torch.ops import kernels
 from raytracing_course_2024_tpu_torch.ops import scene_intersect as SI
 from raytracing_course_2024_tpu_torch.ops.dense_nearest import dense_nearest, dense_nearest_plain
+from raytracing_course_2024_tpu_torch.ops.traverse import nearest_hit
 from raytracing_course_2024_tpu_torch.ops.vec import Vec3 as TV
 from torch_parity import builds, random_unit, to_jnp
 
@@ -136,7 +137,7 @@ def test_nearest_hit_and_surface_detail_match_jax(name, sweep_elems, monkeypatch
     jsurf = j_detail(_jv(o), _jv(d), jhit, to_jnp(ja), js)
     scene = SI.modular_scene(ta, ts, "cpu")
     assert (scene.tri_pack is not None) == (name == "cornell")
-    thit = SI.nearest_hit_dense(_tv(o), _tv(d), scene)
+    thit = nearest_hit(_tv(o), _tv(d), scene)
     tsurf = SI.surface_detail(_tv(o), _tv(d), thit, scene)
 
     valid = np.asarray(jhit.valid)

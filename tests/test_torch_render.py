@@ -20,6 +20,7 @@ from raytracing_course_2024_tpu.integrator.path import (
     _PathState,
 )
 from raytracing_course_2024_tpu.ops import rng as jrng
+from raytracing_course_2024_tpu.ops.bvh import attach_bvh as j_attach_bvh
 from raytracing_course_2024_tpu.ops.camera import camera_arrays as j_camera
 from raytracing_course_2024_tpu.ops.camera import generate_rays_u as j_rays
 from raytracing_course_2024_tpu.ops.sampling import sample_mixture
@@ -80,16 +81,21 @@ def test_renderer_matches_jax_renderer_statistically():
     assert np.isfinite(got).all() and (got >= 0).all()
 
 
-def _jax_counter_loop(jd, ja, js, w, h, spp, seed32, depth, rr=False, faithful=False):
+def _jax_counter_loop(jd, ja, js, w, h, spp, seed32, depth, rr=False, faithful=False,
+                      backend="dense"):
     """The port's estimator composed from the JAX package's stages:
     generate_rays_u, then per bounce _collect_hit + sample_mixture + _finish_bounce
     (with the roulette draw when ``rr``), and a final _collect_hit, all fed
-    the port's counter draws. Returns ((3, n_pix) radiance, path vertices)."""
+    the port's counter draws. ``backend="bvh"`` attaches the JAX package's
+    BVH and takes its nearest hit (the treelet traversal). Returns ((3,
+    n_pix) radiance, path vertices)."""
     n_pix, k = w * h, 4
     pix = np.arange(n_pix, dtype=np.int32)
     cam = j_camera(jd.settings.camera)
     cfg = JTraceConfig(ray_depth=depth, bg_color=tuple(jd.settings.bg_color), max_tries=k,
-                       faithful=faithful, rr=rr)
+                       faithful=faithful, rr=rr, backend=backend)
+    if backend == "bvh":
+        ja = j_attach_bvh(ja, js)
     arrays = to_jnp(ja)
     acc = np.zeros((3, n_pix), np.float64)
     rays = 0.0
@@ -239,9 +245,28 @@ def test_modular_and_depth1_configurations_render(case):
 
 @pytest.mark.parametrize("case", ["bvh_size", "bvh"])
 def test_out_of_gate_configurations_raise(case):
-    _, td, kw = _configuration(case)
-    with pytest.raises(NotImplementedError, match="ROADMAP M6"):
-        Renderer(td, device="cpu", **kw)
+    """The two configurations the port refused before it had a BVH backend
+    now render on it (batch engine): a 5121-primitive mesh (above
+    BVH_THRESHOLD, so the BVH backend by default) and MIXED with
+    ``backend="bvh"`` asked for. Both match the JAX-driven loop as the
+    modular cases do (the BVH walk's plain version computes the dense nearest
+    hit exactly); what still raises is a backend that does not exist."""
+    w, h, spp = 16, 12, 2
+    jd, td, kw = _configuration(case, w, h, spp)
+    r = Renderer(td, device="cpu", engine="batch", **kw)
+    assert r.backend == "bvh" and not r.fused and r.arrays.bvh is not None
+    assert r.bvh_builder in ("native", "numpy")
+    outs, verts = r.render_frame_device(seed=SEED)
+    got = r._assemble(outs).reshape(-1, 3).T
+    ja, js = jbuild(jd)
+    want, want_rays = _jax_counter_loop(jd, ja, js, w, h, spp, (SEED * 2654435761) & 0xFFFFFFFF,
+                                        td.settings.ray_depth)
+    ok = (np.abs(got - want) <= 1e-4).all(axis=0)
+    assert ok.mean() >= 0.99, ok.mean()
+    assert abs(verts - want_rays) <= 0.01 * want_rays
+    assert got.max() > 0
+    with pytest.raises(ValueError, match="backend"):
+        Renderer(td, device="cpu", backend="grid")
 
 
 def test_text_scene_overrides_and_planes_only_scene():

@@ -21,6 +21,8 @@ from raytracing_course_2024_tpu.runtime.render import Renderer as JRenderer
 from raytracing_course_2024_tpu_torch.ops import dense_nearest as DN
 from raytracing_course_2024_tpu_torch.ops import kernels
 from raytracing_course_2024_tpu_torch.ops import scene_intersect as SI
+from raytracing_course_2024_tpu_torch.ops import traverse
+from raytracing_course_2024_tpu_torch.ops.traverse import nearest_hit
 from raytracing_course_2024_tpu_torch.runtime.render import Renderer
 from test_torch_dense_nearest import _scene, _tv
 from torch_parity import descs
@@ -100,8 +102,8 @@ def test_wrapper_takes_mask_and_records_on_cpu_and_counts_nothing():
     want = DN.dense_nearest_plain(_tv(o), _tv(d), scene.tri_pack, 0.0, live)
     assert all(torch.equal(g, w) for g, w in zip(got, want))
     assert kernels.LAUNCHES["nearest"] == 0
-    hit = SI.nearest_hit_dense(_tv(o), _tv(d), scene, live=live)
-    full = SI.nearest_hit_dense(_tv(o), _tv(d), scene)
+    hit = nearest_hit(_tv(o), _tv(d), scene, live=live)
+    full = nearest_hit(_tv(o), _tv(d), scene)
     assert not hit.valid[~live].any() and torch.equal(hit.valid[live], full.valid[live])
     assert torch.equal(hit.t[live], full.t[live]) and torch.equal(hit.idx[live], full.idx[live])
 
@@ -117,7 +119,7 @@ def _without_mask(monkeypatch):
         seen["masked"] += live is not None
         return plain(ro, rd, tri_pack, tmin)
 
-    monkeypatch.setattr(SI, "dense_nearest_plain", unmasked)
+    monkeypatch.setattr(traverse, "dense_nearest_plain", unmasked)
     monkeypatch.setattr(DN, "dense_nearest_plain", unmasked)
     return seen
 
