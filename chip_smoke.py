@@ -81,7 +81,18 @@ exits non-zero):
                engine, the counter wavefront's frame twice from one seed
                (equal bit for bit), K6 per launch on its 921,600 camera and
                bounce-1 rays with its bound from the walk model's node and
-               primitive counts over 4,096 of them, and the sweep once.
+               primitive counts over 4,096 of them, and the sweep once;
+7. runtime  -- checkpointed resume: the Cornell frame (fused batch path, 64
+               spp; sticky, 32 spp; on a (2, 2) mesh of the card repeated,
+               32 spp) and the BVH frame (32 spp) in 16-spp chunks, each
+               chunk's launches exact, interrupted at half time and resumed
+               in a fresh process (``chip_smoke.py --resume DIR``), equal
+               bit for bit; the Cornell checkpoint refused by the BVH
+               renderer; sharded frames (Cornell at 16 spp on (2,1), (1,2),
+               (2,2) on the three engines, the BVH frame at 4 spp on (2,2))
+               against the single-card frame, rtol 1e-4 / atol 1e-5, launches
+               summed over the shards; ``device_trace`` around one Cornell
+               frame naming 16 K2 and 80 K1.
 
 The last lines are the card's name and power limit, the per-kernel JSON
 record and ``{"ok": true, "device": {...}}``.
@@ -1716,6 +1727,301 @@ def phase_timing_bvh(dev, gpu: str) -> dict:
     return {"k6": k6, "plain_ms": plain_ms["camera"], "frames": frames, "max_abs_err": err}
 
 
+# the runtime phase: checkpointed resume, the sharded renderer, the device trace
+CKPT_CHUNK = 16  # spp per checkpoint chunk
+CKPT = {"fused": 64, "sticky": 32, "bvh": 32, "sharded": 32}  # case -> spp of the frame
+SHARD_MESHES = ((2, 1), (1, 2), (2, 2))
+SHARD_BVH_SPP = 4
+SHARD_RTOL, SHARD_ATOL = 1e-4, 1e-5  # JAX test_wavefront_sharded_mesh_invariance
+
+
+class Interrupted(RuntimeError):
+    pass
+
+
+class Chunked:
+    """A renderer as ``render_with_checkpoints`` sees it. Per chunk it sets
+    the launch counters to 0 just before the chunk and reads them just after,
+    and keeps the chunk's ms, its rounds and the host ms since the previous
+    chunk returned (the checkpoint: the f64 sum, the ``.npz`` write, the
+    ``os.replace``). Raises ``Interrupted`` in place of chunk ``stop``."""
+
+    def __init__(self, renderer, stop=None):
+        self.r, self.stop = renderer, stop
+        self.launches, self.ms, self.rounds, self.between_ms = [], [], [], []
+        self._end = None
+
+    def __getattr__(self, name):
+        return getattr(self.r, name)
+
+    def render_radiance(self, seed, samples):
+        from raytracing_course_2024_tpu_torch.ops import kernels as KN
+
+        t0 = time.perf_counter()
+        if self._end is not None:
+            self.between_ms.append((t0 - self._end) * 1e3)
+        if len(self.ms) == self.stop:
+            raise Interrupted(f"chunk {self.stop}")
+        KN.reset_launches()
+        img = self.r.render_radiance(seed=seed, samples=samples)  # ends in a host copy
+        self.launches.append(dict(KN.LAUNCHES))
+        self._end = time.perf_counter()
+        self.ms.append((self._end - t0) * 1e3)
+        self.rounds.append(getattr(self.r, "rounds", 0))
+        return img
+
+
+def batch_launches(r, n_pix: int, spp: int, shards: int = 1) -> dict:
+    """The launches of a batch-engine frame of ``shards`` shards of ``n_pix``
+    pixels at ``spp`` samples each: per batch and sample, K2 + K1 per middle
+    level + K1-final (fused), or K6 per level + K3 per level but the last."""
+    from raytracing_course_2024_tpu_torch.integrator.path import DEFAULT_BATCH, plan_batches
+
+    b, replicas = plan_batches(DEFAULT_BATCH, n_pix, spp)
+    runs = shards * -(-n_pix // b) * (spp // replicas)
+    depth = r.settings.ray_depth
+    want = dict.fromkeys(("primary", "bounce", "final", "nearest", "sampler", "persistent",
+                          "bvh"), 0)
+    if r.fused:
+        want.update(primary=runs, bounce=runs * (depth - 2), final=runs)
+    else:
+        want.update(bvh=runs * depth, sampler=runs * (depth - 1))
+    return want
+
+
+def expected_launches(r, n_pix: int, spp: int, shards: int, rounds) -> dict:
+    """What a frame must have launched: the batch engine's plan, or one K5
+    (sticky) or one K1 in lane mode (counter wavefront) per round."""
+    if r.engine == "batch":
+        return batch_launches(r, n_pix, spp, shards)
+    want = dict.fromkeys(batch_launches(r, n_pix, spp), 0)
+    want["persistent" if r.engine == "sticky" else "bounce"] = int(np.sum(rounds))
+    return want
+
+
+def runtime_renderer(case: str, dev):
+    """The renderer of one checkpoint case at 1280x720 (the resume process
+    builds it again from the name): the Cornell frame on the fused batch path,
+    on the sticky engine, on a (2, 2) mesh of ``dev`` repeated; the
+    81,920-triangle BVH frame on its default engine."""
+    from raytracing_course_2024_tpu_torch.parallel import make_mesh
+    from raytracing_course_2024_tpu_torch.runtime.render import Renderer, ShardedRenderer
+    from raytracing_course_2024_tpu_torch.scene import load_scene
+
+    w, h, _ = FRAME
+    if case == "bvh":
+        return Renderer(bvh_desc(w, h, CKPT[case]), device=dev)
+    desc = load_scene(CORNELL, w, h, CKPT[case])
+    if case == "sharded":
+        return ShardedRenderer(desc, mesh=make_mesh(2, 2, devices=[dev] * 4))
+    return Renderer(desc, device=dev, engine="sticky" if case == "sticky" else None)
+
+
+def shard_geometry(r, spp: int) -> tuple:
+    """(pixels, samples, shards) of each shard of a frame at ``spp``: the
+    whole frame for a ``Renderer``; ``ceil(H / tiles)`` rows and ``spp /
+    n_spp`` samples for each of a ``ShardedRenderer``'s shards."""
+    s = r.settings
+    mesh = getattr(r, "mesh", None)
+    if mesh is None:
+        return s.width * s.height, spp, 1
+    tiles, n_spp = mesh.shape["tile"], mesh.shape["spp"]
+    return -(-s.height // tiles) * s.width, spp // n_spp, tiles * n_spp
+
+
+def check_chunks(case: str, c: Chunked, chunks: int) -> None:
+    """Each chunk launched exactly what its engine and plan say."""
+    if len(c.launches) != chunks:
+        raise SystemExit(f"checkpoint {case}: {len(c.launches)} chunks rendered, not {chunks}")
+    for i, got in enumerate(c.launches):
+        want = expected_launches(c.r, *shard_geometry(c.r, CKPT_CHUNK), c.rounds[i])
+        if got != want:
+            raise SystemExit(f"checkpoint {case} chunk {i}: launches {got} != {want}")
+
+
+def resume_main(tmp: str) -> int:
+    """``chip_smoke.py --resume DIR``: a fresh process resumes every
+    ``DIR/<case>-cut.npz`` from the file alone and writes the frame and its
+    chunks' launches beside it."""
+    from raytracing_course_2024_tpu_torch.runtime.checkpoint import render_with_checkpoints
+
+    if not torch.cuda.is_available():
+        print("chip_smoke --resume: no CUDA device", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda", 0)
+    for case in CKPT:
+        c = Chunked(runtime_renderer(case, dev))
+        img = render_with_checkpoints(c, os.path.join(tmp, f"{case}-cut.npz"), CKPT[case],
+                                      CKPT_CHUNK, seed=SEED)
+        np.save(os.path.join(tmp, f"{case}-resumed.npy"), img)
+        with open(os.path.join(tmp, f"{case}-resumed.json"), "w") as f:
+            json.dump({"launches": c.launches, "rounds": c.rounds, "ms": c.ms}, f)
+    return 0
+
+
+def phase_checkpoint(dev, tmp: str, gpu: str) -> dict:
+    """Each case rendered in 16-spp chunks without a break, then again with
+    an exception in place of the chunk at half time, then resumed in a fresh
+    process from the ``.npz`` alone: the resumed frame must equal the
+    unbroken one bit for bit, and every chunk's launches must be exact. The
+    Cornell checkpoint offered to the BVH renderer must raise."""
+    from raytracing_course_2024_tpu_torch.runtime.checkpoint import render_with_checkpoints
+
+    renderers, full = {}, {}
+    for case, spp in CKPT.items():
+        r = renderers[case] = runtime_renderer(case, dev)
+        c = Chunked(r)
+        full[case] = render_with_checkpoints(c, os.path.join(tmp, f"{case}-full.npz"), spp,
+                                             CKPT_CHUNK, seed=SEED)
+        check_chunks(case, c, spp // CKPT_CHUNK)
+        stop = spp // CKPT_CHUNK // 2
+        cut = Chunked(r, stop=stop)
+        try:
+            render_with_checkpoints(cut, os.path.join(tmp, f"{case}-cut.npz"), spp, CKPT_CHUNK,
+                                    seed=SEED)
+            raise SystemExit(f"checkpoint {case}: the interruption did not happen")
+        except Interrupted:
+            pass
+        check_chunks(case, cut, stop)
+        img = full[case]
+        if img.shape != (FRAME[1], FRAME[0], 3) or not np.isfinite(img).all() or img.max() <= 0:
+            raise SystemExit(f"checkpoint {case}: bad frame {img.shape}")
+        size = os.path.getsize(os.path.join(tmp, f"{case}-full.npz"))
+        say("runtime", checkpoint=case, engine=r.engine, backend=r.backend, spp=spp,
+            chunk_spp=CKPT_CHUNK, chunk_ms=json.dumps([round(x, 3) for x in c.ms]).replace(
+                " ", ""), ckpt_write_ms=json.dumps([round(x, 3) for x in c.between_ms + [
+                    cut.between_ms[-1]]]).replace(" ", ""), ckpt_mb=round(size / 1e6, 2),
+            launches_per_chunk=json.dumps(c.launches[0]).replace(" ", ""),
+            rounds=json.dumps(c.rounds).replace(" ", ""), mean=round(float(img.mean()), 5),
+            gpu=f'"{gpu}"')
+    try:
+        render_with_checkpoints(renderers["bvh"], os.path.join(tmp, "fused-full.npz"),
+                                CKPT["fused"], CKPT_CHUNK, seed=SEED)
+        raise SystemExit("the Cornell checkpoint resumed on the BVH renderer")
+    except ValueError as e:
+        say("runtime", checkpoint="cross-scene", raised=f'"{str(e)[:60]}"')
+
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--resume", tmp],
+                          capture_output=True, text=True, timeout=600)
+    secs = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise SystemExit(f"the resume process failed ({proc.returncode}):\n{proc.stderr}")
+    for case, spp in CKPT.items():
+        img = np.load(os.path.join(tmp, f"{case}-resumed.npy"))
+        with open(os.path.join(tmp, f"{case}-resumed.json")) as f:
+            rec = json.load(f)
+        chunks = spp // CKPT_CHUNK
+        c = Chunked(renderers[case])
+        c.launches, c.rounds = rec["launches"], rec["rounds"]
+        check_chunks(case, c, chunks - chunks // 2)
+        equal = bool(np.array_equal(img, full[case]))
+        say("runtime", resume=case, fresh_process=True, chunks_resumed=len(rec["ms"]),
+            bit_equal=equal, max_abs_diff=float(np.abs(img - full[case]).max()),
+            process_seconds=round(secs, 2))
+        if not equal:
+            raise SystemExit(f"checkpoint {case}: the resumed frame differs")
+    return renderers
+
+
+def shard_pair(sr, single: np.ndarray, seed: int, spp: int, what: str, gpu: str) -> None:
+    """One sharded frame against the single-device frame of the same seed:
+    every pixel within rtol 1e-4 / atol 1e-5, launches = the sum over the
+    shards (counters set to 0 just before the frame, read just after)."""
+    from raytracing_course_2024_tpu_torch.ops import kernels as KN
+
+    sr.render_radiance(seed=seed + 1, samples=spp)  # warm-up: allocator
+    torch.cuda.synchronize()
+    KN.reset_launches()
+    t0 = time.perf_counter()
+    img = sr.render_radiance(seed=seed, samples=spp)
+    ms = (time.perf_counter() - t0) * 1e3
+    got = dict(KN.LAUNCHES)
+    want = expected_launches(sr, *shard_geometry(sr, spp), sr.rounds)
+    close = bool(np.allclose(img, single, rtol=SHARD_RTOL, atol=SHARD_ATOL))
+    say("runtime", shard=what, mesh=f"{sr.mesh.shape['tile']}x{sr.mesh.shape['spp']}",
+        engine=sr.engine, spp=spp, ms=round(ms, 3), allclose=close,
+        max_abs_err=float(np.abs(img - single).max()),
+        launches=json.dumps({k: v for k, v in got.items() if v}).replace(" ", ""),
+        rounds=json.dumps(sr.rounds).replace(" ", ""), gpu=f'"{gpu}"')
+    if not close:
+        raise SystemExit(f"shard {what}: the sharded frame differs from the single-device one")
+    if got != want:
+        raise SystemExit(f"shard {what}: launches {got} != {want}")
+
+
+def single_frame(r, seed: int, spp: int, what: str, gpu: str) -> np.ndarray:
+    r.render_radiance(seed=seed + 1, samples=spp)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    img = r.render_radiance(seed=seed, samples=spp)
+    say("runtime", shard=what, mesh="single", engine=r.engine, spp=spp,
+        ms=round((time.perf_counter() - t0) * 1e3, 3), gpu=f'"{gpu}"')
+    return img
+
+
+def phase_shard(dev, gpu: str, bvh_single) -> None:
+    """The Cornell frame at 16 spp on meshes (2,1), (1,2), (2,2) of one card
+    repeated, on all three engines, and the BVH frame at 4 spp on (2, 2) on
+    its default engine, each against the single-device frame: on one card the
+    ms are the sharding's overhead, not a speed-up."""
+    from raytracing_course_2024_tpu_torch.parallel import make_mesh
+    from raytracing_course_2024_tpu_torch.runtime.render import Renderer, ShardedRenderer
+    from raytracing_course_2024_tpu_torch.scene import load_scene
+
+    w, h, spp = FRAME
+    desc = load_scene(CORNELL, w, h, spp)
+    for engine in ("batch", "sticky", "wavefront"):
+        single = single_frame(Renderer(desc, device=dev, engine=engine), SEED, spp,
+                              f"cornell-{engine}", gpu)
+        for shape in SHARD_MESHES:
+            sr = ShardedRenderer(desc, mesh=make_mesh(*shape, devices=[dev] * 4), engine=engine)
+            shard_pair(sr, single, SEED, spp, f"cornell-{engine}", gpu)
+    bdesc = bvh_desc(w, h, SHARD_BVH_SPP)
+    single = single_frame(bvh_single, SEED, SHARD_BVH_SPP, "bvh81920-batch", gpu)
+    sr = ShardedRenderer(bdesc, mesh=make_mesh(2, 2, devices=[dev] * 4))
+    if sr.engine != "batch" or sr.backend != "bvh":
+        raise SystemExit(f"the sharded BVH frame took {sr.backend}/{sr.engine}")
+    shard_pair(sr, single, SEED, SHARD_BVH_SPP, "bvh81920-batch", gpu)
+
+
+def phase_trace(dev, tmp: str) -> None:
+    """``device_trace`` around one Cornell fused frame: the Chrome trace must
+    name K2 (``primary_kernel``) 16 times and K1 (``bounce_kernel``) 80 times
+    (64 + 16 final)."""
+    from raytracing_course_2024_tpu_torch.runtime.profiling import device_trace
+    from raytracing_course_2024_tpu_torch.runtime.render import Renderer
+    from raytracing_course_2024_tpu_torch.scene import load_scene
+
+    w, h, spp = FRAME
+    r = Renderer(load_scene(CORNELL, w, h, spp), device=dev)
+    r.render_frame_device(seed=1)  # warm-up
+    log_dir = os.path.join(tmp, "trace")
+    with device_trace(log_dir) as prof:
+        r.render_frame_device(seed=SEED)
+    path = os.path.join(log_dir, "trace.json")
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kern = [e for e in events if e.get("cat") == "kernel"]
+    counts = {k: sum(k in e.get("name", "") for e in kern)
+              for k in ("primary_kernel", "bounce_kernel")}
+    device_ms = sum(e.get("dur", 0) for e in kern) / 1e3
+    say("runtime", trace=os.path.basename(path), mb=round(os.path.getsize(path) / 1e6, 3),
+        kernel_events=len(kern), named=json.dumps(counts).replace(" ", ""),
+        device_ms=round(device_ms, 3), profiler_rows=len(prof.key_averages()))
+    if counts != {"primary_kernel": spp, "bounce_kernel": spp * 5}:
+        raise SystemExit(f"the trace names {counts}, not 16 K2 and 80 K1")
+
+
+def phase_runtime(dev, gpu: str) -> None:
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        renderers = phase_checkpoint(dev, tmp, gpu)
+        phase_shard(dev, gpu, renderers["bvh"])
+        phase_trace(dev, tmp)
+    say("runtime", seconds=round(time.perf_counter() - t0, 2))
+
+
 def phase_timing(dev, gpu: str, counts: dict, errs: dict, m: Modular, k5, bvh: dict) -> list:
     from raytracing_course_2024_tpu_torch.ops import bounce as B
     from raytracing_course_2024_tpu_torch.ops.persistent import persistent_plain
@@ -1896,6 +2202,7 @@ def main() -> int:
     bvh = phase_timing_bvh(dev, gpu)
     errs["bvh"] = max(errs["bvh"], bvh["max_abs_err"])
     record = phase_timing(dev, gpu, counts, errs, cornell, k5_state, bvh)
+    phase_runtime(dev, gpu)
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib"))
     if leaked:
         raise SystemExit(f"the port imported {leaked}")
@@ -1908,4 +2215,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--resume"]:
+        sys.exit(resume_main(sys.argv[2]))
     sys.exit(main())

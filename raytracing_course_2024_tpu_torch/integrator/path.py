@@ -35,6 +35,7 @@ the Mrays/s metric (bench.py).
 
 from __future__ import annotations
 
+import logging
 import os
 from typing import NamedTuple
 
@@ -51,8 +52,11 @@ from ..ops.traverse import nearest_hit
 from ..ops.vec import Vec3, reflect, where3
 from ..scene.types import DIELECTRIC, MIRROR, SceneStatics
 
+log = logging.getLogger("rt_torch")
+
 RR_START = 2  # first bounce index eligible for roulette
 RR_MIN_P = 0.05
+DEFAULT_BATCH = 1_048_576  # lanes per batch (the JAX package's TPU value)
 
 
 class TraceConfig(NamedTuple):
@@ -313,3 +317,60 @@ def render_pixels(scene, seed: int, wid: torch.Tensor, px: torch.Tensor,
         acc += rad
         nrays += rays
     return acc * (1.0 / samples), nrays
+
+
+def plan_batches(batch_size: int, n_pix: int, samples: int) -> tuple:
+    """(batch, replicas) for ``n_pix`` pixels: fill ~``batch_size`` lanes;
+    a frame smaller than that gives each pixel ``replicas`` lanes, where
+    ``replicas`` divides ``samples`` (the JAX package's ``_plan``)."""
+    b = min(batch_size, n_pix)
+    replicas = 1
+    if n_pix < batch_size:
+        budget = max(batch_size // n_pix, 1)
+        for c in range(min(budget, samples), 0, -1):
+            if samples % c == 0:
+                replicas = c
+                break
+    return b, replicas
+
+
+def render_batches(scene, seed: int, cam_row: torch.Tensor, cfg: TraceConfig, width: int,
+                   height: int, samples: int, batch_size: int, pix_base: int = 0,
+                   n_pix: int | None = None, samp_base: int = 0, plain: bool = False,
+                   progress: bool = False):
+    """The batch engine on pixels [pix_base, pix_base + n_pix) of the
+    width x height frame (row-major; default: the whole frame) at samples
+    ``samp_base`` .. ``samp_base + samples - 1``.
+
+    Pixels are cut into batches of ``plan_batches`` lanes; lane (replica r,
+    pixel p) renders samples ``samp_base + r * samples / replicas`` onwards
+    through ``render_pixels``. A pixel past the last row renders the last
+    row's pixel of its column (the camera always sees the true height; the
+    caller crops it). Returns (per-batch (3, B) channel-major mean radiance,
+    path vertices as a 0-dim float64 tensor). ``progress`` logs each batch."""
+    total = width * height
+    n_pix = total if n_pix is None else n_pix
+    b, replicas = plan_batches(batch_size, n_pix, samples)
+    spp_r = samples // replicas
+    dev = cam_row.device
+    n_batches = -(-n_pix // b)
+    outs = []
+    nrays = torch.zeros((), dtype=torch.float64, device=dev)
+    for i in range(n_batches):
+        lin = torch.arange(b, dtype=torch.int64, device=dev)
+        pixg = pix_base + torch.clamp(lin + i * b, max=n_pix - 1)
+        px, py = pixg % width, torch.clamp(pixg // width, max=height - 1)
+        rep = torch.arange(replicas, dtype=torch.int64, device=dev)
+        # lane (replica r, pixel p) renders samples samp_base + r*spp_r .. + spp_r - 1
+        wid = ((samp_base + rep[:, None] * spp_r) * total + (py * width + px)[None, :]).reshape(-1)
+        out, rays = render_pixels(scene, seed, wid.to(torch.int32),
+                                  px.repeat(replicas).to(torch.float32),
+                                  py.repeat(replicas).to(torch.float32), cam_row, cfg, width,
+                                  height, spp_r, total, plain=plain)
+        if replicas > 1:
+            out = out.reshape(3, replicas, b).mean(dim=1)
+        outs.append(out)
+        nrays += rays
+        if progress:
+            log.info("render progress: %d/%d batches", i + 1, n_batches)
+    return outs, nrays

@@ -53,7 +53,7 @@ from ..scene.build import MAX_PRIMS
 from .brdf import eval_brdf
 from .camera import camera_from_row, generate_rays_u
 from .intersect import DIR_BIAS, EPS
-from .kernels import LAUNCHES, check, launch_bounce, launch_primary
+from .kernels import check, launch_bounce, launch_primary
 from .mixture import mixture_body
 from .rng import (CTR_JITTER, WF_STRIDE, Ctr, batch_ctr, draws_per_bounce, lane_ctr,
                   uniform_ctr, work_key)
@@ -556,7 +556,6 @@ def bounce(scene: BounceScene, state: torch.Tensor, wid: torch.Tensor,
     ctr = _ctr(bounce_i, max_tries, None if depth is None else 0)
     launch_bounce(scene, state, out, wid, wid_off, seed, ctr, depth, WF_STRIDE, bg,
                   max_tries, final_only, count)
-    LAUNCHES["final" if final_only else "bounce"] += 1
     return out
 
 
@@ -588,5 +587,4 @@ def primary_bounce(scene: BounceScene, cam_row: torch.Tensor,
     check("out", out, torch.float32, (N_STATE, b), dev)
     launch_primary(scene, cam_row, px, py, out, wid, wid_off, seed, _ctr(0, max_tries, None),
                    bg, max_tries, width, height)
-    LAUNCHES["primary"] += 1
     return out

@@ -29,7 +29,7 @@ import numpy as np
 import torch
 
 from ..scene.build import MAX_PRIMS  # the kernel stages every record in shared memory
-from .kernels import LAUNCHES, check, launch_dense_nearest
+from .kernels import check, launch_dense_nearest
 from .vec import Vec3
 
 REC_FLOATS = 12  # one record: three float4
@@ -109,5 +109,4 @@ def dense_nearest(ro: Vec3, rd: Vec3, tri_pack: torch.Tensor,
     t = torch.empty((b,), dtype=torch.float32, device=dev)
     idx = torch.empty((b,), dtype=torch.int32, device=dev)
     launch_dense_nearest(rays, records, tmin, live, t, idx)
-    LAUNCHES["nearest"] += 1
     return t, idx

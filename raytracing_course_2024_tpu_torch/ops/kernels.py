@@ -10,19 +10,25 @@ is compiled. ``-Xptxas -v`` writes each kernel's registers, shared memory
 and spills into the build log next to the library.
 
 Importing this module builds nothing; ``library()`` builds on first call.
-``LAUNCHES`` counts the launches each wrapper makes (``ops/bounce.py``,
-``ops/dense_nearest.py``, ``ops/sampler.py``, ``ops/persistent.py``,
-``ops/traverse.py``);
-``check`` validates a tensor before its pointer goes to a kernel.
+Each ``launch_*`` function makes its tensors' device current for the launch
+and launches on that device's current stream, so shards on several cards,
+or on threads, each launch where their data lies. ``LAUNCHES`` counts the
+launches of each kernel (the wrappers of ``ops/bounce.py``,
+``ops/dense_nearest.py``, ``ops/sampler.py``, ``ops/persistent.py`` and
+``ops/traverse.py`` call these functions); it and the tile tickets are
+changed under a lock. ``check`` validates a tensor before its pointer goes
+to a kernel.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -51,11 +57,18 @@ BUILD_INFO: dict = {}  # path, seconds (0.0 when cached), log of the last build
 # backend's K6
 LAUNCHES = {"primary": 0, "bounce": 0, "final": 0, "nearest": 0, "sampler": 0,
             "persistent": 0, "bvh": 0}
+_LOCK = threading.Lock()  # guards LAUNCHES and _TICKETS: shards launch from threads
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _LOCK:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+
+
+def _count(name: str) -> None:
+    with _LOCK:
+        LAUNCHES[name] += 1
 
 
 def check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
@@ -203,9 +216,19 @@ def _tickets(device, stream: int) -> torch.Tensor:
     (``csrc/lane_queue.cuh:walk_tiles``): zero between launches, one pair
     per device and stream, since launches on one stream run in order."""
     key = (device, stream)
-    if key not in _TICKETS:
-        _TICKETS[key] = torch.zeros((2,), dtype=torch.int32, device=device)
-    return _TICKETS[key]
+    with _LOCK:
+        if key not in _TICKETS:
+            _TICKETS[key] = torch.zeros((2,), dtype=torch.int32, device=device)
+        return _TICKETS[key]
+
+
+@contextlib.contextmanager
+def _on(device: torch.device):
+    """Makes ``device`` current for a launch and yields its current stream:
+    the launchers size their grids from the current device's SMs
+    (``csrc/lane_queue.cuh:grid_for``) and ``<<<>>>`` launches on it."""
+    with torch.cuda.device(device):
+        yield torch.cuda.current_stream(device).cuda_stream
 
 
 def launch_geometry() -> dict:
@@ -232,44 +255,47 @@ def launch_geometry() -> dict:
 def launch_bounce(scene, state, out, wid, wid_off, seed, ctr, depth, ctr_stride, bg,
                   max_tries, final_only, count=None) -> None:
     lib = library()
-    stream = torch.cuda.current_stream(state.device).cuda_stream
-    tickets = _tickets(state.device, stream)
-    rc = lib.rt_launch_bounce(
-        state.data_ptr(), out.data_ptr(), state.shape[1], wid.data_ptr(),
-        _u32(wid_off), _u32(seed), *_ctr(ctr),
-        None if depth is None else depth.data_ptr(), _u32(ctr_stride),
-        *_scene(scene, bg, max_tries), int(bool(final_only)),
-        None if count is None else count.data_ptr(), tickets.data_ptr(), stream,
-    )
-    _raise_on(rc, "rt_launch_bounce", tickets)
+    with _on(state.device) as stream:
+        tickets = _tickets(state.device, stream)
+        rc = lib.rt_launch_bounce(
+            state.data_ptr(), out.data_ptr(), state.shape[1], wid.data_ptr(),
+            _u32(wid_off), _u32(seed), *_ctr(ctr),
+            None if depth is None else depth.data_ptr(), _u32(ctr_stride),
+            *_scene(scene, bg, max_tries), int(bool(final_only)),
+            None if count is None else count.data_ptr(), tickets.data_ptr(), stream,
+        )
+        _raise_on(rc, "rt_launch_bounce", tickets)
+    _count("final" if final_only else "bounce")
 
 
 def launch_primary(scene, cam_row, px, py, out, wid, wid_off, seed, ctr, bg,
                    max_tries, width, height) -> None:
     lib = library()
-    stream = torch.cuda.current_stream(px.device).cuda_stream
-    rc = lib.rt_launch_primary(
-        px.data_ptr(), py.data_ptr(), cam_row.data_ptr(), int(width),
-        int(height), out.data_ptr(), px.shape[0], wid.data_ptr(),
-        _u32(wid_off), _u32(seed), *_ctr(ctr), *_scene(scene, bg, max_tries), stream,
-    )
+    with _on(px.device) as stream:
+        rc = lib.rt_launch_primary(
+            px.data_ptr(), py.data_ptr(), cam_row.data_ptr(), int(width),
+            int(height), out.data_ptr(), px.shape[0], wid.data_ptr(),
+            _u32(wid_off), _u32(seed), *_ctr(ctr), *_scene(scene, bg, max_tries), stream,
+        )
     _raise_on(rc, "rt_launch_primary")
+    _count("primary")
 
 
 def launch_persistent(scene, state, out, px, py, kmax, cam_row, width, height, seed,
                       frame_pix, pix_base, samp_base, ctr, ctr_stride, ray_depth, bg,
                       max_tries, counts) -> None:
     lib = library()
-    stream = torch.cuda.current_stream(state.device).cuda_stream
-    tickets = _tickets(state.device, stream)
-    rc = lib.rt_launch_persistent(
-        state.data_ptr(), out.data_ptr(), state.shape[1], px.data_ptr(), py.data_ptr(),
-        kmax.data_ptr(), cam_row.data_ptr(), int(width), int(height), _u32(seed),
-        _u32(frame_pix), _u32(pix_base), _u32(samp_base), *_ctr(ctr), _u32(ctr_stride),
-        int(ray_depth), *_scene(scene, bg, max_tries), counts.data_ptr(),
-        tickets.data_ptr(), stream,
-    )
-    _raise_on(rc, "rt_launch_persistent", tickets)
+    with _on(state.device) as stream:
+        tickets = _tickets(state.device, stream)
+        rc = lib.rt_launch_persistent(
+            state.data_ptr(), out.data_ptr(), state.shape[1], px.data_ptr(), py.data_ptr(),
+            kmax.data_ptr(), cam_row.data_ptr(), int(width), int(height), _u32(seed),
+            _u32(frame_pix), _u32(pix_base), _u32(samp_base), *_ctr(ctr), _u32(ctr_stride),
+            int(ray_depth), *_scene(scene, bg, max_tries), counts.data_ptr(),
+            tickets.data_ptr(), stream,
+        )
+        _raise_on(rc, "rt_launch_persistent", tickets)
+    _count("persistent")
 
 
 def _ptrs(tensors) -> ctypes.Array:
@@ -279,33 +305,38 @@ def _ptrs(tensors) -> ctypes.Array:
 
 def launch_dense_nearest(rays, records, tmin, live, t_out, i_out) -> None:
     lib = library()
-    stream = torch.cuda.current_stream(t_out.device).cuda_stream
-    rc = lib.rt_launch_dense_nearest(
-        _ptrs(rays), records.data_ptr(), records.shape[0], t_out.shape[0], float(tmin),
-        None if live is None else live.data_ptr(), t_out.data_ptr(), i_out.data_ptr(), stream,
-    )
+    with _on(t_out.device) as stream:
+        rc = lib.rt_launch_dense_nearest(
+            _ptrs(rays), records.data_ptr(), records.shape[0], t_out.shape[0], float(tmin),
+            None if live is None else live.data_ptr(), t_out.data_ptr(), i_out.data_ptr(),
+            stream,
+        )
     _raise_on(rc, "rt_launch_dense_nearest")
+    _count("nearest")
 
 
 def launch_bvh_nearest(rays, nodes, depth, records, tmin, live, t_out, i_out) -> None:
     lib = library()
-    stream = torch.cuda.current_stream(t_out.device).cuda_stream
-    rc = lib.rt_launch_bvh_nearest(
-        _ptrs(rays), nodes.data_ptr(), nodes.shape[0], int(depth), records.data_ptr(),
-        records.shape[0], t_out.shape[0], float(tmin),
-        None if live is None else live.data_ptr(), t_out.data_ptr(), i_out.data_ptr(), stream,
-    )
+    with _on(t_out.device) as stream:
+        rc = lib.rt_launch_bvh_nearest(
+            _ptrs(rays), nodes.data_ptr(), nodes.shape[0], int(depth), records.data_ptr(),
+            records.shape[0], t_out.shape[0], float(tmin),
+            None if live is None else live.data_ptr(), t_out.data_ptr(), i_out.data_ptr(),
+            stream,
+        )
     _raise_on(rc, "rt_launch_bvh_nearest")
+    _count("bvh")
 
 
 def launch_sampler(ins, need, wid, wid_off, seed, ctr, lp, lspec,
                    num_lights, max_tries, out, ok) -> None:
     lib = library()
-    stream = torch.cuda.current_stream(out.device).cuda_stream
-    rc = lib.rt_launch_sampler(
-        _ptrs(ins), need.data_ptr(), wid.data_ptr(), _u32(wid_off), _u32(seed),
-        *_ctr(ctr), lp.data_ptr(), lspec.data_ptr(), lp.shape[1],
-        int(num_lights), int(max_tries), out.shape[1], out.data_ptr(),
-        ok.data_ptr(), stream,
-    )
+    with _on(out.device) as stream:
+        rc = lib.rt_launch_sampler(
+            _ptrs(ins), need.data_ptr(), wid.data_ptr(), _u32(wid_off), _u32(seed),
+            *_ctr(ctr), lp.data_ptr(), lspec.data_ptr(), lp.shape[1],
+            int(num_lights), int(max_tries), out.shape[1], out.data_ptr(),
+            ok.data_ptr(), stream,
+        )
     _raise_on(rc, "rt_launch_sampler")
+    _count("sampler")

@@ -32,7 +32,7 @@ import torch
 
 from .bounce import BounceScene, _bounce_math, check_scene
 from .camera import camera_from_row, generate_rays_u
-from .kernels import LAUNCHES, check, launch_persistent
+from .kernels import check, launch_persistent
 from .rng import CTR_JITTER, WF_STRIDE, lane_ctr, uniform_ctr, work_key
 from .vec import Vec3, where3
 
@@ -117,5 +117,4 @@ def persistent_round(scene: BounceScene, cam_row: torch.Tensor, px: torch.Tensor
     launch_persistent(scene, state, out, px, py, kmax, cam_row, width, height, seed,
                       frame_pix, pix_base, samp_base, lane_ctr(0, max_tries), WF_STRIDE,
                       ray_depth, bg, max_tries, counts)
-    LAUNCHES["persistent"] += 1
     return out

@@ -30,7 +30,7 @@ from __future__ import annotations
 
 import torch
 
-from .kernels import LAUNCHES, check, launch_sampler
+from .kernels import check, launch_sampler
 from .rng import batch_ctr, mixture_rows, work_key
 from .sampling import UNROLL_MAX_LIGHTS, sample_mixture
 from .vec import Vec3
@@ -76,5 +76,4 @@ def sample_mixture_kernel(scene, seed: int, wid: torch.Tensor, wid_off: int,
     ok = torch.empty((b,), dtype=torch.bool, device=dev)
     launch_sampler(ins, need, wid, wid_off, seed, batch_ctr(ctr_base, max_tries), lp, lspec,
                    scene.statics.num_lights, max_tries, out, ok)
-    LAUNCHES["sampler"] += 1
     return Vec3(out[0], out[1], out[2]), out[3], ok

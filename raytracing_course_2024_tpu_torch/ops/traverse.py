@@ -37,7 +37,7 @@ import torch
 from .bounce import REC_FLOATS
 from .bvh import BVH_STACK, NODE_FLOATS
 from .dense_nearest import dense_nearest, dense_nearest_plain
-from .kernels import LAUNCHES, check, launch_bvh_nearest
+from .kernels import check, launch_bvh_nearest
 from .scene_intersect import (
     ModularScene,
     SceneHit,
@@ -85,7 +85,6 @@ def bvh_nearest(ro: Vec3, rd: Vec3, scene: ModularScene, tmin: float = 0.0,
     t = torch.empty((b,), dtype=torch.float32, device=dev)
     idx = torch.empty((b,), dtype=torch.int32, device=dev)
     launch_bvh_nearest(rays, scene.bvh_nodes, scene.bvh_depth, scene.bvh_rec, tmin, live, t, idx)
-    LAUNCHES["bvh"] += 1
     return t, idx
 
 

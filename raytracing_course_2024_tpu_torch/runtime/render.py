@@ -1,4 +1,5 @@
-"""Single-device render orchestration.
+"""Render orchestration: one device (``Renderer``) or a mesh of devices
+(``ShardedRenderer``).
 
 Two backends, as in the JAX package (``backend=``; by default ``"bvh"``
 above ``BVH_THRESHOLD`` finite primitives, else ``"dense"``): the dense
@@ -9,18 +10,22 @@ takes 0.6 s against the counter wavefront's 1.0 s and the sticky engine's
 2.3 s on an H100, where the JAX package picks the wavefront for its TPU):
 
 * ``batch``: pixels are flattened into fixed-size lane batches; each batch
-  runs ``integrator.path.render_pixels``. Frames smaller than
-  ``batch_size`` give each pixel ``replicas`` lanes that split the spp
-  budget (the JAX package's ``_plan``).
+  runs ``integrator.path.render_pixels`` (``render_batches``). Frames
+  smaller than ``batch_size`` give each pixel ``replicas`` lanes that split
+  the spp budget (the JAX package's ``_plan``).
 * ``wavefront`` / ``sticky``: the lane engines of
   ``integrator/wavefront.py`` on ``min(batch_size, pixels x spp)`` lanes;
   the sticky engine runs one K5 per round when the lanes cover the pixels.
 
 The fused or the modular route is picked as the JAX package picks it
-(``integrator.path.mega_gate``, which chooses the device scene the Renderer
+(``integrator.path.mega_gate``, which chooses the device scene the renderer
 builds). Every draw is keyed by (seed, sample, pixel) through the counter
-RNG, so the image does not depend on the batch size, the replica count or
-the lane count.
+RNG, so the image does not depend on the batch size, the replica count, the
+lane count or the mesh.
+
+``render_scene`` shards over every card (``parallel/shard.py``) when it is
+asked for ``"cuda"`` and more than one card is present, as the JAX package
+shards over every device.
 """
 
 from __future__ import annotations
@@ -32,20 +37,21 @@ import time
 import numpy as np
 import torch
 
-from ..integrator.path import TraceConfig, mega_gate, render_pixels
+from ..integrator.path import (DEFAULT_BATCH, TraceConfig, mega_gate, plan_batches,
+                               render_batches)
 from ..integrator.wavefront import render_wavefront, render_wavefront_sticky
-from ..ops.bounce import BounceScene, bounce_scene
+from ..ops.bounce import bounce_scene
 from ..ops.bvh import attach_bvh
 from ..ops.camera import camera_arrays, pack_camera_row
 from ..ops.scene_intersect import modular_scene
 from ..ops.tonemap import color_to_u8
+from ..parallel.shard import make_mesh, render_frame_sharded
 from ..scene.build import build_scene_arrays
 from ..scene.types import SceneDesc
 from .profiling import RenderStats
 
 log = logging.getLogger("rt_torch")
 
-DEFAULT_BATCH = 1_048_576  # lanes per batch (the JAX package's TPU value)
 BVH_THRESHOLD = 2048  # finite prims above this need the BVH backend
 
 
@@ -58,7 +64,80 @@ def _device(device) -> torch.device:
     return dev
 
 
-class Renderer:
+class _RendererBase:
+    """What both renderers share. Before a device is touched: the host
+    arrays (with the BVH attached on the BVH backend), the backend, the
+    engine, the integrator's ``cfg``, the camera and the route
+    (``mega_gate``: ``fused``); ``_device_scene`` builds that route's scene
+    on one device. After a frame (``render_frame_device``, which each
+    renderer defines): the host image and its statistics."""
+
+    def __init__(self, desc: SceneDesc, backend, max_tries, faithful, engine,
+                 russian_roulette):
+        self.desc = desc
+        self.settings = desc.settings
+        arrays, statics = build_scene_arrays(desc)
+        if backend is None:
+            backend = "bvh" if statics.num_prims > BVH_THRESHOLD else "dense"
+        if backend not in ("dense", "bvh"):
+            raise ValueError(f"unknown backend {backend!r}")
+        self.bvh_builder = None
+        if backend == "bvh":
+            arrays, self.bvh_builder = attach_bvh(arrays, statics)
+        self.arrays, self.statics, self.backend = arrays, statics, backend
+        engine = engine or os.environ.get("RT_ENGINE") or "batch"
+        if engine not in ("batch", "wavefront", "sticky"):
+            raise ValueError(f"unknown engine {engine!r}")
+        self.engine = engine
+        if russian_roulette is None:
+            russian_roulette = os.environ.get("RT_RR") == "1"
+        self.cfg = TraceConfig(
+            ray_depth=self.settings.ray_depth,
+            bg_color=tuple(float(c) for c in self.settings.bg_color),
+            max_tries=max_tries,
+            backend=backend,
+            faithful=faithful,
+            rr=russian_roulette,
+        )
+        self.cam = camera_arrays(self.settings.camera)
+        self._build = bounce_scene if mega_gate(self.cfg, self.statics) else modular_scene
+
+    @property
+    def fused(self) -> bool:
+        """Whether frames take the fused path (``mega_gate``, read once)."""
+        return self._build is bounce_scene
+
+    def _device_scene(self, device: torch.device):
+        return self._build(self.arrays, self.statics, device)
+
+    def _assemble(self, outs) -> np.ndarray:
+        w, h = self.settings.width, self.settings.height
+        flat = torch.cat(outs, dim=1)[:, : w * h].cpu().numpy()
+        return np.ascontiguousarray(flat.T).reshape(h, w, 3)
+
+    def render_radiance(self, seed: int = 0, samples: int | None = None,
+                        progress: bool = False, with_stats: bool = False):
+        """Full-frame mean radiance, (H, W, 3) f32 numpy. ``progress`` logs
+        each batch; ``with_stats`` also returns a ``RenderStats`` with the
+        exact path-vertex count (the JAX package's ``render_radiance``)."""
+        samples = samples or self.settings.samples
+        t0 = time.perf_counter()
+        outs, verts = self.render_frame_device(seed, samples, progress)
+        img = self._assemble(outs)
+        if not with_stats:
+            return img
+        s = self.settings
+        return img, RenderStats(width=s.width, height=s.height, samples=samples,
+                                ray_depth=s.ray_depth, wall_seconds=time.perf_counter() - t0,
+                                path_vertices=verts, primary_rays=s.width * s.height * samples)
+
+    def render_u8(self, seed: int = 0, samples: int | None = None) -> np.ndarray:
+        """Tonemapped (H, W, 3) u8 frame; the tonemap runs on the device."""
+        outs, _ = self.render_frame_device(seed, samples)
+        return self._assemble([color_to_u8(o) for o in outs])
+
+
+class Renderer(_RendererBase):
     """Renders frames of one scene on one device.
 
     ``plain=True`` runs the plain PyTorch versions of the kernels (K1-K6)
@@ -88,56 +167,17 @@ class Renderer:
         plain: bool = False,
     ):
         self.device = _device(device)
-        self.desc = desc
-        self.settings = desc.settings
-        arrays, statics = build_scene_arrays(desc)
-        if backend is None:
-            backend = "bvh" if statics.num_prims > BVH_THRESHOLD else "dense"
-        if backend not in ("dense", "bvh"):
-            raise ValueError(f"unknown backend {backend!r}")
-        self.bvh_builder = None
-        if backend == "bvh":
-            arrays, self.bvh_builder = attach_bvh(arrays, statics)
-        self.arrays, self.statics, self.backend = arrays, statics, backend
-        engine = engine or os.environ.get("RT_ENGINE") or "batch"
-        if engine not in ("batch", "wavefront", "sticky"):
-            raise ValueError(f"unknown engine {engine!r}")
-        self.engine = engine
+        super().__init__(desc, backend, max_tries, faithful, engine, russian_roulette)
         self.rounds = 0
-        if russian_roulette is None:
-            russian_roulette = os.environ.get("RT_RR") == "1"
         self.batch_size = DEFAULT_BATCH if batch_size is None else batch_size
         self.plain = plain
-        self.cfg = TraceConfig(
-            ray_depth=self.settings.ray_depth,
-            bg_color=tuple(float(c) for c in self.settings.bg_color),
-            max_tries=max_tries,
-            backend=backend,
-            faithful=faithful,
-            rr=russian_roulette,
-        )
-        build = bounce_scene if mega_gate(self.cfg, statics) else modular_scene
-        self.scene = build(arrays, statics, self.device)
-        self.cam = camera_arrays(self.settings.camera)
+        self.scene = self._device_scene(self.device)
         self.cam_row = torch.from_numpy(pack_camera_row(self.cam)[0]).to(self.device)
         self.bg = self.cfg.bg_color
 
-    @property
-    def fused(self) -> bool:
-        """Whether frames take the fused path (the scene's type is the route)."""
-        return isinstance(self.scene, BounceScene)
-
     def _plan(self, total: int, samples: int):
-        """Pick (batch, replicas): fill ~batch_size lanes, replicas | samples."""
-        b = min(self.batch_size, total)
-        replicas = 1
-        if total < self.batch_size:
-            budget = max(self.batch_size // total, 1)
-            for c in range(min(budget, samples), 0, -1):
-                if samples % c == 0:
-                    replicas = c
-                    break
-        return b, replicas
+        """(batch, replicas) of a frame of ``total`` pixels (``plan_batches``)."""
+        return plan_batches(self.batch_size, total, samples)
 
     def render_frame_device(self, seed: int = 0, samples: int | None = None,
                             progress: bool = False):
@@ -157,62 +197,19 @@ class Renderer:
             img, verts, self.rounds = render(seed32, 0, 0, self.cam, self.scene, self.cfg,
                                              w, h, total, samples, lanes, plain=self.plain)
             return [img], verts
-        b, replicas = self._plan(total, samples)
-        spp_r = samples // replicas
-        dev = self.device
-        outs = []
-        nrays = torch.zeros((), dtype=torch.float64, device=dev)
-        for i in range(-(-total // b)):
-            lin = torch.arange(b, dtype=torch.int64, device=dev)
-            idx = torch.clamp(lin + i * b, max=total - 1)
-            rep = torch.arange(replicas, dtype=torch.int64, device=dev)
-            # lane (replica r, pixel p) renders samples r*spp_r .. r*spp_r+spp_r-1
-            wid = (rep[:, None] * (spp_r * total) + idx[None, :]).reshape(-1)
-            pix = idx.repeat(replicas)
-            px = (pix % w).to(torch.float32)
-            py = (pix // w).to(torch.float32)
-            out, rays = render_pixels(
-                self.scene, seed32, wid.to(torch.int32), px, py, self.cam_row,
-                self.cfg, w, h, spp_r, total, plain=self.plain,
-            )
-            if replicas > 1:
-                out = out.reshape(3, replicas, b).mean(dim=1)
-            outs.append(out)
-            nrays += rays
-            if progress:
-                log.info("render progress: %d/%d batches", i + 1, -(-total // b))
-        return outs, float(nrays)
-
-    def _assemble(self, outs) -> np.ndarray:
-        w, h = self.settings.width, self.settings.height
-        flat = torch.cat(outs, dim=1)[:, : w * h].cpu().numpy()
-        return np.ascontiguousarray(flat.T).reshape(h, w, 3)
-
-    def render_radiance(self, seed: int = 0, samples: int | None = None,
-                        progress: bool = False, with_stats: bool = False):
-        """Full-frame mean radiance, (H, W, 3) f32 numpy. ``progress`` logs
-        each batch; ``with_stats`` also returns a ``RenderStats`` with the
-        exact path-vertex count (the JAX package's ``render_radiance``)."""
-        samples = samples or self.settings.samples
-        t0 = time.perf_counter()
-        outs, verts = self.render_frame_device(seed, samples, progress)
-        img = self._assemble(outs)
-        if not with_stats:
-            return img
-        s = self.settings
-        return img, RenderStats(width=s.width, height=s.height, samples=samples,
-                                ray_depth=s.ray_depth, wall_seconds=time.perf_counter() - t0,
-                                path_vertices=verts, primary_rays=s.width * s.height * samples)
-
-    def render_u8(self, seed: int = 0, samples: int | None = None) -> np.ndarray:
-        """Tonemapped (H, W, 3) u8 frame; the tonemap runs on the device."""
-        outs, _ = self.render_frame_device(seed, samples)
-        return self._assemble([color_to_u8(o) for o in outs])
+        outs, verts = render_batches(self.scene, seed32, self.cam_row, self.cfg, w, h, samples,
+                                     self.batch_size, plain=self.plain, progress=progress)
+        return outs, float(verts)
 
 
-def render_scene(desc: SceneDesc, seed: int = 0, device="cuda",
-                 **kw) -> np.ndarray:
-    """One-shot render (reference ``render_scene``, src/rendering.rs:21)."""
+def render_scene(desc: SceneDesc, seed: int = 0, device="cuda", **kw) -> np.ndarray:
+    """One-shot render (reference ``render_scene``, src/rendering.rs:21).
+
+    Asked for ``"cuda"`` with more than one card present, the frame renders
+    over a (tile x spp) mesh of every card (``ShardedRenderer``); a named
+    device (``"cuda:1"``, ``"cpu"``) gets the single-device ``Renderer``."""
+    if str(device) == "cuda" and torch.cuda.device_count() > 1:
+        return _render_scene_sharded(desc, seed, **kw)
     r = Renderer(desc, device=device, **kw)
     t0 = time.perf_counter()
     img = r.render_u8(seed)
@@ -226,4 +223,66 @@ def render_scene(desc: SceneDesc, seed: int = 0, device="cuda",
         "" if r.bvh_builder is None else f" bvh_builder={r.bvh_builder}", r.engine,
         "" if r.engine == "batch" else f" rounds={r.rounds}",
     )
+    return img
+
+
+class ShardedRenderer(_RendererBase):
+    """Renders frames of one scene over a (tile, spp) mesh of devices
+    (``parallel/shard.py``): rows over ``tile``, samples over ``spp``.
+
+    ``mesh=None`` puts 2 cards on the spp axis when the card count and the
+    samples are even, the rest on ``tile`` (the JAX package's default).
+    ``backend``, ``max_tries`` and ``engine`` mean what they mean in
+    ``Renderer``, and so does ``RT_RR``; each shard runs ``DEFAULT_BATCH``
+    lanes at most. The device scene is built once per distinct device.
+    Duck-typed into ``runtime.checkpoint.render_with_checkpoints``
+    (``.settings``, ``.engine``, ``.backend``, ``.arrays``,
+    ``render_radiance(seed, samples)``): a long frame checkpoints and
+    resumes bit for bit on any mesh. ``render_radiance`` (``with_stats``
+    too) and ``render_u8`` are ``Renderer``'s; after a frame, ``rounds``
+    holds each shard's round count, ``[tile][spp]`` (0 on the batch
+    engine)."""
+
+    def __init__(self, desc: SceneDesc, mesh=None, backend: str | None = None,
+                 max_tries: int = 4, engine: str | None = None):
+        s = desc.settings
+        if mesh is None:
+            ndev = torch.cuda.device_count()
+            n_spp = 2 if ndev % 2 == 0 and s.samples % 2 == 0 else 1
+            mesh = make_mesh(ndev // n_spp, n_spp)
+        for dev in mesh.distinct():
+            _device(dev)
+        self.mesh = mesh
+        super().__init__(desc, backend, max_tries, False, engine, None)
+        self.scenes = {dev: self._device_scene(dev) for dev in mesh.distinct()}
+        self.rounds = []
+
+    def render_frame_device(self, seed: int = 0, samples: int | None = None,
+                            progress: bool = False):
+        """Render the frame over the mesh, leaving radiance on the mesh's
+        first device: ([(3, H*W) channel-major radiance], path vertices), as
+        ``Renderer.render_frame_device`` returns it (``progress`` is not
+        used: each shard renders in one pass)."""
+        s = self.settings
+        img, verts, self.rounds = render_frame_sharded(
+            seed, self.scenes, self.cfg, self.cam, s.width, s.height,
+            samples or s.samples, self.mesh, engine=self.engine)
+        return [img.reshape(3, -1)], verts
+
+
+def _render_scene_sharded(desc: SceneDesc, seed: int = 0, batch_size: int | None = None,
+                          **kw) -> np.ndarray:
+    """One-shot render over every card (``ShardedRenderer``). ``batch_size``
+    is single-device only and is refused, so that a caller's intent is never
+    dropped."""
+    if batch_size is not None:
+        raise ValueError("batch_size is single-device only; the sharded renderer runs "
+                         "DEFAULT_BATCH lanes per shard")
+    r = ShardedRenderer(desc, **kw)
+    s = desc.settings
+    t0 = time.perf_counter()
+    img = r.render_u8(seed)
+    log.info("sharded render (%s): %dx%d @ %d spp in %.2fs, backend=%s engine=%s",
+             r.mesh.shape, s.width, s.height, s.samples, time.perf_counter() - t0,
+             r.backend, r.engine)
     return img
