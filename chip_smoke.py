@@ -37,6 +37,15 @@ exits non-zero):
                whole dead tiles, and every lane dead; lanes dead on entry
                must come out bit for bit as the plain version's, and the
                kernels' own live counts must be exact;
+               K6 against the sweep on 65,536 lanes of the 81,920-triangle
+               BVH scene (camera and bounce-1 rays with and without their
+               live mask, a ragged lane count, dead warps and tiles, every
+               lane masked, axis-parallel rays from origins on box planes),
+               a 600-primitive soup of rotated boxes, ellipsoids and
+               triangles, and the 5,120-triangle scene with every primitive
+               twice (the lower row must win): t, hit flag and row equal on
+               every lane, masked lanes (inf, 0); with K6's launch geometry
+               (stack, shared and local bytes, resident blocks);
 4. main     -- the port's CLI renders scenes/cornell_box.gltf at 1280x720,
                16 spp four times: by default (the fused path: K2, K1,
                K1-final), with RT_RR=1 (the modular path: K4, K3), with
@@ -80,8 +89,10 @@ exits non-zero):
                plane, a triangle light; 1280x720 x 16 spp, depth 4) on each
                engine, the counter wavefront's frame twice from one seed
                (equal bit for bit), K6 per launch on its 921,600 camera and
-               bounce-1 rays with its bound from the walk model's node and
-               primitive counts over 4,096 of them, and the sweep once;
+               bounce-1 rays, the walk model of K6's 4-wide tree equal to
+               K6 on 4,096 of them, and K6's bound from the binary walk
+               model's node and primitive counts over those rays (the
+               yardstick of the binary walk), and the sweep once;
 7. runtime  -- checkpointed resume: the Cornell frame (fused batch path, 64
                spp; sticky, 32 spp; on a (2, 2) mesh of the card repeated,
                32 spp) and the BVH frame (32 spp) in 16-spp chunks, each
@@ -100,6 +111,7 @@ record and ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import logging
 import os
@@ -885,14 +897,14 @@ def bvh_state(r, n: int, plain: bool) -> dict:
     return {"camera": (ro, rd, zero < 1.0), "bounce1": (st.ro, st.rd, st.alive)}
 
 
-def bvh_case(what: str, ro, rd, scene, live, plain_hit) -> float:
+def bvh_case(what: str, ro, rd, scene, live, plain_hit, exact_rows: bool = False) -> float:
     """K6 against its plain version on one set of rays, with or without a
     live mask. ``plain_hit`` is the plain version's unmasked (t, row) on
     these rays (the sweep; its masked answer is the miss on masked lanes).
     ``t`` and the hit/miss flag must be equal on every lane; the row may
     differ only where the two rows give the same t (a tie), on under 0.1 %
-    of the lanes; masked lanes must be exactly (inf, 0). Returns the largest
-    absolute error of t."""
+    of the lanes (with ``exact_rows`` on none); masked lanes must be exactly
+    (inf, 0). Returns the largest absolute error of t."""
     from raytracing_course_2024_tpu_torch.ops.scene_intersect import _prim_ts, prim_ref_from_table
     from raytracing_course_2024_tpu_torch.ops.traverse import bvh_nearest
     from raytracing_course_2024_tpu_torch.ops.vec import Vec3
@@ -916,7 +928,7 @@ def bvh_case(what: str, ro, rd, scene, live, plain_hit) -> float:
                  live_frac=round(1.0 - off.float().mean().item(), 4), lanes=n)
     check(exact, what + "-exact", exact["t_equal"] and exact["valid_equal"]
           and exact["not_ties"] == 0 and exact["ties"] < (1.0 - LANE_FRAC) * n
-          and exact["masked_are_misses"])
+          and (exact["ties"] == 0 or not exact_rows) and exact["masked_are_misses"])
     return res["max_abs_err"]
 
 
@@ -954,9 +966,12 @@ def phase_kernels_bvh(dev) -> float:
     81,920-triangle BVH scene: camera rays and bounce-1 rays (after one
     plain modular bounce) of 65,536 pixels spread over the 1280x720 frame,
     with and without the live mask; a lane count that is no multiple of the
-    tile, whole dead warps and tiles, every lane masked; and a 600-primitive
-    soup of rotated boxes, rotated ellipsoids and triangles on random rays.
-    Returns the largest absolute error of t."""
+    tile, whole dead warps and tiles, every lane masked; axis-parallel rays
+    (directions along the axes, origins on the wide nodes' box planes: an
+    infinite ``inv`` and NaN slabs); a 600-primitive soup of rotated boxes,
+    rotated ellipsoids and triangles on random rays; and the 5,120-triangle
+    BVH scene with every primitive twice, where the lower row of each pair
+    must win on every lane. Returns the largest absolute error of t."""
     from raytracing_course_2024_tpu_torch.ops.traverse import bvh_nearest_plain
     from raytracing_course_2024_tpu_torch.ops.vec import Vec3
     from raytracing_course_2024_tpu_torch.runtime.render import Renderer
@@ -965,8 +980,15 @@ def phase_kernels_bvh(dev) -> float:
     r = Renderer(bvh_desc(w, h, spp), device=dev)
     if r.backend != "bvh":
         raise SystemExit("the BVH scene did not take the BVH backend")
+    from raytracing_course_2024_tpu_torch.ops import kernels
+    from raytracing_course_2024_tpu_torch.ops.bvh import tree_depth
+
+    geom = kernels.launch_geometry()
     say("kernels", bvh_scene=f"{len(r.desc.primitives)}-primitives",
-        nodes=r.scene.bvh_nodes.shape[0], depth=r.scene.bvh_depth, builder=r.bvh_builder)
+        binary_nodes=r.arrays.bvh.node_left.shape[0], depth=tree_depth(r.arrays.bvh),
+        wide_nodes=r.scene.bvh_nodes.shape[0], stack_needed=r.scene.bvh_stack,
+        builder=r.bvh_builder, **{k: v for k, v in geom.items() if k.startswith("bvh_")},
+        resident_blocks=geom["resident_blocks"]["bvh"])
     n, err = BVH_RAYS, 0.0
     state = bvh_state(r, n, plain=True)
     for name, (ro, rd, alive) in state.items():
@@ -986,6 +1008,9 @@ def phase_kernels_bvh(dev) -> float:
             bvh_case(f"bvh81920-{n}-lanes-{pattern}:{name}-masked", ro, rd, r.scene,
                      alive & keep, plain)
     gen = np.random.default_rng(SEED)
+    ro, rd = axis_rays(gen, r.scene, n, dev)
+    plain = bvh_nearest_plain(ro, rd, r.scene)
+    err = max(err, bvh_case(f"bvh81920-{n}:axis-parallel", ro, rd, r.scene, None, plain))
     soup = Renderer(soup_desc(gen, 600), device=dev, backend="bvh")
     o = torch.from_numpy(gen.uniform(-7, 7, (n, 3)).astype(np.float32)).to(dev)
     d = torch.from_numpy(gen.normal(size=(n, 3)).astype(np.float32)).to(dev)
@@ -995,7 +1020,43 @@ def phase_kernels_bvh(dev) -> float:
     live = torch.from_numpy(gen.uniform(size=n) < 0.7).to(dev)
     for mask, lv in (("", None), ("-masked", live)):
         err = max(err, bvh_case(f"soup600-{n}:random{mask}", ro, rd, soup.scene, lv, plain))
+    small = bvh_desc(*FRAME, subdiv=4)
+    twice = Renderer(dataclasses.replace(small, primitives=small.primitives * 2), device=dev)
+    o = torch.from_numpy(gen.uniform(-1.2, 1.2, (n, 3)).astype(np.float32)).to(dev)
+    d = torch.from_numpy(gen.normal(size=(n, 3)).astype(np.float32)).to(dev)
+    d = d / d.norm(dim=1, keepdim=True)
+    ro, rd = Vec3(*o.T.contiguous()), Vec3(*d.T.contiguous())
+    plain = bvh_nearest_plain(ro, rd, twice.scene)
+    err = max(err, bvh_case(f"bvh{len(twice.desc.primitives)}-duplicates-{n}:random", ro, rd,
+                            twice.scene, None, plain, exact_rows=True))
     return err
+
+
+def axis_rays(gen: np.random.Generator, scene, n: int, dev):
+    """``n`` rays along the axes (+-1, some with a -0 component; a sixth
+    of them along two axes) from origins in the scene's box, half of whose
+    coordinates lie on a plane of one of the wide nodes' child boxes: the
+    slab products there are 0 * inf = NaN."""
+    from raytracing_course_2024_tpu_torch.ops.vec import Vec3
+
+    nodes = scene.bvh_nodes.cpu().numpy()
+    planes = np.concatenate([nodes[:, 0:12].reshape(-1, 3, 4).transpose(0, 2, 1).reshape(-1, 3),
+                             nodes[:, 12:24].reshape(-1, 3, 4).transpose(0, 2, 1).reshape(-1, 3)])
+    axis = gen.integers(0, 3, n)
+    d = np.zeros((n, 3), np.float32)
+    d[np.arange(n), axis] = gen.choice([-1.0, 1.0], n)
+    neg = np.arange(n // 3, n)[::2]  # a negative zero in another component
+    d[neg, (axis[neg] + 2) % 3] = -0.0
+    two = np.arange(n // 6)
+    d[two, (axis[two] + 1) % 3] = 0.6
+    d = d / np.maximum(np.linalg.norm(d, axis=1, keepdims=True), 1e-30)
+    lo, hi = planes.min(0), planes.max(0)
+    o = gen.uniform(lo, hi, (n, 3))
+    on = gen.uniform(size=(n, 3)) < 0.5
+    o = np.where(on, planes[gen.integers(0, planes.shape[0], n)], o).astype(np.float32)
+    d = d.astype(np.float32)
+    return (Vec3(*torch.from_numpy(o.T.copy()).to(dev)),
+            Vec3(*torch.from_numpy(d.T.copy()).to(dev)))
 
 
 class LogLines(logging.Handler):
@@ -1602,25 +1663,32 @@ def launch_times(scene, cam, bg, st0, idx, w: int, h: int, m: Modular, k5, reps:
     return launch_ms, fresh_ms, modular
 
 
-# K6's fp32 operations, counted from csrc/bvh_traverse.cu and common.cuh
+# K6's fp32 operations on the yardstick of the binary walk, K6's first
+# design (box tests as in csrc/bvh_traverse.cu, common.cuh): the bound of
+# every K6 design is counted from the binary walk model's counts, so that
+# their shares compare
 OPS_BOX_K6 = 25  # one box_entry: 6 sub, 6 mul, 12 min/max, 1 compare
 OPS_NODE_K6 = 2 * OPS_BOX_K6 + 1  # an internal node: both children's boxes, the order
 OPS_PRIM_K6 = OPS_TRI_K4 + 1  # a primitive test (as a triangle's) and the running min
-WALK_RAYS = 4_096  # rays of the walk model that K6's work is counted from
+WALK_RAYS = 4_096  # rays of the walk models that K6's work is counted from
 
 
-def bvh_launch_times(r, gpu: str, states: dict, reps: int = 20) -> dict:
+def bvh_launch_times(r, gpu: str, states: dict, reps: int = 20, label: str = "timing",
+                     models: bool = True) -> dict:
     """K6 at the main path's shape: ``states`` holds the 921,600 camera rays
     of the BVH frame and its bounce-1 rays (after one modular bounce through
     K6 and K3), each with its live mask (``bvh_state``); ms per launch from
-    an event pair per launch while the stream is held (``cuda_ms_each``). The
-    walk model (``ops/traverse.py:walk_reference``) retraces 4,096 of the
-    rays, spread over the frame, on the card: its hits must equal K6's, and
-    its counts of internal nodes, leaves and primitive tests per ray give
-    K6's work for the bound (each node and record read once, each ray's 24 B
-    and flag read and its 8 B written once). Returns name -> dict(ms, bound,
-    counts)."""
-    from raytracing_course_2024_tpu_torch.ops.traverse import bvh_nearest, walk_reference
+    an event pair per launch while the stream is held (``cuda_ms_each``).
+    With ``models`` the walk models retrace 4,096 of the rays, spread over
+    the frame, on the card: the wide walk (``ops/traverse.py:walk_reference``,
+    K6's own) must equal K6 on every one of them, masked lanes included, and
+    the binary walk (``walk_binary``) on the live ones; the binary walk's
+    internal nodes and primitive tests per ray give K6's work for the bound
+    (each binary node and record read once, each ray's 24 B and flag read
+    and its 8 B written once), and the wide walk's wide nodes, child boxes
+    and primitive tests per ray are printed beside them. Returns name ->
+    dict(ms, and with ``models`` bound and counts)."""
+    from raytracing_course_2024_tpu_torch.ops.traverse import bvh_nearest
     from raytracing_course_2024_tpu_torch.ops.vec import Vec3
 
     n = r.settings.width * r.settings.height
@@ -1630,26 +1698,39 @@ def bvh_launch_times(r, gpu: str, states: dict, reps: int = 20) -> dict:
     for name, (ro, rd, alive) in states.items():
         stats = {}
         ms = cuda_ms_each(lambda: bvh_nearest(ro, rd, scene, live=alive), reps, stats)
-        tk, ik = bvh_nearest(ro, rd, scene, live=alive)
-        t_w, i_w, inner, leaves, tests = walk_reference(
-            Vec3(*(c[sel] for c in ro)), Vec3(*(c[sel] for c in rd)), scene)
-        live_s = alive[sel]
-        same = bool(torch.equal(t_w[live_s], tk[sel][live_s])
-                    and torch.equal(i_w[live_s], ik[sel][live_s]))
-        check(dict(walk_equal=same, walk_rays=int(live_s.sum())), f"bvh81920-{n}:{name}-walk",
-              same)
         live = float(alive.sum())
+        out[name] = dict(ms=ms, active_in=live / n)
+        if not models:
+            say(label, kernel="bvh", state=name, lanes=n, active_in=round(live / n, 4),
+                ms=round(ms, 4), **{k: round(v, 4) for k, v in stats.items()},
+                clocks=f'"{clocks_line()}"', gpu=f'"{gpu}"')
+            continue
+        from raytracing_course_2024_tpu_torch.ops.bvh import build_bvh_nodes
+        from raytracing_course_2024_tpu_torch.ops.traverse import walk_binary, walk_reference
+
+        tk, ik = bvh_nearest(ro, rd, scene, live=alive)
+        ro_s, rd_s = Vec3(*(c[sel] for c in ro)), Vec3(*(c[sel] for c in rd))
+        live_s = alive[sel]
+        t_w, i_w, visits, boxes, tests_w = walk_reference(ro_s, rd_s, scene, live=live_s)
+        nodes2 = torch.from_numpy(build_bvh_nodes(r.arrays.bvh)).to(r.device)
+        t_b, i_b, inner, leaves, tests = walk_binary(ro_s, rd_s, scene, nodes2)
+        same = bool(torch.equal(t_w, tk[sel]) and torch.equal(i_w, ik[sel]))
+        same_b = bool(torch.equal(t_b[live_s], tk[sel][live_s])
+                      and torch.equal(i_b[live_s], ik[sel][live_s]))
+        check(dict(walk_equal=same, binary_walk_equal=same_b, walk_rays=WALK_RAYS,
+                   live_rays=int(live_s.sum())), f"bvh81920-{n}:{name}-walk", same and same_b)
         per_ray = {k: float(v[live_s].double().mean()) for k, v in
-                   (("internal_nodes", inner), ("leaves", leaves), ("prim_tests", tests))}
+                   (("internal_nodes", inner), ("leaves", leaves), ("prim_tests", tests),
+                    ("wide_nodes", visits), ("wide_boxes", boxes), ("wide_prim_tests", tests_w))}
         ops = live * (per_ray["internal_nodes"] * OPS_NODE_K6 + per_ray["prim_tests"] * OPS_PRIM_K6)
-        nbytes = n * (1 + 8) + live * 24 + (scene.bvh_nodes.numel() + scene.bvh_rec.numel()) * 4
+        nbytes = n * (1 + 8) + live * 24 + (nodes2.numel() + scene.bvh_rec.numel()) * 4
         b_ms, b_by = bound(nbytes, ops)
-        out[name] = dict(ms=ms, bound=(b_ms, b_by), active_in=live / n, **per_ray)
-        say("timing", kernel="bvh", state=name, lanes=n, active_in=round(live / n, 4),
+        out[name].update(bound=(b_ms, b_by), **per_ray)
+        say(label, kernel="bvh", state=name, lanes=n, active_in=round(live / n, 4),
             ms=round(ms, 4), **{k: round(v, 4) for k, v in stats.items()},
             **{f"{k}_per_ray": round(v, 3) for k, v in per_ray.items()},
-            bound_ms=round(b_ms, 5), bound_by=b_by, clocks=f'"{clocks_line()}"',
-            gpu=f'"{gpu}"')
+            bound_ms=round(b_ms, 5), bound_by=b_by, share=round(b_ms / ms, 4),
+            clocks=f'"{clocks_line()}"', gpu=f'"{gpu}"')
     return out
 
 

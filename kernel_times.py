@@ -21,6 +21,10 @@ engines, with their path-vertex totals; ``--frames 0`` leaves the frames and
 the round-by-round pass out). ``--bvh-turns N`` times only the
 81,920-triangle BVH frame of ``chip_smoke.bvh_desc`` on the three engines,
 one frame per engine in turn, N times (``bvh_engine_turns``).
+``--bvh-kernel`` times only K6, per launch, on the 921,600 camera and
+bounce-1 rays of that BVH frame with their live masks (``bvh_state``,
+``bvh_launch_times`` without the walk models), and prints the launch
+geometry (K6's stack, shared bytes, resident blocks).
 ``--cornell-engines wavefront,...`` times only the Cornell frames of those
 engines (``frame_times``: median host ms of ``--frames`` frames, path
 vertices, rounds and the frame's peak device memory). Prints the card's
@@ -33,6 +37,7 @@ change, change, parent.
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import re
 import sys
@@ -53,6 +58,8 @@ def main() -> int:
     ap.add_argument("--bvh-turns", type=int, default=0,
                     help="only the 81,920-triangle BVH frame on the three engines, "
                          "one frame each in turn, this many times")
+    ap.add_argument("--bvh-kernel", action="store_true",
+                    help="only K6 per launch on the BVH frame's camera and bounce-1 rays")
     ap.add_argument("--cornell-engines", default="",
                     help="only the Cornell frames of these engines (comma-separated "
                          "batch, sticky, wavefront), --frames frames each")
@@ -84,6 +91,12 @@ def main() -> int:
 
     dev = torch.device("cuda", 0)
     w, h, spp = CS.FRAME
+    if args.bvh_kernel:
+        say(geometry=json.dumps(kernels.launch_geometry()).replace(" ", ""))
+        r = Renderer(CS.bvh_desc(w, h, spp), device=dev)
+        CS.bvh_launch_times(r, gpu, CS.bvh_state(r, w * h, plain=False), args.reps, args.label,
+                            models=False)
+        return 0
     if args.bvh_turns > 0:
         CS.bvh_engine_turns(dev, gpu, CS.bvh_desc(w, h, spp), args.bvh_turns, args.label)
         return 0

@@ -5,168 +5,420 @@
 // through ops/traverse.py:nearest_hit_bvh). That one is XLA, not Pallas: a
 // TPU lane cannot gather per lane, so the JAX package cuts the SAH tree into
 // 128-slot treelets and iterates dense tests over them. A GPU thread can walk
-// the binary tree itself, which is what the reference does
-// (src/bvh.rs:231-297), and what this kernel does: for each ray the nearest
-// hit with t > tmin over the finite table, t (+inf on a miss) and the row of
-// the table (0 on a miss). With a `live` mask a lane whose flag is 0 gets the
-// miss and no walk. The plain PyTorch version is the chunked sweep over the
-// same table (ops/traverse.py:bvh_nearest_plain), which the kernel matches bit
-// for bit: t and the row, the lowest row on a tie.
+// a tree itself, as the reference does (src/bvh.rs:231-297), and that is what
+// this kernel does: for each ray the nearest hit with t > tmin over the finite
+// table, t (+inf on a miss) and the row of the table (0 on a miss). With a
+// `live` mask a lane whose flag is 0 gets the miss and no walk. The plain
+// PyTorch version is the chunked sweep over the same table
+// (ops/traverse.py:bvh_nearest_plain), which the kernel matches bit for bit:
+// t and the row, the lowest row on a tie. ops/traverse.py:walk_reference
+// models the walk node for node.
 //
-// The walk, one ray per thread:
-// * A stack walk of the host's binary SAH tree (ops/bvh.py), nearest child
-//   first: at an internal node both children's boxes are tested, the nearer
-//   one is entered and the farther one pushed with its entry distance. A
-//   popped node whose entry lies beyond the best hit so far is dropped (the
-//   reference's rule, src/bvh.rs:258-262). The stack has kStack entries, one
-//   per level below the root at most; the host refuses a deeper tree
-//   (ops/bvh.py:attach_bvh) and the launcher a depth above kStack, so the
-//   walk never runs out of it.
-// * Boxes are entered where their slab interval meets [tmin, best]: an entry
-//   equal to the best hit is still entered, so that of primitives at equal t
-//   the lowest row wins, as in the sweep. The boxes are padded by 1e-4
-//   (ops/bvh.py:AABB_EPS), so a box that holds a primitive at t never starts
-//   beyond t by rounding.
-// * A leaf tests its primitives (rows start .. start + count) with the shape
-//   tests of the fused kernels (common.cuh:test_entry): the same arithmetic
-//   as the plain versions, op for op (--fmad=false, ops/kernels.py).
-// * Nodes are 32 bytes, two float4: (min.xyz, a) (max.xyz, b), a = left
-//   child | first row, b = right child | count with the top bit set for a
-//   leaf (ops/bvh.py:build_bvh_nodes). Primitive records are three float4 in
-//   table order (ops/bvh.py:build_bvh_records). At 81,920 triangles that is
-//   about 5 MB of nodes and records, well inside the H100's 50 MB L2.
-// * The batch walk is lane_queue.cuh:walk_chunk: the live lanes of a chunk
-//   of kChunk tiles are ranked into full passes, so no warp walks the tree
-//   for a few live lanes; a masked lane gets its two stores from the thread
-//   that owns it.
+// The tree: 4-wide nodes collapsed from the host's binary SAH tree
+// (ops/bvh.py:build_bvh4_nodes), in breadth-first order. A wide node is one
+// 128-byte line, eight float4: its four children's boxes as structure of
+// arrays (lo.x[4] lo.y[4] lo.z[4] hi.x[4] hi.y[4] hi.z[4]), four child words
+// (a wide node's index; a leaf as first row | the top bit; an empty slot as
+// the top bit with count 0) and four counts (a leaf's rows). Leaves are the
+// binary tree's (at most a few rows, contiguous in table order); primitive
+// records are three float4 in that order (ops/bvh.py:build_bvh_records). At
+// 81,920 triangles that is ~14k lines (1.8 MB) and 3.9 MB of records, well
+// inside the 50 MB L2.
 //
-// What bounds it on an H100: per live ray 24 B in and 8 B out, against ~40
-// fp32 operations per visited node (two slab tests) and 53 per triangle
-// tested. A ray of the 81,920-triangle scene visits some tens of nodes, so
-// the operations are far above the bytes; but the walk is a chain of
-// dependent loads and branches that diverge between the rays of a warp, so
-// latency and divergence set its time, not either peak. This first version
-// is the simple walk; wider nodes, ray reordering and persistent threads are
-// left for later.
+// The walk, one ray per thread. A visit is eight independent 16-byte loads
+// from one line, four slab tests against [tmin, best] and a 4-element
+// sorting network of integer min/max on keys that pack each child's entry
+// distance and its slot into 32 bits (slot_key). The entered internal children are
+// pushed farthest first and the nearest is kept; the entered leaves are
+// tested at once, nearest first, each while its entry is still <= best (a
+// leaf's count lives in the parent's line, so a leaf is never pushed); then
+// the kept child is entered if its entry is still <= best, else the stack is
+// popped until an entry is <= best. So a pop loads only the node it goes to.
+// The result does not depend on the order: a box is entered when its entry is
+// <= the best t (equality included, so of equal t the lowest row wins, as in
+// the sweep), every leaf uses common.cuh:test_entry op for op, and a hit
+// replaces the best when t < best or t == best and its row is lower. The
+// boxes are padded by 1e-4 (ops/bvh.py:AABB_EPS), so a box that holds a hit
+// at t never starts beyond t by rounding.
+//
+// The stack: a wide node pushes at most 3 entries, so a walk needs at most
+// the host's bound (ops/bvh.py:Bvh4.stack: the most, over root-to-leaf paths,
+// of the sum of children - 1), which is at most 3 per binary level: kStack =
+// 3 x 64 entries take every binary tree that ops/bvh.py:attach_bvh accepts.
+// An entry is 8 bytes (entry t, node). The first kSharedStack of a thread
+// live in shared memory; deeper ones spill to local memory, which only the
+// entries a ray actually reaches cost.
+//
+// The grid: persistent, SMs x resident blocks (lane_queue.cuh:grid_for). A
+// block first stages the top kTop wide nodes (the first levels, contiguous
+// by the breadth-first order) in shared memory with one bulk asynchronous
+// copy completed on an mbarrier; reads of those nodes come from there. Each
+// warp then draws chunks of 32 lanes from a counter in device memory
+// (atomicAdd, one per warp and chunk), ranks their live lanes into its own
+// queue in shared memory (ballot and popc, as lane_queue.cuh ranks a tile)
+// and gives the masked lanes their (inf, 0). No warp waits at a block
+// barrier for another warp's rays (walk_warp): a lane that ends its ray
+// takes the next queued one once kRefill lanes of its warp have ended, and
+// lanes that enter leaves hold them until at most kLeafWait lanes are still
+// visiting nodes, then test them together (Aila and Laine's dynamic fetch
+// and postponed leaf tests; a ray's own steps stay those above). tick[1]
+// counts the warps that are done: the last sets both counters back to 0 for
+// the next launch.
+//
+// What bounds it on an H100: per live ray 24 B in and 8 B out against, on
+// the binary walk's yardstick (chip_smoke.py), 51 fp32 operations per
+// internal node and 54 per primitive tested: a camera ray of the
+// 81,920-triangle scene visits ~12 internal nodes and tests ~3.5 primitives,
+// ~800 operations, so the operations are far above the bytes (the bound is
+// ~0.011 ms for 921,600 rays). The wide walk visits ~6.3 wide nodes per
+// camera ray (7.4 on bounce-1 rays) and tests as many boxes and primitives
+// as the binary one; a visit is ~110 fp32 operations (four slab tests of
+// 25, the network, the checks). Neither peak sets the time: a visit waits on
+// its line (L2, or shared memory at the top), and the lanes of a warp visit
+// different nodes (divergent 16-byte loads, one L1 wavefront per lane) and
+// do different work (visits, leaf tests, pops). Timed on an H100 (PERF.md),
+// the wide nodes alone were slower than the binary walk; the postponed
+// leaf tests and the refill are what brought the bounce rays below it.
 
 #include "common.cuh"
 #include "lane_queue.cuh"
 
 namespace {
 
-constexpr int kStack = 64;  // ops/bvh.py:BVH_STACK
-constexpr int kChunk = 2;   // tiles of a block's chunk (lane_queue.cuh:walk_chunk)
+constexpr int kStack = 3 * 64;     // ops/bvh.py:WIDE_STACK
+constexpr int kSharedStack = 8;    // entries of a thread's stack in shared memory
+constexpr int kTop = 85;           // wide nodes staged in shared memory: 1 + 4 + 16 + 64
+constexpr int kLine = 8;           // float4 per wide node
+constexpr int kQueue = 64;         // a warp's queue: up to 31 waiting + 32 drawn
+constexpr unsigned kLeafBit = 0x80000000u;
 
 struct BvhParams {
   const float* ro[3];
   const float* rd[3];
-  const float4* nodes;  // (m, 2)
+  const float4* nodes;  // (n_nodes, 8)
+  int n_nodes;
   const float4* rec;    // (n, 3)
   const uint8_t* live;  // (b,) bool, or nullptr: every lane
   long long b;
   float tmin;
   float* t_out;  // (b,)
   int* i_out;    // (b,)
+  int* tick;     // 2 int32, zero between launches
+};
+
+struct BvhShared {
+  float4 top[kTop * kLine];
+  unsigned long long stack[kSharedStack][kBlock];
+  int queue[kWarps][kQueue];
+  unsigned long long bar;  // the mbarrier the top's copy completes on
 };
 
 // Entry distance of the ray into the box, or INFINITY where the slab
 // interval does not meet [tmin, limit]. An axis whose slab product is NaN
 // (origin on the slab plane, direction 0 there) is left out by fminf/fmaxf.
-__device__ __forceinline__ float box_entry(float4 lo, float4 hi, V3 ro, V3 inv, float tmin,
-                                           float limit) {
-  const float x0 = (lo.x - ro.x) * inv.x, x1 = (hi.x - ro.x) * inv.x;
-  const float y0 = (lo.y - ro.y) * inv.y, y1 = (hi.y - ro.y) * inv.y;
-  const float z0 = (lo.z - ro.z) * inv.z, z1 = (hi.z - ro.z) * inv.z;
+__device__ __forceinline__ float box_entry(float lx, float ly, float lz, float hx, float hy,
+                                           float hz, V3 ro, V3 inv, float tmin, float limit) {
+  const float x0 = (lx - ro.x) * inv.x, x1 = (hx - ro.x) * inv.x;
+  const float y0 = (ly - ro.y) * inv.y, y1 = (hy - ro.y) * inv.y;
+  const float z0 = (lz - ro.z) * inv.z, z1 = (hz - ro.z) * inv.z;
   const float near = fmaxf(fmaxf(fminf(x0, x1), fminf(y0, y1)), fmaxf(fminf(z0, z1), tmin));
   const float far = fminf(fminf(fmaxf(x0, x1), fmaxf(y0, y1)), fminf(fmaxf(z0, z1), limit));
   return near <= far ? near : INFINITY;
 }
 
-__device__ __forceinline__ void walk(const BvhParams& p, int i) {
-  const V3 ro = mk(p.ro[0][i], p.ro[1][i], p.ro[2][i]);
-  const V3 rd = mk(p.rd[0][i], p.rd[1][i], p.rd[2][i]);
-  const V3 inv = mk(1.0f / rd.x, 1.0f / rd.y, 1.0f / rd.z);
+struct Line {
+  float4 lx, ly, lz, hx, hy, hz, w, c;
+};
+
+__device__ __forceinline__ Line load_line(const BvhShared& s, const float4* nodes, int n,
+                                          int n_top) {
+  Line l;
+  if (n < n_top) {
+    const float4* q = s.top + kLine * n;
+    l.lx = q[0], l.ly = q[1], l.lz = q[2], l.hx = q[3];
+    l.hy = q[4], l.hz = q[5], l.w = q[6], l.c = q[7];
+  } else {
+    const float4* q = nodes + (long long)kLine * n;
+    l.lx = __ldg(q), l.ly = __ldg(q + 1), l.lz = __ldg(q + 2), l.hx = __ldg(q + 3);
+    l.hy = __ldg(q + 4), l.hz = __ldg(q + 5), l.w = __ldg(q + 6), l.c = __ldg(q + 7);
+  }
+  return l;
+}
+
+// A child's sort key: its entry distance's bits with the slot in the low two
+// (t >= 0, so the bits order as t does; the slot makes keys unique and the
+// order of equal entries the slot order), or kMiss | slot where the ray does
+// not enter it. Dropping t's two low bits lowers it by at most 3 ulp, which
+// only lets a box in a little earlier: the walk compares that t with the best.
+constexpr unsigned kMiss = 0x7f800000u;  // the bits of +inf: no entered key reaches it
+
+__device__ __forceinline__ unsigned slot_key(float t, unsigned slot) {
+  return t == INFINITY ? 0xfffffffcu | slot : (__float_as_uint(t) & 0x7ffffffcu) | slot;
+}
+
+__device__ __forceinline__ float key_t(unsigned key) { return __uint_as_float(key & ~3u); }
+
+template <class T>
+__device__ __forceinline__ T pick(unsigned slot, T a, T b, T c, T d) {
+  return (slot & 2u) ? ((slot & 1u) ? d : c) : ((slot & 1u) ? b : a);
+}
+
+__device__ __forceinline__ void order(unsigned& a, unsigned& b) {
+  const unsigned lo = min(a, b), hi = max(a, b);
+  a = lo;
+  b = hi;
+}
+
+// Lanes of a warp that must have ended before the ended ones take new rays,
+// and lanes still visiting nodes at or below which the lanes that hold leaves
+// test them (walk_warp).
+constexpr int kRefill = 16;
+constexpr int kLeafWait = 8;
+
+// Draws chunks of 32 lanes from the launch's counter until `want` rays wait
+// in the warp's queue `q` (holding `pending`) or the batch is used up
+// (`more` false). A chunk's live lanes are ranked into the queue; its masked
+// lanes get their (inf, 0) at once. Every lane of the warp calls it.
+__device__ __forceinline__ void draw(const BvhParams& p, int* q, int& pending, bool& more,
+                                     int want) {
+  const int lane = threadIdx.x & 31;
+  while (more && pending < want) {
+    int chunk = 0;
+    if (lane == 0) chunk = atomicAdd(&p.tick[0], 1);
+    chunk = __shfl_sync(FULL, chunk, 0);
+    const long long base = (long long)chunk * 32;
+    if (base >= p.b) {
+      more = false;
+      break;
+    }
+    const long long i = base + lane;
+    const bool flag = i < p.b && (!p.live || p.live[i] != 0);
+    const unsigned ballot = __ballot_sync(FULL, flag);
+    if (flag) {
+      q[pending + __popc(ballot & ((1u << lane) - 1u))] = (int)i;
+    } else if (i < p.b) {
+      p.t_out[i] = INFINITY;
+      p.i_out[i] = 0;
+    }
+    pending += __popc(ballot);
+    __syncwarp();
+  }
+}
+
+// One warp's share of the batch: each lane walks one ray at a time, as
+// described at the top. Only the schedule across the warp is the warp's, so
+// a ray's steps and result do not depend on its neighbours:
+// * a lane that enters leaves at a visit holds them (and the child it would
+//   go to next) until at most kLeafWait lanes are still visiting nodes; then
+//   the holding lanes test their leaves together (Aila and Laine's postponed
+//   leaf tests), so lanes do not idle through each other's primitive tests
+//   at every visit;
+// * once kRefill lanes have ended their rays (or all have), the ended lanes
+//   store their results and take the next rays of the warp's queue, which
+//   draws chunks as it runs dry, so a few long rays do not hold 32 lanes.
+// Every lane of the warp calls it.
+__device__ __forceinline__ void walk_warp(const BvhParams& p, BvhShared& s, int n_top) {
+  const int lane = threadIdx.x & 31;
+  int* q = s.queue[threadIdx.x >> 5];
+  int pending = 0;  // rays in the warp's queue
+  bool more = true;
   const float tmin = p.tmin;
-  const float4* nodes = p.nodes;
+  V3 ro = mk(0.0f, 0.0f, 0.0f), rd = ro, inv = ro;
   float best_t = INFINITY;
   int best_i = 0;
-  int stack_node[kStack];
-  float stack_t[kStack];
+  unsigned long long spill[kStack - kSharedStack];
   int sp = 0;
-  float4 lo = __ldg(&nodes[0]), hi = __ldg(&nodes[1]);
-  bool go = box_entry(lo, hi, ro, inv, tmin, best_t) != INFINITY;
-  while (go) {
-    const int a = __float_as_int(lo.w), b = __float_as_int(hi.w);
-    if (b < 0) {  // a leaf: rows a .. a + count
-      const int end = a + (b & 0x7fffffff);
-      for (int k = a; k < end; ++k) {
-        float t, u, v;
-        Facing f;
-        if (test_entry<false>(p.rec, k, ro, rd, t, u, v, f, tmin) &&
-            (t < best_t || (t == best_t && k < best_i))) {
-          best_t = t;
-          best_i = k;
-        }
-      }
-    } else {  // both children: enter the nearer, push the farther
-      const float4 llo = __ldg(&nodes[2 * a]), lhi = __ldg(&nodes[2 * a + 1]);
-      const float4 rlo = __ldg(&nodes[2 * b]), rhi = __ldg(&nodes[2 * b + 1]);
-      const float tl = box_entry(llo, lhi, ro, inv, tmin, best_t);
-      const float tr = box_entry(rlo, rhi, ro, inv, tmin, best_t);
-      if (tl != INFINITY || tr != INFINITY) {
-        const bool left = tl <= tr;
-        const float t_far = left ? tr : tl;
-        if (t_far != INFINITY) {
-          stack_node[sp] = left ? b : a;
-          stack_t[sp] = t_far;
-          ++sp;
-        }
-        lo = left ? llo : rlo;
-        hi = left ? lhi : rhi;
-        continue;
-      }
+  auto push = [&](int n, float t) {
+    const unsigned long long e =
+        ((unsigned long long)__float_as_uint(t) << 32) | (unsigned long long)(unsigned)n;
+    if (sp < kSharedStack)
+      s.stack[sp][threadIdx.x] = e;
+    else
+      spill[sp - kSharedStack] = e;
+    ++sp;
+  };
+  int ray = -1;                // the lane's ray, -1: none
+  int node = -1;               // the node to visit; -1: the ray has ended
+  int next = -1;               // the nearest entered internal child of the last visit
+  float t_next = INFINITY;
+  // the go-to step after a visit and its leaves: the kept child if its entry
+  // is still <= best, else the nearest pending node that can still hold a hit
+  auto advance = [&]() {
+    if (next >= 0 && t_next <= best_t) {
+      node = next;
+      return;
     }
-    go = false;  // pop the nearest pending node that can still hold a hit
+    node = -1;
     while (sp > 0) {
       --sp;
-      if (stack_t[sp] <= best_t) {
-        const int n = stack_node[sp];
-        lo = __ldg(&nodes[2 * n]);
-        hi = __ldg(&nodes[2 * n + 1]);
-        go = true;
-        break;
+      const unsigned long long e =
+          sp < kSharedStack ? s.stack[sp][threadIdx.x] : spill[sp - kSharedStack];
+      if (__uint_as_float((unsigned)(e >> 32)) <= best_t) {
+        node = (int)(unsigned)e;
+        return;
       }
     }
+  };
+  bool held = false;  // leaves entered at the last visit wait for the warp
+  int w0 = 0, w1 = 0, w2 = 0, w3 = 0, c0 = 0, c1 = 0, c2 = 0, c3 = 0;
+  unsigned k[4] = {0u, 0u, 0u, 0u};
+  for (;;) {
+    const unsigned ended = __ballot_sync(FULL, node < 0);
+    if (ended == FULL || __popc(ended) >= kRefill) {
+      if (node < 0 && ray >= 0) {
+        p.t_out[ray] = best_t;
+        p.i_out[ray] = best_i;
+        ray = -1;
+      }
+      const int want = __popc(ended);
+      draw(p, q, pending, more, want);
+      if (pending == 0 && ended == FULL) break;
+      const int take = pending < want ? pending : want;
+      const int rank = __popc(ended & ((1u << lane) - 1u));
+      if (node < 0 && rank < take) ray = q[pending - 1 - rank];
+      pending -= take;
+      __syncwarp();  // the queue entries are read before the next draw writes
+      if (node < 0 && ray >= 0) {
+        ro = mk(p.ro[0][ray], p.ro[1][ray], p.ro[2][ray]);
+        rd = mk(p.rd[0][ray], p.rd[1][ray], p.rd[2][ray]);
+        inv = mk(1.0f / rd.x, 1.0f / rd.y, 1.0f / rd.z);
+        best_t = INFINITY;
+        best_i = 0;
+        sp = 0;
+        node = 0;
+      }
+    }
+    if (node >= 0 && !held) {  // a visit
+      const Line l = load_line(s, p.nodes, node, n_top);
+      w0 = __float_as_int(l.w.x), w1 = __float_as_int(l.w.y);
+      w2 = __float_as_int(l.w.z), w3 = __float_as_int(l.w.w);
+      c0 = __float_as_int(l.c.x), c1 = __float_as_int(l.c.y);
+      c2 = __float_as_int(l.c.z), c3 = __float_as_int(l.c.w);
+      const float t0 =
+          box_entry(l.lx.x, l.ly.x, l.lz.x, l.hx.x, l.hy.x, l.hz.x, ro, inv, tmin, best_t);
+      const float t1 =
+          box_entry(l.lx.y, l.ly.y, l.lz.y, l.hx.y, l.hy.y, l.hz.y, ro, inv, tmin, best_t);
+      const float t2 =
+          box_entry(l.lx.z, l.ly.z, l.lz.z, l.hx.z, l.hy.z, l.hz.z, ro, inv, tmin, best_t);
+      const float t3 =
+          box_entry(l.lx.w, l.ly.w, l.lz.w, l.hx.w, l.hy.w, l.hz.w, ro, inv, tmin, best_t);
+      // empty slots (the leaf bit, count 0) are never entered
+      k[0] = slot_key(w0 < 0 && c0 == 0 ? INFINITY : t0, 0u);
+      k[1] = slot_key(w1 < 0 && c1 == 0 ? INFINITY : t1, 1u);
+      k[2] = slot_key(w2 < 0 && c2 == 0 ? INFINITY : t2, 2u);
+      k[3] = slot_key(w3 < 0 && c3 == 0 ? INFINITY : t3, 3u);
+      order(k[0], k[1]);
+      order(k[2], k[3]);
+      order(k[0], k[2]);
+      order(k[1], k[3]);
+      order(k[1], k[2]);
+      // entered internal children, farthest first: pushed, the nearest kept
+      next = -1;
+      t_next = INFINITY;
+#pragma unroll
+      for (int j = 3; j >= 0; --j) {
+        const int w = pick(k[j] & 3u, w0, w1, w2, w3);
+        if (k[j] < kMiss && w >= 0) {
+          if (next >= 0) push(next, t_next);
+          next = w;
+          t_next = key_t(k[j]);
+        }
+        held = held || (k[j] < kMiss && w < 0);
+      }
+      if (!held) advance();
+    }
+    const bool test_now = __popc(__ballot_sync(FULL, node >= 0 && !held)) <= kLeafWait;
+    if (held && test_now) {
+      // entered leaves, nearest first, while their entry is <= best: the
+      // keys shift down one at a time, so the test has one call site
+      int row = 0, end = 0;
+#pragma unroll 1
+      for (;;) {
+        if (row < end) {
+          float t, u, v;
+          Facing f;
+          if (test_entry<false>(p.rec, row, ro, rd, t, u, v, f, tmin) &&
+              (t < best_t || (t == best_t && row < best_i))) {
+            best_t = t;
+            best_i = row;
+          }
+          ++row;
+          continue;
+        }
+        if (k[0] >= kMiss) break;  // sorted: no entered child is left
+        const unsigned slot = k[0] & 3u;
+        const int w = pick(slot, w0, w1, w2, w3);
+        if (w < 0 && key_t(k[0]) <= best_t) {
+          row = (int)((unsigned)w & ~kLeafBit);
+          end = row + pick(slot, c0, c1, c2, c3);
+        }
+        k[0] = k[1], k[1] = k[2], k[2] = k[3], k[3] = 0xffffffffu;
+      }
+      held = false;
+      advance();
+    }
   }
-  p.t_out[i] = best_t;
-  p.i_out[i] = best_i;
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* ptr) {
+  return (uint32_t)__cvta_generic_to_shared(ptr);
 }
 
 __global__ void __launch_bounds__(kBlock) bvh_nearest_kernel(BvhParams p) {
-  __shared__ ChunkQueueT<kChunk> queue;
-  const long long b = p.b;
-  walk_chunk<kChunk, 1, true>(
-      b, queue, [&](long long i) { return i < b && (!p.live || p.live[i] != 0); },
-      [&](long long i) {
-        p.t_out[i] = INFINITY;
-        p.i_out[i] = 0;
-      },
-      [&](int i) { walk(p, i); });
+  __shared__ __align__(128) BvhShared s;
+  const int lane = threadIdx.x & 31;
+  const int n_top = p.n_nodes < kTop ? p.n_nodes : kTop;
+  // the top of the tree: one bulk copy, completed on the mbarrier
+  const uint32_t bar = smem_addr(&s.bar);
+  if (threadIdx.x == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const uint32_t bytes = (uint32_t)n_top * kLine * 16u;
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+                 "r"(bytes)
+                 : "memory");
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+        "[%3];\n" ::"r"(smem_addr(s.top)),
+        "l"(reinterpret_cast<uint64_t>(p.nodes)), "r"(bytes), "r"(bar)
+        : "memory");
+  }
+  uint32_t ready = 0;
+  while (!ready) {
+    asm volatile(
+        "{\n .reg .pred P;\n mbarrier.try_wait.parity.shared::cta.b64 P, [%1], 0;\n"
+        " selp.u32 %0, 1, 0, P;\n}\n"
+        : "=r"(ready)
+        : "r"(bar)
+        : "memory");
+  }
+
+  walk_warp(p, s, n_top);
+  if (lane == 0 && atomicAdd(&p.tick[1], 1) == (int)gridDim.x * kWarps - 1) {
+    p.tick[0] = 0;
+    p.tick[1] = 0;
+    __threadfence();
+  }
 }
 
 }  // namespace
 
 // rays: host array of 6 device pointers (ro.x, ro.y, ro.z, rd.x, rd.y, rd.z),
-// each (b,) f32. nodes: (n_nodes, 2) float4; depth: levels below the root on
-// the tree's deepest path; rec: (n_prims, 3) float4 records; live: (b,) bool
-// or null. Returns cudaGetLastError() after the launch
-// (cudaErrorInvalidValue for arguments the kernel does not take, among them
-// a tree deeper than its stack). Never synchronises.
+// each (b,) f32. nodes: (n_nodes, 8) float4 wide nodes, 128-byte aligned;
+// stack: the entries the walk can need (ops/bvh.py:Bvh4.stack); rec:
+// (n_prims, 3) float4 records; live: (b,) bool or null; tick: two int32,
+// zero, which the launch leaves zero. Returns cudaGetLastError() after the
+// launch (cudaErrorInvalidValue for arguments the kernel does not take, among
+// them a walk that needs more than kStack entries). Never synchronises.
 extern "C" int rt_launch_bvh_nearest(const void* const* rays, const void* nodes, int n_nodes,
-                                     int depth, const void* rec, int n_prims, long long b,
+                                     int stack, const void* rec, int n_prims, long long b,
                                      float tmin, const void* live, void* t_out, void* i_out,
-                                     void* stream) {
-  if (b < 0 || b > 0x7fffffffLL || n_nodes < 1 || n_prims < 1 || depth < 0 || depth > kStack)
+                                     void* tick, void* stream) {
+  if (b < 0 || b > 0x7fffffffLL || n_nodes < 1 || n_prims < 1 || stack < 0 || stack > kStack ||
+      (reinterpret_cast<uintptr_t>(nodes) & 127) != 0)
     return (int)cudaErrorInvalidValue;
   if (b == 0) return 0;
   BvhParams p{};
@@ -175,20 +427,31 @@ extern "C" int rt_launch_bvh_nearest(const void* const* rays, const void* nodes,
     p.rd[c] = static_cast<const float*>(rays[3 + c]);
   }
   p.nodes = static_cast<const float4*>(nodes);
+  p.n_nodes = n_nodes;
   p.rec = static_cast<const float4*>(rec);
   p.live = static_cast<const uint8_t*>(live);
   p.b = b;
   p.tmin = tmin;
   p.t_out = static_cast<float*>(t_out);
   p.i_out = static_cast<int*>(i_out);
-  bvh_nearest_kernel<<<chunk_grid<kChunk>(b), kBlock, 0, static_cast<cudaStream_t>(stream)>>>(p);
+  p.tick = static_cast<int*>(tick);
+  const unsigned grid = grid_for(bvh_nearest_kernel, (b + kBlock - 1) / kBlock);
+  bvh_nearest_kernel<<<grid, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(p);
   return (int)cudaGetLastError();
 }
 
-// Launch geometry, for reports: out = {stack entries, tiles per chunk,
-// resident blocks per SM}.
+// Launch geometry, for reports: out = {stack entries, of them in shared
+// memory per thread, wide nodes staged in shared memory, shared bytes per
+// block, local bytes per thread, registers per thread, resident blocks per
+// SM}.
 extern "C" void rt_bvh_nearest_geometry(int* out) {
+  cudaFuncAttributes a{};
+  cudaFuncGetAttributes(&a, bvh_nearest_kernel);
   out[0] = kStack;
-  out[1] = kChunk;
-  out[2] = resident_blocks(bvh_nearest_kernel);
+  out[1] = kSharedStack;
+  out[2] = kTop;
+  out[3] = (int)a.sharedSizeBytes;
+  out[4] = (int)a.localSizeBytes;
+  out[5] = a.numRegs;
+  out[6] = resident_blocks(bvh_nearest_kernel);
 }

@@ -40,12 +40,16 @@ log = logging.getLogger("rt_torch")
 LEAF_SIZE = 4
 NUM_BINS = 16
 AABB_EPS = 1e-4  # pad, reference src/aabb.rs:53-65 pads by EPS
-# entries of K6's per-thread stack (kStack, csrc/bvh_traverse.cu): the walk
-# holds at most one entry per level below the root, so a tree deeper than
-# this is refused at build time
+# binary levels below the root that a tree may have: a deeper tree is
+# refused at build time. K6 walks the 4-wide tree collapsed from it, whose
+# walk can hold up to 3 entries per binary level (build_bvh4_nodes), so its
+# stack holds WIDE_STACK entries (kStack, csrc/bvh_traverse.cu)
 BVH_STACK = 64
-LEAF_BIT = np.int32(-(2**31))  # K6's node layout: a leaf's count word carries it
-NODE_FLOATS = 8  # one node: two float4
+WIDE = 4  # children per node of K6's tree
+WIDE_STACK = (WIDE - 1) * BVH_STACK
+LEAF_BIT = np.int32(-(2**31))  # a leaf's word carries it (both node layouts)
+NODE_FLOATS = 8  # one node of the binary layout (the walk model's yardstick): two float4
+WIDE_FLOATS = 32  # one node of K6's 4-wide layout: 128 bytes, one cache line
 
 
 def _rot_mat(q: np.ndarray) -> np.ndarray:
@@ -361,3 +365,83 @@ def build_bvh_records(scn: SceneArrays, statics: SceneStatics) -> np.ndarray:
     codes = np.asarray(scn.ptype, np.int32) | (rotated.astype(np.int32) << 2)
     return loop_records(codes, p0, np.asarray(scn.p1, np.float32) - p0,
                         np.asarray(scn.p2, np.float32) - p0, scn.position, rot)
+
+
+class Bvh4(NamedTuple):
+    """K6's tree: the 4-wide nodes and the stack entries their walk can need."""
+
+    nodes: np.ndarray  # (W, WIDE_FLOATS) f32, breadth-first, root 0
+    stack: int  # the most, over root-to-leaf paths, of sum(children - 1)
+
+
+def _collapse(n: int, left, right, leaf, area) -> list:
+    """The binary nodes that stand as children of the wide node made from
+    binary node ``n``: starting from its two children, the internal child
+    with the largest box area (the first of equal ones) is replaced by its
+    two children until there are WIDE or only leaves are left. A leaf root
+    stands alone."""
+    if leaf[n]:
+        return [n]
+    ch = [int(left[n]), int(right[n])]
+    while len(ch) < WIDE:
+        inner = [c for c in ch if not leaf[c]]
+        if not inner:
+            break
+        c = max(inner, key=lambda c: area[c])
+        k = ch.index(c)
+        ch[k:k + 1] = [int(left[c]), int(right[c])]
+    return ch
+
+
+def build_bvh4_nodes(bvh) -> Bvh4:
+    """K6's 4-wide tree, collapsed from the binary tree ``bvh`` (``BvhArrays``
+    or the host tree) by ``_collapse``, wide nodes in breadth-first order so
+    that the top levels are one contiguous range (K6 stages it in shared
+    memory). A wide node is 32 f32, 128 bytes: its children's boxes as
+    structure of arrays, ``lo.x[4] lo.y[4] lo.z[4] hi.x[4] hi.y[4]
+    hi.z[4]`` (bit for bit the binary nodes' boxes), then 4 int32 child
+    words stored bit for bit in the float slots (a wide node's index; a leaf
+    as its first row | ``LEAF_BIT``; an empty slot ``LEAF_BIT`` with count
+    0), then 4 int32 counts (a leaf's rows, else 0). Leaves are exactly the
+    binary tree's, so the table order stays. ``stack``: the most, over
+    root-to-leaf paths, of sum(children - 1) along the path: the walk pushes
+    at most children - 1 entries per wide node it goes through."""
+    left = np.asarray(bvh.node_left, np.int64)
+    right = np.asarray(bvh.node_right, np.int64)
+    leaf = np.asarray(bvh.node_is_leaf, bool)
+    nmin = np.asarray(bvh.node_min, np.float32)
+    nmax = np.asarray(bvh.node_max, np.float32)
+    area = _sah_area(nmin.astype(np.float64), nmax.astype(np.float64))
+    wide = [_collapse(0, left, right, leaf, area)]
+    index = [[-1] * len(wide[0])]  # wide index of each internal child
+    i = 0
+    while i < len(wide):  # breadth-first: children get the next indices
+        for k, c in enumerate(wide[i]):
+            if not leaf[c]:
+                index[i][k] = len(wide)
+                wide.append(_collapse(c, left, right, leaf, area))
+                index.append([-1] * len(wide[-1]))
+        i += 1
+    w = len(wide)
+    child = np.full((w, WIDE), -1, np.int64)  # the binary node of each slot
+    sub = np.full((w, WIDE), -1, np.int64)  # the wide node of an internal slot
+    for i, (ch, ix) in enumerate(zip(wide, index)):
+        child[i, :len(ch)] = ch
+        sub[i, :len(ix)] = ix
+    used = child >= 0
+    c = np.where(used, child, 0)
+    nodes = np.zeros((w, WIDE_FLOATS), np.float32)
+    for axis in range(3):
+        nodes[:, 4 * axis:4 * axis + 4] = np.where(used, nmin[c, axis], 0.0)
+        nodes[:, 12 + 4 * axis:16 + 4 * axis] = np.where(used, nmax[c, axis], 0.0)
+    is_leaf = used & leaf[c]
+    words = np.where(is_leaf, left[c].astype(np.int32) | LEAF_BIT,
+                     np.where(used, sub, LEAF_BIT)).astype(np.int32)
+    counts = np.where(is_leaf, right[c], 0).astype(np.int32)
+    nodes[:, 24:28] = words.view(np.float32)
+    nodes[:, 28:32] = counts.view(np.float32)
+    bound = [0] * w
+    for i in range(w - 1, -1, -1):  # children come after their parent
+        below = [bound[j] for j in index[i] if j >= 0]
+        bound[i] = len(wide[i]) - 1 + max(below, default=0)
+    return Bvh4(np.ascontiguousarray(nodes), int(bound[0]))

@@ -157,7 +157,7 @@ def library() -> ctypes.CDLL:
         lib.rt_launch_primary.restype = i
         lib.rt_launch_dense_nearest.argtypes = [p, p, i, ll, f, p, p, p, p]
         lib.rt_launch_dense_nearest.restype = i
-        lib.rt_launch_bvh_nearest.argtypes = [p, p, i, i, p, i, ll, f, p, p, p, p]
+        lib.rt_launch_bvh_nearest.argtypes = [p, p, i, i, p, i, ll, f, p, p, p, p, p]
         lib.rt_launch_bvh_nearest.restype = i
         lib.rt_launch_sampler.argtypes = [
             p, p, p, u, u, *ctr, p, p, i, i, i, ll, p, p, p,
@@ -213,7 +213,8 @@ _TICKETS: dict = {}
 
 def _tickets(device, stream: int) -> torch.Tensor:
     """The two int32 with which K1 and K5 hand out their tiles
-    (``csrc/lane_queue.cuh:walk_tiles``): zero between launches, one pair
+    (``csrc/lane_queue.cuh:walk_tiles``) and K6 its warps' chunks
+    (``csrc/bvh_traverse.cu``): zero between launches, one pair
     per device and stream, since launches on one stream run in order."""
     key = (device, stream)
     with _LOCK:
@@ -234,22 +235,26 @@ def _on(device: torch.device):
 def launch_geometry() -> dict:
     """How the kernels are launched on the current device: its SMs, threads
     per block, lanes per tile, K4's rays per thread and tiles per chunk, K6's
-    stack entries and tiles per chunk, and each kernel's resident blocks per
-    SM (the grid of K1, K2 and K5 is SMs x resident blocks, or the number of
-    tiles when that is smaller; K3, K4 and K6 launch one block per chunk)."""
+    stack (entries in all and in shared memory per thread), its top of the
+    tree staged in shared memory (wide nodes), its shared and local bytes per
+    block and thread and its registers, and each kernel's resident blocks per
+    SM (the grid of K1, K2, K5 and K6 is SMs x resident blocks, or fewer
+    when the batch needs fewer; K3 and K4 launch one block per chunk)."""
     lib = library()
     out = (ctypes.c_int * 6)()
     lib.rt_bounce_geometry(out)
     k4 = (ctypes.c_int * 3)()
     lib.rt_dense_nearest_geometry(k4)
-    k6 = (ctypes.c_int * 3)()
+    k6 = (ctypes.c_int * 7)()
     lib.rt_bvh_nearest_geometry(k6)
     return {"sms": out[0], "block": out[1], "tile": out[2], "nearest_rays_per_thread": k4[0],
-            "nearest_tiles_per_chunk": k4[1], "bvh_stack": k6[0], "bvh_tiles_per_chunk": k6[1],
+            "nearest_tiles_per_chunk": k4[1], "bvh_stack": k6[0], "bvh_shared_stack": k6[1],
+            "bvh_top_nodes": k6[2], "bvh_shared_bytes": k6[3], "bvh_local_bytes": k6[4],
+            "bvh_registers": k6[5],
             "resident_blocks": {"bounce": out[3], "final": out[4], "primary": out[5],
                                 "persistent": lib.rt_persistent_resident_blocks(),
                                 "nearest": k4[2],
-                                "sampler": lib.rt_sampler_resident_blocks(), "bvh": k6[2]}}
+                                "sampler": lib.rt_sampler_resident_blocks(), "bvh": k6[6]}}
 
 
 def launch_bounce(scene, state, out, wid, wid_off, seed, ctr, depth, ctr_stride, bg,
@@ -315,16 +320,17 @@ def launch_dense_nearest(rays, records, tmin, live, t_out, i_out) -> None:
     _count("nearest")
 
 
-def launch_bvh_nearest(rays, nodes, depth, records, tmin, live, t_out, i_out) -> None:
+def launch_bvh_nearest(rays, nodes, stack, records, tmin, live, t_out, i_out) -> None:
     lib = library()
     with _on(t_out.device) as stream:
+        tickets = _tickets(t_out.device, stream)
         rc = lib.rt_launch_bvh_nearest(
-            _ptrs(rays), nodes.data_ptr(), nodes.shape[0], int(depth), records.data_ptr(),
+            _ptrs(rays), nodes.data_ptr(), nodes.shape[0], int(stack), records.data_ptr(),
             records.shape[0], t_out.shape[0], float(tmin),
             None if live is None else live.data_ptr(), t_out.data_ptr(), i_out.data_ptr(),
-            stream,
+            tickets.data_ptr(), stream,
         )
-    _raise_on(rc, "rt_launch_bvh_nearest")
+        _raise_on(rc, "rt_launch_bvh_nearest", tickets)
     _count("bvh")
 
 

@@ -32,7 +32,7 @@ from ..scene.types import (
     SceneArrays,
     SceneStatics,
 )
-from .bvh import build_bvh_nodes, build_bvh_records, tree_depth
+from .bvh import build_bvh4_nodes, build_bvh_records
 from .dense_nearest import build_tri_records
 from .gather import take_packed
 from .intersect import (
@@ -58,9 +58,9 @@ class ModularScene(NamedTuple):
     the (N, 12) records its loop reads (both None unless the scene is at
     most 128 triangles), the light spec K3 reads, ``lp_np``, the host
     copy of the light pack the plain sampler takes its per-light constants
-    from, and on the BVH backend the tree K6 walks: its (M, 8) nodes, the
-    (N, 12) primitive records in table order and the tree's depth (all None
-    on the dense backend)."""
+    from, and on the BVH backend the tree K6 walks: its (W, 32) 4-wide
+    nodes, the (N, 12) primitive records in table order and the stack
+    entries its walk can need (all None on the dense backend)."""
 
     statics: SceneStatics
     packed: torch.Tensor  # (PrimCol.COUNT, N) f32
@@ -71,9 +71,9 @@ class ModularScene(NamedTuple):
     tri_pack: torch.Tensor | None  # (9, N) f32
     tri_rec: torch.Tensor | None  # (N, 12) f32: build_tri_records(tri_pack)
     lp_np: np.ndarray
-    bvh_nodes: torch.Tensor | None = None  # (M, 8) f32: ops/bvh.py:build_bvh_nodes
+    bvh_nodes: torch.Tensor | None = None  # (W, 32) f32: ops/bvh.py:build_bvh4_nodes
     bvh_rec: torch.Tensor | None = None  # (N, 12) f32: ops/bvh.py:build_bvh_records
-    bvh_depth: int | None = None  # levels below the root on the deepest path
+    bvh_stack: int | None = None  # ops/bvh.py:Bvh4.stack
 
 
 def modular_scene(scn: SceneArrays, statics: SceneStatics,
@@ -83,6 +83,8 @@ def modular_scene(scn: SceneArrays, statics: SceneStatics,
 
     def dev(a, dtype=torch.float32):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device=device, dtype=dtype)
+
+    wide = None if scn.bvh is None else build_bvh4_nodes(scn.bvh)
 
     lp_np = np.ascontiguousarray(scn.light_packed, dtype=np.float32)
     lspec = [t | (int(r) << 2)
@@ -98,9 +100,9 @@ def modular_scene(scn: SceneArrays, statics: SceneStatics,
         tri_pack=None if scn.tri_pack is None else dev(scn.tri_pack),
         tri_rec=None if scn.tri_pack is None else dev(build_tri_records(scn.tri_pack)),
         lp_np=lp_np,
-        bvh_nodes=None if scn.bvh is None else dev(build_bvh_nodes(scn.bvh)),
+        bvh_nodes=None if wide is None else dev(wide.nodes),
         bvh_rec=None if scn.bvh is None else dev(build_bvh_records(scn, statics)),
-        bvh_depth=None if scn.bvh is None else tree_depth(scn.bvh),
+        bvh_stack=None if wide is None else wide.stack,
     )
 
 

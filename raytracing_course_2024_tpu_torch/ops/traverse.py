@@ -1,10 +1,11 @@
 """The scene's nearest hit on either backend, the BVH walk K6 (a
-hand-written CUDA kernel), its plain version, and a model of its walk.
+hand-written CUDA kernel), its plain version, and models of its walk.
 
 The JAX package traverses its BVH in XLA (``ops/traverse.py`` ->
 ``ops/treelet.py:nearest_hit_treelet``): 128-slot treelets, because a TPU
-lane cannot gather per lane. Here each CUDA thread walks the binary SAH tree
-of ``ops/bvh.py`` itself (``csrc/bvh_traverse.cu``): for each ray the
+lane cannot gather per lane. Here each CUDA thread walks a 4-wide tree
+collapsed from the binary SAH tree of ``ops/bvh.py``
+(``build_bvh4_nodes``; ``csrc/bvh_traverse.cu``): for each ray the
 nearest hit with t > tmin over the finite table, t (+inf on a miss) and the
 row of the table (0 on a miss), which ``surface_detail`` reads as it reads
 the sweep's, since ``attach_bvh`` put the table in the tree's order.
@@ -20,9 +21,12 @@ the sweep's, since ``attach_bvh`` put the table in the tree's order.
   (``ops/dense_nearest.py``) on one of at most 128 triangles, else the
   sweep; with ``plain`` the plain versions. The infinite planes fold in
   afterwards (``_fold_in_planes``, as ``ops/treelet.py:323-324`` does).
-* ``walk_reference``: K6's walk, node for node, in PyTorch over a batch of
-  rays in lockstep: the same hits, and how many nodes and primitives each
-  ray visits (the work K6's bound is counted from).
+* ``walk_reference``: K6's walk of the 4-wide tree, node for node, in
+  PyTorch over a batch of rays in lockstep: the same hits, and how many
+  wide nodes, child boxes and primitives each ray visits.
+* ``walk_binary``: the same for a walk of the binary tree (K6's first
+  design): the work that K6's bound is counted from, so that its share of
+  the bound stays comparable across designs.
 
 ``live`` (optional (B,) bool) names the lanes whose hit the caller will
 read: a lane whose flag is False gets the miss ``(inf, 0)`` from K6 and K4
@@ -35,7 +39,7 @@ from __future__ import annotations
 import torch
 
 from .bounce import REC_FLOATS
-from .bvh import BVH_STACK, NODE_FLOATS
+from .bvh import BVH_STACK, WIDE, WIDE_FLOATS, WIDE_STACK
 from .dense_nearest import dense_nearest, dense_nearest_plain
 from .kernels import check, launch_bvh_nearest
 from .scene_intersect import (
@@ -76,16 +80,22 @@ def bvh_nearest(ro: Vec3, rd: Vec3, scene: ModularScene, tmin: float = 0.0,
     for name, c in zip(("ro.x", "ro.y", "ro.z", "rd.x", "rd.y", "rd.z"), rays):
         check(name, c, torch.float32, (b,), dev)
     m, n = scene.bvh_nodes.shape[0], scene.bvh_rec.shape[0]
-    check("bvh_nodes", scene.bvh_nodes, torch.float32, (m, NODE_FLOATS), dev)
+    check("bvh_nodes", scene.bvh_nodes, torch.float32, (m, WIDE_FLOATS), dev)
     check("bvh_rec", scene.bvh_rec, torch.float32, (n, REC_FLOATS), dev)
-    if not 0 <= scene.bvh_depth <= BVH_STACK:
-        raise ValueError(f"BVH depth {scene.bvh_depth} exceeds the stack of {BVH_STACK}")
+    check_stack(scene.bvh_stack)
     if live is not None:
         check("live", live, torch.bool, (b,), dev)
     t = torch.empty((b,), dtype=torch.float32, device=dev)
     idx = torch.empty((b,), dtype=torch.int32, device=dev)
-    launch_bvh_nearest(rays, scene.bvh_nodes, scene.bvh_depth, scene.bvh_rec, tmin, live, t, idx)
+    launch_bvh_nearest(rays, scene.bvh_nodes, scene.bvh_stack, scene.bvh_rec, tmin, live, t, idx)
     return t, idx
+
+
+def check_stack(stack: int) -> None:
+    """Raises unless K6's stack holds the ``stack`` entries a walk of the
+    tree can need (``ops/bvh.py:Bvh4.stack``)."""
+    if not 0 <= stack <= WIDE_STACK:
+        raise ValueError(f"the BVH walk needs {stack} stack entries, K6 holds {WIDE_STACK}")
 
 
 def nearest_hit(ro: Vec3, rd: Vec3, scene: ModularScene, tmin: float = 0.0,
@@ -107,83 +117,168 @@ def nearest_hit(ro: Vec3, rd: Vec3, scene: ModularScene, tmin: float = 0.0,
     return hit
 
 
-def _box_entry(nodes: torch.Tensor, ro: Vec3, inv: Vec3, tmin: float, limit: torch.Tensor):
+def _box_entry(lo: Vec3, hi: Vec3, ro: Vec3, inv: Vec3, tmin: float, limit: torch.Tensor):
     """``box_entry`` of csrc/bvh_traverse.cu: the rays' entry distance into
-    their nodes' boxes (``nodes`` (R, 8)), inf where the slab interval misses
-    [tmin, limit]; fmin/fmax leave a NaN slab out, as fminf/fmaxf do."""
-    x0, x1 = (nodes[:, 0] - ro.x) * inv.x, (nodes[:, 4] - ro.x) * inv.x
-    y0, y1 = (nodes[:, 1] - ro.y) * inv.y, (nodes[:, 5] - ro.y) * inv.y
-    z0, z1 = (nodes[:, 2] - ro.z) * inv.z, (nodes[:, 6] - ro.z) * inv.z
+    the boxes (lo, hi), inf where the slab interval misses [tmin, limit];
+    fmin/fmax leave a NaN slab out, as fminf/fmaxf do. Broadcasts."""
+    x0, x1 = (lo.x - ro.x) * inv.x, (hi.x - ro.x) * inv.x
+    y0, y1 = (lo.y - ro.y) * inv.y, (hi.y - ro.y) * inv.y
+    z0, z1 = (lo.z - ro.z) * inv.z, (hi.z - ro.z) * inv.z
     fmin, fmax = torch.fmin, torch.fmax
     near = fmax(fmax(fmin(x0, x1), fmin(y0, y1)), fmax(fmin(z0, z1), torch.full_like(x0, tmin)))
     far = fmin(fmin(fmax(x0, x1), fmax(y0, y1)), fmin(fmax(z0, z1), limit))
     return torch.where(near <= far, near, float("inf"))
 
 
-def walk_reference(ro: Vec3, rd: Vec3, scene: ModularScene, tmin: float = 0.0):
-    """K6's walk modelled in PyTorch, every ray a step at a time in lockstep:
-    the same order (nearer child first), the same pruning, the same box and
-    primitive arithmetic. Returns (t, row, internal nodes visited, leaves
-    visited, primitives tested) per ray. Slow (one step of every ray per
-    Python iteration): it counts the work of a sample of rays, and holds the
-    walk against the sweep."""
+def _sel(v: Vec3, rays) -> Vec3:
+    return Vec3(v.x[rays], v.y[rays], v.z[rays])
+
+
+def _col(v: Vec3) -> Vec3:
+    return Vec3(v.x[:, None], v.y[:, None], v.z[:, None])
+
+
+class _Walk:
+    """What the two walk models share: each ray's best hit, its stack and
+    its primitive tests, over a batch of rays in lockstep."""
+
+    def __init__(self, ro: Vec3, rd: Vec3, scene: ModularScene, tmin: float, entries: int,
+                 live: torch.Tensor | None = None):
+        self.ro, self.rd, self.scene, self.tmin = ro, rd, scene, tmin
+        dev, r = ro.x.device, ro.x.shape[0]
+        self.inv = Vec3(1.0 / rd.x, 1.0 / rd.y, 1.0 / rd.z)
+        self.best_t = torch.full((r,), float("inf"), device=dev)
+        self.best_i = torch.zeros((r,), dtype=torch.int64, device=dev)
+        self.tests = torch.zeros((r,), dtype=torch.int64, device=dev)
+        self.stack_node = torch.zeros((r, entries), dtype=torch.int64, device=dev)
+        self.stack_t = torch.zeros((r, entries), device=dev)
+        self.sp = torch.zeros((r,), dtype=torch.int64, device=dev)
+        self.node = torch.zeros((r,), dtype=torch.int64, device=dev)
+        self.go = torch.ones((r,), dtype=torch.bool, device=dev) if live is None else live.clone()
+
+    def leaf(self, rays, start, count) -> None:
+        """Rays ``rays`` test rows start .. start + count, in order."""
+        for off in range(int(count.max()) if count.numel() else 0):
+            m = off < count
+            rr, rows = rays[m], start[m] + off
+            t = _prim_ts(_sel(self.ro, rr), _sel(self.rd, rr),
+                         prim_ref_from_table(self.scene.packed, rows), self.scene.statics,
+                         self.tmin)
+            self.tests[rr] += 1
+            bt, bi = self.best_t[rr], self.best_i[rr]
+            better = (t < bt) | ((t == bt) & (rows < bi))
+            self.best_t[rr] = torch.where(better, t, bt)
+            self.best_i[rr] = torch.where(better, rows, bi)
+
+    def push(self, rays, node, t) -> None:
+        self.stack_node[rays, self.sp[rays]] = node
+        self.stack_t[rays, self.sp[rays]] = t
+        self.sp[rays] += 1
+
+    def pop(self, rays) -> None:
+        """Each of ``rays`` pops until a node can still hold a hit, or stops."""
+        self.go[rays] = False
+        while rays.numel():
+            rays = rays[self.sp[rays] > 0]
+            self.sp[rays] -= 1
+            ok = self.stack_t[rays, self.sp[rays]] <= self.best_t[rays]
+            took = rays[ok]
+            self.node[took] = self.stack_node[took, self.sp[took]]
+            self.go[took] = True
+            rays = rays[~ok]
+
+
+def walk_reference(ro: Vec3, rd: Vec3, scene: ModularScene, tmin: float = 0.0,
+                   live: torch.Tensor | None = None):
+    """K6's walk of the 4-wide tree modelled in PyTorch, every ray a wide
+    node at a time in lockstep, node for node as the kernel walks: the four
+    children's boxes tested against [tmin, best], the entered ones sorted
+    by the kernel's keys (entry bits, the two low ones the slot, so unique),
+    the internal ones pushed
+    farthest first and the nearest kept, then the entered leaves tested in
+    order of entry while their entry is still <= best, then the kept child
+    entered if its entry is still <= best, else a pop. A lane whose ``live``
+    flag is False walks nothing and gets (inf, 0). Returns (t, row, wide
+    nodes visited, child boxes tested, primitives tested) per ray. Slow (one
+    step of every ray per Python iteration): it counts the work of a sample
+    of rays, and holds the walk against the sweep."""
     nodes = scene.bvh_nodes
-    words = nodes[:, [3, 7]].contiguous().view(torch.int32)
-    dev, r = ro.x.device, ro.x.shape[0]
-    inv = Vec3(1.0 / rd.x, 1.0 / rd.y, 1.0 / rd.z)
+    words = nodes[:, 24:32].contiguous().view(torch.int32)
+    w = _Walk(ro, rd, scene, tmin, WIDE_STACK, live)
     inf = float("inf")
-    best_t = torch.full((r,), inf, device=dev)
-    best_i = torch.zeros((r,), dtype=torch.int64, device=dev)
-    inner_n = torch.zeros((r,), dtype=torch.int64, device=dev)
-    leaf_n = torch.zeros((r,), dtype=torch.int64, device=dev)
-    tests = torch.zeros((r,), dtype=torch.int64, device=dev)
-    stack_node = torch.zeros((r, BVH_STACK), dtype=torch.int64, device=dev)
-    stack_t = torch.zeros((r, BVH_STACK), device=dev)
-    sp = torch.zeros((r,), dtype=torch.int64, device=dev)
-    node = torch.zeros((r,), dtype=torch.int64, device=dev)
-    go = _box_entry(nodes[node], ro, inv, tmin, best_t) != inf
+    visits = torch.zeros_like(w.sp)
+    boxes = torch.zeros_like(w.sp)
+    while bool(w.go.any()):
+        act = torch.nonzero(w.go).squeeze(1)
+        line, wd = nodes[w.node[act]], words[w.node[act]].long()
+        word, cnt = wd[:, :WIDE], wd[:, WIDE:]
+        valid = (word >= 0) | (cnt > 0)
+        visits[act] += 1
+        boxes[act] += valid.sum(1)
+        lo = Vec3(line[:, 0:4], line[:, 4:8], line[:, 8:12])
+        hi = Vec3(line[:, 12:16], line[:, 16:20], line[:, 20:24])
+        t = _box_entry(lo, hi, _col(_sel(ro, act)), _col(_sel(w.inv, act)), tmin,
+                       w.best_t[act][:, None])
+        t = torch.where(valid, t, inf).contiguous()
+        # the kernel's sort keys (slot_key): t's bits, two low bits the slot
+        slot = torch.arange(WIDE, device=t.device)
+        bits = (t.view(torch.int32).long() & 0x7FFFFFFC) | slot
+        key = torch.where(t == inf, 0xFFFFFFFC | slot, bits).sort(dim=1).values
+        kt = (key & 0x7FFFFFFC).to(torch.int32).view(torch.float32)
+        entered = key < 0x7F800000
+        ws, cs = word.gather(1, key & 3), cnt.gather(1, key & 3)
+        nxt = torch.full_like(act, -1)
+        t_nxt = torch.full_like(w.best_t[act], inf)
+        for q in range(WIDE - 1, -1, -1):  # internal children: farthest pushed first
+            m = entered[:, q] & (ws[:, q] >= 0)
+            p = m & (nxt >= 0)
+            w.push(act[p], nxt[p], t_nxt[p])
+            nxt, t_nxt = torch.where(m, ws[:, q], nxt), torch.where(m, kt[:, q], t_nxt)
+        for q in range(WIDE):  # entered leaves, nearest first
+            m = entered[:, q] & (ws[:, q] < 0) & (kt[:, q] <= w.best_t[act])
+            w.leaf(act[m], ws[m, q] & 0x7FFFFFFF, cs[m, q])
+        enter = (nxt >= 0) & (t_nxt <= w.best_t[act])
+        w.node[act[enter]] = nxt[enter]
+        w.pop(act[~enter])
+    return w.best_t, w.best_i.to(torch.int32), visits, boxes, w.tests
 
-    def sel(v: Vec3, rays):
-        return Vec3(v.x[rays], v.y[rays], v.z[rays])
 
-    while bool(go.any()):
-        act = torch.nonzero(go).squeeze(1)
-        a, b = words[node[act], 0].long(), words[node[act], 1].long()
+def walk_binary(ro: Vec3, rd: Vec3, scene: ModularScene, nodes: torch.Tensor,
+                tmin: float = 0.0):
+    """A walk of the binary tree (K6's first design), modelled as
+    ``walk_reference``: at an internal node both children's boxes are
+    tested, the nearer entered and the farther pushed; a popped node whose
+    entry lies beyond the best hit is dropped. ``nodes``
+    is ``ops/bvh.py:build_bvh_nodes`` of the scene's binary tree. Returns
+    (t, row, internal nodes visited, leaves visited, primitives tested) per
+    ray: the counts that K6's bound is reckoned from, so that the bound of
+    one kernel is comparable with another's."""
+    words = nodes[:, [3, 7]].contiguous().view(torch.int32)
+    w = _Walk(ro, rd, scene, tmin, BVH_STACK)
+    inf = float("inf")
+    inner_n = torch.zeros_like(w.sp)
+    leaf_n = torch.zeros_like(w.sp)
+
+    def box(rows, rays):
+        return _box_entry(Vec3(*nodes[rows, 0:3].T), Vec3(*nodes[rows, 4:7].T),
+                          _sel(ro, rays), _sel(w.inv, rays), tmin, w.best_t[rays])
+
+    w.go = box(w.node, torch.arange(ro.x.shape[0], device=ro.x.device)) != inf
+    while bool(w.go.any()):
+        act = torch.nonzero(w.go).squeeze(1)
+        a, b = words[w.node[act], 0].long(), words[w.node[act], 1].long()
         leaf = b < 0
         pop = act[leaf]
         leaf_n[pop] += 1
         inner_n[act[~leaf]] += 1
-        start, count = a[leaf], b[leaf] & 0x7FFFFFFF
-        for off in range(int(count.max()) if count.numel() else 0):
-            m = off < count
-            rays, rows = pop[m], start[m] + off
-            t = _prim_ts(sel(ro, rays), sel(rd, rays), prim_ref_from_table(scene.packed, rows),
-                         scene.statics, tmin)
-            tests[rays] += 1
-            bt, bi = best_t[rays], best_i[rays]
-            better = (t < bt) | ((t == bt) & (rows < bi))
-            best_t[rays] = torch.where(better, t, bt)
-            best_i[rays] = torch.where(better, rows, bi)
+        w.leaf(pop, a[leaf], b[leaf] & 0x7FFFFFFF)
         inner, left, right = act[~leaf], a[~leaf], b[~leaf]
-        tl = _box_entry(nodes[left], sel(ro, inner), sel(inv, inner), tmin, best_t[inner])
-        tr = _box_entry(nodes[right], sel(ro, inner), sel(inv, inner), tmin, best_t[inner])
+        tl, tr = box(left, inner), box(right, inner)
         enter = (tl != inf) | (tr != inf)
         first = tl <= tr
         t_far = torch.where(first, tr, tl)
         push = enter & (t_far != inf)
-        rp = inner[push]
-        stack_node[rp, sp[rp]] = torch.where(first, right, left)[push]
-        stack_t[rp, sp[rp]] = t_far[push]
-        sp[rp] += 1
-        node[inner[enter]] = torch.where(first, left, right)[enter]
-        pop = torch.cat([pop, inner[~enter]])
-        go[pop] = False
-        while pop.numel():  # each ray pops until a node can still hold a hit
-            pop = pop[sp[pop] > 0]
-            sp[pop] -= 1
-            ok = stack_t[pop, sp[pop]] <= best_t[pop]
-            took = pop[ok]
-            node[took] = stack_node[took, sp[took]]
-            go[took] = True
-            pop = pop[~ok]
-    return best_t, best_i.to(torch.int32), inner_n, leaf_n, tests
+        w.push(inner[push], torch.where(first, right, left)[push], t_far[push])
+        w.node[inner[enter]] = torch.where(first, left, right)[enter]
+        w.pop(torch.cat([pop, inner[~enter]]))
+    return w.best_t, w.best_i.to(torch.int32), inner_n, leaf_n, w.tests

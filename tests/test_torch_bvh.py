@@ -20,7 +20,8 @@ against the JAX package.
   discriminant cancels, and XLA rounds it differently from one compiled
   program to the next (the JAX package's own treelet and dense sweep differ
   by 1.2e-5 relative on such a lane). The walk model of K6
-  (``walk_reference``) equals the sweep bit for bit.
+  (``walk_reference``, the 4-wide tree) and of the binary walk that its
+  bound is counted from (``walk_binary``) equal the sweep bit for bit.
 """
 
 import jax
@@ -40,6 +41,7 @@ from raytracing_course_2024_tpu_torch.ops.traverse import (
     bvh_nearest,
     bvh_nearest_plain,
     nearest_hit,
+    walk_binary,
     walk_reference,
 )
 from raytracing_course_2024_tpu_torch.ops.vec import Vec3
@@ -259,12 +261,17 @@ def test_nearest_hit_matches_jax_treelet(case):
     on_plane = valid & np.asarray(jh.is_plane)
     assert np.array_equal(th.idx.numpy()[on_plane], np.asarray(jh.idx)[on_plane])
 
-    # K6's walk, modelled node for node, finds the sweep's hit bit for bit
+    # K6's walk of the 4-wide tree, modelled node for node, and the binary
+    # walk of the yardstick both find the sweep's hit bit for bit
     t_s, i_s = bvh_nearest_plain(ro, rd, scene)
-    t_w, i_w, inner, leaves, tests = walk_reference(ro, rd, scene)
+    t_w, i_w, visits, boxes, tests = walk_reference(ro, rd, scene)
     assert torch.equal(t_w, t_s) and torch.equal(i_w, i_s)
-    assert (leaves[torch.isfinite(t_s)] > 0).all() and (tests >= 0).all()
+    assert (boxes[torch.isfinite(t_s)] > 0).all() and (tests >= 0).all()
     assert tests.sum() < 0.25 * b * ta.ptype.shape[0]  # the walk prunes
+    nodes = torch.from_numpy(tbvh.build_bvh_nodes(tarr.bvh))
+    t_b, i_b, inner, leaves, tests_b = walk_binary(ro, rd, scene, nodes)
+    assert torch.equal(t_b, t_s) and torch.equal(i_b, i_s)
+    assert (leaves[torch.isfinite(t_s)] > 0).all() and inner.sum() > visits.sum()
 
 
 def test_bvh_wrapper_on_cpu_takes_the_plain_version():
