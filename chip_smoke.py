@@ -1,6 +1,7 @@
 """GPU smoke test of the PyTorch/CUDA port (raytracing_course_2024_tpu_torch).
 
     python3 chip_smoke.py            # one CUDA card
+    python3 chip_smoke.py --cards    # the multiproc phase over every card (2+)
 
 Phases (each prints lines tagged with its name; any failure raises and
 exits non-zero):
@@ -55,7 +56,11 @@ exits non-zero):
                it, and must match that path exactly (the lane engines: the
                rounds they report);
 5. render   -- 320x180 x 16 spp frames: fused kernels against fused plain;
-               modular kernels against modular plain (roulette on); modular
+               modular kernels against modular plain (roulette on);
+               ``TraceConfig.sampler="xla"`` refused on the card by the
+               batch and sticky engines, with nothing launched; the fused
+               frame with RT_MEGA_CAM=0 (bounce 0 in
+               K1, no K2) against the default one; modular
                against fused kernels (roulette off, RT_MEGAKERNEL=0); the
                sticky engine's kernels against its plain versions (K5; with
                roulette, K4) and against the counter wavefront and the
@@ -103,7 +108,19 @@ exits non-zero):
                (2,2) on the three engines, the BVH frame at 4 spp on (2,2))
                against the single-card frame, rtol 1e-4 / atol 1e-5, launches
                summed over the shards; ``device_trace`` around one Cornell
-               frame naming 16 K2 and 80 K1.
+               frame naming 16 K2 and 80 K1;
+8. multiproc -- rendering across processes on the one card: the Cornell
+               frame (batch, 16 spp) in a group of one over NCCL; the
+               Cornell frame on the three engines and the BVH frame (4 spp)
+               in two processes over gloo (``init_distributed`` picks it: two
+               processes, one card); each frame bit for bit the
+               one-process frame of the same mesh, within rtol 1e-4 / atol
+               1e-5 of the single-device frame, the processes' launches
+               summed exactly; the CLI under ``python -m
+               torch.distributed.run --standalone --nproc-per-node 2``
+               writing one PPM, the one-process (2, 1) frame. Every process
+               runs under a timeout. ``--cards`` runs this phase alone with
+               one process per card over NCCL.
 
 The last lines are the card's name and power limit, the per-kernel JSON
 record and ``{"ok": true, "device": {...}}``.
@@ -116,6 +133,7 @@ import json
 import logging
 import os
 import re
+import signal
 import statistics
 import subprocess
 import sys
@@ -1174,9 +1192,40 @@ def phase_render(dev) -> None:
     rr = Renderer(desc, device=dev, russian_roulette=True)
     if rr.fused:
         raise SystemExit("roulette took the fused path")
-    render_pair(rr.render_radiance(seed=3),
-                Renderer(desc, device=dev, russian_roulette=True, plain=True)
+    rr_k3 = rr.render_radiance(seed=3)
+    render_pair(rr_k3, Renderer(desc, device=dev, russian_roulette=True, plain=True)
                 .render_radiance(seed=3), "modular-kernels-vs-plain-rr", size=size, spp=spp)
+    # the JAX package's switches: the XLA sampler in place of K3 is refused on
+    # the card (it would run K3's plain version), before anything launches;
+    # bounce 0 in K1 on the camera stage's rays in place of K2
+    from raytracing_course_2024_tpu_torch.integrator.path import DEFAULT_BATCH, plan_batches
+    from raytracing_course_2024_tpu_torch.ops import kernels as KN
+
+    for engine in ("batch", "sticky"):
+        xr = Renderer(desc, device=dev, russian_roulette=True, engine=engine)
+        xr.cfg = xr.cfg._replace(sampler="xla")
+        KN.reset_launches()
+        try:
+            xr.render_radiance(seed=3)
+            raise SystemExit(f"sampler='xla' rendered on the card ({engine})")
+        except ValueError as e:
+            if "sampler" not in str(e) or any(KN.LAUNCHES.values()):
+                raise SystemExit(f"sampler='xla' ({engine}): {e!r}, launched {KN.LAUNCHES}")
+            say("render", case=f"sampler-xla-refused-{engine}", error=str(e))
+    b, replicas = plan_batches(DEFAULT_BATCH, w * h, spp)
+    runs, depth = -(-w * h // b) * (spp // replicas), desc.settings.ray_depth
+    os.environ["RT_MEGA_CAM"] = "0"
+    try:
+        KN.reset_launches()
+        cam_off = Renderer(desc, device=dev).render_radiance(seed=3)
+        launched = {k: v for k, v in KN.LAUNCHES.items() if v}
+    finally:
+        os.environ.pop("RT_MEGA_CAM")
+    if launched != {"bounce": runs * (depth - 1), "final": runs}:
+        raise SystemExit(f"RT_MEGA_CAM=0 launched {launched}")
+    render_pair(cam_off, fused, "fused-mega-cam-off-vs-default", size=size, spp=spp,
+                within_1e4=float((np.abs(cam_off - fused) <= 1e-4).all(axis=-1).mean()),
+                launches=json.dumps(launched).replace(" ", ""))
     os.environ["RT_MEGAKERNEL"] = "0"
     try:
         mod = Renderer(desc, device=dev)
@@ -1207,8 +1256,6 @@ def phase_render(dev) -> None:
     render_pair(Renderer(mixed, device=dev, engine="sticky").render_radiance(seed=3),
                 Renderer(mixed, device=dev, engine="sticky", plain=True).render_radiance(seed=3),
                 "mixed-sticky-fused-kernels-vs-plain", size=size, spp=spp)
-
-    from raytracing_course_2024_tpu_torch.ops import kernels as KN
 
     mesh = mesh_desc(w, h, MESH_SPP)
     r = Renderer(mesh, device=dev)
@@ -2103,6 +2150,277 @@ def phase_runtime(dev, gpu: str) -> None:
     say("runtime", seconds=round(time.perf_counter() - t0, 2))
 
 
+MP_TIMEOUT = 300  # seconds for one [multiproc] world, its scenes' build included
+MP_ENGINES = ("batch", "sticky", "wavefront")
+LAUNCHER_VARS = ("WORLD_SIZE", "RANK", "LOCAL_RANK", "LOCAL_WORLD_SIZE", "MASTER_ADDR",
+                 "MASTER_PORT", "GROUP_RANK", "TORCHELASTIC_USE_AGENT_STORE")
+
+
+def mp_cases(mode: str) -> dict:
+    """name -> (scene, engine, spp) of a [multiproc] world: the Cornell frame
+    on the batch engine (``nccl``), or on the three engines and the BVH frame
+    on its default engine (``gloo``, ``cards``)."""
+    from raytracing_course_2024_tpu_torch.scene import load_scene
+
+    w, h, spp = FRAME
+    desc = load_scene(CORNELL, w, h, spp)
+    cases = {f"cornell-{e}": (desc, e, spp) for e in MP_ENGINES}
+    if mode == "nccl":
+        return {"cornell-batch": cases["cornell-batch"]}
+    cases["bvh81920-batch"] = (bvh_desc(w, h, SHARD_BVH_SPP), None, SHARD_BVH_SPP)
+    return cases
+
+
+def mp_worker(mode: str, tmp: str, store: str, world: int, rank: int) -> int:
+    """``chip_smoke.py --mp-worker MODE DIR STORE WORLD RANK``: one process of
+    a [multiproc] world over the file store STORE, on a (WORLD, 1) multihost
+    mesh of ``local_cards()``. ``nccl``: a group of one over NCCL on card 0;
+    ``gloo``: one of two processes on the one card, ``cards``: one process
+    per card (``init_distributed`` picks gloo or NCCL from that layout, as a
+    launcher's ``LOCAL_RANK`` / ``LOCAL_WORLD_SIZE`` give it). Each case renders
+    once to warm up, then once timed with the launch counters set to 0 just
+    before and read just after; ``combine_ms`` is the host time of the
+    collectives that join the processes' tiles (``parallel/shard.py:_combine``,
+    from a synchronised card: the copies of the tiles, the wait for the other
+    process, the gather). Writes DIR/MODE-RANK.json and, on process 0, each
+    frame to DIR/MODE-CASE.npy."""
+    import torch.distributed as dist
+
+    from raytracing_course_2024_tpu_torch.ops import kernels as KN
+    from raytracing_course_2024_tpu_torch.parallel import init_distributed, make_multihost_mesh
+    from raytracing_course_2024_tpu_torch.parallel import shard
+    from raytracing_course_2024_tpu_torch.runtime.render import ShardedRenderer
+
+    if not torch.cuda.is_available():
+        print("chip_smoke --mp-worker: no CUDA device", file=sys.stderr)
+        return 1
+    os.environ.update(LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world))
+    if world == 1:  # init_distributed starts no group of one
+        torch.cuda.set_device(0)
+        dist.init_process_group("nccl", init_method=store, world_size=world, rank=rank)
+    elif not init_distributed(store, world, rank):
+        raise SystemExit("init_distributed started no group")
+    combine, combine_ms = shard._combine, []
+
+    def timed_combine(*args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = combine(*args)
+        combine_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    shard._combine = timed_combine
+    mesh = make_multihost_mesh(world, 1)
+    rec = {"backend": dist.get_backend(), "world": dist.get_world_size(),
+           "mesh": [[str(d) for d in row] for row in mesh.devices], "ranks": mesh.ranks}
+    for name, (desc, engine, spp) in mp_cases(mode).items():
+        sr = ShardedRenderer(desc, mesh=mesh, engine=engine)
+        sr.render_radiance(seed=SEED + 1, samples=spp)  # warm-up: allocator
+        torch.cuda.synchronize()
+        dist.barrier()
+        KN.reset_launches()
+        combine_ms.clear()
+        t0 = time.perf_counter()
+        img, stats = sr.render_radiance(seed=SEED, samples=spp, with_stats=True)
+        rec[name] = {"ms": (time.perf_counter() - t0) * 1e3, "combine_ms": sum(combine_ms),
+                     "launches": dict(KN.LAUNCHES),
+                     "rounds": sr.rounds, "verts": stats.path_vertices, "engine": sr.engine,
+                     "backend": sr.backend}
+        if rank == 0:
+            np.save(os.path.join(tmp, f"{mode}-{name}.npy"), img)
+    dist.destroy_process_group()
+    with open(os.path.join(tmp, f"{mode}-{rank}.json"), "w") as f:
+        json.dump(rec, f)
+    leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib"))
+    if leaked:
+        raise SystemExit(f"the port imported {leaked}")
+    return 0
+
+
+def launcher_env() -> dict:
+    """This environment without a launcher's variables, the repo importable."""
+    env = {k: v for k, v in os.environ.items() if k not in LAUNCHER_VARS}
+    env["PYTHONPATH"] = os.pathsep.join(filter(None, [ROOT, env.get("PYTHONPATH")]))
+    return env
+
+
+def wait_all(procs: list, logs: list, what: str) -> None:
+    """Wait for every process (each in a session of its own) within
+    ``MP_TIMEOUT``; at the first non-zero exit, or at the timeout, kill every
+    session and fail with that process's output."""
+    deadline = time.monotonic() + MP_TIMEOUT
+    try:
+        while True:
+            codes = [p.poll() for p in procs]
+            for i, code in enumerate(codes):
+                if code not in (None, 0):
+                    raise SystemExit(f"{what}: process {i} exited {code}:\n"
+                                     + open(logs[i]).read()[-3000:])
+            if None not in codes:
+                return
+            if time.monotonic() > deadline:
+                i = codes.index(None)
+                raise SystemExit(f"{what}: process {i} still ran after {MP_TIMEOUT} s:\n"
+                                 + open(logs[i]).read()[-3000:])
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.wait()
+
+
+def run_world(mode: str, world: int, tmp: str) -> list:
+    """The ``world`` processes of a [multiproc] world; their records by rank."""
+    store = "file://" + os.path.join(tmp, f"{mode}.store")
+    procs, logs = [], []
+    for rank in range(world):
+        logs.append(os.path.join(tmp, f"{mode}-{rank}.log"))
+        with open(logs[-1], "w") as f:
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--mp-worker", mode, tmp, store,
+                 str(world), str(rank)], stdout=f, stderr=subprocess.STDOUT, env=launcher_env(),
+                start_new_session=True))
+    wait_all(procs, logs, f"multiproc {mode}")
+    recs = []
+    for rank in range(world):
+        with open(os.path.join(tmp, f"{mode}-{rank}.json")) as f:
+            recs.append(json.load(f))
+    return recs
+
+
+def mp_check(dev, tmp: str, gpu: str, mode: str, recs: list, cells: list) -> None:
+    """Each frame of a world against the single-process frame of the same
+    mesh on ``cells`` (its devices by tile: bit for bit) and against the
+    single-device frame on ``dev`` (rtol 1e-4 / atol 1e-5); the ranks'
+    launches summed against the shards'."""
+    from raytracing_course_2024_tpu_torch.parallel import make_mesh
+    from raytracing_course_2024_tpu_torch.runtime.render import Renderer, ShardedRenderer
+
+    world, backend = recs[0]["world"], recs[0]["backend"]
+    if backend != ("gloo" if mode == "gloo" else "nccl") or len(recs) != world:
+        raise SystemExit(f"multiproc {mode}: {len(recs)} records, world {world}, {backend}")
+    def timed(r, spp):
+        r.render_radiance(seed=SEED + 1, samples=spp)  # warm-up, as in the workers
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img = r.render_radiance(seed=SEED, samples=spp)
+        return img, (time.perf_counter() - t0) * 1e3
+
+    for name, (desc, engine, spp) in mp_cases(mode).items():
+        single, single_ms = timed(Renderer(desc, device=dev, engine=engine), spp)
+        sr = ShardedRenderer(desc, mesh=make_mesh(world, 1, devices=cells), engine=engine)
+        ref, ref_ms = timed(sr, spp)
+        img = np.load(os.path.join(tmp, f"{mode}-{name}.npy"))
+        got = {k: sum(r[name]["launches"][k] for r in recs) for k in recs[0][name]["launches"]}
+        rounds = recs[0][name]["rounds"]
+        want = expected_launches(sr, *shard_geometry(sr, spp), rounds)
+        bit = bool(np.array_equal(img, ref))
+        close = bool(np.allclose(img, single, rtol=SHARD_RTOL, atol=SHARD_ATOL))
+        say("multiproc", case=name, world=world, backend=backend, engine=recs[0][name]["engine"],
+            scene_backend=recs[0][name]["backend"], spp=spp,
+            ms=round(recs[0][name]["ms"], 3),
+            ms_ranks=json.dumps([round(r[name]["ms"], 3) for r in recs]).replace(" ", ""),
+            combine_ms=json.dumps([round(r[name]["combine_ms"], 3) for r in recs]).replace(
+                " ", ""),
+            one_process_ms=round(ref_ms, 3), one_device_ms=round(single_ms, 3),
+            bit_equal=bit, allclose=close,
+            max_abs_err=float(np.abs(img - single).max()),
+            verts=recs[0][name]["verts"],
+            launches=json.dumps({k: v for k, v in got.items() if v}).replace(" ", ""),
+            rounds=json.dumps(rounds).replace(" ", ""), gpu=f'"{gpu}"')
+        if not (bit and close):
+            raise SystemExit(f"multiproc {mode} {name}: bit_equal={bit} allclose={close}")
+        if recs[0][name]["backend"] != ("bvh" if name.startswith("bvh") else "dense"):
+            raise SystemExit(f"multiproc {mode} {name}: {recs[0][name]['backend']} backend")
+        if rounds != sr.rounds or any(r[name]["rounds"] != rounds for r in recs):
+            raise SystemExit(f"multiproc {mode} {name}: rounds {rounds} != {sr.rounds}")
+        if got != want:
+            raise SystemExit(f"multiproc {mode} {name}: launches {got} != {want}")
+
+
+def mp_cli(dev, tmp: str, gpu: str) -> None:
+    """The CLI under ``python -m torch.distributed.run --standalone
+    --nproc-per-node 2`` on the Cornell frame: one PPM (and its PNG and
+    out.log), from process 0, equal to the single-process (2, 1) frame."""
+    from raytracing_course_2024_tpu_torch.parallel import make_mesh
+    from raytracing_course_2024_tpu_torch.runtime.image_io import read_png, read_ppm
+    from raytracing_course_2024_tpu_torch.runtime.render import ShardedRenderer
+    from raytracing_course_2024_tpu_torch.scene import load_scene
+
+    w, h, spp = FRAME
+    cwd = os.path.join(tmp, "cli")
+    os.makedirs(cwd)
+    log = os.path.join(tmp, "cli.log")
+    t0 = time.perf_counter()
+    with open(log, "w") as f:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
+             "2", "-m", "raytracing_course_2024_tpu_torch", CORNELL, str(w), str(h), str(spp),
+             "out.ppm", "out"], cwd=cwd, stdout=f, stderr=subprocess.STDOUT,
+            env=launcher_env(), start_new_session=True)
+        wait_all([proc], [log], "multiproc cli")
+    secs = time.perf_counter() - t0
+    out = open(log).read()
+    files = sorted(os.listdir(cwd))
+    if files != ["out.log", "out.png", "out.ppm"]:
+        raise SystemExit(f"multiproc cli wrote {files}")
+    img = read_ppm(os.path.join(cwd, "out.ppm"))
+    ref = ShardedRenderer(load_scene(CORNELL, w, h, spp),
+                          mesh=make_mesh(2, 1, devices=[dev] * 2)).render_u8(0)
+    equal = bool(np.array_equal(img, ref))
+    backend = re.findall(r"Processes: 2, backend: (\w+)", out)
+    took = re.findall(r"Rendering took ([\d.]+)s", out)
+    say("multiproc", cli="torch.distributed.run", nproc=2, backend=",".join(backend),
+        size=f"{w}x{h}",
+        spp=spp, seconds=round(secs, 2), rendering_s=",".join(took), files=",".join(files),
+        equal_to_one_process=equal, mean_u8=round(float(img.mean()), 3), gpu=f'"{gpu}"')
+    if backend != ["gloo"] or len(took) != 1:
+        raise SystemExit(f"multiproc cli: backend {backend}, render lines {took}:\n{out[-3000:]}")
+    if not equal or not np.array_equal(img, read_png(os.path.join(cwd, "out.png"))):
+        raise SystemExit("multiproc cli: the image is not the single-process (2, 1) frame")
+
+
+def cards_main() -> int:
+    """``chip_smoke.py --cards``: the multiproc phase across every card of
+    the machine (two or more), one process per card over NCCL, against the
+    one-process frame of the same cards (one thread per card) and the
+    single-card frame. Prints every card's name and power limit."""
+    n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if n < 2:
+        print(f"chip_smoke --cards: {n} CUDA devices, needs 2 or more", file=sys.stderr)
+        return 1
+    from raytracing_course_2024_tpu_torch.ops import kernels
+
+    kernels.library()
+    gpus = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip().splitlines()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        mp_check(torch.device("cuda", 0), tmp, gpus[0], "cards", run_world("cards", n, tmp),
+                 [torch.device("cuda", i) for i in range(n)])
+    say("multiproc", cards=n, seconds=round(time.perf_counter() - t0, 2))
+    for line in gpus:
+        print(line, flush=True)
+    return 0
+
+
+def phase_multiproc(dev, gpu: str) -> None:
+    """Rendering across processes on the one card: a group of one over NCCL
+    (its init and collectives on the card), two processes over gloo (the
+    tiles through host memory), and the CLI under ``torch.distributed.run``.
+    On one card these measure the cost of the processes and check the
+    frames; they are no speed-up."""
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()  # room for the workers
+    with tempfile.TemporaryDirectory() as tmp:
+        recs = {mode: run_world(mode, world, tmp) for mode, world in (("nccl", 1), ("gloo", 2))}
+        mp_cli(dev, tmp, gpu)
+        for mode, r in recs.items():
+            mp_check(dev, tmp, gpu, mode, r, [dev] * len(r))
+    say("multiproc", seconds=round(time.perf_counter() - t0, 2))
+
+
 def phase_timing(dev, gpu: str, counts: dict, errs: dict, m: Modular, k5, bvh: dict) -> list:
     from raytracing_course_2024_tpu_torch.ops import bounce as B
     from raytracing_course_2024_tpu_torch.ops.persistent import persistent_plain
@@ -2284,6 +2602,7 @@ def main() -> int:
     errs["bvh"] = max(errs["bvh"], bvh["max_abs_err"])
     record = phase_timing(dev, gpu, counts, errs, cornell, k5_state, bvh)
     phase_runtime(dev, gpu)
+    phase_multiproc(dev, gpu)
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib"))
     if leaked:
         raise SystemExit(f"the port imported {leaked}")
@@ -2298,4 +2617,9 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--resume"]:
         sys.exit(resume_main(sys.argv[2]))
+    if sys.argv[1:2] == ["--cards"]:
+        sys.exit(cards_main())
+    if sys.argv[1:2] == ["--mp-worker"]:
+        mode, tmp, store, world, rank = sys.argv[2:7]
+        sys.exit(mp_worker(mode, tmp, store, int(world), int(rank)))
     sys.exit(main())

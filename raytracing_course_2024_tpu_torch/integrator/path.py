@@ -23,7 +23,8 @@ direction never contributes). Two routes compute it, picked by
   (``ops/traverse.py:nearest_hit``: K4 or the chunked sweep on the dense
   backend, the BVH walk K6 on the BVH backend),
   ``surface_detail``, the mixture sampler (K3, ops/sampler.py, or its XLA
-  formulation for faithful acceptance and more than 32 lights) and
+  formulation for faithful acceptance, more than 32 lights and, on the
+  CPU only, ``TraceConfig.sampler="xla"``) and
   ``_finish_bounce`` with optional Russian roulette: the JAX package's
   ``trace_paths`` batch scan.
 
@@ -66,16 +67,38 @@ class TraceConfig(NamedTuple):
     bg_color: tuple  # (r, g, b)
     max_tries: int = 4  # mixture rejection candidates
     backend: str = "dense"  # "dense" | "bvh"
+    # mixture sampler of the modular bounce: "auto" takes K3 up to 32
+    # lights, "pallas" always (unless faithful), "xla" the XLA formulation;
+    # "xla" also turns the fused path off, as in the JAX package, and is
+    # refused on a card (``check_sampler``)
+    sampler: str = "auto"
     faithful: bool = False  # reference-exact acceptance (modular path only)
     rr: bool = False  # Russian roulette (modular path only)
 
 
 def mega_gate(cfg: TraceConfig, statics: SceneStatics) -> bool:
     """Whether the fused-bounce path renders this configuration (the JAX
-    package's ``_mega_gate``); ``RT_MEGAKERNEL=0`` turns it off."""
+    package's ``_mega_gate``); ``RT_MEGAKERNEL=0`` and ``sampler="xla"``
+    turn it off."""
     return (cfg.backend == "dense" and not cfg.faithful and not cfg.rr
+            and cfg.sampler in ("auto", "pallas")
             and os.environ.get("RT_MEGAKERNEL", "1") != "0"
             and B.gate_reason(statics) is None)
+
+
+SAMPLERS = ("auto", "xla", "pallas")
+
+
+def check_sampler(cfg: TraceConfig, device) -> None:
+    """Refuses a ``cfg.sampler`` outside ``SAMPLERS``, and ``"xla"`` on a
+    CUDA device: there it would run K3's plain version (and the lane
+    engines' unfused core) in place of the kernels. On the CPU every wrapper
+    runs its plain version anyway, so ``"xla"`` only moves the route."""
+    if cfg.sampler not in SAMPLERS:
+        raise ValueError(f"sampler {cfg.sampler!r}: expected one of {SAMPLERS}")
+    if cfg.sampler == "xla" and torch.device(device).type == "cuda":
+        raise ValueError('sampler="xla" runs the plain sampler; on a card the modular bounce '
+                         'takes K3 ("auto" or "pallas")')
 
 
 # ---------------------------------------------------------------------------
@@ -94,7 +117,11 @@ def trace_sample(scene: B.BounceScene, state: torch.Tensor, seed: int,
     path vertices as a 0-dim tensor on the device): every lane at bounce 0,
     then the lanes alive on entry to each later level. Through the kernels
     each level's launch adds its own count (int64); the plain versions sum
-    the alive row per level (float64)."""
+    the alive row per level (float64).
+
+    ``RT_MEGA_CAM=0`` (the JAX package's switch) takes the camera rays from
+    ``_first_level_state`` and runs bounce 0 in K1 instead of K2, from the
+    same draws."""
     bg, k = cfg.bg_color, cfg.max_tries
     if not plain:
         return _trace_sample_kernels(scene, state, seed, wid, wid_off, px, py, cam_row, cfg,
@@ -103,7 +130,13 @@ def trace_sample(scene: B.BounceScene, state: torch.Tensor, seed: int,
     if cfg.ray_depth < 2:  # the final level only: camera rays, then K1 final_only
         st = _first_level_state(seed, wid, wid_off, px, py, cam_row, width, height)
     else:
-        st = B.primary_plain(scene, cam_row, px, py, wid, wid_off, seed, bg, k, width, height)
+        if _mega_cam():
+            st = B.primary_plain(scene, cam_row, px, py, wid, wid_off, seed, bg, k, width,
+                                 height)
+        else:
+            st = B.bounce_plain(scene, _first_level_state(seed, wid, wid_off, px, py, cam_row,
+                                                          width, height),
+                                wid, wid_off, seed, 0, bg, k)
         for i in range(1, cfg.ray_depth - 1):
             rays += st[12].sum(dtype=torch.float64)
             st = B.bounce_plain(scene, st, wid, wid_off, seed, i, bg, k)
@@ -113,11 +146,18 @@ def trace_sample(scene: B.BounceScene, state: torch.Tensor, seed: int,
     return st, rays
 
 
+def _mega_cam() -> bool:
+    """Whether bounce 0 generates its camera rays in K2 (``RT_MEGA_CAM``,
+    on unless ``"0"``)."""
+    return os.environ.get("RT_MEGA_CAM", "1") != "0"
+
+
 def _first_level_state(seed: int, wid: torch.Tensor, wid_off: int, px: torch.Tensor,
                        py: torch.Tensor, cam_row: torch.Tensor, width: int,
                        height: int) -> torch.Tensor:
-    """The (13, B) state of fresh paths on their camera rays (``ray_depth``
-    below 2: no bounce 0 runs before the final level)."""
+    """The (13, B) state of fresh paths on their camera rays: the input of
+    the final level at ``ray_depth`` below 2, of bounce 0 under
+    ``RT_MEGA_CAM=0``."""
     draw = B.lane_draws(seed, wid, wid_off)
     ro, rd = generate_rays_u(camera_from_row(cam_row), px, py, width, height,
                              draw(CTR_JITTER), draw(CTR_JITTER + 1))
@@ -131,17 +171,20 @@ def _trace_sample_kernels(scene, state, seed, wid, wid_off, px, py, cam_row, cfg
     """``trace_sample`` through the wrappers of ``ops/bounce.py``: K2, then
     K1 per level, then K1 ``final_only``, in place in ``state``. K2 runs every
     lane; each later launch adds the lanes alive on its entry to ``rays``
-    (on the CPU the wrappers sum the alive row)."""
+    (on the CPU the wrappers sum the alive row). Under ``RT_MEGA_CAM=0``
+    bounce 0 is K1 on ``_first_level_state``."""
     bg, k = cfg.bg_color, cfg.max_tries
-    if cfg.ray_depth < 2:
-        st = _first_level_state(seed, wid, wid_off, px, py, cam_row, width, height)
-        rays = torch.zeros((), dtype=torch.int64, device=px.device)
-    else:
+    if cfg.ray_depth >= 2 and _mega_cam():
         st = B.primary_bounce(scene, cam_row, px, py, wid, wid_off, seed, bg, k, width, height,
                               out=state)
         rays = torch.full((), px.shape[0], dtype=torch.int64, device=px.device)
-        for i in range(1, cfg.ray_depth - 1):
-            st = B.bounce(scene, st, wid, wid_off, seed, i, bg, k, out=st, count=rays)
+        first = 1
+    else:  # camera rays, then K1 from bounce 0 on (or the final level alone)
+        st = _first_level_state(seed, wid, wid_off, px, py, cam_row, width, height)
+        rays = torch.zeros((), dtype=torch.int64, device=px.device)
+        first = 0
+    for i in range(first, cfg.ray_depth - 1):
+        st = B.bounce(scene, st, wid, wid_off, seed, i, bg, k, out=st, count=rays)
     st = B.bounce(scene, st, wid, wid_off, seed, max(cfg.ray_depth - 1, 0), bg, k,
                   final_only=True, out=st, count=rays)
     return st, rays
@@ -245,9 +288,13 @@ def _bounce(state: PathState, scene: ModularScene, cfg: TraceConfig, seed: int,
     is_delta = (surf.mkind == MIRROR) | (surf.mkind == DIELECTRIC)
     args = (scene, seed, wid, wid_off, base, surf.point, surf.n_geom, surf.n_shade,
             -state.rd, surf.roughness, state.alive & ~is_delta, k)
-    # K3 takes the fast acceptance and at most 32 lights; faithful acceptance
-    # and larger light tables take the XLA formulation, as in the JAX package
-    if not (plain or cfg.faithful or scene.statics.num_lights > UNROLL_MAX_LIGHTS):
+    # K3 takes the fast acceptance: "auto" at most 32 lights, "pallas" always
+    # (K3 refuses a larger light table); faithful acceptance, larger light
+    # tables under "auto" and "xla" (CPU only, ``check_sampler``) take the
+    # XLA formulation, as in the JAX package
+    if not plain and not cfg.faithful and (
+            cfg.sampler == "pallas"
+            or (cfg.sampler == "auto" and scene.statics.num_lights <= UNROLL_MAX_LIGHTS)):
         l_s, pdf, ok = sample_mixture_kernel(*args)
     else:
         l_s, pdf, ok = sampler_plain(*args, faithful=cfg.faithful)
@@ -353,6 +400,7 @@ def render_batches(scene, seed: int, cam_row: torch.Tensor, cfg: TraceConfig, wi
     b, replicas = plan_batches(batch_size, n_pix, samples)
     spp_r = samples // replicas
     dev = cam_row.device
+    check_sampler(cfg, dev)
     n_batches = -(-n_pix // b)
     outs = []
     nrays = torch.zeros((), dtype=torch.float64, device=dev)

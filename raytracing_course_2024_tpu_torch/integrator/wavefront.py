@@ -52,7 +52,7 @@ from ..ops.scene_intersect import surface_detail
 from ..ops.traverse import nearest_hit
 from ..ops.vec import Vec3, where3
 from ..scene.types import DIELECTRIC, MIRROR
-from .path import RR_START, PathState, TraceConfig, _finish_bounce
+from .path import RR_START, PathState, TraceConfig, _finish_bounce, check_sampler
 
 # a dead lane's parked ray: far outside every scene, pointing away along the
 # all-positive diagonal so slab and cull tests reject it with finite math
@@ -104,6 +104,7 @@ def _make_bounce_core(cfg: TraceConfig, scene, seed: int, plain: bool = False):
     k, bg = cfg.max_tries, cfg.bg_color
     last = cfg.ray_depth - 1
     lane_ctr(0, k)  # refuses a max_tries whose draws overflow the counter block
+    check_sampler(cfg, _scene_device(scene))
 
     if isinstance(scene, B.BounceScene):
         def fused_core(state, wid, depth):

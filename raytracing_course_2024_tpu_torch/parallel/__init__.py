@@ -1,3 +1,5 @@
-from .shard import Mesh, make_mesh, render_frame_sharded
+from .shard import (Mesh, init_distributed, make_mesh, make_multihost_mesh,
+                    render_frame_sharded)
 
-__all__ = ["Mesh", "make_mesh", "render_frame_sharded"]
+__all__ = ["Mesh", "init_distributed", "make_mesh", "make_multihost_mesh",
+           "render_frame_sharded"]

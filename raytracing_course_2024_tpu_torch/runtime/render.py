@@ -24,8 +24,9 @@ RNG, so the image does not depend on the batch size, the replica count, the
 lane count or the mesh.
 
 ``render_scene`` shards over every card (``parallel/shard.py``) when it is
-asked for ``"cuda"`` and more than one card is present, as the JAX package
-shards over every device.
+asked for ``"cuda"`` and more than one card is present, and over every
+process of a process group of more than one (``init_distributed``), as the
+JAX package shards over every device of every host.
 """
 
 from __future__ import annotations
@@ -45,7 +46,8 @@ from ..ops.bvh import attach_bvh
 from ..ops.camera import camera_arrays, pack_camera_row
 from ..ops.scene_intersect import modular_scene
 from ..ops.tonemap import color_to_u8
-from ..parallel.shard import make_mesh, render_frame_sharded
+from ..parallel.shard import (local_cards, make_mesh, make_multihost_mesh, process_count,
+                              process_layout, render_frame_sharded)
 from ..scene.build import build_scene_arrays
 from ..scene.types import SceneDesc
 from .profiling import RenderStats
@@ -207,7 +209,12 @@ def render_scene(desc: SceneDesc, seed: int = 0, device="cuda", **kw) -> np.ndar
 
     Asked for ``"cuda"`` with more than one card present, the frame renders
     over a (tile x spp) mesh of every card (``ShardedRenderer``); a named
-    device (``"cuda:1"``, ``"cpu"``) gets the single-device ``Renderer``."""
+    device (``"cuda:1"``, ``"cpu"``) gets the single-device ``Renderer``.
+    In a process group of more than one process, the frame renders over a
+    mesh of every process's cards (``"cuda"``) or of its ``device``, and
+    every process returns it."""
+    if process_count() > 1:
+        return _render_scene_sharded(desc, seed, device=device, **kw)
     if str(device) == "cuda" and torch.cuda.device_count() > 1:
         return _render_scene_sharded(desc, seed, **kw)
     r = Renderer(desc, device=device, **kw)
@@ -231,7 +238,9 @@ class ShardedRenderer(_RendererBase):
     (``parallel/shard.py``): rows over ``tile``, samples over ``spp``.
 
     ``mesh=None`` puts 2 cards on the spp axis when the card count and the
-    samples are even, the rest on ``tile`` (the JAX package's default).
+    samples are even, the rest on ``tile`` (the JAX package's default); in a
+    process group of more than one process, the cards are every process's
+    (``default_mesh``).
     ``backend``, ``max_tries`` and ``engine`` mean what they mean in
     ``Renderer``, and so does ``RT_RR``; each shard runs ``DEFAULT_BATCH``
     lanes at most. The device scene is built once per distinct device.
@@ -245,11 +254,8 @@ class ShardedRenderer(_RendererBase):
 
     def __init__(self, desc: SceneDesc, mesh=None, backend: str | None = None,
                  max_tries: int = 4, engine: str | None = None):
-        s = desc.settings
         if mesh is None:
-            ndev = torch.cuda.device_count()
-            n_spp = 2 if ndev % 2 == 0 and s.samples % 2 == 0 else 1
-            mesh = make_mesh(ndev // n_spp, n_spp)
+            mesh = default_mesh(desc.settings.samples)
         for dev in mesh.distinct():
             _device(dev)
         self.mesh = mesh
@@ -270,14 +276,32 @@ class ShardedRenderer(_RendererBase):
         return [img.reshape(3, -1)], verts
 
 
+def default_mesh(samples: int, devices=None):
+    """The JAX package's factoring of every card (or of ``devices``): 2 on
+    the spp axis when each process's count and ``samples`` are even, the
+    rest on ``tile``. In a process group of more than one process the cards
+    are every process's (``process_layout``: by default each process's
+    ``local_cards``), laid out by ``make_multihost_mesh``."""
+    if process_count() > 1:
+        layout = process_layout(local_cards() if devices is None else devices)
+        n_spp = 2 if samples % 2 == 0 and all(len(d) % 2 == 0 for d in layout) else 1
+        return make_multihost_mesh(sum(map(len, layout)) // n_spp, n_spp, layout=layout)
+    ndev = torch.cuda.device_count() if devices is None else len(devices)
+    n_spp = 2 if ndev % 2 == 0 and samples % 2 == 0 else 1
+    return make_mesh(ndev // n_spp, n_spp, devices)
+
+
 def _render_scene_sharded(desc: SceneDesc, seed: int = 0, batch_size: int | None = None,
-                          **kw) -> np.ndarray:
-    """One-shot render over every card (``ShardedRenderer``). ``batch_size``
-    is single-device only and is refused, so that a caller's intent is never
+                          device="cuda", **kw) -> np.ndarray:
+    """One-shot render over every card, or over every process's ``device``
+    in a process group (``ShardedRenderer``). ``batch_size`` is
+    single-device only and is refused, so that a caller's intent is never
     dropped."""
     if batch_size is not None:
         raise ValueError("batch_size is single-device only; the sharded renderer runs "
                          "DEFAULT_BATCH lanes per shard")
+    if str(device) != "cuda":
+        kw["mesh"] = default_mesh(desc.settings.samples, [device])
     r = ShardedRenderer(desc, **kw)
     s = desc.settings
     t0 = time.perf_counter()

@@ -219,10 +219,11 @@ def test_sharded_renderer_default_mesh(monkeypatch, cards, samples, want):
     the rest on tile (the JAX package's ShardedRenderer)."""
     asked = []
     monkeypatch.setattr(R.torch.cuda, "device_count", lambda: cards)
-    monkeypatch.setattr(R, "make_mesh", lambda t, s: asked.append((t, s)) or _mesh(t, s))
+    monkeypatch.setattr(R, "make_mesh",
+                        lambda t, s, devices=None: asked.append((t, s, devices)) or _mesh(t, s))
     _, td = descs("mixed", 16, 12, samples)
     sr = ShardedRenderer(td)
-    assert asked == [want] and sr.mesh.shape == {"tile": want[0], "spp": want[1]}
+    assert asked == [(*want, None)] and sr.mesh.shape == {"tile": want[0], "spp": want[1]}
     assert list(sr.scenes) == [torch.device("cpu")]  # one scene per distinct device
 
 
