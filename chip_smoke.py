@@ -2,6 +2,12 @@
 
     python3 chip_smoke.py            # one CUDA card
     python3 chip_smoke.py --cards    # the multiproc phase over every card (2+)
+    python3 chip_smoke.py --graphs   # the build and the graphs phase alone
+
+Every phase runs the Renderer as a user gets it: on the card the modular
+route and the lane engines' rounds on a modular scene replay captured CUDA
+graphs (``runtime/graphs.py``), whose replays add the launches recorded at
+capture, so every launch count below holds graphed.
 
 Phases (each prints lines tagged with its name; any failure raises and
 exits non-zero):
@@ -120,7 +126,16 @@ exits non-zero):
                torch.distributed.run --standalone --nproc-per-node 2``
                writing one PPM, the one-process (2, 1) frame. Every process
                runs under a timeout. ``--cards`` runs this phase alone with
-               one process per card over NCCL.
+               one process per card over NCCL;
+9. graphs   -- the BVH batch, Cornell modular (RT_RR=1), BVH wavefront and
+               BVH sticky frames at 1280x720 x 16 spp, graphed and with
+               ``eager=True``: equal bit for bit (image, path vertices,
+               rounds, launches) for two seeds and a second ``samp_base``,
+               with one capture per case; capture ms, pool MB, launches per
+               replay beside the eager frame's peak memory; eager and
+               graphed frame ms in turns (median of 3 each); the BVH batch
+               frame's busy share under torch.profiler, graphed and eager.
+               It runs after the timing phase, before runtime.
 
 The last lines are the card's name and power limit, the per-kernel JSON
 record and ``{"ok": true, "device": {...}}``.
@@ -280,6 +295,17 @@ KERNELS = {  # name -> (replaced TPU kernel body file:line, CUDA source)
     "bvh": (f"{TPU_OPS}/treelet.py:175", f"{CSRC}/bvh_traverse.cu"),
 }
 MODULAR = ("nearest", "sampler")  # launched on the modular main path only
+# where each kernel launches inside a replayed CUDA graph (runtime/graphs.py)
+GRAPHED = {
+    "primary": "no: the fused route stays eager",
+    "bounce": "no: the fused route and the fused lane core stay eager",
+    "final": "no: the fused route stays eager",
+    "persistent": "no: the fused route stays eager",
+    "nearest": "the batch engine's modular route; the lane engines' rounds on a dense "
+               "ModularScene",
+    "sampler": "the batch engine's modular route",
+    "bvh": "the batch engine's modular route; the lane engines' rounds",
+}
 SEED = 20240917
 K = 4  # max_tries
 FRAME = (1280, 720, 16)  # the main path: width, height, spp (one 921,600-lane batch)
@@ -1581,6 +1607,21 @@ def persistent_rounds(dev, gpu: str, desc) -> None:
         [round(x, 4) for x in live[:used]]).replace(" ", ""))
 
 
+def k3_args(args: tuple) -> tuple:
+    """K3's arguments with the seed and the work-id offset as the modular
+    route passes them: consecutive elements of one int64 device tensor,
+    which the wrapper hands the kernel as they are, so that a timed launch
+    is K3's alone (ints cost the wrapper three small launches of its own). A
+    tree whose K3 takes them by value (``kernel_times.py --root``) gets the
+    ints."""
+    from raytracing_course_2024_tpu_torch.ops import sampler
+
+    if not hasattr(sampler, "_seed_off"):
+        return args
+    so = torch.tensor([args[1], args[3]], dtype=torch.int64, device=args[2].device)
+    return (args[0], so[0], args[2], so[1], *args[4:])
+
+
 def nearest_fn(m: Modular, ro, rd, live):
     """A call of K4 on these rays as the package under test takes it: with
     the scene's records and the live mask where it has them (a tree from
@@ -1620,7 +1661,7 @@ def modular_times(m: Modular, gpu: str, reps: int, label: str = "timing") -> dic
         if has_live_mask():
             cases[f"nearest-{state}-masked"] = (nearest_fn(m, ro, rd, alive),
                                                 float(alive.float().mean()))
-        cases[f"sampler-{state}"] = (lambda args=args: sample_mixture_kernel(*args),
+        cases[f"sampler-{state}"] = (lambda args=k3_args(args): sample_mixture_kernel(*args),
                                      float(args[10].float().mean()))
     out = {}
     for name, (fn, active) in cases.items():
@@ -1648,7 +1689,8 @@ def modular_levels(m: Modular, gpu: str, reps: int, label: str = "timing") -> No
     for lvl, (ro, rd, alive, args) in enumerate(m.levels):
         plain_ms = cuda_ms_each(nearest_fn(m, ro, rd, None), reps)
         k4 = cuda_ms_each(nearest_fn(m, ro, rd, alive), reps) if masked else plain_ms
-        k3 = cuda_ms_each(lambda: sample_mixture_kernel(*args), reps) if args else None
+        k3 = (cuda_ms_each(lambda a=k3_args(args): sample_mixture_kernel(*a), reps) if args
+              else None)
         total["nearest"] += k4
         total["nearest_no_mask"] += plain_ms
         total["sampler"] += k3 or 0.0
@@ -1781,16 +1823,13 @@ def bvh_launch_times(r, gpu: str, states: dict, reps: int = 20, label: str = "ti
     return out
 
 
-def bvh_engine_turns(dev, gpu: str, desc, turns: int = 3, label: str = "timing") -> dict:
-    """The frame ``desc`` (the BVH scene) on each engine: a warm-up frame
-    each, then one frame per engine in turn, ``turns`` times. The frames are
-    host-bound and the host's speed drifts within a call, so the engines are
-    compared under the same drift. Prints each engine's median host ms (each
-    frame ends in a device sync), its frames, path vertices, rounds and peak
-    memory; returns engine -> (median ms, Renderer)."""
-    from raytracing_course_2024_tpu_torch.runtime.render import Renderer
-
-    rs = {e: Renderer(desc, device=dev, engine=e) for e in ("batch", "sticky", "wavefront")}
+def frames_in_turns(rs: dict, gpu: str, turns: int = 3, label: str = "timing") -> dict:
+    """The renderers ``rs`` (path name -> Renderer): a warm-up frame each,
+    then one frame each in turn, ``turns`` times. Host-bound frames drift
+    with the host's speed within a call, so the paths are compared under
+    the same drift. Prints each path's median host ms (each frame ends in a
+    device sync), its frames, path vertices, rounds and peak memory;
+    returns path -> (median ms, Renderer)."""
     for r in rs.values():
         r.render_frame_device(seed=0)
     times = {e: [] for e in rs}
@@ -1808,12 +1847,29 @@ def bvh_engine_turns(dev, gpu: str, desc, turns: int = 3, label: str = "timing")
     for e, r in rs.items():
         ms = statistics.median(times[e])
         out[e] = (ms, r)
-        say(label, path=f"bvh-{e}", ms_per_frame=round(ms, 3), frames_ms=json.dumps(
+        say(label, path=e, ms_per_frame=round(ms, 3), frames_ms=json.dumps(
             [round(t, 3) for t in times[e]]).replace(" ", ""), path_vertices=int(verts[e]),
             mrays_per_s=round(verts[e] / ms / 1e3, 3),
-            **({} if e == "batch" else {"rounds": r.rounds}), peak_mem_mb=peak[e],
-            gpu=f'"{gpu}"')
+            **({} if r.engine == "batch" else {"rounds": r.rounds}), peak_mem_mb=peak[e],
+            graphed=r.graphs is not None, gpu=f'"{gpu}"')
     return out
+
+
+def bvh_engine_turns(dev, gpu: str, desc, turns: int = 3, label: str = "timing",
+                     eager: bool = False) -> dict:
+    """The frame ``desc`` (the BVH scene) on each engine, in turns
+    (``frames_in_turns``; paths ``bvh-<engine>``, and with ``eager`` also
+    ``bvh-<engine>-eager``, the same renderer with ``eager=True``); returns
+    engine -> (median ms, Renderer) of the graphed renderers."""
+    from raytracing_course_2024_tpu_torch.runtime.render import Renderer
+
+    rs = {}
+    for e in ("batch", "sticky", "wavefront"):
+        rs[f"bvh-{e}"] = Renderer(desc, device=dev, engine=e)
+        if eager:
+            rs[f"bvh-{e}-eager"] = Renderer(desc, device=dev, engine=e, eager=True)
+    out = frames_in_turns(rs, gpu, turns, label)
+    return {e: out[f"bvh-{e}"] for e in ("batch", "sticky", "wavefront")}
 
 
 def phase_timing_bvh(dev, gpu: str) -> dict:
@@ -2546,7 +2602,7 @@ def phase_timing(dev, gpu: str, counts: dict, errs: dict, m: Modular, k5, bvh: d
         {"name": k, "route": "cuda", "source": KERNELS[k][1], "replaces": KERNELS[k][0],
          "launches": counts[k], "max_abs_err": errs[k], "ms": launch_ms[k],
          "plain_ms": plain_ms[k], "bound_ms": bounds[k][0], "bound_by": bounds[k][1],
-         "library_ms": None, "tolerance": tol, "lanes": n,
+         "library_ms": None, "tolerance": tol, "lanes": n, "graphed": GRAPHED[k],
          **({"ms_fresh_buffer": fresh_ms[k]} if k in fresh_ms else {}),
          **({"bound_ms_fresh_buffer": fresh_bounds[k][0]} if k in fresh_bounds else {}),
          **({"ms_bounce1": bounce1[k][0]["ms"], "bound_ms_bounce1": bounce1[k][1][0],
@@ -2554,6 +2610,169 @@ def phase_timing(dev, gpu: str, counts: dict, errs: dict, m: Modular, k5, bvh: d
             if k in bounce1 else {})}
         for k in KERNELS
     ]
+
+
+# the graphs phase: the modular route and the lane engines' rounds replayed
+# from captured CUDA graphs against the same frames launched op by op
+GRAPH_CASES = {  # case -> (scene, engine, roulette)
+    "bvh-batch": ("bvh", "batch", False),
+    "cornell-modular-rr": ("cornell", "batch", True),
+    "bvh-wavefront": ("bvh", "wavefront", False),
+    "bvh-sticky": ("bvh", "sticky", False),
+}
+GRAPH_SAMP_BASE = 16  # the second samp_base of a case: the next 16 samples
+
+
+def profiled_frame(r, seed: int) -> dict:
+    """One frame of ``r`` under torch.profiler (device events only): wall
+    ms, summed device ms, busy share, device launches, path vertices and the
+    rows (device ms, count, name), largest first."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, verts = r.render_frame_device(seed=seed)
+        wall = (time.perf_counter() - t0) * 1e3
+    rows = []
+    for evt in prof.key_averages():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        dev_us = getattr(evt, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = evt.self_cuda_time_total
+        if dev_us > 0:
+            rows.append((dev_us / 1e3, evt.count, evt.key))
+    rows.sort(reverse=True)
+    busy = sum(ms for ms, _, _ in rows)
+    return {"wall_ms": wall, "device_ms": busy, "busy_share": busy / wall,
+            "launches": sum(n for _, n, _ in rows), "path_vertices": verts, "rows": rows}
+
+
+def graph_frame(r, seed: int, samp_base: int = 0) -> dict:
+    """One frame of ``r`` with the launch counters set to 0 just before and
+    read just after: (3, pixels) image on the host, path vertices, rounds,
+    launches, host ms (ending in a device sync). ``samp_base`` > 0 renders
+    samples ``samp_base ..`` through the integrators with the renderer's
+    graph cache, as a shard or a chunk does."""
+    from raytracing_course_2024_tpu_torch.integrator.path import render_batches
+    from raytracing_course_2024_tpu_torch.integrator.wavefront import (
+        render_wavefront, render_wavefront_sticky)
+    from raytracing_course_2024_tpu_torch.ops import kernels as KN
+
+    s = r.settings
+    w, h, spp = s.width, s.height, s.samples
+    seed32 = (seed * 2654435761) & 0xFFFFFFFF
+    torch.cuda.synchronize()
+    KN.reset_launches()
+    t0 = time.perf_counter()
+    rounds = 0
+    if samp_base == 0:
+        outs, verts = r.render_frame_device(seed=seed)
+        rounds = r.rounds
+    elif r.engine == "batch":
+        outs, verts = render_batches(r.scene, seed32, r.cam_row, r.cfg, w, h, spp, r.batch_size,
+                                     samp_base=samp_base, graphs=r.graphs)
+        verts = float(verts)
+    else:
+        render = render_wavefront_sticky if r.engine == "sticky" else render_wavefront
+        img, verts, rounds = render(seed32, 0, samp_base, r.cam, r.scene, r.cfg, w, h, w * h,
+                                    spp, min(r.batch_size, w * h * spp), graphs=r.graphs)
+        outs = [img]
+    img = torch.cat(outs, dim=1)[:, :w * h].cpu()
+    ms = (time.perf_counter() - t0) * 1e3
+    return {"img": img, "verts": verts, "rounds": rounds, "launches": dict(KN.LAUNCHES),
+            "ms": ms}
+
+
+def same_frame(a: dict, b: dict) -> bool:
+    return (torch.equal(a["img"], b["img"]) and a["verts"] == b["verts"]
+            and a["rounds"] == b["rounds"] and a["launches"] == b["launches"])
+
+
+def phase_graphs(dev, gpu: str) -> None:
+    """Each case at 1280x720 x 16 spp on a graphed ``Renderer`` and an
+    ``eager=True`` one: the first graphed frame (it captures) equal to the
+    eager frame bit for bit (image, path vertices, rounds, launches); a
+    second seed and a second ``samp_base`` add no cache entry and equal the
+    eager frames; the cache's capture ms, pool MB and launches per replay
+    beside the eager frame's peak memory; eager and graphed frame ms in
+    turns (eager, graphed, graphed, eager, eager, graphed: median of 3
+    each); the BVH batch frame's busy share under torch.profiler, graphed
+    and eager."""
+    from raytracing_course_2024_tpu_torch.runtime.render import Renderer
+    from raytracing_course_2024_tpu_torch.scene import load_scene
+
+    t_phase = time.perf_counter()
+    w, h, spp = FRAME
+    descs = {"bvh": bvh_desc(w, h, spp), "cornell": load_scene(CORNELL, w, h, spp)}
+    for case, (scene, engine, rr) in GRAPH_CASES.items():
+        kw = dict(device=dev, engine=engine, russian_roulette=rr)
+        eager, graphed = Renderer(descs[scene], eager=True, **kw), Renderer(descs[scene], **kw)
+        if graphed.fused or graphed.graphs is None or eager.graphs is not None:
+            raise SystemExit(f"[graphs] {case}: not the modular route with a graph cache")
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        e1 = graph_frame(eager, 1)
+        eager_peak = frame_mem_mb(base)
+        g1 = graph_frame(graphed, 1)  # captures
+        entries = len(graphed.graphs.entries)
+        stats = graphed.graphs.stats()
+        checks = {"seed1": same_frame(e1, g1)}
+        checks["seed2"] = same_frame(graph_frame(eager, 2), graph_frame(graphed, 2))
+        checks["samp_base"] = same_frame(graph_frame(eager, 2, GRAPH_SAMP_BASE),
+                                         graph_frame(graphed, 2, GRAPH_SAMP_BASE))
+        checks["one_capture"] = (len(graphed.graphs.entries) == entries == 1
+                                 and graphed.graphs.stats()["capture_ms"] == stats["capture_ms"])
+        times = {"eager": [], "graphed": []}
+        for turn, mode in enumerate(("eager", "graphed", "graphed", "eager", "eager",
+                                     "graphed")):
+            times[mode].append(graph_frame(eager if mode == "eager" else graphed,
+                                           3 + turn)["ms"])
+        e_ms, g_ms = statistics.median(times["eager"]), statistics.median(times["graphed"])
+        entry = next(iter(graphed.graphs.entries.values()))
+        say("graphs", case=case, size=f"{w}x{h}", spp=spp, engine=engine,
+            **{f"bit_equal_{k}" if k != "one_capture" else k: v for k, v in checks.items()},
+            entries=entries, capture_ms=round(stats["capture_ms"], 3),
+            pool_mb=round(stats["pool_mb"], 1), eager_peak_mb=eager_peak,
+            launches_per_replay=json.dumps(entry.launches).replace(" ", ""),
+            replays=entry.replays, path_vertices=int(g1["verts"]),
+            **({} if engine == "batch" else {"rounds": g1["rounds"]}),
+            launches=json.dumps({k: v for k, v in g1["launches"].items() if v})
+            .replace(" ", ""),
+            eager_ms=round(e_ms, 3), graphed_ms=round(g_ms, 3),
+            speedup=round(e_ms / g_ms, 3),
+            frames_ms=json.dumps({k: [round(t, 3) for t in v] for k, v in times.items()})
+            .replace(" ", ""), gpu=f'"{gpu}"')
+        if not all(checks.values()):
+            raise SystemExit(f"[graphs] {case}: graphed frames differ from eager: {checks}")
+        if case == "bvh-batch":
+            for mode, r in (("graphed", graphed), ("eager", eager)):
+                p = profiled_frame(r, 9)
+                say("graphs", case=case, profiled=mode, wall_ms=round(p["wall_ms"], 3),
+                    device_ms=round(p["device_ms"], 3), busy_share=round(p["busy_share"], 4),
+                    device_launches=p["launches"], top=json.dumps(
+                        [[round(ms, 3), n, k[:40]] for ms, n, k in p["rows"][:4]])
+                    .replace(" ", ""), gpu=f'"{gpu}"')
+        del eager, graphed
+    say("graphs", seconds=round(time.perf_counter() - t_phase, 2))
+
+
+def graphs_main() -> int:
+    """``--graphs``: the build and the graphs phase alone."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)",
+              file=sys.stderr)
+        return 1
+    from raytracing_course_2024_tpu_torch.ops import kernels
+
+    kernels.library()
+    say("build", seconds=round(kernels.BUILD_INFO["seconds"], 2))
+    gpu = gpu_line()
+    phase_graphs(torch.device("cuda", 0), gpu)
+    print(gpu, flush=True)
+    return 0
 
 
 def main() -> int:
@@ -2601,6 +2820,7 @@ def main() -> int:
     bvh = phase_timing_bvh(dev, gpu)
     errs["bvh"] = max(errs["bvh"], bvh["max_abs_err"])
     record = phase_timing(dev, gpu, counts, errs, cornell, k5_state, bvh)
+    phase_graphs(dev, gpu)
     phase_runtime(dev, gpu)
     phase_multiproc(dev, gpu)
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib"))
@@ -2619,6 +2839,8 @@ if __name__ == "__main__":
         sys.exit(resume_main(sys.argv[2]))
     if sys.argv[1:2] == ["--cards"]:
         sys.exit(cards_main())
+    if sys.argv[1:2] == ["--graphs"]:
+        sys.exit(graphs_main())
     if sys.argv[1:2] == ["--mp-worker"]:
         mode, tmp, store, world, rank = sys.argv[2:7]
         sys.exit(mp_worker(mode, tmp, store, int(world), int(rank)))

@@ -27,7 +27,10 @@ bounce-1 rays of that BVH frame with their live masks (``bvh_state``,
 geometry (K6's stack, shared bytes, resident blocks).
 ``--cornell-engines wavefront,...`` times only the Cornell frames of those
 engines (``frame_times``: median host ms of ``--frames`` frames, path
-vertices, rounds and the frame's peak device memory). Prints the card's
+vertices, rounds and the frame's peak device memory). ``--eager`` adds to
+every frame timing the same renderer with ``eager=True`` (no CUDA graphs),
+the two taken in turns in one process (``frames_in_turns``); frames are
+graphed by default. Prints the card's
 name, power limit and clocks, the ptxas lines of the kernels and one line
 per number. Two runs
 are comparable only on one card, one right after the other: run parent,
@@ -63,6 +66,8 @@ def main() -> int:
     ap.add_argument("--cornell-engines", default="",
                     help="only the Cornell frames of these engines (comma-separated "
                          "batch, sticky, wavefront), --frames frames each")
+    ap.add_argument("--eager", action="store_true",
+                    help="time each frame also with eager=True, in turns with the graphed one")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("kernel_times: no CUDA device", file=sys.stderr)
@@ -98,13 +103,24 @@ def main() -> int:
                             models=False)
         return 0
     if args.bvh_turns > 0:
-        CS.bvh_engine_turns(dev, gpu, CS.bvh_desc(w, h, spp), args.bvh_turns, args.label)
+        CS.bvh_engine_turns(dev, gpu, CS.bvh_desc(w, h, spp), args.bvh_turns, args.label,
+                            eager=args.eager)
         return 0
     desc = load_scene(CS.CORNELL, w, h, spp)
+
+    def frames(path: str, **kw) -> None:
+        """``--frames`` frames of a Cornell renderer (and its eager twin)."""
+        r = Renderer(desc, device=dev, **kw)
+        if not args.eager:
+            CS.frame_times(r, f"{args.label}-{path}", gpu, reps=args.frames)
+            return
+        CS.frames_in_turns({path: r, f"{path}-eager": Renderer(desc, device=dev, eager=True,
+                                                               **kw)},
+                           gpu, args.frames, args.label)
+
     if args.cornell_engines:
         for engine in args.cornell_engines.split(","):
-            CS.frame_times(Renderer(desc, device=dev, engine=engine), f"{args.label}-{engine}",
-                           gpu, reps=args.frames)
+            frames(engine, engine=engine)
         return 0
     r = Renderer(desc, device=dev)
     scene, cam, bg = r.scene, r.cam_row, r.bg
@@ -147,10 +163,8 @@ def main() -> int:
         return 0
     CS.persistent_rounds(dev, gpu, desc)
     for engine in ("batch", "sticky", "wavefront"):
-        CS.frame_times(Renderer(desc, device=dev, engine=engine), f"{args.label}-{engine}", gpu,
-                       reps=args.frames)
-    CS.frame_times(Renderer(desc, device=dev, russian_roulette=True),
-                   f"{args.label}-batch-modular-rr", gpu, reps=args.frames)
+        frames(engine, engine=engine)
+    frames("batch-modular-rr", russian_roulette=True)
     return 0
 
 

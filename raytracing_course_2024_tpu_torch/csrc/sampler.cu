@@ -19,6 +19,11 @@
 //   ctr.row r) (the batch layout: ctr_base + 2 + 7 t + r), the counter RNG
 //   of ops/rng.py, so kernel and plain version see the same numbers and the
 //   result does not depend on the lane count.
+// * seed and wid_off are read from device memory (two int64, their low 32
+//   bits), not passed by value: the JAX package traces them as arguments
+//   of one compiled frame, and here a captured CUDA graph replays one
+//   launch for every seed and sample offset, which it could not if they
+//   were frozen into the launch's parameters.
 // * The light table (18 x L <= 32) and its spec are staged in shared memory
 //   once per block; the TPU kernel took them as a VMEM block.
 // * A lane whose `need` flag is 0 (dead, or a MIRROR/DIELECTRIC hit) skips
@@ -60,7 +65,7 @@ struct SamplerParams {
   const float* in[N_IN];
   const uint8_t* need;  // (b,) bool
   const int* wid;       // (b,)
-  uint32_t wid_off, seed;
+  const long long* seed_off;  // (2,): seed, wid_off (low 32 bits of each)
   Ctr ctr;
   const float* lp;   // (LC_COUNT, nl)
   const int* lspec;  // (nl,)
@@ -89,6 +94,8 @@ __global__ void __launch_bounds__(kBlock) sampler_kernel(SamplerParams p) {
   for (int k = threadIdx.x; k < p.nl; k += blockDim.x) lspec_s[k] = p.lspec[k];
   const Tables T{nullptr, nullptr, 0, lp_s, lspec_s, p.nl, p.num_lights};
   const long long b = p.b;
+  const uint32_t seed = (uint32_t)__ldg(&p.seed_off[0]);
+  const uint32_t wid_off = (uint32_t)__ldg(&p.seed_off[1]);
   walk_chunk<kChunk, 1, true>(
       b, queue, [&](long long i) { return i < b && p.need[i] != 0; },
       [&](long long i) { store_lane(p, i, mk(0.0f, 0.0f, 1.0f), SAFE, false); },
@@ -98,7 +105,7 @@ __global__ void __launch_bounds__(kBlock) sampler_kernel(SamplerParams p) {
         const V3 ns = mk(p.in[6][i], p.in[7][i], p.in[8][i]);
         const V3 v = mk(p.in[9][i], p.in[10][i], p.in[11][i]);
         const float roughness = p.in[12][i];
-        const uint32_t key = work_key(p.seed, (uint32_t)p.wid[i] + p.wid_off);
+        const uint32_t key = work_key(seed, (uint32_t)p.wid[i] + wid_off);
         V3 l;
         float pdf;
         bool ok;
@@ -109,11 +116,12 @@ __global__ void __launch_bounds__(kBlock) sampler_kernel(SamplerParams p) {
 
 }  // namespace
 
-// ins: host array of 13 device pointers, each (b,) f32. Returns
+// ins: host array of 13 device pointers, each (b,) f32. seed_off: two
+// int64 on the device, the seed and the work-id offset. Returns
 // cudaGetLastError() after the launch (cudaErrorInvalidValue for arguments
 // the kernel does not take). Never synchronises.
 extern "C" int rt_launch_sampler(const void* const* ins, const void* need, const void* wid,
-                                 unsigned wid_off, unsigned seed, unsigned ctr_base,
+                                 const void* seed_off, unsigned ctr_base,
                                  unsigned ctr_cand, unsigned ctr_row, unsigned ctr_diel,
                                  const void* lp, const void* lspec, int nl, int num_lights,
                                  int max_tries, long long b, void* out, void* ok,
@@ -126,8 +134,7 @@ extern "C" int rt_launch_sampler(const void* const* ins, const void* need, const
   for (int c = 0; c < N_IN; ++c) p.in[c] = static_cast<const float*>(ins[c]);
   p.need = static_cast<const uint8_t*>(need);
   p.wid = static_cast<const int*>(wid);
-  p.wid_off = wid_off;
-  p.seed = seed;
+  p.seed_off = static_cast<const long long*>(seed_off);
   p.ctr = Ctr{ctr_base, ctr_cand, ctr_row, ctr_diel};
   p.lp = static_cast<const float*>(lp);
   p.lspec = static_cast<const int*>(lspec);

@@ -32,6 +32,15 @@ Both routes draw from the counter RNG with the same layout (ops/rng.py),
 so from one seed they trace the same paths. Path vertices (one scene
 intersection per live lane and level) are counted exactly: the unit behind
 the Mrays/s metric (bench.py).
+
+The modular route runs one sample of a batch as ``SampleBody``: a call
+over static buffers that reads the seed and the sample's work-id offset
+from the device and adds the sample to device sums. Given a graph cache
+(``runtime/graphs.py``; a ``Renderer`` on a card holds one), the first
+call of a (scene, lanes, cfg, frame) captures it in a CUDA graph and every
+later sample, batch, seed and frame replays it: the counterpart of the
+JAX package's ``_render_batch`` (one ``jax.jit`` of the sample and level
+scans). Without a cache the same call runs eagerly.
 """
 
 from __future__ import annotations
@@ -44,8 +53,9 @@ import torch
 
 from ..ops import bounce as B
 from ..ops.brdf import eval_brdf
-from ..ops.camera import camera_from_row, generate_rays_u
-from ..ops.rng import CTR_JITTER, ctr_diel, ctr_rr, draws_per_bounce, uniform_ctr, work_key
+from ..ops.camera import camera_from_row, generate_rays_u, pack_camera_row
+from ..ops.rng import (CTR_JITTER, ctr_diel, ctr_rr, draws_per_bounce, offset_ids, uniform_ctr,
+                       work_key)
 from ..ops.sampler import sample_mixture_kernel, sampler_plain
 from ..ops.sampling import UNROLL_MAX_LIGHTS
 from ..ops.scene_intersect import ModularScene, surface_detail
@@ -277,11 +287,13 @@ def _finish_bounce(state: PathState, surf, l_s: Vec3, pdf: torch.Tensor,
     return PathState(next_origin, next_dir, throughput, state.radiance, new_alive)
 
 
-def _bounce(state: PathState, scene: ModularScene, cfg: TraceConfig, seed: int,
-            wid: torch.Tensor, wid_off: int, key: torch.Tensor, bounce_i: int,
+def _bounce(state: PathState, scene: ModularScene, cfg: TraceConfig, seed,
+            wid: torch.Tensor, wid_off, key: torch.Tensor, bounce_i: int,
             plain: bool = False) -> PathState:
     """One full modular bounce at depth level ``bounce_i``; ``key`` is the
-    lanes' ``work_key(seed, wid + wid_off)``."""
+    lanes' ``work_key(seed, wid + wid_off)``. ``seed`` and ``wid_off`` are
+    ints or 0-dim int64 tensors on the lanes' device; the bounce reads
+    nothing from the host."""
     state, surf, _ = _collect_hit(state, scene, cfg, plain)
     k = cfg.max_tries
     base = bounce_i * draws_per_bounce(k)
@@ -306,8 +318,8 @@ def _bounce(state: PathState, scene: ModularScene, cfg: TraceConfig, seed: int,
     return _finish_bounce(state, surf, l_s, pdf, ok, u_diel, cfg)
 
 
-def trace_paths(scene: ModularScene, ro: Vec3, rd: Vec3, seed: int,
-                wid: torch.Tensor, wid_off: int, key: torch.Tensor,
+def trace_paths(scene: ModularScene, ro: Vec3, rd: Vec3, seed,
+                wid: torch.Tensor, wid_off, key: torch.Tensor,
                 cfg: TraceConfig, plain: bool = False):
     """Radiance of one path per lane from the rays (ro, rd) on the modular
     path; ``key`` is the lanes' ``work_key(seed, wid + wid_off)``. Returns
@@ -324,44 +336,112 @@ def trace_paths(scene: ModularScene, ro: Vec3, rd: Vec3, seed: int,
     return st.radiance, rays
 
 
-def _modular_sample(scene: ModularScene, seed: int, wid: torch.Tensor,
-                    wid_off: int, px: torch.Tensor, py: torch.Tensor, cam,
+def _modular_sample(scene: ModularScene, seed, wid: torch.Tensor,
+                    wid_off, px: torch.Tensor, py: torch.Tensor, cam,
                     cfg: TraceConfig, width: int, height: int, plain: bool):
-    key = work_key(seed, wid.to(torch.int64) + int(wid_off))
+    """One camera sample per lane on the modular route: ((3, B) radiance,
+    path vertices as a 0-dim float64 tensor). ``seed`` and ``wid_off`` are
+    ints or 0-dim int64 tensors on the lanes' device."""
+    key = work_key(seed, offset_ids(wid, wid_off))
     ro, rd = generate_rays_u(cam, px, py, width, height, uniform_ctr(key, CTR_JITTER),
                              uniform_ctr(key, CTR_JITTER + 1))
     rad, rays = trace_paths(scene, ro, rd, seed, wid, wid_off, key, cfg, plain)
     return torch.stack(list(rad)), rays
 
 
+class SampleBody:
+    """One sample of one batch on the modular route, over static buffers:
+    ``seed_off`` ((2,) int64: the seed and the sample's work-id offset),
+    ``wid``, ``px``, ``py`` (one entry per lane) in, the sums ``acc`` ((3,
+    B) f32 radiance) and ``nrays`` (0-dim f64 path vertices) out. A call
+    adds one sample to the sums and reads nothing from the host, so a CUDA
+    graph captured from one call replays it for any values in the inputs
+    (``runtime/graphs.py``)."""
+
+    def __init__(self, scene: ModularScene, cam, cfg: TraceConfig, width: int, height: int,
+                 lanes: int, device, plain: bool = False):
+        self.scene, self.cam, self.cfg = scene, cam, cfg
+        self.width, self.height, self.plain = width, height, plain
+        self.seed_off = torch.zeros((2,), dtype=torch.int64, device=device)
+        self.wid = torch.zeros((lanes,), dtype=torch.int32, device=device)
+        self.px = torch.zeros((lanes,), dtype=torch.float32, device=device)
+        self.py = torch.zeros((lanes,), dtype=torch.float32, device=device)
+        self.acc = torch.zeros((3, lanes), dtype=torch.float32, device=device)
+        self.nrays = torch.zeros((), dtype=torch.float64, device=device)
+
+    def load(self, seed: int, wid: torch.Tensor, px: torch.Tensor, py: torch.Tensor) -> None:
+        """A batch's lanes and seed in, the sums zeroed."""
+        self.seed_off[0].fill_(int(seed) & 0xFFFFFFFF)
+        self.wid.copy_(wid)
+        self.px.copy_(px)
+        self.py.copy_(py)
+        self.acc.zero_()
+        self.nrays.zero_()
+
+    def at(self, wid_off: int) -> None:
+        """The next call renders the sample whose work ids start at ``wid_off``."""
+        self.seed_off[1].fill_(int(wid_off))
+
+    def __call__(self) -> None:
+        rad, rays = _modular_sample(self.scene, self.seed_off[0], self.wid, self.seed_off[1],
+                                    self.px, self.py, self.cam, self.cfg, self.width,
+                                    self.height, self.plain)
+        self.acc += rad
+        self.nrays += rays
+
+
+def graphed_body(graphs, scene, key, make):
+    """``(body, run)``: without a graph cache a fresh ``make()`` run as it
+    is; with one, the cache's entry of ``key`` (made from ``make()`` on
+    first use) and the call that replays its graph."""
+    if graphs is None:
+        body = make()
+        return body, body
+    run = graphs.get(scene, key, make)
+    return run.body, run
+
+
+def sample_body(scene: ModularScene, cam_row: torch.Tensor, cfg: TraceConfig, width: int,
+                height: int, lanes: int, plain: bool = False, graphs=None):
+    """``(body, run)`` of ``lanes`` lanes of the modular route
+    (``graphed_body``; one cache entry per lanes, cfg, frame size and
+    camera)."""
+    cam = camera_from_row(cam_row)
+    key = ("batch", lanes, cfg, width, height, pack_camera_row(cam).tobytes())
+    return graphed_body(graphs, scene, key, lambda: SampleBody(
+        scene, cam, cfg, width, height, lanes, cam_row.device, plain))
+
+
 def render_pixels(scene, seed: int, wid: torch.Tensor, px: torch.Tensor,
                   py: torch.Tensor, cam_row: torch.Tensor, cfg: TraceConfig,
                   width: int, height: int, samples: int, n_pix: int,
-                  plain: bool = False):
+                  plain: bool = False, graphs=None):
     """Average radiance over ``samples`` jittered paths per lane.
 
     The scene's type is the route: ``mega_gate`` picks it once, when the
     Renderer builds a ``BounceScene`` (fused path) or a ``ModularScene``
     (modular path). Lane ``i`` renders pixel (px[i], py[i]); its sample ``s``
     is work item ``wid[i] + s * n_pix`` of the counter RNG. Returns ((3, B)
-    f32 channel-major radiance, path vertices as a 0-dim float64 tensor)."""
+    f32 channel-major radiance, path vertices as a 0-dim float64 tensor),
+    both fresh tensors. ``graphs`` (a graph cache of ``scene``) replays the
+    modular route's samples as a captured graph; the fused route and
+    ``plain`` run eagerly."""
     b = px.shape[0]
+    if isinstance(scene, ModularScene):
+        body, run = sample_body(scene, cam_row, cfg, width, height, b, plain,
+                                None if plain else graphs)
+        body.load(seed, wid, px, py)
+        for s in range(samples):
+            body.at(s * n_pix)
+            run()
+        return body.acc * (1.0 / samples), body.nrays.clone()
     acc = torch.zeros((3, b), dtype=torch.float32, device=px.device)
     nrays = torch.zeros((), dtype=torch.float64, device=px.device)
-    modular = isinstance(scene, ModularScene)
-    if modular:
-        cam = camera_from_row(cam_row)
-    else:
-        state = torch.empty((B.N_STATE, b), dtype=torch.float32, device=px.device)
+    state = torch.empty((B.N_STATE, b), dtype=torch.float32, device=px.device)
     for s in range(samples):
-        if modular:
-            rad, rays = _modular_sample(scene, seed, wid, s * n_pix, px, py, cam, cfg,
-                                        width, height, plain)
-        else:
-            st, rays = trace_sample(scene, state, seed, wid, s * n_pix, px, py,
-                                    cam_row, cfg, width, height, plain)
-            rad = st[9:12]
-        acc += rad
+        st, rays = trace_sample(scene, state, seed, wid, s * n_pix, px, py,
+                                cam_row, cfg, width, height, plain)
+        acc += st[9:12]
         nrays += rays
     return acc * (1.0 / samples), nrays
 
@@ -384,7 +464,7 @@ def plan_batches(batch_size: int, n_pix: int, samples: int) -> tuple:
 def render_batches(scene, seed: int, cam_row: torch.Tensor, cfg: TraceConfig, width: int,
                    height: int, samples: int, batch_size: int, pix_base: int = 0,
                    n_pix: int | None = None, samp_base: int = 0, plain: bool = False,
-                   progress: bool = False):
+                   progress: bool = False, graphs=None):
     """The batch engine on pixels [pix_base, pix_base + n_pix) of the
     width x height frame (row-major; default: the whole frame) at samples
     ``samp_base`` .. ``samp_base + samples - 1``.
@@ -394,7 +474,8 @@ def render_batches(scene, seed: int, cam_row: torch.Tensor, cfg: TraceConfig, wi
     through ``render_pixels``. A pixel past the last row renders the last
     row's pixel of its column (the camera always sees the true height; the
     caller crops it). Returns (per-batch (3, B) channel-major mean radiance,
-    path vertices as a 0-dim float64 tensor). ``progress`` logs each batch."""
+    path vertices as a 0-dim float64 tensor). ``progress`` logs each batch;
+    ``graphs`` is passed on to ``render_pixels``."""
     total = width * height
     n_pix = total if n_pix is None else n_pix
     b, replicas = plan_batches(batch_size, n_pix, samples)
@@ -414,7 +495,7 @@ def render_batches(scene, seed: int, cam_row: torch.Tensor, cfg: TraceConfig, wi
         out, rays = render_pixels(scene, seed, wid.to(torch.int32),
                                   px.repeat(replicas).to(torch.float32),
                                   py.repeat(replicas).to(torch.float32), cam_row, cfg, width,
-                                  height, spp_r, total, plain=plain)
+                                  height, spp_r, total, plain=plain, graphs=graphs)
         if replicas > 1:
             out = out.reshape(3, replicas, b).mean(dim=1)
         outs.append(out)

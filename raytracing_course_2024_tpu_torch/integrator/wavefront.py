@@ -35,6 +35,15 @@ final depth is reached dies after collecting emission (the reference
 returns black at depth 0, src/rendering.rs:93-95). Each engine returns
 ((3, n_pix) mean radiance, path vertices, rounds): a round is one bounce
 of every lane (one K1 or one K5 launch on the fused routes).
+
+On a ``ModularScene`` the XLA core and the sticky round are bodies over
+static buffers (``CoreBody``, ``StickyBody``) that read the seed and the
+frame offsets on the device. Given a graph cache (``runtime/graphs.py``)
+the counter wavefront replays its core as a captured CUDA graph and the
+sticky engine its whole round (restart, core, the live test), the
+counterpart of the JAX package's ``_render_wf`` (each engine one
+``lax.while_loop`` under ``jax.jit``); the refill of the counter wavefront
+and the one host read per round stay eager.
 """
 
 from __future__ import annotations
@@ -52,7 +61,8 @@ from ..ops.scene_intersect import surface_detail
 from ..ops.traverse import nearest_hit
 from ..ops.vec import Vec3, where3
 from ..scene.types import DIELECTRIC, MIRROR
-from .path import RR_START, PathState, TraceConfig, _finish_bounce, check_sampler
+from .path import (RR_START, PathState, TraceConfig, _finish_bounce, check_sampler,
+                   graphed_body)
 
 # a dead lane's parked ray: far outside every scene, pointing away along the
 # all-positive diagonal so slab and cull tests reject it with finite math
@@ -94,13 +104,15 @@ def _restart_rows(state: torch.Tensor, take: torch.Tensor, rays: torch.Tensor) -
     state[12] = torch.where(take, 1.0, state[12])
 
 
-def _make_bounce_core(cfg: TraceConfig, scene, seed: int, plain: bool = False):
+def _make_bounce_core(cfg: TraceConfig, scene, seed, plain: bool = False):
     """One full bounce shared by both engines. Returns
     ``(core(state, wid, depth) -> state', fused)``: ``state`` is the (13, B)
     path state, ``wid`` the lanes' int32 work ids, ``depth`` their int32
     depths; ``alive'`` already applies the per-lane final-depth rule and dead
     lanes' rays are parked. The fused core updates ``state`` in place on
-    CUDA. ``plain`` runs the plain versions of the kernels on any device."""
+    CUDA. ``plain`` runs the plain versions of the kernels on any device.
+    ``seed`` is an int; the XLA core also takes a 0-dim int64 tensor on the
+    scene's device, which it reads on the device."""
     k, bg = cfg.max_tries, cfg.bg_color
     last = cfg.ray_depth - 1
     lane_ctr(0, k)  # refuses a max_tries whose draws overflow the counter block
@@ -136,7 +148,7 @@ def _make_bounce_core(cfg: TraceConfig, scene, seed: int, plain: bool = False):
         l_s, pdf, ok = sample_mixture(
             mixture_rows(key, ctr, k), surf.point, surf.n_geom, surf.n_shade, -rd,
             surf.roughness, scene.lp_np, scene.statics, k, need=cont & ~is_delta,
-            faithful=cfg.faithful)
+            faithful=cfg.faithful, lp_dev=scene.light_packed)
         rr_kw = {}
         if cfg.rr:
             rr_kw = dict(u_rr=uniform_ctr(key, ctr.base + ctr.rr), rr_mask=depth >= RR_START)
@@ -149,6 +161,41 @@ def _make_bounce_core(cfg: TraceConfig, scene, seed: int, plain: bool = False):
     return xla_core, False
 
 
+class CoreBody:
+    """The XLA core of a ``ModularScene`` over static buffers: ``seed``
+    (0-dim int64), ``state`` (13, B), ``wid`` and ``depth`` (int32) in; a
+    call runs one bounce and leaves the state in ``state``."""
+
+    def __init__(self, cfg: TraceConfig, scene, lanes: int, plain: bool = False):
+        dev = _scene_device(scene)
+        self.seed = torch.zeros((), dtype=torch.int64, device=dev)
+        self.state = _initial_state(B.N_STATE, lanes, dev)
+        self.wid = torch.zeros((lanes,), dtype=torch.int32, device=dev)
+        self.depth = torch.zeros((lanes,), dtype=torch.int32, device=dev)
+        self.core, _ = _make_bounce_core(cfg, scene, self.seed, plain)
+
+    def __call__(self) -> None:
+        self.state.copy_(self.core(self.state, self.wid, self.depth))
+
+
+def _modular_core(cfg: TraceConfig, scene, seed32: int, lanes: int, plain: bool, graphs):
+    """``(core, state)``: the counter wavefront's ``core(state, wid, depth)
+    -> state`` on a ``ModularScene`` through a ``CoreBody`` (a graph
+    cache's when given) and the body's state, the only one it takes and
+    returns."""
+    body, run = graphed_body(graphs, scene, ("wavefront", lanes, cfg),
+                             lambda: CoreBody(cfg, scene, lanes, plain))
+    body.seed.fill_(seed32)
+
+    def core(state, wid, depth):
+        body.wid.copy_(wid)
+        body.depth.copy_(depth)
+        run()
+        return body.state
+
+    return core, body.state
+
+
 # work items of one counter-refill pass: the flush keeps 12 bytes per item
 # (400 MB at this cap); a frame with more work renders in passes of whole
 # samples, summed in order
@@ -157,7 +204,7 @@ WF_MAX_WORK = 1 << 25
 
 def render_wavefront(seed32: int, pix_base: int, samp_base: int, cam: CameraArrays, scene,
                      cfg: TraceConfig, width: int, height: int, n_pix: int, samples: int,
-                     lanes: int, plain: bool = False):
+                     lanes: int, plain: bool = False, graphs=None):
     """Render pixels [pix_base, pix_base + n_pix) (row-major coordinates of
     the full width x height frame) at ``samples`` spp from global sample
     ``samp_base``, on ``lanes`` lanes with counter refill.
@@ -166,14 +213,16 @@ def render_wavefront(seed32: int, pix_base: int, samp_base: int, cam: CameraArra
     work item's radiance is written to its own column with a plain indexed
     write and the columns are summed over the samples at the end, so two
     frames from one seed are equal bit for bit on any device. A frame of
-    more than ``WF_MAX_WORK`` work items runs as passes of whole samples."""
+    more than ``WF_MAX_WORK`` work items runs as passes of whole samples.
+    ``graphs`` (a graph cache of ``scene``) replays the core of a
+    ``ModularScene`` as a captured graph; ``plain`` runs eagerly."""
     per_pass = max(WF_MAX_WORK // max(n_pix, 1), 1)
     if samples > per_pass:
         img, nverts, rounds = 0.0, 0.0, 0
         for s0 in range(0, samples, per_pass):
             n_s = min(per_pass, samples - s0)
             part, v, r = render_wavefront(seed32, pix_base, samp_base + s0, cam, scene, cfg,
-                                          width, height, n_pix, n_s, lanes, plain)
+                                          width, height, n_pix, n_s, lanes, plain, graphs)
             img = img + part * (n_s / samples)
             nverts, rounds = nverts + v, rounds + r
         return img, nverts, rounds
@@ -181,7 +230,12 @@ def render_wavefront(seed32: int, pix_base: int, samp_base: int, cam: CameraArra
     total_work = n_pix * samples
     b = lanes
     frame_pix = width * height
-    core, _ = _make_bounce_core(cfg, scene, seed32, plain)
+    state = _initial_state(B.N_STATE, b, dev)
+    if isinstance(scene, B.BounceScene):
+        core, _ = _make_bounce_core(cfg, scene, seed32, plain)
+    else:
+        core, static = _modular_core(cfg, scene, seed32, b, plain, None if plain else graphs)
+        state = static.copy_(state)
 
     def wid_of(work):
         return (samp_base + work // n_pix) * frame_pix + pix_base + work % n_pix
@@ -192,7 +246,6 @@ def render_wavefront(seed32: int, pix_base: int, samp_base: int, cam: CameraArra
     frac = float(os.environ.get("RT_WF_REFILL_FRAC", "0.125"))
     thresh = max(int(b * frac), 1)
 
-    state = _initial_state(B.N_STATE, b, dev)
     work = torch.full((b,), -1, dtype=torch.int64, device=dev)
     depth = torch.zeros((b,), dtype=torch.int32, device=dev)
     # column w holds work item w's radiance; columns total_work + l take
@@ -238,9 +291,92 @@ def _wf_finish(state, work, done, drop, n_pix: int, samples: int) -> torch.Tenso
     return done[:, :n_pix * samples].reshape(3, samples, n_pix).sum(dim=1) * (1.0 / samples)
 
 
+class StickyBody:
+    """One round of the pixel-sticky engine on a ``ModularScene`` (or
+    through the fused core, off the K5 route) over static buffers: the seed
+    (0-dim int64) and ``bases`` (pix_base, samp_base) in; the lanes' state,
+    path counters ``k`` and depths, the radiance slots ``acc``, the path
+    vertices ``nverts`` and ``more`` (a lane is alive or has paths left)
+    carried from round to round. A call is one round: flush the finished
+    paths and restart the dead lanes, one bounce, then ``more``.
+    ``fused_seed`` (the fused core's, which takes it by value) makes a body
+    for one frame of that seed."""
+
+    def __init__(self, cfg: TraceConfig, scene, cam: CameraArrays, width: int, height: int,
+                 n_pix: int, samples: int, lanes: int, plain: bool = False,
+                 fused_seed: int | None = None):
+        dev = _scene_device(scene)
+        b = self.b = lanes
+        self.cam, self.width, self.height = cam, width, height
+        self.n_pix, self.samples = n_pix, samples
+        self.jmax = max(-(-n_pix // b), 1)  # owned pixels per lane (ceil)
+        self.seed = torch.zeros((), dtype=torch.int64, device=dev)
+        self.bases = torch.zeros((2,), dtype=torch.int64, device=dev)
+        self.lane = torch.arange(b, dtype=torch.int64, device=dev)
+        self.kmax = sum((self.lane + j * b < n_pix).to(torch.int64)
+                        for j in range(self.jmax)) * samples
+        self.state = _initial_state(B.N_STATE, b, dev)
+        self.k = torch.zeros((b,), dtype=torch.int64, device=dev)
+        self.depth = torch.zeros((b,), dtype=torch.int32, device=dev)
+        self.acc = torch.zeros((3, self.jmax * b), dtype=torch.float32, device=dev)  # j * b + l
+        self.nverts = torch.zeros((), dtype=torch.int64, device=dev)
+        self.more = torch.zeros((), dtype=torch.bool, device=dev)
+        # the fused core (K1 in lane mode) takes the seed by value
+        self.core, _ = _make_bounce_core(cfg, scene,
+                                         self.seed if fused_seed is None else fused_seed, plain)
+
+    def reset(self, seed32: int, pix_base: int, samp_base: int) -> None:
+        """A frame's seed and offsets in, every lane dead with no path."""
+        self.seed.fill_(seed32)
+        self.bases[0].fill_(pix_base)
+        self.bases[1].fill_(samp_base)
+        self.state.copy_(_initial_state(B.N_STATE, self.b, self.state.device))
+        for t in (self.k, self.depth, self.acc, self.nverts):
+            t.zero_()
+        self.more.copy_(self._more())
+
+    def _more(self) -> torch.Tensor:
+        return ((self.state[12] > 0.5) | (self.k < self.kmax)).any()
+
+    def path_coords(self, k):
+        """Current path (k - 1 for started paths) -> (owned slot, pixel, sample)."""
+        cur = torch.clamp(k - 1, min=0)
+        j = cur // self.samples
+        return j, torch.clamp(self.lane + j * self.b, max=self.n_pix - 1), cur % self.samples
+
+    def wid_of(self, pixl, samp):
+        return ((self.bases[1] + samp) * (self.width * self.height) + self.bases[0] + pixl)
+
+    def restart(self) -> None:
+        """Flush dead lanes' finished paths, start their next sample."""
+        state, k = self.state, self.k
+        dead = state[12] < 0.5
+        slot = self.path_coords(k)[0] * self.b + self.lane  # distinct per lane: fixed sum order
+        self.acc.index_add_(1, slot, torch.where(dead & (k > 0), state[9:12], 0.0))
+        state[9:12] = torch.where(dead, 0.0, state[9:12])
+        take = dead & (k < self.kmax)
+        k.copy_(torch.where(take, k + 1, k))
+        _, pixl, samp = self.path_coords(k)
+        pixg = self.bases[0] + pixl
+        w, h = self.width, self.height
+        rays = _camera_rows(self.cam, pixg % w, torch.clamp(pixg // w, max=h - 1), w, h,
+                            work_key(self.seed, self.wid_of(pixl, samp)))
+        _restart_rows(state, take, rays)
+        self.depth.copy_(torch.where(take, 0, self.depth))
+
+    def __call__(self) -> None:
+        self.restart()
+        self.nverts += (self.state[12] > 0.5).sum()
+        _, pixl, samp = self.path_coords(self.k)
+        self.state.copy_(self.core(self.state, self.wid_of(pixl, samp).to(torch.int32),
+                                   self.depth))
+        self.depth += 1
+        self.more.copy_(self._more())
+
+
 def render_wavefront_sticky(seed32: int, pix_base: int, samp_base: int, cam: CameraArrays,
                             scene, cfg: TraceConfig, width: int, height: int, n_pix: int,
-                            samples: int, lanes: int, plain: bool = False):
+                            samples: int, lanes: int, plain: bool = False, graphs=None):
     """Pixel-sticky engine: lane ``l`` owns pixels ``{l, l + lanes, ...}``
     and walks each owned pixel's ``samples`` paths in turn, accumulating
     radiance in place, with no rank, no scatter and no cross-lane
@@ -248,59 +384,28 @@ def render_wavefront_sticky(seed32: int, pix_base: int, samp_base: int, cam: Cam
     as ``render_wavefront`` does, from the same work-item streams.
 
     When the fused gate passes and ``n_pix <= lanes``, each round is one K5
-    launch on ``n_pix`` lanes (``_sticky_fused``); otherwise each round is a
-    torch restart and one bounce (K1 in lane mode, or the XLA core)."""
+    launch on ``n_pix`` lanes (``_sticky_fused``); otherwise each round is
+    a ``StickyBody`` call: a torch restart and one bounce (K1 in lane mode,
+    or the XLA core). ``graphs`` (a graph cache of ``scene``) replays the
+    round of a ``ModularScene`` as a captured graph; ``plain`` and the
+    fused core run eagerly."""
     b = lanes
-    core, fused = _make_bounce_core(cfg, scene, seed32, plain)
+    _, fused = _make_bounce_core(cfg, scene, seed32, plain)
     if fused and n_pix <= b:
         return _sticky_fused(seed32, pix_base, samp_base, cam, scene, cfg, width, height,
                              n_pix, samples, plain)
-    dev = _scene_device(scene)
-    jmax = max(-(-n_pix // b), 1)  # owned pixels per lane (ceil)
-    frame_pix = width * height
-    lane = torch.arange(b, dtype=torch.int64, device=dev)
-    kmax = sum((lane + j * b < n_pix).to(torch.int64) for j in range(jmax)) * samples
-
-    def path_coords(k):
-        """Current path (k - 1 for started paths) -> (owned slot, pixel, sample)."""
-        cur = torch.clamp(k - 1, min=0)
-        j = cur // samples
-        return j, torch.clamp(lane + j * b, max=n_pix - 1), cur % samples
-
-    def wid_of(pixl, samp):
-        return (samp_base + samp) * frame_pix + pix_base + pixl
-
-    state = _initial_state(B.N_STATE, b, dev)
-    k = torch.zeros((b,), dtype=torch.int64, device=dev)
-    depth = torch.zeros((b,), dtype=torch.int32, device=dev)
-    acc = torch.zeros((3, jmax * b), dtype=torch.float32, device=dev)  # slot j * b + l
-
-    def restart(state, k, depth):
-        """Flush dead lanes' finished paths, start their next sample."""
-        dead = state[12] < 0.5
-        slot = path_coords(k)[0] * b + lane  # distinct per lane: the sum order is fixed
-        acc.index_add_(1, slot, torch.where(dead & (k > 0), state[9:12], 0.0))
-        state[9:12] = torch.where(dead, 0.0, state[9:12])
-        take = dead & (k < kmax)
-        k = torch.where(take, k + 1, k)
-        _, pixl, samp = path_coords(k)
-        pixg = pix_base + pixl
-        rays = _camera_rows(cam, pixg % width, torch.clamp(pixg // width, max=height - 1),
-                            width, height, work_key(seed32, wid_of(pixl, samp)))
-        _restart_rows(state, take, rays)
-        return state, k, torch.where(take, 0, depth)
-
-    nverts = torch.zeros((), dtype=torch.int64, device=dev)
+    if fused or plain:
+        graphs = None
+    key = ("sticky", b, cfg, width, height, pack_camera_row(cam).tobytes(), n_pix, samples)
+    body, run = graphed_body(graphs, scene, key, lambda: StickyBody(
+        cfg, scene, cam, width, height, n_pix, samples, b, plain, seed32 if fused else None))
+    body.reset(seed32, pix_base, samp_base)
     rounds = 0
-    while bool(((state[12] > 0.5) | (k < kmax)).any()):  # the one host read per round
-        state, k, depth = restart(state, k, depth)
-        nverts += (state[12] > 0.5).sum()
-        _, pixl, samp = path_coords(k)
-        state = core(state, wid_of(pixl, samp).to(torch.int32), depth)
-        depth = depth + 1
+    while bool(body.more):  # the one host read per round
+        run()
         rounds += 1
-    restart(state, k, depth)  # final flush: the last paths are still in-lane
-    return acc[:, :n_pix] * (1.0 / samples), float(nverts), rounds
+    body.restart()  # final flush: the last paths are still in-lane
+    return body.acc[:, :n_pix] * (1.0 / samples), float(body.nverts), rounds
 
 
 def _sticky_inputs(seed32: int, pix_base: int, samp_base: int, cam: CameraArrays, scene,

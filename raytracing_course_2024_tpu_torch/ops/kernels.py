@@ -18,6 +18,13 @@ launches of each kernel (the wrappers of ``ops/bounce.py``,
 ``ops/traverse.py`` call these functions); it and the tile tickets are
 changed under a lock. ``check`` validates a tensor before its pointer goes
 to a kernel.
+
+Inside a CUDA graph capture (``runtime/graphs.py``) a wrapper's launch is
+recorded, not run: under ``recording()`` the counts of the calling thread
+go to the recorder's dict instead of ``LAUNCHES``, and each replay adds
+them with ``add_launches``. A stream's tickets are made before its capture
+(``prepare_stream``); the kernels leave them at zero, so every replay finds
+them so.
 """
 
 from __future__ import annotations
@@ -58,6 +65,7 @@ BUILD_INFO: dict = {}  # path, seconds (0.0 when cached), log of the last build
 LAUNCHES = {"primary": 0, "bounce": 0, "final": 0, "nearest": 0, "sampler": 0,
             "persistent": 0, "bvh": 0}
 _LOCK = threading.Lock()  # guards LAUNCHES and _TICKETS: shards launch from threads
+_RECORD = threading.local()  # .counts: the calling thread's capture recorder, if any
 
 
 def reset_launches() -> None:
@@ -67,8 +75,33 @@ def reset_launches() -> None:
 
 
 def _count(name: str) -> None:
+    rec = getattr(_RECORD, "counts", None)
+    if rec is not None:
+        rec[name] = rec.get(name, 0) + 1
+        return
     with _LOCK:
         LAUNCHES[name] += 1
+
+
+@contextlib.contextmanager
+def recording():
+    """While active, this thread's launches are counted into the yielded
+    dict and not into ``LAUNCHES``: what a graph capture records runs only
+    when the graph is replayed."""
+    counts: dict = {}
+    prev = getattr(_RECORD, "counts", None)
+    _RECORD.counts = counts
+    try:
+        yield counts
+    finally:
+        _RECORD.counts = prev
+
+
+def add_launches(counts: dict) -> None:
+    """Adds a replayed graph's launches to ``LAUNCHES``."""
+    with _LOCK:
+        for k, n in counts.items():
+            LAUNCHES[k] += n
 
 
 def check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
@@ -160,7 +193,7 @@ def library() -> ctypes.CDLL:
         lib.rt_launch_bvh_nearest.argtypes = [p, p, i, i, p, i, ll, f, p, p, p, p, p]
         lib.rt_launch_bvh_nearest.restype = i
         lib.rt_launch_sampler.argtypes = [
-            p, p, p, u, u, *ctr, p, p, i, i, i, ll, p, p, p,
+            p, p, p, p, *ctr, p, p, i, i, i, ll, p, p, p,
         ]
         lib.rt_launch_sampler.restype = i
         lib.rt_launch_persistent.argtypes = [
@@ -215,12 +248,25 @@ def _tickets(device, stream: int) -> torch.Tensor:
     """The two int32 with which K1 and K5 hand out their tiles
     (``csrc/lane_queue.cuh:walk_tiles``) and K6 its warps' chunks
     (``csrc/bvh_traverse.cu``): zero between launches, one pair
-    per device and stream, since launches on one stream run in order."""
+    per device and stream, since launches on one stream run in order. A
+    stream under graph capture must have its pair already
+    (``prepare_stream``): made inside the capture, it would live in the
+    graph's pool and be zeroed only by the capture."""
+    device = torch.device(device)
     key = (device, stream)
     with _LOCK:
         if key not in _TICKETS:
+            if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+                raise RuntimeError("tile tickets of a capturing stream must be made before "
+                                   "the capture (ops/kernels.py:prepare_stream)")
             _TICKETS[key] = torch.zeros((2,), dtype=torch.int32, device=device)
         return _TICKETS[key]
+
+
+def prepare_stream(device, stream: torch.cuda.Stream) -> None:
+    """Makes ``stream``'s tile tickets on ``device`` before a graph is
+    captured on it."""
+    _tickets(device, stream.cuda_stream)
 
 
 @contextlib.contextmanager
@@ -334,12 +380,14 @@ def launch_bvh_nearest(rays, nodes, stack, records, tmin, live, t_out, i_out) ->
     _count("bvh")
 
 
-def launch_sampler(ins, need, wid, wid_off, seed, ctr, lp, lspec,
+def launch_sampler(ins, need, wid, seed_off, ctr, lp, lspec,
                    num_lights, max_tries, out, ok) -> None:
+    """K3; ``seed_off`` is the (2,) int64 device tensor (seed, work-id
+    offset) the kernel reads."""
     lib = library()
     with _on(out.device) as stream:
         rc = lib.rt_launch_sampler(
-            _ptrs(ins), need.data_ptr(), wid.data_ptr(), _u32(wid_off), _u32(seed),
+            _ptrs(ins), need.data_ptr(), wid.data_ptr(), seed_off.data_ptr(),
             *_ctr(ctr), lp.data_ptr(), lspec.data_ptr(), lp.shape[1],
             int(num_lights), int(max_tries), out.shape[1], out.data_ptr(),
             ok.data_ptr(), stream,

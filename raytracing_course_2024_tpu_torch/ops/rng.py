@@ -135,11 +135,31 @@ def _fmix(x: torch.Tensor) -> torch.Tensor:
     return x ^ (x >> 16)
 
 
-def work_key(seed: int, wid: torch.Tensor) -> torch.Tensor:
+def work_key(seed, wid: torch.Tensor) -> torch.Tensor:
     """Per-work-item u32 key (held in int64) from a u32 seed and integer
-    work ids (negative ids wrap like the JAX package's uint32 cast)."""
+    work ids (negative ids wrap like the JAX package's uint32 cast).
+    ``seed`` is an int or a 0-dim integer tensor on ``wid``'s device: a
+    tensor is read on the device, so a captured CUDA graph takes the value
+    each replay finds there (its low 32 bits, as an int's)."""
     w = _mul32(wid.to(torch.int64) & _M32, _GOLD)
+    if isinstance(seed, torch.Tensor):
+        return _fmix(w ^ (seed.to(torch.int64) & _M32))
     return _fmix(w ^ (int(seed) & _M32))
+
+
+def offset_ids(wid: torch.Tensor, wid_off) -> torch.Tensor:
+    """``wid + wid_off`` in int64; ``wid_off`` an int or a 0-dim tensor."""
+    return wid.to(torch.int64) + (wid_off if isinstance(wid_off, torch.Tensor)
+                                  else int(wid_off))
+
+
+def device_scalar(x, device) -> torch.Tensor:
+    """``x`` as a 0-dim int64 tensor on ``device``: a tensor as it is, an
+    int by a fill on the device (no host-to-device copy, so it may run
+    inside a graph capture, where the value is then fixed)."""
+    if isinstance(x, torch.Tensor):
+        return x.to(torch.int64)
+    return torch.full((), int(x), dtype=torch.int64, device=device)
 
 
 def uniform_ctr(key_lane: torch.Tensor, ctr) -> torch.Tensor:

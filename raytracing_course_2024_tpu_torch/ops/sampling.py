@@ -148,26 +148,31 @@ def pdf_vndf(n: Vec3, l: Vec3, v: Vec3, roughness) -> torch.Tensor:
     return torch.where((vl.z > 0.0) & (denom > 0.0) & (h.z > 0.0), pdf, 0.0)
 
 
-def _light_row(lp: np.ndarray, li: torch.Tensor, k: int) -> torch.Tensor:
+def _light_row(lp: np.ndarray, li: torch.Tensor, k: int,
+               lp_dev: torch.Tensor | None = None) -> torch.Tensor:
+    if lp_dev is not None:
+        return lp_dev[k][li]
     col = torch.from_numpy(np.ascontiguousarray(lp[k])).to(li.device)
     return col[li]
 
 
 def sample_light_dir_u(u: list, point: Vec3, lp: np.ndarray,
-                       statics: SceneStatics) -> Vec3:
+                       statics: SceneStatics, lp_dev: torch.Tensor | None = None) -> Vec3:
     """Uniformly pick one emissive primitive, area-sample a surface point and
     return the unit direction from ``point`` toward it. ``u`` = six U(0,1)
-    rows: five shape-sampling draws then the light pick."""
+    rows: five shape-sampling draws then the light pick. ``lp_dev``, the
+    same light pack on the lanes' device, saves a host-to-device copy of
+    each row (and lets the call run inside a CUDA graph capture)."""
     li = torch.clamp(
         (u[5] * statics.num_lights).to(torch.int32), max=statics.num_lights - 1
     ).long()
 
     def v3r(base):
-        return Vec3(*(_light_row(lp, li, base + c) for c in range(3)))
+        return Vec3(*(_light_row(lp, li, base + c, lp_dev) for c in range(3)))
 
-    ptype = _light_row(lp, li, LC.PTYPE)
+    ptype = _light_row(lp, li, LC.PTYPE, lp_dev)
     p0, p1, p2, pos = v3r(LC.P0), v3r(LC.P1), v3r(LC.P2), v3r(LC.POS)
-    rot = Quat(*(_light_row(lp, li, LC.ROT + c) for c in range(4)))
+    rot = Quat(*(_light_row(lp, li, LC.ROT + c, lp_dev) for c in range(4)))
 
     # box face sampling
     s = p0
@@ -222,13 +227,14 @@ def _ellipsoid_jac(p_loc: Vec3, s: Vec3) -> torch.Tensor:
 
 
 def pdf_lights_lp(point: Vec3, l: Vec3, lp: np.ndarray,
-                  statics: SceneStatics) -> torch.Tensor:
+                  statics: SceneStatics, lp_dev: torch.Tensor | None = None) -> torch.Tensor:
     """Mixture-light pdf: for the ray (point, l), the area->solid-angle pdf
     summed over EVERY light-primitive intersection, divided by the light
     count. One pass per light, each with its own shape's math; above
-    ``UNROLL_MAX_LIGHTS`` lights one (B, L) sweep instead."""
+    ``UNROLL_MAX_LIGHTS`` lights one (B, L) sweep instead, which reads the
+    table from ``lp_dev`` when given."""
     if len(statics.light_types) > UNROLL_MAX_LIGHTS:
-        return _pdf_lights_vectorized(point, l, lp, statics)
+        return _pdf_lights_vectorized(point, l, lp, statics, lp_dev)
     total = point.x * 0.0
 
     def contrib(t, n_dot_l, local_pdf, valid):
@@ -275,12 +281,14 @@ def pdf_lights_lp(point: Vec3, l: Vec3, lp: np.ndarray,
 
 
 def _pdf_lights_vectorized(point: Vec3, l: Vec3, lp: np.ndarray,
-                           statics: SceneStatics) -> torch.Tensor:
+                           statics: SceneStatics,
+                           lp_dev: torch.Tensor | None = None) -> torch.Tensor:
     """(B, L) masked sweep over the whole light table (the JAX package's
     ``_pdf_lights_vectorized``): every shape's math on every light, the
     light's own type selected, summed over lights."""
     n_l = lp.shape[1]
-    tab = torch.from_numpy(np.ascontiguousarray(lp)).to(point.x.device)
+    tab = (torch.from_numpy(np.ascontiguousarray(lp)).to(point.x.device)
+           if lp_dev is None else lp_dev)
 
     def row(k):
         return tab[k][None, :]  # (1, L)
@@ -339,7 +347,7 @@ def _normalize_scalar(v: Vec3, eps: float) -> Vec3:
 def sample_mixture(uniforms: list, point: Vec3, n_geom: Vec3, n_shade: Vec3,
                    v: Vec3, roughness, lp: np.ndarray, statics: SceneStatics,
                    max_tries: int = 4, need: torch.Tensor | None = None,
-                   faithful: bool = False):
+                   faithful: bool = False, lp_dev: torch.Tensor | None = None):
     """The JAX package's ``sample_mixture`` fed explicit uniforms:
     ``uniforms`` = 7 rows of (K*B,), candidate-major. Returns (l, pdf, ok);
     lanes with no accepted candidate get l = 0 and ok False, and ``ok`` is
@@ -348,7 +356,10 @@ def sample_mixture(uniforms: list, point: Vec3, n_geom: Vec3, n_shade: Vec3,
     ``faithful=False`` accepts a candidate on l.n_shade > 0 and
     l.n_geom > 0 and evaluates the mixture pdf for the chosen one only;
     ``faithful=True`` is the reference's acceptance: the full mixture pdf of
-    every candidate, accepted on l.n_shade > 0 and pdf > 0."""
+    every candidate, accepted on l.n_shade > 0 and pdf > 0. ``lp_dev`` is
+    ``lp`` on the lanes' device (``ModularScene.light_packed``): with it
+    the sampler makes no host-to-device copy and may be captured in a CUDA
+    graph."""
     n_comp = 3 if statics.num_lights > 0 else 2
     b = point.x.shape[0]
     k = max_tries
@@ -365,12 +376,12 @@ def sample_mixture(uniforms: list, point: Vec3, n_geom: Vec3, n_shade: Vec3,
     cand = sample_cosine_u(u[1], u[2], n_t)
     cand = where3(which == 1, sample_vndf_u(u[1], u[2], n_t, v_t, rough_t), cand)
     if statics.num_lights > 0:
-        cand = where3(which == 2, sample_light_dir_u(u[1:7], point_t, lp, statics),
+        cand = where3(which == 2, sample_light_dir_u(u[1:7], point_t, lp, statics, lp_dev),
                       cand)
     if faithful:
         pdf_t = pdf_cosine(n_t, cand) + pdf_vndf(n_t, cand, v_t, rough_t)
         if statics.num_lights > 0:
-            pdf_t = pdf_t + pdf_lights_lp(point_t, cand, lp, statics)
+            pdf_t = pdf_t + pdf_lights_lp(point_t, cand, lp, statics, lp_dev)
         pdf_t = true_div(pdf_t, n_comp)
         ok = (cand.dot(tile3(n_shade)) > 0.0) & (pdf_t > _SAFE)
     else:
@@ -390,7 +401,7 @@ def sample_mixture(uniforms: list, point: Vec3, n_geom: Vec3, n_shade: Vec3,
     else:
         pdf = pdf_cosine(n_geom, l) + pdf_vndf(n_geom, l, v, roughness)
         if statics.num_lights > 0:
-            pdf = pdf + pdf_lights_lp(point, l, lp, statics)
+            pdf = pdf + pdf_lights_lp(point, l, lp, statics, lp_dev)
         pdf = true_div(pdf, n_comp)
         accepted = accepted & (pdf > _SAFE)
     if need is not None:

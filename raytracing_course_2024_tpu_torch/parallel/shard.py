@@ -204,7 +204,7 @@ def make_multihost_mesh(n_tiles: int, n_spp: int, devices=None, layout=None) -> 
 
 def render_frame_sharded(seed: int, scenes: dict, cfg: TraceConfig, cam: CameraArrays,
                          width: int, height: int, samples: int, mesh: Mesh,
-                         engine: str = "batch"):
+                         engine: str = "batch", graphs: dict | None = None):
     """Full-frame mean radiance of one seed over ``mesh``.
 
     ``scenes`` maps each of this process's devices of the mesh to the scene
@@ -217,7 +217,10 @@ def render_frame_sharded(seed: int, scenes: dict, cfg: TraceConfig, cam: CameraA
     mesh across processes: this process's first), path vertices of all
     shards (the padded rows' included), the rounds of each shard as
     ``[tile][spp]``: 0 on the batch engine). On a mesh across processes,
-    every process of the group must call it, and each returns the same."""
+    every process of the group must call it, and each returns the same.
+    ``graphs`` maps devices to the graph caches of their scenes
+    (``runtime/graphs.py``): every shard on a device replays that cache's
+    graphs, its ``pix_base`` and ``samp_base`` being values on the device."""
     if engine not in ("batch", "wavefront", "sticky"):
         raise ValueError(f"unknown engine {engine!r}")
     n_tiles, n_spp = mesh.shape["tile"], mesh.shape["spp"]
@@ -233,17 +236,19 @@ def render_frame_sharded(seed: int, scenes: dict, cfg: TraceConfig, cam: CameraA
 
     def shard(ti: int, si: int):
         dev = mesh.devices[ti][si]
+        cache = (graphs or {}).get(dev)
         pix_base, samp_base = ti * n_pix, si * spp_per
         on = torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
         with on:
             if engine == "batch":
                 cam_row = torch.from_numpy(pack_camera_row(cam)[0]).to(dev)
                 outs, verts = render_batches(scenes[dev], seed32, cam_row, cfg, width, height,
-                                             spp_per, DEFAULT_BATCH, pix_base, n_pix, samp_base)
+                                             spp_per, DEFAULT_BATCH, pix_base, n_pix, samp_base,
+                                             graphs=cache)
                 return torch.cat(outs, dim=1)[:, :n_pix], float(verts), 0
             render = render_wavefront_sticky if engine == "sticky" else render_wavefront
             return render(seed32, pix_base, samp_base, cam, scenes[dev], cfg, width, height,
-                          n_pix, spp_per, min(DEFAULT_BATCH, n_pix * spp_per))
+                          n_pix, spp_per, min(DEFAULT_BATCH, n_pix * spp_per), graphs=cache)
 
     # one thread per distinct device, running its shards in mesh order: the
     # shards of one device share its stream, and threads that take turns at

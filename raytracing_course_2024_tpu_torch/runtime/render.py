@@ -23,6 +23,13 @@ builds). Every draw is keyed by (seed, sample, pixel) through the counter
 RNG, so the image does not depend on the batch size, the replica count, the
 lane count or the mesh.
 
+On a card, the modular route of the batch engine and the lane engines'
+rounds on a ``ModularScene`` replay captured CUDA graphs
+(``runtime/graphs.py``), one cache per device scene, the counterpart of the
+JAX package's ``jax.jit`` of a frame; ``eager=True`` runs them op by op,
+as ``jax.disable_jit()`` does. The fused route, ``plain`` and the CPU run
+eagerly.
+
 ``render_scene`` shards over every card (``parallel/shard.py``) when it is
 asked for ``"cuda"`` and more than one card is present, and over every
 process of a process group of more than one (``init_distributed``), as the
@@ -50,11 +57,17 @@ from ..parallel.shard import (local_cards, make_mesh, make_multihost_mesh, proce
                               process_layout, render_frame_sharded)
 from ..scene.build import build_scene_arrays
 from ..scene.types import SceneDesc
+from .graphs import GraphCache
 from .profiling import RenderStats
 
 log = logging.getLogger("rt_torch")
 
 BVH_THRESHOLD = 2048  # finite prims above this need the BVH backend
+
+
+def graph_cache(scene, device: torch.device, eager: bool):
+    """The graph cache of a device scene: None on the CPU or when ``eager``."""
+    return None if eager or device.type != "cuda" else GraphCache(scene, device)
 
 
 def _device(device) -> torch.device:
@@ -154,7 +167,10 @@ class Renderer(_RendererBase):
     in the tree's order, with ``arrays.bvh`` set, on the BVH backend),
     ``backend`` and ``bvh_builder`` (``"native"`` or ``"numpy"``; None on the
     dense backend) describe the scene as built. After a lane-engine frame,
-    ``rounds`` holds its round count."""
+    ``rounds`` holds its round count. On a card the modular route and the
+    lane engines' rounds on a ``ModularScene`` replay CUDA graphs captured
+    on first use (``graphs``, a ``runtime/graphs.py:GraphCache``);
+    ``eager=True`` (or ``plain=True``) launches every op from Python."""
 
     def __init__(
         self,
@@ -167,6 +183,7 @@ class Renderer(_RendererBase):
         engine: str | None = None,
         russian_roulette: bool | None = None,
         plain: bool = False,
+        eager: bool = False,
     ):
         self.device = _device(device)
         super().__init__(desc, backend, max_tries, faithful, engine, russian_roulette)
@@ -174,6 +191,7 @@ class Renderer(_RendererBase):
         self.batch_size = DEFAULT_BATCH if batch_size is None else batch_size
         self.plain = plain
         self.scene = self._device_scene(self.device)
+        self.graphs = graph_cache(self.scene, self.device, eager or plain)
         self.cam_row = torch.from_numpy(pack_camera_row(self.cam)[0]).to(self.device)
         self.bg = self.cfg.bg_color
 
@@ -197,10 +215,12 @@ class Renderer(_RendererBase):
             render = render_wavefront_sticky if self.engine == "sticky" else render_wavefront
             lanes = min(self.batch_size, total * samples)
             img, verts, self.rounds = render(seed32, 0, 0, self.cam, self.scene, self.cfg,
-                                             w, h, total, samples, lanes, plain=self.plain)
+                                             w, h, total, samples, lanes, plain=self.plain,
+                                             graphs=self.graphs)
             return [img], verts
         outs, verts = render_batches(self.scene, seed32, self.cam_row, self.cfg, w, h, samples,
-                                     self.batch_size, plain=self.plain, progress=progress)
+                                     self.batch_size, plain=self.plain, progress=progress,
+                                     graphs=self.graphs)
         return outs, float(verts)
 
 
@@ -250,10 +270,11 @@ class ShardedRenderer(_RendererBase):
     resumes bit for bit on any mesh. ``render_radiance`` (``with_stats``
     too) and ``render_u8`` are ``Renderer``'s; after a frame, ``rounds``
     holds each shard's round count, ``[tile][spp]`` (0 on the batch
-    engine)."""
+    engine). Each card's scene has its graph cache (``graphs``), as a
+    ``Renderer``'s, unless ``eager``."""
 
     def __init__(self, desc: SceneDesc, mesh=None, backend: str | None = None,
-                 max_tries: int = 4, engine: str | None = None):
+                 max_tries: int = 4, engine: str | None = None, eager: bool = False):
         if mesh is None:
             mesh = default_mesh(desc.settings.samples)
         for dev in mesh.distinct():
@@ -261,6 +282,7 @@ class ShardedRenderer(_RendererBase):
         self.mesh = mesh
         super().__init__(desc, backend, max_tries, False, engine, None)
         self.scenes = {dev: self._device_scene(dev) for dev in mesh.distinct()}
+        self.graphs = {dev: graph_cache(scn, dev, eager) for dev, scn in self.scenes.items()}
         self.rounds = []
 
     def render_frame_device(self, seed: int = 0, samples: int | None = None,
@@ -272,7 +294,7 @@ class ShardedRenderer(_RendererBase):
         s = self.settings
         img, verts, self.rounds = render_frame_sharded(
             seed, self.scenes, self.cfg, self.cam, s.width, s.height,
-            samples or s.samples, self.mesh, engine=self.engine)
+            samples or s.samples, self.mesh, engine=self.engine, graphs=self.graphs)
         return [img.reshape(3, -1)], verts
 
 

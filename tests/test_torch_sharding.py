@@ -263,7 +263,7 @@ def _launches(dev):
         ("bvh", "bvh", lambda: kernels.launch_bvh_nearest(
             rays, t(5, 8), 3, t(8, 12), 0.0, None, t(), t())),
         ("sampler", "sampler", lambda: kernels.launch_sampler(
-            [t() for _ in range(13)], t(), t(), 0, 1, ctr, t(12, 2), t(2), 1, 4, t(4, 64),
+            [t() for _ in range(13)], t(), t(), t(2), ctr, t(12, 2), t(2), 1, 4, t(4, 64),
             t())),
     ]
 
