@@ -4,10 +4,12 @@
     python3 chip_smoke.py --cards    # the multiproc phase over every card (2+)
     python3 chip_smoke.py --graphs   # the build and the graphs phase alone
 
-Every phase runs the Renderer as a user gets it: on the card the modular
-route and the lane engines' rounds on a modular scene replay captured CUDA
-graphs (``runtime/graphs.py``), whose replays add the launches recorded at
-capture, so every launch count below holds graphed.
+Every phase runs the Renderer as a user gets it: on the card the batch
+engine's samples and the lane engines' rounds replay captured CUDA graphs
+on both routes (``runtime/graphs.py``; the sticky engine's K5 loop stays
+eager), whose replays add the launches recorded at capture, so every launch
+count below holds graphed. K1 and K2 read the seed and the work-id offset
+from a device pair, as the graphed routes hand it to them, in every phase.
 
 Phases (each prints lines tagged with its name; any failure raises and
 exits non-zero):
@@ -21,7 +23,9 @@ exits non-zero):
                same counter draws:
                fused path, 262,144 lanes, inline MIXED text scene and the
                in-repo Cornell glTF: K2, then 3 x K1, then K1 final_only,
-               each fed the plain version's previous state;
+               each fed the plain version's previous state, the kernels
+               given the seed and a work-id offset past 2^32 as a device
+               pair, the plain versions as ints;
                modular path: K4 on Cornell camera rays and bounce-1 rays at
                262,144 and 921,600 lanes, without a live mask and with the
                state's own (t and idx equal on every lane, masked lanes the
@@ -128,13 +132,17 @@ exits non-zero):
                runs under a timeout. ``--cards`` runs this phase alone with
                one process per card over NCCL;
 9. graphs   -- the BVH batch, Cornell modular (RT_RR=1), BVH wavefront and
-               BVH sticky frames at 1280x720 x 16 spp, graphed and with
+               BVH sticky frames, and on the fused route the Cornell batch,
+               counter wavefront and sticky (262,144 lanes: K1 in lane
+               mode, not K5) frames, at 1280x720 x 16 spp, graphed and with
                ``eager=True``: equal bit for bit (image, path vertices,
                rounds, launches) for two seeds and a second ``samp_base``,
-               with one capture per case; capture ms, pool MB, launches per
-               replay beside the eager frame's peak memory; eager and
-               graphed frame ms in turns (median of 3 each); the BVH batch
-               frame's busy share under torch.profiler, graphed and eager.
+               with one capture per cache entry (the counter wavefront has
+               two: its refill and its core); capture ms, pool MB, launches
+               per replay beside the eager frame's peak memory; eager and
+               graphed frame ms in turns (median of 3 each); the busy share
+               under torch.profiler, graphed and eager, of the BVH batch,
+               Cornell fused batch and Cornell counter wavefront frames.
                It runs after the timing phase, before runtime.
 
 The last lines are the card's name and power limit, the per-kernel JSON
@@ -297,10 +305,10 @@ KERNELS = {  # name -> (replaced TPU kernel body file:line, CUDA source)
 MODULAR = ("nearest", "sampler")  # launched on the modular main path only
 # where each kernel launches inside a replayed CUDA graph (runtime/graphs.py)
 GRAPHED = {
-    "primary": "no: the fused route stays eager",
-    "bounce": "no: the fused route and the fused lane core stay eager",
-    "final": "no: the fused route stays eager",
-    "persistent": "no: the fused route stays eager",
+    "primary": "the batch engine's fused route",
+    "bounce": "the batch engine's fused route; the lane engines' fused rounds (lane mode)",
+    "final": "the batch engine's fused route",
+    "persistent": "no: one launch per round, its counts read one round late",
     "nearest": "the batch engine's modular route; the lane engines' rounds on a dense "
                "ModularScene",
     "sampler": "the batch engine's modular route",
@@ -314,6 +322,9 @@ MESH_SPP = 4
 LANES = ((512, 512), (1280, 720))  # kernel-against-plain sizes: 262,144 and 921,600
 K5_CHAIN = 10  # K5 rounds held against the plain version; the timed state is the last
 LANE_ROUNDS = 3  # K1 lane-mode rounds held against the plain version
+# the work-id offset of [kernels]' fused cases: past 2^32, so that K1 and K2
+# (the device pair) and their plain versions (ints) agree on its low 32 bits
+KERNEL_WID_OFF = 2**32 + 3 * LANES[0][0] * LANES[0][1]
 
 # fp32 operations (add, sub, mul, div, min, max, abs, compare, sqrt, rsqrt,
 # sin, cos: one each; selects and integer hashing not counted) of the
@@ -494,18 +505,20 @@ def phase_kernels(dev) -> None:
         bg = tuple(desc.settings.bg_color)
         idx = torch.arange(w * h, device=dev, dtype=torch.int32)
         px, py = (idx % w).float(), (idx // w).float()
-        st_k = B.primary_bounce(scene, cam, px, py, idx, 0, SEED, bg, K, w, h)
-        st_p = B.primary_plain(scene, cam, px, py, idx, 0, SEED, bg, K, w, h)
+        # the kernels read the pair on the device, the plain versions get ints
+        seed_t, off_t = route_pair(SEED, KERNEL_WID_OFF, dev)
+        st_k = B.primary_bounce(scene, cam, px, py, idx, off_t, seed_t, bg, K, w, h)
+        st_p = B.primary_plain(scene, cam, px, py, idx, KERNEL_WID_OFF, SEED, bg, K, w, h)
         torch.cuda.synchronize()
         compare_states(st_k, st_p, f"{name}:primary")
         for i in range(1, 4):
-            k = B.bounce(scene, st_p.clone(), idx, 0, SEED, i, bg, K)
-            nxt = B.bounce_plain(scene, st_p, idx, 0, SEED, i, bg, K)
+            k = B.bounce(scene, st_p.clone(), idx, off_t, seed_t, i, bg, K)
+            nxt = B.bounce_plain(scene, st_p, idx, KERNEL_WID_OFF, SEED, i, bg, K)
             torch.cuda.synchronize()
             compare_states(k, nxt, f"{name}:bounce{i}")
             st_p = nxt
-        k = B.bounce(scene, st_p.clone(), idx, 0, SEED, 4, bg, K, final_only=True)
-        p = B.bounce_plain(scene, st_p, idx, 0, SEED, 4, bg, K, final_only=True)
+        k = B.bounce(scene, st_p.clone(), idx, off_t, seed_t, 4, bg, K, final_only=True)
+        p = B.bounce_plain(scene, st_p, idx, KERNEL_WID_OFF, SEED, 4, bg, K, final_only=True)
         torch.cuda.synchronize()
         compare_states(k, p, f"{name}:final")
 
@@ -570,8 +583,9 @@ def lane_mode_chain(dev, gen, name: str, desc, w: int, h: int, spp: int, lanes: 
         camera_arrays(desc.settings.camera), pix % w, pix // w, w, h, work_key(SEED, wid)))
     depth = torch.randint(0, depth_n, (lanes,), generator=gen, device=dev, dtype=torch.int32)
     err = 0.0
+    seed_t, off_t = route_pair(SEED, 0, dev)
     for r in range(LANE_ROUNDS):
-        k = B.bounce(scene, st.clone(), wid, 0, SEED, 0, bg, K, depth=depth)
+        k = B.bounce(scene, st.clone(), wid, off_t, seed_t, 0, bg, K, depth=depth)
         p = B.bounce_plain(scene, st, wid, 0, SEED, 0, bg, K, depth=depth)
         torch.cuda.synchronize()
         res = compare_states(k, p, f"{name}-{lanes}-lanes:bounce-lane-mode-round{r}")
@@ -660,12 +674,14 @@ def phase_kernels_tiles(dev, k5) -> None:
         st = p0.clone()
         st[12] *= keep
         cases[name] = (st, idx)
+    seed_t, off_t = route_pair(1, 0, dev)
     for name, (st, wid) in cases.items():
         dead = st[12] < 0.5
         for final, level in ((False, 1), (True, 5)):
             count = torch.zeros((), dtype=torch.int64, device=dev)
             k = st.clone()
-            B.bounce(scene, k, wid, 0, 1, level, bg, K, final_only=final, out=k, count=count)
+            B.bounce(scene, k, wid, off_t, seed_t, level, bg, K, final_only=final, out=k,
+                     count=count)
             p = B.bounce_plain(scene, st, wid, 0, 1, level, bg, K, final_only=final)
             torch.cuda.synchronize()
             what = f"cornell-{st.shape[1]}-lanes-{name}:{'final' if final else 'bounce'}"
@@ -1559,11 +1575,13 @@ def separate_k1(dev, gpu: str, scene, bg, st0: torch.Tensor, idx: torch.Tensor) 
               "all-alive": (st0[:, fill].contiguous(), idx[fill]),
               "all-alive-by-component": (st0[:, by_which].contiguous(), idx[by_which])}
     buf = torch.empty_like(st0)
+    seed_t, off_t = route_pair(1, 0, dev)
     for name, (st, wid) in states.items():
         wid = wid.contiguous()
-        ms = cuda_ms_in_place(lambda: B.bounce(scene, buf, wid, 0, 1, 1, bg, K, out=buf),
+        ms = cuda_ms_in_place(lambda: B.bounce(scene, buf, wid, off_t, seed_t, 1, bg, K,
+                                               out=buf),
                               lambda: buf.copy_(st), 20)
-        fin = cuda_ms_in_place(lambda: B.bounce(scene, buf, wid, 0, 1, 1, bg, K,
+        fin = cuda_ms_in_place(lambda: B.bounce(scene, buf, wid, off_t, seed_t, 1, bg, K,
                                                 final_only=True, out=buf),
                                lambda: buf.copy_(st), 20)
         frac = float((st[12] > 0.5).float().mean())
@@ -1607,6 +1625,21 @@ def persistent_rounds(dev, gpu: str, desc) -> None:
         [round(x, 4) for x in live[:used]]).replace(" ", ""))
 
 
+def route_pair(seed: int, wid_off: int, dev) -> tuple:
+    """``(seed, wid_off)`` as the graphed routes hand them to K1 and K2: two
+    consecutive elements of one int64 device tensor, which the wrappers pass
+    to the kernel as they are (no launch), so that a timed launch is the
+    kernel's alone. A tree whose K1 and K2 take them by value
+    (``kernel_times.py --root``: before ``ops/rng.py:seed_off``) gets the
+    ints."""
+    from raytracing_course_2024_tpu_torch.ops import rng
+
+    if not hasattr(rng, "seed_off"):
+        return seed, wid_off
+    pair = torch.tensor([seed, wid_off], dtype=torch.int64, device=dev)
+    return pair[0], pair[1]
+
+
 def k3_args(args: tuple) -> tuple:
     """K3's arguments with the seed and the work-id offset as the modular
     route passes them: consecutive elements of one int64 device tensor,
@@ -1616,7 +1649,7 @@ def k3_args(args: tuple) -> tuple:
     ints."""
     from raytracing_course_2024_tpu_torch.ops import sampler
 
-    if not hasattr(sampler, "_seed_off"):
+    if not (hasattr(sampler, "_seed_off") or hasattr(sampler, "seed_off")):
         return args
     so = torch.tensor([args[1], args[3]], dtype=torch.int64, device=args[2].device)
     return (args[0], so[0], args[2], so[1], *args[4:])
@@ -1710,7 +1743,8 @@ def launch_times(scene, cam, bg, st0, idx, w: int, h: int, m: Modular, k5, reps:
     case, ``k5`` the sticky frame's (inputs, state, arguments) some rounds
     in. K2 writes the state it is handed. K1, K1-final and K5 update their
     state in place on the main path, so they are timed in place, the input
-    put back before every launch outside the timed span. K4 and K3 write
+    put back before every launch outside the timed span; K2 too is timed
+    with a pair of events per launch while the stream is held. K4 and K3 write
     fresh outputs and take well under 0.1 ms, less than the host needs to
     make one call, so each of their launches has its own pair of events and
     the stream is held while the host enqueues (``modular_times``); their
@@ -1722,6 +1756,7 @@ def launch_times(scene, cam, bg, st0, idx, w: int, h: int, m: Modular, k5, reps:
     from raytracing_course_2024_tpu_torch.ops.persistent import persistent_round
 
     px, py = (idx % w).float(), (idx // w).float()
+    seed_t, off_t = route_pair(1, 0, st0.device)  # as the graphed routes launch K1 and K2
     buf = torch.empty_like(st0)
     ins, st5, args5 = k5
     buf5 = torch.empty_like(st5)
@@ -1729,12 +1764,15 @@ def launch_times(scene, cam, bg, st0, idx, w: int, h: int, m: Modular, k5, reps:
     modular = modular_times(m, gpu, reps, label)
     k4 = "nearest-camera-masked" if "nearest-camera-masked" in modular else "nearest-camera"
     launch_ms = {
-        "primary": cuda_ms(lambda: B.primary_bounce(
-            scene, cam, px, py, idx, 0, 1, bg, K, w, h, out=buf), reps),
-        "bounce": cuda_ms_in_place(lambda: B.bounce(scene, buf, idx, 0, 1, 1, bg, K, out=buf),
+        # K2 writes a buffer it does not read: nothing to put back, but each
+        # launch between its own pair of events while the stream is held
+        "primary": cuda_ms_in_place(lambda: B.primary_bounce(
+            scene, cam, px, py, idx, off_t, seed_t, bg, K, w, h, out=buf), lambda: None, reps),
+        "bounce": cuda_ms_in_place(lambda: B.bounce(scene, buf, idx, off_t, seed_t, 1, bg, K,
+                                                    out=buf),
                                    lambda: buf.copy_(st0), reps),
         "final": cuda_ms_in_place(lambda: B.bounce(
-            scene, buf, idx, 0, 1, 1, bg, K, final_only=True, out=buf),
+            scene, buf, idx, off_t, seed_t, 1, bg, K, final_only=True, out=buf),
             lambda: buf.copy_(st0), reps),
         "nearest": modular[k4]["ms"],
         "sampler": modular["sampler-camera"]["ms"],
@@ -1743,9 +1781,10 @@ def launch_times(scene, cam, bg, st0, idx, w: int, h: int, m: Modular, k5, reps:
             lambda: buf5.copy_(st5), reps),
     }
     fresh_ms = {
-        "bounce": cuda_ms(lambda: B.bounce(scene, st0, idx, 0, 1, 1, bg, K, out=buf), reps),
+        "bounce": cuda_ms(lambda: B.bounce(scene, st0, idx, off_t, seed_t, 1, bg, K, out=buf),
+                          reps),
         "final": cuda_ms(lambda: B.bounce(
-            scene, st0, idx, 0, 1, 1, bg, K, final_only=True, out=buf), reps),
+            scene, st0, idx, off_t, seed_t, 1, bg, K, final_only=True, out=buf), reps),
         "persistent": cuda_ms(
             lambda: persistent_round(*ins, st5, scratch, *args5, out=buf5), reps),
     }
@@ -2500,11 +2539,12 @@ def phase_timing(dev, gpu: str, counts: dict, errs: dict, m: Modular, k5, bvh: d
     idx = torch.arange(n, device=dev, dtype=torch.int32)
     px, py = (idx % w).float(), (idx // w).float()
     # kernel vs plain at the main path's shapes, from the same inputs
-    st0 = B.primary_bounce(scene, cam, px, py, idx, 0, 1, bg, K, w, h)
+    seed_t, off_t = route_pair(1, 0, dev)
+    st0 = B.primary_bounce(scene, cam, px, py, idx, off_t, seed_t, bg, K, w, h)
     p0 = B.primary_plain(scene, cam, px, py, idx, 0, 1, bg, K, w, h)
-    k1 = B.bounce(scene, p0.clone(), idx, 0, 1, 1, bg, K)
+    k1 = B.bounce(scene, p0.clone(), idx, off_t, seed_t, 1, bg, K)
     p1 = B.bounce_plain(scene, p0, idx, 0, 1, 1, bg, K)
-    kf = B.bounce(scene, p1.clone(), idx, 0, 1, 5, bg, K, final_only=True)
+    kf = B.bounce(scene, p1.clone(), idx, off_t, seed_t, 5, bg, K, final_only=True)
     pf = B.bounce_plain(scene, p1, idx, 0, 1, 5, bg, K, final_only=True)
     torch.cuda.synchronize()
     for k, a, b in (("primary", st0, p0), ("bounce", k1, p1), ("final", kf, pf)):
@@ -2614,13 +2654,18 @@ def phase_timing(dev, gpu: str, counts: dict, errs: dict, m: Modular, k5, bvh: d
 
 # the graphs phase: the modular route and the lane engines' rounds replayed
 # from captured CUDA graphs against the same frames launched op by op
-GRAPH_CASES = {  # case -> (scene, engine, roulette)
-    "bvh-batch": ("bvh", "batch", False),
-    "cornell-modular-rr": ("cornell", "batch", True),
-    "bvh-wavefront": ("bvh", "wavefront", False),
-    "bvh-sticky": ("bvh", "sticky", False),
+GRAPH_CASES = {  # case -> (scene, engine, roulette, lanes (None: the default), entries)
+    "bvh-batch": ("bvh", "batch", False, None, 1),
+    "cornell-modular-rr": ("cornell", "batch", True, None, 1),
+    "bvh-wavefront": ("bvh", "wavefront", False, None, 2),  # the refill and the core
+    "bvh-sticky": ("bvh", "sticky", False, None, 1),
+    "cornell-batch-fused": ("cornell", "batch", False, None, 1),
+    "cornell-wavefront-fused": ("cornell", "wavefront", False, None, 2),
+    # fewer lanes than pixels: the fused StickyBody (K1 in lane mode), not K5
+    "cornell-sticky-fused-262144": ("cornell", "sticky", False, 262_144, 1),
 }
 GRAPH_SAMP_BASE = 16  # the second samp_base of a case: the next 16 samples
+PROFILED = ("bvh-batch", "cornell-batch-fused", "cornell-wavefront-fused")
 
 
 def profiled_frame(r, seed: int) -> dict:
@@ -2695,22 +2740,24 @@ def phase_graphs(dev, gpu: str) -> None:
     ``eager=True`` one: the first graphed frame (it captures) equal to the
     eager frame bit for bit (image, path vertices, rounds, launches); a
     second seed and a second ``samp_base`` add no cache entry and equal the
-    eager frames; the cache's capture ms, pool MB and launches per replay
-    beside the eager frame's peak memory; eager and graphed frame ms in
-    turns (eager, graphed, graphed, eager, eager, graphed: median of 3
-    each); the BVH batch frame's busy share under torch.profiler, graphed
-    and eager."""
+    eager frames; the cache holds the entries the case expects (the
+    counter wavefront: its refill and its core); the cache's capture ms,
+    pool MB and launches per replay of each entry beside the eager frame's
+    peak memory; eager and graphed frame ms in turns (eager, graphed,
+    graphed, eager, eager, graphed: median of 3 each); the busy share under
+    torch.profiler, graphed and eager, of the BVH batch frame and of the
+    Cornell fused batch and counter wavefront frames."""
     from raytracing_course_2024_tpu_torch.runtime.render import Renderer
     from raytracing_course_2024_tpu_torch.scene import load_scene
 
     t_phase = time.perf_counter()
     w, h, spp = FRAME
     descs = {"bvh": bvh_desc(w, h, spp), "cornell": load_scene(CORNELL, w, h, spp)}
-    for case, (scene, engine, rr) in GRAPH_CASES.items():
-        kw = dict(device=dev, engine=engine, russian_roulette=rr)
+    for case, (scene, engine, rr, lanes, n_entries) in GRAPH_CASES.items():
+        kw = dict(device=dev, engine=engine, russian_roulette=rr, batch_size=lanes)
         eager, graphed = Renderer(descs[scene], eager=True, **kw), Renderer(descs[scene], **kw)
-        if graphed.fused or graphed.graphs is None or eager.graphs is not None:
-            raise SystemExit(f"[graphs] {case}: not the modular route with a graph cache")
+        if graphed.graphs is None or eager.graphs is not None:
+            raise SystemExit(f"[graphs] {case}: the graphed renderer has no graph cache")
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
@@ -2723,7 +2770,7 @@ def phase_graphs(dev, gpu: str) -> None:
         checks["seed2"] = same_frame(graph_frame(eager, 2), graph_frame(graphed, 2))
         checks["samp_base"] = same_frame(graph_frame(eager, 2, GRAPH_SAMP_BASE),
                                          graph_frame(graphed, 2, GRAPH_SAMP_BASE))
-        checks["one_capture"] = (len(graphed.graphs.entries) == entries == 1
+        checks["one_capture"] = (len(graphed.graphs.entries) == entries == n_entries
                                  and graphed.graphs.stats()["capture_ms"] == stats["capture_ms"])
         times = {"eager": [], "graphed": []}
         for turn, mode in enumerate(("eager", "graphed", "graphed", "eager", "eager",
@@ -2731,13 +2778,14 @@ def phase_graphs(dev, gpu: str) -> None:
             times[mode].append(graph_frame(eager if mode == "eager" else graphed,
                                            3 + turn)["ms"])
         e_ms, g_ms = statistics.median(times["eager"]), statistics.median(times["graphed"])
-        entry = next(iter(graphed.graphs.entries.values()))
+        per_entry = {k[0]: e.launches for k, e in graphed.graphs.entries.items()}
         say("graphs", case=case, size=f"{w}x{h}", spp=spp, engine=engine,
+            route="fused" if graphed.fused else "modular", lanes=lanes or "default",
             **{f"bit_equal_{k}" if k != "one_capture" else k: v for k, v in checks.items()},
             entries=entries, capture_ms=round(stats["capture_ms"], 3),
             pool_mb=round(stats["pool_mb"], 1), eager_peak_mb=eager_peak,
-            launches_per_replay=json.dumps(entry.launches).replace(" ", ""),
-            replays=entry.replays, path_vertices=int(g1["verts"]),
+            launches_per_replay=json.dumps(per_entry).replace(" ", ""),
+            replays=stats["replays"], path_vertices=int(g1["verts"]),
             **({} if engine == "batch" else {"rounds": g1["rounds"]}),
             launches=json.dumps({k: v for k, v in g1["launches"].items() if v})
             .replace(" ", ""),
@@ -2747,7 +2795,7 @@ def phase_graphs(dev, gpu: str) -> None:
             .replace(" ", ""), gpu=f'"{gpu}"')
         if not all(checks.values()):
             raise SystemExit(f"[graphs] {case}: graphed frames differ from eager: {checks}")
-        if case == "bvh-batch":
+        if case in PROFILED:
             for mode, r in (("graphed", graphed), ("eager", eager)):
                 p = profiled_frame(r, 9)
                 say("graphs", case=case, profiled=mode, wall_ms=round(p["wall_ms"], 3),

@@ -11,7 +11,10 @@ the ``chip_smoke.py`` beside this script on scenes/cornell_box.gltf at
 of every kernel, K1, K1-final and K5 in place and into a separate buffer;
 K5 on the sticky frame's state after 10 rounds; K4 and K3 on the camera and
 the bounce-1 state, an event pair per launch while the stream is held, K4
-with and without the live mask where the tree has one), ``modular_levels``
+with and without the live mask where the tree has one; K1 and K2 given the
+seed and the work-id offset as the graphed routes hand them over, a device
+pair, or ints on a tree whose kernels take them by value:
+``chip_smoke.route_pair``), ``modular_levels``
 (K4 and K3 level by level on the states of one sample of the modular path),
 K1 level by level on the states of one sample (``cuda_ms``,
 ``cuda_ms_in_place``), ``persistent_rounds`` (K5 round by round over a
@@ -125,8 +128,9 @@ def main() -> int:
     r = Renderer(desc, device=dev)
     scene, cam, bg = r.scene, r.cam_row, r.bg
     idx = torch.arange(w * h, device=dev, dtype=torch.int32)
-    st0 = B.primary_bounce(scene, cam, (idx % w).float(), (idx // w).float(), idx, 0, 1, bg,
-                           CS.K, w, h)
+    seed_t, off_t = CS.route_pair(1, 0, dev)  # as the graphed routes launch K1 and K2
+    st0 = B.primary_bounce(scene, cam, (idx % w).float(), (idx // w).float(), idx, off_t,
+                           seed_t, bg, CS.K, w, h)
     ins, st5, args5 = CS.sticky_inputs(dev, desc, w, h, spp)
     scratch = torch.zeros((2,), dtype=torch.int32, device=dev)
     for _ in range(CS.K5_CHAIN):
@@ -148,14 +152,15 @@ def main() -> int:
     depth = desc.settings.ray_depth
     states = [st0]
     for i in range(1, depth - 1):
-        states.append(B.bounce(scene, states[-1], idx, 0, 1, i, bg, CS.K))
+        states.append(B.bounce(scene, states[-1], idx, off_t, seed_t, i, bg, CS.K))
     buf = torch.empty_like(st0)
     for i, st in enumerate(states, start=1):
         final = i == depth - 1
-        t = CS.cuda_ms(lambda: B.bounce(scene, st, idx, 0, 1, i, bg, CS.K, final_only=final,
-                                        out=buf), args.reps)
+        t = CS.cuda_ms(lambda: B.bounce(scene, st, idx, off_t, seed_t, i, bg, CS.K,
+                                        final_only=final, out=buf), args.reps)
         t_in = CS.cuda_ms_in_place(
-            lambda: B.bounce(scene, buf, idx, 0, 1, i, bg, CS.K, final_only=final, out=buf),
+            lambda: B.bounce(scene, buf, idx, off_t, seed_t, i, bg, CS.K, final_only=final,
+                             out=buf),
             lambda: buf.copy_(st), args.reps)
         say(level=i, final_only=final, alive_in=round(float((st[12] > 0.5).float().mean()), 4),
             ms=round(t_in, 4), ms_fresh_buffer=round(t, 4))

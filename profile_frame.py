@@ -9,8 +9,8 @@
 
 Renders scenes/cornell_box.gltf (with ``--bvh``: chip_smoke.py's
 81,920-triangle BVH scene) at 1280x720 x 16 spp through the port's
-Renderer: one warm-up frame (on the modular route and the lane engines'
-rounds of a ``ModularScene`` it captures the CUDA graphs), then one frame
+Renderer: one warm-up frame (it captures the CUDA graphs of every engine
+but the sticky K5 loop, on both routes), then one frame
 under torch.profiler (``chip_smoke.profiled_frame``). ``--eager`` profiles
 the same renderer with ``eager=True`` too, in turns: eager, graphed,
 graphed, eager. Prints the card's name and power limit, each profiled

@@ -97,8 +97,8 @@ struct Params {
   const float* py;   // (b,) pixel y (primary)
   const float* cam;  // (128,) camera row (primary)
   int width, height;
-  const int* wid;  // (b,) work id base per lane
-  uint32_t wid_off, seed;
+  const int* wid;                // (b,) work id base per lane
+  const long long* seed_off;     // (2,): seed, wid_off (low 32 bits of each)
   Ctr ctr;             // this bounce's draws (lane mode: at depth 0)
   const int* depth;    // (b,) per-lane depth in lane mode, else nullptr
   uint32_t ctr_stride;  // counters per depth level in lane mode
@@ -106,6 +106,16 @@ struct Params {
   int* tick;                  // (2,) tile counter of walk_tiles, 0 between launches
   SceneArgs sc;
 };
+
+// The lane's key: the seed and the work-id offset are read from device
+// memory where the key is made (one broadcast load each, from L1), so that a
+// CUDA graph that captured the launch replays it for any seed and sample
+// offset; held from the kernel's start they would live through the walk.
+__device__ __forceinline__ uint32_t lane_key(const Params& p, long long i) {
+  const uint32_t seed = (uint32_t)__ldg(&p.seed_off[0]);
+  const uint32_t wid_off = (uint32_t)__ldg(&p.seed_off[1]);
+  return work_key(seed, (uint32_t)p.wid[i] + wid_off);
+}
 
 // A lane that is dead on entry stays dead; a full bounce zeroes its
 // throughput. In place nothing else of it changes.
@@ -128,7 +138,7 @@ template <bool FINAL_ONLY>
 __device__ __forceinline__ void run_lane(const Params& p, const Tables& T, long long i) {
   Lane s = load_lane(p.in, p.b, i);
   s.alive = true;
-  const uint32_t key = work_key(p.seed, (uint32_t)p.wid[i] + p.wid_off);
+  const uint32_t key = lane_key(p, i);
   const Ctr ctr = p.depth ? at_depth(p.ctr, p.ctr_stride, (uint32_t)p.depth[i]) : p.ctr;
   store_lane(p.out, p.b, i, bounce_body<FINAL_ONLY>(T, p.sc, key, ctr, s));
 }
@@ -158,7 +168,7 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks) primary_kernel(Params p) {
   const Tables T = stage_tables(p.sc, true, sh);
   for (long long i = (long long)blockIdx.x * kBlock + threadIdx.x; i < p.b;
        i += (long long)gridDim.x * kBlock) {
-    const uint32_t key = work_key(p.seed, (uint32_t)p.wid[i] + p.wid_off);
+    const uint32_t key = lane_key(p, i);
     Lane s;
     camera_ray(p.cam, p.px[i], p.py[i], p.width, p.height, uniform_ctr(key, CTR_JITTER),
                uniform_ctr(key, CTR_JITTER + 1u), s.ro, s.rd);
@@ -172,13 +182,15 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks) primary_kernel(Params p) {
 }  // namespace
 
 // Returns cudaGetLastError() after the launch (cudaErrorInvalidValue for
-// arguments the kernel does not take). Never synchronises. `depth` may be
+// arguments the kernel does not take). Never synchronises. `seed_off` is two
+// int64 in device memory, the seed and the work-id offset, read by the
+// kernel (their low 32 bits). `depth` may be
 // null (batch mode: every lane draws at `ctr`). `count` may be null; else the
 // kernel adds the lanes alive on entry to the int64 it points to. `tick` is
 // two int32 that are 0 between launches and belong to this stream: the
 // kernel hands out its tiles with them and sets them back.
 extern "C" int rt_launch_bounce(const void* in, void* out, long long b, const void* wid,
-                                unsigned wid_off, unsigned seed, unsigned ctr_base,
+                                const void* seed_off, unsigned ctr_base,
                                 unsigned ctr_cand, unsigned ctr_row, unsigned ctr_diel,
                                 const void* depth, unsigned ctr_stride, const void* geo,
                                 const void* rec, int m, const void* lp, const void* lspec,
@@ -192,8 +204,7 @@ extern "C" int rt_launch_bounce(const void* in, void* out, long long b, const vo
   p.out = static_cast<float*>(out);
   p.b = b;
   p.wid = static_cast<const int*>(wid);
-  p.wid_off = wid_off;
-  p.seed = seed;
+  p.seed_off = static_cast<const long long*>(seed_off);
   p.ctr = Ctr{ctr_base, ctr_cand, ctr_row, ctr_diel};
   p.depth = static_cast<const int*>(depth);
   p.ctr_stride = ctr_stride;
@@ -211,7 +222,7 @@ extern "C" int rt_launch_bounce(const void* in, void* out, long long b, const vo
 
 extern "C" int rt_launch_primary(const void* px, const void* py, const void* cam, int width,
                                  int height, void* out, long long b, const void* wid,
-                                 unsigned wid_off, unsigned seed, unsigned ctr_base,
+                                 const void* seed_off, unsigned ctr_base,
                                  unsigned ctr_cand, unsigned ctr_row, unsigned ctr_diel,
                                  const void* geo, const void* rec, int m, const void* lp,
                                  const void* lspec, int nl, int num_lights, float bg0,
@@ -228,8 +239,7 @@ extern "C" int rt_launch_primary(const void* px, const void* py, const void* cam
   p.out = static_cast<float*>(out);
   p.b = b;
   p.wid = static_cast<const int*>(wid);
-  p.wid_off = wid_off;
-  p.seed = seed;
+  p.seed_off = static_cast<const long long*>(seed_off);
   p.ctr = Ctr{ctr_base, ctr_cand, ctr_row, ctr_diel};
   p.sc = scene_args(geo, rec, m, lp, lspec, nl, num_lights, bg0, bg1, bg2, max_tries);
   primary_kernel<<<grid_for(primary_kernel, (b + kBlock - 1) / kBlock), kBlock, 0,

@@ -33,14 +33,19 @@ so from one seed they trace the same paths. Path vertices (one scene
 intersection per live lane and level) are counted exactly: the unit behind
 the Mrays/s metric (bench.py).
 
-The modular route runs one sample of a batch as ``SampleBody``: a call
-over static buffers that reads the seed and the sample's work-id offset
-from the device and adds the sample to device sums. Given a graph cache
-(``runtime/graphs.py``; a ``Renderer`` on a card holds one), the first
-call of a (scene, lanes, cfg, frame) captures it in a CUDA graph and every
-later sample, batch, seed and frame replays it: the counterpart of the
-JAX package's ``_render_batch`` (one ``jax.jit`` of the sample and level
-scans). Without a cache the same call runs eagerly.
+Both routes run one sample of a batch as ``SampleBody``: a call over
+static buffers that reads the seed and the sample's work-id offset from the
+device (K1, K2 and K3 read them there too) and adds the sample to device
+sums. Given a graph cache (``runtime/graphs.py``; a ``Renderer`` on a card
+holds one), the first call of a (scene, route, lanes, cfg, frame) captures
+it in a CUDA graph and every later sample, batch, seed and frame replays
+it: the counterpart of the JAX package's ``_render_batch`` (one ``jax.jit``
+of the sample and level scans, on either route). Without a cache the same
+call runs eagerly.
+
+Work ids are 32-bit: ``render_batches`` refuses a frame whose
+``frame_pix * (samp_base + samples)`` passes 2^32
+(``ops/rng.py:check_work_ids``) before any work.
 """
 
 from __future__ import annotations
@@ -53,9 +58,9 @@ import torch
 
 from ..ops import bounce as B
 from ..ops.brdf import eval_brdf
-from ..ops.camera import camera_from_row, generate_rays_u, pack_camera_row
-from ..ops.rng import (CTR_JITTER, ctr_diel, ctr_rr, draws_per_bounce, offset_ids, uniform_ctr,
-                       work_key)
+from ..ops.camera import CameraArrays, camera_from_row, generate_rays_u, pack_camera_row
+from ..ops.rng import (CTR_JITTER, check_work_ids, ctr_diel, ctr_rr, draws_per_bounce,
+                       offset_ids, uniform_ctr, work_key)
 from ..ops.sampler import sample_mixture_kernel, sampler_plain
 from ..ops.sampling import UNROLL_MAX_LIGHTS
 from ..ops.scene_intersect import ModularScene, surface_detail
@@ -116,10 +121,10 @@ def check_sampler(cfg: TraceConfig, device) -> None:
 # ---------------------------------------------------------------------------
 
 
-def trace_sample(scene: B.BounceScene, state: torch.Tensor, seed: int,
-                 wid: torch.Tensor, wid_off: int, px: torch.Tensor,
-                 py: torch.Tensor, cam_row: torch.Tensor, cfg: TraceConfig,
-                 width: int, height: int, plain: bool = False):
+def trace_sample(scene: B.BounceScene, state: torch.Tensor, seed, wid: torch.Tensor, wid_off,
+                 px: torch.Tensor, py: torch.Tensor, cam_row: torch.Tensor, cfg: TraceConfig,
+                 width: int, height: int, plain: bool = False, cam: CameraArrays | None = None,
+                 mega_cam: bool | None = None):
     """One camera sample per lane through all depth levels of the fused path.
 
     ``state`` is a (13, B) buffer the kernels overwrite in place (the plain
@@ -127,24 +132,31 @@ def trace_sample(scene: B.BounceScene, state: torch.Tensor, seed: int,
     path vertices as a 0-dim tensor on the device): every lane at bounce 0,
     then the lanes alive on entry to each later level. Through the kernels
     each level's launch adds its own count (int64); the plain versions sum
-    the alive row per level (float64).
+    the alive row per level (float64). ``seed`` and ``wid_off`` are ints or
+    0-dim int64 tensors on the lanes' device, read there.
 
-    ``RT_MEGA_CAM=0`` (the JAX package's switch) takes the camera rays from
-    ``_first_level_state`` and runs bounce 0 in K1 instead of K2, from the
-    same draws."""
+    ``RT_MEGA_CAM=0`` (the JAX package's switch; ``mega_cam`` when given)
+    takes the camera rays from ``_first_level_state`` and runs bounce 0 in
+    K1 instead of K2, from the same draws. ``cam`` is ``cam_row`` unpacked
+    on the host (a captured body passes its own: unpacking reads the row
+    back)."""
     bg, k = cfg.bg_color, cfg.max_tries
+    if cam is None:
+        cam = camera_from_row(cam_row)
+    if mega_cam is None:
+        mega_cam = _mega_cam()
     if not plain:
-        return _trace_sample_kernels(scene, state, seed, wid, wid_off, px, py, cam_row, cfg,
-                                     width, height)
+        return _trace_sample_kernels(scene, state, seed, wid, wid_off, px, py, cam_row, cam,
+                                     cfg, width, height, mega_cam)
     rays = torch.full((), float(px.shape[0]), dtype=torch.float64, device=px.device)
     if cfg.ray_depth < 2:  # the final level only: camera rays, then K1 final_only
-        st = _first_level_state(seed, wid, wid_off, px, py, cam_row, width, height)
+        st = _first_level_state(seed, wid, wid_off, px, py, cam, width, height)
     else:
-        if _mega_cam():
+        if mega_cam:
             st = B.primary_plain(scene, cam_row, px, py, wid, wid_off, seed, bg, k, width,
                                  height)
         else:
-            st = B.bounce_plain(scene, _first_level_state(seed, wid, wid_off, px, py, cam_row,
+            st = B.bounce_plain(scene, _first_level_state(seed, wid, wid_off, px, py, cam,
                                                           width, height),
                                 wid, wid_off, seed, 0, bg, k)
         for i in range(1, cfg.ray_depth - 1):
@@ -162,35 +174,34 @@ def _mega_cam() -> bool:
     return os.environ.get("RT_MEGA_CAM", "1") != "0"
 
 
-def _first_level_state(seed: int, wid: torch.Tensor, wid_off: int, px: torch.Tensor,
-                       py: torch.Tensor, cam_row: torch.Tensor, width: int,
-                       height: int) -> torch.Tensor:
+def _first_level_state(seed, wid: torch.Tensor, wid_off, px: torch.Tensor, py: torch.Tensor,
+                       cam: CameraArrays, width: int, height: int) -> torch.Tensor:
     """The (13, B) state of fresh paths on their camera rays: the input of
     the final level at ``ray_depth`` below 2, of bounce 0 under
     ``RT_MEGA_CAM=0``."""
     draw = B.lane_draws(seed, wid, wid_off)
-    ro, rd = generate_rays_u(camera_from_row(cam_row), px, py, width, height,
-                             draw(CTR_JITTER), draw(CTR_JITTER + 1))
+    ro, rd = generate_rays_u(cam, px, py, width, height, draw(CTR_JITTER),
+                             draw(CTR_JITTER + 1))
     zero = px * 0.0
     one = zero + 1.0
     return B._pack(ro, rd, Vec3(one, one, one), Vec3(zero, zero, zero), zero < 1.0)
 
 
-def _trace_sample_kernels(scene, state, seed, wid, wid_off, px, py, cam_row, cfg: TraceConfig,
-                          width: int, height: int):
+def _trace_sample_kernels(scene, state, seed, wid, wid_off, px, py, cam_row, cam,
+                          cfg: TraceConfig, width: int, height: int, mega_cam: bool):
     """``trace_sample`` through the wrappers of ``ops/bounce.py``: K2, then
     K1 per level, then K1 ``final_only``, in place in ``state``. K2 runs every
     lane; each later launch adds the lanes alive on its entry to ``rays``
-    (on the CPU the wrappers sum the alive row). Under ``RT_MEGA_CAM=0``
-    bounce 0 is K1 on ``_first_level_state``."""
+    (on the CPU the wrappers sum the alive row). Without ``mega_cam``
+    bounce 0 is K1 on ``_first_level_state``, copied into ``state``."""
     bg, k = cfg.bg_color, cfg.max_tries
-    if cfg.ray_depth >= 2 and _mega_cam():
+    if cfg.ray_depth >= 2 and mega_cam:
         st = B.primary_bounce(scene, cam_row, px, py, wid, wid_off, seed, bg, k, width, height,
                               out=state)
         rays = torch.full((), px.shape[0], dtype=torch.int64, device=px.device)
         first = 1
     else:  # camera rays, then K1 from bounce 0 on (or the final level alone)
-        st = _first_level_state(seed, wid, wid_off, px, py, cam_row, width, height)
+        st = state.copy_(_first_level_state(seed, wid, wid_off, px, py, cam, width, height))
         rays = torch.zeros((), dtype=torch.int64, device=px.device)
         first = 0
     for i in range(first, cfg.ray_depth - 1):
@@ -350,22 +361,34 @@ def _modular_sample(scene: ModularScene, seed, wid: torch.Tensor,
 
 
 class SampleBody:
-    """One sample of one batch on the modular route, over static buffers:
+    """One sample of one batch, on either route, over static buffers:
     ``seed_off`` ((2,) int64: the seed and the sample's work-id offset),
     ``wid``, ``px``, ``py`` (one entry per lane) in, the sums ``acc`` ((3,
-    B) f32 radiance) and ``nrays`` (0-dim f64 path vertices) out. A call
-    adds one sample to the sums and reads nothing from the host, so a CUDA
-    graph captured from one call replays it for any values in the inputs
-    (``runtime/graphs.py``)."""
+    B) f32 radiance) and ``nrays`` (0-dim f64 path vertices) out. On the
+    fused route (a ``BounceScene``) a call runs ``trace_sample`` in the
+    body's own (13, B) ``state``: K2, K1 per level and K1 ``final_only`` (or
+    the camera stage and K1 under ``RT_MEGA_CAM=0`` and at ``ray_depth`` <
+    2, both read when the body is made); on the modular route
+    ``_modular_sample``. A call adds one sample to the sums and reads nothing
+    from the host, so a CUDA graph captured from one call replays it for any
+    values in the inputs (``runtime/graphs.py``). On the CPU the wrappers
+    return fresh tensors from the plain versions, which the body copies or
+    adds into its buffers, so the same code runs there."""
 
-    def __init__(self, scene: ModularScene, cam, cfg: TraceConfig, width: int, height: int,
-                 lanes: int, device, plain: bool = False):
-        self.scene, self.cam, self.cfg = scene, cam, cfg
+    def __init__(self, scene, cam_row: torch.Tensor, cfg: TraceConfig, width: int,
+                 height: int, lanes: int, device, plain: bool = False):
+        self.scene, self.cfg = scene, cfg
         self.width, self.height, self.plain = width, height, plain
+        self.cam_row = cam_row.clone()
+        self.cam = camera_from_row(cam_row)
+        self.fused = not isinstance(scene, ModularScene)
+        self.mega_cam = _mega_cam()
         self.seed_off = torch.zeros((2,), dtype=torch.int64, device=device)
         self.wid = torch.zeros((lanes,), dtype=torch.int32, device=device)
         self.px = torch.zeros((lanes,), dtype=torch.float32, device=device)
         self.py = torch.zeros((lanes,), dtype=torch.float32, device=device)
+        self.state = (torch.zeros((B.N_STATE, lanes), dtype=torch.float32, device=device)
+                      if self.fused else None)
         self.acc = torch.zeros((3, lanes), dtype=torch.float32, device=device)
         self.nrays = torch.zeros((), dtype=torch.float64, device=device)
 
@@ -383,9 +406,15 @@ class SampleBody:
         self.seed_off[1].fill_(int(wid_off))
 
     def __call__(self) -> None:
-        rad, rays = _modular_sample(self.scene, self.seed_off[0], self.wid, self.seed_off[1],
-                                    self.px, self.py, self.cam, self.cfg, self.width,
-                                    self.height, self.plain)
+        seed, wid_off = self.seed_off[0], self.seed_off[1]
+        if self.fused:
+            st, rays = trace_sample(self.scene, self.state, seed, self.wid, wid_off, self.px,
+                                    self.py, self.cam_row, self.cfg, self.width, self.height,
+                                    self.plain, self.cam, self.mega_cam)
+            rad = st[9:12]
+        else:
+            rad, rays = _modular_sample(self.scene, seed, self.wid, wid_off, self.px, self.py,
+                                        self.cam, self.cfg, self.width, self.height, self.plain)
         self.acc += rad
         self.nrays += rays
 
@@ -401,15 +430,16 @@ def graphed_body(graphs, scene, key, make):
     return run.body, run
 
 
-def sample_body(scene: ModularScene, cam_row: torch.Tensor, cfg: TraceConfig, width: int,
-                height: int, lanes: int, plain: bool = False, graphs=None):
-    """``(body, run)`` of ``lanes`` lanes of the modular route
-    (``graphed_body``; one cache entry per lanes, cfg, frame size and
-    camera)."""
-    cam = camera_from_row(cam_row)
-    key = ("batch", lanes, cfg, width, height, pack_camera_row(cam).tobytes())
+def sample_body(scene, cam_row: torch.Tensor, cfg: TraceConfig, width: int, height: int,
+                lanes: int, plain: bool = False, graphs=None):
+    """``(body, run)`` of ``lanes`` lanes of either route (``graphed_body``;
+    one cache entry per route, lanes, cfg, frame size and camera, and on the
+    fused route ``RT_MEGA_CAM``)."""
+    fused = not isinstance(scene, ModularScene)
+    key = ("batch", fused, lanes, cfg, width, height,
+           pack_camera_row(camera_from_row(cam_row)).tobytes(), fused and _mega_cam())
     return graphed_body(graphs, scene, key, lambda: SampleBody(
-        scene, cam, cfg, width, height, lanes, cam_row.device, plain))
+        scene, cam_row, cfg, width, height, lanes, cam_row.device, plain))
 
 
 def render_pixels(scene, seed: int, wid: torch.Tensor, px: torch.Tensor,
@@ -423,27 +453,17 @@ def render_pixels(scene, seed: int, wid: torch.Tensor, px: torch.Tensor,
     (modular path). Lane ``i`` renders pixel (px[i], py[i]); its sample ``s``
     is work item ``wid[i] + s * n_pix`` of the counter RNG. Returns ((3, B)
     f32 channel-major radiance, path vertices as a 0-dim float64 tensor),
-    both fresh tensors. ``graphs`` (a graph cache of ``scene``) replays the
-    modular route's samples as a captured graph; the fused route and
-    ``plain`` run eagerly."""
+    both fresh tensors. Each sample is one call of a ``SampleBody``;
+    ``graphs`` (a graph cache of ``scene``) replays it as a captured graph
+    on either route; ``plain`` runs eagerly."""
     b = px.shape[0]
-    if isinstance(scene, ModularScene):
-        body, run = sample_body(scene, cam_row, cfg, width, height, b, plain,
-                                None if plain else graphs)
-        body.load(seed, wid, px, py)
-        for s in range(samples):
-            body.at(s * n_pix)
-            run()
-        return body.acc * (1.0 / samples), body.nrays.clone()
-    acc = torch.zeros((3, b), dtype=torch.float32, device=px.device)
-    nrays = torch.zeros((), dtype=torch.float64, device=px.device)
-    state = torch.empty((B.N_STATE, b), dtype=torch.float32, device=px.device)
+    body, run = sample_body(scene, cam_row, cfg, width, height, b, plain,
+                            None if plain else graphs)
+    body.load(seed, wid, px, py)
     for s in range(samples):
-        st, rays = trace_sample(scene, state, seed, wid, s * n_pix, px, py,
-                                cam_row, cfg, width, height, plain)
-        acc += st[9:12]
-        nrays += rays
-    return acc * (1.0 / samples), nrays
+        body.at(s * n_pix)
+        run()
+    return body.acc * (1.0 / samples), body.nrays.clone()
 
 
 def plan_batches(batch_size: int, n_pix: int, samples: int) -> tuple:
@@ -478,6 +498,7 @@ def render_batches(scene, seed: int, cam_row: torch.Tensor, cfg: TraceConfig, wi
     ``graphs`` is passed on to ``render_pixels``."""
     total = width * height
     n_pix = total if n_pix is None else n_pix
+    check_work_ids(total, samp_base, samples)
     b, replicas = plan_batches(batch_size, n_pix, samples)
     spp_r = samples // replicas
     dev = cam_row.device

@@ -36,14 +36,17 @@ returns black at depth 0, src/rendering.rs:93-95). Each engine returns
 ((3, n_pix) mean radiance, path vertices, rounds): a round is one bounce
 of every lane (one K1 or one K5 launch on the fused routes).
 
-On a ``ModularScene`` the XLA core and the sticky round are bodies over
-static buffers (``CoreBody``, ``StickyBody``) that read the seed and the
-frame offsets on the device. Given a graph cache (``runtime/graphs.py``)
-the counter wavefront replays its core as a captured CUDA graph and the
-sticky engine its whole round (restart, core, the live test), the
+The counter wavefront's bounce and refill and the sticky round are bodies
+over static buffers (``CoreBody``, ``RefillBody``, ``StickyBody``) that read
+the seed and the frame offsets on the device, on either route (K1 reads
+its seed pair there too). Given a graph cache (``runtime/graphs.py``) the
+counter wavefront replays its refill and its bounce as captured CUDA graphs
+and the sticky engine its whole round (restart, core, the live test), the
 counterpart of the JAX package's ``_render_wf`` (each engine one
-``lax.while_loop`` under ``jax.jit``); the refill of the counter wavefront
-and the one host read per round stay eager.
+``lax.while_loop`` under ``jax.jit``); the one host read per round stays.
+The sticky engine's K5 loop stays eager: one launch per round, its counts
+read one round late. Every engine refuses a frame whose work ids would pass
+2^32 (``ops/rng.py:check_work_ids``) before any work.
 """
 
 from __future__ import annotations
@@ -55,7 +58,7 @@ import torch
 from ..ops import bounce as B
 from ..ops.camera import CameraArrays, generate_rays_u, pack_camera_row
 from ..ops.persistent import N_PSTATE, S_ACC, S_K, persistent_plain, persistent_round
-from ..ops.rng import CTR_JITTER, lane_ctr, mixture_rows, uniform_ctr, work_key
+from ..ops.rng import CTR_JITTER, check_work_ids, lane_ctr, mixture_rows, uniform_ctr, work_key
 from ..ops.sampling import sample_mixture
 from ..ops.scene_intersect import surface_detail
 from ..ops.traverse import nearest_hit
@@ -104,6 +107,15 @@ def _restart_rows(state: torch.Tensor, take: torch.Tensor, rays: torch.Tensor) -
     state[12] = torch.where(take, 1.0, state[12])
 
 
+def _lane_seed(seed):
+    """``(seed, work-id offset)`` as a lane core hands them to K1 and to the
+    key: the elements of a (2,) int64 pair (seed, 0), which reach K1 as the
+    pair itself, with no launch; an int or a 0-dim tensor with offset 0."""
+    if isinstance(seed, torch.Tensor) and seed.dim() == 1:
+        return seed[0], seed[1]
+    return seed, 0
+
+
 def _make_bounce_core(cfg: TraceConfig, scene, seed, plain: bool = False):
     """One full bounce shared by both engines. Returns
     ``(core(state, wid, depth) -> state', fused)``: ``state`` is the (13, B)
@@ -111,19 +123,21 @@ def _make_bounce_core(cfg: TraceConfig, scene, seed, plain: bool = False):
     depths; ``alive'`` already applies the per-lane final-depth rule and dead
     lanes' rays are parked. The fused core updates ``state`` in place on
     CUDA. ``plain`` runs the plain versions of the kernels on any device.
-    ``seed`` is an int; the XLA core also takes a 0-dim int64 tensor on the
-    scene's device, which it reads on the device."""
+    ``seed`` is an int, a 0-dim int64 tensor or the (2,) int64 pair (seed,
+    0) of a body (``_lane_seed``), on the scene's device; a tensor is read
+    on the device, by K1 too."""
     k, bg = cfg.max_tries, cfg.bg_color
     last = cfg.ray_depth - 1
     lane_ctr(0, k)  # refuses a max_tries whose draws overflow the counter block
     check_sampler(cfg, _scene_device(scene))
+    seed, wid_off = _lane_seed(seed)
 
     if isinstance(scene, B.BounceScene):
         def fused_core(state, wid, depth):
             if plain:
-                st = B.bounce_plain(scene, state, wid, 0, seed, 0, bg, k, depth=depth)
+                st = B.bounce_plain(scene, state, wid, wid_off, seed, 0, bg, k, depth=depth)
             else:
-                st = B.bounce(scene, state, wid, 0, seed, 0, bg, k, out=state, depth=depth)
+                st = B.bounce(scene, state, wid, wid_off, seed, 0, bg, k, out=state, depth=depth)
             return _park(st, (st[12] > 0.5) & (depth < last))
 
         return fused_core, True
@@ -162,44 +176,115 @@ def _make_bounce_core(cfg: TraceConfig, scene, seed, plain: bool = False):
 
 
 class CoreBody:
-    """The XLA core of a ``ModularScene`` over static buffers: ``seed``
-    (0-dim int64), ``state`` (13, B), ``wid`` and ``depth`` (int32) in; a
-    call runs one bounce and leaves the state in ``state``."""
+    """One round's bounce of the counter wavefront over static buffers:
+    ``seed_off`` ((2,) int64: the seed and 0; ``seed`` is its first
+    element), ``state`` (13, B), ``wid`` and ``depth`` (int32) in. A call
+    runs one bounce (the fused core, K1 in lane mode, on a ``BounceScene``;
+    the XLA core on a ``ModularScene``) and leaves the state in ``state``,
+    adds one to every lane's depth and counts the lanes alive after it into
+    ``n_alive``, the host's one read per round."""
 
     def __init__(self, cfg: TraceConfig, scene, lanes: int, plain: bool = False):
         dev = _scene_device(scene)
-        self.seed = torch.zeros((), dtype=torch.int64, device=dev)
+        self.seed_off = torch.zeros((2,), dtype=torch.int64, device=dev)
+        self.seed = self.seed_off[0]
         self.state = _initial_state(B.N_STATE, lanes, dev)
         self.wid = torch.zeros((lanes,), dtype=torch.int32, device=dev)
         self.depth = torch.zeros((lanes,), dtype=torch.int32, device=dev)
-        self.core, _ = _make_bounce_core(cfg, scene, self.seed, plain)
+        self.n_alive = torch.zeros((), dtype=torch.int64, device=dev)
+        self.core, _ = _make_bounce_core(cfg, scene, self.seed_off, plain)
 
     def __call__(self) -> None:
         self.state.copy_(self.core(self.state, self.wid, self.depth))
+        self.depth += 1
+        self.n_alive.copy_((self.state[12] > 0.5).sum())
 
 
-def _modular_core(cfg: TraceConfig, scene, seed32: int, lanes: int, plain: bool, graphs):
-    """``(core, state)``: the counter wavefront's ``core(state, wid, depth)
-    -> state`` on a ``ModularScene`` through a ``CoreBody`` (a graph
-    cache's when given) and the body's state, the only one it takes and
-    returns."""
-    body, run = graphed_body(graphs, scene, ("wavefront", lanes, cfg),
-                             lambda: CoreBody(cfg, scene, lanes, plain))
-    body.seed.fill_(seed32)
+class RefillBody:
+    """The counter wavefront's refill over static buffers: its
+    ``CoreBody``'s (``seed_off``, ``state``, ``wid``, ``depth``) and its own,
+    ``bases`` ((2,) int64: pix_base, samp_base), ``work`` (the work item of
+    each lane, int64, -1 for none), ``counter`` (0-dim int64: the work items
+    handed out) and ``done`` (3 x (work items + lanes) f32: column ``w``
+    holds work item ``w``'s radiance, column ``total_work + l`` takes lane
+    ``l``'s writes while it holds no finished item, the JAX package's
+    ``mode="drop"``; every column is written by one lane, so the writes are
+    plain stores, in no order that could change a sum). A call flushes the
+    dead lanes' radiance, ranks them by a cumulative sum, hands them the next
+    work items, writes every lane's work id into ``wid`` and starts the
+    taken lanes on their camera rays. It reads nothing from the host: the
+    host mirrors ``counter`` with the same integer arithmetic."""
 
-    def core(state, wid, depth):
-        body.wid.copy_(wid)
-        body.depth.copy_(depth)
-        run()
-        return body.state
+    def __init__(self, core: CoreBody, cam: CameraArrays, width: int, height: int, n_pix: int,
+                 samples: int):
+        dev = core.state.device
+        b = core.state.shape[1]
+        self.core, self.cam, self.width, self.height = core, cam, width, height
+        self.n_pix, self.total = n_pix, n_pix * samples
+        self.bases = torch.zeros((2,), dtype=torch.int64, device=dev)
+        self.work = torch.full((b,), -1, dtype=torch.int64, device=dev)
+        self.counter = torch.zeros((), dtype=torch.int64, device=dev)
+        self.done = torch.zeros((3, self.total + b), dtype=torch.float32, device=dev)
+        self.drop = self.total + torch.arange(b, dtype=torch.int64, device=dev)
 
-    return core, body.state
+    def reset(self, seed32: int, pix_base: int, samp_base: int) -> None:
+        """A pass's seed and offsets in, every lane dead with no work."""
+        c = self.core
+        c.seed.fill_(seed32)
+        self.bases[0].fill_(pix_base)
+        self.bases[1].fill_(samp_base)
+        c.state.copy_(_initial_state(B.N_STATE, c.state.shape[1], c.state.device))
+        for t in (c.wid, c.depth, c.n_alive, self.counter, self.done):
+            t.zero_()
+        self.work.fill_(-1)
+
+    def wid_of(self, work: torch.Tensor) -> torch.Tensor:
+        """Work item -> work id: (pixel ``work % n_pix``, sample ``work // n_pix``)."""
+        frame_pix = self.width * self.height
+        return ((self.bases[1] + work // self.n_pix) * frame_pix + self.bases[0]
+                + work % self.n_pix)
+
+    def __call__(self) -> None:
+        state, work, depth = self.core.state, self.work, self.core.depth
+        dead = state[12] < 0.5
+        self.done.index_copy_(1, torch.where(dead & (work >= 0), work, self.drop), state[9:12])
+        state[9:12] = torch.where(dead, 0.0, state[9:12])
+        new_id = self.counter + torch.cumsum(dead, 0) - 1
+        take = dead & (new_id < self.total)
+        work.copy_(torch.where(take, new_id, torch.where(dead, -1, work)))
+        self.counter += torch.minimum(dead.sum(), self.total - self.counter)
+        w = work.clamp(min=0)
+        wid = self.wid_of(w)
+        pixg = self.bases[0] + w % self.n_pix
+        rays = _camera_rows(self.cam, pixg % self.width,
+                            torch.clamp(pixg // self.width, max=self.height - 1), self.width,
+                            self.height, work_key(self.core.seed, wid))
+        _restart_rows(state, take, rays)
+        depth.copy_(torch.where(take, 0, depth))
+        self.core.wid.copy_(wid.to(torch.int32))
 
 
 # work items of one counter-refill pass: the flush keeps 12 bytes per item
 # (400 MB at this cap); a frame with more work renders in passes of whole
 # samples, summed in order
 WF_MAX_WORK = 1 << 25
+
+
+def wavefront_bodies(cfg: TraceConfig, scene, cam: CameraArrays, width: int, height: int,
+                     n_pix: int, samples: int, lanes: int, plain: bool = False, graphs=None):
+    """``(core, run_core, refill, run_refill)`` of one counter-refill pass
+    (``graphed_body``): the core's cache entry is keyed by the lanes and
+    cfg, the refill's also by the frame, the camera, ``n_pix`` and the
+    pass's samples (they size ``done``); seeds, ``pix_base`` and
+    ``samp_base`` are device values and key nothing."""
+    core, run_core = graphed_body(graphs, scene, ("wavefront", lanes, cfg),
+                                  lambda: CoreBody(cfg, scene, lanes, plain))
+    key = ("refill", lanes, cfg, width, height, pack_camera_row(cam).tobytes(), n_pix, samples)
+    refill, run_refill = graphed_body(graphs, scene, key, lambda: RefillBody(
+        core, cam, width, height, n_pix, samples))
+    if refill.core is not core:
+        raise RuntimeError("a refill body serves the core body it was made with")
+    return core, run_core, refill, run_refill
 
 
 def render_wavefront(seed32: int, pix_base: int, samp_base: int, cam: CameraArrays, scene,
@@ -214,8 +299,16 @@ def render_wavefront(seed32: int, pix_base: int, samp_base: int, cam: CameraArra
     write and the columns are summed over the samples at the end, so two
     frames from one seed are equal bit for bit on any device. A frame of
     more than ``WF_MAX_WORK`` work items runs as passes of whole samples.
-    ``graphs`` (a graph cache of ``scene``) replays the core of a
-    ``ModularScene`` as a captured graph; ``plain`` runs eagerly."""
+
+    A round is a refill (``RefillBody``, when at least
+    ``RT_WF_REFILL_FRAC`` of the lanes are dead) and a bounce
+    (``CoreBody``), each a call over static buffers; ``graphs`` (a graph
+    cache of ``scene``) replays both as captured graphs, on either route.
+    The host reads one number per round, the lanes alive after the bounce,
+    and decides from it whether to refill and when to stop; it mirrors the
+    work counter and the path vertices with the same integer arithmetic, so
+    rounds and path vertices are exact. ``plain`` runs eagerly."""
+    check_work_ids(width * height, samp_base, samples)
     per_pass = max(WF_MAX_WORK // max(n_pix, 1), 1)
     if samples > per_pass:
         img, nverts, rounds = 0.0, 0.0, 0
@@ -226,19 +319,11 @@ def render_wavefront(seed32: int, pix_base: int, samp_base: int, cam: CameraArra
             img = img + part * (n_s / samples)
             nverts, rounds = nverts + v, rounds + r
         return img, nverts, rounds
-    dev = _scene_device(scene)
     total_work = n_pix * samples
     b = lanes
-    frame_pix = width * height
-    state = _initial_state(B.N_STATE, b, dev)
-    if isinstance(scene, B.BounceScene):
-        core, _ = _make_bounce_core(cfg, scene, seed32, plain)
-    else:
-        core, static = _modular_core(cfg, scene, seed32, b, plain, None if plain else graphs)
-        state = static.copy_(state)
-
-    def wid_of(work):
-        return (samp_base + work // n_pix) * frame_pix + pix_base + work % n_pix
+    core, run_core, refill, run_refill = wavefront_bodies(
+        cfg, scene, cam, width, height, n_pix, samples, b, plain, None if plain else graphs)
+    refill.reset(seed32, pix_base, samp_base)
 
     # refill threshold: rounds price the full lane batch, so refilling at
     # 1/8 dead keeps occupancy near 94 % at the cost of a cumsum, a
@@ -246,41 +331,20 @@ def render_wavefront(seed32: int, pix_base: int, samp_base: int, cam: CameraArra
     frac = float(os.environ.get("RT_WF_REFILL_FRAC", "0.125"))
     thresh = max(int(b * frac), 1)
 
-    work = torch.full((b,), -1, dtype=torch.int64, device=dev)
-    depth = torch.zeros((b,), dtype=torch.int32, device=dev)
-    # column w holds work item w's radiance; columns total_work + l take
-    # lane l's writes while it holds no finished item (the JAX package's
-    # mode="drop"): every column is written by one lane, so the writes are
-    # plain stores, in no order that could change a sum
-    done = torch.zeros((3, total_work + b), dtype=torch.float32, device=dev)
-    drop = total_work + torch.arange(b, dtype=torch.int64, device=dev)
     counter = nverts = rounds = 0
-    while True:
-        alive = state[12] > 0.5
-        n_dead = b - int(alive.sum())  # the one host read per round
-        if counter >= total_work and n_dead == b:
-            break
+    n_dead = b  # every lane starts dead
+    while counter < total_work or n_dead < b:
         n_take = 0
         if n_dead >= thresh:  # flush dead lanes' radiance, hand out fresh work
-            dead = ~alive
-            done.index_copy_(1, torch.where(dead & (work >= 0), work, drop), state[9:12])
-            state[9:12] = torch.where(dead, 0.0, state[9:12])
-            new_id = counter + torch.cumsum(dead, 0) - 1
-            take = dead & (new_id < total_work)
-            work = torch.where(take, new_id, torch.where(dead, -1, work))
+            run_refill()
             n_take = min(n_dead, total_work - counter)
             counter += n_take
-            w = work.clamp(min=0)
-            pixg = pix_base + w % n_pix
-            rays = _camera_rows(cam, pixg % width, torch.clamp(pixg // width, max=height - 1),
-                                width, height, work_key(seed32, wid_of(w)))
-            _restart_rows(state, take, rays)
-            depth = torch.where(take, 0, depth)
         nverts += b - n_dead + n_take
-        state = core(state, wid_of(work.clamp(min=0)).to(torch.int32), depth)
-        depth = depth + 1
+        run_core()
         rounds += 1
-    return _wf_finish(state, work, done, drop, n_pix, samples), float(nverts), rounds
+        n_dead = b - int(core.n_alive)  # the one host read per round
+    return _wf_finish(core.state, refill.work, refill.done, refill.drop, n_pix, samples), \
+        float(nverts), rounds
 
 
 def _wf_finish(state, work, done, drop, n_pix: int, samples: int) -> torch.Tensor:
@@ -292,25 +356,24 @@ def _wf_finish(state, work, done, drop, n_pix: int, samples: int) -> torch.Tenso
 
 
 class StickyBody:
-    """One round of the pixel-sticky engine on a ``ModularScene`` (or
-    through the fused core, off the K5 route) over static buffers: the seed
-    (0-dim int64) and ``bases`` (pix_base, samp_base) in; the lanes' state,
-    path counters ``k`` and depths, the radiance slots ``acc``, the path
-    vertices ``nverts`` and ``more`` (a lane is alive or has paths left)
-    carried from round to round. A call is one round: flush the finished
-    paths and restart the dead lanes, one bounce, then ``more``.
-    ``fused_seed`` (the fused core's, which takes it by value) makes a body
-    for one frame of that seed."""
+    """One round of the pixel-sticky engine on a ``ModularScene``, or
+    through the fused core (K1 in lane mode) off the K5 route, over static
+    buffers: ``seed_off`` ((2,) int64: the seed and 0; ``seed`` is its first
+    element) and ``bases`` (pix_base, samp_base) in; the lanes' state, path
+    counters ``k`` and depths, the radiance slots ``acc``, the path vertices
+    ``nverts`` and ``more`` (a lane is alive or has paths left) carried from
+    round to round. A call is one round: flush the finished paths and
+    restart the dead lanes, one bounce, then ``more``."""
 
     def __init__(self, cfg: TraceConfig, scene, cam: CameraArrays, width: int, height: int,
-                 n_pix: int, samples: int, lanes: int, plain: bool = False,
-                 fused_seed: int | None = None):
+                 n_pix: int, samples: int, lanes: int, plain: bool = False):
         dev = _scene_device(scene)
         b = self.b = lanes
         self.cam, self.width, self.height = cam, width, height
         self.n_pix, self.samples = n_pix, samples
         self.jmax = max(-(-n_pix // b), 1)  # owned pixels per lane (ceil)
-        self.seed = torch.zeros((), dtype=torch.int64, device=dev)
+        self.seed_off = torch.zeros((2,), dtype=torch.int64, device=dev)
+        self.seed = self.seed_off[0]
         self.bases = torch.zeros((2,), dtype=torch.int64, device=dev)
         self.lane = torch.arange(b, dtype=torch.int64, device=dev)
         self.kmax = sum((self.lane + j * b < n_pix).to(torch.int64)
@@ -321,9 +384,7 @@ class StickyBody:
         self.acc = torch.zeros((3, self.jmax * b), dtype=torch.float32, device=dev)  # j * b + l
         self.nverts = torch.zeros((), dtype=torch.int64, device=dev)
         self.more = torch.zeros((), dtype=torch.bool, device=dev)
-        # the fused core (K1 in lane mode) takes the seed by value
-        self.core, _ = _make_bounce_core(cfg, scene,
-                                         self.seed if fused_seed is None else fused_seed, plain)
+        self.core, _ = _make_bounce_core(cfg, scene, self.seed_off, plain)
 
     def reset(self, seed32: int, pix_base: int, samp_base: int) -> None:
         """A frame's seed and offsets in, every lane dead with no path."""
@@ -384,21 +445,24 @@ def render_wavefront_sticky(seed32: int, pix_base: int, samp_base: int, cam: Cam
     as ``render_wavefront`` does, from the same work-item streams.
 
     When the fused gate passes and ``n_pix <= lanes``, each round is one K5
-    launch on ``n_pix`` lanes (``_sticky_fused``); otherwise each round is
-    a ``StickyBody`` call: a torch restart and one bounce (K1 in lane mode,
-    or the XLA core). ``graphs`` (a graph cache of ``scene``) replays the
-    round of a ``ModularScene`` as a captured graph; ``plain`` and the
-    fused core run eagerly."""
+    launch on ``n_pix`` lanes (``_sticky_fused``), which stays eager: a
+    graph of one launch would save nothing, and the loop reads its counts
+    one round late so that the card always has the next round queued.
+    Otherwise each round is a ``StickyBody`` call: a torch restart and one
+    bounce (K1 in lane mode, or the XLA core); ``graphs`` (a graph cache of
+    ``scene``) replays the round as a captured graph on either route;
+    ``plain`` runs eagerly."""
+    check_work_ids(width * height, samp_base, samples)
     b = lanes
     _, fused = _make_bounce_core(cfg, scene, seed32, plain)
     if fused and n_pix <= b:
         return _sticky_fused(seed32, pix_base, samp_base, cam, scene, cfg, width, height,
                              n_pix, samples, plain)
-    if fused or plain:
+    if plain:
         graphs = None
     key = ("sticky", b, cfg, width, height, pack_camera_row(cam).tobytes(), n_pix, samples)
     body, run = graphed_body(graphs, scene, key, lambda: StickyBody(
-        cfg, scene, cam, width, height, n_pix, samples, b, plain, seed32 if fused else None))
+        cfg, scene, cam, width, height, n_pix, samples, b, plain))
     body.reset(seed32, pix_base, samp_base)
     rounds = 0
     while bool(body.more):  # the one host read per round

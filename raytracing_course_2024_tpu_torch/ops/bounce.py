@@ -30,6 +30,13 @@ Uniforms come from the counter RNG (``ops/rng.py``): lane ``i`` draws from
 ``work_key(seed, wid[i] + wid_off)``, in batch mode at counter
 ``bounce_i * draws_per_bounce(max_tries) + d`` (``batch_ctr``), in lane mode
 at the lane engines' counters for depth ``depth[i]`` (``lane_ctr``).
+
+``seed`` and ``wid_off`` are ints or 0-dim int64 tensors on the lanes'
+device, on every entry point and its plain version. K1 and K2 read them
+from a (2,) int64 device tensor (``ops/rng.py:seed_off``), so a CUDA graph
+that captured a launch replays it for any seed and sample offset; the
+routes pass two consecutive elements of a pair they own, which reaches the
+kernel as it is, with no launch.
 """
 
 from __future__ import annotations
@@ -56,7 +63,7 @@ from .intersect import DIR_BIAS, EPS
 from .kernels import check, launch_bounce, launch_primary
 from .mixture import mixture_body
 from .rng import (CTR_JITTER, WF_STRIDE, Ctr, batch_ctr, draws_per_bounce, lane_ctr,
-                  uniform_ctr, work_key)
+                  offset_ids, seed_off, uniform_ctr, work_key)
 from .sampling import UNROLL_MAX_LIGHTS
 from .vec import Quat, Vec3, reflect, true_div, where3
 
@@ -449,9 +456,11 @@ def _bounce_math(scene: BounceScene, k_tries: int, bg: tuple, draw, ctr: Ctr,
     return next_origin, l, thr, rad, new_alive
 
 
-def lane_draws(seed: int, wid: torch.Tensor, wid_off: int):
-    """``draw(c)``: each lane's uniform at counter ``c`` of its work key."""
-    key = work_key(seed, wid.to(torch.int64) + int(wid_off))
+def lane_draws(seed, wid: torch.Tensor, wid_off):
+    """``draw(c)``: each lane's uniform at counter ``c`` of its work key.
+    ``seed`` and ``wid_off`` are ints or 0-dim int64 tensors on ``wid``'s
+    device, read there (``ops/rng.py:offset_ids``, ``work_key``)."""
+    key = work_key(seed, offset_ids(wid, wid_off))
     return lambda c: uniform_ctr(key, c)
 
 
@@ -466,7 +475,7 @@ def _pack(ro: Vec3, rd: Vec3, thr: Vec3, rad: Vec3, alive) -> torch.Tensor:
 
 
 def bounce_plain(scene: BounceScene, state: torch.Tensor, wid: torch.Tensor,
-                 wid_off: int, seed: int, bounce_i: int, bg: tuple,
+                 wid_off, seed, bounce_i: int, bg: tuple,
                  max_tries: int = 4, final_only: bool = False,
                  depth: torch.Tensor | None = None) -> torch.Tensor:
     """Plain version of ``bounce``; returns a new (13, B) state."""
@@ -481,7 +490,7 @@ def bounce_plain(scene: BounceScene, state: torch.Tensor, wid: torch.Tensor,
 
 
 def primary_plain(scene: BounceScene, cam_row: torch.Tensor, px: torch.Tensor,
-                  py: torch.Tensor, wid: torch.Tensor, wid_off: int, seed: int,
+                  py: torch.Tensor, wid: torch.Tensor, wid_off, seed,
                   bg: tuple, max_tries: int, width: int,
                   height: int) -> torch.Tensor:
     """Plain version of ``primary_bounce``: jitter draws 0 and 1, the camera
@@ -516,7 +525,7 @@ def check_scene(scene: BounceScene, device) -> None:
 
 
 def bounce(scene: BounceScene, state: torch.Tensor, wid: torch.Tensor,
-           wid_off: int, seed: int, bounce_i: int, bg: tuple,
+           wid_off, seed, bounce_i: int, bg: tuple,
            max_tries: int = 4, final_only: bool = False,
            out: torch.Tensor | None = None,
            depth: torch.Tensor | None = None,
@@ -552,16 +561,18 @@ def bounce(scene: BounceScene, state: torch.Tensor, wid: torch.Tensor,
     if out is None:
         out = torch.empty_like(state)
     check("out", out, torch.float32, (N_STATE, b), state.device)
+    pair = seed_off(seed, wid_off, state.device)
+    check("seed_off", pair, torch.int64, (2,), state.device)
     # lane mode: the kernel adds WF_STRIDE * depth[i] to the depth-0 layout
     ctr = _ctr(bounce_i, max_tries, None if depth is None else 0)
-    launch_bounce(scene, state, out, wid, wid_off, seed, ctr, depth, WF_STRIDE, bg,
-                  max_tries, final_only, count)
+    launch_bounce(scene, state, out, wid, pair, ctr, depth, WF_STRIDE, bg, max_tries,
+                  final_only, count)
     return out
 
 
 def primary_bounce(scene: BounceScene, cam_row: torch.Tensor,
                    px: torch.Tensor, py: torch.Tensor, wid: torch.Tensor,
-                   wid_off: int, seed: int, bg: tuple, max_tries: int,
+                   wid_off, seed, bg: tuple, max_tries: int,
                    width: int, height: int,
                    out: torch.Tensor | None = None) -> torch.Tensor:
     """Camera jitter + bounce 0 for a fresh path per lane through pixel
@@ -585,6 +596,8 @@ def primary_bounce(scene: BounceScene, cam_row: torch.Tensor,
     if out is None:
         out = torch.empty((N_STATE, b), dtype=torch.float32, device=dev)
     check("out", out, torch.float32, (N_STATE, b), dev)
-    launch_primary(scene, cam_row, px, py, out, wid, wid_off, seed, _ctr(0, max_tries, None),
-                   bg, max_tries, width, height)
+    pair = seed_off(seed, wid_off, dev)
+    check("seed_off", pair, torch.int64, (2,), dev)
+    launch_primary(scene, cam_row, px, py, out, wid, pair, _ctr(0, max_tries, None), bg,
+                   max_tries, width, height)
     return out

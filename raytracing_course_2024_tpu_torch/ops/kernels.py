@@ -181,11 +181,11 @@ def library() -> ctypes.CDLL:
         ctr = [u, u, u, u]  # Ctr: base, cand, row, diel
         scene = [p, p, i, p, p, i, i, f, f, f, i]  # tables, lights, bg, max_tries
         lib.rt_launch_bounce.argtypes = [
-            p, p, ll, p, u, u, *ctr, p, u, *scene, i, p, p, p,
+            p, p, ll, p, p, *ctr, p, u, *scene, i, p, p, p,
         ]
         lib.rt_launch_bounce.restype = i
         lib.rt_launch_primary.argtypes = [
-            p, p, p, i, i, p, ll, p, u, u, *ctr, *scene, p,
+            p, p, p, i, i, p, ll, p, p, *ctr, *scene, p,
         ]
         lib.rt_launch_primary.restype = i
         lib.rt_launch_dense_nearest.argtypes = [p, p, i, ll, f, p, p, p, p]
@@ -303,14 +303,16 @@ def launch_geometry() -> dict:
                                 "sampler": lib.rt_sampler_resident_blocks(), "bvh": k6[6]}}
 
 
-def launch_bounce(scene, state, out, wid, wid_off, seed, ctr, depth, ctr_stride, bg,
+def launch_bounce(scene, state, out, wid, seed_off, ctr, depth, ctr_stride, bg,
                   max_tries, final_only, count=None) -> None:
+    """K1; ``seed_off`` is the (2,) int64 device tensor (seed, work-id
+    offset) the kernel reads."""
     lib = library()
     with _on(state.device) as stream:
         tickets = _tickets(state.device, stream)
         rc = lib.rt_launch_bounce(
             state.data_ptr(), out.data_ptr(), state.shape[1], wid.data_ptr(),
-            _u32(wid_off), _u32(seed), *_ctr(ctr),
+            seed_off.data_ptr(), *_ctr(ctr),
             None if depth is None else depth.data_ptr(), _u32(ctr_stride),
             *_scene(scene, bg, max_tries), int(bool(final_only)),
             None if count is None else count.data_ptr(), tickets.data_ptr(), stream,
@@ -319,14 +321,15 @@ def launch_bounce(scene, state, out, wid, wid_off, seed, ctr, depth, ctr_stride,
     _count("final" if final_only else "bounce")
 
 
-def launch_primary(scene, cam_row, px, py, out, wid, wid_off, seed, ctr, bg,
+def launch_primary(scene, cam_row, px, py, out, wid, seed_off, ctr, bg,
                    max_tries, width, height) -> None:
+    """K2; ``seed_off`` as ``launch_bounce`` takes it."""
     lib = library()
     with _on(px.device) as stream:
         rc = lib.rt_launch_primary(
             px.data_ptr(), py.data_ptr(), cam_row.data_ptr(), int(width),
             int(height), out.data_ptr(), px.shape[0], wid.data_ptr(),
-            _u32(wid_off), _u32(seed), *_ctr(ctr), *_scene(scene, bg, max_tries), stream,
+            seed_off.data_ptr(), *_ctr(ctr), *_scene(scene, bg, max_tries), stream,
         )
     _raise_on(rc, "rt_launch_primary")
     _count("primary")

@@ -162,6 +162,39 @@ def device_scalar(x, device) -> torch.Tensor:
     return torch.full((), int(x), dtype=torch.int64, device=device)
 
 
+def seed_off(seed, wid_off, dev) -> torch.Tensor:
+    """The (2,) int64 device tensor (seed, work-id offset) that K1, K2 and
+    K3 read (the low 32 bits of each): the two scalars themselves when they
+    are consecutive elements of one int64 tensor (the pair a route owns:
+    ``SampleBody.seed_off`` and the lane engines' bodies), which costs no
+    launch, else a stack of both (ints: tests and tools only)."""
+    if (isinstance(seed, torch.Tensor) and isinstance(wid_off, torch.Tensor)
+            and seed.dim() == 0 and seed.dtype == wid_off.dtype == torch.int64
+            and seed.untyped_storage().data_ptr() == wid_off.untyped_storage().data_ptr()
+            and wid_off.storage_offset() == seed.storage_offset() + 1):
+        return seed.as_strided((2,), (1,))
+    return torch.stack([device_scalar(seed, dev), device_scalar(wid_off, dev)])
+
+
+# work ids are 32-bit: past this many (pixel, sample) items of one seed, two
+# items would draw the same numbers
+WORK_ID_LIMIT = 1 << 32
+
+
+def check_work_ids(frame_pix: int, samp_base: int, samples: int) -> None:
+    """Raises unless every work id of samples ``samp_base`` ..
+    ``samp_base + samples - 1`` of a ``frame_pix``-pixel frame
+    (``sample * frame_pix + pixel``) fits in 32 bits. Past that, ids wrap and
+    two (pixel, sample) items share one uniform stream. A longer render goes
+    through ``runtime/checkpoint.py:render_with_checkpoints``, whose chunks
+    reseed, so each chunk only has to stay under the limit."""
+    if frame_pix * (samp_base + samples) > WORK_ID_LIMIT:
+        raise ValueError(
+            f"{frame_pix} pixels x (samp_base {samp_base} + {samples} samples) work items "
+            f"exceed the 2^32 work ids of one seed; render in chunks with "
+            f"runtime/checkpoint.py:render_with_checkpoints, which reseeds each chunk")
+
+
 def uniform_ctr(key_lane: torch.Tensor, ctr) -> torch.Tensor:
     """One U[0,1) f32 draw per lane at counter ``ctr`` (int or int tensor)."""
     if isinstance(ctr, torch.Tensor):

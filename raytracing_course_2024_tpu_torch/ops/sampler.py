@@ -27,8 +27,9 @@ counts the launch in ``ops/kernels.py:LAUNCHES["sampler"]``.
 
 ``seed`` and ``wid_off`` are ints or 0-dim integer tensors on the lanes'
 device, on both routes. The kernel reads them from a (2,) int64 device
-tensor, so a CUDA graph that captured the launch replays it for any seed
-and sample offset; the plain version reads the tensors with device ops.
+tensor (``ops/rng.py:seed_off``), so a CUDA graph that captured the launch
+replays it for any seed and sample offset; the plain version reads the
+tensors with device ops.
 """
 
 from __future__ import annotations
@@ -36,7 +37,7 @@ from __future__ import annotations
 import torch
 
 from .kernels import check, launch_sampler
-from .rng import batch_ctr, device_scalar, mixture_rows, offset_ids, work_key
+from .rng import batch_ctr, mixture_rows, offset_ids, seed_off, work_key
 from .sampling import UNROLL_MAX_LIGHTS, sample_mixture
 from .vec import Vec3
 
@@ -53,19 +54,6 @@ def sampler_plain(scene, seed, wid: torch.Tensor, wid_off,
     return sample_mixture(rows, point, n_geom, n_shade, v, roughness, scene.lp_np,
                           scene.statics, max_tries, need=need, faithful=faithful,
                           lp_dev=scene.light_packed)
-
-
-def _seed_off(seed, wid_off, dev) -> torch.Tensor:
-    """The (2,) int64 device tensor (seed, work-id offset) that K3 reads:
-    the two scalars themselves when they are consecutive elements of one
-    int64 tensor (the modular route's ``SampleBody.seed_off``), which costs
-    no launch, else a stack of both."""
-    if (isinstance(seed, torch.Tensor) and isinstance(wid_off, torch.Tensor)
-            and seed.dim() == 0 and seed.dtype == wid_off.dtype == torch.int64
-            and seed.untyped_storage().data_ptr() == wid_off.untyped_storage().data_ptr()
-            and wid_off.storage_offset() == seed.storage_offset() + 1):
-        return seed.as_strided((2,), (1,))
-    return torch.stack([device_scalar(seed, dev), device_scalar(wid_off, dev)])
 
 
 def sample_mixture_kernel(scene, seed, wid: torch.Tensor, wid_off,
@@ -91,10 +79,10 @@ def sample_mixture_kernel(scene, seed, wid: torch.Tensor, wid_off,
         raise ValueError(f"light table has {nl} entries, the kernel takes 1..{UNROLL_MAX_LIGHTS}")
     check("light_packed", lp, torch.float32, (lp.shape[0], nl), dev)
     check("lspec", lspec, torch.int32, (nl,), dev)
-    seed_off = _seed_off(seed, wid_off, dev)
-    check("seed_off", seed_off, torch.int64, (2,), dev)
+    pair = seed_off(seed, wid_off, dev)
+    check("seed_off", pair, torch.int64, (2,), dev)
     out = torch.empty((4, b), dtype=torch.float32, device=dev)
     ok = torch.empty((b,), dtype=torch.bool, device=dev)
-    launch_sampler(ins, need, wid, seed_off, batch_ctr(ctr_base, max_tries), lp, lspec,
+    launch_sampler(ins, need, wid, pair, batch_ctr(ctr_base, max_tries), lp, lspec,
                    scene.statics.num_lights, max_tries, out, ok)
     return Vec3(out[0], out[1], out[2]), out[3], ok

@@ -8,12 +8,16 @@ not the card, sets the frame's pace. A CUDA graph records one body's
 launches once and replays them with one call. The integrators hand a body
 to a ``GraphCache``:
 
-* the batch engine's modular route: one sample of one batch
-  (``integrator/path.py:SampleBody``), replayed once per sample of every
-  batch, for every seed, sample offset, shard and checkpoint chunk;
-* the lane engines on a ``ModularScene``: the counter wavefront's bounce
-  (``integrator/wavefront.py:CoreBody``) and the sticky engine's whole
-  round (``StickyBody``), replayed once per round.
+* the batch engine, on either route: one sample of one batch
+  (``integrator/path.py:SampleBody``: K2, K1 per level and K1-final on the
+  fused route; the modular bounce with K4 or K6 and K3 on the other),
+  replayed once per sample of every batch, for every seed, sample offset,
+  shard and checkpoint chunk;
+* the lane engines, on either route: the counter wavefront's refill and
+  bounce (``integrator/wavefront.py:RefillBody``, ``CoreBody``: K1 in lane
+  mode or the XLA core), each replayed when a round runs it, and the
+  sticky engine's whole round off the K5 route (``StickyBody``), replayed
+  once per round.
 
 A body is a call without arguments over static tensors it owns: the caller
 writes the inputs in place (the seed and the sample or work-id offsets
@@ -28,8 +32,8 @@ recorded per entry and added to ``ops/kernels.py:LAUNCHES`` at each replay,
 so a graphed frame counts what an eager one does. A failure to capture or
 to replay raises; nothing falls back to eager.
 
-The fused route (K2, K1, K5: their wrappers pass the seed by value) and
-``plain`` renders stay eager, and so does the CPU.
+The sticky engine's K5 loop (one launch per round, its counts read one
+round late) and ``plain`` renders stay eager, and so does the CPU.
 """
 
 from __future__ import annotations
@@ -100,9 +104,10 @@ class Graphed:
 
 class GraphCache:
     """The captured bodies of one device scene, one per key. The key holds
-    what fixes a body's launches: the engine, the lane count, the
-    ``TraceConfig`` and the frame (size and camera; for the sticky engine
-    also the pixels and samples of a shard). Values read on the device
+    what fixes a body's launches and buffers: the engine, the route, the
+    lane count, the ``TraceConfig`` and the frame (size and camera; for the
+    sticky round and the counter refill also the pixels and samples of a
+    shard or pass). Values read on the device
     (seed, sample offset, ``samp_base``, ``pix_base``, the lanes' work ids)
     are not in it. ``capture_fn`` replaces ``capture`` (the tests stub it
     on the CPU). A cache serves one thread at a time: ``parallel/shard.py``

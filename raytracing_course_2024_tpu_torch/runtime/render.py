@@ -23,12 +23,12 @@ builds). Every draw is keyed by (seed, sample, pixel) through the counter
 RNG, so the image does not depend on the batch size, the replica count, the
 lane count or the mesh.
 
-On a card, the modular route of the batch engine and the lane engines'
-rounds on a ``ModularScene`` replay captured CUDA graphs
-(``runtime/graphs.py``), one cache per device scene, the counterpart of the
-JAX package's ``jax.jit`` of a frame; ``eager=True`` runs them op by op,
-as ``jax.disable_jit()`` does. The fused route, ``plain`` and the CPU run
-eagerly.
+On a card, the batch engine's samples and the lane engines' rounds replay
+captured CUDA graphs on either route (``runtime/graphs.py``), one cache
+per device scene, the counterpart of the JAX package's ``jax.jit`` of a
+frame; ``eager=True`` runs them op by op, as ``jax.disable_jit()`` does.
+The sticky engine's K5 loop (one launch per round), ``plain`` and the CPU
+run eagerly.
 
 ``render_scene`` shards over every card (``parallel/shard.py``) when it is
 asked for ``"cuda"`` and more than one card is present, and over every
@@ -167,10 +167,12 @@ class Renderer(_RendererBase):
     in the tree's order, with ``arrays.bvh`` set, on the BVH backend),
     ``backend`` and ``bvh_builder`` (``"native"`` or ``"numpy"``; None on the
     dense backend) describe the scene as built. After a lane-engine frame,
-    ``rounds`` holds its round count. On a card the modular route and the
-    lane engines' rounds on a ``ModularScene`` replay CUDA graphs captured
-    on first use (``graphs``, a ``runtime/graphs.py:GraphCache``);
-    ``eager=True`` (or ``plain=True``) launches every op from Python."""
+    ``rounds`` holds its round count. On a card the batch engine's samples
+    and the lane engines' rounds replay CUDA graphs captured on first use,
+    on the fused and the modular route (``graphs``, a
+    ``runtime/graphs.py:GraphCache``; the sticky engine's K5 loop stays
+    eager); ``eager=True`` (or ``plain=True``) launches every op from
+    Python."""
 
     def __init__(
         self,

@@ -17,13 +17,16 @@ on the CPU.
 * A host-read guard: under it, ``Tensor.item``, ``__bool__``, ``__int__``,
   ``__float__``, ``__index__``, ``tolist``, ``numpy``, ``cpu``,
   ``nonzero`` and indexing by a boolean mask raise. The sample body, the
-  wavefront core and the sticky round run under it, with the kernel entry
-  points swapped for their plain twins, which run outside it: none reads
-  the host, so a capture would not freeze a value or fail on a sync.
+  wavefront core and refill and the sticky round run under it, on the
+  modular and on the fused route (``RT_MEGA_CAM=0`` and ``ray_depth`` 1
+  too), with the kernel entry points swapped for their plain twins, which
+  run outside it: none reads the host, so a capture would not freeze a
+  value or fail on a sync.
 * The cache: one entry per key, reused across seeds, samples, ``samp_base``
   and ``pix_base``; a new one for a new batch, replica count or cfg; a
   replay adds the launches recorded at capture.
-* On a card (marked ``cuda``; skipped here): graphed frames equal eager ones.
+* On a card (marked ``cuda``; skipped here): graphed frames equal eager ones,
+  on the BVH backend and on the fused route.
 """
 
 import contextlib
@@ -39,10 +42,12 @@ from raytracing_course_2024_tpu.integrator import path as jpath
 from raytracing_course_2024_tpu.runtime.render import Renderer as JRenderer
 from raytracing_course_2024_tpu_torch.integrator import path as P
 from raytracing_course_2024_tpu_torch.integrator import wavefront as W
+from raytracing_course_2024_tpu_torch.ops import bounce as B
 from raytracing_course_2024_tpu_torch.ops import kernels
 from raytracing_course_2024_tpu_torch.ops import rng as trng
 from raytracing_course_2024_tpu_torch.ops import sampler as S
 from raytracing_course_2024_tpu_torch.ops import traverse as T
+from raytracing_course_2024_tpu_torch.ops.bounce import bounce_scene
 from raytracing_course_2024_tpu_torch.ops.bvh import attach_bvh
 from raytracing_course_2024_tpu_torch.ops.camera import camera_arrays, pack_camera_row
 from raytracing_course_2024_tpu_torch.ops.scene_intersect import modular_scene
@@ -265,7 +270,8 @@ def test_graphed_lane_engines_match_jax_and_eager(engine):
     r.graphs, stub = _cache(r.scene)
     got, verts = r.render_frame_device(seed=SEED)
     assert torch.equal(got[0], eager[0]) and verts == eager_verts and r.rounds == eager_rounds
-    assert len(stub.bodies) == 1 and len(r.graphs.entries) == 1
+    entries = 2 if engine == "wavefront" else 1  # the counter refill is a body of its own
+    assert len(stub.bodies) == entries and len(r.graphs.entries) == entries
     jr = JRenderer(jd, backend="bvh", engine=engine, batch_size=lanes)
     jouts, jverts = jr.render_frame_device(seed=SEED)
     _agree(got[0].numpy(), np.asarray(jouts[0]), verts, float(jverts))
@@ -302,9 +308,9 @@ def test_cache_keys_batch_engine():
 
 
 def test_cache_keys_lane_engines():
-    """The counter wavefront keys its core by lanes and cfg, the sticky
-    round also by the frame and the shard's pixels and samples: a second
-    seed and a second ``samp_base`` or ``pix_base`` reuse them."""
+    """The counter wavefront keys its core by lanes and cfg, its refill and
+    the sticky round also by the frame and the shard's pixels and samples:
+    a second seed and a second ``samp_base`` or ``pix_base`` reuse them."""
     d, scene, cfg = _dense_rr(w=8, h=6)[1:]
     cam = camera_arrays(d.settings.camera)
     w, h = d.settings.width, d.settings.height
@@ -314,10 +320,10 @@ def test_cache_keys_lane_engines():
             args = (seed, pix_base, samp_base, cam, scene, cfg, w, h, 24, 2, 32)
             got, want = render(*args, graphs=cache), render(*args)
             assert torch.equal(got[0], want[0]) and got[1:] == want[1:]
-    assert len(cache.entries) == 2 and len(stub.bodies) == 2
+    assert len(cache.entries) == 3 and len(stub.bodies) == 3  # core, refill, sticky round
     W.render_wavefront(SEED32, 0, 0, cam, scene, cfg, w, h, 24, 2, 16, graphs=cache)
     W.render_wavefront_sticky(SEED32, 0, 0, cam, scene, cfg, w, h, 24, 4, 32, graphs=cache)
-    assert len(cache.entries) == 4
+    assert len(cache.entries) == 6
 
 
 def test_cache_serves_its_own_scene_only():
@@ -411,7 +417,7 @@ def guard(monkeypatch):
     # the kernels' entry points: their plain twins read the host (K4's plain
     # version reads its triangle table), which the kernels do not
     for mod, name in ((T, "dense_nearest"), (T, "bvh_nearest"),
-                      (P, "sample_mixture_kernel")):
+                      (P, "sample_mixture_kernel"), (B, "bounce"), (B, "primary_bounce")):
         orig = getattr(mod, name)
 
         def twin(*a, _orig=orig, **k):
@@ -444,10 +450,9 @@ def test_guard_catches_host_reads(guard):
     assert x.tolist() == [0, 2, 3, 3]
 
 
-@pytest.mark.parametrize("scene_name", list(SCENES))
-@pytest.mark.parametrize("body_name", ["sample", "wavefront-core", "sticky-round"])
-def test_bodies_read_nothing_from_the_host(guard, scene_name, body_name):
-    d, scene, cfg = SCENES[scene_name]()
+def _guarded_body(d, scene, cfg, body_name):
+    """A body of ``scene`` ready for a call that does work: its inputs
+    written and, for the refill and the sticky round, a first call made."""
     w, h = d.settings.width, d.settings.height
     cam = camera_arrays(d.settings.camera)
     if body_name == "sample":
@@ -464,11 +469,49 @@ def test_bodies_read_nothing_from_the_host(guard, scene_name, body_name):
         body.depth.copy_(depth)
         body.seed.fill_(SEED32)
         out = body.state
+    elif body_name == "wavefront-refill":
+        core, run_core, body, _ = W.wavefront_bodies(cfg, scene, cam, w, h, w * h - 5, 2,
+                                                     w * h // 2)
+        body.reset(SEED32, 5, 3)
+        body()  # the first refill: every lane takes work
+        for _ in range(3):
+            run_core()
+        out = core.state
     else:
         body = W.StickyBody(cfg, scene, cam, w, h, w * h, 2, w * h // 2)
         body.reset(SEED32, 0, 3)
         body()  # the first round: lanes start their paths
         out = body.state
+    return body, out
+
+
+BODIES = ["sample", "wavefront-core", "wavefront-refill", "sticky-round"]
+
+
+@pytest.mark.parametrize("scene_name", list(SCENES))
+@pytest.mark.parametrize("body_name", BODIES)
+def test_bodies_read_nothing_from_the_host(guard, scene_name, body_name):
+    d, scene, cfg = SCENES[scene_name]()
+    body, out = _guarded_body(d, scene, cfg, body_name)
+    before = out.clone()
+    with guard():
+        body()
+    assert not torch.equal(out, before)
+
+
+@pytest.mark.parametrize("variant", ["default", "mega-cam-off", "depth-1"])
+@pytest.mark.parametrize("body_name", BODIES)
+def test_fused_bodies_read_nothing_from_the_host(guard, body_name, variant, monkeypatch):
+    """The same on the fused route (a ``BounceScene``: K2, K1, K1-final and
+    K1 in lane mode, swapped for their plain twins outside the guard):
+    under ``RT_MEGA_CAM=0`` and at ``ray_depth`` 1 too."""
+    monkeypatch.setenv("RT_MEGA_CAM", "0" if variant == "mega-cam-off" else "1")
+    (_, _, _), (d, ta, ts) = builds("mixed", 16, 12, 2)
+    if variant == "depth-1":
+        d.settings.ray_depth = 1
+    cfg = P.TraceConfig(ray_depth=d.settings.ray_depth, bg_color=tuple(d.settings.bg_color))
+    assert P.mega_gate(cfg, ts)
+    body, out = _guarded_body(d, bounce_scene(ta, ts, "cpu"), cfg, body_name)
     before = out.clone()
     with guard():
         body()
@@ -486,13 +529,21 @@ def card():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("engine", ["batch", "wavefront", "sticky"])
-def test_graphed_frames_equal_eager_on_the_card(card, engine):
-    """The MIXED scene's BVH backend: image, path vertices, rounds and
-    launches of the graphed frame equal the eager frame's, for two seeds."""
+@pytest.mark.parametrize("engine,backend", [
+    ("batch", "bvh"), ("wavefront", "bvh"), ("sticky", "bvh"),
+    ("batch", "dense"), ("wavefront", "dense"), ("sticky", "dense"),
+])
+def test_graphed_frames_equal_eager_on_the_card(card, engine, backend):
+    """The MIXED scene's BVH backend, and its dense backend on the fused
+    route (K2, K1, K1-final; K1 in lane mode: the counter wavefront on
+    4,096 lanes, the sticky engine on 1,024, fewer than the 3,072 pixels):
+    image, path vertices, rounds and launches of the graphed frame equal the
+    eager frame's, for two seeds."""
     _, td = descs("mixed", 64, 48, 4)
-    kw = dict(device=card, backend="bvh", engine=engine, batch_size=4096)
+    lanes = 1024 if (engine, backend) == ("sticky", "dense") else 4096
+    kw = dict(device=card, backend=backend, engine=engine, batch_size=lanes)
     eager, graphed = Renderer(td, eager=True, **kw), Renderer(td, **kw)
+    assert graphed.fused == (backend == "dense")
     for seed in (1, 2):
         res = []
         for r in (eager, graphed):
@@ -500,7 +551,7 @@ def test_graphed_frames_equal_eager_on_the_card(card, engine):
             outs, verts = r.render_frame_device(seed=seed)
             res.append((torch.cat(outs, 1).cpu(), verts, r.rounds, dict(kernels.LAUNCHES)))
         assert torch.equal(res[0][0], res[1][0]) and res[0][1:] == res[1][1:]
-    assert len(graphed.graphs.entries) == 1
+    assert len(graphed.graphs.entries) == (2 if engine == "wavefront" else 1)
 
 
 def test_renderer_takes_no_cache_on_the_cpu():
@@ -512,9 +563,9 @@ def test_k3_takes_consecutive_scalars_as_they_are():
     """The modular route's (seed, offset) pair reaches K3 as a view of its
     own buffer (no launch); other scalars are stacked into a new pair."""
     pair = torch.tensor([SEED32, 2**32 + 3], dtype=torch.int64)
-    view = S._seed_off(pair[0], pair[1], "cpu")
+    view = trng.seed_off(pair[0], pair[1], "cpu")
     assert view.data_ptr() == pair.data_ptr() and torch.equal(view, pair)
     for seed, off in ((SEED32, 2**32 + 3), (pair[0], 2**32 + 3), (pair[1], pair[0])):
-        got = S._seed_off(seed, off, "cpu")
+        got = trng.seed_off(seed, off, "cpu")
         assert got.data_ptr() != pair.data_ptr()
         assert got.tolist() == [int(seed), int(off)]

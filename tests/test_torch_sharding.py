@@ -250,11 +250,11 @@ def _launches(dev):
     rays = [t() for _ in range(6)]
     return [
         ("bounce", "bounce", lambda: kernels.launch_bounce(
-            scene, t(13, 64), t(13, 64), t(), 0, 1, ctr, None, 0, bg, 4, False)),
+            scene, t(13, 64), t(13, 64), t(), t(2), ctr, None, 0, bg, 4, False)),
         ("final", "final", lambda: kernels.launch_bounce(
-            scene, t(13, 64), t(13, 64), t(), 0, 1, ctr, t(), 7, bg, 4, True, t())),
+            scene, t(13, 64), t(13, 64), t(), t(2), ctr, t(), 7, bg, 4, True, t())),
         ("primary", "primary", lambda: kernels.launch_primary(
-            scene, t(128), t(), t(), t(13, 64), t(), 0, 1, ctr, bg, 4, 16, 12)),
+            scene, t(128), t(), t(), t(13, 64), t(), t(2), ctr, bg, 4, 16, 12)),
         ("persistent", "persistent", lambda: kernels.launch_persistent(
             scene, t(18, 64), t(18, 64), t(), t(), t(), t(128), 16, 12, 1, 192, 0, 0, ctr, 7,
             4, bg, 4, t(2))),
