@@ -48,6 +48,15 @@ exits non-zero):
                whole dead tiles, and every lane dead; lanes dead on entry
                must come out bit for bit as the plain version's, and the
                kernels' own live counts must be exact;
+               N1a and N1b (the modular bounce's shade and finish) on the
+               81,920-triangle BVH scene's and the Cornell scene's 921,600
+               camera and bounce-1 lanes and MIXED's 262,144: N1a in the
+               batch layout, in the lane layout (per-lane depths, the
+               final-depth rule) and at the last level; N1b in the batch
+               layout with roulette off and on, faithful acceptance off and
+               on (the seed pair on the device, a work-id offset past 2^32)
+               and in the lane layout; the share of lanes bit for bit equal
+               beside the gate;
                K6 against the sweep on 65,536 lanes of the 81,920-triangle
                BVH scene (camera and bounce-1 rays with and without their
                live mask, a ragged lane count, dead warps and tiles, every
@@ -59,7 +68,8 @@ exits non-zero):
                (stack, shared and local bytes, resident blocks);
 4. main     -- the port's CLI renders scenes/cornell_box.gltf at 1280x720,
                16 spp four times: by default (the fused path: K2, K1,
-               K1-final), with RT_RR=1 (the modular path: K4, K3), with
+               K1-final), with RT_RR=1 (the modular path: K4, N1a, K3, N1b),
+               with
                RT_ENGINE=sticky (K5 only, once per round) and with
                RT_ENGINE=wavefront (K1 in lane mode only, once per round);
                the launch counters are set to 0 before each run, read after
@@ -93,7 +103,9 @@ exits non-zero):
                so that the host's cost per call is not in the number, on
                the camera and on the bounce-1 state, K4 with and without
                the live mask, and level by level over one sample of the
-               modular frame),
+               modular frame; N1a and N1b in place, an event pair per
+               launch with the stream held, on the BVH frame's camera and
+               bounce-1 states),
                path vertices, Mrays/s, rounds, peak memory; K1 and K1-final
                on the bounce-1 state as it is, with its live lanes sorted to
                the front, with every lane alive, and with every lane alive
@@ -142,11 +154,14 @@ exits non-zero):
                per replay beside the eager frame's peak memory; eager and
                graphed frame ms in turns (median of 3 each); the busy share
                under torch.profiler, graphed and eager, of the BVH batch,
-               Cornell fused batch and Cornell counter wavefront frames.
+               Cornell fused batch and Cornell counter wavefront frames; no
+               frame calls the plain modular stages, and one sample of each
+               modular batch case dispatches at most SAMPLE_OPS_MAX ATen
+               ops (the shade and finish work is in N1a and N1b).
                It runs after the timing phase, before runtime.
 
 The last lines are the card's name and power limit, the per-kernel JSON
-record and ``{"ok": true, "device": {...}}``.
+record (K1-K6 and N1a/N1b: eight rows) and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -154,6 +169,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import logging
+import math
 import os
 import re
 import signal
@@ -173,6 +189,7 @@ LANE_FRAC = 0.999
 # whole frames, kernels vs plain, linear radiance
 PIX_ATOL = 1e-3
 PIX_FRAC = 0.99
+VERTS_RTOL = 0.01  # a frame's path vertices against its plain route's
 # published peaks of one H100 SXM (fp32 outside the tensor cores; HBM3)
 PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
@@ -301,8 +318,14 @@ KERNELS = {  # name -> (replaced TPU kernel body file:line, CUDA source)
     "persistent": (f"{TPU_OPS}/pallas_bounce.py:651", f"{CSRC}/persistent.cu"),
     # K6 has no Pallas source: the JAX package walks its BVH in XLA
     "bvh": (f"{TPU_OPS}/treelet.py:175", f"{CSRC}/bvh_traverse.cu"),
+    # N1a and N1b neither: XLA fuses the modular bounce's element-wise work
+    # (_fold_in_planes + surface_detail + _collect_hit's accumulation; the
+    # counter draws + _finish_bounce)
+    "shade": (f"{TPU_OPS}/scene_intersect.py:249", f"{CSRC}/shade.cu"),
+    "finish": ("raytracing_course_2024_tpu/integrator/path.py:140", f"{CSRC}/shade.cu"),
 }
-MODULAR = ("nearest", "sampler")  # launched on the modular main path only
+# launched on the modular main path only
+MODULAR = ("nearest", "sampler", "shade", "finish")
 # where each kernel launches inside a replayed CUDA graph (runtime/graphs.py)
 GRAPHED = {
     "primary": "the batch engine's fused route",
@@ -313,11 +336,14 @@ GRAPHED = {
                "ModularScene",
     "sampler": "the batch engine's modular route",
     "bvh": "the batch engine's modular route; the lane engines' rounds",
+    "shade": "the batch engine's modular route; the lane engines' rounds on a ModularScene",
+    "finish": "the batch engine's modular route; the lane engines' rounds on a ModularScene",
 }
 SEED = 20240917
 K = 4  # max_tries
 FRAME = (1280, 720, 16)  # the main path: width, height, spp (one 921,600-lane batch)
 RENDER = (320, 180, 16)  # the frame-against-frame phase
+PLAIN_BVH = (96, 54, 4)  # the 81,920-triangle frames against the plain route's sweep
 MESH_SPP = 4
 LANES = ((512, 512), (1280, 720))  # kernel-against-plain sizes: 262,144 and 921,600
 K5_CHAIN = 10  # K5 rounds held against the plain version; the timed state is the last
@@ -341,6 +367,20 @@ OPS_CAND = {"which": 1, "accept": 12, "cosine": 24, "vndf": 159,
 OPS_PDF = 7 + 127 + 5  # pdf_cosine + pdf_vndf + sums, divide, clamp
 OPS_LIGHT_PDF = {0: 89, 1: 87, 2: 141}  # pdf_lights per light, unrotated
 OPS_LIGHT_ROT = {1: 180, 2: 120}  # extra of a rotated box / ellipsoid
+# N1a (csrc/shade.cu shade_kernel) per live lane: the fold of one plane (two
+# quaternion rotations, the plane test: 86), the surface of the winner (a
+# triangle's test, both normals, the facing flips: 110; a box's or an
+# ellipsoid's is about as long), the radiance, the point and v (20); N1b
+# (finish_kernel) per live lane: the BRDF (130), cos / pdf and the weight
+# (15), the throughput and roulette (15). Selects and the hash not counted.
+OPS_SHADE_PLANE = 86
+OPS_SHADE = 130
+OPS_FINISH = 160
+# bytes: counted lane by lane from what N1a's and N1b's outputs depend on
+# (``n1_bytes``). Of the scene's tables N1a needs the plane table and the 28
+# floats (vertices, shading normals, material) of each triangle row that
+# some lane hit, each read once.
+SHADE_BYTES_ROW = 28 * 4
 
 
 def say(phase: str, **kw) -> None:
@@ -590,7 +630,7 @@ def lane_mode_chain(dev, gen, name: str, desc, w: int, h: int, spp: int, lanes: 
         torch.cuda.synchronize()
         res = compare_states(k, p, f"{name}-{lanes}-lanes:bounce-lane-mode-round{r}")
         err = max(err, res["max_abs_err"])
-        st = W._park(p, (p[12] > 0.5) & (depth < depth_n - 1))
+        st = W.park(p, (p[12] > 0.5) & (depth < depth_n - 1))
         depth = depth + 1
     return err
 
@@ -730,7 +770,6 @@ class Modular:
         from raytracing_course_2024_tpu_torch.ops.scene_intersect import (
             modular_scene, surface_detail)
         from raytracing_course_2024_tpu_torch.ops.traverse import nearest_hit
-        from raytracing_course_2024_tpu_torch.ops.vec import Vec3
         from raytracing_course_2024_tpu_torch.scene import build_scene_arrays
         from raytracing_course_2024_tpu_torch.scene.types import DIELECTRIC, MIRROR
 
@@ -755,27 +794,41 @@ class Modular:
                     need, K)
             return surf, need, args
 
-        zero = self.ro.x * 0.0
-        one = zero + 1.0
-        self.alive = zero < 1.0
+        self.alive = self.ro.x < math.inf
         self.surf, self.need, self.sampler_args = sampler_inputs(
             self.ro, self.rd, self.alive, 0)
         # bounce 1's rays: the plain modular bounce 0 of the camera rays
-        st = P.PathState(self.ro, self.rd, Vec3(one, one, one), Vec3(zero, zero, zero),
-                         self.alive)
-        st = P._bounce(st, self.scene, self.cfg, SEED, self.wid, 0, self.key, 0, plain=True)
-        self.bounce1 = (st.ro, st.rd)
-        self.alive1 = st.alive
-        self.surf1, self.need1, self.sampler_args1 = sampler_inputs(st.ro, st.rd, st.alive, 1)
+        step = modular_steps(P, self.ro, self.rd, self.scene, SEED, self.wid, plain=True)
+        ro1, rd1, alive1 = step(self.cfg, 0)
+        self.bounce1 = (ro1, rd1)
+        self.alive1 = alive1
+        self.surf1, self.need1, self.sampler_args1 = sampler_inputs(ro1, rd1, alive1, 1)
         self.levels = [(self.ro, self.rd, self.alive, self.sampler_args),
-                       (st.ro, st.rd, st.alive, self.sampler_args1)]
+                       (ro1, rd1, alive1, self.sampler_args1)]
         if levels:
             cfg = self.cfg._replace(rr=True)
             for i in range(1, cfg.ray_depth - 1):
-                st = P._bounce(st, self.scene, cfg, SEED, self.wid, 0, self.key, i, plain=True)
-                args = (sampler_inputs(st.ro, st.rd, st.alive, i + 1)[2]
+                ro_i, rd_i, alive_i = step(cfg, i)
+                args = (sampler_inputs(ro_i, rd_i, alive_i, i + 1)[2]
                         if i + 1 < cfg.ray_depth - 1 else None)
-                self.levels.append((st.ro, st.rd, st.alive, args))
+                self.levels.append((ro_i, rd_i, alive_i, args))
+
+
+def modular_steps(P, ro, rd, scene, seed, wid, plain: bool):
+    """``step(cfg, bounce_i) -> (ro, rd, alive)``: one modular bounce after
+    another (``P._bounce`` on a (13, B) state) of the paths that start on
+    the rays (ro, rd)."""
+    from raytracing_course_2024_tpu_torch.ops.vec import Vec3
+
+    box = [P.fresh_state(ro, rd), None]
+
+    def step(cfg, i):
+        box[0], box[1] = P._bounce(box[0], scene, cfg, seed, wid, 0, i, plain=plain,
+                                   live=box[1])
+        st = box[0]
+        return Vec3(st[0], st[1], st[2]), Vec3(st[3], st[4], st[5]), box[1]
+
+    return step
 
 
 def sampler_ops(m: Modular, bounce_i: int = 0) -> float:
@@ -934,15 +987,167 @@ def phase_kernels_modular(dev, sizes=LANES) -> tuple:
     return errs, cases[main]
 
 
+# N1a and N1b against their plain versions: (scene, lanes) of each case
+N1_CASES = (("bvh81920", LANES[1]), ("cornell", LANES[1]), ("mixed", LANES[0]))
+
+
+def bit_share(kern: list, plain: list, lanes) -> float:
+    """Share of ``lanes`` on which every row of ``kern`` equals ``plain``'s
+    bit for bit."""
+    same = lanes.clone()
+    for a, b in zip(kern, plain):
+        same &= a.contiguous().view(torch.int32) == b.contiguous().view(torch.int32)
+    return same.float().sum().item() / max(lanes.float().sum().item(), 1.0)
+
+
+def shade_case(what: str, state, t, idx, scene, bg, **kw) -> tuple:
+    """N1a against its plain version on one state: the state as
+    ``compare_states`` holds it, the surface rows on the lanes alive on both
+    sides as ``compare_rows`` does, ``need`` on >= 99.9 % of the lanes, and
+    the share of those lanes bit for bit equal. Returns (the plain version's
+    outputs, the largest absolute error)."""
+    from raytracing_course_2024_tpu_torch.ops.shade import shade, shade_plain
+
+    ks, ksurf, kneed = shade(state.clone(), t, idx, scene, bg, **kw)
+    ps, psurf, pneed = shade_plain(state, t, idx, scene, bg, **kw)
+    torch.cuda.synchronize()
+    err = compare_states(ks, ps, what)["max_abs_err"]
+    both = (ks[12] > 0.5) & (ps[12] > 0.5)
+    exact = dict(bit_share=round(bit_share(list(ks), list(ps), both), 6))
+    ok = True
+    if ksurf is not None:
+        rows = compare_rows(list(ksurf), list(psurf), ks[12] > 0.5, ps[12] > 0.5,
+                            what + "-surface")
+        err = max(err, rows["max_abs_err"])
+        exact.update(need_agree=round((kneed == pneed).float().mean().item(), 6),
+                     bit_share=round(bit_share(list(ks) + list(ksurf),
+                                               list(ps) + list(psurf), both), 6))
+        ok = exact["need_agree"] >= LANE_FRAC
+    check(exact, what + "-exact", ok)
+    return (ps, psurf, pneed), err
+
+
+def finish_case(what: str, state, surf, sample, wid, seed_k, off_k, off_p, cfg, **kw) -> float:
+    """N1b against its plain version on one state and sampler output: the
+    state as ``compare_states`` holds it, ``live`` equal to its alive row and
+    agreeing on >= 99.9 % of the lanes, the share of the lanes alive on both
+    sides bit for bit equal. ``seed_k``/``off_k`` reach the kernel as the
+    graphed routes hand them over, ``SEED``/``off_p`` the plain version as
+    ints. Returns the largest absolute error."""
+    from raytracing_course_2024_tpu_torch.ops.shade import finish, finish_plain
+
+    l_s, pdf, ok = sample
+    kf, klive = finish(state.clone(), surf, l_s, pdf, ok, wid, seed_k, off_k, cfg, **kw)
+    pf, plive = finish_plain(state.clone(), surf, l_s, pdf, ok, wid, SEED, off_p, cfg, **kw)
+    torch.cuda.synchronize()
+    err = compare_states(kf, pf, what)["max_abs_err"]
+    both = (kf[12] > 0.5) & (pf[12] > 0.5)
+    exact = dict(live_agree=round((klive == plive).float().mean().item(), 6),
+                 live_is_alive=bool(torch.equal(klive, kf[12] > 0.5)),
+                 bit_share=round(bit_share(list(kf), list(pf), both), 6))
+    check(exact, what + "-exact", exact["live_agree"] >= LANE_FRAC and exact["live_is_alive"])
+    return err
+
+
+def n1_scene(dev, name: str, w: int, h: int):
+    """(modular scene, TraceConfig, camera description) of one N1 case."""
+    from raytracing_course_2024_tpu_torch.integrator import path as P
+    from raytracing_course_2024_tpu_torch.ops.scene_intersect import modular_scene
+    from raytracing_course_2024_tpu_torch.runtime.render import Renderer
+    from raytracing_course_2024_tpu_torch.scene import (
+        build_scene_arrays, load_scene, parse_text_scene)
+
+    if name == "bvh81920":
+        r = Renderer(bvh_desc(w, h, 1), device=dev)
+        return r.scene, r.cfg, r.settings.camera
+    desc = parse_text_scene(MIXED_SCENE) if name == "mixed" else load_scene(CORNELL, w, h, 1)
+    arrays, statics = build_scene_arrays(desc)
+    cfg = P.TraceConfig(ray_depth=desc.settings.ray_depth,
+                        bg_color=tuple(desc.settings.bg_color), max_tries=K)
+    return modular_scene(arrays, statics, dev), cfg, desc.settings.camera
+
+
+def phase_kernels_shade(dev) -> tuple:
+    """N1a and N1b against their plain versions on the BVH scene's and the
+    Cornell scene's 921,600-lane camera and bounce-1 states and MIXED's
+    262,144 (planes, rotated boxes, an ellipsoid, MIRROR and DIELECTRIC):
+    N1a in the batch layout, in the lane layout (per-lane depths 0 .. last,
+    the final-depth rule) and at the last level (emission only); N1b on the
+    plain N1a's outputs and the sampler's, in the batch layout at bounce
+    ``RR_START`` with roulette off and on and faithful acceptance off and on
+    (the kernel given the seed and a work-id offset past 2^32 as a device
+    pair), and in the lane layout with roulette. The bounce-1 state is one
+    bounce of the camera state through the modular route's kernels. Returns
+    the largest absolute error of each kernel and, for the timing phase, the
+    BVH scene's states."""
+    from raytracing_course_2024_tpu_torch.integrator import path as P
+    from raytracing_course_2024_tpu_torch.ops import rng
+    from raytracing_course_2024_tpu_torch.ops.camera import camera_arrays, generate_rays_u
+    from raytracing_course_2024_tpu_torch.ops.sampler import sample_mixture_kernel, sampler_plain
+    from raytracing_course_2024_tpu_torch.ops.sampling import sample_mixture
+    from raytracing_course_2024_tpu_torch.ops.shade import RR_START, sampler_inputs
+    from raytracing_course_2024_tpu_torch.ops.traverse import nearest_table
+    from raytracing_course_2024_tpu_torch.ops.vec import Vec3
+
+    errs, timing = {"shade": 0.0, "finish": 0.0}, {}
+    seed_k, off_k = route_pair(SEED, KERNEL_WID_OFF, dev)
+    for name, (w, h) in N1_CASES:
+        scene, cfg, camera = n1_scene(dev, name, w, h)
+        n, bg, last = w * h, cfg.bg_color, cfg.ray_depth - 1
+        wid = torch.arange(n, device=dev, dtype=torch.int32)
+        key = rng.work_key(SEED, wid)
+        ro, rd = generate_rays_u(camera_arrays(camera), (wid % w).float(), (wid // w).float(),
+                                 w, h, rng.uniform_ctr(key, rng.CTR_JITTER),
+                                 rng.uniform_ctr(key, rng.CTR_JITTER + 1))
+        st0 = P.fresh_state(ro, rd)
+        st1, _ = P._bounce(st0.clone(), scene, cfg, SEED, wid, 0, 0)
+        depth = ((torch.arange(n, device=dev) * 7 // 3) % (last + 1)).to(torch.int32)
+        for state_name, st in (("camera", st0), ("bounce1", st1)):
+            tag = f"{name}-{n}:{state_name}"
+            live = st[12] > 0.5
+            t, idx = nearest_table(Vec3(st[0], st[1], st[2]), Vec3(st[3], st[4], st[5]), scene,
+                                   live=live)
+            (ps, psurf, pneed), e1 = shade_case(f"{tag}:shade", st, t, idx, scene, bg)
+            (pl, plsurf, plneed), e2 = shade_case(f"{tag}:shade-lane", st, t, idx, scene, bg,
+                                                  depth=depth, last=last)
+            _, e3 = shade_case(f"{tag}:shade-final", st, t, idx, scene, bg, final=True)
+            errs["shade"] = max(errs["shade"], e1, e2, e3)
+            base = RR_START * rng.draws_per_bounce(K)
+            args = (scene, SEED, wid, KERNEL_WID_OFF, base, *sampler_inputs(psurf), pneed, K)
+            for rr, faithful in ((False, False), (True, False), (False, True), (True, True)):
+                c = cfg._replace(rr=rr, faithful=faithful)
+                sample = (sampler_plain(*args, faithful=True) if faithful
+                          else sample_mixture_kernel(*args))
+                mode = "-".join(["rr" if rr else "no-rr"] + (["faithful"] if faithful else []))
+                errs["finish"] = max(errs["finish"], finish_case(
+                    f"{tag}:finish-{mode}", ps, psurf, sample, wid, seed_k, off_k,
+                    KERNEL_WID_OFF, c, bounce_i=RR_START))
+            lane_sample = sample_mixture(
+                rng.mixture_rows(key, rng.lane_ctr(depth, K), K), *sampler_inputs(plsurf),
+                scene.lp_np, scene.statics, K, need=plneed, lp_dev=scene.light_packed)
+            errs["finish"] = max(errs["finish"], finish_case(
+                f"{tag}:finish-lane-rr", pl, plsurf, lane_sample, wid, SEED, 0, 0,
+                cfg._replace(rr=True), depth=depth))
+            if name == "bvh81920":
+                b = state_name == "bounce1"
+                sargs = (scene, SEED, wid, 0, int(b) * rng.draws_per_bounce(K),
+                         *sampler_inputs(psurf), pneed, K)
+                timing[state_name] = dict(st=st, t=t, idx=idx, ps=ps, psurf=psurf,
+                                          sample=sample_mixture_kernel(*sargs), bounce_i=int(b))
+        if name == "bvh81920":
+            timing.update(scene=scene, cfg=cfg, wid=wid)
+        del st0, st1
+    return errs, timing
+
+
 def bvh_state(r, n: int, plain: bool) -> dict:
     """``n`` lanes of the Renderer ``r``'s frame (BVH backend), pixels spread
     evenly over the frame: the camera rays of sample 0, and the rays and live
-    mask of bounce 1 after one modular bounce (K6 and K3, or with ``plain``
-    their plain versions)."""
+    mask of bounce 1 after one modular bounce (K6, N1a, K3 and N1b, or with
+    ``plain`` their plain versions)."""
     from raytracing_course_2024_tpu_torch.integrator import path as P
     from raytracing_course_2024_tpu_torch.ops import rng
     from raytracing_course_2024_tpu_torch.ops.camera import generate_rays_u
-    from raytracing_course_2024_tpu_torch.ops.vec import Vec3
 
     w, h = r.settings.width, r.settings.height
     pix = (torch.arange(n, device=r.device, dtype=torch.int64) * (w * h)) // n
@@ -950,11 +1155,9 @@ def bvh_state(r, n: int, plain: bool) -> dict:
     ro, rd = generate_rays_u(r.cam, (pix % w).float(), (pix // w).float(), w, h,
                              rng.uniform_ctr(key, rng.CTR_JITTER),
                              rng.uniform_ctr(key, rng.CTR_JITTER + 1))
-    zero = ro.x * 0.0
-    one = zero + 1.0
-    st = P.PathState(ro, rd, Vec3(one, one, one), Vec3(zero, zero, zero), zero < 1.0)
-    st = P._bounce(st, r.scene, r.cfg, SEED, pix.to(torch.int32), 0, key, 0, plain=plain)
-    return {"camera": (ro, rd, zero < 1.0), "bounce1": (st.ro, st.rd, st.alive)}
+    ro1, rd1, alive1 = modular_steps(P, ro, rd, r.scene, SEED, pix.to(torch.int32),
+                                     plain)(r.cfg, 0)
+    return {"camera": (ro, rd, ro.x < math.inf), "bounce1": (ro1, rd1, alive1)}
 
 
 def bvh_case(what: str, ro, rd, scene, live, plain_hit, exact_rows: bool = False) -> float:
@@ -1181,12 +1384,15 @@ def phase_main(dev, tmp: str, path: str) -> dict:
     extra = {"engine": engine}
     if path == "bvh":
         extra["bvh_builder"] = re.search(r"bvh_builder=(\w+)", line[0]).group(1)
-    if path == "modular":  # K4 at every level, K3 at every level but the last
-        want.update(nearest=spp * depth, sampler=spp * (depth - 1))
+    # the modular bounce: the nearest hit and N1a at every level, K3 and N1b
+    # at every level but the last
+    modular = dict(sampler=spp * (depth - 1), shade=spp * depth, finish=spp * (depth - 1))
+    if path == "modular":  # K4
+        want.update(nearest=spp * depth, **modular)
     elif path == "fused":  # 921,600 lanes fit one batch (DEFAULT_BATCH)
         want.update(primary=spp, bounce=spp * (depth - 2), final=spp)
-    elif engine == "batch":  # bvh: K6 at every level, K3 at every level but the last
-        want.update(bvh=spp * depth, sampler=spp * (depth - 1))
+    elif engine == "batch":  # bvh: K6
+        want.update(bvh=spp * depth, **modular)
     else:
         found = re.findall(r"rounds=(\d+)", line[0])
         if len(found) != 1:
@@ -1221,6 +1427,28 @@ def render_pair(a, b, what: str, **extra) -> None:
         raise SystemExit(f"{what}: frames agree on {agree:.4f} < {PIX_FRAC} of pixels")
 
 
+def modular_pair(desc, dev, what: str, **kw) -> None:
+    """A frame of the modular route (its kernels, graphed) against the
+    plain route's (``plain=True``): pixels as ``render_pair`` holds them,
+    path vertices within ``VERTS_RTOL``."""
+    from raytracing_course_2024_tpu_torch.runtime.render import Renderer
+
+    r = Renderer(desc, device=dev, **kw)
+    if r.fused:
+        raise SystemExit(f"{what}: the frame took the fused path")
+    a, sa = r.render_radiance(seed=3, with_stats=True)
+    b, sb = Renderer(desc, device=dev, plain=True, **kw).render_radiance(seed=3, with_stats=True)
+    verts_err = abs(sa.path_vertices - sb.path_vertices) / max(sb.path_vertices, 1.0)
+    s = desc.settings
+    render_pair(a, b, what, size=f"{s.width}x{s.height}", spp=s.samples, engine=r.engine,
+                backend=r.backend, prims=len(desc.primitives),
+                path_vertices=int(sa.path_vertices), plain_path_vertices=int(sb.path_vertices),
+                path_vertices_rel_err=verts_err)
+    if verts_err > VERTS_RTOL:
+        raise SystemExit(f"{what}: path vertices {sa.path_vertices} against the plain "
+                         f"route's {sb.path_vertices}")
+
+
 def phase_render(dev) -> None:
     from raytracing_course_2024_tpu_torch.runtime.render import Renderer
     from raytracing_course_2024_tpu_torch.scene import load_scene, parse_text_scene
@@ -1231,12 +1459,7 @@ def phase_render(dev) -> None:
     fused = Renderer(desc, device=dev).render_radiance(seed=3)
     render_pair(fused, Renderer(desc, device=dev, plain=True).render_radiance(seed=3),
                 "fused-kernels-vs-plain", size=size, spp=spp)
-    rr = Renderer(desc, device=dev, russian_roulette=True)
-    if rr.fused:
-        raise SystemExit("roulette took the fused path")
-    rr_k3 = rr.render_radiance(seed=3)
-    render_pair(rr_k3, Renderer(desc, device=dev, russian_roulette=True, plain=True)
-                .render_radiance(seed=3), "modular-kernels-vs-plain-rr", size=size, spp=spp)
+    modular_pair(desc, dev, "modular-kernels-vs-plain-rr", russian_roulette=True)
     # the JAX package's switches: the XLA sampler in place of K3 is refused on
     # the card (it would run K3's plain version), before anything launches;
     # bounce 0 in K1 on the camera stage's rays in place of K2
@@ -1303,27 +1526,30 @@ def phase_render(dev) -> None:
     r = Renderer(mesh, device=dev)
     if r.fused or r.scene.tri_pack is not None:
         raise SystemExit("the mesh did not take the modular sweep")
-    b, replicas = r._plan(w * h, MESH_SPP)
-    want = -(-w * h // b) * (MESH_SPP // replicas) * (mesh.settings.ray_depth - 1)
+    want = batch_launches(r, w * h, MESH_SPP)  # the sweep: K3, N1a and N1b
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     KN.reset_launches()
     a = r.render_radiance(seed=3)
     peak = frame_mem_mb(base)
-    if KN.LAUNCHES["sampler"] != want or sum(KN.LAUNCHES.values()) != want:
-        raise SystemExit(f"mesh launches {KN.LAUNCHES}: expected K3 only, {want} times")
+    if KN.LAUNCHES != want:
+        raise SystemExit(f"mesh launches {KN.LAUNCHES}: expected {want}")
     render_pair(a, Renderer(mesh, device=dev, plain=True).render_radiance(seed=3),
                 "mesh1281-kernels-vs-plain", size=size, spp=MESH_SPP,
-                prims=len(mesh.primitives), launches=want, peak_mem_mb=peak)
+                prims=len(mesh.primitives),
+                launches=json.dumps({k: v for k, v in want.items() if v}).replace(" ", ""),
+                peak_mem_mb=peak)
 
 
 def phase_render_bvh(dev) -> None:
     """Frames of the BVH backend against their plain versions (K6 against
-    the sweep): the 5,120-triangle scene on the batch engine (K6 + K3) and
-    on the counter wavefront (K6); then the degenerate scenes, a table of
-    one entry and a scene without a sampled surface, on the fused path (K2,
-    K1) and with the BVH backend asked for."""
+    the sweep): the 5,120-triangle scene on the batch engine (K6, N1a, K3,
+    N1b) and on the counter wavefront (K6, N1a, N1b); the 81,920-triangle
+    scene of the main path at ``PLAIN_BVH`` on the batch, counter wavefront
+    and sticky engines, path vertices held too (``modular_pair``); then the
+    degenerate scenes, a table of one entry and a scene without a sampled
+    surface, on the fused path (K2, K1) and with the BVH backend asked for."""
     from raytracing_course_2024_tpu_torch.ops import kernels as KN
     from raytracing_course_2024_tpu_torch.runtime.render import Renderer
     from raytracing_course_2024_tpu_torch.scene import parse_text_scene
@@ -1338,12 +1564,19 @@ def phase_render_bvh(dev) -> None:
         KN.reset_launches()
         a = r.render_radiance(seed=3)
         launched = {k: v for k, v in KN.LAUNCHES.items() if v}
-        if not launched.get("bvh") or set(launched) - {"bvh", "sampler"}:
-            raise SystemExit(f"BVH frame launches {launched}: expected K6 (and K3)")
+        if (not launched.get("bvh") or launched.get("shade") != launched["bvh"]
+                or set(launched) - {"bvh", "sampler", "shade", "finish"}):
+            raise SystemExit(f"BVH frame launches {launched}: expected K6, N1a, N1b (and K3)")
         render_pair(a, Renderer(bvh, device=dev, engine=engine, plain=True)
                     .render_radiance(seed=3), f"bvh5124-{engine}-kernels-vs-plain", size=size,
                     spp=MESH_SPP, prims=len(bvh.primitives), builder=r.bvh_builder,
                     launches=json.dumps(launched).replace(" ", ""))
+    # the modular frames of the main path's 81,920-triangle scene, cut in
+    # size: the plain route sweeps the whole table for every ray
+    pw, ph, pspp = PLAIN_BVH
+    big = bvh_desc(pw, ph, pspp)
+    for engine in ("batch", "wavefront", "sticky"):
+        modular_pair(big, dev, f"bvh81920-{engine}-kernels-vs-plain", engine=engine)
     for name, text in EDGE_SCENES.items():
         desc = parse_text_scene(text)
         desc.settings.width, desc.settings.height, desc.settings.samples = w, h, spp
@@ -1791,6 +2024,105 @@ def launch_times(scene, cam, bg, st0, idx, w: int, h: int, m: Modular, k5, reps:
     return launch_ms, fresh_ms, modular
 
 
+def n1_bytes(st, t, idx, ps, psurf, ok, pf, scene, cfg, bounce_i: int) -> tuple:
+    """The bytes N1a and N1b must move on one state of the batch layout,
+    counted lane by lane from what their outputs depend on; the plain
+    versions' outputs (``ps``, ``psurf`` of N1a, ``pf`` of N1b) say which
+    lanes hit, die, transmit or draw. N1a: alive read and ``need`` written
+    on every lane; on a live lane t, and the ray where a plane may win or
+    the lane hits; the row on a lane whose table row won; the throughput and
+    the radiance (read and written) where the radiance changes (the
+    background, an emitter); alive written where the lane missed; the 21
+    surface rows where it hit; the table rows hit (``SHADE_BYTES_ROW``) and
+    the plane table once. N1b: alive read and ``live`` written on every lane
+    and the seed pair once; on a lane that hit rd, the throughput, point,
+    n_geom and mkind; the color on MIRROR lanes; ior and is_outer on
+    DIELECTRIC lanes, and on the transmitted ones ro and t (and the color
+    where they enter); on the others the color, metallic, roughness, l, pdf
+    and ok; the work id where a draw is used (the dielectric split without
+    TIR, roulette); the ray and throughput written where the lane lives on,
+    alive where it dies. Returns (N1a's bytes, N1b's bytes)."""
+    from raytracing_course_2024_tpu_torch.ops.shade import (
+        RR_START, SF_IOR, SF_MKIND, SF_NGEOM, SF_OUTER, SF_POINT, SF_T, SF_V)
+    from raytracing_course_2024_tpu_torch.scene.types import DIELECTRIC, MIRROR
+
+    def f(m) -> float:
+        return float(m.sum())
+
+    n = st.shape[1]
+    planes = scene.statics.num_planes > 0
+    live, hit = st[12] > 0.5, ps[12] > 0.5  # the batch layout: alive after N1a = hit
+    table = hit & (psurf[SF_T] == t)  # the table's row, not a plane, won
+    lit = live & (ps[9:12] != st[9:12]).any(0)
+    rows = torch.unique(idx[table]).numel()
+    shade = (n * (4 + 1) + f(live) * 4 + f(live if planes else hit) * 24 + f(table) * 4
+             + f(lit) * (12 + 24) + f(live & ~hit) * 4 + f(hit) * psurf.shape[0] * 4
+             + rows * SHADE_BYTES_ROW + (scene.plane_packed.numel() * 4 if planes else 0))
+    mkind = psurf[SF_MKIND]
+    mirror, diel = hit & (mkind == MIRROR), hit & (mkind == DIELECTRIC)
+    brdf = hit & ~mirror & ~diel
+    v, nrm, outer = psurf[SF_V:SF_V + 3], psurf[SF_NGEOM:SF_NGEOM + 3], psurf[SF_OUTER] > 0.5
+    cos_i = torch.clamp(v[0] * nrm[0] + v[1] * nrm[1] + v[2] * nrm[2], 0.0, 1.0)
+    eta = torch.where(outer, 1.0 / psurf[SF_IOR], psurf[SF_IOR])
+    tir = eta * eta * torch.clamp(1.0 - cos_i * cos_i, min=0.0) > 1.0
+    transmitted = diel & (pf[0:3] != psurf[SF_POINT:SF_POINT + 3]).any(0)
+    rolled = hit & (~brdf | ok) if cfg.rr and bounce_i >= RR_START else torch.zeros_like(hit)
+    died = hit & ~(pf[12] > 0.5)
+    finish = (n * (4 + 1) + 16 + f(hit) * (12 + 12 + 12 + 12 + 4) + f(mirror) * 12
+              + f(diel) * 8 + f(transmitted) * (12 + 4) + f(transmitted & outer) * 12
+              + f(brdf) * (12 + 4 + 4 + 12 + 4 + 1) + f((diel & ~tir) | rolled) * 4
+              + f(hit & ~died) * (24 + 12) + f(died) * 4)
+    return shade, finish
+
+
+def shade_times(n1: dict, gpu: str, reps: int = 20, label: str = "timing") -> dict:
+    """N1a and N1b per launch at the main path's shape: the BVH frame's
+    921,600 lanes on its camera and bounce-1 states (``phase_kernels_shade``),
+    each launch between its own pair of CUDA events while the stream is held,
+    in place as the route launches them, the state put back before every
+    launch outside the timed span (``cuda_ms_in_place``); N1b given the seed
+    pair as the graphed route hands it over, on the sampler K3's output. The
+    plain versions timed once each. The bound from this state's lanes
+    (``n1_bytes``, ``OPS_SHADE*``, ``OPS_FINISH``). Returns state -> kernel
+    -> dict(ms, plain_ms, bound, active_in)."""
+    from raytracing_course_2024_tpu_torch.ops.shade import finish, finish_plain, shade, shade_plain
+
+    scene, cfg, wid = n1["scene"], n1["cfg"], n1["wid"]
+    bg = cfg.bg_color
+    seed_t, off_t = route_pair(SEED, 0, wid.device)
+    planes = scene.plane_packed.shape[1] if scene.statics.num_planes > 0 else 0
+    out = {}
+    for name in ("camera", "bounce1"):
+        c = n1[name]
+        st, t, idx, ps, psurf, bi = c["st"], c["t"], c["idx"], c["ps"], c["psurf"], c["bounce_i"]
+        l_s, pdf, ok = c["sample"]
+        n = st.shape[1]
+        buf = torch.empty_like(st)
+        ms = {"shade": cuda_ms_in_place(lambda: shade(buf, t, idx, scene, bg),
+                                        lambda: buf.copy_(st), reps),
+              "finish": cuda_ms_in_place(
+                  lambda: finish(buf, psurf, l_s, pdf, ok, wid, seed_t, off_t, cfg, bi),
+                  lambda: buf.copy_(ps), reps)}
+        plain = {"shade": cuda_ms(lambda: shade_plain(st, t, idx, scene, bg), 2),
+                 "finish": cuda_ms(lambda: finish_plain(ps, psurf, l_s, pdf, ok, wid, SEED, 0,
+                                                        cfg, bi), 2)}
+        pf, _ = finish_plain(ps, psurf, l_s, pdf, ok, wid, SEED, 0, cfg, bi)
+        nbytes = n1_bytes(st, t, idx, ps, psurf, ok, pf, scene, cfg, bi)
+        live, hit = float((st[12] > 0.5).sum()), float((ps[12] > 0.5).sum())
+        bounds = {"shade": bound(nbytes[0], live * planes * OPS_SHADE_PLANE + hit * OPS_SHADE),
+                  "finish": bound(nbytes[1], hit * OPS_FINISH)}
+        active = {"shade": live / n, "finish": hit / n}
+        out[name] = {}
+        for k in ("shade", "finish"):
+            out[name][k] = dict(ms=ms[k], plain_ms=plain[k], bound=bounds[k], active_in=active[k])
+            say(label, kernel=k, state=name, lanes=n, active_in=round(active[k], 4),
+                ms=round(ms[k], 4), plain_ms=round(plain[k], 3),
+                bound_ms=round(bounds[k][0], 5), bound_by=bounds[k][1],
+                share=round(bounds[k][0] / ms[k], 4), clocks=f'"{clocks_line()}"',
+                gpu=f'"{gpu}"')
+    return out
+
+
 # K6's fp32 operations on the yardstick of the binary walk, K6's first
 # design (box tests as in csrc/bvh_traverse.cu, common.cuh): the bound of
 # every K6 design is counted from the binary walk model's counts, so that
@@ -1994,31 +2326,52 @@ class Chunked:
         return img
 
 
+def nearest_kernel(r) -> str | None:
+    """The nearest-hit kernel of the modular scene of ``r`` (a ``Renderer``
+    or a ``ShardedRenderer``): K6, K4 or none (the sweep)."""
+    scene = r.scene if hasattr(r, "scene") else next(iter(r.scenes.values()))
+    if scene.bvh_nodes is not None:
+        return "bvh"
+    return "nearest" if scene.tri_pack is not None else None
+
+
 def batch_launches(r, n_pix: int, spp: int, shards: int = 1) -> dict:
     """The launches of a batch-engine frame of ``shards`` shards of ``n_pix``
     pixels at ``spp`` samples each: per batch and sample, K2 + K1 per middle
-    level + K1-final (fused), or K6 per level + K3 per level but the last."""
+    level + K1-final (fused), or the nearest hit (K6 or K4) and N1a per
+    level, K3 and N1b per level but the last (modular)."""
     from raytracing_course_2024_tpu_torch.integrator.path import DEFAULT_BATCH, plan_batches
+    from raytracing_course_2024_tpu_torch.ops import kernels as KN
 
     b, replicas = plan_batches(DEFAULT_BATCH, n_pix, spp)
     runs = shards * -(-n_pix // b) * (spp // replicas)
     depth = r.settings.ray_depth
-    want = dict.fromkeys(("primary", "bounce", "final", "nearest", "sampler", "persistent",
-                          "bvh"), 0)
+    want = dict.fromkeys(KN.LAUNCHES, 0)
     if r.fused:
         want.update(primary=runs, bounce=runs * (depth - 2), final=runs)
-    else:
-        want.update(bvh=runs * depth, sampler=runs * (depth - 1))
+        return want
+    want.update(sampler=runs * (depth - 1), shade=runs * depth, finish=runs * (depth - 1))
+    if nearest_kernel(r):
+        want[nearest_kernel(r)] = runs * depth
     return want
 
 
 def expected_launches(r, n_pix: int, spp: int, shards: int, rounds) -> dict:
-    """What a frame must have launched: the batch engine's plan, or one K5
-    (sticky) or one K1 in lane mode (counter wavefront) per round."""
+    """What a frame must have launched: the batch engine's plan, or per
+    round one K5 (sticky) or one K1 in lane mode (counter wavefront) on the
+    fused route, the nearest hit (K6 or K4), N1a and N1b on the modular one."""
     if r.engine == "batch":
         return batch_launches(r, n_pix, spp, shards)
-    want = dict.fromkeys(batch_launches(r, n_pix, spp), 0)
-    want["persistent" if r.engine == "sticky" else "bounce"] = int(np.sum(rounds))
+    from raytracing_course_2024_tpu_torch.ops import kernels as KN
+
+    want = dict.fromkeys(KN.LAUNCHES, 0)
+    n = int(np.sum(rounds))
+    if r.fused:
+        want["persistent" if r.engine == "sticky" else "bounce"] = n
+        return want
+    want.update(shade=n, finish=n)
+    if nearest_kernel(r):
+        want[nearest_kernel(r)] = n
     return want
 
 
@@ -2516,7 +2869,8 @@ def phase_multiproc(dev, gpu: str) -> None:
     say("multiproc", seconds=round(time.perf_counter() - t0, 2))
 
 
-def phase_timing(dev, gpu: str, counts: dict, errs: dict, m: Modular, k5, bvh: dict) -> list:
+def phase_timing(dev, gpu: str, counts: dict, errs: dict, m: Modular, k5, bvh: dict,
+                 n1: dict) -> list:
     from raytracing_course_2024_tpu_torch.ops import bounce as B
     from raytracing_course_2024_tpu_torch.ops.persistent import persistent_plain
     from raytracing_course_2024_tpu_torch.ops.dense_nearest import dense_nearest_plain
@@ -2621,6 +2975,13 @@ def phase_timing(dev, gpu: str, counts: dict, errs: dict, m: Modular, k5, bvh: d
     launch_ms["bvh"], plain_ms["bvh"], bounds["bvh"] = cam6["ms"], bvh["plain_ms"], cam6["bound"]
     inputs["bvh"] = cam6["active_in"]
     bounce1["bvh"] = (b1, b1["bound"])
+    # N1a and N1b on the BVH frame's states, as K6
+    n1_ms = shade_times(n1, gpu)
+    for k in ("shade", "finish"):
+        cam_k, b1_k = n1_ms["camera"][k], n1_ms["bounce1"][k]
+        launch_ms[k], plain_ms[k], bounds[k] = cam_k["ms"], cam_k["plain_ms"], cam_k["bound"]
+        inputs[k] = cam_k["active_in"]
+        bounce1[k] = (b1_k, b1_k["bound"])
     for k in KERNELS:
         # K5's input: the frame's state after K5_CHAIN rounds
         at = {"after_rounds": K5_CHAIN} if k == "persistent" else {}
@@ -2735,6 +3096,53 @@ def same_frame(a: dict, b: dict) -> bool:
             and a["rounds"] == b["rounds"] and a["launches"] == b["launches"])
 
 
+# ATen ops one sample of the modular route may dispatch beside its kernels:
+# the camera rays and their counter draws (~100), the state, the path-vertex
+# sums per level. Before N1 the shade and finish work alone was ~430 per level
+# on the Cornell scene (PERF.md); a sample of the BVH frame was ~3,880 launches.
+SAMPLE_OPS_MAX = 200
+
+
+def aten_ops(fn) -> dict:
+    """ATen ops one call of ``fn`` dispatches, by name: every op that computes
+    on the device, views and allocations left out (what a CUDA graph of the
+    call replays beside the kernels of ``ops/kernels.py``, which are not
+    ATen ops)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    counts: dict = {}
+
+    class Count(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            view = any(r.alias_info is not None and not r.alias_info.is_write
+                       for r in func._schema.returns)
+            name = str(func)
+            if not view and not name.startswith("aten.empty"):
+                counts[name] = counts.get(name, 0) + 1
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        fn()
+    return counts
+
+
+def sample_ops(r) -> dict:
+    """``aten_ops`` of one sample of ``r``'s modular batch route, its
+    ``SampleBody`` called once without a graph on the frame's first batch."""
+    from raytracing_course_2024_tpu_torch.integrator import path as P
+
+    s = r.settings
+    n = min(r.batch_size, s.width * s.height)
+    wid = torch.arange(n, device=r.device, dtype=torch.int32)
+    body, run = P.sample_body(r.scene, r.cam_row, r.cfg, s.width, s.height, n)
+    body.load(1, wid, (wid % s.width).float(), (wid // s.width).float())
+    body.at(0)
+    run()  # warm-up: the kernel library, the allocator
+    ops = aten_ops(run)
+    torch.cuda.synchronize()
+    return ops
+
+
 def phase_graphs(dev, gpu: str) -> None:
     """Each case at 1280x720 x 16 spp on a graphed ``Renderer`` and an
     ``eager=True`` one: the first graphed frame (it captures) equal to the
@@ -2746,14 +3154,50 @@ def phase_graphs(dev, gpu: str) -> None:
     peak memory; eager and graphed frame ms in turns (eager, graphed,
     graphed, eager, eager, graphed: median of 3 each); the busy share under
     torch.profiler, graphed and eager, of the BVH batch frame and of the
-    Cornell fused batch and counter wavefront frames."""
-    from raytracing_course_2024_tpu_torch.runtime.render import Renderer
+    Cornell fused batch and counter wavefront frames. No frame may call the
+    plain modular stages (``_fold_in_planes``, ``surface_detail``,
+    ``_finish_bounce``): N1a and N1b do that work; a modular batch sample
+    dispatches at most ``SAMPLE_OPS_MAX`` ATen ops."""
+    from raytracing_course_2024_tpu_torch.ops import shade as SH
+    from raytracing_course_2024_tpu_torch.ops import traverse as TR
     from raytracing_course_2024_tpu_torch.scene import load_scene
 
     t_phase = time.perf_counter()
     w, h, spp = FRAME
     descs = {"bvh": bvh_desc(w, h, spp), "cornell": load_scene(CORNELL, w, h, spp)}
+    # the plain versions' stages, counted where they are looked up (the fold
+    # in ops/traverse.py:fold_hit): the kernels' frames call none of them
+    stages = {"_fold_in_planes": TR, "surface_detail": SH, "_finish_bounce": SH}
+    plain_calls = dict.fromkeys(stages, 0)
+
+    def counted(name, f):
+        def call(*a, **kw):
+            plain_calls[name] += 1
+            return f(*a, **kw)
+        return call
+
+    originals = {k: getattr(mod, k) for k, mod in stages.items()}
+    for k, f in originals.items():
+        setattr(stages[k], k, counted(k, f))
+    try:
+        graph_cases(descs, dev, gpu, plain_calls)
+    finally:
+        for k, f in originals.items():
+            setattr(stages[k], k, f)
+    say("graphs", seconds=round(time.perf_counter() - t_phase, 2))
+
+
+def graph_cases(descs: dict, dev, gpu: str, plain_calls: dict) -> None:
+    """The cases of ``phase_graphs``; ``plain_calls`` counts the calls of
+    the plain modular stages, which must stay 0. A modular batch case also
+    prints the ATen ops of one sample (``sample_ops``): at most
+    ``SAMPLE_OPS_MAX``, with the shade and finish work in N1a and N1b."""
+    from raytracing_course_2024_tpu_torch.runtime.render import Renderer
+
+    w, h, spp = FRAME
     for case, (scene, engine, rr, lanes, n_entries) in GRAPH_CASES.items():
+        for k in plain_calls:
+            plain_calls[k] = 0
         kw = dict(device=dev, engine=engine, russian_roulette=rr, batch_size=lanes)
         eager, graphed = Renderer(descs[scene], eager=True, **kw), Renderer(descs[scene], **kw)
         if graphed.graphs is None or eager.graphs is not None:
@@ -2795,6 +3239,18 @@ def phase_graphs(dev, gpu: str) -> None:
             .replace(" ", ""), gpu=f'"{gpu}"')
         if not all(checks.values()):
             raise SystemExit(f"[graphs] {case}: graphed frames differ from eager: {checks}")
+        if any(plain_calls.values()):
+            raise SystemExit(f"[graphs] {case}: the kernels' frames ran plain stages "
+                             f"{plain_calls}")
+        if engine == "batch" and not graphed.fused:
+            ops = sample_ops(eager)
+            n_ops = sum(ops.values())
+            say("graphs", case=case, aten_ops_per_sample=n_ops, levels=eager.settings.ray_depth,
+                top=json.dumps(sorted(ops.items(), key=lambda kv: -kv[1])[:6]).replace(" ", ""),
+                plain_stage_calls=json.dumps(plain_calls).replace(" ", ""))
+            if n_ops > SAMPLE_OPS_MAX:
+                raise SystemExit(f"[graphs] {case}: {n_ops} ATen ops in one sample "
+                                 f"(> {SAMPLE_OPS_MAX}): the modular bounce is not in N1a/N1b")
         if case in PROFILED:
             for mode, r in (("graphed", graphed), ("eager", eager)):
                 p = profiled_frame(r, 9)
@@ -2804,7 +3260,6 @@ def phase_graphs(dev, gpu: str) -> None:
                         [[round(ms, 3), n, k[:40]] for ms, n, k in p["rows"][:4]])
                     .replace(" ", ""), gpu=f'"{gpu}"')
         del eager, graphed
-    say("graphs", seconds=round(time.perf_counter() - t_phase, 2))
 
 
 def graphs_main() -> int:
@@ -2853,11 +3308,13 @@ def main() -> int:
     lane_errs, k5_state = phase_kernels_lanes(dev)
     phase_kernels_tiles(dev, k5_state)
     errs["bvh"] = phase_kernels_bvh(dev)
+    n1_errs, n1 = phase_kernels_shade(dev)
+    errs.update(n1_errs)
     with tempfile.TemporaryDirectory() as tmp:
         runs = {path: phase_main(dev, tmp, path) for path in MAIN}
     # each kernel's launches on the main path: the batch path's run for its
-    # kernels (K1 also runs in lane mode in the wavefront run), K4/K3 from the
-    # modular run, K5 from the sticky run, K6 from the BVH run
+    # kernels (K1 also runs in lane mode in the wavefront run), K4/K3/N1a/N1b
+    # from the modular run, K5 from the sticky run, K6 from the BVH run
     counts = dict(runs["fused"])
     counts.update({k: runs["modular"][k] for k in MODULAR})
     counts["persistent"] = runs["sticky"]["persistent"]
@@ -2867,7 +3324,8 @@ def main() -> int:
     errs.update(lane_errs)  # K1's row also holds its lane-mode error
     bvh = phase_timing_bvh(dev, gpu)
     errs["bvh"] = max(errs["bvh"], bvh["max_abs_err"])
-    record = phase_timing(dev, gpu, counts, errs, cornell, k5_state, bvh)
+    record = phase_timing(dev, gpu, counts, errs, cornell, k5_state, bvh, n1)
+    del n1
     phase_graphs(dev, gpu)
     phase_runtime(dev, gpu)
     phase_multiproc(dev, gpu)

@@ -5,8 +5,9 @@ one CUDA card.
     python3 kernel_times.py --root _scratch_tree/parent --label parent
 
 Loads ``raytracing_course_2024_tpu_torch`` from ``--root`` (default: the
-directory of this script), builds its kernels, and calls the functions of
-the ``chip_smoke.py`` beside this script on scenes/cornell_box.gltf at
+directory of this script; a tree whose modular bounce runs on the (13, B)
+state of ``integrator/path.py:fresh_state``), builds its kernels, and
+calls the functions of the ``chip_smoke.py`` beside this script on scenes/cornell_box.gltf at
 1280x720 x 16 spp (one 921,600-lane batch): ``launch_times`` (ms per launch
 of every kernel, K1, K1-final and K5 in place and into a separate buffer;
 K5 on the sticky frame's state after 10 rounds; K4 and K3 on the camera and
@@ -28,6 +29,10 @@ one frame per engine in turn, N times (``bvh_engine_turns``).
 bounce-1 rays of that BVH frame with their live masks (``bvh_state``,
 ``bvh_launch_times`` without the walk models), and prints the launch
 geometry (K6's stack, shared bytes, resident blocks).
+``--modular-frames`` profiles only the four frames whose bounce is the
+modular one (the BVH frame on the three engines, the Cornell frame with
+roulette), graphed, ``--frames`` profiled frames each after a warm-up
+(``chip_smoke.profiled_frame``: wall and device ms, busy share, launches).
 ``--cornell-engines wavefront,...`` times only the Cornell frames of those
 engines (``frame_times``: median host ms of ``--frames`` frames, path
 vertices, rounds and the frame's peak device memory). ``--eager`` adds to
@@ -71,6 +76,10 @@ def main() -> int:
                          "batch, sticky, wavefront), --frames frames each")
     ap.add_argument("--eager", action="store_true",
                     help="time each frame also with eager=True, in turns with the graphed one")
+    ap.add_argument("--modular-frames", action="store_true",
+                    help="only the four frames of the modular bounce (BVH batch, Cornell "
+                         "modular with roulette, BVH wavefront, BVH sticky), graphed, --frames "
+                         "profiled frames each")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("kernel_times: no CUDA device", file=sys.stderr)
@@ -94,7 +103,7 @@ def main() -> int:
         if "Compiling entry" in ln:
             entry = re.sub(r".*function '([^']*)'.*", r"\1", ln)
         elif re.search(r"Used \d+ registers|spill", ln) and re.search(
-                r"bounce|primary|persistent|nearest|sampler|bvh", entry):
+                r"bounce|primary|persistent|nearest|sampler|bvh|shade|finish", entry):
             say(ptxas=entry, line=f'"{ln.split(":", 1)[-1].strip()}"')
 
     dev = torch.device("cuda", 0)
@@ -104,6 +113,10 @@ def main() -> int:
         r = Renderer(CS.bvh_desc(w, h, spp), device=dev)
         CS.bvh_launch_times(r, gpu, CS.bvh_state(r, w * h, plain=False), args.reps, args.label,
                             models=False)
+        return 0
+    if args.modular_frames:
+        modular_frames(dev, CS.bvh_desc(w, h, spp), load_scene(CS.CORNELL, w, h, spp),
+                       args.frames, say)
         return 0
     if args.bvh_turns > 0:
         CS.bvh_engine_turns(dev, gpu, CS.bvh_desc(w, h, spp), args.bvh_turns, args.label,
@@ -171,6 +184,32 @@ def main() -> int:
         frames(engine, engine=engine)
     frames("batch-modular-rr", russian_roulette=True)
     return 0
+
+
+def modular_frames(dev, bvh, cornell, frames: int, say) -> None:
+    """The frames whose bounce is the modular one: the BVH frame on the batch,
+    wavefront and sticky engines and the Cornell frame on the batch engine
+    with roulette, each graphed, a warm-up frame (it captures) and then
+    ``frames`` frames under torch.profiler (``chip_smoke.profiled_frame``):
+    wall ms, device ms, busy share, device launches, the largest rows."""
+    from raytracing_course_2024_tpu_torch.runtime.render import Renderer
+
+    for name, desc, kw in (("bvh-batch", bvh, {}),
+                           ("cornell-modular-rr", cornell, {"russian_roulette": True}),
+                           ("bvh-wavefront", bvh, {"engine": "wavefront"}),
+                           ("bvh-sticky", bvh, {"engine": "sticky"})):
+        r = Renderer(desc, device=dev, **kw)
+        r.render_frame_device(seed=0)
+        for seed in range(1, frames + 1):
+            p = CS.profiled_frame(r, seed)
+            say(frame=name, seed=seed, wall_ms=round(p["wall_ms"], 3),
+                device_ms=round(p["device_ms"], 3), busy_share=round(p["busy_share"], 4),
+                device_launches=p["launches"], path_vertices=int(p["path_vertices"]),
+                **({} if r.engine == "batch" else {"rounds": r.rounds}),
+                top=json.dumps([[round(ms, 3), n, k[:40]] for ms, n, k in p["rows"][:5]])
+                .replace(" ", ""))
+        del r
+        torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

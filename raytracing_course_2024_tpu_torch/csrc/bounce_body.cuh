@@ -1,9 +1,9 @@
 // The fused bounce's device code, shared by the bounce kernels K1/K2
 // (bounce.cu) and the persistent round K5 (persistent.cu), so all three run
-// the same body: the nearest hit over the scene's entries, the BRDF, the
-// bounce itself (emission / background, MIS mixture sampling, BRDF * cos /
-// pdf, the MIRROR / DIELECTRIC rules), the camera ray and the staging of the
-// scene tables in shared memory. The persistent grid and the queue of live
+// the same body: the nearest hit over the scene's entries, the bounce itself
+// (emission / background, MIS mixture sampling, BRDF * cos / pdf with
+// common.cuh's eval_brdf, the MIRROR / DIELECTRIC rules), the camera ray and
+// the staging of the scene tables in shared memory. The persistent grid and the queue of live
 // lanes are lane_queue.cuh's, which K3 and K4 walk their batches with too.
 // The plain PyTorch version is ops/bounce.py:_bounce_math. Everything sits in
 // an anonymous namespace, as in common.cuh.
@@ -109,34 +109,6 @@ __device__ Hit intersect_all(const Tables& T, V3 ro, V3 rd) {
   return h;
 }
 
-// ---- section 5: BRDF (ops/brdf.py) -----------------------------------------
-__device__ __forceinline__ float smith_g1(float ndx, float alpha) {
-  const float c2 = fminf(fmaxf(ndx * ndx, BRDF_SAFE), 1.0f);
-  const float tan2 = (1.0f - c2) / c2;
-  const float g1 = 2.0f / (1.0f + sqrtf(1.0f + alpha * alpha * tan2));
-  return ndx > 0.0f ? g1 : 0.0f;
-}
-
-__device__ V3 eval_brdf(V3 l, V3 n, V3 v, V3 color, float metallic, float roughness, int mkind) {
-  const V3 diffuse = mk(color.x / PI_F, color.y / PI_F, color.z / PI_F);
-  if (mkind == M_DIFFUSE) return diffuse;
-  const V3 h = normalize(add(l, v), 1e-30f);
-  const float alpha = roughness * roughness;
-  const float ldn = dot(l, n), vdn = dot(v, n), hdn = dot(h, n);
-  const float a2 = alpha * alpha;
-  const float dq = (a2 - 1.0f) * hdn * hdn + 1.0f;
-  const float d = a2 * (hdn > 0.0f ? 1.0f : 0.0f) / fmaxf(PI_F * (dq * dq), BRDF_SAFE);
-  const float g = smith_g1(ldn, alpha) * smith_g1(vdn, alpha);
-  const float sden = 4.0f * ldn * vdn;
-  const float spec = d * g / (fabsf(sden) > BRDF_SAFE ? sden : BRDF_SAFE);
-  const float w = pow5(fminf(fmaxf(1.0f - fabsf(dot(h, l)), 0.0f), 1.0f));
-  const V3 metal = mk(spec * (color.x + (1.0f - color.x) * w), spec * (color.y + (1.0f - color.y) * w),
-                      spec * (color.z + (1.0f - color.z) * w));
-  const float f_diel = 0.04f + (1.0f - 0.04f) * w;
-  const V3 diel = add(scl(mk(spec, spec, spec), f_diel), scl(diffuse, 1.0f - f_diel));
-  return add(scl(diel, 1.0f - metallic), scl(metal, metallic));
-}
-
 // ---- the bounce body ----------------------------------------------------------
 struct Lane {
   V3 ro, rd, thr, rad;
@@ -217,7 +189,7 @@ __device__ Lane bounce_body(const Tables& T, const SceneArgs& p, uint32_t key, c
     float pdf;
     bool ok;
     mixture(T, key, ctr, p.max_tries, point, n, n_shade, v_dir, roughness, l, pdf, ok);
-    const V3 f = eval_brdf(l, n, v_dir, color, metallic, roughness, mkind);
+    const V3 f = eval_brdf<false>(l, n, v_dir, color, metallic, roughness, mkind);
     const float cos_l = fmaxf(dot(l, n), 0.0f);
     w = scl(f, cos_l / fmaxf(pdf, 1e-20f));
     new_alive = ok;

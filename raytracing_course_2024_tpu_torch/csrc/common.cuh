@@ -1,9 +1,10 @@
 // Device code shared by the fused bounce (bounce.cu, K1/K2), the persistent
 // round (persistent.cu, K5), the standalone mixture sampler (sampler.cu, K3),
-// the dense nearest hit (dense_nearest.cu, K4) and the BVH nearest hit
-// (bvh_traverse.cu, K6): table layouts, 3-vector and quaternion math, the
-// counter RNG and its draw layouts, the three direction samplers, their pdfs
-// and the MIS mixture stage, and the ray test of one primitive record. K1, K5
+// the dense nearest hit (dense_nearest.cu, K4), the BVH nearest hit
+// (bvh_traverse.cu, K6) and the modular bounce's shade and finish (shade.cu,
+// N1a/N1b): table layouts, 3-vector and quaternion math, the counter RNG and
+// its draw layouts, the three direction samplers, their pdfs and the MIS
+// mixture stage, the BRDF, and the ray test of one primitive record. K1, K5
 // and K3 therefore run the same sampler code, K1, K5 and K6 the same shape
 // tests, and all match the plain PyTorch versions in ops/sampling.py,
 // ops/mixture.py and ops/intersect.py. Everything sits in an anonymous namespace: each
@@ -142,6 +143,43 @@ __device__ __forceinline__ void sin_cos(float phi, float& s, float& c) { sincosf
 __device__ __forceinline__ float pow5(float x) {
   const float x2 = x * x;
   return x2 * x2 * x;
+}
+
+// x^5 as torch.pow(x, 5.0) computes it on the card: ATen's pow with a
+// scalar exponent other than 2, 3 or a root is powf. N1's kernels
+// (shade.cu) mirror the plain modular bounce with it.
+__device__ __forceinline__ float pow5_torch(float x) { return powf(x, 5.0f); }
+
+// ---- the BRDF (ops/brdf.py) ---------------------------------------------------
+__device__ __forceinline__ float smith_g1(float ndx, float alpha) {
+  const float c2 = fminf(fmaxf(ndx * ndx, BRDF_SAFE), 1.0f);
+  const float tan2 = (1.0f - c2) / c2;
+  const float g1 = 2.0f / (1.0f + sqrtf(1.0f + alpha * alpha * tan2));
+  return ndx > 0.0f ? g1 : 0.0f;
+}
+
+// TORCH_POW: Schlick's x^5 by pow5_torch (N1b, shade.cu) or by pow5 (the
+// fused bounce's K1/K2/K5, bounce_body.cuh); the rest is one code for both.
+template <bool TORCH_POW>
+__device__ V3 eval_brdf(V3 l, V3 n, V3 v, V3 color, float metallic, float roughness, int mkind) {
+  const V3 diffuse = mk(color.x / PI_F, color.y / PI_F, color.z / PI_F);
+  if (mkind == M_DIFFUSE) return diffuse;
+  const V3 h = normalize(add(l, v), 1e-30f);
+  const float alpha = roughness * roughness;
+  const float ldn = dot(l, n), vdn = dot(v, n), hdn = dot(h, n);
+  const float a2 = alpha * alpha;
+  const float dq = (a2 - 1.0f) * hdn * hdn + 1.0f;
+  const float d = a2 * (hdn > 0.0f ? 1.0f : 0.0f) / fmaxf(PI_F * (dq * dq), BRDF_SAFE);
+  const float g = smith_g1(ldn, alpha) * smith_g1(vdn, alpha);
+  const float sden = 4.0f * ldn * vdn;
+  const float spec = d * g / (fabsf(sden) > BRDF_SAFE ? sden : BRDF_SAFE);
+  const float x = fminf(fmaxf(1.0f - fabsf(dot(h, l)), 0.0f), 1.0f);
+  const float w = TORCH_POW ? pow5_torch(x) : pow5(x);
+  const V3 metal = mk(spec * (color.x + (1.0f - color.x) * w), spec * (color.y + (1.0f - color.y) * w),
+                      spec * (color.z + (1.0f - color.z) * w));
+  const float f_diel = 0.04f + (1.0f - 0.04f) * w;
+  const V3 diel = add(scl(mk(spec, spec, spec), f_diel), scl(diffuse, 1.0f - f_diel));
+  return add(scl(diel, 1.0f - metallic), scl(metal, metallic));
 }
 
 __device__ __forceinline__ V3 unit_sphere(float u1, float u2) {

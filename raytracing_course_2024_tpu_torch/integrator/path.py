@@ -19,14 +19,17 @@ direction never contributes). Two routes compute it, picked by
   final level runs. This is the JAX package's
   ``_trace_paths_mega_primary`` / ``render_pixels`` route.
 * **modular** (everything else, the BVH backend included): camera rays
-  from ``generate_rays_u``, then per level the scene's nearest hit
-  (``ops/traverse.py:nearest_hit``: K4 or the chunked sweep on the dense
-  backend, the BVH walk K6 on the BVH backend),
-  ``surface_detail``, the mixture sampler (K3, ops/sampler.py, or its XLA
-  formulation for faithful acceptance, more than 32 lights and, on the
-  CPU only, ``TraceConfig.sampler="xla"``) and
-  ``_finish_bounce`` with optional Russian roulette: the JAX package's
-  ``trace_paths`` batch scan.
+  from ``generate_rays_u``, then per level, on a (13, B) state as the fused
+  route's: the scene's nearest hit over the finite table
+  (``ops/traverse.py:nearest_table``: K4 or the chunked sweep on the dense
+  backend, the BVH walk K6 on the BVH backend), the shade pass N1a (the
+  planes, ``surface_detail``, emission / background; ``ops/shade.py``),
+  the mixture sampler (K3, ops/sampler.py, or its XLA formulation for
+  faithful acceptance, more than 32 lights and, on the CPU only,
+  ``TraceConfig.sampler="xla"``) and the finish pass N1b (the BRDF weight,
+  the delta rules, optional Russian roulette: ``_finish_bounce``); the last
+  level runs N1a alone. This is the JAX package's ``trace_paths`` batch
+  scan, whose element-wise work XLA fuses.
 
 Both routes draw from the counter RNG with the same layout (ops/rng.py),
 so from one seed they trace the same paths. Path vertices (one scene
@@ -35,7 +38,7 @@ the Mrays/s metric (bench.py).
 
 Both routes run one sample of a batch as ``SampleBody``: a call over
 static buffers that reads the seed and the sample's work-id offset from the
-device (K1, K2 and K3 read them there too) and adds the sample to device
+device (K1, K2, K3 and N1b read them there too) and adds the sample to device
 sums. Given a graph cache (``runtime/graphs.py``; a ``Renderer`` on a card
 holds one), the first call of a (scene, route, lanes, cfg, frame) captures
 it in a CUDA graph and every later sample, batch, seed and frame replays
@@ -57,21 +60,19 @@ from typing import NamedTuple
 import torch
 
 from ..ops import bounce as B
-from ..ops.brdf import eval_brdf
 from ..ops.camera import CameraArrays, camera_from_row, generate_rays_u, pack_camera_row
-from ..ops.rng import (CTR_JITTER, check_work_ids, ctr_diel, ctr_rr, draws_per_bounce,
-                       offset_ids, uniform_ctr, work_key)
+from ..ops.rng import (CTR_JITTER, check_work_ids, draws_per_bounce, offset_ids, uniform_ctr,
+                       work_key)
 from ..ops.sampler import sample_mixture_kernel, sampler_plain
 from ..ops.sampling import UNROLL_MAX_LIGHTS
-from ..ops.scene_intersect import ModularScene, surface_detail
-from ..ops.traverse import nearest_hit
-from ..ops.vec import Vec3, reflect, where3
-from ..scene.types import DIELECTRIC, MIRROR, SceneStatics
+from ..ops.scene_intersect import ModularScene
+from ..ops.shade import finish, finish_plain, sampler_inputs, shade, shade_plain
+from ..ops.traverse import nearest_table
+from ..ops.vec import Vec3
+from ..scene.types import SceneStatics
 
 log = logging.getLogger("rt_torch")
 
-RR_START = 2  # first bounce index eligible for roulette
-RR_MIN_P = 0.05
 DEFAULT_BATCH = 1_048_576  # lanes per batch (the JAX package's TPU value)
 
 
@@ -216,101 +217,39 @@ def _trace_sample_kernels(scene, state, seed, wid, wid_off, px, py, cam_row, cam
 # ---------------------------------------------------------------------------
 
 
-class PathState(NamedTuple):
-    ro: Vec3
-    rd: Vec3
-    throughput: Vec3
-    radiance: Vec3
-    alive: torch.Tensor
+def fresh_state(ro: Vec3, rd: Vec3) -> torch.Tensor:
+    """The (13, B) state of fresh paths on the rays (ro, rd): throughput 1,
+    radiance 0, alive."""
+    zero = ro.x * 0.0
+    one = zero + 1.0
+    return torch.stack([*ro, *rd, one, one, one, zero, zero, zero, one])
 
 
-def _collect_hit(state: PathState, scene: ModularScene, cfg: TraceConfig,
-                 plain: bool = False):
-    """Intersect + accumulate emission/background. Returns (state', surf, hit).
-    The hit is asked for live paths only (K4 and K6 walk nothing for a dead
-    lane); on a dead lane ``hit`` and ``surf`` hold no hit and are not read."""
-    hit = nearest_hit(state.ro, state.rd, scene, plain=plain, live=state.alive)
-    surf = surface_detail(state.ro, state.rd, hit, scene)
-    zero = state.ro.x * 0.0
-    bg = Vec3(zero + cfg.bg_color[0], zero + cfg.bg_color[1], zero + cfg.bg_color[2])
-    miss = state.alive & ~hit.valid
-    on_hit = state.alive & hit.valid
-    add = where3(miss, state.throughput.mul(bg),
-                 where3(on_hit, state.throughput.mul(surf.emission), Vec3(zero, zero, zero)))
-    return state._replace(radiance=state.radiance + add, alive=on_hit), surf, hit
+def _collect_hit(state: torch.Tensor, scene: ModularScene, cfg: TraceConfig,
+                 plain: bool = False, live: torch.Tensor | None = None, final: bool = False):
+    """Nearest hit over the finite table, then the shade pass (N1a,
+    ``ops/shade.py``: the planes, the surface, emission / background).
+    ``live`` (default: the state's alive row) masks the walk: K4 and K6 walk
+    nothing for a dead lane. Returns ``(state', surf, need)``; ``final``
+    (the last level) only collects emission: ``surf`` and ``need`` None."""
+    ro, rd = Vec3(state[0], state[1], state[2]), Vec3(state[3], state[4], state[5])
+    t, idx = nearest_table(ro, rd, scene, plain=plain,
+                           live=state[12] > 0.5 if live is None else live)
+    return (shade_plain if plain else shade)(state, t, idx, scene, cfg.bg_color, final=final)
 
 
-def _finish_bounce(state: PathState, surf, l_s: Vec3, pdf: torch.Tensor,
-                   ok: torch.Tensor, u_diel: torch.Tensor, cfg: TraceConfig,
-                   u_rr: torch.Tensor | None = None,
-                   rr_mask: torch.Tensor | bool = False) -> PathState:
-    """Post-sampling half of a bounce: BRDF weight, delta-material
-    continuation rules, state update, then Russian roulette when ``cfg.rr``
-    (survive with p = clamp(max throughput channel, RR_MIN_P, 1) on lanes
-    where ``rr_mask`` holds, throughput / p)."""
-    v = -state.rd  # rays are kept unit-length
-    n = surf.n_geom
-    is_mirror = surf.mkind == MIRROR
-    is_diel = surf.mkind == DIELECTRIC
-    is_delta = is_mirror | is_diel
-
-    f = eval_brdf(l_s, n, v, surf.color, surf.metallic, surf.roughness, surf.mkind)
-    # the reference's cos term is the signed l.n_geom; the fast sampler never
-    # accepts l below the horizon, so the clamp only guards its kill-path zeros
-    cos_l = l_s.dot(n) if cfg.faithful else torch.clamp(l_s.dot(n), min=0.0)
-    w_sampled = f * (cos_l * (1.0 / torch.clamp(pdf, min=1e-20)))
-
-    l_mirror = reflect(v, n)
-    cos_i = torch.clamp(v.dot(n), 0.0, 1.0)
-    eta = torch.where(surf.is_outer, 1.0 / surf.ior, surf.ior)
-    sin2_t = eta * eta * torch.clamp(1.0 - cos_i * cos_i, min=0.0)
-    tir = sin2_t > 1.0
-    cos_t = torch.sqrt(torch.clamp(1.0 - sin2_t, min=0.0))
-    r0 = torch.square((eta - 1.0) / (eta + 1.0))
-    refl_p = r0 + (1.0 - r0) * torch.pow(1.0 - cos_i, 5.0)
-    do_reflect = tir | (u_diel < refl_p)
-    l_refr = (state.rd * eta + n * (eta * cos_i - cos_t)).normalize(eps=1e-20)
-    l_diel = where3(do_reflect, l_mirror, l_refr)
-    one = torch.ones_like(surf.color.x)
-    w_diel = where3(do_reflect | ~surf.is_outer, Vec3(one, one, one), surf.color)
-
-    next_dir = where3(is_mirror, l_mirror, where3(is_diel, l_diel, l_s))
-    weight = where3(is_mirror, surf.color, where3(is_diel, w_diel, w_sampled))
-
-    # scattered and reflected rays restart from the backed-off point on the
-    # incoming side; transmitted rays continue from just past the surface
-    transmitted = is_diel & ~do_reflect
-    point_back = state.ro + state.rd * (surf.t + 1e-4)
-    next_origin = where3(transmitted, point_back, surf.point)
-
-    new_alive = state.alive & (is_delta | ok)
-    zero = torch.zeros_like(one)
-    throughput = state.throughput.mul(where3(new_alive, weight, Vec3(zero, zero, zero)))
-
-    if cfg.rr and u_rr is not None:
-        p = torch.clamp(torch.maximum(torch.maximum(throughput.x, throughput.y), throughput.z),
-                        RR_MIN_P, 1.0)
-        roll = new_alive & rr_mask
-        survive = u_rr < p
-        new_alive = new_alive & (survive | ~roll)
-        throughput = throughput * torch.where(roll & survive, 1.0 / p, 1.0)
-
-    return PathState(next_origin, next_dir, throughput, state.radiance, new_alive)
-
-
-def _bounce(state: PathState, scene: ModularScene, cfg: TraceConfig, seed,
-            wid: torch.Tensor, wid_off, key: torch.Tensor, bounce_i: int,
-            plain: bool = False) -> PathState:
-    """One full modular bounce at depth level ``bounce_i``; ``key`` is the
-    lanes' ``work_key(seed, wid + wid_off)``. ``seed`` and ``wid_off`` are
-    ints or 0-dim int64 tensors on the lanes' device; the bounce reads
-    nothing from the host."""
-    state, surf, _ = _collect_hit(state, scene, cfg, plain)
+def _bounce(state: torch.Tensor, scene: ModularScene, cfg: TraceConfig, seed,
+            wid: torch.Tensor, wid_off, bounce_i: int, plain: bool = False,
+            live: torch.Tensor | None = None):
+    """One full modular bounce of the (13, B) ``state`` at depth level
+    ``bounce_i``: the nearest hit, N1a, the sampler, N1b (on a CUDA tensor
+    in place in ``state``). ``seed`` and ``wid_off`` are ints or 0-dim int64
+    tensors on the lanes' device; the bounce reads nothing from the host.
+    Returns ``(state', live')``."""
+    state, surf, need = _collect_hit(state, scene, cfg, plain, live)
     k = cfg.max_tries
-    base = bounce_i * draws_per_bounce(k)
-    is_delta = (surf.mkind == MIRROR) | (surf.mkind == DIELECTRIC)
-    args = (scene, seed, wid, wid_off, base, surf.point, surf.n_geom, surf.n_shade,
-            -state.rd, surf.roughness, state.alive & ~is_delta, k)
+    args = (scene, seed, wid, wid_off, bounce_i * draws_per_bounce(k), *sampler_inputs(surf),
+            need, k)
     # K3 takes the fast acceptance: "auto" at most 32 lights, "pallas" always
     # (K3 refuses a larger light table); faithful acceptance, larger light
     # tables under "auto" and "xla" (CPU only, ``check_sampler``) take the
@@ -321,30 +260,24 @@ def _bounce(state: PathState, scene: ModularScene, cfg: TraceConfig, seed,
         l_s, pdf, ok = sample_mixture_kernel(*args)
     else:
         l_s, pdf, ok = sampler_plain(*args, faithful=cfg.faithful)
-    u_diel = uniform_ctr(key, base + ctr_diel(k))
-    if cfg.rr:
-        u_rr = uniform_ctr(key, base + ctr_rr(k))
-        return _finish_bounce(state, surf, l_s, pdf, ok, u_diel, cfg, u_rr=u_rr,
-                              rr_mask=bounce_i >= RR_START)
-    return _finish_bounce(state, surf, l_s, pdf, ok, u_diel, cfg)
+    return (finish_plain if plain else finish)(state, surf, l_s, pdf, ok, wid, seed, wid_off,
+                                               cfg, bounce_i)
 
 
 def trace_paths(scene: ModularScene, ro: Vec3, rd: Vec3, seed,
-                wid: torch.Tensor, wid_off, key: torch.Tensor,
-                cfg: TraceConfig, plain: bool = False):
+                wid: torch.Tensor, wid_off, cfg: TraceConfig, plain: bool = False):
     """Radiance of one path per lane from the rays (ro, rd) on the modular
-    path; ``key`` is the lanes' ``work_key(seed, wid + wid_off)``. Returns
-    (radiance Vec3, path vertices as a 0-dim float64 tensor)."""
-    zero = ro.x * 0.0
-    one = zero + 1.0
-    st = PathState(ro, rd, Vec3(one, one, one), Vec3(zero, zero, zero), zero < 1.0)
+    path. Returns ((3, B) radiance, path vertices as a 0-dim float64
+    tensor)."""
+    st = fresh_state(ro, rd)
+    live = st[12] > 0.5
     rays = torch.zeros((), dtype=torch.float64, device=ro.x.device)
     for i in range(cfg.ray_depth - 1):
-        rays += st.alive.sum(dtype=torch.float64)
-        st = _bounce(st, scene, cfg, seed, wid, wid_off, key, i, plain)
-    rays += st.alive.sum(dtype=torch.float64)
-    st, _, _ = _collect_hit(st, scene, cfg, plain)
-    return st.radiance, rays
+        rays += live.sum(dtype=torch.float64)
+        st, live = _bounce(st, scene, cfg, seed, wid, wid_off, i, plain, live)
+    rays += live.sum(dtype=torch.float64)
+    st, _, _ = _collect_hit(st, scene, cfg, plain, live, final=True)
+    return st[9:12], rays
 
 
 def _modular_sample(scene: ModularScene, seed, wid: torch.Tensor,
@@ -356,8 +289,7 @@ def _modular_sample(scene: ModularScene, seed, wid: torch.Tensor,
     key = work_key(seed, offset_ids(wid, wid_off))
     ro, rd = generate_rays_u(cam, px, py, width, height, uniform_ctr(key, CTR_JITTER),
                              uniform_ctr(key, CTR_JITTER + 1))
-    rad, rays = trace_paths(scene, ro, rd, seed, wid, wid_off, key, cfg, plain)
-    return torch.stack(list(rad)), rays
+    return trace_paths(scene, ro, rd, seed, wid, wid_off, cfg, plain)
 
 
 class SampleBody:

@@ -25,10 +25,13 @@ A bounce (``_make_bounce_core``) is either the fused core, K1 in lane mode
 (``ops/bounce.py``) then the depth cap and ``park``, when the scene is a
 ``BounceScene``; or the XLA core on a ``ModularScene`` (roulette, faithful
 acceptance, ``RT_MEGAKERNEL=0``, large scenes, the BVH backend): the
-scene's nearest hit (``ops/traverse.py:nearest_hit``: K4 or the sweep, or
-the BVH walk K6), ``surface_detail``, the XLA ``sample_mixture`` fed the layout's draws
-and ``_finish_bounce``. As in the JAX package, the XLA core never takes the
-sampler kernel K3.
+scene's nearest hit over the finite table (``ops/traverse.py:nearest_table``:
+K4 or the sweep, or the BVH walk K6), the shade pass N1a (the planes,
+``surface_detail``, emission, and the final-depth rule), the XLA
+``sample_mixture`` fed the layout's draws and the finish pass N1b
+(``_finish_bounce`` with the layout's draws, then ``park``): N1a and N1b
+are ``ops/shade.py``'s kernels on the card. As in the JAX package, the
+XLA core never takes the sampler kernel K3.
 
 Per-lane depth replaces the batch engine's bounce index: a lane whose
 final depth is reached dies after collecting emission (the reference
@@ -39,7 +42,7 @@ of every lane (one K1 or one K5 launch on the fused routes).
 The counter wavefront's bounce and refill and the sticky round are bodies
 over static buffers (``CoreBody``, ``RefillBody``, ``StickyBody``) that read
 the seed and the frame offsets on the device, on either route (K1 reads
-its seed pair there too). Given a graph cache (``runtime/graphs.py``) the
+its seed pair there too, N1b the same pair). Given a graph cache (``runtime/graphs.py``) the
 counter wavefront replays its refill and its bounce as captured CUDA graphs
 and the sticky engine its whole round (restart, core, the live test), the
 counterpart of the JAX package's ``_render_wf`` (each engine one
@@ -60,17 +63,11 @@ from ..ops.camera import CameraArrays, generate_rays_u, pack_camera_row
 from ..ops.persistent import N_PSTATE, S_ACC, S_K, persistent_plain, persistent_round
 from ..ops.rng import CTR_JITTER, check_work_ids, lane_ctr, mixture_rows, uniform_ctr, work_key
 from ..ops.sampling import sample_mixture
-from ..ops.scene_intersect import surface_detail
-from ..ops.traverse import nearest_hit
-from ..ops.vec import Vec3, where3
-from ..scene.types import DIELECTRIC, MIRROR
-from .path import (RR_START, PathState, TraceConfig, _finish_bounce, check_sampler,
-                   graphed_body)
-
-# a dead lane's parked ray: far outside every scene, pointing away along the
-# all-positive diagonal so slab and cull tests reject it with finite math
-PARK_ORIGIN = 1.0e30
-PARK_DIR = 0.5773502691896258  # 1/sqrt(3)
+from ..ops.shade import (PARK_DIR, PARK_ORIGIN, finish, finish_plain, park, sampler_inputs,
+                         shade, shade_plain)
+from ..ops.traverse import nearest_table
+from ..ops.vec import Vec3
+from .path import TraceConfig, check_sampler, graphed_body
 
 
 def _scene_device(scene) -> torch.device:
@@ -83,14 +80,6 @@ def _initial_state(rows: int, b: int, dev) -> torch.Tensor:
     st[0:3] = PARK_ORIGIN
     st[3:6] = PARK_DIR
     return st
-
-
-def _park(state: torch.Tensor, cont: torch.Tensor) -> torch.Tensor:
-    """Set alive to ``cont`` and park the rays of the other lanes (in place)."""
-    state[12] = cont.to(torch.float32)
-    state[0:3] = torch.where(cont, state[0:3], PARK_ORIGIN)
-    state[3:6] = torch.where(cont, state[3:6], PARK_DIR)
-    return state
 
 
 def _camera_rows(cam: CameraArrays, px, py, width, height, key):
@@ -138,39 +127,23 @@ def _make_bounce_core(cfg: TraceConfig, scene, seed, plain: bool = False):
                 st = B.bounce_plain(scene, state, wid, wid_off, seed, 0, bg, k, depth=depth)
             else:
                 st = B.bounce(scene, state, wid, wid_off, seed, 0, bg, k, out=state, depth=depth)
-            return _park(st, (st[12] > 0.5) & (depth < last))
+            return park(st, (st[12] > 0.5) & (depth < last))
 
         return fused_core, True
 
+    shade_fn, finish_fn = (shade_plain, finish_plain) if plain else (shade, finish)
+
     def xla_core(state, wid, depth):
-        key = work_key(seed, wid)
-        s = state
-        ro, rd = Vec3(s[0], s[1], s[2]), Vec3(s[3], s[4], s[5])
-        thr, rad = Vec3(s[6], s[7], s[8]), Vec3(s[9], s[10], s[11])
-        alive = s[12] > 0.5
-        hit = nearest_hit(ro, rd, scene, plain=plain, live=alive)
-        surf = surface_detail(ro, rd, hit, scene)
-        zero = ro.x * 0.0
-        bgv = Vec3(zero + bg[0], zero + bg[1], zero + bg[2])
-        miss = alive & ~hit.valid
-        on_hit = alive & hit.valid
-        rad = rad + where3(miss, thr.mul(bgv),
-                           where3(on_hit, thr.mul(surf.emission), Vec3(zero, zero, zero)))
-        cont = on_hit & (depth < last)
-        is_delta = (surf.mkind == MIRROR) | (surf.mkind == DIELECTRIC)
-        ctr = lane_ctr(depth, k)
+        ro, rd = Vec3(state[0], state[1], state[2]), Vec3(state[3], state[4], state[5])
+        t, idx = nearest_table(ro, rd, scene, plain=plain, live=state[12] > 0.5)
+        # N1a: alive becomes "hit and depth < last", the final-depth rule
+        st, surf, need = shade_fn(state, t, idx, scene, bg, depth=depth, last=last)
         l_s, pdf, ok = sample_mixture(
-            mixture_rows(key, ctr, k), surf.point, surf.n_geom, surf.n_shade, -rd,
-            surf.roughness, scene.lp_np, scene.statics, k, need=cont & ~is_delta,
-            faithful=cfg.faithful, lp_dev=scene.light_packed)
-        rr_kw = {}
-        if cfg.rr:
-            rr_kw = dict(u_rr=uniform_ctr(key, ctr.base + ctr.rr), rr_mask=depth >= RR_START)
-        ps = _finish_bounce(PathState(ro, rd, thr, rad, cont), surf, l_s, pdf, ok,
-                            uniform_ctr(key, ctr.base + ctr.diel), cfg, **rr_kw)
-        st = torch.stack([*ps.ro, *ps.rd, *ps.throughput, *ps.radiance,
-                          ps.alive.to(torch.float32)])
-        return _park(st, ps.alive)
+            mixture_rows(work_key(seed, wid), lane_ctr(depth, k), k), *sampler_inputs(surf),
+            scene.lp_np, scene.statics, k, need=need, faithful=cfg.faithful,
+            lp_dev=scene.light_packed)
+        # N1b in the lane layout parks the rays of the lanes it leaves dead
+        return finish_fn(st, surf, l_s, pdf, ok, wid, seed, wid_off, cfg, depth=depth)[0]
 
     return xla_core, False
 

@@ -14,8 +14,8 @@ Each ``launch_*`` function makes its tensors' device current for the launch
 and launches on that device's current stream, so shards on several cards,
 or on threads, each launch where their data lies. ``LAUNCHES`` counts the
 launches of each kernel (the wrappers of ``ops/bounce.py``,
-``ops/dense_nearest.py``, ``ops/sampler.py``, ``ops/persistent.py`` and
-``ops/traverse.py`` call these functions); it and the tile tickets are
+``ops/dense_nearest.py``, ``ops/sampler.py``, ``ops/persistent.py``,
+``ops/traverse.py`` and ``ops/shade.py`` call these functions); it and the tile tickets are
 changed under a lock. ``check`` validates a tensor before its pointer goes
 to a kernel.
 
@@ -44,7 +44,8 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
-SOURCES = ("bounce.cu", "bvh_traverse.cu", "dense_nearest.cu", "persistent.cu", "sampler.cu")
+SOURCES = ("bounce.cu", "bvh_traverse.cu", "dense_nearest.cu", "persistent.cu", "sampler.cu",
+           "shade.cu")
 # --fmad=false: no FMA contraction, so the kernels round op by op like the
 # plain versions (PyTorch runs one op per kernel). With contraction, grazing
 # hits and accept decisions flipped on ~0.1 % of the MIXED scene's lanes per
@@ -61,9 +62,9 @@ BUILD_INFO: dict = {}  # path, seconds (0.0 when cached), log of the last build
 
 # kernel launches per wrapper: the fused K2 / K1 (batch and lane mode) /
 # K1-final, the modular path's K4 and K3, the sticky engine's K5, the BVH
-# backend's K6
+# backend's K6, the modular bounce's shade (N1a) and finish (N1b)
 LAUNCHES = {"primary": 0, "bounce": 0, "final": 0, "nearest": 0, "sampler": 0,
-            "persistent": 0, "bvh": 0}
+            "persistent": 0, "bvh": 0, "shade": 0, "finish": 0}
 _LOCK = threading.Lock()  # guards LAUNCHES and _TICKETS: shards launch from threads
 _RECORD = threading.local()  # .counts: the calling thread's capture recorder, if any
 
@@ -200,6 +201,10 @@ def library() -> ctypes.CDLL:
             p, p, ll, p, p, p, p, i, i, u, u, u, u, *ctr, u, i, *scene, p, p, p,
         ]
         lib.rt_launch_persistent.restype = i
+        lib.rt_launch_shade.argtypes = [p, ll, p, p, p, i, p, p, i, i, i, p, i, f, f, f, i, p, p, p]
+        lib.rt_launch_shade.restype = i
+        lib.rt_launch_finish.argtypes = [p, ll, p, p, p, p, p, u, u, u, u, p, i, i, i, i, p, p]
+        lib.rt_launch_finish.restype = i
         lib.rt_bounce_geometry.argtypes = [ctypes.POINTER(ctypes.c_int)]
         lib.rt_bounce_geometry.restype = None
         lib.rt_persistent_resident_blocks.argtypes = []
@@ -397,3 +402,39 @@ def launch_sampler(ins, need, wid, seed_off, ctr, lp, lspec,
         )
     _raise_on(rc, "rt_launch_sampler")
     _count("sampler")
+
+
+def launch_shade(state, t, idx, packed, plane, pl_mask, n_planes, any_rotation, any_nontri,
+                 depth, last, bg, final_only, surf, need) -> None:
+    """N1a; ``n_planes`` 0 leaves the plane fold out. ``surf`` and ``need``
+    are None with ``final_only``."""
+    lib = library()
+    with _on(state.device) as stream:
+        rc = lib.rt_launch_shade(
+            state.data_ptr(), state.shape[1], t.data_ptr(), idx.data_ptr(), packed.data_ptr(),
+            packed.shape[1], plane.data_ptr(), pl_mask.data_ptr(), int(n_planes),
+            int(bool(any_rotation)), int(bool(any_nontri)),
+            None if depth is None else depth.data_ptr(), int(last), float(bg[0]), float(bg[1]),
+            float(bg[2]), int(bool(final_only)), None if surf is None else surf.data_ptr(),
+            None if need is None else need.data_ptr(), stream,
+        )
+    _raise_on(rc, "rt_launch_shade")
+    _count("shade")
+
+
+def launch_finish(state, surf, lpdf, ok, wid, seed_off, base, stride, diel, rr_off, depth,
+                  level, rr, rr_start, faithful, live) -> None:
+    """N1b; ``lpdf`` the sampler's four (b,) rows l.x, l.y, l.z, pdf,
+    ``seed_off`` the (2,) int64 device tensor (seed, work-id offset) the
+    kernel reads; draws at ``base + stride * (depth or level)`` plus
+    ``diel`` or ``rr_off``."""
+    lib = library()
+    with _on(state.device) as stream:
+        rc = lib.rt_launch_finish(
+            state.data_ptr(), state.shape[1], surf.data_ptr(), _ptrs(lpdf), ok.data_ptr(),
+            wid.data_ptr(), seed_off.data_ptr(), _u32(base), _u32(stride), _u32(diel),
+            _u32(rr_off), None if depth is None else depth.data_ptr(), int(level),
+            int(bool(rr)), int(rr_start), int(bool(faithful)), live.data_ptr(), stream,
+        )
+    _raise_on(rc, "rt_launch_finish")
+    _count("finish")

@@ -16,11 +16,15 @@ the sweep's, since ``attach_bvh`` put the table in the tree's order.
 * ``bvh_nearest``: K6 for tensors on CUDA (or raises), the plain version
   for tensors on the CPU; counts its launches in
   ``ops/kernels.py:LAUNCHES["bvh"]``.
-* ``nearest_hit``: the one choice of nearest-hit routine (the JAX
+* ``nearest_table``: the one choice of nearest-hit routine (the JAX
   package's ``integrator/path.py:_nearest``): K6 on a scene with a BVH, K4
   (``ops/dense_nearest.py``) on one of at most 128 triangles, else the
-  sweep; with ``plain`` the plain versions. The infinite planes fold in
-  afterwards (``_fold_in_planes``, as ``ops/treelet.py:323-324`` does).
+  sweep; with ``plain`` the plain versions. The modular bounce hands its
+  (t, row) to N1a (``ops/shade.py``), which folds the infinite planes in.
+* ``fold_hit``: a (t, row) of the finite table with the infinite planes
+  folded in (``_fold_in_planes``, as ``ops/treelet.py:323-324`` does), the
+  one definition that ``nearest_hit`` and N1a's plain version share.
+* ``nearest_hit``: ``nearest_table``, then ``fold_hit``.
 * ``walk_reference``: K6's walk of the 4-wide tree, node for node, in
   PyTorch over a batch of rays in lockstep: the same hits, and how many
   wide nodes, child boxes and primitives each ray visits.
@@ -98,23 +102,37 @@ def check_stack(stack: int) -> None:
         raise ValueError(f"the BVH walk needs {stack} stack entries, K6 holds {WIDE_STACK}")
 
 
-def nearest_hit(ro: Vec3, rd: Vec3, scene: ModularScene, tmin: float = 0.0,
-                plain: bool = False, live: torch.Tensor | None = None) -> SceneHit:
-    """Nearest hit over the finite table and the planes: K6 where the scene
-    carries a BVH, K4 where it is at most 128 triangles, else the sweep
-    (``plain``: the kernels' plain versions, on any device)."""
+def nearest_table(ro: Vec3, rd: Vec3, scene: ModularScene, tmin: float = 0.0,
+                  plain: bool = False, live: torch.Tensor | None = None):
+    """Nearest (t, row) over the finite table, +inf and 0 on a miss: K6
+    where the scene carries a BVH, K4 where it is at most 128 triangles,
+    else the sweep (``plain``: the kernels' plain versions, on any device).
+    The planes are not folded in: the modular bounce's shade pass
+    (``ops/shade.py``, N1a) folds them."""
     if scene.bvh_nodes is not None:
-        t, idx = (bvh_nearest_plain if plain else bvh_nearest)(ro, rd, scene, tmin, live)
-    elif scene.tri_pack is None:
-        t, idx = sweep_nearest(ro, rd, scene.packed, scene.statics, tmin)
-    elif plain:
-        t, idx = dense_nearest_plain(ro, rd, scene.tri_pack, tmin, live)
-    else:
-        t, idx = dense_nearest(ro, rd, scene.tri_pack, tmin, live, records=scene.tri_rec)
+        return (bvh_nearest_plain if plain else bvh_nearest)(ro, rd, scene, tmin, live)
+    if scene.tri_pack is None:
+        return sweep_nearest(ro, rd, scene.packed, scene.statics, tmin)
+    if plain:
+        return dense_nearest_plain(ro, rd, scene.tri_pack, tmin, live)
+    return dense_nearest(ro, rd, scene.tri_pack, tmin, live, records=scene.tri_rec)
+
+
+def fold_hit(ro: Vec3, rd: Vec3, scene: ModularScene, t: torch.Tensor, idx: torch.Tensor,
+             tmin: float = 0.0) -> SceneHit:
+    """The finite table's nearest (t, row) as a ``SceneHit`` with the planes
+    folded in, as the JAX package's ``integrator/path.py:_nearest`` does."""
     hit = SceneHit(t, idx, torch.zeros_like(t, dtype=torch.bool), torch.isfinite(t))
     if scene.statics.num_planes > 0:
         hit = _fold_in_planes(ro, rd, scene, hit, tmin)
     return hit
+
+
+def nearest_hit(ro: Vec3, rd: Vec3, scene: ModularScene, tmin: float = 0.0,
+                plain: bool = False, live: torch.Tensor | None = None) -> SceneHit:
+    """Nearest hit over the finite table (``nearest_table``) and the planes
+    (``fold_hit``)."""
+    return fold_hit(ro, rd, scene, *nearest_table(ro, rd, scene, tmin, plain, live), tmin)
 
 
 def _box_entry(lo: Vec3, hi: Vec3, ro: Vec3, inv: Vec3, tmin: float, limit: torch.Tensor):

@@ -35,7 +35,6 @@ from raytracing_course_2024_tpu_torch.integrator import path as P
 from raytracing_course_2024_tpu_torch.ops import rng as trng
 from raytracing_course_2024_tpu_torch.ops.camera import camera_arrays, pack_camera_row
 from raytracing_course_2024_tpu_torch.ops.scene_intersect import modular_scene
-from raytracing_course_2024_tpu_torch.ops.vec import Vec3 as TV
 from raytracing_course_2024_tpu_torch.runtime.render import Renderer
 from test_torch_bounce import _assert_states_agree
 from test_torch_render import _jax_counter_loop
@@ -101,14 +100,13 @@ def test_modular_bounce_matches_jax_stages(name, bounce_i, mode):
     rr, faithful = mode == "roulette", mode == "faithful"
     want = _jax_bounce(c, JTraceConfig(ray_depth=6, bg_color=bg, max_tries=K, rr=rr,
                                        faithful=faithful), bounce_i)
-    t = [torch.from_numpy(x) for x in c["rows"]]
-    st = P.PathState(TV(*t[0:3]), TV(*t[3:6]), TV(*t[6:9]), TV(*t[9:12]),
-                     torch.from_numpy(c["alive"]))
+    st = torch.from_numpy(np.stack([*c["rows"], c["alive"].astype(np.float32)]))
     wid = torch.from_numpy(c["idx"])
     cfg = P.TraceConfig(ray_depth=6, bg_color=bg, max_tries=K, rr=rr, faithful=faithful)
-    out = P._bounce(st, modular_scene(c["ta"], c["ts"], "cpu"), cfg, SEED, wid, 0,
-                    trng.work_key(SEED, wid), bounce_i)
-    got = np.stack([x.numpy() for v in out[:4] for x in v] + [out[4].numpy().astype(np.float32)])
+    out, live = P._bounce(st, modular_scene(c["ta"], c["ts"], "cpu"), cfg, SEED, wid, 0,
+                          bounce_i)
+    got = out.numpy()
+    assert torch.equal(live, out[12] > 0.5)
     _assert_states_agree(got, want)
     if rr and bounce_i >= RR_START:  # roulette killed some lanes and boosted others
         alive_in = c["alive"]
