@@ -50,7 +50,9 @@ exits non-zero):
                kernels' own live counts must be exact;
                N1a and N1b (the modular bounce's shade and finish) on the
                81,920-triangle BVH scene's and the Cornell scene's 921,600
-               camera and bounce-1 lanes and MIXED's 262,144: N1a in the
+               camera and bounce-1 lanes and MIXED's 262,144, a sparse
+               state of each (at most 5 % live) and the BVH scene's
+               bounce-3 state: N1a in the
                batch layout, in the lane layout (per-lane depths, the
                final-depth rule) and at the last level; N1b in the batch
                layout with roulette off and on, faithful acceptance off and
@@ -104,8 +106,8 @@ exits non-zero):
                the camera and on the bounce-1 state, K4 with and without
                the live mask, and level by level over one sample of the
                modular frame; N1a and N1b in place, an event pair per
-               launch with the stream held, on the BVH frame's camera and
-               bounce-1 states),
+               launch with the stream held, on the BVH frame's camera,
+               bounce-1 and bounce-3 states),
                path vertices, Mrays/s, rounds, peak memory; K1 and K1-final
                on the bounce-1 state as it is, with its live lanes sorted to
                the front, with every lane alive, and with every lane alive
@@ -381,6 +383,7 @@ OPS_FINISH = 160
 # floats (vertices, shading normals, material) of each triangle row that
 # some lane hit, each read once.
 SHADE_BYTES_ROW = 28 * 4
+SURF_BYTES = 21 * 4  # the surface of a hit lane: K3's 13 rows and the 8 fields only N1b reads
 
 
 def say(phase: str, **kw) -> None:
@@ -1016,12 +1019,11 @@ def shade_case(what: str, state, t, idx, scene, bg, **kw) -> tuple:
     exact = dict(bit_share=round(bit_share(list(ks), list(ps), both), 6))
     ok = True
     if ksurf is not None:
-        rows = compare_rows(list(ksurf), list(psurf), ks[12] > 0.5, ps[12] > 0.5,
-                            what + "-surface")
+        kcols, pcols = ksurf.columns(), psurf.columns()
+        rows = compare_rows(kcols, pcols, ks[12] > 0.5, ps[12] > 0.5, what + "-surface")
         err = max(err, rows["max_abs_err"])
         exact.update(need_agree=round((kneed == pneed).float().mean().item(), 6),
-                     bit_share=round(bit_share(list(ks) + list(ksurf),
-                                               list(ps) + list(psurf), both), 6))
+                     bit_share=round(bit_share(list(ks) + kcols, list(ps) + pcols, both), 6))
         ok = exact["need_agree"] >= LANE_FRAC
     check(exact, what + "-exact", ok)
     return (ps, psurf, pneed), err
@@ -1067,22 +1069,74 @@ def n1_scene(dev, name: str, w: int, h: int):
     return modular_scene(arrays, statics, dev), cfg, desc.settings.camera
 
 
-def phase_kernels_shade(dev) -> tuple:
-    """N1a and N1b against their plain versions on the BVH scene's and the
-    Cornell scene's 921,600-lane camera and bounce-1 states and MIXED's
-    262,144 (planes, rotated boxes, an ellipsoid, MIRROR and DIELECTRIC):
-    N1a in the batch layout, in the lane layout (per-lane depths 0 .. last,
-    the final-depth rule) and at the last level (emission only); N1b on the
-    plain N1a's outputs and the sampler's, in the batch layout at bounce
-    ``RR_START`` with roulette off and on and faithful acceptance off and on
-    (the kernel given the seed and a work-id offset past 2^32 as a device
-    pair), and in the lane layout with roulette. The bounce-1 state is one
-    bounce of the camera state through the modular route's kernels. Returns
-    the largest absolute error of each kernel and, for the timing phase, the
-    BVH scene's states."""
+N1_SPARSE = 0.04  # the sparse state keeps this share of the bounce-1 state's live lanes
+N1_DEEP = 3  # the deep state: the lanes entering this level
+N1_LEVELS = {"camera": 0, "bounce1": 1, f"bounce{N1_DEEP}": N1_DEEP}  # timed state -> level
+
+
+def n1_states(dev, scene, cfg, camera, w: int, h: int, deep: bool) -> tuple:
+    """(work ids, keys, states) of one (w, h) frame's sample 0 on the modular
+    route: the camera state, the state after one bounce through the route's
+    kernels (``bounce1``) and, with ``deep``, after ``N1_DEEP`` bounces
+    (``bounce3``: the lanes entering the last level of a depth-4 frame, most
+    of them dead)."""
     from raytracing_course_2024_tpu_torch.integrator import path as P
     from raytracing_course_2024_tpu_torch.ops import rng
     from raytracing_course_2024_tpu_torch.ops.camera import camera_arrays, generate_rays_u
+
+    n = w * h
+    wid = torch.arange(n, device=dev, dtype=torch.int32)
+    key = rng.work_key(SEED, wid)
+    ro, rd = generate_rays_u(camera_arrays(camera), (wid % w).float(), (wid // w).float(),
+                             w, h, rng.uniform_ctr(key, rng.CTR_JITTER),
+                             rng.uniform_ctr(key, rng.CTR_JITTER + 1))
+    st = P.fresh_state(ro, rd)
+    states = {"camera": st.clone()}
+    for b in range(N1_DEEP if deep else 1):
+        st, _ = P._bounce(st, scene, cfg, SEED, wid, 0, b)
+        if b == 0:
+            states["bounce1"] = st.clone()
+    if deep:
+        states[f"bounce{N1_DEEP}"] = st
+    return wid, key, states
+
+
+def n1_timing_case(st, scene, cfg, wid, bounce_i: int) -> dict:
+    """What ``shade_times`` reads of one state in the batch layout at level
+    ``bounce_i``: the nearest hit over the finite table, the plain N1a's
+    outputs and K3's sample on them."""
+    from raytracing_course_2024_tpu_torch.ops import rng
+    from raytracing_course_2024_tpu_torch.ops.sampler import sample_mixture_kernel
+    from raytracing_course_2024_tpu_torch.ops.shade import sampler_inputs, shade_plain
+    from raytracing_course_2024_tpu_torch.ops.traverse import nearest_table
+    from raytracing_course_2024_tpu_torch.ops.vec import Vec3
+
+    t, idx = nearest_table(Vec3(st[0], st[1], st[2]), Vec3(st[3], st[4], st[5]), scene,
+                           live=st[12] > 0.5)
+    ps, psurf, pneed = shade_plain(st, t, idx, scene, cfg.bg_color)
+    sargs = (scene, SEED, wid, 0, bounce_i * rng.draws_per_bounce(K), *sampler_inputs(psurf),
+             pneed, K)
+    return dict(st=st, t=t, idx=idx, ps=ps, psurf=psurf, sample=sample_mixture_kernel(*sargs),
+                bounce_i=bounce_i)
+
+
+def phase_kernels_shade(dev) -> tuple:
+    """N1a and N1b against their plain versions on the BVH scene's and the
+    Cornell scene's 921,600-lane camera and bounce-1 states and MIXED's
+    262,144 (planes, rotated boxes, an ellipsoid, MIRROR and DIELECTRIC),
+    on a sparse state of each (``N1_SPARSE`` of the bounce-1 state's live
+    lanes kept, at random: at most 5 % live, many warps all dead) and on
+    the BVH scene's bounce-3 state: N1a in the batch layout, in the lane
+    layout (per-lane depths 0 .. last, the final-depth rule) and at the
+    last level (emission only); N1b on the plain N1a's outputs and the
+    sampler's, in the batch layout at bounce ``RR_START`` with roulette off
+    and on and faithful acceptance off and on (the kernel given the seed and
+    a work-id offset past 2^32 as a device pair), and in the lane layout
+    with roulette. The bounce-1 state is one bounce of the camera state
+    through the modular route's kernels. Returns the largest absolute error
+    of each kernel and, for the timing phase, the BVH scene's camera,
+    bounce-1 and bounce-3 states."""
+    from raytracing_course_2024_tpu_torch.ops import rng
     from raytracing_course_2024_tpu_torch.ops.sampler import sample_mixture_kernel, sampler_plain
     from raytracing_course_2024_tpu_torch.ops.sampling import sample_mixture
     from raytracing_course_2024_tpu_torch.ops.shade import RR_START, sampler_inputs
@@ -1094,15 +1148,18 @@ def phase_kernels_shade(dev) -> tuple:
     for name, (w, h) in N1_CASES:
         scene, cfg, camera = n1_scene(dev, name, w, h)
         n, bg, last = w * h, cfg.bg_color, cfg.ray_depth - 1
-        wid = torch.arange(n, device=dev, dtype=torch.int32)
-        key = rng.work_key(SEED, wid)
-        ro, rd = generate_rays_u(camera_arrays(camera), (wid % w).float(), (wid // w).float(),
-                                 w, h, rng.uniform_ctr(key, rng.CTR_JITTER),
-                                 rng.uniform_ctr(key, rng.CTR_JITTER + 1))
-        st0 = P.fresh_state(ro, rd)
-        st1, _ = P._bounce(st0.clone(), scene, cfg, SEED, wid, 0, 0)
+        bvh = name == "bvh81920"
+        wid, key, states = n1_states(dev, scene, cfg, camera, w, h, deep=bvh)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        sparse = states["bounce1"].clone()
+        sparse[12] *= (torch.rand(n, generator=gen, device=dev) < N1_SPARSE).float()
+        states["sparse"] = sparse
+        live_share = float((sparse[12] > 0.5).float().mean())
+        say("kernels", case=f"{name}-{n}:sparse", live_share=round(live_share, 4))
+        if live_share > 0.05:
+            raise SystemExit(f"the sparse state of {name} has {live_share:.2%} live lanes")
         depth = ((torch.arange(n, device=dev) * 7 // 3) % (last + 1)).to(torch.int32)
-        for state_name, st in (("camera", st0), ("bounce1", st1)):
+        for state_name, st in states.items():
             tag = f"{name}-{n}:{state_name}"
             live = st[12] > 0.5
             t, idx = nearest_table(Vec3(st[0], st[1], st[2]), Vec3(st[3], st[4], st[5]), scene,
@@ -1128,15 +1185,11 @@ def phase_kernels_shade(dev) -> tuple:
             errs["finish"] = max(errs["finish"], finish_case(
                 f"{tag}:finish-lane-rr", pl, plsurf, lane_sample, wid, SEED, 0, 0,
                 cfg._replace(rr=True), depth=depth))
-            if name == "bvh81920":
-                b = state_name == "bounce1"
-                sargs = (scene, SEED, wid, 0, int(b) * rng.draws_per_bounce(K),
-                         *sampler_inputs(psurf), pneed, K)
-                timing[state_name] = dict(st=st, t=t, idx=idx, ps=ps, psurf=psurf,
-                                          sample=sample_mixture_kernel(*sargs), bounce_i=int(b))
-        if name == "bvh81920":
+            if bvh and state_name in N1_LEVELS:
+                timing[state_name] = n1_timing_case(st, scene, cfg, wid, N1_LEVELS[state_name])
+        if bvh:
             timing.update(scene=scene, cfg=cfg, wid=wid)
-        del st0, st1
+        del states, sparse
     return errs, timing
 
 
@@ -2024,27 +2077,22 @@ def launch_times(scene, cam, bg, st0, idx, w: int, h: int, m: Modular, k5, reps:
     return launch_ms, fresh_ms, modular
 
 
-def n1_bytes(st, t, idx, ps, psurf, ok, pf, scene, cfg, bounce_i: int) -> tuple:
-    """The bytes N1a and N1b must move on one state of the batch layout,
-    counted lane by lane from what their outputs depend on; the plain
-    versions' outputs (``ps``, ``psurf`` of N1a, ``pf`` of N1b) say which
-    lanes hit, die, transmit or draw. N1a: alive read and ``need`` written
-    on every lane; on a live lane t, and the ray where a plane may win or
-    the lane hits; the row on a lane whose table row won; the throughput and
-    the radiance (read and written) where the radiance changes (the
-    background, an emitter); alive written where the lane missed; the 21
-    surface rows where it hit; the table rows hit (``SHADE_BYTES_ROW``) and
-    the plane table once. N1b: alive read and ``live`` written on every lane
-    and the seed pair once; on a lane that hit rd, the throughput, point,
-    n_geom and mkind; the color on MIRROR lanes; ior and is_outer on
-    DIELECTRIC lanes, and on the transmitted ones ro and t (and the color
-    where they enter); on the others the color, metallic, roughness, l, pdf
-    and ok; the work id where a draw is used (the dielectric split without
-    TIR, roulette); the ray and throughput written where the lane lives on,
-    alive where it dies. Returns (N1a's bytes, N1b's bytes)."""
-    from raytracing_course_2024_tpu_torch.ops.shade import (
-        RR_START, SF_IOR, SF_MKIND, SF_NGEOM, SF_OUTER, SF_POINT, SF_T, SF_V)
-    from raytracing_course_2024_tpu_torch.scene.types import DIELECTRIC, MIRROR
+def shade_bytes(st, t, idx, ps, psurf, scene, depth=None, last: int = 0,
+                final: bool = False) -> float:
+    """The bytes one N1a launch must move, counted lane by lane from what its
+    outputs depend on; the plain version's outputs on the same inputs in
+    the batch layout (``ps``, ``psurf``: not ``final``, no ``depth``) say
+    which lanes hit and change: alive read on every lane and ``need``
+    written (not ``final``); on a live lane t, and the ray where a plane
+    may win or (not ``final``) the lane hits; the row on a lane whose table
+    row won; the throughput and the radiance (read and written) where the
+    radiance changes (the background, an emitter); in the lane layout
+    (``depth``, ``last``) the depth where the lane hits; alive written
+    where the lane dies; the 21 surface values where it hit (not
+    ``final``); each table row hit once (``SHADE_BYTES_ROW``, with ``final``
+    its emission's 12 B) and the plane table once. The count does not
+    depend on the layout the kernel reads and writes."""
+    from raytracing_course_2024_tpu_torch.ops.shade import surface_of
 
     def f(m) -> float:
         return float(m.sum())
@@ -2052,47 +2100,145 @@ def n1_bytes(st, t, idx, ps, psurf, ok, pf, scene, cfg, bounce_i: int) -> tuple:
     n = st.shape[1]
     planes = scene.statics.num_planes > 0
     live, hit = st[12] > 0.5, ps[12] > 0.5  # the batch layout: alive after N1a = hit
-    table = hit & (psurf[SF_T] == t)  # the table's row, not a plane, won
+    t_hit = surface_of(psurf).t
+    table = hit & (t_hit == t)  # the table's row, not a plane, won
     lit = live & (ps[9:12] != st[9:12]).any(0)
+    ray = live if planes else (torch.zeros_like(live) if final else hit)
+    alive = hit if depth is None else hit & (depth < last)
     rows = torch.unique(idx[table]).numel()
-    shade = (n * (4 + 1) + f(live) * 4 + f(live if planes else hit) * 24 + f(table) * 4
-             + f(lit) * (12 + 24) + f(live & ~hit) * 4 + f(hit) * psurf.shape[0] * 4
-             + rows * SHADE_BYTES_ROW + (scene.plane_packed.numel() * 4 if planes else 0))
-    mkind = psurf[SF_MKIND]
-    mirror, diel = hit & (mkind == MIRROR), hit & (mkind == DIELECTRIC)
+    nbytes = (n * 4 + f(live) * 4 + f(ray) * 24 + f(table) * 4 + f(lit) * (12 + 24)
+              + f(live & ~alive) * 4 + rows * (12 if final else SHADE_BYTES_ROW)
+              + (scene.plane_packed.numel() * 4 if planes else 0))
+    if depth is not None:
+        nbytes += f(hit) * 4
+    if not final:
+        nbytes += n * 1 + f(hit) * SURF_BYTES
+    return nbytes
+
+
+def finish_bytes(ps, psurf, ok, pf, cfg, bounce_i: int = 0, depth=None) -> float:
+    """The bytes one N1b launch must move, counted lane by lane from what its
+    outputs depend on (``ps``, ``psurf``: its inputs; ``pf``: the plain
+    version's output): alive read and ``live`` written on every lane and
+    the seed pair once; on a lane that hit rd, the throughput, point,
+    n_geom and mkind; the color on MIRROR lanes; ior and is_outer on
+    DIELECTRIC lanes, and on the transmitted ones ro and t (and the color
+    where they enter); on the others the color, metallic,
+    roughness, l, pdf and ok; the work id where a draw is used (the
+    dielectric split without TIR, roulette); the ray and throughput
+    written where the lane lives on, alive where it dies. In the lane
+    layout also the depth of a lane that hit, the parked ray and zeroed
+    throughput of a lane that dies, and on a lane dead on entry whose rows
+    change, the throughput read and the parked rows written."""
+    from raytracing_course_2024_tpu_torch.ops.shade import RR_START, sampler_inputs, surface_of
+    from raytracing_course_2024_tpu_torch.scene.types import DIELECTRIC, MIRROR
+
+    def f(m) -> float:
+        return float(m.sum())
+
+    n = ps.shape[1]
+    hit = ps[12] > 0.5
+    s = surface_of(psurf)
+    point, nrm, _, v, _ = sampler_inputs(psurf)
+    mirror, diel = hit & (s.mkind == MIRROR), hit & (s.mkind == DIELECTRIC)
     brdf = hit & ~mirror & ~diel
-    v, nrm, outer = psurf[SF_V:SF_V + 3], psurf[SF_NGEOM:SF_NGEOM + 3], psurf[SF_OUTER] > 0.5
-    cos_i = torch.clamp(v[0] * nrm[0] + v[1] * nrm[1] + v[2] * nrm[2], 0.0, 1.0)
-    eta = torch.where(outer, 1.0 / psurf[SF_IOR], psurf[SF_IOR])
+    cos_i = torch.clamp(v.x * nrm.x + v.y * nrm.y + v.z * nrm.z, 0.0, 1.0)
+    eta = torch.where(s.is_outer, 1.0 / s.ior, s.ior)
     tir = eta * eta * torch.clamp(1.0 - cos_i * cos_i, min=0.0) > 1.0
-    transmitted = diel & (pf[0:3] != psurf[SF_POINT:SF_POINT + 3]).any(0)
-    rolled = hit & (~brdf | ok) if cfg.rr and bounce_i >= RR_START else torch.zeros_like(hit)
-    died = hit & ~(pf[12] > 0.5)
-    finish = (n * (4 + 1) + 16 + f(hit) * (12 + 12 + 12 + 12 + 4) + f(mirror) * 12
-              + f(diel) * 8 + f(transmitted) * (12 + 4) + f(transmitted & outer) * 12
+    lives = pf[12] > 0.5
+    died = hit & ~lives
+    # a transmitted ray leaves from past the surface, not from the point; in
+    # the lane layout a lane that dies is parked instead
+    moved = (pf[0] != point.x) | (pf[1] != point.y) | (pf[2] != point.z)
+    transmitted = diel & moved & (lives if depth is not None else True)
+    level = bounce_i if depth is None else depth
+    rolled = hit & (~brdf | ok) & (level >= RR_START) if cfg.rr else torch.zeros_like(hit)
+    nbytes = (n * (4 + 1) + 16 + f(hit) * (12 + 12 + 12 + 12 + 4) + f(mirror) * 12
+              + f(diel) * 8 + f(transmitted) * (12 + 4) + f(transmitted & s.is_outer) * 12
               + f(brdf) * (12 + 4 + 4 + 12 + 4 + 1) + f((diel & ~tir) | rolled) * 4
               + f(hit & ~died) * (24 + 12) + f(died) * 4)
-    return shade, finish
+    if depth is not None:
+        parked = ~hit & (pf[0:9] != ps[0:9]).any(0)
+        nbytes += f(hit) * 4 + f(died) * (24 + 12) + f(parked) * (12 + 24 + 12)
+    return nbytes
+
+
+def n1_bytes(st, t, idx, ps, psurf, ok, pf, scene, cfg, bounce_i: int) -> tuple:
+    """The bytes N1a and N1b must move on one state of the batch layout
+    (``shade_bytes``, ``finish_bytes``): (N1a's bytes, N1b's bytes)."""
+    return (shade_bytes(st, t, idx, ps, psurf, scene),
+            finish_bytes(ps, psurf, ok, pf, cfg, bounce_i))
+
+
+def n1_ops(st, ps, scene, final: bool = False) -> tuple:
+    """(N1a's, N1b's) fp32 operations on one state: the plane fold on every
+    live lane, the surface (not ``final``) and N1b's work on every lane that
+    hit (``ps``: the plain N1a's output in the batch layout)."""
+    planes = scene.plane_packed.shape[1] if scene.statics.num_planes > 0 else 0
+    live, hit = float((st[12] > 0.5).sum()), float((ps[12] > 0.5).sum())
+    return (live * planes * OPS_SHADE_PLANE + (0.0 if final else hit * OPS_SHADE),
+            hit * OPS_FINISH)
+
+
+def n1_frame_bounds(desc, dev, seed: int, **kw) -> dict:
+    """The least time of every N1a and N1b launch of one eager frame of
+    ``Renderer(desc, **kw)`` (the same launches on the same data as the
+    graphed frame of that seed), summed over the frame: each launch's bytes
+    (``shade_bytes``, ``finish_bytes``) and operations (``n1_ops``) counted
+    from the plain versions run on its inputs beside it. Returns kernel ->
+    dict(launches, bound_ms)."""
+    from raytracing_course_2024_tpu_torch.integrator import path as P
+    from raytracing_course_2024_tpu_torch.integrator import wavefront as W
+    from raytracing_course_2024_tpu_torch.ops import shade as SH
+    from raytracing_course_2024_tpu_torch.runtime.render import Renderer
+
+    sums = {k: {"launches": 0, "bound_ms": 0.0} for k in ("shade", "finish")}
+
+    def add(k: str, nbytes: float, ops: float) -> None:
+        sums[k]["launches"] += 1
+        sums[k]["bound_ms"] += bound(nbytes, ops)[0]
+
+    def shade(state, t, idx, scene, bg, depth=None, last=0, final=False):
+        ps, psurf, _ = SH.shade_plain(state.clone(), t, idx, scene, bg)
+        add("shade", shade_bytes(state, t, idx, ps, psurf, scene, depth, last, final),
+            n1_ops(state, ps, scene, final)[0])
+        return SH.shade(state, t, idx, scene, bg, depth, last, final)
+
+    def finish(state, surf, l_s, pdf, ok, wid, seed, wid_off, cfg, bounce_i=0, depth=None):
+        pf, _ = SH.finish_plain(state.clone(), surf, l_s, pdf, ok, wid, seed, wid_off, cfg,
+                                bounce_i, depth)
+        add("finish", finish_bytes(state, surf, ok, pf, cfg, bounce_i, depth),
+            float((state[12] > 0.5).sum()) * OPS_FINISH)
+        return SH.finish(state, surf, l_s, pdf, ok, wid, seed, wid_off, cfg, bounce_i, depth)
+
+    saved = P.shade, P.finish, W.shade, W.finish
+    P.shade, P.finish, W.shade, W.finish = shade, finish, shade, finish
+    try:
+        Renderer(desc, device=dev, eager=True, **kw).render_frame_device(seed=seed)
+    finally:
+        P.shade, P.finish, W.shade, W.finish = saved
+    torch.cuda.synchronize()
+    return sums
 
 
 def shade_times(n1: dict, gpu: str, reps: int = 20, label: str = "timing") -> dict:
     """N1a and N1b per launch at the main path's shape: the BVH frame's
-    921,600 lanes on its camera and bounce-1 states (``phase_kernels_shade``),
-    each launch between its own pair of CUDA events while the stream is held,
-    in place as the route launches them, the state put back before every
-    launch outside the timed span (``cuda_ms_in_place``); N1b given the seed
-    pair as the graphed route hands it over, on the sampler K3's output. The
-    plain versions timed once each. The bound from this state's lanes
-    (``n1_bytes``, ``OPS_SHADE*``, ``OPS_FINISH``). Returns state -> kernel
-    -> dict(ms, plain_ms, bound, active_in)."""
+    921,600 lanes on its camera, bounce-1 and bounce-3 states
+    (``n1_states``, ``n1_timing_case``), each launch between its own pair of
+    CUDA events while the stream is held, in place as the route launches
+    them, the state put back before every launch outside the timed span
+    (``cuda_ms_in_place``); N1b given the seed pair as the graphed route
+    hands it over, on the sampler K3's output. The plain versions timed
+    once each. The bound from this state's lanes (``n1_bytes``,
+    ``n1_ops``). Returns state -> kernel -> dict(ms, plain_ms, bound,
+    active_in)."""
     from raytracing_course_2024_tpu_torch.ops.shade import finish, finish_plain, shade, shade_plain
 
     scene, cfg, wid = n1["scene"], n1["cfg"], n1["wid"]
     bg = cfg.bg_color
     seed_t, off_t = route_pair(SEED, 0, wid.device)
-    planes = scene.plane_packed.shape[1] if scene.statics.num_planes > 0 else 0
     out = {}
-    for name in ("camera", "bounce1"):
+    for name in N1_LEVELS:
         c = n1[name]
         st, t, idx, ps, psurf, bi = c["st"], c["t"], c["idx"], c["ps"], c["psurf"], c["bounce_i"]
         l_s, pdf, ok = c["sample"]
@@ -2108,10 +2254,10 @@ def shade_times(n1: dict, gpu: str, reps: int = 20, label: str = "timing") -> di
                                                         cfg, bi), 2)}
         pf, _ = finish_plain(ps, psurf, l_s, pdf, ok, wid, SEED, 0, cfg, bi)
         nbytes = n1_bytes(st, t, idx, ps, psurf, ok, pf, scene, cfg, bi)
-        live, hit = float((st[12] > 0.5).sum()), float((ps[12] > 0.5).sum())
-        bounds = {"shade": bound(nbytes[0], live * planes * OPS_SHADE_PLANE + hit * OPS_SHADE),
-                  "finish": bound(nbytes[1], hit * OPS_FINISH)}
-        active = {"shade": live / n, "finish": hit / n}
+        ops = n1_ops(st, ps, scene)
+        bounds = {k: bound(nbytes[j], ops[j]) for j, k in enumerate(("shade", "finish"))}
+        active = {"shade": float((st[12] > 0.5).sum()) / n,
+                  "finish": float((ps[12] > 0.5).sum()) / n}
         out[name] = {}
         for k in ("shade", "finish"):
             out[name][k] = dict(ms=ms[k], plain_ms=plain[k], bound=bounds[k], active_in=active[k])
@@ -2977,11 +3123,13 @@ def phase_timing(dev, gpu: str, counts: dict, errs: dict, m: Modular, k5, bvh: d
     bounce1["bvh"] = (b1, b1["bound"])
     # N1a and N1b on the BVH frame's states, as K6
     n1_ms = shade_times(n1, gpu)
+    deep = {}  # N1a and N1b on the bounce-3 state too
     for k in ("shade", "finish"):
         cam_k, b1_k = n1_ms["camera"][k], n1_ms["bounce1"][k]
         launch_ms[k], plain_ms[k], bounds[k] = cam_k["ms"], cam_k["plain_ms"], cam_k["bound"]
         inputs[k] = cam_k["active_in"]
         bounce1[k] = (b1_k, b1_k["bound"])
+        deep[k] = n1_ms[f"bounce{N1_DEEP}"][k]
     for k in KERNELS:
         # K5's input: the frame's state after K5_CHAIN rounds
         at = {"after_rounds": K5_CHAIN} if k == "persistent" else {}
@@ -2993,6 +3141,10 @@ def phase_timing(dev, gpu: str, counts: dict, errs: dict, m: Modular, k5, bvh: d
             case, (b_ms, b_by) = bounce1[k]
             at.update(ms_bounce1=round(case["ms"], 4), active_in_bounce1=round(
                 case["active_in"], 4), bound_ms_bounce1=round(b_ms, 5), bound_by_bounce1=b_by)
+        if k in deep:
+            at.update(ms_bounce3=round(deep[k]["ms"], 4),
+                      active_in_bounce3=round(deep[k]["active_in"], 4),
+                      bound_ms_bounce3=round(deep[k]["bound"][0], 5))
         if k == "nearest":
             at["ms_no_mask"] = round(modular["nearest-camera"]["ms"], 4)
         say("timing", kernel=k, lanes=n, **at, active_in=round(inputs[k], 4),
@@ -3008,7 +3160,9 @@ def phase_timing(dev, gpu: str, counts: dict, errs: dict, m: Modular, k5, bvh: d
          **({"bound_ms_fresh_buffer": fresh_bounds[k][0]} if k in fresh_bounds else {}),
          **({"ms_bounce1": bounce1[k][0]["ms"], "bound_ms_bounce1": bounce1[k][1][0],
              "active_in": inputs[k], "active_in_bounce1": bounce1[k][0]["active_in"]}
-            if k in bounce1 else {})}
+            if k in bounce1 else {}),
+         **({"ms_bounce3": deep[k]["ms"], "bound_ms_bounce3": deep[k]["bound"][0],
+             "active_in_bounce3": deep[k]["active_in"]} if k in deep else {})}
         for k in KERNELS
     ]
 

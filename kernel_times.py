@@ -32,7 +32,19 @@ geometry (K6's stack, shared bytes, resident blocks).
 ``--modular-frames`` profiles only the four frames whose bounce is the
 modular one (the BVH frame on the three engines, the Cornell frame with
 roulette), graphed, ``--frames`` profiled frames each after a warm-up
-(``chip_smoke.profiled_frame``: wall and device ms, busy share, launches).
+(``chip_smoke.profiled_frame``: wall and device ms, busy share, launches,
+and N1a's and N1b's device ms and launches summed over the frame), then
+the sum of the bounds of the N1a and N1b launches of the frame of seed 1
+(``chip_smoke.n1_frame_bounds``, on its eager twin): the launch-weighted
+share is that sum over seed 1's frame-summed ms.
+``--shade-kernels`` times only N1a and N1b, per launch in place, on the
+BVH frame's 921,600-lane camera, bounce-1 and bounce-3 states
+(``chip_smoke.n1_states``, ``shade_times``) with their bounds.
+``--sector-writes`` times only the store pattern N1a and N1b are built
+around (``sector_writes``): 13 float rows of 921,600 lanes written on a
+random share of the lanes, each lane alone (32-byte sectors written in
+part) against every lane of an 8-lane group that holds one (sectors
+written whole), the L2 cache flushed before each launch.
 ``--cornell-engines wavefront,...`` times only the Cornell frames of those
 engines (``frame_times``: median host ms of ``--frames`` frames, path
 vertices, rounds and the frame's peak device memory). ``--eager`` adds to
@@ -48,9 +60,11 @@ change, change, parent.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import os
 import re
+import subprocess
 import sys
 
 import torch
@@ -80,6 +94,11 @@ def main() -> int:
                     help="only the four frames of the modular bounce (BVH batch, Cornell "
                          "modular with roulette, BVH wavefront, BVH sticky), graphed, --frames "
                          "profiled frames each")
+    ap.add_argument("--sector-writes", action="store_true",
+                    help="only masked row writes against whole-sector ones, 921,600 lanes")
+    ap.add_argument("--shade-kernels", action="store_true",
+                    help="only N1a and N1b per launch on the BVH frame's camera, bounce-1 "
+                         "and bounce-3 states")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("kernel_times: no CUDA device", file=sys.stderr)
@@ -117,6 +136,16 @@ def main() -> int:
     if args.modular_frames:
         modular_frames(dev, CS.bvh_desc(w, h, spp), load_scene(CS.CORNELL, w, h, spp),
                        args.frames, say)
+        return 0
+    if args.sector_writes:
+        sector_writes(dev, say, args.reps)
+        return 0
+    if args.shade_kernels:
+        scene, cfg, camera = CS.n1_scene(dev, "bvh81920", w, h)
+        wid, _, states = CS.n1_states(dev, scene, cfg, camera, w, h, deep=True)
+        n1 = {name: CS.n1_timing_case(states[name], scene, cfg, wid, level)
+              for name, level in CS.N1_LEVELS.items()}
+        CS.shade_times(dict(n1, scene=scene, cfg=cfg, wid=wid), gpu, args.reps, args.label)
         return 0
     if args.bvh_turns > 0:
         CS.bvh_engine_turns(dev, gpu, CS.bvh_desc(w, h, spp), args.bvh_turns, args.label,
@@ -191,7 +220,9 @@ def modular_frames(dev, bvh, cornell, frames: int, say) -> None:
     wavefront and sticky engines and the Cornell frame on the batch engine
     with roulette, each graphed, a warm-up frame (it captures) and then
     ``frames`` frames under torch.profiler (``chip_smoke.profiled_frame``):
-    wall ms, device ms, busy share, device launches, the largest rows."""
+    wall ms, device ms, busy share, device launches, N1a's and N1b's device
+    ms and launches, the largest rows; then the summed bound of N1a's and
+    N1b's launches in the frame of seed 1."""
     from raytracing_course_2024_tpu_torch.runtime.render import Renderer
 
     for name, desc, kw in (("bvh-batch", bvh, {}),
@@ -200,16 +231,86 @@ def modular_frames(dev, bvh, cornell, frames: int, say) -> None:
                            ("bvh-sticky", bvh, {"engine": "sticky"})):
         r = Renderer(desc, device=dev, **kw)
         r.render_frame_device(seed=0)
+        n1_ms = {}
         for seed in range(1, frames + 1):
             p = CS.profiled_frame(r, seed)
+            n1 = {k: [sum(x[i] for x in p["rows"] if f"{k}_kernel" in x[2]) for i in (0, 1)]
+                  for k in ("shade", "finish")}
+            n1_ms[seed] = {k: v[0] for k, v in n1.items()}
             say(frame=name, seed=seed, wall_ms=round(p["wall_ms"], 3),
                 device_ms=round(p["device_ms"], 3), busy_share=round(p["busy_share"], 4),
                 device_launches=p["launches"], path_vertices=int(p["path_vertices"]),
                 **({} if r.engine == "batch" else {"rounds": r.rounds}),
+                n1a_ms=round(n1["shade"][0], 4), n1a_launches=n1["shade"][1],
+                n1b_ms=round(n1["finish"][0], 4), n1b_launches=n1["finish"][1],
                 top=json.dumps([[round(ms, 3), n, k[:40]] for ms, n, k in p["rows"][:5]])
                 .replace(" ", ""))
         del r
         torch.cuda.empty_cache()
+        if frames >= 1:
+            b = CS.n1_frame_bounds(desc, dev, 1, **kw)
+            out = {}
+            for k, tag in (("shade", "n1a"), ("finish", "n1b")):
+                out.update({f"{tag}_launches": b[k]["launches"],
+                            f"{tag}_bound_ms": round(b[k]["bound_ms"], 5),
+                            f"{tag}_share": round(b[k]["bound_ms"] / n1_ms[1][k], 4)})
+            say(frame=name, seed=1, **out)
+            torch.cuda.empty_cache()
+
+
+SECTOR_CU = r"""
+#include <cuda_runtime.h>
+// 13 rows of n floats; lane i writes where m[i] (whole = 0), or where any
+// lane of its 8-lane group has m set, a zero if its own is not (whole = 1)
+__global__ void rows_kernel(float* out, const unsigned char* m, int n, int whole) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  bool mine = i < n && m[i];
+  unsigned lanes = __ballot_sync(0xffffffffu, mine);
+  bool write = whole ? (lanes & (0xffu << (threadIdx.x & 24u))) != 0u : mine;
+  if (i >= n || !write) return;
+  for (int r = 0; r < 13; ++r) out[(long long)r * n + i] = mine ? 1.0f + r : 0.0f;
+}
+extern "C" int rt_sector_rows(void* out, const void* m, int n, int whole, void* stream) {
+  rows_kernel<<<(n + 255) / 256, 256, 0, (cudaStream_t)stream>>>(
+      (float*)out, (const unsigned char*)m, n, whole);
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def sector_writes(dev, say, reps: int) -> None:
+    """13 rows of 921,600 floats written on a random share of the lanes:
+    each writing lane alone, so that a 32-byte sector of a row is written in
+    part, against every lane of an 8-lane group holding a writing lane
+    (zeros from the others), so that it is written whole; ms per launch,
+    an event pair per launch, the L2 cache flushed outside it."""
+    from raytracing_course_2024_tpu_torch.ops import kernels
+
+    out_dir = kernels.BUILD_DIR / "sector_writes"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    src, lib = out_dir / "sector_writes.cu", out_dir / "libsector_writes.so"
+    src.write_text(SECTOR_CU)
+    subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS, "-shared", "-o", str(lib), str(src)],
+                   check=True, capture_output=True)
+    so = ctypes.CDLL(str(lib))
+    so.rt_sector_rows.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                                  ctypes.c_void_p]
+    n = 921_600
+    out = torch.empty((13, n), device=dev)
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)  # > the 50 MB L2
+    gen = torch.Generator(device=dev).manual_seed(7)
+    for share in (1.0, 0.67, 0.38, 0.10, 0.03):
+        mask = (torch.rand(n, generator=gen, device=dev) < share).to(torch.uint8)
+        for whole in (0, 1):
+            def launch():
+                rc = so.rt_sector_rows(out.data_ptr(), mask.data_ptr(), n, whole,
+                                       torch.cuda.current_stream().cuda_stream)
+                if rc:
+                    raise RuntimeError(f"rt_sector_rows: CUDA error {rc}")
+
+            ms = CS.cuda_ms_in_place(launch, flush.zero_, reps)
+            say(sector_writes="whole" if whole else "in-part", share=share, rows=13, lanes=n,
+                ms=round(ms, 4))
 
 
 if __name__ == "__main__":

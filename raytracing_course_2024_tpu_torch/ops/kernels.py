@@ -201,9 +201,10 @@ def library() -> ctypes.CDLL:
             p, p, ll, p, p, p, p, i, i, u, u, u, u, *ctr, u, i, *scene, p, p, p,
         ]
         lib.rt_launch_persistent.restype = i
-        lib.rt_launch_shade.argtypes = [p, ll, p, p, p, i, p, p, i, i, i, p, i, f, f, f, i, p, p, p]
+        lib.rt_launch_shade.argtypes = [p, ll, p, p, p, i, p, p, i, i, i, p, i, f, f, f, i, p, p, p,
+                                        p]
         lib.rt_launch_shade.restype = i
-        lib.rt_launch_finish.argtypes = [p, ll, p, p, p, p, p, u, u, u, u, p, i, i, i, i, p, p]
+        lib.rt_launch_finish.argtypes = [p, ll, p, p, p, p, p, p, u, u, u, u, p, i, i, i, i, p, p]
         lib.rt_launch_finish.restype = i
         lib.rt_bounce_geometry.argtypes = [ctypes.POINTER(ctypes.c_int)]
         lib.rt_bounce_geometry.restype = None
@@ -404,18 +405,20 @@ def launch_sampler(ins, need, wid, seed_off, ctr, lp, lspec,
     _count("sampler")
 
 
-def launch_shade(state, t, idx, packed, plane, pl_mask, n_planes, any_rotation, any_nontri,
+def launch_shade(state, t, idx, prim_rec, plane, pl_mask, n_planes, any_rotation, any_nontri,
                  depth, last, bg, final_only, surf, need) -> None:
-    """N1a; ``n_planes`` 0 leaves the plane fold out. ``surf`` and ``need``
-    are None with ``final_only``."""
+    """N1a; ``prim_rec`` the (N, 40) primitive records, ``n_planes`` 0
+    leaves the plane fold out. ``surf`` (rows, rec) and ``need`` are None
+    with ``final_only``."""
     lib = library()
+    rows, rec = (None, None) if surf is None else (surf[0].data_ptr(), surf[1].data_ptr())
     with _on(state.device) as stream:
         rc = lib.rt_launch_shade(
-            state.data_ptr(), state.shape[1], t.data_ptr(), idx.data_ptr(), packed.data_ptr(),
-            packed.shape[1], plane.data_ptr(), pl_mask.data_ptr(), int(n_planes),
+            state.data_ptr(), state.shape[1], t.data_ptr(), idx.data_ptr(), prim_rec.data_ptr(),
+            prim_rec.shape[0], plane.data_ptr(), pl_mask.data_ptr(), int(n_planes),
             int(bool(any_rotation)), int(bool(any_nontri)),
             None if depth is None else depth.data_ptr(), int(last), float(bg[0]), float(bg[1]),
-            float(bg[2]), int(bool(final_only)), None if surf is None else surf.data_ptr(),
+            float(bg[2]), int(bool(final_only)), rows, rec,
             None if need is None else need.data_ptr(), stream,
         )
     _raise_on(rc, "rt_launch_shade")
@@ -424,16 +427,16 @@ def launch_shade(state, t, idx, packed, plane, pl_mask, n_planes, any_rotation, 
 
 def launch_finish(state, surf, lpdf, ok, wid, seed_off, base, stride, diel, rr_off, depth,
                   level, rr, rr_start, faithful, live) -> None:
-    """N1b; ``lpdf`` the sampler's four (b,) rows l.x, l.y, l.z, pdf,
-    ``seed_off`` the (2,) int64 device tensor (seed, work-id offset) the
-    kernel reads; draws at ``base + stride * (depth or level)`` plus
-    ``diel`` or ``rr_off``."""
+    """N1b; ``surf`` N1a's (rows, rec), ``lpdf`` the sampler's four (b,)
+    rows l.x, l.y, l.z, pdf, ``seed_off`` the (2,) int64 device tensor
+    (seed, work-id offset) the kernel reads; draws at ``base + stride *
+    (depth or level)`` plus ``diel`` or ``rr_off``."""
     lib = library()
     with _on(state.device) as stream:
         rc = lib.rt_launch_finish(
-            state.data_ptr(), state.shape[1], surf.data_ptr(), _ptrs(lpdf), ok.data_ptr(),
-            wid.data_ptr(), seed_off.data_ptr(), _u32(base), _u32(stride), _u32(diel),
-            _u32(rr_off), None if depth is None else depth.data_ptr(), int(level),
+            state.data_ptr(), state.shape[1], surf[0].data_ptr(), surf[1].data_ptr(),
+            _ptrs(lpdf), ok.data_ptr(), wid.data_ptr(), seed_off.data_ptr(), _u32(base),
+            _u32(stride), _u32(diel), _u32(rr_off), None if depth is None else depth.data_ptr(), int(level),
             int(bool(rr)), int(rr_start), int(bool(faithful)), live.data_ptr(), stream,
         )
     _raise_on(rc, "rt_launch_finish")

@@ -51,11 +51,31 @@ from .vec import Quat, Vec3, where3
 DENSE_CHUNK = 1024  # primitives per step of the dense sweep
 SWEEP_ELEMS = 1 << 26  # lanes x primitives per sweep step (256 MB per f32 temp)
 
+# The row-major primitive record N1a gathers its winner from
+# (csrc/shade.cu): the PrimCol row of each field, -1 for padding. What a
+# triangle lane reads (type, vertices, shading normals, material) fills the
+# first 32 floats, one 128-byte line; position and rotation, which only
+# boxes and ellipsoids read, follow in the last 8. 160 bytes a primitive.
+PREC_COLS = (*range(PC.PTYPE, PC.POS), *range(PC.COLOR, PC.COUNT), -1, -1, -1,
+             *range(PC.POS, PC.COLOR), -1)
+PREC_WIDTH = len(PREC_COLS)  # 40
+
+
+def build_prim_records(packed: np.ndarray) -> np.ndarray:
+    """(N, PREC_WIDTH) f32 records of the (PrimCol.COUNT, N) pack, one row
+    per primitive, zero in the padding."""
+    rec = np.zeros((packed.shape[1], PREC_WIDTH), np.float32)
+    for k, c in enumerate(PREC_COLS):
+        if c >= 0:
+            rec[:, k] = packed[c]
+    return rec
+
 
 class ModularScene(NamedTuple):
     """What the modular path reads, on one device: the transposed
-    attribute packs of ``SceneArrays``, the (9, N) triangle pack of K4 and
-    the (N, 12) records its loop reads (both None unless the scene is at
+    attribute packs of ``SceneArrays``, the same primitives as N1a's
+    row-major records (``build_prim_records``), the (9, N) triangle pack of
+    K4 and the (N, 12) records its loop reads (both None unless the scene is at
     most 128 triangles), the light spec K3 reads, ``lp_np``, the host
     copy of the light pack the plain sampler takes its per-light constants
     from, and on the BVH backend the tree K6 walks: its (W, 32) 4-wide
@@ -64,6 +84,7 @@ class ModularScene(NamedTuple):
 
     statics: SceneStatics
     packed: torch.Tensor  # (PrimCol.COUNT, N) f32
+    prim_rec: torch.Tensor  # (N, PREC_WIDTH) f32: build_prim_records(packed)
     plane_packed: torch.Tensor  # (PlaneCol.COUNT, P) f32
     pl_mask: torch.Tensor  # (P,) bool: False for padding
     light_packed: torch.Tensor  # (LightCol.COUNT, L) f32
@@ -93,6 +114,7 @@ def modular_scene(scn: SceneArrays, statics: SceneStatics,
     return ModularScene(
         statics=statics,
         packed=dev(scn.packed),
+        prim_rec=dev(build_prim_records(scn.packed)),
         plane_packed=dev(scn.plane_packed),
         pl_mask=dev(scn.pl_mask, torch.bool),
         light_packed=dev(lp_np),

@@ -16,13 +16,15 @@ engines (rows ro 0-2, rd 3-5, throughput 6-8, radiance 9-11, alive 12):
   the nearest hit over the finite table (``ops/traverse.py:nearest_table``);
   the planes fold in here. Live lanes add the background (a miss: alive
   cleared) or the emission at the hit into the radiance. Returns ``(state,
-  surf, need)``: ``surf`` the (SURF_ROWS, B) surface rows (point, n_geom,
-  n_shade, v = -rd, roughness: the sampler K3's 13 inputs in its order;
-  then color, metallic, ior, mkind, is_outer as 0/1, t), ``need`` the
-  sampler's mask (live and not a delta material). In the lane layout
-  (``depth`` given) alive becomes "hit and depth < last", the lane engines'
-  final-depth rule. ``final`` (the batch scan's last level) leaves ``surf``
-  and ``need`` out (None).
+  surf, need)``: ``surf`` a ``Surf``, the (SURF_ROWS, B) rows ``rows``
+  (point, n_geom, n_shade, v = -rd, roughness: the sampler K3's 13 inputs in
+  its order) and the (B, SURF_REC) records ``rec``, 32 bytes a lane (color,
+  metallic, ior, mkind, is_outer as 0/1, t: what only ``finish`` reads);
+  ``need`` the sampler's mask (live and not a delta material). In the lane
+  layout (``depth`` given) alive becomes "hit and depth < last", the lane
+  engines' final-depth rule. ``final`` (the batch scan's last level) leaves
+  ``surf`` and ``need`` out (None). N1a reads the winner from the scene's
+  row-major ``prim_rec`` (``ops/scene_intersect.py``).
 * ``finish(state, surf, l, pdf, ok, wid, seed, wid_off, cfg, bounce_i,
   depth)``: draws the dielectric split and, under ``cfg.rr``, the roulette
   draw from the counter RNG of ``work_key(seed, wid + wid_off)``, in the
@@ -31,9 +33,11 @@ engines (rows ro 0-2, rd 3-5, throughput 6-8, radiance 9-11, alive 12):
   Returns ``(state, live)``, ``live`` the bool alive row. In the lane layout
   the dead lanes' rays are parked (``park``).
 
-Rows a kernel leaves alone (every lane's radiance and alive come out as
-the plain version's): the surface rows of lanes that are dead or missed;
-in the batch layout the ray and throughput of lanes dead on entry to N1b.
+Rows where a kernel's values are not the plain version's (every lane's
+radiance and alive come out as the plain version's): the surface of lanes
+that are dead or missed (zero or left as they were); in the batch layout
+the ray and throughput of lanes dead on entry to N1b (parked with a zero
+throughput where a live lane shares their sectors, else left as they were).
 The plain versions compute those rows; nothing reads them.
 
 On a CUDA tensor ``shade`` and ``finish`` launch their kernels, in place
@@ -50,20 +54,22 @@ from typing import NamedTuple
 
 import torch
 
-from ..scene.types import DIELECTRIC, MIRROR, PlaneCol as PL, PrimCol as PC
+from ..scene.types import DIELECTRIC, MIRROR, PlaneCol as PL
 from .brdf import eval_brdf
 from .kernels import check, launch_finish, launch_shade
 from .rng import (WF_STRIDE, batch_ctr, draws_per_bounce, lane_ctr, offset_ids, seed_off,
                   uniform_ctr, work_key)
-from .scene_intersect import ModularScene, Surface, surface_detail
+from .scene_intersect import PREC_WIDTH, ModularScene, Surface, surface_detail
 from .traverse import fold_hit
 from .vec import Vec3, reflect, where3
 
 N_STATE = 13
-# rows of the surface buffer: 0-12 are K3's inputs (ops/sampler.py) in order
+# rows of Surf.rows: K3's inputs (ops/sampler.py) in order
 SF_POINT, SF_NGEOM, SF_NSHADE, SF_V, SF_ROUGH = 0, 3, 6, 9, 12
-SF_COLOR, SF_METAL, SF_IOR, SF_MKIND, SF_OUTER, SF_T = 13, 16, 17, 18, 19, 20
-SURF_ROWS = 21
+SURF_ROWS = 13
+# fields of a lane's Surf.rec, the 32-byte record only N1b reads
+SR_COLOR, SR_METAL, SR_IOR, SR_MKIND, SR_OUTER, SR_T = 0, 3, 4, 5, 6, 7
+SURF_REC = 8
 
 RR_START = 2  # first bounce index (lane engines: depth) eligible for roulette
 RR_MIN_P = 0.05
@@ -103,24 +109,41 @@ def park(state: torch.Tensor, cont: torch.Tensor) -> torch.Tensor:
     return state
 
 
-def sampler_inputs(surf: torch.Tensor) -> tuple:
+class Surf(NamedTuple):
+    """N1a's surface at each lane's hit: ``rows`` (SURF_ROWS, B), the SF_
+    rows K3 reads; ``rec`` (B, SURF_REC) row-major, the SR_ fields only N1b
+    reads, so that a lane's read of them is one 32-byte sector."""
+
+    rows: torch.Tensor
+    rec: torch.Tensor
+
+    def columns(self) -> list:
+        """The 21 per-lane values as (B,) tensors: the rows, then the
+        record's fields."""
+        return [*self.rows, *self.rec.T]
+
+
+def sampler_inputs(surf: Surf) -> tuple:
     """(point, n_geom, n_shade, v, roughness) of the surface rows: what K3
     and the XLA sampler take."""
+    rows = surf.rows
+
     def v3(r):
-        return Vec3(surf[r], surf[r + 1], surf[r + 2])
+        return Vec3(rows[r], rows[r + 1], rows[r + 2])
 
-    return v3(SF_POINT), v3(SF_NGEOM), v3(SF_NSHADE), v3(SF_V), surf[SF_ROUGH]
+    return v3(SF_POINT), v3(SF_NGEOM), v3(SF_NSHADE), v3(SF_V), rows[SF_ROUGH]
 
 
-def surface_of(surf: torch.Tensor) -> Surface:
-    """The surface rows as ``_finish_bounce`` reads them (no emission: the
-    shade pass used it up)."""
+def surface_of(surf: Surf) -> Surface:
+    """The surface as ``_finish_bounce`` reads it (no emission: the shade
+    pass used it up)."""
     point, n_geom, n_shade, _, roughness = sampler_inputs(surf)
-    return Surface(t=surf[SF_T], point=point, n_geom=n_geom, n_shade=n_shade,
-                   is_outer=surf[SF_OUTER] > 0.5,
-                   color=Vec3(surf[SF_COLOR], surf[SF_COLOR + 1], surf[SF_COLOR + 2]),
-                   metallic=surf[SF_METAL], roughness=roughness, emission=None,
-                   ior=surf[SF_IOR], mkind=surf[SF_MKIND])
+    rec = surf.rec
+    return Surface(t=rec[:, SR_T], point=point, n_geom=n_geom, n_shade=n_shade,
+                   is_outer=rec[:, SR_OUTER] > 0.5,
+                   color=Vec3(rec[:, SR_COLOR], rec[:, SR_COLOR + 1], rec[:, SR_COLOR + 2]),
+                   metallic=rec[:, SR_METAL], roughness=roughness, emission=None,
+                   ior=rec[:, SR_IOR], mkind=rec[:, SR_MKIND])
 
 
 # ---------------------------------------------------------------------------
@@ -149,10 +172,10 @@ def shade_plain(state: torch.Tensor, t: torch.Tensor, idx: torch.Tensor, scene: 
         return out, None, None
     is_delta = (surf.mkind == MIRROR) | (surf.mkind == DIELECTRIC)
     v = -ps.rd
-    rows = torch.stack([*surf.point, *surf.n_geom, *surf.n_shade, *v, surf.roughness,
-                        *surf.color, surf.metallic, surf.ior, surf.mkind,
-                        surf.is_outer.to(torch.float32), surf.t])
-    return out, rows, alive & ~is_delta
+    rows = torch.stack([*surf.point, *surf.n_geom, *surf.n_shade, *v, surf.roughness])
+    rec = torch.stack([*surf.color, surf.metallic, surf.ior, surf.mkind,
+                       surf.is_outer.to(torch.float32), surf.t], dim=1)
+    return out, Surf(rows, rec), alive & ~is_delta
 
 
 def shade(state: torch.Tensor, t: torch.Tensor, idx: torch.Tensor, scene: ModularScene, bg,
@@ -168,16 +191,18 @@ def shade(state: torch.Tensor, t: torch.Tensor, idx: torch.Tensor, scene: Modula
     check("state", state, torch.float32, (N_STATE, b), dev)
     check("t", t, torch.float32, (b,), dev)
     check("idx", idx, torch.int32, (b,), dev)
-    check("packed", scene.packed, torch.float32, (PC.COUNT, scene.packed.shape[1]), dev)
+    check("prim_rec", scene.prim_rec, torch.float32, (scene.packed.shape[1], PREC_WIDTH), dev)
     np_ = scene.plane_packed.shape[1]
     check("plane_packed", scene.plane_packed, torch.float32, (PL.COUNT, np_), dev)
     check("pl_mask", scene.pl_mask, torch.bool, (np_,), dev)
     if depth is not None:
         check("depth", depth, torch.int32, (b,), dev)
-    surf = None if final else torch.empty((SURF_ROWS, b), dtype=torch.float32, device=dev)
+    surf = None if final else Surf(
+        torch.empty((SURF_ROWS, b), dtype=torch.float32, device=dev),
+        torch.empty((b, SURF_REC), dtype=torch.float32, device=dev))
     need = None if final else torch.empty((b,), dtype=torch.bool, device=dev)
     statics = scene.statics
-    launch_shade(state, t, idx, scene.packed, scene.plane_packed, scene.pl_mask,
+    launch_shade(state, t, idx, scene.prim_rec, scene.plane_packed, scene.pl_mask,
                  np_ if statics.num_planes > 0 else 0, statics.any_rotation,
                  statics.any_nontri, depth, last, bg, final, surf, need)
     return state, surf, need
@@ -246,7 +271,7 @@ def _finish_bounce(state: PathState, surf, l_s: Vec3, pdf: torch.Tensor,
     return PathState(next_origin, next_dir, throughput, state.radiance, new_alive)
 
 
-def finish_plain(state: torch.Tensor, surf: torch.Tensor, l_s: Vec3, pdf: torch.Tensor,
+def finish_plain(state: torch.Tensor, surf: Surf, l_s: Vec3, pdf: torch.Tensor,
                  ok: torch.Tensor, wid: torch.Tensor, seed, wid_off, cfg, bounce_i: int = 0,
                  depth: torch.Tensor | None = None):
     """Plain version of ``finish``: the counter draws, ``_finish_bounce``
@@ -266,7 +291,7 @@ def finish_plain(state: torch.Tensor, surf: torch.Tensor, l_s: Vec3, pdf: torch.
     return out, ps.alive
 
 
-def finish(state: torch.Tensor, surf: torch.Tensor, l_s: Vec3, pdf: torch.Tensor,
+def finish(state: torch.Tensor, surf: Surf, l_s: Vec3, pdf: torch.Tensor,
            ok: torch.Tensor, wid: torch.Tensor, seed, wid_off, cfg, bounce_i: int = 0,
            depth: torch.Tensor | None = None):
     """N1b for tensors on CUDA (in place in ``state``), its plain version for
@@ -278,7 +303,8 @@ def finish(state: torch.Tensor, surf: torch.Tensor, l_s: Vec3, pdf: torch.Tensor
         raise ValueError(f"no finish kernel for device {dev}")
     b = state.shape[1]
     check("state", state, torch.float32, (N_STATE, b), dev)
-    check("surf", surf, torch.float32, (SURF_ROWS, b), dev)
+    check("surf.rows", surf.rows, torch.float32, (SURF_ROWS, b), dev)
+    check("surf.rec", surf.rec, torch.float32, (b, SURF_REC), dev)
     lpdf = (*l_s, pdf)
     for name, r in zip(("l.x", "l.y", "l.z", "pdf"), lpdf):
         check(name, r, torch.float32, (b,), dev)

@@ -68,11 +68,14 @@ K = 4
 DEPTH = 4  # ray_depth of every case: the lane layout's last depth is 3
 SIZES = {"mixed": (32, 24), "lights": (32, 24), "mesh": (24, 16), "cornell": (32, 18)}
 SCENE_NAMES = list(SIZES)
-# the surface rows compared, and the JAX Surface field of each
+# the surface values compared, by their place in ``Surf.columns()`` (the
+# rows, then the record's fields), and the JAX Surface field of each
+_REC = SH.SURF_ROWS
 SURF_FIELDS = (("point", SH.SF_POINT, 3), ("n_geom", SH.SF_NGEOM, 3),
                ("n_shade", SH.SF_NSHADE, 3), ("roughness", SH.SF_ROUGH, 1),
-               ("color", SH.SF_COLOR, 3), ("metallic", SH.SF_METAL, 1), ("ior", SH.SF_IOR, 1),
-               ("mkind", SH.SF_MKIND, 1), ("is_outer", SH.SF_OUTER, 1), ("t", SH.SF_T, 1))
+               ("color", _REC + SH.SR_COLOR, 3), ("metallic", _REC + SH.SR_METAL, 1),
+               ("ior", _REC + SH.SR_IOR, 1), ("mkind", _REC + SH.SR_MKIND, 1),
+               ("is_outer", _REC + SH.SR_OUTER, 1), ("t", _REC + SH.SR_T, 1))
 
 
 def _bounds(ta) -> tuple:
@@ -165,7 +168,7 @@ def _assert_surface_agrees(c, state, surf, need, jst2, jsurf):
     want = _rows(jst2)
     _assert_states_agree(got, want, live_min=0.1)
     both = (got[12] > 0.5) & (want[12] > 0.5)
-    s = surf.numpy()
+    s = np.stack([x.numpy() for x in surf.columns()])
     for field, row, width in SURF_FIELDS:
         jv = getattr(jsurf, field)
         comps = list(jv) if width == 3 else [jv]
@@ -208,6 +211,18 @@ def test_shade_and_finish_match_jax_stages(name, mode):
     t, idx = _table_hit(c)
     state, surf, need = SH.shade(torch.from_numpy(c["rows"]), t, idx, c["scene"], c["bg"])
     _assert_surface_agrees(c, state, surf, need, jst2, jsurf)
+    # the layout N1a writes and N1b reads: K3's inputs as rows, the rest one
+    # row-major 32-byte record per lane, read back by surface_of
+    b = c["b"]
+    assert surf.rows.shape == (SH.SURF_ROWS, b) and surf.rec.shape == (b, SH.SURF_REC)
+    assert surf.rows.is_contiguous() and surf.rec.is_contiguous()
+    back = SH.surface_of(surf)
+    both = (state[12] > 0.5).numpy() & np.asarray(jst2.alive)
+    for field in ("color", "metallic", "ior", "mkind", "t"):
+        got_f, want_f = getattr(back, field), getattr(jsurf, field)
+        for g, w in zip(*((got_f, want_f) if field == "color" else ([got_f], [want_f]))):
+            assert _close_share(g.numpy()[both], _np(w)[both]) >= LANE_FRAC, field
+    assert (back.is_outer.numpy()[both] == np.asarray(jsurf.is_outer)[both]).mean() >= LANE_FRAC
 
     # finish, fed the JAX sampler's output on the bounce's counter draws
     base = bounce_i * trng.draws_per_bounce(K)
@@ -290,8 +305,9 @@ def test_wrappers_on_the_cpu_count_nothing_and_refuse_other_devices():
     st = torch.from_numpy(c["rows"])
     out = SH.shade(st, t, idx, c["scene"], c["bg"])
     plain = SH.shade_plain(st, t, idx, c["scene"], c["bg"])
-    assert all(torch.equal(a, b) for a, b in zip(out, plain))
-    assert not torch.equal(out[0], st) and out[1].shape == (SH.SURF_ROWS, c["b"])
+    assert torch.equal(out[0], plain[0]) and torch.equal(out[2], plain[2])
+    assert not torch.equal(out[0], st) and out[1].rows.shape == (SH.SURF_ROWS, c["b"])
+    assert all(torch.equal(a, b) for a, b in zip(out[1], plain[1]))
     assert kernels.LAUNCHES["shade"] == kernels.LAUNCHES["finish"] == 0
     with pytest.raises(ValueError, match="no shade kernel"):
         SH.shade(st.to("meta"), t, idx, c["scene"], c["bg"])
@@ -300,6 +316,46 @@ def test_wrappers_on_the_cpu_count_nothing_and_refuse_other_devices():
     with pytest.raises(ValueError, match="no finish kernel"):
         SH.finish(st.to("meta"), out[1], l, l.x, out[2], torch.from_numpy(c["idx"]), SEED, 0,
                   cfg)
+
+
+@pytest.mark.parametrize("name", ["bvh-mesh", "mixed", "mixed-bvh"])
+def test_prim_records_hold_the_packed_columns(name):
+    """``ModularScene.prim_rec``, N1a's row-major winner records, holds
+    exactly ``packed``'s columns in ``PREC_COLS``' order, zeros in the
+    padding, 160 bytes a primitive: on the 5,120-triangle mesh (the BVH
+    backend's reordered table) and on MIXED (rotated boxes, an ellipsoid,
+    planes) on the dense and the BVH backend."""
+    from meshes import displaced_organic_mesh
+    from raytracing_course_2024_tpu_torch.ops.scene_intersect import PREC_COLS, PREC_WIDTH
+    from raytracing_course_2024_tpu_torch.runtime.render import Renderer
+
+    if name == "mixed":  # the modular route's dense scene
+        _, ta, ts = builds("mixed", 8, 6, 1)[1]
+        scene = modular_scene(ta, ts, "cpu")
+    else:
+        if name == "bvh-mesh":
+            v, f, vn = displaced_organic_mesh(subdiv=4)
+            r = Renderer(mesh_scene_desc(v, f, vn, width=8, height=6, samples=1), device="cpu")
+        else:
+            r = Renderer(builds("mixed", 8, 6, 1)[1][0], device="cpu", backend="bvh")
+        assert r.backend == "bvh"
+        scene = r.scene
+    packed, rec = scene.packed.numpy(), scene.prim_rec.numpy()
+    n = packed.shape[1]
+    assert rec.shape == (n, PREC_WIDTH) and rec.dtype == np.float32 and rec.nbytes == 160 * n
+    assert scene.prim_rec.is_contiguous()
+    assert sorted(c for c in PREC_COLS if c >= 0) == list(range(PC.COUNT))
+    for k, col in enumerate(PREC_COLS):
+        want = packed[col] if col >= 0 else np.zeros(n, np.float32)
+        assert np.array_equal(rec[:, k].view(np.int32), want.view(np.int32)), (k, col)
+    # what a triangle lane reads is the first 128 bytes: type, vertices,
+    # shading normals, the material
+    line = {PREC_COLS[k] for k in range(32)}
+    assert set(range(PC.PTYPE, PC.POS)) | set(range(PC.COLOR, PC.COUNT)) <= line
+    if name != "bvh-mesh":
+        kinds = set(packed[PC.PTYPE].tolist())
+        assert {1.0, 2.0} <= kinds and scene.statics.num_planes > 0
+        assert scene.statics.any_rotation
 
 
 # --- on the card -----------------------------------------------------------------
@@ -340,9 +396,8 @@ def test_kernels_match_plain_versions_on_the_card(card, name, layout):
     if layout == "final":
         return
     both = (ks[12] > 0.5) & (ps[12] > 0.5)
-    for r in range(SH.SURF_ROWS):
-        assert _close_share(ksurf[r][both].cpu().numpy(), psurf[r][both].cpu().numpy()) \
-            >= LANE_FRAC, r
+    for r, (a, w) in enumerate(zip(ksurf.columns(), psurf.columns())):
+        assert _close_share(a[both].cpu().numpy(), w[both].cpu().numpy()) >= LANE_FRAC, r
     assert (kneed != pneed).float().mean().item() <= 1.0 - LANE_FRAC
     cfg = P.TraceConfig(ray_depth=DEPTH, bg_color=c["bg"], max_tries=K,
                         rr=layout != "batch-faithful", faithful=layout == "batch-faithful")
@@ -410,3 +465,62 @@ def test_modular_sample_on_the_card_runs_no_plain_stage(card, scene_name, monkey
     depth = s.ray_depth
     assert kernels.LAUNCHES["shade"] == depth and kernels.LAUNCHES["finish"] == depth - 1
     assert len(ops) <= 200, (len(ops), sorted(set(ops)))
+
+
+def _bits(x):
+    return x.contiguous().view(torch.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["batch", "lane"])
+@pytest.mark.parametrize("pattern", ["sparse", "dead-warps", "all-dead"])
+def test_kernels_bit_equal_on_sparse_and_dead_warp_states(card, pattern, layout):
+    """N1a and N1b on MIXED (planes staged in shared memory) with few live
+    lanes, over a ragged last block: 4 % of the lanes live at random
+    (``sparse``), whole warps live in every third warp of every other
+    block and the other warps and blocks all dead (``dead-warps``), or no
+    live lane. Against the plain versions bit for bit: N1a's state and
+    ``need`` on every lane and its surface on the lanes that hit; N1b's
+    ``live``, radiance and alive on every lane (in the lane layout the
+    whole state: dead lanes parked) and every row of the lanes live on
+    entry."""
+    from raytracing_course_2024_tpu_torch.ops.sampler import sampler_plain
+
+    c = _case("mixed")
+    n = c["b"] - 77
+    i = np.arange(n)
+    if pattern == "sparse":
+        keep = np.random.default_rng(3).random(n) < 0.04
+        assert 0 < keep.mean() <= 0.05
+    elif pattern == "dead-warps":
+        keep = ((i // 32) % 3 == 0) & ((i // 256) % 2 == 0)
+    else:
+        keep = np.zeros(n, bool)
+    rows = c["rows"][:, :n].copy()
+    rows[12] = keep
+    rows = torch.from_numpy(rows).to(card)
+    scene = modular_scene(c["ta"], c["ts"], card)
+    assert scene.statics.num_planes > 0
+    t, idx = (x[:n].to(card) for x in _table_hit(c))
+    depth = torch.from_numpy((i % DEPTH).astype(np.int32)).to(card)
+    lane = layout == "lane"
+    kw = dict(depth=depth, last=DEPTH - 1) if lane else {}
+    ks, ksurf, kneed = SH.shade(rows.clone(), t, idx, scene, c["bg"], **kw)
+    ps, psurf, pneed = SH.shade_plain(rows.clone(), t, idx, scene, c["bg"], **kw)
+    assert torch.equal(_bits(ks), _bits(ps)) and torch.equal(kneed, pneed)
+    hit = SH.shade_plain(rows.clone(), t, idx, scene, c["bg"])[0][12] > 0.5  # batch: alive = hit
+    for r, (a, w) in enumerate(zip(ksurf.columns(), psurf.columns())):
+        assert torch.equal(_bits(a[hit]), _bits(w[hit])), r
+
+    cfg = P.TraceConfig(ray_depth=DEPTH, bg_color=c["bg"], max_tries=K, rr=True)
+    wid = torch.from_numpy(c["idx"][:n]).to(card)
+    l, pdf, ok = sampler_plain(scene, SEED, wid, 0, RR_START * trng.draws_per_bounce(K),
+                               *SH.sampler_inputs(psurf), pneed, K)
+    fkw = dict(depth=depth) if lane else dict(bounce_i=RR_START)
+    kf, klive = SH.finish(ps.clone(), psurf, l, pdf, ok, wid, SEED, 0, cfg, **fkw)
+    pf, plive = SH.finish_plain(ps.clone(), psurf, l, pdf, ok, wid, SEED, 0, cfg, **fkw)
+    assert torch.equal(klive, plive)
+    every = slice(0, SH.N_STATE) if lane else slice(9, SH.N_STATE)
+    assert torch.equal(_bits(kf[every]), _bits(pf[every]))
+    live_in = ps[12] > 0.5
+    assert torch.equal(_bits(kf[:, live_in]), _bits(pf[:, live_in]))

@@ -266,10 +266,11 @@ def _launches(dev):
             [t() for _ in range(13)], t(), t(), t(2), ctr, t(12, 2), t(2), 1, 4, t(4, 64),
             t())),
         ("shade", "shade", lambda: kernels.launch_shade(
-            t(13, 64), t(), t(), t(36, 8), t(20, 1), t(1), 1, True, True, t(), 5, bg, False,
-            t(21, 64), t())),
+            t(13, 64), t(), t(), t(8, 40), t(20, 1), t(1), 1, True, True, t(), 5, bg, False,
+            (t(13, 64), t(64, 8)), t())),
         ("finish", "finish", lambda: kernels.launch_finish(
-            t(13, 64), t(21, 64), [t() for _ in range(4)], t(), t(), t(2), 2, 64, 63, 62, t(),
+            t(13, 64), (t(13, 64), t(64, 8)), [t() for _ in range(4)], t(), t(), t(2), 2, 64, 63,
+            62, t(),
             0, True, 2, False, t())),
     ]
 
