@@ -68,15 +68,27 @@ exits non-zero):
                twice (the lower row must win): t, hit flag and row equal on
                every lane, masked lanes (inf, 0); with K6's launch geometry
                (stack, shared and local bytes, resident blocks);
+               the lane round on the BVH scene's 1,048,576 lanes
+               (``phase_kernels_round``): N2a on the counter wavefront's
+               refills at rounds >= 1, >= 10, its last and the work's tail,
+               N2b on the sticky rounds >= 1, >= 10 and its last and on a
+               262,144-lane state whose lanes own 4 pixels, every output
+               equal to the plain version's bit for bit on every lane; K3 in
+               lane mode on the same rounds' bounces at K3's gate, ``ok``
+               exact;
 4. main     -- the port's CLI renders scenes/cornell_box.gltf at 1280x720,
                16 spp four times: by default (the fused path: K2, K1,
                K1-final), with RT_RR=1 (the modular path: K4, N1a, K3, N1b),
                with
                RT_ENGINE=sticky (K5 only, once per round) and with
-               RT_ENGINE=wavefront (K1 in lane mode only, once per round);
+               RT_ENGINE=wavefront (K1 in lane mode once per round, N2a once
+               per refill); then the BVH scene on its default engine (K6,
+               N1a, K3, N1b) and with RT_ENGINE=wavefront and =sticky (K6,
+               N1a, K3 in lane mode and N1b per round; N2a per refill, N2b
+               per round and once for the final flush);
                the launch counters are set to 0 before each run, read after
                it, and must match that path exactly (the lane engines: the
-               rounds they report);
+               rounds they report, the refills the engine counts);
 5. render   -- 320x180 x 16 spp frames: fused kernels against fused plain;
                modular kernels against modular plain (roulette on);
                ``TraceConfig.sampler="xla"`` refused on the card by the
@@ -159,15 +171,20 @@ exits non-zero):
                Cornell fused batch and Cornell counter wavefront frames; no
                frame calls the plain modular stages, and one sample of each
                modular batch case dispatches at most SAMPLE_OPS_MAX ATen
-               ops (the shade and finish work is in N1a and N1b).
+               ops (the shade and finish work is in N1a and N1b); no frame
+               calls the plain sampler, refill or restart either, and one
+               round of the BVH counter wavefront (refill and bounce) and
+               of the BVH sticky engine dispatches at most ROUND_OPS_MAX.
                It runs after the timing phase, before runtime.
 
 The last lines are the card's name and power limit, the per-kernel JSON
-record (K1-K6 and N1a/N1b: eight rows) and ``{"ok": true, "device": {...}}``.
+record (K1-K6, N1a/N1b and N2a/N2b: eleven rows; K3's has its lane mode
+beside it) and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import logging
@@ -325,6 +342,10 @@ KERNELS = {  # name -> (replaced TPU kernel body file:line, CUDA source)
     # counter draws + _finish_bounce)
     "shade": (f"{TPU_OPS}/scene_intersect.py:249", f"{CSRC}/shade.cu"),
     "finish": ("raytracing_course_2024_tpu/integrator/path.py:140", f"{CSRC}/shade.cu"),
+    # N2a and N2b neither: XLA fuses the lane engines' refill and restart
+    # inside their lax.while_loop
+    "refill": ("raytracing_course_2024_tpu/integrator/wavefront.py:236", f"{CSRC}/refill.cu"),
+    "restart": ("raytracing_course_2024_tpu/integrator/wavefront.py:455", f"{CSRC}/refill.cu"),
 }
 # launched on the modular main path only
 MODULAR = ("nearest", "sampler", "shade", "finish")
@@ -336,10 +357,13 @@ GRAPHED = {
     "persistent": "no: one launch per round, its counts read one round late",
     "nearest": "the batch engine's modular route; the lane engines' rounds on a dense "
                "ModularScene",
-    "sampler": "the batch engine's modular route",
+    "sampler": "the batch engine's modular route; the lane engines' rounds on a "
+               "ModularScene (lane mode)",
     "bvh": "the batch engine's modular route; the lane engines' rounds",
     "shade": "the batch engine's modular route; the lane engines' rounds on a ModularScene",
     "finish": "the batch engine's modular route; the lane engines' rounds on a ModularScene",
+    "refill": "the counter wavefront's refill, both routes",
+    "restart": "the sticky engine's round off the K5 route, both routes",
 }
 SEED = 20240917
 K = 4  # max_tries
@@ -612,6 +636,7 @@ def lane_mode_chain(dev, gen, name: str, desc, w: int, h: int, spp: int, lanes: 
     then grows by one. Returns the largest absolute error."""
     from raytracing_course_2024_tpu_torch.integrator import wavefront as W
     from raytracing_course_2024_tpu_torch.ops import bounce as B
+    from raytracing_course_2024_tpu_torch.ops import refill as RF
     from raytracing_course_2024_tpu_torch.ops.camera import camera_arrays
     from raytracing_course_2024_tpu_torch.ops.rng import work_key
     from raytracing_course_2024_tpu_torch.scene import build_scene_arrays
@@ -622,7 +647,7 @@ def lane_mode_chain(dev, gen, name: str, desc, w: int, h: int, spp: int, lanes: 
     wid = torch.randint(0, w * h * spp, (lanes,), generator=gen, device=dev, dtype=torch.int32)
     pix = wid.long() % (w * h)
     st = W._initial_state(B.N_STATE, lanes, dev)
-    W._restart_rows(st, torch.ones_like(pix, dtype=torch.bool), W._camera_rows(
+    RF.restart_rows(st, torch.ones_like(pix, dtype=torch.bool), RF.camera_rows(
         camera_arrays(desc.settings.camera), pix % w, pix // w, w, h, work_key(SEED, wid)))
     depth = torch.randint(0, depth_n, (lanes,), generator=gen, device=dev, dtype=torch.int32)
     err = 0.0
@@ -792,9 +817,9 @@ class Modular:
             surf = surface_detail(ro, rd, hit, self.scene)
             is_delta = (surf.mkind == MIRROR) | (surf.mkind == DIELECTRIC)
             need = alive & hit.valid & ~is_delta
-            args = (self.scene, SEED, self.wid, 0, bounce_i * rng.draws_per_bounce(K),
-                    surf.point, surf.n_geom, surf.n_shade, rd * -1.0, surf.roughness,
-                    need, K)
+            args = (self.scene, SEED, self.wid, 0,
+                    rng.batch_ctr(bounce_i * rng.draws_per_bounce(K), K), surf.point,
+                    surf.n_geom, surf.n_shade, rd * -1.0, surf.roughness, need, K)
             return surf, need, args
 
         self.alive = self.ro.x < math.inf
@@ -836,39 +861,46 @@ def modular_steps(P, ro, rd, scene, seed, wid, plain: bool):
 
 def sampler_ops(m: Modular, bounce_i: int = 0) -> float:
     """fp32 operations K3 does on the inputs of bounce ``bounce_i`` (0: the
-    camera state, 1: the bounce-1 state): per lane that samples, the
-    candidates drawn until the first accepted one (each: the pick, its
-    component's sampler, the acceptance test), then the mixture pdf with
-    the light pdf of every light."""
+    camera state, 1: the bounce-1 state) of ``m`` (``mixture_ops``)."""
+    from raytracing_course_2024_tpu_torch.ops import rng
+
+    s, need, rd = ((m.surf, m.need, m.rd) if bounce_i == 0
+                   else (m.surf1, m.need1, m.bounce1[1]))
+    return mixture_ops(m.scene, s.point, s.n_geom, s.n_shade, rd * -1.0, s.roughness, need,
+                       m.key, rng.batch_ctr(bounce_i * rng.draws_per_bounce(K), K))
+
+
+def mixture_ops(scene, point, n_geom, n_shade, v, roughness, need, key, ctr) -> float:
+    """fp32 operations K3 does on these inputs with draws at ``ctr`` (an
+    ``ops.rng.Ctr``, a base per lane in the lane layout): per lane that
+    samples, the candidates drawn until the first accepted one (each: the
+    pick, its component's sampler, the acceptance test), then the mixture
+    pdf with the light pdf of every light."""
     from raytracing_course_2024_tpu_torch.ops import rng
     from raytracing_course_2024_tpu_torch.ops import sampling as S
 
-    statics, lp = m.scene.statics, m.scene.lp_np
+    statics, lp = scene.statics, scene.lp_np
     n_comp = 3 if statics.num_lights > 0 else 2
-    s, need, rd = ((m.surf, m.need, m.rd) if bounce_i == 0
-                   else (m.surf1, m.need1, m.bounce1[1]))
-    base = bounce_i * rng.draws_per_bounce(K)
-    v = rd * -1.0
     pending = need.clone()
-    ops = torch.zeros_like(s.point.x, dtype=torch.float64)
+    ops = torch.zeros_like(point.x, dtype=torch.float64)
     lt = torch.tensor(list(statics.light_types) or [0], device=ops.device)
     cost_light = torch.tensor([OPS_CAND["light"][int(t)] for t in lt], dtype=torch.float64,
                               device=ops.device)
     for t in range(K):
-        draw = [rng.uniform_ctr(m.key, base + rng.ctr_mix(t, r)) for r in range(7)]
+        draw = [rng.uniform_ctr(key, ctr.mix(t, r)) for r in range(7)]
         which = torch.clamp((draw[0] * n_comp).to(torch.int32), max=n_comp - 1)
-        cand = S.sample_cosine_u(draw[1], draw[2], s.n_geom)
-        cand = S.where3(which == 1, S.sample_vndf_u(draw[1], draw[2], s.n_geom, v, s.roughness),
+        cand = S.sample_cosine_u(draw[1], draw[2], n_geom)
+        cand = S.where3(which == 1, S.sample_vndf_u(draw[1], draw[2], n_geom, v, roughness),
                         cand)
         c = torch.where(which == 0, float(OPS_CAND["cosine"]), float(OPS_CAND["vndf"]))
         if statics.num_lights > 0:
-            cand = S.where3(which == 2, S.sample_light_dir_u(draw[1:7], s.point, lp, statics),
+            cand = S.where3(which == 2, S.sample_light_dir_u(draw[1:7], point, lp, statics),
                             cand)
             li = torch.clamp((draw[6] * statics.num_lights).to(torch.int64),
                              max=statics.num_lights - 1)
             c = torch.where(which == 2, cost_light[li], c.double())
         ops += torch.where(pending, c.double() + OPS_CAND["which"] + OPS_CAND["accept"], 0.0)
-        ok = (cand.dot(s.n_shade) > 0.0) & (cand.dot(s.n_geom) > 0.0)
+        ok = (cand.dot(n_shade) > 0.0) & (cand.dot(n_geom) > 0.0)
         pending = pending & ~ok
     per_pdf = OPS_PDF + sum(OPS_LIGHT_PDF[t] + (OPS_LIGHT_ROT.get(t, 0) if r else 0)
                             for t, r in zip(statics.light_types, statics.light_rotated))
@@ -1114,8 +1146,8 @@ def n1_timing_case(st, scene, cfg, wid, bounce_i: int) -> dict:
     t, idx = nearest_table(Vec3(st[0], st[1], st[2]), Vec3(st[3], st[4], st[5]), scene,
                            live=st[12] > 0.5)
     ps, psurf, pneed = shade_plain(st, t, idx, scene, cfg.bg_color)
-    sargs = (scene, SEED, wid, 0, bounce_i * rng.draws_per_bounce(K), *sampler_inputs(psurf),
-             pneed, K)
+    sargs = (scene, SEED, wid, 0, rng.batch_ctr(bounce_i * rng.draws_per_bounce(K), K),
+             *sampler_inputs(psurf), pneed, K)
     return dict(st=st, t=t, idx=idx, ps=ps, psurf=psurf, sample=sample_mixture_kernel(*sargs),
                 bounce_i=bounce_i)
 
@@ -1169,8 +1201,8 @@ def phase_kernels_shade(dev) -> tuple:
                                                   depth=depth, last=last)
             _, e3 = shade_case(f"{tag}:shade-final", st, t, idx, scene, bg, final=True)
             errs["shade"] = max(errs["shade"], e1, e2, e3)
-            base = RR_START * rng.draws_per_bounce(K)
-            args = (scene, SEED, wid, KERNEL_WID_OFF, base, *sampler_inputs(psurf), pneed, K)
+            ctr = rng.batch_ctr(RR_START * rng.draws_per_bounce(K), K)
+            args = (scene, SEED, wid, KERNEL_WID_OFF, ctr, *sampler_inputs(psurf), pneed, K)
             for rr, faithful in ((False, False), (True, False), (False, True), (True, True)):
                 c = cfg._replace(rr=rr, faithful=faithful)
                 sample = (sampler_plain(*args, faithful=True) if faithful
@@ -1190,6 +1222,266 @@ def phase_kernels_shade(dev) -> tuple:
         if bvh:
             timing.update(scene=scene, cfg=cfg, wid=wid)
         del states, sparse
+    return errs, timing
+
+
+# the lane round's kernels against their plain versions (phase_kernels_round):
+# the refills and sticky rounds held are the first at or after each of these
+# rounds, and the last one
+ROUND_AT = (1, 10)
+ROUND_TIMED = "round10"  # the state whose times go to the kernels line
+ROUND_REPS = 20
+STICKY_JMAX_LANES = 262_144  # a sticky state whose lanes own 4 pixels each
+
+
+def round_tag(rnd: int, taken: dict) -> list:
+    """The snapshot names a refill or a round ``rnd`` fills: ``roundN`` for
+    the first at or after each of ``ROUND_AT`` not yet taken, and ``last``."""
+    return [f"round{r}" for r in ROUND_AT if rnd >= r and f"round{r}" not in taken] + ["last"]
+
+
+def lane_snapshots(r, sticky_lanes: int | None = None) -> dict:
+    """One eager frame of ``r``'s scene (a ``ModularScene``) on each lane
+    engine, with the bodies' buffers copied just before chosen calls
+    (``lane_spy``): ``refill`` (the counter wavefront's refills), ``core``
+    (its bounces, whose sampler inputs K3 in lane mode is held on) and
+    ``restart`` (the sticky rounds, restart first), each name -> (round,
+    tensors, the arguments after them); ``refill["tail"]`` is the refill
+    whose dead lanes outnumber the work items left. ``sticky_lanes`` also renders the
+    sticky frame on that many lanes at 4 spp (lanes owning several pixels):
+    its round-10 state goes in as ``restart["jmax"]``."""
+    from raytracing_course_2024_tpu_torch.integrator import wavefront as W
+
+    s = r.settings
+    w, h, spp = s.width, s.height, s.samples
+    n_pix = w * h
+    snaps = {"refill": {}, "core": {}, "restart": {}}
+
+    def keep(kind, rnd, tensors, args, names=None):
+        for name in names or round_tag(rnd, snaps[kind]):
+            snaps[kind][name] = (rnd, [x.clone() for x in tensors],
+                                 [x.clone() if isinstance(x, torch.Tensor) else x for x in args])
+
+    def on_refill(b, rnd):
+        c = b.core
+        names = round_tag(rnd, snaps["refill"])
+        left = b.total - int(b.counter)
+        if "tail" not in snaps["refill"] and 0 < left < int((c.state[12] < 0.5).sum()):
+            names.append("tail")  # the work's tail: some dead lanes take nothing
+        keep("refill", rnd, (c.state, b.work, b.counter, b.done, c.depth, c.wid),
+             (c.seed_off, b.bases, b.frame), names)
+
+    def on_core(c, rnd):
+        keep("core", rnd, (c.state, c.wid, c.depth), (c.seed_off,))
+
+    def on_sticky(b, rnd):
+        keep("restart", rnd, (b.state, b.k, b.kmax, b.depth, b.wid, b.acc),
+             (b.seed_off, b.bases, b.frame))
+
+    seed32 = (SEED * 2654435761) & 0xFFFFFFFF
+    lanes = min(r.batch_size, n_pix * spp)
+    with lane_spy(on_refill, on_core, on_sticky):
+        W.render_wavefront(seed32, 0, 0, r.cam, r.scene, r.cfg, w, h, n_pix, spp, lanes)
+        W.render_wavefront_sticky(seed32, 0, 0, r.cam, r.scene, r.cfg, w, h, n_pix, spp,
+                                  lanes)
+    if sticky_lanes:
+        jmax = {}
+
+        def on_jmax(b, rnd):
+            if rnd == ROUND_AT[-1]:
+                jmax["body"] = b
+                keep("restart", rnd, (b.state, b.k, b.kmax, b.depth, b.wid, b.acc),
+                     (b.seed_off, b.bases, b.frame), ["jmax"])
+
+        with lane_spy(on_sticky=on_jmax):
+            W.render_wavefront_sticky(seed32, 0, 0, r.cam, r.scene, r.cfg, w, h, n_pix, 4,
+                                      sticky_lanes)
+        if jmax["body"].jmax < 2:
+            raise SystemExit(f"the sticky state on {sticky_lanes} lanes has jmax "
+                             f"{jmax['body'].jmax}")
+    return snaps
+
+
+def bit_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    if a.dtype == torch.float32:
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+    return torch.equal(a, b)
+
+
+def refill_bytes(state, work, counter, total: int) -> float:
+    """The bytes one N2a launch must move, counting an output only where it
+    changes: every lane's alive flag read; on a dead lane its work item read
+    and written, its work id written and its radiance zeroed (a live lane's
+    work item and work id stay as they are); where it holds a work item to
+    flush, its radiance read and flushed into ``done``; on a taken lane its
+    ray, throughput, alive flag and depth written; the counter read and
+    written."""
+    dead = state[12] < 0.5
+    flush = float((dead & (work >= 0)).sum())
+    n_dead = float(dead.sum())
+    taken = min(n_dead, total - int(counter))
+    return state.shape[1] * 4 + n_dead * (8 + 8 + 4 + 12) + flush * (12 + 12) + taken * 44 + 16
+
+
+def restart_bytes(state, k, kmax) -> float:
+    """The bytes one N2b launch must move, counting an output only where it
+    changes: every lane's alive flag read; on a dead lane k and kmax read,
+    its work id written and its radiance zeroed (a live lane's k, work id
+    and slot stay as they are); where it flushes its radiance read and its
+    slot read and written; on a restarted lane k, its ray, throughput,
+    alive flag and depth written."""
+    dead = state[12] < 0.5
+    flush = float((dead & (k > 0)).sum())
+    taken = float((dead & (k < kmax)).sum())
+    return (state.shape[1] * 4 + float(dead.sum()) * (8 + 8 + 4 + 12) + flush * (12 + 24)
+            + taken * (8 + 44))
+
+
+def lane_kernel_case(kind: str, tag: str, snap: tuple, gpu: str, timed: bool) -> dict:
+    """N2a (``kind`` "refill") or N2b ("restart") against its plain version on
+    one snapshot: every output equal bit for bit on every lane (``done``'s
+    columns of the work items). ``timed``: ms per launch in place, the
+    snapshot put back before each launch outside the event pair
+    (``cuda_ms_in_place``), the plain version once, and the bound."""
+    from raytracing_course_2024_tpu_torch.ops import refill as RF
+
+    rnd, bufs, args = snap
+    frame = args[2]
+    total = frame.n_pix * frame.samples
+    scan = RF.refill_scan(bufs[0].shape[1], bufs[0].device) if kind == "refill" else None
+    kernel = (lambda t: RF.refill(*t, *args, scan)) if kind == "refill" else (
+        lambda t: RF.restart(*t, *args))
+    plain_fn = RF.refill_plain if kind == "refill" else RF.restart_plain
+    kern, plain = [x.clone() for x in bufs], [x.clone() for x in bufs]
+    kernel(kern)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    plain_fn(*plain, *args)
+    end.record()
+    torch.cuda.synchronize()
+    if kind == "refill":  # the drop columns are written by the plain version only
+        kern[3], plain[3] = kern[3][:, :total], plain[3][:, :total]
+    names = (("state", "work", "counter", "done", "depth", "wid") if kind == "refill"
+             else ("state", "k", "kmax", "depth", "wid", "acc"))
+    equal = {n: bit_equal(a, b) for n, a, b in zip(names, kern, plain)}
+    state = bufs[0]
+    dead = float((state[12] < 0.5).sum())
+    res = dict(round=rnd, lanes=state.shape[1], dead=int(dead),
+               **({"counter": int(bufs[2]), "total": total, "taken": int(plain[2]) - int(bufs[2])}
+                  if kind == "refill" else
+                  {"jmax": bufs[5].shape[1] // state.shape[1],
+                   "restarted": int((plain[1] != bufs[1]).sum())}),
+               **{f"{n}_equal": v for n, v in equal.items()})
+    check(res, f"{tag}:{kind}-exact", all(equal.values()))
+    if not timed:
+        return {}
+    work = [x.clone() for x in bufs]
+    # the flush writes the same columns every launch: ``done`` is not put back
+    back = [(x, y) for i, (x, y) in enumerate(zip(work, bufs)) if kind != "refill" or i != 3]
+
+    def restore():
+        for x, y in back:
+            x.copy_(y)
+
+    ms = cuda_ms_in_place(lambda: kernel(work), restore, ROUND_REPS)
+    nbytes = (refill_bytes(state, bufs[1], bufs[2], total) if kind == "refill"
+              else restart_bytes(state, bufs[1], bufs[2]))
+    b = bound(nbytes, 0.0)
+    say("timing", kernel=kind, state=tag, lanes=state.shape[1],
+        active_in=round(dead / state.shape[1], 4), ms=round(ms, 4),
+        plain_ms=round(start.elapsed_time(end), 3), bound_ms=round(b[0], 5), bound_by=b[1],
+        share=round(b[0] / ms, 4), gpu=f'"{gpu}"')
+    return dict(ms=ms, plain_ms=start.elapsed_time(end), bound=b,
+                active_in=dead / state.shape[1], lanes=state.shape[1])
+
+
+def lane_sampler_case(tag: str, snap: tuple, scene, cfg, gpu: str, timed: bool) -> tuple:
+    """K3 in lane mode against ``sampler_plain`` in the lane layout on the
+    sampler inputs of one bounce of the counter wavefront (its nearest hit
+    and N1a in the lane layout on the snapshot): ``ok`` equal on every lane,
+    l and pdf at K3's gate. ``timed``: ms per launch (``cuda_ms_each``) and
+    the bound. Returns ((largest absolute, largest relative error on the
+    lanes both accept), timing dict or {})."""
+    from raytracing_course_2024_tpu_torch.ops import rng
+    from raytracing_course_2024_tpu_torch.ops.sampler import sample_mixture_kernel, sampler_plain
+    from raytracing_course_2024_tpu_torch.ops.shade import sampler_inputs, shade
+    from raytracing_course_2024_tpu_torch.ops.traverse import nearest_table
+    from raytracing_course_2024_tpu_torch.ops.vec import Vec3
+
+    rnd, (st, wid, depth), (seed_off,) = snap
+    live = st[12] > 0.5
+    t, idx = nearest_table(Vec3(st[0], st[1], st[2]), Vec3(st[3], st[4], st[5]), scene,
+                           live=live)
+    _, surf, need = shade(st.clone(), t, idx, scene, cfg.bg_color, depth=depth,
+                          last=cfg.ray_depth - 1)
+    ins = (*sampler_inputs(surf), need, K)
+    seed, off = seed_off[0], seed_off[1]
+
+    def kernel():
+        return sample_mixture_kernel(scene, seed, wid, off, rng.lane_ctr(0, K), *ins, depth)
+
+    lk, pk, okk = kernel()
+    lp_, pp, okp = sampler_plain(scene, seed, wid, off, rng.lane_ctr(depth, K), *ins)
+    torch.cuda.synchronize()
+    res = compare_rows([*lk, pk], [*lp_, pp], okk, okp, f"{tag}:sampler-lane")
+    both = okk & okp
+    rel = max((float(((a[both] - b[both]).abs() / b[both].abs().clamp(min=1e-30)).max())
+               if bool(both.any()) else 0.0) for a, b in zip([*lk, pk], [*lp_, pp]))
+    exact = dict(round=rnd, ok_equal=bool(torch.equal(okk, okp)),
+                 need_frac=round(float(need.float().mean()), 4), max_rel_err=rel,
+                 bit_share=round(bit_share([*lk, pk], [*lp_, pp], okp), 6))
+    check(exact, f"{tag}:sampler-lane-exact", exact["ok_equal"])
+    if not timed:
+        return (res["max_abs_err"], rel), {}
+    ms = cuda_ms_each(kernel, ROUND_REPS)
+    n, n_need = st.shape[1], float(need.sum())
+    ltable = (scene.light_packed.numel() + scene.lspec.numel()) * 4
+    key = rng.work_key(seed, wid)
+    ops = mixture_ops(scene, *sampler_inputs(surf), need, key, rng.lane_ctr(depth, K))
+    b = bound(n * (1 + 16 + 1) + n_need * (52 + 4 + 4) + ltable, ops)
+    say("timing", kernel="sampler-lane", state=tag, lanes=n, active_in=round(n_need / n, 4),
+        ms=round(ms, 4), bound_ms=round(b[0], 5), bound_by=b[1], share=round(b[0] / ms, 4),
+        gpu=f'"{gpu}"')
+    return (res["max_abs_err"], rel), dict(ms=ms, bound=b, active_in=n_need / n)
+
+
+def phase_kernels_round(dev, gpu: str) -> tuple:
+    """The lane round's kernels on the BVH scene at 1280x720 x 16 spp, on
+    the lane engines' 1,048,576 lanes: N2a on the counter wavefront's
+    refills at rounds >= 1, >= 10 and its last (the work's tail: the counter
+    near the total, dead lanes that take nothing), N2b on the sticky
+    engine's rounds >= 1, >= 10 and its last, and on a 262,144-lane sticky
+    state whose lanes own 4 pixels (jmax > 1), each equal to its plain
+    version bit for bit on every lane; K3 in lane mode on the bounces of the
+    same rounds at K3's gate with ``ok`` exact. Times per launch on the
+    round-10 states. Returns (largest errors, timing by kernel)."""
+    from raytracing_course_2024_tpu_torch.runtime.render import Renderer
+
+    t0 = time.perf_counter()
+    w, h, spp = FRAME
+    r = Renderer(bvh_desc(w, h, spp), device=dev, eager=True)
+    snaps = lane_snapshots(r, STICKY_JMAX_LANES)
+    if "tail" not in snaps["refill"]:
+        raise SystemExit("the counter wavefront had no refill at the work's tail")
+    errs = {"refill": 0.0, "restart": 0.0, "sampler": 0.0}
+    rel = 0.0
+    timing = {}
+    for kind in ("refill", "restart"):
+        for name, snap in snaps[kind].items():
+            got = lane_kernel_case(kind, f"bvh81920-{name}", snap, gpu, name == ROUND_TIMED)
+            if got:
+                timing[kind] = got
+    for name, snap in snaps["core"].items():
+        (err, err_rel), got = lane_sampler_case(f"bvh81920-{name}", snap, r.scene, r.cfg,
+                                                gpu, name == ROUND_TIMED)
+        errs["sampler"] = max(errs["sampler"], err)
+        rel = max(rel, err_rel)
+        if got:
+            timing["sampler-lane"] = got
+    timing["sampler-lane"]["max_rel_err"] = rel
+    say("kernels", stage="round", seconds=round(time.perf_counter() - t0, 2))
+    del snaps
+    torch.cuda.empty_cache()
     return errs, timing
 
 
@@ -1390,21 +1682,85 @@ class LogLines(logging.Handler):
 # one kernel once per round. "bvh" renders the 81,920-triangle BVH scene
 # (written as a text scene) on the BVH backend's default engine.
 MAIN = {"fused": {}, "modular": {"RT_RR": "1"}, "sticky": {"RT_ENGINE": "sticky"},
-        "wavefront": {"RT_ENGINE": "wavefront"}, "bvh": {}}
+        "wavefront": {"RT_ENGINE": "wavefront"}, "bvh": {},
+        "bvh-wavefront": {"RT_ENGINE": "wavefront"}, "bvh-sticky": {"RT_ENGINE": "sticky"}}
 ROUND_KERNEL = {"sticky": "persistent", "wavefront": "bounce"}
 
 
+@contextlib.contextmanager
+def lane_spy(on_refill=None, on_core=None, on_sticky=None):
+    """While active, calls ``on_refill(refill, round)`` before a refill of
+    the counter wavefront, ``on_core(core, round)`` before its bounce and
+    ``on_sticky(body, round)`` before a sticky round off the K5 route (the
+    bodies as they stand, before the call)."""
+    from raytracing_course_2024_tpu_torch.integrator import wavefront as W
+
+    make, sticky_call = W.wavefront_bodies, W.StickyBody.__call__
+
+    def spied(*a, **kw):
+        core, run_core, refill, run_refill = make(*a, **kw)
+        rounds = [0]
+
+        def refill_call():
+            if on_refill:
+                on_refill(refill, rounds[0])
+            run_refill()
+
+        def core_call():
+            if on_core:
+                on_core(core, rounds[0])
+            run_core()
+            rounds[0] += 1
+
+        return core, core_call, refill, refill_call
+
+    def sticky_round(body):
+        if on_sticky:
+            body.spied_rounds = getattr(body, "spied_rounds", -1) + 1
+            on_sticky(body, body.spied_rounds)
+        sticky_call(body)
+
+    W.wavefront_bodies = spied
+    W.StickyBody.__call__ = sticky_round
+    try:
+        yield
+    finally:
+        W.wavefront_bodies, W.StickyBody.__call__ = make, sticky_call
+
+
+def reset_counts() -> None:
+    """The launch counters and the counter wavefront's own count of its
+    refills (``integrator/wavefront.py:REFILLS``) set to 0."""
+    from raytracing_course_2024_tpu_torch.integrator import wavefront as W
+    from raytracing_course_2024_tpu_torch.ops import kernels as KN
+
+    KN.reset_launches()
+    W.REFILLS[0] = 0
+
+
+def refills_run() -> int:
+    """The refills the counter wavefront ran since ``reset_counts``."""
+    from raytracing_course_2024_tpu_torch.integrator import wavefront as W
+
+    return W.REFILLS[0]
+
+
 def phase_main(dev, tmp: str, path: str) -> dict:
-    """The CLI on the Cornell frame (the "bvh" run: on the BVH scene) with
+    """The CLI on the Cornell frame (the "bvh" runs: on the BVH scene) with
     the launch counters set to 0 just before and read just after; they must
     match the path exactly. The lane engines' expected counts are the rounds
-    the engine reports."""
+    the engine reports: one K5 (sticky) or one K1 in lane mode (counter
+    wavefront) per round on the Cornell frame, the nearest hit (K6), N1a, K3
+    in lane mode and N1b per round on the BVH frame; one N2a per refill (the
+    engine's own count) and one N2b per round of the BVH sticky frame and one
+    for its final flush."""
     from raytracing_course_2024_tpu_torch.ops import kernels as KN
     from raytracing_course_2024_tpu_torch.runtime import cli
     from raytracing_course_2024_tpu_torch.runtime.image_io import read_png, read_ppm
 
     (w, h, spp), depth, scene = FRAME, 6, CORNELL  # glTF ray_depth is 6
-    if path == "bvh":
+    bvh = path.startswith("bvh")
+    if bvh:
         desc = bvh_desc(w, h, spp)
         depth, scene = desc.settings.ray_depth, os.path.join(tmp, "bvh81920.txt")
         with open(scene, "w") as f:
@@ -1415,11 +1771,11 @@ def phase_main(dev, tmp: str, path: str) -> dict:
     logging.getLogger("rt_torch").addHandler(logged)
     os.environ.update(env)
     try:
-        KN.reset_launches()
+        reset_counts()
         t0 = time.perf_counter()
         rc = cli.main([scene, str(w), str(h), str(spp), ppm, png])
         secs = time.perf_counter() - t0
-        counts = dict(KN.LAUNCHES)
+        counts, refills = dict(KN.LAUNCHES), refills_run()
     finally:
         for k in env:
             os.environ.pop(k)
@@ -1431,11 +1787,11 @@ def phase_main(dev, tmp: str, path: str) -> dict:
         raise SystemExit(f"{path}: no render line in the log {logged.lines}")
     engine = re.search(r"engine=(\w+)", line[0]).group(1)
     backend = re.search(r"backend=(\w+)", line[0]).group(1)
-    if backend != ("bvh" if path == "bvh" else "dense"):
+    if backend != ("bvh" if bvh else "dense"):
         raise SystemExit(f"{path}: rendered on the {backend} backend: {line[0]}")
     want = dict.fromkeys(KN.LAUNCHES, 0)
     extra = {"engine": engine}
-    if path == "bvh":
+    if bvh:
         extra["bvh_builder"] = re.search(r"bvh_builder=(\w+)", line[0]).group(1)
     # the modular bounce: the nearest hit and N1a at every level, K3 and N1b
     # at every level but the last
@@ -1455,7 +1811,14 @@ def phase_main(dev, tmp: str, path: str) -> dict:
         low, high = (spp, spp * depth) if engine == "sticky" else (1, None)
         if rounds < low or (high and rounds > high):
             raise SystemExit(f"{path} rounds {rounds} outside [{low}, {high}]")
-        want["bvh" if path == "bvh" else ROUND_KERNEL[path]] = rounds
+        if bvh:  # the modular core, K3 in lane mode
+            want.update(bvh=rounds, shade=rounds, sampler=rounds, finish=rounds)
+            if engine == "sticky":  # a restart per round, one more for the final flush
+                want["restart"] = rounds + 1
+        else:
+            want[ROUND_KERNEL[path]] = rounds
+        if engine == "wavefront":
+            want["refill"] = extra["refills"] = refills
         extra["rounds"] = rounds
     if counts != want:
         raise SystemExit(f"{path} launch counters {counts} != expected {want}")
@@ -1598,7 +1961,8 @@ def phase_render(dev) -> None:
 def phase_render_bvh(dev) -> None:
     """Frames of the BVH backend against their plain versions (K6 against
     the sweep): the 5,120-triangle scene on the batch engine (K6, N1a, K3,
-    N1b) and on the counter wavefront (K6, N1a, N1b); the 81,920-triangle
+    N1b) and on the counter wavefront (K6, N1a, K3 in lane mode, N1b, N2a);
+    the 81,920-triangle
     scene of the main path at ``PLAIN_BVH`` on the batch, counter wavefront
     and sticky engines, path vertices held too (``modular_pair``); then the
     degenerate scenes, a table of one entry and a scene without a sampled
@@ -1617,9 +1981,12 @@ def phase_render_bvh(dev) -> None:
         KN.reset_launches()
         a = r.render_radiance(seed=3)
         launched = {k: v for k, v in KN.LAUNCHES.items() if v}
+        allowed = {"bvh", "sampler", "shade", "finish"} | (
+            {"refill"} if engine == "wavefront" else set())
         if (not launched.get("bvh") or launched.get("shade") != launched["bvh"]
-                or set(launched) - {"bvh", "sampler", "shade", "finish"}):
-            raise SystemExit(f"BVH frame launches {launched}: expected K6, N1a, N1b (and K3)")
+                or set(launched) - allowed):
+            raise SystemExit(f"BVH frame launches {launched}: expected K6, N1a, K3, N1b "
+                             "(and N2a on the counter wavefront)")
         render_pair(a, Renderer(bvh, device=dev, engine=engine, plain=True)
                     .render_radiance(seed=3), f"bvh5124-{engine}-kernels-vs-plain", size=size,
                     spp=MESH_SPP, prims=len(bvh.primitives), builder=r.bvh_builder,
@@ -2502,22 +2869,36 @@ def batch_launches(r, n_pix: int, spp: int, shards: int = 1) -> dict:
     return want
 
 
-def expected_launches(r, n_pix: int, spp: int, shards: int, rounds) -> dict:
+def expected_launches(r, n_pix: int, spp: int, shards: int, rounds, refills: int = 0) -> dict:
     """What a frame must have launched: the batch engine's plan, or per
-    round one K5 (sticky) or one K1 in lane mode (counter wavefront) on the
-    fused route, the nearest hit (K6 or K4), N1a and N1b on the modular one."""
+    round one K5 (sticky) or one K1 in lane mode (counter wavefront; the
+    sticky engine below one lane per pixel too) on the fused route, the
+    nearest hit (K6 or K4), N1a, K3 in lane mode and N1b on the modular one;
+    N2a once per refill (``refills``, the engine's count), and N2b
+    once per sticky round off the K5 route and once per shard for its final
+    flush."""
     if r.engine == "batch":
         return batch_launches(r, n_pix, spp, shards)
+    from raytracing_course_2024_tpu_torch.integrator.path import DEFAULT_BATCH, takes_k3
     from raytracing_course_2024_tpu_torch.ops import kernels as KN
 
     want = dict.fromkeys(KN.LAUNCHES, 0)
     n = int(np.sum(rounds))
-    if r.fused:
-        want["persistent" if r.engine == "sticky" else "bounce"] = n
-        return want
-    want.update(shade=n, finish=n)
-    if nearest_kernel(r):
-        want[nearest_kernel(r)] = n
+    lanes = min(getattr(r, "batch_size", DEFAULT_BATCH), n_pix * spp)
+    k5 = r.engine == "sticky" and r.fused and n_pix <= lanes
+    if k5:
+        want["persistent"] = n
+    elif r.fused:
+        want["bounce"] = n
+    else:
+        scene = r.scene if hasattr(r, "scene") else next(iter(r.scenes.values()))
+        want.update(shade=n, finish=n, sampler=n if takes_k3(r.cfg, scene.statics) else 0)
+        if nearest_kernel(r):
+            want[nearest_kernel(r)] = n
+    if r.engine == "sticky" and not k5:
+        want["restart"] = n + shards
+    if r.engine == "wavefront":
+        want["refill"] = refills
     return want
 
 
@@ -2654,12 +3035,12 @@ def shard_pair(sr, single: np.ndarray, seed: int, spp: int, what: str, gpu: str)
 
     sr.render_radiance(seed=seed + 1, samples=spp)  # warm-up: allocator
     torch.cuda.synchronize()
-    KN.reset_launches()
+    reset_counts()
     t0 = time.perf_counter()
     img = sr.render_radiance(seed=seed, samples=spp)
     ms = (time.perf_counter() - t0) * 1e3
     got = dict(KN.LAUNCHES)
-    want = expected_launches(sr, *shard_geometry(sr, spp), sr.rounds)
+    want = expected_launches(sr, *shard_geometry(sr, spp), sr.rounds, refills_run())
     close = bool(np.allclose(img, single, rtol=SHARD_RTOL, atol=SHARD_ATOL))
     say("runtime", shard=what, mesh=f"{sr.mesh.shape['tile']}x{sr.mesh.shape['spp']}",
         engine=sr.engine, spp=spp, ms=round(ms, 3), allclose=close,
@@ -2812,12 +3193,14 @@ def mp_worker(mode: str, tmp: str, store: str, world: int, rank: int) -> int:
         sr.render_radiance(seed=SEED + 1, samples=spp)  # warm-up: allocator
         torch.cuda.synchronize()
         dist.barrier()
-        KN.reset_launches()
         combine_ms.clear()
+        reset_counts()
         t0 = time.perf_counter()
         img, stats = sr.render_radiance(seed=SEED, samples=spp, with_stats=True)
-        rec[name] = {"ms": (time.perf_counter() - t0) * 1e3, "combine_ms": sum(combine_ms),
-                     "launches": dict(KN.LAUNCHES),
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = dict(KN.LAUNCHES)
+        rec[name] = {"ms": ms, "combine_ms": sum(combine_ms),
+                     "launches": launches, "refills": refills_run(),
                      "rounds": sr.rounds, "verts": stats.path_vertices, "engine": sr.engine,
                      "backend": sr.backend}
         if rank == 0:
@@ -2908,7 +3291,8 @@ def mp_check(dev, tmp: str, gpu: str, mode: str, recs: list, cells: list) -> Non
         img = np.load(os.path.join(tmp, f"{mode}-{name}.npy"))
         got = {k: sum(r[name]["launches"][k] for r in recs) for k in recs[0][name]["launches"]}
         rounds = recs[0][name]["rounds"]
-        want = expected_launches(sr, *shard_geometry(sr, spp), rounds)
+        want = expected_launches(sr, *shard_geometry(sr, spp), rounds,
+                                 sum(r[name]["refills"] for r in recs))
         bit = bool(np.array_equal(img, ref))
         close = bool(np.allclose(img, single, rtol=SHARD_RTOL, atol=SHARD_ATOL))
         say("multiproc", case=name, world=world, backend=backend, engine=recs[0][name]["engine"],
@@ -3016,7 +3400,7 @@ def phase_multiproc(dev, gpu: str) -> None:
 
 
 def phase_timing(dev, gpu: str, counts: dict, errs: dict, m: Modular, k5, bvh: dict,
-                 n1: dict) -> list:
+                 n1: dict, lane: dict) -> list:
     from raytracing_course_2024_tpu_torch.ops import bounce as B
     from raytracing_course_2024_tpu_torch.ops.persistent import persistent_plain
     from raytracing_course_2024_tpu_torch.ops.dense_nearest import dense_nearest_plain
@@ -3130,6 +3514,11 @@ def phase_timing(dev, gpu: str, counts: dict, errs: dict, m: Modular, k5, bvh: d
         inputs[k] = cam_k["active_in"]
         bounce1[k] = (b1_k, b1_k["bound"])
         deep[k] = n1_ms[f"bounce{N1_DEEP}"][k]
+    # N2a and N2b on the BVH lane engines' round-10 states (phase_kernels_round)
+    for k in ("refill", "restart"):
+        launch_ms[k], plain_ms[k] = lane[k]["ms"], lane[k]["plain_ms"]
+        bounds[k], inputs[k] = lane[k]["bound"], lane[k]["active_in"]
+    k3_lane = lane["sampler-lane"]
     for k in KERNELS:
         # K5's input: the frame's state after K5_CHAIN rounds
         at = {"after_rounds": K5_CHAIN} if k == "persistent" else {}
@@ -3147,7 +3536,8 @@ def phase_timing(dev, gpu: str, counts: dict, errs: dict, m: Modular, k5, bvh: d
                       bound_ms_bounce3=round(deep[k]["bound"][0], 5))
         if k == "nearest":
             at["ms_no_mask"] = round(modular["nearest-camera"]["ms"], 4)
-        say("timing", kernel=k, lanes=n, **at, active_in=round(inputs[k], 4),
+        say("timing", kernel=k, lanes=lane[k]["lanes"] if k in lane else n, **at,
+            active_in=round(inputs[k], 4),
             ms=round(launch_ms[k], 4), plain_ms=round(plain_ms[k], 3),
             bound_ms=round(bounds[k][0], 5), bound_by=bounds[k][1], gpu=f'"{gpu}"')
     tol = f"atol=rtol={ATOL} on >= {LANE_FRAC:.1%} of lanes"
@@ -3162,7 +3552,14 @@ def phase_timing(dev, gpu: str, counts: dict, errs: dict, m: Modular, k5, bvh: d
              "active_in": inputs[k], "active_in_bounce1": bounce1[k][0]["active_in"]}
             if k in bounce1 else {}),
          **({"ms_bounce3": deep[k]["ms"], "bound_ms_bounce3": deep[k]["bound"][0],
-             "active_in_bounce3": deep[k]["active_in"]} if k in deep else {})}
+             "active_in_bounce3": deep[k]["active_in"]} if k in deep else {}),
+         **({"ms_lane_mode": k3_lane["ms"], "bound_ms_lane_mode": k3_lane["bound"][0],
+             "max_abs_err_lane_mode": k3_lane["max_abs_err"],
+             "max_rel_err_lane_mode": k3_lane["max_rel_err"],
+             "bound_by_lane_mode": k3_lane["bound"][1], "launches_lane_mode": k3_lane["launches"],
+             "active_in_lane_mode": k3_lane["active_in"]} if k == "sampler" else {}),
+         **({"state": ROUND_TIMED, "tolerance": "bit for bit on every lane",
+             "lanes": lane[k]["lanes"]} if k in ("refill", "restart") else {})}
         for k in KERNELS
     ]
 
@@ -3297,6 +3694,41 @@ def sample_ops(r) -> dict:
     return ops
 
 
+# ATen ops one round of a lane engine on a ModularScene may dispatch beside
+# its kernels, the refill or the restart included (the round's bookkeeping:
+# the depth step, the live count, the core's masks); before N2a, N2b and K3
+# in lane mode a round was ~1,750 (PERF.md)
+ROUND_OPS_MAX = 40
+
+
+def round_ops(r) -> dict:
+    """``aten_ops`` of one round of ``r``'s lane engine (``r.engine``), its
+    bodies made and called without a graph on the frame's lanes after one
+    round of warm-up: the counter wavefront's refill and bounce, or one
+    sticky round (restart, bounce, the live test)."""
+    from raytracing_course_2024_tpu_torch.integrator import wavefront as W
+
+    s = r.settings
+    w, h, spp = s.width, s.height, s.samples
+    n_pix = w * h
+    lanes = min(r.batch_size, n_pix * spp)
+    if r.engine == "wavefront":
+        core, run_core, refill, run_refill = W.wavefront_bodies(r.cfg, r.scene, r.cam, w, h,
+                                                                n_pix, spp, lanes)
+        refill.reset(1, 0, 0)
+
+        def run():
+            run_refill()
+            run_core()
+    else:
+        run = W.StickyBody(r.cfg, r.scene, r.cam, w, h, n_pix, spp, lanes)
+        run.reset(1, 0, 0)
+    run()  # warm-up: the kernel library, the allocator
+    ops = aten_ops(run)
+    torch.cuda.synchronize()
+    return ops
+
+
 def phase_graphs(dev, gpu: str) -> None:
     """Each case at 1280x720 x 16 spp on a graphed ``Renderer`` and an
     ``eager=True`` one: the first graphed frame (it captures) equal to the
@@ -3310,8 +3742,13 @@ def phase_graphs(dev, gpu: str) -> None:
     torch.profiler, graphed and eager, of the BVH batch frame and of the
     Cornell fused batch and counter wavefront frames. No frame may call the
     plain modular stages (``_fold_in_planes``, ``surface_detail``,
-    ``_finish_bounce``): N1a and N1b do that work; a modular batch sample
-    dispatches at most ``SAMPLE_OPS_MAX`` ATen ops."""
+    ``_finish_bounce``; the XLA sampler ``sampler_plain`` and
+    ``sample_mixture``; ``refill_plain``, ``restart_plain``): N1a, N1b, K3,
+    N2a and N2b do that work; a modular batch sample dispatches at most
+    ``SAMPLE_OPS_MAX`` ATen ops, a modular lane round ``ROUND_OPS_MAX``."""
+    from raytracing_course_2024_tpu_torch.integrator import path as P
+    from raytracing_course_2024_tpu_torch.ops import refill as RF
+    from raytracing_course_2024_tpu_torch.ops import sampler as S
     from raytracing_course_2024_tpu_torch.ops import shade as SH
     from raytracing_course_2024_tpu_torch.ops import traverse as TR
     from raytracing_course_2024_tpu_torch.scene import load_scene
@@ -3320,8 +3757,12 @@ def phase_graphs(dev, gpu: str) -> None:
     w, h, spp = FRAME
     descs = {"bvh": bvh_desc(w, h, spp), "cornell": load_scene(CORNELL, w, h, spp)}
     # the plain versions' stages, counted where they are looked up (the fold
-    # in ops/traverse.py:fold_hit): the kernels' frames call none of them
-    stages = {"_fold_in_planes": TR, "surface_detail": SH, "_finish_bounce": SH}
+    # in ops/traverse.py:fold_hit; the XLA sampler in integrator/path.py:
+    # sample_bounce and ops/sampler.py): the kernels' frames call none of
+    # them (no case here takes faithful acceptance, which has no kernel)
+    stages = {"_fold_in_planes": TR, "surface_detail": SH, "_finish_bounce": SH,
+              "sampler_plain": P, "sample_mixture": S, "refill_plain": RF,
+              "restart_plain": RF}
     plain_calls = dict.fromkeys(stages, 0)
 
     def counted(name, f):
@@ -3345,7 +3786,10 @@ def graph_cases(descs: dict, dev, gpu: str, plain_calls: dict) -> None:
     """The cases of ``phase_graphs``; ``plain_calls`` counts the calls of
     the plain modular stages, which must stay 0. A modular batch case also
     prints the ATen ops of one sample (``sample_ops``): at most
-    ``SAMPLE_OPS_MAX``, with the shade and finish work in N1a and N1b."""
+    ``SAMPLE_OPS_MAX``, with the shade and finish work in N1a and N1b; a
+    modular lane case those of one round (``round_ops``): at most
+    ``ROUND_OPS_MAX``, with the sampler, the refill and the restart in K3,
+    N2a and N2b."""
     from raytracing_course_2024_tpu_torch.runtime.render import Renderer
 
     w, h, spp = FRAME
@@ -3405,6 +3849,15 @@ def graph_cases(descs: dict, dev, gpu: str, plain_calls: dict) -> None:
             if n_ops > SAMPLE_OPS_MAX:
                 raise SystemExit(f"[graphs] {case}: {n_ops} ATen ops in one sample "
                                  f"(> {SAMPLE_OPS_MAX}): the modular bounce is not in N1a/N1b")
+        if engine != "batch" and not graphed.fused:
+            ops = round_ops(eager)
+            n_ops = sum(ops.values())
+            say("graphs", case=case, aten_ops_per_round=n_ops,
+                top=json.dumps(sorted(ops.items(), key=lambda kv: -kv[1])[:6]).replace(" ", ""),
+                plain_stage_calls=json.dumps(plain_calls).replace(" ", ""))
+            if n_ops > ROUND_OPS_MAX:
+                raise SystemExit(f"[graphs] {case}: {n_ops} ATen ops in one round "
+                                 f"(> {ROUND_OPS_MAX}): the round is not in its kernels")
         if case in PROFILED:
             for mode, r in (("graphed", graphed), ("eager", eager)):
                 p = profiled_frame(r, 9)
@@ -3464,21 +3917,33 @@ def main() -> int:
     errs["bvh"] = phase_kernels_bvh(dev)
     n1_errs, n1 = phase_kernels_shade(dev)
     errs.update(n1_errs)
+    round_errs, lane = phase_kernels_round(dev, gpu)
+    # K3's lane mode keeps its own error: its pdfs reach 1e14 on near-mirror lanes
+    lane["sampler-lane"]["max_abs_err"] = round_errs.pop("sampler")
+    errs.update(round_errs)
     with tempfile.TemporaryDirectory() as tmp:
         runs = {path: phase_main(dev, tmp, path) for path in MAIN}
     # each kernel's launches on the main path: the batch path's run for its
     # kernels (K1 also runs in lane mode in the wavefront run), K4/K3/N1a/N1b
-    # from the modular run, K5 from the sticky run, K6 from the BVH run
+    # from the modular run, K5 from the sticky run, K6 from the BVH run, N2a
+    # and N2b from the BVH lane runs (K3 in lane mode there: "launches_lane")
     counts = dict(runs["fused"])
     counts.update({k: runs["modular"][k] for k in MODULAR})
     counts["persistent"] = runs["sticky"]["persistent"]
     counts["bvh"] = runs["bvh"]["bvh"]
+    counts["refill"] = runs["bvh-wavefront"]["refill"]
+    counts["restart"] = runs["bvh-sticky"]["restart"]
+    lane["sampler-lane"]["launches"] = sum(runs[p]["sampler"]
+                                           for p in ("bvh-wavefront", "bvh-sticky"))
+    idle = [k for k in KERNELS if counts[k] < 1]
+    if idle:
+        raise SystemExit(f"kernels not launched on the main path: {idle}")
     phase_render(dev)
     phase_render_bvh(dev)
     errs.update(lane_errs)  # K1's row also holds its lane-mode error
     bvh = phase_timing_bvh(dev, gpu)
     errs["bvh"] = max(errs["bvh"], bvh["max_abs_err"])
-    record = phase_timing(dev, gpu, counts, errs, cornell, k5_state, bvh, n1)
+    record = phase_timing(dev, gpu, counts, errs, cornell, k5_state, bvh, n1, lane)
     del n1
     phase_graphs(dev, gpu)
     phase_runtime(dev, gpu)

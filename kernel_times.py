@@ -37,6 +37,17 @@ and N1a's and N1b's device ms and launches summed over the frame), then
 the sum of the bounds of the N1a and N1b launches of the frame of seed 1
 (``chip_smoke.n1_frame_bounds``, on its eager twin): the launch-weighted
 share is that sum over seed 1's frame-summed ms.
+``--lane-frames`` profiles only the four lane frames (the BVH frame on the
+counter wavefront and the sticky engine, the Cornell frame on the counter
+wavefront's fused route and on the sticky engine's fused route below one
+lane per pixel, 262,144 lanes), graphed, ``--frames`` profiled frames each
+after a warm-up: wall and device ms, busy share, launches, rounds, path
+vertices, and the device ms and launches of each hand-written kernel by
+name; the BVH frames also print the ATen ops one round dispatches beside
+its kernels (``chip_smoke.round_ops``), on any tree. ``--lane-kernels``
+holds and times only N2a, N2b and K3 in lane mode on the BVH lane engines'
+states (``chip_smoke.phase_kernels_round``; a tree without them has
+nothing to time).
 ``--shade-kernels`` times only N1a and N1b, per launch in place, on the
 BVH frame's 921,600-lane camera, bounce-1 and bounce-3 states
 (``chip_smoke.n1_states``, ``shade_times``) with their bounds.
@@ -96,6 +107,10 @@ def main() -> int:
                          "profiled frames each")
     ap.add_argument("--sector-writes", action="store_true",
                     help="only masked row writes against whole-sector ones, 921,600 lanes")
+    ap.add_argument("--lane-frames", action="store_true",
+                    help="only the four lane frames, graphed, --frames profiled frames each")
+    ap.add_argument("--lane-kernels", action="store_true",
+                    help="only N2a, N2b and K3 in lane mode on the BVH lane engines' states")
     ap.add_argument("--shade-kernels", action="store_true",
                     help="only N1a and N1b per launch on the BVH frame's camera, bounce-1 "
                          "and bounce-3 states")
@@ -136,6 +151,17 @@ def main() -> int:
     if args.modular_frames:
         modular_frames(dev, CS.bvh_desc(w, h, spp), load_scene(CS.CORNELL, w, h, spp),
                        args.frames, say)
+        return 0
+    if args.lane_frames:
+        lane_frames(dev, CS.bvh_desc(w, h, spp), load_scene(CS.CORNELL, w, h, spp),
+                    args.frames, say)
+        return 0
+    if args.lane_kernels:
+        if not os.path.exists(os.path.join(root, "raytracing_course_2024_tpu_torch", "ops",
+                                           "refill.py")):
+            say(lane_kernels="none in this tree")
+            return 0
+        CS.phase_kernels_round(dev, gpu)
         return 0
     if args.sector_writes:
         sector_writes(dev, say, args.reps)
@@ -256,6 +282,50 @@ def modular_frames(dev, bvh, cornell, frames: int, say) -> None:
                             f"{tag}_share": round(b[k]["bound_ms"] / n1_ms[1][k], 4)})
             say(frame=name, seed=1, **out)
             torch.cuda.empty_cache()
+
+
+# the hand-written kernels a lane frame may launch, by the name the profiler gives them
+LANE_KERNELS = {"K6": "bvh_nearest_kernel", "N1a": "shade_kernel", "K3": "sampler_kernel",
+                "N1b": "finish_kernel", "N2a": "refill", "N2b": "restart_kernel",
+                "K1": "bounce_kernel"}
+
+
+def lane_frames(dev, bvh, cornell, frames: int, say) -> None:
+    """The lane engines' frames, graphed: a warm-up frame (it captures),
+    then ``frames`` frames under torch.profiler (``chip_smoke.profiled_frame``):
+    wall ms, device ms, busy share, device launches, rounds, path vertices,
+    and the device ms and launches of each kernel of ``LANE_KERNELS``
+    (N2a: its count and refill launches together); on the BVH frames, the
+    ATen ops of one round beside its kernels (``chip_smoke.round_ops``)."""
+    from raytracing_course_2024_tpu_torch.runtime.render import Renderer
+
+    for name, desc, kw in (("bvh-wavefront", bvh, {"engine": "wavefront"}),
+                           ("bvh-sticky", bvh, {"engine": "sticky"}),
+                           ("cornell-wavefront-fused", cornell, {"engine": "wavefront"}),
+                           ("cornell-sticky-fused-262144", cornell,
+                            {"engine": "sticky", "batch_size": 262_144})):
+        r = Renderer(desc, device=dev, **kw)
+        r.render_frame_device(seed=0)
+        for seed in range(1, frames + 1):
+            p = CS.profiled_frame(r, seed)
+            kern = {}
+            for tag, key in LANE_KERNELS.items():
+                rows = [x for x in p["rows"] if key in x[2]]
+                if rows:
+                    kern[tag] = [round(sum(x[0] for x in rows), 4), sum(x[1] for x in rows)]
+            say(frame=name, seed=seed, wall_ms=round(p["wall_ms"], 3),
+                device_ms=round(p["device_ms"], 3), busy_share=round(p["busy_share"], 4),
+                device_launches=p["launches"], rounds=r.rounds,
+                path_vertices=int(p["path_vertices"]),
+                kernels=json.dumps(kern).replace(" ", ""),
+                top=json.dumps([[round(ms, 3), n, k[:40]] for ms, n, k in p["rows"][:5]])
+                .replace(" ", ""))
+        if name.startswith("bvh"):
+            ops = CS.round_ops(Renderer(desc, device=dev, eager=True, **kw))
+            say(frame=name, aten_ops_per_round=sum(ops.values()),
+                top=json.dumps(sorted(ops.items(), key=lambda kv: -kv[1])[:6]).replace(" ", ""))
+        del r
+        torch.cuda.empty_cache()
 
 
 SECTOR_CU = r"""

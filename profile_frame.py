@@ -6,6 +6,8 @@
     python3 profile_frame.py --engine wavefront # K1 in lane mode + refills
     python3 profile_frame.py --bvh --engine E   # the BVH scene on engine E (K6)
     python3 profile_frame.py --bvh --eager      # graphed and eager frames in turns
+    python3 profile_frame.py --bvh --engine E --stages [--root TREE]
+                                                # a lane round's device ms by stage
 
 Renders scenes/cornell_box.gltf (with ``--bvh``: chip_smoke.py's
 81,920-triangle BVH scene) at 1280x720 x 16 spp through the port's
@@ -18,11 +20,23 @@ frame's mode, wall ms, the summed device ms and its share of the wall time
 (the device's busy share), the lane engines' rounds, then device ms and
 launch counts per kernel name, largest first. The profiler itself slows the
 host, so the busy share of an unprofiled frame is higher.
+
+``--stages`` (a lane engine) splits the device time of one eager frame's
+rounds by stage (``stage_split``): the refill (``RefillBody.__call__``) or
+the sticky restart (``StickyBody.restart``), the bounce core and inside it
+the kernels (the nearest hit, N1a, N1b, K1, and K3 where the core takes
+it), so the sampler as the core's rest, and the bookkeeping as the rounds'
+rest. Each round body runs back to back behind a held stream and is timed
+by CUDA event pairs, so its host cost is not in the numbers; the sticky K5
+loop has no such bodies. ``--root TREE`` loads the package from
+another tree (a parent unpacked with ``git archive``), so that one script
+splits both.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import subprocess
 import sys
@@ -33,6 +47,96 @@ import chip_smoke as CS
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
+HOLD_MS = 60.0  # the stream held before each round body: longer than the host's enqueue
+
+
+class StageTimer:
+    """CUDA event pairs around the stages of the lane rounds, summed by
+    stage. Before each round body (``CoreBody``, ``RefillBody`` and
+    ``StickyBody`` calls) a spin kernel holds the stream
+    (``chip_smoke.hold_stream``), so the host enqueues the whole body before
+    the card starts it and the card then runs it back to back: each pair
+    spans device time only, not the host's way to the launches."""
+
+    def __init__(self):
+        self.pairs: dict = {}
+
+    def wrap(self, fn, name: str, hold: bool = False):
+        def call(*a, **kw):
+            if hold:
+                CS.hold_stream(HOLD_MS)
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*a, **kw)
+            end.record()
+            self.pairs.setdefault(name, []).append((start, end))
+            return out
+        return call
+
+    def ms(self) -> dict:
+        torch.cuda.synchronize()
+        return {k: sum(a.elapsed_time(b) for a, b in v) for k, v in self.pairs.items()}
+
+
+@contextlib.contextmanager
+def stage_timer():
+    """While active, the lane rounds' stages are timed (``StageTimer``):
+    ``body`` (each round body), ``refill`` (``RefillBody.__call__``, N2a on
+    a card since it has one), ``restart`` (``StickyBody.restart``), ``core``
+    (the bounce, made while active) and ``kernel`` (each kernel wrapper the
+    core calls: the nearest hit, N1a, N1b, K3 and K1)."""
+    from raytracing_course_2024_tpu_torch.integrator import path as P
+    from raytracing_course_2024_tpu_torch.integrator import wavefront as W
+    from raytracing_course_2024_tpu_torch.ops import bounce as B
+
+    timer = StageTimer()
+    saved = []
+
+    def patch(obj, attr, wrapped):
+        saved.append((obj, attr, getattr(obj, attr)))
+        setattr(obj, attr, wrapped)
+
+    for cls in (W.CoreBody, W.StickyBody):
+        patch(cls, "__call__", timer.wrap(cls.__call__, "body", hold=True))
+    refill = W.RefillBody.__call__
+    patch(W.RefillBody, "__call__", timer.wrap(timer.wrap(refill, "refill"), "body", hold=True))
+    patch(W.StickyBody, "restart", timer.wrap(W.StickyBody.restart, "restart"))
+    make = W._make_bounce_core
+
+    def make_timed(*a, **kw):
+        core, fused = make(*a, **kw)
+        return timer.wrap(core, "core"), fused
+
+    patch(W, "_make_bounce_core", make_timed)
+    for mod, name in ((W, "nearest_table"), (W, "shade"), (W, "finish"),
+                      (P, "sample_mixture_kernel"), (B, "bounce")):
+        patch(mod, name, timer.wrap(getattr(mod, name), "kernel"))
+    try:
+        yield timer
+    finally:
+        for obj, attr, fn in reversed(saved):
+            setattr(obj, attr, fn)
+
+
+def stage_split(desc, engine: str, seed: int = 1) -> dict:
+    """Device ms of one eager frame of ``engine`` by stage of its rounds
+    (``stage_timer``): ``rounds_ms`` (every round body), ``refill_or_restart``,
+    ``kernels``, ``sampler`` (the core less its kernels) and ``bookkeeping``
+    (the bodies less all of those)."""
+    from raytracing_course_2024_tpu_torch.runtime.render import Renderer
+
+    r = Renderer(desc, device="cuda", engine=engine, eager=True)
+    r.render_frame_device(seed=0)  # warm-up: kernel build, allocator
+    with stage_timer() as timer:
+        r = Renderer(desc, device="cuda", engine=engine, eager=True)
+        r.render_frame_device(seed=seed)
+        ms = timer.ms()
+    refill = ms.get("refill", 0.0) + ms.get("restart", 0.0)
+    core, kern = ms.get("core", 0.0), ms.get("kernel", 0.0)
+    return {"rounds_ms": ms["body"], "refill_or_restart": refill, "kernels": kern,
+            "sampler": core - kern, "bookkeeping": ms["body"] - core - refill,
+            "rounds": r.rounds}
+
 
 def main() -> int:
     ap = argparse.ArgumentParser()
@@ -42,10 +146,14 @@ def main() -> int:
     ap.add_argument("--eager", action="store_true",
                     help="also profile eager=True frames, in turns with the graphed ones")
     ap.add_argument("--top", type=int, default=15)
+    ap.add_argument("--stages", action="store_true",
+                    help="a lane engine's eager frame split by the stage of its round")
+    ap.add_argument("--root", default=ROOT, help="tree that holds the package to profile")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_frame: no CUDA device", file=sys.stderr)
         return 1
+    sys.path.insert(0, os.path.abspath(args.root))
     from raytracing_course_2024_tpu_torch.runtime.render import Renderer
     from raytracing_course_2024_tpu_torch.scene import load_scene
 
@@ -56,6 +164,11 @@ def main() -> int:
         desc = CS.bvh_desc(1280, 720, 16)
     else:
         desc = load_scene(os.path.join(ROOT, "scenes", "cornell_box.gltf"), 1280, 720, 16)
+    if args.stages:
+        split = stage_split(desc, args.engine)
+        print(f"stages root={args.root} engine={args.engine} rounds={split.pop('rounds')} "
+              + " ".join(f"{k}={v:.3f}" for k, v in split.items()))
+        return 0
     kw = dict(device="cuda", russian_roulette=args.rr, engine=args.engine)
     rs = {"graphed": Renderer(desc, **kw)}
     if args.eager:

@@ -2,8 +2,8 @@
 // (bounce.cu) and the persistent round K5 (persistent.cu), so all three run
 // the same body: the nearest hit over the scene's entries, the bounce itself
 // (emission / background, MIS mixture sampling, BRDF * cos / pdf with
-// common.cuh's eval_brdf, the MIRROR / DIELECTRIC rules), the camera ray and
-// the staging of the scene tables in shared memory. The persistent grid and the queue of live
+// common.cuh's eval_brdf, the MIRROR / DIELECTRIC rules) and the staging of
+// the scene tables in shared memory (the camera ray is common.cuh's). The persistent grid and the queue of live
 // lanes are lane_queue.cuh's, which K3 and K4 walk their batches with too.
 // The plain PyTorch version is ops/bounce.py:_bounce_math. Everything sits in
 // an anonymous namespace, as in common.cuh.
@@ -217,19 +217,6 @@ __device__ __forceinline__ Tables stage_tables(const SceneArgs& p, bool lights, 
   }
   __syncthreads();
   return Tables{p.geo, sh.rec, p.m, sh.lp, sh.lspec, p.nl, p.num_lights};
-}
-
-// Jittered pinhole ray through pixel (px, py): ops/camera.py generate_rays_u.
-__device__ __forceinline__ void camera_ray(const float* cam, float px, float py, int width,
-                                           int height, float u0, float u1, V3& ro, V3& rd) {
-  const float sx = (2.0f * (px + u0) / (float)width - 1.0f) * cam[CAM_TANX];
-  const float sy = -(2.0f * (py + u1) / (float)height - 1.0f) * cam[CAM_TANY];
-  V3 d;
-  d.x = sx * cam[CAM_RIGHT + 0] + sy * cam[CAM_UP + 0] + cam[CAM_FWD + 0];
-  d.y = sx * cam[CAM_RIGHT + 1] + sy * cam[CAM_UP + 1] + cam[CAM_FWD + 1];
-  d.z = sx * cam[CAM_RIGHT + 2] + sy * cam[CAM_UP + 2] + cam[CAM_FWD + 2];
-  ro = mk(cam[CAM_POS], cam[CAM_POS + 1], cam[CAM_POS + 2]);
-  rd = normalize(d, 1e-30f);
 }
 
 // Rows 0-12 of a channel-major (rows, b) state: ro3, rd3, thr3, rad3, alive.

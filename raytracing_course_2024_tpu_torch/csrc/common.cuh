@@ -1,9 +1,10 @@
 // Device code shared by the fused bounce (bounce.cu, K1/K2), the persistent
 // round (persistent.cu, K5), the standalone mixture sampler (sampler.cu, K3),
 // the dense nearest hit (dense_nearest.cu, K4), the BVH nearest hit
-// (bvh_traverse.cu, K6) and the modular bounce's shade and finish (shade.cu,
-// N1a/N1b): table layouts, 3-vector and quaternion math, the counter RNG and
-// its draw layouts, the three direction samplers, their pdfs and the MIS
+// (bvh_traverse.cu, K6), the modular bounce's shade and finish (shade.cu,
+// N1a/N1b) and the lane engines' refill and restart (refill.cu, N2a/N2b):
+// table layouts, 3-vector and quaternion math, the counter RNG and
+// its draw layouts, the camera ray, the three direction samplers, their pdfs and the MIS
 // mixture stage, the BRDF, and the ray test of one primitive record. K1, K5
 // and K3 therefore run the same sampler code, K1, K5 and K6 the same shape
 // tests, and all match the plain PyTorch versions in ops/sampling.py,
@@ -110,6 +111,20 @@ __device__ __forceinline__ Ctr at_depth(Ctr c, uint32_t stride, uint32_t depth) 
   return c;
 }
 constexpr uint32_t CTR_JITTER = 0;  // draws 0 and 1 of every path: camera jitter
+
+// Jittered pinhole ray through pixel (px, py): ops/camera.py generate_rays_u,
+// op for op (K2, K5 and the lane engines' refill and restart, N2a/N2b).
+__device__ __forceinline__ void camera_ray(const float* cam, float px, float py, int width,
+                                           int height, float u0, float u1, V3& ro, V3& rd) {
+  const float sx = (2.0f * (px + u0) / (float)width - 1.0f) * cam[CAM_TANX];
+  const float sy = -(2.0f * (py + u1) / (float)height - 1.0f) * cam[CAM_TANY];
+  V3 d;
+  d.x = sx * cam[CAM_RIGHT + 0] + sy * cam[CAM_UP + 0] + cam[CAM_FWD + 0];
+  d.y = sx * cam[CAM_RIGHT + 1] + sy * cam[CAM_UP + 1] + cam[CAM_FWD + 1];
+  d.z = sx * cam[CAM_RIGHT + 2] + sy * cam[CAM_UP + 2] + cam[CAM_FWD + 2];
+  ro = mk(cam[CAM_POS], cam[CAM_POS + 1], cam[CAM_POS + 2]);
+  rd = normalize(d, 1e-30f);
+}
 
 // What the device functions read of the scene. `rec` (the intersection
 // loop's records, bounce_body.cuh) and the light tables `lp`/`lspec` sit in

@@ -19,6 +19,12 @@
 //   ctr.row r) (the batch layout: ctr_base + 2 + 7 t + r), the counter RNG
 //   of ops/rng.py, so kernel and plain version see the same numbers and the
 //   result does not depend on the lane count.
+// * Lane mode (a per-lane depth pointer): lane i draws at
+//   at_depth(ctr, ctr_stride, depth[i]), the lane engines' layout (2 + 64
+//   depth + t + 4 r at max_tries 4), as K1's lane mode does (bounce.cu). The
+//   JAX package's lane core sampled in XLA (integrator/wavefront.py:167-178,
+//   fused by XLA inside its lax.while_loop); in the port's lane rounds this
+//   kernel takes its place.
 // * seed and wid_off are read from device memory (two int64, their low 32
 //   bits), not passed by value: the JAX package traces them as arguments
 //   of one compiled frame, and here a captured CUDA graph replays one
@@ -66,7 +72,9 @@ struct SamplerParams {
   const uint8_t* need;  // (b,) bool
   const int* wid;       // (b,)
   const long long* seed_off;  // (2,): seed, wid_off (low 32 bits of each)
-  Ctr ctr;
+  Ctr ctr;             // the draws (lane mode: at depth 0)
+  const int* depth;    // (b,) per-lane depth in lane mode, else nullptr
+  uint32_t ctr_stride;  // counters per depth level in lane mode
   const float* lp;   // (LC_COUNT, nl)
   const int* lspec;  // (nl,)
   int nl, num_lights, max_tries;
@@ -106,10 +114,11 @@ __global__ void __launch_bounds__(kBlock) sampler_kernel(SamplerParams p) {
         const V3 v = mk(p.in[9][i], p.in[10][i], p.in[11][i]);
         const float roughness = p.in[12][i];
         const uint32_t key = work_key(seed, (uint32_t)p.wid[i] + wid_off);
+        const Ctr ctr = p.depth ? at_depth(p.ctr, p.ctr_stride, (uint32_t)p.depth[i]) : p.ctr;
         V3 l;
         float pdf;
         bool ok;
-        mixture(T, key, p.ctr, p.max_tries, point, n, ns, v, roughness, l, pdf, ok);
+        mixture(T, key, ctr, p.max_tries, point, n, ns, v, roughness, l, pdf, ok);
         store_lane(p, i, l, pdf, ok);
       });
 }
@@ -117,15 +126,16 @@ __global__ void __launch_bounds__(kBlock) sampler_kernel(SamplerParams p) {
 }  // namespace
 
 // ins: host array of 13 device pointers, each (b,) f32. seed_off: two
-// int64 on the device, the seed and the work-id offset. Returns
+// int64 on the device, the seed and the work-id offset. depth: (b,) int32
+// (lane mode) or null. Returns
 // cudaGetLastError() after the launch (cudaErrorInvalidValue for arguments
 // the kernel does not take). Never synchronises.
 extern "C" int rt_launch_sampler(const void* const* ins, const void* need, const void* wid,
                                  const void* seed_off, unsigned ctr_base,
                                  unsigned ctr_cand, unsigned ctr_row, unsigned ctr_diel,
-                                 const void* lp, const void* lspec, int nl, int num_lights,
-                                 int max_tries, long long b, void* out, void* ok,
-                                 void* stream) {
+                                 const void* depth, unsigned ctr_stride, const void* lp,
+                                 const void* lspec, int nl, int num_lights, int max_tries,
+                                 long long b, void* out, void* ok, void* stream) {
   if (b < 0 || b > 0x7fffffffLL || nl < 1 || nl > MAX_LIGHTS || num_lights < 0 || num_lights > nl ||
       max_tries < 1)
     return (int)cudaErrorInvalidValue;
@@ -136,6 +146,8 @@ extern "C" int rt_launch_sampler(const void* const* ins, const void* need, const
   p.wid = static_cast<const int*>(wid);
   p.seed_off = static_cast<const long long*>(seed_off);
   p.ctr = Ctr{ctr_base, ctr_cand, ctr_row, ctr_diel};
+  p.depth = static_cast<const int*>(depth);
+  p.ctr_stride = ctr_stride;
   p.lp = static_cast<const float*>(lp);
   p.lspec = static_cast<const int*>(lspec);
   p.nl = nl;

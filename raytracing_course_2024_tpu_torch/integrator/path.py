@@ -61,8 +61,8 @@ import torch
 
 from ..ops import bounce as B
 from ..ops.camera import CameraArrays, camera_from_row, generate_rays_u, pack_camera_row
-from ..ops.rng import (CTR_JITTER, check_work_ids, draws_per_bounce, offset_ids, uniform_ctr,
-                       work_key)
+from ..ops.rng import (CTR_JITTER, WF_STRIDE, batch_ctr, check_work_ids, draws_per_bounce,
+                       lane_ctr, offset_ids, uniform_ctr, work_key)
 from ..ops.sampler import sample_mixture_kernel, sampler_plain
 from ..ops.sampling import UNROLL_MAX_LIGHTS
 from ..ops.scene_intersect import ModularScene
@@ -247,21 +247,41 @@ def _bounce(state: torch.Tensor, scene: ModularScene, cfg: TraceConfig, seed,
     tensors on the lanes' device; the bounce reads nothing from the host.
     Returns ``(state', live')``."""
     state, surf, need = _collect_hit(state, scene, cfg, plain, live)
-    k = cfg.max_tries
-    args = (scene, seed, wid, wid_off, bounce_i * draws_per_bounce(k), *sampler_inputs(surf),
-            need, k)
-    # K3 takes the fast acceptance: "auto" at most 32 lights, "pallas" always
-    # (K3 refuses a larger light table); faithful acceptance, larger light
-    # tables under "auto" and "xla" (CPU only, ``check_sampler``) take the
-    # XLA formulation, as in the JAX package
-    if not plain and not cfg.faithful and (
-            cfg.sampler == "pallas"
-            or (cfg.sampler == "auto" and scene.statics.num_lights <= UNROLL_MAX_LIGHTS)):
-        l_s, pdf, ok = sample_mixture_kernel(*args)
-    else:
-        l_s, pdf, ok = sampler_plain(*args, faithful=cfg.faithful)
+    l_s, pdf, ok = sample_bounce(scene, cfg, seed, wid, wid_off, surf, need, plain, bounce_i)
     return (finish_plain if plain else finish)(state, surf, l_s, pdf, ok, wid, seed, wid_off,
                                                cfg, bounce_i)
+
+
+def takes_k3(cfg: TraceConfig, statics: SceneStatics) -> bool:
+    """Whether the modular bounce samples in K3 (both engines): the fast
+    acceptance under "auto" with at most 32 lights, or under "pallas" (K3
+    refuses a larger light table). Faithful acceptance, a larger light table
+    under "auto" and "xla" (CPU only, ``check_sampler``) take the XLA
+    formulation, as in the JAX package."""
+    return not cfg.faithful and (
+        cfg.sampler == "pallas"
+        or (cfg.sampler == "auto" and statics.num_lights <= UNROLL_MAX_LIGHTS))
+
+
+def sample_bounce(scene: ModularScene, cfg: TraceConfig, seed, wid: torch.Tensor, wid_off,
+                  surf, need: torch.Tensor, plain: bool = False, bounce_i: int = 0,
+                  depth: torch.Tensor | None = None):
+    """The modular bounce's mixture sampler on N1a's surface ``surf``, for
+    the batch route (the draws of level ``bounce_i``) and the lane engines'
+    rounds (``depth``: each lane's own depth in their layout): K3 where
+    ``takes_k3`` says so (its plain version on the CPU and with ``plain``),
+    else the XLA formulation. Returns (l, pdf, ok)."""
+    k = cfg.max_tries
+    ins = (*sampler_inputs(surf), need, k)
+    if depth is None:
+        ctr = batch_ctr(bounce_i * draws_per_bounce(k), k)
+    else:
+        ctr = lane_ctr(0, k)  # the kernel moves it WF_STRIDE per level of depth
+    if not plain and takes_k3(cfg, scene.statics):
+        return sample_mixture_kernel(scene, seed, wid, wid_off, ctr, *ins, depth)
+    if depth is not None:
+        ctr = ctr.at_depth(depth, WF_STRIDE)
+    return sampler_plain(scene, seed, wid, wid_off, ctr, *ins, faithful=cfg.faithful)
 
 
 def trace_paths(scene: ModularScene, ro: Vec3, rd: Vec3, seed,

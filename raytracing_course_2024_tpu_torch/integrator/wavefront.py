@@ -27,11 +27,13 @@ A bounce (``_make_bounce_core``) is either the fused core, K1 in lane mode
 acceptance, ``RT_MEGAKERNEL=0``, large scenes, the BVH backend): the
 scene's nearest hit over the finite table (``ops/traverse.py:nearest_table``:
 K4 or the sweep, or the BVH walk K6), the shade pass N1a (the planes,
-``surface_detail``, emission, and the final-depth rule), the XLA
-``sample_mixture`` fed the layout's draws and the finish pass N1b
-(``_finish_bounce`` with the layout's draws, then ``park``): N1a and N1b
-are ``ops/shade.py``'s kernels on the card. As in the JAX package, the
-XLA core never takes the sampler kernel K3.
+``surface_detail``, emission, and the final-depth rule), the mixture
+sampler on the layout's draws and the finish pass N1b (``_finish_bounce``
+with the layout's draws, then ``park``). The sampler is picked by the batch
+route's rule (``integrator/path.py:sample_bounce``): K3 in lane mode, or
+its XLA formulation for faithful acceptance and large light tables. On the
+card N1a, K3 and N1b are kernels; the JAX package's lane core samples in
+XLA, which fuses it.
 
 Per-lane depth replaces the batch engine's bounce index: a lane whose
 final depth is reached dies after collecting emission (the reference
@@ -42,7 +44,9 @@ of every lane (one K1 or one K5 launch on the fused routes).
 The counter wavefront's bounce and refill and the sticky round are bodies
 over static buffers (``CoreBody``, ``RefillBody``, ``StickyBody``) that read
 the seed and the frame offsets on the device, on either route (K1 reads
-its seed pair there too, N1b the same pair). Given a graph cache (``runtime/graphs.py``) the
+its seed pair there too, K3 and N1b the same pair); the refill and the
+sticky restart are one kernel each on the card, N2a and N2b
+(``ops/refill.py``). Given a graph cache (``runtime/graphs.py``) the
 counter wavefront replays its refill and its bounce as captured CUDA graphs
 and the sticky engine its whole round (restart, core, the live test), the
 counterpart of the JAX package's ``_render_wf`` (each engine one
@@ -55,19 +59,19 @@ read one round late. Every engine refuses a frame whose work ids would pass
 from __future__ import annotations
 
 import os
+import threading
 
 import torch
 
 from ..ops import bounce as B
-from ..ops.camera import CameraArrays, generate_rays_u, pack_camera_row
+from ..ops import refill as RF
+from ..ops.camera import CameraArrays, pack_camera_row
 from ..ops.persistent import N_PSTATE, S_ACC, S_K, persistent_plain, persistent_round
-from ..ops.rng import CTR_JITTER, check_work_ids, lane_ctr, mixture_rows, uniform_ctr, work_key
-from ..ops.sampling import sample_mixture
-from ..ops.shade import (PARK_DIR, PARK_ORIGIN, finish, finish_plain, park, sampler_inputs,
-                         shade, shade_plain)
+from ..ops.rng import check_work_ids, lane_ctr
+from ..ops.shade import PARK_DIR, PARK_ORIGIN, finish, finish_plain, park, shade, shade_plain
 from ..ops.traverse import nearest_table
 from ..ops.vec import Vec3
-from .path import TraceConfig, check_sampler, graphed_body
+from .path import TraceConfig, check_sampler, graphed_body, sample_bounce
 
 
 def _scene_device(scene) -> torch.device:
@@ -82,18 +86,11 @@ def _initial_state(rows: int, b: int, dev) -> torch.Tensor:
     return st
 
 
-def _camera_rows(cam: CameraArrays, px, py, width, height, key):
-    """(6, B) jittered camera rays (ro3, rd3) from draws 0 and 1 of ``key``."""
-    o, d = generate_rays_u(cam, px, py, width, height, uniform_ctr(key, CTR_JITTER),
-                           uniform_ctr(key, CTR_JITTER + 1))
-    return torch.stack([*o, *d])
-
-
-def _restart_rows(state: torch.Tensor, take: torch.Tensor, rays: torch.Tensor) -> None:
-    """Lanes in ``take`` start a fresh path on ``rays`` (in place)."""
-    state[0:6] = torch.where(take, rays, state[0:6])
-    state[6:9] = torch.where(take, 1.0, state[6:9])
-    state[12] = torch.where(take, 1.0, state[12])
+def _lane_frame(cam: CameraArrays, width: int, height: int, n_pix: int, samples: int,
+                dev) -> RF.LaneFrame:
+    """The frame the refill or the restart reads, the camera row on ``dev``."""
+    row = torch.from_numpy(pack_camera_row(cam)[0]).to(dev)
+    return RF.LaneFrame(cam, row, width, height, n_pix, samples)
 
 
 def _lane_seed(seed):
@@ -138,10 +135,9 @@ def _make_bounce_core(cfg: TraceConfig, scene, seed, plain: bool = False):
         t, idx = nearest_table(ro, rd, scene, plain=plain, live=state[12] > 0.5)
         # N1a: alive becomes "hit and depth < last", the final-depth rule
         st, surf, need = shade_fn(state, t, idx, scene, bg, depth=depth, last=last)
-        l_s, pdf, ok = sample_mixture(
-            mixture_rows(work_key(seed, wid), lane_ctr(depth, k), k), *sampler_inputs(surf),
-            scene.lp_np, scene.statics, k, need=need, faithful=cfg.faithful,
-            lp_dev=scene.light_packed)
+        # K3 in lane mode, or its XLA formulation (``takes_k3``), as on the batch route
+        l_s, pdf, ok = sample_bounce(scene, cfg, seed, wid, wid_off, surf, need, plain,
+                                     depth=depth)
         # N1b in the lane layout parks the rays of the lanes it leaves dead
         return finish_fn(st, surf, l_s, pdf, ok, wid, seed, wid_off, cfg, depth=depth)[0]
 
@@ -165,6 +161,7 @@ class CoreBody:
         self.wid = torch.zeros((lanes,), dtype=torch.int32, device=dev)
         self.depth = torch.zeros((lanes,), dtype=torch.int32, device=dev)
         self.n_alive = torch.zeros((), dtype=torch.int64, device=dev)
+        self.plain = plain
         self.core, _ = _make_bounce_core(cfg, scene, self.seed_off, plain)
 
     def __call__(self) -> None:
@@ -179,26 +176,27 @@ class RefillBody:
     ``bases`` ((2,) int64: pix_base, samp_base), ``work`` (the work item of
     each lane, int64, -1 for none), ``counter`` (0-dim int64: the work items
     handed out) and ``done`` (3 x (work items + lanes) f32: column ``w``
-    holds work item ``w``'s radiance, column ``total_work + l`` takes lane
-    ``l``'s writes while it holds no finished item, the JAX package's
-    ``mode="drop"``; every column is written by one lane, so the writes are
-    plain stores, in no order that could change a sum). A call flushes the
-    dead lanes' radiance, ranks them by a cumulative sum, hands them the next
-    work items, writes every lane's work id into ``wid`` and starts the
-    taken lanes on their camera rays. It reads nothing from the host: the
-    host mirrors ``counter`` with the same integer arithmetic."""
+    holds work item ``w``'s radiance; every column is written by one lane,
+    so the writes are plain stores, in no order that could change a sum). A
+    call is ``ops/refill.py:refill`` (N2a on a card): it flushes the dead
+    lanes' radiance, hands them the next work items in lane order, writes
+    every lane's work id into ``wid`` and starts the taken lanes on their
+    camera rays. It reads nothing from the host: the host mirrors
+    ``counter`` with the same integer arithmetic."""
 
     def __init__(self, core: CoreBody, cam: CameraArrays, width: int, height: int, n_pix: int,
                  samples: int):
         dev = core.state.device
         b = core.state.shape[1]
-        self.core, self.cam, self.width, self.height = core, cam, width, height
-        self.n_pix, self.total = n_pix, n_pix * samples
+        self.core = core
+        self.frame = _lane_frame(cam, width, height, n_pix, samples, dev)
+        self.total = n_pix * samples
         self.bases = torch.zeros((2,), dtype=torch.int64, device=dev)
         self.work = torch.full((b,), -1, dtype=torch.int64, device=dev)
         self.counter = torch.zeros((), dtype=torch.int64, device=dev)
         self.done = torch.zeros((3, self.total + b), dtype=torch.float32, device=dev)
         self.drop = self.total + torch.arange(b, dtype=torch.int64, device=dev)
+        self.scan = RF.refill_scan(b, dev) if dev.type == "cuda" and not core.plain else None
 
     def reset(self, seed32: int, pix_base: int, samp_base: int) -> None:
         """A pass's seed and offsets in, every lane dead with no work."""
@@ -211,30 +209,21 @@ class RefillBody:
             t.zero_()
         self.work.fill_(-1)
 
-    def wid_of(self, work: torch.Tensor) -> torch.Tensor:
-        """Work item -> work id: (pixel ``work % n_pix``, sample ``work // n_pix``)."""
-        frame_pix = self.width * self.height
-        return ((self.bases[1] + work // self.n_pix) * frame_pix + self.bases[0]
-                + work % self.n_pix)
-
     def __call__(self) -> None:
-        state, work, depth = self.core.state, self.work, self.core.depth
-        dead = state[12] < 0.5
-        self.done.index_copy_(1, torch.where(dead & (work >= 0), work, self.drop), state[9:12])
-        state[9:12] = torch.where(dead, 0.0, state[9:12])
-        new_id = self.counter + torch.cumsum(dead, 0) - 1
-        take = dead & (new_id < self.total)
-        work.copy_(torch.where(take, new_id, torch.where(dead, -1, work)))
-        self.counter += torch.minimum(dead.sum(), self.total - self.counter)
-        w = work.clamp(min=0)
-        wid = self.wid_of(w)
-        pixg = self.bases[0] + w % self.n_pix
-        rays = _camera_rows(self.cam, pixg % self.width,
-                            torch.clamp(pixg // self.width, max=self.height - 1), self.width,
-                            self.height, work_key(self.core.seed, wid))
-        _restart_rows(state, take, rays)
-        depth.copy_(torch.where(take, 0, depth))
-        self.core.wid.copy_(wid.to(torch.int32))
+        c = self.core
+        args = (c.state, self.work, self.counter, self.done, c.depth, c.wid, c.seed_off,
+                self.bases, self.frame)
+        if c.plain:
+            RF.refill_plain(*args)
+        else:
+            RF.refill(*args, self.scan)
+
+
+# refills the counter wavefront has run (every pass and shard, eager or
+# replayed): the host's own count, which a caller may set to 0 and read
+# beside N2a's launches (ops/kernels.py:LAUNCHES["refill"])
+REFILLS = [0]
+_REFILLS_LOCK = threading.Lock()  # shards render from threads
 
 
 # work items of one counter-refill pass: the flush keeps 12 bytes per item
@@ -310,6 +299,8 @@ def render_wavefront(seed32: int, pix_base: int, samp_base: int, cam: CameraArra
         n_take = 0
         if n_dead >= thresh:  # flush dead lanes' radiance, hand out fresh work
             run_refill()
+            with _REFILLS_LOCK:
+                REFILLS[0] += 1
             n_take = min(n_dead, total_work - counter)
             counter += n_take
         nverts += b - n_dead + n_take
@@ -333,27 +324,30 @@ class StickyBody:
     through the fused core (K1 in lane mode) off the K5 route, over static
     buffers: ``seed_off`` ((2,) int64: the seed and 0; ``seed`` is its first
     element) and ``bases`` (pix_base, samp_base) in; the lanes' state, path
-    counters ``k`` and depths, the radiance slots ``acc``, the path vertices
-    ``nverts`` and ``more`` (a lane is alive or has paths left) carried from
-    round to round. A call is one round: flush the finished paths and
-    restart the dead lanes, one bounce, then ``more``."""
+    counters ``k``, depths and work ids, the radiance slots ``acc``, the
+    path vertices ``nverts`` and ``more`` (a lane is alive or has paths
+    left) carried from round to round. A call is one round: the restart
+    (``ops/refill.py:restart``, N2b on a card: flush the finished paths,
+    restart the dead lanes, every lane's work id), one bounce, then
+    ``more``."""
 
     def __init__(self, cfg: TraceConfig, scene, cam: CameraArrays, width: int, height: int,
                  n_pix: int, samples: int, lanes: int, plain: bool = False):
         dev = _scene_device(scene)
         b = self.b = lanes
-        self.cam, self.width, self.height = cam, width, height
-        self.n_pix, self.samples = n_pix, samples
+        self.plain = plain
+        self.frame = _lane_frame(cam, width, height, n_pix, samples, dev)
         self.jmax = max(-(-n_pix // b), 1)  # owned pixels per lane (ceil)
         self.seed_off = torch.zeros((2,), dtype=torch.int64, device=dev)
         self.seed = self.seed_off[0]
         self.bases = torch.zeros((2,), dtype=torch.int64, device=dev)
-        self.lane = torch.arange(b, dtype=torch.int64, device=dev)
-        self.kmax = sum((self.lane + j * b < n_pix).to(torch.int64)
+        lane = torch.arange(b, dtype=torch.int64, device=dev)
+        self.kmax = sum((lane + j * b < n_pix).to(torch.int64)
                         for j in range(self.jmax)) * samples
         self.state = _initial_state(B.N_STATE, b, dev)
         self.k = torch.zeros((b,), dtype=torch.int64, device=dev)
         self.depth = torch.zeros((b,), dtype=torch.int32, device=dev)
+        self.wid = torch.zeros((b,), dtype=torch.int32, device=dev)
         self.acc = torch.zeros((3, self.jmax * b), dtype=torch.float32, device=dev)  # j * b + l
         self.nverts = torch.zeros((), dtype=torch.int64, device=dev)
         self.more = torch.zeros((), dtype=torch.bool, device=dev)
@@ -365,45 +359,24 @@ class StickyBody:
         self.bases[0].fill_(pix_base)
         self.bases[1].fill_(samp_base)
         self.state.copy_(_initial_state(B.N_STATE, self.b, self.state.device))
-        for t in (self.k, self.depth, self.acc, self.nverts):
+        for t in (self.k, self.depth, self.wid, self.acc, self.nverts):
             t.zero_()
         self.more.copy_(self._more())
 
     def _more(self) -> torch.Tensor:
         return ((self.state[12] > 0.5) | (self.k < self.kmax)).any()
 
-    def path_coords(self, k):
-        """Current path (k - 1 for started paths) -> (owned slot, pixel, sample)."""
-        cur = torch.clamp(k - 1, min=0)
-        j = cur // self.samples
-        return j, torch.clamp(self.lane + j * self.b, max=self.n_pix - 1), cur % self.samples
-
-    def wid_of(self, pixl, samp):
-        return ((self.bases[1] + samp) * (self.width * self.height) + self.bases[0] + pixl)
-
     def restart(self) -> None:
-        """Flush dead lanes' finished paths, start their next sample."""
-        state, k = self.state, self.k
-        dead = state[12] < 0.5
-        slot = self.path_coords(k)[0] * self.b + self.lane  # distinct per lane: fixed sum order
-        self.acc.index_add_(1, slot, torch.where(dead & (k > 0), state[9:12], 0.0))
-        state[9:12] = torch.where(dead, 0.0, state[9:12])
-        take = dead & (k < self.kmax)
-        k.copy_(torch.where(take, k + 1, k))
-        _, pixl, samp = self.path_coords(k)
-        pixg = self.bases[0] + pixl
-        w, h = self.width, self.height
-        rays = _camera_rows(self.cam, pixg % w, torch.clamp(pixg // w, max=h - 1), w, h,
-                            work_key(self.seed, self.wid_of(pixl, samp)))
-        _restart_rows(state, take, rays)
-        self.depth.copy_(torch.where(take, 0, self.depth))
+        """Flush dead lanes' finished paths, start their next sample, write
+        every lane's work id."""
+        (RF.restart_plain if self.plain else RF.restart)(
+            self.state, self.k, self.kmax, self.depth, self.wid, self.acc, self.seed_off,
+            self.bases, self.frame)
 
     def __call__(self) -> None:
         self.restart()
         self.nverts += (self.state[12] > 0.5).sum()
-        _, pixl, samp = self.path_coords(self.k)
-        self.state.copy_(self.core(self.state, self.wid_of(pixl, samp).to(torch.int32),
-                                   self.depth))
+        self.state.copy_(self.core(self.state, self.wid, self.depth))
         self.depth += 1
         self.more.copy_(self._more())
 

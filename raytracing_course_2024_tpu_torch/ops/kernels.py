@@ -15,8 +15,8 @@ and launches on that device's current stream, so shards on several cards,
 or on threads, each launch where their data lies. ``LAUNCHES`` counts the
 launches of each kernel (the wrappers of ``ops/bounce.py``,
 ``ops/dense_nearest.py``, ``ops/sampler.py``, ``ops/persistent.py``,
-``ops/traverse.py`` and ``ops/shade.py`` call these functions); it and the tile tickets are
-changed under a lock. ``check`` validates a tensor before its pointer goes
+``ops/traverse.py``, ``ops/shade.py`` and ``ops/refill.py`` call these
+functions); it and the tile tickets are changed under a lock. ``check`` validates a tensor before its pointer goes
 to a kernel.
 
 Inside a CUDA graph capture (``runtime/graphs.py``) a wrapper's launch is
@@ -44,8 +44,8 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
-SOURCES = ("bounce.cu", "bvh_traverse.cu", "dense_nearest.cu", "persistent.cu", "sampler.cu",
-           "shade.cu")
+SOURCES = ("bounce.cu", "bvh_traverse.cu", "dense_nearest.cu", "persistent.cu", "refill.cu",
+           "sampler.cu", "shade.cu")
 # --fmad=false: no FMA contraction, so the kernels round op by op like the
 # plain versions (PyTorch runs one op per kernel). With contraction, grazing
 # hits and accept decisions flipped on ~0.1 % of the MIXED scene's lanes per
@@ -61,10 +61,12 @@ _LIB = None
 BUILD_INFO: dict = {}  # path, seconds (0.0 when cached), log of the last build
 
 # kernel launches per wrapper: the fused K2 / K1 (batch and lane mode) /
-# K1-final, the modular path's K4 and K3, the sticky engine's K5, the BVH
-# backend's K6, the modular bounce's shade (N1a) and finish (N1b)
+# K1-final, the modular path's K4 and K3 (batch and lane mode), the sticky
+# engine's K5, the BVH backend's K6, the modular bounce's shade (N1a) and
+# finish (N1b), the lane engines' refill (N2a, one count for its two
+# launches) and restart (N2b)
 LAUNCHES = {"primary": 0, "bounce": 0, "final": 0, "nearest": 0, "sampler": 0,
-            "persistent": 0, "bvh": 0, "shade": 0, "finish": 0}
+            "persistent": 0, "bvh": 0, "shade": 0, "finish": 0, "refill": 0, "restart": 0}
 _LOCK = threading.Lock()  # guards LAUNCHES and _TICKETS: shards launch from threads
 _RECORD = threading.local()  # .counts: the calling thread's capture recorder, if any
 
@@ -194,7 +196,7 @@ def library() -> ctypes.CDLL:
         lib.rt_launch_bvh_nearest.argtypes = [p, p, i, i, p, i, ll, f, p, p, p, p, p]
         lib.rt_launch_bvh_nearest.restype = i
         lib.rt_launch_sampler.argtypes = [
-            p, p, p, p, *ctr, p, p, i, i, i, ll, p, p, p,
+            p, p, p, p, *ctr, p, u, p, p, i, i, i, ll, p, p, p,
         ]
         lib.rt_launch_sampler.restype = i
         lib.rt_launch_persistent.argtypes = [
@@ -206,6 +208,11 @@ def library() -> ctypes.CDLL:
         lib.rt_launch_shade.restype = i
         lib.rt_launch_finish.argtypes = [p, ll, p, p, p, p, p, p, u, u, u, u, p, i, i, i, i, p, p]
         lib.rt_launch_finish.restype = i
+        lib.rt_launch_refill.argtypes = [p, ll, p, p, p, ll, p, p, p, p, p, ll, ll, i, i, p, ll,
+                                         p]
+        lib.rt_launch_refill.restype = i
+        lib.rt_launch_restart.argtypes = [p, ll, p, p, p, p, p, ll, p, p, p, ll, ll, i, i, p]
+        lib.rt_launch_restart.restype = i
         lib.rt_bounce_geometry.argtypes = [ctypes.POINTER(ctypes.c_int)]
         lib.rt_bounce_geometry.restype = None
         lib.rt_persistent_resident_blocks.argtypes = []
@@ -389,15 +396,16 @@ def launch_bvh_nearest(rays, nodes, stack, records, tmin, live, t_out, i_out) ->
     _count("bvh")
 
 
-def launch_sampler(ins, need, wid, seed_off, ctr, lp, lspec,
+def launch_sampler(ins, need, wid, seed_off, ctr, depth, ctr_stride, lp, lspec,
                    num_lights, max_tries, out, ok) -> None:
     """K3; ``seed_off`` is the (2,) int64 device tensor (seed, work-id
-    offset) the kernel reads."""
+    offset) the kernel reads; ``depth`` (lane mode) or None."""
     lib = library()
     with _on(out.device) as stream:
         rc = lib.rt_launch_sampler(
             _ptrs(ins), need.data_ptr(), wid.data_ptr(), seed_off.data_ptr(),
-            *_ctr(ctr), lp.data_ptr(), lspec.data_ptr(), lp.shape[1],
+            *_ctr(ctr), None if depth is None else depth.data_ptr(), _u32(ctr_stride),
+            lp.data_ptr(), lspec.data_ptr(), lp.shape[1],
             int(num_lights), int(max_tries), out.shape[1], out.data_ptr(),
             ok.data_ptr(), stream,
         )
@@ -441,3 +449,33 @@ def launch_finish(state, surf, lpdf, ok, wid, seed_off, base, stride, diel, rr_o
         )
     _raise_on(rc, "rt_launch_finish")
     _count("finish")
+
+
+def launch_refill(state, work, counter, done, depth, wid, seed_off, cam_row, bases, n_pix,
+                  samples, width, height, scan) -> None:
+    """N2a (two launches, one count); ``scan`` the (2 + tiles,) int64 scratch,
+    zero before the first launch (the kernels leave it so)."""
+    lib = library()
+    with _on(state.device) as stream:
+        rc = lib.rt_launch_refill(
+            state.data_ptr(), state.shape[1], work.data_ptr(), counter.data_ptr(),
+            done.data_ptr(), done.shape[1], depth.data_ptr(), wid.data_ptr(),
+            seed_off.data_ptr(), cam_row.data_ptr(), bases.data_ptr(), int(n_pix), int(samples),
+            int(width), int(height), scan.data_ptr(), scan.shape[0], stream,
+        )
+        _raise_on(rc, "rt_launch_refill", scan)
+    _count("refill")
+
+
+def launch_restart(state, k, kmax, depth, wid, acc, seed_off, cam_row, bases, n_pix, samples,
+                   width, height) -> None:
+    """N2b."""
+    lib = library()
+    with _on(state.device) as stream:
+        rc = lib.rt_launch_restart(
+            state.data_ptr(), state.shape[1], k.data_ptr(), kmax.data_ptr(), depth.data_ptr(),
+            wid.data_ptr(), acc.data_ptr(), acc.shape[1], seed_off.data_ptr(), cam_row.data_ptr(),
+            bases.data_ptr(), int(n_pix), int(samples), int(width), int(height), stream,
+        )
+    _raise_on(rc, "rt_launch_restart")
+    _count("restart")

@@ -96,6 +96,12 @@ class Ctr(NamedTuple):
     def mix(self, t: int, r: int):
         return self.base + t * self.cand + r * self.row
 
+    def at_depth(self, depth: torch.Tensor, stride: int) -> "Ctr":
+        """This layout moved by ``stride`` counters per level of each lane's
+        ``depth`` (int tensor): what the kernels' ``at_depth`` computes in
+        lane mode (``csrc/common.cuh``)."""
+        return self._replace(base=self.base + stride * depth.to(torch.int64))
+
 
 def batch_ctr(ctr_base: int, max_tries: int) -> Ctr:
     """The fused and modular paths' layout of the bounce whose draws start

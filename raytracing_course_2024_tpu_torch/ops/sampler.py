@@ -8,10 +8,14 @@ GGX-VNDF, light surface); the first with l.n_shade > 0 and l.n_geom > 0 is
 kept and the mixture pdf is evaluated for it only. Returns (l, pdf, ok).
 
 The TPU kernel drew from the hardware PRNG; here candidate ``t`` reads row
-``r`` at counter ``ctr_base + ops.rng.ctr_mix(t, r)`` (the batch layout,
-``ops.rng.batch_ctr``) of the lane's key
-``work_key(seed, wid + wid_off)``, so the kernel, its plain version and
-the fused bounce (K1, same counters at the same bounce) see the same draws.
+``r`` at counter ``ctr.mix(t, r)`` of the lane's key
+``work_key(seed, wid + wid_off)``, where ``ctr`` is an ``ops.rng.Ctr``:
+the batch layout (``batch_ctr``) on the modular batch route, the lane
+engines' layout (``lane_ctr``) in their rounds. In lane mode the kernel
+takes the depth-0 layout and each lane's ``depth`` and moves the counters
+``WF_STRIDE`` per level, as K1's lane mode does (``Ctr.at_depth``). So the
+kernel, its plain version and the fused bounce (K1, same counters at the
+same bounce) see the same draws.
 
 ``sampler_plain`` is the JAX package's XLA ``sample_mixture`` fed those
 draws as its 7 candidate-major rows (``ops/sampling.py``). ``ok`` is
@@ -37,33 +41,37 @@ from __future__ import annotations
 import torch
 
 from .kernels import check, launch_sampler
-from .rng import batch_ctr, mixture_rows, offset_ids, seed_off, work_key
+from .rng import WF_STRIDE, Ctr, mixture_rows, offset_ids, seed_off, work_key
 from .sampling import UNROLL_MAX_LIGHTS, sample_mixture
 from .vec import Vec3
 
 
 def sampler_plain(scene, seed, wid: torch.Tensor, wid_off,
-                  ctr_base: int, point: Vec3, n_geom: Vec3, n_shade: Vec3,
+                  ctr: Ctr, point: Vec3, n_geom: Vec3, n_shade: Vec3,
                   v: Vec3, roughness: torch.Tensor, need: torch.Tensor,
                   max_tries: int = 4, faithful: bool = False):
     """Plain version of ``sample_mixture_kernel``; ``faithful=True`` is the
     reference's acceptance, which has no kernel (the JAX package runs it in
-    XLA only)."""
+    XLA only). ``ctr`` may hold one base per lane (the lane layout)."""
     key = work_key(seed, offset_ids(wid, wid_off))
-    rows = mixture_rows(key, batch_ctr(ctr_base, max_tries), max_tries)
+    rows = mixture_rows(key, ctr, max_tries)
     return sample_mixture(rows, point, n_geom, n_shade, v, roughness, scene.lp_np,
                           scene.statics, max_tries, need=need, faithful=faithful,
                           lp_dev=scene.light_packed)
 
 
 def sample_mixture_kernel(scene, seed, wid: torch.Tensor, wid_off,
-                          ctr_base: int, point: Vec3, n_geom: Vec3, n_shade: Vec3,
+                          ctr: Ctr, point: Vec3, n_geom: Vec3, n_shade: Vec3,
                           v: Vec3, roughness: torch.Tensor, need: torch.Tensor,
-                          max_tries: int = 4):
-    """Mixture-sampled direction per lane: (l Vec3, pdf, ok)."""
+                          max_tries: int = 4, depth: torch.Tensor | None = None):
+    """Mixture-sampled direction per lane: (l Vec3, pdf, ok). ``ctr`` has an
+    int base; ``depth`` (int32 (B,)) selects lane mode: lane ``i`` draws at
+    ``ctr.at_depth(depth, WF_STRIDE)``."""
     dev = point.x.device
     if dev.type == "cpu":
-        return sampler_plain(scene, seed, wid, wid_off, ctr_base, point, n_geom, n_shade,
+        if depth is not None:
+            ctr = ctr.at_depth(depth, WF_STRIDE)
+        return sampler_plain(scene, seed, wid, wid_off, ctr, point, n_geom, n_shade,
                              v, roughness, need, max_tries)
     if dev.type != "cuda":
         raise ValueError(f"no sampler kernel for device {dev}")
@@ -73,6 +81,10 @@ def sample_mixture_kernel(scene, seed, wid: torch.Tensor, wid_off,
         check(f"input row {i}", c, torch.float32, (b,), dev)
     check("need", need, torch.bool, (b,), dev)
     check("wid", wid, torch.int32, (b,), dev)
+    if depth is not None:
+        check("depth", depth, torch.int32, (b,), dev)
+    if isinstance(ctr.base, torch.Tensor):
+        raise ValueError("the kernel takes a Ctr with an int base; per-lane depths go in `depth`")
     lp, lspec = scene.light_packed, scene.lspec
     nl = lp.shape[1]
     if not 1 <= nl <= UNROLL_MAX_LIGHTS:
@@ -83,6 +95,6 @@ def sample_mixture_kernel(scene, seed, wid: torch.Tensor, wid_off,
     check("seed_off", pair, torch.int64, (2,), dev)
     out = torch.empty((4, b), dtype=torch.float32, device=dev)
     ok = torch.empty((b,), dtype=torch.bool, device=dev)
-    launch_sampler(ins, need, wid, pair, batch_ctr(ctr_base, max_tries), lp, lspec,
+    launch_sampler(ins, need, wid, pair, ctr, depth, WF_STRIDE, lp, lspec,
                    scene.statics.num_lights, max_tries, out, ok)
     return Vec3(out[0], out[1], out[2]), out[3], ok

@@ -5,9 +5,11 @@ Two backends, as in the JAX package (``backend=``; by default ``"bvh"``
 above ``BVH_THRESHOLD`` finite primitives, else ``"dense"``): the dense
 nearest hit, or the host SAH tree of ``ops/bvh.py`` walked by K6
 (``ops/traverse.py``). Three engines (``engine=`` or ``RT_ENGINE``; the
-default is ``"batch"`` on both backends: on the BVH frame of PERF.md it
-takes 0.6 s against the counter wavefront's 1.0 s and the sticky engine's
-2.3 s on an H100, where the JAX package picks the wavefront for its TPU):
+default is ``"batch"`` on both backends, where the JAX package picks the
+wavefront for its BVH backend. The 81,920-triangle BVH frame of PERF.md,
+graphed on an NVIDIA H100 80GB HBM3 at a 700 W limit, takes 26.5-27.1 ms
+on the batch engine, 17.2-17.3 ms on the counter wavefront and 26.7-28.2
+ms on the sticky engine; ROADMAP.md leaves the default to the benchmark):
 
 * ``batch``: pixels are flattened into fixed-size lane batches; each batch
   runs ``integrator.path.render_pixels`` (``render_batches``). Frames

@@ -44,6 +44,7 @@ from raytracing_course_2024_tpu_torch.integrator import path as P
 from raytracing_course_2024_tpu_torch.integrator import wavefront as W
 from raytracing_course_2024_tpu_torch.ops import bounce as B
 from raytracing_course_2024_tpu_torch.ops import kernels
+from raytracing_course_2024_tpu_torch.ops import refill as RF
 from raytracing_course_2024_tpu_torch.ops import rng as trng
 from raytracing_course_2024_tpu_torch.ops import sampler as S
 from raytracing_course_2024_tpu_torch.ops import traverse as T
@@ -113,9 +114,9 @@ def test_sampler_with_tensor_scalars_equals_ints(name, fn, seed, off):
     scene, wid, point, n, v, rough, need = _sampler_inputs(name)
     f = {"plain": S.sampler_plain, "kernel": S.sample_mixture_kernel,
          "faithful": lambda *a: S.sampler_plain(*a, faithful=True)}[fn]
-    want = f(scene, seed, wid, off, 2 * trng.draws_per_bounce(4), point, n, n, v, rough, need)
-    got = f(scene, _i64(seed), wid, _i64(off), 2 * trng.draws_per_bounce(4), point, n, n,
-            v, rough, need)
+    ctr = trng.batch_ctr(2 * trng.draws_per_bounce(4), 4)
+    want = f(scene, seed, wid, off, ctr, point, n, n, v, rough, need)
+    got = f(scene, _i64(seed), wid, _i64(off), ctr, point, n, n, v, rough, need)
     for a, b in zip([*want[0], *want[1:]], [*got[0], *got[1:]]):
         assert torch.equal(a, b)
     assert want[2].any()
@@ -176,10 +177,10 @@ def _lane_state(d, scene, b):
     w, h = d.settings.width, d.settings.height
     work = torch.arange(b, dtype=torch.int64)
     pix = work % (w * h)
-    rows = W._camera_rows(camera_arrays(d.settings.camera), pix % w, pix // w, w, h,
-                          trng.work_key(SEED32, work))
+    rows = RF.camera_rows(camera_arrays(d.settings.camera), pix % w, pix // w, w, h,
+                           trng.work_key(SEED32, work))
     st = W._initial_state(13, b, "cpu")
-    W._restart_rows(st, work % 5 != 0, rows)
+    RF.restart_rows(st, work % 5 != 0, rows)
     return st, work.to(torch.int32), (work % 3).to(torch.int32)
 
 

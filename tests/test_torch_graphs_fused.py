@@ -36,6 +36,8 @@ from raytracing_course_2024_tpu_torch.integrator import path as P
 from raytracing_course_2024_tpu_torch.integrator import wavefront as W
 from raytracing_course_2024_tpu_torch.ops import bounce as B
 from raytracing_course_2024_tpu_torch.ops import kernels
+from raytracing_course_2024_tpu_torch.ops import refill as RF
+from raytracing_course_2024_tpu_torch.ops.rng import work_key
 from raytracing_course_2024_tpu_torch.ops.bounce import bounce_scene
 from raytracing_course_2024_tpu_torch.ops.camera import camera_arrays, pack_camera_row
 from raytracing_course_2024_tpu_torch.runtime.graphs import GraphCache
@@ -277,9 +279,9 @@ def test_refill_body_equals_the_eager_refill():
     w = work.clamp(min=0)
     wid = (4 + w // 100) * (W_ * H_) + 37 + w % 100
     pixg = 37 + w % 100
-    rays = W._camera_rows(r.cam, pixg % W_, torch.clamp(pixg // W_, max=H_ - 1), W_, H_,
-                          W.work_key(_seed32(SEED), wid))
-    W._restart_rows(state, take, rays)
+    rays = RF.camera_rows(r.cam, pixg % W_, torch.clamp(pixg // W_, max=H_ - 1), W_, H_,
+                           work_key(_seed32(SEED), wid))
+    RF.restart_rows(state, take, rays)
     assert torch.equal(refill.done, done) and torch.equal(refill.work, work)
     assert torch.equal(core.state, state)
     assert torch.equal(core.depth, torch.where(take, 0, depth))

@@ -74,8 +74,8 @@ def _jax(c, wid_off, base, faithful):
 
 
 def _port(fn, c, wid_off, base, **kw):
-    return fn(c["scene"], SEED, torch.from_numpy(c["wid"]), wid_off, base, tv(c["point"]),
-              tv(c["n"]), tv(c["ns"]), tv(c["v"]), torch.from_numpy(c["rough"]),
+    return fn(c["scene"], SEED, torch.from_numpy(c["wid"]), wid_off, trng.batch_ctr(base, K),
+              tv(c["point"]), tv(c["n"]), tv(c["ns"]), tv(c["v"]), torch.from_numpy(c["rough"]),
               torch.from_numpy(c["need"]), K, **kw)
 
 

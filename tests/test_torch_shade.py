@@ -402,7 +402,7 @@ def test_kernels_match_plain_versions_on_the_card(card, name, layout):
     cfg = P.TraceConfig(ray_depth=DEPTH, bg_color=c["bg"], max_tries=K,
                         rr=layout != "batch-faithful", faithful=layout == "batch-faithful")
     wid = torch.from_numpy(c["idx"]).to(card)
-    args = (scene, SEED, wid, 0, RR_START * trng.draws_per_bounce(K),
+    args = (scene, SEED, wid, 0, trng.batch_ctr(RR_START * trng.draws_per_bounce(K), K),
             *SH.sampler_inputs(psurf), pneed, K)
     from raytracing_course_2024_tpu_torch.ops.sampler import sampler_plain
 
@@ -514,7 +514,8 @@ def test_kernels_bit_equal_on_sparse_and_dead_warp_states(card, pattern, layout)
 
     cfg = P.TraceConfig(ray_depth=DEPTH, bg_color=c["bg"], max_tries=K, rr=True)
     wid = torch.from_numpy(c["idx"][:n]).to(card)
-    l, pdf, ok = sampler_plain(scene, SEED, wid, 0, RR_START * trng.draws_per_bounce(K),
+    l, pdf, ok = sampler_plain(scene, SEED, wid, 0,
+                               trng.batch_ctr(RR_START * trng.draws_per_bounce(K), K),
                                *SH.sampler_inputs(psurf), pneed, K)
     fkw = dict(depth=depth) if lane else dict(bounce_i=RR_START)
     kf, klive = SH.finish(ps.clone(), psurf, l, pdf, ok, wid, SEED, 0, cfg, **fkw)

@@ -263,8 +263,15 @@ def _launches(dev):
         ("bvh", "bvh", lambda: kernels.launch_bvh_nearest(
             rays, t(5, 8), 3, t(8, 12), 0.0, None, t(), t())),
         ("sampler", "sampler", lambda: kernels.launch_sampler(
-            [t() for _ in range(13)], t(), t(), t(2), ctr, t(12, 2), t(2), 1, 4, t(4, 64),
-            t())),
+            [t() for _ in range(13)], t(), t(), t(2), ctr, None, 64, t(12, 2), t(2), 1, 4,
+            t(4, 64), t())),
+        ("sampler-lane-mode", "sampler", lambda: kernels.launch_sampler(
+            [t() for _ in range(13)], t(), t(), t(2), ctr, t(), 64, t(12, 2), t(2), 1, 4,
+            t(4, 64), t())),
+        ("refill", "refill", lambda: kernels.launch_refill(
+            t(13, 64), t(), t(), t(3, 164), t(), t(), t(2), t(128), t(2), 50, 2, 16, 12, t(3))),
+        ("restart", "restart", lambda: kernels.launch_restart(
+            t(13, 64), t(), t(), t(), t(), t(3, 64), t(2), t(128), t(2), 50, 2, 16, 12)),
         ("shade", "shade", lambda: kernels.launch_shade(
             t(13, 64), t(), t(), t(8, 40), t(20, 1), t(1), 1, True, True, t(), 5, bg, False,
             (t(13, 64), t(64, 8)), t())),
