@@ -186,6 +186,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import hashlib
 import json
 import logging
 import math
@@ -1325,15 +1326,16 @@ def refill_bytes(state, work, counter, total: int) -> float:
 
 def restart_bytes(state, k, kmax) -> float:
     """The bytes one N2b launch must move, counting an output only where it
-    changes: every lane's alive flag read; on a dead lane k and kmax read,
-    its work id written and its radiance zeroed (a live lane's k, work id
-    and slot stay as they are); where it flushes its radiance read and its
-    slot read and written; on a restarted lane k, its ray, throughput,
-    alive flag and depth written."""
+    changes: every lane's alive flag read; on a dead lane k read, its work
+    id written and its radiance zeroed (a live lane's k, work id and slot
+    stay as they are; kmax follows from the lane index and is not read);
+    where it flushes its radiance read and its slot read and written; on a
+    restarted lane k, its ray, throughput, alive flag and depth written.
+    ``kmax`` only tells which dead lanes restart."""
     dead = state[12] < 0.5
     flush = float((dead & (k > 0)).sum())
     taken = float((dead & (k < kmax)).sum())
-    return (state.shape[1] * 4 + float(dead.sum()) * (8 + 8 + 4 + 12) + flush * (12 + 24)
+    return (state.shape[1] * 4 + float(dead.sum()) * (8 + 4 + 12) + flush * (12 + 24)
             + taken * (8 + 44))
 
 
@@ -3582,15 +3584,19 @@ PROFILED = ("bvh-batch", "cornell-batch-fused", "cornell-wavefront-fused")
 
 def profiled_frame(r, seed: int) -> dict:
     """One frame of ``r`` under torch.profiler (device events only): wall
-    ms, summed device ms, busy share, device launches, path vertices and the
-    rows (device ms, count, name), largest first."""
+    ms, summed device ms, busy share, device launches, path vertices, the
+    rows (device ms, count, name), largest first, and ``image_sha``, the
+    first 16 hex digits of the SHA-256 of the image's bytes (taken after the
+    profiled window), which two trees' frames of one seed share when their
+    images are equal bit for bit."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        _, verts = r.render_frame_device(seed=seed)
+        outs, verts = r.render_frame_device(seed=seed)
         wall = (time.perf_counter() - t0) * 1e3
+    img = torch.cat(list(outs), dim=1).cpu().numpy()
     rows = []
     for evt in prof.key_averages():
         if evt.device_type != torch.autograd.DeviceType.CUDA:
@@ -3603,7 +3609,8 @@ def profiled_frame(r, seed: int) -> dict:
     rows.sort(reverse=True)
     busy = sum(ms for ms, _, _ in rows)
     return {"wall_ms": wall, "device_ms": busy, "busy_share": busy / wall,
-            "launches": sum(n for _, n, _ in rows), "path_vertices": verts, "rows": rows}
+            "launches": sum(n for _, n, _ in rows), "path_vertices": verts, "rows": rows,
+            "image_sha": hashlib.sha256(img.tobytes()).hexdigest()[:16]}
 
 
 def graph_frame(r, seed: int, samp_base: int = 0) -> dict:

@@ -42,12 +42,21 @@ counter wavefront and the sticky engine, the Cornell frame on the counter
 wavefront's fused route and on the sticky engine's fused route below one
 lane per pixel, 262,144 lanes), graphed, ``--frames`` profiled frames each
 after a warm-up: wall and device ms, busy share, launches, rounds, path
-vertices, and the device ms and launches of each hand-written kernel by
-name; the BVH frames also print the ATen ops one round dispatches beside
-its kernels (``chip_smoke.round_ops``), on any tree. ``--lane-kernels``
+vertices, the image's digest, and the device ms and launches of each
+hand-written kernel by name; the BVH frames also print the ATen ops one
+round dispatches beside its kernels (``chip_smoke.round_ops``), on any
+tree. ``--lane-kernels``
 holds and times only N2a, N2b and K3 in lane mode on the BVH lane engines'
 states (``chip_smoke.phase_kernels_round``; a tree without them has
 nothing to time).
+``--lane-kernel-parts`` times only variants of N2a and N2b, each built from
+the tree's ``csrc/refill.cu`` with a few lines replaced (``LANE_PARTS``),
+on the BVH lane engines' round-10 states and N2b also on its 262,144-lane
+state (``lane_kernel_parts``): the
+kernels as built, then parts dropped or redesign items switched, in turns
+(the variants forward, backward, forward, backward, then each one's
+median); a variant whose lines the tree does not hold is named and left
+out.
 ``--shade-kernels`` times only N1a and N1b, per launch in place, on the
 BVH frame's 921,600-lane camera, bounce-1 and bounce-3 states
 (``chip_smoke.n1_states``, ``shade_times``) with their bounds.
@@ -55,7 +64,8 @@ BVH frame's 921,600-lane camera, bounce-1 and bounce-3 states
 around (``sector_writes``): 13 float rows of 921,600 lanes written on a
 random share of the lanes, each lane alone (32-byte sectors written in
 part) against every lane of an 8-lane group that holds one (sectors
-written whole), the L2 cache flushed before each launch.
+written whole: zeros from the others, or their own values read back
+first), the L2 cache flushed before each launch.
 ``--cornell-engines wavefront,...`` times only the Cornell frames of those
 engines (``frame_times``: median host ms of ``--frames`` frames, path
 vertices, rounds and the frame's peak device memory). ``--eager`` adds to
@@ -75,6 +85,7 @@ import ctypes
 import json
 import os
 import re
+import statistics
 import subprocess
 import sys
 
@@ -111,6 +122,9 @@ def main() -> int:
                     help="only the four lane frames, graphed, --frames profiled frames each")
     ap.add_argument("--lane-kernels", action="store_true",
                     help="only N2a, N2b and K3 in lane mode on the BVH lane engines' states")
+    ap.add_argument("--lane-kernel-parts", action="store_true",
+                    help="only variants of N2a and N2b (parts dropped, items switched) on "
+                         "the BVH lane engines' round-10 states")
     ap.add_argument("--shade-kernels", action="store_true",
                     help="only N1a and N1b per launch on the BVH frame's camera, bounce-1 "
                          "and bounce-3 states")
@@ -137,7 +151,8 @@ def main() -> int:
         if "Compiling entry" in ln:
             entry = re.sub(r".*function '([^']*)'.*", r"\1", ln)
         elif re.search(r"Used \d+ registers|spill", ln) and re.search(
-                r"bounce|primary|persistent|nearest|sampler|bvh|shade|finish", entry):
+                r"bounce|primary|persistent|nearest|sampler|bvh|shade|finish|refill|restart",
+                entry):
             say(ptxas=entry, line=f'"{ln.split(":", 1)[-1].strip()}"')
 
     dev = torch.device("cuda", 0)
@@ -162,6 +177,9 @@ def main() -> int:
             say(lane_kernels="none in this tree")
             return 0
         CS.phase_kernels_round(dev, gpu)
+        return 0
+    if args.lane_kernel_parts:
+        lane_kernel_parts(dev, root, gpu, say, args.reps)
         return 0
     if args.sector_writes:
         sector_writes(dev, say, args.reps)
@@ -294,9 +312,11 @@ def lane_frames(dev, bvh, cornell, frames: int, say) -> None:
     """The lane engines' frames, graphed: a warm-up frame (it captures),
     then ``frames`` frames under torch.profiler (``chip_smoke.profiled_frame``):
     wall ms, device ms, busy share, device launches, rounds, path vertices,
-    and the device ms and launches of each kernel of ``LANE_KERNELS``
-    (N2a: its count and refill launches together); on the BVH frames, the
-    ATen ops of one round beside its kernels (``chip_smoke.round_ops``)."""
+    the image's digest (``image_sha``: equal on two trees when their frames
+    of one seed are equal bit for bit), and the device ms and launches of
+    each kernel of ``LANE_KERNELS`` (N2a of a tree with the two-launch
+    refill: both launches together); on the BVH frames, the ATen ops of one
+    round beside its kernels (``chip_smoke.round_ops``)."""
     from raytracing_course_2024_tpu_torch.runtime.render import Renderer
 
     for name, desc, kw in (("bvh-wavefront", bvh, {"engine": "wavefront"}),
@@ -316,7 +336,7 @@ def lane_frames(dev, bvh, cornell, frames: int, say) -> None:
             say(frame=name, seed=seed, wall_ms=round(p["wall_ms"], 3),
                 device_ms=round(p["device_ms"], 3), busy_share=round(p["busy_share"], 4),
                 device_launches=p["launches"], rounds=r.rounds,
-                path_vertices=int(p["path_vertices"]),
+                path_vertices=int(p["path_vertices"]), image_sha=p["image_sha"],
                 kernels=json.dumps(kern).replace(" ", ""),
                 top=json.dumps([[round(ms, 3), n, k[:40]] for ms, n, k in p["rows"][:5]])
                 .replace(" ", ""))
@@ -328,17 +348,193 @@ def lane_frames(dev, bvh, cornell, frames: int, say) -> None:
         torch.cuda.empty_cache()
 
 
+# variants of csrc/refill.cu: kernel -> [(name, [(lines of the tree, their
+# replacement), ...]), ...]; count-launch-only, refill-launch-only,
+# no-flush-stores, kmax-computed and no-acc fit the earlier two-launch N2a
+# and one-lane N2b (where their time went, before the redesign), the others
+# the one-launch N2a and the two-route N2b (their design items; N2b's
+# "always-*" fix its route: whole sectors, or each lane writing only what
+# changes)
+WHOLE_RULE = "const bool whole = b > restart_whole_lanes();"
+LANE_PARTS = {
+    "refill": [
+        ("count-launch-only", [("  refill_kernel<<<(unsigned)tiles, kThreads, 0, s>>>(p);\n",
+                                "")]),
+        ("refill-launch-only", [("  refill_count_kernel<<<(unsigned)tiles, kThreads, 0, s>>>(p);\n",
+                                 "")]),
+        ("no-flush-stores", [(
+            "        if (w >= 0 && w < p.total) p.done[c * p.done_cols + w] = "
+            "p.state[(9 + c) * b + i];\n", "")]),
+        ("tile-1024", [("constexpr int kItems = 8; ", "constexpr int kItems = 4; ")]),
+        ("tile-4096", [("constexpr int kItems = 8; ", "constexpr int kItems = 16; ")]),
+        ("look-back-1-window", [("constexpr int kLook = 4; ", "constexpr int kLook = 1; ")]),
+        ("no-flush-columns", [(
+            "        if (wk >= 0 && wk < p.total) p.done[c * p.done_cols + wk] = rad[k][c];\n",
+            "")]),
+    ],
+    "restart": [
+        ("kmax-computed", [(
+            "const bool take = dead && k < p.kmax[i];",
+            "const bool take = dead && k < (i < p.f.n_pix ? (long long)((uint32_t)(p.f.n_pix"
+            " - 1 - i) / (uint32_t)b + 1u) * p.f.samples : 0LL);")]),
+        ("no-acc", [(
+            "    for (int c = 0; c < 3; ++c) p.acc[c * p.acc_cols + slot] += "
+            "p.state[(9 + c) * b + i];\n", "    (void)slot;\n")]),
+        ("always-in-part", [(WHOLE_RULE, "const bool whole = false;")]),
+        ("always-whole", [(WHOLE_RULE, "const bool whole = true;")]),
+        ("in-part-1-lane-a-thread", [(WHOLE_RULE, "const bool whole = false;"), (
+            "constexpr int kPartLanes = 2; ", "constexpr int kPartLanes = 1; ")]),
+        ("whole-2-lanes-a-thread", [(WHOLE_RULE, "const bool whole = true;"), (
+            "constexpr int kWholeLanes = 1; ", "constexpr int kWholeLanes = 2; ")]),
+        ("in-part-rad-every-lane", [("const bool need = in && (kWhole || alive[r] < 0.5f);",
+                                     "const bool need = in;")]),
+        ("in-part-1-lane-rad-every-lane", [
+            (WHOLE_RULE, "const bool whole = false;"),
+            ("const bool need = in && (kWhole || alive[r] < 0.5f);", "const bool need = in;"),
+            ("constexpr int kPartLanes = 2; ", "constexpr int kPartLanes = 1; ")]),
+        ("no-acc-slot", [
+            ("slot_v[r][c] = flush ? p.acc[c * p.acc_cols + slot[r]] : 0.0f;",
+             "slot_v[r][c] = 0.0f * (float)flush;"),
+            ("for (int c = 0; c < 3; ++c) p.acc[c * p.acc_cols + slot[r]] = slot_v[r][c] + "
+             "rad[r][c];", "(void)slot[r];")]),
+    ],
+}
+
+
+class _Swapped:
+    """The kernel library with one launcher taken from a variant's library."""
+
+    def __init__(self, base, so, name: str):
+        self.base, self.name = base, name
+        self.fn = getattr(so, name)
+        self.fn.argtypes = getattr(base, name).argtypes
+        self.fn.restype = getattr(base, name).restype
+
+    def __getattr__(self, attr):
+        return self.fn if attr == self.name else getattr(self.base, attr)
+
+
+# the states the variants are timed on: the round-10 states of the BVH lane
+# engines (1,048,576 lanes), and for N2b also its 262,144-lane state whose
+# lanes own 4 pixels (the size of the Cornell sticky frame off the K5 route)
+PART_STATES = {"refill": (CS.ROUND_TIMED,), "restart": (CS.ROUND_TIMED, "jmax")}
+
+
+def lane_kernel_parts(dev, root: str, gpu: str, say, reps: int) -> None:
+    """N2a and N2b as built and their ``LANE_PARTS`` variants, ms per launch
+    in place (``chip_smoke.cuda_ms_in_place``, ``reps`` launches, the state
+    put back outside the event pair, ``done`` not) on the states of
+    ``PART_STATES`` (``chip_smoke.lane_snapshots``), the variants in turns:
+    forward, backward, forward, backward; then each variant's median. Each
+    variant is ``csrc/refill.cu`` of the tree under ``root`` with its lines
+    replaced, compiled alone with the package's flags; its launcher stands
+    in for the built one (N2a through ``ops/kernels.py:launch_refill`` with a
+    scratch of one word per 256 lanes, enough for any tile size; N2b through
+    ``ops/refill.py:restart``). Every variant's scratch starts at zero and
+    stays its own."""
+    from pathlib import Path
+
+    from raytracing_course_2024_tpu_torch.ops import kernels
+    from raytracing_course_2024_tpu_torch.runtime.render import Renderer
+
+    csrc = Path(root) / "raytracing_course_2024_tpu_torch" / "csrc"
+    src = (csrc / "refill.cu").read_text()
+    base = kernels.library()
+    out_dir = kernels.BUILD_DIR / "lane_parts"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    w, h, spp = CS.FRAME
+    r = Renderer(CS.bvh_desc(w, h, spp), device=dev, eager=True)
+    snaps = CS.lane_snapshots(r, CS.STICKY_JMAX_LANES)
+    del r
+    for kind, variants in LANE_PARTS.items():
+        libs = {"as-built": base}
+        for name, patches in variants:
+            text = src
+            if not all(text.count(old) == 1 for old, _ in patches):
+                say(part=kind, variant=name, built="no: its lines are not in this tree")
+                continue
+            for old, new in patches:
+                text = text.replace(old, new)
+            cu, so = out_dir / f"{kind}-{name}.cu", out_dir / f"lib{kind}-{name}.so"
+            cu.write_text(text)
+            subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS, "-I", str(csrc), "-shared",
+                            "-o", str(so), str(cu)], check=True, capture_output=True)
+            libs[name] = ctypes.CDLL(str(so))
+        for tag in PART_STATES[kind]:
+            part_times(kind, tag, snaps[kind][tag], libs, base, dev, gpu, say, reps)
+
+
+def part_times(kind: str, tag: str, snap: tuple, libs: dict, base, dev, gpu: str, say,
+               reps: int) -> None:
+    """``lane_kernel_parts`` on one state: every library of ``libs`` in
+    turns, then each one's median."""
+    from raytracing_course_2024_tpu_torch.ops import kernels
+    from raytracing_course_2024_tpu_torch.ops import refill as RF
+
+    rnd, bufs, args = snap
+    seed_off, bases, frame = args
+    state = bufs[0]
+    b = state.shape[1]
+    total = frame.n_pix * frame.samples
+    nbytes = (CS.refill_bytes(state, bufs[1], bufs[2], total) if kind == "refill"
+              else CS.restart_bytes(state, bufs[1], bufs[2]))
+    bound_ms = CS.bound(nbytes, 0.0)[0]
+    scans = {n: torch.zeros((1 + -(-b // 256),), dtype=torch.int64, device=dev) for n in libs}
+    order = (list(libs) + list(reversed(libs))) * 2
+    times = {n: [] for n in libs}
+    for turn, name in enumerate(order):
+        work = [x.clone() for x in bufs]
+        back = [(x, y) for i, (x, y) in enumerate(zip(work, bufs))
+                if kind != "refill" or i != 3]
+
+        def restore():
+            for x, y in back:
+                x.copy_(y)
+
+        def launch():
+            if kind == "refill":
+                kernels.launch_refill(*work, seed_off, frame.cam_row, bases, frame.n_pix,
+                                      frame.samples, frame.width, frame.height, scans[name])
+            else:
+                RF.restart(*work, *args)
+
+        real = kernels.library
+        kernels.library = (lambda: base) if name == "as-built" else (
+            lambda so=libs[name]: _Swapped(base, so, f"rt_launch_{kind}"))
+        try:
+            if name == "refill-launch-only":  # its offsets: one whole launch first
+                restore()
+                kernels.library = lambda: base
+                launch()
+                kernels.library = lambda so=libs[name]: _Swapped(base, so, "rt_launch_refill")
+            ms = CS.cuda_ms_in_place(launch, restore, reps)
+        finally:
+            kernels.library = real
+        times[name].append(ms)
+        say(part=kind, state=tag, variant=name, turn=turn, round=rnd, lanes=b,
+            dead=round(float((state[12] < 0.5).float().mean()), 4), ms=round(ms, 4),
+            bound_ms=round(bound_ms, 5), share=round(bound_ms / ms, 4), gpu=f'"{gpu}"')
+    for name, ms in times.items():
+        med = statistics.median(ms)
+        say(part=kind, state=tag, variant=name, turns=len(ms), median_ms=round(med, 4),
+            min_ms=round(min(ms), 4), max_ms=round(max(ms), 4),
+            share=round(bound_ms / med, 4), gpu=f'"{gpu}"')
+
+
 SECTOR_CU = r"""
 #include <cuda_runtime.h>
 // 13 rows of n floats; lane i writes where m[i] (whole = 0), or where any
-// lane of its 8-lane group has m set, a zero if its own is not (whole = 1)
+// lane of its 8-lane group has m set, a zero if its own is not (whole = 1),
+// or its own value read back first if its own is not (whole = 2)
 __global__ void rows_kernel(float* out, const unsigned char* m, int n, int whole) {
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   bool mine = i < n && m[i];
   unsigned lanes = __ballot_sync(0xffffffffu, mine);
   bool write = whole ? (lanes & (0xffu << (threadIdx.x & 24u))) != 0u : mine;
   if (i >= n || !write) return;
-  for (int r = 0; r < 13; ++r) out[(long long)r * n + i] = mine ? 1.0f + r : 0.0f;
+  float old[13];
+  for (int r = 0; r < 13; ++r) old[r] = whole == 2 && !mine ? out[(long long)r * n + i] : 0.0f;
+  for (int r = 0; r < 13; ++r) out[(long long)r * n + i] = mine ? 1.0f + r : old[r];
 }
 extern "C" int rt_sector_rows(void* out, const void* m, int n, int whole, void* stream) {
   rows_kernel<<<(n + 255) / 256, 256, 0, (cudaStream_t)stream>>>(
@@ -352,8 +548,10 @@ def sector_writes(dev, say, reps: int) -> None:
     """13 rows of 921,600 floats written on a random share of the lanes:
     each writing lane alone, so that a 32-byte sector of a row is written in
     part, against every lane of an 8-lane group holding a writing lane
-    (zeros from the others), so that it is written whole; ms per launch,
-    an event pair per launch, the L2 cache flushed outside it."""
+    (zeros from the others), so that it is written whole, and against the
+    same with the others' own values read back first (what a lane must do
+    whose value has to stay); ms per launch, an event pair per launch, the
+    L2 cache flushed outside it."""
     from raytracing_course_2024_tpu_torch.ops import kernels
 
     out_dir = kernels.BUILD_DIR / "sector_writes"
@@ -369,9 +567,9 @@ def sector_writes(dev, say, reps: int) -> None:
     out = torch.empty((13, n), device=dev)
     flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)  # > the 50 MB L2
     gen = torch.Generator(device=dev).manual_seed(7)
-    for share in (1.0, 0.67, 0.38, 0.10, 0.03):
+    for share in (1.0, 0.76, 0.67, 0.64, 0.38, 0.10, 0.03):
         mask = (torch.rand(n, generator=gen, device=dev) < share).to(torch.uint8)
-        for whole in (0, 1):
+        for whole in (0, 1, 2):
             def launch():
                 rc = so.rt_sector_rows(out.data_ptr(), mask.data_ptr(), n, whole,
                                        torch.cuda.current_stream().cuda_stream)
@@ -379,8 +577,8 @@ def sector_writes(dev, say, reps: int) -> None:
                     raise RuntimeError(f"rt_sector_rows: CUDA error {rc}")
 
             ms = CS.cuda_ms_in_place(launch, flush.zero_, reps)
-            say(sector_writes="whole" if whole else "in-part", share=share, rows=13, lanes=n,
-                ms=round(ms, 4))
+            say(sector_writes=("in-part", "whole", "whole-read-back")[whole], share=share,
+                rows=13, lanes=n, ms=round(ms, 4))
 
 
 if __name__ == "__main__":

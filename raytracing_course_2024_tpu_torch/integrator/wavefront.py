@@ -341,9 +341,7 @@ class StickyBody:
         self.seed_off = torch.zeros((2,), dtype=torch.int64, device=dev)
         self.seed = self.seed_off[0]
         self.bases = torch.zeros((2,), dtype=torch.int64, device=dev)
-        lane = torch.arange(b, dtype=torch.int64, device=dev)
-        self.kmax = sum((lane + j * b < n_pix).to(torch.int64)
-                        for j in range(self.jmax)) * samples
+        self.kmax = RF.sticky_kmax(b, n_pix, samples, dev)
         self.state = _initial_state(B.N_STATE, b, dev)
         self.k = torch.zeros((b,), dtype=torch.int64, device=dev)
         self.depth = torch.zeros((b,), dtype=torch.int32, device=dev)

@@ -63,8 +63,7 @@ BUILD_INFO: dict = {}  # path, seconds (0.0 when cached), log of the last build
 # kernel launches per wrapper: the fused K2 / K1 (batch and lane mode) /
 # K1-final, the modular path's K4 and K3 (batch and lane mode), the sticky
 # engine's K5, the BVH backend's K6, the modular bounce's shade (N1a) and
-# finish (N1b), the lane engines' refill (N2a, one count for its two
-# launches) and restart (N2b)
+# finish (N1b), the lane engines' refill (N2a) and restart (N2b)
 LAUNCHES = {"primary": 0, "bounce": 0, "final": 0, "nearest": 0, "sampler": 0,
             "persistent": 0, "bvh": 0, "shade": 0, "finish": 0, "refill": 0, "restart": 0}
 _LOCK = threading.Lock()  # guards LAUNCHES and _TICKETS: shards launch from threads
@@ -211,7 +210,7 @@ def library() -> ctypes.CDLL:
         lib.rt_launch_refill.argtypes = [p, ll, p, p, p, ll, p, p, p, p, p, ll, ll, i, i, p, ll,
                                          p]
         lib.rt_launch_refill.restype = i
-        lib.rt_launch_restart.argtypes = [p, ll, p, p, p, p, p, ll, p, p, p, ll, ll, i, i, p]
+        lib.rt_launch_restart.argtypes = [p, ll, p, p, p, p, ll, p, p, p, ll, ll, i, i, p]
         lib.rt_launch_restart.restype = i
         lib.rt_bounce_geometry.argtypes = [ctypes.POINTER(ctypes.c_int)]
         lib.rt_bounce_geometry.restype = None
@@ -223,6 +222,8 @@ def library() -> ctypes.CDLL:
         lib.rt_bvh_nearest_geometry.restype = None
         lib.rt_sampler_resident_blocks.argtypes = []
         lib.rt_sampler_resident_blocks.restype = i
+        lib.rt_restart_whole_lanes.argtypes = []
+        lib.rt_restart_whole_lanes.restype = ll
         _LIB = lib
     return _LIB
 
@@ -298,7 +299,8 @@ def launch_geometry() -> dict:
     tree staged in shared memory (wide nodes), its shared and local bytes per
     block and thread and its registers, and each kernel's resident blocks per
     SM (the grid of K1, K2, K5 and K6 is SMs x resident blocks, or fewer
-    when the batch needs fewer; K3 and K4 launch one block per chunk)."""
+    when the batch needs fewer; K3 and K4 launch one block per chunk), and
+    the lanes above which N2b writes its rows in whole sectors."""
     lib = library()
     out = (ctypes.c_int * 6)()
     lib.rt_bounce_geometry(out)
@@ -313,7 +315,8 @@ def launch_geometry() -> dict:
             "resident_blocks": {"bounce": out[3], "final": out[4], "primary": out[5],
                                 "persistent": lib.rt_persistent_resident_blocks(),
                                 "nearest": k4[2],
-                                "sampler": lib.rt_sampler_resident_blocks(), "bvh": k6[6]}}
+                                "sampler": lib.rt_sampler_resident_blocks(), "bvh": k6[6]},
+            "restart_whole_above_lanes": lib.rt_restart_whole_lanes()}
 
 
 def launch_bounce(scene, state, out, wid, seed_off, ctr, depth, ctr_stride, bg,
@@ -453,8 +456,8 @@ def launch_finish(state, surf, lpdf, ok, wid, seed_off, base, stride, diel, rr_o
 
 def launch_refill(state, work, counter, done, depth, wid, seed_off, cam_row, bases, n_pix,
                   samples, width, height, scan) -> None:
-    """N2a (two launches, one count); ``scan`` the (2 + tiles,) int64 scratch,
-    zero before the first launch (the kernels leave it so)."""
+    """N2a; ``scan`` the (1 + tiles,) int64 scratch, zero before its first
+    launch (a launch leaves it ready for the next)."""
     lib = library()
     with _on(state.device) as stream:
         rc = lib.rt_launch_refill(
@@ -467,14 +470,14 @@ def launch_refill(state, work, counter, done, depth, wid, seed_off, cam_row, bas
     _count("refill")
 
 
-def launch_restart(state, k, kmax, depth, wid, acc, seed_off, cam_row, bases, n_pix, samples,
-                   width, height) -> None:
-    """N2b."""
+def launch_restart(state, k, depth, wid, acc, seed_off, cam_row, bases, n_pix, samples, width,
+                   height) -> None:
+    """N2b (each lane's kmax computed from its index)."""
     lib = library()
     with _on(state.device) as stream:
         rc = lib.rt_launch_restart(
-            state.data_ptr(), state.shape[1], k.data_ptr(), kmax.data_ptr(), depth.data_ptr(),
-            wid.data_ptr(), acc.data_ptr(), acc.shape[1], seed_off.data_ptr(), cam_row.data_ptr(),
+            state.data_ptr(), state.shape[1], k.data_ptr(), depth.data_ptr(), wid.data_ptr(),
+            acc.data_ptr(), acc.shape[1], seed_off.data_ptr(), cam_row.data_ptr(),
             bases.data_ptr(), int(n_pix), int(samples), int(width), int(height), stream,
         )
     _raise_on(rc, "rt_launch_restart")

@@ -13,10 +13,14 @@ round bodies of ``integrator/wavefront.py`` (``RefillBody``,
   their work items, their radiance zeroed, the next work items handed to
   them in lane order (the JAX ``cumsum``; the counter moves on by the items
   handed out), every lane's int32 work id written, and the taken lanes
-  started on their pixel's jittered camera ray at depth 0;
+  started on their pixel's jittered camera ray at depth 0; one launch, the
+  rank across tiles by a decoupled look-back over ``refill_scan``'s status
+  words;
 * ``restart`` (N2b): each lane's finished path added into its owned slot of
-  ``acc``, a dead lane's radiance zeroed and, with paths left, its next
-  path started; every lane's work id written.
+  ``acc``, a dead lane's radiance zeroed and, with paths left (``k <
+  kmax``, the kernel computing ``kmax`` from the lane index as
+  ``sticky_kmax`` does), its next path started; every lane's work id
+  written.
 
 Both update their buffers in place and equal their plain versions bit for
 bit. The plain versions are the bodies' torch code, moved here unchanged.
@@ -39,8 +43,8 @@ from .kernels import check, launch_refill, launch_restart
 from .rng import CTR_JITTER, uniform_ctr, work_key
 
 # lanes per tile of N2a's rank (csrc/refill.cu: kTileLanes); its launcher
-# refuses a scan too short for the tiles
-REFILL_TILE_LANES = 512
+# refuses a scan shorter than 1 + tiles
+REFILL_TILE_LANES = 2048
 
 
 class LaneFrame(NamedTuple):
@@ -85,11 +89,12 @@ def refill_plain(state, work, counter, done, depth, wid, seed_off, bases,
                  frame: LaneFrame) -> None:
     """Plain version of ``refill``. ``state`` the (13, B) path state,
     ``work`` each lane's int64 work item (-1 for none), ``counter`` the
-    0-dim int64 count of items handed out, ``done`` (3, total + B): column
-    ``w`` holds item ``w``'s radiance, column ``total + l`` takes lane
-    ``l``'s write while it holds no finished item (the JAX package's
-    ``mode="drop"``), ``depth`` and ``wid`` int32, ``seed_off`` the (2,)
-    int64 (seed, 0), ``bases`` the (2,) int64 (pix_base, samp_base)."""
+    0-dim int64 count of items handed out, in [0, total], ``done`` (3,
+    total + B): column ``w`` holds item ``w``'s radiance, column ``total +
+    l`` takes lane ``l``'s write while it holds no finished item (the JAX
+    package's ``mode="drop"``), ``depth`` and ``wid`` int32, ``seed_off``
+    the (2,) int64 (seed, 0), ``bases`` the (2,) int64 (pix_base,
+    samp_base)."""
     total = frame.n_pix * frame.samples
     dead = state[12] < 0.5
     drop = total + torch.arange(state.shape[1], dtype=torch.int64, device=state.device)
@@ -129,15 +134,18 @@ def refill(state, work, counter, done, depth, wid, seed_off, bases, frame: LaneF
         raise ValueError(f"done has {done.shape[1]} columns, the pass has {total} work items")
     if scan is None:
         raise ValueError("N2a needs its scan (refill_scan)")
-    check("scan", scan, torch.int64, (2 + -(-b // REFILL_TILE_LANES),), dev)
+    check("scan", scan, torch.int64, (1 + -(-b // REFILL_TILE_LANES),), dev)
     launch_refill(state, work, counter, done, depth, wid, seed_off, frame.cam_row, bases,
                   frame.n_pix, frame.samples, frame.width, frame.height, scan)
 
 
 def refill_scan(lanes: int, device) -> torch.Tensor:
-    """N2a's scratch for ``lanes`` lanes: a ticket, the counter's value and
-    one offset per tile of its lanes, zero (the kernels leave it so)."""
-    n = 2 + -(-lanes // REFILL_TILE_LANES)
+    """N2a's scratch for ``lanes`` lanes, zero: a ticket that every tile of
+    every launch counts up (tile = ticket % tiles, epoch = ticket / tiles)
+    and one status word per tile (flag, epoch, dead lanes so far). A launch
+    leaves it ready for the next: the words of an earlier epoch read as not
+    ready, so it is made once and never reset."""
+    n = 1 + -(-lanes // REFILL_TILE_LANES)
     return torch.zeros((n,), dtype=torch.int64, device=device)
 
 
@@ -150,12 +158,21 @@ def path_coords(k: torch.Tensor, lane: torch.Tensor, samples: int, n_pix: int):
     return j, torch.clamp(lane + j * lane.shape[0], max=n_pix - 1), cur % samples
 
 
+def sticky_kmax(lanes: int, n_pix: int, samples: int, device) -> torch.Tensor:
+    """(lanes,) int64: the paths lane ``l`` of the sticky engine owns,
+    ``samples`` times its pixels ``l + j * lanes < n_pix``, i.e. ``samples *
+    ((n_pix - 1 - l) // lanes + 1)`` for ``l < n_pix`` and 0 past them; N2b
+    computes the same from the lane index."""
+    lane = torch.arange(lanes, dtype=torch.int64, device=device)
+    return torch.where(lane < n_pix, ((n_pix - 1 - lane) // lanes + 1) * samples, 0)
+
+
 def restart_plain(state, k, kmax, depth, wid, acc, seed_off, bases, frame: LaneFrame) -> None:
     """Plain version of ``restart``. ``state`` the (13, B) path state, ``k``
-    and ``kmax`` each lane's int64 paths started and owned, ``depth`` and
-    ``wid`` int32, ``acc`` (3, jmax * B) the radiance slots (slot ``j * B +
-    l``: lane ``l``'s ``j``-th pixel), ``seed_off`` and ``bases`` as
-    ``refill_plain`` takes them."""
+    and ``kmax`` each lane's int64 paths started and owned (``kmax`` as
+    ``sticky_kmax`` makes it), ``depth`` and ``wid`` int32, ``acc`` (3, jmax
+    * B) the radiance slots (slot ``j * B + l``: lane ``l``'s ``j``-th
+    pixel), ``seed_off`` and ``bases`` as ``refill_plain`` takes them."""
     lane = torch.arange(state.shape[1], dtype=torch.int64, device=state.device)
     dead = state[12] < 0.5
     slot = path_coords(k, lane, frame.samples, frame.n_pix)[0] * lane.shape[0] + lane
@@ -173,7 +190,8 @@ def restart_plain(state, k, kmax, depth, wid, acc, seed_off, bases, frame: LaneF
 
 def restart(state, k, kmax, depth, wid, acc, seed_off, bases, frame: LaneFrame) -> None:
     """N2b for tensors on CUDA, its plain version for tensors on the CPU;
-    arguments as ``restart_plain``'s."""
+    arguments as ``restart_plain``'s. The kernel does not read ``kmax``: it
+    computes each lane's from its index, as ``sticky_kmax`` does."""
     dev = state.device
     if dev.type == "cpu":
         restart_plain(state, k, kmax, depth, wid, acc, seed_off, bases, frame)
@@ -183,10 +201,9 @@ def restart(state, k, kmax, depth, wid, acc, seed_off, bases, frame: LaneFrame) 
     b = state.shape[1]
     _check_lanes(state, depth, wid, seed_off, bases, frame, dev)
     check("k", k, torch.int64, (b,), dev)
-    check("kmax", kmax, torch.int64, (b,), dev)
     jmax = max(-(-frame.n_pix // b), 1)
     check("acc", acc, torch.float32, (3, jmax * b), dev)
-    launch_restart(state, k, kmax, depth, wid, acc, seed_off, frame.cam_row, bases,
+    launch_restart(state, k, depth, wid, acc, seed_off, frame.cam_row, bases,
                    frame.n_pix, frame.samples, frame.width, frame.height)
 
 

@@ -21,14 +21,18 @@ inputs, made with numpy from a seed.
   one column per work item as the port keeps it, from a counter near the
   end of the work so that some dead lanes take nothing;
 * the restart: ``restart_plain`` against ``wavefront.py:455-500`` likewise,
-  with lanes that own several pixels (jmax > 1) and lanes with no path left.
+  with lanes that own several pixels (jmax > 1) and lanes with no path left;
+  ``sticky_kmax``, the closed form N2b computes from the lane index, equal
+  to the JAX package's count of owned pixels.
 
 Work items, work ids, depths, counters, the flushed radiance and the
 state are equal bit for bit, except the camera rays' directions: XLA's
 normalisation rounds up to 2 ulp apart from PyTorch's op-by-op one. The lane frames themselves against the JAX
 engines are ``test_torch_wavefront.py``'s ``CASES``. On a card (marked
 ``cuda``; skipped here) N2a and N2b are held against their plain versions
-bit for bit, and K3 in lane mode against ``sampler_plain`` at K3's gate.
+bit for bit (N2a's one launch over more than 4,096 tiles, and three
+launches on one scratch), and K3 in lane mode against ``sampler_plain`` at
+K3's gate.
 """
 
 import jax.numpy as jnp
@@ -225,6 +229,24 @@ def test_refill_plain_matches_jax_refill(case):
     assert np.array_equal(t_done[:, :total].numpy(), done)
 
 
+@pytest.mark.parametrize("lanes,n_pix,samples", [(128, 300, 2), (256, 100, 3), (7, 3, 5),
+                                                 (1000, 1000, 1), (64, 5 * 64 + 1, 16),
+                                                 (96, 95, 4)])
+def test_sticky_kmax_equals_the_owned_pixels(lanes, n_pix, samples):
+    """``sticky_kmax`` (N2b's closed form) equals the JAX package's count of
+    the pixels ``l + j * lanes < n_pix`` each lane owns, times the samples
+    (``wavefront.py:438-442``), with lanes past the pixels (lanes > n_pix)
+    and lanes owning several (jmax > 1)."""
+    jmax = max(-(-n_pix // lanes), 1)
+    lane = jnp.arange(lanes, dtype=jnp.int32)
+    n_owned = jnp.zeros((lanes,), jnp.int32)
+    for j in range(jmax):
+        n_owned = n_owned + (lane + j * lanes < n_pix).astype(jnp.int32)
+    got = RF.sticky_kmax(lanes, n_pix, samples, "cpu")
+    assert got.dtype == torch.int64
+    assert np.array_equal(got.numpy(), np.asarray(n_owned * samples))
+
+
 def test_restart_plain_matches_jax_restart():
     b, n_pix, samples = 128, 300, 2  # jmax = 3: lanes 0..43 own three pixels
     jmax = -(-n_pix // b)
@@ -323,17 +345,13 @@ def _bit_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
     return torch.equal(a, b)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("case", list(REFILL_CASES))
-def test_refill_kernel_equals_plain_on_the_card(card, case):
-    b, n_pix, samples, left = REFILL_CASES[case]
-    b, n_pix, left = 33 * b, 40 * n_pix, 33 * left  # several tiles, the last one ragged
+def _refill_on_card(rng, b, n_pix, samples, left, card):
+    """A refill's buffers and arguments on the card: random lanes, about
+    half dead, ``left`` work items of ``n_pix * samples`` not handed out."""
     total = n_pix * samples
-    rng = np.random.default_rng(5)
     state = torch.from_numpy(_lane_state(rng, b)).to(card)
-    alive = (state[12] > 0.5).cpu().numpy()
-    work = _work(rng, alive, total - left)
-    bufs = [state, torch.from_numpy(work.astype(np.int64)).to(card),
+    work = _work(rng, (state[12] > 0.5).cpu().numpy(), total - left)
+    bufs = [state, torch.from_numpy(work).to(card),
             torch.tensor(total - left, dtype=torch.int64, device=card),
             torch.zeros((3, total + b), device=card),
             torch.from_numpy(rng.integers(0, 6, b).astype(np.int32)).to(card),
@@ -341,21 +359,63 @@ def test_refill_kernel_equals_plain_on_the_card(card, case):
     args = (torch.tensor([SEED32, 0], dtype=torch.int64, device=card),
             torch.tensor([PIX_BASE, SAMP_BASE], dtype=torch.int64, device=card),
             _frame(_cams()[1], n_pix, samples, card))
-    plain = [x.clone() for x in bufs]
-    scan = RF.refill_scan(b, card)
-    for _ in range(2):  # the scratch is left ready for the next launch
-        kern = [x.clone() for x in bufs]
-        RF.refill(*kern, *args, scan)
+    return bufs, args
+
+
+def _refill_equals_plain(bufs, args, scan) -> bool:
+    """N2a on ``scan`` and the plain version on copies of ``bufs``: every
+    output bit for bit (``done``'s columns of the work items)."""
+    total = args[2].n_pix * args[2].samples
+    kern, plain = [x.clone() for x in bufs], [x.clone() for x in bufs]
+    RF.refill(*kern, *args, scan)
     RF.refill_plain(*plain, *args)
     torch.cuda.synchronize()
     kern[3], plain[3] = kern[3][:, :total], plain[3][:, :total]
-    assert all(_bit_equal(a, w) for a, w in zip(kern, plain))
-    assert int(scan[0]) == 0
+    return all(_bit_equal(a, w) for a, w in zip(kern, plain))
 
 
 @pytest.mark.cuda
-def test_restart_kernel_equals_plain_on_the_card(card):
-    b, n_pix, samples = 4096, 10_000, 3
+@pytest.mark.parametrize("case", list(REFILL_CASES))
+def test_refill_kernel_equals_plain_on_the_card(card, case):
+    """Three launches in a row on one scratch, each on a state of its own,
+    each equal to the plain version; then the scratch's invariant: its
+    ticket has counted every tile of the three launches, and every tile's
+    status word holds the last launch's epoch (2) and an inclusive prefix,
+    so the next launch needs no reset."""
+    b, n_pix, samples, left = REFILL_CASES[case]
+    b, n_pix, left = 33 * b, 40 * n_pix, 33 * left  # several tiles, the last one ragged
+    rng = np.random.default_rng(5)
+    scan = RF.refill_scan(b, card)
+    for _ in range(3):
+        assert _refill_equals_plain(*_refill_on_card(rng, b, n_pix, samples, left, card), scan)
+    tiles = -(-b // RF.REFILL_TILE_LANES)
+    words = scan[1:].cpu().numpy().view(np.uint64)
+    assert int(scan[0]) == 3 * tiles and words.shape == (tiles,)
+    assert ((words >> np.uint64(62)) == 2).all()
+    assert ((words >> np.uint64(34)) & np.uint64((1 << 28) - 1) == 2).all()
+
+
+@pytest.mark.cuda
+def test_refill_kernel_over_many_tiles_on_the_card(card):
+    """One launch over 4,097 tiles, the last one ragged: more tiles than a
+    look-back step reads (128), with a counter that runs out midway."""
+    b = 4096 * RF.REFILL_TILE_LANES + RF.REFILL_TILE_LANES // 3
+    rng = np.random.default_rng(11)
+    bufs, args = _refill_on_card(rng, b, b, 2, b // 3, card)
+    scan = RF.refill_scan(b, card)
+    assert scan.shape[0] == 1 + 4097
+    assert _refill_equals_plain(bufs, args, scan)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n_pix,samples", [(4096, 10_000, 3), (5000, 3000, 2),
+                                             (1000, 7013, 16), (1 << 20, 921_600, 16)])
+def test_restart_kernel_equals_plain_on_the_card(card, b, n_pix, samples):
+    """N2b, which computes each lane's ``kmax`` from its index, against the
+    plain version given the owned-pixel count: lanes owning several pixels,
+    and lanes past the pixels (b > n_pix) owning none; the small states on
+    its part-sector route, 1,048,576 lanes on its whole-sector one."""
+    assert (b > kernels.launch_geometry()["restart_whole_above_lanes"]) == (b == 1 << 20)
     jmax = -(-n_pix // b)
     lane = torch.arange(b, device=card)
     kmax = sum((lane + j * b < n_pix).to(torch.int64) for j in range(jmax)) * samples

@@ -269,9 +269,9 @@ def _launches(dev):
             [t() for _ in range(13)], t(), t(), t(2), ctr, t(), 64, t(12, 2), t(2), 1, 4,
             t(4, 64), t())),
         ("refill", "refill", lambda: kernels.launch_refill(
-            t(13, 64), t(), t(), t(3, 164), t(), t(), t(2), t(128), t(2), 50, 2, 16, 12, t(3))),
+            t(13, 64), t(), t(), t(3, 164), t(), t(), t(2), t(128), t(2), 50, 2, 16, 12, t(2))),
         ("restart", "restart", lambda: kernels.launch_restart(
-            t(13, 64), t(), t(), t(), t(), t(3, 64), t(2), t(128), t(2), 50, 2, 16, 12)),
+            t(13, 64), t(), t(), t(), t(3, 64), t(2), t(128), t(2), 50, 2, 16, 12)),
         ("shade", "shade", lambda: kernels.launch_shade(
             t(13, 64), t(), t(), t(8, 40), t(20, 1), t(1), 1, True, True, t(), 5, bg, False,
             (t(13, 64), t(64, 8)), t())),
