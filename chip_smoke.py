@@ -76,13 +76,18 @@ exits non-zero):
                equal to the plain version's bit for bit on every lane; K3 in
                lane mode on the same rounds' bounces at K3's gate, ``ok``
                exact;
+               N4 (the modular route's camera stage) on 997, 262,144,
+               921,523 and 921,600 lanes, bit for bit on every lane and row,
+               launched eagerly and replayed from a captured CUDA graph
+               after the seed pair changed on the device;
 4. main     -- the port's CLI renders scenes/cornell_box.gltf at 1280x720,
                16 spp four times: by default (the fused path: K2, K1,
-               K1-final), with RT_RR=1 (the modular path: K4, N1a, K3, N1b),
-               with
+               K1-final), with RT_RR=1 (the modular path: N4 once per
+               sample; K4, N1a, K3, N1b), with
                RT_ENGINE=sticky (K5 only, once per round) and with
                RT_ENGINE=wavefront (K1 in lane mode once per round, N2a once
-               per refill); then the BVH scene on its default engine (K6,
+               per refill); then the BVH scene on its default engine, which
+               must be the counter wavefront, with RT_ENGINE=batch (N4; K6,
                N1a, K3, N1b) and with RT_ENGINE=wavefront and =sticky (K6,
                N1a, K3 in lane mode and N1b per round; N2a per refill, N2b
                per round and once for the final flush);
@@ -93,7 +98,7 @@ exits non-zero):
                modular kernels against modular plain (roulette on);
                ``TraceConfig.sampler="xla"`` refused on the card by the
                batch and sticky engines, with nothing launched; the fused
-               frame with RT_MEGA_CAM=0 (bounce 0 in
+               frame with RT_MEGA_CAM=0 (N4, then bounce 0 in
                K1, no K2) against the default one; modular
                against fused kernels (roulette off, RT_MEGAKERNEL=0); the
                sticky engine's kernels against its plain versions (K5; with
@@ -119,7 +124,8 @@ exits non-zero):
                the live mask, and level by level over one sample of the
                modular frame; N1a and N1b in place, an event pair per
                launch with the stream held, on the BVH frame's camera,
-               bounce-1 and bounce-3 states),
+               bounce-1 and bounce-3 states; N4 into one buffer on the
+               Cornell frame's 921,600 lanes),
                path vertices, Mrays/s, rounds, peak memory; K1 and K1-final
                on the bounce-1 state as it is, with its live lanes sorted to
                the front, with every lane alive, and with every lane alive
@@ -136,12 +142,14 @@ exits non-zero):
                yardstick of the binary walk), and the sweep once;
 7. runtime  -- checkpointed resume: the Cornell frame (fused batch path, 64
                spp; sticky, 32 spp; on a (2, 2) mesh of the card repeated,
-               32 spp) and the BVH frame (32 spp) in 16-spp chunks, each
+               32 spp) and the BVH frame (its default engine, the counter
+               wavefront, 32 spp) in 16-spp chunks, each
                chunk's launches exact, interrupted at half time and resumed
                in a fresh process (``chip_smoke.py --resume DIR``), equal
                bit for bit; the Cornell checkpoint refused by the BVH
                renderer; sharded frames (Cornell at 16 spp on (2,1), (1,2),
-               (2,2) on the three engines, the BVH frame at 4 spp on (2,2))
+               (2,2) on the three engines, the BVH frame at 4 spp on (2,2)
+               on its default engine)
                against the single-card frame, rtol 1e-4 / atol 1e-5, launches
                summed over the shards; ``device_trace`` around one Cornell
                frame naming 16 K2 and 80 K1;
@@ -169,17 +177,18 @@ exits non-zero):
                graphed frame ms in turns (median of 3 each); the busy share
                under torch.profiler, graphed and eager, of the BVH batch,
                Cornell fused batch and Cornell counter wavefront frames; no
-               frame calls the plain modular stages, and one sample of each
-               modular batch case dispatches at most SAMPLE_OPS_MAX ATen
-               ops (the shade and finish work is in N1a and N1b); no frame
+               frame calls the plain modular stages or the plain camera
+               stage, and one sample of each modular batch case dispatches
+               at most SAMPLE_OPS_MAX ATen ops (the camera stage is in N4,
+               the shade and finish work in N1a and N1b); no frame
                calls the plain sampler, refill or restart either, and one
                round of the BVH counter wavefront (refill and bounce) and
                of the BVH sticky engine dispatches at most ROUND_OPS_MAX.
                It runs after the timing phase, before runtime.
 
 The last lines are the card's name and power limit, the per-kernel JSON
-record (K1-K6, N1a/N1b and N2a/N2b: eleven rows; K3's has its lane mode
-beside it) and ``{"ok": true, "device": {...}}``.
+record (K1-K6, N1a/N1b, N2a/N2b and N4: twelve rows; K3's has its lane
+mode beside it) and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -347,9 +356,12 @@ KERNELS = {  # name -> (replaced TPU kernel body file:line, CUDA source)
     # inside their lax.while_loop
     "refill": ("raytracing_course_2024_tpu/integrator/wavefront.py:236", f"{CSRC}/refill.cu"),
     "restart": ("raytracing_course_2024_tpu/integrator/wavefront.py:455", f"{CSRC}/refill.cu"),
+    # N4 neither: XLA fuses the camera stage (generate_rays) into the JAX
+    # package's jitted sample scan
+    "camera": ("raytracing_course_2024_tpu/ops/camera.py:48", f"{CSRC}/camera.cu"),
 }
 # launched on the modular main path only
-MODULAR = ("nearest", "sampler", "shade", "finish")
+MODULAR = ("nearest", "sampler", "shade", "finish", "camera")
 # where each kernel launches inside a replayed CUDA graph (runtime/graphs.py)
 GRAPHED = {
     "primary": "the batch engine's fused route",
@@ -365,6 +377,7 @@ GRAPHED = {
     "finish": "the batch engine's modular route; the lane engines' rounds on a ModularScene",
     "refill": "the counter wavefront's refill, both routes",
     "restart": "the sticky engine's round off the K5 route, both routes",
+    "camera": "the batch engine's modular route",
 }
 SEED = 20240917
 K = 4  # max_tries
@@ -454,7 +467,8 @@ def hold_stream(ms: float) -> None:
 HOST_US_PER_LAUNCH = 400  # what ``hold_stream`` allows the host for one timed launch
 
 
-def cuda_ms_each(fn, reps: int, stats: dict | None = None) -> float:
+def cuda_ms_each(fn, reps: int, stats: dict | None = None,
+                 host_us: float = HOST_US_PER_LAUNCH) -> float:
     """Device ms per call of ``fn`` (same inputs, fresh outputs each call)
     from one pair of CUDA events per launch, recorded while the stream is
     held (``hold_stream``), so the host's cost per call (argument checks,
@@ -464,12 +478,13 @@ def cuda_ms_each(fn, reps: int, stats: dict | None = None) -> float:
     launches do not move it. ``stats`` receives the mean, the least and the
     largest launch, and ``gap_ms``: the median idle time between one launch's
     end event and the next one's start event, a few microseconds while the
-    host stayed ahead of the card."""
+    host stayed ahead of the card. ``host_us`` is what the hold allows the
+    host for one call (a chain of ATen ops needs more than one launch)."""
     fn()  # warm-up
     marks = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
              for _ in range(reps)]
     torch.cuda.synchronize()
-    hold_stream(reps * HOST_US_PER_LAUNCH / 1e3)
+    hold_stream(reps * host_us / 1e3)
     for start, end in marks:
         start.record()
         fn()
@@ -795,10 +810,11 @@ class Modular:
     def __init__(self, dev, desc, w: int, h: int, levels: bool = False):
         from raytracing_course_2024_tpu_torch.integrator import path as P
         from raytracing_course_2024_tpu_torch.ops import rng
-        from raytracing_course_2024_tpu_torch.ops.camera import camera_arrays, generate_rays_u
+        from raytracing_course_2024_tpu_torch.ops.camera import camera_arrays, camera_state_plain
         from raytracing_course_2024_tpu_torch.ops.scene_intersect import (
             modular_scene, surface_detail)
         from raytracing_course_2024_tpu_torch.ops.traverse import nearest_hit
+        from raytracing_course_2024_tpu_torch.ops.vec import Vec3
         from raytracing_course_2024_tpu_torch.scene import build_scene_arrays
         from raytracing_course_2024_tpu_torch.scene.types import DIELECTRIC, MIRROR
 
@@ -809,9 +825,9 @@ class Modular:
         self.wid = torch.arange(w * h, device=dev, dtype=torch.int32)
         self.key = rng.work_key(SEED, self.wid)
         px, py = (self.wid % w).float(), (self.wid // w).float()
-        self.ro, self.rd = generate_rays_u(
-            camera_arrays(desc.settings.camera), px, py, w, h,
-            rng.uniform_ctr(self.key, rng.CTR_JITTER), rng.uniform_ctr(self.key, rng.CTR_JITTER + 1))
+        st = camera_state_plain(SEED, self.wid, 0, px, py, camera_arrays(desc.settings.camera),
+                                w, h)
+        self.ro, self.rd = Vec3(st[0], st[1], st[2]), Vec3(st[3], st[4], st[5])
 
         def sampler_inputs(ro, rd, alive, bounce_i):
             hit = nearest_hit(ro, rd, self.scene, plain=True)
@@ -827,7 +843,7 @@ class Modular:
         self.surf, self.need, self.sampler_args = sampler_inputs(
             self.ro, self.rd, self.alive, 0)
         # bounce 1's rays: the plain modular bounce 0 of the camera rays
-        step = modular_steps(P, self.ro, self.rd, self.scene, SEED, self.wid, plain=True)
+        step = modular_steps(P, st.clone(), self.scene, SEED, self.wid, plain=True)
         ro1, rd1, alive1 = step(self.cfg, 0)
         self.bounce1 = (ro1, rd1)
         self.alive1 = alive1
@@ -843,13 +859,13 @@ class Modular:
                 self.levels.append((ro_i, rd_i, alive_i, args))
 
 
-def modular_steps(P, ro, rd, scene, seed, wid, plain: bool):
+def modular_steps(P, state, scene, seed, wid, plain: bool):
     """``step(cfg, bounce_i) -> (ro, rd, alive)``: one modular bounce after
-    another (``P._bounce`` on a (13, B) state) of the paths that start on
-    the rays (ro, rd)."""
+    another (``P._bounce`` on a (13, B) state) of the paths that start in
+    ``state``, the fresh state of ``ops/camera.py:camera_state_plain``."""
     from raytracing_course_2024_tpu_torch.ops.vec import Vec3
 
-    box = [P.fresh_state(ro, rd), None]
+    box = [state, None]
 
     def step(cfg, i):
         box[0], box[1] = P._bounce(box[0], scene, cfg, seed, wid, 0, i, plain=plain,
@@ -1115,15 +1131,13 @@ def n1_states(dev, scene, cfg, camera, w: int, h: int, deep: bool) -> tuple:
     of them dead)."""
     from raytracing_course_2024_tpu_torch.integrator import path as P
     from raytracing_course_2024_tpu_torch.ops import rng
-    from raytracing_course_2024_tpu_torch.ops.camera import camera_arrays, generate_rays_u
+    from raytracing_course_2024_tpu_torch.ops.camera import camera_arrays, camera_state_plain
 
     n = w * h
     wid = torch.arange(n, device=dev, dtype=torch.int32)
     key = rng.work_key(SEED, wid)
-    ro, rd = generate_rays_u(camera_arrays(camera), (wid % w).float(), (wid // w).float(),
-                             w, h, rng.uniform_ctr(key, rng.CTR_JITTER),
-                             rng.uniform_ctr(key, rng.CTR_JITTER + 1))
-    st = P.fresh_state(ro, rd)
+    st = camera_state_plain(SEED, wid, 0, (wid % w).float(), (wid // w).float(),
+                            camera_arrays(camera), w, h)
     states = {"camera": st.clone()}
     for b in range(N1_DEEP if deep else 1):
         st, _ = P._bounce(st, scene, cfg, SEED, wid, 0, b)
@@ -1307,6 +1321,89 @@ def bit_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
     if a.dtype == torch.float32:
         return torch.equal(a.view(torch.int32), b.view(torch.int32))
     return torch.equal(a, b)
+
+
+def camera_bytes(n: int) -> float:
+    """N4's bytes for ``n`` lanes: the work id, px and py read (12 B a lane),
+    the 13 rows of the fresh state written (52 B), the seed pair and the
+    camera row's 14 floats read once."""
+    return n * (12 + 52) + 16 + 14 * 4
+
+
+# N4 against its plain version: lanes of the 1280x720 frame's first pixels
+# (997 and 921,523 leave a ragged last block) and of the 512x512 frame
+CAMERA_LANES = ((997, FRAME[:2]), (262_144, LANES[0]), (921_523, FRAME[:2]),
+                (921_600, FRAME[:2]))
+
+
+def camera_case(n: int, size: tuple, dev):
+    """(camera, its row on ``dev``, wid, px, py, width, height) of ``n``
+    lanes of a frame of ``size`` (the Cornell camera): the frame's first
+    ``n`` pixels."""
+    from raytracing_course_2024_tpu_torch.ops import camera as C
+    from raytracing_course_2024_tpu_torch.scene import load_scene
+
+    w, h = size
+    cam = C.camera_arrays(load_scene(CORNELL, w, h, 1).settings.camera)
+    row = torch.from_numpy(C.pack_camera_row(cam)[0]).to(dev)
+    wid = torch.arange(n, device=dev, dtype=torch.int32)
+    return cam, row, wid, (wid % w).float(), (wid // w).float(), w, h
+
+
+def phase_kernels_camera(dev) -> float:
+    """N4 (``ops/camera.py:camera_state``) against its plain version at
+    ``CAMERA_LANES``, bit for bit on every lane and row: launched eagerly
+    with the seed pair on the device and a work-id offset past 2^32, then
+    captured once in a CUDA graph and replayed after the pair changed on the
+    device (another seed and offset). Returns the largest absolute error."""
+    from raytracing_course_2024_tpu_torch.ops import camera as C
+
+    err = 0.0
+    for n, size in CAMERA_LANES:
+        cam, row, wid, px, py, w, h = camera_case(n, size, dev)
+        pair = torch.tensor([SEED, KERNEL_WID_OFF], dtype=torch.int64, device=dev)
+        got = C.camera_state(pair[0], wid, pair[1], px, py, cam, row, w, h)
+        want = C.camera_state_plain(SEED, wid, KERNEL_WID_OFF, px, py, cam, w, h)
+        torch.cuda.synchronize()
+        e = float((got - want).abs().max())
+        err = max(err, e)
+        check({"lanes": n, "frame": f"{w}x{h}", "bit_equal": bit_equal(got, want),
+               "max_abs_err": e}, f"camera-{n}", bit_equal(got, want))
+        out = torch.empty_like(got)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            C.camera_state(pair[0], wid, pair[1], px, py, cam, row, w, h, out=out)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            C.camera_state(pair[0], wid, pair[1], px, py, cam, row, w, h, out=out)
+        seed2, off2 = SEED + 1, 7 * n
+        pair.copy_(torch.tensor([seed2, off2], dtype=torch.int64))
+        out.fill_(float("nan"))
+        graph.replay()
+        want = C.camera_state_plain(seed2, wid, off2, px, py, cam, w, h)
+        torch.cuda.synchronize()
+        same = bit_equal(out, want)
+        check({"lanes": n, "bit_equal_replayed": same,
+               "max_abs_err": float((out - want).abs().max())}, f"camera-{n}-graphed", same)
+        del graph
+    return err
+
+
+def camera_times(dev, reps: int = 50) -> dict:
+    """N4 on the main path's 921,600 lanes, written into one buffer as the
+    modular route writes its state: ms per launch (``cuda_ms_each``), its
+    plain version's ms, the bound of ``camera_bytes``."""
+    from raytracing_course_2024_tpu_torch.ops import camera as C
+
+    cam, row, wid, px, py, w, h = camera_case(FRAME[0] * FRAME[1], FRAME[:2], dev)
+    pair = torch.tensor([1, 0], dtype=torch.int64, device=dev)
+    out = torch.empty((13, wid.shape[0]), dtype=torch.float32, device=dev)
+    ms = cuda_ms_each(lambda: C.camera_state(pair[0], wid, pair[1], px, py, cam, row, w, h,
+                                             out=out), reps)
+    plain = cuda_ms(lambda: C.camera_state_plain(pair[0], wid, pair[1], px, py, cam, w, h), 2)
+    return {"ms": ms, "plain_ms": plain, "bound": bound(camera_bytes(wid.shape[0]), 0.0)}
 
 
 def refill_bytes(state, work, counter, total: int) -> float:
@@ -1493,17 +1590,15 @@ def bvh_state(r, n: int, plain: bool) -> dict:
     mask of bounce 1 after one modular bounce (K6, N1a, K3 and N1b, or with
     ``plain`` their plain versions)."""
     from raytracing_course_2024_tpu_torch.integrator import path as P
-    from raytracing_course_2024_tpu_torch.ops import rng
-    from raytracing_course_2024_tpu_torch.ops.camera import generate_rays_u
+    from raytracing_course_2024_tpu_torch.ops.camera import camera_state_plain
+    from raytracing_course_2024_tpu_torch.ops.vec import Vec3
 
     w, h = r.settings.width, r.settings.height
     pix = (torch.arange(n, device=r.device, dtype=torch.int64) * (w * h)) // n
-    key = rng.work_key(SEED, pix)
-    ro, rd = generate_rays_u(r.cam, (pix % w).float(), (pix // w).float(), w, h,
-                             rng.uniform_ctr(key, rng.CTR_JITTER),
-                             rng.uniform_ctr(key, rng.CTR_JITTER + 1))
-    ro1, rd1, alive1 = modular_steps(P, ro, rd, r.scene, SEED, pix.to(torch.int32),
-                                     plain)(r.cfg, 0)
+    wid = pix.to(torch.int32)
+    st = camera_state_plain(SEED, wid, 0, (pix % w).float(), (pix // w).float(), r.cam, w, h)
+    ro, rd = Vec3(st[0], st[1], st[2]), Vec3(st[3], st[4], st[5])
+    ro1, rd1, alive1 = modular_steps(P, st.clone(), r.scene, SEED, wid, plain)(r.cfg, 0)
     return {"camera": (ro, rd, ro.x < math.inf), "bounce1": (ro1, rd1, alive1)}
 
 
@@ -1682,10 +1777,12 @@ class LogLines(logging.Handler):
 
 # the main path's runs and their CLI environment; the lane engines launch
 # one kernel once per round. "bvh" renders the 81,920-triangle BVH scene
-# (written as a text scene) on the BVH backend's default engine.
+# (written as a text scene) on the BVH backend's default engine, the counter
+# wavefront; "bvh-batch" on the batch engine (K6 and N4 through the CLI).
 MAIN = {"fused": {}, "modular": {"RT_RR": "1"}, "sticky": {"RT_ENGINE": "sticky"},
-        "wavefront": {"RT_ENGINE": "wavefront"}, "bvh": {},
+        "wavefront": {"RT_ENGINE": "wavefront"}, "bvh": {}, "bvh-batch": {"RT_ENGINE": "batch"},
         "bvh-wavefront": {"RT_ENGINE": "wavefront"}, "bvh-sticky": {"RT_ENGINE": "sticky"}}
+BVH_DEFAULT_ENGINE = "wavefront"  # the JAX Renderer's choice for its BVH backend
 ROUND_KERNEL = {"sticky": "persistent", "wavefront": "bounce"}
 
 
@@ -1750,12 +1847,13 @@ def refills_run() -> int:
 def phase_main(dev, tmp: str, path: str) -> dict:
     """The CLI on the Cornell frame (the "bvh" runs: on the BVH scene) with
     the launch counters set to 0 just before and read just after; they must
-    match the path exactly. The lane engines' expected counts are the rounds
+    match the path exactly. The batch engine's modular runs launch N4 once
+    per sample. The lane engines' expected counts are the rounds
     the engine reports: one K5 (sticky) or one K1 in lane mode (counter
     wavefront) per round on the Cornell frame, the nearest hit (K6), N1a, K3
     in lane mode and N1b per round on the BVH frame; one N2a per refill (the
     engine's own count) and one N2b per round of the BVH sticky frame and one
-    for its final flush."""
+    for its final flush. The "bvh" run must name the counter wavefront."""
     from raytracing_course_2024_tpu_torch.ops import kernels as KN
     from raytracing_course_2024_tpu_torch.runtime import cli
     from raytracing_course_2024_tpu_torch.runtime.image_io import read_png, read_ppm
@@ -1795,9 +1893,12 @@ def phase_main(dev, tmp: str, path: str) -> dict:
     extra = {"engine": engine}
     if bvh:
         extra["bvh_builder"] = re.search(r"bvh_builder=(\w+)", line[0]).group(1)
-    # the modular bounce: the nearest hit and N1a at every level, K3 and N1b
-    # at every level but the last
-    modular = dict(sampler=spp * (depth - 1), shade=spp * depth, finish=spp * (depth - 1))
+    if path == "bvh" and engine != BVH_DEFAULT_ENGINE:
+        raise SystemExit(f"bvh: the default engine is {engine}, not {BVH_DEFAULT_ENGINE}")
+    # the modular bounce: N4 once, the nearest hit and N1a at every level, K3
+    # and N1b at every level but the last
+    modular = dict(sampler=spp * (depth - 1), shade=spp * depth, finish=spp * (depth - 1),
+                   camera=spp)
     if path == "modular":  # K4
         want.update(nearest=spp * depth, **modular)
     elif path == "fused":  # 921,600 lanes fit one batch (DEFAULT_BATCH)
@@ -1904,7 +2005,7 @@ def phase_render(dev) -> None:
         launched = {k: v for k, v in KN.LAUNCHES.items() if v}
     finally:
         os.environ.pop("RT_MEGA_CAM")
-    if launched != {"bounce": runs * (depth - 1), "final": runs}:
+    if launched != {"bounce": runs * (depth - 1), "final": runs, "camera": runs}:
         raise SystemExit(f"RT_MEGA_CAM=0 launched {launched}")
     render_pair(cam_off, fused, "fused-mega-cam-off-vs-default", size=size, spp=spp,
                 within_1e4=float((np.abs(cam_off - fused) <= 1e-4).all(axis=-1).mean()),
@@ -1962,10 +2063,9 @@ def phase_render(dev) -> None:
 
 def phase_render_bvh(dev) -> None:
     """Frames of the BVH backend against their plain versions (K6 against
-    the sweep): the 5,120-triangle scene on the batch engine (K6, N1a, K3,
-    N1b) and on the counter wavefront (K6, N1a, K3 in lane mode, N1b, N2a);
-    the 81,920-triangle
-    scene of the main path at ``PLAIN_BVH`` on the batch, counter wavefront
+    the sweep): the 5,120-triangle scene on the batch engine (N4, K6, N1a,
+    K3, N1b) and on the counter wavefront (K6, N1a, K3 in lane mode, N1b,
+    N2a); the 81,920-triangle scene of the main path at ``PLAIN_BVH`` on the batch, counter wavefront
     and sticky engines, path vertices held too (``modular_pair``); then the
     degenerate scenes, a table of one entry and a scene without a sampled
     surface, on the fused path (K2, K1) and with the BVH backend asked for."""
@@ -1984,11 +2084,11 @@ def phase_render_bvh(dev) -> None:
         a = r.render_radiance(seed=3)
         launched = {k: v for k, v in KN.LAUNCHES.items() if v}
         allowed = {"bvh", "sampler", "shade", "finish"} | (
-            {"refill"} if engine == "wavefront" else set())
+            {"refill"} if engine == "wavefront" else {"camera"})
         if (not launched.get("bvh") or launched.get("shade") != launched["bvh"]
                 or set(launched) - allowed):
             raise SystemExit(f"BVH frame launches {launched}: expected K6, N1a, K3, N1b "
-                             "(and N2a on the counter wavefront)")
+                             "(and N2a on the counter wavefront, N4 on the batch engine)")
         render_pair(a, Renderer(bvh, device=dev, engine=engine, plain=True)
                     .render_radiance(seed=3), f"bvh5124-{engine}-kernels-vs-plain", size=size,
                     spp=MESH_SPP, prims=len(bvh.primitives), builder=r.bvh_builder,
@@ -2735,7 +2835,7 @@ def frames_in_turns(rs: dict, gpu: str, turns: int = 3, label: str = "timing") -
         out[e] = (ms, r)
         say(label, path=e, ms_per_frame=round(ms, 3), frames_ms=json.dumps(
             [round(t, 3) for t in times[e]]).replace(" ", ""), path_vertices=int(verts[e]),
-            mrays_per_s=round(verts[e] / ms / 1e3, 3),
+            mrays_per_s=round(verts[e] / ms / 1e3, 3), engine=r.engine,
             **({} if r.engine == "batch" else {"rounds": r.rounds}), peak_mem_mb=peak[e],
             graphed=r.graphs is not None, gpu=f'"{gpu}"')
     return out
@@ -2743,13 +2843,14 @@ def frames_in_turns(rs: dict, gpu: str, turns: int = 3, label: str = "timing") -
 
 def bvh_engine_turns(dev, gpu: str, desc, turns: int = 3, label: str = "timing",
                      eager: bool = False) -> dict:
-    """The frame ``desc`` (the BVH scene) on each engine, in turns
-    (``frames_in_turns``; paths ``bvh-<engine>``, and with ``eager`` also
-    ``bvh-<engine>-eager``, the same renderer with ``eager=True``); returns
-    engine -> (median ms, Renderer) of the graphed renderers."""
+    """The frame ``desc`` (the BVH scene) on each engine and on the
+    Renderer's default one (path ``bvh-default``, as the CLI renders it), in
+    turns (``frames_in_turns``; paths ``bvh-<engine>``, and with ``eager``
+    also ``bvh-<engine>-eager``, the same renderer with ``eager=True``);
+    returns engine -> (median ms, Renderer) of the graphed renderers."""
     from raytracing_course_2024_tpu_torch.runtime.render import Renderer
 
-    rs = {}
+    rs = {"bvh-default": Renderer(desc, device=dev)}
     for e in ("batch", "sticky", "wavefront"):
         rs[f"bvh-{e}"] = Renderer(desc, device=dev, engine=e)
         if eager:
@@ -2814,11 +2915,13 @@ class Chunked:
     the launch counters to 0 just before the chunk and reads them just after,
     and keeps the chunk's ms, its rounds and the host ms since the previous
     chunk returned (the checkpoint: the f64 sum, the ``.npz`` write, the
-    ``os.replace``). Raises ``Interrupted`` in place of chunk ``stop``."""
+    ``os.replace``) and the counter wavefront's refills of the chunk. Raises
+    ``Interrupted`` in place of chunk ``stop``."""
 
     def __init__(self, renderer, stop=None):
         self.r, self.stop = renderer, stop
         self.launches, self.ms, self.rounds, self.between_ms = [], [], [], []
+        self.refills = []
         self._end = None
 
     def __getattr__(self, name):
@@ -2832,9 +2935,10 @@ class Chunked:
             self.between_ms.append((t0 - self._end) * 1e3)
         if len(self.ms) == self.stop:
             raise Interrupted(f"chunk {self.stop}")
-        KN.reset_launches()
+        reset_counts()
         img = self.r.render_radiance(seed=seed, samples=samples)  # ends in a host copy
         self.launches.append(dict(KN.LAUNCHES))
+        self.refills.append(refills_run())
         self._end = time.perf_counter()
         self.ms.append((self._end - t0) * 1e3)
         self.rounds.append(getattr(self.r, "rounds", 0))
@@ -2853,7 +2957,7 @@ def nearest_kernel(r) -> str | None:
 def batch_launches(r, n_pix: int, spp: int, shards: int = 1) -> dict:
     """The launches of a batch-engine frame of ``shards`` shards of ``n_pix``
     pixels at ``spp`` samples each: per batch and sample, K2 + K1 per middle
-    level + K1-final (fused), or the nearest hit (K6 or K4) and N1a per
+    level + K1-final (fused), or N4, the nearest hit (K6 or K4) and N1a per
     level, K3 and N1b per level but the last (modular)."""
     from raytracing_course_2024_tpu_torch.integrator.path import DEFAULT_BATCH, plan_batches
     from raytracing_course_2024_tpu_torch.ops import kernels as KN
@@ -2865,7 +2969,8 @@ def batch_launches(r, n_pix: int, spp: int, shards: int = 1) -> dict:
     if r.fused:
         want.update(primary=runs, bounce=runs * (depth - 2), final=runs)
         return want
-    want.update(sampler=runs * (depth - 1), shade=runs * depth, finish=runs * (depth - 1))
+    want.update(sampler=runs * (depth - 1), shade=runs * depth, finish=runs * (depth - 1),
+                camera=runs)
     if nearest_kernel(r):
         want[nearest_kernel(r)] = runs * depth
     return want
@@ -2908,7 +3013,7 @@ def runtime_renderer(case: str, dev):
     """The renderer of one checkpoint case at 1280x720 (the resume process
     builds it again from the name): the Cornell frame on the fused batch path,
     on the sticky engine, on a (2, 2) mesh of ``dev`` repeated; the
-    81,920-triangle BVH frame on its default engine."""
+    81,920-triangle BVH frame on its default engine, the counter wavefront."""
     from raytracing_course_2024_tpu_torch.parallel import make_mesh
     from raytracing_course_2024_tpu_torch.runtime.render import Renderer, ShardedRenderer
     from raytracing_course_2024_tpu_torch.scene import load_scene
@@ -2939,7 +3044,8 @@ def check_chunks(case: str, c: Chunked, chunks: int) -> None:
     if len(c.launches) != chunks:
         raise SystemExit(f"checkpoint {case}: {len(c.launches)} chunks rendered, not {chunks}")
     for i, got in enumerate(c.launches):
-        want = expected_launches(c.r, *shard_geometry(c.r, CKPT_CHUNK), c.rounds[i])
+        want = expected_launches(c.r, *shard_geometry(c.r, CKPT_CHUNK), c.rounds[i],
+                                 c.refills[i])
         if got != want:
             raise SystemExit(f"checkpoint {case} chunk {i}: launches {got} != {want}")
 
@@ -2960,7 +3066,8 @@ def resume_main(tmp: str) -> int:
                                       CKPT_CHUNK, seed=SEED)
         np.save(os.path.join(tmp, f"{case}-resumed.npy"), img)
         with open(os.path.join(tmp, f"{case}-resumed.json"), "w") as f:
-            json.dump({"launches": c.launches, "rounds": c.rounds, "ms": c.ms}, f)
+            json.dump({"launches": c.launches, "rounds": c.rounds, "refills": c.refills,
+                       "ms": c.ms}, f)
     return 0
 
 
@@ -3018,7 +3125,7 @@ def phase_checkpoint(dev, tmp: str, gpu: str) -> dict:
             rec = json.load(f)
         chunks = spp // CKPT_CHUNK
         c = Chunked(renderers[case])
-        c.launches, c.rounds = rec["launches"], rec["rounds"]
+        c.launches, c.rounds, c.refills = rec["launches"], rec["rounds"], rec["refills"]
         check_chunks(case, c, chunks - chunks // 2)
         equal = bool(np.array_equal(img, full[case]))
         say("runtime", resume=case, fresh_process=True, chunks_resumed=len(rec["ms"]),
@@ -3083,11 +3190,12 @@ def phase_shard(dev, gpu: str, bvh_single) -> None:
             sr = ShardedRenderer(desc, mesh=make_mesh(*shape, devices=[dev] * 4), engine=engine)
             shard_pair(sr, single, SEED, spp, f"cornell-{engine}", gpu)
     bdesc = bvh_desc(w, h, SHARD_BVH_SPP)
-    single = single_frame(bvh_single, SEED, SHARD_BVH_SPP, "bvh81920-batch", gpu)
+    what = f"bvh81920-{BVH_DEFAULT_ENGINE}"
+    single = single_frame(bvh_single, SEED, SHARD_BVH_SPP, what, gpu)
     sr = ShardedRenderer(bdesc, mesh=make_mesh(2, 2, devices=[dev] * 4))
-    if sr.engine != "batch" or sr.backend != "bvh":
+    if sr.engine != BVH_DEFAULT_ENGINE or sr.backend != "bvh":
         raise SystemExit(f"the sharded BVH frame took {sr.backend}/{sr.engine}")
-    shard_pair(sr, single, SEED, SHARD_BVH_SPP, "bvh81920-batch", gpu)
+    shard_pair(sr, single, SEED, SHARD_BVH_SPP, what, gpu)
 
 
 def phase_trace(dev, tmp: str) -> None:
@@ -3144,7 +3252,8 @@ def mp_cases(mode: str) -> dict:
     cases = {f"cornell-{e}": (desc, e, spp) for e in MP_ENGINES}
     if mode == "nccl":
         return {"cornell-batch": cases["cornell-batch"]}
-    cases["bvh81920-batch"] = (bvh_desc(w, h, SHARD_BVH_SPP), None, SHARD_BVH_SPP)
+    cases[f"bvh81920-{BVH_DEFAULT_ENGINE}"] = (bvh_desc(w, h, SHARD_BVH_SPP), None,
+                                               SHARD_BVH_SPP)
     return cases
 
 
@@ -3520,6 +3629,11 @@ def phase_timing(dev, gpu: str, counts: dict, errs: dict, m: Modular, k5, bvh: d
     for k in ("refill", "restart"):
         launch_ms[k], plain_ms[k] = lane[k]["ms"], lane[k]["plain_ms"]
         bounds[k], inputs[k] = lane[k]["bound"], lane[k]["active_in"]
+    # N4 on the Cornell frame's 921,600 lanes
+    cam_t = camera_times(dev)
+    launch_ms["camera"], plain_ms["camera"], bounds["camera"] = (
+        cam_t["ms"], cam_t["plain_ms"], cam_t["bound"])
+    inputs["camera"] = 1.0
     k3_lane = lane["sampler-lane"]
     for k in KERNELS:
         # K5's input: the frame's state after K5_CHAIN rounds
@@ -3561,7 +3675,8 @@ def phase_timing(dev, gpu: str, counts: dict, errs: dict, m: Modular, k5, bvh: d
              "bound_by_lane_mode": k3_lane["bound"][1], "launches_lane_mode": k3_lane["launches"],
              "active_in_lane_mode": k3_lane["active_in"]} if k == "sampler" else {}),
          **({"state": ROUND_TIMED, "tolerance": "bit for bit on every lane",
-             "lanes": lane[k]["lanes"]} if k in ("refill", "restart") else {})}
+             "lanes": lane[k]["lanes"]} if k in ("refill", "restart") else {}),
+         **({"tolerance": "bit for bit on every lane and row"} if k == "camera" else {})}
         for k in KERNELS
     ]
 
@@ -3655,10 +3770,12 @@ def same_frame(a: dict, b: dict) -> bool:
 
 
 # ATen ops one sample of the modular route may dispatch beside its kernels:
-# the camera rays and their counter draws (~100), the state, the path-vertex
-# sums per level. Before N1 the shade and finish work alone was ~430 per level
-# on the Cornell scene (PERF.md); a sample of the BVH frame was ~3,880 launches.
-SAMPLE_OPS_MAX = 200
+# the path-vertex sums per level, the live mask, the accumulation (12 on the
+# BVH frame's 4 levels, 16 on Cornell's 6 with N4 in place, on an H100;
+# PERF.md), and a small margin. The camera stage's hashing and rays were ~115
+# more before N4, and before N1 the shade and finish work alone was ~430
+# per level on the Cornell scene (PERF.md).
+SAMPLE_OPS_MAX = 20
 
 
 def aten_ops(fn) -> dict:
@@ -3769,7 +3886,7 @@ def phase_graphs(dev, gpu: str) -> None:
     # them (no case here takes faithful acceptance, which has no kernel)
     stages = {"_fold_in_planes": TR, "surface_detail": SH, "_finish_bounce": SH,
               "sampler_plain": P, "sample_mixture": S, "refill_plain": RF,
-              "restart_plain": RF}
+              "restart_plain": RF, "camera_state_plain": P}
     plain_calls = dict.fromkeys(stages, 0)
 
     def counted(name, f):
@@ -3793,7 +3910,8 @@ def graph_cases(descs: dict, dev, gpu: str, plain_calls: dict) -> None:
     """The cases of ``phase_graphs``; ``plain_calls`` counts the calls of
     the plain modular stages, which must stay 0. A modular batch case also
     prints the ATen ops of one sample (``sample_ops``): at most
-    ``SAMPLE_OPS_MAX``, with the shade and finish work in N1a and N1b; a
+    ``SAMPLE_OPS_MAX``, with the camera stage in N4 and the shade and
+    finish work in N1a and N1b; a
     modular lane case those of one round (``round_ops``): at most
     ``ROUND_OPS_MAX``, with the sampler, the refill and the restart in K3,
     N2a and N2b."""
@@ -3855,7 +3973,8 @@ def graph_cases(descs: dict, dev, gpu: str, plain_calls: dict) -> None:
                 plain_stage_calls=json.dumps(plain_calls).replace(" ", ""))
             if n_ops > SAMPLE_OPS_MAX:
                 raise SystemExit(f"[graphs] {case}: {n_ops} ATen ops in one sample "
-                                 f"(> {SAMPLE_OPS_MAX}): the modular bounce is not in N1a/N1b")
+                                 f"(> {SAMPLE_OPS_MAX}): the modular sample is not in N4, "
+                                 "N1a and N1b")
         if engine != "batch" and not graphed.fused:
             ops = round_ops(eager)
             n_ops = sum(ops.values())
@@ -3928,6 +4047,7 @@ def main() -> int:
     # K3's lane mode keeps its own error: its pdfs reach 1e14 on near-mirror lanes
     lane["sampler-lane"]["max_abs_err"] = round_errs.pop("sampler")
     errs.update(round_errs)
+    errs["camera"] = phase_kernels_camera(dev)
     with tempfile.TemporaryDirectory() as tmp:
         runs = {path: phase_main(dev, tmp, path) for path in MAIN}
     # each kernel's launches on the main path: the batch path's run for its

@@ -5,8 +5,10 @@ one CUDA card.
     python3 kernel_times.py --root _scratch_tree/parent --label parent
 
 Loads ``raytracing_course_2024_tpu_torch`` from ``--root`` (default: the
-directory of this script; a tree whose modular bounce runs on the (13, B)
-state of ``integrator/path.py:fresh_state``), builds its kernels, and
+directory of this script; for the default timings a tree whose camera stage
+has its plain version ``ops/camera.py:camera_state_plain``; ``--camera-stage``,
+``--modular-frames``, ``--lane-frames`` and ``--bvh-turns`` take older trees
+too), builds its kernels, and
 calls the functions of the ``chip_smoke.py`` beside this script on scenes/cornell_box.gltf at
 1280x720 x 16 spp (one 921,600-lane batch): ``launch_times`` (ms per launch
 of every kernel, K1, K1-final and K5 in place and into a separate buffer;
@@ -23,17 +25,22 @@ sticky frame) and ``frame_times`` (median host ms of ``--frames`` frames of
 the batch engine's fused and modular paths and of the sticky and wavefront
 engines, with their path-vertex totals; ``--frames 0`` leaves the frames and
 the round-by-round pass out). ``--bvh-turns N`` times only the
-81,920-triangle BVH frame of ``chip_smoke.bvh_desc`` on the three engines,
-one frame per engine in turn, N times (``bvh_engine_turns``).
+81,920-triangle BVH frame of ``chip_smoke.bvh_desc`` on the three engines
+and on the tree's default engine (as the CLI renders it), one frame per
+engine in turn, N times (``bvh_engine_turns``).
 ``--bvh-kernel`` times only K6, per launch, on the 921,600 camera and
 bounce-1 rays of that BVH frame with their live masks (``bvh_state``,
 ``bvh_launch_times`` without the walk models), and prints the launch
 geometry (K6's stack, shared bytes, resident blocks).
 ``--modular-frames`` profiles only the four frames whose bounce is the
 modular one (the BVH frame on the three engines, the Cornell frame with
-roulette), graphed, ``--frames`` profiled frames each after a warm-up
+roulette), graphed, the two batch ones also eagerly, and the Cornell fused
+frame under ``RT_MEGA_CAM=0``, ``--frames`` profiled frames each after a
+warm-up
 (``chip_smoke.profiled_frame``: wall and device ms, busy share, launches,
-and N1a's and N1b's device ms and launches summed over the frame), then
+the image's digest, N1a's, N1b's and N4's device ms and launches summed over
+the frame, and those of the rows that name no hand-written kernel: the ATen
+ops), then
 the sum of the bounds of the N1a and N1b launches of the frame of seed 1
 (``chip_smoke.n1_frame_bounds``, on its eager twin): the launch-weighted
 share is that sum over seed 1's frame-summed ms.
@@ -57,6 +64,9 @@ kernels as built, then parts dropped or redesign items switched, in turns
 (the variants forward, backward, forward, backward, then each one's
 median); a variant whose lines the tree does not hold is named and left
 out.
+``--camera-stage`` times only the modular route's camera stage on the
+Cornell frame's 921,600 lanes (``camera_stage``): the ATen ops of the route
+before N4, and N4 where the tree has it.
 ``--shade-kernels`` times only N1a and N1b, per launch in place, on the
 BVH frame's 921,600-lane camera, bounce-1 and bounce-3 states
 (``chip_smoke.n1_states``, ``shade_times``) with their bounds.
@@ -81,6 +91,7 @@ change, change, parent.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
 import json
 import os
@@ -128,6 +139,9 @@ def main() -> int:
     ap.add_argument("--shade-kernels", action="store_true",
                     help="only N1a and N1b per launch on the BVH frame's camera, bounce-1 "
                          "and bounce-3 states")
+    ap.add_argument("--camera-stage", action="store_true",
+                    help="only the modular route's camera stage on 921,600 lanes: its ATen "
+                         "ops, and N4 where the tree has it")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("kernel_times: no CUDA device", file=sys.stderr)
@@ -162,6 +176,9 @@ def main() -> int:
         r = Renderer(CS.bvh_desc(w, h, spp), device=dev)
         CS.bvh_launch_times(r, gpu, CS.bvh_state(r, w * h, plain=False), args.reps, args.label,
                             models=False)
+        return 0
+    if args.camera_stage:
+        camera_stage(dev, load_scene(CS.CORNELL, w, h, spp), say, args.reps)
         return 0
     if args.modular_frames:
         modular_frames(dev, CS.bvh_desc(w, h, spp), load_scene(CS.CORNELL, w, h, spp),
@@ -259,39 +276,48 @@ def main() -> int:
     return 0
 
 
+# the hand-written kernels, by the names the profiler gives them: a device
+# row that names none of them is an ATen op (or a copy or a fill)
+HAND_WRITTEN = ("bounce_kernel", "primary_kernel", "persistent_kernel", "dense_nearest_kernel",
+                "bvh_nearest_kernel", "sampler_kernel", "shade_kernel", "finish_kernel",
+                "refill", "restart_kernel", "camera_kernel")
+
+
+def modular_frame_cases(bvh, cornell):
+    """(name, scene, Renderer keywords, environment) of ``modular_frames``:
+    the four frames of the modular bounce, graphed; the two batch frames
+    again eagerly; the Cornell fused frame under ``RT_MEGA_CAM=0`` (its
+    camera stage, then K1 from bounce 0)."""
+    return (("bvh-batch", bvh, {"engine": "batch"}, {}),
+            ("cornell-modular-rr", cornell, {"russian_roulette": True}, {}),
+            ("bvh-wavefront", bvh, {"engine": "wavefront"}, {}),
+            ("bvh-sticky", bvh, {"engine": "sticky"}, {}),
+            ("bvh-batch-eager", bvh, {"engine": "batch", "eager": True}, {}),
+            ("cornell-modular-rr-eager", cornell, {"russian_roulette": True, "eager": True}, {}),
+            ("cornell-mega-cam-off", cornell, {}, {"RT_MEGA_CAM": "0"}))
+
+
 def modular_frames(dev, bvh, cornell, frames: int, say) -> None:
     """The frames whose bounce is the modular one: the BVH frame on the batch,
     wavefront and sticky engines and the Cornell frame on the batch engine
-    with roulette, each graphed, a warm-up frame (it captures) and then
+    with roulette, each graphed, and the others of ``modular_frame_cases``; a
+    warm-up frame (it captures) and then
     ``frames`` frames under torch.profiler (``chip_smoke.profiled_frame``):
-    wall ms, device ms, busy share, device launches, N1a's and N1b's device
-    ms and launches, the largest rows; then the summed bound of N1a's and
-    N1b's launches in the frame of seed 1."""
+    wall ms, device ms, busy share, device launches, the image's digest,
+    N1a's, N1b's and N4's device ms and launches, the device ms and launches
+    of the rows outside the hand-written kernels (``HAND_WRITTEN``: the ATen
+    ops), the largest rows; then, for the four graphed modular frames, the
+    summed bound of N1a's and N1b's launches in the frame of seed 1."""
     from raytracing_course_2024_tpu_torch.runtime.render import Renderer
 
-    for name, desc, kw in (("bvh-batch", bvh, {}),
-                           ("cornell-modular-rr", cornell, {"russian_roulette": True}),
-                           ("bvh-wavefront", bvh, {"engine": "wavefront"}),
-                           ("bvh-sticky", bvh, {"engine": "sticky"})):
-        r = Renderer(desc, device=dev, **kw)
-        r.render_frame_device(seed=0)
-        n1_ms = {}
-        for seed in range(1, frames + 1):
-            p = CS.profiled_frame(r, seed)
-            n1 = {k: [sum(x[i] for x in p["rows"] if f"{k}_kernel" in x[2]) for i in (0, 1)]
-                  for k in ("shade", "finish")}
-            n1_ms[seed] = {k: v[0] for k, v in n1.items()}
-            say(frame=name, seed=seed, wall_ms=round(p["wall_ms"], 3),
-                device_ms=round(p["device_ms"], 3), busy_share=round(p["busy_share"], 4),
-                device_launches=p["launches"], path_vertices=int(p["path_vertices"]),
-                **({} if r.engine == "batch" else {"rounds": r.rounds}),
-                n1a_ms=round(n1["shade"][0], 4), n1a_launches=n1["shade"][1],
-                n1b_ms=round(n1["finish"][0], 4), n1b_launches=n1["finish"][1],
-                top=json.dumps([[round(ms, 3), n, k[:40]] for ms, n, k in p["rows"][:5]])
-                .replace(" ", ""))
+    for name, desc, kw, env in modular_frame_cases(bvh, cornell):
+        with _environ(env):  # RT_MEGA_CAM is read when the sample body is made
+            r = Renderer(desc, device=dev, **kw)
+            r.render_frame_device(seed=0)
+            n1_ms = {seed: _profiled(r, name, seed, say) for seed in range(1, frames + 1)}
         del r
         torch.cuda.empty_cache()
-        if frames >= 1:
+        if frames >= 1 and not env and not kw.get("eager"):
             b = CS.n1_frame_bounds(desc, dev, 1, **kw)
             out = {}
             for k, tag in (("shade", "n1a"), ("finish", "n1b")):
@@ -300,6 +326,96 @@ def modular_frames(dev, bvh, cornell, frames: int, say) -> None:
                             f"{tag}_share": round(b[k]["bound_ms"] / n1_ms[1][k], 4)})
             say(frame=name, seed=1, **out)
             torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def _environ(env: dict):
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k in env:
+            os.environ.pop(k)
+
+
+def _profiled(r, name: str, seed: int, say) -> dict:
+    """One profiled frame of ``modular_frames``, printed; returns N1a's and
+    N1b's device ms by kernel name."""
+    p = CS.profiled_frame(r, seed)
+
+    def rows(match):
+        return [sum(x[i] for x in p["rows"] if match(x[2])) for i in (0, 1)]
+
+    n1 = {k: rows(lambda key, k=k: f"{k}_kernel" in key) for k in ("shade", "finish")}
+    cam = rows(lambda key: "camera_kernel" in key)
+    aten = rows(lambda key: not any(k in key for k in HAND_WRITTEN))
+    say(frame=name, seed=seed, wall_ms=round(p["wall_ms"], 3),
+        device_ms=round(p["device_ms"], 3), busy_share=round(p["busy_share"], 4),
+        device_launches=p["launches"], path_vertices=int(p["path_vertices"]),
+        image_sha=p["image_sha"], **({} if r.engine == "batch" else {"rounds": r.rounds}),
+        n1a_ms=round(n1["shade"][0], 4), n1a_launches=n1["shade"][1],
+        n1b_ms=round(n1["finish"][0], 4), n1b_launches=n1["finish"][1],
+        n4_ms=round(cam[0], 4), n4_launches=cam[1],
+        aten_ms=round(aten[0], 4), aten_launches=aten[1],
+        top=json.dumps([[round(ms, 3), n, k[:40]] for ms, n, k in p["rows"][:5]])
+        .replace(" ", ""))
+    return {k: v[0] for k, v in n1.items()}
+
+
+CAMERA_HOST_US = 3000  # what the held stream allows the host for one call of the ATen stage
+
+
+def camera_stage(dev, desc, say, reps: int) -> None:
+    """The modular route's camera stage on the Cornell frame's 921,600 lanes,
+    seed and work-id offset read from a device pair as a ``SampleBody``
+    hands them over: the ATen ops of the route before N4, written out here
+    op for op (the work key, the two jitter draws, ``generate_rays_u``, the
+    fresh state's stack), counted (``chip_smoke.aten_ops``) and timed per
+    call with an event pair while the stream is held (``cuda_ms_each``);
+    then, on a tree that has it, N4 (``ops/camera.py:camera_state``) into a
+    buffer, the same way, and whether it equals the ops bit for bit."""
+    from raytracing_course_2024_tpu_torch.ops import camera as C
+    from raytracing_course_2024_tpu_torch.ops.rng import (CTR_JITTER, offset_ids, uniform_ctr,
+                                                          work_key)
+
+    w, h = desc.settings.width, desc.settings.height
+    n = w * h
+    cam = C.camera_arrays(desc.settings.camera)
+    cam_row = torch.from_numpy(C.pack_camera_row(cam)[0]).to(dev)
+    wid = torch.arange(n, device=dev, dtype=torch.int32)
+    px, py = (wid % w).float(), (wid // w).float()
+    pair = torch.tensor([1, 3 * n], dtype=torch.int64, device=dev)
+
+    def stage_ops():
+        key = work_key(pair[0], offset_ids(wid, pair[1]))
+        ro, rd = C.generate_rays_u(cam, px, py, w, h, uniform_ctr(key, CTR_JITTER),
+                                   uniform_ctr(key, CTR_JITTER + 1))
+        zero = ro.x * 0.0
+        one = zero + 1.0
+        return torch.stack([*ro, *rd, one, one, one, zero, zero, zero, one])
+
+    ops = CS.aten_ops(stage_ops)
+    stats: dict = {}
+    ms = CS.cuda_ms_each(stage_ops, reps, stats, host_us=CAMERA_HOST_US)
+    say(stage="camera-aten", lanes=n, aten_ops=sum(ops.values()), ms=round(ms, 4),
+        min_ms=round(stats["min_ms"], 4), max_ms=round(stats["max_ms"], 4),
+        gap_ms=round(stats["gap_ms"], 4),
+        top=json.dumps(sorted(ops.items(), key=lambda kv: -kv[1])[:6]).replace(" ", ""))
+    if not hasattr(C, "camera_state"):
+        return
+    out = torch.empty((13, n), dtype=torch.float32, device=dev)
+
+    def n4():
+        C.camera_state(pair[0], wid, pair[1], px, py, cam, cam_row, w, h, out=out)
+
+    stats = {}
+    ms = CS.cuda_ms_each(n4, reps, stats)
+    n4()
+    want = stage_ops()
+    b = CS.camera_bytes(n)
+    say(stage="camera-n4", lanes=n, ms=round(ms, 4), min_ms=round(stats["min_ms"], 4),
+        max_ms=round(stats["max_ms"], 4), bound_ms=round(CS.bound(b, 0)[0], 5),
+        bit_equal=CS.bit_equal(out, want))
 
 
 # the hand-written kernels a lane frame may launch, by the name the profiler gives them

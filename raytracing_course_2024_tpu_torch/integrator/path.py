@@ -15,12 +15,15 @@ direction never contributes). Two routes compute it, picked by
   sample is a chain of fused-bounce kernels (ops/bounce.py): bounce 0 with
   the camera ray generated in the same kernel (K2), bounces
   1 .. ray_depth-2 (K1), the final level (K1 ``final_only``). At
-  ``ray_depth`` 1 the camera rays come from ``generate_rays_u`` and only the
-  final level runs. This is the JAX package's
-  ``_trace_paths_mega_primary`` / ``render_pixels`` route.
-* **modular** (everything else, the BVH backend included): camera rays
-  from ``generate_rays_u``, then per level, on a (13, B) state as the fused
-  route's: the scene's nearest hit over the finite table
+  ``ray_depth`` 1 the fresh state on the camera rays comes from the camera
+  stage N4 (``ops/camera.py:camera_state``) and only the final level runs.
+  This is the JAX package's ``_trace_paths_mega_primary`` /
+  ``render_pixels`` route.
+* **modular** (everything else, the BVH backend included): the (13, B)
+  state of fresh paths on their camera rays from the camera stage N4
+  (``ops/camera.py:camera_state``: the work key, the jitter draws, the
+  ray and the fresh rows in one kernel), then per level, on that state as
+  on the fused route's: the scene's nearest hit over the finite table
   (``ops/traverse.py:nearest_table``: K4 or the chunked sweep on the dense
   backend, the BVH walk K6 on the BVH backend), the shade pass N1a (the
   planes, ``surface_detail``, emission / background; ``ops/shade.py``),
@@ -60,9 +63,9 @@ from typing import NamedTuple
 import torch
 
 from ..ops import bounce as B
-from ..ops.camera import CameraArrays, camera_from_row, generate_rays_u, pack_camera_row
-from ..ops.rng import (CTR_JITTER, WF_STRIDE, batch_ctr, check_work_ids, draws_per_bounce,
-                       lane_ctr, offset_ids, uniform_ctr, work_key)
+from ..ops.camera import (CameraArrays, camera_from_row, camera_state, camera_state_plain,
+                          pack_camera_row)
+from ..ops.rng import WF_STRIDE, batch_ctr, check_work_ids, draws_per_bounce, lane_ctr
 from ..ops.sampler import sample_mixture_kernel, sampler_plain
 from ..ops.sampling import UNROLL_MAX_LIGHTS
 from ..ops.scene_intersect import ModularScene
@@ -73,7 +76,12 @@ from ..scene.types import SceneStatics
 
 log = logging.getLogger("rt_torch")
 
-DEFAULT_BATCH = 1_048_576  # lanes per batch (the JAX package's TPU value)
+# lanes per batch on every engine and both backends. The JAX package's
+# engine-aware counts (16,384 wavefront lanes, 262,144 BVH batch lanes;
+# raytracing_course_2024_tpu/runtime/render.py:30-38, :80-87) are sweeps
+# made on a TPU and are not ported; the H100's sweep waits for the port's
+# benchmark (ROADMAP.md B0).
+DEFAULT_BATCH = 1_048_576
 
 
 class TraceConfig(NamedTuple):
@@ -137,10 +145,10 @@ def trace_sample(scene: B.BounceScene, state: torch.Tensor, seed, wid: torch.Ten
     0-dim int64 tensors on the lanes' device, read there.
 
     ``RT_MEGA_CAM=0`` (the JAX package's switch; ``mega_cam`` when given)
-    takes the camera rays from ``_first_level_state`` and runs bounce 0 in
-    K1 instead of K2, from the same draws. ``cam`` is ``cam_row`` unpacked
-    on the host (a captured body passes its own: unpacking reads the row
-    back)."""
+    takes the fresh state from the camera stage (N4, ``camera_state``) and
+    runs bounce 0 in K1 instead of K2, from the same draws. ``cam`` is
+    ``cam_row`` unpacked on the host (a captured body passes its own:
+    unpacking reads the row back)."""
     bg, k = cfg.bg_color, cfg.max_tries
     if cam is None:
         cam = camera_from_row(cam_row)
@@ -151,13 +159,13 @@ def trace_sample(scene: B.BounceScene, state: torch.Tensor, seed, wid: torch.Ten
                                      cfg, width, height, mega_cam)
     rays = torch.full((), float(px.shape[0]), dtype=torch.float64, device=px.device)
     if cfg.ray_depth < 2:  # the final level only: camera rays, then K1 final_only
-        st = _first_level_state(seed, wid, wid_off, px, py, cam, width, height)
+        st = camera_state_plain(seed, wid, wid_off, px, py, cam, width, height)
     else:
         if mega_cam:
             st = B.primary_plain(scene, cam_row, px, py, wid, wid_off, seed, bg, k, width,
                                  height)
         else:
-            st = B.bounce_plain(scene, _first_level_state(seed, wid, wid_off, px, py, cam,
+            st = B.bounce_plain(scene, camera_state_plain(seed, wid, wid_off, px, py, cam,
                                                           width, height),
                                 wid, wid_off, seed, 0, bg, k)
         for i in range(1, cfg.ray_depth - 1):
@@ -175,26 +183,14 @@ def _mega_cam() -> bool:
     return os.environ.get("RT_MEGA_CAM", "1") != "0"
 
 
-def _first_level_state(seed, wid: torch.Tensor, wid_off, px: torch.Tensor, py: torch.Tensor,
-                       cam: CameraArrays, width: int, height: int) -> torch.Tensor:
-    """The (13, B) state of fresh paths on their camera rays: the input of
-    the final level at ``ray_depth`` below 2, of bounce 0 under
-    ``RT_MEGA_CAM=0``."""
-    draw = B.lane_draws(seed, wid, wid_off)
-    ro, rd = generate_rays_u(cam, px, py, width, height, draw(CTR_JITTER),
-                             draw(CTR_JITTER + 1))
-    zero = px * 0.0
-    one = zero + 1.0
-    return B._pack(ro, rd, Vec3(one, one, one), Vec3(zero, zero, zero), zero < 1.0)
-
-
 def _trace_sample_kernels(scene, state, seed, wid, wid_off, px, py, cam_row, cam,
                           cfg: TraceConfig, width: int, height: int, mega_cam: bool):
     """``trace_sample`` through the wrappers of ``ops/bounce.py``: K2, then
     K1 per level, then K1 ``final_only``, in place in ``state``. K2 runs every
     lane; each later launch adds the lanes alive on its entry to ``rays``
     (on the CPU the wrappers sum the alive row). Without ``mega_cam``
-    bounce 0 is K1 on ``_first_level_state``, copied into ``state``."""
+    bounce 0 is K1 on the camera stage's fresh state, which N4 writes into
+    ``state``."""
     bg, k = cfg.bg_color, cfg.max_tries
     if cfg.ray_depth >= 2 and mega_cam:
         st = B.primary_bounce(scene, cam_row, px, py, wid, wid_off, seed, bg, k, width, height,
@@ -202,7 +198,7 @@ def _trace_sample_kernels(scene, state, seed, wid, wid_off, px, py, cam_row, cam
         rays = torch.full((), px.shape[0], dtype=torch.int64, device=px.device)
         first = 1
     else:  # camera rays, then K1 from bounce 0 on (or the final level alone)
-        st = state.copy_(_first_level_state(seed, wid, wid_off, px, py, cam, width, height))
+        st = camera_state(seed, wid, wid_off, px, py, cam, cam_row, width, height, out=state)
         rays = torch.zeros((), dtype=torch.int64, device=px.device)
         first = 0
     for i in range(first, cfg.ray_depth - 1):
@@ -215,14 +211,6 @@ def _trace_sample_kernels(scene, state, seed, wid, wid_off, px, py, cam_row, cam
 # ---------------------------------------------------------------------------
 # modular dense path (the JAX package's trace_paths batch scan)
 # ---------------------------------------------------------------------------
-
-
-def fresh_state(ro: Vec3, rd: Vec3) -> torch.Tensor:
-    """The (13, B) state of fresh paths on the rays (ro, rd): throughput 1,
-    radiance 0, alive."""
-    zero = ro.x * 0.0
-    one = zero + 1.0
-    return torch.stack([*ro, *rd, one, one, one, zero, zero, zero, one])
 
 
 def _collect_hit(state: torch.Tensor, scene: ModularScene, cfg: TraceConfig,
@@ -284,14 +272,15 @@ def sample_bounce(scene: ModularScene, cfg: TraceConfig, seed, wid: torch.Tensor
     return sampler_plain(scene, seed, wid, wid_off, ctr, *ins, faithful=cfg.faithful)
 
 
-def trace_paths(scene: ModularScene, ro: Vec3, rd: Vec3, seed,
-                wid: torch.Tensor, wid_off, cfg: TraceConfig, plain: bool = False):
-    """Radiance of one path per lane from the rays (ro, rd) on the modular
-    path. Returns ((3, B) radiance, path vertices as a 0-dim float64
-    tensor)."""
-    st = fresh_state(ro, rd)
+def trace_paths(scene: ModularScene, state: torch.Tensor, seed, wid: torch.Tensor, wid_off,
+                cfg: TraceConfig, plain: bool = False):
+    """Radiance of one path per lane on the modular path from ``state``, the
+    (13, B) state of fresh paths (``ops/camera.py:camera_state``), which the
+    kernels update in place. Returns ((3, B) radiance, path vertices as a
+    0-dim float64 tensor)."""
+    st = state
     live = st[12] > 0.5
-    rays = torch.zeros((), dtype=torch.float64, device=ro.x.device)
+    rays = torch.zeros((), dtype=torch.float64, device=st.device)
     for i in range(cfg.ray_depth - 1):
         rays += live.sum(dtype=torch.float64)
         st, live = _bounce(st, scene, cfg, seed, wid, wid_off, i, plain, live)
@@ -302,28 +291,35 @@ def trace_paths(scene: ModularScene, ro: Vec3, rd: Vec3, seed,
 
 def _modular_sample(scene: ModularScene, seed, wid: torch.Tensor,
                     wid_off, px: torch.Tensor, py: torch.Tensor, cam,
-                    cfg: TraceConfig, width: int, height: int, plain: bool):
+                    cfg: TraceConfig, width: int, height: int, plain: bool,
+                    cam_row: torch.Tensor | None = None, state: torch.Tensor | None = None):
     """One camera sample per lane on the modular route: ((3, B) radiance,
     path vertices as a 0-dim float64 tensor). ``seed`` and ``wid_off`` are
-    ints or 0-dim int64 tensors on the lanes' device."""
-    key = work_key(seed, offset_ids(wid, wid_off))
-    ro, rd = generate_rays_u(cam, px, py, width, height, uniform_ctr(key, CTR_JITTER),
-                             uniform_ctr(key, CTR_JITTER + 1))
-    return trace_paths(scene, ro, rd, seed, wid, wid_off, cfg, plain)
+    ints or 0-dim int64 tensors on the lanes' device. The fresh state comes
+    from the camera stage: its plain version with ``plain``, else N4
+    (``camera_state``: the kernel on a card, into ``state`` when given,
+    reading the camera as ``cam_row``, which a card needs; the plain version
+    on the CPU)."""
+    if plain:
+        st = camera_state_plain(seed, wid, wid_off, px, py, cam, width, height)
+    else:
+        st = camera_state(seed, wid, wid_off, px, py, cam, cam_row, width, height, out=state)
+    return trace_paths(scene, st, seed, wid, wid_off, cfg, plain)
 
 
 class SampleBody:
     """One sample of one batch, on either route, over static buffers:
     ``seed_off`` ((2,) int64: the seed and the sample's work-id offset),
     ``wid``, ``px``, ``py`` (one entry per lane) in, the sums ``acc`` ((3,
-    B) f32 radiance) and ``nrays`` (0-dim f64 path vertices) out. On the
-    fused route (a ``BounceScene``) a call runs ``trace_sample`` in the
-    body's own (13, B) ``state``: K2, K1 per level and K1 ``final_only`` (or
-    the camera stage and K1 under ``RT_MEGA_CAM=0`` and at ``ray_depth`` <
-    2, both read when the body is made); on the modular route
-    ``_modular_sample``. A call adds one sample to the sums and reads nothing
-    from the host, so a CUDA graph captured from one call replays it for any
-    values in the inputs (``runtime/graphs.py``). On the CPU the wrappers
+    B) f32 radiance) and ``nrays`` (0-dim f64 path vertices) out. Each call
+    works in the body's own (13, B) ``state``. On the fused route (a
+    ``BounceScene``) a call runs ``trace_sample``: K2, K1 per level and K1
+    ``final_only`` (or the camera stage N4 and K1 under ``RT_MEGA_CAM=0``
+    and at ``ray_depth`` < 2, both read when the body is made); on the
+    modular route ``_modular_sample``: N4, then the levels. A call adds one
+    sample to the sums and reads nothing from the host, so a CUDA graph
+    captured from one call replays it for any values in the inputs
+    (``runtime/graphs.py``). On the CPU the wrappers
     return fresh tensors from the plain versions, which the body copies or
     adds into its buffers, so the same code runs there."""
 
@@ -339,8 +335,7 @@ class SampleBody:
         self.wid = torch.zeros((lanes,), dtype=torch.int32, device=device)
         self.px = torch.zeros((lanes,), dtype=torch.float32, device=device)
         self.py = torch.zeros((lanes,), dtype=torch.float32, device=device)
-        self.state = (torch.zeros((B.N_STATE, lanes), dtype=torch.float32, device=device)
-                      if self.fused else None)
+        self.state = torch.zeros((B.N_STATE, lanes), dtype=torch.float32, device=device)
         self.acc = torch.zeros((3, lanes), dtype=torch.float32, device=device)
         self.nrays = torch.zeros((), dtype=torch.float64, device=device)
 
@@ -366,7 +361,8 @@ class SampleBody:
             rad = st[9:12]
         else:
             rad, rays = _modular_sample(self.scene, seed, self.wid, wid_off, self.px, self.py,
-                                        self.cam, self.cfg, self.width, self.height, self.plain)
+                                        self.cam, self.cfg, self.width, self.height, self.plain,
+                                        self.cam_row, self.state)
         self.acc += rad
         self.nrays += rays
 

@@ -7,6 +7,18 @@
 with u, v ~ U(0, 1) jitter -- the JAX package's ``ops/camera.py``. The
 camera basis is kept as float32 numpy values: each enters the lane math as
 a scalar constant.
+
+The modular route's camera stage is the hand-written CUDA kernel N4
+(``csrc/camera.cu``) and its plain version: ``camera_state`` /
+``camera_state_plain`` give the (13, B) state of fresh paths on their
+jittered rays, keyed by the counter RNG (``ops/rng.py``: draws
+``CTR_JITTER`` and ``CTR_JITTER + 1`` of ``work_key(seed, wid +
+wid_off)``). The JAX package computes the same inside its jitted sample
+scan (``integrator/path.py:490`` calls ``generate_rays``; ``trace_paths``
+builds the state at ``:304-312``), where XLA fuses it into one pass. The
+wrapper runs the plain version only for tensors on the CPU; on a CUDA
+tensor it launches the kernel or raises, and counts the launch in
+``ops/kernels.py:LAUNCHES`` (``"camera"``).
 """
 
 from __future__ import annotations
@@ -18,6 +30,8 @@ import numpy as np
 import torch
 
 from ..scene.types import CameraDesc
+from .kernels import check, launch_camera
+from .rng import CTR_JITTER, offset_ids, seed_off, uniform_ctr, work_key
 from .vec import Vec3, true_div
 
 
@@ -94,3 +108,55 @@ def camera_from_row(row) -> CameraArrays:
         up=r[CAM_UP:CAM_UP + 3], forward=r[CAM_FWD:CAM_FWD + 3],
         tan_half_fov_x=r[CAM_TANX], tan_half_fov_y=r[CAM_TANY],
     )
+
+
+def camera_state_plain(seed, wid: torch.Tensor, wid_off, px: torch.Tensor, py: torch.Tensor,
+                       cam: CameraArrays, width: int, height: int) -> torch.Tensor:
+    """Plain version of ``camera_state``: the (13, B) f32 state of fresh
+    paths, the ray origin (rows 0-2) and unit direction (3-5) through pixel
+    (px, py) jittered by draws ``CTR_JITTER`` and ``CTR_JITTER + 1`` of
+    ``work_key(seed, wid + wid_off)``, throughput 1 (6-8), radiance 0
+    (9-11), alive 1 (12). ``seed`` and ``wid_off`` are ints or 0-dim int64
+    tensors on the lanes' device, read there. The zero and the one derive
+    from the origin's x, as the JAX package's ``trace_paths`` derives them
+    (a zero's sign follows it)."""
+    key = work_key(seed, offset_ids(wid, wid_off))
+    ro, rd = generate_rays_u(cam, px, py, width, height, uniform_ctr(key, CTR_JITTER),
+                             uniform_ctr(key, CTR_JITTER + 1))
+    zero = ro.x * 0.0
+    one = zero + 1.0
+    return torch.stack([*ro, *rd, one, one, one, zero, zero, zero, one])
+
+
+def camera_state(seed, wid: torch.Tensor, wid_off, px: torch.Tensor, py: torch.Tensor,
+                 cam: CameraArrays, cam_row: torch.Tensor | None, width: int, height: int,
+                 out: torch.Tensor | None = None) -> torch.Tensor:
+    """N4 for tensors on CUDA, its plain version for tensors on the CPU;
+    arguments as ``camera_state_plain``'s, the camera also as its (128,) f32
+    row on the lanes' device (``pack_camera_row``), which the kernel reads.
+    Writes the state into ``out`` (13, B) when given. On the card the seed
+    and the work-id offset reach the kernel as a (2,) int64 device pair
+    (``ops/rng.py:seed_off``), so a captured CUDA graph replays the launch
+    for any sample."""
+    dev = px.device
+    if dev.type == "cpu":
+        res = camera_state_plain(seed, wid, wid_off, px, py, cam, width, height)
+        if out is None:
+            return res
+        return out.copy_(res)
+    if dev.type != "cuda":
+        raise ValueError(f"no camera kernel for device {dev}")
+    b = px.shape[0]
+    check("px", px, torch.float32, (b,), dev)
+    check("py", py, torch.float32, (b,), dev)
+    check("wid", wid, torch.int32, (b,), dev)
+    if cam_row is None:
+        raise ValueError("N4 reads the camera as its (128,) row on the lanes' device (cam_row)")
+    check("cam_row", cam_row, torch.float32, (128,), dev)
+    if out is None:
+        out = torch.empty((13, b), dtype=torch.float32, device=dev)
+    check("out", out, torch.float32, (13, b), dev)
+    pair = seed_off(seed, wid_off, dev)
+    check("seed_off", pair, torch.int64, (2,), dev)
+    launch_camera(px, py, wid, pair, cam_row, width, height, out)
+    return out

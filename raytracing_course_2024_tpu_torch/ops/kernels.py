@@ -15,8 +15,9 @@ and launches on that device's current stream, so shards on several cards,
 or on threads, each launch where their data lies. ``LAUNCHES`` counts the
 launches of each kernel (the wrappers of ``ops/bounce.py``,
 ``ops/dense_nearest.py``, ``ops/sampler.py``, ``ops/persistent.py``,
-``ops/traverse.py``, ``ops/shade.py`` and ``ops/refill.py`` call these
-functions); it and the tile tickets are changed under a lock. ``check`` validates a tensor before its pointer goes
+``ops/traverse.py``, ``ops/shade.py``, ``ops/refill.py`` and
+``ops/camera.py`` call these functions); it and the tile tickets are
+changed under a lock. ``check`` validates a tensor before its pointer goes
 to a kernel.
 
 Inside a CUDA graph capture (``runtime/graphs.py``) a wrapper's launch is
@@ -44,8 +45,8 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
-SOURCES = ("bounce.cu", "bvh_traverse.cu", "dense_nearest.cu", "persistent.cu", "refill.cu",
-           "sampler.cu", "shade.cu")
+SOURCES = ("bounce.cu", "bvh_traverse.cu", "camera.cu", "dense_nearest.cu", "persistent.cu",
+           "refill.cu", "sampler.cu", "shade.cu")
 # --fmad=false: no FMA contraction, so the kernels round op by op like the
 # plain versions (PyTorch runs one op per kernel). With contraction, grazing
 # hits and accept decisions flipped on ~0.1 % of the MIXED scene's lanes per
@@ -63,9 +64,11 @@ BUILD_INFO: dict = {}  # path, seconds (0.0 when cached), log of the last build
 # kernel launches per wrapper: the fused K2 / K1 (batch and lane mode) /
 # K1-final, the modular path's K4 and K3 (batch and lane mode), the sticky
 # engine's K5, the BVH backend's K6, the modular bounce's shade (N1a) and
-# finish (N1b), the lane engines' refill (N2a) and restart (N2b)
+# finish (N1b), the lane engines' refill (N2a) and restart (N2b), the modular
+# route's camera stage (N4)
 LAUNCHES = {"primary": 0, "bounce": 0, "final": 0, "nearest": 0, "sampler": 0,
-            "persistent": 0, "bvh": 0, "shade": 0, "finish": 0, "refill": 0, "restart": 0}
+            "persistent": 0, "bvh": 0, "shade": 0, "finish": 0, "refill": 0, "restart": 0,
+            "camera": 0}
 _LOCK = threading.Lock()  # guards LAUNCHES and _TICKETS: shards launch from threads
 _RECORD = threading.local()  # .counts: the calling thread's capture recorder, if any
 
@@ -212,6 +215,8 @@ def library() -> ctypes.CDLL:
         lib.rt_launch_refill.restype = i
         lib.rt_launch_restart.argtypes = [p, ll, p, p, p, p, ll, p, p, p, ll, ll, i, i, p]
         lib.rt_launch_restart.restype = i
+        lib.rt_launch_camera.argtypes = [p, p, p, p, p, i, i, p, ll, p]
+        lib.rt_launch_camera.restype = i
         lib.rt_bounce_geometry.argtypes = [ctypes.POINTER(ctypes.c_int)]
         lib.rt_bounce_geometry.restype = None
         lib.rt_persistent_resident_blocks.argtypes = []
@@ -482,3 +487,16 @@ def launch_restart(state, k, depth, wid, acc, seed_off, cam_row, bases, n_pix, s
         )
     _raise_on(rc, "rt_launch_restart")
     _count("restart")
+
+
+def launch_camera(px, py, wid, seed_off, cam_row, width, height, out) -> None:
+    """N4; ``seed_off`` the (2,) int64 device tensor (seed, work-id offset)
+    the kernel reads; ``out`` the (13, b) state it writes."""
+    lib = library()
+    with _on(out.device) as stream:
+        rc = lib.rt_launch_camera(
+            px.data_ptr(), py.data_ptr(), wid.data_ptr(), seed_off.data_ptr(),
+            cam_row.data_ptr(), int(width), int(height), out.data_ptr(), out.shape[1], stream,
+        )
+    _raise_on(rc, "rt_launch_camera")
+    _count("camera")

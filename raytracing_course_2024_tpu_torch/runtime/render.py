@@ -4,12 +4,14 @@
 Two backends, as in the JAX package (``backend=``; by default ``"bvh"``
 above ``BVH_THRESHOLD`` finite primitives, else ``"dense"``): the dense
 nearest hit, or the host SAH tree of ``ops/bvh.py`` walked by K6
-(``ops/traverse.py``). Three engines (``engine=`` or ``RT_ENGINE``; the
-default is ``"batch"`` on both backends, where the JAX package picks the
-wavefront for its BVH backend. The 81,920-triangle BVH frame of PERF.md,
-graphed on an NVIDIA H100 80GB HBM3 at a 700 W limit, takes 26.5-27.1 ms
-on the batch engine, 17.2-17.3 ms on the counter wavefront and 26.7-28.2
-ms on the sticky engine; ROADMAP.md leaves the default to the benchmark):
+(``ops/traverse.py``). Three engines (``engine=`` or ``RT_ENGINE``; by
+default the counter wavefront on the BVH backend and the batch engine on
+the dense one, as the JAX package's ``Renderer`` picks them. The card
+agrees: the 81,920-triangle BVH frame of PERF.md at 1280x720 x 16 spp,
+graphed on an NVIDIA H100 80GB HBM3 at a 700 W power limit, took 17.2-17.3
+ms on the counter wavefront, 26.5-27.1 ms on the batch engine and
+26.7-28.2 ms on the sticky engine. The lane count stays
+``integrator/path.py:DEFAULT_BATCH`` on every engine):
 
 * ``batch``: pixels are flattened into fixed-size lane batches; each batch
   runs ``integrator.path.render_pixels`` (``render_batches``). Frames
@@ -102,7 +104,9 @@ class _RendererBase:
         if backend == "bvh":
             arrays, self.bvh_builder = attach_bvh(arrays, statics)
         self.arrays, self.statics, self.backend = arrays, statics, backend
-        engine = engine or os.environ.get("RT_ENGINE") or "batch"
+        engine = engine or os.environ.get("RT_ENGINE")
+        if engine is None:
+            engine = "wavefront" if backend == "bvh" else "batch"
         if engine not in ("batch", "wavefront", "sticky"):
             raise ValueError(f"unknown engine {engine!r}")
         self.engine = engine
@@ -163,7 +167,8 @@ class Renderer(_RendererBase):
     ``backend=None`` picks ``"bvh"`` above ``BVH_THRESHOLD`` finite
     primitives and ``"dense"`` below; either may be asked for. ``engine=None``
     reads ``RT_ENGINE`` (``batch``, ``wavefront`` or ``sticky``; unset means
-    ``batch``), ``batch_size=None`` means ``DEFAULT_BATCH`` lanes, and
+    ``wavefront`` on the BVH backend and ``batch`` on the dense one),
+    ``batch_size=None`` means ``DEFAULT_BATCH`` lanes, and
     ``russian_roulette=None`` reads ``RT_RR`` (``"1"`` turns it on), as the
     JAX package's Renderer does. ``desc``, ``statics``, ``arrays`` (numpy;
     in the tree's order, with ``arrays.bvh`` set, on the BVH backend),

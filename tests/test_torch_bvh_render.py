@@ -7,7 +7,8 @@ version of K6, K3 and the rest), against the JAX package's BVH backend.
   and lanes (both draw the lane layout's counter streams), the batch engine
   against the JAX package's stages fed the port's counter draws
   (``test_torch_render._jax_counter_loop`` with the JAX package's BVH).
-* The engine the port picks for a 5,120-triangle mesh, 12x8 at 2 spp.
+* The engine the port picks for a 5,120-triangle mesh, 12x8 at 2 spp: the
+  counter wavefront, as the JAX Renderer picks it for its BVH backend.
 * ``backend=None`` picks the BVH backend above ``BVH_THRESHOLD``; the
   Renderer exposes ``desc``, ``statics``, ``arrays``, ``backend`` and
   ``render_radiance(with_stats=True)`` with the JAX package's RenderStats
@@ -92,28 +93,39 @@ def test_mixed_bvh_frames_match_jax(engine, monkeypatch):
 
 
 def test_mesh_frame_on_the_chosen_engine_matches_jax(monkeypatch):
-    """5,121 primitives: the BVH backend by default, on the batch engine
-    (the fastest of the three on the card's BVH frame, PERF.md)."""
+    """5,121 primitives: the BVH backend by default, on the counter
+    wavefront, the JAX Renderer's default engine there (and the fastest of
+    the three on the card's BVH frame, PERF.md)."""
     w, h, spp = 12, 8, 2
     jd, td = _mesh(w, h, spp)
     r = Renderer(td, device="cpu")
-    assert r.backend == "bvh" and r.engine == "batch"
+    assert r.backend == "bvh" and r.engine == "wavefront" == JRenderer(jd).engine
     got, verts = _port_frame(td, r.engine)
     want, want_verts = _jax_frame(jd, r.engine, w, h, spp, monkeypatch)
     _agree(got, want, verts, want_verts)
 
 
-def test_renderer_describes_the_scene_as_the_jax_renderer():
+def test_renderer_describes_the_scene_as_the_jax_renderer(monkeypatch):
     """``backend=None`` picks the BVH backend above BVH_THRESHOLD finite
-    primitives and the dense one below, as the JAX Renderer does; the
-    Renderer carries the description, statics, numpy arrays (on the BVH
-    backend in the tree's order, with the tree) and the builder's name."""
+    primitives and the dense one below, and ``engine=None`` the JAX
+    Renderer's engine on each (the counter wavefront on the BVH backend, the
+    batch engine on the dense one), as the JAX Renderer does; ``engine=``
+    and ``RT_ENGINE`` still override it. The Renderer carries the
+    description, statics, numpy arrays (on the BVH backend in the tree's
+    order, with the tree) and the builder's name."""
     _, mesh = _mesh(8, 6, 1)
     j_mixed, mixed = descs("mixed", 8, 6, 1)
+    monkeypatch.delenv("RT_ENGINE", raising=False)
     for jd, td, backend in ((mesh, mesh, "bvh"), (j_mixed, mixed, "dense")):
         r = Renderer(td, device="cpu")
-        jr = JRenderer(jd, engine="batch")
+        jr = JRenderer(jd)
         assert r.backend == jr.backend == backend
+        assert r.engine == jr.engine == ("wavefront" if backend == "bvh" else "batch")
+        assert Renderer(td, device="cpu", engine="sticky").engine == "sticky"
+        with monkeypatch.context() as m:
+            m.setenv("RT_ENGINE", "batch")
+            assert Renderer(td, device="cpu").engine == "batch"
+            assert Renderer(td, device="cpu", engine="wavefront").engine == "wavefront"
         assert r.desc is td and tuple(r.statics) == tuple(jr.statics)
         assert (r.arrays.bvh is not None) == (backend == "bvh")
         assert (r.bvh_builder in ("native", "numpy")) == (backend == "bvh")

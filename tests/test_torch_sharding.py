@@ -102,10 +102,11 @@ def test_nondivisible_height_is_cropped(engine):
 
 def test_bvh_backend_sharded_equals_single_device():
     """The BVH backend (K6's plain version, the modular bounce with K3's)
-    on a (2, 2) mesh; the BVH default engine stays ``batch``."""
+    on a (2, 2) mesh; on the BVH backend's default engine, the counter
+    wavefront, as the JAX Renderer picks it."""
     got, want, sr, (verts, single_verts) = _frames(None, (2, 2), backend="bvh")
     assert verts == single_verts
-    assert sr.backend == "bvh" and sr.engine == "batch" and sr.arrays.bvh is not None
+    assert sr.backend == "bvh" and sr.engine == "wavefront" and sr.arrays.bvh is not None
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
 
 
@@ -275,6 +276,8 @@ def _launches(dev):
         ("shade", "shade", lambda: kernels.launch_shade(
             t(13, 64), t(), t(), t(8, 40), t(20, 1), t(1), 1, True, True, t(), 5, bg, False,
             (t(13, 64), t(64, 8)), t())),
+        ("camera", "camera", lambda: kernels.launch_camera(
+            t(), t(), t(), t(2), t(128), 16, 12, t(13, 64))),
         ("finish", "finish", lambda: kernels.launch_finish(
             t(13, 64), (t(13, 64), t(64, 8)), [t() for _ in range(4)], t(), t(), t(2), 2, 64, 63,
             62, t(),
