@@ -5,10 +5,13 @@
     python3 chip_smoke.py --graphs   # the build and the graphs phase alone
 
 Every phase runs the Renderer as a user gets it: on the card the batch
-engine's samples and the lane engines' rounds replay captured CUDA graphs
-on both routes (``runtime/graphs.py``; the sticky engine's K5 loop stays
-eager), whose replays add the launches recorded at capture, so every launch
-count below holds graphed. K1 and K2 read the seed and the work-id offset
+engine's samples and the lane engines' rounds, the K5 loop's too, replay
+captured CUDA graphs on both routes (``runtime/graphs.py``; a lane loop's
+graph holds ``ROUNDS_PER_REPLAY`` rounds, each in an IF node on the device
+round test N5). A batch sample's replay adds the launches recorded at
+capture; a lane loop adds its rounds' and refills' launches times the
+rounds and refills its device counters report; so every launch count below
+holds graphed. K1 and K2 read the seed and the work-id offset
 from a device pair, as the graphed routes hand it to them, in every phase.
 
 Phases (each prints lines tagged with its name; any failure raises and
@@ -80,6 +83,12 @@ exits non-zero):
                921,523 and 921,600 lanes, bit for bit on every lane and row,
                launched eagerly and replayed from a captured CUDA graph
                after the seed pair changed on the device;
+               N5 (the lane loops' round test) on 997, 262,144, 921,523 and
+               1,048,576 lanes in the counter wavefront's and the sticky
+               engine's modes, exactly equal to its plain version eagerly
+               and replayed from a graph with the launch in an IF node whose
+               predicate goes true, false, true (K5 ends its own rounds
+               with the test: its [kernels] lines hold that test too);
 4. main     -- the port's CLI renders scenes/cornell_box.gltf at 1280x720,
                16 spp four times: by default (the fused path: K2, K1,
                K1-final), with RT_RR=1 (the modular path: N4 once per
@@ -167,12 +176,13 @@ exits non-zero):
                one process per card over NCCL;
 9. graphs   -- the BVH batch, Cornell modular (RT_RR=1), BVH wavefront and
                BVH sticky frames, and on the fused route the Cornell batch,
-               counter wavefront and sticky (262,144 lanes: K1 in lane
-               mode, not K5) frames, at 1280x720 x 16 spp, graphed and with
-               ``eager=True``: equal bit for bit (image, path vertices,
-               rounds, launches) for two seeds and a second ``samp_base``,
-               with one capture per cache entry (the counter wavefront has
-               two: its refill and its core); capture ms, pool MB, launches
+               counter wavefront, sticky (262,144 lanes: K1 in lane
+               mode, not K5) and sticky K5 frames, at 1280x720 x 16 spp,
+               graphed and with ``eager=True``: equal bit for bit (image,
+               path vertices, rounds, launches) for two seeds and a second
+               ``samp_base``, with one capture per cache entry (one per
+               case: a lane loop's guarded rounds hold its refill or
+               restart); capture ms, pool MB, launches
                per replay beside the eager frame's peak memory; eager and
                graphed frame ms in turns (median of 3 each); the busy share
                under torch.profiler, graphed and eager, of the BVH batch,
@@ -182,13 +192,29 @@ exits non-zero):
                at most SAMPLE_OPS_MAX ATen ops (the camera stage is in N4,
                the shade and finish work in N1a and N1b); no frame
                calls the plain sampler, refill or restart either, and one
-               round of the BVH counter wavefront (refill and bounce) and
+               round of the BVH counter wavefront (refill, bounce, N5) and
                of the BVH sticky engine dispatches at most ROUND_OPS_MAX.
-               It runs after the timing phase, before runtime.
+               It runs after the timing phase, before loop;
+10. loop    -- the five lane frames (BVH counter wavefront and sticky;
+               Cornell counter wavefront, sticky on 262,144 lanes and K5),
+               1280x720 x 16 spp, graphed against ``eager=True``: equal
+               ``image_sha``, path vertices, rounds, refills and launches;
+               the graphed frame waits on the card at most
+               ceil(rounds / ROUNDS_PER_REPLAY) + 2 times (a spy on every
+               event sync and every host read of a CUDA tensor), each a read
+               of the loop's pinned counters, and no wait that ATen makes on
+               its own (sync debug mode); unprofiled wall ms, graphed and
+               eager in turns; in a fresh process (``--traced``) a
+               profiled frame's device ms (for the idle share) and each
+               hand-written kernel's count in the traces of up to 3
+               profiled frames, which must equal its launches counted (a
+               guarded body's launches are counted from the device's
+               counters). It runs before runtime.
 
 The last lines are the card's name and power limit, the per-kernel JSON
-record (K1-K6, N1a/N1b, N2a/N2b and N4: twelve rows; K3's has its lane
-mode beside it) and ``{"ok": true, "device": {...}}``.
+record (K1-K6, N1a/N1b, N2a/N2b, N4 and N5: thirteen rows; K3's has its
+lane mode beside it, N5's its sticky mode) and ``{"ok": true, "device":
+{...}}``.
 """
 
 from __future__ import annotations
@@ -207,6 +233,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -359,6 +386,9 @@ KERNELS = {  # name -> (replaced TPU kernel body file:line, CUDA source)
     # N4 neither: XLA fuses the camera stage (generate_rays) into the JAX
     # package's jitted sample scan
     "camera": ("raytracing_course_2024_tpu/ops/camera.py:48", f"{CSRC}/camera.cu"),
+    # N5 neither: XLA fuses the lane loops' test (the while_loop's cond, the
+    # path-vertex sum, the refill's lax.cond predicate) into the loop
+    "loop": ("raytracing_course_2024_tpu/integrator/wavefront.py:300", f"{CSRC}/loop.cu"),
 }
 # launched on the modular main path only
 MODULAR = ("nearest", "sampler", "shade", "finish", "camera")
@@ -367,7 +397,8 @@ GRAPHED = {
     "primary": "the batch engine's fused route",
     "bounce": "the batch engine's fused route; the lane engines' fused rounds (lane mode)",
     "final": "the batch engine's fused route",
-    "persistent": "no: one launch per round, its counts read one round late",
+    "persistent": "the sticky engine's K5 loop, in guarded rounds (IF nodes), each ending "
+                  "with the round test",
     "nearest": "the batch engine's modular route; the lane engines' rounds on a dense "
                "ModularScene",
     "sampler": "the batch engine's modular route; the lane engines' rounds on a "
@@ -375,9 +406,11 @@ GRAPHED = {
     "bvh": "the batch engine's modular route; the lane engines' rounds",
     "shade": "the batch engine's modular route; the lane engines' rounds on a ModularScene",
     "finish": "the batch engine's modular route; the lane engines' rounds on a ModularScene",
-    "refill": "the counter wavefront's refill, both routes",
+    "refill": "the counter wavefront's refill, both routes, an IF node in its round",
     "restart": "the sticky engine's round off the K5 route, both routes",
     "camera": "the batch engine's modular route",
+    "loop": "the guarded rounds of the counter wavefront and of the sticky engine off the "
+            "K5 route: the round test that the next round's IF nodes read",
 }
 SEED = 20240917
 K = 4  # max_tries
@@ -606,23 +639,42 @@ def phase_kernels(dev) -> None:
         compare_states(k, p, f"{name}:final")
 
 
-def compare_persistent(kern, plain, counts, live, more, what: str) -> dict:
+def compare_persistent(kern, plain, ls, live, more, what: str) -> dict:
     """K5 against its plain version: rows 0-12 as ``compare_states`` holds
     K1's, the counters k and depth equal, the accumulators within atol =
-    rtol = 1e-4 on >= 99.9 % of lanes, the live count equal and the
-    work-left count within 0.1 % of the lanes."""
+    rtol = 1e-4 on >= 99.9 % of lanes; and the round test its last block
+    wrote into ``ls`` (a fresh ``LoopState``): the live count (the path
+    vertices) equal, the work-left count (``n``) within 0.1 % of the lanes,
+    another round and its IF predicate where that count is > 0, no refill,
+    the scratch back at 0."""
+    from raytracing_course_2024_tpu_torch.ops import loop as LP
+
     res = compare_states(kern[:13], plain[:13], f"{what}:rows0-12")
     kd_equal = bool(torch.equal(kern[13:15], plain[13:15]))
     err = (kern[15:18] - plain[15:18]).abs()
     acc_frac = (err <= ATOL + RTOL * plain[15:18].abs()).all(dim=0).float().mean().item()
     n = kern.shape[1]
-    live_k, more_k = counts.tolist()
+    loop = ls.loop.tolist()
+    live_k, more_k = loop[LP.NVERTS], loop[LP.N_ALIVE]
+    go = more_k > 0
+    test_ok = (loop[LP.MORE] == go and loop[LP.ROUNDS] == go and loop[LP.REFILL] == 0
+               and loop[LP.REFILLS] == 0 and ls.preds.tolist() == [go, False]
+               and not ls.scratch.any().item())
     out = dict(k_depth_equal=kd_equal, acc_agree=round(acc_frac, 6),
                acc_max_abs_err=err.max().item(), live=[live_k, int(live)],
-               more=[more_k, int(more)])
+               more=[more_k, int(more)], round_test_ok=test_ok)
     check(out, what, kd_equal and acc_frac >= LANE_FRAC and live_k == int(live)
-          and abs(more_k - int(more)) <= (1.0 - LANE_FRAC) * n)
+          and abs(more_k - int(more)) <= (1.0 - LANE_FRAC) * n and test_ok)
     return dict(res, max_abs_err=max(res["max_abs_err"], out["acc_max_abs_err"]))
+
+
+def k5_args(args, dev) -> tuple:
+    """K5's launch arguments after its ``LoopState`` from ``args``, the
+    plain version's (seed, frame_pix, pix_base, samp_base, bg, ...): the
+    device triple (seed, pix_base, samp_base) and the rest."""
+    from raytracing_course_2024_tpu_torch.ops.persistent import ids
+
+    return (ids(args[0], args[2], args[3], dev), args[1], *args[4:])
 
 
 def sticky_inputs(dev, desc, w: int, h: int, spp: int):
@@ -688,6 +740,7 @@ def phase_kernels_lanes(dev) -> tuple:
     errors of K1 in lane mode and of K5 at the main path's shapes, and the
     Cornell inputs and state at 921,600 lanes after ``K5_CHAIN`` rounds at
     the main path's spp, for the timing phase."""
+    from raytracing_course_2024_tpu_torch.ops.loop import LoopState
     from raytracing_course_2024_tpu_torch.ops.persistent import persistent_plain, persistent_round
     from raytracing_course_2024_tpu_torch.runtime.render import DEFAULT_BATCH
     from raytracing_course_2024_tpu_torch.scene import load_scene, parse_text_scene
@@ -708,11 +761,11 @@ def phase_kernels_lanes(dev) -> tuple:
         desc = parse_text_scene(MIXED_SCENE) if name == "mixed" else load_scene(CORNELL, w, h, 1)
         ins, st_p, args = sticky_inputs(dev, desc, w, h, spp)
         for r in range(K5_CHAIN):
-            counts = torch.zeros((2,), dtype=torch.int32, device=dev)
-            kern = persistent_round(*ins, st_p, counts, *args)
+            ls = LoopState(dev)
+            kern = persistent_round(*ins, st_p, ls, *k5_args(args, dev))
             nxt, live, more = persistent_plain(*ins, st_p, *args)
             torch.cuda.synchronize()
-            res = compare_persistent(kern, nxt, counts, live, more,
+            res = compare_persistent(kern, nxt, ls, live, more,
                                      f"{name}-{w}x{h}:persistent-round{r}")
             if (w, h) == LANES[1]:
                 err = max(err, res["max_abs_err"])
@@ -741,6 +794,7 @@ def phase_kernels_tiles(dev, k5) -> None:
     plain versions move it, nothing reads it) comes out bit for bit as the
     plain version's, and K1's own count equals the lanes alive on entry."""
     from raytracing_course_2024_tpu_torch.ops import bounce as B
+    from raytracing_course_2024_tpu_torch.ops.loop import LoopState
     from raytracing_course_2024_tpu_torch.ops.persistent import persistent_plain, persistent_round
     from raytracing_course_2024_tpu_torch.runtime.render import Renderer
     from raytracing_course_2024_tpu_torch.scene import load_scene
@@ -786,13 +840,13 @@ def phase_kernels_tiles(dev, k5) -> None:
         cases5[name] = (ins, st)
     for name, (ins_c, st) in cases5.items():
         finished = (st[12] < 0.5) & (st[13] >= ins_c[4])
-        counts = torch.zeros((2,), dtype=torch.int32, device=dev)
+        ls = LoopState(dev)
         k = st.clone()
-        persistent_round(*ins_c, k, counts, *args5, out=k)
+        persistent_round(*ins_c, k, ls, *k5_args(args5, dev), out=k)
         p, live, more = persistent_plain(*ins_c, st, *args5)
         torch.cuda.synchronize()
         what = f"cornell-{st.shape[1]}-lanes-{name}:persistent"
-        compare_persistent(k, p, counts, live, more, what)
+        compare_persistent(k, p, ls, live, more, what)
         same = bool(torch.equal(k[6:, finished], p[6:, finished]))
         check(dict(finished_lanes_equal=same, finished=int(finished.sum())), what + "-exact", same)
 
@@ -1406,6 +1460,400 @@ def camera_times(dev, reps: int = 50) -> dict:
     return {"ms": ms, "plain_ms": plain, "bound": bound(camera_bytes(wid.shape[0]), 0.0)}
 
 
+# N5 against its plain version: lane counts (ragged, the sticky engine's
+# 262,144, a ragged frame, the lane engines' 1,048,576) and live shares
+LOOP_LANES = (997, 262_144, 921_523, 1_048_576)
+LOOP_LIVE = 0.03
+
+
+def loop_inputs(n: int, live: float, gen: torch.Generator, dev) -> dict:
+    """N5's inputs on ``n`` lanes: an alive row with ``live`` of its lanes
+    set, paths started ``k`` and owned ``kmax`` (int64, 0-3), the work
+    counter (3 n of 4 n items handed out)."""
+    def ints(hi):
+        return torch.randint(0, hi, (n,), generator=gen).to(dev)
+
+    return {"alive": (torch.rand(n, generator=gen) < live).float().to(dev), "k": ints(4),
+            "kmax": ints(4), "counter": torch.tensor(3 * n, device=dev), "total": 4 * n,
+            "thresh": max(n // 8, 1)}
+
+
+def loop_states(dev, start: torch.Tensor):
+    """A kernel's and a twin's ``LoopState`` from the same counters."""
+    from raytracing_course_2024_tpu_torch.ops.loop import LoopState
+
+    pair = (LoopState(dev), LoopState(dev))
+    for ls in pair:
+        ls.loop.copy_(start)
+    return pair
+
+
+def same_loop(a, b) -> bool:
+    return (torch.equal(a.loop, b.loop) and torch.equal(a.preds, b.preds)
+            and not a.scratch.any().item())
+
+
+def phase_kernels_loop(dev) -> float:
+    """N5 (``ops/loop.py:round_test``) against its plain version, exactly,
+    on ``LOOP_LANES`` lanes in both lane modes (the counter wavefront's and
+    the sticky engine's): three tests in a row from counters that are not
+    zero, eagerly; then replayed from a graph captured with the launch
+    inside an IF node (``runtime/graphs.py:guard``), the inputs changed
+    before each replay and the predicate true, false, true: the kernel's
+    outputs equal the twin's run as often as the predicate was true, and
+    its scratch is back at 0. (K5's own round test: ``compare_persistent``.)"""
+    from raytracing_course_2024_tpu_torch.ops import loop as LP
+    from raytracing_course_2024_tpu_torch.runtime.graphs import capture, guard
+
+    gen = torch.Generator().manual_seed(SEED)
+    start = torch.arange(LP.N_LOOP, device=dev) * 7 + 1
+    for n in LOOP_LANES:
+        for mode, name in ((LP.COUNTER, "counter"), (LP.STICKY, "sticky")):
+            ins = loop_inputs(n, LOOP_LIVE, gen, dev)
+            kern, twin = loop_states(dev, start)
+            for _ in range(3):
+                LP.round_test(kern, mode, **ins)
+                LP.round_test_plain(twin, mode, **ins)
+            torch.cuda.synchronize()
+            eager = same_loop(kern, twin)
+            kern, twin = loop_states(dev, start)
+            pred = torch.ones((), dtype=torch.bool, device=dev)
+            replay, launches, _ = capture(
+                lambda: guard(pred, lambda: LP.round_test(kern, mode, **ins), "test", {}), dev)
+            LP.round_test_plain(twin, mode, **ins)  # the capture's warm-up ran it once
+            replayed = []
+            for on in (True, False, True):
+                fresh = loop_inputs(n, LOOP_LIVE * (2 if on else 1), gen, dev)
+                for key in ("alive", "k", "kmax", "counter"):
+                    ins[key].copy_(fresh[key])
+                pred.fill_(on)
+                replay()
+                if on:
+                    LP.round_test_plain(twin, mode, **ins)
+                torch.cuda.synchronize()
+                replayed.append(same_loop(kern, twin))
+            say("kernels", case=f"loop-{name}-{n}", lanes=n, live_share=LOOP_LIVE,
+                bit_equal=eager, bit_equal_replayed=all(replayed),
+                replays="true,false,true", loop=json.dumps(kern.loop.tolist()).replace(" ", ""))
+            if not (eager and all(replayed)):
+                raise SystemExit(f"N5 ({name}, {n} lanes) differs from its plain version: "
+                                 f"eager {eager}, replayed {replayed}")
+    return 0.0
+
+
+def loop_bytes(n: int, dead: int, sticky: bool) -> float:
+    """N5's bytes on ``n`` lanes: the alive row (4 B a lane) and, in sticky
+    mode, k and kmax (16 B) of the ``dead`` lanes; the counters (6 int64,
+    read and written), the predicates, the work counter."""
+    return n * 4 + (dead * 16 if sticky else 0) + 6 * 8 * 2 + 2 + 8
+
+
+def loop_times(dev, reps: int = 50) -> dict:
+    """N5 per launch (``cuda_ms_each``) on the counter wavefront's
+    1,048,576 lanes, half of them alive, and in sticky mode with 76 % dead
+    (the BVH sticky frame's round 10); its plain version beside it; the
+    bound from ``loop_bytes``. Then a graph of ``ROUNDS_PER_REPLAY`` N5
+    launches, each in an IF node (``runtime/graphs.py:guard``), replayed
+    back to back: device ms a round with the predicate false (what a round
+    after the loop's end costs a replay) and true (N5 and its IF node)."""
+    from raytracing_course_2024_tpu_torch.integrator import wavefront as W
+    from raytracing_course_2024_tpu_torch.ops import loop as LP
+    from raytracing_course_2024_tpu_torch.runtime.graphs import capture, guard
+
+    n = LOOP_LANES[-1]
+    gen = torch.Generator().manual_seed(SEED + 1)
+    out = {"lanes": n}
+    for mode, name, live in ((LP.COUNTER, "", 0.5), (LP.STICKY, "_sticky", 0.24)):
+        ins = loop_inputs(n, live, gen, dev)
+        kern, twin = loop_states(dev, torch.zeros(LP.N_LOOP, dtype=torch.int64, device=dev))
+        dead = int((ins["alive"] < 0.5).sum())
+        out["ms" + name] = cuda_ms_each(lambda: LP.round_test(kern, mode, **ins), reps)
+        out["plain_ms" + name] = cuda_ms(lambda: LP.round_test_plain(twin, mode, **ins), reps)
+        out["bound" + name] = bound(loop_bytes(n, dead, mode == LP.STICKY), 0.0)
+        out["active_in" + name] = live
+    per = W.ROUNDS_PER_REPLAY
+    ins = loop_inputs(n, 0.5, gen, dev)
+    ls, pred = LP.LoopState(dev), torch.zeros((), dtype=torch.bool, device=dev)
+
+    def rounds():
+        for _ in range(per):
+            guard(pred, lambda: LP.round_test(ls, LP.COUNTER, **ins), "round", {})
+
+    replay, _, _ = capture(rounds, dev)
+    out["skipped_round_ms"] = cuda_ms(replay, 200) / per
+    pred.fill_(True)
+    out["guarded_round_ms"] = cuda_ms(replay, 200) / per
+    return out
+
+
+# the lane frames whose loop runs on the card (integrator/wavefront.py):
+# name -> (scene, Renderer keywords)
+LOOP_FRAMES = {
+    "bvh-wavefront": ("bvh", {"engine": "wavefront"}),
+    "bvh-sticky": ("bvh", {"engine": "sticky"}),
+    "cornell-wavefront-fused": ("cornell", {"engine": "wavefront"}),
+    "cornell-sticky-fused-262144": ("cornell", {"engine": "sticky", "batch_size": 262_144}),
+    "cornell-sticky-k5": ("cornell", {"engine": "sticky"}),
+}
+# host reads a frame may make: one per replay of ROUNDS_PER_REPLAY rounds,
+# and this many beside (the replay queued before the read that ends the loop)
+LOOP_READS_EXTRA = 2
+_READS = ("item", "__bool__", "__int__", "__float__", "__index__", "tolist", "cpu", "numpy")
+
+
+@contextlib.contextmanager
+def host_reads():
+    """Counts the frame's waits on the card while active: every
+    ``torch.cuda.Event.synchronize`` and ``torch.cuda.synchronize``, and
+    every read of a CUDA tensor by the host (``item``, ``bool``, ``int``,
+    ``float``, ``tolist``, ``cpu``, ``numpy``). Yields a one-element list;
+    works on any tree."""
+    count = [0]
+    saved = [(torch.Tensor, k, getattr(torch.Tensor, k)) for k in _READS]
+    saved += [(torch.cuda.Event, "synchronize", torch.cuda.Event.synchronize),
+              (torch.cuda, "synchronize", torch.cuda.synchronize)]
+
+    def spy(f, tensor):
+        def call(*a, **kw):
+            if not tensor or (a and a[0].is_cuda):
+                count[0] += 1
+            return f(*a, **kw)
+        return call
+
+    for owner, name, f in saved:
+        setattr(owner, name, spy(f, owner is torch.Tensor))
+    try:
+        yield count
+    finally:
+        for owner, name, f in saved:
+            setattr(owner, name, f)
+
+
+@contextlib.contextmanager
+def implicit_syncs():
+    """Counts, while active, the waits on the card that ATen makes on its
+    own (``torch.cuda.set_sync_debug_mode("warn")``: ``item``, a copy to
+    the host that waits, ``nonzero``, a boolean mask's index, a stream's
+    sync, ...), which ``host_reads`` cannot see; an event's or the device's
+    sync that the code asks for is not one of them. Yields a one-element
+    list, filled on exit."""
+    count = [0]
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield count
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+            count[0] = sum("synchroniz" in str(w.message) for w in caught)
+
+
+def lane_frame_run(r, seed: int) -> dict:
+    """One frame of ``r`` with the counters set to 0 just before and read
+    just after: the image's digest, path vertices, rounds, refills,
+    launches, the loop's pinned reads (``HOST_READS``), every wait on the
+    card that the code asks for (``host_reads``) and every one that ATen
+    makes on its own (``implicit_syncs``). The image is read after the
+    count."""
+    from raytracing_course_2024_tpu_torch.integrator import wavefront as W
+    from raytracing_course_2024_tpu_torch.ops import kernels as KN
+
+    torch.cuda.synchronize()
+    reset_counts()
+    with host_reads() as waits, implicit_syncs() as implicit:
+        outs, verts = r.render_frame_device(seed=seed)
+    img = torch.cat(list(outs), dim=1).cpu().numpy()
+    return {"image_sha": hashlib.sha256(img.tobytes()).hexdigest()[:16], "verts": verts,
+            "rounds": r.rounds, "refills": W.REFILLS[0], "launches": dict(KN.LAUNCHES),
+            "pinned_reads": W.HOST_READS[0], "waits": waits[0], "implicit": implicit[0]}
+
+
+# each launch counter of ops/kernels.py:LAUNCHES by the name torch.profiler
+# gives its kernel (K1 and K1-final are one kernel)
+TRACE_NAMES = {"primary": "primary_kernel", "bounce": "bounce_kernel", "final": "bounce_kernel",
+               "persistent": "persistent_kernel", "nearest": "dense_nearest_kernel",
+               "bvh": "bvh_nearest_kernel", "sampler": "sampler_kernel",
+               "shade": "shade_kernel", "finish": "finish_kernel", "refill": "refill_kernel",
+               "restart": "restart_kernel", "camera": "camera_kernel",
+               "loop": "round_test_kernel"}
+
+
+def traced_launches(rows) -> dict:
+    """The launches of each hand-written kernel in a profiled frame's device
+    rows ((ms, count, name), ``profiled_frame``), by ``TRACE_NAMES``' names,
+    and of the IF nodes' ``set_condition_kernel``."""
+    out = dict.fromkeys([*sorted(set(TRACE_NAMES.values())), "set_condition_kernel"], 0)
+    for _, count, name in rows:
+        for kernel in out:
+            if kernel in name:
+                out[kernel] += count
+    return out
+
+
+def counted_by_name(launches: dict) -> dict:
+    """``LAUNCHES`` summed by ``TRACE_NAMES``' kernel names."""
+    out = dict.fromkeys(sorted(set(TRACE_NAMES.values())), 0)
+    for key, n in launches.items():
+        out[TRACE_NAMES[key]] += n
+    return out
+
+
+# profiled frames of one seed over which each kernel's largest traced count
+# is held to its launches counted: the card's trace drops a kernel record
+# now and then (2 of about 170 profiled lane frames), never adds one
+TRACE_TRIES = 3
+
+
+def launches_ran(r, seed: int) -> tuple:
+    """Profiles frames of ``r`` at ``seed`` (``profiled_frame``), the counters
+    set to 0 before each, until every hand-written kernel's largest count in
+    the traces (``traced_launches``) equals its launches counted
+    (``counted_by_name``), at most ``TRACE_TRIES`` frames. Raises where a
+    trace holds more launches of a kernel than were counted, or where two
+    frames of the seed count differently. Returns (whether they agree, the
+    first frame's ``profiled_frame``, the counts, the largest traced counts,
+    the frames profiled)."""
+    from raytracing_course_2024_tpu_torch.ops import kernels as KN
+
+    first = counted = None
+    traced = {}
+    for tries in range(1, TRACE_TRIES + 1):
+        torch.cuda.synchronize()
+        reset_counts()
+        p = profiled_frame(r, seed)
+        c, t = counted_by_name(KN.LAUNCHES), traced_launches(p["rows"])
+        if counted is not None and c != counted:
+            raise SystemExit(f"two frames of seed {seed} counted {counted} and {c}")
+        if any(t[k] > n for k, n in c.items()):
+            raise SystemExit(f"the trace holds more launches {t} than were counted {c}")
+        first, counted = first or p, c
+        traced = {k: max(traced.get(k, 0), v) for k, v in t.items()}
+        if all(traced[k] == n for k, n in counted.items()):
+            return True, first, counted, traced, tries
+    return False, first, counted, traced, TRACE_TRIES
+
+
+def traced_main() -> int:
+    """``chip_smoke.py --traced``: a fresh process renders each lane frame of
+    ``LOOP_FRAMES`` graphed at 1280x720 x 16 spp, after a warm-up frame
+    that captures, holds its launches counted to its traces
+    (``launches_ran``, seed 9) and prints one JSON line a frame: the frame,
+    whether they agree, the counts, the largest traced counts, the frames
+    profiled, the rounds and the first profiled frame's device ms. (In the
+    long main process the trace of a profiled frame lacked its first
+    launches; PERF.md §6 has the runs.)"""
+    from raytracing_course_2024_tpu_torch.runtime.render import Renderer
+    from raytracing_course_2024_tpu_torch.scene import load_scene
+
+    if not torch.cuda.is_available():
+        print("chip_smoke --traced: no CUDA device", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda", 0)
+    w, h, spp = FRAME
+    descs = {"bvh": bvh_desc(w, h, spp), "cornell": load_scene(CORNELL, w, h, spp)}
+    for name, (scene, kw) in LOOP_FRAMES.items():
+        r = Renderer(descs[scene], device=dev, **kw)
+        r.render_frame_device(seed=0)  # captures
+        ran, p, counted, traced, tries = launches_ran(r, 9)
+        print(json.dumps({"frame": name, "ran": ran, "counted": counted, "traced": traced,
+                          "tries": tries, "rounds": r.rounds, "device_ms": p["device_ms"]}),
+              flush=True)
+        del r
+        torch.cuda.empty_cache()
+    return 0
+
+
+def unprofiled_ms(r, seeds) -> list:
+    """Host ms of a frame of ``r`` per seed, ending in a device sync."""
+    out = []
+    for seed in seeds:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs, _ = r.render_frame_device(seed=seed)
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def phase_loop(dev, gpu: str) -> dict:
+    """The lane frames of ``LOOP_FRAMES`` at 1280x720 x 16 spp, graphed and
+    with ``eager=True``, after a warm-up frame each (the graphed one
+    captures): equal image (``image_sha``), path vertices, rounds, refills
+    and launches; the graphed frame waits on the card at most
+    ceil(rounds / ROUNDS_PER_REPLAY) + ``LOOP_READS_EXTRA`` times, every one
+    a read of the loop's counters, and ATen makes it wait on its own no time
+    (``implicit_syncs``); unprofiled wall ms (3 frames each, in turns),
+    device ms of a profiled graphed frame and the idle share, 1 - device /
+    unprofiled wall. In the profiled frames every hand-written kernel ran as
+    often as ``LAUNCHES`` says (``launches_ran``, in a fresh process,
+    ``chip_smoke.py --traced``, which also gives the device ms): the
+    launches of a guarded body are added from the device's counts
+    (``runtime/graphs.py:settle``), so the trace's own count of each kernel
+    is what holds them to the launches that ran. Returns the N5 launches of
+    the frames."""
+    from raytracing_course_2024_tpu_torch.integrator import wavefront as W
+    from raytracing_course_2024_tpu_torch.runtime.render import Renderer
+    from raytracing_course_2024_tpu_torch.scene import load_scene
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--traced"],
+                          capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise SystemExit(f"the traced process failed ({proc.returncode}):\n{proc.stderr}")
+    traced_frames = {d["frame"]: d for d in (json.loads(ln) for ln in proc.stdout.splitlines()
+                                             if ln.startswith("{"))}
+    w, h, spp = FRAME
+    descs = {"bvh": bvh_desc(w, h, spp), "cornell": load_scene(CORNELL, w, h, spp)}
+    per = W.ROUNDS_PER_REPLAY
+    n5 = 0
+    for name, (scene, kw) in LOOP_FRAMES.items():
+        rs = {"eager": Renderer(descs[scene], device=dev, eager=True, **kw),
+              "graphed": Renderer(descs[scene], device=dev, **kw)}
+        for r in rs.values():
+            r.render_frame_device(seed=0)  # warm-up; the graphed renderer captures
+        e, g = (lane_frame_run(rs[m], 1) for m in ("eager", "graphed"))
+        keys = ("image_sha", "verts", "rounds", "refills", "launches")
+        same = all(e[k] == g[k] for k in keys)
+        most = math.ceil(g["rounds"] / per) + LOOP_READS_EXTRA
+        times = {"eager": [], "graphed": []}
+        for turn, mode in enumerate(("eager", "graphed", "graphed", "eager", "eager",
+                                     "graphed")):
+            times[mode] += unprofiled_ms(rs[mode], [2 + turn])
+        wall = {m: statistics.median(t) for m, t in times.items()}
+        tf = traced_frames[name]
+        say("loop", frame=name, rounds=g["rounds"], refills=g["refills"],
+            path_vertices=int(g["verts"]), image_sha=g["image_sha"], equal=same,
+            reads_graphed=g["pinned_reads"], waits_graphed=g["waits"], reads_most=most,
+            implicit_syncs_graphed=g["implicit"], implicit_syncs_eager=e["implicit"],
+            reads_eager=e["pinned_reads"], waits_eager=e["waits"],
+            wall_ms_graphed=round(wall["graphed"], 3), wall_ms_eager=round(wall["eager"], 3),
+            device_ms=round(tf["device_ms"], 3),
+            idle_share=round(1.0 - tf["device_ms"] / wall["graphed"], 4),
+            frames_ms=json.dumps({k: [round(t, 3) for t in v] for k, v in times.items()})
+            .replace(" ", ""), launches=json.dumps({k: v for k, v in g["launches"].items()
+                                                    if v}).replace(" ", ""), gpu=f'"{gpu}"')
+        if not same:
+            raise SystemExit(f"[loop] {name}: the graphed frame differs from the eager one: "
+                             f"{ {k: (e[k], g[k]) for k in keys if e[k] != g[k]} }")
+        if g["waits"] > most or g["waits"] != g["pinned_reads"] or g["implicit"]:
+            raise SystemExit(f"[loop] {name}: {g['waits']} waits on the card "
+                             f"({g['pinned_reads']} reads of the loop's counters, "
+                             f"{g['implicit']} made by ATen) for {g['rounds']} rounds, "
+                             f"more than {most}")
+        say("loop", frame=name, profiled_rounds=tf["rounds"], launches_ran=tf["ran"],
+            profiled_frames=tf["tries"],
+            traced=json.dumps({k: v for k, v in tf["traced"].items() if v}).replace(" ", ""),
+            counted=json.dumps({k: v for k, v in tf["counted"].items() if v}).replace(" ", ""))
+        if not tf["ran"]:
+            raise SystemExit(f"[loop] {name}: the kernels {tf['tries']} profiled frames ran "
+                             f"{tf['traced']} differ from the launches counted {tf['counted']}")
+        n5 += g["launches"]["loop"]
+        del rs
+        torch.cuda.empty_cache()
+    say("loop", seconds=round(time.perf_counter() - t_phase, 2))
+    return n5
+
 def refill_bytes(state, work, counter, total: int) -> float:
     """The bytes one N2a launch must move, counting an output only where it
     changes: every lane's alive flag read; on a dead lane its work item read
@@ -1791,50 +2239,50 @@ def lane_spy(on_refill=None, on_core=None, on_sticky=None):
     """While active, calls ``on_refill(refill, round)`` before a refill of
     the counter wavefront, ``on_core(core, round)`` before its bounce and
     ``on_sticky(body, round)`` before a sticky round off the K5 route (the
-    bodies as they stand, before the call)."""
+    bodies as they stand, before the call; ``round`` counts the body's
+    bounces before it). For eager frames: a graph's replays run no Python."""
     from raytracing_course_2024_tpu_torch.integrator import wavefront as W
 
-    make, sticky_call = W.wavefront_bodies, W.StickyBody.__call__
+    calls = {cls: cls.__call__ for cls in (W.RefillBody, W.CoreBody, W.StickyBody)}
 
-    def spied(*a, **kw):
-        core, run_core, refill, run_refill = make(*a, **kw)
-        rounds = [0]
+    def rnd(body):
+        return getattr(body, "spied_rounds", 0)
 
-        def refill_call():
-            if on_refill:
-                on_refill(refill, rounds[0])
-            run_refill()
+    def refill_call(b):
+        if on_refill:
+            on_refill(b, rnd(b.core))
+        calls[W.RefillBody](b)
 
-        def core_call():
-            if on_core:
-                on_core(core, rounds[0])
-            run_core()
-            rounds[0] += 1
+    def core_call(c):
+        if on_core:
+            on_core(c, rnd(c))
+        calls[W.CoreBody](c)
+        c.spied_rounds = rnd(c) + 1
 
-        return core, core_call, refill, refill_call
-
-    def sticky_round(body):
+    def sticky_call(b):
         if on_sticky:
-            body.spied_rounds = getattr(body, "spied_rounds", -1) + 1
-            on_sticky(body, body.spied_rounds)
-        sticky_call(body)
+            on_sticky(b, rnd(b))
+        calls[W.StickyBody](b)
+        b.spied_rounds = rnd(b) + 1
 
-    W.wavefront_bodies = spied
-    W.StickyBody.__call__ = sticky_round
+    W.RefillBody.__call__, W.CoreBody.__call__ = refill_call, core_call
+    W.StickyBody.__call__ = sticky_call
     try:
         yield
     finally:
-        W.wavefront_bodies, W.StickyBody.__call__ = make, sticky_call
+        for cls, f in calls.items():
+            cls.__call__ = f
 
 
 def reset_counts() -> None:
-    """The launch counters and the counter wavefront's own count of its
-    refills (``integrator/wavefront.py:REFILLS``) set to 0."""
+    """The launch counters, the counter wavefront's count of its refills
+    and the lane loops' host reads (``integrator/wavefront.py:REFILLS``,
+    ``HOST_READS``) set to 0."""
     from raytracing_course_2024_tpu_torch.integrator import wavefront as W
     from raytracing_course_2024_tpu_torch.ops import kernels as KN
 
     KN.reset_launches()
-    W.REFILLS[0] = 0
+    W.REFILLS[0] = W.HOST_READS[0] = 0
 
 
 def refills_run() -> int:
@@ -1852,8 +2300,10 @@ def phase_main(dev, tmp: str, path: str) -> dict:
     the engine reports: one K5 (sticky) or one K1 in lane mode (counter
     wavefront) per round on the Cornell frame, the nearest hit (K6), N1a, K3
     in lane mode and N1b per round on the BVH frame; one N2a per refill (the
-    engine's own count) and one N2b per round of the BVH sticky frame and one
-    for its final flush. The "bvh" run must name the counter wavefront."""
+    engine's count, from the device), one N2b per round of the BVH sticky
+    frame and one for its final flush; N5 once per round and, off the K5
+    route, once before the first. The "bvh" run must name the counter
+    wavefront."""
     from raytracing_course_2024_tpu_torch.ops import kernels as KN
     from raytracing_course_2024_tpu_torch.runtime import cli
     from raytracing_course_2024_tpu_torch.runtime.image_io import read_png, read_ppm
@@ -1920,6 +2370,10 @@ def phase_main(dev, tmp: str, path: str) -> dict:
                 want["restart"] = rounds + 1
         else:
             want[ROUND_KERNEL[path]] = rounds
+        # N5 off the K5 route, once per round and once before the first (K5
+        # ends its own rounds with the test)
+        if path != "sticky":
+            want["loop"] = rounds + 1
         if engine == "wavefront":
             want["refill"] = extra["refills"] = refills
         extra["rounds"] = rounds
@@ -2084,11 +2538,12 @@ def phase_render_bvh(dev) -> None:
         a = r.render_radiance(seed=3)
         launched = {k: v for k, v in KN.LAUNCHES.items() if v}
         allowed = {"bvh", "sampler", "shade", "finish"} | (
-            {"refill"} if engine == "wavefront" else {"camera"})
+            {"refill", "loop"} if engine == "wavefront" else {"camera"})
         if (not launched.get("bvh") or launched.get("shade") != launched["bvh"]
                 or set(launched) - allowed):
             raise SystemExit(f"BVH frame launches {launched}: expected K6, N1a, K3, N1b "
-                             "(and N2a on the counter wavefront, N4 on the batch engine)")
+                             "(and N2a and N5 on the counter wavefront, N4 on the batch "
+                             "engine)")
         render_pair(a, Renderer(bvh, device=dev, engine=engine, plain=True)
                     .render_radiance(seed=3), f"bvh5124-{engine}-kernels-vs-plain", size=size,
                     spp=MESH_SPP, prims=len(bvh.primitives), builder=r.bvh_builder,
@@ -2351,22 +2806,24 @@ def persistent_rounds(dev, gpu: str, desc) -> None:
     a CUDA event between rounds and nothing is read until the last has run,
     so the ms are the kernel's own. Prints each round's ms and live share
     (the kernel's first count over the lanes) and what the tail costs."""
+    from raytracing_course_2024_tpu_torch.ops import loop as LP
     from raytracing_course_2024_tpu_torch.ops.persistent import persistent_round
 
     w, h, spp = FRAME
     ins, state, args = sticky_inputs(dev, desc, w, h, spp)
+    k5 = k5_args(args, dev)
     max_rounds = spp * desc.settings.ray_depth
-    counts = torch.zeros((max_rounds, 2), dtype=torch.int32, device=dev)
+    lss = [LP.LoopState(dev) for _ in range(max_rounds)]  # each round's counts
     marks = [torch.cuda.Event(enable_timing=True) for _ in range(max_rounds + 1)]
-    persistent_round(*ins, state.clone(), counts[0].clone(), *args)  # warm-up
+    persistent_round(*ins, state.clone(), LP.LoopState(dev), *k5)  # warm-up
     torch.cuda.synchronize()
     marks[0].record()
     for r in range(max_rounds):
-        persistent_round(*ins, state, counts[r], *args, out=state)
+        persistent_round(*ins, state, lss[r], *k5, out=state)
         marks[r + 1].record()
     torch.cuda.synchronize()
     ms = [marks[r].elapsed_time(marks[r + 1]) for r in range(max_rounds)]
-    live = (counts[:, 0].double() / (w * h)).tolist()
+    live = [ls.loop[LP.NVERTS].item() / (w * h) for ls in lss]
     used = max(r for r in range(max_rounds) if live[r] > 0) + 1  # rounds with a live lane
     tail = [r for r in range(used) if live[r] < 0.1]
     say("timing", separate="persistent-rounds", lanes=w * h, rounds=used,
@@ -2508,6 +2965,7 @@ def launch_times(scene, cam, bg, st0, idx, w: int, h: int, m: Modular, k5, reps:
     and K5 the time of reading the input and writing a separate buffer,
     where a dead lane is copied whole, and ``modular_times``' cases."""
     from raytracing_course_2024_tpu_torch.ops import bounce as B
+    from raytracing_course_2024_tpu_torch.ops.loop import LoopState
     from raytracing_course_2024_tpu_torch.ops.persistent import persistent_round
 
     px, py = (idx % w).float(), (idx // w).float()
@@ -2515,7 +2973,7 @@ def launch_times(scene, cam, bg, st0, idx, w: int, h: int, m: Modular, k5, reps:
     buf = torch.empty_like(st0)
     ins, st5, args5 = k5
     buf5 = torch.empty_like(st5)
-    scratch = torch.zeros((2,), dtype=torch.int32, device=st0.device)
+    ls, k5a = LoopState(st0.device), k5_args(args5, st0.device)
     modular = modular_times(m, gpu, reps, label)
     k4 = "nearest-camera-masked" if "nearest-camera-masked" in modular else "nearest-camera"
     launch_ms = {
@@ -2532,7 +2990,7 @@ def launch_times(scene, cam, bg, st0, idx, w: int, h: int, m: Modular, k5, reps:
         "nearest": modular[k4]["ms"],
         "sampler": modular["sampler-camera"]["ms"],
         "persistent": cuda_ms_in_place(
-            lambda: persistent_round(*ins, buf5, scratch, *args5, out=buf5),
+            lambda: persistent_round(*ins, buf5, ls, *k5a, out=buf5),
             lambda: buf5.copy_(st5), reps),
     }
     fresh_ms = {
@@ -2541,7 +2999,7 @@ def launch_times(scene, cam, bg, st0, idx, w: int, h: int, m: Modular, k5, reps:
         "final": cuda_ms(lambda: B.bounce(
             scene, st0, idx, off_t, seed_t, 1, bg, K, final_only=True, out=buf), reps),
         "persistent": cuda_ms(
-            lambda: persistent_round(*ins, st5, scratch, *args5, out=buf5), reps),
+            lambda: persistent_round(*ins, st5, ls, *k5a, out=buf5), reps),
     }
     return launch_ms, fresh_ms, modular
 
@@ -2814,8 +3272,9 @@ def frames_in_turns(rs: dict, gpu: str, turns: int = 3, label: str = "timing") -
     then one frame each in turn, ``turns`` times. Host-bound frames drift
     with the host's speed within a call, so the paths are compared under
     the same drift. Prints each path's median host ms (each frame ends in a
-    device sync), its frames, path vertices, rounds and peak memory;
-    returns path -> (median ms, Renderer)."""
+    device sync), its frames, the waits on the card of one more frame
+    (``host_reads``), path vertices, rounds and peak memory; returns path ->
+    (median ms, Renderer)."""
     for r in rs.values():
         r.render_frame_device(seed=0)
     times = {e: [] for e in rs}
@@ -2829,12 +3288,19 @@ def frames_in_turns(rs: dict, gpu: str, turns: int = 3, label: str = "timing") -
             _, verts[e] = r.render_frame_device(seed=turn + 1)
             times[e].append((time.perf_counter() - t0) * 1e3)
             peak[e] = max(peak[e], frame_mem_mb(base))
+    waits = {}
+    for e, r in rs.items():
+        torch.cuda.synchronize()
+        with host_reads() as n:
+            r.render_frame_device(seed=turns + 1)
+        waits[e] = n[0]
     out = {}
     for e, r in rs.items():
         ms = statistics.median(times[e])
         out[e] = (ms, r)
         say(label, path=e, ms_per_frame=round(ms, 3), frames_ms=json.dumps(
-            [round(t, 3) for t in times[e]]).replace(" ", ""), path_vertices=int(verts[e]),
+            [round(t, 3) for t in times[e]]).replace(" ", ""), host_reads=waits[e],
+            path_vertices=int(verts[e]),
             mrays_per_s=round(verts[e] / ms / 1e3, 3), engine=r.engine,
             **({} if r.engine == "batch" else {"rounds": r.rounds}), peak_mem_mb=peak[e],
             graphed=r.graphs is not None, gpu=f'"{gpu}"')
@@ -2981,9 +3447,10 @@ def expected_launches(r, n_pix: int, spp: int, shards: int, rounds, refills: int
     round one K5 (sticky) or one K1 in lane mode (counter wavefront; the
     sticky engine below one lane per pixel too) on the fused route, the
     nearest hit (K6 or K4), N1a, K3 in lane mode and N1b on the modular one;
-    N2a once per refill (``refills``, the engine's count), and N2b
+    N2a once per refill (``refills``, the engine's count), N2b
     once per sticky round off the K5 route and once per shard for its final
-    flush."""
+    flush, and N5, off the K5 route, once per round and once per shard
+    before the first (K5 ends its own rounds with the test)."""
     if r.engine == "batch":
         return batch_launches(r, n_pix, spp, shards)
     from raytracing_course_2024_tpu_torch.integrator.path import DEFAULT_BATCH, takes_k3
@@ -3006,6 +3473,8 @@ def expected_launches(r, n_pix: int, spp: int, shards: int, rounds, refills: int
         want["restart"] = n + shards
     if r.engine == "wavefront":
         want["refill"] = refills
+    if not k5:
+        want["loop"] = n + shards
     return want
 
 
@@ -3634,6 +4103,11 @@ def phase_timing(dev, gpu: str, counts: dict, errs: dict, m: Modular, k5, bvh: d
     launch_ms["camera"], plain_ms["camera"], bounds["camera"] = (
         cam_t["ms"], cam_t["plain_ms"], cam_t["bound"])
     inputs["camera"] = 1.0
+    # N5 on the lane engines' 1,048,576 lanes
+    loop_t = loop_times(dev)
+    launch_ms["loop"], plain_ms["loop"], bounds["loop"] = (
+        loop_t["ms"], loop_t["plain_ms"], loop_t["bound"])
+    inputs["loop"] = loop_t["active_in"]
     k3_lane = lane["sampler-lane"]
     for k in KERNELS:
         # K5's input: the frame's state after K5_CHAIN rounds
@@ -3652,7 +4126,14 @@ def phase_timing(dev, gpu: str, counts: dict, errs: dict, m: Modular, k5, bvh: d
                       bound_ms_bounce3=round(deep[k]["bound"][0], 5))
         if k == "nearest":
             at["ms_no_mask"] = round(modular["nearest-camera"]["ms"], 4)
-        say("timing", kernel=k, lanes=lane[k]["lanes"] if k in lane else n, **at,
+        if k == "loop":
+            at.update(skipped_round_ms=round(loop_t["skipped_round_ms"], 5),
+                      guarded_round_ms=round(loop_t["guarded_round_ms"], 5),
+                      ms_sticky=round(loop_t["ms_sticky"], 5),
+                      plain_ms_sticky=round(loop_t["plain_ms_sticky"], 4),
+                      bound_ms_sticky=round(loop_t["bound_sticky"][0], 5))
+        say("timing", kernel=k, lanes=lane[k]["lanes"] if k in lane else (
+            loop_t["lanes"] if k == "loop" else n), **at,
             active_in=round(inputs[k], 4),
             ms=round(launch_ms[k], 4), plain_ms=round(plain_ms[k], 3),
             bound_ms=round(bounds[k][0], 5), bound_by=bounds[k][1], gpu=f'"{gpu}"')
@@ -3676,7 +4157,10 @@ def phase_timing(dev, gpu: str, counts: dict, errs: dict, m: Modular, k5, bvh: d
              "active_in_lane_mode": k3_lane["active_in"]} if k == "sampler" else {}),
          **({"state": ROUND_TIMED, "tolerance": "bit for bit on every lane",
              "lanes": lane[k]["lanes"]} if k in ("refill", "restart") else {}),
-         **({"tolerance": "bit for bit on every lane and row"} if k == "camera" else {})}
+         **({"tolerance": "bit for bit on every lane and row"} if k == "camera" else {}),
+         **({"tolerance": "exact (integer counts)", "lanes": loop_t["lanes"],
+             "ms_sticky": loop_t["ms_sticky"], "plain_ms_sticky": loop_t["plain_ms_sticky"],
+             "bound_ms_sticky": loop_t["bound_sticky"][0]} if k == "loop" else {})}
         for k in KERNELS
     ]
 
@@ -3686,21 +4170,51 @@ def phase_timing(dev, gpu: str, counts: dict, errs: dict, m: Modular, k5, bvh: d
 GRAPH_CASES = {  # case -> (scene, engine, roulette, lanes (None: the default), entries)
     "bvh-batch": ("bvh", "batch", False, None, 1),
     "cornell-modular-rr": ("cornell", "batch", True, None, 1),
-    "bvh-wavefront": ("bvh", "wavefront", False, None, 2),  # the refill and the core
+    "bvh-wavefront": ("bvh", "wavefront", False, None, 1),  # its loop: refill, core, N5
     "bvh-sticky": ("bvh", "sticky", False, None, 1),
     "cornell-batch-fused": ("cornell", "batch", False, None, 1),
-    "cornell-wavefront-fused": ("cornell", "wavefront", False, None, 2),
+    "cornell-wavefront-fused": ("cornell", "wavefront", False, None, 1),
     # fewer lanes than pixels: the fused StickyBody (K1 in lane mode), not K5
     "cornell-sticky-fused-262144": ("cornell", "sticky", False, 262_144, 1),
+    # the K5 loop, in guarded rounds
+    "cornell-sticky-k5": ("cornell", "sticky", False, None, 1),
 }
 GRAPH_SAMP_BASE = 16  # the second samp_base of a case: the next 16 samples
 PROFILED = ("bvh-batch", "cornell-batch-fused", "cornell-wavefront-fused")
 
 
+GAP_US = 20.0  # a device gap shorter than this is a graph's node after node
+
+
+def device_gaps(prof) -> dict:
+    """The card's idle time inside a profiled window: the span from its
+    first device event's start to its last one's end, and the gaps between
+    device events in it (events merged where they overlap), split at
+    ``GAP_US``: short gaps (a graph's nodes one after another, a launch
+    queued behind the last) and long ones (the card waiting on the host).
+    Counts and ms."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    if not spans:
+        return {}
+    first, end = spans[0][0], spans[0][1]
+    gaps = {"short": [0, 0.0], "long": [0, 0.0]}
+    for a, b in spans[1:]:
+        if a > end:
+            g = gaps["short" if a - end < GAP_US else "long"]
+            g[0] += 1
+            g[1] += (a - end) / 1e3
+        end = max(end, b)
+    return {"span_ms": (end - first) / 1e3, "short_gaps": gaps["short"][0],
+            "short_gap_ms": gaps["short"][1], "long_gaps": gaps["long"][0],
+            "long_gap_ms": gaps["long"][1]}
+
+
 def profiled_frame(r, seed: int) -> dict:
     """One frame of ``r`` under torch.profiler (device events only): wall
     ms, summed device ms, busy share, device launches, path vertices, the
-    rows (device ms, count, name), largest first, and ``image_sha``, the
+    rows (device ms, count, name), largest first, the card's idle time
+    inside the frame (``device_gaps``), and ``image_sha``, the
     first 16 hex digits of the SHA-256 of the image's bytes (taken after the
     profiled window), which two trees' frames of one seed share when their
     images are equal bit for bit."""
@@ -3725,6 +4239,7 @@ def profiled_frame(r, seed: int) -> dict:
     busy = sum(ms for ms, _, _ in rows)
     return {"wall_ms": wall, "device_ms": busy, "busy_share": busy / wall,
             "launches": sum(n for _, n, _ in rows), "path_vertices": verts, "rows": rows,
+            "gaps": device_gaps(prof),
             "image_sha": hashlib.sha256(img.tobytes()).hexdigest()[:16]}
 
 
@@ -3827,9 +4342,10 @@ ROUND_OPS_MAX = 40
 
 def round_ops(r) -> dict:
     """``aten_ops`` of one round of ``r``'s lane engine (``r.engine``), its
-    bodies made and called without a graph on the frame's lanes after one
-    round of warm-up: the counter wavefront's refill and bounce, or one
-    sticky round (restart, bounce, the live test)."""
+    loop made without a graph on the frame's lanes after one round of
+    warm-up: the counter wavefront's refill, bounce and round test, or one
+    sticky round (restart, bounce, round test), as a capture records them
+    (the guards' bodies, not their host reads)."""
     from raytracing_course_2024_tpu_torch.integrator import wavefront as W
 
     s = r.settings
@@ -3837,16 +4353,16 @@ def round_ops(r) -> dict:
     n_pix = w * h
     lanes = min(r.batch_size, n_pix * spp)
     if r.engine == "wavefront":
-        core, run_core, refill, run_refill = W.wavefront_bodies(r.cfg, r.scene, r.cam, w, h,
-                                                                n_pix, spp, lanes)
-        refill.reset(1, 0, 0)
+        loop, _ = W.wavefront_loop(r.cfg, r.scene, r.cam, w, h, n_pix, spp, lanes)
 
         def run():
-            run_refill()
-            run_core()
+            loop.refill()
+            loop.core()
+            loop.test()
     else:
-        run = W.StickyBody(r.cfg, r.scene, r.cam, w, h, n_pix, spp, lanes)
-        run.reset(1, 0, 0)
+        loop = W.StickyLoop(r.cfg, r.scene, r.cam, w, h, n_pix, spp, lanes)
+        run = loop.round
+    loop.reset(1, 0, 0)
     run()  # warm-up: the kernel library, the allocator
     ops = aten_ops(run)
     torch.cuda.synchronize()
@@ -3859,7 +4375,7 @@ def phase_graphs(dev, gpu: str) -> None:
     eager frame bit for bit (image, path vertices, rounds, launches); a
     second seed and a second ``samp_base`` add no cache entry and equal the
     eager frames; the cache holds the entries the case expects (the
-    counter wavefront: its refill and its core); the cache's capture ms,
+    lane loops: one each, their refill or restart inside); the cache's capture ms,
     pool MB and launches per replay of each entry beside the eager frame's
     peak memory; eager and graphed frame ms in turns (eager, graphed,
     graphed, eager, eager, graphed: median of 3 each); the busy share under
@@ -3945,7 +4461,9 @@ def graph_cases(descs: dict, dev, gpu: str, plain_calls: dict) -> None:
             times[mode].append(graph_frame(eager if mode == "eager" else graphed,
                                            3 + turn)["ms"])
         e_ms, g_ms = statistics.median(times["eager"]), statistics.median(times["graphed"])
-        per_entry = {k[0]: e.launches for k, e in graphed.graphs.entries.items()}
+        # a lane loop's launches per run of each guarded body, a sample's per replay
+        per_entry = {k[0]: getattr(e.body, "sections", None) or e.launches
+                     for k, e in graphed.graphs.entries.items()}
         say("graphs", case=case, size=f"{w}x{h}", spp=spp, engine=engine,
             route="fused" if graphed.fused else "modular", lanes=lanes or "default",
             **{f"bit_equal_{k}" if k != "one_capture" else k: v for k, v in checks.items()},
@@ -4019,8 +4537,12 @@ def main() -> int:
         return 1
     dev = torch.device("cuda", 0)
     gpu = gpu_line()
+    # torch's own binding of IF nodes, which the lane loops do not need
+    # (runtime/graphs.py:_if_node binds them through csrc/loop.cu)
+    torch_if_nodes = hasattr(torch.cuda.CUDAGraph, "begin_capture_to_if_node")
     say("device", name=f'"{torch.cuda.get_device_name(0)}"', count=torch.cuda.device_count(),
-        torch=torch.__version__, cuda=torch.version.cuda, clocks=f'"{clocks_line()}"')
+        torch=torch.__version__, cuda=torch.version.cuda, driver=gpu_line("driver_version"),
+        torch_if_nodes=torch_if_nodes, clocks=f'"{clocks_line()}"')
 
     # 2. build (the package is imported only now: a lone chip_smoke.py fails here)
     from raytracing_course_2024_tpu_torch.ops import kernels
@@ -4048,6 +4570,7 @@ def main() -> int:
     lane["sampler-lane"]["max_abs_err"] = round_errs.pop("sampler")
     errs.update(round_errs)
     errs["camera"] = phase_kernels_camera(dev)
+    errs["loop"] = phase_kernels_loop(dev)
     with tempfile.TemporaryDirectory() as tmp:
         runs = {path: phase_main(dev, tmp, path) for path in MAIN}
     # each kernel's launches on the main path: the batch path's run for its
@@ -4060,6 +4583,7 @@ def main() -> int:
     counts["bvh"] = runs["bvh"]["bvh"]
     counts["refill"] = runs["bvh-wavefront"]["refill"]
     counts["restart"] = runs["bvh-sticky"]["restart"]
+    counts["loop"] = runs["bvh"]["loop"]  # the BVH default engine's loop
     lane["sampler-lane"]["launches"] = sum(runs[p]["sampler"]
                                            for p in ("bvh-wavefront", "bvh-sticky"))
     idle = [k for k in KERNELS if counts[k] < 1]
@@ -4073,6 +4597,7 @@ def main() -> int:
     record = phase_timing(dev, gpu, counts, errs, cornell, k5_state, bvh, n1, lane)
     del n1
     phase_graphs(dev, gpu)
+    phase_loop(dev, gpu)
     phase_runtime(dev, gpu)
     phase_multiproc(dev, gpu)
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib"))
@@ -4093,6 +4618,8 @@ if __name__ == "__main__":
         sys.exit(cards_main())
     if sys.argv[1:2] == ["--graphs"]:
         sys.exit(graphs_main())
+    if sys.argv[1:2] == ["--traced"]:
+        sys.exit(traced_main())
     if sys.argv[1:2] == ["--mp-worker"]:
         mode, tmp, store, world, rank = sys.argv[2:7]
         sys.exit(mp_worker(mode, tmp, store, int(world), int(rank)))

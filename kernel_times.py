@@ -27,7 +27,8 @@ engines, with their path-vertex totals; ``--frames 0`` leaves the frames and
 the round-by-round pass out). ``--bvh-turns N`` times only the
 81,920-triangle BVH frame of ``chip_smoke.bvh_desc`` on the three engines
 and on the tree's default engine (as the CLI renders it), one frame per
-engine in turn, N times (``bvh_engine_turns``).
+engine in turn, N times, then one frame each whose waits on the card are
+counted (``bvh_engine_turns``).
 ``--bvh-kernel`` times only K6, per launch, on the 921,600 camera and
 bounce-1 rays of that BVH frame with their live masks (``bvh_state``,
 ``bvh_launch_times`` without the walk models), and prints the launch
@@ -44,15 +45,19 @@ ops), then
 the sum of the bounds of the N1a and N1b launches of the frame of seed 1
 (``chip_smoke.n1_frame_bounds``, on its eager twin): the launch-weighted
 share is that sum over seed 1's frame-summed ms.
-``--lane-frames`` profiles only the four lane frames (the BVH frame on the
+``--lane-frames`` times only the five lane frames (the BVH frame on the
 counter wavefront and the sticky engine, the Cornell frame on the counter
-wavefront's fused route and on the sticky engine's fused route below one
-lane per pixel, 262,144 lanes), graphed, ``--frames`` profiled frames each
-after a warm-up: wall and device ms, busy share, launches, rounds, path
-vertices, the image's digest, and the device ms and launches of each
-hand-written kernel by name; the BVH frames also print the ATen ops one
-round dispatches beside its kernels (``chip_smoke.round_ops``), on any
-tree. ``--lane-kernels``
+wavefront's fused route, on the sticky engine's fused route below one
+lane per pixel, 262,144 lanes, and on its K5 route), graphed, ``--frames``
+seeds each after a warm-up: an unprofiled frame's host ms, the waits on
+the card of a frame (``host_reads``), and a profiled frame's device ms,
+busy share, launches and device ms and launches of each hand-written
+kernel by name; the idle share of the unprofiled frame, rounds, path
+vertices and the image's digest; the BVH frames also print the ATen ops
+one round dispatches beside its kernels (``tree_round_ops``), on older
+trees too. ``--sweep-rounds 4,8,16`` times only those five frames at each count of
+rounds per replay of the lane loops, in turns (``sweep_rounds``).
+``--lane-kernels``
 holds and times only N2a, N2b and K3 in lane mode on the BVH lane engines'
 states (``chip_smoke.phase_kernels_round``; a tree without them has
 nothing to time).
@@ -130,7 +135,10 @@ def main() -> int:
     ap.add_argument("--sector-writes", action="store_true",
                     help="only masked row writes against whole-sector ones, 921,600 lanes")
     ap.add_argument("--lane-frames", action="store_true",
-                    help="only the four lane frames, graphed, --frames profiled frames each")
+                    help="only the five lane frames, graphed, --frames seeds each")
+    ap.add_argument("--sweep-rounds", default="",
+                    help="only the five lane frames at each of these rounds per replay "
+                         "(e.g. 4,8,16), in turns, --frames frames each")
     ap.add_argument("--lane-kernels", action="store_true",
                     help="only N2a, N2b and K3 in lane mode on the BVH lane engines' states")
     ap.add_argument("--lane-kernel-parts", action="store_true",
@@ -150,7 +158,6 @@ def main() -> int:
     sys.path.insert(0, root)
     from raytracing_course_2024_tpu_torch.ops import bounce as B
     from raytracing_course_2024_tpu_torch.ops import kernels
-    from raytracing_course_2024_tpu_torch.ops.persistent import persistent_round
     from raytracing_course_2024_tpu_torch.runtime.render import Renderer
     from raytracing_course_2024_tpu_torch.scene import load_scene
 
@@ -187,6 +194,10 @@ def main() -> int:
     if args.lane_frames:
         lane_frames(dev, CS.bvh_desc(w, h, spp), load_scene(CS.CORNELL, w, h, spp),
                     args.frames, say)
+        return 0
+    if args.sweep_rounds:
+        sweep_rounds(dev, CS.bvh_desc(w, h, spp), load_scene(CS.CORNELL, w, h, spp),
+                     [int(x) for x in args.sweep_rounds.split(",")], args.frames, say)
         return 0
     if args.lane_kernels:
         if not os.path.exists(os.path.join(root, "raytracing_course_2024_tpu_torch", "ops",
@@ -235,9 +246,12 @@ def main() -> int:
     st0 = B.primary_bounce(scene, cam, (idx % w).float(), (idx // w).float(), idx, off_t,
                            seed_t, bg, CS.K, w, h)
     ins, st5, args5 = CS.sticky_inputs(dev, desc, w, h, spp)
-    scratch = torch.zeros((2,), dtype=torch.int32, device=dev)
+    from raytracing_course_2024_tpu_torch.ops.loop import LoopState
+    from raytracing_course_2024_tpu_torch.ops.persistent import persistent_round
+
+    ls, k5 = LoopState(dev), CS.k5_args(args5, dev)
     for _ in range(CS.K5_CHAIN):
-        persistent_round(*ins, st5, scratch, *args5, out=st5)
+        persistent_round(*ins, st5, ls, *k5, out=st5)
     m = CS.Modular(dev, desc, w, h, levels=True)
     if args.modular_only:
         CS.modular_times(m, gpu, args.reps, args.label)
@@ -280,7 +294,8 @@ def main() -> int:
 # row that names none of them is an ATen op (or a copy or a fill)
 HAND_WRITTEN = ("bounce_kernel", "primary_kernel", "persistent_kernel", "dense_nearest_kernel",
                 "bvh_nearest_kernel", "sampler_kernel", "shade_kernel", "finish_kernel",
-                "refill", "restart_kernel", "camera_kernel")
+                "refill", "restart_kernel", "camera_kernel", "round_test_kernel",
+                "set_condition_kernel")
 
 
 def modular_frame_cases(bvh, cornell):
@@ -421,47 +436,125 @@ def camera_stage(dev, desc, say, reps: int) -> None:
 # the hand-written kernels a lane frame may launch, by the name the profiler gives them
 LANE_KERNELS = {"K6": "bvh_nearest_kernel", "N1a": "shade_kernel", "K3": "sampler_kernel",
                 "N1b": "finish_kernel", "N2a": "refill", "N2b": "restart_kernel",
-                "K1": "bounce_kernel"}
+                "K1": "bounce_kernel", "K5": "persistent_kernel", "N5": "round_test_kernel",
+                "if": "set_condition_kernel"}
 
 
 def lane_frames(dev, bvh, cornell, frames: int, say) -> None:
-    """The lane engines' frames, graphed: a warm-up frame (it captures),
-    then ``frames`` frames under torch.profiler (``chip_smoke.profiled_frame``):
-    wall ms, device ms, busy share, device launches, rounds, path vertices,
-    the image's digest (``image_sha``: equal on two trees when their frames
-    of one seed are equal bit for bit), and the device ms and launches of
-    each kernel of ``LANE_KERNELS`` (N2a of a tree with the two-launch
-    refill: both launches together); on the BVH frames, the ATen ops of one
-    round beside its kernels (``chip_smoke.round_ops``)."""
+    """The lane frames of ``chip_smoke.LOOP_FRAMES``, graphed: a warm-up
+    frame (it captures), then per seed of ``frames``: the host ms of an
+    unprofiled frame (ending in a device sync), the waits of a second one on
+    the card (``chip_smoke.host_reads``: event syncs and host reads of CUDA
+    tensors), and a third under torch.profiler (``chip_smoke.profiled_frame``):
+    device ms, its wall and busy share, device launches, the card's idle
+    time inside it (``chip_smoke.device_gaps``: its span, short and long
+    gaps), and the idle share of the unprofiled frame, 1 - device ms / its
+    host ms; rounds, path
+    vertices, the image's digest (``image_sha``: equal on two trees when
+    their frames of one seed are equal bit for bit), and the device ms and
+    launches of each kernel of ``LANE_KERNELS`` (N2a of a tree with the
+    two-launch refill: both launches together); on the BVH frames, the ATen
+    ops of one round beside its kernels (``tree_round_ops``)."""
     from raytracing_course_2024_tpu_torch.runtime.render import Renderer
 
-    for name, desc, kw in (("bvh-wavefront", bvh, {"engine": "wavefront"}),
-                           ("bvh-sticky", bvh, {"engine": "sticky"}),
-                           ("cornell-wavefront-fused", cornell, {"engine": "wavefront"}),
-                           ("cornell-sticky-fused-262144", cornell,
-                            {"engine": "sticky", "batch_size": 262_144})):
+    descs = {"bvh": bvh, "cornell": cornell}
+    for name, (scene, kw) in CS.LOOP_FRAMES.items():
+        desc = descs[scene]
         r = Renderer(desc, device=dev, **kw)
         r.render_frame_device(seed=0)
         for seed in range(1, frames + 1):
+            wall = CS.unprofiled_ms(r, [seed])[0]
+            torch.cuda.synchronize()
+            with CS.host_reads() as waits:
+                r.render_frame_device(seed=seed)
             p = CS.profiled_frame(r, seed)
             kern = {}
             for tag, key in LANE_KERNELS.items():
                 rows = [x for x in p["rows"] if key in x[2]]
                 if rows:
                     kern[tag] = [round(sum(x[0] for x in rows), 4), sum(x[1] for x in rows)]
-            say(frame=name, seed=seed, wall_ms=round(p["wall_ms"], 3),
-                device_ms=round(p["device_ms"], 3), busy_share=round(p["busy_share"], 4),
+            say(frame=name, seed=seed, wall_ms=round(wall, 3),
+                device_ms=round(p["device_ms"], 3),
+                idle_share=round(1.0 - p["device_ms"] / wall, 4), host_reads=waits[0],
+                profiled_wall_ms=round(p["wall_ms"], 3),
+                busy_share_profiled=round(p["busy_share"], 4),
+                **{k: round(v, 4) for k, v in p["gaps"].items()},
                 device_launches=p["launches"], rounds=r.rounds,
                 path_vertices=int(p["path_vertices"]), image_sha=p["image_sha"],
                 kernels=json.dumps(kern).replace(" ", ""),
                 top=json.dumps([[round(ms, 3), n, k[:40]] for ms, n, k in p["rows"][:5]])
                 .replace(" ", ""))
         if name.startswith("bvh"):
-            ops = CS.round_ops(Renderer(desc, device=dev, eager=True, **kw))
+            ops = tree_round_ops(Renderer(desc, device=dev, eager=True, **kw))
             say(frame=name, aten_ops_per_round=sum(ops.values()),
                 top=json.dumps(sorted(ops.items(), key=lambda kv: -kv[1])[:6]).replace(" ", ""))
         del r
         torch.cuda.empty_cache()
+
+
+def sweep_rounds(dev, bvh, cornell, counts: list, frames: int, say) -> None:
+    """Each lane frame of ``chip_smoke.LOOP_FRAMES`` with the lane loops'
+    rounds per replay (``integrator/wavefront.py:ROUNDS_PER_REPLAY``) set to
+    each of ``counts`` in turns, forward then backward, on one graphed
+    renderer (a count is a cache entry of its own, captured by its first
+    frame): per count the median host ms of ``frames`` unprofiled frames
+    per turn, and the waits on the card of one more frame
+    (``chip_smoke.host_reads``)."""
+    from raytracing_course_2024_tpu_torch.integrator import wavefront as W
+    from raytracing_course_2024_tpu_torch.runtime.render import Renderer
+
+    default = W.ROUNDS_PER_REPLAY
+    descs = {"bvh": bvh, "cornell": cornell}
+    try:
+        for name, (scene, kw) in CS.LOOP_FRAMES.items():
+            r = Renderer(descs[scene], device=dev, **kw)
+            times, reads = {c: [] for c in counts}, {}
+            for c in list(counts) + list(reversed(counts)):
+                W.ROUNDS_PER_REPLAY = c
+                r.render_frame_device(seed=0)
+                times[c] += CS.unprofiled_ms(r, range(1, frames + 1))
+                torch.cuda.synchronize()
+                with CS.host_reads() as waits:
+                    r.render_frame_device(seed=1)
+                reads[c] = waits[0]
+            for c in counts:
+                say(frame=name, rounds_per_replay=c,
+                    wall_ms=round(statistics.median(times[c]), 3),
+                    frames_ms=json.dumps([round(t, 3) for t in times[c]]).replace(" ", ""),
+                    host_reads=reads[c], rounds=r.rounds)
+            del r
+            torch.cuda.empty_cache()
+    finally:
+        W.ROUNDS_PER_REPLAY = default
+
+
+def tree_round_ops(r) -> dict:
+    """``chip_smoke.round_ops`` of the tree timed; on a tree before the
+    lane loops' control moved to the card (no ``wavefront_loop``), the
+    ATen ops of its round bodies as it called them: the counter refill and
+    the core with its live count, or the sticky round with its live test."""
+    from raytracing_course_2024_tpu_torch.integrator import wavefront as W
+
+    if hasattr(W, "wavefront_loop"):
+        return CS.round_ops(r)
+    s = r.settings
+    n_pix, spp = s.width * s.height, s.samples
+    lanes = min(r.batch_size, n_pix * spp)
+    if r.engine == "wavefront":
+        _, run_core, refill, run_refill = W.wavefront_bodies(
+            r.cfg, r.scene, r.cam, s.width, s.height, n_pix, spp, lanes)
+        refill.reset(1, 0, 0)
+
+        def run():
+            run_refill()
+            run_core()
+    else:
+        run = W.StickyBody(r.cfg, r.scene, r.cam, s.width, s.height, n_pix, spp, lanes)
+        run.reset(1, 0, 0)
+    run()
+    ops = CS.aten_ops(run)
+    torch.cuda.synchronize()
+    return ops
 
 
 # variants of csrc/refill.cu: kernel -> [(name, [(lines of the tree, their

@@ -11,13 +11,15 @@
 
 Renders scenes/cornell_box.gltf (with ``--bvh``: chip_smoke.py's
 81,920-triangle BVH scene) at 1280x720 x 16 spp through the port's
-Renderer: one warm-up frame (it captures the CUDA graphs of every engine
-but the sticky K5 loop, on both routes), then one frame
-under torch.profiler (``chip_smoke.profiled_frame``). ``--eager`` profiles
-the same renderer with ``eager=True`` too, in turns: eager, graphed,
-graphed, eager. Prints the card's name and power limit, each profiled
-frame's mode, wall ms, the summed device ms and its share of the wall time
-(the device's busy share), the lane engines' rounds, then device ms and
+Renderer: one warm-up frame (it captures the CUDA graphs of every engine,
+on both routes), then one frame under torch.profiler
+(``chip_smoke.profiled_frame``). ``--eager`` profiles the same renderer with
+``eager=True`` too, in turns: eager, graphed, graphed, eager. Prints the
+card's name and power limit, each profiled frame's mode, wall ms, the
+summed device ms and its share of the wall time (the device's busy share),
+the waits on the card of the same frame rendered again unprofiled
+(``chip_smoke.host_reads``: on a lane engine, graphed, about one read per
+``ROUNDS_PER_REPLAY`` rounds), the lane engines' rounds, then device ms and
 launch counts per kernel name, largest first. The profiler itself slows the
 host, so the busy share of an unprofiled frame is higher.
 
@@ -25,8 +27,8 @@ host, so the busy share of an unprofiled frame is higher.
 rounds by stage (``stage_split``): the refill (``RefillBody.__call__``) or
 the sticky restart (``StickyBody.restart``), the bounce core and inside it
 the kernels (the nearest hit, N1a, N1b, K1, and K3 where the core takes
-it), so the sampler as the core's rest, and the bookkeeping as the rounds'
-rest. Each round body runs back to back behind a held stream and is timed
+it), so the sampler as the core's rest, the round test (N5) and the
+bookkeeping as the rounds' rest. Each round body runs back to back behind a held stream and is timed
 by CUDA event pairs, so its host cost is not in the numbers; the sticky K5
 loop has no such bodies. ``--root TREE`` loads the package from
 another tree (a parent unpacked with ``git archive``), so that one script
@@ -83,8 +85,9 @@ def stage_timer():
     """While active, the lane rounds' stages are timed (``StageTimer``):
     ``body`` (each round body), ``refill`` (``RefillBody.__call__``, N2a on
     a card since it has one), ``restart`` (``StickyBody.restart``), ``core``
-    (the bounce, made while active) and ``kernel`` (each kernel wrapper the
-    core calls: the nearest hit, N1a, N1b, K3 and K1)."""
+    (the bounce, made while active), ``kernel`` (each kernel wrapper the
+    core calls: the nearest hit, N1a, N1b, K3 and K1) and ``test`` (the
+    round test, N5, a body of its own)."""
     from raytracing_course_2024_tpu_torch.integrator import path as P
     from raytracing_course_2024_tpu_torch.integrator import wavefront as W
     from raytracing_course_2024_tpu_torch.ops import bounce as B
@@ -101,6 +104,10 @@ def stage_timer():
     refill = W.RefillBody.__call__
     patch(W.RefillBody, "__call__", timer.wrap(timer.wrap(refill, "refill"), "body", hold=True))
     patch(W.StickyBody, "restart", timer.wrap(W.StickyBody.restart, "restart"))
+    for name in ("WavefrontLoop", "StickyLoop"):  # the round test, N5 (trees with the device loop)
+        cls = getattr(W, name, None)
+        if cls is not None:
+            patch(cls, "test", timer.wrap(timer.wrap(cls.test, "test"), "body", hold=True))
     make = W._make_bounce_core
 
     def make_timed(*a, **kw):
@@ -121,8 +128,8 @@ def stage_timer():
 def stage_split(desc, engine: str, seed: int = 1) -> dict:
     """Device ms of one eager frame of ``engine`` by stage of its rounds
     (``stage_timer``): ``rounds_ms`` (every round body), ``refill_or_restart``,
-    ``kernels``, ``sampler`` (the core less its kernels) and ``bookkeeping``
-    (the bodies less all of those)."""
+    ``kernels``, ``sampler`` (the core less its kernels), ``round_test`` and
+    ``bookkeeping`` (the bodies less all of those)."""
     from raytracing_course_2024_tpu_torch.runtime.render import Renderer
 
     r = Renderer(desc, device="cuda", engine=engine, eager=True)
@@ -132,10 +139,10 @@ def stage_split(desc, engine: str, seed: int = 1) -> dict:
         r.render_frame_device(seed=seed)
         ms = timer.ms()
     refill = ms.get("refill", 0.0) + ms.get("restart", 0.0)
-    core, kern = ms.get("core", 0.0), ms.get("kernel", 0.0)
+    core, kern, test = ms.get("core", 0.0), ms.get("kernel", 0.0), ms.get("test", 0.0)
     return {"rounds_ms": ms["body"], "refill_or_restart": refill, "kernels": kern,
-            "sampler": core - kern, "bookkeeping": ms["body"] - core - refill,
-            "rounds": r.rounds}
+            "sampler": core - kern, "round_test": test,
+            "bookkeeping": ms["body"] - core - refill - test, "rounds": r.rounds}
 
 
 def main() -> int:
@@ -179,12 +186,15 @@ def main() -> int:
     for seed, mode in enumerate(order, start=1):
         r = rs[mode]
         p = CS.profiled_frame(r, seed)
+        torch.cuda.synchronize()
+        with CS.host_reads() as waits:  # the same frame again, unprofiled
+            r.render_frame_device(seed=seed)
         rounds = "" if r.engine == "batch" else f" rounds={r.rounds}"
         print(f"mode={mode} backend={r.backend} engine={r.engine} "
               f"path={'fused' if r.fused else 'modular'} graphed={r.graphs is not None} "
               f"wall_ms={p['wall_ms']:.3f} device_ms={p['device_ms']:.3f} "
-              f"busy_share={p['busy_share']:.3f} launches={p['launches']} "
-              f"path_vertices={int(p['path_vertices'])}{rounds}")
+              f"busy_share={p['busy_share']:.3f} host_reads={waits[0]} "
+              f"launches={p['launches']} path_vertices={int(p['path_vertices'])}{rounds}")
         for ms, n, key in p["rows"][: args.top]:
             print(f"  {ms:10.3f} ms {n:6d} x  {key[:90]}")
     return 0

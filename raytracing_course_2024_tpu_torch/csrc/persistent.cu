@@ -14,10 +14,14 @@
 //   5. the fused bounce: bounce_body of bounce_body.cuh, the body K1 runs,
 //      at the lane's own depth in the lane engines' draw layout;
 //   6. the depth cap: alive' = alive && depth < ray_depth - 1, depth + 1.
-// Two counts per round go to counts[0] (lanes alive after the restart: path
-// vertices) and counts[1] (lanes still alive or with paths left), one
-// atomicAdd per block each. The plain PyTorch version is
-// ops/persistent.py:persistent_plain.
+// Two counts per round, lanes alive after the restart (path vertices) and
+// lanes still alive or with paths left, are summed per block; the last block
+// writes them into the loop's counters as the round test (loop.cuh: n = the
+// second, more = n > 0, the first added to the path vertices), so the
+// engine's loop needs no launch of its own to test a K5 round. The seed,
+// pix_base and samp_base are three int64 on the device (`sb`), so that one
+// captured graph of the round serves every frame. The plain PyTorch version
+// is ops/persistent.py:persistent_plain, with ops/loop.py:k5_round_plain.
 //
 // State: (18, b) f32, channel-major, in the JAX order ro3, rd3, thr3, rad3,
 // alive, k, depth, acc3 (rows 0-12 are K1's state). The JAX kernel aliased
@@ -35,8 +39,10 @@
 //   multiple of 8192; here the lanes are the pixels, walked in tiles by a
 //   persistent grid of 256-thread blocks, the last tile masked.
 // * Per-block partial sums of the two counts became one atomicAdd per block
-//   into a (2,) int32 counter that the caller zeroes; the engine reads the
-//   counts one round late, so the card is not left idle while the host reads.
+//   into the loop's 64-bit scratch, which the last block to take a ticket
+//   turns into the loop's counters and the next round's IF predicate, and
+//   leaves at 0; the host reads the counters once per replay of several
+//   rounds (integrator/wavefront.py:FusedStickyLoop).
 // * Counters k, kmax and depth stay f32, as in the JAX state (budgets are far
 //   below 2^24).
 //
@@ -61,6 +67,7 @@
 // stays one pass: no restart, flush or camera pass of its own.
 
 #include "bounce_body.cuh"
+#include "loop.cuh"
 
 namespace {
 
@@ -75,12 +82,13 @@ struct PersistentParams {
   const float* kmax;  // (b,) paths per lane
   const float* cam;   // (128,) camera row
   int width, height;
-  uint32_t seed, frame_pix, pix_base, samp_base;
+  uint32_t frame_pix;
+  const long long* sb;  // (3,) seed, pix_base, samp_base on the device
   Ctr ctr;             // the draws of depth 0
   uint32_t ctr_stride;  // counters per depth level
   int ray_depth;
   SceneArgs sc;
-  int* counts;  // (2,): live lanes after the restart, lanes with work left
+  LoopOut lo;  // the loop's counters, written by the last block
   int* tick;    // (2,) tile counter of walk_tiles, 0 between launches
 };
 
@@ -131,7 +139,7 @@ __device__ __forceinline__ void finish_lane(const PersistentParams& p, long long
 // throughput, and in place the accumulator moves only with a flush and k
 // only with a restart.
 __device__ __forceinline__ bool run_lane(const PersistentParams& p, const Tables& T,
-                                         long long i) {
+                                         const uint3 ids, long long i) {
   const long long b = p.b;
   const float* in = p.in;
   float* out = p.out;
@@ -160,8 +168,8 @@ __device__ __forceinline__ bool run_lane(const PersistentParams& p, const Tables
   s.alive = true;
   // 3. the key of path (pixel, sample k - 1), after the restart
   const uint32_t samp = k > 0.5f ? (uint32_t)(k - 1.0f) : 0u;
-  const uint32_t wid = (p.samp_base + samp) * p.frame_pix + p.pix_base + (uint32_t)i;
-  const uint32_t key = work_key(p.seed, wid);
+  const uint32_t wid = (ids.z + samp) * p.frame_pix + ids.y + (uint32_t)i;
+  const uint32_t key = work_key(ids.x, wid);
   // 4. the camera ray of a restarted lane
   if (dead)
     camera_ray(p.cam, p.px[i], p.py[i], p.width, p.height, uniform_ctr(key, CTR_JITTER),
@@ -189,36 +197,43 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks) persistent_kernel(Persiste
   __shared__ LaneQueue queue;
   __shared__ int red[kWarps];
   const Tables T = stage_tables(p.sc, true, sh);
+  // (seed, pix_base, samp_base), low 32 bits, read on the device
+  const uint3 ids = make_uint3((uint32_t)__ldg(p.sb), (uint32_t)__ldg(p.sb + 1),
+                               (uint32_t)__ldg(p.sb + 2));
   int more = 0;  // lanes of this thread's passes with work left
   // a lane that runs a path is alive after its restart: the first count
   const int live = walk_tiles(
       p.b, p.tick, queue, [&](long long i) { return runs_path(p, i); },
       [&](long long i) { finish_lane(p, i); },
-      [&](long long i) { more += run_lane(p, T, i); });
+      [&](long long i) { more += run_lane(p, T, ids, i); });
   const int live_blk = block_sum(live, red);
   __syncthreads();
   const int more_blk = block_sum(more, red);
-  if (threadIdx.x == 0) {
-    if (live_blk) atomicAdd(&p.counts[0], live_blk);
-    if (more_blk) atomicAdd(&p.counts[1], more_blk);
-  }
+  if (threadIdx.x != 0) return;
+  long long live_all = live_blk, more_all = more_blk;
+  if (last_block_totals(p.lo, live_all, more_all))
+    write_round(p.lo, more_all, more_all > 0, false, live_all);
 }
 
 }  // namespace
 
 // Returns cudaGetLastError() after the launch (cudaErrorInvalidValue for
 // arguments the kernel does not take). Never synchronises. `tick`: as for
-// rt_launch_bounce.
+// rt_launch_bounce. `sb`: three int64 on the device (seed, pix_base,
+// samp_base). `loop`, `preds`, `scratch`: the loop's counters (loop.cuh),
+// the scratch at 0.
 extern "C" int rt_launch_persistent(const void* in, void* out, long long b, const void* px,
                                     const void* py, const void* kmax, const void* cam,
-                                    int width, int height, unsigned seed, unsigned frame_pix,
-                                    unsigned pix_base, unsigned samp_base, unsigned ctr_base,
+                                    int width, int height, const void* sb, unsigned frame_pix,
+                                    unsigned ctr_base,
                                     unsigned ctr_cand, unsigned ctr_row, unsigned ctr_diel,
                                     unsigned ctr_stride, int ray_depth, const void* geo,
                                     const void* rec, int m, const void* lp, const void* lspec,
                                     int nl, int num_lights, float bg0, float bg1, float bg2,
-                                    int max_tries, void* counts, void* tick, void* stream) {
-  if (bad_args(b, m, nl, num_lights, max_tries) || width < 1 || height < 1)
+                                    int max_tries, void* loop, void* preds, void* scratch,
+                                    void* tick, void* stream) {
+  if (bad_args(b, m, nl, num_lights, max_tries) || width < 1 || height < 1 || sb == nullptr ||
+      loop == nullptr || preds == nullptr || scratch == nullptr)
     return (int)cudaErrorInvalidValue;
   if (b == 0) return 0;
   PersistentParams p{};
@@ -231,15 +246,14 @@ extern "C" int rt_launch_persistent(const void* in, void* out, long long b, cons
   p.cam = static_cast<const float*>(cam);
   p.width = width;
   p.height = height;
-  p.seed = seed;
   p.frame_pix = frame_pix;
-  p.pix_base = pix_base;
-  p.samp_base = samp_base;
+  p.sb = static_cast<const long long*>(sb);
   p.ctr = Ctr{ctr_base, ctr_cand, ctr_row, ctr_diel};
   p.ctr_stride = ctr_stride;
   p.ray_depth = ray_depth;
   p.sc = scene_args(geo, rec, m, lp, lspec, nl, num_lights, bg0, bg1, bg2, max_tries);
-  p.counts = static_cast<int*>(counts);
+  p.lo = LoopOut{static_cast<long long*>(loop), static_cast<bool*>(preds),
+                  static_cast<unsigned long long*>(scratch)};
   p.tick = static_cast<int*>(tick);
   persistent_kernel<<<grid_for(persistent_kernel, (b + kTile - 1) / kTile), kBlock, 0,
                       static_cast<cudaStream_t>(stream)>>>(p);

@@ -14,7 +14,7 @@ when paths end at different depths:
   ``l, l + lanes, ...`` and restarts its own next sample the round after a
   path ends, accumulating in place; with at least as many lanes as pixels
   and a scene that passes the fused gate, a whole round is one kernel, K5
-  (``_sticky_fused``, ``ops/persistent.py``).
+  (``FusedStickyLoop``, ``ops/persistent.py``).
 
 Every draw is keyed by the work item, global (pixel, sample), in the lane
 engines' layout (``ops/rng.py``: ``lane_ctr``), so both engines give the
@@ -41,19 +41,28 @@ returns black at depth 0, src/rendering.rs:93-95). Each engine returns
 ((3, n_pix) mean radiance, path vertices, rounds): a round is one bounce
 of every lane (one K1 or one K5 launch on the fused routes).
 
-The counter wavefront's bounce and refill and the sticky round are bodies
-over static buffers (``CoreBody``, ``RefillBody``, ``StickyBody``) that read
-the seed and the frame offsets on the device, on either route (K1 reads
-its seed pair there too, K3 and N1b the same pair); the refill and the
-sticky restart are one kernel each on the card, N2a and N2b
-(``ops/refill.py``). Given a graph cache (``runtime/graphs.py``) the
-counter wavefront replays its refill and its bounce as captured CUDA graphs
-and the sticky engine its whole round (restart, core, the live test), the
-counterpart of the JAX package's ``_render_wf`` (each engine one
-``lax.while_loop`` under ``jax.jit``); the one host read per round stays.
-The sticky engine's K5 loop stays eager: one launch per round, its counts
-read one round late. Every engine refuses a frame whose work ids would pass
-2^32 (``ops/rng.py:check_work_ids``) before any work.
+The loop control is on the device, as the JAX package's ``lax.while_loop``
+and ``lax.cond`` have it (``_render_wf``, one ``jax.jit``): a frame's loop
+(``WavefrontLoop``, ``StickyLoop``, ``FusedStickyLoop``) holds its round
+bodies over static buffers (``CoreBody`` and ``RefillBody``, ``StickyBody``,
+or K5), which read the seed and the frame offsets on the device, and its
+counters (``ops/loop.py:LoopState``). After each round the round test N5
+(``ops/loop.py:round_test``; K5 ends its own round with it) writes whether
+another round runs (``more``), whether the counter wavefront's next round
+refills (``refill_pred``), the lanes alive, the path vertices (the lanes
+that enter each bounce), the rounds and the refills. A call of a loop runs
+``ROUNDS_PER_REPLAY`` rounds, each guarded by ``more`` and the refill in it
+by ``refill_pred`` (``runtime/graphs.py:guard``). Given a graph cache the
+call is a captured CUDA graph whose guards are IF nodes, so a round whose
+test said stop costs a conditional check; the host replays it and reads the
+counters of the replay before the last (a pinned copy and an event per
+replay, ``_run_loop``), so the card always has the next replay queued: a
+frame of ``rounds`` rounds makes at most ceil(rounds / ROUNDS_PER_REPLAY) +
+2 host reads. Without a cache (``eager=True``, ``plain``, the CPU) a guard
+is a host read of its predicate, the counterpart of ``jax.disable_jit()``.
+Every engine refuses a frame whose work ids would pass 2^32
+(``ops/rng.py:check_work_ids``) before any work, and raises where a frame
+still has work after a cap of rounds derived from its work and depth.
 """
 
 from __future__ import annotations
@@ -64,13 +73,16 @@ import threading
 import torch
 
 from ..ops import bounce as B
+from ..ops import loop as L
 from ..ops import refill as RF
 from ..ops.camera import CameraArrays, pack_camera_row
+from ..ops.loop import LoopState, k5_round_plain, round_test, round_test_plain
 from ..ops.persistent import N_PSTATE, S_ACC, S_K, persistent_plain, persistent_round
 from ..ops.rng import check_work_ids, lane_ctr
 from ..ops.shade import PARK_DIR, PARK_ORIGIN, finish, finish_plain, park, shade, shade_plain
 from ..ops.traverse import nearest_table
 from ..ops.vec import Vec3
+from ..runtime.graphs import guard, settle
 from .path import TraceConfig, check_sampler, graphed_body, sample_bounce
 
 
@@ -149,9 +161,8 @@ class CoreBody:
     ``seed_off`` ((2,) int64: the seed and 0; ``seed`` is its first
     element), ``state`` (13, B), ``wid`` and ``depth`` (int32) in. A call
     runs one bounce (the fused core, K1 in lane mode, on a ``BounceScene``;
-    the XLA core on a ``ModularScene``) and leaves the state in ``state``,
-    adds one to every lane's depth and counts the lanes alive after it into
-    ``n_alive``, the host's one read per round."""
+    the XLA core on a ``ModularScene``), leaves the state in ``state`` and
+    adds one to every lane's depth."""
 
     def __init__(self, cfg: TraceConfig, scene, lanes: int, plain: bool = False):
         dev = _scene_device(scene)
@@ -160,14 +171,12 @@ class CoreBody:
         self.state = _initial_state(B.N_STATE, lanes, dev)
         self.wid = torch.zeros((lanes,), dtype=torch.int32, device=dev)
         self.depth = torch.zeros((lanes,), dtype=torch.int32, device=dev)
-        self.n_alive = torch.zeros((), dtype=torch.int64, device=dev)
         self.plain = plain
         self.core, _ = _make_bounce_core(cfg, scene, self.seed_off, plain)
 
     def __call__(self) -> None:
         self.state.copy_(self.core(self.state, self.wid, self.depth))
         self.depth += 1
-        self.n_alive.copy_((self.state[12] > 0.5).sum())
 
 
 class RefillBody:
@@ -179,10 +188,9 @@ class RefillBody:
     holds work item ``w``'s radiance; every column is written by one lane,
     so the writes are plain stores, in no order that could change a sum). A
     call is ``ops/refill.py:refill`` (N2a on a card): it flushes the dead
-    lanes' radiance, hands them the next work items in lane order, writes
-    every lane's work id into ``wid`` and starts the taken lanes on their
-    camera rays. It reads nothing from the host: the host mirrors
-    ``counter`` with the same integer arithmetic."""
+    lanes' radiance, hands them the next work items in lane order, moves
+    ``counter`` on, writes every lane's work id into ``wid`` and starts the
+    taken lanes on their camera rays. It reads nothing from the host."""
 
     def __init__(self, core: CoreBody, cam: CameraArrays, width: int, height: int, n_pix: int,
                  samples: int):
@@ -205,7 +213,7 @@ class RefillBody:
         self.bases[0].fill_(pix_base)
         self.bases[1].fill_(samp_base)
         c.state.copy_(_initial_state(B.N_STATE, c.state.shape[1], c.state.device))
-        for t in (c.wid, c.depth, c.n_alive, self.counter, self.done):
+        for t in (c.wid, c.depth, self.counter, self.done):
             t.zero_()
         self.work.fill_(-1)
 
@@ -219,11 +227,72 @@ class RefillBody:
             RF.refill(*args, self.scan)
 
 
+# rounds a lane loop runs per call: one replay of its graph, whose rounds are
+# guarded by the device's round test; the host reads the loop's counters
+# once per replay (PERF.md: the sweep of 4, 8 and 16 on the card). Read when
+# a loop is made; the cache keys hold it.
+ROUNDS_PER_REPLAY = 8
+
 # refills the counter wavefront has run (every pass and shard, eager or
-# replayed): the host's own count, which a caller may set to 0 and read
-# beside N2a's launches (ops/kernels.py:LAUNCHES["refill"])
+# replayed), from the device counters at the end of each pass; a caller may
+# set it to 0 and read it beside N2a's launches (ops/kernels.py:LAUNCHES["refill"])
 REFILLS = [0]
-_REFILLS_LOCK = threading.Lock()  # shards render from threads
+# host reads of the lane loops' counters (one pinned copy each, ``_run_loop``)
+HOST_READS = [0]
+_COUNT_LOCK = threading.Lock()  # shards render from threads
+
+
+class _GuardedLoop:
+    """What the three lane loops share: the loop control ``ls``
+    (``ops/loop.py:LoopState``), the launches of one run of each guarded
+    body (``sections``), and a call of ``rounds_per_replay`` rounds, each
+    guarded by ``ls.more``; a subclass defines ``round`` (one round's work,
+    its round test last), ``reset`` and ``cap`` (the most rounds a frame
+    may take)."""
+
+    def __init__(self, dev):
+        self.ls = LoopState(dev)
+        self.reader = _Lagged(self.ls.loop)
+        self.sections: dict = {}
+        self.rounds_per_replay = ROUNDS_PER_REPLAY
+
+    def __call__(self) -> None:
+        for _ in range(self.rounds_per_replay):
+            guard(self.ls.more, self.round, "round", self.sections)
+
+
+class WavefrontLoop(_GuardedLoop):
+    """One counter-refill pass: a ``CoreBody`` and its ``RefillBody``. A
+    round is the refill, guarded by ``refill_pred`` (the JAX ``lax.cond``),
+    the bounce, and the round test (N5 in ``COUNTER`` mode: lanes alive,
+    the work counter against ``total``, the refill threshold ``thresh``)."""
+
+    def __init__(self, cfg: TraceConfig, scene, cam: CameraArrays, width: int, height: int,
+                 n_pix: int, samples: int, lanes: int, thresh: int, plain: bool = False):
+        self.core = CoreBody(cfg, scene, lanes, plain)
+        self.refill = RefillBody(self.core, cam, width, height, n_pix, samples)
+        super().__init__(self.core.state.device)
+        self.thresh = thresh
+        # a lane's path takes at most ray_depth rounds, all lanes are dead
+        # ray_depth rounds after a refill, and every refill but the last
+        # with work left hands out at least ``thresh`` items
+        depth = max(cfg.ray_depth, 1)
+        self.cap = depth * (-(-self.refill.total // thresh) + 2)
+
+    def reset(self, seed32: int, pix_base: int, samp_base: int) -> None:
+        self.refill.reset(seed32, pix_base, samp_base)
+        self.ls.reset()
+        self.test()  # the loop test before the first round
+
+    def test(self) -> None:
+        fn = round_test_plain if self.core.plain else round_test
+        fn(self.ls, L.COUNTER, alive=self.core.state[12], counter=self.refill.counter,
+           total=self.refill.total, thresh=self.thresh)
+
+    def round(self) -> None:
+        guard(self.ls.refill_pred, self.refill, "refill", self.sections)
+        self.core()
+        self.test()
 
 
 # work items of one counter-refill pass: the flush keeps 12 bytes per item
@@ -232,21 +301,83 @@ _REFILLS_LOCK = threading.Lock()  # shards render from threads
 WF_MAX_WORK = 1 << 25
 
 
-def wavefront_bodies(cfg: TraceConfig, scene, cam: CameraArrays, width: int, height: int,
-                     n_pix: int, samples: int, lanes: int, plain: bool = False, graphs=None):
-    """``(core, run_core, refill, run_refill)`` of one counter-refill pass
-    (``graphed_body``): the core's cache entry is keyed by the lanes and
-    cfg, the refill's also by the frame, the camera, ``n_pix`` and the
-    pass's samples (they size ``done``); seeds, ``pix_base`` and
+def refill_thresh(lanes: int) -> int:
+    """Dead lanes at which the counter wavefront refills: rounds price the
+    full lane batch, so refilling at ``RT_WF_REFILL_FRAC`` (1/8) dead keeps
+    occupancy near 94 % at the cost of a rank, a flush and the camera math
+    per refill (the JAX package's default)."""
+    frac = float(os.environ.get("RT_WF_REFILL_FRAC", "0.125"))
+    return max(int(lanes * frac), 1)
+
+
+def wavefront_loop(cfg: TraceConfig, scene, cam: CameraArrays, width: int, height: int,
+                   n_pix: int, samples: int, lanes: int, plain: bool = False, graphs=None):
+    """``(loop, run)`` of one counter-refill pass (``graphed_body``): the
+    cache entry is keyed by the lanes, cfg, the frame, the camera,
+    ``n_pix`` and the pass's samples (they size ``done``), the refill
+    threshold and ``ROUNDS_PER_REPLAY``; seeds, ``pix_base`` and
     ``samp_base`` are device values and key nothing."""
-    core, run_core = graphed_body(graphs, scene, ("wavefront", lanes, cfg),
-                                  lambda: CoreBody(cfg, scene, lanes, plain))
-    key = ("refill", lanes, cfg, width, height, pack_camera_row(cam).tobytes(), n_pix, samples)
-    refill, run_refill = graphed_body(graphs, scene, key, lambda: RefillBody(
-        core, cam, width, height, n_pix, samples))
-    if refill.core is not core:
-        raise RuntimeError("a refill body serves the core body it was made with")
-    return core, run_core, refill, run_refill
+    thresh = refill_thresh(lanes)
+    key = ("wavefront", lanes, cfg, width, height, pack_camera_row(cam).tobytes(), n_pix,
+           samples, thresh, ROUNDS_PER_REPLAY)
+    return graphed_body(graphs, scene, key, lambda: WavefrontLoop(
+        cfg, scene, cam, width, height, n_pix, samples, lanes, thresh, plain))
+
+
+class _Lagged:
+    """Reads of a loop's counters one call late: after each call a copy of
+    ``loop`` into a pinned host slot and an event (two slots in turn); a
+    read waits for the call before the last one. Made once per loop, its
+    buffers serve every frame (``restart``)."""
+
+    def __init__(self, loop: torch.Tensor):
+        cuda = loop.device.type == "cuda"
+        self.loop = loop
+        self.host = torch.zeros((2,) + tuple(loop.shape), dtype=loop.dtype, pin_memory=cuda)
+        self.events = [torch.cuda.Event(), torch.cuda.Event()] if cuda else None
+        self.posted = self.read_at = 0
+
+    def restart(self) -> None:
+        self.posted = self.read_at = 0
+
+    def post(self) -> None:
+        i = self.posted % 2
+        self.host[i].copy_(self.loop, non_blocking=True)
+        if self.events:
+            self.events[i].record()
+        self.posted += 1
+
+    def read(self) -> list:
+        i = self.read_at % 2
+        if self.events:
+            self.events[i].synchronize()
+        self.read_at += 1
+        with _COUNT_LOCK:
+            HOST_READS[0] += 1
+        return self.host[i].tolist()
+
+
+def _run_loop(loop: _GuardedLoop, run, what: str) -> list:
+    """Calls ``run`` (``loop``'s rounds, a replay on a card) until the
+    round test says stop, with the next call always queued before the host
+    waits for the counters of the one before it. Raises where the counters
+    show more than ``loop.cap`` rounds. Returns the final counters
+    (``ops/loop.py``: ``NVERTS``, ``ROUNDS``, ``REFILLS``) and adds the
+    launches of the rounds and refills run (``settle``)."""
+    reader = loop.reader
+    reader.restart()
+    run()
+    reader.post()
+    while True:
+        run()
+        reader.post()
+        vals = reader.read()
+        if vals[L.ROUNDS] > loop.cap:
+            raise RuntimeError(f"{what} has work left after {loop.cap} rounds")
+        if not vals[L.MORE]:
+            break
+    settle(loop.sections, {"round": vals[L.ROUNDS], "refill": vals[L.REFILLS]})
+    return vals
 
 
 def render_wavefront(seed32: int, pix_base: int, samp_base: int, cam: CameraArrays, scene,
@@ -263,13 +394,11 @@ def render_wavefront(seed32: int, pix_base: int, samp_base: int, cam: CameraArra
     more than ``WF_MAX_WORK`` work items runs as passes of whole samples.
 
     A round is a refill (``RefillBody``, when at least
-    ``RT_WF_REFILL_FRAC`` of the lanes are dead) and a bounce
-    (``CoreBody``), each a call over static buffers; ``graphs`` (a graph
-    cache of ``scene``) replays both as captured graphs, on either route.
-    The host reads one number per round, the lanes alive after the bounce,
-    and decides from it whether to refill and when to stop; it mirrors the
-    work counter and the path vertices with the same integer arithmetic, so
-    rounds and path vertices are exact. ``plain`` runs eagerly."""
+    ``RT_WF_REFILL_FRAC`` of the lanes are dead), a bounce (``CoreBody``)
+    and the round test, in a ``WavefrontLoop``; ``graphs`` (a graph cache of
+    ``scene``) replays ``ROUNDS_PER_REPLAY`` guarded rounds as one captured
+    graph, on either route. Rounds, refills and path vertices come from the
+    device counters. ``plain`` runs eagerly."""
     check_work_ids(width * height, samp_base, samples)
     per_pass = max(WF_MAX_WORK // max(n_pix, 1), 1)
     if samples > per_pass:
@@ -281,34 +410,15 @@ def render_wavefront(seed32: int, pix_base: int, samp_base: int, cam: CameraArra
             img = img + part * (n_s / samples)
             nverts, rounds = nverts + v, rounds + r
         return img, nverts, rounds
-    total_work = n_pix * samples
-    b = lanes
-    core, run_core, refill, run_refill = wavefront_bodies(
-        cfg, scene, cam, width, height, n_pix, samples, b, plain, None if plain else graphs)
-    refill.reset(seed32, pix_base, samp_base)
-
-    # refill threshold: rounds price the full lane batch, so refilling at
-    # 1/8 dead keeps occupancy near 94 % at the cost of a cumsum, a
-    # flush and the camera math per refill (the JAX package's default)
-    frac = float(os.environ.get("RT_WF_REFILL_FRAC", "0.125"))
-    thresh = max(int(b * frac), 1)
-
-    counter = nverts = rounds = 0
-    n_dead = b  # every lane starts dead
-    while counter < total_work or n_dead < b:
-        n_take = 0
-        if n_dead >= thresh:  # flush dead lanes' radiance, hand out fresh work
-            run_refill()
-            with _REFILLS_LOCK:
-                REFILLS[0] += 1
-            n_take = min(n_dead, total_work - counter)
-            counter += n_take
-        nverts += b - n_dead + n_take
-        run_core()
-        rounds += 1
-        n_dead = b - int(core.n_alive)  # the one host read per round
-    return _wf_finish(core.state, refill.work, refill.done, refill.drop, n_pix, samples), \
-        float(nverts), rounds
+    loop, run = wavefront_loop(cfg, scene, cam, width, height, n_pix, samples, lanes, plain,
+                               None if plain else graphs)
+    loop.reset(seed32, pix_base, samp_base)
+    vals = _run_loop(loop, run, "counter wavefront pass")
+    with _COUNT_LOCK:
+        REFILLS[0] += vals[L.REFILLS]
+    refill = loop.refill
+    return _wf_finish(loop.core.state, refill.work, refill.done, refill.drop, n_pix, samples), \
+        float(vals[L.NVERTS]), vals[L.ROUNDS]
 
 
 def _wf_finish(state, work, done, drop, n_pix: int, samples: int) -> torch.Tensor:
@@ -324,12 +434,10 @@ class StickyBody:
     through the fused core (K1 in lane mode) off the K5 route, over static
     buffers: ``seed_off`` ((2,) int64: the seed and 0; ``seed`` is its first
     element) and ``bases`` (pix_base, samp_base) in; the lanes' state, path
-    counters ``k``, depths and work ids, the radiance slots ``acc``, the
-    path vertices ``nverts`` and ``more`` (a lane is alive or has paths
-    left) carried from round to round. A call is one round: the restart
+    counters ``k``, depths and work ids and the radiance slots ``acc``
+    carried from round to round. A call is one round: the restart
     (``ops/refill.py:restart``, N2b on a card: flush the finished paths,
-    restart the dead lanes, every lane's work id), one bounce, then
-    ``more``."""
+    restart the dead lanes, every lane's work id) and one bounce."""
 
     def __init__(self, cfg: TraceConfig, scene, cam: CameraArrays, width: int, height: int,
                  n_pix: int, samples: int, lanes: int, plain: bool = False):
@@ -347,8 +455,6 @@ class StickyBody:
         self.depth = torch.zeros((b,), dtype=torch.int32, device=dev)
         self.wid = torch.zeros((b,), dtype=torch.int32, device=dev)
         self.acc = torch.zeros((3, self.jmax * b), dtype=torch.float32, device=dev)  # j * b + l
-        self.nverts = torch.zeros((), dtype=torch.int64, device=dev)
-        self.more = torch.zeros((), dtype=torch.bool, device=dev)
         self.core, _ = _make_bounce_core(cfg, scene, self.seed_off, plain)
 
     def reset(self, seed32: int, pix_base: int, samp_base: int) -> None:
@@ -357,12 +463,8 @@ class StickyBody:
         self.bases[0].fill_(pix_base)
         self.bases[1].fill_(samp_base)
         self.state.copy_(_initial_state(B.N_STATE, self.b, self.state.device))
-        for t in (self.k, self.depth, self.wid, self.acc, self.nverts):
+        for t in (self.k, self.depth, self.wid, self.acc):
             t.zero_()
-        self.more.copy_(self._more())
-
-    def _more(self) -> torch.Tensor:
-        return ((self.state[12] > 0.5) | (self.k < self.kmax)).any()
 
     def restart(self) -> None:
         """Flush dead lanes' finished paths, start their next sample, write
@@ -373,10 +475,35 @@ class StickyBody:
 
     def __call__(self) -> None:
         self.restart()
-        self.nverts += (self.state[12] > 0.5).sum()
         self.state.copy_(self.core(self.state, self.wid, self.depth))
         self.depth += 1
-        self.more.copy_(self._more())
+
+
+class StickyLoop(_GuardedLoop):
+    """The pixel-sticky engine off the K5 route: a round is a ``StickyBody``
+    call and the round test (N5 in ``STICKY`` mode: lanes alive or with
+    paths left)."""
+
+    def __init__(self, cfg: TraceConfig, scene, cam: CameraArrays, width: int, height: int,
+                 n_pix: int, samples: int, lanes: int, plain: bool = False):
+        self.body = StickyBody(cfg, scene, cam, width, height, n_pix, samples, lanes, plain)
+        super().__init__(self.body.state.device)
+        # a lane walks jmax * samples paths of at most ray_depth rounds each
+        self.cap = self.body.jmax * samples * max(cfg.ray_depth, 1)
+
+    def reset(self, seed32: int, pix_base: int, samp_base: int) -> None:
+        self.body.reset(seed32, pix_base, samp_base)
+        self.ls.reset()
+        self.test()
+
+    def test(self) -> None:
+        b = self.body
+        fn = round_test_plain if b.plain else round_test
+        fn(self.ls, L.STICKY, alive=b.state[12], k=b.k, kmax=b.kmax)
+
+    def round(self) -> None:
+        self.body()
+        self.test()
 
 
 def render_wavefront_sticky(seed32: int, pix_base: int, samp_base: int, cam: CameraArrays,
@@ -389,39 +516,38 @@ def render_wavefront_sticky(seed32: int, pix_base: int, samp_base: int, cam: Cam
     as ``render_wavefront`` does, from the same work-item streams.
 
     When the fused gate passes and ``n_pix <= lanes``, each round is one K5
-    launch on ``n_pix`` lanes (``_sticky_fused``), which stays eager: a
-    graph of one launch would save nothing, and the loop reads its counts
-    one round late so that the card always has the next round queued.
-    Otherwise each round is a ``StickyBody`` call: a torch restart and one
-    bounce (K1 in lane mode, or the XLA core); ``graphs`` (a graph cache of
-    ``scene``) replays the round as a captured graph on either route;
+    launch on ``n_pix`` lanes (``FusedStickyLoop``); otherwise a
+    ``StickyBody`` call (N2b and one bounce: K1 in lane mode, or the XLA
+    core; ``StickyLoop``). ``graphs`` (a graph cache of ``scene``) replays
+    ``ROUNDS_PER_REPLAY`` guarded rounds as one captured graph on either;
     ``plain`` runs eagerly."""
     check_work_ids(width * height, samp_base, samples)
     b = lanes
     _, fused = _make_bounce_core(cfg, scene, seed32, plain)
-    if fused and n_pix <= b:
-        return _sticky_fused(seed32, pix_base, samp_base, cam, scene, cfg, width, height,
-                             n_pix, samples, plain)
     if plain:
         graphs = None
-    key = ("sticky", b, cfg, width, height, pack_camera_row(cam).tobytes(), n_pix, samples)
-    body, run = graphed_body(graphs, scene, key, lambda: StickyBody(
+    frame = (width, height, pack_camera_row(cam).tobytes(), n_pix, samples, ROUNDS_PER_REPLAY)
+    if fused and n_pix <= b:
+        loop, run = graphed_body(graphs, scene, ("sticky-k5", cfg, *frame), lambda: (
+            FusedStickyLoop(cfg, scene, cam, width, height, n_pix, samples, plain)))
+        loop.reset(seed32, pix_base, samp_base)
+        vals = _run_loop(loop, run, "sticky frame")
+        return loop.finish(), float(vals[L.NVERTS]), vals[L.ROUNDS]
+    loop, run = graphed_body(graphs, scene, ("sticky", b, cfg, *frame), lambda: StickyLoop(
         cfg, scene, cam, width, height, n_pix, samples, b, plain))
-    body.reset(seed32, pix_base, samp_base)
-    rounds = 0
-    while bool(body.more):  # the one host read per round
-        run()
-        rounds += 1
-    body.restart()  # final flush: the last paths are still in-lane
-    return body.acc[:, :n_pix] * (1.0 / samples), float(body.nverts), rounds
+    loop.reset(seed32, pix_base, samp_base)
+    vals = _run_loop(loop, run, "sticky frame")
+    body = loop.body
+    body.restart()  # final flush, once, after the last round: the last paths are still in-lane
+    return body.acc[:, :n_pix] * (1.0 / samples), float(vals[L.NVERTS]), vals[L.ROUNDS]
 
 
 def _sticky_inputs(seed32: int, pix_base: int, samp_base: int, cam: CameraArrays, scene,
                    cfg: TraceConfig, width: int, height: int, n_pix: int, samples: int):
-    """What each K5 round of ``_sticky_fused`` reads: ``(ins, state, args)``
-    with ``ins`` = (scene, camera row, px, py, kmax) of lane ``l`` = pixel
-    ``pix_base + l``, ``state`` the initial (18, n_pix) state and ``args``
-    the launch arguments after the state."""
+    """What each K5 round reads: ``(ins, state, args)`` with ``ins`` =
+    (scene, camera row, px, py, kmax) of lane ``l`` = pixel ``pix_base +
+    l``, ``state`` the initial (18, n_pix) state and ``args`` the launch
+    arguments after the state."""
     dev = scene.geo.device
     pixg = pix_base + torch.arange(n_pix, dtype=torch.int64, device=dev)
     px = (pixg % width).to(torch.float32)
@@ -433,51 +559,55 @@ def _sticky_inputs(seed32: int, pix_base: int, samp_base: int, cam: CameraArrays
     return (scene, cam_row, px, py, kmax), _initial_state(N_PSTATE, n_pix, dev), args
 
 
-def _sticky_fused(seed32: int, pix_base: int, samp_base: int, cam: CameraArrays, scene,
-                  cfg: TraceConfig, width: int, height: int, n_pix: int, samples: int,
-                  plain: bool = False):
-    """Pixel-sticky engine, one K5 launch per round on ``n_pix`` lanes: lane
-    ``l`` owns pixel ``pix_base + l``.
-
-    The loop runs while a lane is alive or has paths left. The host reads
-    that count one round late (a pinned copy and an event per round), so
-    the card always has the next round queued; the round after the one that
-    emptied the frame is a no-op that is launched and counted. A lane's
+class FusedStickyLoop(_GuardedLoop):
+    """The pixel-sticky engine on the K5 route, one K5 launch per round on
+    ``n_pix`` lanes (lane ``l`` owns pixel ``pix_base + l``): the (18,
+    n_pix) state and K5's inputs with the seed and the offsets as a device
+    triple ``sb`` (seed, pix_base, samp_base), so that one graph serves
+    every frame. K5 ends each round with the round test on its own counts
+    (``ops/loop.py:k5_round_plain``), so a round is one launch. A lane's
     paths take at most ``ray_depth`` rounds each, so the frame ends within
-    ``samples * ray_depth`` rounds; a frame with work left after that many
-    rounds raises."""
-    ins, state, args = _sticky_inputs(seed32, pix_base, samp_base, cam, scene, cfg, width,
-                                      height, n_pix, samples)
-    dev = state.device
-    max_rounds = samples * max(cfg.ray_depth, 1)
-    counts = torch.zeros((max_rounds, 2), dtype=torch.int32, device=dev)
-    host = torch.zeros((max_rounds, 2), dtype=torch.int32, pin_memory=dev.type == "cuda")
-    done = []  # one event per round on CUDA: its counts have reached ``host``
-    rounds = 0
-    while rounds < max_rounds:
-        if plain:
-            state, live, more = persistent_plain(*ins, state, *args)
-            counts[rounds] += torch.stack([live, more]).to(torch.int32)
-        else:
-            persistent_round(*ins, state, counts[rounds], *args, out=state)
-        host[rounds].copy_(counts[rounds], non_blocking=True)
-        if dev.type == "cuda":
-            done.append(torch.cuda.Event())
-            done[-1].record()
-        rounds += 1
-        if rounds >= 2:
-            if done:
-                done[rounds - 2].synchronize()
-            if int(host[rounds - 2, 1]) == 0:
-                break
-    if done:
-        done[-1].synchronize()
-    if rounds == max_rounds and int(host[rounds - 1, 1]) != 0:
-        raise RuntimeError(f"sticky frame has work left after samples x ray_depth = {rounds} "
-                           "rounds")
-    nverts = float(host[:rounds, 0].sum())
+    ``samples * ray_depth`` rounds (``cap``)."""
 
-    # final flush: paths that ended in the last round still hold their radiance
-    started = state[S_K] > 0.5
-    acc = torch.where(started, state[S_ACC:S_ACC + 3] + state[9:12], state[S_ACC:S_ACC + 3])
-    return acc * (1.0 / samples), nverts, rounds
+    def __init__(self, cfg: TraceConfig, scene, cam: CameraArrays, width: int, height: int,
+                 n_pix: int, samples: int, plain: bool = False):
+        self.ins, self.state, args = _sticky_inputs(0, 0, 0, cam, scene, cfg, width, height,
+                                                    n_pix, samples)
+        dev = self.state.device
+        super().__init__(dev)
+        self.plain = plain
+        self.sb = torch.zeros((3,), dtype=torch.int64, device=dev)
+        self.args = (self.sb[0], args[1], self.sb[1], self.sb[2], *args[4:])
+        self.k5_args = (self.sb, args[1], *args[4:])
+        self.width, self.height, self.n_pix, self.samples = width, height, n_pix, samples
+        self.cap = samples * max(cfg.ray_depth, 1)
+
+    def reset(self, seed32: int, pix_base: int, samp_base: int) -> None:
+        for i, v in enumerate((seed32, pix_base, samp_base)):
+            self.sb[i].fill_(v)
+        _, px, py, _ = self.ins[1:]
+        pixg = pix_base + torch.arange(self.n_pix, dtype=torch.int64, device=px.device)
+        px.copy_(pixg % self.width)
+        py.copy_(torch.clamp(pixg // self.width, max=self.height - 1))
+        self.state.copy_(_initial_state(N_PSTATE, self.n_pix, self.state.device))
+        self.ls.reset()
+        more = int(self.n_pix * self.samples > 0)  # the loop test before the first round
+        for i in (L.MORE, L.ROUNDS):
+            self.ls.loop[i].fill_(more)
+        self.ls.more.fill_(bool(more))
+
+    def round(self) -> None:
+        if self.plain:
+            state, live, more = persistent_plain(*self.ins, self.state, *self.args)
+            self.state.copy_(state)
+            k5_round_plain(self.ls, live, more)
+        else:
+            persistent_round(*self.ins, self.state, self.ls, *self.k5_args, out=self.state)
+
+    def finish(self) -> torch.Tensor:
+        """Final flush: paths that ended in the last round still hold their
+        radiance; then the mean."""
+        st = self.state
+        started = st[S_K] > 0.5
+        acc = torch.where(started, st[S_ACC:S_ACC + 3] + st[9:12], st[S_ACC:S_ACC + 3])
+        return acc * (1.0 / self.samples)

@@ -45,8 +45,8 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
-SOURCES = ("bounce.cu", "bvh_traverse.cu", "camera.cu", "dense_nearest.cu", "persistent.cu",
-           "refill.cu", "sampler.cu", "shade.cu")
+SOURCES = ("bounce.cu", "bvh_traverse.cu", "camera.cu", "dense_nearest.cu", "loop.cu",
+           "persistent.cu", "refill.cu", "sampler.cu", "shade.cu")
 # --fmad=false: no FMA contraction, so the kernels round op by op like the
 # plain versions (PyTorch runs one op per kernel). With contraction, grazing
 # hits and accept decisions flipped on ~0.1 % of the MIXED scene's lanes per
@@ -65,12 +65,14 @@ BUILD_INFO: dict = {}  # path, seconds (0.0 when cached), log of the last build
 # K1-final, the modular path's K4 and K3 (batch and lane mode), the sticky
 # engine's K5, the BVH backend's K6, the modular bounce's shade (N1a) and
 # finish (N1b), the lane engines' refill (N2a) and restart (N2b), the modular
-# route's camera stage (N4)
+# route's camera stage (N4), the lane loops' round test (N5)
 LAUNCHES = {"primary": 0, "bounce": 0, "final": 0, "nearest": 0, "sampler": 0,
             "persistent": 0, "bvh": 0, "shade": 0, "finish": 0, "refill": 0, "restart": 0,
-            "camera": 0}
+            "camera": 0, "loop": 0}
 _LOCK = threading.Lock()  # guards LAUNCHES and _TICKETS: shards launch from threads
-_RECORD = threading.local()  # .counts: the calling thread's capture recorder, if any
+# .counts: the calling thread's capture recorder, if any; .tickets: the stream
+# whose tile tickets every launch of the thread's capture takes
+_RECORD = threading.local()
 
 
 def reset_launches() -> None:
@@ -202,7 +204,7 @@ def library() -> ctypes.CDLL:
         ]
         lib.rt_launch_sampler.restype = i
         lib.rt_launch_persistent.argtypes = [
-            p, p, ll, p, p, p, p, i, i, u, u, u, u, *ctr, u, i, *scene, p, p, p,
+            p, p, ll, p, p, p, p, i, i, p, u, *ctr, u, i, *scene, p, p, p, p, p,
         ]
         lib.rt_launch_persistent.restype = i
         lib.rt_launch_shade.argtypes = [p, ll, p, p, p, i, p, p, i, i, i, p, i, f, f, f, i, p, p, p,
@@ -217,6 +219,14 @@ def library() -> ctypes.CDLL:
         lib.rt_launch_restart.restype = i
         lib.rt_launch_camera.argtypes = [p, p, p, p, p, i, i, p, ll, p]
         lib.rt_launch_camera.restype = i
+        lib.rt_launch_round_test.argtypes = [i, p, p, p, ll, p, ll, ll, p, p, p, p]
+        lib.rt_launch_round_test.restype = i
+        lib.rt_if_begin.argtypes = [p, p, p]
+        lib.rt_if_begin.restype = i
+        lib.rt_if_end.argtypes = [p]
+        lib.rt_if_end.restype = i
+        lib.rt_stream_create.argtypes = []
+        lib.rt_stream_create.restype = p
         lib.rt_bounce_geometry.argtypes = [ctypes.POINTER(ctypes.c_int)]
         lib.rt_bounce_geometry.restype = None
         lib.rt_persistent_resident_blocks.argtypes = []
@@ -233,13 +243,13 @@ def library() -> ctypes.CDLL:
     return _LIB
 
 
-def _raise_on(rc: int, name: str, tickets: torch.Tensor | None = None) -> None:
+def _raise_on(rc: int, name: str, *tickets: torch.Tensor) -> None:
     """Raises on a launcher's CUDA error. A launch that took ``tickets`` and
     did not run to its end may have left them counted up: they are zeroed,
     so that the next launch on that stream does not skip tiles."""
     if rc != 0:
-        if tickets is not None:
-            tickets.zero_()
+        for t in tickets:
+            t.zero_()
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
 
 
@@ -272,7 +282,7 @@ def _tickets(device, stream: int) -> torch.Tensor:
     (``prepare_stream``): made inside the capture, it would live in the
     graph's pool and be zeroed only by the capture."""
     device = torch.device(device)
-    key = (device, stream)
+    key = (device, getattr(_RECORD, "tickets", None) or stream)
     with _LOCK:
         if key not in _TICKETS:
             if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
@@ -286,6 +296,20 @@ def prepare_stream(device, stream: torch.cuda.Stream) -> None:
     """Makes ``stream``'s tile tickets on ``device`` before a graph is
     captured on it."""
     _tickets(device, stream.cuda_stream)
+
+
+@contextlib.contextmanager
+def capture_tickets(stream: torch.cuda.Stream):
+    """While active, every launch of this thread takes ``stream``'s tile
+    tickets, whatever stream it launches on: the bodies of a graph's IF
+    nodes are captured on streams of their own, but every node of a graph
+    runs one after the other, so one pair serves them all."""
+    prev = getattr(_RECORD, "tickets", None)
+    _RECORD.tickets = stream.cuda_stream
+    try:
+        yield
+    finally:
+        _RECORD.tickets = prev
 
 
 @contextlib.contextmanager
@@ -356,20 +380,23 @@ def launch_primary(scene, cam_row, px, py, out, wid, seed_off, ctr, bg,
     _count("primary")
 
 
-def launch_persistent(scene, state, out, px, py, kmax, cam_row, width, height, seed,
-                      frame_pix, pix_base, samp_base, ctr, ctr_stride, ray_depth, bg,
-                      max_tries, counts) -> None:
+def launch_persistent(scene, state, out, px, py, kmax, cam_row, width, height, sb,
+                      frame_pix, ctr, ctr_stride, ray_depth, bg, max_tries, loop, preds,
+                      scratch) -> None:
+    """K5; ``sb`` the (3,) int64 device tensor (seed, pix_base, samp_base);
+    ``loop``, ``preds``, ``scratch`` a ``ops/loop.py:LoopState``'s, which
+    the kernel's last block updates with the round's counts."""
     lib = library()
     with _on(state.device) as stream:
         tickets = _tickets(state.device, stream)
         rc = lib.rt_launch_persistent(
             state.data_ptr(), out.data_ptr(), state.shape[1], px.data_ptr(), py.data_ptr(),
-            kmax.data_ptr(), cam_row.data_ptr(), int(width), int(height), _u32(seed),
-            _u32(frame_pix), _u32(pix_base), _u32(samp_base), *_ctr(ctr), _u32(ctr_stride),
-            int(ray_depth), *_scene(scene, bg, max_tries), counts.data_ptr(),
-            tickets.data_ptr(), stream,
+            kmax.data_ptr(), cam_row.data_ptr(), int(width), int(height), sb.data_ptr(),
+            _u32(frame_pix), *_ctr(ctr), _u32(ctr_stride), int(ray_depth),
+            *_scene(scene, bg, max_tries), loop.data_ptr(), preds.data_ptr(),
+            scratch.data_ptr(), tickets.data_ptr(), stream,
         )
-        _raise_on(rc, "rt_launch_persistent", tickets)
+        _raise_on(rc, "rt_launch_persistent", tickets, scratch)
     _count("persistent")
 
 
@@ -500,3 +527,43 @@ def launch_camera(px, py, wid, seed_off, cam_row, width, height, out) -> None:
         )
     _raise_on(rc, "rt_launch_camera")
     _count("camera")
+
+
+def launch_round_test(mode, alive, k, kmax, b, counter, total, thresh, loop, preds,
+                      scratch) -> None:
+    """N5; the tensors a mode does not read are None."""
+    lib = library()
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    with _on(loop.device) as stream:
+        rc = lib.rt_launch_round_test(
+            int(mode), ptr(alive), ptr(k), ptr(kmax), int(b), ptr(counter), int(total),
+            int(thresh), loop.data_ptr(), preds.data_ptr(), scratch.data_ptr(), stream,
+        )
+        _raise_on(rc, "rt_launch_round_test", scratch)
+    _count("loop")
+
+
+def if_begin(parent: torch.cuda.Stream, pred: torch.Tensor, child: torch.cuda.Stream) -> None:
+    """Opens an IF node on ``parent`` (under capture) on the 0-dim bool
+    ``pred``; ``child`` captures its body until ``if_end``."""
+    rc = library().rt_if_begin(parent.cuda_stream, pred.data_ptr(), child.cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"rt_if_begin failed: CUDA error {rc}")
+
+
+def if_end(child: torch.cuda.Stream) -> None:
+    rc = library().rt_if_end(child.cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"rt_if_end failed: CUDA error {rc}")
+
+
+def new_stream(device: torch.device) -> torch.cuda.ExternalStream:
+    """A CUDA stream of its own on ``device`` (not one of PyTorch's pool)."""
+    with torch.cuda.device(device):
+        ptr = library().rt_stream_create()
+    if not ptr:
+        raise RuntimeError("rt_stream_create failed")
+    return torch.cuda.ExternalStream(ptr, device=device)

@@ -19,7 +19,10 @@ round, per lane:
 State: one (18, B) float32 tensor, rows ro3, rd3, thr3, rad3, alive, k,
 depth, acc3 (the JAX order; rows 0-12 are K1's state). Each round also
 counts the lanes alive after the restart (path vertices) and the lanes
-still alive or with paths left (the loop runs while that is > 0).
+still alive or with paths left (the loop runs while that is > 0), and ends
+with the loop's round test on those counts (``ops/loop.py:k5_round_plain``,
+into a ``LoopState``). The seed and the offsets are read on the device
+(``ids``), so that a captured graph of the round serves every frame.
 
 ``persistent_round`` runs the plain version only for tensors on the CPU. On
 a CUDA tensor it launches ``csrc/persistent.cu`` or raises, and counts the
@@ -33,6 +36,7 @@ import torch
 from .bounce import BounceScene, _bounce_math, check_scene
 from .camera import camera_from_row, generate_rays_u
 from .kernels import check, launch_persistent
+from .loop import LoopState, check_state, k5_round_plain
 from .rng import CTR_JITTER, WF_STRIDE, lane_ctr, uniform_ctr, work_key
 from .vec import Vec3, where3
 
@@ -81,22 +85,31 @@ def persistent_plain(scene: BounceScene, cam_row: torch.Tensor, px: torch.Tensor
     return out, alive.sum(), (cont | (k < kmax)).sum()
 
 
+def ids(seed: int, pix_base: int, samp_base: int, dev) -> torch.Tensor:
+    """(seed, pix_base, samp_base) as the (3,) int64 tensor on ``dev`` that
+    ``persistent_round`` reads."""
+    return torch.tensor([seed, pix_base, samp_base], dtype=torch.int64, device=dev)
+
+
 def persistent_round(scene: BounceScene, cam_row: torch.Tensor, px: torch.Tensor,
-                     py: torch.Tensor, kmax: torch.Tensor, state: torch.Tensor,
-                     counts: torch.Tensor, seed: int, frame_pix: int, pix_base: int,
-                     samp_base: int, bg: tuple, max_tries: int, ray_depth: int,
-                     width: int, height: int, out: torch.Tensor | None = None) -> torch.Tensor:
-    """One round of the (18, B) state; adds the round's two counts (lanes
-    alive after the restart, lanes with work left) into ``counts``, a (2,)
-    int32 tensor the caller zeroes. Returns the new state.
+                     py: torch.Tensor, kmax: torch.Tensor, state: torch.Tensor, ls: LoopState,
+                     sb: torch.Tensor, frame_pix: int, bg: tuple, max_tries: int,
+                     ray_depth: int, width: int, height: int,
+                     out: torch.Tensor | None = None) -> torch.Tensor:
+    """One round of the (18, B) state, its two counts (lanes alive after the
+    restart, lanes with work left) written into ``ls`` as the round test
+    (``ops/loop.py:k5_round_plain``). ``sb`` is the (3,) int64 tensor
+    (seed, pix_base, samp_base, ``ids``) on the state's device. Returns
+    the new state.
 
     On CUDA, ``out`` may be ``state`` itself: one thread reads a lane and
     then writes it (the JAX kernel aliased its 18 inputs to its
     outputs)."""
-    args = (seed, frame_pix, pix_base, samp_base, bg, max_tries, ray_depth, width, height)
     if state.device.type == "cpu":
-        res, live, more = persistent_plain(scene, cam_row, px, py, kmax, state, *args)
-        counts += torch.stack([live, more]).to(counts.dtype)
+        res, live, more = persistent_plain(scene, cam_row, px, py, kmax, state, sb[0],
+                                           frame_pix, sb[1], sb[2], bg, max_tries, ray_depth,
+                                           width, height)
+        k5_round_plain(ls, live, more)
         if out is None:
             return res
         out.copy_(res)
@@ -109,12 +122,13 @@ def persistent_round(scene: BounceScene, cam_row: torch.Tensor, px: torch.Tensor
     for name, t in (("px", px), ("py", py), ("kmax", kmax)):
         check(name, t, torch.float32, (b,), dev)
     check("cam_row", cam_row, torch.float32, (128,), dev)
-    check("counts", counts, torch.int32, (2,), dev)
+    check("sb", sb, torch.int64, (3,), dev)
+    check_state(ls, dev)
     check_scene(scene, dev)
     if out is None:
         out = torch.empty_like(state)
     check("out", out, torch.float32, (N_PSTATE, b), dev)
-    launch_persistent(scene, state, out, px, py, kmax, cam_row, width, height, seed,
-                      frame_pix, pix_base, samp_base, lane_ctr(0, max_tries), WF_STRIDE,
-                      ray_depth, bg, max_tries, counts)
+    launch_persistent(scene, state, out, px, py, kmax, cam_row, width, height, sb, frame_pix,
+                      lane_ctr(0, max_tries), WF_STRIDE, ray_depth, bg, max_tries, ls.loop,
+                      ls.preds, ls.scratch)
     return out

@@ -13,11 +13,14 @@ to a ``GraphCache``:
   fused route; the modular bounce with K4 or K6 and K3 on the other),
   replayed once per sample of every batch, for every seed, sample offset,
   shard and checkpoint chunk;
-* the lane engines, on either route: the counter wavefront's refill and
-  bounce (``integrator/wavefront.py:RefillBody``, ``CoreBody``: K1 in lane
-  mode or the XLA core), each replayed when a round runs it, and the
-  sticky engine's whole round off the K5 route (``StickyBody``), replayed
-  once per round.
+* the lane engines, on either route: a lane frame's loop
+  (``integrator/wavefront.py``: ``WavefrontLoop``, ``StickyLoop``,
+  ``FusedStickyLoop``), ``ROUNDS_PER_REPLAY`` rounds a replay, each round
+  inside an IF node on the device round test's ``more`` and the counter
+  wavefront's refill inside a second one on ``refill_pred`` (``guard``):
+  the counterpart of the JAX ``lax.while_loop`` and ``lax.cond``. A round
+  the test has stopped costs its conditional check; the host reads the
+  loop's counters once per replay, one replay late.
 
 A body is a call without arguments over static tensors it owns: the caller
 writes the inputs in place (the seed and the sample or work-id offsets
@@ -29,15 +32,22 @@ blocks exist), then captures it on that stream into a private memory pool
 (``capture_error_mode="thread_local"``: shards render from threads). Every
 later call replays. The kernel launches counted while capturing are
 recorded per entry and added to ``ops/kernels.py:LAUNCHES`` at each replay,
-so a graphed frame counts what an eager one does. A failure to capture or
-to replay raises; nothing falls back to eager.
+so a graphed frame counts what an eager one does; the launches of a
+guarded body are recorded per run of the body and added by its caller
+times the runs that its device counters report (``settle``), so a skipped
+body counts nothing. A failure to capture or to replay raises; nothing
+falls back to eager, and nothing falls back to a host read per round.
 
-The sticky engine's K5 loop (one launch per round, its counts read one
-round late) and ``plain`` renders stay eager, and so does the CPU.
+The card's PyTorch (2.11) has no binding of IF nodes; ``_if_node`` adds
+them through ``csrc/loop.cu`` (``rt_if_begin``, ``rt_if_end``) as PyTorch's
+own ``CUDAGraph::begin_capture_to_if_node`` does in later releases. Without
+a capture (``eager=True``, ``plain`` and the CPU) a guard reads its
+predicate on the host.
 """
 
 from __future__ import annotations
 
+import contextlib
 import threading
 import time
 
@@ -48,6 +58,79 @@ from ..ops import kernels
 # captures one at a time in a process: torch.cuda.graph empties the
 # allocator's cache of every card on entry
 _CAPTURE_LOCK = threading.Lock()
+# the capture under way in this thread (``capture``): .pools (the allocator
+# pool of each depth of IF-node bodies), .depth (IF nodes open)
+_CAPTURE = threading.local()
+# per device, one stream per depth of IF-node bodies (kernels.new_stream)
+_CHILD_STREAMS: dict = {}
+
+
+def _child_stream(device: torch.device, depth: int):
+    """The stream of IF-node bodies at ``depth`` on ``device`` (called under
+    ``_CAPTURE_LOCK``)."""
+    streams = _CHILD_STREAMS.setdefault(device, [])
+    while len(streams) <= depth:
+        streams.append(kernels.new_stream(device))
+    return streams[depth]
+
+
+@contextlib.contextmanager
+def _if_node(pred: torch.Tensor):
+    """Captures the block into the body of an IF node on ``pred`` (a 0-dim
+    bool on the device): the node is added to the graph that the current
+    stream captures, and the block is captured on a stream of its own into
+    the node's body, its allocations routed to a private pool of the
+    capture (one per depth: the allocator closes the first routing of a pool
+    it finds). The card's PyTorch has no binding of IF nodes;
+    ``csrc/loop.cu:rt_if_begin`` takes the steps of PyTorch's own
+    ``CUDAGraph::begin_capture_to_if_node``."""
+    cap = _CAPTURE
+    dev = pred.device
+    depth = cap.depth
+    while len(cap.pools) <= depth:
+        cap.pools.append(torch.cuda.graph_pool_handle())
+    pool = cap.pools[depth]
+    child = _child_stream(dev, depth)
+    kernels.if_begin(torch.cuda.current_stream(dev), pred, child)
+    cap.depth += 1
+    try:
+        with torch.cuda.stream(child):
+            torch._C._cuda_beginAllocateCurrentStreamToPool(dev.index, pool)
+            try:
+                yield
+            finally:
+                torch._C._cuda_endAllocateToPool(dev.index, pool)
+    finally:
+        cap.depth -= 1
+        kernels.if_end(child)
+
+
+def guard(pred: torch.Tensor, fn, tag: str, sections: dict) -> None:
+    """Runs ``fn`` where ``pred``, a 0-dim bool on the device, is true: under
+    a capture as an IF node (``fn`` captured into its body, which a replay
+    runs only when it finds ``pred`` true), else after a host read of
+    ``pred`` (eager, ``plain`` and the CPU: the counterpart of
+    ``jax.disable_jit()``). ``fn``'s kernel launches are recorded into
+    ``sections[tag]`` (one run's) and not counted: a body's run is known to
+    the device, so the caller adds them times the runs its device counters
+    report (``settle``). Nested guards record their own."""
+    capturing = pred.device.type == "cuda" and torch.cuda.is_current_stream_capturing()
+    if not capturing and not bool(pred):
+        return
+    with kernels.recording() as rec:
+        if capturing:
+            with _if_node(pred):
+                fn()
+        else:
+            fn()
+    sections[tag] = dict(rec)
+
+
+def settle(sections: dict, runs: dict) -> None:
+    """Adds to ``ops/kernels.py:LAUNCHES`` the launches of each guarded
+    body (``sections``, from ``guard``) times its runs."""
+    kernels.add_launches({k: n * runs[tag] for tag, launches in sections.items()
+                          for k, n in launches.items()})
 
 
 def capture(body, device: torch.device):
@@ -68,7 +151,8 @@ def capture(body, device: torch.device):
         reserved = torch.cuda.memory_reserved(device)
         t0 = time.perf_counter()
         graph = torch.cuda.CUDAGraph()
-        with kernels.recording() as launches:
+        _CAPTURE.pools, _CAPTURE.depth = [], 0
+        with kernels.recording() as launches, kernels.capture_tickets(side):
             with torch.cuda.graph(graph, pool=torch.cuda.graph_pool_handle(), stream=side,
                                   capture_error_mode="thread_local"):
                 body()
@@ -106,10 +190,10 @@ class GraphCache:
     """The captured bodies of one device scene, one per key. The key holds
     what fixes a body's launches and buffers: the engine, the route, the
     lane count, the ``TraceConfig`` and the frame (size and camera; for the
-    sticky round and the counter refill also the pixels and samples of a
-    shard or pass). Values read on the device
-    (seed, sample offset, ``samp_base``, ``pix_base``, the lanes' work ids)
-    are not in it. ``capture_fn`` replaces ``capture`` (the tests stub it
+    lane loops also the pixels and samples of a shard or pass and the rounds
+    per replay, and the counter wavefront's refill threshold). Values read
+    on the device (seed, sample offset, ``samp_base``, ``pix_base``, the
+    lanes' work ids) are not in it. ``capture_fn`` replaces ``capture`` (the tests stub it
     on the CPU). A cache serves one thread at a time: ``parallel/shard.py``
     gives each device its own thread and its own scene."""
 

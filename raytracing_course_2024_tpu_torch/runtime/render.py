@@ -30,9 +30,11 @@ lane count or the mesh.
 On a card, the batch engine's samples and the lane engines' rounds replay
 captured CUDA graphs on either route (``runtime/graphs.py``), one cache
 per device scene, the counterpart of the JAX package's ``jax.jit`` of a
-frame; ``eager=True`` runs them op by op, as ``jax.disable_jit()`` does.
-The sticky engine's K5 loop (one launch per round), ``plain`` and the CPU
-run eagerly.
+frame: a lane frame replays graphs of several rounds, each guarded on the
+card by the round test N5, so its loop reads the host about once per
+``integrator/wavefront.py:ROUNDS_PER_REPLAY`` rounds, and its rounds and
+path vertices come from its device counters. ``eager=True`` runs them op
+by op, as ``jax.disable_jit()`` does; ``plain`` and the CPU run eagerly.
 
 ``render_scene`` shards over every card (``parallel/shard.py``) when it is
 asked for ``"cuda"`` and more than one card is present, and over every
@@ -177,9 +179,9 @@ class Renderer(_RendererBase):
     ``rounds`` holds its round count. On a card the batch engine's samples
     and the lane engines' rounds replay CUDA graphs captured on first use,
     on the fused and the modular route (``graphs``, a
-    ``runtime/graphs.py:GraphCache``; the sticky engine's K5 loop stays
-    eager); ``eager=True`` (or ``plain=True``) launches every op from
-    Python."""
+    ``runtime/graphs.py:GraphCache``; the lane loops in guarded rounds, the
+    sticky engine's K5 loop too); ``eager=True`` (or ``plain=True``)
+    launches every op from Python."""
 
     def __init__(
         self,

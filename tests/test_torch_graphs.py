@@ -271,8 +271,8 @@ def test_graphed_lane_engines_match_jax_and_eager(engine):
     r.graphs, stub = _cache(r.scene)
     got, verts = r.render_frame_device(seed=SEED)
     assert torch.equal(got[0], eager[0]) and verts == eager_verts and r.rounds == eager_rounds
-    entries = 2 if engine == "wavefront" else 1  # the counter refill is a body of its own
-    assert len(stub.bodies) == entries and len(r.graphs.entries) == entries
+    # one entry per engine: its guarded rounds, the counter refill inside them
+    assert len(stub.bodies) == 1 and len(r.graphs.entries) == 1
     jr = JRenderer(jd, backend="bvh", engine=engine, batch_size=lanes)
     jouts, jverts = jr.render_frame_device(seed=SEED)
     _agree(got[0].numpy(), np.asarray(jouts[0]), verts, float(jverts))
@@ -309,9 +309,9 @@ def test_cache_keys_batch_engine():
 
 
 def test_cache_keys_lane_engines():
-    """The counter wavefront keys its core by lanes and cfg, its refill and
-    the sticky round also by the frame and the shard's pixels and samples:
-    a second seed and a second ``samp_base`` or ``pix_base`` reuse them."""
+    """The counter wavefront's loop and the sticky loop are keyed by lanes,
+    cfg, the frame and the shard's pixels and samples: a second seed and a
+    second ``samp_base`` or ``pix_base`` reuse them."""
     d, scene, cfg = _dense_rr(w=8, h=6)[1:]
     cam = camera_arrays(d.settings.camera)
     w, h = d.settings.width, d.settings.height
@@ -321,10 +321,10 @@ def test_cache_keys_lane_engines():
             args = (seed, pix_base, samp_base, cam, scene, cfg, w, h, 24, 2, 32)
             got, want = render(*args, graphs=cache), render(*args)
             assert torch.equal(got[0], want[0]) and got[1:] == want[1:]
-    assert len(cache.entries) == 3 and len(stub.bodies) == 3  # core, refill, sticky round
+    assert len(cache.entries) == 2 and len(stub.bodies) == 2  # the two loops
     W.render_wavefront(SEED32, 0, 0, cam, scene, cfg, w, h, 24, 2, 16, graphs=cache)
     W.render_wavefront_sticky(SEED32, 0, 0, cam, scene, cfg, w, h, 24, 4, 32, graphs=cache)
-    assert len(cache.entries) == 6
+    assert len(cache.entries) == 4
 
 
 def test_cache_serves_its_own_scene_only():
@@ -418,7 +418,8 @@ def guard(monkeypatch):
     # the kernels' entry points: their plain twins read the host (K4's plain
     # version reads its triangle table), which the kernels do not
     for mod, name in ((T, "dense_nearest"), (T, "bvh_nearest"),
-                      (P, "sample_mixture_kernel"), (B, "bounce"), (B, "primary_bounce")):
+                      (P, "sample_mixture_kernel"), (B, "bounce"), (B, "primary_bounce"),
+                      (W, "persistent_round")):
         orig = getattr(mod, name)
 
         def twin(*a, _orig=orig, **k):
@@ -471,13 +472,25 @@ def _guarded_body(d, scene, cfg, body_name):
         body.seed.fill_(SEED32)
         out = body.state
     elif body_name == "wavefront-refill":
-        core, run_core, body, _ = W.wavefront_bodies(cfg, scene, cam, w, h, w * h - 5, 2,
-                                                     w * h // 2)
+        loop, _ = W.wavefront_loop(cfg, scene, cam, w, h, w * h - 5, 2, w * h // 2)
+        core, body = loop.core, loop.refill
         body.reset(SEED32, 5, 3)
         body()  # the first refill: every lane takes work
         for _ in range(3):
-            run_core()
+            core()
         out = core.state
+    elif body_name in ("wavefront-round", "sticky-loop-round", "k5-loop-round"):
+        # one guarded round as a capture records it: the guards' bodies run
+        # (``_capture_guards``), the round test last (N5's twin)
+        if body_name == "wavefront-round":
+            body, _ = W.wavefront_loop(cfg, scene, cam, w, h, w * h - 5, 2, w * h // 2)
+        elif body_name == "sticky-loop-round":
+            body = W.StickyLoop(cfg, scene, cam, w, h, w * h, 2, w * h // 2)
+        else:
+            body = W.FusedStickyLoop(cfg, scene, cam, w, h, w * h, 2)
+        body.reset(SEED32, 0, 3)
+        body.round()
+        return body.round, body.ls.loop
     else:
         body = W.StickyBody(cfg, scene, cam, w, h, w * h, 2, w * h // 2)
         body.reset(SEED32, 0, 3)
@@ -486,12 +499,23 @@ def _guarded_body(d, scene, cfg, body_name):
     return body, out
 
 
-BODIES = ["sample", "wavefront-core", "wavefront-refill", "sticky-round"]
+BODIES = ["sample", "wavefront-core", "wavefront-refill", "sticky-round", "wavefront-round",
+          "sticky-loop-round"]
+
+
+@pytest.fixture
+def _capture_guards(monkeypatch):
+    """``runtime/graphs.py:guard`` as a capture takes it: the guarded body
+    runs as an IF node's body is recorded, with no read of its predicate."""
+    monkeypatch.setattr(W, "guard", lambda pred, fn, tag, sections: fn())
 
 
 @pytest.mark.parametrize("scene_name", list(SCENES))
 @pytest.mark.parametrize("body_name", BODIES)
-def test_bodies_read_nothing_from_the_host(guard, scene_name, body_name):
+def test_bodies_read_nothing_from_the_host(guard, _capture_guards, scene_name, body_name):
+    """Each body, and one guarded round of each lane loop (the counter
+    wavefront's refill, bounce and round test, N5's twin; the sticky
+    round and its test), runs under the host-read guard."""
     d, scene, cfg = SCENES[scene_name]()
     body, out = _guarded_body(d, scene, cfg, body_name)
     before = out.clone()
@@ -501,11 +525,14 @@ def test_bodies_read_nothing_from_the_host(guard, scene_name, body_name):
 
 
 @pytest.mark.parametrize("variant", ["default", "mega-cam-off", "depth-1"])
-@pytest.mark.parametrize("body_name", BODIES)
-def test_fused_bodies_read_nothing_from_the_host(guard, body_name, variant, monkeypatch):
+@pytest.mark.parametrize("body_name", BODIES + ["k5-loop-round"])
+def test_fused_bodies_read_nothing_from_the_host(guard, _capture_guards, body_name, variant,
+                                                 monkeypatch):
     """The same on the fused route (a ``BounceScene``: K2, K1, K1-final and
     K1 in lane mode, swapped for their plain twins outside the guard):
-    under ``RT_MEGA_CAM=0`` and at ``ray_depth`` 1 too."""
+    under ``RT_MEGA_CAM=0`` and at ``ray_depth`` 1 too; and one guarded
+    round of the K5 loop (K5's plain twin outside the guard, then N5's
+    twin in its ``K5`` mode)."""
     monkeypatch.setenv("RT_MEGA_CAM", "0" if variant == "mega-cam-off" else "1")
     (_, _, _), (d, ta, ts) = builds("mixed", 16, 12, 2)
     if variant == "depth-1":
@@ -552,7 +579,7 @@ def test_graphed_frames_equal_eager_on_the_card(card, engine, backend):
             outs, verts = r.render_frame_device(seed=seed)
             res.append((torch.cat(outs, 1).cpu(), verts, r.rounds, dict(kernels.LAUNCHES)))
         assert torch.equal(res[0][0], res[1][0]) and res[0][1:] == res[1][1:]
-    assert len(graphed.graphs.entries) == (2 if engine == "wavefront" else 1)
+    assert len(graphed.graphs.entries) == 1  # a lane loop's entry holds its refill
 
 
 def test_renderer_takes_no_cache_on_the_cpu():

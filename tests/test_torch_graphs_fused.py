@@ -14,8 +14,8 @@ wavefront's refill body (``runtime/graphs.py``), on the CPU.
   launches (the fused wrappers count on the CPU here), for two seeds and a
   second ``samp_base``, with one capture per entry. Cases: the fused batch
   route (K2; ``RT_MEGA_CAM=0``; ``ray_depth`` 1), the counter wavefront with
-  its refill graphed on the fused and the modular route, the sticky engine
-  on fewer lanes than pixels on the fused route. The first frame of each
+  its refill inside its guarded rounds on the fused and the modular route, the sticky engine
+  on fewer lanes than pixels and on its K5 route. The first frame of each
   matches the JAX package at test_torch_graphs.py's tolerance (>= 99 % of
   the pixels within 1e-4, path vertices within 1 %): the batch route
   against the JAX stages fed the same counter draws, the lane engines
@@ -95,18 +95,19 @@ def test_k1_k2_with_a_device_pair_equal_ints(seed, off, mode, fn):
 
 @pytest.fixture
 def counted(monkeypatch):
-    """The fused wrappers count their calls on the CPU as their launches on
-    the card, and ``LAUNCHES`` starts from 0."""
+    """The fused wrappers (K2, K1, K5) count their calls on the CPU as their
+    launches on the card, and ``LAUNCHES`` starts from 0."""
     monkeypatch.setattr(kernels, "LAUNCHES", dict.fromkeys(kernels.LAUNCHES, 0))
-    for name, kind in (("primary_bounce", lambda kw: "primary"),
-                       ("bounce", lambda kw: "final" if kw.get("final_only") else "bounce")):
-        orig = getattr(B, name)
+    for mod, name, kind in ((B, "primary_bounce", lambda kw: "primary"),
+                            (B, "bounce", lambda kw: "final" if kw.get("final_only") else "bounce"),
+                            (W, "persistent_round", lambda kw: "persistent")):
+        orig = getattr(mod, name)
 
         def counting(*a, _orig=orig, _kind=kind, **kw):
             kernels._count(_kind(kw))
             return _orig(*a, **kw)
 
-        monkeypatch.setattr(B, name, counting)
+        monkeypatch.setattr(mod, name, counting)
 
 
 class RecordingStub:
@@ -164,10 +165,11 @@ CASES = {
     "batch-fused": ({}, "1", None, 1),
     "batch-fused-mega-cam-off": ({}, "0", None, 1),
     "batch-fused-depth-1": ({}, "1", 1, 1),
-    "wavefront-fused": (dict(engine="wavefront", batch_size=64), "1", None, 2),
+    "wavefront-fused": (dict(engine="wavefront", batch_size=64), "1", None, 1),
     "wavefront-modular": (dict(engine="wavefront", batch_size=64, russian_roulette=True), "1",
-                          None, 2),
+                          None, 1),
     "sticky-fused-lanes-below-pixels": (dict(engine="sticky", batch_size=100), "1", None, 1),
+    "sticky-fused-k5": (dict(engine="sticky"), "1", None, 1),
 }
 
 
@@ -212,9 +214,9 @@ def test_graphed_frames_match_jax_and_eager(case, counted, monkeypatch):
 def test_cache_keys_fused_routes(counted, monkeypatch):
     """A second seed, ``samp_base`` and ``pix_base`` (a shard) reuse the
     entries of a frame; ``RT_MEGA_CAM`` adds one to the batch route, the
-    pass's samples a refill (the core is shared) and a sticky round."""
+    pass's samples a counter-wavefront loop and a sticky loop."""
     _, td = descs("mixed", W_, H_, SPP)
-    for kw, n_first, n_new in (({}, 1, 2), (dict(engine="wavefront", batch_size=64), 2, 3),
+    for kw, n_first, n_new in (({}, 1, 2), (dict(engine="wavefront", batch_size=64), 1, 2),
                                (dict(engine="sticky", batch_size=100), 1, 2)):
         r = Renderer(td, device="cpu", **kw)
         stub = RecordingStub()
@@ -232,22 +234,8 @@ def test_cache_keys_fused_routes(counted, monkeypatch):
         monkeypatch.delenv("RT_MEGA_CAM", raising=False)
         r.settings.samples = SPP
         assert len(cache.entries) == len(stub.bodies) == n_new, kw
-        if r.engine == "wavefront":
-            assert sum(k[0] == "wavefront" for k in cache.entries) == 1
-
-
-def test_wavefront_refill_serves_its_own_core():
-    """A refill body writes into the core body it was made with; a cache
-    whose core entry was replaced refuses to pair them."""
-    _, td = descs("mixed", W_, H_, SPP)
-    r = Renderer(td, device="cpu", engine="wavefront", batch_size=64)
-    cache = GraphCache(r.scene, "cpu", capture_fn=RecordingStub())
-    args = (r.cfg, r.scene, r.cam, W_, H_, W_ * H_, SPP, 64)
-    core, _, refill, _ = W.wavefront_bodies(*args, graphs=cache)
-    assert refill.core is core
-    cache.entries.pop(("wavefront", 64, r.cfg))
-    with pytest.raises(RuntimeError, match="core body it was made with"):
-        W.wavefront_bodies(*args, graphs=cache)
+        if r.engine == "wavefront":  # one loop for each pass's samples
+            assert sum(k[0] == "wavefront" for k in cache.entries) == 2
 
 
 def test_refill_body_equals_the_eager_refill():
@@ -257,8 +245,9 @@ def test_refill_body_equals_the_eager_refill():
     depths, and the counter moved by min(dead, work left)."""
     _, td = descs("mixed", W_, H_, SPP)
     r = Renderer(td, device="cpu", engine="wavefront", batch_size=64)
-    core, run_core, refill, run_refill = W.wavefront_bodies(
-        r.cfg, r.scene, r.cam, W_, H_, 100, SPP, 64)
+    loop, _ = W.wavefront_loop(r.cfg, r.scene, r.cam, W_, H_, 100, SPP, 64)
+    core, refill = loop.core, loop.refill
+    run_core, run_refill = core, refill
     refill.reset(_seed32(SEED), 37, 4)
     run_refill()
     for _ in range(3):
@@ -292,10 +281,10 @@ def test_refill_body_equals_the_eager_refill():
 def test_renderer_frames_use_the_cache_on_both_routes(counted):
     """A ``Renderer`` given a cache renders its fused frames through it
     (the batch route, the counter wavefront, the sticky engine below one
-    lane per pixel) and only the sticky engine's K5 route keeps none."""
+    lane per pixel, and its K5 route), one entry each."""
     _, td = descs("mixed", W_, H_, SPP)
-    for kw, entries in (({}, 1), (dict(engine="wavefront", batch_size=64), 2),
-                        (dict(engine="sticky", batch_size=100), 1), (dict(engine="sticky"), 0)):
+    for kw, entries in (({}, 1), (dict(engine="wavefront", batch_size=64), 1),
+                        (dict(engine="sticky", batch_size=100), 1), (dict(engine="sticky"), 1)):
         r = Renderer(td, device="cpu", **kw)
         eager = r.render_frame_device(seed=SEED)
         r.graphs = GraphCache(r.scene, "cpu", capture_fn=RecordingStub())

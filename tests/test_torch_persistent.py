@@ -29,7 +29,8 @@ from raytracing_course_2024_tpu_torch.ops import rng as trng
 from raytracing_course_2024_tpu_torch.ops.bounce import bounce_scene
 from raytracing_course_2024_tpu_torch.ops.camera import camera_arrays, pack_camera_row
 from raytracing_course_2024_tpu_torch.ops.mixture import mixture_body
-from raytracing_course_2024_tpu_torch.ops.persistent import persistent_plain, persistent_round
+from raytracing_course_2024_tpu_torch.ops.loop import LoopState
+from raytracing_course_2024_tpu_torch.ops.persistent import ids, persistent_plain, persistent_round
 from test_torch_bounce import _assert_states_agree
 from test_torch_sampling import GGX_TOL, PDF_FRAC, _mixture_case, close, jv, tv
 from torch_parity import builds, to_jnp
@@ -141,14 +142,18 @@ def test_persistent_round_cpu_wrapper_runs_plain_and_counts_nothing():
             c["h"])
     want, live, more = persistent_plain(*_port_args(c), *args)
     kernels.reset_launches()
-    counts = torch.zeros((2,), dtype=torch.int32)
+    ls = LoopState("cpu")
     scene, cam, px, py, kmax, state = _port_args(c)
-    persistent_round(scene, cam, px, py, kmax, state, counts, *args, out=state)
+    k5 = (ids(SEED32, PIX_BASE, SAMP_BASE, "cpu"), *args[1:2], *args[4:])
+    persistent_round(scene, cam, px, py, kmax, state, ls, *k5, out=state)
     assert torch.equal(state, want)
-    assert counts.tolist() == [int(live), int(more)]
+    # the round's counts end the round as its loop test: lanes with work
+    # left, another round, the lanes alive after the restart as path vertices
+    assert ls.loop.tolist() == [int(more), 1, 0, int(live), 1, 0]
+    assert ls.preds.tolist() == [True, False]
     assert not any(kernels.LAUNCHES.values())
     with pytest.raises(ValueError):
-        persistent_round(scene, cam, px, py, kmax, state.to("meta"), counts, *args)
+        persistent_round(scene, cam, px, py, kmax, state.to("meta"), ls, *k5)
 
 
 @pytest.mark.parametrize("name", ["mixed", "cornell"])

@@ -257,8 +257,8 @@ def _launches(dev):
         ("primary", "primary", lambda: kernels.launch_primary(
             scene, t(128), t(), t(), t(13, 64), t(), t(2), ctr, bg, 4, 16, 12)),
         ("persistent", "persistent", lambda: kernels.launch_persistent(
-            scene, t(18, 64), t(18, 64), t(), t(), t(), t(128), 16, 12, 1, 192, 0, 0, ctr, 7,
-            4, bg, 4, t(2))),
+            scene, t(18, 64), t(18, 64), t(), t(), t(), t(128), 16, 12, t(3), 192, ctr, 7,
+            4, bg, 4, t(6), t(2), t(3))),
         ("nearest", "nearest", lambda: kernels.launch_dense_nearest(
             rays, t(8, 16), 0.0, t(), t(), t())),
         ("bvh", "bvh", lambda: kernels.launch_bvh_nearest(
@@ -278,6 +278,10 @@ def _launches(dev):
             (t(13, 64), t(64, 8)), t())),
         ("camera", "camera", lambda: kernels.launch_camera(
             t(), t(), t(), t(2), t(128), 16, 12, t(13, 64))),
+        ("loop", "loop", lambda: kernels.launch_round_test(
+            0, t(), None, None, 64, t(()), 256, 8, t(6), t(2), t(3))),
+        ("loop-sticky", "loop", lambda: kernels.launch_round_test(
+            1, t(), t(), t(), 64, None, 0, 1, t(6), t(2), t(3))),
         ("finish", "finish", lambda: kernels.launch_finish(
             t(13, 64), (t(13, 64), t(64, 8)), [t() for _ in range(4)], t(), t(), t(2), 2, 64, 63,
             62, t(),

@@ -39,7 +39,7 @@ def no_work(monkeypatch):
         raise AssertionError("work started")
 
     for mod, name in ((P, "render_pixels"), (W, "_make_bounce_core"),
-                      (W, "wavefront_bodies"), (W, "_sticky_fused")):
+                      (W, "wavefront_loop"), (W, "FusedStickyLoop"), (W, "StickyLoop")):
         monkeypatch.setattr(mod, name, started)
 
 
