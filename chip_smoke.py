@@ -8,8 +8,9 @@ Every phase runs the Renderer as a user gets it: on the card the batch
 engine's samples and the lane engines' rounds, the K5 loop's too, replay
 captured CUDA graphs on both routes (``runtime/graphs.py``; a lane loop's
 graph holds ``ROUNDS_PER_REPLAY`` rounds, each in an IF node on the device
-round test N5). A batch sample's replay adds the launches recorded at
-capture; a lane loop adds its rounds' and refills' launches times the
+round test N5, which also ends the round: the depth step, and after K1
+the final-depth cap and park). A batch sample's replay adds the launches
+recorded at capture; a lane loop adds its rounds' and refills' launches times the
 rounds and refills its device counters report; so every launch count below
 holds graphed. K1 and K2 read the seed and the work-id offset
 from a device pair, as the graphed routes hand it to them, in every phase.
@@ -83,12 +84,16 @@ exits non-zero):
                921,523 and 921,600 lanes, bit for bit on every lane and row,
                launched eagerly and replayed from a captured CUDA graph
                after the seed pair changed on the device;
-               N5 (the lane loops' round test) on 997, 262,144, 921,523 and
-               1,048,576 lanes in the counter wavefront's and the sticky
-               engine's modes, exactly equal to its plain version eagerly
-               and replayed from a graph with the launch in an IF node whose
-               predicate goes true, false, true (K5 ends its own rounds
-               with the test: its [kernels] lines hold that test too);
+               N5 (the lane round's tail and test) on 997, 262,144,
+               921,523 and 1,048,576 lanes in the counter wavefront's and
+               the sticky engine's modes, the test alone and each tail
+               (none, the depth step, the fused core's cap, park and depth
+               step) on states with parked rays and depths among their
+               lanes, exactly equal to its plain version (counters,
+               predicates, alive, depth and ray rows) eagerly and replayed
+               from a graph with the launch in an IF node whose predicate
+               goes true, false, true (K5 ends its own rounds with the
+               test: its [kernels] lines hold that test too);
 4. main     -- the port's CLI renders scenes/cornell_box.gltf at 1280x720,
                16 spp four times: by default (the fused path: K2, K1,
                K1-final), with RT_RR=1 (the modular path: N4 once per
@@ -148,7 +153,11 @@ exits non-zero):
                bounce-1 rays, the walk model of K6's 4-wide tree equal to
                K6 on 4,096 of them, and K6's bound from the binary walk
                model's node and primitive counts over those rays (the
-               yardstick of the binary walk), and the sweep once;
+               yardstick of the binary walk), and the sweep once; N5
+               alone on 1,048,576 and 262,144 lanes in both modes, and its
+               fused tail on the Cornell counter wavefront's and 262,144-
+               lane sticky frame's round-10 states beside the ATen steps it
+               replaced (``[timing] kernel=loop-tail``);
 7. runtime  -- checkpointed resume: the Cornell frame (fused batch path, 64
                spp; sticky, 32 spp; on a (2, 2) mesh of the card repeated,
                32 spp) and the BVH frame (its default engine, the counter
@@ -193,7 +202,10 @@ exits non-zero):
                the shade and finish work in N1a and N1b); no frame
                calls the plain sampler, refill or restart either, and one
                round of the BVH counter wavefront (refill, bounce, N5) and
-               of the BVH sticky engine dispatches at most ROUND_OPS_MAX.
+               of the BVH sticky engine dispatches at most ROUND_OPS_MAX;
+               one round of the Cornell counter wavefront and of the
+               262,144-lane sticky frame (K1 in lane mode) none at all
+               beside their kernels.
                It runs after the timing phase, before loop;
 10. loop    -- the five lane frames (BVH counter wavefront and sticky;
                Cornell counter wavefront, sticky on 262,144 lanes and K5),
@@ -213,7 +225,8 @@ exits non-zero):
 
 The last lines are the card's name and power limit, the per-kernel JSON
 record (K1-K6, N1a/N1b, N2a/N2b, N4 and N5: thirteen rows; K3's has its
-lane mode beside it, N5's its sticky mode) and ``{"ok": true, "device":
+lane mode beside it, N5's its sticky mode, 262,144 lanes and its fused
+tail) and ``{"ok": true, "device":
 {...}}``.
 """
 
@@ -386,7 +399,8 @@ KERNELS = {  # name -> (replaced TPU kernel body file:line, CUDA source)
     # N4 neither: XLA fuses the camera stage (generate_rays) into the JAX
     # package's jitted sample scan
     "camera": ("raytracing_course_2024_tpu/ops/camera.py:48", f"{CSRC}/camera.cu"),
-    # N5 neither: XLA fuses the lane loops' test (the while_loop's cond, the
+    # N5 neither: XLA fuses the lane round's tail (the fused core's cap and
+    # park, the depth step) and the loop's test (the while_loop's cond, the
     # path-vertex sum, the refill's lax.cond predicate) into the loop
     "loop": ("raytracing_course_2024_tpu/integrator/wavefront.py:300", f"{CSRC}/loop.cu"),
 }
@@ -410,7 +424,7 @@ GRAPHED = {
     "restart": "the sticky engine's round off the K5 route, both routes",
     "camera": "the batch engine's modular route",
     "loop": "the guarded rounds of the counter wavefront and of the sticky engine off the "
-            "K5 route: the round test that the next round's IF nodes read",
+            "K5 route: the round's tail and the test that the next round's IF nodes read",
 }
 SEED = 20240917
 K = 4  # max_tries
@@ -707,6 +721,7 @@ def lane_mode_chain(dev, gen, name: str, desc, w: int, h: int, spp: int, lanes: 
     from raytracing_course_2024_tpu_torch.ops import refill as RF
     from raytracing_course_2024_tpu_torch.ops.camera import camera_arrays
     from raytracing_course_2024_tpu_torch.ops.rng import work_key
+    from raytracing_course_2024_tpu_torch.ops.shade import park
     from raytracing_course_2024_tpu_torch.scene import build_scene_arrays
 
     arrays, statics = build_scene_arrays(desc)
@@ -726,7 +741,7 @@ def lane_mode_chain(dev, gen, name: str, desc, w: int, h: int, spp: int, lanes: 
         torch.cuda.synchronize()
         res = compare_states(k, p, f"{name}-{lanes}-lanes:bounce-lane-mode-round{r}")
         err = max(err, res["max_abs_err"])
-        st = W.park(p, (p[12] > 0.5) & (depth < depth_n - 1))
+        st = park(p, (p[12] > 0.5) & (depth < depth_n - 1))
         depth = depth + 1
     return err
 
@@ -1464,6 +1479,11 @@ def camera_times(dev, reps: int = 50) -> dict:
 # 262,144, a ragged frame, the lane engines' 1,048,576) and live shares
 LOOP_LANES = (997, 262_144, 921_523, 1_048_576)
 LOOP_LIVE = 0.03
+LOOP_LAST = 5  # the final depth of the tails' cases (the Cornell frame's ray_depth - 1)
+LOOP_SAMPLES = 2  # the sticky cases' samples per pixel
+# the tails N5 runs: name -> ops/loop.py's TAIL_ constant (None: ``round_test``,
+# the test alone on an alive row, kmax read from memory)
+LOOP_TAILS = {"test": None, "none": 0, "depth": 1, "fused": 2}
 
 
 def loop_inputs(n: int, live: float, gen: torch.Generator, dev) -> dict:
@@ -1475,6 +1495,38 @@ def loop_inputs(n: int, live: float, gen: torch.Generator, dev) -> dict:
 
     return {"alive": (torch.rand(n, generator=gen) < live).float().to(dev), "k": ints(4),
             "kmax": ints(4), "counter": torch.tensor(3 * n, device=dev), "total": 4 * n,
+            "thresh": max(n // 8, 1)}
+
+
+def tail_inputs(n: int, live: float, gen: torch.Generator, dev) -> dict:
+    """A round's state as N5's tails find it, on ``n`` lanes: 32-lane runs
+    of one kind (all alive, all dying in the round, all parked on entry) or
+    mixed lane by lane; a lane alive with ``live`` odds (some of the alive
+    flags off 0 and 1), dead lanes parked on entry or holding a ray,
+    depths 0 .. LOOP_LAST + 1, paths started ``k`` 0 .. 4 samples; the
+    sticky frame's ``n_pix`` (lanes owning 2 or 3 pixels, or past the
+    pixels) and the work counter. The state's rows 6-11 random."""
+    from raytracing_course_2024_tpu_torch.ops.shade import PARK_DIR, PARK_ORIGIN
+
+    def rand(*shape):
+        return torch.rand(*shape, generator=gen)
+
+    run = torch.randint(0, 4, (-(-n // 32),), generator=gen).repeat_interleave(32)[:n]
+    alive = torch.where(run == 1, 1.0, torch.where(run >= 2, 0.0, (rand(n) < live).float()))
+    odd = rand(n) < 0.01
+    alive = torch.where(odd, torch.where(alive > 0.5, 0.75, 0.25), alive)
+    parked = (alive < 0.5) & ((run == 3) | ((run == 0) & (rand(n) < 0.5)))
+    state = rand(13, n) * 4.0 - 2.0
+    state[12] = alive
+    state[0:3] = torch.where(parked, PARK_ORIGIN, state[0:3])
+    state[3:6] = torch.where(parked, PARK_DIR, state[3:6])
+    n_pix = 2 * n + n // 3 if n % 2 == 0 else n - n // 10
+    return {"state": state.to(dev),
+            "depth": torch.randint(0, LOOP_LAST + 2, (n,), generator=gen,
+                                   dtype=torch.int32).to(dev),
+            "k": torch.randint(0, 4 * LOOP_SAMPLES, (n,), generator=gen).to(dev),
+            "n_pix": n_pix, "samples": LOOP_SAMPLES, "last": LOOP_LAST,
+            "counter": torch.tensor(3 * n, device=dev), "total": 4 * n,
             "thresh": max(n // 8, 1)}
 
 
@@ -1493,15 +1545,59 @@ def same_loop(a, b) -> bool:
             and not a.scratch.any().item())
 
 
+def tail_call(ls, mode: int, tail, ins: dict, plain: bool):
+    """N5 (or its plain version) of ``tail`` (a ``LOOP_TAILS`` value) on
+    ``ins``: ``round_test`` on an alive row and kmax, or ``round_tail`` on
+    the state; returns a call of no arguments."""
+    from raytracing_course_2024_tpu_torch.ops import loop as LP
+
+    if tail is None:
+        fn = LP.round_test_plain if plain else LP.round_test
+        keys = ("alive", "k", "kmax", "counter", "total", "thresh")
+    else:
+        fn = LP.round_tail_plain if plain else LP.round_tail
+        keys = ("k", "n_pix", "samples", "last", "counter", "total", "thresh")
+    kw = {key: ins[key] for key in keys}
+    if tail is None:
+        return lambda: fn(ls, mode, **kw)
+    return lambda: fn(ls, mode, ins["state"], ins["depth"], tail, **kw)
+
+
+def tail_case(n: int, mode: int, tail, gen: torch.Generator, dev) -> tuple:
+    """Inputs of one N5 case: the kernel's and the twin's (separate state
+    and depth buffers, the tails write them)."""
+    if tail is None:
+        ins = loop_inputs(n, LOOP_LIVE, gen, dev)
+        return ins, ins
+    ins = tail_inputs(n, 0.5, gen, dev)
+    twin = dict(ins, state=ins["state"].clone(), depth=ins["depth"].clone())
+    return ins, twin
+
+
+def same_tail(kern, twin, ins: dict, twin_ins: dict, tail) -> bool:
+    """The kernel's loop, predicates, state rows and depths equal the
+    twin's, bit for bit, and its scratch is back at 0."""
+    if not same_loop(kern, twin):
+        return False
+    if tail is None:
+        return True
+    return bit_equal(ins["state"], twin_ins["state"]) and torch.equal(ins["depth"],
+                                                                     twin_ins["depth"])
+
+
 def phase_kernels_loop(dev) -> float:
-    """N5 (``ops/loop.py:round_test``) against its plain version, exactly,
-    on ``LOOP_LANES`` lanes in both lane modes (the counter wavefront's and
-    the sticky engine's): three tests in a row from counters that are not
-    zero, eagerly; then replayed from a graph captured with the launch
+    """N5 (``ops/loop.py``) against its plain version, exactly, on
+    ``LOOP_LANES`` lanes in both lane modes (the counter wavefront's and the
+    sticky engine's) and every tail (``LOOP_TAILS``: the test alone, and
+    ``round_tail`` with no tail, the depth step and the fused core's cap,
+    park and depth step, on states with parked rows and depths among their
+    lanes, ``tail_inputs``): three launches in a row from counters that are
+    not zero, eagerly; then replayed from a graph captured with the launch
     inside an IF node (``runtime/graphs.py:guard``), the inputs changed
     before each replay and the predicate true, false, true: the kernel's
-    outputs equal the twin's run as often as the predicate was true, and
-    its scratch is back at 0. (K5's own round test: ``compare_persistent``.)"""
+    counters, predicates, alive row, depth row and six ray rows equal the
+    twin's run as often as the predicate was true, and its scratch is back
+    at 0. (K5's own round test: ``compare_persistent``.)"""
     from raytracing_course_2024_tpu_torch.ops import loop as LP
     from raytracing_course_2024_tpu_torch.runtime.graphs import capture, guard
 
@@ -1509,70 +1605,103 @@ def phase_kernels_loop(dev) -> float:
     start = torch.arange(LP.N_LOOP, device=dev) * 7 + 1
     for n in LOOP_LANES:
         for mode, name in ((LP.COUNTER, "counter"), (LP.STICKY, "sticky")):
-            ins = loop_inputs(n, LOOP_LIVE, gen, dev)
-            kern, twin = loop_states(dev, start)
-            for _ in range(3):
-                LP.round_test(kern, mode, **ins)
-                LP.round_test_plain(twin, mode, **ins)
-            torch.cuda.synchronize()
-            eager = same_loop(kern, twin)
-            kern, twin = loop_states(dev, start)
-            pred = torch.ones((), dtype=torch.bool, device=dev)
-            replay, launches, _ = capture(
-                lambda: guard(pred, lambda: LP.round_test(kern, mode, **ins), "test", {}), dev)
-            LP.round_test_plain(twin, mode, **ins)  # the capture's warm-up ran it once
-            replayed = []
-            for on in (True, False, True):
-                fresh = loop_inputs(n, LOOP_LIVE * (2 if on else 1), gen, dev)
-                for key in ("alive", "k", "kmax", "counter"):
-                    ins[key].copy_(fresh[key])
-                pred.fill_(on)
-                replay()
-                if on:
-                    LP.round_test_plain(twin, mode, **ins)
+            for tail_name, tail in LOOP_TAILS.items():
+                ins, twin_ins = tail_case(n, mode, tail, gen, dev)
+                kern, twin = loop_states(dev, start)
+                for _ in range(3):
+                    tail_call(kern, mode, tail, ins, False)()
+                    tail_call(twin, mode, tail, twin_ins, True)()
                 torch.cuda.synchronize()
-                replayed.append(same_loop(kern, twin))
-            say("kernels", case=f"loop-{name}-{n}", lanes=n, live_share=LOOP_LIVE,
-                bit_equal=eager, bit_equal_replayed=all(replayed),
-                replays="true,false,true", loop=json.dumps(kern.loop.tolist()).replace(" ", ""))
-            if not (eager and all(replayed)):
-                raise SystemExit(f"N5 ({name}, {n} lanes) differs from its plain version: "
-                                 f"eager {eager}, replayed {replayed}")
+                eager = same_tail(kern, twin, ins, twin_ins, tail)
+                kern, twin = loop_states(dev, start)
+                pred = torch.ones((), dtype=torch.bool, device=dev)
+                replay, launches, _ = capture(
+                    lambda: guard(pred, tail_call(kern, mode, tail, ins, False), "test", {}), dev)
+                tail_call(twin, mode, tail, twin_ins, True)()  # the capture's warm-up ran it once
+                replayed = []
+                for on in (True, False, True):
+                    fresh, _ = tail_case(n, mode, tail, gen, dev)
+                    for key in ("alive", "k", "kmax", "counter", "state", "depth"):
+                        if key in fresh:
+                            ins[key].copy_(fresh[key])
+                            twin_ins[key].copy_(fresh[key])
+                    pred.fill_(on)
+                    replay()
+                    if on:
+                        tail_call(twin, mode, tail, twin_ins, True)()
+                    torch.cuda.synchronize()
+                    replayed.append(same_tail(kern, twin, ins, twin_ins, tail))
+                say("kernels", case=f"loop-{name}-{tail_name}-{n}", lanes=n,
+                    live_share=LOOP_LIVE if tail is None else 0.5, bit_equal=eager,
+                    bit_equal_replayed=all(replayed), replays="true,false,true",
+                    loop=json.dumps(kern.loop.tolist()).replace(" ", ""))
+                if not (eager and all(replayed)):
+                    raise SystemExit(f"N5 ({name}, tail {tail_name}, {n} lanes) differs from "
+                                     f"its plain version: eager {eager}, replayed {replayed}")
     return 0.0
 
 
 def loop_bytes(n: int, dead: int, sticky: bool) -> float:
-    """N5's bytes on ``n`` lanes: the alive row (4 B a lane) and, in sticky
-    mode, k and kmax (16 B) of the ``dead`` lanes; the counters (6 int64,
-    read and written), the predicates, the work counter."""
+    """The test's bytes on ``n`` lanes (no tail): the alive row (4 B a
+    lane) and, in sticky mode, k and kmax (16 B, ``round_test`` reads both)
+    of the ``dead`` lanes; the counters (6 int64, read and written), the
+    predicates, the work counter."""
     return n * 4 + (dead * 16 if sticky else 0) + 6 * 8 * 2 + 2 + 8
 
 
+def tail_bytes(before: torch.Tensor, after: torch.Tensor, tail: int, sticky: bool) -> float:
+    """The bytes one N5 launch of ``tail`` must move on the (13, n) state
+    ``before``, which its plain version turns into ``after``, counting an
+    output only where it changes: the alive row read; the depths read and
+    written (tails depth and fused); alive written where it changes and
+    each element of the ray rows that changes (fused: the lanes it parks
+    that were not parked); in sticky mode k of the lanes dead after the
+    tail (kmax follows from the lane index); the counters, predicates and
+    the work counter."""
+    n = before.shape[1]
+    moved = n * 4 + (n * 8 if tail else 0)
+    moved += 4 * float((after[12] != before[12]).sum() + (after[0:6] != before[0:6]).sum())
+    if sticky:
+        moved += 8 * float((after[12] < 0.5).sum())
+    return moved + 6 * 8 * 2 + 2 + 8
+
+
+LOOP_TIMED_LANES = (1_048_576, 262_144)  # the lane engines' default and the sticky frame's
+
+
 def loop_times(dev, reps: int = 50) -> dict:
-    """N5 per launch (``cuda_ms_each``) on the counter wavefront's
-    1,048,576 lanes, half of them alive, and in sticky mode with 76 % dead
-    (the BVH sticky frame's round 10); its plain version beside it; the
-    bound from ``loop_bytes``. Then a graph of ``ROUNDS_PER_REPLAY`` N5
-    launches, each in an IF node (``runtime/graphs.py:guard``), replayed
-    back to back: device ms a round with the predicate false (what a round
-    after the loop's end costs a replay) and true (N5 and its IF node)."""
+    """N5 alone (the test on an alive row) per launch (``cuda_ms_each``) on
+    ``LOOP_TIMED_LANES`` lanes: half of them alive in counter mode, and in
+    sticky mode with 76 % dead (the BVH sticky frame's round 10); its plain
+    version beside it; the bound from ``loop_bytes``. Then a graph of
+    ``ROUNDS_PER_REPLAY`` N5 launches, each in an IF node
+    (``runtime/graphs.py:guard``), replayed back to back: device ms a round
+    with the predicate false (what a round after the loop's end costs a
+    replay) and true (N5 and its IF node). Keys of the 262,144-lane cases
+    end in ``_262144``. ``ms_floor``: the test on 4 lanes, one block, the
+    launch's fixed cost as an event pair sees it."""
     from raytracing_course_2024_tpu_torch.integrator import wavefront as W
     from raytracing_course_2024_tpu_torch.ops import loop as LP
     from raytracing_course_2024_tpu_torch.runtime.graphs import capture, guard
 
-    n = LOOP_LANES[-1]
     gen = torch.Generator().manual_seed(SEED + 1)
-    out = {"lanes": n}
-    for mode, name, live in ((LP.COUNTER, "", 0.5), (LP.STICKY, "_sticky", 0.24)):
-        ins = loop_inputs(n, live, gen, dev)
-        kern, twin = loop_states(dev, torch.zeros(LP.N_LOOP, dtype=torch.int64, device=dev))
-        dead = int((ins["alive"] < 0.5).sum())
-        out["ms" + name] = cuda_ms_each(lambda: LP.round_test(kern, mode, **ins), reps)
-        out["plain_ms" + name] = cuda_ms(lambda: LP.round_test_plain(twin, mode, **ins), reps)
-        out["bound" + name] = bound(loop_bytes(n, dead, mode == LP.STICKY), 0.0)
-        out["active_in" + name] = live
+    out = {"lanes": LOOP_TIMED_LANES[0]}
+    for n in LOOP_TIMED_LANES:
+        at = "" if n == LOOP_TIMED_LANES[0] else f"_{n}"
+        for mode, name, live in ((LP.COUNTER, "", 0.5), (LP.STICKY, "_sticky", 0.24)):
+            ins = loop_inputs(n, live, gen, dev)
+            kern, twin = loop_states(dev, torch.zeros(LP.N_LOOP, dtype=torch.int64, device=dev))
+            dead = int((ins["alive"] < 0.5).sum())
+            out["ms" + name + at] = cuda_ms_each(lambda: LP.round_test(kern, mode, **ins), reps)
+            out["plain_ms" + name + at] = cuda_ms(
+                lambda: LP.round_test_plain(twin, mode, **ins), reps)
+            out["bound" + name + at] = bound(loop_bytes(n, dead, mode == LP.STICKY), 0.0)
+            out["active_in" + name + at] = live
+    ins = loop_inputs(4, 0.5, gen, dev)
+    ls = LP.LoopState(dev)
+    out["ms_floor"] = cuda_ms_each(lambda: LP.round_test(ls, LP.COUNTER, **ins), reps)
     per = W.ROUNDS_PER_REPLAY
-    ins = loop_inputs(n, 0.5, gen, dev)
+    ins = loop_inputs(LOOP_TIMED_LANES[0], 0.5, gen, dev)
     ls, pred = LP.LoopState(dev), torch.zeros((), dtype=torch.bool, device=dev)
 
     def rounds():
@@ -1583,6 +1712,162 @@ def loop_times(dev, reps: int = 50) -> dict:
     out["skipped_round_ms"] = cuda_ms(replay, 200) / per
     pred.fill_(True)
     out["guarded_round_ms"] = cuda_ms(replay, 200) / per
+    return out
+
+
+# the lane frames' states on which the fused tail is timed: name -> (Renderer
+# keywords, the round), the Cornell frame's state after K1 of that round: in
+# the frame's middle no lane enters a round dead (the refill or the restart
+# starts them all), near its end most do (of 47 and 295 rounds)
+TAIL_STATES = {
+    "cornell-wavefront-round10": ({"engine": "wavefront"}, 10),
+    "cornell-wavefront-round40": ({"engine": "wavefront"}, 40),
+    "cornell-sticky-262144-round10": ({"engine": "sticky", "batch_size": 262_144}, 10),
+    "cornell-sticky-262144-round285": ({"engine": "sticky", "batch_size": 262_144}, 285),
+}
+
+
+def tail_state(desc, dev, kw: dict, rnd: int) -> dict:
+    """The input of a fused lane round's tail: one eager frame of ``desc``
+    on the engine of ``kw`` (the counter wavefront, or the sticky engine
+    below one lane per pixel, on K1 in lane mode), its bodies' buffers
+    copied just before round ``rnd``; then that round's work before the
+    tail on the copies (the sticky restart, N2b; K1 in lane mode, in
+    place). Also whether K1 wrote the rays of the lanes dead on entry
+    through unchanged and how many of them held a parked ray (a tail could
+    leave those lanes' rows alone; N5 rewrites them, which measured
+    faster). Works on any tree whose ``ops/refill.py`` has
+    ``sticky_kmax``."""
+    from raytracing_course_2024_tpu_torch.integrator import wavefront as W
+    from raytracing_course_2024_tpu_torch.ops import bounce as B
+    from raytracing_course_2024_tpu_torch.ops import refill as RF
+    from raytracing_course_2024_tpu_torch.ops.shade import PARK_ORIGIN
+    from raytracing_course_2024_tpu_torch.runtime.render import Renderer
+
+    r = Renderer(desc, device=dev, eager=True, **kw)
+    s = r.settings
+    w, h, spp = s.width, s.height, s.samples
+    n_pix = w * h
+    lanes = min(r.batch_size, n_pix * spp)
+    seed32 = (SEED * 2654435761) & 0xFFFFFFFF
+    got, refills = {}, []
+
+    def clone(xs):
+        return [x.clone() if isinstance(x, torch.Tensor) else x for x in xs]
+
+    def on_refill(b, _):
+        refills[:] = [b]
+
+    def on_core(c, at):
+        if at == rnd and not got:
+            got["lanes"] = clone((c.state, c.wid, c.depth, c.seed_off))
+            got["counter"] = refills[0].counter.clone()
+            got["total"] = refills[0].total
+
+    def on_sticky(b, at):
+        if at == rnd and not got:
+            got["lanes"] = clone((b.state, b.wid, b.depth, b.seed_off))
+            got["restart"] = clone((b.k, b.kmax, b.acc, b.bases, b.frame))
+
+    with lane_spy(on_refill, on_core, on_sticky):
+        if kw["engine"] == "wavefront":
+            W.render_wavefront(seed32, 0, 0, r.cam, r.scene, r.cfg, w, h, n_pix, spp, lanes)
+        else:
+            W.render_wavefront_sticky(seed32, 0, 0, r.cam, r.scene, r.cfg, w, h, n_pix, spp,
+                                      lanes)
+    state, wid, depth, pair = got["lanes"]
+    out = {"lanes": lanes, "n_pix": n_pix, "samples": spp, "last": r.cfg.ray_depth - 1,
+           "sticky": kw["engine"] == "sticky"}
+    if out["sticky"]:
+        k, kmax, acc, bases, frame = got["restart"]
+        RF.restart(state, k, kmax, depth, wid, acc, pair, bases, frame)
+        out.update(k=k, kmax=kmax)
+    else:
+        out.update(counter=got["counter"], total=got["total"],
+                   thresh=W.refill_thresh(lanes))
+    before = state.clone()
+    dead = before[12] < 0.5
+    B.bounce(r.scene, state, wid, pair[1], pair[0], 0, r.cfg.bg_color, r.cfg.max_tries,
+             out=state, depth=depth)
+    torch.cuda.synchronize()
+    out.update(state=state, depth=depth, dead_on_entry=int(dead.sum()),
+               dead_rows_unchanged=bit_equal(state[0:6][:, dead], before[0:6][:, dead]),
+               dead_parked_on_entry=int((before[0][dead] == PARK_ORIGIN).sum()),
+               dying=int(((state[12] < 0.5) & ~dead).sum()))
+    del r
+    return out
+
+
+def tail_times(dev, desc, gpu: str, reps: int = ROUND_REPS) -> dict:
+    """The end of a fused lane round on ``TAIL_STATES``' states
+    (``tail_state``), per launch in place, the state and depths put back
+    outside each event pair (``cuda_ms_in_place``): ``aten``, the
+    sequence the round ran before N5 took the tail over (``ops/shade.py:
+    park`` with the final-depth cap and the depth step as ATen ops, then the
+    test alone, ``round_test``), and on a tree with ``round_tail`` the
+    fused tail (``TAIL_FUSED``), held bit for bit against its plain version
+    (state, depths, counters), its plain version's ms and the bound of
+    ``tail_bytes``. Prints one ``[timing] kernel=loop-tail`` line a state;
+    returns them by state."""
+    from raytracing_course_2024_tpu_torch.ops import loop as LP
+    from raytracing_course_2024_tpu_torch.ops.refill import sticky_kmax
+    from raytracing_course_2024_tpu_torch.ops.shade import park
+
+    out = {}
+    for name, (kw, rnd) in TAIL_STATES.items():
+        t = tail_state(desc, dev, kw, rnd)
+        mode = LP.STICKY if t["sticky"] else LP.COUNTER
+        st0, d0 = t["state"], t["depth"]
+        st, d = st0.clone(), d0.clone()
+        ls = LP.LoopState(dev)
+        test = ({"k": t["k"], "kmax": sticky_kmax(t["lanes"], t["n_pix"], t["samples"], dev)}
+                if t["sticky"] else {key: t[key] for key in ("counter", "total", "thresh")})
+
+        def restore():
+            st.copy_(st0)
+            d.copy_(d0)
+
+        def aten():
+            park(st, (st[12] > 0.5) & (d < t["last"]))
+            d.add_(1)
+            LP.round_test(ls, mode, alive=st[12], **test)
+
+        res = {"lanes": t["lanes"], "dead_on_entry": t["dead_on_entry"],
+               "dead_rows_unchanged": t["dead_rows_unchanged"],
+               "dead_parked_on_entry": t["dead_parked_on_entry"], "dying": t["dying"],
+               "aten_ms": cuda_ms_in_place(aten, restore, reps)}
+        if hasattr(LP, "round_tail"):
+            kw_tail = ({"k": t["k"], "n_pix": t["n_pix"], "samples": t["samples"]}
+                       if t["sticky"] else test)
+            twin = (st0.clone(), d0.clone(), LP.LoopState(dev))
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            LP.round_tail_plain(twin[2], mode, twin[0], twin[1], LP.TAIL_FUSED, t["last"],
+                                **kw_tail)
+            end.record()
+            restore()
+            ls = LP.LoopState(dev)
+            LP.round_tail(ls, mode, st, d, LP.TAIL_FUSED, t["last"], **kw_tail)
+            torch.cuda.synchronize()
+            equal = (bit_equal(st, twin[0]) and torch.equal(d, twin[1])
+                     and same_loop(ls, twin[2]))
+            parked_now = int(((twin[0][0] != st0[0]) & (twin[0][12] < 0.5)).sum())
+            res.update(bit_equal=equal, parked_in_round=parked_now,
+                       plain_ms=start.elapsed_time(end),
+                       ms=cuda_ms_in_place(lambda: LP.round_tail(
+                           ls, mode, st, d, LP.TAIL_FUSED, t["last"], **kw_tail), restore, reps),
+                       bound=bound(tail_bytes(st0, twin[0], LP.TAIL_FUSED, t["sticky"]), 0.0))
+            if not equal:
+                raise SystemExit(f"N5's fused tail on {name} differs from its plain version")
+        say("timing", kernel="loop-tail", state=name, **{
+            k: (round(v, 5) if isinstance(v, float) else v) for k, v in res.items()
+            if k != "bound"}, **({"bound_ms": round(res["bound"][0], 5),
+                                  "bound_by": res["bound"][1],
+                                  "share": round(res["bound"][0] / res["ms"], 4)}
+                                 if "bound" in res else {}), gpu=f'"{gpu}"')
+        out[name] = res
+        del t, st0, st
+        torch.cuda.empty_cache()
     return out
 
 
@@ -1675,7 +1960,7 @@ TRACE_NAMES = {"primary": "primary_kernel", "bounce": "bounce_kernel", "final": 
                "bvh": "bvh_nearest_kernel", "sampler": "sampler_kernel",
                "shade": "shade_kernel", "finish": "finish_kernel", "refill": "refill_kernel",
                "restart": "restart_kernel", "camera": "camera_kernel",
-               "loop": "round_test_kernel"}
+               "loop": "round_tail_kernel"}
 
 
 def traced_launches(rows) -> dict:
@@ -4103,11 +4388,22 @@ def phase_timing(dev, gpu: str, counts: dict, errs: dict, m: Modular, k5, bvh: d
     launch_ms["camera"], plain_ms["camera"], bounds["camera"] = (
         cam_t["ms"], cam_t["plain_ms"], cam_t["bound"])
     inputs["camera"] = 1.0
-    # N5 on the lane engines' 1,048,576 lanes
+    # N5 alone on the lane engines' 1,048,576 lanes and on 262,144; its fused
+    # tail on the Cornell lane frames' round-10 states
     loop_t = loop_times(dev)
     launch_ms["loop"], plain_ms["loop"], bounds["loop"] = (
         loop_t["ms"], loop_t["plain_ms"], loop_t["bound"])
     inputs["loop"] = loop_t["active_in"]
+    tails = tail_times(dev, desc, gpu)
+    loop_extra = {f"{k}{at}": v for at in ("", "_262144")
+                  for k, v in (("ms_sticky", loop_t["ms_sticky" + at]),
+                               ("plain_ms_sticky", loop_t["plain_ms_sticky" + at]),
+                               ("bound_ms_sticky", loop_t["bound_sticky" + at][0]))}
+    loop_extra.update(ms_262144=loop_t["ms_262144"], plain_ms_262144=loop_t["plain_ms_262144"],
+                      bound_ms_262144=loop_t["bound_262144"][0])
+    for name, t in tails.items():
+        loop_extra.update({f"{key}_{name}": t[key] for key in ("ms", "plain_ms", "aten_ms")},
+                          **{f"bound_ms_{name}": t["bound"][0]})
     k3_lane = lane["sampler-lane"]
     for k in KERNELS:
         # K5's input: the frame's state after K5_CHAIN rounds
@@ -4129,9 +4425,7 @@ def phase_timing(dev, gpu: str, counts: dict, errs: dict, m: Modular, k5, bvh: d
         if k == "loop":
             at.update(skipped_round_ms=round(loop_t["skipped_round_ms"], 5),
                       guarded_round_ms=round(loop_t["guarded_round_ms"], 5),
-                      ms_sticky=round(loop_t["ms_sticky"], 5),
-                      plain_ms_sticky=round(loop_t["plain_ms_sticky"], 4),
-                      bound_ms_sticky=round(loop_t["bound_sticky"][0], 5))
+                      **{key: round(v, 5) for key, v in loop_extra.items()})
         say("timing", kernel=k, lanes=lane[k]["lanes"] if k in lane else (
             loop_t["lanes"] if k == "loop" else n), **at,
             active_in=round(inputs[k], 4),
@@ -4158,9 +4452,8 @@ def phase_timing(dev, gpu: str, counts: dict, errs: dict, m: Modular, k5, bvh: d
          **({"state": ROUND_TIMED, "tolerance": "bit for bit on every lane",
              "lanes": lane[k]["lanes"]} if k in ("refill", "restart") else {}),
          **({"tolerance": "bit for bit on every lane and row"} if k == "camera" else {}),
-         **({"tolerance": "exact (integer counts)", "lanes": loop_t["lanes"],
-             "ms_sticky": loop_t["ms_sticky"], "plain_ms_sticky": loop_t["plain_ms_sticky"],
-             "bound_ms_sticky": loop_t["bound_sticky"][0]} if k == "loop" else {})}
+         **({"tolerance": "bit for bit (counters, alive, depth and ray rows)",
+             "lanes": loop_t["lanes"], **loop_extra} if k == "loop" else {})}
         for k in KERNELS
     ]
 
@@ -4338,14 +4631,17 @@ def sample_ops(r) -> dict:
 # the depth step, the live count, the core's masks); before N2a, N2b and K3
 # in lane mode a round was ~1,750 (PERF.md)
 ROUND_OPS_MAX = 40
+# the fused lane rounds (K1 in lane mode): refill or restart, K1 and N5, whose
+# tail does the final-depth cap, the park and the depth step; no ATen op
+FUSED_ROUND_CASES = ("cornell-wavefront-fused", "cornell-sticky-fused-262144")
 
 
 def round_ops(r) -> dict:
     """``aten_ops`` of one round of ``r``'s lane engine (``r.engine``), its
     loop made without a graph on the frame's lanes after one round of
-    warm-up: the counter wavefront's refill, bounce and round test, or one
-    sticky round (restart, bounce, round test), as a capture records them
-    (the guards' bodies, not their host reads)."""
+    warm-up: the counter wavefront's refill, bounce and round tail and
+    test, or one sticky round (restart, bounce, round tail and test), as a
+    capture records them (the guards' bodies, not their host reads)."""
     from raytracing_course_2024_tpu_torch.integrator import wavefront as W
 
     s = r.settings
@@ -4385,7 +4681,8 @@ def phase_graphs(dev, gpu: str) -> None:
     ``_finish_bounce``; the XLA sampler ``sampler_plain`` and
     ``sample_mixture``; ``refill_plain``, ``restart_plain``): N1a, N1b, K3,
     N2a and N2b do that work; a modular batch sample dispatches at most
-    ``SAMPLE_OPS_MAX`` ATen ops, a modular lane round ``ROUND_OPS_MAX``."""
+    ``SAMPLE_OPS_MAX`` ATen ops, a modular lane round ``ROUND_OPS_MAX``, a
+    fused lane round (``FUSED_ROUND_CASES``) none."""
     from raytracing_course_2024_tpu_torch.integrator import path as P
     from raytracing_course_2024_tpu_torch.ops import refill as RF
     from raytracing_course_2024_tpu_torch.ops import sampler as S
@@ -4502,6 +4799,13 @@ def graph_cases(descs: dict, dev, gpu: str, plain_calls: dict) -> None:
             if n_ops > ROUND_OPS_MAX:
                 raise SystemExit(f"[graphs] {case}: {n_ops} ATen ops in one round "
                                  f"(> {ROUND_OPS_MAX}): the round is not in its kernels")
+        if case in FUSED_ROUND_CASES:
+            ops = round_ops(eager)
+            say("graphs", case=case, aten_ops_per_round=sum(ops.values()),
+                ops=json.dumps(ops).replace(" ", ""))
+            if ops:
+                raise SystemExit(f"[graphs] {case}: ATen ops {ops} in a fused lane round beside "
+                                 "its kernels (N2a or N2b, K1, N5)")
         if case in PROFILED:
             for mode, r in (("graphed", graphed), ("eager", eager)):
                 p = profiled_frame(r, 9)

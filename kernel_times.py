@@ -69,6 +69,15 @@ kernels as built, then parts dropped or redesign items switched, in turns
 (the variants forward, backward, forward, backward, then each one's
 median); a variant whose lines the tree does not hold is named and left
 out.
+``--loop-kernel`` times only N5: the test alone per launch on 1,048,576
+and 262,144 lanes in both lane modes (``chip_smoke.loop_times``), then the
+end of the fused lane rounds on the Cornell counter wavefront's and
+262,144-lane sticky frame's round-10 states (``chip_smoke.tail_times``):
+the ATen steps and the test the round ran before N5 took its tail over,
+and N5's fused tail where the tree has it, with whether K1 wrote the rays
+of the lanes dead on entry through unchanged. ``--loop-kernel-parts``
+times variants of N5 (``LOOP_PARTS``: ``csrc/loop.cu`` with lines
+replaced) on the same cases, in turns.
 ``--camera-stage`` times only the modular route's camera stage on the
 Cornell frame's 921,600 lanes (``camera_stage``): the ATen ops of the route
 before N4, and N4 where the tree has it.
@@ -144,6 +153,12 @@ def main() -> int:
     ap.add_argument("--lane-kernel-parts", action="store_true",
                     help="only variants of N2a and N2b (parts dropped, items switched) on "
                          "the BVH lane engines' round-10 states")
+    ap.add_argument("--loop-kernel", action="store_true",
+                    help="only N5: the test alone on 1,048,576 and 262,144 lanes, and the end "
+                         "of the fused lane rounds on the Cornell frames' round-10 states")
+    ap.add_argument("--loop-kernel-parts", action="store_true",
+                    help="only variants of N5 (design items switched) on the states of "
+                         "--loop-kernel")
     ap.add_argument("--shade-kernels", action="store_true",
                     help="only N1a and N1b per launch on the BVH frame's camera, bounce-1 "
                          "and bounce-3 states")
@@ -208,6 +223,12 @@ def main() -> int:
         return 0
     if args.lane_kernel_parts:
         lane_kernel_parts(dev, root, gpu, say, args.reps)
+        return 0
+    if args.loop_kernel:
+        loop_kernel(dev, load_scene(CS.CORNELL, w, h, spp), gpu, say, args.reps)
+        return 0
+    if args.loop_kernel_parts:
+        loop_kernel_parts(dev, root, load_scene(CS.CORNELL, w, h, spp), gpu, say, args.reps)
         return 0
     if args.sector_writes:
         sector_writes(dev, say, args.reps)
@@ -295,7 +316,7 @@ def main() -> int:
 HAND_WRITTEN = ("bounce_kernel", "primary_kernel", "persistent_kernel", "dense_nearest_kernel",
                 "bvh_nearest_kernel", "sampler_kernel", "shade_kernel", "finish_kernel",
                 "refill", "restart_kernel", "camera_kernel", "round_test_kernel",
-                "set_condition_kernel")
+                "round_tail_kernel", "set_condition_kernel")
 
 
 def modular_frame_cases(bvh, cornell):
@@ -436,7 +457,8 @@ def camera_stage(dev, desc, say, reps: int) -> None:
 # the hand-written kernels a lane frame may launch, by the name the profiler gives them
 LANE_KERNELS = {"K6": "bvh_nearest_kernel", "N1a": "shade_kernel", "K3": "sampler_kernel",
                 "N1b": "finish_kernel", "N2a": "refill", "N2b": "restart_kernel",
-                "K1": "bounce_kernel", "K5": "persistent_kernel", "N5": "round_test_kernel",
+                "K1": "bounce_kernel", "K5": "persistent_kernel",
+                "N5": "round_t",  # round_tail_kernel; round_test_kernel on older trees
                 "if": "set_condition_kernel"}
 
 
@@ -453,8 +475,10 @@ def lane_frames(dev, bvh, cornell, frames: int, say) -> None:
     vertices, the image's digest (``image_sha``: equal on two trees when
     their frames of one seed are equal bit for bit), and the device ms and
     launches of each kernel of ``LANE_KERNELS`` (N2a of a tree with the
-    two-launch refill: both launches together); on the BVH frames, the ATen
-    ops of one round beside its kernels (``tree_round_ops``)."""
+    two-launch refill: both launches together), and of the rows that name
+    no hand-written kernel (``aten_ms``, ``aten_launches``: ATen ops,
+    copies and fills); on the BVH frames, the ATen ops of one round beside
+    its kernels (``tree_round_ops``)."""
     from raytracing_course_2024_tpu_torch.runtime.render import Renderer
 
     descs = {"bvh": bvh, "cornell": cornell}
@@ -473,6 +497,7 @@ def lane_frames(dev, bvh, cornell, frames: int, say) -> None:
                 rows = [x for x in p["rows"] if key in x[2]]
                 if rows:
                     kern[tag] = [round(sum(x[0] for x in rows), 4), sum(x[1] for x in rows)]
+            aten = [x for x in p["rows"] if not any(k in x[2] for k in HAND_WRITTEN)]
             say(frame=name, seed=seed, wall_ms=round(wall, 3),
                 device_ms=round(p["device_ms"], 3),
                 idle_share=round(1.0 - p["device_ms"] / wall, 4), host_reads=waits[0],
@@ -482,6 +507,8 @@ def lane_frames(dev, bvh, cornell, frames: int, say) -> None:
                 device_launches=p["launches"], rounds=r.rounds,
                 path_vertices=int(p["path_vertices"]), image_sha=p["image_sha"],
                 kernels=json.dumps(kern).replace(" ", ""),
+                aten_ms=round(sum(x[0] for x in aten), 4),
+                aten_launches=sum(x[1] for x in aten),
                 top=json.dumps([[round(ms, 3), n, k[:40]] for ms, n, k in p["rows"][:5]])
                 .replace(" ", ""))
         if name.startswith("bvh"):
@@ -728,6 +755,146 @@ def part_times(kind: str, tag: str, snap: tuple, libs: dict, base, dev, gpu: str
         say(part=kind, state=tag, variant=name, turns=len(ms), median_ms=round(med, 4),
             min_ms=round(min(ms), 4), max_ms=round(max(ms), 4),
             share=round(bound_ms / med, 4), gpu=f'"{gpu}"')
+
+
+def loop_kernel(dev, desc, gpu: str, say, reps: int) -> None:
+    """N5 of the tree per launch: the test alone on 1,048,576 and 262,144
+    lanes in both modes (``chip_smoke.loop_times``, its bounds), then the end
+    of the fused lane rounds on ``chip_smoke.TAIL_STATES`` (the Cornell
+    counter wavefront's and 262,144-lane sticky frame's round-10 states,
+    ``chip_smoke.tail_times``): the ATen steps and test the round ran
+    before N5 took its tail over, and the fused tail where the tree has
+    it."""
+    t = CS.loop_times(dev, reps)
+    for key, v in t.items():
+        say(loop=key, value=json.dumps([round(x, 5) if isinstance(x, float) else x for x in v])
+            if isinstance(v, tuple) else round(v, 5), gpu=f'"{gpu}"')
+    for name, res in CS.tail_times(dev, desc, gpu, reps).items():
+        say(loop_tail=name, **{k: (round(v, 5) if isinstance(v, float) else v)
+                               for k, v in res.items() if k != "bound"},
+            **({"bound_ms": round(res["bound"][0], 5)} if "bound" in res else {}),
+            gpu=f'"{gpu}"')
+
+
+# variants of csrc/loop.cu: (name, [(lines of the tree, their replacement), ...])
+DEPTH_LOAD = ("      if (TAIL != kTailNone) load4<int, int4>(p.depth, i0 + 4 * g, b, p.vec, "
+              "d + 4 * g);\n")
+LOOP_PARTS = [
+    # a lane parked on entry keeps its rows: origin x read with alive and
+    # depth, and the six writes left out where it holds PARK_ORIGIN
+    ("skip-parked-lanes", [
+        ("    float a[kLanes];\n", "    float a[kLanes], ox[kLanes];\n"),
+        (DEPTH_LOAD, DEPTH_LOAD + "      if (TAIL == kTailFused) load4<float, float4>(p.rows, "
+         "i0 + 4 * g, b, p.vec, ox + 4 * g);\n"),
+        ("TAIL == kTailFused && in && !cont);", "TAIL == kTailFused && in && !cont && "
+         "ox[j] != kParkOrigin);")]),
+    # the grid's count as the earlier N5 took it: one atomic a block into a
+    # partial count, a fence and a ticket (loop.cuh:last_block_totals, K5's)
+    ("two-atomics-and-a-fence", [(
+        "  const unsigned long long mine = (1ull << kTicketShift) | (unsigned long long)count;\n"
+        "  const unsigned long long before = atomicAdd(&p.out.scratch[kWord], mine);\n"
+        "  if ((before >> kTicketShift) != gridDim.x - 1) return;\n"
+        "  p.out.scratch[kWord] = 0;\n"
+        "  finish<MODE>(p, (long long)((before + mine) & ((1ull << kTicketShift) - 1)), was);\n",
+        "  long long total = count, none = 0;\n"
+        "  if (!last_block_totals(p.out, total, none)) return;\n"
+        "  finish<MODE>(p, total, was);\n")]),
+    ("8-lanes-a-thread", [("constexpr int kGroups = 1; ", "constexpr int kGroups = 2; ")]),
+    ("16-lanes-a-thread", [("constexpr int kGroups = 1; ", "constexpr int kGroups = 4; ")]),
+    ("scalar-loads", [("  p.vec = aligned(alive) && (tail == 0 || aligned(depth));\n",
+                       "  p.vec = false;\n")]),
+    # where the fused tail's time goes: its ray-row stores left out (its
+    # output is then wrong; a measurement only)
+    ("no-ray-row-stores", [(
+        "        for (int r = 0; r < 6; ++r) p.rows[r * b + i] = r < 3 ? kParkOrigin : kParkDir;\n",
+        "        (void)i;\n")]),
+]
+
+
+def loop_kernel_parts(dev, root: str, desc, gpu: str, say, reps: int) -> None:
+    """N5 as built and its ``LOOP_PARTS`` variants, in turns (forward,
+    backward, forward, backward; then each one's median): the test alone
+    per launch (``chip_smoke.cuda_ms_each``) on 1,048,576 lanes in counter
+    mode and 262,144 in sticky mode, and the fused tail per launch in place
+    on ``chip_smoke.TAIL_STATES``. Each variant is ``csrc/loop.cu`` of the
+    tree under ``root`` with its lines replaced, compiled alone with the
+    package's flags; its ``rt_launch_round_tail`` stands in for the built
+    one; every launch is held against the plain version first."""
+    from pathlib import Path
+
+    from raytracing_course_2024_tpu_torch.ops import kernels
+    from raytracing_course_2024_tpu_torch.ops import loop as LP
+
+    csrc = Path(root) / "raytracing_course_2024_tpu_torch" / "csrc"
+    src = (csrc / "loop.cu").read_text()
+    base = kernels.library()
+    out_dir = kernels.BUILD_DIR / "loop_parts"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    libs = {"as-built": base}
+    for name, patches in LOOP_PARTS:
+        text = src
+        if not all(text.count(old) == 1 for old, _ in patches):
+            say(part="loop", variant=name, built="no: its lines are not in this tree")
+            continue
+        for old, new in patches:
+            text = text.replace(old, new)
+        cu, so = out_dir / f"loop-{name}.cu", out_dir / f"libloop-{name}.so"
+        cu.write_text(text)
+        subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS, "-I", str(csrc), "-shared",
+                        "-o", str(so), str(cu)], check=True, capture_output=True)
+        libs[name] = ctypes.CDLL(str(so))
+    gen = torch.Generator().manual_seed(CS.SEED + 2)
+    tests = {"test-counter-1048576": (LP.COUNTER, CS.loop_inputs(1_048_576, 0.5, gen, dev)),
+             "test-sticky-262144": (LP.STICKY, CS.loop_inputs(262_144, 0.24, gen, dev))}
+    states = {}
+    for name, (kw, rnd) in CS.TAIL_STATES.items():
+        t = CS.tail_state(desc, dev, kw, rnd)
+        states[name] = (t, ({"k": t["k"], "n_pix": t["n_pix"], "samples": t["samples"]}
+                            if t["sticky"] else
+                            {key: t[key] for key in ("counter", "total", "thresh")}))
+    cases = list(tests) + list(states)
+    times = {(c, n): [] for c in cases for n in libs}
+    order = (list(libs) + list(reversed(libs))) * 2
+    real = kernels.library
+    for turn, lib in enumerate(order):
+        kernels.library = (lambda: base) if lib == "as-built" else (
+            lambda so=libs[lib]: _Swapped(base, so, "rt_launch_round_tail"))
+        try:
+            for case in cases:
+                ls, twin = LP.LoopState(dev), LP.LoopState(dev)
+                if case in tests:
+                    mode, ins = tests[case]
+                    LP.round_test(ls, mode, **ins)
+                    LP.round_test_plain(twin, mode, **ins)
+                    torch.cuda.synchronize()
+                    ok = CS.same_loop(ls, twin)
+                    ms = CS.cuda_ms_each(lambda: LP.round_test(ls, mode, **ins), reps)
+                else:
+                    t, kw = states[case]
+                    mode = LP.STICKY if t["sticky"] else LP.COUNTER
+                    st, d = t["state"].clone(), t["depth"].clone()
+                    pst, pd = t["state"].clone(), t["depth"].clone()
+                    LP.round_tail(ls, mode, st, d, LP.TAIL_FUSED, t["last"], **kw)
+                    LP.round_tail_plain(twin, mode, pst, pd, LP.TAIL_FUSED, t["last"], **kw)
+                    torch.cuda.synchronize()
+                    ok = (CS.bit_equal(st, pst) and torch.equal(d, pd)
+                          and CS.same_loop(ls, twin))
+
+                    def restore():
+                        st.copy_(t["state"])
+                        d.copy_(t["depth"])
+
+                    ms = CS.cuda_ms_in_place(lambda: LP.round_tail(
+                        ls, mode, st, d, LP.TAIL_FUSED, t["last"], **kw), restore, reps)
+                times[(case, lib)].append(ms)
+                say(part="loop", case=case, variant=lib, turn=turn, ms=round(ms, 5),
+                    bit_equal=ok, gpu=f'"{gpu}"')
+        finally:
+            kernels.library = real
+    for (case, lib), ms in times.items():
+        say(part="loop", case=case, variant=lib, turns=len(ms),
+            median_ms=round(statistics.median(ms), 5), min_ms=round(min(ms), 5),
+            max_ms=round(max(ms), 5), gpu=f'"{gpu}"')
 
 
 SECTOR_CU = r"""

@@ -27,8 +27,10 @@ host, so the busy share of an unprofiled frame is higher.
 rounds by stage (``stage_split``): the refill (``RefillBody.__call__``) or
 the sticky restart (``StickyBody.restart``), the bounce core and inside it
 the kernels (the nearest hit, N1a, N1b, K1, and K3 where the core takes
-it), so the sampler as the core's rest, the round test (N5) and the
-bookkeeping as the rounds' rest. Each round body runs back to back behind a held stream and is timed
+it), so the sampler as the core's rest (on an older tree's fused route
+the park too), the round test (N5, on this tree with the round's tail:
+the depth step, and the cap and park after K1) and the bookkeeping as the
+rounds' rest. Each round body runs back to back behind a held stream and is timed
 by CUDA event pairs, so its host cost is not in the numbers; the sticky K5
 loop has no such bodies. ``--root TREE`` loads the package from
 another tree (a parent unpacked with ``git archive``), so that one script
@@ -87,7 +89,7 @@ def stage_timer():
     a card since it has one), ``restart`` (``StickyBody.restart``), ``core``
     (the bounce, made while active), ``kernel`` (each kernel wrapper the
     core calls: the nearest hit, N1a, N1b, K3 and K1) and ``test`` (the
-    round test, N5, a body of its own)."""
+    round's tail and test, N5, a body of its own)."""
     from raytracing_course_2024_tpu_torch.integrator import path as P
     from raytracing_course_2024_tpu_torch.integrator import wavefront as W
     from raytracing_course_2024_tpu_torch.ops import bounce as B

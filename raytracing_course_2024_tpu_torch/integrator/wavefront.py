@@ -22,9 +22,10 @@ same image for any lane count, and the same as the JAX package's engines on
 the CPU, image for image.
 
 A bounce (``_make_bounce_core``) is either the fused core, K1 in lane mode
-(``ops/bounce.py``) then the depth cap and ``park``, when the scene is a
-``BounceScene``; or the XLA core on a ``ModularScene`` (roulette, faithful
-acceptance, ``RT_MEGAKERNEL=0``, large scenes, the BVH backend): the
+(``ops/bounce.py``), when the scene is a ``BounceScene`` (the round's tail,
+N5, then caps the depth and parks the rays of the lanes left dead); or the
+XLA core on a ``ModularScene`` (roulette, faithful acceptance,
+``RT_MEGAKERNEL=0``, large scenes, the BVH backend): the
 scene's nearest hit over the finite table (``ops/traverse.py:nearest_table``:
 K4 or the sweep, or the BVH walk K6), the shade pass N1a (the planes,
 ``surface_detail``, emission, and the final-depth rule), the mixture
@@ -46,13 +47,15 @@ and ``lax.cond`` have it (``_render_wf``, one ``jax.jit``): a frame's loop
 (``WavefrontLoop``, ``StickyLoop``, ``FusedStickyLoop``) holds its round
 bodies over static buffers (``CoreBody`` and ``RefillBody``, ``StickyBody``,
 or K5), which read the seed and the frame offsets on the device, and its
-counters (``ops/loop.py:LoopState``). After each round the round test N5
-(``ops/loop.py:round_test``; K5 ends its own round with it) writes whether
-another round runs (``more``), whether the counter wavefront's next round
-refills (``refill_pred``), the lanes alive, the path vertices (the lanes
-that enter each bounce), the rounds and the refills. A call of a loop runs
-``ROUNDS_PER_REPLAY`` rounds, each guarded by ``more`` and the refill in it
-by ``refill_pred`` (``runtime/graphs.py:guard``). Given a graph cache the
+counters (``ops/loop.py:LoopState``). Each round ends with N5
+(``ops/loop.py:round_tail``; K5 ends its own round with the same test): the
+fused core's depth cap and park, every lane's depth step, then the round
+test, which writes whether another round runs (``more``), whether the
+counter wavefront's next round refills (``refill_pred``), the lanes alive,
+the path vertices (the lanes that enter each bounce), the rounds and the
+refills; before a loop's first round N5 runs the test alone. A call of a
+loop runs ``ROUNDS_PER_REPLAY`` rounds, each guarded by ``more`` and the
+refill in it by ``refill_pred`` (``runtime/graphs.py:guard``). Given a graph cache the
 call is a captured CUDA graph whose guards are IF nodes, so a round whose
 test said stop costs a conditional check; the host replays it and reads the
 counters of the replay before the last (a pinned copy and an event per
@@ -76,10 +79,10 @@ from ..ops import bounce as B
 from ..ops import loop as L
 from ..ops import refill as RF
 from ..ops.camera import CameraArrays, pack_camera_row
-from ..ops.loop import LoopState, k5_round_plain, round_test, round_test_plain
+from ..ops.loop import LoopState, k5_round_plain, round_tail, round_tail_plain
 from ..ops.persistent import N_PSTATE, S_ACC, S_K, persistent_plain, persistent_round
 from ..ops.rng import check_work_ids, lane_ctr
-from ..ops.shade import PARK_DIR, PARK_ORIGIN, finish, finish_plain, park, shade, shade_plain
+from ..ops.shade import PARK_DIR, PARK_ORIGIN, finish, finish_plain, shade, shade_plain
 from ..ops.traverse import nearest_table
 from ..ops.vec import Vec3
 from ..runtime.graphs import guard, settle
@@ -118,9 +121,12 @@ def _make_bounce_core(cfg: TraceConfig, scene, seed, plain: bool = False):
     """One full bounce shared by both engines. Returns
     ``(core(state, wid, depth) -> state', fused)``: ``state`` is the (13, B)
     path state, ``wid`` the lanes' int32 work ids, ``depth`` their int32
-    depths; ``alive'`` already applies the per-lane final-depth rule and dead
-    lanes' rays are parked. The fused core updates ``state`` in place on
-    CUDA. ``plain`` runs the plain versions of the kernels on any device.
+    depths. The XLA core's ``alive'`` already applies the per-lane
+    final-depth rule and its dead lanes' rays are parked; the fused core
+    (``fused`` True) leaves both to the round's tail (``ops/loop.py:
+    round_tail``, ``TAIL_FUSED``, as the JAX core's own ``cont`` and
+    ``park``). The fused core updates ``state`` in place on CUDA.
+    ``plain`` runs the plain versions of the kernels on any device.
     ``seed`` is an int, a 0-dim int64 tensor or the (2,) int64 pair (seed,
     0) of a body (``_lane_seed``), on the scene's device; a tensor is read
     on the device, by K1 too."""
@@ -133,10 +139,8 @@ def _make_bounce_core(cfg: TraceConfig, scene, seed, plain: bool = False):
     if isinstance(scene, B.BounceScene):
         def fused_core(state, wid, depth):
             if plain:
-                st = B.bounce_plain(scene, state, wid, wid_off, seed, 0, bg, k, depth=depth)
-            else:
-                st = B.bounce(scene, state, wid, wid_off, seed, 0, bg, k, out=state, depth=depth)
-            return park(st, (st[12] > 0.5) & (depth < last))
+                return B.bounce_plain(scene, state, wid, wid_off, seed, 0, bg, k, depth=depth)
+            return B.bounce(scene, state, wid, wid_off, seed, 0, bg, k, out=state, depth=depth)
 
         return fused_core, True
 
@@ -161,8 +165,9 @@ class CoreBody:
     ``seed_off`` ((2,) int64: the seed and 0; ``seed`` is its first
     element), ``state`` (13, B), ``wid`` and ``depth`` (int32) in. A call
     runs one bounce (the fused core, K1 in lane mode, on a ``BounceScene``;
-    the XLA core on a ``ModularScene``), leaves the state in ``state`` and
-    adds one to every lane's depth."""
+    the XLA core on a ``ModularScene``) and leaves the state in ``state``;
+    the round's tail (``tail``: ``TAIL_FUSED`` after the fused core,
+    ``TAIL_DEPTH`` after the XLA core) steps the depths."""
 
     def __init__(self, cfg: TraceConfig, scene, lanes: int, plain: bool = False):
         dev = _scene_device(scene)
@@ -172,11 +177,18 @@ class CoreBody:
         self.wid = torch.zeros((lanes,), dtype=torch.int32, device=dev)
         self.depth = torch.zeros((lanes,), dtype=torch.int32, device=dev)
         self.plain = plain
-        self.core, _ = _make_bounce_core(cfg, scene, self.seed_off, plain)
+        self.core, fused = _make_bounce_core(cfg, scene, self.seed_off, plain)
+        self.tail = L.TAIL_FUSED if fused else L.TAIL_DEPTH
 
     def __call__(self) -> None:
-        self.state.copy_(self.core(self.state, self.wid, self.depth))
-        self.depth += 1
+        _bounce_into(self.state, self.core(self.state, self.wid, self.depth))
+
+
+def _bounce_into(state: torch.Tensor, out: torch.Tensor) -> None:
+    """A core's output into ``state`` (no copy where the core wrote it in
+    place)."""
+    if out is not state:
+        state.copy_(out)
 
 
 class RefillBody:
@@ -264,8 +276,9 @@ class _GuardedLoop:
 class WavefrontLoop(_GuardedLoop):
     """One counter-refill pass: a ``CoreBody`` and its ``RefillBody``. A
     round is the refill, guarded by ``refill_pred`` (the JAX ``lax.cond``),
-    the bounce, and the round test (N5 in ``COUNTER`` mode: lanes alive,
-    the work counter against ``total``, the refill threshold ``thresh``)."""
+    the bounce, and the round's tail and test (N5 in ``COUNTER`` mode: lanes
+    alive, the work counter against ``total``, the refill threshold
+    ``thresh``)."""
 
     def __init__(self, cfg: TraceConfig, scene, cam: CameraArrays, width: int, height: int,
                  n_pix: int, samples: int, lanes: int, thresh: int, plain: bool = False):
@@ -273,6 +286,7 @@ class WavefrontLoop(_GuardedLoop):
         self.refill = RefillBody(self.core, cam, width, height, n_pix, samples)
         super().__init__(self.core.state.device)
         self.thresh = thresh
+        self.last = cfg.ray_depth - 1
         # a lane's path takes at most ray_depth rounds, all lanes are dead
         # ray_depth rounds after a refill, and every refill but the last
         # with work left hands out at least ``thresh`` items
@@ -282,12 +296,14 @@ class WavefrontLoop(_GuardedLoop):
     def reset(self, seed32: int, pix_base: int, samp_base: int) -> None:
         self.refill.reset(seed32, pix_base, samp_base)
         self.ls.reset()
-        self.test()  # the loop test before the first round
+        self.test(L.TAIL_NONE)  # the loop test before the first round
 
-    def test(self) -> None:
-        fn = round_test_plain if self.core.plain else round_test
-        fn(self.ls, L.COUNTER, alive=self.core.state[12], counter=self.refill.counter,
-           total=self.refill.total, thresh=self.thresh)
+    def test(self, tail: int | None = None) -> None:
+        """N5: the round's tail (``tail``, by default the core's) and test."""
+        c = self.core
+        fn = round_tail_plain if c.plain else round_tail
+        fn(self.ls, L.COUNTER, c.state, c.depth, c.tail if tail is None else tail, self.last,
+           counter=self.refill.counter, total=self.refill.total, thresh=self.thresh)
 
     def round(self) -> None:
         guard(self.ls.refill_pred, self.refill, "refill", self.sections)
@@ -437,7 +453,8 @@ class StickyBody:
     counters ``k``, depths and work ids and the radiance slots ``acc``
     carried from round to round. A call is one round: the restart
     (``ops/refill.py:restart``, N2b on a card: flush the finished paths,
-    restart the dead lanes, every lane's work id) and one bounce."""
+    restart the dead lanes, every lane's work id) and one bounce; the
+    round's tail (``tail``, as ``CoreBody``'s) steps the depths."""
 
     def __init__(self, cfg: TraceConfig, scene, cam: CameraArrays, width: int, height: int,
                  n_pix: int, samples: int, lanes: int, plain: bool = False):
@@ -455,7 +472,8 @@ class StickyBody:
         self.depth = torch.zeros((b,), dtype=torch.int32, device=dev)
         self.wid = torch.zeros((b,), dtype=torch.int32, device=dev)
         self.acc = torch.zeros((3, self.jmax * b), dtype=torch.float32, device=dev)  # j * b + l
-        self.core, _ = _make_bounce_core(cfg, scene, self.seed_off, plain)
+        self.core, fused = _make_bounce_core(cfg, scene, self.seed_off, plain)
+        self.tail = L.TAIL_FUSED if fused else L.TAIL_DEPTH
 
     def reset(self, seed32: int, pix_base: int, samp_base: int) -> None:
         """A frame's seed and offsets in, every lane dead with no path."""
@@ -475,14 +493,13 @@ class StickyBody:
 
     def __call__(self) -> None:
         self.restart()
-        self.state.copy_(self.core(self.state, self.wid, self.depth))
-        self.depth += 1
+        _bounce_into(self.state, self.core(self.state, self.wid, self.depth))
 
 
 class StickyLoop(_GuardedLoop):
     """The pixel-sticky engine off the K5 route: a round is a ``StickyBody``
-    call and the round test (N5 in ``STICKY`` mode: lanes alive or with
-    paths left)."""
+    call and the round's tail and test (N5 in ``STICKY`` mode: lanes alive
+    or with paths left)."""
 
     def __init__(self, cfg: TraceConfig, scene, cam: CameraArrays, width: int, height: int,
                  n_pix: int, samples: int, lanes: int, plain: bool = False):
@@ -490,16 +507,20 @@ class StickyLoop(_GuardedLoop):
         super().__init__(self.body.state.device)
         # a lane walks jmax * samples paths of at most ray_depth rounds each
         self.cap = self.body.jmax * samples * max(cfg.ray_depth, 1)
+        self.last = cfg.ray_depth - 1
+        self.n_pix, self.samples = n_pix, samples
 
     def reset(self, seed32: int, pix_base: int, samp_base: int) -> None:
         self.body.reset(seed32, pix_base, samp_base)
         self.ls.reset()
-        self.test()
+        self.test(L.TAIL_NONE)
 
-    def test(self) -> None:
+    def test(self, tail: int | None = None) -> None:
+        """N5: the round's tail (``tail``, by default the core's) and test."""
         b = self.body
-        fn = round_test_plain if b.plain else round_test
-        fn(self.ls, L.STICKY, alive=b.state[12], k=b.k, kmax=b.kmax)
+        fn = round_tail_plain if b.plain else round_tail
+        fn(self.ls, L.STICKY, b.state, b.depth, b.tail if tail is None else tail, self.last,
+           k=b.k, n_pix=self.n_pix, samples=self.samples)
 
     def round(self) -> None:
         self.body()

@@ -65,7 +65,7 @@ BUILD_INFO: dict = {}  # path, seconds (0.0 when cached), log of the last build
 # K1-final, the modular path's K4 and K3 (batch and lane mode), the sticky
 # engine's K5, the BVH backend's K6, the modular bounce's shade (N1a) and
 # finish (N1b), the lane engines' refill (N2a) and restart (N2b), the modular
-# route's camera stage (N4), the lane loops' round test (N5)
+# route's camera stage (N4), the lane round's tail and loop test (N5)
 LAUNCHES = {"primary": 0, "bounce": 0, "final": 0, "nearest": 0, "sampler": 0,
             "persistent": 0, "bvh": 0, "shade": 0, "finish": 0, "refill": 0, "restart": 0,
             "camera": 0, "loop": 0}
@@ -219,8 +219,9 @@ def library() -> ctypes.CDLL:
         lib.rt_launch_restart.restype = i
         lib.rt_launch_camera.argtypes = [p, p, p, p, p, i, i, p, ll, p]
         lib.rt_launch_camera.restype = i
-        lib.rt_launch_round_test.argtypes = [i, p, p, p, ll, p, ll, ll, p, p, p, p]
-        lib.rt_launch_round_test.restype = i
+        lib.rt_launch_round_tail.argtypes = [i, i, p, p, p, p, p, ll, ll, ll, i, p, ll, ll, p, p,
+                                             p, p]
+        lib.rt_launch_round_tail.restype = i
         lib.rt_if_begin.argtypes = [p, p, p]
         lib.rt_if_begin.restype = i
         lib.rt_if_end.argtypes = [p]
@@ -529,20 +530,25 @@ def launch_camera(px, py, wid, seed_off, cam_row, width, height, out) -> None:
     _count("camera")
 
 
-def launch_round_test(mode, alive, k, kmax, b, counter, total, thresh, loop, preds,
-                      scratch) -> None:
-    """N5; the tensors a mode does not read are None."""
+def launch_round_tail(mode, tail, state, alive, depth, k, kmax, b, n_pix, samples, last,
+                      counter, total, thresh, loop, preds, scratch) -> None:
+    """N5; ``state`` the (13, b) state (the fused tail) and ``alive`` its row
+    12, or ``state`` None and ``alive`` a (b,) row; ``kmax`` None: the kernel
+    computes each lane's from its index, ``n_pix`` and ``samples``; the
+    tensors a mode or a tail does not read are None; ``scratch`` a
+    ``ops/loop.py:LoopState``'s, whose word 2 the launch takes."""
     lib = library()
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
     with _on(loop.device) as stream:
-        rc = lib.rt_launch_round_test(
-            int(mode), ptr(alive), ptr(k), ptr(kmax), int(b), ptr(counter), int(total),
-            int(thresh), loop.data_ptr(), preds.data_ptr(), scratch.data_ptr(), stream,
+        rc = lib.rt_launch_round_tail(
+            int(mode), int(tail), ptr(state), ptr(alive), ptr(depth), ptr(k), ptr(kmax), int(b),
+            int(n_pix), int(samples), int(last), ptr(counter), int(total), int(thresh),
+            loop.data_ptr(), preds.data_ptr(), scratch.data_ptr(), stream,
         )
-        _raise_on(rc, "rt_launch_round_test", scratch)
+        _raise_on(rc, "rt_launch_round_tail", scratch)
     _count("loop")
 
 

@@ -25,8 +25,9 @@
   ``_wf_finish`` return it): equal where the two frames' path vertices are
   equal, as on these cases; where they differ (a flipped accept decision
   ends a path a round earlier or later) within one round.
-* On a card (marked ``cuda``; skipped here): N5 against its twin, eagerly
-  and replayed from a graph with the launch in an IF node; graphed lane
+* On a card (marked ``cuda``; skipped here): N5 against its twin, the
+  test alone and each tail (``round_tail``), eagerly and replayed from a
+  graph with the launch in an IF node; graphed lane
   frames against eager ones (image, path vertices, rounds, refills,
   launches), their host reads per frame, and no implicit sync of the card
   in a graphed frame (``torch.cuda.set_sync_debug_mode``).
@@ -50,6 +51,7 @@ from raytracing_course_2024_tpu_torch.ops.bounce import bounce_scene
 from raytracing_course_2024_tpu_torch.ops.camera import camera_arrays
 from raytracing_course_2024_tpu_torch.ops.persistent import S_ACC, S_K, persistent_plain
 from raytracing_course_2024_tpu_torch.ops.scene_intersect import modular_scene
+from raytracing_course_2024_tpu_torch.ops.shade import PARK_DIR, PARK_ORIGIN
 from raytracing_course_2024_tpu_torch.runtime.graphs import GraphCache
 from torch_parity import builds, to_jnp
 
@@ -158,9 +160,22 @@ def _scene(route):
     return scene, cfg, camera_arrays(s.camera), s.width, s.height
 
 
+def _park_and_step(state, depth, last):
+    """The end of a round as the port ran it on the host before N5 took it
+    over: the fused core's final-depth cap and park (a no-op after the XLA
+    core, whose N1a applies the cap and whose N1b parks), then the depth
+    step."""
+    cont = (state[12] > 0.5) & (depth < last)
+    state[12] = cont.to(torch.float32)
+    state[0:3] = torch.where(cont, state[0:3], PARK_ORIGIN)
+    state[3:6] = torch.where(cont, state[3:6], PARK_DIR)
+    depth += 1
+
+
 def _host_wavefront(scene, cfg, cam, w, h, n_pix, spp, lanes, pix_base, samp_base):
     """The counter wavefront as the host ran it: the lanes alive read every
-    round, the work counter and the path vertices mirrored."""
+    round, the work counter and the path vertices mirrored; a round's
+    bounce, cap, park and depth step written out."""
     core = W.CoreBody(cfg, scene, lanes)
     refill = W.RefillBody(core, cam, w, h, n_pix, spp)
     refill.reset(SEED32, pix_base, samp_base)
@@ -175,7 +190,8 @@ def _host_wavefront(scene, cfg, cam, w, h, n_pix, spp, lanes, pix_base, samp_bas
             n_take = min(n_dead, total - counter)
             counter += n_take
         nverts += lanes - n_dead + n_take
-        core()
+        core.state.copy_(core.core(core.state, core.wid, core.depth))
+        _park_and_step(core.state, core.depth, cfg.ray_depth - 1)
         rounds += 1
         n_dead = lanes - int((core.state[12] > 0.5).sum())
     img = W._wf_finish(core.state, refill.work, refill.done, refill.drop, n_pix, spp)
@@ -183,7 +199,8 @@ def _host_wavefront(scene, cfg, cam, w, h, n_pix, spp, lanes, pix_base, samp_bas
 
 
 def _host_sticky(scene, cfg, cam, w, h, n_pix, spp, lanes, pix_base, samp_base):
-    """The sticky engine as the host ran it: ``more`` read every round."""
+    """The sticky engine as the host ran it: ``more`` read every round; a
+    round's restart, bounce, cap, park and depth step written out."""
     body = W.StickyBody(cfg, scene, cam, w, h, n_pix, spp, lanes)
     body.reset(SEED32, pix_base, samp_base)
     nverts = rounds = 0
@@ -191,7 +208,7 @@ def _host_sticky(scene, cfg, cam, w, h, n_pix, spp, lanes, pix_base, samp_base):
         body.restart()
         nverts += int((body.state[12] > 0.5).sum())
         body.state.copy_(body.core(body.state, body.wid, body.depth))
-        body.depth += 1
+        _park_and_step(body.state, body.depth, cfg.ray_depth - 1)
         rounds += 1
     body.restart()
     return body.acc[:, :n_pix] * (1.0 / spp), float(nverts), rounds, 0
@@ -417,6 +434,64 @@ def test_n5_equals_its_twin_on_the_card(card, mode, n):
             LP.round_test_plain(twin, mode, **ins)
         torch.cuda.synchronize()
         assert same(kern, twin), step
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tail", [LP.TAIL_NONE, LP.TAIL_DEPTH, LP.TAIL_FUSED],
+                         ids=["none", "depth", "fused"])
+@pytest.mark.parametrize("mode", [LP.COUNTER, LP.STICKY], ids=["counter", "sticky"])
+@pytest.mark.parametrize("n", [997, 262_144, 1_048_576])
+def test_n5_tails_equal_their_twin_on_the_card(card, mode, tail, n):
+    """N5's tails against ``round_tail_plain``, bit for bit (state rows,
+    depths, counters, predicates): three rounds in a row on a state with
+    lanes alive, dying and parked on entry, then replayed from a graph whose
+    IF node's predicate goes true, false, true with the state changed
+    before each replay."""
+    from raytracing_course_2024_tpu_torch.runtime.graphs import capture, guard
+
+    def lanes(seed):
+        g = np.random.default_rng(seed)
+        st = (g.random((13, n)) * 4.0 - 2.0).astype(np.float32)
+        st[12] = (g.random(n) < 0.5).astype(np.float32)
+        parked = (st[12] < 0.5) & (g.random(n) < 0.5)
+        st[0:3, parked] = np.float32(PARK_ORIGIN)
+        st[3:6, parked] = np.float32(PARK_DIR)
+        return (torch.from_numpy(st).to(card),
+                torch.from_numpy(g.integers(0, 7, n).astype(np.int32)).to(card))
+
+    k = torch.from_numpy(np.random.default_rng(1).integers(0, 8, n)).to(card)
+    kw = dict(k=k, n_pix=2 * n + 5, samples=2, counter=torch.tensor(3 * n, device=card),
+              total=4 * n, thresh=n // 8)
+    kern = [*lanes(0), LP.LoopState(card)]
+    twin = [kern[0].clone(), kern[1].clone(), LP.LoopState(card)]
+
+    def run(x, fn):
+        return lambda: fn(x[2], mode, x[0], x[1], tail, 5, **kw)
+
+    def same():
+        return (torch.equal(kern[0].view(torch.int32), twin[0].view(torch.int32))
+                and torch.equal(kern[1], twin[1]) and torch.equal(kern[2].loop, twin[2].loop)
+                and torch.equal(kern[2].preds, twin[2].preds)
+                and not kern[2].scratch.any().item())
+
+    for _ in range(3):
+        run(kern, LP.round_tail)()
+        run(twin, LP.round_tail_plain)()
+    assert same()
+    pred = torch.ones((), dtype=torch.bool, device=card)
+    replay, _, _ = capture(lambda: guard(pred, run(kern, LP.round_tail), "test", {}), card)
+    run(twin, LP.round_tail_plain)()
+    for step, on in enumerate((True, False, True), start=1):
+        st, depth = lanes(step)
+        for x in (kern, twin):
+            x[0].copy_(st)
+            x[1].copy_(depth)
+        pred.fill_(on)
+        replay()
+        if on:
+            run(twin, LP.round_tail_plain)()
+        torch.cuda.synchronize()
+        assert same(), step
 
 
 @pytest.mark.cuda

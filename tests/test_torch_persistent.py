@@ -29,7 +29,7 @@ from raytracing_course_2024_tpu_torch.ops import rng as trng
 from raytracing_course_2024_tpu_torch.ops.bounce import bounce_scene
 from raytracing_course_2024_tpu_torch.ops.camera import camera_arrays, pack_camera_row
 from raytracing_course_2024_tpu_torch.ops.mixture import mixture_body
-from raytracing_course_2024_tpu_torch.ops.loop import LoopState
+from raytracing_course_2024_tpu_torch.ops.loop import COUNTER, TAIL_FUSED, LoopState, round_tail
 from raytracing_course_2024_tpu_torch.ops.persistent import ids, persistent_plain, persistent_round
 from test_torch_bounce import _assert_states_agree
 from test_torch_sampling import GGX_TOL, PDF_FRAC, _mixture_case, close, jv, tv
@@ -158,8 +158,9 @@ def test_persistent_round_cpu_wrapper_runs_plain_and_counts_nothing():
 
 @pytest.mark.parametrize("name", ["mixed", "cornell"])
 def test_fused_core_lane_mode_matches_jax_core(name):
-    """K1 in lane mode (plain) + the depth cap + park against the JAX core on
-    the same keys and per-lane depths."""
+    """K1 in lane mode (plain) + the round's tail (the depth cap and park,
+    ``ops/loop.py:round_tail`` with ``TAIL_FUSED``, its plain version here)
+    against the JAX core on the same keys and per-lane depths."""
     c = _case(name)
     s = c["state"][:13].copy()
     depth = c["state"][14].astype(np.int32) % c["depth_n"]
@@ -175,7 +176,12 @@ def test_fused_core_lane_mode_matches_jax_core(name):
     tcfg = P.TraceConfig(ray_depth=c["depth_n"], bg_color=c["bg"], max_tries=K)
     tcore, fused = W._make_bounce_core(tcfg, bounce_scene(c["ta"], c["ts"], "cpu"), SEED32)
     assert fused
-    got = tcore(torch.from_numpy(s), torch.from_numpy(wid), torch.from_numpy(depth)).numpy()
+    got = tcore(torch.from_numpy(s), torch.from_numpy(wid), torch.from_numpy(depth))
+    ls, tdepth = LoopState("cpu"), torch.from_numpy(depth.copy())
+    round_tail(ls, COUNTER, got, tdepth, TAIL_FUSED, c["depth_n"] - 1,
+               counter=torch.tensor(0), total=1)
+    assert torch.equal(tdepth, torch.from_numpy(depth) + 1)
+    got = got.numpy()
     _assert_states_agree(got, want, live_min=0.1)
     dead = (got[12] < 0.5) & (want[12] < 0.5)  # parked alike on both sides
     np.testing.assert_array_equal(got[0:6][:, dead], want[0:6][:, dead])

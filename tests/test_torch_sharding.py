@@ -278,10 +278,11 @@ def _launches(dev):
             (t(13, 64), t(64, 8)), t())),
         ("camera", "camera", lambda: kernels.launch_camera(
             t(), t(), t(), t(2), t(128), 16, 12, t(13, 64))),
-        ("loop", "loop", lambda: kernels.launch_round_test(
-            0, t(), None, None, 64, t(()), 256, 8, t(6), t(2), t(3))),
-        ("loop-sticky", "loop", lambda: kernels.launch_round_test(
-            1, t(), t(), t(), 64, None, 0, 1, t(6), t(2), t(3))),
+        ("loop", "loop", lambda: kernels.launch_round_tail(
+            0, 2, t(13, 64), t(), t(), None, None, 64, 0, 0, 5, t(()), 256, 8, t(6), t(2),
+            t(3))),
+        ("loop-sticky", "loop", lambda: kernels.launch_round_tail(
+            1, 1, None, t(), t(), t(), None, 64, 50, 2, 5, None, 0, 1, t(6), t(2), t(3))),
         ("finish", "finish", lambda: kernels.launch_finish(
             t(13, 64), (t(13, 64), t(64, 8)), [t() for _ in range(4)], t(), t(), t(2), 2, 64, 63,
             62, t(),
