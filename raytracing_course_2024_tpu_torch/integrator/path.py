@@ -72,6 +72,7 @@ from ..ops.scene_intersect import ModularScene
 from ..ops.shade import finish, finish_plain, sampler_inputs, shade, shade_plain
 from ..ops.traverse import nearest_table
 from ..ops.vec import Vec3
+from ..runtime.profiling import count, span
 from ..scene.types import SceneStatics
 
 log = logging.getLogger("rt_torch")
@@ -404,13 +405,22 @@ def render_pixels(scene, seed: int, wid: torch.Tensor, px: torch.Tensor,
     both fresh tensors. Each sample is one call of a ``SampleBody``;
     ``graphs`` (a graph cache of ``scene``) replays it as a captured graph
     on either route; ``plain`` runs eagerly."""
-    b = px.shape[0]
-    body, run = sample_body(scene, cam_row, cfg, width, height, b, plain,
+    body, run = sample_body(scene, cam_row, cfg, width, height, px.shape[0], plain,
                             None if plain else graphs)
     body.load(seed, wid, px, py)
+    return run_samples(body, run, samples, n_pix)
+
+
+def run_samples(body: SampleBody, run, samples: int, n_pix: int):
+    """``samples`` calls of a loaded ``body`` (``run``: the body or its
+    graph's replay), sample ``s`` at work-id offset ``s * n_pix``. Returns
+    ((3, B) mean radiance, path vertices as a 0-dim float64 tensor), fresh
+    tensors, and counts the lane slots the levels' launches cover
+    (``rt.lane_slots``: lanes x levels x samples)."""
     for s in range(samples):
         body.at(s * n_pix)
         run()
+    count("rt.lane_slots", body.wid.shape[0] * max(body.cfg.ray_depth, 1) * samples)
     return body.acc * (1.0 / samples), body.nrays.clone()
 
 
@@ -438,8 +448,10 @@ def render_batches(scene, seed: int, cam_row: torch.Tensor, cfg: TraceConfig, wi
     ``samp_base`` .. ``samp_base + samples - 1``.
 
     Pixels are cut into batches of ``plan_batches`` lanes; lane (replica r,
-    pixel p) renders samples ``samp_base + r * samples / replicas`` onwards
-    through ``render_pixels``. A pixel past the last row renders the last
+    pixel p) renders samples ``samp_base + r * samples / replicas`` onwards,
+    as ``render_pixels`` renders them (spans ``rt.batch.prep``: a batch's
+    lanes into its ``SampleBody``; ``rt.batch.fold``: the replica mean and
+    the count's sum). A pixel past the last row renders the last
     row's pixel of its column (the camera always sees the true height; the
     caller crops it). Returns (per-batch (3, B) channel-major mean radiance,
     path vertices as a 0-dim float64 tensor). ``progress`` logs each batch;
@@ -455,20 +467,24 @@ def render_batches(scene, seed: int, cam_row: torch.Tensor, cfg: TraceConfig, wi
     outs = []
     nrays = torch.zeros((), dtype=torch.float64, device=dev)
     for i in range(n_batches):
-        lin = torch.arange(b, dtype=torch.int64, device=dev)
-        pixg = pix_base + torch.clamp(lin + i * b, max=n_pix - 1)
-        px, py = pixg % width, torch.clamp(pixg // width, max=height - 1)
-        rep = torch.arange(replicas, dtype=torch.int64, device=dev)
-        # lane (replica r, pixel p) renders samples samp_base + r*spp_r .. + spp_r - 1
-        wid = ((samp_base + rep[:, None] * spp_r) * total + (py * width + px)[None, :]).reshape(-1)
-        out, rays = render_pixels(scene, seed, wid.to(torch.int32),
-                                  px.repeat(replicas).to(torch.float32),
-                                  py.repeat(replicas).to(torch.float32), cam_row, cfg, width,
-                                  height, spp_r, total, plain=plain, graphs=graphs)
-        if replicas > 1:
-            out = out.reshape(3, replicas, b).mean(dim=1)
-        outs.append(out)
-        nrays += rays
+        with span("rt.batch.prep"):
+            lin = torch.arange(b, dtype=torch.int64, device=dev)
+            pixg = pix_base + torch.clamp(lin + i * b, max=n_pix - 1)
+            px, py = pixg % width, torch.clamp(pixg // width, max=height - 1)
+            rep = torch.arange(replicas, dtype=torch.int64, device=dev)
+            # lane (replica r, pixel p) renders samples samp_base + r*spp_r .. + spp_r - 1
+            wid = ((samp_base + rep[:, None] * spp_r) * total
+                   + (py * width + px)[None, :]).reshape(-1)
+            body, run = sample_body(scene, cam_row, cfg, width, height, b * replicas, plain,
+                                    None if plain else graphs)
+            body.load(seed, wid.to(torch.int32), px.repeat(replicas).to(torch.float32),
+                      py.repeat(replicas).to(torch.float32))
+        out, rays = run_samples(body, run, spp_r, total)
+        with span("rt.batch.fold"):
+            if replicas > 1:
+                out = out.reshape(3, replicas, b).mean(dim=1)
+            outs.append(out)
+            nrays += rays
         if progress:
             log.info("render progress: %d/%d batches", i + 1, n_batches)
     return outs, nrays

@@ -86,6 +86,7 @@ from ..ops.shade import PARK_DIR, PARK_ORIGIN, finish, finish_plain, shade, shad
 from ..ops.traverse import nearest_table
 from ..ops.vec import Vec3
 from ..runtime.graphs import guard, settle
+from ..runtime.profiling import count, span
 from .path import TraceConfig, check_sampler, graphed_body, sample_bounce
 
 
@@ -260,9 +261,10 @@ class _GuardedLoop:
     body (``sections``), and a call of ``rounds_per_replay`` rounds, each
     guarded by ``ls.more``; a subclass defines ``round`` (one round's work,
     its round test last), ``reset`` and ``cap`` (the most rounds a frame
-    may take)."""
+    may take). ``lanes``: the lanes each round's launches cover."""
 
-    def __init__(self, dev):
+    def __init__(self, dev, lanes: int):
+        self.lanes = lanes
         self.ls = LoopState(dev)
         self.reader = _Lagged(self.ls.loop)
         self.sections: dict = {}
@@ -284,7 +286,7 @@ class WavefrontLoop(_GuardedLoop):
                  n_pix: int, samples: int, lanes: int, thresh: int, plain: bool = False):
         self.core = CoreBody(cfg, scene, lanes, plain)
         self.refill = RefillBody(self.core, cam, width, height, n_pix, samples)
-        super().__init__(self.core.state.device)
+        super().__init__(self.core.state.device, lanes)
         self.thresh = thresh
         self.last = cfg.ray_depth - 1
         # a lane's path takes at most ray_depth rounds, all lanes are dead
@@ -364,22 +366,31 @@ class _Lagged:
         self.posted += 1
 
     def read(self) -> list:
-        i = self.read_at % 2
-        if self.events:
-            self.events[i].synchronize()
-        self.read_at += 1
-        with _COUNT_LOCK:
-            HOST_READS[0] += 1
-        return self.host[i].tolist()
+        """The counters of the call before the last (span ``rt.loop.wait``:
+        the event's wait and the copy's read)."""
+        with span("rt.loop.wait"):
+            i = self.read_at % 2
+            if self.events:
+                self.events[i].synchronize()
+            self.read_at += 1
+            with _COUNT_LOCK:
+                HOST_READS[0] += 1
+            return self.host[i].tolist()
 
 
-def _run_loop(loop: _GuardedLoop, run, what: str) -> list:
-    """Calls ``run`` (``loop``'s rounds, a replay on a card) until the
-    round test says stop, with the next call always queued before the host
-    waits for the counters of the one before it. Raises where the counters
-    show more than ``loop.cap`` rounds. Returns the final counters
-    (``ops/loop.py``: ``NVERTS``, ``ROUNDS``, ``REFILLS``) and adds the
-    launches of the rounds and refills run (``settle``)."""
+def _run_loop(loop: _GuardedLoop, run, what: str, seed32: int, pix_base: int,
+              samp_base: int) -> list:
+    """Resets ``loop`` to the frame (span ``rt.loop.reset``, the first
+    round test included), then calls ``run`` (``loop``'s rounds, a replay
+    on a card) until the round test says stop, with the next call always
+    queued before the host waits for the counters of the one before it.
+    Raises where the counters show more than ``loop.cap`` rounds. Returns
+    the final counters (``ops/loop.py``: ``NVERTS``, ``ROUNDS``,
+    ``REFILLS``) and adds the launches of the rounds and refills run
+    (``settle``) and the lane slots of the rounds (``rt.lane_slots``: lanes
+    x rounds)."""
+    with span("rt.loop.reset"):
+        loop.reset(seed32, pix_base, samp_base)
     reader = loop.reader
     reader.restart()
     run()
@@ -393,6 +404,7 @@ def _run_loop(loop: _GuardedLoop, run, what: str) -> list:
         if not vals[L.MORE]:
             break
     settle(loop.sections, {"round": vals[L.ROUNDS], "refill": vals[L.REFILLS]})
+    count("rt.lane_slots", loop.lanes * vals[L.ROUNDS])
     return vals
 
 
@@ -428,13 +440,13 @@ def render_wavefront(seed32: int, pix_base: int, samp_base: int, cam: CameraArra
         return img, nverts, rounds
     loop, run = wavefront_loop(cfg, scene, cam, width, height, n_pix, samples, lanes, plain,
                                None if plain else graphs)
-    loop.reset(seed32, pix_base, samp_base)
-    vals = _run_loop(loop, run, "counter wavefront pass")
+    vals = _run_loop(loop, run, "counter wavefront pass", seed32, pix_base, samp_base)
     with _COUNT_LOCK:
         REFILLS[0] += vals[L.REFILLS]
     refill = loop.refill
-    return _wf_finish(loop.core.state, refill.work, refill.done, refill.drop, n_pix, samples), \
-        float(vals[L.NVERTS]), vals[L.ROUNDS]
+    with span("rt.loop.finish"):
+        img = _wf_finish(loop.core.state, refill.work, refill.done, refill.drop, n_pix, samples)
+    return img, float(vals[L.NVERTS]), vals[L.ROUNDS]
 
 
 def _wf_finish(state, work, done, drop, n_pix: int, samples: int) -> torch.Tensor:
@@ -504,7 +516,7 @@ class StickyLoop(_GuardedLoop):
     def __init__(self, cfg: TraceConfig, scene, cam: CameraArrays, width: int, height: int,
                  n_pix: int, samples: int, lanes: int, plain: bool = False):
         self.body = StickyBody(cfg, scene, cam, width, height, n_pix, samples, lanes, plain)
-        super().__init__(self.body.state.device)
+        super().__init__(self.body.state.device, lanes)
         # a lane walks jmax * samples paths of at most ray_depth rounds each
         self.cap = self.body.jmax * samples * max(cfg.ray_depth, 1)
         self.last = cfg.ray_depth - 1
@@ -551,16 +563,18 @@ def render_wavefront_sticky(seed32: int, pix_base: int, samp_base: int, cam: Cam
     if fused and n_pix <= b:
         loop, run = graphed_body(graphs, scene, ("sticky-k5", cfg, *frame), lambda: (
             FusedStickyLoop(cfg, scene, cam, width, height, n_pix, samples, plain)))
-        loop.reset(seed32, pix_base, samp_base)
-        vals = _run_loop(loop, run, "sticky frame")
-        return loop.finish(), float(vals[L.NVERTS]), vals[L.ROUNDS]
+        vals = _run_loop(loop, run, "sticky frame", seed32, pix_base, samp_base)
+        with span("rt.loop.finish"):
+            img = loop.finish()
+        return img, float(vals[L.NVERTS]), vals[L.ROUNDS]
     loop, run = graphed_body(graphs, scene, ("sticky", b, cfg, *frame), lambda: StickyLoop(
         cfg, scene, cam, width, height, n_pix, samples, b, plain))
-    loop.reset(seed32, pix_base, samp_base)
-    vals = _run_loop(loop, run, "sticky frame")
+    vals = _run_loop(loop, run, "sticky frame", seed32, pix_base, samp_base)
     body = loop.body
-    body.restart()  # final flush, once, after the last round: the last paths are still in-lane
-    return body.acc[:, :n_pix] * (1.0 / samples), float(vals[L.NVERTS]), vals[L.ROUNDS]
+    with span("rt.loop.finish"):
+        body.restart()  # final flush, once, after the last round: the last paths are still in-lane
+        img = body.acc[:, :n_pix] * (1.0 / samples)
+    return img, float(vals[L.NVERTS]), vals[L.ROUNDS]
 
 
 def _sticky_inputs(seed32: int, pix_base: int, samp_base: int, cam: CameraArrays, scene,
@@ -595,7 +609,7 @@ class FusedStickyLoop(_GuardedLoop):
         self.ins, self.state, args = _sticky_inputs(0, 0, 0, cam, scene, cfg, width, height,
                                                     n_pix, samples)
         dev = self.state.device
-        super().__init__(dev)
+        super().__init__(dev, n_pix)
         self.plain = plain
         self.sb = torch.zeros((3,), dtype=torch.int64, device=dev)
         self.args = (self.sb[0], args[1], self.sb[1], self.sb[2], *args[4:])

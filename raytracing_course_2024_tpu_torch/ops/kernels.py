@@ -9,7 +9,9 @@ targets ``sm_90a`` (Hopper) with a plain C interface, so no PyTorch header
 is compiled. ``-Xptxas -v`` writes each kernel's registers, shared memory
 and spills into the build log next to the library.
 
-Importing this module builds nothing; ``library()`` builds on first call.
+Importing this module builds nothing; ``library()`` builds on first call,
+under a lock of its own (shards render from threads), and each build names
+its objects by process and thread.
 Each ``launch_*`` function makes its tensors' device current for the launch
 and launches on that device's current stream, so shards on several cards,
 or on threads, each launch where their data lies. ``LAUNCHES`` counts the
@@ -42,6 +44,8 @@ from pathlib import Path
 
 import torch
 
+from ..runtime.profiling import span
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
@@ -59,6 +63,7 @@ NVCC_FLAGS = (
 
 
 _LIB = None
+_LIB_LOCK = threading.Lock()  # the first load: one build however many threads ask
 BUILD_INFO: dict = {}  # path, seconds (0.0 when cached), log of the last build
 
 # kernel launches per wrapper: the fused K2 / K1 (batch and lane mode) /
@@ -148,7 +153,8 @@ def _build() -> Path:
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
-    stem = f"rt_kernels_{tag}.{os.getpid()}"
+    me = f"{os.getpid()}.{threading.get_ident()}"
+    stem = f"rt_kernels_{tag}.{me}"
     objs = [BUILD_DIR / f"{stem}.{Path(s).stem}.o" for s in SOURCES]
     t0 = time.perf_counter()
     jobs = []
@@ -161,7 +167,7 @@ def _build() -> Path:
         out, _ = proc.communicate()
         text += f"$ {' '.join(cmd)}\n{out}"
         failed |= proc.returncode != 0
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+    tmp = lib.with_suffix(f".{me}.tmp")
     if not failed:
         cmd = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
         res = subprocess.run(cmd, capture_output=True, text=True)
@@ -179,69 +185,78 @@ def _build() -> Path:
 
 
 def library() -> ctypes.CDLL:
-    """The loaded kernel library, built on first use."""
-    global _LIB
+    """The loaded kernel library, built on first use (span
+    ``rt.setup.library``: nvcc or the cached load)."""
     if _LIB is None:
-        lib = ctypes.CDLL(str(_build()))
-        p, i, u, f, ll = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
-                          ctypes.c_float, ctypes.c_longlong)
-        ctr = [u, u, u, u]  # Ctr: base, cand, row, diel
-        scene = [p, p, i, p, p, i, i, f, f, f, i]  # tables, lights, bg, max_tries
-        lib.rt_launch_bounce.argtypes = [
-            p, p, ll, p, p, *ctr, p, u, *scene, i, p, p, p,
-        ]
-        lib.rt_launch_bounce.restype = i
-        lib.rt_launch_primary.argtypes = [
-            p, p, p, i, i, p, ll, p, p, *ctr, *scene, p,
-        ]
-        lib.rt_launch_primary.restype = i
-        lib.rt_launch_dense_nearest.argtypes = [p, p, i, ll, f, p, p, p, p]
-        lib.rt_launch_dense_nearest.restype = i
-        lib.rt_launch_bvh_nearest.argtypes = [p, p, i, i, p, i, ll, f, p, p, p, p, p]
-        lib.rt_launch_bvh_nearest.restype = i
-        lib.rt_launch_sampler.argtypes = [
-            p, p, p, p, *ctr, p, u, p, p, i, i, i, ll, p, p, p,
-        ]
-        lib.rt_launch_sampler.restype = i
-        lib.rt_launch_persistent.argtypes = [
-            p, p, ll, p, p, p, p, i, i, p, u, *ctr, u, i, *scene, p, p, p, p, p,
-        ]
-        lib.rt_launch_persistent.restype = i
-        lib.rt_launch_shade.argtypes = [p, ll, p, p, p, i, p, p, i, i, i, p, i, f, f, f, i, p, p, p,
-                                        p]
-        lib.rt_launch_shade.restype = i
-        lib.rt_launch_finish.argtypes = [p, ll, p, p, p, p, p, p, u, u, u, u, p, i, i, i, i, p, p]
-        lib.rt_launch_finish.restype = i
-        lib.rt_launch_refill.argtypes = [p, ll, p, p, p, ll, p, p, p, p, p, ll, ll, i, i, p, ll,
-                                         p]
-        lib.rt_launch_refill.restype = i
-        lib.rt_launch_restart.argtypes = [p, ll, p, p, p, p, ll, p, p, p, ll, ll, i, i, p]
-        lib.rt_launch_restart.restype = i
-        lib.rt_launch_camera.argtypes = [p, p, p, p, p, i, i, p, ll, p]
-        lib.rt_launch_camera.restype = i
-        lib.rt_launch_round_tail.argtypes = [i, i, p, p, p, p, p, ll, ll, ll, i, p, ll, ll, p, p,
-                                             p, p]
-        lib.rt_launch_round_tail.restype = i
-        lib.rt_if_begin.argtypes = [p, p, p]
-        lib.rt_if_begin.restype = i
-        lib.rt_if_end.argtypes = [p]
-        lib.rt_if_end.restype = i
-        lib.rt_stream_create.argtypes = []
-        lib.rt_stream_create.restype = p
-        lib.rt_bounce_geometry.argtypes = [ctypes.POINTER(ctypes.c_int)]
-        lib.rt_bounce_geometry.restype = None
-        lib.rt_persistent_resident_blocks.argtypes = []
-        lib.rt_persistent_resident_blocks.restype = i
-        lib.rt_dense_nearest_geometry.argtypes = [ctypes.POINTER(ctypes.c_int)]
-        lib.rt_dense_nearest_geometry.restype = None
-        lib.rt_bvh_nearest_geometry.argtypes = [ctypes.POINTER(ctypes.c_int)]
-        lib.rt_bvh_nearest_geometry.restype = None
-        lib.rt_sampler_resident_blocks.argtypes = []
-        lib.rt_sampler_resident_blocks.restype = i
-        lib.rt_restart_whole_lanes.argtypes = []
-        lib.rt_restart_whole_lanes.restype = ll
-        _LIB = lib
+        with _LIB_LOCK:
+            if _LIB is None:
+                with span("rt.setup.library"):
+                    _load()
     return _LIB
+
+
+def _load() -> None:
+    """Loads the library (``_build``) and declares every entry point."""
+    global _LIB
+    lib = ctypes.CDLL(str(_build()))
+    p, i, u, f, ll = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
+                      ctypes.c_float, ctypes.c_longlong)
+    ctr = [u, u, u, u]  # Ctr: base, cand, row, diel
+    scene = [p, p, i, p, p, i, i, f, f, f, i]  # tables, lights, bg, max_tries
+    lib.rt_launch_bounce.argtypes = [
+        p, p, ll, p, p, *ctr, p, u, *scene, i, p, p, p,
+    ]
+    lib.rt_launch_bounce.restype = i
+    lib.rt_launch_primary.argtypes = [
+        p, p, p, i, i, p, ll, p, p, *ctr, *scene, p,
+    ]
+    lib.rt_launch_primary.restype = i
+    lib.rt_launch_dense_nearest.argtypes = [p, p, i, ll, f, p, p, p, p]
+    lib.rt_launch_dense_nearest.restype = i
+    lib.rt_launch_bvh_nearest.argtypes = [p, p, i, i, p, i, ll, f, p, p, p, p, p]
+    lib.rt_launch_bvh_nearest.restype = i
+    lib.rt_launch_sampler.argtypes = [
+        p, p, p, p, *ctr, p, u, p, p, i, i, i, ll, p, p, p,
+    ]
+    lib.rt_launch_sampler.restype = i
+    lib.rt_launch_persistent.argtypes = [
+        p, p, ll, p, p, p, p, i, i, p, u, *ctr, u, i, *scene, p, p, p, p, p,
+    ]
+    lib.rt_launch_persistent.restype = i
+    lib.rt_launch_shade.argtypes = [p, ll, p, p, p, i, p, p, i, i, i, p, i, f, f, f, i, p, p, p,
+                                    p]
+    lib.rt_launch_shade.restype = i
+    lib.rt_launch_finish.argtypes = [p, ll, p, p, p, p, p, p, u, u, u, u, p, i, i, i, i, p, p]
+    lib.rt_launch_finish.restype = i
+    lib.rt_launch_refill.argtypes = [p, ll, p, p, p, ll, p, p, p, p, p, ll, ll, i, i, p, ll,
+                                     p]
+    lib.rt_launch_refill.restype = i
+    lib.rt_launch_restart.argtypes = [p, ll, p, p, p, p, ll, p, p, p, ll, ll, i, i, p]
+    lib.rt_launch_restart.restype = i
+    lib.rt_launch_camera.argtypes = [p, p, p, p, p, i, i, p, ll, p]
+    lib.rt_launch_camera.restype = i
+    lib.rt_launch_round_tail.argtypes = [i, i, p, p, p, p, p, ll, ll, ll, i, p, ll, ll, p, p,
+                                         p, p]
+    lib.rt_launch_round_tail.restype = i
+    lib.rt_if_begin.argtypes = [p, p, p]
+    lib.rt_if_begin.restype = i
+    lib.rt_if_end.argtypes = [p]
+    lib.rt_if_end.restype = i
+    lib.rt_stream_create.argtypes = []
+    lib.rt_stream_create.restype = p
+    lib.rt_bounce_geometry.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    lib.rt_bounce_geometry.restype = None
+    lib.rt_persistent_resident_blocks.argtypes = []
+    lib.rt_persistent_resident_blocks.restype = i
+    lib.rt_dense_nearest_geometry.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    lib.rt_dense_nearest_geometry.restype = None
+    lib.rt_bvh_nearest_geometry.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    lib.rt_bvh_nearest_geometry.restype = None
+    lib.rt_sampler_resident_blocks.argtypes = []
+    lib.rt_sampler_resident_blocks.restype = i
+    lib.rt_restart_whole_lanes.argtypes = []
+    lib.rt_restart_whole_lanes.restype = ll
+    _LIB = lib
 
 
 def _raise_on(rc: int, name: str, *tickets: torch.Tensor) -> None:

@@ -43,6 +43,7 @@ import torch.distributed as dist
 from ..integrator.path import DEFAULT_BATCH, TraceConfig, render_batches
 from ..integrator.wavefront import render_wavefront, render_wavefront_sticky
 from ..ops.camera import CameraArrays, pack_camera_row
+from ..runtime.profiling import count, span
 
 log = logging.getLogger("rt_torch")
 
@@ -204,7 +205,7 @@ def make_multihost_mesh(n_tiles: int, n_spp: int, devices=None, layout=None) -> 
 
 def render_frame_sharded(seed: int, scenes: dict, cfg: TraceConfig, cam: CameraArrays,
                          width: int, height: int, samples: int, mesh: Mesh,
-                         engine: str = "batch", graphs: dict | None = None):
+                         engine: str = "batch", graphs: dict | None = None, frame=None):
     """Full-frame mean radiance of one seed over ``mesh``.
 
     ``scenes`` maps each of this process's devices of the mesh to the scene
@@ -220,7 +221,11 @@ def render_frame_sharded(seed: int, scenes: dict, cfg: TraceConfig, cam: CameraA
     every process of the group must call it, and each returns the same.
     ``graphs`` maps devices to the graph caches of their scenes
     (``runtime/graphs.py``): every shard on a device replays that cache's
-    graphs, its ``pix_base`` and ``samp_base`` being values on the device."""
+    graphs, its ``pix_base`` and ``samp_base`` being values on the device.
+    Spans: ``rt.shard`` for each shard on its thread (``frame``, the
+    renderer's frame number, in its args), ``rt.shard.combine`` for the
+    gather of the tiles (``_combine`` across processes); each shard adds
+    its path vertices to the counter ``rt.path_vertices``."""
     if engine not in ("batch", "wavefront", "sticky"):
         raise ValueError(f"unknown engine {engine!r}")
     n_tiles, n_spp = mesh.shape["tile"], mesh.shape["spp"]
@@ -239,16 +244,19 @@ def render_frame_sharded(seed: int, scenes: dict, cfg: TraceConfig, cam: CameraA
         cache = (graphs or {}).get(dev)
         pix_base, samp_base = ti * n_pix, si * spp_per
         on = torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
-        with on:
+        with on, span("rt.shard", frame):
             if engine == "batch":
                 cam_row = torch.from_numpy(pack_camera_row(cam)[0]).to(dev)
                 outs, verts = render_batches(scenes[dev], seed32, cam_row, cfg, width, height,
                                              spp_per, DEFAULT_BATCH, pix_base, n_pix, samp_base,
                                              graphs=cache)
-                return torch.cat(outs, dim=1)[:, :n_pix], float(verts), 0
-            render = render_wavefront_sticky if engine == "sticky" else render_wavefront
-            return render(seed32, pix_base, samp_base, cam, scenes[dev], cfg, width, height,
-                          n_pix, spp_per, min(DEFAULT_BATCH, n_pix * spp_per), graphs=cache)
+                out = torch.cat(outs, dim=1)[:, :n_pix], float(verts), 0
+            else:
+                render = render_wavefront_sticky if engine == "sticky" else render_wavefront
+                out = render(seed32, pix_base, samp_base, cam, scenes[dev], cfg, width, height,
+                             n_pix, spp_per, min(DEFAULT_BATCH, n_pix * spp_per), graphs=cache)
+            count("rt.path_vertices", out[1])  # this process's shards, as rt.lane_slots
+            return out
 
     # one thread per distinct device, running its shards in mesh order: the
     # shards of one device share its stream, and threads that take turns at
@@ -261,20 +269,21 @@ def render_frame_sharded(seed: int, scenes: dict, cfg: TraceConfig, cam: CameraA
         futures = [pool.submit(lambda cells: [(c, shard(*c)) for c in cells], cells)
                    for cells in work.values()]
         done = dict(pair for f in futures for pair in f.result())
-    tiles = {}
-    for ti in dict.fromkeys(ti for ti, _ in mine):
-        tile_dev = mesh.devices[ti][0]
-        acc = done[(ti, 0)][0].to(tile_dev)
-        for si in range(1, n_spp):  # the spp mean, in mesh order
-            acc = acc + done[(ti, si)][0].to(tile_dev)
-        tiles[ti] = (acc / n_spp).reshape(3, rows_per, width)
-    verts = sum(done[c][1] for c in mine)
-    rounds = {c: done[c][2] for c in mine}
-    if mesh.ranks is None:
-        home = mesh.devices[0][0]
-        img = torch.cat([tiles[ti].to(home) for ti in range(n_tiles)], dim=1)
-    else:
-        img, verts, rounds = _combine(tiles, verts, rounds, mesh, rows_per, width)
+    with span("rt.shard.combine", frame):
+        tiles = {}
+        for ti in dict.fromkeys(ti for ti, _ in mine):
+            tile_dev = mesh.devices[ti][0]
+            acc = done[(ti, 0)][0].to(tile_dev)
+            for si in range(1, n_spp):  # the spp mean, in mesh order
+                acc = acc + done[(ti, si)][0].to(tile_dev)
+            tiles[ti] = (acc / n_spp).reshape(3, rows_per, width)
+        verts = sum(done[c][1] for c in mine)
+        rounds = {c: done[c][2] for c in mine}
+        if mesh.ranks is None:
+            home = mesh.devices[0][0]
+            img = torch.cat([tiles[ti].to(home) for ti in range(n_tiles)], dim=1)
+        else:
+            img, verts, rounds = _combine(tiles, verts, rounds, mesh, rows_per, width)
     rounds = [[rounds[(ti, si)] for si in range(n_spp)] for ti in range(n_tiles)]
     return img[:, :height], verts, rounds
 

@@ -54,6 +54,7 @@ import time
 import torch
 
 from ..ops import kernels
+from .profiling import span
 
 # captures one at a time in a process: torch.cuda.graph empties the
 # allocator's cache of every card on entry
@@ -165,7 +166,9 @@ def capture(body, device: torch.device):
 
 class Graphed:
     """A body and its graph: calling it does the body's work once, by the
-    first call's warm-up or by a replay."""
+    first call's warm-up or by a replay. The first call is the span
+    ``rt.graph.capture``; a replay has none (the trace's
+    ``cudaGraphLaunch`` is its record, ``replays`` its count)."""
 
     def __init__(self, body, device: torch.device, capture_fn=capture):
         self.body, self.device = body, device
@@ -179,7 +182,9 @@ class Graphed:
     def __call__(self) -> None:
         with self._lock:
             if self._replay is None:
-                self._replay, self.launches, self.stats = self._capture(self.body, self.device)
+                with span("rt.graph.capture"):  # the warm-up and the capture
+                    self._replay, self.launches, self.stats = self._capture(self.body,
+                                                                            self.device)
                 return
             self._replay()
             kernels.add_launches(self.launches)

@@ -2,16 +2,92 @@
 ``RenderStats``, the record ``Renderer.render_radiance(with_stats=True)``
 returns, with the exact path-vertex count the integrators keep, the unit of
 the Mrays/s metric; ``device_trace``, a ``torch.profiler`` trace around a
-render, written as a Chrome trace; ``wall_timer``."""
+render, written as a Chrome trace; ``span`` and ``count``, the program's own
+spans and counters.
+
+A ``span`` brackets one phase of the host's work at a layer boundary
+(``rt.frame``, ``rt.batch.prep``, ``rt.loop.wait``, ``rt.setup.bvh``, ...).
+While a ``torch.profiler`` records, it is also a record in the trace, on
+the clock of the card's records, so a gap in the card's work lies against
+the phase the host was in. Always, it adds one to its count and its host
+seconds to ``SPANS``, the one table of spans and counters (``count`` adds
+to a counter there: ``rt.lane_slots``, ``rt.path_vertices``), which
+``span_totals`` reads. With no profiler recording a span costs one check,
+two clock reads and a locked update of the table.
+"""
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
 import os
+import threading
 import time
 
 import torch
+
+# {name: [count, seconds]}: each span's calls and host seconds, each
+# counter's sum (seconds 0); shards render from threads, hence the lock
+SPANS: dict = {}
+_SPANS_LOCK = threading.Lock()
+_profiling = torch.autograd._profiler_enabled
+# a record without the Python dispatcher's cost
+_FAST = torch._C._profiler._RecordFunctionFast
+
+
+def _add(name: str, n, seconds: float) -> None:
+    with _SPANS_LOCK:
+        row = SPANS.get(name)
+        if row is None:
+            SPANS[name] = [n, seconds]
+        else:
+            row[0] += n
+            row[1] += seconds
+
+
+class span:
+    """``with span("rt.frame", frame=i):`` brackets one phase: a record in
+    the profiler's trace while one records (``frame`` in its args, where
+    the profiler records shapes: the spans of one frame, and of every
+    shard of it, share it), and one call and its host seconds added to
+    ``SPANS`` always."""
+
+    __slots__ = ("name", "frame", "rec", "t0")
+
+    def __init__(self, name: str, frame=None):
+        self.name, self.frame, self.rec = name, frame, None
+
+    def __enter__(self):
+        if _profiling():
+            self.rec = _FAST(self.name) if self.frame is None else _FAST(
+                self.name, [], {"frame": self.frame})
+            self.rec.__enter__()
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        dt = time.perf_counter() - self.t0
+        if self.rec is not None:
+            self.rec.__exit__(*exc)
+            self.rec = None
+        _add(self.name, 1, dt)
+        return False
+
+
+def count(name: str, n) -> None:
+    """Adds ``n`` to the counter ``name`` of ``SPANS``."""
+    _add(name, n, 0.0)
+
+
+def span_totals() -> dict:
+    """A copy of ``SPANS``: {name: [count, seconds]}."""
+    with _SPANS_LOCK:
+        return {k: list(v) for k, v in SPANS.items()}
+
+
+def reset_spans() -> None:
+    with _SPANS_LOCK:
+        SPANS.clear()
 
 
 @dataclasses.dataclass
@@ -60,10 +136,3 @@ def device_trace(log_dir: str):
         if torch.cuda.is_available():
             torch.cuda.synchronize()  # every kernel of the block ends inside the trace
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
-
-
-@contextlib.contextmanager
-def wall_timer():
-    """Yields a callable returning the seconds elapsed since the block began."""
-    t0 = time.perf_counter()
-    yield lambda: time.perf_counter() - t0

@@ -64,7 +64,7 @@ from ..parallel.shard import (local_cards, make_mesh, make_multihost_mesh, proce
 from ..scene.build import build_scene_arrays
 from ..scene.types import SceneDesc
 from .graphs import GraphCache
-from .profiling import RenderStats
+from .profiling import RenderStats, count, span
 
 log = logging.getLogger("rt_torch")
 
@@ -90,21 +90,26 @@ class _RendererBase:
     arrays (with the BVH attached on the BVH backend), the backend, the
     engine, the integrator's ``cfg``, the camera and the route
     (``mega_gate``: ``fused``); ``_device_scene`` builds that route's scene
-    on one device. After a frame (``render_frame_device``, which each
-    renderer defines): the host image and its statistics."""
+    on one device (spans ``rt.setup.scene``, ``rt.setup.bvh``,
+    ``rt.setup.device``). After a frame (``render_frame_device``, which each
+    renderer defines, as the span ``rt.frame`` with ``frames``, the frames
+    rendered before it, in its args): the host image and its statistics."""
 
     def __init__(self, desc: SceneDesc, backend, max_tries, faithful, engine,
                  russian_roulette):
         self.desc = desc
         self.settings = desc.settings
-        arrays, statics = build_scene_arrays(desc)
+        self.frames = 0
+        with span("rt.setup.scene"):
+            arrays, statics = build_scene_arrays(desc)
         if backend is None:
             backend = "bvh" if statics.num_prims > BVH_THRESHOLD else "dense"
         if backend not in ("dense", "bvh"):
             raise ValueError(f"unknown backend {backend!r}")
         self.bvh_builder = None
         if backend == "bvh":
-            arrays, self.bvh_builder = attach_bvh(arrays, statics)
+            with span("rt.setup.bvh"):
+                arrays, self.bvh_builder = attach_bvh(arrays, statics)
         self.arrays, self.statics, self.backend = arrays, statics, backend
         engine = engine or os.environ.get("RT_ENGINE")
         if engine is None:
@@ -131,7 +136,13 @@ class _RendererBase:
         return self._build is bounce_scene
 
     def _device_scene(self, device: torch.device):
-        return self._build(self.arrays, self.statics, device)
+        with span("rt.setup.device"):
+            return self._build(self.arrays, self.statics, device)
+
+    def _frame_span(self) -> span:
+        """The span ``rt.frame`` of the next frame, numbered from 0."""
+        self.frames += 1
+        return span("rt.frame", self.frames - 1)
 
     def _assemble(self, outs) -> np.ndarray:
         w, h = self.settings.width, self.settings.height
@@ -222,17 +233,22 @@ class Renderer(_RendererBase):
         samples = samples or self.settings.samples
         total = w * h
         seed32 = (seed * 2654435761) & 0xFFFFFFFF
-        if self.engine != "batch":
-            render = render_wavefront_sticky if self.engine == "sticky" else render_wavefront
-            lanes = min(self.batch_size, total * samples)
-            img, verts, self.rounds = render(seed32, 0, 0, self.cam, self.scene, self.cfg,
-                                             w, h, total, samples, lanes, plain=self.plain,
-                                             graphs=self.graphs)
-            return [img], verts
-        outs, verts = render_batches(self.scene, seed32, self.cam_row, self.cfg, w, h, samples,
-                                     self.batch_size, plain=self.plain, progress=progress,
-                                     graphs=self.graphs)
-        return outs, float(verts)
+        with self._frame_span():
+            if self.engine != "batch":
+                render = render_wavefront_sticky if self.engine == "sticky" else render_wavefront
+                lanes = min(self.batch_size, total * samples)
+                img, verts, self.rounds = render(seed32, 0, 0, self.cam, self.scene, self.cfg,
+                                                 w, h, total, samples, lanes, plain=self.plain,
+                                                 graphs=self.graphs)
+                outs = [img]
+            else:
+                outs, verts = render_batches(self.scene, seed32, self.cam_row, self.cfg, w, h,
+                                             samples, self.batch_size, plain=self.plain,
+                                             progress=progress, graphs=self.graphs)
+                with span("rt.frame.sync"):  # the batch engine's wait for the frame
+                    verts = float(verts)
+            count("rt.path_vertices", verts)
+        return outs, verts
 
 
 def render_scene(desc: SceneDesc, seed: int = 0, device="cuda", **kw) -> np.ndarray:
@@ -303,9 +319,11 @@ class ShardedRenderer(_RendererBase):
         ``Renderer.render_frame_device`` returns it (``progress`` is not
         used: each shard renders in one pass)."""
         s = self.settings
-        img, verts, self.rounds = render_frame_sharded(
-            seed, self.scenes, self.cfg, self.cam, s.width, s.height,
-            samples or s.samples, self.mesh, engine=self.engine, graphs=self.graphs)
+        with self._frame_span() as frame:
+            img, verts, self.rounds = render_frame_sharded(
+                seed, self.scenes, self.cfg, self.cam, s.width, s.height,
+                samples or s.samples, self.mesh, engine=self.engine, graphs=self.graphs,
+                frame=frame.frame)
         return [img.reshape(3, -1)], verts
 
 

@@ -78,6 +78,7 @@ def _worker(case: str, out: Path, store: str, world: int, rank: int) -> None:
     from raytracing_course_2024_tpu_torch.parallel import (init_distributed, make_mesh,
                                                            make_multihost_mesh)
     from raytracing_course_2024_tpu_torch.runtime import checkpoint as C
+    from raytracing_course_2024_tpu_torch.runtime import profiling as P
     from raytracing_course_2024_tpu_torch.runtime.render import ShardedRenderer
 
     save = np.savez  # process 0 alone may write checkpoints: the others lose np.savez
@@ -93,9 +94,14 @@ def _worker(case: str, out: Path, store: str, world: int, rank: int) -> None:
             for key, m in (("", mesh), ("ref-", make_mesh(4, 2, ["cpu"] * 8))):
                 if key and rank:
                     continue
-                img, verts, rounds = _frame(ShardedRenderer(_desc(out), mesh=m, engine=engine))
+                sr = ShardedRenderer(_desc(out), mesh=m, engine=engine)
+                P.reset_spans()
+                img, verts, rounds = _frame(sr)
+                table = P.span_totals()
                 got[f"{key}{engine}"] = img
                 got[f"{key}{engine}-verts"], got[f"{key}{engine}-rounds"] = verts, rounds
+                got[f"{key}{engine}-counters"] = np.asarray(
+                    [table["rt.path_vertices"][0], table["rt.lane_slots"][0]], np.float64)
     elif case == "bvh":  # (2, 1), one device each, the BVH backend
         for key, m in (("", make_multihost_mesh(2, 1, devices=["cpu"])),
                        ("ref-", make_mesh(2, 1, ["cpu"] * 2))):
@@ -230,6 +236,20 @@ def test_four_processes_equal_one_process_bit_for_bit(engines_world, engine):
         np.testing.assert_array_equal(got[f"{engine}-rounds"], ref[f"ref-{engine}-rounds"])
     if engine != "batch":
         assert (ref[f"ref-{engine}-rounds"] > 0).all()
+
+
+@pytest.mark.parametrize("engine", ENGINES)
+def test_each_process_counts_the_work_of_its_own_shards(engines_world, engine):
+    """Each process of (4, 2) over 4 processes counts the path vertices and
+    lane slots of its own shards: summed over the processes they are the
+    single-process frame's, so each process's ``lane_occupancy_pct`` reads
+    its own shards' ratio and not the group's vertices over its slots."""
+    ref = engines_world[0]
+    one = ref[f"ref-{engine}-counters"]
+    assert one[0] == ref[f"ref-{engine}-verts"] and 0 < one[0] < one[1]
+    each = np.stack([got[f"{engine}-counters"] for got in engines_world])
+    assert (each > 0).all() and (each[:, 0] < each[:, 1]).all()
+    np.testing.assert_array_equal(each.sum(axis=0), one)
 
 
 def test_bvh_backend_on_two_processes(bvh_world):

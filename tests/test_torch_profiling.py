@@ -1,15 +1,14 @@
 """PyTorch port, ``runtime/profiling.py`` on the CPU: ``device_trace`` writes a
-Chrome trace of a render that names the render's ops; ``wall_timer``
-counts up. (On a card the same trace names the kernels: chip_smoke.py
-counts K2 and K1 in it.)"""
+Chrome trace of a render that names the render's ops. (On a card the same
+trace names the kernels: chip_smoke.py counts K2 and K1 in it. The spans
+and counters: ``test_torch_spans.py``.)"""
 
 import json
 import os
-import time
 
 import pytest
 
-from raytracing_course_2024_tpu_torch.runtime.profiling import device_trace, wall_timer
+from raytracing_course_2024_tpu_torch.runtime.profiling import device_trace
 from raytracing_course_2024_tpu_torch.runtime.render import Renderer
 from torch_parity import descs
 
@@ -46,10 +45,3 @@ def test_device_trace_writes_nothing_when_the_block_raises(tmp_path):
             raise KeyError("render failed")
     assert os.listdir(log_dir) == []
 
-
-def test_wall_timer_counts_up():
-    with wall_timer() as elapsed:
-        a = elapsed()
-        time.sleep(0.02)
-        b = elapsed()
-    assert 0.0 <= a < b and b >= 0.02
