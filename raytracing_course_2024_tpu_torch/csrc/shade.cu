@@ -33,7 +33,16 @@
 //   up here and not written. A lane dead on entry gets need = 0 and keeps
 //   its rows; a lane that misses gets no surface (zero rows where a lane of
 //   its group hit, no record). Nothing downstream reads those rows of those
-//   lanes.
+//   lanes. Given a `count`, N1a adds the lanes alive on its entry: the path
+//   vertices of its level, counted for the caller, so that the batch route
+//   launches no reduction per level (K1's count on the fused route). Each
+//   block counts them in one barrier (__syncthreads_count, which also tells
+//   a block that stages the planes whether it has a live lane) and adds them
+//   with one atomic; the lane engines pass none, as N5 counts theirs. The
+//   count costs N1a 0.13-0.16 ms of a 5.1 ms Cornell frame with roulette,
+//   where the reductions it replaces took 2.6 ms (NVIDIA H100 80GB HBM3,
+//   700 W). A barrier at the block's end, once its warps are done, saved
+//   0.03 ms of that and cost a staged block a second barrier.
 // * N1b reads the state, the surface, the sampler's (l, pdf, ok) and
 //   draws u_diel (and u_rr under roulette) from the counter RNG at the
 //   bounce's counters: the batch layout (one bounce index for all lanes) or
@@ -78,7 +87,7 @@
 //   --sector-writes; NVIDIA H100 80GB HBM3, 700.00 W).
 // * Each block of N1a stages the plane table and its mask in shared memory
 //   (up to kStagePlanes planes; a larger table is read where it lies), after
-//   __syncthreads_or tells it that one of its lanes is live: a block of dead
+//   __syncthreads_count tells it that one of its lanes is live: a block of dead
 //   lanes writes its flags and leaves without staging. A warp whose lanes
 //   are all dead (__ballot_sync) writes its need / live flags (and in the
 //   lane layout N1b's park rows) and nothing else.
@@ -175,6 +184,7 @@ struct ShadeParams {
   float* surf_rows;  // (SURF_ROWS, b)
   float4* surf_rec;  // (b, 8) as 2 b float4
   uint8_t* need;     // (b,)
+  unsigned long long* count;  // += lanes alive on entry, or nullptr
 };
 
 struct Material {
@@ -325,8 +335,16 @@ __global__ void __launch_bounds__(kShadeBlock) shade_kernel(ShadeParams p) {
   const float alive_in = in ? st[12 * b + i] : 0.0f;
   const bool live = alive_in > 0.5f;
   Planes pl{p.plane, p.pl_mask, p.np};
-  if (p.staged) {  // the same for every thread of the block
-    if (!__syncthreads_or(live)) {  // no live lane: no plane is read
+  // the block's lanes alive on entry: what `count` gets, and whether a staged
+  // block reads the planes at all (the same for every thread of the block)
+  int block_live = 1;
+  if (p.count != nullptr || p.staged) {
+    block_live = __syncthreads_count(live);
+    if (p.count != nullptr && threadIdx.x == 0 && block_live > 0)
+      atomicAdd(p.count, (unsigned long long)block_live);
+  }
+  if (p.staged) {
+    if (block_live == 0) {  // no live lane: no plane is read
       if (in && !p.final_only) p.need[i] = 0;
       return;
     }
@@ -548,7 +566,8 @@ bool aligned16(const void* ptr) { return (reinterpret_cast<uintptr_t>(ptr) & 15u
 // plane (20, np) with np = 0 for a scene without planes, pl_mask (np,) bool;
 // depth: (b,) int32 or null; surf_rows (13, b), surf_rec (b, 8) 16-byte
 // aligned and need (b,) bool out, not touched (and may be null) with
-// final_only. Returns cudaGetLastError() after the launch
+// final_only. count: one int64 on the device that gets the lanes alive on
+// entry added, or null. Returns cudaGetLastError() after the launch
 // (cudaErrorInvalidValue for arguments the kernel does not take). Never
 // synchronises.
 extern "C" int rt_launch_shade(void* st, long long b, const void* t, const void* idx,
@@ -556,7 +575,7 @@ extern "C" int rt_launch_shade(void* st, long long b, const void* t, const void*
                                const void* pl_mask, int np, int any_rotation, int any_nontri,
                                const void* depth, int last, float bg0, float bg1, float bg2,
                                int final_only, void* surf_rows, void* surf_rec, void* need,
-                               void* stream) {
+                               void* count, void* stream) {
   if (b < 0 || b > 0x7fffffffLL * kShadeBlock || n < 1 || np < 0 || !aligned16(prim_rec))
     return (int)cudaErrorInvalidValue;
   if (!final_only && (surf_rows == nullptr || need == nullptr || !aligned16(surf_rec) ||
@@ -585,6 +604,7 @@ extern "C" int rt_launch_shade(void* st, long long b, const void* t, const void*
   p.surf_rows = static_cast<float*>(surf_rows);
   p.surf_rec = static_cast<float4*>(surf_rec);
   p.need = static_cast<uint8_t*>(need);
+  p.count = static_cast<unsigned long long*>(count);
   const size_t smem = p.staged ? (size_t)np * (PL_COUNT * sizeof(float) + 1) : 0;
   shade_kernel<<<grid_of(b), kShadeBlock, smem, static_cast<cudaStream_t>(stream)>>>(p);
   return (int)cudaGetLastError();

@@ -36,8 +36,10 @@ direction never contributes). Two routes compute it, picked by
 
 Both routes draw from the counter RNG with the same layout (ops/rng.py),
 so from one seed they trace the same paths. Path vertices (one scene
-intersection per live lane and level) are counted exactly: the unit behind
-the Mrays/s metric (bench.py).
+intersection per live lane and level) are counted exactly, as an int64 on
+the device: the unit behind the Mrays/s metric (bench.py). The kernel that
+opens a level adds the lanes alive on its entry (K1 on the fused route, N1a
+on the modular route), so neither route launches a reduction per level.
 
 Both routes run one sample of a batch as ``SampleBody``: a call over
 static buffers that reads the seed and the sample's work-id offset from the
@@ -139,11 +141,11 @@ def trace_sample(scene: B.BounceScene, state: torch.Tensor, seed, wid: torch.Ten
 
     ``state`` is a (13, B) buffer the kernels overwrite in place (the plain
     versions return fresh tensors). Returns (state after the final level,
-    path vertices as a 0-dim tensor on the device): every lane at bounce 0,
-    then the lanes alive on entry to each later level. Through the kernels
-    each level's launch adds its own count (int64); the plain versions sum
-    the alive row per level (float64). ``seed`` and ``wid_off`` are ints or
-    0-dim int64 tensors on the lanes' device, read there.
+    path vertices as a 0-dim int64 tensor on the device): every lane at
+    bounce 0, then the lanes alive on entry to each later level. Through the
+    kernels each level's launch adds its own count; the plain versions sum
+    the alive row per level. ``seed`` and ``wid_off`` are ints or 0-dim
+    int64 tensors on the lanes' device, read there.
 
     ``RT_MEGA_CAM=0`` (the JAX package's switch; ``mega_cam`` when given)
     takes the fresh state from the camera stage (N4, ``camera_state``) and
@@ -158,7 +160,7 @@ def trace_sample(scene: B.BounceScene, state: torch.Tensor, seed, wid: torch.Ten
     if not plain:
         return _trace_sample_kernels(scene, state, seed, wid, wid_off, px, py, cam_row, cam,
                                      cfg, width, height, mega_cam)
-    rays = torch.full((), float(px.shape[0]), dtype=torch.float64, device=px.device)
+    rays = torch.full((), px.shape[0], dtype=torch.int64, device=px.device)
     if cfg.ray_depth < 2:  # the final level only: camera rays, then K1 final_only
         st = camera_state_plain(seed, wid, wid_off, px, py, cam, width, height)
     else:
@@ -170,9 +172,9 @@ def trace_sample(scene: B.BounceScene, state: torch.Tensor, seed, wid: torch.Ten
                                                           width, height),
                                 wid, wid_off, seed, 0, bg, k)
         for i in range(1, cfg.ray_depth - 1):
-            rays += st[12].sum(dtype=torch.float64)
+            rays += (st[12] > 0.5).sum()
             st = B.bounce_plain(scene, st, wid, wid_off, seed, i, bg, k)
-        rays += st[12].sum(dtype=torch.float64)
+        rays += (st[12] > 0.5).sum()
     st = B.bounce_plain(scene, st, wid, wid_off, seed, max(cfg.ray_depth - 1, 0), bg, k,
                         final_only=True)
     return st, rays
@@ -215,27 +217,31 @@ def _trace_sample_kernels(scene, state, seed, wid, wid_off, px, py, cam_row, cam
 
 
 def _collect_hit(state: torch.Tensor, scene: ModularScene, cfg: TraceConfig,
-                 plain: bool = False, live: torch.Tensor | None = None, final: bool = False):
+                 plain: bool = False, live: torch.Tensor | None = None, final: bool = False,
+                 count: torch.Tensor | None = None):
     """Nearest hit over the finite table, then the shade pass (N1a,
     ``ops/shade.py``: the planes, the surface, emission / background).
     ``live`` (default: the state's alive row) masks the walk: K4 and K6 walk
-    nothing for a dead lane. Returns ``(state', surf, need)``; ``final``
+    nothing for a dead lane. ``count`` (a 0-dim int64 tensor) gets the lanes
+    alive on entry added by N1a. Returns ``(state', surf, need)``; ``final``
     (the last level) only collects emission: ``surf`` and ``need`` None."""
     ro, rd = Vec3(state[0], state[1], state[2]), Vec3(state[3], state[4], state[5])
     t, idx = nearest_table(ro, rd, scene, plain=plain,
                            live=state[12] > 0.5 if live is None else live)
-    return (shade_plain if plain else shade)(state, t, idx, scene, cfg.bg_color, final=final)
+    return (shade_plain if plain else shade)(state, t, idx, scene, cfg.bg_color, final=final,
+                                             count=count)
 
 
 def _bounce(state: torch.Tensor, scene: ModularScene, cfg: TraceConfig, seed,
             wid: torch.Tensor, wid_off, bounce_i: int, plain: bool = False,
-            live: torch.Tensor | None = None):
+            live: torch.Tensor | None = None, count: torch.Tensor | None = None):
     """One full modular bounce of the (13, B) ``state`` at depth level
-    ``bounce_i``: the nearest hit, N1a, the sampler, N1b (on a CUDA tensor
-    in place in ``state``). ``seed`` and ``wid_off`` are ints or 0-dim int64
-    tensors on the lanes' device; the bounce reads nothing from the host.
-    Returns ``(state', live')``."""
-    state, surf, need = _collect_hit(state, scene, cfg, plain, live)
+    ``bounce_i``: the nearest hit, N1a (adding the lanes alive on entry to
+    ``count``), the sampler, N1b (on a CUDA tensor in place in ``state``).
+    ``seed`` and ``wid_off`` are ints or 0-dim int64 tensors on the lanes'
+    device; the bounce reads nothing from the host. Returns ``(state',
+    live')``."""
+    state, surf, need = _collect_hit(state, scene, cfg, plain, live, count=count)
     l_s, pdf, ok = sample_bounce(scene, cfg, seed, wid, wid_off, surf, need, plain, bounce_i)
     return (finish_plain if plain else finish)(state, surf, l_s, pdf, ok, wid, seed, wid_off,
                                                cfg, bounce_i)
@@ -274,30 +280,34 @@ def sample_bounce(scene: ModularScene, cfg: TraceConfig, seed, wid: torch.Tensor
 
 
 def trace_paths(scene: ModularScene, state: torch.Tensor, seed, wid: torch.Tensor, wid_off,
-                cfg: TraceConfig, plain: bool = False):
+                cfg: TraceConfig, plain: bool = False, count: torch.Tensor | None = None):
     """Radiance of one path per lane on the modular path from ``state``, the
     (13, B) state of fresh paths (``ops/camera.py:camera_state``), which the
-    kernels update in place. Returns ((3, B) radiance, path vertices as a
-    0-dim float64 tensor)."""
-    st = state
-    live = st[12] > 0.5
-    rays = torch.zeros((), dtype=torch.float64, device=st.device)
+    kernels update in place. N1a adds the lanes alive on its entry to
+    ``count`` (a 0-dim int64 tensor on the lanes' device; a fresh zero when
+    None), at every level, the last included; the route launches no
+    reduction per level. Level 0 masks the nearest hit by the state's alive
+    row, every later level by N1b's ``live``. Returns ((3, B) radiance,
+    ``count``)."""
+    if count is None:
+        count = torch.zeros((), dtype=torch.int64, device=state.device)
+    st, live = state, None
     for i in range(cfg.ray_depth - 1):
-        rays += live.sum(dtype=torch.float64)
-        st, live = _bounce(st, scene, cfg, seed, wid, wid_off, i, plain, live)
-    rays += live.sum(dtype=torch.float64)
-    st, _, _ = _collect_hit(st, scene, cfg, plain, live, final=True)
-    return st[9:12], rays
+        st, live = _bounce(st, scene, cfg, seed, wid, wid_off, i, plain, live, count)
+    st, _, _ = _collect_hit(st, scene, cfg, plain, live, final=True, count=count)
+    return st[9:12], count
 
 
 def _modular_sample(scene: ModularScene, seed, wid: torch.Tensor,
                     wid_off, px: torch.Tensor, py: torch.Tensor, cam,
                     cfg: TraceConfig, width: int, height: int, plain: bool,
-                    cam_row: torch.Tensor | None = None, state: torch.Tensor | None = None):
+                    cam_row: torch.Tensor | None = None, state: torch.Tensor | None = None,
+                    count: torch.Tensor | None = None):
     """One camera sample per lane on the modular route: ((3, B) radiance,
-    path vertices as a 0-dim float64 tensor). ``seed`` and ``wid_off`` are
-    ints or 0-dim int64 tensors on the lanes' device. The fresh state comes
-    from the camera stage: its plain version with ``plain``, else N4
+    path vertices as a 0-dim int64 tensor: ``count`` with this sample's
+    added, as ``trace_paths`` returns it). ``seed`` and ``wid_off`` are ints
+    or 0-dim int64 tensors on the lanes' device. The fresh state comes from
+    the camera stage: its plain version with ``plain``, else N4
     (``camera_state``: the kernel on a card, into ``state`` when given,
     reading the camera as ``cam_row``, which a card needs; the plain version
     on the CPU)."""
@@ -305,20 +315,22 @@ def _modular_sample(scene: ModularScene, seed, wid: torch.Tensor,
         st = camera_state_plain(seed, wid, wid_off, px, py, cam, width, height)
     else:
         st = camera_state(seed, wid, wid_off, px, py, cam, cam_row, width, height, out=state)
-    return trace_paths(scene, st, seed, wid, wid_off, cfg, plain)
+    return trace_paths(scene, st, seed, wid, wid_off, cfg, plain, count)
 
 
 class SampleBody:
     """One sample of one batch, on either route, over static buffers:
     ``seed_off`` ((2,) int64: the seed and the sample's work-id offset),
     ``wid``, ``px``, ``py`` (one entry per lane) in, the sums ``acc`` ((3,
-    B) f32 radiance) and ``nrays`` (0-dim f64 path vertices) out. Each call
-    works in the body's own (13, B) ``state``. On the fused route (a
+    B) f32 radiance) and ``nrays`` (0-dim int64 path vertices) out. Each
+    call works in the body's own (13, B) ``state``. On the fused route (a
     ``BounceScene``) a call runs ``trace_sample``: K2, K1 per level and K1
     ``final_only`` (or the camera stage N4 and K1 under ``RT_MEGA_CAM=0``
-    and at ``ray_depth`` < 2, both read when the body is made); on the
-    modular route ``_modular_sample``: N4, then the levels. A call adds one
-    sample to the sums and reads nothing from the host, so a CUDA graph
+    and at ``ray_depth`` < 2, both read when the body is made), and adds
+    its count to ``nrays``; on the modular route ``_modular_sample``: N4,
+    then the levels, whose N1a launches add into ``nrays`` themselves. A
+    call adds one sample to the sums and reads nothing from the host, so a
+    CUDA graph
     captured from one call replays it for any values in the inputs
     (``runtime/graphs.py``). On the CPU the wrappers
     return fresh tensors from the plain versions, which the body copies or
@@ -338,7 +350,7 @@ class SampleBody:
         self.py = torch.zeros((lanes,), dtype=torch.float32, device=device)
         self.state = torch.zeros((B.N_STATE, lanes), dtype=torch.float32, device=device)
         self.acc = torch.zeros((3, lanes), dtype=torch.float32, device=device)
-        self.nrays = torch.zeros((), dtype=torch.float64, device=device)
+        self.nrays = torch.zeros((), dtype=torch.int64, device=device)
 
     def load(self, seed: int, wid: torch.Tensor, px: torch.Tensor, py: torch.Tensor) -> None:
         """A batch's lanes and seed in, the sums zeroed."""
@@ -360,12 +372,12 @@ class SampleBody:
                                     self.py, self.cam_row, self.cfg, self.width, self.height,
                                     self.plain, self.cam, self.mega_cam)
             rad = st[9:12]
+            self.nrays += rays
         else:
-            rad, rays = _modular_sample(self.scene, seed, self.wid, wid_off, self.px, self.py,
-                                        self.cam, self.cfg, self.width, self.height, self.plain,
-                                        self.cam_row, self.state)
+            rad, _ = _modular_sample(self.scene, seed, self.wid, wid_off, self.px, self.py,
+                                     self.cam, self.cfg, self.width, self.height, self.plain,
+                                     self.cam_row, self.state, self.nrays)
         self.acc += rad
-        self.nrays += rays
 
 
 def graphed_body(graphs, scene, key, make):
@@ -408,13 +420,14 @@ def render_pixels(scene, seed: int, wid: torch.Tensor, px: torch.Tensor,
     body, run = sample_body(scene, cam_row, cfg, width, height, px.shape[0], plain,
                             None if plain else graphs)
     body.load(seed, wid, px, py)
-    return run_samples(body, run, samples, n_pix)
+    out, rays = run_samples(body, run, samples, n_pix)
+    return out, rays.to(torch.float64)
 
 
 def run_samples(body: SampleBody, run, samples: int, n_pix: int):
     """``samples`` calls of a loaded ``body`` (``run``: the body or its
     graph's replay), sample ``s`` at work-id offset ``s * n_pix``. Returns
-    ((3, B) mean radiance, path vertices as a 0-dim float64 tensor), fresh
+    ((3, B) mean radiance, path vertices as a 0-dim int64 tensor), fresh
     tensors, and counts the lane slots the levels' launches cover
     (``rt.lane_slots``: lanes x levels x samples)."""
     for s in range(samples):
@@ -451,11 +464,12 @@ def render_batches(scene, seed: int, cam_row: torch.Tensor, cfg: TraceConfig, wi
     pixel p) renders samples ``samp_base + r * samples / replicas`` onwards,
     as ``render_pixels`` renders them (spans ``rt.batch.prep``: a batch's
     lanes into its ``SampleBody``; ``rt.batch.fold``: the replica mean and
-    the count's sum). A pixel past the last row renders the last
-    row's pixel of its column (the camera always sees the true height; the
-    caller crops it). Returns (per-batch (3, B) channel-major mean radiance,
-    path vertices as a 0-dim float64 tensor). ``progress`` logs each batch;
-    ``graphs`` is passed on to ``render_pixels``."""
+    the batch's int64 count added to the frame's float64 sum). A pixel past
+    the last row renders the last row's pixel of its column (the camera
+    always sees the true height; the caller crops it). Returns (per-batch
+    (3, B) channel-major mean radiance, path vertices as a 0-dim float64
+    tensor). ``progress`` logs each batch; ``graphs`` is passed on to
+    ``render_pixels``."""
     total = width * height
     n_pix = total if n_pix is None else n_pix
     check_work_ids(total, samp_base, samples)

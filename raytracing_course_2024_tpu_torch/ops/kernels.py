@@ -224,7 +224,7 @@ def _load() -> None:
     ]
     lib.rt_launch_persistent.restype = i
     lib.rt_launch_shade.argtypes = [p, ll, p, p, p, i, p, p, i, i, i, p, i, f, f, f, i, p, p, p,
-                                    p]
+                                    p, p]
     lib.rt_launch_shade.restype = i
     lib.rt_launch_finish.argtypes = [p, ll, p, p, p, p, p, p, u, u, u, u, p, i, i, i, i, p, p]
     lib.rt_launch_finish.restype = i
@@ -465,10 +465,11 @@ def launch_sampler(ins, need, wid, seed_off, ctr, depth, ctr_stride, lp, lspec,
 
 
 def launch_shade(state, t, idx, prim_rec, plane, pl_mask, n_planes, any_rotation, any_nontri,
-                 depth, last, bg, final_only, surf, need) -> None:
+                 depth, last, bg, final_only, surf, need, count=None) -> None:
     """N1a; ``prim_rec`` the (N, 40) primitive records, ``n_planes`` 0
     leaves the plane fold out. ``surf`` (rows, rec) and ``need`` are None
-    with ``final_only``."""
+    with ``final_only``. ``count`` (a 0-dim int64 tensor) or None: the
+    kernel adds the lanes alive on its entry."""
     lib = library()
     rows, rec = (None, None) if surf is None else (surf[0].data_ptr(), surf[1].data_ptr())
     with _on(state.device) as stream:
@@ -478,7 +479,8 @@ def launch_shade(state, t, idx, prim_rec, plane, pl_mask, n_planes, any_rotation
             int(bool(any_rotation)), int(bool(any_nontri)),
             None if depth is None else depth.data_ptr(), int(last), float(bg[0]), float(bg[1]),
             float(bg[2]), int(bool(final_only)), rows, rec,
-            None if need is None else need.data_ptr(), stream,
+            None if need is None else need.data_ptr(),
+            None if count is None else count.data_ptr(), stream,
         )
     _raise_on(rc, "rt_launch_shade")
     _count("shade")

@@ -12,7 +12,7 @@ one kernel per op.
 Both work on the (13, B) path state of the fused route and the lane
 engines (rows ro 0-2, rd 3-5, throughput 6-8, radiance 9-11, alive 12):
 
-* ``shade(state, t, idx, scene, bg, depth, last, final)``: ``(t, idx)`` is
+* ``shade(state, t, idx, scene, bg, depth, last, final, count)``: ``(t, idx)`` is
   the nearest hit over the finite table (``ops/traverse.py:nearest_table``);
   the planes fold in here. Live lanes add the background (a miss: alive
   cleared) or the emission at the hit into the radiance. Returns ``(state,
@@ -24,7 +24,10 @@ engines (rows ro 0-2, rd 3-5, throughput 6-8, radiance 9-11, alive 12):
   layout (``depth`` given) alive becomes "hit and depth < last", the lane
   engines' final-depth rule. ``final`` (the batch scan's last level) leaves
   ``surf`` and ``need`` out (None). N1a reads the winner from the scene's
-  row-major ``prim_rec`` (``ops/scene_intersect.py``).
+  row-major ``prim_rec`` (``ops/scene_intersect.py``). ``count`` (a 0-dim
+  int64 tensor) gets the lanes alive on entry added: the path vertices of
+  the level, counted by the kernel itself (on the CPU, the alive row's
+  sum).
 * ``finish(state, surf, l, pdf, ok, wid, seed, wid_off, cfg, bounce_i,
   depth)``: draws the dielectric split and, under ``cfg.rr``, the roulette
   draw from the counter RNG of ``work_key(seed, wid + wid_off)``, in the
@@ -152,11 +155,15 @@ def surface_of(surf: Surf) -> Surface:
 
 
 def shade_plain(state: torch.Tensor, t: torch.Tensor, idx: torch.Tensor, scene: ModularScene,
-                bg, depth: torch.Tensor | None = None, last: int = 0, final: bool = False):
+                bg, depth: torch.Tensor | None = None, last: int = 0, final: bool = False,
+                count: torch.Tensor | None = None):
     """Plain version of ``shade``: the planes folded in
     (``ops/traverse.py:fold_hit``), ``surface_detail``, and the emission /
-    background accumulation of ``_collect_hit``."""
+    background accumulation of ``_collect_hit``; the alive row's sum added
+    to ``count``."""
     ps = state_of(state)
+    if count is not None:
+        count += ps.alive.sum()
     hit = fold_hit(ps.ro, ps.rd, scene, t, idx)
     surf = surface_detail(ps.ro, ps.rd, hit, scene)
     zero = ps.ro.x * 0.0
@@ -179,12 +186,13 @@ def shade_plain(state: torch.Tensor, t: torch.Tensor, idx: torch.Tensor, scene: 
 
 
 def shade(state: torch.Tensor, t: torch.Tensor, idx: torch.Tensor, scene: ModularScene, bg,
-          depth: torch.Tensor | None = None, last: int = 0, final: bool = False):
+          depth: torch.Tensor | None = None, last: int = 0, final: bool = False,
+          count: torch.Tensor | None = None):
     """N1a for tensors on CUDA (in place in ``state``), its plain version for
     tensors on the CPU. Returns ``(state, surf, need)``."""
     dev = state.device
     if dev.type == "cpu":
-        return shade_plain(state, t, idx, scene, bg, depth, last, final)
+        return shade_plain(state, t, idx, scene, bg, depth, last, final, count)
     if dev.type != "cuda":
         raise ValueError(f"no shade kernel for device {dev}")
     b = state.shape[1]
@@ -197,6 +205,8 @@ def shade(state: torch.Tensor, t: torch.Tensor, idx: torch.Tensor, scene: Modula
     check("pl_mask", scene.pl_mask, torch.bool, (np_,), dev)
     if depth is not None:
         check("depth", depth, torch.int32, (b,), dev)
+    if count is not None:
+        check("count", count, torch.int64, (), dev)
     surf = None if final else Surf(
         torch.empty((SURF_ROWS, b), dtype=torch.float32, device=dev),
         torch.empty((b, SURF_REC), dtype=torch.float32, device=dev))
@@ -204,7 +214,7 @@ def shade(state: torch.Tensor, t: torch.Tensor, idx: torch.Tensor, scene: Modula
     statics = scene.statics
     launch_shade(state, t, idx, scene.prim_rec, scene.plane_packed, scene.pl_mask,
                  np_ if statics.num_planes > 0 else 0, statics.any_rotation,
-                 statics.any_nontri, depth, last, bg, final, surf, need)
+                 statics.any_nontri, depth, last, bg, final, surf, need, count)
     return state, surf, need
 
 

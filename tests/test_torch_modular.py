@@ -2,7 +2,9 @@
 K4): one bounce against the JAX package's stages fed the same counter
 draws (roulette off and on, faithful acceptance), whole ``render_pixels``
 against the JAX-driven loop, and the port's fused and modular routes
-against each other.
+against each other. The modular route's path vertices, which N1a counts
+(``shade(count=)``), against the per-level sums of the alive mask the route
+took before, with the radiance bit for bit, on a dense and a BVH scene.
 
 Tolerances: a bounce as in test_torch_bounce.py (alive masks differ on at
 most 0.1 % of lanes, each state row within atol = rtol = 1e-4 on >= 99.9 %);
@@ -33,10 +35,12 @@ from raytracing_course_2024_tpu.ops.vec import Vec3 as JV
 from raytracing_course_2024_tpu.scene.types import DIELECTRIC, MIRROR
 from raytracing_course_2024_tpu_torch.integrator import path as P
 from raytracing_course_2024_tpu_torch.ops import rng as trng
-from raytracing_course_2024_tpu_torch.ops.camera import camera_arrays, pack_camera_row
+from raytracing_course_2024_tpu_torch.ops.camera import (camera_arrays, camera_state_plain,
+                                                          pack_camera_row)
 from raytracing_course_2024_tpu_torch.ops.scene_intersect import modular_scene
 from raytracing_course_2024_tpu_torch.runtime.render import Renderer
 from test_torch_bounce import _assert_states_agree
+from test_torch_graphs import _bvh_mesh, _dense_rr
 from test_torch_render import _jax_counter_loop
 from torch_parity import builds, descs, to_jnp
 
@@ -157,3 +161,83 @@ def test_rt_rr_turns_roulette_on(monkeypatch):
     r = Renderer(td, device="cpu")
     assert r.cfg.rr and not r.fused
     assert not Renderer(td, device="cpu", russian_roulette=False).cfg.rr
+
+
+# --- the path-vertex count -------------------------------------------------
+
+COUNT_SCENES = {"dense": lambda: _dense_rr(32, 24)[1:], "bvh": _bvh_mesh}
+# a depth at which lanes are still alive on entry to the final level: the
+# mesh's rays escape to the background by bounce 2
+FINAL_DEPTH = {"dense": 6, "bvh": 2}
+
+
+def _fresh(name, depth, rr):
+    """A modular scene, its cfg at ``depth`` with roulette ``rr``, the lanes'
+    work ids and the fresh state on the camera rays."""
+    d, scene, cfg = COUNT_SCENES[name]()
+    cfg = cfg._replace(ray_depth=depth, rr=rr)
+    w, h = d.settings.width, d.settings.height
+    wid = torch.arange(w * h, dtype=torch.int32)
+    st = camera_state_plain(SEED, wid, 0, (wid % w).float(), (wid // w).float(),
+                            camera_arrays(d.settings.camera), w, h)
+    return scene, cfg, wid, st
+
+
+def route_before(scene, st, cfg, seed, wid, wid_off, plain):
+    """``trace_paths`` as it was before N1a counted: the alive mask summed in
+    float64 at every level. Returns ((3, B) radiance, the levels' terms)."""
+    live = st[12] > 0.5
+    terms = []
+    for i in range(cfg.ray_depth - 1):
+        terms.append(float(live.sum(dtype=torch.float64)))
+        st, live = P._bounce(st, scene, cfg, seed, wid, wid_off, i, plain, live)
+    terms.append(float(live.sum(dtype=torch.float64)))
+    st, _, _ = P._collect_hit(st, scene, cfg, plain, live, final=True)
+    return st[9:12], terms
+
+
+def _bits(x):
+    return x.contiguous().view(torch.int32)
+
+
+@pytest.mark.parametrize("plain", [False, True], ids=["wrappers", "plain"])
+@pytest.mark.parametrize("depth", [1, 2, 6])
+@pytest.mark.parametrize("rr", [False, True], ids=["no-roulette", "roulette"])
+@pytest.mark.parametrize("name", list(COUNT_SCENES))
+def test_modular_count_equals_the_per_level_live_sums(name, rr, depth, plain):
+    """``trace_paths`` adds its path vertices to the counter it is given (an
+    int64, returned as it), as many as the route's per-level sums of the
+    alive mask, and its radiance is the route's before N1a counted, bit for
+    bit; without a counter it makes its own."""
+    scene, cfg, wid, st = _fresh(name, depth, rr)
+    want_rad, terms = route_before(scene, st.clone(), cfg, SEED, wid, 0, plain)
+    assert len(terms) == depth and terms[0] == st.shape[1]
+    count = torch.full((), 7, dtype=torch.int64)
+    rad, got = P.trace_paths(scene, st.clone(), SEED, wid, 0, cfg, plain, count)
+    assert got is count and got.dtype == torch.int64 and got.dim() == 0
+    assert int(got) == 7 + sum(terms)
+    assert torch.equal(_bits(rad), _bits(want_rad))
+    _, own = P.trace_paths(scene, st.clone(), SEED, wid, 0, cfg, plain)
+    assert own.dtype == torch.int64 and int(own) == sum(terms)
+
+
+@pytest.mark.parametrize("term", ["level-0", "final"])
+@pytest.mark.parametrize("name", list(COUNT_SCENES))
+def test_modular_count_terms(name, term):
+    """N1a's term at level 0 is every lane of the fresh state (all alive on
+    the camera rays); at the final level (``final``, emission only) the
+    lanes N1b left alive, which misses (and roulette) have thinned."""
+    scene, cfg, wid, st = _fresh(name, FINAL_DEPTH[name], True)
+    b = st.shape[1]
+    count = torch.zeros((), dtype=torch.int64)
+    if term == "level-0":
+        P._collect_hit(st, scene, cfg, count=count)
+        assert int(count) == int((st[12] > 0.5).sum()) == b
+        return
+    live = None
+    for i in range(cfg.ray_depth - 1):
+        st, live = P._bounce(st, scene, cfg, SEED, wid, 0, i, False, live)
+    want = int(live.sum())
+    assert 0 < want < b
+    P._collect_hit(st, scene, cfg, False, live, final=True, count=count)
+    assert int(count) == want

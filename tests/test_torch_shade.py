@@ -26,6 +26,15 @@ Tolerance: test_torch_bounce.py's (alive masks differ on at most 0.1 % of
 lanes; each row within atol = rtol = 1e-4 on >= 99.9 % of the lanes alive
 on both sides; the radiance on every lane). On a card (marked ``cuda``; skipped here) each kernel is held against
 its plain version at the same tolerance.
+
+``shade(count=)`` adds the lanes alive on entry to an int64 counter and
+changes no output: on the CPU through the plain version; on a card N1a's
+count against the alive row's sum on the modular route's camera, bounce-1
+and bounce-3 states and on sparse and dead-warp states, its outputs bit for
+bit against a launch without a counter, and a graphed modular sample under
+``torch.profiler``: no ATen reduction, its path vertices and radiance those
+of the route before N1a counted (per-level sums of the alive mask) through
+the same kernels.
 """
 
 import jax.numpy as jnp
@@ -61,6 +70,7 @@ from raytracing_course_2024_tpu_torch.ops.vec import Vec3 as TV
 from raytracing_course_2024_tpu_torch.scene.types import PrimCol as PC
 from meshes import icosphere, mesh_scene_desc
 from test_torch_bounce import ATOL, LANE_FRAC, RTOL, _assert_states_agree
+from test_torch_modular import route_before
 from torch_parity import builds, random_unit, to_jnp
 
 SEED = 1234
@@ -318,6 +328,28 @@ def test_wrappers_on_the_cpu_count_nothing_and_refuse_other_devices():
                   cfg)
 
 
+@pytest.mark.parametrize("layout", ["batch", "lane", "final"])
+def test_shade_count_adds_the_lanes_alive_on_entry(layout):
+    """``shade(count=)`` on the CPU adds the alive row's sum to what the
+    counter held and leaves every output as a call without one gives it."""
+    c = _case("mixed")
+    t, idx = _table_hit(c)
+    rows = torch.from_numpy(c["rows"])
+    depth = torch.from_numpy((np.arange(c["b"]) % DEPTH).astype(np.int32))
+    kw = dict(depth=depth, last=DEPTH - 1) if layout == "lane" else dict(final=layout == "final")
+    count = torch.full((), 5, dtype=torch.int64)
+    got = SH.shade(rows.clone(), t, idx, c["scene"], c["bg"], count=count, **kw)
+    want = SH.shade(rows.clone(), t, idx, c["scene"], c["bg"], **kw)
+    assert count.dtype == torch.int64 and int(count) == 5 + int((rows[12] > 0.5).sum())
+    assert torch.equal(got[0], want[0])
+    if layout == "final":
+        assert got[1:] == want[1:] == (None, None)
+        return
+    assert torch.equal(got[2], want[2])
+    for a, w in zip(got[1].columns(), want[1].columns()):
+        assert torch.equal(a, w)
+
+
 @pytest.mark.parametrize("name", ["bvh-mesh", "mixed", "mixed-bvh"])
 def test_prim_records_hold_the_packed_columns(name):
     """``ModularScene.prim_rec``, N1a's row-major winner records, holds
@@ -414,19 +446,40 @@ def test_kernels_match_plain_versions_on_the_card(card, name, layout):
     assert (klive != plive).float().mean().item() <= 1.0 - LANE_FRAC
 
 
+def _modular_renderer(scene_name, card):
+    """A Renderer on the modular batch route: a 5,120-triangle mesh on the
+    BVH backend, or a scene of ``builds`` (``cornell-rr``, ``mixed-rr``)
+    with roulette, 64 x 36 or 64 x 48 pixels at 2 spp."""
+    from meshes import displaced_organic_mesh
+    from raytracing_course_2024_tpu_torch.runtime.render import Renderer
+
+    if scene_name == "bvh-mesh":
+        v, f, vn = displaced_organic_mesh(subdiv=4)
+        r = Renderer(mesh_scene_desc(v, f, vn, width=64, height=48, samples=2), device=card)
+        assert r.backend == "bvh"
+    else:
+        r = Renderer(builds(scene_name.removesuffix("-rr"), 64, 36, 2)[1][0], device=card,
+                     russian_roulette=True)
+    assert not r.fused
+    return r
+
+
+def _lanes_of(r, card):
+    """Every pixel of ``r``'s frame once: (wid, px, py) on the card."""
+    w = r.settings.width
+    wid = torch.arange(w * r.settings.height, device=card, dtype=torch.int32)
+    return wid, (wid % w).float(), (wid // w).float()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("scene_name", ["bvh-mesh", "cornell-rr"])
 def test_modular_sample_on_the_card_runs_no_plain_stage(card, scene_name, monkeypatch):
     """One sample of the modular batch route on the card (a 5,120-triangle
     mesh on the BVH backend: K6, N1a, K3, N1b; the Cornell glTF with
     roulette: K4 in place of K6): the plain stages are never called, and the
-    sample dispatches at most 200 ATen ops beside its kernels (the camera
-    rays and their draws, the path-vertex sums), where the shade and finish
-    work alone was about 430 ops per level."""
+    sample dispatches at most 200 ATen ops beside its kernels, where the
+    shade and finish work alone was about 430 ops per level."""
     from torch.utils._python_dispatch import TorchDispatchMode
-
-    from meshes import displaced_organic_mesh
-    from raytracing_course_2024_tpu_torch.runtime.render import Renderer
 
     from raytracing_course_2024_tpu_torch.ops import traverse as TR
 
@@ -434,13 +487,7 @@ def test_modular_sample_on_the_card_runs_no_plain_stage(card, scene_name, monkey
         def refuse(*a, _stage=stage, **k):
             raise AssertionError(f"{_stage} ran on the card")
         monkeypatch.setattr(mod, stage, refuse)
-    if scene_name == "bvh-mesh":
-        v, f, vn = displaced_organic_mesh(subdiv=4)
-        r = Renderer(mesh_scene_desc(v, f, vn, width=64, height=48, samples=2), device=card)
-        assert r.backend == "bvh"
-    else:
-        r = Renderer(builds("cornell", 64, 36, 2)[1][0], device=card, russian_roulette=True)
-    assert not r.fused
+    r = _modular_renderer(scene_name, card)
     s = r.settings
     n = s.width * s.height
     wid = torch.arange(n, device=card, dtype=torch.int32)
@@ -471,6 +518,23 @@ def _bits(x):
     return x.contiguous().view(torch.int32)
 
 
+def _sparse_rows(c, n, pattern):
+    """The first ``n`` lanes of ``c``'s state with few live lanes: 4 % at
+    random (``sparse``), whole warps in every third warp of every other
+    block (``dead-warps``), or none (``all-dead``)."""
+    i = np.arange(n)
+    if pattern == "sparse":
+        keep = np.random.default_rng(3).random(n) < 0.04
+        assert 0 < keep.mean() <= 0.05
+    elif pattern == "dead-warps":
+        keep = ((i // 32) % 3 == 0) & ((i // 256) % 2 == 0)
+    else:
+        keep = np.zeros(n, bool)
+    rows = c["rows"][:, :n].copy()
+    rows[12] = keep
+    return torch.from_numpy(rows)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("layout", ["batch", "lane"])
 @pytest.mark.parametrize("pattern", ["sparse", "dead-warps", "all-dead"])
@@ -489,16 +553,7 @@ def test_kernels_bit_equal_on_sparse_and_dead_warp_states(card, pattern, layout)
     c = _case("mixed")
     n = c["b"] - 77
     i = np.arange(n)
-    if pattern == "sparse":
-        keep = np.random.default_rng(3).random(n) < 0.04
-        assert 0 < keep.mean() <= 0.05
-    elif pattern == "dead-warps":
-        keep = ((i // 32) % 3 == 0) & ((i // 256) % 2 == 0)
-    else:
-        keep = np.zeros(n, bool)
-    rows = c["rows"][:, :n].copy()
-    rows[12] = keep
-    rows = torch.from_numpy(rows).to(card)
+    rows = _sparse_rows(c, n, pattern).to(card)
     scene = modular_scene(c["ta"], c["ts"], card)
     assert scene.statics.num_planes > 0
     t, idx = (x[:n].to(card) for x in _table_hit(c))
@@ -525,3 +580,106 @@ def test_kernels_bit_equal_on_sparse_and_dead_warp_states(card, pattern, layout)
     assert torch.equal(_bits(kf[every]), _bits(pf[every]))
     live_in = ps[12] > 0.5
     assert torch.equal(_bits(kf[:, live_in]), _bits(pf[:, live_in]))
+
+
+def _assert_shade_outputs_equal(a, b):
+    """Two launches of N1a on one input: the state and ``need`` bit for bit,
+    the surface on the lanes that hit (the batch layout's alive)."""
+    assert torch.equal(_bits(a[0]), _bits(b[0]))
+    if a[1] is None:
+        assert b[1] is None and a[2] is None and b[2] is None
+        return
+    assert torch.equal(a[2], b[2])
+    hit = a[0][12] > 0.5
+    for r, (x, y) in enumerate(zip(a[1].columns(), b[1].columns())):
+        assert torch.equal(_bits(x[hit]), _bits(y[hit])), r
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("level", ["camera", "bounce-1", "bounce-3", "bounce-3-final"])
+@pytest.mark.parametrize("scene_name", ["cornell-rr", "mixed-rr"])
+def test_shade_count_on_the_modular_route_states(card, scene_name, level):
+    """N1a (after K4, as ``_collect_hit`` runs it) on the modular route's
+    state at a level, on the Cornell glTF and on MIXED (planes staged in
+    shared memory), roulette on: its count adds the lanes alive on entry,
+    ``(st[12] > 0.5).sum()``, to what the counter held, and every output
+    equals a launch's without a counter bit for bit."""
+    from raytracing_course_2024_tpu_torch.ops.camera import camera_state
+
+    r = _modular_renderer(scene_name, card)
+    w, h = r.settings.width, r.settings.height
+    wid, px, py = _lanes_of(r, card)
+    st = camera_state(SEED, wid, 0, px, py, P.camera_from_row(r.cam_row), r.cam_row, w, h)
+    live = None
+    for i in range(0 if level == "camera" else int(level.split("-")[1])):
+        st, live = P._bounce(st, r.scene, r.cfg, SEED, wid, 0, i, False, live)
+    want = int((st[12] > 0.5).sum())
+    assert 0 < want <= w * h
+    final = level.endswith("final")
+    count = torch.full((), 3, dtype=torch.int64, device=card)
+    got = P._collect_hit(st.clone(), r.scene, r.cfg, False, live, final=final, count=count)
+    base = P._collect_hit(st.clone(), r.scene, r.cfg, False, live, final=final)
+    torch.cuda.synchronize()
+    assert int(count) == 3 + want
+    _assert_shade_outputs_equal(got, base)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["batch", "lane"])
+@pytest.mark.parametrize("pattern", ["sparse", "dead-warps", "all-dead"])
+def test_shade_count_on_sparse_and_dead_warp_states(card, pattern, layout):
+    """N1a's count on MIXED with few live lanes over a ragged last block
+    (``_sparse_rows``; blocks and warps without a live lane leave early):
+    the lanes alive on entry, and every output as without a counter."""
+    c = _case("mixed")
+    n = c["b"] - 77
+    rows = _sparse_rows(c, n, pattern).to(card)
+    scene = modular_scene(c["ta"], c["ts"], card)
+    t, idx = (x[:n].to(card) for x in _table_hit(c))
+    depth = torch.from_numpy((np.arange(n) % DEPTH).astype(np.int32)).to(card)
+    kw = dict(depth=depth, last=DEPTH - 1) if layout == "lane" else {}
+    count = torch.zeros((), dtype=torch.int64, device=card)
+    got = SH.shade(rows.clone(), t, idx, scene, c["bg"], count=count, **kw)
+    base = SH.shade(rows.clone(), t, idx, scene, c["bg"], **kw)
+    torch.cuda.synchronize()
+    assert int(count) == int((rows[12] > 0.5).sum())
+    _assert_shade_outputs_equal(got, base)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scene_name", ["cornell-rr", "bvh-mesh"])
+def test_graphed_modular_sample_launches_no_reduction(card, scene_name):
+    """One modular sample replayed from its CUDA graph, under
+    ``torch.profiler``: the card runs N1a and no ATen reduction, and the
+    body's path vertices (N1a's count) and radiance are those of the route
+    before N1a counted (the alive mask summed per level), run eagerly
+    through the same kernels on the same sample."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from raytracing_course_2024_tpu_torch.ops.camera import camera_state
+
+    r = _modular_renderer(scene_name, card)
+    assert r.graphs is not None
+    w, h = r.settings.width, r.settings.height
+    wid, px, py = _lanes_of(r, card)
+    body, run = P.sample_body(r.scene, r.cam_row, r.cfg, w, h, w * h, graphs=r.graphs)
+    body.load(SEED, wid, px, py)
+    body.at(0)
+    run()  # the capture
+    off = w * h  # the frame's second sample
+    body.load(SEED, wid, px, py)
+    body.at(off)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages()]
+    assert any("shade_kernel" in k for k in names), names
+    assert not any("reduce_kernel" in k for k in names), names
+    assert body.nrays.dtype == torch.int64
+    st = camera_state(SEED, wid, off, px, py, P.camera_from_row(r.cam_row), r.cam_row, w, h)
+    rad, terms = route_before(r.scene, st, r.cfg, SEED, wid, off, False)
+    want = torch.zeros_like(body.acc)
+    want += rad
+    torch.cuda.synchronize()
+    assert int(body.nrays) == sum(terms) > w * h
+    assert torch.equal(_bits(body.acc), _bits(want))
