@@ -3,6 +3,7 @@
     python3 chip_smoke.py            # one CUDA card
     python3 chip_smoke.py --cards    # the multiproc phase over every card (2+)
     python3 chip_smoke.py --graphs   # the build and the graphs phase alone
+    python3 chip_smoke.py --many     # the build and K3 above 32 lights alone
 
 Every phase runs the Renderer as a user gets it: on the card the batch
 engine's samples and the lane engines' rounds, the K5 loop's too, replay
@@ -80,6 +81,16 @@ exits non-zero):
                equal to the plain version's bit for bit on every lane; K3 in
                lane mode on the same rounds' bounces at K3's gate, ``ok``
                exact;
+               K3 above 32 lights (``phase_kernels_many``) on the course's
+               practice6_1 scene (``rtbench/scenes/practice6_1.py``: 1,164
+               triangle lights, the light pdf walked in the lights' own
+               tree) at the counter wavefront's 1,048,576 lanes: its
+               bounces at rounds >= 1, >= 10 and its last against the
+               plain version, whose (B, L) sweep runs 32,768 lanes at a
+               time, at K3's gate with ``ok`` exact; and one graphed
+               frame of the scene, whose launches must match the
+               wavefront's rounds (``sampler_many`` in place of
+               ``sampler``);
                N4 (the modular route's camera stage) on 997, 262,144,
                921,523 and 921,600 lanes, bit for bit on every lane and row,
                launched eagerly and replayed from a captured CUDA graph
@@ -384,6 +395,9 @@ KERNELS = {  # name -> (replaced TPU kernel body file:line, CUDA source)
     "final": (f"{TPU_OPS}/pallas_bounce.py:421", f"{CSRC}/bounce.cu"),
     "nearest": (f"{TPU_OPS}/pallas_intersect.py:33", f"{CSRC}/dense_nearest.cu"),
     "sampler": (f"{TPU_OPS}/pallas_sampling.py:97", f"{CSRC}/sampler.cu"),
+    # K3 above 32 lights has no Pallas source either: the JAX package sums the
+    # light pdf over every light in one dense XLA sweep
+    "sampler_many": (f"{TPU_OPS}/sampling.py:330", f"{CSRC}/sampler.cu"),
     "persistent": (f"{TPU_OPS}/pallas_bounce.py:651", f"{CSRC}/persistent.cu"),
     # K6 has no Pallas source: the JAX package walks its BVH in XLA
     "bvh": (f"{TPU_OPS}/treelet.py:175", f"{CSRC}/bvh_traverse.cu"),
@@ -417,6 +431,7 @@ GRAPHED = {
                "ModularScene",
     "sampler": "the batch engine's modular route; the lane engines' rounds on a "
                "ModularScene (lane mode)",
+    "sampler_many": "as K3's, on a ModularScene of more than 32 lights",
     "bvh": "the batch engine's modular route; the lane engines' rounds",
     "shade": "the batch engine's modular route; the lane engines' rounds on a ModularScene",
     "finish": "the batch engine's modular route; the lane engines' rounds on a ModularScene",
@@ -961,7 +976,9 @@ def mixture_ops(scene, point, n_geom, n_shade, v, roughness, need, key, ctr) -> 
     ``ops.rng.Ctr``, a base per lane in the lane layout): per lane that
     samples, the candidates drawn until the first accepted one (each: the
     pick, its component's sampler, the acceptance test), then the mixture
-    pdf with the light pdf of every light."""
+    pdf with the light pdf of every light. Above 32 lights K3 walks the
+    lights' tree for the light pdf; its nodes and tests are not counted
+    here, so the bound made from these operations is a lower one."""
     from raytracing_course_2024_tpu_torch.ops import rng
     from raytracing_course_2024_tpu_torch.ops import sampling as S
 
@@ -988,8 +1005,9 @@ def mixture_ops(scene, point, n_geom, n_shade, v, roughness, need, key, ctr) -> 
         ops += torch.where(pending, c.double() + OPS_CAND["which"] + OPS_CAND["accept"], 0.0)
         ok = (cand.dot(n_shade) > 0.0) & (cand.dot(n_geom) > 0.0)
         pending = pending & ~ok
-    per_pdf = OPS_PDF + sum(OPS_LIGHT_PDF[t] + (OPS_LIGHT_ROT.get(t, 0) if r else 0)
-                            for t, r in zip(statics.light_types, statics.light_rotated))
+    per_pdf = OPS_PDF + (0 if statics.num_lights > S.UNROLL_MAX_LIGHTS else sum(
+        OPS_LIGHT_PDF[t] + (OPS_LIGHT_ROT.get(t, 0) if r else 0)
+        for t, r in zip(statics.light_types, statics.light_rotated)))
     return float(ops.sum()) + per_pdf * float(need.sum())
 
 
@@ -1958,6 +1976,7 @@ def lane_frame_run(r, seed: int) -> dict:
 TRACE_NAMES = {"primary": "primary_kernel", "bounce": "bounce_kernel", "final": "bounce_kernel",
                "persistent": "persistent_kernel", "nearest": "dense_nearest_kernel",
                "bvh": "bvh_nearest_kernel", "sampler": "sampler_kernel",
+               "sampler_many": "sampler_many_kernel",
                "shade": "shade_kernel", "finish": "finish_kernel", "refill": "refill_kernel",
                "restart": "restart_kernel", "camera": "camera_kernel",
                "loop": "round_tail_kernel"}
@@ -2227,20 +2246,50 @@ def lane_kernel_case(kind: str, tag: str, snap: tuple, gpu: str, timed: bool) ->
                 active_in=dead / state.shape[1], lanes=state.shape[1])
 
 
+# lanes at a time of K3's plain version above 32 lights: its (B, L) sweep
+# holds several (lanes, lights) floats at once, too many at 1,048,576 lanes
+PLAIN_CHUNK = 32_768
+
+
+def sampler_plain_lanes(scene, seed, wid, off, depth, ins, chunk=None) -> tuple:
+    """``sampler_plain`` in the lane layout (a counter base per lane from
+    ``depth``) on ``chunk`` lanes at a time, or all at once: (l, pdf, ok)."""
+    from raytracing_course_2024_tpu_torch.ops import rng
+    from raytracing_course_2024_tpu_torch.ops.sampler import sampler_plain
+    from raytracing_course_2024_tpu_torch.ops.vec import Vec3
+
+    n = wid.shape[0]
+    step = chunk or n
+    parts = []
+    for a in range(0, n, step):
+        cut = [Vec3(*(c[a:a + step] for c in x)) if isinstance(x, Vec3)
+               else x[a:a + step] if isinstance(x, torch.Tensor) else x for x in ins]
+        parts.append(sampler_plain(scene, seed, wid[a:a + step], off,
+                                   rng.lane_ctr(depth[a:a + step], K), *cut))
+    if len(parts) == 1:
+        return parts[0]
+    l = Vec3(*(torch.cat([getattr(p[0], c) for p in parts]) for c in "xyz"))
+    return l, torch.cat([p[1] for p in parts]), torch.cat([p[2] for p in parts])
+
+
 def lane_sampler_case(tag: str, snap: tuple, scene, cfg, gpu: str, timed: bool) -> tuple:
     """K3 in lane mode against ``sampler_plain`` in the lane layout on the
     sampler inputs of one bounce of the counter wavefront (its nearest hit
     and N1a in the lane layout on the snapshot): ``ok`` equal on every lane,
-    l and pdf at K3's gate. ``timed``: ms per launch (``cuda_ms_each``) and
-    the bound. Returns ((largest absolute, largest relative error on the
-    lanes both accept), timing dict or {})."""
+    l and pdf at K3's gate. Above 32 lights the plain version runs
+    ``PLAIN_CHUNK`` lanes at a time. ``timed``: ms per launch
+    (``cuda_ms_each``), the plain version's ms and the bound. Returns
+    ((largest absolute, largest relative error on the lanes both accept),
+    timing dict or {})."""
     from raytracing_course_2024_tpu_torch.ops import rng
-    from raytracing_course_2024_tpu_torch.ops.sampler import sample_mixture_kernel, sampler_plain
+    from raytracing_course_2024_tpu_torch.ops.sampler import sample_mixture_kernel
+    from raytracing_course_2024_tpu_torch.ops.sampling import UNROLL_MAX_LIGHTS
     from raytracing_course_2024_tpu_torch.ops.shade import sampler_inputs, shade
     from raytracing_course_2024_tpu_torch.ops.traverse import nearest_table
     from raytracing_course_2024_tpu_torch.ops.vec import Vec3
 
     rnd, (st, wid, depth), (seed_off,) = snap
+    many = scene.statics.num_lights > UNROLL_MAX_LIGHTS
     live = st[12] > 0.5
     t, idx = nearest_table(Vec3(st[0], st[1], st[2]), Vec3(st[3], st[4], st[5]), scene,
                            live=live)
@@ -2253,7 +2302,11 @@ def lane_sampler_case(tag: str, snap: tuple, scene, cfg, gpu: str, timed: bool) 
         return sample_mixture_kernel(scene, seed, wid, off, rng.lane_ctr(0, K), *ins, depth)
 
     lk, pk, okk = kernel()
-    lp_, pp, okp = sampler_plain(scene, seed, wid, off, rng.lane_ctr(depth, K), *ins)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    lp_, pp, okp = sampler_plain_lanes(scene, seed, wid, off, depth, ins,
+                                       PLAIN_CHUNK if many else None)
+    end.record()
     torch.cuda.synchronize()
     res = compare_rows([*lk, pk], [*lp_, pp], okk, okp, f"{tag}:sampler-lane")
     both = okk & okp
@@ -2267,14 +2320,18 @@ def lane_sampler_case(tag: str, snap: tuple, scene, cfg, gpu: str, timed: bool) 
         return (res["max_abs_err"], rel), {}
     ms = cuda_ms_each(kernel, ROUND_REPS)
     n, n_need = st.shape[1], float(need.sum())
-    ltable = (scene.light_packed.numel() + scene.lspec.numel()) * 4
+    tables = ((scene.light_rec, scene.light_leaf, scene.light_nodes) if many
+              else (scene.light_packed, scene.lspec))
+    ltable = sum(x.numel() for x in tables) * 4
     key = rng.work_key(seed, wid)
     ops = mixture_ops(scene, *sampler_inputs(surf), need, key, rng.lane_ctr(depth, K))
     b = bound(n * (1 + 16 + 1) + n_need * (52 + 4 + 4) + ltable, ops)
-    say("timing", kernel="sampler-lane", state=tag, lanes=n, active_in=round(n_need / n, 4),
-        ms=round(ms, 4), bound_ms=round(b[0], 5), bound_by=b[1], share=round(b[0] / ms, 4),
-        gpu=f'"{gpu}"')
-    return (res["max_abs_err"], rel), dict(ms=ms, bound=b, active_in=n_need / n)
+    say("timing", kernel="sampler_many-lane" if many else "sampler-lane", state=tag, lanes=n,
+        active_in=round(n_need / n, 4), ms=round(ms, 4),
+        plain_ms=round(start.elapsed_time(end), 3), bound_ms=round(b[0], 5), bound_by=b[1],
+        share=round(b[0] / ms, 4), gpu=f'"{gpu}"')
+    return (res["max_abs_err"], rel), dict(ms=ms, plain_ms=start.elapsed_time(end), bound=b,
+                                           active_in=n_need / n, lanes=n)
 
 
 def phase_kernels_round(dev, gpu: str) -> tuple:
@@ -2315,6 +2372,79 @@ def phase_kernels_round(dev, gpu: str) -> tuple:
     del snaps
     torch.cuda.empty_cache()
     return errs, timing
+
+
+def many_desc(w: int, h: int, spp: int):
+    """The course's practice6_1 scene (16,910 triangles, 1,164 of them
+    lights) as the benchmark builds it (``rtbench/configs/practice6_1.json``)."""
+    from rtbench import scenes
+    from rtbench.program import scene_desc
+
+    configs = os.path.join(ROOT, "rtbench", "configs")
+    with open(os.path.join(configs, "practice6_1.json")) as f:
+        conf = json.load(f)
+    return scene_desc(scenes.build(conf["scene"], configs, w, h), spp)
+
+
+def phase_kernels_many(dev, gpu: str) -> tuple:
+    """K3 above 32 lights on practice6_1 at 1280x720 x 16 spp, the counter
+    wavefront's 1,048,576 lanes: at its bounces of rounds >= 1, >= 10 and
+    its last (``lane_snapshots``; its sticky frame runs K3's walk too)
+    against the plain version at K3's gate, ``ok`` exact; then one graphed
+    frame on the scene's default route (BVH backend, counter wavefront),
+    whose launches must be the rounds' and refills' (``expected_launches``:
+    K3's as ``sampler_many``, none as ``sampler``). Returns (largest
+    absolute error, the round-10 timing with the largest relative error and
+    the frame's ``sampler_many`` launches)."""
+    from raytracing_course_2024_tpu_torch.runtime.render import Renderer
+
+    t0 = time.perf_counter()
+    w, h, spp = FRAME
+    desc = many_desc(w, h, spp)
+    r = Renderer(desc, device=dev, eager=True)
+    if r.backend != "bvh" or k3_key(r) != "sampler_many":
+        raise SystemExit(f"practice6_1 took the {r.backend} backend with {k3_key(r)}")
+    snaps = lane_snapshots(r)
+    err, rel, timing = 0.0, 0.0, {}
+    for name, snap in snaps["core"].items():
+        (e, e_rel), got = lane_sampler_case(f"practice6_1-{name}", snap, r.scene, r.cfg, gpu,
+                                            name == ROUND_TIMED)
+        err, rel = max(err, e), max(rel, e_rel)
+        timing = got or timing
+    del snaps, r
+    torch.cuda.empty_cache()
+    r = Renderer(desc, device=dev)
+    r.render_frame_device(seed=0)  # captures
+    run = lane_frame_run(r, 1)
+    want = expected_launches(r, w * h, spp, 1, run["rounds"], run["refills"])
+    say("kernels", stage="many-lights-frame", engine=r.engine, rounds=run["rounds"],
+        refills=run["refills"], launches=json.dumps(run["launches"]).replace(" ", ""))
+    if r.engine != "wavefront" or run["launches"] != want:
+        raise SystemExit(f"practice6_1 frame on {r.engine}: launched {run['launches']}, "
+                         f"expected {want}")
+    timing.update(max_rel_err=rel, launches=run["launches"]["sampler_many"])
+    del r
+    torch.cuda.empty_cache()
+    say("kernels", stage="many", seconds=round(time.perf_counter() - t0, 2))
+    return err, timing
+
+
+def many_main() -> int:
+    """``--many``: the build and ``phase_kernels_many`` alone."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)",
+              file=sys.stderr)
+        return 1
+    from raytracing_course_2024_tpu_torch.ops import kernels
+
+    kernels.library()
+    say("build", seconds=round(kernels.BUILD_INFO["seconds"], 2))
+    gpu = gpu_line()
+    err, timing = phase_kernels_many(torch.device("cuda", 0), gpu)
+    say("timing", kernel="sampler_many", max_abs_err=err,
+        **{k: (list(v) if isinstance(v, tuple) else v) for k, v in timing.items()})
+    print(gpu, flush=True)
+    return 0
 
 
 def bvh_state(r, n: int, plain: bool) -> dict:
@@ -3705,6 +3835,14 @@ def nearest_kernel(r) -> str | None:
     return "nearest" if scene.tri_pack is not None else None
 
 
+def k3_key(r) -> str:
+    """K3's launch counter for the scene of ``r``: ``sampler_many`` above
+    32 lights (the walk of the lights' tree), else ``sampler``."""
+    from raytracing_course_2024_tpu_torch.ops.sampling import UNROLL_MAX_LIGHTS
+
+    return "sampler_many" if r.statics.num_lights > UNROLL_MAX_LIGHTS else "sampler"
+
+
 def batch_launches(r, n_pix: int, spp: int, shards: int = 1) -> dict:
     """The launches of a batch-engine frame of ``shards`` shards of ``n_pix``
     pixels at ``spp`` samples each: per batch and sample, K2 + K1 per middle
@@ -3720,8 +3858,8 @@ def batch_launches(r, n_pix: int, spp: int, shards: int = 1) -> dict:
     if r.fused:
         want.update(primary=runs, bounce=runs * (depth - 2), final=runs)
         return want
-    want.update(sampler=runs * (depth - 1), shade=runs * depth, finish=runs * (depth - 1),
-                camera=runs)
+    want.update(shade=runs * depth, finish=runs * (depth - 1), camera=runs)
+    want[k3_key(r)] = runs * (depth - 1)
     if nearest_kernel(r):
         want[nearest_kernel(r)] = runs * depth
     return want
@@ -3750,8 +3888,8 @@ def expected_launches(r, n_pix: int, spp: int, shards: int, rounds, refills: int
     elif r.fused:
         want["bounce"] = n
     else:
-        scene = r.scene if hasattr(r, "scene") else next(iter(r.scenes.values()))
-        want.update(shade=n, finish=n, sampler=n if takes_k3(r.cfg, scene.statics) else 0)
+        want.update(shade=n, finish=n)
+        want[k3_key(r)] = n if takes_k3(r.cfg) else 0
         if nearest_kernel(r):
             want[nearest_kernel(r)] = n
     if r.engine == "sticky" and not k5:
@@ -4379,8 +4517,9 @@ def phase_timing(dev, gpu: str, counts: dict, errs: dict, m: Modular, k5, bvh: d
         inputs[k] = cam_k["active_in"]
         bounce1[k] = (b1_k, b1_k["bound"])
         deep[k] = n1_ms[f"bounce{N1_DEEP}"][k]
-    # N2a and N2b on the BVH lane engines' round-10 states (phase_kernels_round)
-    for k in ("refill", "restart"):
+    # N2a and N2b on the BVH lane engines' round-10 states (phase_kernels_round),
+    # K3 above 32 lights on practice6_1's (phase_kernels_many)
+    for k in ("refill", "restart", "sampler_many"):
         launch_ms[k], plain_ms[k] = lane[k]["ms"], lane[k]["plain_ms"]
         bounds[k], inputs[k] = lane[k]["bound"], lane[k]["active_in"]
     # N4 on the Cornell frame's 921,600 lanes
@@ -4451,6 +4590,10 @@ def phase_timing(dev, gpu: str, counts: dict, errs: dict, m: Modular, k5, bvh: d
              "active_in_lane_mode": k3_lane["active_in"]} if k == "sampler" else {}),
          **({"state": ROUND_TIMED, "tolerance": "bit for bit on every lane",
              "lanes": lane[k]["lanes"]} if k in ("refill", "restart") else {}),
+         **({"state": ROUND_TIMED, "lanes": lane[k]["lanes"],
+             "max_rel_err": lane[k]["max_rel_err"],
+             "bound_note": "the walk of the lights' tree not counted (mixture_ops)"}
+            if k == "sampler_many" else {}),
          **({"tolerance": "bit for bit on every lane and row"} if k == "camera" else {}),
          **({"tolerance": "bit for bit (counters, alive, depth and ray rows)",
              "lanes": loop_t["lanes"], **loop_extra} if k == "loop" else {})}
@@ -4873,6 +5016,7 @@ def main() -> int:
     # K3's lane mode keeps its own error: its pdfs reach 1e14 on near-mirror lanes
     lane["sampler-lane"]["max_abs_err"] = round_errs.pop("sampler")
     errs.update(round_errs)
+    errs["sampler_many"], lane["sampler_many"] = phase_kernels_many(dev, gpu)
     errs["camera"] = phase_kernels_camera(dev)
     errs["loop"] = phase_kernels_loop(dev)
     with tempfile.TemporaryDirectory() as tmp:
@@ -4888,6 +5032,7 @@ def main() -> int:
     counts["refill"] = runs["bvh-wavefront"]["refill"]
     counts["restart"] = runs["bvh-sticky"]["restart"]
     counts["loop"] = runs["bvh"]["loop"]  # the BVH default engine's loop
+    counts["sampler_many"] = lane["sampler_many"]["launches"]  # practice6_1's frame
     lane["sampler-lane"]["launches"] = sum(runs[p]["sampler"]
                                            for p in ("bvh-wavefront", "bvh-sticky"))
     idle = [k for k in KERNELS if counts[k] < 1]
@@ -4922,6 +5067,8 @@ if __name__ == "__main__":
         sys.exit(cards_main())
     if sys.argv[1:2] == ["--graphs"]:
         sys.exit(graphs_main())
+    if sys.argv[1:2] == ["--many"]:
+        sys.exit(many_main())
     if sys.argv[1:2] == ["--traced"]:
         sys.exit(traced_main())
     if sys.argv[1:2] == ["--mp-worker"]:

@@ -23,7 +23,8 @@
 // binary tree's (at most a few rows, contiguous in table order); primitive
 // records are three float4 in that order (ops/bvh.py:build_bvh_records). At
 // 81,920 triangles that is ~14k lines (1.8 MB) and 3.9 MB of records, well
-// inside the 50 MB L2.
+// inside the 50 MB L2. The line and its box test live in bvh_node.cuh, which
+// K3's walk of the lights' own tree (light_tree.cuh) shares.
 //
 // The walk, one ray per thread. A visit is eight independent 16-byte loads
 // from one line, four slab tests against [tmin, best] and a 4-element
@@ -80,6 +81,7 @@
 // the wide nodes alone were slower than the binary walk; the postponed
 // leaf tests and the refill are what brought the bounce rays below it.
 
+#include "bvh_node.cuh"
 #include "common.cuh"
 #include "lane_queue.cuh"
 
@@ -88,9 +90,7 @@ namespace {
 constexpr int kStack = 3 * 64;     // ops/bvh.py:WIDE_STACK
 constexpr int kSharedStack = 8;    // entries of a thread's stack in shared memory
 constexpr int kTop = 85;           // wide nodes staged in shared memory: 1 + 4 + 16 + 64
-constexpr int kLine = 8;           // float4 per wide node
 constexpr int kQueue = 64;         // a warp's queue: up to 31 waiting + 32 drawn
-constexpr unsigned kLeafBit = 0x80000000u;
 
 struct BvhParams {
   const float* ro[3];
@@ -113,36 +113,11 @@ struct BvhShared {
   unsigned long long bar;  // the mbarrier the top's copy completes on
 };
 
-// Entry distance of the ray into the box, or INFINITY where the slab
-// interval does not meet [tmin, limit]. An axis whose slab product is NaN
-// (origin on the slab plane, direction 0 there) is left out by fminf/fmaxf.
-__device__ __forceinline__ float box_entry(float lx, float ly, float lz, float hx, float hy,
-                                           float hz, V3 ro, V3 inv, float tmin, float limit) {
-  const float x0 = (lx - ro.x) * inv.x, x1 = (hx - ro.x) * inv.x;
-  const float y0 = (ly - ro.y) * inv.y, y1 = (hy - ro.y) * inv.y;
-  const float z0 = (lz - ro.z) * inv.z, z1 = (hz - ro.z) * inv.z;
-  const float near = fmaxf(fmaxf(fminf(x0, x1), fminf(y0, y1)), fmaxf(fminf(z0, z1), tmin));
-  const float far = fminf(fminf(fmaxf(x0, x1), fmaxf(y0, y1)), fminf(fmaxf(z0, z1), limit));
-  return near <= far ? near : INFINITY;
-}
-
-struct Line {
-  float4 lx, ly, lz, hx, hy, hz, w, c;
-};
-
+// A wide node: from the block's staged top (shared memory) or device memory.
 __device__ __forceinline__ Line load_line(const BvhShared& s, const float4* nodes, int n,
                                           int n_top) {
-  Line l;
-  if (n < n_top) {
-    const float4* q = s.top + kLine * n;
-    l.lx = q[0], l.ly = q[1], l.lz = q[2], l.hx = q[3];
-    l.hy = q[4], l.hz = q[5], l.w = q[6], l.c = q[7];
-  } else {
-    const float4* q = nodes + (long long)kLine * n;
-    l.lx = __ldg(q), l.ly = __ldg(q + 1), l.lz = __ldg(q + 2), l.hx = __ldg(q + 3);
-    l.hy = __ldg(q + 4), l.hz = __ldg(q + 5), l.w = __ldg(q + 6), l.c = __ldg(q + 7);
-  }
-  return l;
+  if (n < n_top) return line_at(s.top + kLine * n);
+  return ldg_line(nodes + (long long)kLine * n);
 }
 
 // A child's sort key: its entry distance's bits with the slot in the low two

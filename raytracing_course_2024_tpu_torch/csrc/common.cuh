@@ -130,7 +130,9 @@ __device__ __forceinline__ void camera_ray(const float* cam, float px, float py,
 // loop's records, bounce_body.cuh) and the light tables `lp`/`lspec` sit in
 // shared memory; `geo` is the (C_GEO, m) table in device memory, read through
 // G/G3 for the winning entry only (18 KB at most: it stays in L2). K3 sets
-// only the light tables.
+// only the light tables. The light functions below read a table through
+// L/L3 (light j's LightCol row) and spec (its ptype | rotated << 2), so K3's
+// tables above 32 lights (light_tree.cuh) run the same code.
 struct Tables {
   const float* geo;
   const float4* rec;
@@ -146,6 +148,7 @@ struct Tables {
   __device__ __forceinline__ V3 L3(int row, int j) const {
     return mk(L(row, j), L(row + 1, j), L(row + 2, j));
   }
+  __device__ __forceinline__ int spec(int j) const { return lspec[j]; }
 };
 
 // ---- section 4: mixture sampling (ops/sampling.py, ops/mixture.py) -----------
@@ -267,7 +270,8 @@ __device__ float pdf_vndf(V3 n, V3 l, V3 v, float roughness) {
   return (vl.z > 0.0f && denom > 0.0f && h.z > 0.0f) ? pdf : 0.0f;
 }
 
-__device__ V3 sample_light_dir(const Tables& T, const float us[6], V3 point) {
+template <class LT>
+__device__ V3 sample_light_dir(const LT& T, const float us[6], V3 point) {
   const int li = min((int)(us[5] * (float)T.num_lights), T.num_lights - 1);
   const float ptype = T.L(L_PTYPE, li);
   const V3 s = T.L3(L_P0, li);
@@ -308,89 +312,98 @@ __device__ __forceinline__ float contrib(float t, float n_dot_l, float local_pdf
   return (valid && t > 0.0f) ? local_pdf * t * t / denom : 0.0f;
 }
 
-__device__ float pdf_lights(const Tables& T, V3 point, V3 l) {
-  float total = 0.0f;
-  for (int j = 0; j < T.num_lights; ++j) {
-    const int code = T.lspec[j];
-    const int type = code & 3;
-    const bool rotated = (code >> 2) & 1;
-    const float inv_area = T.L(L_INV_AREA, j);
-    if (type == K_TRI) {
-      const V3 p0 = T.L3(L_P0, j), p1 = T.L3(L_P1, j), p2 = T.L3(L_P2, j);
-      const V3 e1 = sub(p1, p0), e2 = sub(p2, p0);
-      const V3 pv = cross(l, e2);
-      const float det = dot(e1, pv);
-      const bool det_ok = fabsf(det) > 1e-30f;
-      const float inv_det = 1.0f / (det_ok ? det : 1e-30f);
-      const V3 tv = sub(point, p0);
-      const float u = dot(tv, pv) * inv_det;
-      const V3 qv = cross(tv, e1);
-      const float v = dot(l, qv) * inv_det;
-      const float t = dot(e2, qv) * inv_det;
-      const bool valid = (u >= 0.0f) && (v >= 0.0f) && (u + v <= 1.0f) && det_ok;
-      const V3 tri_n = normalize(cross(e1, e2), 1e-20f);
-      total += contrib(t, dot(tri_n, l), inv_area, valid);
-      continue;
-    }
-    const float qx = T.L(L_ROT, j), qy = T.L(L_ROT + 1, j), qz = T.L(L_ROT + 2, j),
-                qw = T.L(L_ROT + 3, j);
-    V3 o = sub(point, T.L3(L_POS, j));
-    V3 d = l;
-    if (rotated) {
-      o = quat_rotate(-qx, -qy, -qz, qw, o);
-      d = quat_rotate(-qx, -qy, -qz, qw, l);
-    }
-    const V3 s = T.L3(L_P0, j);
-    if (type == K_BOX) {
-      const float ix = 1.0f / (d.x + DIR_BIAS), iy = 1.0f / (d.y + DIR_BIAS),
-                  iz = 1.0f / (d.z + DIR_BIAS);
-      const float ax = (-s.x - o.x) * ix, bx = (s.x - o.x) * ix;
-      const float ay = (-s.y - o.y) * iy, by = (s.y - o.y) * iy;
-      const float az = (-s.z - o.z) * iz, bz = (s.z - o.z) * iz;
-      const float t1 = fmaxf(fminf(ax, bx), fmaxf(fminf(ay, by), fminf(az, bz)));
-      const float t2 = fminf(fmaxf(ax, bx), fminf(fmaxf(ay, by), fmaxf(az, bz)));
-      const bool valid = t1 <= t2;
-      const float roots[2] = {t1, t2};
+// Light j's terms of the light pdf along (point, l), added to `total` in
+// order: a triangle's one hit, a box's or an ellipsoid's two roots.
+template <class LT>
+__device__ __forceinline__ void add_light_pdf(const LT& T, int j, V3 point, V3 l, float& total) {
+  const int code = T.spec(j);
+  const int type = code & 3;
+  const bool rotated = (code >> 2) & 1;
+  const float inv_area = T.L(L_INV_AREA, j);
+  if (type == K_TRI) {
+    const V3 p0 = T.L3(L_P0, j), p1 = T.L3(L_P1, j), p2 = T.L3(L_P2, j);
+    const V3 e1 = sub(p1, p0), e2 = sub(p2, p0);
+    const V3 pv = cross(l, e2);
+    const float det = dot(e1, pv);
+    const bool det_ok = fabsf(det) > 1e-30f;
+    const float inv_det = 1.0f / (det_ok ? det : 1e-30f);
+    const V3 tv = sub(point, p0);
+    const float u = dot(tv, pv) * inv_det;
+    const V3 qv = cross(tv, e1);
+    const float v = dot(l, qv) * inv_det;
+    const float t = dot(e2, qv) * inv_det;
+    const bool valid = (u >= 0.0f) && (v >= 0.0f) && (u + v <= 1.0f) && det_ok;
+    const V3 tri_n = normalize(cross(e1, e2), 1e-20f);
+    total += contrib(t, dot(tri_n, l), inv_area, valid);
+    return;
+  }
+  const float qx = T.L(L_ROT, j), qy = T.L(L_ROT + 1, j), qz = T.L(L_ROT + 2, j),
+              qw = T.L(L_ROT + 3, j);
+  V3 o = sub(point, T.L3(L_POS, j));
+  V3 d = l;
+  if (rotated) {
+    o = quat_rotate(-qx, -qy, -qz, qw, o);
+    d = quat_rotate(-qx, -qy, -qz, qw, l);
+  }
+  const V3 s = T.L3(L_P0, j);
+  if (type == K_BOX) {
+    const float ix = 1.0f / (d.x + DIR_BIAS), iy = 1.0f / (d.y + DIR_BIAS),
+                iz = 1.0f / (d.z + DIR_BIAS);
+    const float ax = (-s.x - o.x) * ix, bx = (s.x - o.x) * ix;
+    const float ay = (-s.y - o.y) * iy, by = (s.y - o.y) * iy;
+    const float az = (-s.z - o.z) * iz, bz = (s.z - o.z) * iz;
+    const float t1 = fmaxf(fminf(ax, bx), fmaxf(fminf(ay, by), fminf(az, bz)));
+    const float t2 = fminf(fmaxf(ax, bx), fminf(fmaxf(ay, by), fmaxf(az, bz)));
+    const bool valid = t1 <= t2;
+    const float roots[2] = {t1, t2};
 #pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const float tr = roots[r];
-        const V3 p = add(o, scl(d, tr));
-        const bool on_x = (s.x - fabsf(p.x)) < EPS;
-        const bool on_y = (s.y - fabsf(p.y)) < EPS;
-        V3 nl = on_x ? mk(sgnf(p.x), 0.0f, 0.0f)
-                     : (on_y ? mk(0.0f, sgnf(p.y), 0.0f) : mk(0.0f, 0.0f, sgnf(p.z)));
-        if (rotated) nl = quat_rotate(qx, qy, qz, qw, nl);
-        total += contrib(tr, dot(nl, l), inv_area, valid);
-      }
-    } else {  // ellipsoid: pullback pdf 1 / (4 pi |J|)
-      const V3 oo = mk(o.x / s.x, o.y / s.y, o.z / s.z);
-      const V3 dd = mk(d.x / s.x, d.y / s.y, d.z / s.z);
-      const float a = dot(dd, dd);
-      const float b = dot(oo, dd);
-      const float c = dot(oo, oo) - 1.0f;
-      const float disc = b * b - a * c;
-      const bool valid = disc >= 0.0f;
-      const float sq = sqrtf(fmaxf(disc, 0.0f));
-      const float inv_a = 1.0f / fmaxf(a, 1e-30f);
-      const float roots[2] = {(-b - sq) * inv_a, (-b + sq) * inv_a};
+    for (int r = 0; r < 2; ++r) {
+      const float tr = roots[r];
+      const V3 p = add(o, scl(d, tr));
+      const bool on_x = (s.x - fabsf(p.x)) < EPS;
+      const bool on_y = (s.y - fabsf(p.y)) < EPS;
+      V3 nl = on_x ? mk(sgnf(p.x), 0.0f, 0.0f)
+                   : (on_y ? mk(0.0f, sgnf(p.y), 0.0f) : mk(0.0f, 0.0f, sgnf(p.z)));
+      if (rotated) nl = quat_rotate(qx, qy, qz, qw, nl);
+      total += contrib(tr, dot(nl, l), inv_area, valid);
+    }
+  } else {  // ellipsoid: pullback pdf 1 / (4 pi |J|)
+    const V3 oo = mk(o.x / s.x, o.y / s.y, o.z / s.z);
+    const V3 dd = mk(d.x / s.x, d.y / s.y, d.z / s.z);
+    const float a = dot(dd, dd);
+    const float b = dot(oo, dd);
+    const float c = dot(oo, oo) - 1.0f;
+    const float disc = b * b - a * c;
+    const bool valid = disc >= 0.0f;
+    const float sq = sqrtf(fmaxf(disc, 0.0f));
+    const float inv_a = 1.0f / fmaxf(a, 1e-30f);
+    const float roots[2] = {(-b - sq) * inv_a, (-b + sq) * inv_a};
 #pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const float tr = roots[r];
-        const V3 p = add(o, scl(d, tr));
-        V3 nl = normalize(mk(p.x / (s.x * s.x), p.y / (s.y * s.y), p.z / (s.z * s.z)), 1e-30f);
-        if (rotated) nl = quat_rotate(qx, qy, qz, qw, nl);
-        const V3 us = mk(p.x / s.x, p.y / s.y, p.z / s.z);
-        const float jx = us.x * s.y * s.z, jy = s.x * us.y * s.z, jz = s.x * s.y * us.z;
-        const float jac = sqrtf(fmaxf(jx * jx + jy * jy + jz * jz, 1e-20f));
-        total += contrib(tr, dot(nl, l), inv_area / jac, valid);
-      }
+    for (int r = 0; r < 2; ++r) {
+      const float tr = roots[r];
+      const V3 p = add(o, scl(d, tr));
+      V3 nl = normalize(mk(p.x / (s.x * s.x), p.y / (s.y * s.y), p.z / (s.z * s.z)), 1e-30f);
+      if (rotated) nl = quat_rotate(qx, qy, qz, qw, nl);
+      const V3 us = mk(p.x / s.x, p.y / s.y, p.z / s.z);
+      const float jx = us.x * s.y * s.z, jy = s.x * us.y * s.z, jz = s.x * s.y * us.z;
+      const float jac = sqrtf(fmaxf(jx * jx + jy * jy + jz * jz, 1e-20f));
+      total += contrib(tr, dot(nl, l), inv_area / jac, valid);
     }
   }
+}
+
+// The light pdf over every light of the table, in table order.
+__device__ float pdf_lights(const Tables& T, V3 point, V3 l) {
+  float total = 0.0f;
+  for (int j = 0; j < T.num_lights; ++j) add_light_pdf(T, j, point, l, total);
   return total / (float)max(T.num_lights, 1);
 }
 
-// K candidates, first accept, mixture pdf of the chosen one (mixture_body)
-__device__ void mixture(const Tables& T, uint32_t key, const Ctr& ctr, int max_tries, V3 point,
+// K candidates, first accept, mixture pdf of the chosen one (mixture_body).
+// LS: the lights, a Tables or K3's LightTree (light_tree.cuh), whose
+// sample_light_dir and pdf_lights the call takes.
+template <class LS>
+__device__ void mixture(const LS& T, uint32_t key, const Ctr& ctr, int max_tries, V3 point,
                         V3 n, V3 ns, V3 v, float roughness, V3& l, float& pdf, bool& accepted) {
   const int n_comp = T.num_lights > 0 ? 3 : 2;
   V3 pick = mk(0.0f, 0.0f, 1.0f);

@@ -31,7 +31,13 @@
 //   launch for every seed and sample offset, which it could not if they
 //   were frozen into the launch's parameters.
 // * The light table (18 x L <= 32) and its spec are staged in shared memory
-//   once per block; the TPU kernel took them as a VMEM block.
+//   once per block; the TPU kernel took them as a VMEM block. Above 32
+//   lights (sampler_many_kernel, rt_launch_sampler_many) the lights are one
+//   record each in device memory and the light pdf is an all-hits walk of
+//   the lights' own tree (light_tree.cuh); the JAX package, and the plain
+//   version here, sum it as one (B, L) sweep over the whole table
+//   (ops/sampling.py:_pdf_lights_vectorized). Everything else, the walk of
+//   the lanes included, is the same code.
 // * A lane whose `need` flag is 0 (dead, or a MIRROR/DIELECTRIC hit) skips
 //   the work and writes l = (0, 0, 1), pdf = 1e-9, ok = 0. The JAX API masks
 //   ok with need as well, so only l and pdf of those lanes differ from the
@@ -61,11 +67,17 @@
 
 #include "common.cuh"
 #include "lane_queue.cuh"
+#include "light_tree.cuh"
 
 namespace {
 
 constexpr int N_IN = 13;  // point3, n_geom3, n_shade3, v3, roughness
 constexpr int kChunk = 1;  // tiles of a block's chunk (lane_queue.cuh:walk_chunk)
+// the same for sampler_many_kernel, whose walk makes a lane dear: two tiles
+// a chunk fill more of a pass (timed on an H100 over practice6_1's frames:
+// 46.3 ms a frame at 2 tiles, 47.7 at 1, 48.1-48.6 at 4; the lights' nodes
+// staged in shared memory 53.4, 64 registers forced 50.1-50.3)
+constexpr int kManyChunk = 2;
 
 struct SamplerParams {
   const float* in[N_IN];
@@ -93,18 +105,15 @@ __device__ __forceinline__ void store_lane(const SamplerParams& p, long long i, 
   p.ok[i] = ok ? 1 : 0;
 }
 
-__global__ void __launch_bounds__(kBlock) sampler_kernel(SamplerParams p) {
-  __shared__ float lp_s[LC_COUNT * MAX_LIGHTS];
-  __shared__ int lspec_s[MAX_LIGHTS];
-  __shared__ ChunkQueueT<kChunk> queue;
-  // walk_chunk's first barrier comes before any `run`: it orders the staging
-  for (int k = threadIdx.x; k < LC_COUNT * p.nl; k += blockDim.x) lp_s[k] = p.lp[k];
-  for (int k = threadIdx.x; k < p.nl; k += blockDim.x) lspec_s[k] = p.lspec[k];
-  const Tables T{nullptr, nullptr, 0, lp_s, lspec_s, p.nl, p.num_lights};
+// The block's lanes that sample, ranked into full passes; `lights`: the
+// Tables of sampler_kernel or the LightTree of sampler_many_kernel.
+template <int C, class LS>
+__device__ __forceinline__ void sample_lanes(const SamplerParams& p, ChunkQueueT<C>& queue,
+                                             const LS& lights) {
   const long long b = p.b;
   const uint32_t seed = (uint32_t)__ldg(&p.seed_off[0]);
   const uint32_t wid_off = (uint32_t)__ldg(&p.seed_off[1]);
-  walk_chunk<kChunk, 1, true>(
+  walk_chunk<C, 1, true>(
       b, queue, [&](long long i) { return i < b && p.need[i] != 0; },
       [&](long long i) { store_lane(p, i, mk(0.0f, 0.0f, 1.0f), SAFE, false); },
       [&](long long i) {
@@ -118,9 +127,46 @@ __global__ void __launch_bounds__(kBlock) sampler_kernel(SamplerParams p) {
         V3 l;
         float pdf;
         bool ok;
-        mixture(T, key, ctr, p.max_tries, point, n, ns, v, roughness, l, pdf, ok);
+        mixture(lights, key, ctr, p.max_tries, point, n, ns, v, roughness, l, pdf, ok);
         store_lane(p, i, l, pdf, ok);
       });
+}
+
+__global__ void __launch_bounds__(kBlock) sampler_kernel(SamplerParams p) {
+  __shared__ float lp_s[LC_COUNT * MAX_LIGHTS];
+  __shared__ int lspec_s[MAX_LIGHTS];
+  __shared__ ChunkQueueT<kChunk> queue;
+  // walk_chunk's first barrier comes before any `run`: it orders the staging
+  for (int k = threadIdx.x; k < LC_COUNT * p.nl; k += blockDim.x) lp_s[k] = p.lp[k];
+  for (int k = threadIdx.x; k < p.nl; k += blockDim.x) lspec_s[k] = p.lspec[k];
+  const Tables T{nullptr, nullptr, 0, lp_s, lspec_s, p.nl, p.num_lights};
+  sample_lanes(p, queue, T);
+}
+
+__global__ void __launch_bounds__(kBlock) sampler_many_kernel(SamplerParams p, LightTree lights) {
+  __shared__ ChunkQueueT<kManyChunk> queue;
+  sample_lanes(p, queue, lights);
+}
+
+// The arguments both launchers share; false for values the kernels do not
+// take.
+bool fill_params(SamplerParams& p, const void* const* ins, const void* need, const void* wid,
+                 const void* seed_off, unsigned ctr_base, unsigned ctr_cand, unsigned ctr_row,
+                 unsigned ctr_diel, const void* depth, unsigned ctr_stride, int max_tries,
+                 long long b, void* out, void* ok) {
+  if (b < 0 || b > 0x7fffffffLL || max_tries < 1) return false;
+  for (int c = 0; c < N_IN; ++c) p.in[c] = static_cast<const float*>(ins[c]);
+  p.need = static_cast<const uint8_t*>(need);
+  p.wid = static_cast<const int*>(wid);
+  p.seed_off = static_cast<const long long*>(seed_off);
+  p.ctr = Ctr{ctr_base, ctr_cand, ctr_row, ctr_diel};
+  p.depth = static_cast<const int*>(depth);
+  p.ctr_stride = ctr_stride;
+  p.max_tries = max_tries;
+  p.b = b;
+  p.out = static_cast<float*>(out);
+  p.ok = static_cast<uint8_t*>(ok);
+  return true;
 }
 
 }  // namespace
@@ -136,27 +182,46 @@ extern "C" int rt_launch_sampler(const void* const* ins, const void* need, const
                                  const void* depth, unsigned ctr_stride, const void* lp,
                                  const void* lspec, int nl, int num_lights, int max_tries,
                                  long long b, void* out, void* ok, void* stream) {
-  if (b < 0 || b > 0x7fffffffLL || nl < 1 || nl > MAX_LIGHTS || num_lights < 0 || num_lights > nl ||
-      max_tries < 1)
+  SamplerParams p{};
+  if (!fill_params(p, ins, need, wid, seed_off, ctr_base, ctr_cand, ctr_row, ctr_diel, depth,
+                   ctr_stride, max_tries, b, out, ok) ||
+      nl < 1 || nl > MAX_LIGHTS || num_lights < 0 || num_lights > nl)
     return (int)cudaErrorInvalidValue;
   if (b == 0) return 0;
-  SamplerParams p{};
-  for (int c = 0; c < N_IN; ++c) p.in[c] = static_cast<const float*>(ins[c]);
-  p.need = static_cast<const uint8_t*>(need);
-  p.wid = static_cast<const int*>(wid);
-  p.seed_off = static_cast<const long long*>(seed_off);
-  p.ctr = Ctr{ctr_base, ctr_cand, ctr_row, ctr_diel};
-  p.depth = static_cast<const int*>(depth);
-  p.ctr_stride = ctr_stride;
   p.lp = static_cast<const float*>(lp);
   p.lspec = static_cast<const int*>(lspec);
   p.nl = nl;
   p.num_lights = num_lights;
-  p.max_tries = max_tries;
-  p.b = b;
-  p.out = static_cast<float*>(out);
-  p.ok = static_cast<uint8_t*>(ok);
   sampler_kernel<<<chunk_grid<kChunk>(b), kBlock, 0, static_cast<cudaStream_t>(stream)>>>(p);
+  return (int)cudaGetLastError();
+}
+
+// K3 above 32 lights. rec, leaf: (num_lights, 20) f32 light records in light
+// order and in the tree's order (ops/bvh.py:light_records); nodes:
+// (n_nodes, 8) float4 wide nodes of the lights' tree, 16-byte aligned;
+// stack: the entries its walk can need (ops/bvh.py:Bvh4.stack). The other
+// arguments as rt_launch_sampler's.
+extern "C" int rt_launch_sampler_many(const void* const* ins, const void* need, const void* wid,
+                                      const void* seed_off, unsigned ctr_base,
+                                      unsigned ctr_cand, unsigned ctr_row, unsigned ctr_diel,
+                                      const void* depth, unsigned ctr_stride, const void* rec,
+                                      const void* leaf, int num_lights, const void* nodes,
+                                      int n_nodes, int stack, int max_tries, long long b,
+                                      void* out, void* ok, void* stream) {
+  SamplerParams p{};
+  if (!fill_params(p, ins, need, wid, seed_off, ctr_base, ctr_cand, ctr_row, ctr_diel, depth,
+                   ctr_stride, max_tries, b, out, ok) ||
+      num_lights <= MAX_LIGHTS || n_nodes < 1 || stack < 0 || stack > kLightStack ||
+      (reinterpret_cast<uintptr_t>(nodes) & 15) != 0)
+    return (int)cudaErrorInvalidValue;
+  if (b == 0) return 0;
+  LightTree lights{};
+  lights.rec = static_cast<const float*>(rec);
+  lights.num_lights = num_lights;
+  lights.leaf = LightRecs{static_cast<const float*>(leaf), num_lights};
+  lights.nodes = static_cast<const float4*>(nodes);
+  sampler_many_kernel<<<chunk_grid<kManyChunk>(b), kBlock, 0,
+                        static_cast<cudaStream_t>(stream)>>>(p, lights);
   return (int)cudaGetLastError();
 }
 

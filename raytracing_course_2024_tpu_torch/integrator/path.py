@@ -69,7 +69,6 @@ from ..ops.camera import (CameraArrays, camera_from_row, camera_state, camera_st
                           pack_camera_row)
 from ..ops.rng import WF_STRIDE, batch_ctr, check_work_ids, draws_per_bounce, lane_ctr
 from ..ops.sampler import sample_mixture_kernel, sampler_plain
-from ..ops.sampling import UNROLL_MAX_LIGHTS
 from ..ops.scene_intersect import ModularScene
 from ..ops.shade import finish, finish_plain, sampler_inputs, shade, shade_plain
 from ..ops.traverse import nearest_table
@@ -247,15 +246,15 @@ def _bounce(state: torch.Tensor, scene: ModularScene, cfg: TraceConfig, seed,
                                                cfg, bounce_i)
 
 
-def takes_k3(cfg: TraceConfig, statics: SceneStatics) -> bool:
+def takes_k3(cfg: TraceConfig) -> bool:
     """Whether the modular bounce samples in K3 (both engines): the fast
-    acceptance under "auto" with at most 32 lights, or under "pallas" (K3
-    refuses a larger light table). Faithful acceptance, a larger light table
-    under "auto" and "xla" (CPU only, ``check_sampler``) take the XLA
-    formulation, as in the JAX package."""
-    return not cfg.faithful and (
-        cfg.sampler == "pallas"
-        or (cfg.sampler == "auto" and statics.num_lights <= UNROLL_MAX_LIGHTS))
+    acceptance under "auto" or "pallas", whatever the light count (above
+    32 lights K3 walks the lights' own tree; ``ops/sampler.py``). Faithful
+    acceptance and "xla" (CPU only, ``check_sampler``) take the XLA
+    formulation, as in the JAX package, which takes it under "auto" above
+    32 lights too: there the port differs from it on purpose, since the
+    XLA formulation's (B, L) sweep is no route for a card."""
+    return not cfg.faithful and cfg.sampler in ("auto", "pallas")
 
 
 def sample_bounce(scene: ModularScene, cfg: TraceConfig, seed, wid: torch.Tensor, wid_off,
@@ -272,7 +271,7 @@ def sample_bounce(scene: ModularScene, cfg: TraceConfig, seed, wid: torch.Tensor
         ctr = batch_ctr(bounce_i * draws_per_bounce(k), k)
     else:
         ctr = lane_ctr(0, k)  # the kernel moves it WF_STRIDE per level of depth
-    if not plain and takes_k3(cfg, scene.statics):
+    if not plain and takes_k3(cfg):
         return sample_mixture_kernel(scene, seed, wid, wid_off, ctr, *ins, depth)
     if depth is not None:
         ctr = ctr.at_depth(depth, WF_STRIDE)

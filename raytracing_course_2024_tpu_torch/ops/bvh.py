@@ -15,6 +15,11 @@ same tree from the same boxes:
 The C++ builder (``native/``) makes the same construction faster on 100k+
 primitives; numpy is the fallback and the oracle.
 
+``build_light_tree`` builds a second tree of the same rule over the
+lights alone, for K3's light pdf above 32 lights (``csrc/light_tree.cuh``):
+the reference's all-hits walk of its light BVH (SURVEY.md: ``bvh.rs``
+``intersect_with_bvh_all_points``, ``scene.rs``'s ``bvh_light_sources``).
+
 ``attach_bvh`` differs from the JAX package's on purpose. The TPU cannot
 gather per lane, so the JAX package cuts the tree into 128-slot treelets
 and pads the table to them (``ops/treelet.py:3-4``). A GPU thread walks the
@@ -27,13 +32,16 @@ from __future__ import annotations
 
 import logging
 import subprocess
+from types import SimpleNamespace
 from typing import NamedTuple
 
 import numpy as np
 
+from ..runtime.profiling import span
 from ..scene.build import build_packs
-from ..scene.types import TRI, BvhArrays, SceneArrays, SceneStatics
+from ..scene.types import TRI, BvhArrays, LightCol, SceneArrays, SceneStatics
 from .bounce import loop_records
+from .sampling import UNROLL_MAX_LIGHTS
 
 log = logging.getLogger("rt_torch")
 
@@ -445,3 +453,68 @@ def build_bvh4_nodes(bvh) -> Bvh4:
         below = [bound[j] for j in index[i] if j >= 0]
         bound[i] = len(wide[i]) - 1 + max(below, default=0)
     return Bvh4(np.ascontiguousarray(nodes), int(bound[0]))
+
+
+# a light's record in K3's light tables above 32 lights (csrc/light_tree.cuh
+# LightRecs): its LightCol rows, its spec word (ptype | rotated << 2) stored
+# bit for bit in a float slot, a pad; 80 bytes, one row per light
+LIGHT_REC = 20
+LIGHT_REC_SPEC = LightCol.COUNT
+
+
+class LightTree(NamedTuple):
+    """The lights' own tree (``build_light_tree``): K6's 4-wide layout over
+    a binary SAH tree of the light table's boxes. Leaf ranges index
+    ``order``, the light at each tree position."""
+
+    nodes: np.ndarray  # (W, WIDE_FLOATS) f32, breadth-first, root 0
+    stack: int  # Bvh4.stack of the tree
+    order: np.ndarray  # (L,) i32: the light (column of light_packed) at tree position i
+
+
+def light_records(light_packed: np.ndarray, lspec) -> np.ndarray:
+    """(L, LIGHT_REC) f32: light j's LightCol rows, then its spec word."""
+    lp = np.asarray(light_packed, np.float32)
+    rec = np.zeros((lp.shape[1], LIGHT_REC), np.float32)
+    rec[:, :LightCol.COUNT] = lp.T
+    rec[:, LIGHT_REC_SPEC] = np.asarray(lspec, np.int32).view(np.float32)
+    return rec
+
+
+def light_aabbs(light_packed: np.ndarray, num_lights: int) -> tuple:
+    """``primitive_aabbs`` of the real lights, from the light pack's rows
+    (world vertices of a triangle; half extents, position and rotation of a
+    box or an ellipsoid), padded as the scene's."""
+    lp = np.asarray(light_packed, np.float64)[:, :num_lights]
+
+    def rows(k, n):
+        return np.ascontiguousarray(lp[k:k + n].T)
+
+    return primitive_aabbs(SimpleNamespace(
+        ptype=lp[LightCol.PTYPE].astype(np.int32), p0=rows(LightCol.P0, 3),
+        p1=rows(LightCol.P1, 3), p2=rows(LightCol.P2, 3), position=rows(LightCol.POS, 3),
+        rotation=rows(LightCol.ROT, 4)))
+
+
+def build_light_tree(light_packed: np.ndarray, statics: SceneStatics) -> LightTree | None:
+    """The lights' tree, or None at ``UNROLL_MAX_LIGHTS`` lights or fewer
+    (K3 then stages the whole table in shared memory). The host builder of
+    the scene's tree (``host_bvh``) over ``light_aabbs``, which are
+    conservative: every intersection of a ray with a light lies inside its
+    padded box, so a walk that tests the boxes against [0, inf) reaches
+    every light the ray meets. A tree deeper than the stack raises. Runs in
+    the span ``rt.setup.lights`` (inside ``rt.setup.device`` when the
+    renderer builds its ``ModularScene``)."""
+    n = statics.num_lights
+    if n <= UNROLL_MAX_LIGHTS:
+        return None
+    with span("rt.setup.lights"):
+        amin, amax = light_aabbs(light_packed, n)
+        tree, _ = host_bvh(amin, amax)
+        depth = tree_depth(tree)
+        if depth > BVH_STACK:
+            raise ValueError(f"light BVH depth {depth} exceeds the traversal stack of "
+                             f"{BVH_STACK}")
+        wide = build_bvh4_nodes(tree)
+    return LightTree(wide.nodes, wide.stack, np.asarray(tree.prim_order, np.int32))
+

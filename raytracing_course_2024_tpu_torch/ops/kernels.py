@@ -67,13 +67,14 @@ _LIB_LOCK = threading.Lock()  # the first load: one build however many threads a
 BUILD_INFO: dict = {}  # path, seconds (0.0 when cached), log of the last build
 
 # kernel launches per wrapper: the fused K2 / K1 (batch and lane mode) /
-# K1-final, the modular path's K4 and K3 (batch and lane mode), the sticky
+# K1-final, the modular path's K4 and K3 (batch and lane mode; above 32
+# lights its walk of the lights' tree, "sampler_many"), the sticky
 # engine's K5, the BVH backend's K6, the modular bounce's shade (N1a) and
 # finish (N1b), the lane engines' refill (N2a) and restart (N2b), the modular
 # route's camera stage (N4), the lane round's tail and loop test (N5)
 LAUNCHES = {"primary": 0, "bounce": 0, "final": 0, "nearest": 0, "sampler": 0,
             "persistent": 0, "bvh": 0, "shade": 0, "finish": 0, "refill": 0, "restart": 0,
-            "camera": 0, "loop": 0}
+            "camera": 0, "loop": 0, "sampler_many": 0}
 _LOCK = threading.Lock()  # guards LAUNCHES and _TICKETS: shards launch from threads
 # .counts: the calling thread's capture recorder, if any; .tickets: the stream
 # whose tile tickets every launch of the thread's capture takes
@@ -219,6 +220,10 @@ def _load() -> None:
         p, p, p, p, *ctr, p, u, p, p, i, i, i, ll, p, p, p,
     ]
     lib.rt_launch_sampler.restype = i
+    lib.rt_launch_sampler_many.argtypes = [
+        p, p, p, p, *ctr, p, u, p, p, i, p, i, i, i, ll, p, p, p,
+    ]
+    lib.rt_launch_sampler_many.restype = i
     lib.rt_launch_persistent.argtypes = [
         p, p, ll, p, p, p, p, i, i, p, u, *ctr, u, i, *scene, p, p, p, p, p,
     ]
@@ -462,6 +467,24 @@ def launch_sampler(ins, need, wid, seed_off, ctr, depth, ctr_stride, lp, lspec,
         )
     _raise_on(rc, "rt_launch_sampler")
     _count("sampler")
+
+
+def launch_sampler_many(ins, need, wid, seed_off, ctr, depth, ctr_stride, rec, leaf, nodes,
+                        stack, max_tries, out, ok) -> None:
+    """K3 above 32 lights: ``rec`` and ``leaf`` the light records in light
+    order and in the tree's order, ``nodes`` the lights' 4-wide tree and
+    ``stack`` its walk's bound (``ops/bvh.py:build_light_tree``); the rest
+    as ``launch_sampler``'s. Counted as ``"sampler_many"``."""
+    lib = library()
+    with _on(out.device) as stream:
+        rc = lib.rt_launch_sampler_many(
+            _ptrs(ins), need.data_ptr(), wid.data_ptr(), seed_off.data_ptr(),
+            *_ctr(ctr), None if depth is None else depth.data_ptr(), _u32(ctr_stride),
+            rec.data_ptr(), leaf.data_ptr(), rec.shape[0], nodes.data_ptr(), nodes.shape[0],
+            int(stack), int(max_tries), out.shape[1], out.data_ptr(), ok.data_ptr(), stream,
+        )
+    _raise_on(rc, "rt_launch_sampler_many")
+    _count("sampler_many")
 
 
 def launch_shade(state, t, idx, prim_rec, plane, pl_mask, n_planes, any_rotation, any_nontri,

@@ -27,7 +27,12 @@ formulation returns l = 0.
 
 ``sample_mixture_kernel`` runs the plain version only for tensors on the
 CPU; on a CUDA tensor it launches ``csrc/sampler.cu`` or raises, and
-counts the launch in ``ops/kernels.py:LAUNCHES["sampler"]``.
+counts the launch in ``ops/kernels.py:LAUNCHES["sampler"]`` (above 32
+lights ``LAUNCHES["sampler_many"]``). Up to
+``UNROLL_MAX_LIGHTS`` lights the kernel stages the light pack in shared
+memory; above, it reads the scene's light records and walks the lights'
+own tree for the light pdf (``ModularScene.light_rec``, ``light_nodes``;
+``csrc/light_tree.cuh``), where the plain version sums one (B, L) sweep.
 
 ``seed`` and ``wid_off`` are ints or 0-dim integer tensors on the lanes'
 device, on both routes. The kernel reads them from a (2,) int64 device
@@ -40,7 +45,8 @@ from __future__ import annotations
 
 import torch
 
-from .kernels import check, launch_sampler
+from .bvh import LIGHT_REC, WIDE_FLOATS, WIDE_STACK
+from .kernels import check, launch_sampler, launch_sampler_many
 from .rng import WF_STRIDE, Ctr, mixture_rows, offset_ids, seed_off, work_key
 from .sampling import UNROLL_MAX_LIGHTS, sample_mixture
 from .vec import Vec3
@@ -85,16 +91,31 @@ def sample_mixture_kernel(scene, seed, wid: torch.Tensor, wid_off,
         check("depth", depth, torch.int32, (b,), dev)
     if isinstance(ctr.base, torch.Tensor):
         raise ValueError("the kernel takes a Ctr with an int base; per-lane depths go in `depth`")
+    pair = seed_off(seed, wid_off, dev)
+    check("seed_off", pair, torch.int64, (2,), dev)
+    out = torch.empty((4, b), dtype=torch.float32, device=dev)
+    ok = torch.empty((b,), dtype=torch.bool, device=dev)
+    n_lights = scene.statics.num_lights
+    if n_lights > UNROLL_MAX_LIGHTS:
+        if scene.light_nodes is None:
+            raise ValueError(f"{n_lights} lights and no light tree (ops/bvh.py:build_light_tree)")
+        check("light_rec", scene.light_rec, torch.float32, (n_lights, LIGHT_REC), dev)
+        check("light_leaf", scene.light_leaf, torch.float32, (n_lights, LIGHT_REC), dev)
+        nodes = scene.light_nodes
+        check("light_nodes", nodes, torch.float32, (nodes.shape[0], WIDE_FLOATS), dev)
+        if not 0 <= scene.light_stack <= WIDE_STACK:
+            raise ValueError(f"the light walk needs {scene.light_stack} stack entries, "
+                             f"K3 holds {WIDE_STACK}")
+        launch_sampler_many(ins, need, wid, pair, ctr, depth, WF_STRIDE, scene.light_rec,
+                            scene.light_leaf, nodes, scene.light_stack, max_tries, out, ok)
+        return Vec3(out[0], out[1], out[2]), out[3], ok
     lp, lspec = scene.light_packed, scene.lspec
     nl = lp.shape[1]
     if not 1 <= nl <= UNROLL_MAX_LIGHTS:
         raise ValueError(f"light table has {nl} entries, the kernel takes 1..{UNROLL_MAX_LIGHTS}")
     check("light_packed", lp, torch.float32, (lp.shape[0], nl), dev)
     check("lspec", lspec, torch.int32, (nl,), dev)
-    pair = seed_off(seed, wid_off, dev)
-    check("seed_off", pair, torch.int64, (2,), dev)
-    out = torch.empty((4, b), dtype=torch.float32, device=dev)
-    ok = torch.empty((b,), dtype=torch.bool, device=dev)
     launch_sampler(ins, need, wid, pair, ctr, depth, WF_STRIDE, lp, lspec,
-                   scene.statics.num_lights, max_tries, out, ok)
+                   n_lights, max_tries, out, ok)
     return Vec3(out[0], out[1], out[2]), out[3], ok
+

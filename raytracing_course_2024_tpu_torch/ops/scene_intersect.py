@@ -32,7 +32,7 @@ from ..scene.types import (
     SceneArrays,
     SceneStatics,
 )
-from .bvh import build_bvh4_nodes, build_bvh_records
+from .bvh import build_bvh4_nodes, build_bvh_records, build_light_tree, light_records
 from .dense_nearest import build_tri_records
 from .gather import take_packed
 from .intersect import (
@@ -80,7 +80,12 @@ class ModularScene(NamedTuple):
     copy of the light pack the plain sampler takes its per-light constants
     from, and on the BVH backend the tree K6 walks: its (W, 32) 4-wide
     nodes, the (N, 12) primitive records in table order and the stack
-    entries its walk can need (all None on the dense backend)."""
+    entries its walk can need (all None on the dense backend). Above 32
+    lights, on either backend, the tables K3 reads there instead of
+    ``light_packed``: one record per light in light order (its pick), the
+    same records in the order of the lights' own tree, and that tree's
+    nodes and stack bound (``ops/bvh.py:build_light_tree``; None at 32
+    lights or fewer)."""
 
     statics: SceneStatics
     packed: torch.Tensor  # (PrimCol.COUNT, N) f32
@@ -95,6 +100,10 @@ class ModularScene(NamedTuple):
     bvh_nodes: torch.Tensor | None = None  # (W, 32) f32: ops/bvh.py:build_bvh4_nodes
     bvh_rec: torch.Tensor | None = None  # (N, 12) f32: ops/bvh.py:build_bvh_records
     bvh_stack: int | None = None  # ops/bvh.py:Bvh4.stack
+    light_rec: torch.Tensor | None = None  # (L, LIGHT_REC) f32: ops/bvh.py:light_records
+    light_leaf: torch.Tensor | None = None  # (L, LIGHT_REC) f32: light_rec in tree order
+    light_nodes: torch.Tensor | None = None  # (W, 32) f32: the lights' 4-wide tree
+    light_stack: int | None = None  # ops/bvh.py:LightTree.stack
 
 
 def modular_scene(scn: SceneArrays, statics: SceneStatics,
@@ -111,6 +120,8 @@ def modular_scene(scn: SceneArrays, statics: SceneStatics,
     lspec = [t | (int(r) << 2)
              for t, r in zip(statics.light_types, statics.light_rotated)]
     lspec += [0] * (lp_np.shape[1] - len(lspec))
+    tree = build_light_tree(lp_np, statics)
+    rec = None if tree is None else light_records(lp_np, lspec)
     return ModularScene(
         statics=statics,
         packed=dev(scn.packed),
@@ -125,6 +136,10 @@ def modular_scene(scn: SceneArrays, statics: SceneStatics,
         bvh_nodes=None if wide is None else dev(wide.nodes),
         bvh_rec=None if scn.bvh is None else dev(build_bvh_records(scn, statics)),
         bvh_stack=None if wide is None else wide.stack,
+        light_rec=None if tree is None else dev(rec),
+        light_leaf=None if tree is None else dev(rec[tree.order]),
+        light_nodes=None if tree is None else dev(tree.nodes),
+        light_stack=None if tree is None else tree.stack,
     )
 
 

@@ -91,9 +91,11 @@ class _RendererBase:
     engine, the integrator's ``cfg``, the camera and the route
     (``mega_gate``: ``fused``); ``_device_scene`` builds that route's scene
     on one device (spans ``rt.setup.scene``, ``rt.setup.bvh``,
-    ``rt.setup.device``). After a frame (``render_frame_device``, which each
-    renderer defines, as the span ``rt.frame`` with ``frames``, the frames
-    rendered before it, in its args): the host image and its statistics."""
+    ``rt.setup.device``; above 32 lights ``rt.setup.lights``, the lights'
+    own tree, inside ``rt.setup.device``). After a frame
+    (``render_frame_device``, which each renderer defines, as the span
+    ``rt.frame`` with ``frames``, the frames rendered before it, in its
+    args): the host image and its statistics."""
 
     def __init__(self, desc: SceneDesc, backend, max_tries, faithful, engine,
                  russian_roulette):

@@ -221,6 +221,7 @@ def test_cpu_wrappers_run_plain_and_count_nothing():
     B.primary_bounce(c["scene"], cam, px, py, wid, 0, SEED, c["bg"], K, c["w"], c["h"])
     assert kernels.LAUNCHES == {"primary": 0, "bounce": 0, "final": 0, "nearest": 0, "sampler": 0,
                                 "persistent": 0, "bvh": 0, "shade": 0, "finish": 0,
-                                "refill": 0, "restart": 0, "camera": 0, "loop": 0}
+                                "refill": 0, "restart": 0, "camera": 0, "loop": 0,
+                                "sampler_many": 0}
     with pytest.raises(ValueError):
         B.bounce(c["scene"], st.to("meta"), wid, 0, SEED, 0, c["bg"], K)

@@ -53,7 +53,7 @@ from raytracing_course_2024_tpu_torch.ops.sampler import sample_mixture_kernel, 
 from raytracing_course_2024_tpu_torch.ops.scene_intersect import modular_scene
 from raytracing_course_2024_tpu_torch.runtime.render import Renderer
 from raytracing_course_2024_tpu_torch.scene import parse_text_scene
-from test_torch_sampler import SEED, _case, jv, tv
+from test_torch_sampler import SEED, _case, _many_lights, jv, tv
 from test_torch_sampling import GGX_TOL, PDF_FRAC, close
 from test_wavefront import CORNELL as BOX_SCENE
 from torch_parity import builds, descs, to_jnp
@@ -436,15 +436,19 @@ def test_restart_kernel_equals_plain_on_the_card(card, b, n_pix, samples):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["lights", "cornell"])
+@pytest.mark.parametrize("name", ["lights", "cornell", "many_lights"])
 def test_lane_mode_sampler_kernel_matches_plain_on_the_card(card, name):
     """K3 in lane mode against ``sampler_plain`` in the lane layout: ``ok``
     equal on >= 99.9 % of lanes, l and pdf within atol = rtol = 1e-4 on >=
-    99.9 % of the lanes both accept (K3's gate)."""
+    99.9 % of the lanes both accept (K3's gate; above it, 41 lights, the
+    walk of the lights' tree against the plain (B, L) sweep)."""
     c = _case(name)
     depth = torch.from_numpy(_depths(len(c["wid"]))).to(card)
     wid = torch.from_numpy(c["wid"]).to(card)
-    _, (_, ta, ts) = builds(name)
+    if name == "many_lights":
+        _, _, ta, ts = _many_lights()
+    else:
+        _, (_, ta, ts) = builds(name)
     scene = modular_scene(ta, ts, card)
     ins = [x.to(card) if isinstance(x, torch.Tensor) else
            (type(x)(*(v.to(card) for v in x)) if isinstance(x, tuple) else x)

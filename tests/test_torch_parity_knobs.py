@@ -2,9 +2,10 @@
 (``"auto" | "xla" | "pallas"``) and ``RT_MEGA_CAM=0``, on the CPU.
 
 * ``sampler``: ``"xla"`` turns the fused path off (``mega_gate``) and the
-  modular bounce takes the XLA formulation; ``"pallas"`` takes K3 unless
-  acceptance is faithful, whatever the light count; ``"auto"`` takes K3 up
-  to 32 lights. ``"xla"`` is refused on a CUDA device by both engine
+  modular bounce takes the XLA formulation; ``"pallas"`` and ``"auto"``
+  take K3 unless acceptance is faithful, whatever the light count (above 32
+  lights K3 walks the lights' own tree; the JAX package's ``"auto"`` takes
+  its XLA formulation there). ``"xla"`` is refused on a CUDA device by both engine
   families before they launch anything (``check_sampler``). The route is read from spies on the two sampler entry points
   of ``integrator/path.py``. A Cornell frame on the ``"xla"`` sampler agrees
   with the JAX ``Renderer``'s frame as ``test_torch_render.py``'s MIXED frame
@@ -57,7 +58,7 @@ def test_sampler_gates_the_fused_path(sampler, fused):
     ("mixed", "xla", True, ("xla", True)),
     ("mixed", "pallas", True, ("xla", True)),
     ("mixed", "auto", True, ("xla", True)),
-    ("many_lights", "auto", False, ("xla", False)),
+    ("many_lights", "auto", False, ("kernel", None)),
     ("many_lights", "pallas", False, ("kernel", None)),
 ])
 def test_modular_bounce_takes_the_sampler_asked_for(monkeypatch, scene, sampler, faithful,

@@ -269,6 +269,9 @@ def _launches(dev):
         ("sampler-lane-mode", "sampler", lambda: kernels.launch_sampler(
             [t() for _ in range(13)], t(), t(), t(2), ctr, t(), 64, t(12, 2), t(2), 1, 4,
             t(4, 64), t())),
+        ("sampler-many-lights", "sampler_many", lambda: kernels.launch_sampler_many(
+            [t() for _ in range(13)], t(), t(), t(2), ctr, t(), 64, t(40, 20), t(40, 20),
+            t(5, 32), 3, 4, t(4, 64), t())),
         ("refill", "refill", lambda: kernels.launch_refill(
             t(13, 64), t(), t(), t(3, 164), t(), t(), t(2), t(128), t(2), 50, 2, 16, 12, t(2))),
         ("restart", "restart", lambda: kernels.launch_restart(
