@@ -4,6 +4,7 @@
     python3 chip_smoke.py --cards    # the multiproc phase over every card (2+)
     python3 chip_smoke.py --graphs   # the build and the graphs phase alone
     python3 chip_smoke.py --many     # the build and K3 above 32 lights alone
+    python3 chip_smoke.py --many --parent TREE  # and against TREE's K3 (a checkout)
 
 Every phase runs the Renderer as a user gets it: on the card the batch
 engine's samples and the lane engines' rounds, the K5 loop's too, replay
@@ -87,10 +88,13 @@ exits non-zero):
                tree) at the counter wavefront's 1,048,576 lanes: its
                bounces at rounds >= 1, >= 10 and its last against the
                plain version, whose (B, L) sweep runs 32,768 lanes at a
-               time, at K3's gate with ``ok`` exact; and one graphed
-               frame of the scene, whose launches must match the
-               wavefront's rounds (``sampler_many`` in place of
-               ``sampler``);
+               time, at K3's gate with ``ok`` exact (with ``--many
+               --parent TREE`` also against TREE's K3, bit for bit: l, pdf
+               and ok, and both timed); and one graphed frame of the
+               scene, whose launches must match the wavefront's rounds
+               (``sampler_many`` in place of ``sampler``); its timing row
+               carries K3's launch geometry above 32 lights (stack, staged
+               nodes, shared and local bytes, registers, resident blocks);
                N4 (the modular route's camera stage) on 997, 262,144,
                921,523 and 921,600 lanes, bit for bit on every lane and row,
                launched eagerly and replayed from a captured CUDA graph
@@ -2272,6 +2276,65 @@ def sampler_plain_lanes(scene, seed, wid, off, depth, ins, chunk=None) -> tuple:
     return l, torch.cat([p[1] for p in parts]), torch.cat([p[2] for p in parts])
 
 
+# ``--many --parent TREE``: K3 above 32 lights of the checkout at TREE
+# (``parent_sampler_many``), held against this tree's on the same states
+PARENT_MANY: dict = {}
+
+
+def parent_sampler_many(tree: str):
+    """K3 above 32 lights of another checkout at ``tree`` whose
+    ``rt_launch_sampler_many`` takes no tickets (its per-chunk schedule),
+    built alone from its ``csrc/sampler.cu`` with this tree's nvcc flags
+    into its git-ignored build directory. Returns a function of
+    ``sample_mixture_kernel``'s arguments in lane mode that launches it and
+    returns (l, pdf, ok)."""
+    import ctypes
+
+    from raytracing_course_2024_tpu_torch.ops import kernels
+    from raytracing_course_2024_tpu_torch.ops.rng import WF_STRIDE, seed_off
+    from raytracing_course_2024_tpu_torch.ops.vec import Vec3
+
+    pkg = os.path.join(tree, "raytracing_course_2024_tpu_torch")
+    os.makedirs(os.path.join(pkg, "build"), exist_ok=True)
+    so = os.path.join(pkg, "build", "parent_sampler_many.so")
+    t0 = time.perf_counter()
+    res = subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS, "-shared", "-o", so,
+                          os.path.join(pkg, "csrc", "sampler.cu")], capture_output=True, text=True)
+    if res.returncode != 0:
+        raise SystemExit(f"nvcc failed on {tree}'s sampler.cu:\n{res.stdout}{res.stderr}")
+    regs = [ln.strip() for ln in (res.stdout + res.stderr).splitlines()
+            if "registers" in ln or "spill" in ln]
+    say("build", parent=tree, seconds=round(time.perf_counter() - t0, 2), ptxas=len(regs))
+    for ln in regs:
+        print(f"[build] parent {ln}", flush=True)
+    lib = ctypes.CDLL(so)
+    p, i, u, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_longlong
+    lib.rt_launch_sampler_many.argtypes = [p, p, p, p, u, u, u, u, p, u, p, p, i, p, i, i, i,
+                                           ll, p, p, p]
+    lib.rt_launch_sampler_many.restype = i
+
+    def launch(scene, seed, wid, off, ctr, point, n_geom, n_shade, v, rough, need, max_tries,
+               depth):
+        dev = point.x.device
+        b = point.x.shape[0]
+        ins = (*point, *n_geom, *n_shade, *v, rough)
+        pair = seed_off(seed, off, dev)
+        out = torch.empty((4, b), dtype=torch.float32, device=dev)
+        ok = torch.empty((b,), dtype=torch.bool, device=dev)
+        rc = lib.rt_launch_sampler_many(
+            kernels._ptrs(ins), need.data_ptr(), wid.data_ptr(), pair.data_ptr(),
+            *kernels._ctr(ctr), depth.data_ptr(), WF_STRIDE, scene.light_rec.data_ptr(),
+            scene.light_leaf.data_ptr(), scene.light_rec.shape[0],
+            scene.light_nodes.data_ptr(), scene.light_nodes.shape[0], int(scene.light_stack),
+            int(max_tries), b, out.data_ptr(), ok.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"the parent's rt_launch_sampler_many failed: CUDA error {rc}")
+        return Vec3(out[0], out[1], out[2]), out[3], ok
+
+    return launch
+
+
 def lane_sampler_case(tag: str, snap: tuple, scene, cfg, gpu: str, timed: bool) -> tuple:
     """K3 in lane mode against ``sampler_plain`` in the lane layout on the
     sampler inputs of one bounce of the counter wavefront (its nearest hit
@@ -2301,7 +2364,23 @@ def lane_sampler_case(tag: str, snap: tuple, scene, cfg, gpu: str, timed: bool) 
     def kernel():
         return sample_mixture_kernel(scene, seed, wid, off, rng.lane_ctr(0, K), *ins, depth)
 
+    parent = PARENT_MANY.get("launch") if many else None
+
+    def parent_kernel():
+        return parent(scene, seed, wid, off, rng.lane_ctr(0, K), *ins, depth)
+
     lk, pk, okk = kernel()
+    if parent is not None:  # this tree's K3 against the parent's, bit for bit
+        lq, pq, okq = parent_kernel()
+        torch.cuda.synchronize()
+        same = {c: bool(torch.equal(a, b)) for c, a, b in
+                zip(("l_x", "l_y", "l_z", "pdf", "ok"), (*lk, pk, okk), (*lq, pq, okq))}
+        differ = int(((lk.x != lq.x) | (lk.y != lq.y) | (lk.z != lq.z) | (pk != pq)
+                      | (okk != okq)).sum())
+        say("kernels", case=f"{tag}:sampler-many-vs-parent", round=rnd, lanes=st.shape[1],
+            bit_equal=all(same.values()), lanes_differing=differ,
+            **{f"{c}_equal": v for c, v in same.items()})
+        PARENT_MANY.setdefault("bit_equal", []).append(all(same.values()))
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     lp_, pp, okp = sampler_plain_lanes(scene, seed, wid, off, depth, ins,
@@ -2319,6 +2398,7 @@ def lane_sampler_case(tag: str, snap: tuple, scene, cfg, gpu: str, timed: bool) 
     if not timed:
         return (res["max_abs_err"], rel), {}
     ms = cuda_ms_each(kernel, ROUND_REPS)
+    parent_ms = cuda_ms_each(parent_kernel, ROUND_REPS) if parent is not None else None
     n, n_need = st.shape[1], float(need.sum())
     tables = ((scene.light_rec, scene.light_leaf, scene.light_nodes) if many
               else (scene.light_packed, scene.lspec))
@@ -2328,6 +2408,7 @@ def lane_sampler_case(tag: str, snap: tuple, scene, cfg, gpu: str, timed: bool) 
     b = bound(n * (1 + 16 + 1) + n_need * (52 + 4 + 4) + ltable, ops)
     say("timing", kernel="sampler_many-lane" if many else "sampler-lane", state=tag, lanes=n,
         active_in=round(n_need / n, 4), ms=round(ms, 4),
+        **({} if parent_ms is None else {"parent_ms": round(parent_ms, 4)}),
         plain_ms=round(start.elapsed_time(end), 3), bound_ms=round(b[0], 5), bound_by=b[1],
         share=round(b[0] / ms, 4), gpu=f'"{gpu}"')
     return (res["max_abs_err"], rel), dict(ms=ms, plain_ms=start.elapsed_time(end), bound=b,
@@ -2429,6 +2510,17 @@ def phase_kernels_many(dev, gpu: str) -> tuple:
     return err, timing
 
 
+def many_geometry() -> dict:
+    """K3 above 32 lights' launch geometry (``ops/kernels.py:launch_geometry``):
+    stack entries in all and in shared memory per thread, staged nodes,
+    shared and local bytes, registers, resident blocks per SM."""
+    from raytracing_course_2024_tpu_torch.ops import kernels
+
+    geom = kernels.launch_geometry()
+    return {**{k: v for k, v in geom.items() if k.startswith("sampler_many_")},
+            "sampler_many_resident_blocks": geom["resident_blocks"]["sampler_many"]}
+
+
 def many_main() -> int:
     """``--many``: the build and ``phase_kernels_many`` alone."""
     if not torch.cuda.is_available():
@@ -2440,9 +2532,15 @@ def many_main() -> int:
     kernels.library()
     say("build", seconds=round(kernels.BUILD_INFO["seconds"], 2))
     gpu = gpu_line()
+    if sys.argv[2:3] == ["--parent"]:
+        PARENT_MANY["launch"] = parent_sampler_many(sys.argv[3])
     err, timing = phase_kernels_many(torch.device("cuda", 0), gpu)
     say("timing", kernel="sampler_many", max_abs_err=err,
-        **{k: (list(v) if isinstance(v, tuple) else v) for k, v in timing.items()})
+        **{k: (list(v) if isinstance(v, tuple) else v) for k, v in timing.items()},
+        **many_geometry())
+    if "bit_equal" in PARENT_MANY:
+        say("kernels", case="practice6_1:sampler-many-vs-parent",
+            states=len(PARENT_MANY["bit_equal"]), bit_equal=all(PARENT_MANY["bit_equal"]))
     print(gpu, flush=True)
     return 0
 
@@ -4561,6 +4659,8 @@ def phase_timing(dev, gpu: str, counts: dict, errs: dict, m: Modular, k5, bvh: d
                       bound_ms_bounce3=round(deep[k]["bound"][0], 5))
         if k == "nearest":
             at["ms_no_mask"] = round(modular["nearest-camera"]["ms"], 4)
+        if k == "sampler_many":
+            at.update(many_geometry())
         if k == "loop":
             at.update(skipped_round_ms=round(loop_t["skipped_round_ms"], 5),
                       guarded_round_ms=round(loop_t["guarded_round_ms"], 5),
@@ -4590,7 +4690,7 @@ def phase_timing(dev, gpu: str, counts: dict, errs: dict, m: Modular, k5, bvh: d
              "active_in_lane_mode": k3_lane["active_in"]} if k == "sampler" else {}),
          **({"state": ROUND_TIMED, "tolerance": "bit for bit on every lane",
              "lanes": lane[k]["lanes"]} if k in ("refill", "restart") else {}),
-         **({"state": ROUND_TIMED, "lanes": lane[k]["lanes"],
+         **({"state": ROUND_TIMED, "lanes": lane[k]["lanes"], **many_geometry(),
              "max_rel_err": lane[k]["max_rel_err"],
              "bound_note": "the walk of the lights' tree not counted (mixture_ops)"}
             if k == "sampler_many" else {}),

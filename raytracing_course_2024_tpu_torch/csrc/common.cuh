@@ -399,14 +399,19 @@ __device__ float pdf_lights(const Tables& T, V3 point, V3 l) {
   return total / (float)max(T.num_lights, 1);
 }
 
-// K candidates, first accept, mixture pdf of the chosen one (mixture_body).
-// LS: the lights, a Tables or K3's LightTree (light_tree.cuh), whose
-// sample_light_dir and pdf_lights the call takes.
+// The mixture's components: cosine, GGX-VNDF and, with lights, the lights.
 template <class LS>
-__device__ void mixture(const LS& T, uint32_t key, const Ctr& ctr, int max_tries, V3 point,
-                        V3 n, V3 ns, V3 v, float roughness, V3& l, float& pdf, bool& accepted) {
-  const int n_comp = T.num_lights > 0 ? 3 : 2;
-  V3 pick = mk(0.0f, 0.0f, 1.0f);
+__device__ __forceinline__ int mixture_components(const LS& T) {
+  return T.num_lights > 0 ? 3 : 2;
+}
+
+// K candidates, first accept (mixture_body's candidate loop): the picked
+// direction, (0, 0, 1) where no candidate is accepted.
+template <class LS>
+__device__ __forceinline__ void mixture_pick(const LS& T, uint32_t key, const Ctr& ctr,
+                                             int max_tries, int n_comp, V3 point, V3 n, V3 ns,
+                                             V3 v, float roughness, V3& pick, bool& accepted) {
+  pick = mk(0.0f, 0.0f, 1.0f);
   accepted = false;
   for (int t = 0; t < max_tries && !accepted; ++t) {
     const uint32_t c0 = ctr.base + ctr.cand * (uint32_t)t;
@@ -428,12 +433,31 @@ __device__ void mixture(const LS& T, uint32_t key, const Ctr& ctr, int max_tries
       accepted = true;
     }
   }
-  float p = pdf_cosine(n, pick) + pdf_vndf(n, pick, v, roughness);
-  if (T.num_lights > 0) p = p + pdf_lights(T, point, pick);
+}
+
+// The mixture pdf of the pick from its sum `p` over the components, (cos +
+// vndf) + light; `accepted` comes in as the candidate loop's.
+__device__ __forceinline__ void mixture_pdf(float p, int n_comp, V3 pick, V3& l, float& pdf,
+                                            bool& accepted) {
   p = p / (float)n_comp;
   accepted = accepted && (p > SAFE);
   pdf = fmaxf(p, SAFE);
   l = pick;
+}
+
+// K candidates, first accept, mixture pdf of the chosen one (mixture_body).
+// LS: the lights' Tables, whose sample_light_dir and pdf_lights the call
+// takes. K3 above 32 lights runs the two pieces apart, with its walk of the
+// lights' tree between them (sampler.cu sampler_many_kernel).
+template <class LS>
+__device__ void mixture(const LS& T, uint32_t key, const Ctr& ctr, int max_tries, V3 point,
+                        V3 n, V3 ns, V3 v, float roughness, V3& l, float& pdf, bool& accepted) {
+  const int n_comp = mixture_components(T);
+  V3 pick;
+  mixture_pick(T, key, ctr, max_tries, n_comp, point, n, ns, v, roughness, pick, accepted);
+  float p = pdf_cosine(n, pick) + pdf_vndf(n, pick, v, roughness);
+  if (T.num_lights > 0) p = p + pdf_lights(T, point, pick);
+  mixture_pdf(p, n_comp, pick, l, pdf, accepted);
 }
 
 // ---- one primitive record against a ray --------------------------------------

@@ -36,8 +36,7 @@
 //   record each in device memory and the light pdf is an all-hits walk of
 //   the lights' own tree (light_tree.cuh); the JAX package, and the plain
 //   version here, sum it as one (B, L) sweep over the whole table
-//   (ops/sampling.py:_pdf_lights_vectorized). Everything else, the walk of
-//   the lanes included, is the same code.
+//   (ops/sampling.py:_pdf_lights_vectorized).
 // * A lane whose `need` flag is 0 (dead, or a MIRROR/DIELECTRIC hit) skips
 //   the work and writes l = (0, 0, 1), pdf = 1e-9, ok = 0. The JAX API masks
 //   ok with need as well, so only l and pdf of those lanes differ from the
@@ -64,6 +63,26 @@
 //   warp, the block's lanes regrouped by sampler component between the
 //   tries, the lanes refused by the first try ranked again (PERF.md has the
 //   numbers).
+//
+// Above 32 lights (sampler_many_kernel) a lane is dear and its cost uneven:
+// after the candidate loop its walk of the lights' tree visits ~6 wide nodes
+// and tests ~11 lights a direction on practice6_1, with no nearest hit to
+// cut it short. In the per-chunk schedule above a warp ran as long as its
+// longest walk and idled through every lane's light tests at every visit:
+// 46.2 ms of a 1280x720 x 32 spp frame (64 launches, 0.72 ms each, 59 % of
+// the device time, 1.7 % of its roofline), and its variants, wider chunks,
+// fewer registers, the nodes staged per chunk, were all slower (PERF.md).
+// So it takes K6's schedule (bvh_traverse.cu) instead, described in
+// light_tree.cuh with what bounds it now: a persistent grid whose warps draw
+// chunks of 32 lanes by ticket and refill ended lanes, the tree's nodes
+// staged once per resident block, the light tests postponed until most of
+// the warp holds leaves, five 16-byte loads a light record. 19.9 ms a
+// frame on an H100 (0.25 ms a launch on the frame's round-10 state, against
+// 0.57). Each lane runs mixture()'s two pieces (common.cuh mixture_pick,
+// then mixture_pdf on the sum with its walk's light pdf), and its terms are
+// summed in the same order, so l, pdf and ok are bit for bit the per-chunk
+// kernel's. sampler_kernel keeps the per-chunk schedule: its body is short
+// and even, as timed above.
 
 #include "common.cuh"
 #include "lane_queue.cuh"
@@ -73,11 +92,6 @@ namespace {
 
 constexpr int N_IN = 13;  // point3, n_geom3, n_shade3, v3, roughness
 constexpr int kChunk = 1;  // tiles of a block's chunk (lane_queue.cuh:walk_chunk)
-// the same for sampler_many_kernel, whose walk makes a lane dear: two tiles
-// a chunk fill more of a pass (timed on an H100 over practice6_1's frames:
-// 46.3 ms a frame at 2 tiles, 47.7 at 1, 48.1-48.6 at 4; the lights' nodes
-// staged in shared memory 53.4, 64 registers forced 50.1-50.3)
-constexpr int kManyChunk = 2;
 
 struct SamplerParams {
   const float* in[N_IN];
@@ -106,7 +120,7 @@ __device__ __forceinline__ void store_lane(const SamplerParams& p, long long i, 
 }
 
 // The block's lanes that sample, ranked into full passes; `lights`: the
-// Tables of sampler_kernel or the LightTree of sampler_many_kernel.
+// Tables of sampler_kernel.
 template <int C, class LS>
 __device__ __forceinline__ void sample_lanes(const SamplerParams& p, ChunkQueueT<C>& queue,
                                              const LS& lights) {
@@ -143,9 +157,47 @@ __global__ void __launch_bounds__(kBlock) sampler_kernel(SamplerParams p) {
   sample_lanes(p, queue, T);
 }
 
-__global__ void __launch_bounds__(kBlock) sampler_many_kernel(SamplerParams p, LightTree lights) {
-  __shared__ ChunkQueueT<kManyChunk> queue;
-  sample_lanes(p, queue, lights);
+// K3 above 32 lights: persistent warps that walk the lights' tree
+// (light_tree.cuh walk_lights). A lane's candidate loop runs when its warp
+// takes it up, its light pdf is its walk's, and the two pieces of
+// common.cuh's mixture() meet in its stores.
+__global__ void __launch_bounds__(kBlock) sampler_many_kernel(SamplerParams p, LightTree lights,
+                                                              int* tick) {
+  __shared__ __align__(128) LightShared s;
+  const int n_top = lights.n_nodes < kLightTop ? lights.n_nodes : kLightTop;
+  stage_light_top(s, lights.nodes, n_top);
+  const uint32_t seed = (uint32_t)__ldg(&p.seed_off[0]);
+  const uint32_t wid_off = (uint32_t)__ldg(&p.seed_off[1]);
+  const int n_comp = mixture_components(lights);
+  bool picked = false;  // the lane's, from its take-up to its stores
+  float bsdf = 0.0f;    // pdf_cosine + pdf_vndf of the pick
+  walk_lights(
+      lights, s, n_top, p.b, tick, [&](long long i) { return p.need[i] != 0; },
+      [&](long long i) { store_lane(p, i, mk(0.0f, 0.0f, 1.0f), SAFE, false); },
+      [&](int i, V3& point, V3& pick) {
+        point = mk(p.in[0][i], p.in[1][i], p.in[2][i]);
+        const V3 n = mk(p.in[3][i], p.in[4][i], p.in[5][i]);
+        const V3 ns = mk(p.in[6][i], p.in[7][i], p.in[8][i]);
+        const V3 v = mk(p.in[9][i], p.in[10][i], p.in[11][i]);
+        const float roughness = p.in[12][i];
+        const uint32_t key = work_key(seed, (uint32_t)p.wid[i] + wid_off);
+        const Ctr ctr = p.depth ? at_depth(p.ctr, p.ctr_stride, (uint32_t)p.depth[i]) : p.ctr;
+        mixture_pick(lights, key, ctr, p.max_tries, n_comp, point, n, ns, v, roughness, pick,
+                     picked);
+        bsdf = pdf_cosine(n, pick) + pdf_vndf(n, pick, v, roughness);
+      },
+      [&](int i, V3 pick, float light) {
+        V3 l;
+        float pdf;
+        bool ok = picked;
+        mixture_pdf(bsdf + light, n_comp, pick, l, pdf, ok);
+        store_lane(p, i, l, pdf, ok);
+      });
+  if ((threadIdx.x & 31) == 0 && atomicAdd(&tick[1], 1) == (int)gridDim.x * kWarps - 1) {
+    tick[0] = 0;
+    tick[1] = 0;
+    __threadfence();
+  }
 }
 
 // The arguments both launchers share; false for values the kernels do not
@@ -197,33 +249,53 @@ extern "C" int rt_launch_sampler(const void* const* ins, const void* need, const
 }
 
 // K3 above 32 lights. rec, leaf: (num_lights, 20) f32 light records in light
-// order and in the tree's order (ops/bvh.py:light_records); nodes:
-// (n_nodes, 8) float4 wide nodes of the lights' tree, 16-byte aligned;
-// stack: the entries its walk can need (ops/bvh.py:Bvh4.stack). The other
-// arguments as rt_launch_sampler's.
+// order and in the tree's order (ops/bvh.py:light_records), leaf 16-byte
+// aligned; nodes: (n_nodes, 8) float4 wide nodes of the lights' tree,
+// 16-byte aligned; stack: the entries its walk can need
+// (ops/bvh.py:Bvh4.stack); tick: two int32, zero, which the launch leaves
+// zero. The other arguments as rt_launch_sampler's.
 extern "C" int rt_launch_sampler_many(const void* const* ins, const void* need, const void* wid,
                                       const void* seed_off, unsigned ctr_base,
                                       unsigned ctr_cand, unsigned ctr_row, unsigned ctr_diel,
                                       const void* depth, unsigned ctr_stride, const void* rec,
                                       const void* leaf, int num_lights, const void* nodes,
                                       int n_nodes, int stack, int max_tries, long long b,
-                                      void* out, void* ok, void* stream) {
+                                      void* out, void* ok, void* tick, void* stream) {
   SamplerParams p{};
   if (!fill_params(p, ins, need, wid, seed_off, ctr_base, ctr_cand, ctr_row, ctr_diel, depth,
                    ctr_stride, max_tries, b, out, ok) ||
       num_lights <= MAX_LIGHTS || n_nodes < 1 || stack < 0 || stack > kLightStack ||
-      (reinterpret_cast<uintptr_t>(nodes) & 15) != 0)
+      (reinterpret_cast<uintptr_t>(nodes) & 15) != 0 ||
+      (reinterpret_cast<uintptr_t>(leaf) & 15) != 0)
     return (int)cudaErrorInvalidValue;
   if (b == 0) return 0;
   LightTree lights{};
   lights.rec = static_cast<const float*>(rec);
   lights.num_lights = num_lights;
-  lights.leaf = LightRecs{static_cast<const float*>(leaf), num_lights};
+  lights.leaf = static_cast<const float4*>(leaf);
   lights.nodes = static_cast<const float4*>(nodes);
-  sampler_many_kernel<<<chunk_grid<kManyChunk>(b), kBlock, 0,
-                        static_cast<cudaStream_t>(stream)>>>(p, lights);
+  lights.n_nodes = n_nodes;
+  const unsigned grid = grid_for(sampler_many_kernel, (b + kBlock - 1) / kBlock);
+  sampler_many_kernel<<<grid, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
+      p, lights, static_cast<int*>(tick));
   return (int)cudaGetLastError();
 }
 
 // Resident blocks per SM of sampler_kernel on the current device.
 extern "C" int rt_sampler_resident_blocks() { return resident_blocks(sampler_kernel); }
+
+// Launch geometry of sampler_many_kernel, for reports: out = {stack entries,
+// of them in shared memory per thread, wide nodes staged in shared memory,
+// shared bytes per block, local bytes per thread, registers per thread,
+// resident blocks per SM}.
+extern "C" void rt_sampler_many_geometry(int* out) {
+  cudaFuncAttributes a{};
+  cudaFuncGetAttributes(&a, sampler_many_kernel);
+  out[0] = kLightStack;
+  out[1] = kLightSharedStack;
+  out[2] = kLightTop;
+  out[3] = (int)a.sharedSizeBytes;
+  out[4] = (int)a.localSizeBytes;
+  out[5] = a.numRegs;
+  out[6] = resident_blocks(sampler_many_kernel);
+}

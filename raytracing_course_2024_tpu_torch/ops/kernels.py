@@ -221,7 +221,7 @@ def _load() -> None:
     ]
     lib.rt_launch_sampler.restype = i
     lib.rt_launch_sampler_many.argtypes = [
-        p, p, p, p, *ctr, p, u, p, p, i, p, i, i, i, ll, p, p, p,
+        p, p, p, p, *ctr, p, u, p, p, i, p, i, i, i, ll, p, p, p, p,
     ]
     lib.rt_launch_sampler_many.restype = i
     lib.rt_launch_persistent.argtypes = [
@@ -257,6 +257,8 @@ def _load() -> None:
     lib.rt_dense_nearest_geometry.restype = None
     lib.rt_bvh_nearest_geometry.argtypes = [ctypes.POINTER(ctypes.c_int)]
     lib.rt_bvh_nearest_geometry.restype = None
+    lib.rt_sampler_many_geometry.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    lib.rt_sampler_many_geometry.restype = None
     lib.rt_sampler_resident_blocks.argtypes = []
     lib.rt_sampler_resident_blocks.restype = i
     lib.rt_restart_whole_lanes.argtypes = []
@@ -296,8 +298,9 @@ _TICKETS: dict = {}
 
 def _tickets(device, stream: int) -> torch.Tensor:
     """The two int32 with which K1 and K5 hand out their tiles
-    (``csrc/lane_queue.cuh:walk_tiles``) and K6 its warps' chunks
-    (``csrc/bvh_traverse.cu``): zero between launches, one pair
+    (``csrc/lane_queue.cuh:walk_tiles``) and K6 and K3 above 32 lights their
+    warps' chunks (``csrc/bvh_traverse.cu``, ``csrc/light_tree.cuh``): zero
+    between launches, one pair
     per device and stream, since launches on one stream run in order. A
     stream under graph capture must have its pair already
     (``prepare_stream``): made inside the capture, it would live in the
@@ -348,9 +351,10 @@ def launch_geometry() -> dict:
     stack (entries in all and in shared memory per thread), its top of the
     tree staged in shared memory (wide nodes), its shared and local bytes per
     block and thread and its registers, and each kernel's resident blocks per
-    SM (the grid of K1, K2, K5 and K6 is SMs x resident blocks, or fewer
-    when the batch needs fewer; K3 and K4 launch one block per chunk), and
-    the lanes above which N2b writes its rows in whole sectors."""
+    SM (the grid of K1, K2, K5, K6 and K3 above 32 lights is SMs x resident
+    blocks, or fewer when the batch needs fewer; K3 and K4 launch one block
+    per chunk), K3's above 32 lights as K6's (``sampler_many_*``), and the
+    lanes above which N2b writes its rows in whole sectors."""
     lib = library()
     out = (ctypes.c_int * 6)()
     lib.rt_bounce_geometry(out)
@@ -358,14 +362,19 @@ def launch_geometry() -> dict:
     lib.rt_dense_nearest_geometry(k4)
     k6 = (ctypes.c_int * 7)()
     lib.rt_bvh_nearest_geometry(k6)
+    k3 = (ctypes.c_int * 7)()
+    lib.rt_sampler_many_geometry(k3)
     return {"sms": out[0], "block": out[1], "tile": out[2], "nearest_rays_per_thread": k4[0],
             "nearest_tiles_per_chunk": k4[1], "bvh_stack": k6[0], "bvh_shared_stack": k6[1],
             "bvh_top_nodes": k6[2], "bvh_shared_bytes": k6[3], "bvh_local_bytes": k6[4],
-            "bvh_registers": k6[5],
+            "bvh_registers": k6[5], "sampler_many_stack": k3[0], "sampler_many_shared_stack": k3[1],
+            "sampler_many_top_nodes": k3[2], "sampler_many_shared_bytes": k3[3],
+            "sampler_many_local_bytes": k3[4], "sampler_many_registers": k3[5],
             "resident_blocks": {"bounce": out[3], "final": out[4], "primary": out[5],
                                 "persistent": lib.rt_persistent_resident_blocks(),
                                 "nearest": k4[2],
-                                "sampler": lib.rt_sampler_resident_blocks(), "bvh": k6[6]},
+                                "sampler": lib.rt_sampler_resident_blocks(), "bvh": k6[6],
+                                "sampler_many": k3[6]},
             "restart_whole_above_lanes": lib.rt_restart_whole_lanes()}
 
 
@@ -477,13 +486,15 @@ def launch_sampler_many(ins, need, wid, seed_off, ctr, depth, ctr_stride, rec, l
     as ``launch_sampler``'s. Counted as ``"sampler_many"``."""
     lib = library()
     with _on(out.device) as stream:
+        tickets = _tickets(out.device, stream)
         rc = lib.rt_launch_sampler_many(
             _ptrs(ins), need.data_ptr(), wid.data_ptr(), seed_off.data_ptr(),
             *_ctr(ctr), None if depth is None else depth.data_ptr(), _u32(ctr_stride),
             rec.data_ptr(), leaf.data_ptr(), rec.shape[0], nodes.data_ptr(), nodes.shape[0],
-            int(stack), int(max_tries), out.shape[1], out.data_ptr(), ok.data_ptr(), stream,
+            int(stack), int(max_tries), out.shape[1], out.data_ptr(), ok.data_ptr(),
+            tickets.data_ptr(), stream,
         )
-    _raise_on(rc, "rt_launch_sampler_many")
+        _raise_on(rc, "rt_launch_sampler_many", tickets)
     _count("sampler_many")
 
 

@@ -23,7 +23,10 @@ On the CPU:
 On a card (marked ``cuda``; skipped here): K3 above 32 lights, in the batch
 layout and in lane mode, against its plain version on random states of the
 scene, a third of them just off the torus tube so that light-sampled
-directions graze it.
+directions graze it; and its persistent warps (``csrc/light_tree.cuh``)
+with ``need`` all set, about 5 % scattered and none, on fewer lanes than one
+warp's chunk and on more than the grid's first draw, two launches and the
+replay of a captured graph bit for bit equal (the tickets come back to 0).
 """
 
 import json
@@ -34,6 +37,7 @@ import pytest
 import torch
 
 from raytracing_course_2024_tpu_torch.integrator import path as P
+from raytracing_course_2024_tpu_torch.ops import kernels
 from raytracing_course_2024_tpu_torch.ops import rng as trng
 from raytracing_course_2024_tpu_torch.ops.bvh import (LEAF_BIT, WIDE, attach_bvh,
                                                       build_light_tree, light_records)
@@ -244,6 +248,78 @@ def test_k3_above_32_lights_matches_plain_on_the_card(card, built, lane):
     assert (kok == pok).float().mean().item() >= 0.999
     both = kok & pok
     assert both.float().mean().item() > 0.5
+    for a, w in zip((*kl, kpdf), (*pl, ppdf)):
+        close = (a[both] - w[both]).abs() <= 1e-4 * w[both].abs() + 1e-7
+        assert close.float().mean().item() >= 0.999
+
+
+def _plain_lanes(scene, seed, wid, off, depth, ins, chunk=32_768):
+    """``sampler_plain`` in the lane layout, ``chunk`` lanes at a time (its
+    (B, L) sweep holds several (lanes, lights) floats at once)."""
+    parts = []
+    for a in range(0, wid.shape[0], chunk):
+        cut = [Vec3(*(c[a:a + chunk] for c in x)) if isinstance(x, Vec3)
+               else x[a:a + chunk] if isinstance(x, torch.Tensor) else x for x in ins]
+        parts.append(sampler_plain(scene, seed, wid[a:a + chunk], off,
+                                   trng.lane_ctr(depth[a:a + chunk], K), *cut))
+    return (Vec3(*(torch.cat([getattr(p[0], c) for p in parts]) for c in "xyz")),
+            torch.cat([p[1] for p in parts]), torch.cat([p[2] for p in parts]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", ["under-a-chunk", "over-the-first-draw"])
+@pytest.mark.parametrize("need", ["all", "scattered", "none"])
+def test_k3_above_32_lights_persistent_warps_on_the_card(card, built, need, size):
+    """K3 above 32 lights in lane mode on 20 lanes (fewer than one warp's
+    chunk of 32) or on more lanes than the persistent grid's warps draw
+    first: ``ok`` equal to the plain version's and l, pdf at its gate on the
+    lanes that sample, the idle stores on the others; two launches back to
+    back and the replay of a graph that captured a third give the same
+    outputs bit for bit, so each launch left the tickets at 0."""
+    arrays, statics, _ = built
+    scene = modular_scene(arrays, statics, card)
+    geom = kernels.launch_geometry()
+    first = geom["sms"] * geom["resident_blocks"]["sampler_many"] * geom["block"]
+    n = 20 if size == "under-a-chunk" else first + 12_345
+    wid, ins = _states(arrays, statics, n, card, seed=11)
+    g = np.random.default_rng(17)
+    flags = {"all": np.ones(n, bool), "scattered": g.random(n) < 0.05,
+             "none": np.zeros(n, bool)}[need]
+    if need == "scattered":
+        flags[n // 2] = True
+    need_t = torch.from_numpy(flags).to(card)
+    ins = (*ins[:5], need_t, K)
+    depth = torch.from_numpy(g.integers(0, 6, n).astype(np.int32)).to(card)
+    pair = torch.tensor([SEED, 5], dtype=torch.int64, device=card)
+
+    def launch():
+        return sample_mixture_kernel(scene, pair[0], wid, pair[1], trng.lane_ctr(0, K), *ins,
+                                     depth)
+
+    first_out, second = launch(), launch()
+    stream = torch.cuda.Stream(card)
+    kernels.prepare_stream(card, stream)
+    stream.wait_stream(torch.cuda.current_stream(card))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        captured = launch()
+    graph.replay()
+    torch.cuda.synchronize()
+    flat = lambda o: (*o[0], o[1], o[2])  # noqa: E731
+    for a, b, c in zip(flat(first_out), flat(second), flat(captured)):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    kl, kpdf, kok = first_out
+    idle = ~need_t
+    assert not kok[idle].any()
+    assert (kl.x[idle] == 0).all() and (kl.y[idle] == 0).all() and (kl.z[idle] == 1).all()
+    assert (kpdf[idle] == 1e-9).all()
+    if need == "none":
+        return
+    pl, ppdf, pok = _plain_lanes(scene, SEED, wid, 5, depth, ins)
+    torch.cuda.synchronize()
+    assert (kok == pok).float().mean().item() >= 0.999
+    both = kok & pok
+    assert both.any()
     for a, w in zip((*kl, kpdf), (*pl, ppdf)):
         close = (a[both] - w[both]).abs() <= 1e-4 * w[both].abs() + 1e-7
         assert close.float().mean().item() >= 0.999
