@@ -125,11 +125,8 @@ exits non-zero):
                rounds they report, the refills the engine counts);
 5. render   -- 320x180 x 16 spp frames: fused kernels against fused plain;
                modular kernels against modular plain (roulette on);
-               ``TraceConfig.sampler="xla"`` refused on the card by the
-               batch and sticky engines, with nothing launched; the fused
-               frame with RT_MEGA_CAM=0 (N4, then bounce 0 in
-               K1, no K2) against the default one; modular
-               against fused kernels (roulette off, RT_MEGAKERNEL=0); the
+               modular against fused kernels (roulette off: the scene's
+               ``ModularScene`` on the batch engine); the
                sticky engine's kernels against its plain versions (K5; with
                roulette, K4) and against the counter wavefront and the
                sticky engine on 16,384 lanes (K1 lane mode); MIXED through
@@ -2283,11 +2280,12 @@ PARENT_MANY: dict = {}
 
 def parent_sampler_many(tree: str):
     """K3 above 32 lights of another checkout at ``tree`` whose
-    ``rt_launch_sampler_many`` takes no tickets (its per-chunk schedule),
-    built alone from its ``csrc/sampler.cu`` with this tree's nvcc flags
-    into its git-ignored build directory. Returns a function of
-    ``sample_mixture_kernel``'s arguments in lane mode that launches it and
-    returns (l, pdf, ok)."""
+    ``rt_launch_sampler_many`` takes its warps' ticket pair before the
+    stream (its persistent schedule), built alone from its
+    ``csrc/sampler.cu`` with this tree's nvcc flags into its git-ignored
+    build directory; it gets a ticket pair of its own. Returns a function
+    of ``sample_mixture_kernel``'s arguments in lane mode that launches it
+    and returns (l, pdf, ok)."""
     import ctypes
 
     from raytracing_course_2024_tpu_torch.ops import kernels
@@ -2310,8 +2308,9 @@ def parent_sampler_many(tree: str):
     lib = ctypes.CDLL(so)
     p, i, u, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_longlong
     lib.rt_launch_sampler_many.argtypes = [p, p, p, p, u, u, u, u, p, u, p, p, i, p, i, i, i,
-                                           ll, p, p, p]
+                                           ll, p, p, p, p]
     lib.rt_launch_sampler_many.restype = i
+    tickets = {}  # device -> the parent's pair, zero between launches
 
     def launch(scene, seed, wid, off, ctr, point, n_geom, n_shade, v, rough, need, max_tries,
                depth):
@@ -2321,12 +2320,13 @@ def parent_sampler_many(tree: str):
         pair = seed_off(seed, off, dev)
         out = torch.empty((4, b), dtype=torch.float32, device=dev)
         ok = torch.empty((b,), dtype=torch.bool, device=dev)
+        tick = tickets.setdefault(dev, torch.zeros((2,), dtype=torch.int32, device=dev))
         rc = lib.rt_launch_sampler_many(
             kernels._ptrs(ins), need.data_ptr(), wid.data_ptr(), pair.data_ptr(),
             *kernels._ctr(ctr), depth.data_ptr(), WF_STRIDE, scene.light_rec.data_ptr(),
             scene.light_leaf.data_ptr(), scene.light_rec.shape[0],
             scene.light_nodes.data_ptr(), scene.light_nodes.shape[0], int(scene.light_stack),
-            int(max_tries), b, out.data_ptr(), ok.data_ptr(),
+            int(max_tries), b, out.data_ptr(), ok.data_ptr(), tick.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
         if rc != 0:
             raise RuntimeError(f"the parent's rt_launch_sampler_many failed: CUDA error {rc}")
@@ -2946,46 +2946,17 @@ def phase_render(dev) -> None:
     render_pair(fused, Renderer(desc, device=dev, plain=True).render_radiance(seed=3),
                 "fused-kernels-vs-plain", size=size, spp=spp)
     modular_pair(desc, dev, "modular-kernels-vs-plain-rr", russian_roulette=True)
-    # the JAX package's switches: the XLA sampler in place of K3 is refused on
-    # the card (it would run K3's plain version), before anything launches;
-    # bounce 0 in K1 on the camera stage's rays in place of K2
-    from raytracing_course_2024_tpu_torch.integrator.path import DEFAULT_BATCH, plan_batches
+    # the same scene and settings on the modular route: its ModularScene on
+    # the batch engine (K4, N1a, K3, N1b), against the fused frame
+    from raytracing_course_2024_tpu_torch.integrator.path import render_batches
     from raytracing_course_2024_tpu_torch.ops import kernels as KN
+    from raytracing_course_2024_tpu_torch.ops.scene_intersect import modular_scene
 
-    for engine in ("batch", "sticky"):
-        xr = Renderer(desc, device=dev, russian_roulette=True, engine=engine)
-        xr.cfg = xr.cfg._replace(sampler="xla")
-        KN.reset_launches()
-        try:
-            xr.render_radiance(seed=3)
-            raise SystemExit(f"sampler='xla' rendered on the card ({engine})")
-        except ValueError as e:
-            if "sampler" not in str(e) or any(KN.LAUNCHES.values()):
-                raise SystemExit(f"sampler='xla' ({engine}): {e!r}, launched {KN.LAUNCHES}")
-            say("render", case=f"sampler-xla-refused-{engine}", error=str(e))
-    b, replicas = plan_batches(DEFAULT_BATCH, w * h, spp)
-    runs, depth = -(-w * h // b) * (spp // replicas), desc.settings.ray_depth
-    os.environ["RT_MEGA_CAM"] = "0"
-    try:
-        KN.reset_launches()
-        cam_off = Renderer(desc, device=dev).render_radiance(seed=3)
-        launched = {k: v for k, v in KN.LAUNCHES.items() if v}
-    finally:
-        os.environ.pop("RT_MEGA_CAM")
-    if launched != {"bounce": runs * (depth - 1), "final": runs, "camera": runs}:
-        raise SystemExit(f"RT_MEGA_CAM=0 launched {launched}")
-    render_pair(cam_off, fused, "fused-mega-cam-off-vs-default", size=size, spp=spp,
-                within_1e4=float((np.abs(cam_off - fused) <= 1e-4).all(axis=-1).mean()),
-                launches=json.dumps(launched).replace(" ", ""))
-    os.environ["RT_MEGAKERNEL"] = "0"
-    try:
-        mod = Renderer(desc, device=dev)
-    finally:
-        os.environ.pop("RT_MEGAKERNEL")
-    if mod.fused:
-        raise SystemExit("RT_MEGAKERNEL=0 took the fused path")
-    render_pair(mod.render_radiance(seed=3), fused, "modular-vs-fused-kernels",
-                size=size, spp=spp)
+    fr = Renderer(desc, device=dev)
+    outs, _ = render_batches(modular_scene(fr.arrays, fr.statics, dev),
+                             (3 * 2654435761) & 0xFFFFFFFF, fr.cam_row, fr.cfg, w, h, spp,
+                             fr.batch_size)
+    render_pair(fr._assemble(outs), fused, "modular-vs-fused-kernels", size=size, spp=spp)
 
     # the lane engines (all from the same work-item streams)
     sticky = Renderer(desc, device=dev, engine="sticky").render_radiance(seed=3)
@@ -3638,11 +3609,11 @@ def n1_frame_bounds(desc, dev, seed: int, **kw) -> dict:
         sums[k]["launches"] += 1
         sums[k]["bound_ms"] += bound(nbytes, ops)[0]
 
-    def shade(state, t, idx, scene, bg, depth=None, last=0, final=False):
+    def shade(state, t, idx, scene, bg, depth=None, last=0, final=False, count=None):
         ps, psurf, _ = SH.shade_plain(state.clone(), t, idx, scene, bg)
         add("shade", shade_bytes(state, t, idx, ps, psurf, scene, depth, last, final),
             n1_ops(state, ps, scene, final)[0])
-        return SH.shade(state, t, idx, scene, bg, depth, last, final)
+        return SH.shade(state, t, idx, scene, bg, depth, last, final, count=count)
 
     def finish(state, surf, l_s, pdf, ok, wid, seed, wid_off, cfg, bounce_i=0, depth=None):
         pf, _ = SH.finish_plain(state.clone(), surf, l_s, pdf, ok, wid, seed, wid_off, cfg,
@@ -3974,7 +3945,7 @@ def expected_launches(r, n_pix: int, spp: int, shards: int, rounds, refills: int
     before the first (K5 ends its own rounds with the test)."""
     if r.engine == "batch":
         return batch_launches(r, n_pix, spp, shards)
-    from raytracing_course_2024_tpu_torch.integrator.path import DEFAULT_BATCH, takes_k3
+    from raytracing_course_2024_tpu_torch.integrator.path import DEFAULT_BATCH
     from raytracing_course_2024_tpu_torch.ops import kernels as KN
 
     want = dict.fromkeys(KN.LAUNCHES, 0)
@@ -3987,7 +3958,7 @@ def expected_launches(r, n_pix: int, spp: int, shards: int, rounds, refills: int
         want["bounce"] = n
     else:
         want.update(shade=n, finish=n)
-        want[k3_key(r)] = n if takes_k3(r.cfg) else 0
+        want[k3_key(r)] = 0 if r.cfg.faithful else n
         if nearest_kernel(r):
             want[nearest_kernel(r)] = n
     if r.engine == "sticky" and not k5:

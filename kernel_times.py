@@ -35,9 +35,8 @@ bounce-1 rays of that BVH frame with their live masks (``bvh_state``,
 geometry (K6's stack, shared bytes, resident blocks).
 ``--modular-frames`` profiles only the four frames whose bounce is the
 modular one (the BVH frame on the three engines, the Cornell frame with
-roulette), graphed, the two batch ones also eagerly, and the Cornell fused
-frame under ``RT_MEGA_CAM=0``, ``--frames`` profiled frames each after a
-warm-up
+roulette), graphed, and the two batch ones also eagerly, ``--frames``
+profiled frames each after a warm-up
 (``chip_smoke.profiled_frame``: wall and device ms, busy share, launches,
 the image's digest, N1a's, N1b's and N4's device ms and launches summed over
 the frame, and those of the rows that name no hand-written kernel: the ATen
@@ -105,7 +104,6 @@ change, change, parent.
 from __future__ import annotations
 
 import argparse
-import contextlib
 import ctypes
 import json
 import os
@@ -320,17 +318,15 @@ HAND_WRITTEN = ("bounce_kernel", "primary_kernel", "persistent_kernel", "dense_n
 
 
 def modular_frame_cases(bvh, cornell):
-    """(name, scene, Renderer keywords, environment) of ``modular_frames``:
-    the four frames of the modular bounce, graphed; the two batch frames
-    again eagerly; the Cornell fused frame under ``RT_MEGA_CAM=0`` (its
-    camera stage, then K1 from bounce 0)."""
-    return (("bvh-batch", bvh, {"engine": "batch"}, {}),
-            ("cornell-modular-rr", cornell, {"russian_roulette": True}, {}),
-            ("bvh-wavefront", bvh, {"engine": "wavefront"}, {}),
-            ("bvh-sticky", bvh, {"engine": "sticky"}, {}),
-            ("bvh-batch-eager", bvh, {"engine": "batch", "eager": True}, {}),
-            ("cornell-modular-rr-eager", cornell, {"russian_roulette": True, "eager": True}, {}),
-            ("cornell-mega-cam-off", cornell, {}, {"RT_MEGA_CAM": "0"}))
+    """(name, scene, Renderer keywords) of ``modular_frames``: the four
+    frames of the modular bounce, graphed; the two batch frames again
+    eagerly."""
+    return (("bvh-batch", bvh, {"engine": "batch"}),
+            ("cornell-modular-rr", cornell, {"russian_roulette": True}),
+            ("bvh-wavefront", bvh, {"engine": "wavefront"}),
+            ("bvh-sticky", bvh, {"engine": "sticky"}),
+            ("bvh-batch-eager", bvh, {"engine": "batch", "eager": True}),
+            ("cornell-modular-rr-eager", cornell, {"russian_roulette": True, "eager": True}))
 
 
 def modular_frames(dev, bvh, cornell, frames: int, say) -> None:
@@ -346,14 +342,13 @@ def modular_frames(dev, bvh, cornell, frames: int, say) -> None:
     summed bound of N1a's and N1b's launches in the frame of seed 1."""
     from raytracing_course_2024_tpu_torch.runtime.render import Renderer
 
-    for name, desc, kw, env in modular_frame_cases(bvh, cornell):
-        with _environ(env):  # RT_MEGA_CAM is read when the sample body is made
-            r = Renderer(desc, device=dev, **kw)
-            r.render_frame_device(seed=0)
-            n1_ms = {seed: _profiled(r, name, seed, say) for seed in range(1, frames + 1)}
+    for name, desc, kw in modular_frame_cases(bvh, cornell):
+        r = Renderer(desc, device=dev, **kw)
+        r.render_frame_device(seed=0)
+        n1_ms = {seed: _profiled(r, name, seed, say) for seed in range(1, frames + 1)}
         del r
         torch.cuda.empty_cache()
-        if frames >= 1 and not env and not kw.get("eager"):
+        if frames >= 1 and not kw.get("eager"):
             b = CS.n1_frame_bounds(desc, dev, 1, **kw)
             out = {}
             for k, tag in (("shade", "n1a"), ("finish", "n1b")):
@@ -362,16 +357,6 @@ def modular_frames(dev, bvh, cornell, frames: int, say) -> None:
                             f"{tag}_share": round(b[k]["bound_ms"] / n1_ms[1][k], 4)})
             say(frame=name, seed=1, **out)
             torch.cuda.empty_cache()
-
-
-@contextlib.contextmanager
-def _environ(env: dict):
-    os.environ.update(env)
-    try:
-        yield
-    finally:
-        for k in env:
-            os.environ.pop(k)
 
 
 def _profiled(r, name: str, seed: int, say) -> dict:

@@ -1,6 +1,8 @@
-// The node of K6's 4-wide tree and its box test, shared by the BVH nearest
-// hit (bvh_traverse.cu, K6) and the light pdf's all-hits walk of the lights'
-// own tree (light_tree.cuh, K3 above 32 lights). The layout is
+// The node of K6's 4-wide tree, its box test, and the staging of the tree's
+// top in shared memory and the read of a node from there or from device
+// memory, shared by the BVH nearest hit (bvh_traverse.cu, K6) and the light
+// pdf's all-hits walk of the lights' own tree (light_tree.cuh, K3 above 32
+// lights). The layout is
 // ops/bvh.py:build_bvh4_nodes': a wide node is one 128-byte line, eight
 // float4: its four children's boxes as structure of arrays (lo.x[4] lo.y[4]
 // lo.z[4] hi.x[4] hi.y[4] hi.z[4]), four child words (a wide node's index; a
@@ -33,6 +35,52 @@ __device__ __forceinline__ Line ldg_line(const float4* q) {
   l.lx = __ldg(q), l.ly = __ldg(q + 1), l.lz = __ldg(q + 2), l.hx = __ldg(q + 3);
   l.hy = __ldg(q + 4), l.hz = __ldg(q + 5), l.w = __ldg(q + 6), l.c = __ldg(q + 7);
   return l;
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* ptr) {
+  return (uint32_t)__cvta_generic_to_shared(ptr);
+}
+
+// Copies the first n_top wide nodes of `nodes` (128-byte aligned) into `top`
+// (shared memory, 128-byte aligned): one bulk asynchronous copy, completed
+// on the mbarrier `bar` (shared memory), that every thread waits for. Every
+// thread of the block calls it, once per launch.
+__device__ __forceinline__ void stage_top(float4* top, unsigned long long* bar_ptr,
+                                          const float4* nodes, int n_top) {
+  const uint32_t bar = smem_addr(bar_ptr);
+  if (threadIdx.x == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const uint32_t bytes = (uint32_t)n_top * kLine * 16u;
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+                 "r"(bytes)
+                 : "memory");
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+        "[%3];\n" ::"r"(smem_addr(top)),
+        "l"(reinterpret_cast<uint64_t>(nodes)), "r"(bytes), "r"(bar)
+        : "memory");
+  }
+  uint32_t ready = 0;
+  while (!ready) {
+    asm volatile(
+        "{\n .reg .pred P;\n mbarrier.try_wait.parity.shared::cta.b64 P, [%1], 0;\n"
+        " selp.u32 %0, 1, 0, P;\n}\n"
+        : "=r"(ready)
+        : "r"(bar)
+        : "memory");
+  }
+}
+
+// A wide node: from the block's staged top (its first n_top nodes, in shared
+// memory) or device memory.
+__device__ __forceinline__ Line node_line(const float4* top, const float4* nodes, int n,
+                                          int n_top) {
+  if (n < n_top) return line_at(top + kLine * n);
+  return ldg_line(nodes + (long long)kLine * n);
 }
 
 // Entry distance of the ray into the box, or INFINITY where the slab

@@ -113,13 +113,6 @@ struct BvhShared {
   unsigned long long bar;  // the mbarrier the top's copy completes on
 };
 
-// A wide node: from the block's staged top (shared memory) or device memory.
-__device__ __forceinline__ Line load_line(const BvhShared& s, const float4* nodes, int n,
-                                          int n_top) {
-  if (n < n_top) return line_at(s.top + kLine * n);
-  return ldg_line(nodes + (long long)kLine * n);
-}
-
 // A child's sort key: its entry distance's bits with the slot in the low two
 // (t >= 0, so the bits order as t does; the slot makes keys unique and the
 // order of equal entries the slot order), or kMiss | slot where the ray does
@@ -264,7 +257,7 @@ __device__ __forceinline__ void walk_warp(const BvhParams& p, BvhShared& s, int 
       }
     }
     if (node >= 0 && !held) {  // a visit
-      const Line l = load_line(s, p.nodes, node, n_top);
+      const Line l = node_line(s.top, p.nodes, node, n_top);
       w0 = __float_as_int(l.w.x), w1 = __float_as_int(l.w.y);
       w2 = __float_as_int(l.w.z), w3 = __float_as_int(l.w.w);
       c0 = __float_as_int(l.c.x), c1 = __float_as_int(l.c.y);
@@ -335,42 +328,11 @@ __device__ __forceinline__ void walk_warp(const BvhParams& p, BvhShared& s, int 
   }
 }
 
-__device__ __forceinline__ uint32_t smem_addr(const void* ptr) {
-  return (uint32_t)__cvta_generic_to_shared(ptr);
-}
-
 __global__ void __launch_bounds__(kBlock) bvh_nearest_kernel(BvhParams p) {
   __shared__ __align__(128) BvhShared s;
   const int lane = threadIdx.x & 31;
   const int n_top = p.n_nodes < kTop ? p.n_nodes : kTop;
-  // the top of the tree: one bulk copy, completed on the mbarrier
-  const uint32_t bar = smem_addr(&s.bar);
-  if (threadIdx.x == 0) {
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar) : "memory");
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    const uint32_t bytes = (uint32_t)n_top * kLine * 16u;
-    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-                 "r"(bytes)
-                 : "memory");
-    asm volatile(
-        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
-        "[%3];\n" ::"r"(smem_addr(s.top)),
-        "l"(reinterpret_cast<uint64_t>(p.nodes)), "r"(bytes), "r"(bar)
-        : "memory");
-  }
-  uint32_t ready = 0;
-  while (!ready) {
-    asm volatile(
-        "{\n .reg .pred P;\n mbarrier.try_wait.parity.shared::cta.b64 P, [%1], 0;\n"
-        " selp.u32 %0, 1, 0, P;\n}\n"
-        : "=r"(ready)
-        : "r"(bar)
-        : "memory");
-  }
-
+  stage_top(s.top, &s.bar, p.nodes, n_top);  // the top of the tree, in shared memory
   walk_warp(p, s, n_top);
   if (lane == 0 && atomicAdd(&p.tick[1], 1) == (int)gridDim.x * kWarps - 1) {
     p.tick[0] = 0;

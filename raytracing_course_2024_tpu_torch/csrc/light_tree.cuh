@@ -146,49 +146,6 @@ struct LightShared {
   unsigned long long bar;
 };
 
-__device__ __forceinline__ uint32_t smem_addr(const void* ptr) {
-  return (uint32_t)__cvta_generic_to_shared(ptr);
-}
-
-// Copies the first n_top wide nodes into s.top: one bulk asynchronous copy,
-// completed on the mbarrier, that every thread waits for. Every thread of
-// the block calls it.
-__device__ __forceinline__ void stage_light_top(LightShared& s, const float4* nodes, int n_top) {
-  const uint32_t bar = smem_addr(&s.bar);
-  if (threadIdx.x == 0) {
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar) : "memory");
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    const uint32_t bytes = (uint32_t)n_top * kLine * 16u;
-    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-                 "r"(bytes)
-                 : "memory");
-    asm volatile(
-        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
-        "[%3];\n" ::"r"(smem_addr(s.top)),
-        "l"(reinterpret_cast<uint64_t>(nodes)), "r"(bytes), "r"(bar)
-        : "memory");
-  }
-  uint32_t ready = 0;
-  while (!ready) {
-    asm volatile(
-        "{\n .reg .pred P;\n mbarrier.try_wait.parity.shared::cta.b64 P, [%1], 0;\n"
-        " selp.u32 %0, 1, 0, P;\n}\n"
-        : "=r"(ready)
-        : "r"(bar)
-        : "memory");
-  }
-}
-
-// A wide node: from the block's staged top or device memory.
-__device__ __forceinline__ Line light_line(const LightShared& s, const float4* nodes, int n,
-                                           int n_top) {
-  if (n < n_top) return line_at(s.top + kLine * n);
-  return ldg_line(nodes + (long long)kLine * n);
-}
-
 // One warp's share of a batch of `b` lanes, as described at the top. Every
 // lane of the warp calls it.
 // * flag(i): does lane i sample (false beyond b is not asked);
@@ -270,7 +227,7 @@ __device__ __forceinline__ void walk_lights(const LightTree& T, LightShared& s, 
       }
     }
     if (node >= 0 && leaves == 0) {  // a visit
-      const Line c = light_line(s, T.nodes, node, n_top);
+      const Line c = node_line(s.top, T.nodes, node, n_top);
       next = -1;
 #pragma unroll
       for (int k = 0; k < 4; ++k) {

@@ -165,7 +165,7 @@ __global__ void __launch_bounds__(kBlock) sampler_many_kernel(SamplerParams p, L
                                                               int* tick) {
   __shared__ __align__(128) LightShared s;
   const int n_top = lights.n_nodes < kLightTop ? lights.n_nodes : kLightTop;
-  stage_light_top(s, lights.nodes, n_top);
+  stage_top(s.top, &s.bar, lights.nodes, n_top);
   const uint32_t seed = (uint32_t)__ldg(&p.seed_off[0]);
   const uint32_t wid_off = (uint32_t)__ldg(&p.seed_off[1]);
   const int n_comp = mixture_components(lights);

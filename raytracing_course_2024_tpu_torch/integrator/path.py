@@ -28,8 +28,7 @@ direction never contributes). Two routes compute it, picked by
   backend, the BVH walk K6 on the BVH backend), the shade pass N1a (the
   planes, ``surface_detail``, emission / background; ``ops/shade.py``),
   the mixture sampler (K3, ops/sampler.py, or its XLA formulation for
-  faithful acceptance, more than 32 lights and, on the CPU only,
-  ``TraceConfig.sampler="xla"``) and the finish pass N1b (the BRDF weight,
+  faithful acceptance) and the finish pass N1b (the BRDF weight,
   the delta rules, optional Russian roulette: ``_finish_bounce``); the last
   level runs N1a alone. This is the JAX package's ``trace_paths`` batch
   scan, whose element-wise work XLA fuses.
@@ -59,7 +58,6 @@ Work ids are 32-bit: ``render_batches`` refuses a frame whose
 from __future__ import annotations
 
 import logging
-import os
 from typing import NamedTuple
 
 import torch
@@ -93,38 +91,17 @@ class TraceConfig(NamedTuple):
     bg_color: tuple  # (r, g, b)
     max_tries: int = 4  # mixture rejection candidates
     backend: str = "dense"  # "dense" | "bvh"
-    # mixture sampler of the modular bounce: "auto" takes K3 up to 32
-    # lights, "pallas" always (unless faithful), "xla" the XLA formulation;
-    # "xla" also turns the fused path off, as in the JAX package, and is
-    # refused on a card (``check_sampler``)
-    sampler: str = "auto"
     faithful: bool = False  # reference-exact acceptance (modular path only)
     rr: bool = False  # Russian roulette (modular path only)
 
 
 def mega_gate(cfg: TraceConfig, statics: SceneStatics) -> bool:
     """Whether the fused-bounce path renders this configuration (the JAX
-    package's ``_mega_gate``); ``RT_MEGAKERNEL=0`` and ``sampler="xla"``
-    turn it off."""
+    package's ``_mega_gate``): the dense backend, neither faithful
+    acceptance nor roulette, and a scene inside the fused gate
+    (``ops/bounce.py:gate_reason``). Nothing else steers the route."""
     return (cfg.backend == "dense" and not cfg.faithful and not cfg.rr
-            and cfg.sampler in ("auto", "pallas")
-            and os.environ.get("RT_MEGAKERNEL", "1") != "0"
             and B.gate_reason(statics) is None)
-
-
-SAMPLERS = ("auto", "xla", "pallas")
-
-
-def check_sampler(cfg: TraceConfig, device) -> None:
-    """Refuses a ``cfg.sampler`` outside ``SAMPLERS``, and ``"xla"`` on a
-    CUDA device: there it would run K3's plain version (and the lane
-    engines' unfused core) in place of the kernels. On the CPU every wrapper
-    runs its plain version anyway, so ``"xla"`` only moves the route."""
-    if cfg.sampler not in SAMPLERS:
-        raise ValueError(f"sampler {cfg.sampler!r}: expected one of {SAMPLERS}")
-    if cfg.sampler == "xla" and torch.device(device).type == "cuda":
-        raise ValueError('sampler="xla" runs the plain sampler; on a card the modular bounce '
-                         'takes K3 ("auto" or "pallas")')
 
 
 # ---------------------------------------------------------------------------
@@ -134,8 +111,7 @@ def check_sampler(cfg: TraceConfig, device) -> None:
 
 def trace_sample(scene: B.BounceScene, state: torch.Tensor, seed, wid: torch.Tensor, wid_off,
                  px: torch.Tensor, py: torch.Tensor, cam_row: torch.Tensor, cfg: TraceConfig,
-                 width: int, height: int, plain: bool = False, cam: CameraArrays | None = None,
-                 mega_cam: bool | None = None):
+                 width: int, height: int, plain: bool = False, cam: CameraArrays | None = None):
     """One camera sample per lane through all depth levels of the fused path.
 
     ``state`` is a (13, B) buffer the kernels overwrite in place (the plain
@@ -144,32 +120,20 @@ def trace_sample(scene: B.BounceScene, state: torch.Tensor, seed, wid: torch.Ten
     bounce 0, then the lanes alive on entry to each later level. Through the
     kernels each level's launch adds its own count; the plain versions sum
     the alive row per level. ``seed`` and ``wid_off`` are ints or 0-dim
-    int64 tensors on the lanes' device, read there.
-
-    ``RT_MEGA_CAM=0`` (the JAX package's switch; ``mega_cam`` when given)
-    takes the fresh state from the camera stage (N4, ``camera_state``) and
-    runs bounce 0 in K1 instead of K2, from the same draws. ``cam`` is
-    ``cam_row`` unpacked on the host (a captured body passes its own:
-    unpacking reads the row back)."""
+    int64 tensors on the lanes' device, read there. ``cam`` is ``cam_row``
+    unpacked on the host (a captured body passes its own: unpacking reads
+    the row back)."""
     bg, k = cfg.bg_color, cfg.max_tries
     if cam is None:
         cam = camera_from_row(cam_row)
-    if mega_cam is None:
-        mega_cam = _mega_cam()
     if not plain:
         return _trace_sample_kernels(scene, state, seed, wid, wid_off, px, py, cam_row, cam,
-                                     cfg, width, height, mega_cam)
+                                     cfg, width, height)
     rays = torch.full((), px.shape[0], dtype=torch.int64, device=px.device)
     if cfg.ray_depth < 2:  # the final level only: camera rays, then K1 final_only
         st = camera_state_plain(seed, wid, wid_off, px, py, cam, width, height)
     else:
-        if mega_cam:
-            st = B.primary_plain(scene, cam_row, px, py, wid, wid_off, seed, bg, k, width,
-                                 height)
-        else:
-            st = B.bounce_plain(scene, camera_state_plain(seed, wid, wid_off, px, py, cam,
-                                                          width, height),
-                                wid, wid_off, seed, 0, bg, k)
+        st = B.primary_plain(scene, cam_row, px, py, wid, wid_off, seed, bg, k, width, height)
         for i in range(1, cfg.ray_depth - 1):
             rays += (st[12] > 0.5).sum()
             st = B.bounce_plain(scene, st, wid, wid_off, seed, i, bg, k)
@@ -179,31 +143,23 @@ def trace_sample(scene: B.BounceScene, state: torch.Tensor, seed, wid: torch.Ten
     return st, rays
 
 
-def _mega_cam() -> bool:
-    """Whether bounce 0 generates its camera rays in K2 (``RT_MEGA_CAM``,
-    on unless ``"0"``)."""
-    return os.environ.get("RT_MEGA_CAM", "1") != "0"
-
-
 def _trace_sample_kernels(scene, state, seed, wid, wid_off, px, py, cam_row, cam,
-                          cfg: TraceConfig, width: int, height: int, mega_cam: bool):
+                          cfg: TraceConfig, width: int, height: int):
     """``trace_sample`` through the wrappers of ``ops/bounce.py``: K2, then
     K1 per level, then K1 ``final_only``, in place in ``state``. K2 runs every
     lane; each later launch adds the lanes alive on its entry to ``rays``
-    (on the CPU the wrappers sum the alive row). Without ``mega_cam``
-    bounce 0 is K1 on the camera stage's fresh state, which N4 writes into
-    ``state``."""
+    (on the CPU the wrappers sum the alive row). At ``ray_depth`` 1 the
+    camera stage N4 writes the fresh state into ``state`` and only K1
+    ``final_only`` runs."""
     bg, k = cfg.bg_color, cfg.max_tries
-    if cfg.ray_depth >= 2 and mega_cam:
+    if cfg.ray_depth >= 2:
         st = B.primary_bounce(scene, cam_row, px, py, wid, wid_off, seed, bg, k, width, height,
                               out=state)
         rays = torch.full((), px.shape[0], dtype=torch.int64, device=px.device)
-        first = 1
-    else:  # camera rays, then K1 from bounce 0 on (or the final level alone)
+    else:  # camera rays, then the final level alone
         st = camera_state(seed, wid, wid_off, px, py, cam, cam_row, width, height, out=state)
         rays = torch.zeros((), dtype=torch.int64, device=px.device)
-        first = 0
-    for i in range(first, cfg.ray_depth - 1):
+    for i in range(1, cfg.ray_depth - 1):
         st = B.bounce(scene, st, wid, wid_off, seed, i, bg, k, out=st, count=rays)
     st = B.bounce(scene, st, wid, wid_off, seed, max(cfg.ray_depth - 1, 0), bg, k,
                   final_only=True, out=st, count=rays)
@@ -246,32 +202,25 @@ def _bounce(state: torch.Tensor, scene: ModularScene, cfg: TraceConfig, seed,
                                                cfg, bounce_i)
 
 
-def takes_k3(cfg: TraceConfig) -> bool:
-    """Whether the modular bounce samples in K3 (both engines): the fast
-    acceptance under "auto" or "pallas", whatever the light count (above
-    32 lights K3 walks the lights' own tree; ``ops/sampler.py``). Faithful
-    acceptance and "xla" (CPU only, ``check_sampler``) take the XLA
-    formulation, as in the JAX package, which takes it under "auto" above
-    32 lights too: there the port differs from it on purpose, since the
-    XLA formulation's (B, L) sweep is no route for a card."""
-    return not cfg.faithful and cfg.sampler in ("auto", "pallas")
-
-
 def sample_bounce(scene: ModularScene, cfg: TraceConfig, seed, wid: torch.Tensor, wid_off,
                   surf, need: torch.Tensor, plain: bool = False, bounce_i: int = 0,
                   depth: torch.Tensor | None = None):
     """The modular bounce's mixture sampler on N1a's surface ``surf``, for
     the batch route (the draws of level ``bounce_i``) and the lane engines'
-    rounds (``depth``: each lane's own depth in their layout): K3 where
-    ``takes_k3`` says so (its plain version on the CPU and with ``plain``),
-    else the XLA formulation. Returns (l, pdf, ok)."""
+    rounds (``depth``: each lane's own depth in their layout): K3 for the
+    fast acceptance, whatever the light count (above 32 lights K3 walks the
+    lights' own tree; ``ops/sampler.py``; its plain version on the CPU and
+    with ``plain``); for faithful acceptance the XLA formulation, as in the
+    JAX package. The JAX package also takes that formulation above 32
+    lights: the port differs on purpose, since its (B, L) sweep is no route
+    for a card. Returns (l, pdf, ok)."""
     k = cfg.max_tries
     ins = (*sampler_inputs(surf), need, k)
     if depth is None:
         ctr = batch_ctr(bounce_i * draws_per_bounce(k), k)
     else:
         ctr = lane_ctr(0, k)  # the kernel moves it WF_STRIDE per level of depth
-    if not plain and takes_k3(cfg):
+    if not plain and not cfg.faithful:
         return sample_mixture_kernel(scene, seed, wid, wid_off, ctr, *ins, depth)
     if depth is not None:
         ctr = ctr.at_depth(depth, WF_STRIDE)
@@ -324,8 +273,8 @@ class SampleBody:
     B) f32 radiance) and ``nrays`` (0-dim int64 path vertices) out. Each
     call works in the body's own (13, B) ``state``. On the fused route (a
     ``BounceScene``) a call runs ``trace_sample``: K2, K1 per level and K1
-    ``final_only`` (or the camera stage N4 and K1 under ``RT_MEGA_CAM=0``
-    and at ``ray_depth`` < 2, both read when the body is made), and adds
+    ``final_only`` (at ``ray_depth`` 1 the camera stage N4 and K1
+    ``final_only``), and adds
     its count to ``nrays``; on the modular route ``_modular_sample``: N4,
     then the levels, whose N1a launches add into ``nrays`` themselves. A
     call adds one sample to the sums and reads nothing from the host, so a
@@ -342,7 +291,6 @@ class SampleBody:
         self.cam_row = cam_row.clone()
         self.cam = camera_from_row(cam_row)
         self.fused = not isinstance(scene, ModularScene)
-        self.mega_cam = _mega_cam()
         self.seed_off = torch.zeros((2,), dtype=torch.int64, device=device)
         self.wid = torch.zeros((lanes,), dtype=torch.int32, device=device)
         self.px = torch.zeros((lanes,), dtype=torch.float32, device=device)
@@ -369,7 +317,7 @@ class SampleBody:
         if self.fused:
             st, rays = trace_sample(self.scene, self.state, seed, self.wid, wid_off, self.px,
                                     self.py, self.cam_row, self.cfg, self.width, self.height,
-                                    self.plain, self.cam, self.mega_cam)
+                                    self.plain, self.cam)
             rad = st[9:12]
             self.nrays += rays
         else:
@@ -393,11 +341,10 @@ def graphed_body(graphs, scene, key, make):
 def sample_body(scene, cam_row: torch.Tensor, cfg: TraceConfig, width: int, height: int,
                 lanes: int, plain: bool = False, graphs=None):
     """``(body, run)`` of ``lanes`` lanes of either route (``graphed_body``;
-    one cache entry per route, lanes, cfg, frame size and camera, and on the
-    fused route ``RT_MEGA_CAM``)."""
+    one cache entry per route, lanes, cfg, frame size and camera)."""
     fused = not isinstance(scene, ModularScene)
     key = ("batch", fused, lanes, cfg, width, height,
-           pack_camera_row(camera_from_row(cam_row)).tobytes(), fused and _mega_cam())
+           pack_camera_row(camera_from_row(cam_row)).tobytes())
     return graphed_body(graphs, scene, key, lambda: SampleBody(
         scene, cam_row, cfg, width, height, lanes, cam_row.device, plain))
 
@@ -475,7 +422,6 @@ def render_batches(scene, seed: int, cam_row: torch.Tensor, cfg: TraceConfig, wi
     b, replicas = plan_batches(batch_size, n_pix, samples)
     spp_r = samples // replicas
     dev = cam_row.device
-    check_sampler(cfg, dev)
     n_batches = -(-n_pix // b)
     outs = []
     nrays = torch.zeros((), dtype=torch.float64, device=dev)

@@ -4,8 +4,8 @@ The JAX package's ``integrator/wavefront.py``. One batch of lanes lives for
 the whole frame and each lane walks path after path, so the lanes stay busy
 when paths end at different depths:
 
-* ``render_wavefront`` (counter refill): when at least ``RT_WF_REFILL_FRAC``
-  (default 0.125) of the lanes are dead, their radiance is flushed and they
+* ``render_wavefront`` (counter refill): when at least ``REFILL_FRAC``
+  (1/8) of the lanes are dead, their radiance is flushed and they
   take the next work items, ranked by a cumulative sum; work item ``w`` is
   (pixel ``w % n_pix``, sample ``w // n_pix``). A work item finishes once,
   so the flush writes its radiance to a column of its own and the image is
@@ -24,15 +24,15 @@ the CPU, image for image.
 A bounce (``_make_bounce_core``) is either the fused core, K1 in lane mode
 (``ops/bounce.py``), when the scene is a ``BounceScene`` (the round's tail,
 N5, then caps the depth and parks the rays of the lanes left dead); or the
-XLA core on a ``ModularScene`` (roulette, faithful acceptance,
-``RT_MEGAKERNEL=0``, large scenes, the BVH backend): the
+XLA core on a ``ModularScene`` (roulette, faithful acceptance, large
+scenes, the BVH backend): the
 scene's nearest hit over the finite table (``ops/traverse.py:nearest_table``:
 K4 or the sweep, or the BVH walk K6), the shade pass N1a (the planes,
 ``surface_detail``, emission, and the final-depth rule), the mixture
 sampler on the layout's draws and the finish pass N1b (``_finish_bounce``
 with the layout's draws, then ``park``). The sampler is picked by the batch
 route's rule (``integrator/path.py:sample_bounce``): K3 in lane mode, or
-its XLA formulation for faithful acceptance and large light tables. On the
+its XLA formulation for faithful acceptance. On the
 card N1a, K3 and N1b are kernels; the JAX package's lane core samples in
 XLA, which fuses it.
 
@@ -70,7 +70,6 @@ still has work after a cap of rounds derived from its work and depth.
 
 from __future__ import annotations
 
-import os
 import threading
 
 import torch
@@ -87,7 +86,7 @@ from ..ops.traverse import nearest_table
 from ..ops.vec import Vec3
 from ..runtime.graphs import guard, settle
 from ..runtime.profiling import count, span
-from .path import TraceConfig, check_sampler, graphed_body, sample_bounce
+from .path import TraceConfig, graphed_body, sample_bounce
 
 
 def _scene_device(scene) -> torch.device:
@@ -134,7 +133,6 @@ def _make_bounce_core(cfg: TraceConfig, scene, seed, plain: bool = False):
     k, bg = cfg.max_tries, cfg.bg_color
     last = cfg.ray_depth - 1
     lane_ctr(0, k)  # refuses a max_tries whose draws overflow the counter block
-    check_sampler(cfg, _scene_device(scene))
     seed, wid_off = _lane_seed(seed)
 
     if isinstance(scene, B.BounceScene):
@@ -152,7 +150,7 @@ def _make_bounce_core(cfg: TraceConfig, scene, seed, plain: bool = False):
         t, idx = nearest_table(ro, rd, scene, plain=plain, live=state[12] > 0.5)
         # N1a: alive becomes "hit and depth < last", the final-depth rule
         st, surf, need = shade_fn(state, t, idx, scene, bg, depth=depth, last=last)
-        # K3 in lane mode, or its XLA formulation (``takes_k3``), as on the batch route
+        # K3 in lane mode, or its XLA formulation when faithful, as on the batch route
         l_s, pdf, ok = sample_bounce(scene, cfg, seed, wid, wid_off, surf, need, plain,
                                      depth=depth)
         # N1b in the lane layout parks the rays of the lanes it leaves dead
@@ -246,6 +244,10 @@ class RefillBody:
 # a loop is made; the cache keys hold it.
 ROUNDS_PER_REPLAY = 8
 
+# share of the lanes dead at which the counter wavefront refills them
+# (``refill_thresh``)
+REFILL_FRAC = 0.125
+
 # refills the counter wavefront has run (every pass and shard, eager or
 # replayed), from the device counters at the end of each pass; a caller may
 # set it to 0 and read it beside N2a's launches (ops/kernels.py:LAUNCHES["refill"])
@@ -321,11 +323,10 @@ WF_MAX_WORK = 1 << 25
 
 def refill_thresh(lanes: int) -> int:
     """Dead lanes at which the counter wavefront refills: rounds price the
-    full lane batch, so refilling at ``RT_WF_REFILL_FRAC`` (1/8) dead keeps
+    full lane batch, so refilling at ``REFILL_FRAC`` (1/8) dead keeps
     occupancy near 94 % at the cost of a rank, a flush and the camera math
     per refill (the JAX package's default)."""
-    frac = float(os.environ.get("RT_WF_REFILL_FRAC", "0.125"))
-    return max(int(lanes * frac), 1)
+    return max(int(lanes * REFILL_FRAC), 1)
 
 
 def wavefront_loop(cfg: TraceConfig, scene, cam: CameraArrays, width: int, height: int,
@@ -422,7 +423,7 @@ def render_wavefront(seed32: int, pix_base: int, samp_base: int, cam: CameraArra
     more than ``WF_MAX_WORK`` work items runs as passes of whole samples.
 
     A round is a refill (``RefillBody``, when at least
-    ``RT_WF_REFILL_FRAC`` of the lanes are dead), a bounce (``CoreBody``)
+    ``REFILL_FRAC`` of the lanes are dead), a bounce (``CoreBody``)
     and the round test, in a ``WavefrontLoop``; ``graphs`` (a graph cache of
     ``scene``) replays ``ROUNDS_PER_REPLAY`` guarded rounds as one captured
     graph, on either route. Rounds, refills and path vertices come from the

@@ -21,9 +21,11 @@ ms on the counter wavefront, 26.5-27.1 ms on the batch engine and
   ``integrator/wavefront.py`` on ``min(batch_size, pixels x spp)`` lanes;
   the sticky engine runs one K5 per round when the lanes cover the pixels.
 
-The fused or the modular route is picked as the JAX package picks it
-(``integrator.path.mega_gate``, which chooses the device scene the renderer
-builds). Every draw is keyed by (seed, sample, pixel) through the counter
+The fused or the modular route follows from the scene and the integrator's
+settings alone (``integrator.path.mega_gate``: the dense backend, no
+roulette, no faithful acceptance, a scene inside the fused gate), decided
+once, when the renderer is made: it chooses the device scene the renderer
+builds. Every draw is keyed by (seed, sample, pixel) through the counter
 RNG, so the image does not depend on the batch size, the replica count, the
 lane count or the mesh.
 

@@ -18,8 +18,7 @@ on the CPU.
   ``__float__``, ``__index__``, ``tolist``, ``numpy``, ``cpu``,
   ``nonzero`` and indexing by a boolean mask raise. The sample body, the
   wavefront core and refill and the sticky round run under it, on the
-  modular and on the fused route (``RT_MEGA_CAM=0`` and ``ray_depth`` 1
-  too), with the kernel entry points swapped for their plain twins, which
+  modular and on the fused route (``ray_depth`` 1 too), with the kernel entry points swapped for their plain twins, which
   run outside it: none reads the host, so a capture would not freeze a
   value or fail on a sync.
 * The cache: one entry per key, reused across seeds, samples, ``samp_base``
@@ -524,16 +523,14 @@ def test_bodies_read_nothing_from_the_host(guard, _capture_guards, scene_name, b
     assert not torch.equal(out, before)
 
 
-@pytest.mark.parametrize("variant", ["default", "mega-cam-off", "depth-1"])
+@pytest.mark.parametrize("variant", ["default", "depth-1"])
 @pytest.mark.parametrize("body_name", BODIES + ["k5-loop-round"])
-def test_fused_bodies_read_nothing_from_the_host(guard, _capture_guards, body_name, variant,
-                                                 monkeypatch):
+def test_fused_bodies_read_nothing_from_the_host(guard, _capture_guards, body_name, variant):
     """The same on the fused route (a ``BounceScene``: K2, K1, K1-final and
-    K1 in lane mode, swapped for their plain twins outside the guard):
-    under ``RT_MEGA_CAM=0`` and at ``ray_depth`` 1 too; and one guarded
-    round of the K5 loop (K5's plain twin outside the guard, then N5's
-    twin in its ``K5`` mode)."""
-    monkeypatch.setenv("RT_MEGA_CAM", "0" if variant == "mega-cam-off" else "1")
+    K1 in lane mode, swapped for their plain twins outside the guard): at
+    ``ray_depth`` 1 too (N4, then K1-final); and one guarded round of the
+    K5 loop (K5's plain twin outside the guard, then N5's twin in its
+    ``K5`` mode)."""
     (_, _, _), (d, ta, ts) = builds("mixed", 16, 12, 2)
     if variant == "depth-1":
         d.settings.ray_depth = 1

@@ -13,7 +13,7 @@ wavefront's refill body (``runtime/graphs.py``), on the CPU.
   equals the eager frame bit for bit: image, path vertices, rounds and
   launches (the fused wrappers count on the CPU here), for two seeds and a
   second ``samp_base``, with one capture per entry. Cases: the fused batch
-  route (K2; ``RT_MEGA_CAM=0``; ``ray_depth`` 1), the counter wavefront with
+  route (K2; ``ray_depth`` 1), the counter wavefront with
   its refill inside its guarded rounds on the fused and the modular route, the sticky engine
   on fewer lanes than pixels and on its K5 route. The first frame of each
   matches the JAX package at test_torch_graphs.py's tolerance (>= 99 % of
@@ -21,11 +21,9 @@ wavefront's refill body (``runtime/graphs.py``), on the CPU.
   against the JAX stages fed the same counter draws, the lane engines
   against the JAX Renderer with the same engine and lanes.
 * The cache: a second seed, ``samp_base`` or shard (``pix_base``) adds no
-  entry; ``RT_MEGA_CAM``, the lane count and the pass's pixels and samples
-  do.
+  entry; the cfg (its ``ray_depth``), the lane count and the pass's
+  pixels and samples do.
 """
-
-import os
 
 import numpy as np
 import pytest
@@ -160,23 +158,21 @@ def _same(a, b):
 
 
 W_, H_, SPP = 16, 12, 2
-# case -> (Renderer keywords, RT_MEGA_CAM, ray_depth, cache entries of a frame)
+# case -> (Renderer keywords, ray_depth, cache entries of a frame)
 CASES = {
-    "batch-fused": ({}, "1", None, 1),
-    "batch-fused-mega-cam-off": ({}, "0", None, 1),
-    "batch-fused-depth-1": ({}, "1", 1, 1),
-    "wavefront-fused": (dict(engine="wavefront", batch_size=64), "1", None, 1),
-    "wavefront-modular": (dict(engine="wavefront", batch_size=64, russian_roulette=True), "1",
-                          None, 1),
-    "sticky-fused-lanes-below-pixels": (dict(engine="sticky", batch_size=100), "1", None, 1),
-    "sticky-fused-k5": (dict(engine="sticky"), "1", None, 1),
+    "batch-fused": ({}, None, 1),
+    "batch-fused-depth-1": ({}, 1, 1),
+    "wavefront-fused": (dict(engine="wavefront", batch_size=64), None, 1),
+    "wavefront-modular": (dict(engine="wavefront", batch_size=64, russian_roulette=True), None,
+                          1),
+    "sticky-fused-lanes-below-pixels": (dict(engine="sticky", batch_size=100), None, 1),
+    "sticky-fused-k5": (dict(engine="sticky"), None, 1),
 }
 
 
 @pytest.mark.parametrize("case", list(CASES))
-def test_graphed_frames_match_jax_and_eager(case, counted, monkeypatch):
-    kw, mega_cam, depth, entries = CASES[case]
-    monkeypatch.setenv("RT_MEGA_CAM", mega_cam)
+def test_graphed_frames_match_jax_and_eager(case, counted):
+    kw, depth, entries = CASES[case]
     jd, td = descs("mixed", W_, H_, SPP)
     if depth is not None:
         jd.settings.ray_depth = td.settings.ray_depth = depth
@@ -211,10 +207,10 @@ def test_graphed_frames_match_jax_and_eager(case, counted, monkeypatch):
     assert abs(verts - want_verts) <= 0.01 * want_verts, (verts, want_verts)
 
 
-def test_cache_keys_fused_routes(counted, monkeypatch):
+def test_cache_keys_fused_routes(counted):
     """A second seed, ``samp_base`` and ``pix_base`` (a shard) reuse the
-    entries of a frame; ``RT_MEGA_CAM`` adds one to the batch route, the
-    pass's samples a counter-wavefront loop and a sticky loop."""
+    entries of a frame; another ``ray_depth`` adds one to the batch route,
+    the pass's samples a counter-wavefront loop and a sticky loop."""
     _, td = descs("mixed", W_, H_, SPP)
     for kw, n_first, n_new in (({}, 1, 2), (dict(engine="wavefront", batch_size=64), 1, 2),
                                (dict(engine="sticky", batch_size=100), 1, 2)):
@@ -226,13 +222,13 @@ def test_cache_keys_fused_routes(counted, monkeypatch):
             assert _same(_frame(r, seed, samp_base, cache, pix_base),
                          _frame(r, seed, samp_base, None, pix_base))
             assert len(cache.entries) == n_first, (kw, seed, samp_base, pix_base)
+        cfg = r.cfg
         if r.engine == "batch":
-            monkeypatch.setenv("RT_MEGA_CAM", "0")
+            r.cfg = cfg._replace(ray_depth=cfg.ray_depth - 1)
         else:
             r.settings.samples = 3
         assert _same(_frame(r, SEED, 0, cache), _frame(r, SEED, 0))
-        monkeypatch.delenv("RT_MEGA_CAM", raising=False)
-        r.settings.samples = SPP
+        r.cfg, r.settings.samples = cfg, SPP
         assert len(cache.entries) == len(stub.bodies) == n_new, kw
         if r.engine == "wavefront":  # one loop for each pass's samples
             assert sum(k[0] == "wavefront" for k in cache.entries) == 2
@@ -291,16 +287,3 @@ def test_renderer_frames_use_the_cache_on_both_routes(counted):
         got = r.render_frame_device(seed=SEED)
         assert torch.equal(torch.cat(got[0], 1), torch.cat(eager[0], 1)) and got[1] == eager[1]
         assert len(r.graphs.entries) == entries, kw
-
-
-@pytest.mark.skipif(os.environ.get("RT_MEGA_CAM") == "0", reason="reads RT_MEGA_CAM itself")
-def test_sample_body_reads_the_mega_cam_switch_when_made(monkeypatch):
-    """The fused sample body fixes ``RT_MEGA_CAM`` when it is made (its key
-    holds it), so a replay never follows a switch flipped later."""
-    scene, _, idx, cam, _, w, h = _fused_inputs()
-    cfg = P.TraceConfig(ray_depth=3, bg_color=(0.1, 0.1, 0.1))
-    body, _ = P.sample_body(scene, cam, cfg, w, h, w * h)
-    assert body.fused and body.mega_cam
-    monkeypatch.setenv("RT_MEGA_CAM", "0")
-    off, _ = P.sample_body(scene, cam, cfg, w, h, w * h)
-    assert not off.mega_cam

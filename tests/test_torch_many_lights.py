@@ -36,7 +36,6 @@ import numpy as np
 import pytest
 import torch
 
-from raytracing_course_2024_tpu_torch.integrator import path as P
 from raytracing_course_2024_tpu_torch.ops import kernels
 from raytracing_course_2024_tpu_torch.ops import rng as trng
 from raytracing_course_2024_tpu_torch.ops.bvh import (LEAF_BIT, WIDE, attach_bvh,
@@ -189,7 +188,6 @@ def test_few_lights_build_no_tree(built):
     _, statics, _ = built
     lp = np.zeros((LC.COUNT, 32), np.float32)
     assert build_light_tree(lp, statics._replace(num_lights=32)) is None
-    assert P.takes_k3(P.TraceConfig(ray_depth=6, bg_color=(0.0, 0.0, 0.0)))
 
 
 # --- on the card ------------------------------------------------------------------------

@@ -138,16 +138,19 @@ def test_render_pixels_modular_matches_jax_loop_with_roulette(name):
 
 
 @pytest.mark.parametrize("name", ["mixed", "cornell"])
-def test_fused_and_modular_routes_agree(name, monkeypatch):
-    """The same scene and seed with and without RT_MEGAKERNEL=0."""
+def test_fused_and_modular_routes_agree(name):
+    """The same scene and seed on the fused route (the Renderer's) and on
+    the modular route (a ``ModularScene`` of the same build, rendered by the
+    batch engine)."""
     _, td = descs(name, 32, 18, 4)
     fused = Renderer(td, device="cpu")
-    monkeypatch.setenv("RT_MEGAKERNEL", "0")
-    modular = Renderer(td, device="cpu")
-    assert fused.fused and not modular.fused
+    assert fused.fused
     a_out, a_verts = fused.render_frame_device(seed=3)
-    b_out, b_verts = modular.render_frame_device(seed=3)
-    a, b = fused._assemble(a_out), modular._assemble(b_out)
+    modular = modular_scene(fused.arrays, fused.statics, "cpu")
+    b_out, b_verts = P.render_batches(modular, (3 * 2654435761) & 0xFFFFFFFF, fused.cam_row,
+                                      fused.cfg, 32, 18, 4, fused.batch_size)
+    a, b = fused._assemble(a_out), fused._assemble(b_out)
+    b_verts = float(b_verts)
     assert np.isfinite(b).all() and b.max() > 0
     ok = (np.abs(a - b) <= 1e-3).all(axis=-1)
     assert ok.mean() >= 0.99, ok.mean()

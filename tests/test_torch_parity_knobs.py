@@ -1,18 +1,25 @@
-"""PyTorch port, the JAX package's integrator switches: ``TraceConfig.sampler``
-(``"auto" | "xla" | "pallas"``) and ``RT_MEGA_CAM=0``, on the CPU.
+"""PyTorch port, what picks the route and the sampler, on the CPU.
 
-* ``sampler``: ``"xla"`` turns the fused path off (``mega_gate``) and the
-  modular bounce takes the XLA formulation; ``"pallas"`` and ``"auto"``
-  take K3 unless acceptance is faithful, whatever the light count (above 32
-  lights K3 walks the lights' own tree; the JAX package's ``"auto"`` takes
-  its XLA formulation there). ``"xla"`` is refused on a CUDA device by both engine
-  families before they launch anything (``check_sampler``). The route is read from spies on the two sampler entry points
-  of ``integrator/path.py``. A Cornell frame on the ``"xla"`` sampler agrees
-  with the JAX ``Renderer``'s frame as ``test_torch_render.py``'s MIXED frame
-  does: channel means within 3 sigma of the difference of two estimates.
-* ``RT_MEGA_CAM=0``: bounce 0 runs in K1 on the camera stage's rays instead
-  of K2, from the same draws, so the frame equals the default frame within
-  1e-4 (through the wrappers and through the plain versions).
+* The route (fused or modular) follows from the scene and the integrator's
+  settings alone (``mega_gate``): the dense backend, no roulette, no
+  faithful acceptance and a scene inside the fused gate take the fused
+  route; every other combination the modular one. The truth table runs
+  backend x roulette x faithful x a scene inside the gate (MIXED) and one
+  outside it (41 lights, above K3's 32 unrolled), and holds ``mega_gate``,
+  ``Renderer.fused`` and the type of the renderer's device scene to it.
+* The modular core of every engine (the batch route, the counter wavefront,
+  the sticky engine) samples in K3 unless acceptance is faithful, whatever
+  the light count (above 32 lights K3 walks the lights' own tree; the JAX
+  package takes its XLA formulation there), and takes the XLA formulation
+  when it is. The route is read from spies on the two sampler entry points
+  of ``integrator/path.py``.
+* K2 (the camera ray and bounce 0 in one kernel) equals the camera stage N4
+  followed by K1 at bounce 0 on the same draws, through the wrappers and
+  through the plain versions: the lane engines still open a path with K1
+  on N4's rays, so the two agree.
+* A Cornell frame on the modular route agrees with the JAX ``Renderer``'s
+  frame as ``test_torch_render.py``'s MIXED frame does: channel means
+  within 3 sigma of the difference of two estimates.
 """
 
 import numpy as np
@@ -21,10 +28,12 @@ import torch
 
 from raytracing_course_2024_tpu.runtime.render import Renderer as JRenderer
 from raytracing_course_2024_tpu_torch.integrator import path as P
+from raytracing_course_2024_tpu_torch.integrator import wavefront as W
 from raytracing_course_2024_tpu_torch.ops import bounce as B
-from raytracing_course_2024_tpu_torch.ops.camera import camera_from_row
+from raytracing_course_2024_tpu_torch.ops.camera import (camera_from_row, camera_state,
+                                                         camera_state_plain)
 from raytracing_course_2024_tpu_torch.ops.sampling import UNROLL_MAX_LIGHTS
-from raytracing_course_2024_tpu_torch.ops.scene_intersect import modular_scene
+from raytracing_course_2024_tpu_torch.ops.scene_intersect import ModularScene, modular_scene
 from raytracing_course_2024_tpu_torch.runtime.render import Renderer
 from raytracing_course_2024_tpu_torch.scene import build_scene_arrays
 from meshes import icosphere, mesh_scene_desc
@@ -42,35 +51,35 @@ def _many_lights_desc():
     return desc
 
 
-@pytest.mark.parametrize("sampler,fused", [("auto", True), ("pallas", True), ("xla", False)])
-def test_sampler_gates_the_fused_path(sampler, fused):
-    _, td = descs("mixed", 8, 6, 1)
-    _, statics = build_scene_arrays(td)
-    cfg = P.TraceConfig(ray_depth=4, bg_color=(0.0, 0.0, 0.0), sampler=sampler)
-    assert P.mega_gate(cfg, statics) is fused
-    assert P.TraceConfig._fields.index("sampler") == P.TraceConfig._fields.index("backend") + 1
+def _desc(scene):
+    return _many_lights_desc() if scene == "many_lights" else descs(scene, 8, 6, 1)[1]
 
 
-@pytest.mark.parametrize("scene,sampler,faithful,want", [
-    ("mixed", "auto", False, ("kernel", None)),
-    ("mixed", "pallas", False, ("kernel", None)),
-    ("mixed", "xla", False, ("xla", False)),
-    ("mixed", "xla", True, ("xla", True)),
-    ("mixed", "pallas", True, ("xla", True)),
-    ("mixed", "auto", True, ("xla", True)),
-    ("many_lights", "auto", False, ("kernel", None)),
-    ("many_lights", "pallas", False, ("kernel", None)),
-])
-def test_modular_bounce_takes_the_sampler_asked_for(monkeypatch, scene, sampler, faithful,
-                                                    want):
-    """One depth-2 sample (one modular bounce) per case; every call of the
-    bounce goes to the sampler the JAX package's rule picks."""
-    if scene == "many_lights":
-        td = _many_lights_desc()
-    else:
-        _, td = descs(scene, 8, 6, 1)
+@pytest.mark.parametrize("scene", ["mixed", "many_lights"])
+@pytest.mark.parametrize("faithful", [False, True], ids=["fast", "faithful"])
+@pytest.mark.parametrize("rr", [False, True], ids=["no-rr", "rr"])
+@pytest.mark.parametrize("backend", ["dense", "bvh"])
+def test_route_follows_the_scene_and_settings(backend, rr, faithful, scene):
+    td = _desc(scene)
+    r = Renderer(td, device="cpu", backend=backend, russian_roulette=rr, faithful=faithful)
+    assert (r.statics.num_lights > UNROLL_MAX_LIGHTS) == (scene == "many_lights")
+    want = backend == "dense" and not rr and not faithful and scene == "mixed"
+    assert P.mega_gate(r.cfg, r.statics) is want
+    assert r.fused is want
+    assert isinstance(r.scene, B.BounceScene if want else ModularScene)
+    assert P.TraceConfig._fields == ("ray_depth", "bg_color", "max_tries", "backend",
+                                     "faithful", "rr")
+
+
+@pytest.mark.parametrize("faithful", [False, True], ids=["fast", "faithful"])
+@pytest.mark.parametrize("scene", ["mixed", "many_lights"])
+@pytest.mark.parametrize("engine", ["batch", "wavefront", "sticky"])
+def test_modular_core_takes_k3_unless_faithful(monkeypatch, engine, scene, faithful):
+    """A depth-2 frame (one modular bounce per path) on a ``ModularScene``;
+    every call of the sampler goes to K3 (its wrapper) unless acceptance is
+    faithful, and to the XLA formulation, faithful, when it is."""
+    td = _desc(scene)
     arrays, statics = build_scene_arrays(td)
-    assert (statics.num_lights > UNROLL_MAX_LIGHTS) == (scene == "many_lights")
     calls = []
     kernel, plain = P.sample_mixture_kernel, P.sampler_plain
     monkeypatch.setattr(P, "sample_mixture_kernel",
@@ -78,81 +87,65 @@ def test_modular_bounce_takes_the_sampler_asked_for(monkeypatch, scene, sampler,
     monkeypatch.setattr(P, "sampler_plain",
                         lambda *a, faithful: calls.append(("xla", faithful))
                         or plain(*a, faithful=faithful))
-    cfg = P.TraceConfig(ray_depth=2, bg_color=(0.1, 0.1, 0.1), sampler=sampler,
-                        faithful=faithful)
+    cfg = P.TraceConfig(ray_depth=2, bg_color=(0.1, 0.1, 0.1), faithful=faithful)
+    scn = modular_scene(arrays, statics, "cpu")
     r = Renderer(td, device="cpu")
-    out, rays = P.render_batches(modular_scene(arrays, statics, "cpu"), 7, r.cam_row, cfg,
-                                 8, 6, 1, 1 << 20)
-    assert calls == [want]
-    assert np.isfinite(out[0].numpy()).all() and 48 <= float(rays) <= 96
-
-
-@pytest.mark.parametrize("sampler,device,refused", [
-    ("xla", "cuda", True), ("xla", torch.device("cuda", 1), True), ("xla", "cpu", False),
-    ("auto", "cuda", False), ("pallas", "cuda", False), ("XLA", "cpu", True),
-])
-def test_check_sampler_refuses_xla_on_a_card(sampler, device, refused):
-    cfg = P.TraceConfig(ray_depth=4, bg_color=(0.0, 0.0, 0.0), sampler=sampler)
-    if refused:
-        with pytest.raises(ValueError, match="sampler"):
-            P.check_sampler(cfg, device)
+    w, h = td.settings.width, td.settings.height
+    if engine == "batch":
+        outs, rays = P.render_batches(scn, 7, r.cam_row, cfg, w, h, 1, 1 << 20)
+        out = torch.cat(outs, dim=1)
     else:
-        P.check_sampler(cfg, device)
+        render = W.render_wavefront if engine == "wavefront" else W.render_wavefront_sticky
+        out, rays, _ = render(7, 0, 0, r.cam, scn, cfg, w, h, w * h, 1, w * h)
+    want = ("xla", True) if faithful else ("kernel", None)
+    assert calls and set(calls) == {want}
+    assert np.isfinite(out.numpy()).all() and w * h <= float(rays) <= 2 * w * h
 
 
-@pytest.mark.parametrize("engine", ["batch", "wavefront", "sticky"])
-def test_every_engine_checks_the_sampler_on_its_device(monkeypatch, engine):
-    """Each engine asks ``check_sampler`` with its scene's device before it
-    renders; told the device is a card, ``"xla"`` raises there."""
-    from raytracing_course_2024_tpu_torch.integrator import wavefront as WF
-
-    seen, check = [], P.check_sampler
-
-    def as_card(cfg, device):
-        seen.append(torch.device(device).type)
-        check(cfg, "cuda")
-
-    monkeypatch.setattr(P, "check_sampler", as_card)
-    monkeypatch.setattr(WF, "check_sampler", as_card)
-    _, td = descs("mixed", 8, 6, 1)
-    r = Renderer(td, device="cpu", engine=engine)
-    r.render_radiance(seed=SEED)  # "auto": allowed on a card
-    assert seen and set(seen) == {"cpu"}
-    r.cfg = r.cfg._replace(sampler="xla")
-    with pytest.raises(ValueError, match='sampler="xla"'):
-        r.render_radiance(seed=SEED)
-
-
-def test_xla_sampler_frame_equals_k3_plain_frame_bit_for_bit():
-    """On the CPU, K3's wrapper runs its plain version, which is the XLA
-    formulation fed the same draws: the two routes give the same frame."""
-    _, td = descs("cornell", 24, 16, 2)
+@pytest.mark.parametrize("name", ["mixed", "cornell"])
+@pytest.mark.parametrize("plain", [False, True], ids=["wrappers", "plain"])
+def test_k2_equals_camera_stage_then_k1_at_bounce_0(name, plain):
+    """K2 against N4 then K1 at bounce 0, on every pixel of a 24x16 frame
+    at its second sample: the states within 1e-4, the same lanes alive, and
+    both counting every lane as a path vertex of bounce 0."""
+    _, td = descs(name, 24, 16, 2)
     arrays, statics = build_scene_arrays(td)
-    scene = modular_scene(arrays, statics, "cpu")
+    scene = B.bounce_scene(arrays, statics, "cpu")
     cam_row = Renderer(td, device="cpu").cam_row
-    frames = []
-    for sampler in ("auto", "xla"):
-        cfg = P.TraceConfig(ray_depth=td.settings.ray_depth,
-                            bg_color=tuple(td.settings.bg_color), sampler=sampler)
-        outs, rays = P.render_batches(scene, 9, cam_row, cfg, 24, 16, 2, 1 << 20)
-        frames.append((torch.cat(outs, dim=1).numpy(), float(rays)))
-    np.testing.assert_array_equal(frames[0][0], frames[1][0])
-    assert frames[0][1] == frames[1][1] > 0
+    cam = camera_from_row(cam_row)
+    w, h = td.settings.width, td.settings.height
+    bg, k = tuple(td.settings.bg_color), 4
+    wid = torch.arange(w * h, dtype=torch.int32)
+    px, py = (wid % w).float(), (wid // w).float()
+    seed, off = (SEED * 2654435761) & 0xFFFFFFFF, w * h
+    if plain:
+        k2 = B.primary_plain(scene, cam_row, px, py, wid, off, seed, bg, k, w, h)
+        fresh = camera_state_plain(seed, wid, off, px, py, cam, w, h)
+        count = (fresh[12] > 0.5).sum()
+        k1 = B.bounce_plain(scene, fresh, wid, off, seed, 0, bg, k)
+    else:
+        k2 = B.primary_bounce(scene, cam_row, px, py, wid, off, seed, bg, k, w, h)
+        fresh = camera_state(seed, wid, off, px, py, cam, cam_row, w, h)
+        count = torch.zeros((), dtype=torch.int64)
+        k1 = B.bounce(scene, fresh, wid, off, seed, 0, bg, k, count=count)
+    assert int(count) == w * h
+    assert torch.equal(k2[12] > 0.5, k1[12] > 0.5) and 0 < int((k2[12] > 0.5).sum()) < w * h
+    np.testing.assert_allclose(k1.numpy(), k2.numpy(), rtol=0, atol=1e-4)
 
 
 def test_cornell_xla_sampler_frame_matches_jax_renderer_statistically():
-    """Cornell, 32x18 x 32 spp: the port's modular route on the ``"xla"``
-    sampler against the JAX ``Renderer`` (on the CPU its XLA path with
-    threefry draws): per-channel frame means within 3 sigma, sigma the
-    standard error of a frame mean from the port's per-pixel sample
-    variance, times sqrt(2) for the difference of two estimates."""
+    """Cornell, 32x18 x 32 spp: the port's modular route on a
+    ``ModularScene`` (on the CPU K3's wrapper runs its plain version, the
+    XLA formulation fed the counter draws) against the JAX ``Renderer`` (on
+    the CPU its XLA path with threefry draws): per-channel frame means
+    within 3 sigma, sigma the standard error of a frame mean from the port's
+    per-pixel sample variance, times sqrt(2) for the difference of two
+    estimates."""
     w, h, spp = 32, 18, 32
     jd, td = descs("cornell", w, h, spp)
     want = JRenderer(jd, max_tries=4).render_radiance(seed=SEED, samples=spp)
     arrays, statics = build_scene_arrays(td)
-    cfg = P.TraceConfig(ray_depth=td.settings.ray_depth, bg_color=tuple(td.settings.bg_color),
-                        sampler="xla")
-    assert not P.mega_gate(cfg, statics)
+    cfg = P.TraceConfig(ray_depth=td.settings.ray_depth, bg_color=tuple(td.settings.bg_color))
     scene = modular_scene(arrays, statics, "cpu")
     cam = camera_from_row(Renderer(td, device="cpu").cam_row)
     idx = torch.arange(w * h, dtype=torch.int32)
@@ -166,27 +159,3 @@ def test_cornell_xla_sampler_frame_matches_jax_renderer_statistically():
     diff = np.abs(got.mean(axis=1) - want.mean(axis=(0, 1)))
     assert want.shape == (h, w, 3) and np.isfinite(got).all() and (sigma > 0).all()
     assert (diff < 3.0 * np.sqrt(2.0) * sigma).all(), (diff, sigma)
-
-
-@pytest.mark.parametrize("name", ["mixed", "cornell"])
-@pytest.mark.parametrize("plain", [False, True], ids=["wrappers", "plain"])
-def test_mega_cam_off_frame_equals_the_default_frame(monkeypatch, name, plain):
-    """``RT_MEGA_CAM=0``: no K2, bounce 0 in K1 (one more K1 per sample),
-    the same frame within 1e-4 and the same path vertices."""
-    _, td = descs(name, 24, 16, 2)
-    r = Renderer(td, device="cpu", plain=plain)
-    assert r.fused
-    base, base_stats = r.render_radiance(seed=SEED, with_stats=True)
-    calls = {"primary": 0, "bounce": 0}
-    if not plain:
-        for fn_name, key in (("primary_bounce", "primary"), ("bounce", "bounce")):
-            fn = getattr(B, fn_name)
-            monkeypatch.setattr(B, fn_name, lambda *a, _fn=fn, _k=key, **k: calls.__setitem__(
-                _k, calls[_k] + 1) or _fn(*a, **k))
-    monkeypatch.setenv("RT_MEGA_CAM", "0")
-    got, stats = r.render_radiance(seed=SEED, with_stats=True)
-    np.testing.assert_allclose(got, base, rtol=0, atol=1e-4)
-    assert stats.path_vertices == base_stats.path_vertices
-    if not plain:  # one batch; each replica lane renders 2 / replicas samples
-        _, replicas = r._plan(24 * 16, 2)
-        assert calls == {"primary": 0, "bounce": 2 // replicas * td.settings.ray_depth}

@@ -19,10 +19,9 @@ from raytracing_course_2024_tpu_torch.ops.bounce import bounce_scene, build_geo_
 from raytracing_course_2024_tpu_torch.ops.camera import camera_arrays, pack_camera_row
 from raytracing_course_2024_tpu_torch.runtime import image_io as t_io
 from raytracing_course_2024_tpu_torch.ops.scene_intersect import modular_scene
-from raytracing_course_2024_tpu_torch.scene.device import scene_from_jax
 from raytracing_course_2024_tpu.scene import build_scene_arrays as j_build
 from meshes import icosphere, mesh_scene_desc
-from torch_parity import REPO, SCENES, builds, to_jnp
+from torch_parity import REPO, SCENES, builds, scene_from_jax, to_jnp
 
 
 def _same(a, b):
@@ -108,7 +107,6 @@ def test_port_never_imports_jax_or_triton():
     code = (
         "import sys, raytracing_course_2024_tpu_torch as p\n"
         "import raytracing_course_2024_tpu_torch.runtime.cli\n"
-        "import raytracing_course_2024_tpu_torch.scene.device\n"
         "import raytracing_course_2024_tpu_torch.ops.kernels\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'triton', 'raytracing_course_2024_tpu')]\n"

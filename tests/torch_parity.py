@@ -16,6 +16,8 @@ import torch
 
 import raytracing_course_2024_tpu.scene as jscene
 import raytracing_course_2024_tpu_torch.scene as tscene
+from raytracing_course_2024_tpu_torch.ops.bounce import bounce_scene, gate_reason
+from raytracing_course_2024_tpu_torch.ops.scene_intersect import modular_scene
 from __graft_entry__ import _FALLBACK_SCENE
 from meshes import icosphere, mesh_scene_desc
 from test_megakernel import MIXED_SCENE
@@ -102,6 +104,24 @@ def builds(name, w=None, h=None, spp=None):
     ja, js = jscene.build_scene_arrays(jd)
     ta, ts = tscene.build_scene_arrays(td)
     return (jd, ja, js), (td, ta, ts)
+
+
+def scene_from_jax(arrays, statics, device):
+    """The port's device scenes and statics from the JAX package's host
+    build (its ``SceneArrays`` of numpy arrays and its ``SceneStatics``, as
+    ``raytracing_course_2024_tpu.scene.build_scene_arrays`` returns them),
+    read field by field, so a test can run both packages on the identical
+    scene: ``(BounceScene or None outside the fused gate, ModularScene,
+    SceneStatics)``."""
+    if arrays.bvh is not None:
+        raise ValueError("the JAX package's treelet arrays have no port counterpart: build the "
+                         "port's tree from the unreordered arrays (ops/bvh.py:attach_bvh)")
+    port_arrays = tscene.SceneArrays(**{k: None if v is None else np.asarray(v)
+                                        for k, v in arrays._asdict().items()})
+    port_statics = tscene.SceneStatics(**statics._asdict())
+    fused = (None if gate_reason(port_statics)
+             else bounce_scene(port_arrays, port_statics, device))
+    return fused, modular_scene(port_arrays, port_statics, device), port_statics
 
 
 def to_jnp(arrays):
