@@ -2706,8 +2706,10 @@ def axis_rays(gen: np.random.Generator, scene, n: int, dev):
     from raytracing_course_2024_tpu_torch.ops.vec import Vec3
 
     nodes = scene.bvh_nodes.cpu().numpy()
-    planes = np.concatenate([nodes[:, 0:12].reshape(-1, 3, 4).transpose(0, 2, 1).reshape(-1, 3),
-                             nodes[:, 12:24].reshape(-1, 3, 4).transpose(0, 2, 1).reshape(-1, 3)])
+    used = ((nodes[:, 24:28].view(np.int32) >= 0) | (nodes[:, 28:32].view(np.int32) > 0)).ravel()
+    box_lo = nodes[:, 0:12].reshape(-1, 3, 4).transpose(0, 2, 1).reshape(-1, 3)
+    box_hi = nodes[:, 12:24].reshape(-1, 3, 4).transpose(0, 2, 1).reshape(-1, 3)
+    planes = np.concatenate([box_lo[used], box_hi[used]])  # empty slots' boxes lie at +inf
     axis = gen.integers(0, 3, n)
     d = np.zeros((n, 3), np.float32)
     d[np.arange(n), axis] = gen.choice([-1.0, 1.0], n)
@@ -3703,8 +3705,9 @@ def bvh_launch_times(r, gpu: str, states: dict, reps: int = 20, label: str = "ti
     internal nodes and primitive tests per ray give K6's work for the bound
     (each binary node and record read once, each ray's 24 B and flag read
     and its 8 B written once), and the wide walk's wide nodes, child boxes
-    and primitive tests per ray are printed beside them. Returns name ->
-    dict(ms, and with ``models`` bound and counts)."""
+    and primitive tests per ray are printed beside them, with the share of
+    the wide visits that K6's staged top serves. Returns name -> dict(ms,
+    and with ``models`` bound and counts)."""
     from raytracing_course_2024_tpu_torch.ops.traverse import bvh_nearest
     from raytracing_course_2024_tpu_torch.ops.vec import Vec3
 
@@ -3728,7 +3731,7 @@ def bvh_launch_times(r, gpu: str, states: dict, reps: int = 20, label: str = "ti
         tk, ik = bvh_nearest(ro, rd, scene, live=alive)
         ro_s, rd_s = Vec3(*(c[sel] for c in ro)), Vec3(*(c[sel] for c in rd))
         live_s = alive[sel]
-        t_w, i_w, visits, boxes, tests_w = walk_reference(ro_s, rd_s, scene, live=live_s)
+        t_w, i_w, visits, boxes, tests_w, top = walk_reference(ro_s, rd_s, scene, live=live_s)
         nodes2 = torch.from_numpy(build_bvh_nodes(r.arrays.bvh)).to(r.device)
         t_b, i_b, inner, leaves, tests = walk_binary(ro_s, rd_s, scene, nodes2)
         same = bool(torch.equal(t_w, tk[sel]) and torch.equal(i_w, ik[sel]))
@@ -3739,14 +3742,16 @@ def bvh_launch_times(r, gpu: str, states: dict, reps: int = 20, label: str = "ti
         per_ray = {k: float(v[live_s].double().mean()) for k, v in
                    (("internal_nodes", inner), ("leaves", leaves), ("prim_tests", tests),
                     ("wide_nodes", visits), ("wide_boxes", boxes), ("wide_prim_tests", tests_w))}
+        top_share = float(top[live_s].sum() / visits[live_s].sum())
         ops = live * (per_ray["internal_nodes"] * OPS_NODE_K6 + per_ray["prim_tests"] * OPS_PRIM_K6)
         nbytes = n * (1 + 8) + live * 24 + (nodes2.numel() + scene.bvh_rec.numel()) * 4
         b_ms, b_by = bound(nbytes, ops)
-        out[name].update(bound=(b_ms, b_by), **per_ray)
+        out[name].update(bound=(b_ms, b_by), top_share=top_share, **per_ray)
         say(label, kernel="bvh", state=name, lanes=n, active_in=round(live / n, 4),
             ms=round(ms, 4), **{k: round(v, 4) for k, v in stats.items()},
             **{f"{k}_per_ray": round(v, 3) for k, v in per_ray.items()},
-            bound_ms=round(b_ms, 5), bound_by=b_by, share=round(b_ms / ms, 4),
+            wide_top_share=round(top_share, 4), bound_ms=round(b_ms, 5), bound_by=b_by,
+            share=round(b_ms / ms, 4),
             clocks=f'"{clocks_line()}"', gpu=f'"{gpu}"')
     return out
 

@@ -7,7 +7,18 @@
 // float4: its four children's boxes as structure of arrays (lo.x[4] lo.y[4]
 // lo.z[4] hi.x[4] hi.y[4] hi.z[4]), four child words (a wide node's index; a
 // leaf as its first row | kLeafBit; an empty slot kLeafBit with count 0) and
-// four counts (a leaf's rows).
+// four counts (a leaf's rows). An empty slot's box is +inf on all six bounds,
+// so box_entry misses it (every slab is +-inf, none NaN): K6 tests it as any
+// other box, K3 skips it by its count.
+//
+// What a read costs: K6's lanes read different nodes, so each 16-byte load
+// of a line costs about one shared-memory or L1 wavefront a lane. On an H100
+// that is not what sets K6's time (PERF.md, PR 27): halving the loads of a
+// visit with a 64-byte quantized node, or laying the staged top out free of
+// bank conflicts, did not make it faster, while each instruction a visit
+// issues did cost. So K6 reads a line through one generic pointer
+// (line_ptr), which issues each load once for a warp whose lanes read from
+// both memories, where node_line's two branches issue both sets.
 
 #pragma once
 
@@ -81,6 +92,15 @@ __device__ __forceinline__ Line node_line(const float4* top, const float4* nodes
                                           int n_top) {
   if (n < n_top) return line_at(top + kLine * n);
   return ldg_line(nodes + (long long)kLine * n);
+}
+
+// A generic pointer to wide node n's line: into the block's staged top (its
+// first n_top nodes, in shared memory) or device memory. Loads through it
+// take one instruction for the warp wherever each lane's line lies, where
+// node_line's two branches issue both sets for a warp that reads from both.
+__device__ __forceinline__ const float4* line_ptr(const float4* top, const float4* nodes, int n,
+                                                  int n_top) {
+  return n < n_top ? top + kLine * n : nodes + (long long)kLine * n;
 }
 
 // Entry distance of the ray into the box, or INFINITY where the slab

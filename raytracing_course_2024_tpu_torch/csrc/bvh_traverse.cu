@@ -19,20 +19,26 @@
 // 128-byte line, eight float4: its four children's boxes as structure of
 // arrays (lo.x[4] lo.y[4] lo.z[4] hi.x[4] hi.y[4] hi.z[4]), four child words
 // (a wide node's index; a leaf as first row | the top bit; an empty slot as
-// the top bit with count 0) and four counts (a leaf's rows). Leaves are the
+// the top bit with count 0) and four counts (a leaf's rows). An empty slot's
+// box is +inf on all six bounds: each of its slabs is +-inf (never NaN: the
+// origin is finite), so the box test misses it like any box the ray does
+// not meet, and a visit needs no test of the slot. Leaves are the
 // binary tree's (at most a few rows, contiguous in table order); primitive
 // records are three float4 in that order (ops/bvh.py:build_bvh_records). At
 // 81,920 triangles that is ~14k lines (1.8 MB) and 3.9 MB of records, well
 // inside the 50 MB L2. The line and its box test live in bvh_node.cuh, which
 // K3's walk of the lights' own tree (light_tree.cuh) shares.
 //
-// The walk, one ray per thread. A visit is eight independent 16-byte loads
-// from one line, four slab tests against [tmin, best] and a 4-element
+// The walk, one ray per thread. A visit is seven independent 16-byte loads
+// of one line (the boxes and the child words, through one generic pointer
+// into shared or device memory, so a warp whose lanes read both issues
+// them once), four slab tests against [tmin, best] and a 4-element
 // sorting network of integer min/max on keys that pack each child's entry
 // distance and its slot into 32 bits (slot_key). The entered internal children are
 // pushed farthest first and the nearest is kept; the entered leaves are
 // tested at once, nearest first, each while its entry is still <= best (a
-// leaf's count lives in the parent's line, so a leaf is never pushed); then
+// leaf's count lives in the parent's line, read when its leaves are tested,
+// so a leaf is never pushed); then
 // the kept child is entered if its entry is still <= best, else the stack is
 // popped until an entry is <= best. So a pop loads only the node it goes to.
 // The result does not depend on the order: a box is entered when its entry is
@@ -71,15 +77,23 @@
 // internal node and 54 per primitive tested: a camera ray of the
 // 81,920-triangle scene visits ~12 internal nodes and tests ~3.5 primitives,
 // ~800 operations, so the operations are far above the bytes (the bound is
-// ~0.011 ms for 921,600 rays). The wide walk visits ~6.3 wide nodes per
-// camera ray (7.4 on bounce-1 rays) and tests as many boxes and primitives
-// as the binary one; a visit is ~110 fp32 operations (four slab tests of
-// 25, the network, the checks). Neither peak sets the time: a visit waits on
-// its line (L2, or shared memory at the top), and the lanes of a warp visit
-// different nodes (divergent 16-byte loads, one L1 wavefront per lane) and
-// do different work (visits, leaf tests, pops). Timed on an H100 (PERF.md),
-// the wide nodes alone were slower than the binary walk; the postponed
-// leaf tests and the refill are what brought the bounce rays below it.
+// ~0.011 ms for 921,600 rays), and K6 runs at 4-5 % of it. The wide walk
+// visits ~6.7 wide nodes per camera ray (8.6 on bounce-1 rays); a visit is
+// ~250 instructions a lane (96 of them the slab tests, the rest the keys,
+// the network, the pushes and the pops), a primitive test ~120 with its
+// record's loads. Neither peak sets the time, nor the bytes a visit reads:
+// the lanes of a warp visit different nodes and do different work (visits,
+// leaf tests, pops), so the warp issues each path's instructions for a few
+// lanes at a time, and the instructions a warp issues per visit set K6's
+// time. Timed on an H100 (PERF.md, PR 27): a 64-byte quantized node (four
+// loads a visit in place of eight, ~50 more instructions to decode its
+// boxes) made K6 10-12 % slower whatever part of the tree was staged (21,
+// 85 or 341 nodes, laid out by node or by field); a staged top free of bank
+// conflicts moved it by under 1 %; taking out the empty-slot test, the
+// +inf case of the key and one of the two predicated copies of the loads
+// made it 2-6 % faster. The wide nodes alone were slower than the binary
+// walk; the postponed leaf tests and the refill are what brought the
+// bounce rays below it.
 
 #include "bvh_node.cuh"
 #include "common.cuh"
@@ -115,13 +129,14 @@ struct BvhShared {
 
 // A child's sort key: its entry distance's bits with the slot in the low two
 // (t >= 0, so the bits order as t does; the slot makes keys unique and the
-// order of equal entries the slot order), or kMiss | slot where the ray does
-// not enter it. Dropping t's two low bits lowers it by at most 3 ulp, which
-// only lets a box in a little earlier: the walk compares that t with the best.
+// order of equal entries the slot order). A box the ray does not enter has
+// t = +inf, whose bits are kMiss, so its key is kMiss | slot. Dropping t's
+// two low bits lowers it by at most 3 ulp, which only lets a box in a little
+// earlier: the walk compares that t with the best.
 constexpr unsigned kMiss = 0x7f800000u;  // the bits of +inf: no entered key reaches it
 
 __device__ __forceinline__ unsigned slot_key(float t, unsigned slot) {
-  return t == INFINITY ? 0xfffffffcu | slot : (__float_as_uint(t) & 0x7ffffffcu) | slot;
+  return (__float_as_uint(t) & 0x7ffffffcu) | slot;
 }
 
 __device__ __forceinline__ float key_t(unsigned key) { return __uint_as_float(key & ~3u); }
@@ -228,7 +243,7 @@ __device__ __forceinline__ void walk_warp(const BvhParams& p, BvhShared& s, int 
     }
   };
   bool held = false;  // leaves entered at the last visit wait for the warp
-  int w0 = 0, w1 = 0, w2 = 0, w3 = 0, c0 = 0, c1 = 0, c2 = 0, c3 = 0;
+  int w0 = 0, w1 = 0, w2 = 0, w3 = 0;
   unsigned k[4] = {0u, 0u, 0u, 0u};
   for (;;) {
     const unsigned ended = __ballot_sync(FULL, node < 0);
@@ -257,24 +272,16 @@ __device__ __forceinline__ void walk_warp(const BvhParams& p, BvhShared& s, int 
       }
     }
     if (node >= 0 && !held) {  // a visit
-      const Line l = node_line(s.top, p.nodes, node, n_top);
-      w0 = __float_as_int(l.w.x), w1 = __float_as_int(l.w.y);
-      w2 = __float_as_int(l.w.z), w3 = __float_as_int(l.w.w);
-      c0 = __float_as_int(l.c.x), c1 = __float_as_int(l.c.y);
-      c2 = __float_as_int(l.c.z), c3 = __float_as_int(l.c.w);
-      const float t0 =
-          box_entry(l.lx.x, l.ly.x, l.lz.x, l.hx.x, l.hy.x, l.hz.x, ro, inv, tmin, best_t);
-      const float t1 =
-          box_entry(l.lx.y, l.ly.y, l.lz.y, l.hx.y, l.hy.y, l.hz.y, ro, inv, tmin, best_t);
-      const float t2 =
-          box_entry(l.lx.z, l.ly.z, l.lz.z, l.hx.z, l.hy.z, l.hz.z, ro, inv, tmin, best_t);
-      const float t3 =
-          box_entry(l.lx.w, l.ly.w, l.lz.w, l.hx.w, l.hy.w, l.hz.w, ro, inv, tmin, best_t);
-      // empty slots (the leaf bit, count 0) are never entered
-      k[0] = slot_key(w0 < 0 && c0 == 0 ? INFINITY : t0, 0u);
-      k[1] = slot_key(w1 < 0 && c1 == 0 ? INFINITY : t1, 1u);
-      k[2] = slot_key(w2 < 0 && c2 == 0 ? INFINITY : t2, 2u);
-      k[3] = slot_key(w3 < 0 && c3 == 0 ? INFINITY : t3, 3u);
+      const float4* ln = line_ptr(s.top, p.nodes, node, n_top);
+      const float4 lx = ln[0], ly = ln[1], lz = ln[2], hx = ln[3], hy = ln[4], hz = ln[5];
+      const float4 wd = ln[6];
+      w0 = __float_as_int(wd.x), w1 = __float_as_int(wd.y);
+      w2 = __float_as_int(wd.z), w3 = __float_as_int(wd.w);
+      // an empty slot's box lies at +inf: its key is a miss like any other
+      k[0] = slot_key(box_entry(lx.x, ly.x, lz.x, hx.x, hy.x, hz.x, ro, inv, tmin, best_t), 0u);
+      k[1] = slot_key(box_entry(lx.y, ly.y, lz.y, hx.y, hy.y, hz.y, ro, inv, tmin, best_t), 1u);
+      k[2] = slot_key(box_entry(lx.z, ly.z, lz.z, hx.z, hy.z, hz.z, ro, inv, tmin, best_t), 2u);
+      k[3] = slot_key(box_entry(lx.w, ly.w, lz.w, hx.w, hy.w, hz.w, ro, inv, tmin, best_t), 3u);
       order(k[0], k[1]);
       order(k[2], k[3]);
       order(k[0], k[2]);
@@ -298,7 +305,9 @@ __device__ __forceinline__ void walk_warp(const BvhParams& p, BvhShared& s, int 
     const bool test_now = __popc(__ballot_sync(FULL, node >= 0 && !held)) <= kLeafWait;
     if (held && test_now) {
       // entered leaves, nearest first, while their entry is <= best: the
-      // keys shift down one at a time, so the test has one call site
+      // keys shift down one at a time, so the test has one call site; the
+      // counts from the visited node's line (node still names it)
+      const float4 c = line_ptr(s.top, p.nodes, node, n_top)[7];
       int row = 0, end = 0;
 #pragma unroll 1
       for (;;) {
@@ -318,7 +327,7 @@ __device__ __forceinline__ void walk_warp(const BvhParams& p, BvhShared& s, int 
         const int w = pick(slot, w0, w1, w2, w3);
         if (w < 0 && key_t(k[0]) <= best_t) {
           row = (int)((unsigned)w & ~kLeafBit);
-          end = row + pick(slot, c0, c1, c2, c3);
+          end = row + __float_as_int(pick(slot, c.x, c.y, c.z, c.w));
         }
         k[0] = k[1], k[1] = k[2], k[2] = k[3], k[3] = 0xffffffffu;
       }

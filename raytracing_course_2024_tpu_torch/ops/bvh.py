@@ -15,6 +15,15 @@ same tree from the same boxes:
 The C++ builder (``native/``) makes the same construction faster on 100k+
 primitives; numpy is the fallback and the oracle.
 
+K6 walks a 4-wide tree collapsed from the binary one (``build_bvh4_nodes``):
+one 128-byte line a node, its children's boxes bit for bit the binary
+nodes' boxes, so the walk finds the sweep's hit bit for bit. An empty
+slot's box is +inf on every bound: the slab test misses it like any box
+the ray does not meet, so K6 spends no test on the slot. A 64-byte node
+with the boxes quantized to bytes halves the bytes a visit reads, but K6
+is not bound by them on an H100: the decode's instructions made it slower
+(PERF.md, PR 27).
+
 ``build_light_tree`` builds a second tree of the same rule over the
 lights alone, for K3's light pdf above 32 lights (``csrc/light_tree.cuh``):
 the reference's all-hits walk of its light BVH (SURVEY.md: ``bvh.rs``
@@ -55,6 +64,7 @@ AABB_EPS = 1e-4  # pad, reference src/aabb.rs:53-65 pads by EPS
 BVH_STACK = 64
 WIDE = 4  # children per node of K6's tree
 WIDE_STACK = (WIDE - 1) * BVH_STACK
+WIDE_TOP = 85  # K6's wide nodes staged in shared memory: 1 + 4 + 16 + 64 (kTop)
 LEAF_BIT = np.int32(-(2**31))  # a leaf's word carries it (both node layouts)
 NODE_FLOATS = 8  # one node of the binary layout (the walk model's yardstick): two float4
 WIDE_FLOATS = 32  # one node of K6's 4-wide layout: 128 bytes, one cache line
@@ -410,7 +420,9 @@ def build_bvh4_nodes(bvh) -> Bvh4:
     hi.z[4]`` (bit for bit the binary nodes' boxes), then 4 int32 child
     words stored bit for bit in the float slots (a wide node's index; a leaf
     as its first row | ``LEAF_BIT``; an empty slot ``LEAF_BIT`` with count
-    0), then 4 int32 counts (a leaf's rows, else 0). Leaves are exactly the
+    0), then 4 int32 counts (a leaf's rows, else 0). An empty slot's box is
+    +inf on every bound: every slab of it lies at +-inf, so no ray enters it
+    and K6 needs no test of the slot. Leaves are exactly the
     binary tree's, so the table order stays. ``stack``: the most, over
     root-to-leaf paths, of sum(children - 1) along the path: the walk pushes
     at most children - 1 entries per wide node it goes through."""
@@ -440,8 +452,8 @@ def build_bvh4_nodes(bvh) -> Bvh4:
     c = np.where(used, child, 0)
     nodes = np.zeros((w, WIDE_FLOATS), np.float32)
     for axis in range(3):
-        nodes[:, 4 * axis:4 * axis + 4] = np.where(used, nmin[c, axis], 0.0)
-        nodes[:, 12 + 4 * axis:16 + 4 * axis] = np.where(used, nmax[c, axis], 0.0)
+        nodes[:, 4 * axis:4 * axis + 4] = np.where(used, nmin[c, axis], np.inf)
+        nodes[:, 12 + 4 * axis:16 + 4 * axis] = np.where(used, nmax[c, axis], np.inf)
     is_leaf = used & leaf[c]
     words = np.where(is_leaf, left[c].astype(np.int32) | LEAF_BIT,
                      np.where(used, sub, LEAF_BIT)).astype(np.int32)

@@ -27,7 +27,8 @@ the sweep's, since ``attach_bvh`` put the table in the tree's order.
 * ``nearest_hit``: ``nearest_table``, then ``fold_hit``.
 * ``walk_reference``: K6's walk of the 4-wide tree, node for node, in
   PyTorch over a batch of rays in lockstep: the same hits, and how many
-  wide nodes, child boxes and primitives each ray visits.
+  wide nodes (and of them in K6's staged top), child boxes and primitives
+  each ray visits.
 * ``walk_binary``: the same for a walk of the binary tree (K6's first
   design): the work that K6's bound is counted from, so that its share of
   the bound stays comparable across designs.
@@ -43,7 +44,7 @@ from __future__ import annotations
 import torch
 
 from .bounce import REC_FLOATS
-from .bvh import BVH_STACK, WIDE, WIDE_FLOATS, WIDE_STACK
+from .bvh import BVH_STACK, WIDE, WIDE_FLOATS, WIDE_STACK, WIDE_TOP
 from .dense_nearest import dense_nearest, dense_nearest_plain
 from .kernels import check, launch_bvh_nearest
 from .scene_intersect import (
@@ -207,7 +208,7 @@ class _Walk:
 
 
 def walk_reference(ro: Vec3, rd: Vec3, scene: ModularScene, tmin: float = 0.0,
-                   live: torch.Tensor | None = None):
+                   live: torch.Tensor | None = None, n_top: int = WIDE_TOP):
     """K6's walk of the 4-wide tree modelled in PyTorch, every ray a wide
     node at a time in lockstep, node for node as the kernel walks: the four
     children's boxes tested against [tmin, best], the entered ones sorted
@@ -217,31 +218,34 @@ def walk_reference(ro: Vec3, rd: Vec3, scene: ModularScene, tmin: float = 0.0,
     order of entry while their entry is still <= best, then the kept child
     entered if its entry is still <= best, else a pop. A lane whose ``live``
     flag is False walks nothing and gets (inf, 0). Returns (t, row, wide
-    nodes visited, child boxes tested, primitives tested) per ray. Slow (one
-    step of every ray per Python iteration): it counts the work of a sample
-    of rays, and holds the walk against the sweep."""
+    nodes visited, child boxes tested, primitives tested, visits to the
+    first ``n_top`` nodes, the ones K6 reads from shared memory) per ray.
+    Slow (one step of every ray per Python iteration): it counts the work
+    of a sample of rays, and holds the walk against the sweep."""
     nodes = scene.bvh_nodes
     words = nodes[:, 24:32].contiguous().view(torch.int32)
     w = _Walk(ro, rd, scene, tmin, WIDE_STACK, live)
     inf = float("inf")
     visits = torch.zeros_like(w.sp)
     boxes = torch.zeros_like(w.sp)
+    top = torch.zeros_like(w.sp)
     while bool(w.go.any()):
         act = torch.nonzero(w.go).squeeze(1)
         line, wd = nodes[w.node[act]], words[w.node[act]].long()
         word, cnt = wd[:, :WIDE], wd[:, WIDE:]
         valid = (word >= 0) | (cnt > 0)
         visits[act] += 1
+        top[act] += w.node[act] < n_top
         boxes[act] += valid.sum(1)
         lo = Vec3(line[:, 0:4], line[:, 4:8], line[:, 8:12])
         hi = Vec3(line[:, 12:16], line[:, 16:20], line[:, 20:24])
+        # an empty slot's box lies at +inf (build_bvh4_nodes): never entered
         t = _box_entry(lo, hi, _col(_sel(ro, act)), _col(_sel(w.inv, act)), tmin,
-                       w.best_t[act][:, None])
-        t = torch.where(valid, t, inf).contiguous()
-        # the kernel's sort keys (slot_key): t's bits, two low bits the slot
+                       w.best_t[act][:, None]).contiguous()
+        # the kernel's sort keys (slot_key): t's bits, two low bits the slot;
+        # a miss (inf) keys kMiss | slot
         slot = torch.arange(WIDE, device=t.device)
-        bits = (t.view(torch.int32).long() & 0x7FFFFFFC) | slot
-        key = torch.where(t == inf, 0xFFFFFFFC | slot, bits).sort(dim=1).values
+        key = ((t.view(torch.int32).long() & 0x7FFFFFFC) | slot).sort(dim=1).values
         kt = (key & 0x7FFFFFFC).to(torch.int32).view(torch.float32)
         entered = key < 0x7F800000
         ws, cs = word.gather(1, key & 3), cnt.gather(1, key & 3)
@@ -258,7 +262,7 @@ def walk_reference(ro: Vec3, rd: Vec3, scene: ModularScene, tmin: float = 0.0,
         enter = (nxt >= 0) & (t_nxt <= w.best_t[act])
         w.node[act[enter]] = nxt[enter]
         w.pop(act[~enter])
-    return w.best_t, w.best_i.to(torch.int32), visits, boxes, w.tests
+    return w.best_t, w.best_i.to(torch.int32), visits, boxes, w.tests, top
 
 
 def walk_binary(ro: Vec3, rd: Vec3, scene: ModularScene, nodes: torch.Tensor,

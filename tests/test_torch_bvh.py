@@ -264,9 +264,10 @@ def test_nearest_hit_matches_jax_treelet(case):
     # K6's walk of the 4-wide tree, modelled node for node, and the binary
     # walk of the yardstick both find the sweep's hit bit for bit
     t_s, i_s = bvh_nearest_plain(ro, rd, scene)
-    t_w, i_w, visits, boxes, tests = walk_reference(ro, rd, scene)
+    t_w, i_w, visits, boxes, tests, top = walk_reference(ro, rd, scene)
     assert torch.equal(t_w, t_s) and torch.equal(i_w, i_s)
     assert (boxes[torch.isfinite(t_s)] > 0).all() and (tests >= 0).all()
+    assert (top <= visits).all() and (top[torch.isfinite(t_s)] > 0).all()
     assert tests.sum() < 0.25 * b * ta.ptype.shape[0]  # the walk prunes
     nodes = torch.from_numpy(tbvh.build_bvh_nodes(tarr.bvh))
     t_b, i_b, inner, leaves, tests_b = walk_binary(ro, rd, scene, nodes)

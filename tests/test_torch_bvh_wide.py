@@ -3,7 +3,8 @@
 * ``build_bvh4_nodes``: on a triangle soup, a 5,120-triangle mesh and a soup
   of rotated boxes, ellipsoids and triangles with planes, the leaf ranges
   are the binary tree's and cover every row once, each child box is bit for
-  bit the binary node's box it stands for, nodes are 128-byte rows in
+  bit the binary node's box it stands for, an empty slot's box is +inf,
+  nodes are 128-byte rows in
   breadth-first order, and the stack bound equals a brute force over the
   root-to-leaf paths.
 * ``walk_reference`` (K6's walk, node for node) equals the sweep bit for
@@ -12,6 +13,8 @@
   with and without a live mask; on duplicate triangles (the lowest row
   wins), rays that start inside boxes and axis-parallel rays (infinite
   ``inv``, NaN slabs).
+* Empty slots, whose boxes lie at +inf, miss every ray; the walk counts
+  its visits to K6's staged top.
 * Two binary trees of depth ``BVH_STACK`` built directly, a chain and the
   shape whose wide walk pushes 3 entries per binary level: their stack
   bounds are exact, K6's stack takes both, and the walk equals the sweep on
@@ -37,6 +40,7 @@ from raytracing_course_2024_tpu_torch.ops.scene_intersect import (
     modular_scene,
 )
 from raytracing_course_2024_tpu_torch.ops.traverse import (
+    _box_entry,
     bvh_nearest_plain,
     check_stack,
     walk_reference,
@@ -128,9 +132,11 @@ def _check_layout(bvh):
     assert rlo.tobytes() == nmin[0].tobytes() and rhi.tobytes() == nmax[0].tobytes()
     # breadth-first: the internal slots, read row by row, name 1, 2, 3, ...
     assert np.array_equal(words[words >= 0], np.arange(1, nodes.shape[0]))
-    # empty slots: the leaf bit, count 0, zero boxes, packed after the used ones
+    # empty slots: the leaf bit, count 0, boxes at +inf, packed after the used ones
     assert not (used[:, 1:] & ~used[:, :-1]).any()
-    assert (words[~used] == np.int32(tbvh.LEAF_BIT)).all() and (lo[~used] == 0).all()
+    assert (words[~used] == np.int32(tbvh.LEAF_BIT)).all() and (counts[~used] == 0).all()
+    assert np.isposinf(lo[~used]).all() and np.isposinf(hi[~used]).all()
+    assert np.isfinite(lo[used]).all() and np.isfinite(hi[used]).all()
     assert wide.stack == _paths_brute(nodes)
     return wide
 
@@ -174,13 +180,14 @@ def test_wide_walk_matches_sweep_and_jax_treelet(name):
     b = 1536
     o, d = _rays(rng, b, *((-0.9, 0.9) if name == "mesh" else (-8, 8)))
     ro, rd = _torch_rays(o, d)
-    t_w, i_w, visits, boxes, tests = _walk_equals_sweep(ro, rd, scene)
+    t_w, i_w, visits, boxes, tests, top = _walk_equals_sweep(ro, rd, scene)
     live = torch.from_numpy(rng.uniform(size=b) < 0.6)
     t_m, i_m, *_ = _walk_equals_sweep(ro, rd, scene, live=live)
     assert torch.equal(t_m[live], t_w[live]) and torch.isinf(t_m[~live]).all()
     assert (i_m[~live] == 0).all()
     hit = torch.isfinite(t_w)
     assert (visits[hit] > 0).all() and (boxes >= visits).all() and (boxes <= 4 * visits).all()
+    assert (top <= visits).all() and (top[hit] > 0).all()  # a walk starts at the root
     assert (tests[hit] > 0).all() and tests.sum() < 0.25 * b * ta.ptype.shape[0]
 
     # against the JAX treelet: the planes folded in as nearest_hit does
@@ -248,8 +255,9 @@ def test_wide_walk_on_axis_parallel_rays():
     origins on box planes (a slab product 0 * inf = NaN)."""
     tarr, scene = _mesh_scene()
     rng = np.random.default_rng(10)
-    lo, hi, _, _ = _split(scene.bvh_nodes.numpy())
-    planes = np.concatenate([lo.reshape(-1, 3), hi.reshape(-1, 3)])
+    lo, hi, words, counts = _split(scene.bvh_nodes.numpy())
+    used = (words >= 0) | (counts > 0)
+    planes = np.concatenate([lo[used], hi[used]])
     b = 1200
     axis = rng.integers(0, 3, b)
     d = np.zeros((b, 3), np.float32)
@@ -365,3 +373,69 @@ def test_trees_of_the_deepest_depth_fit_the_wide_stack(which):
     ro, rd = _torch_rays(o, d)
     t, *_ = _walk_equals_sweep(ro, rd, scene)
     assert torch.isfinite(t).float().mean() > 0.3
+
+
+# --- empty slots and the staged top --------------------------------------------
+
+SCENES = NAMES + ["mesh3"]
+
+
+def _scene(name):
+    """The modular scene of a ``NAMES`` fixture or of the ``_mesh_scene`` mesh."""
+    if name in NAMES:
+        _, td = _desc(name)
+        ta, ts = tbuild(td)
+        tarr, _ = tbvh.attach_bvh(ta, ts)
+        return modular_scene(tarr, ts, "cpu")
+    return _mesh_scene()[1]
+
+
+@pytest.mark.parametrize("name", SCENES)
+def test_empty_slots_miss_every_ray(name):
+    """K6 tests an empty slot's box as any other (no check of the slot): its
+    bounds at +inf give every slab +-inf, never NaN, so the box test misses
+    on random directions, on directions along one or two axes (an infinite
+    ``inv``, of either sign) and on origins inside and outside the scene,
+    whatever tmin and the best so far."""
+    scene = _scene(name)
+    lo, hi, words, counts = _split(scene.bvh_nodes.numpy())
+    empty = (words < 0) & (counts == 0)
+    assert empty.any()
+    rng = np.random.default_rng(14)
+    b = 2048
+    o, d = _rays(rng, b, -8, 8)
+    axis = rng.integers(0, 3, b // 2)
+    d[: b // 2] = 0.0
+    d[np.arange(b // 2), axis] = rng.choice([-1.0, 1.0], b // 2)
+    d[: b // 4, (axis[: b // 4] + 1) % 3] = rng.choice([-0.6, 0.6, -0.0], b // 4)
+    inv = 1.0 / torch.from_numpy(d.astype(np.float32))
+    ro = torch.from_numpy(o.astype(np.float32))
+    e_lo = torch.from_numpy(lo[empty][None])  # (1, E, 3)
+    e_hi = torch.from_numpy(hi[empty][None])
+    for tmin, limit in ((0.0, float("inf")), (1e-3, float("inf")), (0.0, 5.0)):
+        t = _box_entry(Vec3(e_lo[..., 0], e_lo[..., 1], e_lo[..., 2]),
+                       Vec3(e_hi[..., 0], e_hi[..., 1], e_hi[..., 2]),
+                       Vec3(*(ro[:, i, None] for i in range(3))),
+                       Vec3(*(inv[:, i, None] for i in range(3))), tmin,
+                       torch.full((b, 1), limit))
+        assert torch.isposinf(t).all()
+
+
+@pytest.mark.parametrize("name", SCENES)
+def test_walk_counts_the_visits_to_the_staged_top(name):
+    """``walk_reference``'s sixth output: the visits to the first ``n_top``
+    nodes. At most the visits, one (the root) a walked ray at ``n_top`` 1,
+    all of them once ``n_top`` spans the table, and K6's ``kTop`` by
+    default."""
+    scene = _scene(name)
+    rng = np.random.default_rng(15)
+    o, d = _rays(rng, 512, *((-1.2, 1.2) if name.startswith("mesh") else (-8, 8)))
+    ro, rd = _torch_rays(o, d)
+    live = torch.from_numpy(rng.uniform(size=512) < 0.7)
+    _, _, visits, _, _, top = walk_reference(ro, rd, scene, live=live)
+    assert (top <= visits).all() and (visits[live] > 0).all() and (top[~live] == 0).all()
+    assert torch.equal(walk_reference(ro, rd, scene, live=live, n_top=1)[5], (visits > 0).long())
+    every = walk_reference(ro, rd, scene, live=live, n_top=scene.bvh_nodes.shape[0])[5]
+    assert torch.equal(every, visits)
+    assert tbvh.WIDE_TOP == 85 and torch.equal(
+        walk_reference(ro, rd, scene, live=live, n_top=85)[5], top)
